@@ -1,0 +1,70 @@
+"""`.m` model file writer.
+
+Byte-compatible with the reference converter (converter/writer.py:92-148):
+header is int32 KV pairs after (magic, headerSize); tensors follow in the
+fixed plan order, each stored flat row-major in the requested float type.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import BinaryIO
+
+import numpy as np
+
+from .quants import FloatType, quantize_q40, quantize_q80
+
+# key name -> int key, mirroring converter/writer.py:110-133
+HEADER_KEYS = {
+    "version": 0,
+    "arch_type": 1,
+    "dim": 2,
+    "hidden_dim": 3,
+    "n_layers": 4,
+    "n_heads": 5,
+    "n_kv_heads": 6,
+    "n_experts": 7,
+    "n_active_experts": 8,
+    "vocab_size": 9,
+    "max_seq_len": 10,
+    "hidden_act": 11,
+    "rope_theta": 12,
+    "weights_float_type": 13,
+    "rope_scaling_factor": 14,
+    "rope_scaling_low_freq_factor": 15,
+    "rope_scaling_high_freq_factory": 16,
+    "rope_scaling_orig_max_seq_len": 17,
+    "rope_type": 18,
+    "head_dim": 19,
+    "norm_epsilon": 20,
+    "moe_hidden_dim": 21,
+}
+
+
+def write_header(f: BinaryIO, params: dict[str, int]) -> None:
+    """Write the `.m` header (reference: converter/writer.py:109-148)."""
+    data = b""
+    for key, value in params.items():
+        if key not in HEADER_KEYS:
+            raise ValueError(f"unknown header key: {key}")
+        data += struct.pack("<ii", HEADER_KEYS[key], int(value))
+    f.write(struct.pack("<ii", 0x0A00ABCD, 8 + len(data)))
+    f.write(data)
+
+
+def write_tensor(f: BinaryIO, tensor: np.ndarray, float_type: FloatType) -> int:
+    """Write one tensor flat row-major; returns bytes written."""
+    flat = np.ascontiguousarray(tensor, dtype=np.float32).reshape(-1)
+    ft = FloatType(float_type)
+    if ft == FloatType.F32:
+        raw = flat.tobytes()
+    elif ft == FloatType.F16:
+        raw = flat.astype(np.float16).tobytes()
+    elif ft == FloatType.Q40:
+        raw = quantize_q40(flat).tobytes()
+    elif ft == FloatType.Q80:
+        raw = quantize_q80(flat).tobytes()
+    else:
+        raise ValueError(f"unsupported float type: {ft}")
+    f.write(raw)
+    return len(raw)

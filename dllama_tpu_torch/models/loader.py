@@ -1,0 +1,89 @@
+"""Load `.m` weights into the port's params (one device, no mesh).
+
+Counterpart of dllama_tpu/models/loader.py ``load_params``. Tensors are
+read one at a time off the file's memmap (reference: loadLlmNetWeight,
+src/llm.cpp:614-669). For ``weight_format="q40"`` the packed Q40 bytes go
+to the device as they are and are unpacked there with torch ops
+(`q40_unpack`), so the host never expands the ~7.5 G weights of an 8B
+model; the unpack is held against the numpy ``q40_to_planar``. Like the
+JAX loader, the file is consumed as-is (the converter pre-permutes llama
+q/k rows for interleaved RoPE).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..formats.model_file import LlmArch, ModelReader
+from ..formats.quants import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, FloatType
+from ..ops.quant_matmul import QuantWeight
+from ..ops.torch_ops import rope_cache
+from .transformer import Params
+
+_MATMULS = {"wq": "q", "wk": "k", "wv": "v", "wo": "wo", "w1": "w1", "w2": "w2", "w3": "w3"}
+
+
+def q40_unpack(raw: torch.Tensor, out_dim: int, in_dim: int) -> QuantWeight:
+    """Packed Q40 bytes (uint8, any device) of an [out, in] tensor ->
+    QuantWeight(q int8 [out, in] in [-8, 7], d f16 [out, in/32]), on the
+    bytes' device. Block layout: f16 scale, then 16 bytes whose low nibble
+    is element j and high nibble element j + 16 (formats/quants.py)."""
+    blocks = raw.reshape(-1, Q40_BLOCK_BYTES)
+    d = blocks[:, :2].contiguous().view(torch.float16).reshape(out_dim, in_dim // Q40_BLOCK_SIZE)
+    packed = blocks[:, 2:]
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    q = torch.cat([lo, hi], dim=1).reshape(out_dim, in_dim)
+    return QuantWeight(q.contiguous(), d.contiguous())
+
+
+def load_params(
+    reader: ModelReader,
+    dtype=torch.float32,
+    device=None,
+    weight_format: str = "dense",
+) -> Params:
+    """Params for `models.transformer.forward`. ``dtype`` is the activation
+    dtype (embedding and dense weights); norm weights and the rope tables
+    stay f32. ``weight_format="q40"`` keeps matmul weights Q40 on the device
+    (needs a Q40 file); ``"dense"`` dequantizes them to ``dtype``. The
+    device defaults to ``cuda``."""
+    device = resolve_device(device)
+    h = reader.header
+    if weight_format not in ("dense", "q40"):
+        raise ValueError(f"weight_format must be 'dense' or 'q40', got {weight_format!r}")
+    if weight_format == "q40" and h.weight_type != FloatType.Q40:
+        raise ValueError(f"weight_format='q40' needs a Q40 model file, got {h.weight_type.name}")
+    if h.arch == LlmArch.QWEN3_MOE:
+        raise NotImplementedError("Qwen3-MoE is not ported yet")
+
+    def f32(name: str) -> torch.Tensor:
+        return torch.from_numpy(reader.dense_f32(name)).to(device)
+
+    def matmul_weight(name: str):
+        if weight_format == "q40":
+            out_dim, in_dim = reader.by_name[name].shape
+            raw = torch.from_numpy(np.array(reader.raw(name))).to(device)
+            return q40_unpack(raw, out_dim, in_dim)
+        return f32(name).to(dtype)  # [out, in]
+
+    layers = []
+    for l in range(h.n_layers):
+        lp = {key: matmul_weight(f"layers.{l}.{part}") for key, part in _MATMULS.items()}
+        lp["att_norm"] = f32(f"layers.{l}.att_norm")
+        lp["ffn_norm"] = f32(f"layers.{l}.ffn_norm")
+        if h.arch == LlmArch.QWEN3:
+            lp["q_norm"] = f32(f"layers.{l}.q_norm")
+            lp["k_norm"] = f32(f"layers.{l}.k_norm")
+        layers.append(lp)
+    cos, sin = rope_cache(h, device=device)
+    return {
+        "embed": f32("embed").to(dtype),
+        "wcls": matmul_weight("wcls"),
+        "final_norm": f32("final_norm"),
+        "rope_cos": cos,
+        "rope_sin": sin,
+        "layers": layers,
+    }

@@ -1,0 +1,129 @@
+"""Decoder forward pass for Llama / Qwen3 (dense FFN) in PyTorch.
+
+Counterpart of dllama_tpu/models/transformer.py for one device. The layer
+walk is the same (reference: src/llm.cpp:263-557):
+
+    x += wo(attn(rope(q), rope(k), v))  over rms_norm(x), [qk-norm for Qwen3]
+    x += w2(act(w1(y)) * w3(y))          over y = rms_norm(x)
+    logits = rms_norm(x) @ wcls
+
+with a Python loop over layers in place of ``lax.scan``. Params are a dict:
+``embed`` [V, D], ``wcls``, ``final_norm``, ``rope_cos``/``rope_sin``
+[S, hd/2] f32, and ``layers``, a list of per-layer dicts. Matmul weights
+are ``QuantWeight`` (q40, the CUDA kernel on the card) or dense [out, in]
+tensors. The KV cache is head-major, [L, B, KH, S, hd], and is updated in
+place (JAX returns a new cache; the port writes the rows where they go).
+
+Attention: chunks of T > 1 go through the prefill stats kernel, T = 1
+through the decode kernel, which reads rows 0..pos only — so the port
+needs no attention windows. ``plain=True`` runs the plain PyTorch version
+of every kernel instead, on any device: the on-card reference the kernel
+path is held against; the engine never sets it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..device import resolve_device
+from ..formats.model_file import HiddenAct, LlmArch, LlmHeader, RopeType
+from ..ops.flash_attention import (
+    flash_attention,
+    flash_attention_ref,
+    flash_decode,
+    flash_decode_ref,
+)
+from ..ops.quant_matmul import QuantWeight, qmatmul, qmatmul_ref
+from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
+
+Params = Dict[str, Any]
+KvCache = Dict[str, torch.Tensor]
+
+
+def init_kv_cache(
+    h: LlmHeader, batch_size: int, dtype=torch.float32, seq_len: int | None = None, device=None
+) -> KvCache:
+    """Zeroed head-major KV cache [L, B, KH, S, hd] on ``device`` (default
+    ``cuda``; reference: per-layer k/v buffers, src/llm.cpp:260-261)."""
+    device = resolve_device(device)
+    shape = (h.n_layers, batch_size, h.n_kv_heads, seq_len or h.seq_len, h.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _mm(x: torch.Tensor, w, plain: bool) -> torch.Tensor:
+    """x [..., in] @ W -> [..., out] in x's dtype: the Q40 kernel for
+    QuantWeight leaves, a dense product for [out, in] tensors."""
+    if isinstance(w, QuantWeight):
+        return (qmatmul_ref if plain else qmatmul)(x, w).to(x.dtype)
+    return torch.matmul(x, w.transpose(-1, -2))
+
+
+def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain=False):
+    """Final norm + vocab matmul, f32 logits (reference: src/llm.cpp:560-599).
+    ``logits_mode="last"`` computes the last chunk row only."""
+    if logits_mode not in ("all", "last"):
+        raise ValueError(f"unknown logits_mode: {logits_mode!r}")
+    if logits_mode == "last":
+        x = x[:, -1:, :]
+    y = rms_norm(x, params["final_norm"], h.norm_epsilon)
+    wcls = params["wcls"]
+    if isinstance(wcls, QuantWeight):
+        return (qmatmul_ref if plain else qmatmul)(y, wcls)
+    return torch.matmul(y.float(), wcls.float().transpose(-1, -2))
+
+
+def forward(
+    params: Params,
+    h: LlmHeader,
+    tokens: torch.Tensor,  # [B, T] int
+    pos: int,  # absolute position of tokens[:, 0]
+    cache: KvCache,
+    logits_mode: str = "all",
+    plain: bool = False,
+):
+    """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
+    are written in place. Returns (logits [B, T or 1, V] f32, cache)."""
+    b, t = tokens.shape
+    s = cache["k"].shape[3]
+    if pos < 0 or pos + t > s:
+        # a write past the cache would drop rows; fail loudly instead
+        raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s} rows")
+    interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
+    act = silu if h.hidden_act == HiddenAct.SILU else gelu
+    is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
+    if h.arch == LlmArch.QWEN3_MOE:
+        raise NotImplementedError("Qwen3-MoE is not ported yet")
+    attend = (flash_decode_ref if plain else flash_decode) if t == 1 else (
+        flash_attention_ref if plain else flash_attention
+    )
+    hq, hkv, hd = h.n_heads, h.n_kv_heads, h.head_dim
+
+    x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
+    cos = params["rope_cos"][pos : pos + t]
+    sin = params["rope_sin"][pos : pos + t]
+    for l, lp in enumerate(params["layers"]):
+        y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
+        q = _mm(y, lp["wq"], plain).reshape(b, t, hq, hd)
+        k = _mm(y, lp["wk"], plain).reshape(b, t, hkv, hd)
+        v = _mm(y, lp["wv"], plain).reshape(b, t, hkv, hd)
+        if is_qwen3:
+            q = qk_rms_norm(q, lp["q_norm"], h.norm_epsilon)
+            k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
+        q = apply_rope(q, cos, sin, interleaved)
+        k = apply_rope(k, cos, sin, interleaved)
+        k_cache, v_cache = cache["k"][l], cache["v"][l]  # [B, KH, S, hd] views
+        k_cache[:, :, pos : pos + t] = k.transpose(1, 2).to(k_cache.dtype)
+        v_cache[:, :, pos : pos + t] = v.transpose(1, 2).to(v_cache.dtype)
+        z = attend(q, k_cache, v_cache, pos).reshape(b, t, hq * hd)
+        x = x + _mm(z, lp["wo"], plain).to(x.dtype)
+
+        y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
+        d = act(_mm(y, lp["w1"], plain))
+        u = _mm(y, lp["w3"], plain)
+        x = x + _mm(d * u.to(d.dtype), lp["w2"], plain).to(x.dtype)
+    return logits_head(x, params, h, logits_mode, plain), cache

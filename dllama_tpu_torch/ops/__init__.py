@@ -1,0 +1,22 @@
+"""Model ops: plain torch (torch_ops) and the CUDA kernel wrappers.
+
+`KERNELS` lists the wrappers whose ``.launches`` counts show that a run went
+through the hand-written kernels."""
+
+from .flash_attention import flash_attention_stats, flash_decode
+from .quant_matmul import qmatmul
+
+KERNELS = {
+    "q40_matmul": qmatmul,
+    "flash_attention_stats": flash_attention_stats,
+    "flash_decode": flash_decode,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}

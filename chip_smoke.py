@@ -22,7 +22,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    weight-read bound per token.
 4. End-to-end parity: one prefill and one decode step through the kernel
    path and through the plain path (``forward(..., plain=True)``) on the
-   same weights: logits' normalized error and top-1 agreement.
+   same weights: logits' normalized error and top-1 agreement. The float32
+   comparison is the gate; the bfloat16 ones are printed beside it.
 5. A ``{"kernels": [...]}`` JSON line; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
@@ -30,7 +31,6 @@ Imports nothing of JAX or dllama_tpu.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -41,12 +41,18 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 BF16_FLOPS = 989e12  # H100 SXM datasheet, dense
-TOL = 2e-3  # normalized error of kernels with f32 outputs (sum order only)
+# normalized error of kernels with f32 outputs, where kernel and plain
+# version share every rounding and differ in sum order only: the largest
+# reading on an H100 was 5.6e-6 (q40_matmul m=512 k=14336); a kernel that
+# kept the dequantized weight in f32 where the plain version rounds it to
+# bf16 reads ~1e-3
+TOL = 1e-4
 TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step of the largest value
 TOL_E2E = 2e-2  # f32 logits after the whole model, kernel vs plain path
 SEED = 0
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
+N_LAYERS = 32  # the whole llama-8b depth
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 REPLACES = {
@@ -137,17 +143,10 @@ def check_q40(device, gen, timed: bool = True) -> list[dict]:
 
 
 def _sdpa(q, k, v, mask):
-    """One scaled_dot_product_attention call, GQA in the call where this
-    torch takes enable_gqa."""
+    """One scaled_dot_product_attention call, with GQA in the call."""
     import torch.nn.functional as F
 
-    try:
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
-    except TypeError:
-        g = q.shape[1] // k.shape[1]
-        return F.scaled_dot_product_attention(
-            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), attn_mask=mask
-        )
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def check_attention(device, gen, timed: bool = True) -> list[dict]:
@@ -300,7 +299,10 @@ def parity(engine, prompt: list[int]) -> dict:
     """Phase 4: one prefill + one decode step through the kernel path and
     the plain path on the same weights, in float32 (where the two paths
     share every rounding and differ only in summation order) and in the
-    engine's bfloat16. Returns logits per (dtype, path) and the errors."""
+    engine's bfloat16. Returns the errors and top-1/top-5 agreement of
+    each pair; main() gates on the float32 pair only, since in bfloat16 a
+    changed sum order flips roundings that 32 layers amplify to the size of
+    bfloat16's own distance from float32 (printed as controls)."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
@@ -326,6 +328,7 @@ def parity(engine, prompt: list[int]) -> dict:
             "f32 kernel vs plain": (logits[torch.float32, False][i], logits[torch.float32, True][i]),
             "bf16 kernel vs plain": (logits[torch.bfloat16, False][i], logits[torch.bfloat16, True][i]),
             "bf16 plain vs f32 plain": (logits[torch.bfloat16, True][i], logits[torch.float32, True][i]),
+            "bf16 kernel vs f32 plain": (logits[torch.bfloat16, False][i], logits[torch.float32, True][i]),
         }.items():
             rel, _ = norm_err(a, b)
             top5 = set(a.topk(5).indices.tolist()) & set(b.topk(5).indices.tolist())
@@ -337,8 +340,7 @@ def parity(engine, prompt: list[int]) -> dict:
 
 def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
     """Device kernel time of one greedy decode block under torch.profiler:
-    per-token device ms and the kernels that take it. Empty when the
-    profiler reports no device time."""
+    per-token device ms and the kernels that take it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -350,13 +352,9 @@ def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
             continue  # a host op: its device time is its kernels', listed too
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    if not rows:
-        return {}
+        if e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total, e.key, e.count))
+    require(bool(rows), "decode profile: the profiler reported no device time")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     return {
@@ -366,14 +364,7 @@ def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
     }
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32,
-                    help="depth of the end-to-end model (widths are never cut)")
-    ap.add_argument("--json-out", default=None, metavar="PATH",
-                    help="also write every measured row and the kernels line to PATH")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -413,7 +404,7 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         res = end_to_end(
-            "cuda", "llama-8b", args.layers, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp,
+            "cuda", "llama-8b", N_LAYERS, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp,
         )
         h, eng = res["header"], res["engine"]
         n_dec = res["pred"].n_tokens
@@ -432,16 +423,13 @@ def main(argv=None) -> int:
             require(c > 0, f"{name} was never launched on the main path")
             require(c == want[name], f"{name}: {c} launches, the shapes imply {want[name]}")
         prof = decode_profile(eng, res["tokens"][-1], len(res["prompt_tokens"]) - 1 + n_dec)
-        if prof:
-            host_ms = res["pred"].time_ms / n_dec
-            print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
-                  f"device launches/token {prof['launches_per_token']:.0f}, host ms/token "
-                  f"{host_ms:.3f} (unprofiled run), device busy share "
-                  f"{prof['device_ms_per_token'] / host_ms:.3f}")
-            for name, ms, count in prof["top"]:
-                print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
-        else:
-            print("decode profile: the profiler reported no device time (not measured)")
+        host_ms = res["pred"].time_ms / n_dec
+        print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
+              f"device launches/token {prof['launches_per_token']:.0f}, host ms/token "
+              f"{host_ms:.3f} (unprofiled run), device busy share "
+              f"{prof['device_ms_per_token'] / host_ms:.3f}")
+        for name, ms, count in prof["top"]:
+            print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
         par = parity(eng, res["prompt_tokens"])
         for (name, tag), p in par.items():
             print(f"parity {name} {tag}: logits err {p['err']:.3e} top1 {p['top1']} "
@@ -449,14 +437,6 @@ def main(argv=None) -> int:
         for name in ("prefill", "decode"):
             f32 = par[name, "f32 kernel vs plain"]["err"]
             require(f32 <= TOL_E2E, f"{name}: f32 logits kernel vs plain {f32:.3e} > {TOL_E2E}")
-            # in bf16 the two paths round the same values but a different
-            # sum order can flip a rounding, and 32 layers amplify such
-            # flips; hold them to the bf16 path's own distance from f32
-            # (two independent roundings at that distance: ~sqrt(2) of it)
-            floor = par[name, "bf16 plain vs f32 plain"]["err"]
-            bf16 = par[name, "bf16 kernel vs plain"]["err"]
-            require(bf16 <= max(TOL_E2E, 1.5 * floor),
-                    f"{name}: bf16 logits kernel vs plain {bf16:.3e} > max({TOL_E2E}, 1.5 x {floor:.3e})")
 
     kernels = []
     for name in REPLACES:
@@ -471,11 +451,6 @@ def main(argv=None) -> int:
             ms=rep.get("ms"), plain_ms=rep.get("plain_ms"), bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
         ))
-    if args.json_out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
-        with open(args.json_out, "w") as f:
-            json.dump(dict(card=smi, kind=kind, build_s=build_s, rows=rows, kernels=kernels), f,
-                      indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..formats.model_file import LlmHeader, RopeType
 
 _NEG_INF = -1e30
@@ -76,9 +77,11 @@ def rope_frequencies(h: LlmHeader) -> np.ndarray:
 
 
 def rope_cache(h: LlmHeader, seq_len: int | None = None, device=None):
-    """(cos, sin) f32 tables [seqLen, headDim // 2] on ``device``, computed
-    on host in numpy exactly as the jnp version does
+    """(cos, sin) f32 tables [seqLen, headDim // 2] on ``device`` (``cuda``
+    unless the caller asks for the CPU), computed on host in numpy exactly
+    as the jnp version does
     (reference: fullfillRopeCache, src/nn/nn-core.cpp:376-383)."""
+    device = resolve_device(device)
     if seq_len is None:
         seq_len = h.seq_len
     freqs = rope_frequencies(h)

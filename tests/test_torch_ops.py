@@ -54,10 +54,21 @@ def test_activations(fn):
 def test_rope_tables(rope_scaling):
     h, jh = _headers(rope_scaling)
     np.testing.assert_allclose(T.rope_frequencies(h), J.rope_frequencies(jh), **TOL)
-    cos, sin = T.rope_cache(h)
+    cos, sin = T.rope_cache(h, device="cpu")
     jcos, jsin = J.rope_cache(jh)
     _close(cos, jcos)
     _close(sin, jsin)
+
+
+def test_rope_cache_defaults_to_cuda():
+    """Only an explicit request gives the CPU: with no device the tables go
+    to the card, or the call raises where there is none."""
+    h, _ = _headers(False)
+    if torch.cuda.is_available():
+        assert T.rope_cache(h)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.rope_cache(h)
 
 
 @pytest.mark.parametrize("interleaved", [True, False])

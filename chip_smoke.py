@@ -6,24 +6,34 @@
 Phases, each fatal on failure (a non-zero exit and no result line):
 
 1. The card (``nvidia-smi`` name and power limit, torch's device name) and
-   the build of the three CUDA kernels from csrc/ (one nvcc each, in
+   the build of the five CUDA sources from csrc/ (one nvcc each, in
    parallel), with its seconds.
-2. Each kernel against its plain PyTorch version on the card at the Llama-8B
-   main-path shapes (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
-   vocab 128256): max normalized error max|k - p| / max|p|, kernel ms,
-   plain ms, the bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s, H100
-   SXM datasheet) and one PyTorch library call's ms as a yardstick
-   (torch.matmul on the dequantized bf16 weight, scaled_dot_product_attention).
-3. End to end: a random Q40 llama-8b ``.m`` (max_seq_len 4096) and a padded
-   byte-level ``.t`` written with the port's writers to a temp dir, then the
-   port's ``inference`` CLI path: a ~500-token prompt and 128 greedy tokens.
-   Load s, prefill ms, decode ms/token and tok/s, each kernel's launches in
-   that run (all must be > 0, and equal what the shapes imply) and the
-   weight-read bound per token.
-4. End-to-end parity: one prefill and one decode step through the kernel
-   path and through the plain path (``forward(..., plain=True)``) on the
-   same weights: logits' normalized error and top-1 agreement. The float32
-   comparison is the gate; the bfloat16 ones are printed beside it.
+2. Each kernel against its plain PyTorch version on the card at main-path
+   shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
+   vocab 128256) for the Q40 matmul and attention, attention again at
+   Qwen3-30B-A3B's 4 KV heads, and the four MoE kernels at A3B's D 2048,
+   F 768, 128 experts, 8 active, with random routing. Each row: max
+   normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
+   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, H100 SXM datasheet) and
+   one PyTorch library call's ms as a yardstick (torch.matmul on the
+   dequantized bf16 weight, scaled_dot_product_attention; none for the MoE
+   kernels: no single PyTorch call computes a routed SwiGLU MoE).
+3. End to end, three paths, each a random Q40 ``.m`` (max_seq_len 4096)
+   and a padded byte-level ``.t`` written with the port's writers to a temp
+   dir of its own (deleted before the next), then the port's ``inference``
+   CLI path: a ~500-token prompt and 128 greedy tokens. llama-8b (32
+   layers) and qwen3-30b-a3b (48 layers) with ``--weight-format auto`` (Q40
+   on the card); qwen3-30b-a3b at 4 layers with ``--weight-format dense``
+   (bf16 experts: full depth would be 60 GB of them). Load s, prefill ms,
+   decode ms/token and tok/s, each kernel's launches in that run (the
+   path's kernels must be > 0, and all equal what the shapes imply), the
+   weight-read bound per token and, for the Q40 paths, a decode profile.
+4. End-to-end parity for the Q40 paths: one prefill and one decode step
+   through the kernel path and through the plain path (``forward(...,
+   plain=True)``) on the same weights: logits' normalized error and top-1
+   agreement, and for Qwen3-MoE how many (layer, token) top-k expert sets
+   the two paths chose differently. The float32 comparison is the gate; the
+   bfloat16 ones are printed beside it.
 5. A ``{"kernels": [...]}`` JSON line; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
@@ -31,8 +41,11 @@ Imports nothing of JAX or dllama_tpu.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,30 +54,54 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 BF16_FLOPS = 989e12  # H100 SXM datasheet, dense
-# normalized error of kernels with f32 outputs, where kernel and plain
-# version share every rounding and differ in sum order only: the largest
-# reading on an H100 was 5.6e-6 (q40_matmul m=512 k=14336); a kernel that
-# kept the dequantized weight in f32 where the plain version rounds it to
-# bf16 reads ~1e-3
+# normalized error of kernels with f32 outputs from f32 inputs, or from
+# bf16 inputs where no bf16 rounding follows a sum: kernel and plain version
+# share every rounding and differ in sum order only. The largest reading on
+# an H100 was 5.6e-6 (q40_matmul m=512 k=14336); a kernel that kept the
+# dequantized weight in f32 where the plain version rounds it to bf16 reads
+# ~1e-3
 TOL = 1e-4
-TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step of the largest value
+# bf16 outputs, and the MoE kernels' bf16 runs, which round the SwiGLU
+# hidden to bf16 after a sum whose order differs: one rounding step
+TOL_BF16_OUT = 2.0**-7
 TOL_E2E = 2e-2  # f32 logits after the whole model, kernel vs plain path
 SEED = 0
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
+MOE_LAYERS = 48  # the whole qwen3-30b-a3b depth (q40 path)
+MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 REPLACES = {
     "q40_matmul": "dllama_tpu/ops/quant_matmul.py:289",
     "flash_attention_stats": "dllama_tpu/ops/flash_attention.py:166",
     "flash_decode": "dllama_tpu/ops/flash_attention.py:404",
+    "moe_active_experts": "dllama_tpu/ops/moe_kernel.py:213",
+    "moe_active_experts_q40": "dllama_tpu/ops/moe_kernel.py:250",
+    "moe_grouped_experts": "dllama_tpu/ops/moe_kernel.py:449",
+    "moe_grouped_experts_q40": "dllama_tpu/ops/moe_kernel.py:563",
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
     "flash_attention_stats": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "moe_active_experts": "dllama_tpu_torch/csrc/moe_active.cu",
+    "moe_active_experts_q40": "dllama_tpu_torch/csrc/moe_active.cu",
+    "moe_grouped_experts": "dllama_tpu_torch/csrc/moe_grouped.cu",
+    "moe_grouped_experts_q40": "dllama_tpu_torch/csrc/moe_grouped.cu",
 }
+# the row of phase 2 whose times stand in the kernels line
+KERNEL_ROW_SHAPE = {
+    "q40_matmul": "m=1 k=4096 n=14336",
+    "flash_attention_stats": "H=32 KH=8 T=512 S=4096 pos=3584",
+    "flash_decode": "H=32 KH=8 S=4096 pos=4095",
+    "moe_active_experts": "bf16 m=1",
+    "moe_active_experts_q40": "bf16 m=1",
+    "moe_grouped_experts": "bf16 N=512",
+    "moe_grouped_experts_q40": "bf16 N=512",
+}
+MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
 
 
 class SmokeError(RuntimeError):
@@ -149,7 +186,9 @@ def _sdpa(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_attention(device, gen, timed: bool = True) -> list[dict]:
+def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -> list[dict]:
+    """Both attention kernels at h query heads over kh KV heads (llama-8b:
+    32 / 8; qwen3-30b-a3b: 32 / 4)."""
     import torch
 
     from dllama_tpu_torch.ops.flash_attention import (
@@ -159,7 +198,8 @@ def check_attention(device, gen, timed: bool = True) -> list[dict]:
         flash_decode_ref,
     )
 
-    h, kh, hd, t = 32, 8, 128, 512
+    hd, t = 128, 512
+    heads = f"H={h} KH={kh}"
     rows = []
 
     def cache(s):
@@ -180,7 +220,7 @@ def check_attention(device, gen, timed: bool = True) -> list[dict]:
         n_bytes = q.numel() * 2 + 2 * kh * min(s, pos + t) * hd * 2 + h * t * (hd + 2) * 4
         b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis)
         row = dict(
-            name="flash_attention_stats", shape=f"B=1 T={t} S={s} pos={pos}", err=rel,
+            name="flash_attention_stats", shape=f"{heads} T={t} S={s} pos={pos}", err=rel,
             max_abs_err=absd, bound_ms=b_ms, bound_by=b_by,
         )
         if timed:
@@ -203,7 +243,7 @@ def check_attention(device, gen, timed: bool = True) -> list[dict]:
         n_bytes = q.numel() * 2 * 2 + 2 * kh * (pos + 1) * hd * 2
         b_ms, b_by = bound(n_bytes, 4.0 * hd * h * (pos + 1))
         row = dict(
-            name="flash_decode", shape=f"B=1 S=4096 pos={pos}", err=rel, max_abs_err=absd,
+            name="flash_decode", shape=f"{heads} S=4096 pos={pos}", err=rel, max_abs_err=absd,
             bound_ms=b_ms, bound_by=b_by,
         )
         if timed:
@@ -212,6 +252,72 @@ def check_attention(device, gen, timed: bool = True) -> list[dict]:
             row["ms"] = time_ms(lambda: flash_decode(q, k, v, pos), device)
             row["plain_ms"] = time_ms(lambda: flash_decode_ref(q, k, v, pos), device, 5)
             row["library_ms"] = time_ms(lambda: _sdpa(qs, ks, vs, None), device)
+        rows.append(row)
+    return rows
+
+
+def check_moe(device, gen, timed: bool = True) -> list[dict]:
+    """The four MoE kernels against `moe_experts_ref` at the A3B expert
+    shapes with random routing: active at m = 1 and 16, grouped at N = 17
+    and 512, bf16 x over dense bf16 and Q40 experts, and f32 x at m = 16 and
+    N = 512 (kernel and plain share every rounding there: TOL)."""
+    import torch
+
+    from dllama_tpu_torch.ops import moe
+    from dllama_tpu_torch.ops.quant_matmul import QuantWeight, dequant
+
+    e, d, f, k = (MOE_SHAPE[key] for key in ("e", "d", "f", "k"))
+
+    def q40(rows, cols):
+        q = torch.randint(-8, 8, (e, rows, cols), dtype=torch.int8, device=device, generator=gen)
+        sc = ((torch.rand((e, rows, cols // 32), device=device, generator=gen) + 0.5) * 0.004)
+        sc = torch.where(torch.rand(sc.shape, device=device, generator=gen) < 0.5, -sc, sc)
+        return QuantWeight(q, sc.half().contiguous())
+
+    qw = [q40(f, d), q40(d, f), q40(f, d)]  # w1, w2, w3
+    dense = {torch.bfloat16: [dequant(w, torch.bfloat16) for w in qw]}
+    dense[torch.float32] = [w.float() for w in dense[torch.bfloat16]]
+    cases = [
+        ("moe_active_experts", 1, torch.bfloat16), ("moe_active_experts", 16, torch.bfloat16),
+        ("moe_active_experts", 16, torch.float32),
+        ("moe_active_experts_q40", 1, torch.bfloat16),
+        ("moe_active_experts_q40", 16, torch.bfloat16),
+        ("moe_active_experts_q40", 16, torch.float32),
+        ("moe_grouped_experts", 17, torch.bfloat16), ("moe_grouped_experts", 512, torch.bfloat16),
+        ("moe_grouped_experts", 512, torch.float32),
+        ("moe_grouped_experts_q40", 17, torch.bfloat16),
+        ("moe_grouped_experts_q40", 512, torch.bfloat16),
+        ("moe_grouped_experts_q40", 512, torch.float32),
+    ]
+    rows = []
+    for name, n, dtype in cases:
+        quant = name.endswith("_q40")
+        ws = qw if quant else dense[dtype]
+        fn = getattr(moe, name)
+        x = torch.randn((n, d), device=device, generator=gen).to(dtype)
+        top_i = torch.rand((n, e), device=device, generator=gen).topk(k, dim=-1).indices.int()
+        wts = torch.rand((n, k), device=device, generator=gen) + 0.1
+        wts = wts / wts.sum(-1, keepdim=True)
+        before = fn.launches
+        got, ref = fn(x, *ws, top_i, wts), moe.moe_experts_ref(x, *ws, top_i, wts)
+        torch.cuda.synchronize(device)
+        require(fn.launches == before + 1, f"{name}: the wrapper did not launch its kernel")
+        rel, absd = norm_err(got, ref)
+        tol = TOL if dtype == torch.float32 else TOL_BF16_OUT
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        require(rel <= tol, f"{name} {tag} n={n}: error {rel:.3e} > {tol}")
+        n_exp = int(torch.unique(top_i).numel())
+        w_bytes = sum((w.q.numel() + w.d.numel() * 2) if quant else w.numel() * w.element_size()
+                      for w in ws) // e
+        n_bytes = n_exp * w_bytes + x.numel() * x.element_size() + n * d * 4 + n * k * 8
+        b_ms, b_by = bound(n_bytes, 6.0 * n * k * d * f)
+        row = dict(
+            name=name, shape=f"{tag} {'m' if 'active' in name else 'N'}={n}", err=rel,
+            max_abs_err=absd, bound_ms=b_ms, bound_by=b_by, experts=n_exp, library_ms=None,
+        )
+        if timed:
+            row["ms"] = time_ms(lambda: fn(x, *ws, top_i, wts), device)
+            row["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts), device, 5)
         rows.append(row)
     return rows
 
@@ -245,14 +351,29 @@ def prompt_text(n_bytes: int) -> str:
     return (base * (n_bytes // len(base) + 1))[:n_bytes]
 
 
-def end_to_end(device: str, preset: str, n_layers: int | None, prompt_tokens: int,
-               decode_tokens: int, max_seq_len: int, seed: int, tmp: str) -> dict:
+def model_file_bytes(preset: str | dict, n_layers: int | None, max_seq_len: int) -> int:
+    from dllama_tpu_torch.formats.model_file import tensor_plan
+    from dllama_tpu_torch.models.synthetic import PRESETS, make_header
+
+    cfg = dict(PRESETS[preset]) if isinstance(preset, str) else dict(preset)
+    if n_layers:
+        cfg["n_layers"] = n_layers
+    last = tensor_plan(make_header(cfg, max_seq_len))[-1]
+    return last.offset + last.nbytes
+
+
+def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tokens: int,
+               decode_tokens: int, max_seq_len: int, seed: int, tmp: str,
+               weight_format: str = "auto") -> dict:
     """Phase 3: write the model, run the port's inference CLI path."""
     from dllama_tpu_torch import cli
     from dllama_tpu_torch.models.synthetic import write_synth_model
     from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
 
     mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    need = model_file_bytes(preset, n_layers, max_seq_len)
+    free = shutil.disk_usage(tmp).free
+    require(free > need + (2 << 30), f"{preset}: {need / 1e9:.1f} GB model, {free / 1e9:.1f} GB free")
     t0 = time.perf_counter()
     h = write_synth_model(mp, preset, seed=seed, max_seq_len=max_seq_len, n_layers=n_layers)
     write_tokenizer_file(tp, h.vocab_size)
@@ -262,37 +383,66 @@ def end_to_end(device: str, preset: str, n_layers: int | None, prompt_tokens: in
     res = cli.main([
         "inference", "--model", mp, "--tokenizer", tp, "--prompt", text,
         "--steps", str(prompt_tokens - 1 + decode_tokens), "--temperature", "0",
-        "--device", device, "--seed", str(seed),
+        "--device", device, "--seed", str(seed), "--weight-format", weight_format,
     ])
     counts = launch_counts()
     res.update(header=h, write_s=write_s, counts=counts, model_path=mp)
     return res
 
 
-def expected_launches(h, n_prompt: int, n_decode: int) -> dict:
-    """Launches the shapes imply: per forward 7 matmuls a layer + the
-    classifier, and one attention a layer (stats for T > 1, decode for 1)."""
+def forward_rows(n_prompt: int, n_decode: int) -> list[int]:
+    """Rows of each forward the engine runs: the padded prefill buckets of
+    all but the last prompt token, then one row a decoded token."""
     from dllama_tpu_torch.runtime.engine import PREFILL_BUCKETS as buckets
 
-    chunks, left = 0, n_prompt - 1
+    rows, left = [], n_prompt - 1
     while left > 0:
-        width = min(next((b for b in buckets if left <= b), buckets[-1]), left)
-        chunks += 1
-        left -= width
-    return {
-        "q40_matmul": (7 * h.n_layers + 1) * (chunks + n_decode),
-        "flash_attention_stats": h.n_layers * chunks,
-        "flash_decode": h.n_layers * n_decode,
-    }
+        bucket = next((b for b in buckets if left <= b), buckets[-1])
+        rows.append(bucket)
+        left -= min(bucket, left)
+    return rows + [1] * n_decode
 
 
-def weight_bytes(params) -> int:
+def expected_launches(h, n_prompt: int, n_decode: int, q40: bool) -> dict:
+    """Launches the shapes imply. Per forward of n rows and L layers: the
+    Q40 matmul 7 a layer + the classifier (4 a layer for Qwen3-MoE, whose
+    experts are not matmuls), none with dense weights; one attention a layer
+    (stats for n > 1, decode for 1); for Qwen3-MoE one MoE kernel a layer,
+    the active-experts one for n <= 16, else the grouped one."""
+    from dllama_tpu_torch.ops import KERNELS
+    from dllama_tpu_torch.ops.moe import MOE_KERNEL_MAX_TOKENS
+
+    moe, n_l = h.is_moe, h.n_layers
+    want = dict.fromkeys(KERNELS, 0)
+    for n in forward_rows(n_prompt, n_decode):
+        if q40:
+            want["q40_matmul"] += (4 if moe else 7) * n_l + 1
+        want["flash_attention_stats" if n > 1 else "flash_decode"] += n_l
+        if moe:
+            kind = "active" if n <= MOE_KERNEL_MAX_TOKENS else "grouped"
+            want[f"moe_{kind}_experts{'_q40' if q40 else ''}"] += n_l
+    return want
+
+
+def weight_bytes(params, h) -> int:
+    """Weight bytes one decoded token reads: every non-expert matmul weight
+    and, in a MoE layer, the f32 gate and k of the E experts."""
     from dllama_tpu_torch.ops.quant_matmul import QuantWeight
 
-    leaves = [params["wcls"]] + [w for lp in params["layers"] for w in lp.values()]
-    return sum(
-        w.q.numel() + w.d.numel() * 2 for w in leaves if isinstance(w, QuantWeight)
-    )
+    def size(w) -> int:
+        if isinstance(w, QuantWeight):
+            return w.q.numel() * w.q.element_size() + w.d.numel() * w.d.element_size()
+        return w.numel() * w.element_size()
+
+    total = size(params["wcls"])
+    for lp in params["layers"]:
+        total += sum(size(lp[key]) for key in ("wq", "wk", "wv", "wo"))
+        ffn = sum(size(lp[key]) for key in ("w1", "w2", "w3"))
+        if h.is_moe:
+            total += size(lp["moe_gate"]) + ffn * h.n_active_experts // h.n_experts
+        else:
+            total += ffn
+    return total
 
 
 def parity(engine, prompt: list[int]) -> dict:
@@ -300,25 +450,42 @@ def parity(engine, prompt: list[int]) -> dict:
     the plain path on the same weights, in float32 (where the two paths
     share every rounding and differ only in summation order) and in the
     engine's bfloat16. Returns the errors and top-1/top-5 agreement of
-    each pair; main() gates on the float32 pair only, since in bfloat16 a
-    changed sum order flips roundings that 32 layers amplify to the size of
-    bfloat16's own distance from float32 (printed as controls)."""
+    each pair, and for a MoE model how many (layer, token) top-k expert
+    sets the kernel and plain paths chose differently in each dtype (a
+    near-tie flip swaps a whole expert's output). main() gates on the
+    float32 pair only, since in bfloat16 a changed sum order flips
+    roundings that the layers amplify to the size of bfloat16's own
+    distance from float32 (printed as controls)."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
+    from dllama_tpu_torch.models import transformer
 
     h, dev = engine.header, engine.device
     toks = torch.tensor([prompt], device=dev)
-    logits, nxt = {}, None
+    logits, routes, nxt = {}, {}, None
+    route = transformer.moe_route
+
+    def recording(key):
+        def moe_route(x, gate, n_active):
+            top_i, w = route(x, gate, n_active)
+            routes.setdefault(key, []).append(top_i.sort(dim=-1).values)
+            return top_i, w
+        return moe_route
+
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             params = dict(engine.params, embed=engine.params["embed"].to(dtype))
             for plain in (False, True):
-                cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
-                pre, cache = forward(params, h, toks, 0, cache, "last", plain=plain)
-                if nxt is None:  # every run decodes the same token
-                    nxt = pre[:, -1].argmax(-1, keepdim=True)
-                dec, _ = forward(params, h, nxt, len(prompt), cache, "last", plain=plain)
+                transformer.moe_route = recording((dtype, plain))
+                try:
+                    cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
+                    pre, cache = forward(params, h, toks, 0, cache, "last", plain=plain)
+                    if nxt is None:  # every run decodes the same token
+                        nxt = pre[:, -1].argmax(-1, keepdim=True)
+                    dec, _ = forward(params, h, nxt, len(prompt), cache, "last", plain=plain)
+                finally:
+                    transformer.moe_route = route
                 logits[dtype, plain] = (pre[0, -1].float(), dec[0, -1].float())
                 del cache
             del params
@@ -334,6 +501,13 @@ def parity(engine, prompt: list[int]) -> dict:
             top5 = set(a.topk(5).indices.tolist()) & set(b.topk(5).indices.tolist())
             res[name, tag] = dict(
                 err=rel, top1=int(a.argmax()) == int(b.argmax()), top5_overlap=len(top5)
+            )
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        if (dtype, False) in routes:
+            pairs = zip(routes[dtype, False], routes[dtype, True])
+            res["routing", tag] = dict(
+                differ=sum(int((a != b).any(-1).sum()) for a, b in pairs),
+                of=sum(int(a.shape[0]) for a in routes[dtype, False]),
             )
     return res
 
@@ -373,6 +547,7 @@ def main() -> int:
         return 1
     from dllama_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -386,42 +561,92 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s")
     for name, log in _build.ptxas_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
+              f"spill stores {spills} B")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    rows = check_q40(device, gen) + check_attention(device, gen)
+    rows = (check_q40(device, gen) + check_attention(device, gen)
+            + check_attention(device, gen, h=32, kh=4) + check_moe(device, gen))
     for r in rows:
         times = "".join(
-            f" {key} {r[key]:.4f}" for key in ("ms", "plain_ms", "library_ms") if key in r
+            f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
+            for key in ("ms", "plain_ms", "library_ms") if key in r
         )
+        note = " (no single PyTorch call computes a routed SwiGLU MoE)" if "experts" in r else ""
         print(
-            f"{r['name']:22s} {r['shape']:24s} err {r['err']:.2e}{times} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            f"{r['name']:23s} {r['shape']:32s} err {r['err']:.2e}{times} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){note}"
         )
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    paths = [
+        ("llama-8b", "llama-8b", N_LAYERS, "auto", 32),
+        ("qwen3-30b-a3b q40", "qwen3-30b-a3b", MOE_LAYERS, "auto", 48),
+        ("qwen3-30b-a3b dense", "qwen3-30b-a3b", MOE_DENSE_LAYERS, "dense", 48),
+    ]
+    counts = {}
+    for label, preset, n_layers, weight_format, depth in paths:
+        if n_layers < depth:
+            print(f"{label}: depth cut to {n_layers} of {depth} layers (bf16 experts are "
+                  f"1.26 GB a layer: the whole model would not fit the card)")
+        counts[label] = run_path(label, preset, n_layers, weight_format)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    kernels = []
+    for name in REPLACES:
+        mine = [r for r in rows if r["name"] == name]
+        rep = next(r for r in mine if r["shape"] == KERNEL_ROW_SHAPE[name])
+        by_path = {label: c[name] for label, c in counts.items() if c[name]}
+        require(bool(by_path), f"{name} was launched on no path")
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            max_norm_err=max(r["err"] for r in mine), shape=rep["shape"],
+            ms=rep.get("ms"), plain_ms=rep.get("plain_ms"), bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
+        ))
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_path(label: str, preset: str, n_layers: int, weight_format: str) -> dict:
+    """Phases 3 and 4 for one model: the CLI run, its launch counts against
+    the shapes', and for a Q40 path the decode profile and the parity gate.
+    The model lives in a temp dir of its own, deleted on return."""
     with tempfile.TemporaryDirectory() as tmp:
         res = end_to_end(
-            "cuda", "llama-8b", N_LAYERS, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp,
+            "cuda", preset, n_layers, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp,
+            weight_format,
         )
         h, eng = res["header"], res["engine"]
+        q40 = eng.weight_format == "q40"
         n_dec = res["pred"].n_tokens
-        require(n_dec == DECODE_TOKENS, f"decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
+        require(n_dec == DECODE_TOKENS, f"{label}: decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
         counts = res["counts"]
-        want = expected_launches(h, len(res["prompt_tokens"]), n_dec)
-        wb = weight_bytes(eng.params)
-        print(f"model: llama-8b widths, {h.n_layers} of 32 layers, seq_len {h.seq_len}; "
+        want = expected_launches(h, len(res["prompt_tokens"]), n_dec, q40)
+        wb = weight_bytes(eng.params, h)
+        print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}; "
               f"written in {res['write_s']:.1f} s")
-        print(f"e2e load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
+        print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
               f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
               f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f}")
         print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
         print(f"launches {json.dumps(counts)} expected {json.dumps(want)}")
         for name, c in counts.items():
-            require(c > 0, f"{name} was never launched on the main path")
-            require(c == want[name], f"{name}: {c} launches, the shapes imply {want[name]}")
+            require(c == want[name], f"{label} {name}: {c} launches, the shapes imply {want[name]}")
+            if want[name]:
+                require(c > 0, f"{label}: {name} was never launched on the main path")
+        if not q40:
+            return counts
         prof = decode_profile(eng, res["tokens"][-1], len(res["prompt_tokens"]) - 1 + n_dec)
         host_ms = res["pred"].time_ms / n_dec
         print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
@@ -432,29 +657,16 @@ def main() -> int:
             print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
         par = parity(eng, res["prompt_tokens"])
         for (name, tag), p in par.items():
-            print(f"parity {name} {tag}: logits err {p['err']:.3e} top1 {p['top1']} "
-                  f"top5_overlap {p['top5_overlap']}/5")
+            if name == "routing":
+                print(f"parity routing {tag}: {p['differ']} of {p['of']} (layer, token) top-k "
+                      "expert sets differ between the kernel and plain paths")
+            else:
+                print(f"parity {name} {tag}: logits err {p['err']:.3e} top1 {p['top1']} "
+                      f"top5_overlap {p['top5_overlap']}/5")
         for name in ("prefill", "decode"):
             f32 = par[name, "f32 kernel vs plain"]["err"]
-            require(f32 <= TOL_E2E, f"{name}: f32 logits kernel vs plain {f32:.3e} > {TOL_E2E}")
-
-    kernels = []
-    for name in REPLACES:
-        mine = [r for r in rows if r["name"] == name]
-        rep = mine[-1] if name != "q40_matmul" else next(
-            r for r in mine if r["shape"] == "m=1 k=4096 n=14336"
-        )
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in mine),
-            max_norm_err=max(r["err"] for r in mine), shape=rep["shape"],
-            ms=rep.get("ms"), plain_ms=rep.get("plain_ms"), bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
-        ))
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+            require(f32 <= TOL_E2E, f"{label} {name}: f32 logits kernel vs plain {f32:.3e} > {TOL_E2E}")
+        return counts
 
 
 if __name__ == "__main__":

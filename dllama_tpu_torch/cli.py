@@ -60,6 +60,9 @@ def load_engine(args):
     print(f"💡 nLayers: {h.n_layers}")
     print(f"💡 nHeads: {h.n_heads}")
     print(f"💡 nKvHeads: {h.n_kv_heads}")
+    if h.n_experts:
+        print(f"💡 nExperts: {h.n_experts}")
+        print(f"💡 nActiveExperts: {h.n_active_experts}")
     print(f"💡 SeqLen: {h.seq_len}")
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -321,6 +321,12 @@ class ModelReader:
         s = self.by_name[name]
         return self._mmap[s.offset : s.offset + s.nbytes]
 
+    def raw_span(self, first: str, last: str) -> np.ndarray:
+        """Zero-copy bytes from tensor ``first`` through tensor ``last``
+        (contiguous in plan order, e.g. one layer's experts)."""
+        a, b = self.by_name[first], self.by_name[last]
+        return self._mmap[a.offset : b.offset + b.nbytes]
+
     def dense_f32(self, name: str) -> np.ndarray:
         """Tensor dequantized to f32, in its file shape."""
         s = self.by_name[name]

@@ -14,6 +14,11 @@ never imports the JAX classes:
   f16 scales (exact: the f32 values came from the file's f16);
 * an array — a dense ``[.., in, out]`` weight, transposed.
 
+Qwen3-MoE leaves need nothing more: the gate ``[D, E]`` and the stacked
+experts (``[E, D, F]`` / ``[E, F, D]`` values and ``[E, in/32, out]``
+scales) take the same last-two-axes swap to the port's ``[E, D]`` and
+``[E, out, in]``.
+
 Layers arrive stacked ``[L, ...]`` and leave as a list of per-layer dicts.
 """
 

@@ -8,6 +8,11 @@ to the device as they are and are unpacked there with torch ops
 model; the unpack is held against the numpy ``q40_to_planar``. Like the
 JAX loader, the file is consumed as-is (the converter pre-permutes llama
 q/k rows for interleaved RoPE).
+
+Qwen3-MoE experts are stacked per layer (``w1``/``w3`` [E, F, D], ``w2``
+[E, D, F]; 18,432 tensors at Qwen3-30B-A3B). One layer's experts are
+contiguous in the file, so a Q40 file sends them to the device in one
+copy per layer and unpacks them there.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from ..device import resolve_device
 from ..formats.model_file import LlmArch, ModelReader
 from ..formats.quants import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, FloatType
-from ..ops.quant_matmul import QuantWeight
+from ..ops.quant_matmul import QuantWeight, dequant
 from ..ops.torch_ops import rope_cache
 from .transformer import Params
 
@@ -56,8 +61,6 @@ def load_params(
         raise ValueError(f"weight_format must be 'dense' or 'q40', got {weight_format!r}")
     if weight_format == "q40" and h.weight_type != FloatType.Q40:
         raise ValueError(f"weight_format='q40' needs a Q40 model file, got {h.weight_type.name}")
-    if h.arch == LlmArch.QWEN3_MOE:
-        raise NotImplementedError("Qwen3-MoE is not ported yet")
 
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.dense_f32(name)).to(device)
@@ -69,12 +72,39 @@ def load_params(
             return q40_unpack(raw, out_dim, in_dim)
         return f32(name).to(dtype)  # [out, in]
 
+    def experts(l: int) -> dict:
+        """Layer l's experts stacked [E, rows, cols] (w1/w3 [E, F, D], w2
+        [E, D, F]): Q40 bytes go to the device in one copy and unpack there."""
+        e_n, f, d = h.n_experts, h.ff_dim, h.dim
+        shapes = {"w1": (f, d), "w2": (d, f), "w3": (f, d)}
+        if h.weight_type != FloatType.Q40:
+            return {
+                w: torch.from_numpy(
+                    np.stack([reader.dense_f32(f"layers.{l}.experts.{e}.{w}") for e in range(e_n)])
+                ).to(device=device, dtype=dtype)
+                for w in shapes
+            }
+        span = reader.raw_span(f"layers.{l}.experts.0.w1", f"layers.{l}.experts.{e_n - 1}.w3")
+        raw = torch.from_numpy(np.array(span))
+        raw = raw.to(device).reshape(e_n, 3, -1)  # w1, w2, w3 bytes of each expert
+        out = {}
+        for i, (w, (rows, cols)) in enumerate(shapes.items()):
+            u = q40_unpack(raw[:, i], e_n * rows, cols)
+            qw = QuantWeight(u.q.view(e_n, rows, cols), u.d.view(e_n, rows, cols // Q40_BLOCK_SIZE))
+            out[w] = qw if weight_format == "q40" else dequant(qw, dtype)
+        return out
+
+    moe = h.arch == LlmArch.QWEN3_MOE
     layers = []
     for l in range(h.n_layers):
-        lp = {key: matmul_weight(f"layers.{l}.{part}") for key, part in _MATMULS.items()}
+        parts = {k: v for k, v in _MATMULS.items() if not (moe and k in ("w1", "w2", "w3"))}
+        lp = {key: matmul_weight(f"layers.{l}.{part}") for key, part in parts.items()}
+        if moe:
+            lp["moe_gate"] = f32(f"layers.{l}.moe_gate")  # [E, D]
+            lp.update(experts(l))
         lp["att_norm"] = f32(f"layers.{l}.att_norm")
         lp["ffn_norm"] = f32(f"layers.{l}.ffn_norm")
-        if h.arch == LlmArch.QWEN3:
+        if h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE):
             lp["q_norm"] = f32(f"layers.{l}.q_norm")
             lp["k_norm"] = f32(f"layers.{l}.k_norm")
         layers.append(lp)

@@ -36,6 +36,12 @@ PRESETS = {
         head_dim=128, vocab_size=151936, seq_len=40960, rope_theta=1000000.0,
         arch=LlmArch.QWEN3,
     ),
+    "qwen3-30b-a3b": dict(
+        dim=2048, hidden_dim=6144, moe_hidden_dim=768, n_layers=48,
+        n_heads=32, n_kv_heads=4, head_dim=128, vocab_size=151936,
+        seq_len=40960, rope_theta=1000000.0, arch=LlmArch.QWEN3_MOE,
+        n_experts=128, n_active_experts=8,
+    ),
     "tiny": dict(
         dim=64, hidden_dim=160, n_layers=2, n_heads=4, n_kv_heads=2,
         head_dim=16, vocab_size=256, seq_len=64,
@@ -64,7 +70,10 @@ def make_header(preset: str | dict, max_seq_len: int = 0) -> LlmHeader:
         h.head_dim = h.dim // h.n_heads
     h.hidden_act = HiddenAct.SILU
     h.weight_type = FloatType.Q40
-    h.rope_type = RopeType.FALCON if h.arch == LlmArch.QWEN3 else RopeType.LLAMA
+    # Qwen3 and Qwen3-MoE force falcon RoPE, as the file reader does
+    h.rope_type = (
+        RopeType.FALCON if h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE) else RopeType.LLAMA
+    )
     h.norm_epsilon = 1e-5
     return h
 
@@ -102,6 +111,8 @@ def write_synth_model(
         "head_dim": h.head_dim,
         "norm_epsilon": 5,  # header quirk: eps rides as an enum (5 = 1e-5)
     }
+    if h.arch == LlmArch.QWEN3_MOE:
+        params["moe_hidden_dim"] = h.moe_hidden_dim
     rng = np.random.default_rng(seed)
     with open(path, "wb") as f:
         write_header(f, params)

@@ -1,4 +1,4 @@
-"""Decoder forward pass for Llama / Qwen3 (dense FFN) in PyTorch.
+"""Decoder forward pass for Llama / Qwen3 / Qwen3-MoE in PyTorch.
 
 Counterpart of dllama_tpu/models/transformer.py for one device. The layer
 walk is the same (reference: src/llm.cpp:263-557):
@@ -13,6 +13,14 @@ with a Python loop over layers in place of ``lax.scan``. Params are a dict:
 are ``QuantWeight`` (q40, the CUDA kernel on the card) or dense [out, in]
 tensors. The KV cache is head-major, [L, B, KH, S, hd], and is updated in
 place (JAX returns a new cache; the port writes the rows where they go).
+Qwen3-MoE layers hold ``moe_gate`` [E, D] f32 and stacked experts
+``w1``/``w3`` [E, F, D] and ``w2`` [E, D, F] in place of the dense FFN.
+
+A Qwen3-MoE layer's FFN routes each row of y to its top-k experts
+(``moe_route``, plain torch as in JAX) and sums their SwiGLUs: batches of
+B*T <= 16 rows (decode, and the 8-row prefill bucket) through the
+active-experts kernel, larger ones through the grouped kernel, Q40 or
+dense by the expert leaves' type (ops/moe.py).
 
 Attention: chunks of T > 1 go through the prefill stats kernel, T = 1
 through the decode kernel, which reads rows 0..pos only — so the port
@@ -34,6 +42,15 @@ from ..ops.flash_attention import (
     flash_attention_ref,
     flash_decode,
     flash_decode_ref,
+)
+from ..ops.moe import (
+    MOE_KERNEL_MAX_TOKENS,
+    moe_active_experts,
+    moe_active_experts_q40,
+    moe_experts_ref,
+    moe_grouped_experts,
+    moe_grouped_experts_q40,
+    moe_route,
 )
 from ..ops.quant_matmul import QuantWeight, qmatmul, qmatmul_ref
 from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
@@ -61,6 +78,25 @@ def _mm(x: torch.Tensor, w, plain: bool) -> torch.Tensor:
     if isinstance(w, QuantWeight):
         return (qmatmul_ref if plain else qmatmul)(x, w).to(x.dtype)
     return torch.matmul(x, w.transpose(-1, -2))
+
+
+def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool) -> torch.Tensor:
+    """Qwen3-MoE FFN of y [B, T, D] -> [B, T, D] in y's dtype (reference:
+    src/llm.cpp:425-499; JAX: transformer.py _moe_ffn_pallas /
+    _moe_ffn_grouped)."""
+    b, t, d = y.shape
+    n = b * t
+    yf = y.reshape(n, d)
+    top_i, weights = moe_route(yf, lp["moe_gate"], h.n_active_experts)
+    quant = isinstance(lp["w1"], QuantWeight)
+    if plain:
+        run = moe_experts_ref
+    elif n <= MOE_KERNEL_MAX_TOKENS:
+        run = moe_active_experts_q40 if quant else moe_active_experts
+    else:
+        run = moe_grouped_experts_q40 if quant else moe_grouped_experts
+    out = run(yf, lp["w1"], lp["w2"], lp["w3"], top_i, weights)
+    return out.reshape(b, t, d).to(y.dtype)
 
 
 def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain=False):
@@ -96,8 +132,9 @@ def forward(
     interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
     act = silu if h.hidden_act == HiddenAct.SILU else gelu
     is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
-    if h.arch == LlmArch.QWEN3_MOE:
-        raise NotImplementedError("Qwen3-MoE is not ported yet")
+    is_moe = h.arch == LlmArch.QWEN3_MOE
+    if is_moe and h.hidden_act != HiddenAct.SILU:
+        raise ValueError("Qwen3-MoE experts are SwiGLU: hidden_act must be SILU")
     attend = (flash_decode_ref if plain else flash_decode) if t == 1 else (
         flash_attention_ref if plain else flash_attention
     )
@@ -123,7 +160,11 @@ def forward(
         x = x + _mm(z, lp["wo"], plain).to(x.dtype)
 
         y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
-        d = act(_mm(y, lp["w1"], plain))
-        u = _mm(y, lp["w3"], plain)
-        x = x + _mm(d * u.to(d.dtype), lp["w2"], plain).to(x.dtype)
+        if is_moe:
+            f = moe_ffn(y, lp, h, plain)
+        else:
+            d = act(_mm(y, lp["w1"], plain))
+            u = _mm(y, lp["w3"], plain)
+            f = _mm(d * u.to(d.dtype), lp["w2"], plain)
+        x = x + f.to(x.dtype)
     return logits_head(x, params, h, logits_mode, plain), cache

@@ -4,12 +4,22 @@
 through the hand-written kernels."""
 
 from .flash_attention import flash_attention_stats, flash_decode
+from .moe import (
+    moe_active_experts,
+    moe_active_experts_q40,
+    moe_grouped_experts,
+    moe_grouped_experts_q40,
+)
 from .quant_matmul import qmatmul
 
 KERNELS = {
     "q40_matmul": qmatmul,
     "flash_attention_stats": flash_attention_stats,
     "flash_decode": flash_decode,
+    "moe_active_experts": moe_active_experts,
+    "moe_active_experts_q40": moe_active_experts_q40,
+    "moe_grouped_experts": moe_grouped_experts,
+    "moe_grouped_experts_q40": moe_grouped_experts_q40,
 }
 
 

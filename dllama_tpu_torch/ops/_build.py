@@ -25,7 +25,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("q40_matmul", "flash_attention", "flash_decode")
+SOURCES = ("q40_matmul", "flash_attention", "flash_decode", "moe_active", "moe_grouped")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +38,8 @@ SIGNATURES = {
     "q40_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "flash_attention": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     "flash_decode": [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _P],
+    "moe_active": [_P] * 11 + [_I] * 6 + [_P],
+    "moe_grouped": [_P] * 13 + [_I] * 5 + [_P],
 }
 ENTRY = {"flash_attention": "flash_attention_stats"}
 

@@ -1,10 +1,12 @@
 """The port's engine and CLI on CPU: the greedy token stream equals the JAX
-InferenceEngine's (f32, weight_format="q40"), and the inference CLI runs."""
+InferenceEngine's (f32, weight_format="q40") for a tiny Llama and a tiny
+Qwen3-MoE, and the inference CLI runs."""
 
 import jax.numpy as jnp
 import pytest
 import torch
 
+from dllama_tpu.formats.model_file import LlmArch
 from dllama_tpu.runtime.engine import InferenceEngine as JEngine
 from dllama_tpu_torch import cli
 from dllama_tpu_torch.runtime.engine import InferenceEngine
@@ -24,9 +26,17 @@ def tiny(tmp_path_factory):
     return mp, tp
 
 
-@pytest.mark.parametrize("prompt,steps,block", [([1, 2, 3, 4], 24, 8), (list(range(5, 18)), 40, 5)])
-def test_greedy_stream_matches_jax_engine(tiny, prompt, steps, block):
-    mp, _ = tiny
+@pytest.fixture(scope="module")
+def tiny_moe(tmp_path_factory):
+    mp = str(tmp_path_factory.mktemp("engine_moe") / "moe.m")
+    make_tiny_model(mp, arch=LlmArch.QWEN3_MOE)
+    return mp
+
+
+STREAMS = [([1, 2, 3, 4], 24, 8), (list(range(5, 18)), 40, 5)]
+
+
+def _greedy_streams_agree(mp, prompt, steps, block):
     jeng = JEngine(mp, tp=1, dtype=jnp.float32, temperature=0.0, weight_format="q40")
     want, jev, _ = jeng.generate(prompt, max_steps=steps, block_size=block)
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, weight_format="q40",
@@ -35,6 +45,18 @@ def test_greedy_stream_matches_jax_engine(tiny, prompt, steps, block):
     assert got == want
     assert ev.n_tokens == jev.n_tokens == len(prompt) - 1
     assert pred.n_tokens == len(got) == steps - len(prompt) + 1
+
+
+@pytest.mark.parametrize("prompt,steps,block", STREAMS)
+def test_greedy_stream_matches_jax_engine(tiny, prompt, steps, block):
+    _greedy_streams_agree(tiny[0], prompt, steps, block)
+
+
+@pytest.mark.parametrize("prompt,steps,block", STREAMS)
+def test_greedy_stream_matches_jax_engine_qwen3_moe(tiny_moe, prompt, steps, block):
+    # the 13-token prompt prefills in a 32-row chunk (the grouped wrapper),
+    # the 4-token one in an 8-row chunk (the active-experts wrapper)
+    _greedy_streams_agree(tiny_moe, prompt, steps, block)
 
 
 def test_decode_step_stream_equals_block_stream(tiny):

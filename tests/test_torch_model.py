@@ -1,7 +1,9 @@
 """The port's forward against dllama_tpu.models.forward on tiny `.m` files
-(f32, CPU, atol 1e-4): Llama, Qwen3 and rope-scaled Llama, both
-logits_modes, q40 and dense weights; and params carried across from the
-JAX loader's fused layout give the same logits."""
+(f32, CPU, atol 1e-4): Llama, Qwen3, Qwen3-MoE and rope-scaled Llama, both
+logits_modes, q40 and dense weights; params carried across from the JAX
+loader's fused layout give the same logits; and a Qwen3-MoE forward takes
+the active-experts wrapper for a 1-row step and the grouped one for a
+20-row chunk."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ TOKENS = np.array([[1, 5, 9, 20, 33, 7, 2, 100, 41, 3]], np.int64)
 CASES = {
     "llama": dict(arch=LlmArch.LLAMA),
     "qwen3": dict(arch=LlmArch.QWEN3),
+    "qwen3_moe": dict(arch=LlmArch.QWEN3_MOE),
     "llama_rope_scaling": dict(arch=LlmArch.LLAMA, rope_scaling=True),
 }
 
@@ -67,7 +70,7 @@ def test_forward_matches_jax_q40(models, case, logits_mode):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["llama", "qwen3"])
+@pytest.mark.parametrize("case", ["llama", "qwen3", "qwen3_moe"])
 def test_forward_matches_jax_dense(models, case):
     reader, jreader = ModelReader(models[case]), JReader(models[case])
     params = load_params(reader, torch.float32, "cpu", weight_format="dense")
@@ -77,11 +80,13 @@ def test_forward_matches_jax_dense(models, case):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["llama", "qwen3"])
+@pytest.mark.parametrize("case", ["llama", "qwen3", "qwen3_moe"])
 def test_params_from_jax_fused_layout(models, case):
     reader, jreader = ModelReader(models[case]), JReader(models[case])
     jparams = j_load(jreader, dtype=jnp.float32, weight_format="q40", fuse=1)
-    assert "wqkv" in jparams["layers"] and "w13" in jparams["layers"]
+    # the JAX loader fuses w1|w3 for a dense FFN only; MoE experts stay stacked
+    assert "wqkv" in jparams["layers"]
+    assert ("w13" in jparams["layers"]) == (case != "qwen3_moe")
     carried = params_from_jax(jax.tree.map(np.asarray, jparams), reader.header, "cpu")
     own = load_params(reader, torch.float32, "cpu", weight_format="q40")
     for g, w in zip(_run_port(carried, reader.header, "all"),
@@ -90,6 +95,28 @@ def test_params_from_jax_fused_layout(models, case):
     for key in ("wq", "wk", "wv", "w1", "w3"):
         torch.testing.assert_close(carried["layers"][0][key].q, own["layers"][0][key].q)
         torch.testing.assert_close(carried["layers"][0][key].d, own["layers"][0][key].d)
+    if case == "qwen3_moe":  # JAX [D, E] gate and [E, D, F] experts, carried across
+        torch.testing.assert_close(carried["layers"][1]["moe_gate"], own["layers"][1]["moe_gate"])
+        for key in ("w1", "w2", "w3"):
+            assert carried["layers"][1][key].q.shape == own["layers"][1][key].q.shape
+            torch.testing.assert_close(carried["layers"][1][key].q, own["layers"][1][key].q)
+            torch.testing.assert_close(carried["layers"][1][key].d, own["layers"][1][key].d)
+
+
+def test_qwen3_moe_f32_file_matches_jax_dense(tmp_path):
+    """A Qwen3-MoE file stored in f32 (experts dequantized on the host, not
+    unpacked on the device) gives the JAX logits."""
+    from dllama_tpu.formats import FloatType
+
+    p = str(tmp_path / "moe_f32.m")
+    make_tiny_model(p, arch=LlmArch.QWEN3_MOE, weight_type=FloatType.F32)
+    reader, jreader = ModelReader(p), JReader(p)
+    params = load_params(reader, torch.float32, "cpu", weight_format="dense")
+    assert params["layers"][0]["w2"].shape == (4, 64, 96)
+    jparams = j_load(jreader, dtype=jnp.float32, weight_format="dense")
+    for g, w in zip(_run_port(params, reader.header, "all"),
+                    _run_jax(jparams, jreader.header, "all")):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
 def test_bf16_forward_runs_close_to_f32(models):
@@ -112,3 +139,33 @@ def test_forward_refuses_chunk_past_cache(models):
     cache = init_kv_cache(h, 1, torch.float32, device="cpu")
     with pytest.raises(ValueError):
         forward(params, h, torch.zeros((1, 8), dtype=torch.long), h.seq_len - 4, cache)
+
+
+@pytest.mark.parametrize("weight_format", ["q40", "dense"])
+def test_moe_forward_takes_both_kernel_branches(models, monkeypatch, weight_format):
+    """A 20-row chunk goes through the grouped wrapper and a 1-row step
+    through the active-experts one (B*T <= MOE_KERNEL_MAX_TOKENS), once a
+    layer each, and both give the plain path's logits."""
+    from dllama_tpu_torch.models import transformer as T
+
+    suffix = "_q40" if weight_format == "q40" else ""
+    calls = []
+    for kind in ("active", "grouped"):
+        name = f"moe_{kind}_experts{suffix}"
+        real = getattr(T, name)
+        monkeypatch.setattr(
+            T, name, lambda *a, _real=real, _kind=kind: calls.append((_kind, a[0].shape[0])) or _real(*a)
+        )
+    reader = ModelReader(models["qwen3_moe"])
+    h = reader.header
+    params = load_params(reader, torch.float32, "cpu", weight_format=weight_format)
+    tokens = torch.arange(1, 22).reshape(1, 21) % h.vocab_size
+    outs = {}
+    for plain in (False, True):
+        cache = init_kv_cache(h, 1, torch.float32, device="cpu")
+        pre, cache = forward(params, h, tokens[:, :20], 0, cache, "last", plain=plain)
+        dec, _ = forward(params, h, tokens[:, 20:], 20, cache, "last", plain=plain)
+        outs[plain] = (pre, dec)
+    assert calls == [("grouped", 20)] * h.n_layers + [("active", 1)] * h.n_layers
+    for a, b in zip(outs[False], outs[True]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

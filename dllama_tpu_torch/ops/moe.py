@@ -200,14 +200,13 @@ class GroupedSchedule(NamedTuple):
     inv: torch.Tensor  # int64 [A]: row of assignment t * k + j
 
 
-def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int,
-                     rows: int = GROUP_ROWS) -> GroupedSchedule:
+def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int) -> GroupedSchedule:
     """The grouped kernels' schedule, in torch ops on top_i's device and with
     no host readback (the JAX ``_grouped_schedule`` is jnp outside the
     kernel too). Counts use ``scatter_add_``: ``bincount`` on CUDA reads
     the largest id back to the host."""
     n, k = top_i.shape
-    a = n * k
+    a, rows = n * k, GROUP_ROWS
     dev = top_i.device
     flat_e = top_i.reshape(-1).long()
     order = torch.argsort(flat_e, stable=True)

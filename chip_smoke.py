@@ -6,36 +6,45 @@
 Phases, each fatal on failure (a non-zero exit and no result line):
 
 1. The card (``nvidia-smi`` name and power limit, torch's device name) and
-   the build of the five CUDA sources from csrc/ (one nvcc each, in
+   the build of the seven CUDA sources from csrc/ (one nvcc each, in
    parallel), with its seconds.
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
-   vocab 128256) for the Q40 matmul and attention, attention again at
-   Qwen3-30B-A3B's 4 KV heads, and the four MoE kernels at A3B's D 2048,
-   F 768, 128 experts, 8 active, with random routing. Each row: max
+   vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
+   int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention, attention
+   again at Qwen3-30B-A3B's 4 KV heads, and the four MoE kernels at A3B's
+   D 2048, F 768, 128 experts, 8 active, with random routing. Each row: max
    normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
-   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, H100 SXM datasheet) and
-   one PyTorch library call's ms as a yardstick (torch.matmul on the
-   dequantized bf16 weight, scaled_dot_product_attention; none for the MoE
-   kernels: no single PyTorch call computes a routed SwiGLU MoE).
-3. End to end, three paths, each a random Q40 ``.m`` (max_seq_len 4096)
-   and a padded byte-level ``.t`` written with the port's writers to a temp
-   dir of its own (deleted before the next), then the port's ``inference``
-   CLI path: a ~500-token prompt and 128 greedy tokens. llama-8b (32
-   layers) and qwen3-30b-a3b (48 layers) with ``--weight-format auto`` (Q40
-   on the card); qwen3-30b-a3b at 4 layers with ``--weight-format dense``
+   (bytes over 3.35 TB/s or operations over the H100 SXM datasheet peak of
+   their type) and one PyTorch library call's ms as a yardstick
+   (torch.matmul on the dequantized weight, scaled_dot_product_attention;
+   none for the MoE kernels: no single PyTorch call computes a routed
+   SwiGLU MoE). The packed-nibble rows also hold the kernel against the Q40
+   kernel on the unpacked twin (the same code but for the weight fetch:
+   printed, with whether the bits are equal); the int8 rows at m = 512 also
+   time ``torch._int_mm`` (cuBLASLt's int8 product, no group scales).
+3. End to end, six runs on three random Q40 ``.m`` files (max_seq_len
+   4096; each with a padded byte-level ``.t``, written with the port's
+   writers to a temp dir of its own, deleted before the next), each the
+   port's ``inference`` CLI path: a ~500-token prompt and 128 greedy
+   tokens. llama-8b (32 layers) with ``--weight-format q40``, ``q40i4`` and
+   ``q40i8``; qwen3-30b-a3b (48 layers) with ``auto`` (Q40 on the card) and
+   ``q40i8`` (experts stay Q40); qwen3-30b-a3b at 4 layers with ``dense``
    (bf16 experts: full depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
    path's kernels must be > 0, and all equal what the shapes imply), the
    weight-read bound per token, the weight bytes and
-   ``torch.cuda.memory_allocated`` on the card and, for the Q40 paths, a
-   decode profile.
+   ``torch.cuda.memory_allocated`` on the card and, for the quantized runs,
+   a decode profile. Whether the q40i4 and q40i8 greedy streams equal the
+   q40 one is printed, not gated.
 4. End-to-end parity for each path: one prefill and one decode step
    through the kernel path and through the plain path (``forward(...,
    plain=True)``) on the same weights: logits' normalized error and top-1
    agreement, and for Qwen3-MoE how many (layer, token) top-k expert sets
    the two paths chose differently. The float32 comparison is the gate; the
-   bfloat16 ones are printed beside it.
+   bfloat16 ones are printed beside it. For q40i8 the gated plain run takes
+   the kernel run's int8 activations, and the inputs of its int8 matmuls
+   are gated too (see `parity`).
 5. A ``{"kernels": [...]}`` JSON line; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
@@ -56,6 +65,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 BF16_FLOPS = 989e12  # H100 SXM datasheet, dense
+F32_FLOPS = 67e12  # H100 SXM datasheet, outside the tensor cores
+INT8_OPS = 1979e12  # H100 SXM datasheet, dense
 # normalized error of kernels with f32 outputs from f32 inputs, or from
 # bf16 inputs where no bf16 rounding follows a sum: kernel and plain version
 # share every rounding and differ in sum order only. The largest reading on
@@ -70,17 +81,25 @@ TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step
 # that skips a bf16 rounding reads (check_moe prints and gates both; the
 # readings are in PERF.md)
 TOL_MOE_BF16 = 5e-4
-TOL_E2E = 2e-2  # f32 logits after the whole model, kernel vs plain path
+TOL_E2E = 2e-2  # f32 logits after the whole model (and q40i8's int8 inputs), kernel vs plain path
 SEED = 0
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
 MOE_LAYERS = 48  # the whole qwen3-30b-a3b depth (q40 path)
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
+# model file -> (its label, preset, layers, the weight formats run on it)
+MODELS = [
+    ("llama-8b", "llama-8b", N_LAYERS, ("q40", "q40i4", "q40i8")),
+    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_LAYERS, ("auto", "q40i8")),
+    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_DENSE_LAYERS, ("dense",)),
+]
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 REPLACES = {
     "q40_matmul": "dllama_tpu/ops/quant_matmul.py:289",
+    "q40i4_matmul": "dllama_tpu/ops/quant_matmul.py:334",
+    "i8_matmul": "dllama_tpu/ops/int8_matmul.py:157",
     "flash_attention_stats": "dllama_tpu/ops/flash_attention.py:166",
     "flash_decode": "dllama_tpu/ops/flash_attention.py:404",
     "moe_active_experts": "dllama_tpu/ops/moe_kernel.py:213",
@@ -90,6 +109,8 @@ REPLACES = {
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
+    "q40i4_matmul": "dllama_tpu_torch/csrc/q40i4_matmul.cu",
+    "i8_matmul": "dllama_tpu_torch/csrc/i8_matmul.cu",
     "flash_attention_stats": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode": "dllama_tpu_torch/csrc/flash_decode.cu",
     "moe_active_experts": "dllama_tpu_torch/csrc/moe_active.cu",
@@ -100,6 +121,8 @@ SOURCES = {
 # the row of phase 2 whose times stand in the kernels line
 KERNEL_ROW_SHAPE = {
     "q40_matmul": "m=1 k=4096 n=14336",
+    "q40i4_matmul": "m=1 k=4096 n=14336",
+    "i8_matmul": "m=1 k=4096 n=14336 G=512",
     "flash_attention_stats": "H=32 KH=8 T=512 S=4096 pos=3584",
     "flash_decode": "H=32 KH=8 S=4096 pos=4095",
     "moe_active_experts": "bf16 m=1",
@@ -119,8 +142,9 @@ def require(ok: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(n_bytes: float, ops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least time (ms) for n_bytes moved and ops done at ``peak``."""
+    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -152,17 +176,26 @@ def time_ms(fn, device, reps: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def random_q40(n: int, k: int, device, gen):
+    """A random Q40 weight [n, k]: values in [-8, 7], f16 scales of either sign."""
+    import torch
+
+    from dllama_tpu_torch.ops.quant_matmul import QuantWeight
+
+    q = torch.randint(-8, 8, (n, k), dtype=torch.int8, device=device, generator=gen)
+    d = ((torch.rand((n, k // 32), device=device, generator=gen) + 0.5) * 0.004).half()
+    d = torch.where(torch.rand_like(d.float()) < 0.5, -d, d).contiguous()
+    return QuantWeight(q, d)
+
+
 def check_q40(device, gen, timed: bool = True) -> list[dict]:
     import torch
 
-    from dllama_tpu_torch.ops.quant_matmul import QuantWeight, dequant, qmatmul, qmatmul_ref
+    from dllama_tpu_torch.ops.quant_matmul import dequant, qmatmul, qmatmul_ref
 
     rows = []
     for k, n in Q40_SHAPES:
-        q = torch.randint(-8, 8, (n, k), dtype=torch.int8, device=device, generator=gen)
-        d = ((torch.rand((n, k // 32), device=device, generator=gen) + 0.5) * 0.004).half()
-        d = torch.where(torch.rand_like(d.float()) < 0.5, -d, d).contiguous()
-        w = QuantWeight(q, d)
+        w = random_q40(n, k, device, gen)
         w_bf16 = dequant(w, torch.bfloat16)  # the library yardstick's operand
         for m in (1, 512):
             x = torch.randn((m, k), device=device, generator=gen).to(torch.bfloat16)
@@ -181,7 +214,108 @@ def check_q40(device, gen, timed: bool = True) -> list[dict]:
                 row["plain_ms"] = time_ms(lambda: qmatmul_ref(x, w), device, reps=5)
                 row["library_ms"] = time_ms(lambda: torch.matmul(x, w_bf16.t()), device)
             rows.append(row)
-        del q, d, w, w_bf16
+        del w, w_bf16
+    return rows
+
+
+def _x_cases(k: int, n: int):
+    """(m, dtype) of the matmul rows at one shape: bf16 x at m = 1 and 512,
+    and f32 x too at llama-8b's w1/w3 shape."""
+    import torch
+
+    dtypes = [torch.bfloat16] + ([torch.float32] if (k, n) == (4096, 14336) else [])
+    return [(m, dtype) for dtype in dtypes for m in (1, 512)]
+
+
+def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
+    """The packed-nibble kernel against its plain version at the Q40 shapes,
+    and against the Q40 kernel on the unpacked twin: the two share every
+    line but the weight fetch, so their bits should be equal (printed)."""
+    import torch
+
+    from dllama_tpu_torch.ops.quant_matmul import (
+        dequant,
+        pack_nibbles,
+        qmatmul,
+        qmatmul_i4,
+        qmatmul_ref,
+    )
+
+    rows = []
+    for k, n in Q40_SHAPES:
+        w = random_q40(n, k, device, gen)
+        pw = pack_nibbles(w)
+        for m, dtype in _x_cases(k, n):
+            f32 = dtype == torch.float32
+            x = torch.randn((m, k), device=device, generator=gen).to(dtype)
+            kern, plain, twin = qmatmul_i4(x, pw), qmatmul_ref(x, pw), qmatmul(x, w)
+            torch.cuda.synchronize(device)
+            rel, absd = norm_err(kern, plain)
+            shape = f"{'f32 ' if f32 else ''}m={m} k={k} n={n}"
+            require(rel <= TOL, f"q40i4_matmul {shape}: error {rel:.3e} > {TOL}")
+            n_bytes = m * k * x.element_size() + n * k // 2 + n * (k // 32) * 2 + m * n * 4
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, F32_FLOPS if f32 else BF16_FLOPS)
+            row = dict(
+                name="q40i4_matmul", shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                bound_by=b_by, twin_err=norm_err(kern, twin)[0], twin_equal=torch.equal(kern, twin),
+            )
+            if timed:
+                dense = dequant(w, dtype)  # the library yardstick's operand
+                row["ms"] = time_ms(lambda: qmatmul_i4(x, pw), device)
+                row["plain_ms"] = time_ms(lambda: qmatmul_ref(x, pw), device, reps=5)
+                row["library_ms"] = time_ms(lambda: torch.matmul(x, dense.t()), device)
+                del dense
+            rows.append(row)
+        del w, pw
+    return rows
+
+
+def check_i8(device, gen, timed: bool = True) -> list[dict]:
+    """The grouped-int8 kernel against its plain version on the same
+    quantized operands: G 512 at the Q40 shapes and G 256 (Qwen3-30B-A3B's)
+    at k 2048 n 4096. Both form the same exact group dots, scaled alike and
+    added in group order, so they should give the same bits (printed). The m = 512 rows
+    also time torch._int_mm on xq and q (cuBLASLt's int8 product without
+    the group scales), a yardstick that is printed, not gated."""
+    import torch
+
+    from dllama_tpu_torch.ops.int8_matmul import (
+        i8matmul_2d,
+        i8matmul_2d_ref,
+        quantize_acts,
+        requantize_q40,
+    )
+
+    rows = []
+    for k, n, group in [(k, n, 512) for k, n in Q40_SHAPES] + [(2048, 4096, 256)]:
+        w = requantize_q40(random_q40(n, k, device, gen), group)
+        ng = k // group
+        for m, dtype in _x_cases(k, n):
+            f32 = dtype == torch.float32
+            x = torch.randn((m, k), device=device, generator=gen).to(dtype)
+            xq, sx = quantize_acts(x, group)
+            kern, plain = i8matmul_2d(xq, sx, w), i8matmul_2d_ref(xq, sx, w)
+            torch.cuda.synchronize(device)
+            rel, absd = norm_err(kern, plain)
+            shape = f"{'f32 ' if f32 else ''}m={m} k={k} n={n} G={group}"
+            require(rel <= TOL, f"i8_matmul {shape}: error {rel:.3e} > {TOL}")
+            n_bytes = m * k + m * ng * 4 + n * k + n * ng * 4 + m * n * 4
+            b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, INT8_OPS)
+            row = dict(
+                name="i8_matmul", shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                bound_by=b_by, plain_equal=torch.equal(kern, plain),
+            )
+            if timed:
+                dense = (w.q.float().view(n, ng, group) * w.s[..., None]).view(n, k).to(dtype)
+                row["ms"] = time_ms(lambda: i8matmul_2d(xq, sx, w), device)
+                row["plain_ms"] = time_ms(lambda: i8matmul_2d_ref(xq, sx, w), device, reps=5)
+                row["library_ms"] = time_ms(lambda: torch.matmul(x, dense.t()), device)
+                del dense
+                if m == 512:
+                    qt = w.q.t()
+                    row["int_mm_ms"] = time_ms(lambda: torch._int_mm(xq, qt), device)
+            rows.append(row)
+        del w
     return rows
 
 
@@ -390,19 +524,23 @@ def model_file_bytes(preset: str | dict, n_layers: int | None, max_seq_len: int)
 def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tokens: int,
                decode_tokens: int, max_seq_len: int, seed: int, tmp: str,
                weight_format: str = "auto") -> dict:
-    """Phase 3: write the model, run the port's inference CLI path."""
+    """Phase 3: write the model into tmp (unless a run before wrote it),
+    run the port's inference CLI path."""
     from dllama_tpu_torch import cli
     from dllama_tpu_torch.models.synthetic import write_synth_model
     from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
 
     mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
-    need = model_file_bytes(preset, n_layers, max_seq_len)
-    free = shutil.disk_usage(tmp).free
-    require(free > need + (2 << 30), f"{preset}: {need / 1e9:.1f} GB model, {free / 1e9:.1f} GB free")
-    t0 = time.perf_counter()
-    h = write_synth_model(mp, preset, seed=seed, max_seq_len=max_seq_len, n_layers=n_layers)
-    write_tokenizer_file(tp, h.vocab_size)
-    write_s = time.perf_counter() - t0
+    write_s = None
+    if not os.path.exists(mp):
+        need = model_file_bytes(preset, n_layers, max_seq_len)
+        free = shutil.disk_usage(tmp).free
+        require(free > need + (2 << 30),
+                f"{preset}: {need / 1e9:.1f} GB model, {free / 1e9:.1f} GB free")
+        t0 = time.perf_counter()
+        h = write_synth_model(mp, preset, seed=seed, max_seq_len=max_seq_len, n_layers=n_layers)
+        write_tokenizer_file(tp, h.vocab_size)
+        write_s = time.perf_counter() - t0
     text = prompt_text(prompt_tokens - 1)  # one token per byte, plus BOS
     reset_launch_counts()
     res = cli.main([
@@ -411,7 +549,7 @@ def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tok
         "--device", device, "--seed", str(seed), "--weight-format", weight_format,
     ])
     counts = launch_counts()
-    res.update(header=h, write_s=write_s, counts=counts, model_path=mp)
+    res.update(header=res["engine"].header, write_s=write_s, counts=counts, model_path=mp)
     return res
 
 
@@ -428,60 +566,94 @@ def forward_rows(n_prompt: int, n_decode: int) -> list[int]:
     return rows + [1] * n_decode
 
 
-def expected_launches(h, n_prompt: int, n_decode: int, q40: bool) -> dict:
+# weight format -> the kernel of its attention, FFN and classifier matmuls
+MATMUL_KERNEL = {"q40": "q40_matmul", "q40i4": "q40i4_matmul", "q40i8": "i8_matmul"}
+
+
+def expected_launches(h, n_prompt: int, n_decode: int, weight_format: str) -> dict:
     """Launches the shapes imply. Per forward of n rows and L layers: the
-    Q40 matmul 7 a layer + the classifier (4 a layer for Qwen3-MoE, whose
-    experts are not matmuls), none with dense weights; one attention a layer
-    (stats for n > 1, decode for 1); for Qwen3-MoE one MoE kernel a layer,
-    the active-experts one for n <= 16, else the grouped one."""
+    format's matmul kernel 7 a layer + the classifier (4 a layer for
+    Qwen3-MoE, whose experts are not matmuls), none with dense weights; one
+    attention a layer (stats for n > 1, decode for 1); for Qwen3-MoE one MoE
+    kernel a layer, the active-experts one for n <= 16, else the grouped
+    one, on Q40 experts under every quantized format."""
     from dllama_tpu_torch.ops import KERNELS
     from dllama_tpu_torch.ops.moe import MOE_KERNEL_MAX_TOKENS
 
     moe, n_l = h.is_moe, h.n_layers
+    matmul = MATMUL_KERNEL.get(weight_format)
     want = dict.fromkeys(KERNELS, 0)
     for n in forward_rows(n_prompt, n_decode):
-        if q40:
-            want["q40_matmul"] += (4 if moe else 7) * n_l + 1
+        if matmul:
+            want[matmul] += (4 if moe else 7) * n_l + 1
         want["flash_attention_stats" if n > 1 else "flash_decode"] += n_l
         if moe:
             kind = "active" if n <= MOE_KERNEL_MAX_TOKENS else "grouped"
-            want[f"moe_{kind}_experts{'_q40' if q40 else ''}"] += n_l
+            want[f"moe_{kind}_experts{'_q40' if matmul else ''}"] += n_l
     return want
 
 
-def param_bytes(params) -> int:
-    """Bytes of every tensor in the params (QuantWeight: values and scales)."""
+def nbytes(v) -> int:
+    """Bytes of every tensor in v: a tensor, or a list, tuple (a quantized
+    weight: values and scales) or dict of them."""
     import torch
 
-    def size(v) -> int:
-        if torch.is_tensor(v):
-            return v.numel() * v.element_size()
-        if isinstance(v, (list, tuple, dict)):
-            return sum(size(x) for x in (v.values() if isinstance(v, dict) else v))
-        return 0
-
-    return size(params)
+    if torch.is_tensor(v):
+        return v.numel() * v.element_size()
+    if isinstance(v, (list, tuple, dict)):
+        return sum(nbytes(x) for x in (v.values() if isinstance(v, dict) else v))
+    return 0
 
 
 def weight_bytes(params, h) -> int:
     """Weight bytes one decoded token reads: every non-expert matmul weight
-    and, in a MoE layer, the f32 gate and k of the E experts."""
-    from dllama_tpu_torch.ops.quant_matmul import QuantWeight
-
-    def size(w) -> int:
-        if isinstance(w, QuantWeight):
-            return w.q.numel() * w.q.element_size() + w.d.numel() * w.d.element_size()
-        return w.numel() * w.element_size()
-
-    total = size(params["wcls"])
+    (values and scales) and, in a MoE layer, the f32 gate and k of the E
+    experts."""
+    total = nbytes(params["wcls"])
     for lp in params["layers"]:
-        total += sum(size(lp[key]) for key in ("wq", "wk", "wv", "wo"))
-        ffn = sum(size(lp[key]) for key in ("w1", "w2", "w3"))
+        total += sum(nbytes(lp[key]) for key in ("wq", "wk", "wv", "wo"))
+        ffn = sum(nbytes(lp[key]) for key in ("w1", "w2", "w3"))
         if h.is_moe:
-            total += size(lp["moe_gate"]) + ffn * h.n_active_experts // h.n_experts
+            total += nbytes(lp["moe_gate"]) + ffn * h.n_active_experts // h.n_experts
         else:
             total += ffn
     return total
+
+
+class ActTape:
+    """The int8 activations of one forward through the kernel path, handed
+    to the plain path (``forward(..., act_quant=...)``). `record` quantizes
+    as the engine does and keeps each int8 matmul's input x with its (xq,
+    sx), in call order; `replay` gives the plain path the recorded (xq, sx)
+    of the same call, and measures how far its own x lies from the
+    recorded one (max normalized error over the calls) and how many of its
+    int8 values would have rounded otherwise."""
+
+    def __init__(self):
+        self.calls, self.at, self.err, self.flips, self.values = [], 0, 0.0, 0, 0
+
+    def record(self, x, group):
+        from dllama_tpu_torch.ops.int8_matmul import quantize_acts
+
+        xq, sx = quantize_acts(x, group)
+        self.calls.append((x, xq, sx))
+        return xq, sx
+
+    def replay(self, x, group):
+        from dllama_tpu_torch.ops.int8_matmul import quantize_acts
+
+        require(self.at < len(self.calls), "act tape: more int8 matmuls than were recorded")
+        x_rec, xq, sx = self.calls[self.at]
+        self.at += 1
+        require(x.shape == x_rec.shape, f"act tape: call {self.at} takes {tuple(x.shape)}, "
+                f"recorded {tuple(x_rec.shape)}")
+        self.err = max(self.err, norm_err(x, x_rec)[0])
+        self.flips += int((quantize_acts(x, group)[0] != xq).sum())
+        self.values += xq.numel()
+        return xq, sx
+
+
+KERNEL, PLAIN, SHARED = "kernel", "plain", "plain, shared int8 activations"
 
 
 def parity(engine, prompt: list[int]) -> dict:
@@ -490,18 +662,31 @@ def parity(engine, prompt: list[int]) -> dict:
     share every rounding and differ only in summation order) and in the
     engine's bfloat16. Returns the errors and top-1/top-5 agreement of
     each pair, and for a MoE model how many (layer, token) top-k expert
-    sets the kernel and plain paths chose differently in each dtype (a
-    near-tie flip swaps a whole expert's output). main() gates on the
-    float32 pair only, since in bfloat16 a changed sum order flips
-    roundings that the layers amplify to the size of bfloat16's own
-    distance from float32 (printed as controls)."""
+    sets the two paths chose differently (a near-tie flip swaps a whole
+    expert's output). main() gates on the float32 pair only, since in
+    bfloat16 a changed sum order flips roundings that the layers amplify
+    to the size of bfloat16's own distance from float32 (printed as
+    controls).
+
+    With int8 weights (q40i8) the same happens in float32: each matmul
+    quantizes its activations per group, a step function, so the last-bit
+    differences of the attention and MoE kernels' sum order flip roundings
+    that grow through the layers. For such an engine a third float32 run
+    takes the plain path with the int8 activations of the kernel run
+    (`ActTape`): the pair "f32 kernel vs plain, shared int8 activations" and
+    the error of every int8 matmul's input x on that run (which the
+    attention and MoE kernels' differences reach, but no flip amplifies)
+    are the gate, and the count of roundings the plain path's own x would
+    have flipped is printed. The all-plain pair is printed too."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
     from dllama_tpu_torch.models import transformer
+    from dllama_tpu_torch.ops.int8_matmul import Int8Weight, quantize_acts
 
     h, dev = engine.header, engine.device
     toks = torch.tensor([prompt], device=dev)
+    int8 = isinstance(engine.params["wcls"], Int8Weight)
 
     def cast(p: dict, dtype) -> dict:
         """The params with every tensor held in the engine's dtype (the
@@ -514,6 +699,7 @@ def parity(engine, prompt: list[int]) -> dict:
 
     logits, routes, nxt = {}, {}, None
     route = transformer.moe_route
+    tapes = {"prefill": ActTape(), "decode": ActTape()}
 
     def recording(key):
         def moe_route(x, gate, n_active):
@@ -522,41 +708,61 @@ def parity(engine, prompt: list[int]) -> dict:
             return top_i, w
         return moe_route
 
+    def act_quant(dtype, kind, phase):
+        if int8 and dtype == torch.float32 and kind != PLAIN:
+            return tapes[phase].record if kind == KERNEL else tapes[phase].replay
+        return quantize_acts
+
+    runs = [(dtype, kind) for dtype in (torch.float32, torch.bfloat16) for kind in (KERNEL, PLAIN)]
+    if int8:
+        runs.append((torch.float32, SHARED))
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, kind in runs:
             params = cast(engine.params, dtype)
-            for plain in (False, True):
-                transformer.moe_route = recording((dtype, plain))
-                try:
-                    cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
-                    pre, cache = forward(params, h, toks, 0, cache, "last", plain=plain)
-                    if nxt is None:  # every run decodes the same token
-                        nxt = pre[:, -1].argmax(-1, keepdim=True)
-                    dec, _ = forward(params, h, nxt, len(prompt), cache, "last", plain=plain)
-                finally:
-                    transformer.moe_route = route
-                logits[dtype, plain] = (pre[0, -1].float(), dec[0, -1].float())
-                del cache
-            del params
+            transformer.moe_route = recording((dtype, kind))
+            plain = kind != KERNEL
+            try:
+                cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
+                pre, cache = forward(params, h, toks, 0, cache, "last", plain=plain,
+                                     act_quant=act_quant(dtype, kind, "prefill"))
+                if nxt is None:  # every run decodes the same token
+                    nxt = pre[:, -1].argmax(-1, keepdim=True)
+                dec, _ = forward(params, h, nxt, len(prompt), cache, "last", plain=plain,
+                                 act_quant=act_quant(dtype, kind, "decode"))
+            finally:
+                transformer.moe_route = route
+            logits[dtype, kind] = (pre[0, -1].float(), dec[0, -1].float())
+            del cache, params
+    pairs = {
+        "f32 kernel vs plain": ((torch.float32, KERNEL), (torch.float32, PLAIN)),
+        "bf16 kernel vs plain": ((torch.bfloat16, KERNEL), (torch.bfloat16, PLAIN)),
+        "bf16 plain vs f32 plain": ((torch.bfloat16, PLAIN), (torch.float32, PLAIN)),
+        "bf16 kernel vs f32 plain": ((torch.bfloat16, KERNEL), (torch.float32, PLAIN)),
+    }
+    if int8:
+        pairs[f"f32 kernel vs {SHARED}"] = ((torch.float32, KERNEL), (torch.float32, SHARED))
+
+    def compare(a, b) -> dict:
+        top5 = set(a.topk(5).indices.tolist()) & set(b.topk(5).indices.tolist())
+        return dict(err=norm_err(a, b)[0], top1=int(a.argmax()) == int(b.argmax()),
+                    top5_overlap=len(top5))
+
     res = {}
     for i, name in enumerate(("prefill", "decode")):
-        for tag, (a, b) in {
-            "f32 kernel vs plain": (logits[torch.float32, False][i], logits[torch.float32, True][i]),
-            "bf16 kernel vs plain": (logits[torch.bfloat16, False][i], logits[torch.bfloat16, True][i]),
-            "bf16 plain vs f32 plain": (logits[torch.bfloat16, True][i], logits[torch.float32, True][i]),
-            "bf16 kernel vs f32 plain": (logits[torch.bfloat16, False][i], logits[torch.float32, True][i]),
-        }.items():
-            rel, _ = norm_err(a, b)
-            top5 = set(a.topk(5).indices.tolist()) & set(b.topk(5).indices.tolist())
-            res[name, tag] = dict(
-                err=rel, top1=int(a.argmax()) == int(b.argmax()), top5_overlap=len(top5)
-            )
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        if (dtype, False) in routes:
-            pairs = zip(routes[dtype, False], routes[dtype, True])
+        for tag, (ka, kb) in pairs.items():
+            res[name, tag] = compare(logits[ka][i], logits[kb][i])
+        if int8:
+            tape = tapes[name]
+            require(tape.at == len(tape.calls),
+                    f"act tape {name}: {tape.at} of {len(tape.calls)} recorded calls replayed")
+            res[name, "int8 inputs"] = dict(err=tape.err, flips=tape.flips, values=tape.values,
+                                            calls=len(tape.calls))
+    del tapes
+    for tag, (ka, kb) in pairs.items():
+        if ka in routes and kb in routes and ka[1] == KERNEL and ka[0] == kb[0]:
             res["routing", tag] = dict(
-                differ=sum(int((a != b).any(-1).sum()) for a, b in pairs),
-                of=sum(int(a.shape[0]) for a in routes[dtype, False]),
+                differ=sum(int((a != b).any(-1).sum()) for a, b in zip(routes[ka], routes[kb])),
+                of=sum(int(a.shape[0]) for a in routes[ka]),
             )
     return res
 
@@ -617,8 +823,9 @@ def main() -> int:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    rows = (check_q40(device, gen) + check_attention(device, gen)
-            + check_attention(device, gen, h=32, kh=4) + check_moe(device, gen))
+    rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
+            + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
+            + check_moe(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -626,6 +833,13 @@ def main() -> int:
         )
         note = " (no single PyTorch call computes a routed SwiGLU MoE)" if "experts" in r else ""
         note += "".join(f"; {what} unrounded err {e:.2e}" for what, e in r.get("unrounded", {}).items())
+        if "twin_err" in r:
+            note += (f"; vs q40_matmul on the unpacked twin err {r['twin_err']:.2e}, "
+                     f"bits equal {r['twin_equal']}")
+        if "plain_equal" in r:
+            note += f"; bits equal to plain {r['plain_equal']}"
+        if "int_mm_ms" in r:
+            note += f"; torch._int_mm {r['int_mm_ms']:.4f}"
         print(
             f"{r['name']:23s} {r['shape']:32s} err {r['err']:.2e}{times} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){note}"
@@ -633,19 +847,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    paths = [
-        ("llama-8b", "llama-8b", N_LAYERS, "auto", 32),
-        ("qwen3-30b-a3b q40", "qwen3-30b-a3b", MOE_LAYERS, "auto", 48),
-        ("qwen3-30b-a3b dense", "qwen3-30b-a3b", MOE_DENSE_LAYERS, "dense", 48),
-    ]
-    counts = {}
-    for label, preset, n_layers, weight_format, depth in paths:
+    from dllama_tpu_torch.models.synthetic import PRESETS
+
+    counts, streams = {}, {}
+    for model, preset, n_layers, formats in MODELS:
+        depth = PRESETS[preset]["n_layers"]
         if n_layers < depth:
-            print(f"{label}: depth cut to {n_layers} of {depth} layers (bf16 experts are "
+            print(f"{model}: depth cut to {n_layers} of {depth} layers (bf16 experts are "
                   f"1.26 GB a layer: the whole model would not fit the card)")
-        counts[label] = run_path(label, preset, n_layers, weight_format)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            for weight_format in formats:
+                label, counts_, tokens = run_path(model, preset, n_layers, weight_format, tmp)
+                counts[label], streams[label] = counts_, tokens
+                gc.collect()
+                torch.cuda.empty_cache()
+    for label in counts:
+        model, fmt = label.rsplit(" ", 1)
+        if fmt in ("q40i4", "q40i8") and f"{model} q40" in streams:
+            a, b = streams[f"{model} q40"], streams[label]
+            first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            print(f"{label} greedy stream equals the q40 one: {a == b}"
+                  + ("" if first is None else f" (first of {len(a)} tokens to differ: {first})"))
 
     kernels = []
     for name in REPLACES:
@@ -668,58 +890,69 @@ def main() -> int:
     return 0
 
 
-def run_path(label: str, preset: str, n_layers: int, weight_format: str) -> dict:
-    """Phases 3 and 4 for one model: the CLI run, its launch counts against
-    the shapes', for a Q40 path the decode profile, and the parity gate.
-    The model lives in a temp dir of its own, deleted on return."""
+def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str):
+    """Phases 3 and 4 for one model and weight format: the CLI run, its
+    launch counts against the shapes', for a quantized format the decode
+    profile, and the parity gate. The model file lives in tmp (written by
+    the first run on it). Returns the run's label, launch counts and greedy
+    tokens."""
     import torch
 
-    with tempfile.TemporaryDirectory() as tmp:
-        res = end_to_end(
-            "cuda", preset, n_layers, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp,
-            weight_format,
-        )
-        h, eng = res["header"], res["engine"]
-        q40 = eng.weight_format == "q40"
-        n_dec = res["pred"].n_tokens
-        require(n_dec == DECODE_TOKENS, f"{label}: decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
-        counts = res["counts"]
-        want = expected_launches(h, len(res["prompt_tokens"]), n_dec, q40)
-        wb = weight_bytes(eng.params, h)
-        print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}; "
-              f"written in {res['write_s']:.1f} s")
-        print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
-              f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
-              f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f}")
-        print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
-        print(f"on the card after the run: weights {param_bytes(eng.params) / 1e9:.3f} GB, "
-              f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
-        print(f"launches {json.dumps(counts)} expected {json.dumps(want)}")
-        for name, c in counts.items():
-            require(c == want[name], f"{label} {name}: {c} launches, the shapes imply {want[name]}")
-            if want[name]:
-                require(c > 0, f"{label}: {name} was never launched on the main path")
-        if q40:
-            prof = decode_profile(eng, res["tokens"][-1], len(res["prompt_tokens"]) - 1 + n_dec)
-            host_ms = res["pred"].time_ms / n_dec
-            print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
-                  f"device launches/token {prof['launches_per_token']:.0f}, host ms/token "
-                  f"{host_ms:.3f} (unprofiled run), device busy share "
-                  f"{prof['device_ms_per_token'] / host_ms:.3f}")
-            for name, ms, count in prof["top"]:
-                print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
-        par = parity(eng, res["prompt_tokens"])
-        for (name, tag), p in par.items():
-            if name == "routing":
-                print(f"parity routing {tag}: {p['differ']} of {p['of']} (layer, token) top-k "
-                      "expert sets differ between the kernel and plain paths")
-            else:
-                print(f"parity {name} {tag}: logits err {p['err']:.3e} top1 {p['top1']} "
-                      f"top5_overlap {p['top5_overlap']}/5")
-        for name in ("prefill", "decode"):
-            f32 = par[name, "f32 kernel vs plain"]["err"]
-            require(f32 <= TOL_E2E, f"{label} {name}: f32 logits kernel vs plain {f32:.3e} > {TOL_E2E}")
-        return counts
+    res = end_to_end(
+        "cuda", preset, n_layers, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp, weight_format,
+    )
+    h, eng = res["header"], res["engine"]
+    label = f"{model} {eng.weight_format}"
+    n_dec = res["pred"].n_tokens
+    require(n_dec == DECODE_TOKENS, f"{label}: decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
+    counts = res["counts"]
+    want = expected_launches(h, len(res["prompt_tokens"]), n_dec, eng.weight_format)
+    wb = weight_bytes(eng.params, h)
+    written = "" if res["write_s"] is None else f"; written in {res['write_s']:.1f} s"
+    group = f", int8 group {eng.i8_group}" if eng.i8_group else ""
+    print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}"
+          f"{group}{written}")
+    print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
+          f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
+          f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f}")
+    print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
+    print(f"on the card after the run: weights {nbytes(eng.params) / 1e9:.3f} GB, "
+          f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    print(f"launches {json.dumps(counts)} expected {json.dumps(want)}")
+    for name, c in counts.items():
+        require(c == want[name], f"{label} {name}: {c} launches, the shapes imply {want[name]}")
+        if want[name]:
+            require(c > 0, f"{label}: {name} was never launched on the main path")
+    if eng.weight_format != "dense":
+        prof = decode_profile(eng, res["tokens"][-1], len(res["prompt_tokens"]) - 1 + n_dec)
+        host_ms = res["pred"].time_ms / n_dec
+        print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
+              f"device launches/token {prof['launches_per_token']:.0f}, host ms/token "
+              f"{host_ms:.3f} (unprofiled run), device busy share "
+              f"{prof['device_ms_per_token'] / host_ms:.3f}")
+        for name, ms, count in prof["top"]:
+            print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
+    par = parity(eng, res["prompt_tokens"])
+    for (name, tag), p in par.items():
+        if name == "routing":
+            print(f"parity routing, {tag}: {p['differ']} of {p['of']} (layer, token) top-k "
+                  "expert sets differ")
+        elif tag == "int8 inputs":
+            print(f"parity {name} f32 {SHARED}: the inputs of {p['calls']} int8 matmuls err "
+                  f"{p['err']:.3e} against the kernel path's; the plain path's own quantization "
+                  f"would round {p['flips']} of {p['values']} int8 values otherwise")
+        else:
+            print(f"parity {name} {tag}: logits err {p['err']:.3e} top1 {p['top1']} "
+                  f"top5_overlap {p['top5_overlap']}/5")
+    # with int8 weights the gate shares the kernel path's int8 activations
+    # with the plain path (see parity)
+    int8 = ("prefill", "int8 inputs") in par
+    gates = [f"f32 kernel vs {SHARED}", "int8 inputs"] if int8 else ["f32 kernel vs plain"]
+    for name in ("prefill", "decode"):
+        for gate in gates:
+            err = par[name, gate]["err"]
+            require(err <= TOL_E2E, f"{label} {name}: {gate} err {err:.3e} > {TOL_E2E}")
+    return label, counts, res["tokens"]
 
 
 if __name__ == "__main__":

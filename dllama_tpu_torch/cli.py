@@ -2,6 +2,7 @@
 
     python -m dllama_tpu_torch inference --model m.m --tokenizer t.t \\
         --prompt "..." --steps 64 [--temperature 0] [--device cuda|cpu]
+        [--weight-format auto|q40|q40i8|q40i4|dense]
 
 Flags follow the JAX package's CLI (reference: src/app.cpp:24-135). The
 device defaults to ``cuda`` and the run fails without one; ``--device cpu``
@@ -28,7 +29,11 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=0)
     p.add_argument("--max-seq-len", type=int, default=0)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
-    p.add_argument("--weight-format", default="auto", choices=["auto", "q40", "dense"])
+    p.add_argument(
+        "--weight-format", default="auto", choices=["auto", "q40", "q40i8", "q40i4", "dense"],
+        help="q40: int8 values + f16 scales; q40i8: requantized to grouped int8 at load; "
+        "q40i4: packed nibbles (0.5625 B/weight); auto: q40 on the card for a Q40 file",
+    )
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=int(time.time()))
@@ -68,6 +73,8 @@ def load_engine(args):
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")
     print(f"💡 WeightFormat: {engine.weight_format}")
+    if engine.i8_group:
+        print(f"💡 Int8Group: {engine.i8_group}")
     if tok.vocab_size != h.vocab_size:
         print(
             f"⚠️  tokenizer vocab ({tok.vocab_size}) != model vocab ({h.vocab_size}); "

@@ -17,7 +17,8 @@ tensors we write are byte-identical with the reference converter's output.
 These host-side codecs are numpy-vectorized (the port's own copy of
 dllama_tpu/formats/quants.py). On the GPU the loader unpacks the packed
 layout with torch ops on the device (models/loader.q40_unpack), and that
-unpack is held against `q40_to_planar` here.
+unpack is held against `q40_to_planar` here; its q40i4 split
+(models/loader.q40_split) is held against `pack_q40_device`.
 """
 
 from __future__ import annotations
@@ -135,6 +136,24 @@ def q40_to_planar(raw: np.ndarray, n_elements: int) -> tuple[np.ndarray, np.ndar
     q[:, :half] = (packed & 0xF).astype(np.int8) - 8
     q[:, half:] = (packed >> 4).astype(np.int8) - 8
     return q.reshape(-1), d
+
+
+def pack_q40_device(q: np.ndarray, d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Planar Q40 in the port's rows -> the packed-nibble device format
+    (weight_format q40i4; ops.quant_matmul.PackedQuantWeight).
+
+    ``q`` int8 [..., out, in] values in [-8, 7], ``d`` [..., out, in // 32]
+    scales -> (``qp`` uint8 [..., out, in // 2], ``d`` f16). Byte j of each
+    block's 16 holds element j in its low nibble and element j + 16 in its
+    high one, each plus 8: the wire's own pairing, so the bytes are the
+    file's Q40 block without its scale."""
+    *lead, inner = q.shape
+    if inner % Q40_BLOCK_SIZE:
+        raise ValueError(f"in dim {inner} not a multiple of {Q40_BLOCK_SIZE}")
+    half = Q40_BLOCK_SIZE // 2
+    blk = q.reshape(*lead, inner // Q40_BLOCK_SIZE, Q40_BLOCK_SIZE).astype(np.int16) + 8
+    qp = (blk[..., :half] | (blk[..., half:] << 4)).astype(np.uint8)
+    return qp.reshape(*lead, inner // 2), d.astype(np.float16)
 
 
 def q80_to_planar(raw: np.ndarray, n_elements: int) -> tuple[np.ndarray, np.ndarray]:

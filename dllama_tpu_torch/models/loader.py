@@ -5,14 +5,19 @@ read one at a time off the file's memmap (reference: loadLlmNetWeight,
 src/llm.cpp:614-669). For ``weight_format="q40"`` the packed Q40 bytes go
 to the device as they are and are unpacked there with torch ops
 (`q40_unpack`), so the host never expands the ~7.5 G weights of an 8B
-model; the unpack is held against the numpy ``q40_to_planar``. Like the
-JAX loader, the file is consumed as-is (the converter pre-permutes llama
-q/k rows for interleaved RoPE).
+model; the unpack is held against the numpy ``q40_to_planar``. For
+``weight_format="q40i4"`` the bytes are split on the device into the
+packed-nibble values and the scales (`q40_split`): the file's blocks are
+already that layout, so nothing is unpacked. Like the JAX loader, the file
+is consumed as-is (the converter pre-permutes llama q/k rows for
+interleaved RoPE). ``q40i8`` is q40 requantized afterwards
+(ops/int8_matmul.requantize_params, called by the engine).
 
 Qwen3-MoE experts are stacked per layer (``w1``/``w3`` [E, F, D], ``w2``
 [E, D, F]; 18,432 tensors at Qwen3-30B-A3B). One layer's experts are
 contiguous in the file, so a Q40 file sends them to the device in one
-copy per layer and unpacks them there.
+copy per layer and unpacks them there. Under q40i4 they stay in this int8
+``QuantWeight`` layout, the one the MoE kernels take (as in JAX).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..formats.model_file import LlmArch, ModelReader
 from ..formats.quants import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, FloatType
-from ..ops.quant_matmul import QuantWeight, dequant
+from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, dequant
 from ..ops.torch_ops import rope_cache
 from .transformer import Params
 
@@ -44,6 +49,17 @@ def q40_unpack(raw: torch.Tensor, out_dim: int, in_dim: int) -> QuantWeight:
     return QuantWeight(q.contiguous(), d.contiguous())
 
 
+def q40_split(raw: torch.Tensor, out_dim: int, in_dim: int) -> PackedQuantWeight:
+    """Packed Q40 bytes (uint8, any device) of an [out, in] tensor ->
+    PackedQuantWeight(qp uint8 [out, in/2], d f16 [out, in/32]) on the bytes'
+    device: each 18-byte block split into its f16 scale and its 16 nibble
+    bytes, which stay as they are."""
+    blocks = raw.reshape(-1, Q40_BLOCK_BYTES)
+    d = blocks[:, :2].contiguous().view(torch.float16).reshape(out_dim, in_dim // Q40_BLOCK_SIZE)
+    qp = blocks[:, 2:].reshape(out_dim, in_dim // 2)
+    return PackedQuantWeight(qp.contiguous(), d.contiguous())
+
+
 def load_params(
     reader: ModelReader,
     dtype=torch.float32,
@@ -53,23 +69,28 @@ def load_params(
     """Params for `models.transformer.forward`. ``dtype`` is the activation
     dtype (embedding and dense weights); norm weights and the rope tables
     stay f32. ``weight_format="q40"`` keeps matmul weights Q40 on the device
-    (needs a Q40 file); ``"dense"`` dequantizes them to ``dtype``. The
-    device defaults to ``cuda``."""
+    (needs a Q40 file), ``"q40i4"`` keeps the non-expert ones as packed
+    nibbles (experts stay ``"q40"``); ``"dense"`` dequantizes them to
+    ``dtype``. The device defaults to ``cuda``."""
     device = resolve_device(device)
     h = reader.header
-    if weight_format not in ("dense", "q40"):
-        raise ValueError(f"weight_format must be 'dense' or 'q40', got {weight_format!r}")
-    if weight_format == "q40" and h.weight_type != FloatType.Q40:
-        raise ValueError(f"weight_format='q40' needs a Q40 model file, got {h.weight_type.name}")
+    if weight_format not in ("dense", "q40", "q40i4"):
+        raise ValueError(f"weight_format must be 'dense', 'q40' or 'q40i4', got {weight_format!r}")
+    quant = weight_format != "dense"
+    if quant and h.weight_type != FloatType.Q40:
+        raise ValueError(
+            f"weight_format={weight_format!r} needs a Q40 model file, got {h.weight_type.name}"
+        )
 
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.dense_f32(name)).to(device)
 
     def matmul_weight(name: str):
-        if weight_format == "q40":
+        if quant:
             out_dim, in_dim = reader.by_name[name].shape
             raw = torch.from_numpy(np.array(reader.raw(name))).to(device)
-            return q40_unpack(raw, out_dim, in_dim)
+            split = q40_split if weight_format == "q40i4" else q40_unpack
+            return split(raw, out_dim, in_dim)
         return f32(name).to(dtype)  # [out, in]
 
     def experts(l: int) -> dict:
@@ -91,7 +112,7 @@ def load_params(
         for i, (w, (rows, cols)) in enumerate(shapes.items()):
             u = q40_unpack(raw[:, i], e_n * rows, cols)
             qw = QuantWeight(u.q.view(e_n, rows, cols), u.d.view(e_n, rows, cols // Q40_BLOCK_SIZE))
-            out[w] = qw if weight_format == "q40" else dequant(qw, dtype)
+            out[w] = qw if quant else dequant(qw, dtype)
         return out
 
     moe = h.arch == LlmArch.QWEN3_MOE

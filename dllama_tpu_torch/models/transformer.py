@@ -10,7 +10,8 @@ walk is the same (reference: src/llm.cpp:263-557):
 with a Python loop over layers in place of ``lax.scan``. Params are a dict:
 ``embed`` [V, D], ``wcls``, ``final_norm``, ``rope_cos``/``rope_sin``
 [S, hd/2] f32, and ``layers``, a list of per-layer dicts. Matmul weights
-are ``QuantWeight`` (q40, the CUDA kernel on the card) or dense [out, in]
+are ``QuantWeight`` (q40), ``PackedQuantWeight`` (q40i4) or ``Int8Weight``
+(q40i8), each with its CUDA kernel on the card, or dense [out, in]
 tensors. The KV cache is head-major, [L, B, KH, S, hd], and is updated in
 place (JAX returns a new cache; the port writes the rows where they go).
 Qwen3-MoE layers hold ``moe_gate`` [E, D] f32 and stacked experts
@@ -52,7 +53,8 @@ from ..ops.moe import (
     moe_grouped_experts_q40,
     moe_route,
 )
-from ..ops.quant_matmul import QuantWeight, qmatmul, qmatmul_ref
+from ..ops.int8_matmul import Int8Weight, i8matmul, i8matmul_ref, quantize_acts
+from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, qmatmul, qmatmul_i4, qmatmul_ref
 from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
 
 Params = Dict[str, Any]
@@ -72,11 +74,32 @@ def init_kv_cache(
     }
 
 
-def _mm(x: torch.Tensor, w, plain: bool) -> torch.Tensor:
-    """x [..., in] @ W -> [..., out] in x's dtype: the Q40 kernel for
-    QuantWeight leaves, a dense product for [out, in] tensors."""
-    if isinstance(w, QuantWeight):
-        return (qmatmul_ref if plain else qmatmul)(x, w).to(x.dtype)
+# Q40 weight type -> (kernel wrapper, plain version), both -> f32
+_Q40_MATMULS = {
+    QuantWeight: (qmatmul, qmatmul_ref),
+    PackedQuantWeight: (qmatmul_i4, qmatmul_ref),
+}
+
+
+def _quant_mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor | None:
+    """f32 x @ W^T through the weight type's kernel (or its plain version),
+    None for a dense weight. An Int8Weight's activations come from
+    ``act_quant`` (see `forward`)."""
+    if isinstance(w, Int8Weight):
+        return (i8matmul_ref if plain else i8matmul)(x, w, act_quant)
+    pair = _Q40_MATMULS.get(type(w))
+    if pair is None:
+        return None
+    kernel, ref = pair
+    return (ref if plain else kernel)(x, w)
+
+
+def _mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor:
+    """x [..., in] @ W -> [..., out] in x's dtype: the weight type's kernel
+    for a quantized leaf, a dense product for an [out, in] tensor."""
+    out = _quant_mm(x, w, plain, act_quant)
+    if out is not None:
+        return out.to(x.dtype)
     return torch.matmul(x, w.transpose(-1, -2))
 
 
@@ -99,7 +122,8 @@ def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool) -> torch.Ten
     return out.reshape(b, t, d).to(y.dtype)
 
 
-def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain=False):
+def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain=False,
+                act_quant=quantize_acts):
     """Final norm + vocab matmul, f32 logits (reference: src/llm.cpp:560-599).
     ``logits_mode="last"`` computes the last chunk row only."""
     if logits_mode not in ("all", "last"):
@@ -108,8 +132,9 @@ def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str,
         x = x[:, -1:, :]
     y = rms_norm(x, params["final_norm"], h.norm_epsilon)
     wcls = params["wcls"]
-    if isinstance(wcls, QuantWeight):
-        return (qmatmul_ref if plain else qmatmul)(y, wcls)
+    out = _quant_mm(y, wcls, plain, act_quant)
+    if out is not None:
+        return out
     return torch.matmul(y.float(), wcls.float().transpose(-1, -2))
 
 
@@ -121,9 +146,15 @@ def forward(
     cache: KvCache,
     logits_mode: str = "all",
     plain: bool = False,
+    act_quant=quantize_acts,
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
-    are written in place. Returns (logits [B, T or 1, V] f32, cache)."""
+    are written in place. Returns (logits [B, T or 1, V] f32, cache).
+
+    ``act_quant(x [n, k], group) -> (xq, sx)`` quantizes the activations of
+    every int8 matmul (q40i8), in the order of the calls. The default is
+    `quantize_acts`; a caller that holds one run to another can hand both
+    the same int8 activations (chip_smoke.py's parity check)."""
     b, t = tokens.shape
     s = cache["k"].shape[3]
     if pos < 0 or pos + t > s:
@@ -140,14 +171,17 @@ def forward(
     )
     hq, hkv, hd = h.n_heads, h.n_kv_heads, h.head_dim
 
+    def mm(x, w):
+        return _mm(x, w, plain, act_quant)
+
     x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
     cos = params["rope_cos"][pos : pos + t]
     sin = params["rope_sin"][pos : pos + t]
     for l, lp in enumerate(params["layers"]):
         y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
-        q = _mm(y, lp["wq"], plain).reshape(b, t, hq, hd)
-        k = _mm(y, lp["wk"], plain).reshape(b, t, hkv, hd)
-        v = _mm(y, lp["wv"], plain).reshape(b, t, hkv, hd)
+        q = mm(y, lp["wq"]).reshape(b, t, hq, hd)
+        k = mm(y, lp["wk"]).reshape(b, t, hkv, hd)
+        v = mm(y, lp["wv"]).reshape(b, t, hkv, hd)
         if is_qwen3:
             q = qk_rms_norm(q, lp["q_norm"], h.norm_epsilon)
             k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
@@ -157,14 +191,14 @@ def forward(
         k_cache[:, :, pos : pos + t] = k.transpose(1, 2).to(k_cache.dtype)
         v_cache[:, :, pos : pos + t] = v.transpose(1, 2).to(v_cache.dtype)
         z = attend(q, k_cache, v_cache, pos).reshape(b, t, hq * hd)
-        x = x + _mm(z, lp["wo"], plain).to(x.dtype)
+        x = x + mm(z, lp["wo"]).to(x.dtype)
 
         y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
         if is_moe:
             f = moe_ffn(y, lp, h, plain)
         else:
-            d = act(_mm(y, lp["w1"], plain))
-            u = _mm(y, lp["w3"], plain)
-            f = _mm(d * u.to(d.dtype), lp["w2"], plain)
+            d = act(mm(y, lp["w1"]))
+            u = mm(y, lp["w3"])
+            f = mm(d * u.to(d.dtype), lp["w2"])
         x = x + f.to(x.dtype)
-    return logits_head(x, params, h, logits_mode, plain), cache
+    return logits_head(x, params, h, logits_mode, plain, act_quant), cache

@@ -25,7 +25,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("q40_matmul", "flash_attention", "flash_decode", "moe_active", "moe_grouped")
+SOURCES = (
+    "q40_matmul", "q40i4_matmul", "i8_matmul", "flash_attention", "flash_decode", "moe_active",
+    "moe_grouped",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -36,6 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry of each source (same name) and its argument types
 SIGNATURES = {
     "q40_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "q40i4_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "i8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "flash_attention": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     "flash_decode": [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _P],
     "moe_active": [_P] * 11 + [_I] * 6 + [_P],

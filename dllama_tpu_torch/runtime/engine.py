@@ -9,7 +9,11 @@ per block (`decode_block`). Sampling with temperature > 0 uses the
 reference-parity host sampler one step at a time (`decode_step`).
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; on the card
-every matmul and attention goes through the port's CUDA kernels.
+every matmul and attention goes through the port's CUDA kernels. Weight
+formats: ``q40`` (int8 values + f16 scales), ``q40i4`` (packed nibbles),
+``q40i8`` (q40 requantized on the device to grouped int8, G from
+`pick_group`), ``dense``, and ``auto`` (q40 for a Q40 file on the card,
+dense elsewhere).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..device import resolve_device
 from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
+from ..ops.int8_matmul import pick_group, requantize_params
 from .sampler import Sampler
 
 # Prefill chunk buckets (the reference's --nBatches role; the JAX engine
@@ -69,10 +74,21 @@ class InferenceEngine:
                 if self.header.weight_type == FloatType.Q40 and self.device.type == "cuda"
                 else "dense"
             )
+        if weight_format not in ("dense", "q40", "q40i4", "q40i8"):
+            raise ValueError(
+                "weight_format must be 'auto', 'dense', 'q40', 'q40i4' or 'q40i8', "
+                f"got {weight_format!r}"
+            )
         self.weight_format = weight_format
+        # q40i8 loads the file's Q40 blocks, then requantizes on the device
         self.params = load_params(
-            self.reader, dtype=dtype, device=self.device, weight_format=weight_format
+            self.reader, dtype=dtype, device=self.device,
+            weight_format="q40" if weight_format == "q40i8" else weight_format,
         )
+        self.i8_group = 0
+        if weight_format == "q40i8":
+            self.i8_group = pick_group(self.header)
+            self.params = requantize_params(self.params, self.header, self.i8_group)
         self.cache = init_kv_cache(self.header, 1, dtype=dtype, device=self.device)
 
     def reset(self) -> None:

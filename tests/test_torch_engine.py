@@ -1,6 +1,7 @@
 """The port's engine and CLI on CPU: the greedy token stream equals the JAX
 InferenceEngine's (f32, weight_format="q40") for a tiny Llama and a tiny
-Qwen3-MoE, and the inference CLI runs."""
+Qwen3-MoE, and for the q40i4 and q40i8 formats on a dim-128 Llama and the
+tiny Qwen3-MoE; the inference CLI runs and lists every weight format."""
 
 import jax.numpy as jnp
 import pytest
@@ -36,15 +37,25 @@ def tiny_moe(tmp_path_factory):
 STREAMS = [([1, 2, 3, 4], 24, 8), (list(range(5, 18)), 40, 5)]
 
 
-def _greedy_streams_agree(mp, prompt, steps, block):
-    jeng = JEngine(mp, tp=1, dtype=jnp.float32, temperature=0.0, weight_format="q40")
+@pytest.fixture(scope="module")
+def tiny128(tmp_path_factory):
+    """dim 128, hidden 256: int8 group 128 (the tiny preset's is 32)."""
+    mp = str(tmp_path_factory.mktemp("engine128") / "m128.m")
+    make_tiny_model(mp, cfg=dict(CFG, dim=128, hidden_dim=256, vocab_size=256))
+    return mp
+
+
+def _greedy_streams_agree(mp, prompt, steps, block, weight_format="q40"):
+    jeng = JEngine(mp, tp=1, dtype=jnp.float32, temperature=0.0, weight_format=weight_format)
     want, jev, _ = jeng.generate(prompt, max_steps=steps, block_size=block)
-    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, weight_format="q40",
+    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, weight_format=weight_format,
                           device="cpu")
     got, ev, pred = eng.generate(prompt, max_steps=steps, block_size=block)
     assert got == want
     assert ev.n_tokens == jev.n_tokens == len(prompt) - 1
     assert pred.n_tokens == len(got) == steps - len(prompt) + 1
+    assert eng.weight_format == weight_format and eng.i8_group == jeng.i8_group
+    return eng
 
 
 @pytest.mark.parametrize("prompt,steps,block", STREAMS)
@@ -57,6 +68,32 @@ def test_greedy_stream_matches_jax_engine_qwen3_moe(tiny_moe, prompt, steps, blo
     # the 13-token prompt prefills in a 32-row chunk (the grouped wrapper),
     # the 4-token one in an 8-row chunk (the active-experts wrapper)
     _greedy_streams_agree(tiny_moe, prompt, steps, block)
+
+
+@pytest.mark.parametrize("weight_format,group", [("q40i4", 0), ("q40i8", 128)])
+@pytest.mark.parametrize("prompt,steps,block", STREAMS)
+def test_greedy_stream_matches_jax_engine_formats(tiny128, prompt, steps, block, weight_format,
+                                                  group):
+    eng = _greedy_streams_agree(tiny128, prompt, steps, block, weight_format)
+    assert eng.i8_group == group
+
+
+@pytest.mark.parametrize("weight_format", ["q40i4", "q40i8"])
+def test_greedy_stream_matches_jax_engine_qwen3_moe_formats(tiny_moe, weight_format):
+    eng = _greedy_streams_agree(tiny_moe, *STREAMS[1], weight_format)
+    assert type(eng.params["layers"][0]["w1"]).__name__ == "QuantWeight"  # experts stay Q40
+
+
+def test_engine_refuses_unknown_weight_format(tiny):
+    with pytest.raises(ValueError, match="weight_format"):
+        InferenceEngine(tiny[0], dtype=torch.float32, weight_format="q40i2", device="cpu")
+
+
+def test_cli_help_lists_weight_formats(capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["--help"])
+    out = " ".join(capsys.readouterr().out.split())
+    assert "--weight-format {auto,q40,q40i8,q40i4,dense}" in out
 
 
 def test_decode_step_stream_equals_block_stream(tiny):
@@ -105,14 +142,23 @@ def test_engine_default_device_is_cuda(tiny):
         init_kv_cache(reader.header, 1)
 
 
-def test_cli_inference_on_cpu(tiny, capsys):
+def _cli_run_matches_engine(tiny, capsys, weight_format):
     mp, tp = tiny
     res = cli.main(["inference", "--model", mp, "--tokenizer", tp, "--prompt", "hello world",
                     "--steps", "20", "--temperature", "0", "--dtype", "f32",
-                    "--weight-format", "q40", "--device", "cpu"])
+                    "--weight-format", weight_format, "--device", "cpu"])
     out = capsys.readouterr().out
     assert "Evaluation" in out and "Prediction" in out and "hello world" in out
-    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, weight_format="q40",
+    assert f"WeightFormat: {weight_format}" in out
+    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, weight_format=weight_format,
                           device="cpu")
     want, _, _ = eng.generate(res["prompt_tokens"], max_steps=20)
     assert res["tokens"] == want and len(want) == 20 - len(res["prompt_tokens"]) + 1
+
+
+def test_cli_inference_on_cpu(tiny, capsys):
+    _cli_run_matches_engine(tiny, capsys, "q40")
+
+
+def test_cli_inference_on_cpu_q40i8(tiny, capsys):
+    _cli_run_matches_engine(tiny, capsys, "q40i8")

@@ -3,7 +3,10 @@
 logits_modes, q40 and dense weights; params carried across from the JAX
 loader's fused layout give the same logits; and a Qwen3-MoE forward takes
 the active-experts wrapper for a 1-row step and the grouped one for a
-20-row chunk."""
+20-row chunk. The q40i4 and q40i8 formats: the port's own params give the
+JAX logits with the JAX engine's weights (atol 1e-4), the JAX params,
+fused or not, carry across exactly, and every int8 matmul takes its
+activations from `forward`'s act_quant."""
 
 import jax
 import jax.numpy as jnp
@@ -16,9 +19,12 @@ from dllama_tpu.formats.model_file import LlmArch
 from dllama_tpu.models import forward as j_forward
 from dllama_tpu.models import init_kv_cache as j_init
 from dllama_tpu.models import load_params as j_load
+from dllama_tpu.ops import int8_matmul as JI
 from dllama_tpu_torch.formats import ModelReader
 from dllama_tpu_torch.models import forward, init_kv_cache, load_params
 from dllama_tpu_torch.models.convert import params_from_jax
+from dllama_tpu_torch.ops.int8_matmul import Int8Weight, pick_group, requantize_params
+from dllama_tpu_torch.ops.quant_matmul import PackedQuantWeight, QuantWeight
 
 from helpers import make_tiny_model
 
@@ -101,6 +107,85 @@ def test_params_from_jax_fused_layout(models, case):
             assert carried["layers"][1][key].q.shape == own["layers"][1][key].q.shape
             torch.testing.assert_close(carried["layers"][1][key].q, own["layers"][1][key].q)
             torch.testing.assert_close(carried["layers"][1][key].d, own["layers"][1][key].d)
+
+
+def _formats(reader, jreader, weight_format, fuse=0):
+    """(port params, JAX params) of a quantized format, each from its own
+    package's loader (q40i8: q40, then requantized with pick_group)."""
+    h, jh = reader.header, jreader.header
+    if weight_format == "q40i4":
+        return (load_params(reader, torch.float32, "cpu", weight_format="q40i4"),
+                j_load(jreader, dtype=jnp.float32, weight_format="q40i4", fuse=fuse))
+    own = load_params(reader, torch.float32, "cpu", weight_format="q40")
+    jq = j_load(jreader, dtype=jnp.float32, weight_format="q40", fuse=fuse)
+    return (requantize_params(own, h, pick_group(h)),
+            JI.requantize_params(jq, jh, JI.pick_group(jh, 1)))
+
+
+@pytest.mark.parametrize("weight_format", ["q40i4", "q40i8"])
+@pytest.mark.parametrize("case", ["llama", "qwen3", "qwen3_moe"])
+def test_forward_matches_jax_quantized(models, case, weight_format):
+    reader, jreader = ModelReader(models[case]), JReader(models[case])
+    params, jparams = _formats(reader, jreader, weight_format)
+    kind = PackedQuantWeight if weight_format == "q40i4" else Int8Weight
+    assert isinstance(params["wcls"], kind) and isinstance(params["layers"][0]["wq"], kind)
+    assert isinstance(params["layers"][0]["w1"], QuantWeight if case == "qwen3_moe" else kind)
+    for g, w in zip(_run_port(params, reader.header, "all"),
+                    _run_jax(jparams, jreader.header, "all")):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("weight_format", ["q40i4", "q40i8"])
+@pytest.mark.parametrize("case", ["llama", "qwen3", "qwen3_moe"])
+def test_params_from_jax_quantized(models, case, weight_format):
+    """Int8Weight, PackedQuantWeight and the FusedQuantWeights around them
+    carry across with their exact values and scales: the fused JAX params
+    give the port's own leaves (Q40 experts for Qwen3-MoE)."""
+    reader, jreader = ModelReader(models[case]), JReader(models[case])
+    own, jparams = _formats(reader, jreader, weight_format, fuse=1)
+    assert "wqkv" in jparams["layers"]
+    carried = params_from_jax(jax.tree.map(np.asarray, jparams), reader.header, "cpu")
+    for key in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+        for lc, lo in zip(carried["layers"], own["layers"]):
+            assert type(lc[key]) is type(lo[key]), key
+            for a, b in zip(lc[key], lo[key]):
+                assert a.dtype == b.dtype and a.shape == b.shape, key
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(carried["wcls"], own["wcls"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["llama", "qwen3_moe"])
+def test_forward_int8_activations_come_from_act_quant(models, case):
+    """`forward`'s act_quant quantizes every int8 matmul's activations, one
+    call a matmul in a fixed order: the plain path replaying what a kernel
+    run recorded gives that run's logits exactly, and a quantizer that
+    zeroes them zeroes the logits (q40i8, f32, CPU)."""
+    from dllama_tpu_torch.ops.int8_matmul import quantize_acts
+
+    reader = ModelReader(models[case])
+    h = reader.header
+    own = load_params(reader, torch.float32, "cpu", weight_format="q40")
+    params = requantize_params(own, h, pick_group(h))
+    tokens = torch.from_numpy(TOKENS[:, :8])
+    tape = []
+
+    def record(x, group):
+        tape.append(quantize_acts(x, group))
+        return tape[-1]
+
+    def run(plain, act_quant):
+        cache = init_kv_cache(h, 1, torch.float32, device="cpu")
+        return forward(params, h, tokens, 0, cache, "all", plain=plain, act_quant=act_quant)[0]
+
+    want = run(False, record)
+    assert len(tape) == (4 if case == "qwen3_moe" else 7) * h.n_layers + 1
+    replay = iter(tape)
+    torch.testing.assert_close(run(True, lambda x, g: next(replay)), want, rtol=0, atol=0)
+    assert next(replay, None) is None
+    zero = run(True, lambda x, g: (torch.zeros_like(x, dtype=torch.int8),
+                                   torch.ones(x.shape[0], x.shape[1] // g)))
+    assert not zero.any()
 
 
 def test_qwen3_moe_f32_file_matches_jax_dense(tmp_path):

@@ -36,7 +36,13 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    weight-read bound per token, the weight bytes and
    ``torch.cuda.memory_allocated`` on the card and, for the quantized runs,
    a decode profile. Whether the q40i4 and q40i8 greedy streams equal the
-   q40 one is printed, not gated.
+   q40 one is printed, not gated. After the llama-8b runs, on the same
+   file, the serving phase (`serving`): the port's lane server in process,
+   4 lanes over the paged pool, six greedy requests (four at once, two
+   queued; two share a page-aligned 256-token prefix, one diverges
+   mid-page), each replayed alone; TTFT and decode ms/token per request,
+   aggregate decode tok/s against the single-stream q40 run, pool pages,
+   radix hits and COW forks, with gates on all of it (see `serving`).
 4. End-to-end parity for each path: one prefill and one decode step
    through the kernel path and through the plain path (``forward(...,
    plain=True)``) on the same weights: logits' normalized error and top-1
@@ -44,7 +50,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the two paths chose differently. The float32 comparison is the gate; the
    bfloat16 ones are printed beside it. For q40i8 the gated plain run takes
    the kernel run's int8 activations, and the inputs of its int8 matmuls
-   are gated too (see `parity`).
+   are gated too (see `parity`). For the serving phase, pool-native lanes
+   against the slab path and the paged path's kernels against its plain
+   versions, f32 (`lane_parity`).
 5. A ``{"kernels": [...]}`` JSON line; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
@@ -102,6 +110,7 @@ REPLACES = {
     "i8_matmul": "dllama_tpu/ops/int8_matmul.py:157",
     "flash_attention_stats": "dllama_tpu/ops/flash_attention.py:166",
     "flash_decode": "dllama_tpu/ops/flash_attention.py:404",
+    "paged_flash_decode": "dllama_tpu/ops/flash_attention.py:630",
     "moe_active_experts": "dllama_tpu/ops/moe_kernel.py:213",
     "moe_active_experts_q40": "dllama_tpu/ops/moe_kernel.py:250",
     "moe_grouped_experts": "dllama_tpu/ops/moe_kernel.py:449",
@@ -113,6 +122,7 @@ SOURCES = {
     "i8_matmul": "dllama_tpu_torch/csrc/i8_matmul.cu",
     "flash_attention_stats": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "paged_flash_decode": "dllama_tpu_torch/csrc/flash_decode.cu",
     "moe_active_experts": "dllama_tpu_torch/csrc/moe_active.cu",
     "moe_active_experts_q40": "dllama_tpu_torch/csrc/moe_active.cu",
     "moe_grouped_experts": "dllama_tpu_torch/csrc/moe_grouped.cu",
@@ -125,6 +135,7 @@ KERNEL_ROW_SHAPE = {
     "i8_matmul": "m=1 k=4096 n=14336 G=512",
     "flash_attention_stats": "H=32 KH=8 T=512 S=4096 pos=3584",
     "flash_decode": "H=32 KH=8 S=4096 pos=4095",
+    "paged_flash_decode": "bf16 H=32 KH=8 B=4 pos=0,15,16,4095",
     "moe_active_experts": "bf16 m=1",
     "moe_active_experts_q40": "bf16 m=1",
     "moe_grouped_experts": "bf16 N=512",
@@ -396,6 +407,122 @@ def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -
     return rows
 
 
+PAGE = 16  # the serving path's pool page size
+PAGED_POS = (0, 15, 16, 4095)  # one lane each: a page's first row, its last, the next, the full table
+
+
+def _paged_case(device, gen, h: int, kh: int, dtype, s: int = 4096, b: int = 4):
+    """A pool of 1 + b * s/PAGE pages and a shuffled page table [b, s/PAGE]
+    in which lanes 0 and 1 share their first 4 pages; and the slab [b, KH,
+    s, hd] of random K/V with the pool that holds it page for page under
+    the identity table (page 0 scratch)."""
+    import torch
+
+    hd, nb = 128, s // PAGE
+    n_pages = 1 + b * nb
+    perm = torch.randperm(n_pages - 1, device=device, generator=gen) + 1
+    pt = perm.reshape(b, nb).to(torch.int32)
+    pt[1, :4] = pt[0, :4]
+    pool = [torch.randn((n_pages, kh, PAGE, hd), device=device, generator=gen).to(dtype)
+            for _ in range(2)]
+    slab = [torch.randn((b, kh, s, hd), device=device, generator=gen).to(dtype) for _ in range(2)]
+    ident = [torch.cat([torch.zeros_like(x[:1, :, :PAGE]).reshape(1, kh, PAGE, hd),
+                        x.reshape(b, kh, nb, PAGE, hd).transpose(1, 2).reshape(b * nb, kh, PAGE,
+                                                                               hd)])
+             for x in slab]
+    pt_ident = (1 + torch.arange(b * nb, device=device, dtype=torch.int32)).reshape(b, nb)
+    return pool, pt, slab, ident, pt_ident
+
+
+def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
+    """The paged decode kernel against `paged_flash_decode_ref` at llama-8b
+    heads (H 32, KH 8) and qwen3-30b-a3b heads (H 32, KH 4), hd 128, page
+    16, B = 4 lanes at positions PAGED_POS, bf16 and f32, through a
+    shuffled page table with two lanes sharing pages; with an identity
+    table it must give `flash_decode`'s bits on the same rows. Then the
+    paged prefill stats (the stats kernel with paged addressing) against
+    `attention_stats` on the gathered view, and its identity-table bits
+    against `flash_attention_stats` (printed). The library yardstick is
+    scaled_dot_product_attention on the gathered contiguous view: it leaves
+    the gather out."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats,
+        flash_decode,
+        paged_flash_attention_stats,
+        paged_flash_attention_stats_ref,
+        paged_flash_decode,
+        paged_flash_decode_ref,
+    )
+    from dllama_tpu_torch.ops.kv_cache import lane_views
+
+    rows = []
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=device)
+    for h, kh in ((32, 8), (32, 4)):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            (kp, vp), pt, (ks, vs), (ki, vi), pt_ident = _paged_case(device, gen, h, kh, dtype)
+            q = torch.randn((4, 1, h, 128), device=device, generator=gen).to(dtype)
+            before = paged_flash_decode.launches
+            got = paged_flash_decode(q, kp, vp, pt, pos)
+            ref = paged_flash_decode_ref(q, kp, vp, pt, pos)
+            ident = paged_flash_decode(q, ki, vi, pt_ident, pos)
+            slab = flash_decode(q, ks, vs, pos)
+            torch.cuda.synchronize(device)
+            require(paged_flash_decode.launches == before + 2,
+                    "paged_flash_decode: the wrapper did not launch its kernel")
+            rel, absd = norm_err(got, ref)
+            tol = TOL if dtype == torch.float32 else TOL_BF16_OUT
+            shape = f"{tag} H={h} KH={kh} B=4 pos={','.join(map(str, PAGED_POS))}"
+            require(rel <= tol, f"paged_flash_decode {shape}: error {rel:.3e} > {tol}")
+            require(torch.equal(ident, slab),
+                    f"paged_flash_decode {shape}: identity table differs from flash_decode")
+            n_bytes = (2 * kh * sum(p + 1 for p in PAGED_POS) * 128 * q.element_size()
+                       + 2 * q.numel() * q.element_size() + pt.numel() * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * 128 * h * sum(p + 1 for p in PAGED_POS),
+                               F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            row = dict(name="paged_flash_decode", shape=shape, err=rel, max_abs_err=absd,
+                       bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
+            if timed:
+                kv_k, kv_v = lane_views(kp, pt), lane_views(vp, pt)
+                mask = (torch.arange(4096, device=device)[None, :] <= pos[:, None])[:, None, None]
+                qs = q.transpose(1, 2)
+                row["ms"] = time_ms(lambda: paged_flash_decode(q, kp, vp, pt, pos), device)
+                row["plain_ms"] = time_ms(lambda: paged_flash_decode_ref(q, kp, vp, pt, pos),
+                                          device, 5)
+                row["library_ms"] = time_ms(lambda: _sdpa(qs, kv_k, kv_v, mask), device)
+                del kv_k, kv_v
+            rows.append(row)
+
+            # admission chunks: T rows per lane through the page table
+            t = 128
+            q_pos0 = torch.tensor([256, 3000, 0, 4096 - t], dtype=torch.int32, device=device)
+            qc = torch.randn((4, t, h, 128), device=device, generator=gen).to(dtype)
+            got = paged_flash_attention_stats(qc, kp, vp, pt, q_pos0)
+            ref = paged_flash_attention_stats_ref(qc, kp, vp, pt, q_pos0)
+            ident = paged_flash_attention_stats(qc, ki, vi, pt_ident, q_pos0)
+            slab = flash_attention_stats(qc, ks, vs, q_pos0)
+            torch.cuda.synchronize(device)
+            errs = [norm_err(a, b) for a, b in zip(got, ref)]
+            rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+            shape = f"{tag} H={h} KH={kh} B=4 T={t} paged"
+            require(rel <= TOL, f"flash_attention_stats {shape}: error {rel:.3e} > {TOL}")
+            vis = sum(min(4096, int(p) + i + 1) for p in q_pos0.tolist() for i in range(t))
+            n_bytes = (qc.numel() * qc.element_size() + 2 * kh * 128 * qc.element_size()
+                       * sum(min(4096, int(p) + t) for p in q_pos0.tolist())
+                       + h * 4 * t * (128 + 2) * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * 128 * h * vis,
+                               F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            rows.append(dict(
+                name="flash_attention_stats", shape=shape, err=rel, max_abs_err=absd,
+                bound_ms=b_ms, bound_by=b_by,
+                identity_bits_equal=all(torch.equal(a, b) for a, b in zip(ident, slab)),
+            ))
+            del kp, vp, ks, vs, ki, vi
+    return rows
+
+
 def check_moe(device, gen, timed: bool = True) -> list[dict]:
     """The four MoE kernels against `moe_experts_ref` at the A3B expert
     shapes with random routing: active at m = 1 and 16, grouped at N = 17
@@ -656,6 +783,19 @@ class ActTape:
 KERNEL, PLAIN, SHARED = "kernel", "plain", "plain, shared int8 activations"
 
 
+def cast_params(engine, dtype) -> dict:
+    """The engine's params with every tensor held in the engine's dtype (the
+    embedding, and dense matmul weights and experts) cast to dtype."""
+    import torch
+
+    def leaf(v):
+        return v.to(dtype) if torch.is_tensor(v) and v.dtype == engine.dtype else v
+
+    out = {key: leaf(v) for key, v in engine.params.items() if key != "layers"}
+    out["layers"] = [{key: leaf(v) for key, v in lp.items()} for lp in engine.params["layers"]]
+    return out
+
+
 def parity(engine, prompt: list[int]) -> dict:
     """Phase 4: one prefill + one decode step through the kernel path and
     the plain path on the same weights, in float32 (where the two paths
@@ -688,15 +828,6 @@ def parity(engine, prompt: list[int]) -> dict:
     toks = torch.tensor([prompt], device=dev)
     int8 = isinstance(engine.params["wcls"], Int8Weight)
 
-    def cast(p: dict, dtype) -> dict:
-        """The params with every tensor held in the engine's dtype (the
-        embedding, and dense matmul weights and experts) cast to dtype."""
-        def leaf(v):
-            return v.to(dtype) if torch.is_tensor(v) and v.dtype == engine.dtype else v
-        out = {key: leaf(v) for key, v in p.items() if key != "layers"}
-        out["layers"] = [{key: leaf(v) for key, v in lp.items()} for lp in p["layers"]]
-        return out
-
     logits, routes, nxt = {}, {}, None
     route = transformer.moe_route
     tapes = {"prefill": ActTape(), "decode": ActTape()}
@@ -718,7 +849,7 @@ def parity(engine, prompt: list[int]) -> dict:
         runs.append((torch.float32, SHARED))
     with torch.inference_mode():
         for dtype, kind in runs:
-            params = cast(engine.params, dtype)
+            params = cast_params(engine, dtype)
             transformer.moe_route = recording((dtype, kind))
             plain = kind != KERNEL
             try:
@@ -767,20 +898,311 @@ def parity(engine, prompt: list[int]) -> dict:
     return res
 
 
+SERVE_LANES = 4
+SERVE_MAX_TOKENS = 64
+SHARED_PREFIX = 256  # tokens two requests share: BOS, the system turn and the user header
+
+
+def lane_parity(engine, prompt: list[int]) -> dict:
+    """One prefill and one decode step in float32 through the slab path
+    (kernels), the pool-native paged path (kernels: the paged stats and
+    paged decode kernels through a page table) and the paged path's plain
+    versions, on the engine's weights, into a pool of its own. Returns the
+    logits errors of "lane vs slab" (the same arithmetic: expected 0) and
+    "lane kernel vs plain"."""
+    import torch
+
+    from dllama_tpu_torch.models import forward, init_kv_cache
+
+    h, dev = engine.header, engine.device
+    params = cast_params(engine, torch.float32)
+    toks = torch.tensor([prompt], device=dev)
+    n_blocks = -(-(len(prompt) + 1) // PAGE)
+    pt = (1 + torch.arange(n_blocks, device=dev, dtype=torch.int32))[None]
+    logits = {}
+    with torch.inference_mode():
+        for name in ("slab", "lane", "lane plain"):
+            if name == "slab":
+                cache, kw = init_kv_cache(h, 1, dtype=torch.float32, device=dev), {}
+            else:
+                shape = (h.n_layers, n_blocks + 1, h.n_kv_heads, PAGE, h.head_dim)
+                cache = {k: torch.zeros(shape, device=dev) for k in ("k", "v")}
+                kw = dict(page_table=pt, plain=name == "lane plain")
+            pre, cache = forward(params, h, toks, 0, cache, "last", **kw)
+            nxt = pre[:, -1].argmax(-1, keepdim=True)
+            dec, _ = forward(params, h, nxt, len(prompt), cache, "last", **kw)
+            logits[name] = (pre[0, -1], dec[0, -1])
+            del cache
+    del params
+    return {
+        (step, tag): norm_err(logits[a][i], logits[b][i])[0]
+        for i, step in enumerate(("prefill", "decode"))
+        for tag, (a, b) in (("lane vs slab", ("lane", "slab")),
+                            ("lane kernel vs plain", ("lane", "lane plain")))
+    }
+
+
+def serving_payloads(tok) -> list[dict]:
+    """The six greedy chat requests of the serving phase. Requests 0, 4 and
+    5 share a system prompt sized so that it, BOS and the user header make
+    SHARED_PREFIX tokens (page-aligned); request 4's user text differs from
+    request 0's at its first character (a whole-page match: adopted with no
+    copy), request 5's at its sixth (a mid-page match: one COW fork).
+    Request 3 is streamed."""
+    from dllama_tpu_torch.tokenizer import ChatItem, ChatTemplateGenerator, ChatTemplateType
+
+    template = ChatTemplateGenerator(ChatTemplateType.LLAMA3, None, "</s>")
+
+    def encode(system, user):
+        items = ([ChatItem("system", system)] if system else []) + [ChatItem("user", user)]
+        return tok.encode(template.generate(items).content)
+
+    def shared(system):
+        a, b = encode(system, "Alpha"), encode(system, "Bravo")
+        return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+    system = prompt_text(SHARED_PREFIX)
+    system = system[: len(system) + SHARED_PREFIX - shared(system)]
+    require(shared(system) == SHARED_PREFIX, "serving: the shared prefix is not page-aligned")
+    users = [
+        (system, "Alpha: summarise the text above in one line."),
+        (None, prompt_text(100)),
+        (None, "Explain " + prompt_text(300)),
+        (None, "Stream: " + prompt_text(40)),
+        (system, "Bravo: list three ideas from the text above."),
+        (system, "Alpha, no: rewrite the text above as a question."),
+    ]
+    out = []
+    for i, (sys_text, user) in enumerate(users):
+        msgs = ([{"role": "system", "content": sys_text}] if sys_text else []) + [
+            {"role": "user", "content": user}]
+        out.append({"messages": msgs, "max_tokens": SERVE_MAX_TOKENS, "temperature": 0,
+                    "stream": i == 3})
+    return out
+
+
+def _request(url: str, payload: dict) -> dict:
+    """POST one chat completion; its content, finish reason, ``dllama``
+    metadata and wall time (streamed or not)."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read().decode()
+    wall = time.perf_counter() - t0
+    if not payload["stream"]:
+        body = json.loads(raw)
+        choice = body["choices"][0]
+        return dict(content=choice["message"]["content"], finish=choice["finish_reason"],
+                    meta=body["dllama"], wall=wall)
+    content, finish, meta = "", None, None
+    for line in raw.split("\r\n"):
+        if not line.startswith("data: {"):
+            continue
+        chunk = json.loads(line[6:])
+        require("error" not in chunk, f"serving: stream error {chunk.get('error')}")
+        choice = chunk["choices"][0]
+        if choice["finish_reason"] is None:
+            content += choice["delta"]["content"]
+        else:
+            finish, meta = choice["finish_reason"], chunk["dllama"]
+    require(raw.rstrip().endswith("data: [DONE]"), "serving: the stream did not end in [DONE]")
+    return dict(content=content, finish=finish, meta=meta, wall=wall)
+
+
+def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict:
+    """The serving phase: the port's lane server (`serve`, in process on
+    127.0.0.1:0) over the model file in tmp, 4 lanes, pool page 16, the
+    pool sized by default. Six greedy requests: four at once, then two
+    queued behind them; then each replayed alone. Gates: every request
+    ends with stop or length; each concurrent answer equals its solo
+    replay (text and token count); the manager counted >= 2 radix hits
+    and >= 1 COW fork; the paged decode kernel launched n_layers times a
+    decode step; lane vs slab and lane kernel vs plain f32 logits <=
+    TOL_E2E. Returns the serving run's launch counts."""
+    import threading
+
+    import torch
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import ChatTemplateType, Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    t0 = time.perf_counter()
+    engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40",
+                             device=device, batch_size=SERVE_LANES)
+    tok = Tokenizer(tp)
+    load_s = time.perf_counter() - t0
+    h = engine.header
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    sched, kv = srv.state.scheduler, srv.state.kv_manager
+    # time every decode block: its readback waits for the card
+    decode = {"s": 0.0, "tokens": 0, "blocks": 0, "shared_max": 0, "used_max": 0}
+    inner = engine.decode_lanes
+
+    def timed_decode(tokens, pos, n_steps, active, *args, **kw):
+        t = time.perf_counter()
+        rows = inner(tokens, pos, n_steps, active, *args, **kw)
+        decode["s"] += time.perf_counter() - t
+        decode["tokens"] += len(rows) * sum(map(bool, active))
+        decode["blocks"] += 1
+        st = kv.pool.stats()  # this thread is the only writer of the accounting
+        decode["shared_max"] = max(decode["shared_max"], st.shared)
+        decode["used_max"] = max(decode["used_max"], st.used)
+        return rows
+
+    engine.decode_lanes = timed_decode
+    # each request's generated tokens, by request id (a stream carries no usage)
+    n_generated: dict = {}
+    finish = sched._finish
+
+    def counted_finish(lane, reason):
+        job = sched.lanes[lane].job
+        n_generated[job.request_id] = job.n_completion
+        finish(lane, reason)
+
+    sched._finish = counted_finish
+    try:
+        payloads = serving_payloads(tok)
+        reset_launch_counts()
+        engine.lane_decode_steps = 0
+        results: list = [None] * len(payloads)
+        errors: list = []
+
+        def send(i):
+            try:
+                results[i] = _request(url, payloads[i])
+            except Exception as e:  # reported below
+                errors.append((i, repr(e)))
+
+        threads, t_conc = [], time.perf_counter()
+        for i in range(len(payloads)):
+            threads.append(threading.Thread(target=send, args=(i,)))
+            threads[-1].start()
+            deadline = time.perf_counter() + 60
+            while sched.n_submitted < i + 1 and time.perf_counter() < deadline:
+                time.sleep(0.001)  # submit in order: requests 4 and 5 queue behind 0-3
+        for th in threads:
+            th.join(timeout=600)
+        t_conc = time.perf_counter() - t_conc
+        require(not errors and all(r is not None for r in results), f"serving: {errors}")
+        conc_decode = dict(decode)
+        pool = kv.debug()["pool"]
+        mem = torch.cuda.memory_allocated() if device == "cuda" else 0
+        solo = [_request(url, p) for p in payloads]
+        counts = launch_counts()
+        for r in results + solo:
+            r["n"] = n_generated[r["meta"]["request_id"]]
+        steps = engine.lane_decode_steps
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"== llama-8b q40 serving: {h.n_layers} layers, seq_len {h.seq_len}, "
+          f"{SERVE_LANES} lanes, pool {kv.pool.n_pages} pages of {PAGE} rows "
+          f"({nbytes(engine.kv_pool) / 1e9:.3f} GB); {smi}; engine loaded in {load_s:.2f} s")
+    for i, (r, s_) in enumerate(zip(results, solo)):
+        ttft = r["meta"]["ttft_ms"]
+        dec = (r["wall"] * 1e3 - ttft) / max(r["n"] - 1, 1)
+        same = r["content"] == s_["content"] and r["n"] == s_["n"]
+        print(f"serve r{i}: lane {r['meta']['lane']} reused {r['meta']['reused_prefix_tokens']} "
+              f"finish {r['finish']} tokens {r['n']} ttft_ms {ttft} decode_ms_per_token "
+              f"{dec:.3f}; solo reused {s_['meta']['reused_prefix_tokens']} ttft_ms "
+              f"{s_['meta']['ttft_ms']}; equals solo {same}")
+        require(r["finish"] in ("stop", "length") and s_["finish"] in ("stop", "length"),
+                f"serving r{i}: finish {r['finish']} / solo {s_['finish']}")
+        require(same, f"serving r{i}: the concurrent answer differs from its solo replay")
+    n_tokens = sum(r["n"] for r in results)
+    agg = conc_decode["tokens"] / conc_decode["s"]
+    print(f"serve aggregate: {n_tokens} tokens in {t_conc:.2f} s wall ({n_tokens / t_conc:.2f} "
+          f"tok/s, prefill included); decode {conc_decode['tokens']} lane tokens in "
+          f"{conc_decode['blocks']} blocks, {conc_decode['s']:.3f} s: {agg:.2f} tok/s"
+          + (f", {agg / single_tok_s:.2f}x the single-stream q40 run's {single_tok_s:.2f}"
+             if single_tok_s else ""))
+    print(f"serve pool: at most {conc_decode['used_max']} pages used and "
+          f"{conc_decode['shared_max']} shared by a lane and the tree during the concurrent "
+          f"requests; after them {json.dumps(pool)}; radix hits {kv.hits}, "
+          f"shared tokens {kv.shared_tokens}, COW forks {kv.pool.stats().cow_forks}, "
+          f"evictions {kv.evictions}; torch.cuda.memory_allocated {mem / 1e9:.3f} GB")
+    print(f"serve launches {json.dumps(counts)}; decode steps {steps}")
+    require(kv.hits >= 2, f"serving: {kv.hits} radix hits, wanted >= 2")
+    require(kv.pool.stats().cow_forks >= 1, "serving: no COW fork")
+    require(counts["paged_flash_decode"] == h.n_layers * steps and steps > 0,
+            f"serving: {counts['paged_flash_decode']} paged decode launches, the steps imply "
+            f"{h.n_layers * steps}")
+    if device == "cuda":
+        prof = lane_profile(engine, PROMPT_TOKENS)
+        tok_s4 = SERVE_LANES * 1e3 / prof["host_ms_per_step"]
+        print(f"lane decode profile, {SERVE_LANES} lanes at pos {PROMPT_TOKENS}: host ms/step "
+              f"{prof['host_ms_per_step']:.3f} ({tok_s4:.2f} tok/s"
+              + (f", {tok_s4 / single_tok_s:.2f}x the single-stream run" if single_tok_s else "")
+              + f"), device kernel ms/step {prof['device_ms_per_token']:.3f}, device "
+              f"launches/step {prof['launches_per_token']:.0f}, device busy share "
+              f"{prof['device_ms_per_token'] / prof['host_ms_per_step']:.3f}")
+        for name, ms, count in prof["top"]:
+            print(f"  {ms:8.4f} ms/step {count:5d}x {name[:90]}")
+        for name, ms, count in prof["host_top"]:
+            print(f"  host {ms:8.4f} ms/step {count:5d}x {name[:80]}")
+    engine.kv_pool = None  # the pool's 3 GB, before the f32 parity run
+    prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
+    par = lane_parity(engine, prompt)
+    for (step, tag), err in par.items():
+        print(f"parity serving {step} f32 {tag}: logits err {err:.3e}")
+        require(err <= TOL_E2E, f"serving {step}: {tag} err {err:.3e} > {TOL_E2E}")
+    return counts
+
+
 def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
     """Device kernel time of one greedy decode block under torch.profiler:
     per-token device ms and the kernels that take it."""
+    return device_profile(engine, lambda: engine.decode_block(token, pos, n_steps), n_steps)
+
+
+def lane_profile(engine, pos: int, n_steps: int = 8) -> dict:
+    """One greedy decode block of every lane at ``pos`` (each lane on private
+    pages; the KV rows below pos are whatever the pool holds, which costs
+    the same time): host ms a step, unprofiled, and `device_profile`."""
+    import torch
+
+    b, nb = engine.batch_size, engine._kv_n_blocks
+    for lane in range(b):
+        engine.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
+
+    def run():
+        engine.decode_lanes([1] * b, [pos] * b, n_steps, [True] * b, [0.0] * b)
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize(engine.device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    return dict(device_profile(engine, run, n_steps), host_ms_per_step=host_ms)
+
+
+def device_profile(engine, run, n_steps: int) -> dict:
+    """Device kernel time of ``run()`` (n_steps decode steps) under
+    torch.profiler: device ms and launches a step, the kernels that take
+    the time, and the host ops with the most self CPU time (profiled, so
+    inflated; for where the host time goes, not how much)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine.decode_block(token, pos, n_steps)  # warm
+    run()  # warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.decode_block(token, pos, n_steps)
+        run()
         torch.cuda.synchronize(engine.device)
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
-            continue  # a host op: its device time is its kernels', listed too
+            # a host op: its device time is its kernels', listed too
+            host.append((e.self_cpu_time_total, e.key, e.count))
+            continue
         if e.self_device_time_total > 0:
             rows.append((e.self_device_time_total, e.key, e.count))
     require(bool(rows), "decode profile: the profiler reported no device time")
@@ -790,6 +1212,7 @@ def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
         "device_ms_per_token": total / 1e3 / n_steps,
         "launches_per_token": sum(r[2] for r in rows) / n_steps,
         "top": [(k, us / 1e3 / n_steps, c // n_steps) for us, k, c in rows[:8]],
+        "host_top": [(k, us / 1e3 / n_steps, c // n_steps) for us, k, c in sorted(host)[::-1][:8]],
     }
 
 
@@ -825,7 +1248,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
-            + check_moe(device, gen))
+            + check_paged_decode(device, gen) + check_moe(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -840,6 +1263,8 @@ def main() -> int:
             note += f"; bits equal to plain {r['plain_equal']}"
         if "int_mm_ms" in r:
             note += f"; torch._int_mm {r['int_mm_ms']:.4f}"
+        if "identity_bits_equal" in r:
+            note += f"; identity table bits equal to the slab kernel {r['identity_bits_equal']}"
         print(
             f"{r['name']:23s} {r['shape']:32s} err {r['err']:.2e}{times} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){note}"
@@ -849,7 +1274,7 @@ def main() -> int:
 
     from dllama_tpu_torch.models.synthetic import PRESETS
 
-    counts, streams = {}, {}
+    counts, streams, tok_s = {}, {}, {}
     for model, preset, n_layers, formats in MODELS:
         depth = PRESETS[preset]["n_layers"]
         if n_layers < depth:
@@ -857,11 +1282,19 @@ def main() -> int:
                   f"1.26 GB a layer: the whole model would not fit the card)")
         with tempfile.TemporaryDirectory() as tmp:
             for weight_format in formats:
-                label, counts_, tokens = run_path(model, preset, n_layers, weight_format, tmp)
+                label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
+                                                                weight_format, tmp)
                 counts[label], streams[label] = counts_, tokens
                 gc.collect()
                 torch.cuda.empty_cache()
-    for label in counts:
+            if model == "llama-8b":  # the serving phase, on the same file
+                t0 = time.perf_counter()
+                counts["llama-8b q40 serving"] = serving("cuda", tmp, tok_s.get("llama-8b q40"),
+                                                         smi)
+                print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+                gc.collect()
+                torch.cuda.empty_cache()
+    for label in streams:
         model, fmt = label.rsplit(" ", 1)
         if fmt in ("q40i4", "q40i8") and f"{model} q40" in streams:
             a, b = streams[f"{model} q40"], streams[label]
@@ -894,8 +1327,8 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
     """Phases 3 and 4 for one model and weight format: the CLI run, its
     launch counts against the shapes', for a quantized format the decode
     profile, and the parity gate. The model file lives in tmp (written by
-    the first run on it). Returns the run's label, launch counts and greedy
-    tokens."""
+    the first run on it). Returns the run's label, launch counts, greedy
+    tokens and decode tok/s."""
     import torch
 
     res = end_to_end(
@@ -912,9 +1345,10 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
     group = f", int8 group {eng.i8_group}" if eng.i8_group else ""
     print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}"
           f"{group}{written}")
+    tok_s = n_dec * 1000 / res["pred"].time_ms
     print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
           f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
-          f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f}")
+          f"{res['pred'].time_ms / n_dec:.3f} tok_s {tok_s:.2f}")
     print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     print(f"on the card after the run: weights {nbytes(eng.params) / 1e9:.3f} GB, "
           f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
@@ -932,6 +1366,8 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
               f"{prof['device_ms_per_token'] / host_ms:.3f}")
         for name, ms, count in prof["top"]:
             print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
+        for name, ms, count in prof["host_top"]:
+            print(f"  host {ms:8.4f} ms/token {count:5d}x {name[:80]}")
     par = parity(eng, res["prompt_tokens"])
     for (name, tag), p in par.items():
         if name == "routing":
@@ -952,7 +1388,7 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
         for gate in gates:
             err = par[name, gate]["err"]
             require(err <= TOL_E2E, f"{label} {name}: {gate} err {err:.3e} > {TOL_E2E}")
-    return label, counts, res["tokens"]
+    return label, counts, res["tokens"], tok_s
 
 
 if __name__ == "__main__":

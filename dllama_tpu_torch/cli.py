@@ -6,7 +6,9 @@
 
 Flags follow the JAX package's CLI (reference: src/app.cpp:24-135). The
 device defaults to ``cuda`` and the run fails without one; ``--device cpu``
-runs the plain PyTorch versions of the kernels.
+runs the plain PyTorch versions of the kernels. `add_engine_args` and
+`load_engine` are shared with the API server (runtime/api_server.py),
+whose lane and KV-pool flags they also carry.
 """
 
 from __future__ import annotations
@@ -17,16 +19,14 @@ import time
 
 import torch
 
+from .tokenizer.chat import CHAT_TEMPLATE_NAMES
 
-def _build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="dllama-tpu-torch", description="distributed-llama inference on PyTorch/CUDA"
-    )
-    p.add_argument("mode", choices=["inference"])
+
+def add_engine_args(p: argparse.ArgumentParser) -> None:
+    """The flags that build an engine (`load_engine`), and the serving
+    flags of the lane path."""
     p.add_argument("--model", required=True)
     p.add_argument("--tokenizer", required=True)
-    p.add_argument("--prompt", default=None)
-    p.add_argument("--steps", type=int, default=0)
     p.add_argument("--max-seq-len", type=int, default=0)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument(
@@ -38,6 +38,30 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=int(time.time()))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--batch-size", type=int, default=1, dest="batch_size",
+                   help="lanes: concurrent streams decoded together (the server needs > 1)")
+    p.add_argument("--kv-page-size", type=int, default=None,
+                   help="rows a KV pool page holds (default 16)")
+    p.add_argument("--kv-pool-pages", type=int, default=None,
+                   help="pool pages (default: (batch-size + 2) sequences + the scratch page)")
+    p.add_argument("--kv-native", type=int, default=1, choices=[1],
+                   help="pool-native lanes (the only mode ported)")
+    p.add_argument("--lane-block-size", "--lane-block", type=int, default=None,
+                   dest="lane_block_size", help="decode steps a lane block runs (default 8)")
+    p.add_argument("--admission-chunk", type=int, default=None,
+                   help="prompt tokens prefilled a scheduler tick (default: the largest bucket)")
+    p.add_argument("--chat-template", default=None, choices=sorted(CHAT_TEMPLATE_NAMES),
+                   help="chat template of the server (default: detected from the tokenizer)")
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dllama-tpu-torch", description="distributed-llama inference on PyTorch/CUDA"
+    )
+    p.add_argument("mode", choices=["inference"])
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--steps", type=int, default=0)
+    add_engine_args(p)
     return p
 
 
@@ -55,6 +79,7 @@ def load_engine(args):
         seed=args.seed,
         weight_format=args.weight_format,
         device=args.device,
+        batch_size=args.batch_size,
     )
     h = engine.header
     print(f"💡 Arch: {h.arch.name}")
@@ -69,6 +94,8 @@ def load_engine(args):
         print(f"💡 nExperts: {h.n_experts}")
         print(f"💡 nActiveExperts: {h.n_active_experts}")
     print(f"💡 SeqLen: {h.seq_len}")
+    if engine.batch_size > 1:
+        print(f"💡 Lanes: {engine.batch_size}")
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")

@@ -70,4 +70,31 @@ __device__ __forceinline__ float online_softmax(float s, float& m, float& l, flo
   return p;
 }
 
+// K/V rows through a page table (the paged pool [P, KH, ps, hd]): logical
+// row r of a lane lives in pool page pt[r / ps] at page row r % ps. Page
+// sizes divide 32 or are multiples of 32, so a 32-row key tile spans
+// 32 / ps whole pages or lies inside one page; the tile's page ids are
+// staged in shared memory once (`stage_page_ids`) and every row of the
+// tile is addressed from there (`paged_row`).
+__device__ __forceinline__ int tile_pages(int ps) { return ps >= 32 ? 1 : 32 / ps; }
+
+// Thread t < tile_pages(ps) stages the id of the t-th page of the tile at
+// logical row s0 (a multiple of 32). A page whose first row in the tile lies
+// at or past n_keys (the lane's causal frontier) is not read from the page
+// table: its slot holds the scratch page 0, and no row of it is loaded.
+__device__ __forceinline__ void stage_page_ids(int* ids, const int* __restrict__ pt_row, int s0,
+                                               int n_keys, int ps, int t) {
+  if (t < tile_pages(ps)) {
+    const int slot = s0 / ps + t;
+    ids[t] = max(slot * ps, s0) < n_keys ? __ldg(pt_row + slot) : 0;
+  }
+}
+
+// Element offset of tile row r (logical row s0 + r) of KV head kh.
+__device__ __forceinline__ size_t paged_row(const int* ids, int s0, int r, int ps, int kh,
+                                            int n_kh, int hd) {
+  const int page = ids[ps >= 32 ? 0 : r / ps];
+  return (((size_t)page * n_kh + kh) * ps + (s0 + r) % ps) * hd;
+}
+
 }  // namespace dllama

@@ -1,0 +1,215 @@
+"""PagedKVManager: glue between the page pool / radix tree and the engine.
+
+The port's copy of dllama_tpu/kv/manager.py in pool-native mode, the only
+mode the port has (the slab mode's adopt/publish copies wait for ROADMAP
+A.7). The pool is the lanes' only KV home:
+
+- ``match``   — at admission, find the longest stored token prefix of the
+  request's (fully retokenized) conversation and the pages covering it,
+  retaining them for the lane on the spot (the scheduler adopts a tick
+  later; unpinned pages could be evicted and reallocated in that gap);
+- ``adopt``   — build the lane's page list: the shared prefix pages as
+  they are, a copy-on-write fork of a mid-page boundary (the only device
+  copy), fresh private pages for everything the lane will write; then
+  point the engine's page table at it. A full-page prefix moves zero
+  device bytes;
+- ``publish`` — at finish, hand the whole pages of the lane's fed tokens
+  to the radix tree (an ownership transfer: the lane already wrote them),
+  deduplicated against the tree so a prefix two streams share is stored
+  once;
+- ``release_lane`` / ``release_all_lanes`` — refcount hygiene and the
+  error path.
+
+The JAX manager's metrics, recorder events, spans, fault draws and lock
+watch are left out; the counts the tests and the chip smoke read are plain
+attributes (``hits``, ``shared_tokens``, ``evictions``, and the pool's
+``cow_forks``). All engine calls come from the scheduler thread; ``lock``
+protects the host accounting against concurrent readers (``debug``).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Any
+
+from .pool import PagePool
+from .radix import RadixTree
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_PAGE_SIZE = 16
+
+
+class PagedKVManager:
+    def __init__(self, engine: Any, page_size: int = 0, n_pages: int = 0) -> None:
+        self.engine = engine
+        self.page_size = page_size or DEFAULT_PAGE_SIZE
+        n = engine.init_kv_pool(self.page_size, n_pages, native=True)
+        self.pool = PagePool(n, self.page_size)
+        self.tree = RadixTree(self.page_size)
+        self.lock = threading.Lock()
+        self._lane_pages: dict[int, list[int]] = {}
+        self._lane_match_tokens: dict[int, int] = {}
+        self.hits = 0  # admissions that adopted a stored prefix
+        self.shared_tokens = 0  # prompt tokens served from shared pages
+        self.evictions = 0  # pages LRU-evicted from radix leaves
+
+    # -- admission ---------------------------------------------------------
+    def match(self, lane: int, tokens: list[int]) -> tuple[int, list[int]]:
+        """Longest reusable stored prefix of ``tokens``: returns
+        ``(n_reused_tokens, pages)``. Reuse is capped one short of the
+        prompt (the engine must be fed at least one token) and to the
+        rows the collected pages cover; a partial final page is fine (its
+        stale tail rows are overwritten by suffix prefill before any query
+        can attend to them). The pages are retained for ``lane`` here,
+        inside the lock (see the module docstring); every admission-failure
+        path releases them through `release_lane`."""
+        ps = self.page_size
+        with self.lock:
+            # a lane admitted twice without release would leak a retain
+            stale = self._lane_pages.pop(lane, None)
+            if stale:
+                self.pool.release(stale)
+            mr = self.tree.match(tokens)
+            m = min(mr.n_tokens, len(mr.pages) * ps, len(tokens) - 1)
+            if m <= 0:
+                self._lane_match_tokens[lane] = 0
+                return 0, []
+            pages = mr.pages[: -(-m // ps)]
+            self.pool.retain(pages)
+            self._lane_pages[lane] = list(pages)
+            self._lane_match_tokens[lane] = m
+            return m, pages
+
+    def adopt(self, lane: int, pages: list[int]) -> None:
+        """Build ``lane``'s full page list from the matched ``pages``
+        (already retained by `match`) and install it in the engine's page
+        table: a mid-page boundary page is forked (one device page copy),
+        the rest of the lane's rows get fresh private pages."""
+        ps = self.page_size
+        n_blocks = self.engine._kv_n_blocks
+        with self.lock:
+            m = self._lane_match_tokens.get(lane, 0)
+            lane_list = list(pages)
+            if m % ps and lane_list:
+                # the lane will write rows >= m into this slot: it needs a
+                # private copy of the shared page
+                orig = lane_list[-1]
+                fork = self._alloc_lane_pages(1, fork_src=orig)[0]
+                try:
+                    self.engine.kv_page_copy([orig], [fork])
+                except BaseException:
+                    self.pool.release([fork])
+                    raise
+                # swap the lane's retain from the shared original to its fork
+                # (the tree keeps its own ref on the original)
+                self.pool.release([orig])
+                lane_list[-1] = fork
+            need = n_blocks - len(lane_list)
+            if need > 0:
+                lane_list += self._alloc_lane_pages(need)
+            self._lane_pages[lane] = lane_list
+            self.engine.adopt_pages(lane, lane_list)
+
+    def _alloc_lane_pages(self, n: int, fork_src: int | None = None) -> list[int]:
+        """``n`` private pages for a lane (or the fork of ``fork_src``),
+        LRU-evicting refcount-1 tree leaves under pressure; raises
+        MemoryError when the pool cannot hold them (admission cannot go on
+        without somewhere to write). Called under ``lock``."""
+        short = n - self.pool.free_pages
+        if short > 0:
+            self.evictions += self.tree.evict(short, self.pool)
+        if fork_src is not None:
+            return [self.pool.fork(fork_src)]
+        return self.pool.alloc(n)
+
+    def release_lane(self, lane: int) -> None:
+        with self.lock:
+            pages = self._lane_pages.pop(lane, None)
+            self._lane_match_tokens.pop(lane, None)
+            if pages:
+                self.pool.release(pages)
+            self.engine.clear_lane_pages(lane)
+
+    # -- finish ------------------------------------------------------------
+    def publish(self, lane: int, tokens: list[int]) -> int:
+        """Store ``lane``'s fed ``tokens`` (KV rows [0, len(tokens)) live in
+        its pages) as whole pages: the tree takes its own reference on the
+        lane's pages for the slots it does not hold yet, and inserts the
+        token path. Returns the number of pages newly stored (0: full
+        dedup, or no whole page to store)."""
+        ps = self.page_size
+        n_full = len(tokens) // ps
+        if n_full == 0:
+            return 0
+        full = list(tokens[: n_full * ps])
+        with self.lock:
+            lane_list = self._lane_pages.get(lane) or []
+            if len(lane_list) < n_full:
+                return 0
+            mr = self.tree.match(full)
+            k_shared = min(mr.n_tokens // ps, n_full)
+            n_new = n_full - k_shared
+            if n_new == 0:
+                return 0
+            pages = lane_list[k_shared:n_full]
+            # the tree owns its reference BEFORE insert: the lane's retain
+            # dies with release_lane, and a tree pointing at freed pages
+            # would hand later admissions recycled KV
+            self.pool.retain(pages)
+            try:
+                self.tree.insert(full, pages, first_slot=k_shared)
+            except ValueError:
+                # insert validates that dedup'd slots still exist on the
+                # stored path; a rejection drops the store (only future
+                # reuse is lost)
+                logger.exception("kv radix insert rejected; publish dropped")
+                self.pool.release(pages)
+                return 0
+        return n_new
+
+    def note_hit(self, n_tokens: int) -> None:
+        with self.lock:
+            self.hits += 1
+            self.shared_tokens += n_tokens
+
+    # -- error path / introspection ----------------------------------------
+    def release_all_lanes(self) -> None:
+        """Scheduler-error path: every lane was dropped, release their
+        retains. The tree's stored prefixes stay valid (no dispatch writes
+        into a page the tree holds)."""
+        with self.lock:
+            for pages in self._lane_pages.values():
+                self.pool.release(pages)
+            self._lane_pages.clear()
+            self._lane_match_tokens.clear()
+            self.engine.clear_all_lane_pages()
+
+    def check(self) -> None:
+        with self.lock:
+            self.pool.check()
+
+    def debug(self) -> dict:
+        """Pool, radix and lane accounting in one snapshot."""
+        with self.lock:
+            st = self.pool.stats()
+            return {
+                "page_size": self.page_size,
+                "pool": {
+                    "total": st.total,
+                    "free": st.free,
+                    "used": st.used,
+                    "shared": st.shared,
+                    "cow_forks": st.cow_forks,
+                },
+                "radix": {
+                    "nodes": self.tree.node_count(),
+                    "tokens": self.tree.token_count(),
+                    "pages": self.tree.n_pages,
+                    "hits": self.hits,
+                    "shared_tokens": self.shared_tokens,
+                    "evictions": self.evictions,
+                },
+                "lanes": {str(lane): len(pages) for lane, pages in self._lane_pages.items()},
+            }

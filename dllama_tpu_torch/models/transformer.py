@@ -28,6 +28,19 @@ through the decode kernel, which reads rows 0..pos only — so the port
 needs no attention windows. ``plain=True`` runs the plain PyTorch version
 of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
+
+Paged mode (``page_table`` given): the cache is the shared page pool,
+``k``/``v`` [L, P, KH, ps, hd], and lane b's logical row r lives in pool
+page ``page_table[b, r // ps]`` at page row ``r % ps``. ``pos`` is then an
+int or a [B] int32 tensor on the device, RoPE rows are gathered per lane,
+the new K/V rows are written by device index ops at their pages, and
+attention reads through the page table: the paged decode kernel at T = 1,
+the paged stats kernel for chunks. A lane at a negative position is
+parked: it reads nothing and its row lands on the scratch page 0, so a
+fixed batch of lanes runs whatever number of them is live (every row of a
+batch goes through the same shapes, so a lane's values do not depend on
+the others). The JAX engine gathers the pages into a slab view instead
+(dllama_tpu/runtime/engine.py ``_paged_gather``).
 """
 
 from __future__ import annotations
@@ -43,6 +56,10 @@ from ..ops.flash_attention import (
     flash_attention_ref,
     flash_decode,
     flash_decode_ref,
+    paged_flash_attention,
+    paged_flash_attention_ref,
+    paged_flash_decode,
+    paged_flash_decode_ref,
 )
 from ..ops.moe import (
     MOE_KERNEL_MAX_TOKENS,
@@ -125,9 +142,12 @@ def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool) -> torch.Ten
 def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain=False,
                 act_quant=quantize_acts):
     """Final norm + vocab matmul, f32 logits (reference: src/llm.cpp:560-599).
-    ``logits_mode="last"`` computes the last chunk row only."""
-    if logits_mode not in ("all", "last"):
+    ``logits_mode="last"`` computes the last chunk row only, ``"none"``
+    nothing (a prefill chunk that only fills the cache)."""
+    if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"unknown logits_mode: {logits_mode!r}")
+    if logits_mode == "none":
+        return None
     if logits_mode == "last":
         x = x[:, -1:, :]
     y = rms_norm(x, params["final_norm"], h.norm_epsilon)
@@ -138,45 +158,83 @@ def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str,
     return torch.matmul(y.float(), wcls.float().transpose(-1, -2))
 
 
+def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
+    """Positions [B] int32 and, for each chunk row, its RoPE row and the
+    pool page and page row it is written to ([B, T] each). Parked lanes
+    (pos < 0) write to page 0, row 0."""
+    dev = page_table.device
+    if isinstance(pos, int):
+        n_rows = page_table.shape[1] * ps
+        if pos < 0 or pos + t > n_rows:
+            raise ValueError(f"chunk [{pos}, {pos + t}) outside the page table's {n_rows} rows")
+        posv = torch.full((b,), pos, dtype=torch.int32, device=dev)
+    else:
+        posv = pos.to(device=dev, dtype=torch.int32).reshape(b)
+    rows = posv[:, None].long() + torch.arange(t, device=dev)[None, :]
+    live = rows >= 0
+    rows = rows.clamp(min=0)
+    page = torch.where(live, page_table.long().gather(1, rows // ps), 0)
+    prow = torch.where(live, rows % ps, 0)
+    return posv, rows, page, prow
+
+
 def forward(
     params: Params,
     h: LlmHeader,
     tokens: torch.Tensor,  # [B, T] int
-    pos: int,  # absolute position of tokens[:, 0]
+    pos,  # absolute position of tokens[:, 0]: an int, or [B] int32 (paged mode)
     cache: KvCache,
     logits_mode: str = "all",
     plain: bool = False,
     act_quant=quantize_acts,
+    page_table: torch.Tensor | None = None,  # [B, n_blocks] int32: paged mode
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
-    are written in place. Returns (logits [B, T or 1, V] f32, cache).
+    are written in place. Returns (logits [B, T or 1, V] f32, or None for
+    ``logits_mode="none"``, and the cache).
 
     ``act_quant(x [n, k], group) -> (xq, sx)`` quantizes the activations of
     every int8 matmul (q40i8), in the order of the calls. The default is
     `quantize_acts`; a caller that holds one run to another can hand both
-    the same int8 activations (chip_smoke.py's parity check)."""
+    the same int8 activations (chip_smoke.py's parity check).
+
+    With ``page_table`` the cache is the page pool (module docstring); the
+    caller keeps every live row inside the lane's page-table row (the card
+    does not check page-table indices)."""
     b, t = tokens.shape
-    s = cache["k"].shape[3]
-    if pos < 0 or pos + t > s:
-        # a write past the cache would drop rows; fail loudly instead
-        raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s} rows")
+    paged = page_table is not None
+    if paged:
+        posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
+    else:
+        s = cache["k"].shape[3]
+        if pos < 0 or pos + t > s:
+            # a write past the cache would drop rows; fail loudly instead
+            raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s} rows")
     interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
     act = silu if h.hidden_act == HiddenAct.SILU else gelu
     is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
     is_moe = h.arch == LlmArch.QWEN3_MOE
     if is_moe and h.hidden_act != HiddenAct.SILU:
         raise ValueError("Qwen3-MoE experts are SwiGLU: hidden_act must be SILU")
-    attend = (flash_decode_ref if plain else flash_decode) if t == 1 else (
-        flash_attention_ref if plain else flash_attention
-    )
+    if paged:
+        attend = (paged_flash_decode_ref if plain else paged_flash_decode) if t == 1 else (
+            paged_flash_attention_ref if plain else paged_flash_attention
+        )
+    else:
+        attend = (flash_decode_ref if plain else flash_decode) if t == 1 else (
+            flash_attention_ref if plain else flash_attention
+        )
     hq, hkv, hd = h.n_heads, h.n_kv_heads, h.head_dim
 
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
 
     x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
-    cos = params["rope_cos"][pos : pos + t]
-    sin = params["rope_sin"][pos : pos + t]
+    if paged:  # [B, T, hd/2]: each lane at its own position
+        cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
+    else:
+        cos = params["rope_cos"][pos : pos + t]
+        sin = params["rope_sin"][pos : pos + t]
     for l, lp in enumerate(params["layers"]):
         y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
         q = mm(y, lp["wq"]).reshape(b, t, hq, hd)
@@ -187,10 +245,16 @@ def forward(
             k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
         q = apply_rope(q, cos, sin, interleaved)
         k = apply_rope(k, cos, sin, interleaved)
-        k_cache, v_cache = cache["k"][l], cache["v"][l]  # [B, KH, S, hd] views
-        k_cache[:, :, pos : pos + t] = k.transpose(1, 2).to(k_cache.dtype)
-        v_cache[:, :, pos : pos + t] = v.transpose(1, 2).to(v_cache.dtype)
-        z = attend(q, k_cache, v_cache, pos).reshape(b, t, hq * hd)
+        k_cache, v_cache = cache["k"][l], cache["v"][l]  # [B, KH, S, hd] or [P, KH, ps, hd]
+        if paged:
+            k_cache[page, :, prow] = k.to(k_cache.dtype)  # [B, T, KH, hd] rows
+            v_cache[page, :, prow] = v.to(v_cache.dtype)
+            z = attend(q, k_cache, v_cache, page_table, posv)
+        else:
+            k_cache[:, :, pos : pos + t] = k.transpose(1, 2).to(k_cache.dtype)
+            v_cache[:, :, pos : pos + t] = v.transpose(1, 2).to(v_cache.dtype)
+            z = attend(q, k_cache, v_cache, pos)
+        z = z.reshape(b, t, hq * hd)
         x = x + mm(z, lp["wo"]).to(x.dtype)
 
         y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)

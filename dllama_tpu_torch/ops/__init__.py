@@ -3,7 +3,7 @@
 `KERNELS` lists the wrappers whose ``.launches`` counts show that a run went
 through the hand-written kernels."""
 
-from .flash_attention import flash_attention_stats, flash_decode
+from .flash_attention import flash_attention_stats, flash_decode, paged_flash_decode
 from .int8_matmul import i8matmul_2d
 from .moe import (
     moe_active_experts,
@@ -19,6 +19,7 @@ KERNELS = {
     "i8_matmul": i8matmul_2d,
     "flash_attention_stats": flash_attention_stats,
     "flash_decode": flash_decode,
+    "paged_flash_decode": paged_flash_decode,
     "moe_active_experts": moe_active_experts,
     "moe_active_experts_q40": moe_active_experts_q40,
     "moe_grouped_experts": moe_grouped_experts,

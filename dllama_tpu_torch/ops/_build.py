@@ -36,19 +36,22 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry of each source (same name) and its argument types
+# each C entry: its source and its argument types
 SIGNATURES = {
-    "q40_matmul": [_P] * 4 + [_I] * 4 + [_P],
-    "q40i4_matmul": [_P] * 4 + [_I] * 4 + [_P],
-    "i8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    "flash_attention": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P],
-    "flash_decode": [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _P],
-    "moe_active": [_P] * 11 + [_I] * 6 + [_P],
-    "moe_grouped": [_P] * 13 + [_I] * 5 + [_P],
+    "q40_matmul": ("q40_matmul", [_P] * 4 + [_I] * 4 + [_P]),
+    "q40i4_matmul": ("q40i4_matmul", [_P] * 4 + [_I] * 4 + [_P]),
+    "i8_matmul": ("i8_matmul", [_P] * 5 + [_I] * 4 + [_P]),
+    "flash_attention_stats": (
+        "flash_attention", [_P] * 4 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_stats_paged": (
+        "flash_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "flash_decode": ("flash_decode", [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _P]),
+    "paged_flash_decode": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
+    "moe_grouped": ("moe_grouped", [_P] * 13 + [_I] * 5 + [_P]),
 }
-ENTRY = {"flash_attention": "flash_attention_stats"}
 
-_libs: dict = {}  # source name -> loaded C entry
+_libs: dict = {}  # C entry name -> loaded C entry
 _lock = threading.Lock()
 # ptxas report (registers, shared memory, spills) of each fresh build
 ptxas_log: dict[str, str] = {}
@@ -101,20 +104,21 @@ def build_all() -> None:
                 _finish(n, s)
 
 
-def load(name: str):
-    """The C entry of csrc/<name>.cu with its argument types set, building
-    the library if needed."""
+def load(entry: str):
+    """The C entry ``entry`` with its argument types set, building its
+    source's library if needed."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get(entry)
         if fn is None:
-            started = _start(name)
+            source, argtypes = SIGNATURES[entry]
+            started = _start(source)
             if started is not None:
-                _finish(name, started)
-            lib = ctypes.CDLL(_target(name)[1])
-            fn = getattr(lib, ENTRY.get(name, name))
-            fn.argtypes = SIGNATURES[name]
+                _finish(source, started)
+            lib = ctypes.CDLL(_target(source)[1])
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _libs[entry] = fn
         return fn
 
 

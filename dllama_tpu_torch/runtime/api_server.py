@@ -1,0 +1,693 @@
+"""OpenAI-compatible HTTP API server over pool-native lanes.
+
+    python -m dllama_tpu_torch.runtime.api_server --model m.m --tokenizer t.t \\
+        --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu]
+
+The port's core of dllama_tpu/runtime/api_server.py (reference:
+src/dllama-api.cpp):
+
+* ``POST /v1/chat/completions`` — chat completion, streamed (SSE) or not,
+  with ``temperature``, ``top_p``, ``seed``, ``max_tokens`` and ``stop``
+  (src/dllama-api.cpp:491-520), greedy or sampled per request;
+* ``GET /v1/models`` — single-model listing (src/dllama-api.cpp:538-547);
+* ``GET /v1/health`` — model name, lane occupancy, queue depth, uptime.
+
+A `LaneScheduler` thread owns every engine call. It admits queued requests
+FIFO into the least-recently-used free lane, matches each conversation
+against the shared radix tree of served prefixes (`kv.manager`) and adopts
+the covering pool pages with no device copy (a fork of a mid-page boundary
+is the one copy), prefills the rest one bounded chunk a tick, and steps
+every active lane together in decode blocks. A finished stream publishes
+its whole pages to the tree. An engine error fails the in-flight requests
+with a retryable error payload and the scheduler keeps serving.
+
+Left for later slices (ROADMAP A.8): the single-stream (``--batch-size
+1``) path with its NaiveCache, speculation, predictive admission and EDF,
+park/resume, faults and retry, shedding and drain, and the observability
+routes (``/metrics``, ``/v1/debug/*``).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
+
+from ..kv.manager import PagedKVManager
+from ..tokenizer import (
+    CHAT_TEMPLATE_NAMES,
+    ChatItem,
+    ChatTemplateGenerator,
+    ChatTemplateType,
+    EosDetector,
+    EosResult,
+    Tokenizer,
+)
+from .engine import InferenceEngine
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_LANE_BLOCK = 8
+
+
+@dataclass
+class ChatMessage:
+    role: str
+    content: str
+
+
+@dataclass
+class InferenceParams:
+    messages: list[ChatMessage] = field(default_factory=list)
+    temperature: float = 0.8
+    top_p: float = 0.9
+    seed: int | None = None
+    stream: bool = False
+    max_tokens: int = -1
+    stop: list[str] = field(default_factory=list)
+
+
+class LaneJob:
+    """One request: the scheduler thread produces events, the HTTP handler
+    thread consumes them. Events: ("delta", str), ("done", finish_reason),
+    ("error", {"message": ..., "retryable": ...}). The handler sets
+    ``cancelled`` when the client goes away; the scheduler then frees the
+    lane. The times (``perf_counter`` seconds) and ``lane`` /
+    ``reused_prefix_tokens`` feed the response's ``dllama`` metadata."""
+
+    def __init__(self, params: InferenceParams):
+        self.params = params
+        self.events: queue.Queue = queue.Queue()
+        self.request_id = uuid.uuid4().hex[:16]
+        self.n_prompt_tokens = 0
+        self.n_completion = 0
+        self.buffer = ""
+        self.cancelled = False
+        self.lane: int | None = None
+        self.reused_prefix_tokens = 0
+        self.t_submit = time.perf_counter()
+        self.t_admit: float | None = None
+        self.t_first: float | None = None
+
+    def metadata(self) -> dict:
+        """Serving metadata for the client: request id, lane, TTFT, queue
+        wait and reused prefix (the JAX server's ``dllama`` field)."""
+
+        def ms(t0, t1):
+            return None if t0 is None or t1 is None else round((t1 - t0) * 1000, 3)
+
+        return {
+            "request_id": self.request_id,
+            "lane": self.lane,
+            "ttft_ms": ms(self.t_submit, self.t_first),
+            "queue_ms": ms(self.t_submit, self.t_admit),
+            "reused_prefix_tokens": self.reused_prefix_tokens,
+        }
+
+
+@dataclass
+class _LaneState:
+    job: LaneJob
+    pos: int
+    token: int
+    max_pos: int
+    detector: EosDetector
+    decoder: object  # tokenizer StreamDecoder
+    temperature: float
+    top_p: float
+    seed: int | None = None
+    # every token FED to the engine so far (prompt + generated). KV rows
+    # [0, pos) hold history[:pos]; the last entry is the pending token whose
+    # row the next decode step writes. _finish publishes history[:pos].
+    history: list = field(default_factory=list)
+
+
+@dataclass
+class _AdmittingLane:
+    """A request mid-admission: its adopt and its prompt's chunks run one
+    per scheduler tick, interleaved with decode blocks for the active
+    lanes, until the last fill token lands and the lane turns into a
+    _LaneState."""
+
+    job: LaneJob
+    tokens: list[int]  # the full prompt, pending token included
+    cursor: int  # fill tokens already in the lane's pages (adopted rows count)
+    prompt_end: int
+    max_pos: int
+    public_prompt: str
+    adopt_pages: list = field(default_factory=list)
+    adopted: bool = False  # the adopt ran (it is its own tick)
+
+
+class LaneScheduler:
+    """Continuous batching over the engine's lanes (see the module
+    docstring). One thread makes every engine call."""
+
+    def __init__(self, state: "ApiState", block_size: int = DEFAULT_LANE_BLOCK,
+                 admission_chunk: int | None = None):
+        self.state = state
+        self.engine = state.engine
+        self.kv: PagedKVManager = state.kv_manager
+        self.block_size = max(1, int(block_size))
+        # at most this many prompt tokens prefill a tick (0/None: the
+        # largest bucket), so an active stream waits at most one chunk and
+        # one block between tokens
+        self.admission_chunk = int(admission_chunk) if admission_chunk else max(
+            self.engine.prefill_buckets)
+        b = self.engine.batch_size
+        self.lanes: list[_LaneState | None] = [None] * b
+        self.admitting: dict[int, _AdmittingLane] = {}
+        # fresh admissions take the least-recently-used free lane
+        self.lane_used = [0] * b
+        self._admission_count = 0
+        self._rr = -1  # round-robin cursor over admitting lanes
+        self.pending: list[LaneJob] = []
+        self.n_submitted = 0
+        self.cv = threading.Condition()
+        self._stop = False
+        self.thread = threading.Thread(target=self._loop, daemon=True, name="dllama-scheduler")
+        self.thread.start()
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Stop the scheduler thread (idempotent)."""
+        with self.cv:
+            self._stop = True
+            self.cv.notify_all()
+        if self.thread.is_alive():
+            self.thread.join(timeout=timeout)
+
+    def submit(self, params: InferenceParams) -> LaneJob:
+        job = LaneJob(params)
+        with self.cv:
+            self.pending.append(job)
+            self.n_submitted += 1
+            self.cv.notify()
+        return job
+
+    # -- failure paths -----------------------------------------------------
+
+    def _fail_active(self, lane: int, err: dict) -> None:
+        """Error out one active lane's request and free the lane (nothing
+        is published: its KV is not trusted on any path that gets here)."""
+        ls = self.lanes[lane]
+        ls.job.events.put(("error", err))
+        self.lanes[lane] = None
+        self.kv.release_lane(lane)
+
+    def _fail_admitting(self, lane: int, err: dict) -> None:
+        adm = self.admitting.pop(lane, None)
+        if adm is None:
+            return
+        adm.job.events.put(("error", err))
+        self.kv.release_lane(lane)
+
+    def _drop_all(self, e: Exception) -> None:
+        """An engine error in a decode block: fail every in-flight request
+        with a retryable error and keep the scheduler alive."""
+        err = {"message": str(e), "retryable": True}
+        for lane in range(len(self.lanes)):
+            if self.lanes[lane] is not None:
+                self._fail_active(lane, err)
+        for lane in list(self.admitting):
+            self._fail_admitting(lane, err)
+        self.kv.release_all_lanes()
+
+    # -- scheduler thread --------------------------------------------------
+
+    def _loop(self) -> None:
+        # inference mode is per thread: the engine's tensors stay out of
+        # autograd on this one too
+        with torch.inference_mode():
+            while self._tick():
+                pass
+
+    def _tick(self) -> bool:
+        """One scheduler tick: admissions into free lanes, at most one
+        admission step, one decode block. False once stopped."""
+        with self.cv:
+            while (not self._stop and not self.pending and not any(self.lanes)
+                   and not self.admitting):
+                self.cv.wait()
+            if self._stop:
+                return False
+            admissions = []
+            free = [i for i in range(len(self.lanes))
+                    if self.lanes[i] is None and i not in self.admitting]
+            while self.pending and free:
+                job = self.pending.pop(0)
+                lane = min(free, key=lambda i: self.lane_used[i])
+                free.remove(lane)
+                self._admission_count += 1
+                self.lane_used[lane] = self._admission_count
+                admissions.append((lane, job))
+        for lane, job in admissions:
+            self._begin_admission(lane, job)
+        self._admission_tick()
+        if any(self.lanes):
+            try:
+                self._step_block()
+            except Exception as e:
+                logger.exception("lane scheduler step failed; dropping in-flight lanes")
+                self._drop_all(e)
+        return True
+
+    def _begin_admission(self, lane: int, job: LaneJob) -> None:
+        """Tokenize the whole conversation, match it against the radix
+        tree (retaining the pages for this lane) and queue the lane's
+        admission; no engine work yet. Validation failures (a bad template,
+        a prompt too long) are the client's: retryable False."""
+        state, tok = self.state, self.state.tokenizer
+        p = job.params
+        try:
+            items = [ChatItem(m.role, m.content) for m in p.messages]
+            prompt = state.template.generate(items, append_generation_prompt=True)
+            tokens = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
+            start_pos, adopt_pages = self.kv.match(lane, tokens)
+            if start_pos > 0:
+                self.kv.note_hit(start_pos)
+            job.lane = lane
+            job.reused_prefix_tokens = start_pos
+            job.t_admit = time.perf_counter()
+            seq_len = self.engine.header.seq_len
+            prompt_end = len(tokens) - 1
+            if prompt_end >= seq_len:
+                raise ValueError(f"prompt of {len(tokens)} tokens exceeds seqLen {seq_len}")
+            max_pos = min(prompt_end + p.max_tokens, seq_len) if p.max_tokens > 0 else seq_len
+            job.n_prompt_tokens = len(tokens)
+            self.admitting[lane] = _AdmittingLane(
+                job=job, tokens=tokens, cursor=start_pos, prompt_end=prompt_end,
+                max_pos=max_pos, public_prompt=prompt.public_prompt or "",
+                adopt_pages=adopt_pages,
+            )
+        except Exception as e:
+            job.events.put(("error", {"message": str(e), "retryable": False}))
+            self.kv.release_lane(lane)
+
+    def _admission_tick(self) -> None:
+        """At most ONE admission step per tick, round-robin over the
+        admitting lanes: the lane's adopt (it allocates the lane's pages
+        and installs its page table, even on an empty match), then one
+        bounded prefill chunk a tick; the lane turns to decode once its
+        last fill token lands."""
+        if not self.admitting:
+            return
+        order = sorted(self.admitting)
+        lane = min((i for i in order if i > self._rr), default=order[0])
+        self._rr = lane
+        adm = self.admitting[lane]
+        if adm.job.cancelled:
+            self._abort_admission(lane)
+            return
+        fills = adm.tokens[:-1]
+        try:
+            if not adm.adopted:
+                self.kv.adopt(lane, adm.adopt_pages)
+                adm.adopted = True
+            elif adm.cursor < len(fills):
+                adm.cursor += self.engine.prefill_lane_chunk(
+                    lane, fills[adm.cursor:], adm.cursor, budget=self.admission_chunk)
+            if adm.adopted and adm.cursor >= len(fills):
+                self._finish_admission(lane, adm)
+        except Exception as e:
+            logger.exception("admission of lane %d failed", lane)
+            self._fail_admitting(lane, {"message": str(e), "retryable": True})
+
+    def _finish_admission(self, lane: int, adm: _AdmittingLane) -> None:
+        """The last fill token landed: install the decode-side _LaneState."""
+        state, tok = self.state, self.state.tokenizer
+        job, p = adm.job, adm.job.params
+        if adm.public_prompt:
+            job.buffer += adm.public_prompt
+            job.events.put(("delta", adm.public_prompt))
+        detector = EosDetector(
+            tok.eos_token_ids, state.stops if not p.stop else p.stop,
+            padding_left=state.max_stop_len, padding_right=state.max_stop_len,
+        )
+        self.lanes[lane] = _LaneState(
+            job=job, pos=adm.prompt_end, token=adm.tokens[-1], max_pos=adm.max_pos,
+            detector=detector, decoder=tok.stream_decoder(), temperature=p.temperature,
+            top_p=p.top_p, seed=p.seed, history=list(adm.tokens),
+        )
+        del self.admitting[lane]
+
+    def _abort_admission(self, lane: int) -> None:
+        """Client went away mid-admission: stop prefilling for nobody."""
+        adm = self.admitting.pop(lane)
+        adm.job.events.put(("done", "cancelled"))
+        self.kv.release_lane(lane)
+
+    def _finish(self, lane: int, reason: str) -> None:
+        ls = self.lanes[lane]
+        if reason in ("stop", "length"):
+            # publish BEFORE signalling done, so a client's immediate
+            # follow-up request matches this conversation
+            self.kv.publish(lane, ls.history[: ls.pos])
+        self.kv.release_lane(lane)
+        ls.job.events.put(("done", reason))
+        self.lanes[lane] = None
+        with self.cv:
+            self.cv.notify()
+
+    def _consume_token(self, lane: int, t: int) -> bool:
+        """Advance one lane by one generated token: history, stream decode,
+        EOS and stop-string detection, the length cap. False once the lane
+        finished (its remaining block rows are dropped)."""
+        ls = self.lanes[lane]
+        if ls is None:
+            return False
+        ls.pos += 1
+        ls.token = t
+        ls.history.append(t)
+        ls.job.n_completion += 1
+        if ls.job.n_completion == 1:
+            ls.job.t_first = time.perf_counter()
+        piece = ls.decoder.decode(t)
+        eos_type = ls.detector.append(t, piece)
+        if eos_type in (EosResult.NOT_EOS, EosResult.EOS):
+            delta = ls.detector.get_delta()
+            if delta:
+                ls.job.buffer += delta
+                ls.job.events.put(("delta", delta))
+            ls.detector.reset()
+        if eos_type == EosResult.EOS:
+            self._finish(lane, "stop")
+            return False
+        if ls.pos >= ls.max_pos:
+            self._finish(lane, "length")
+            return False
+        return True
+
+    def _step_block(self) -> None:
+        b = len(self.lanes)
+        for lane in range(b):  # free lanes whose client went away
+            ls = self.lanes[lane]
+            if ls is not None and ls.job.cancelled:
+                self._finish(lane, "cancelled")
+        active = [ls is not None for ls in self.lanes]
+        if not any(active):
+            return
+        rows = self.engine.decode_lanes(
+            [ls.token if ls else 0 for ls in self.lanes],
+            [ls.pos if ls else 0 for ls in self.lanes],
+            self.block_size, active,
+            [ls.temperature if ls else 0.0 for ls in self.lanes],
+            [ls.top_p if ls else 1.0 for ls in self.lanes],
+            seeds=[ls.seed if ls else None for ls in self.lanes],
+        )
+        if not rows:  # every active lane is out of sequence space
+            for lane in range(b):
+                if self.lanes[lane] is not None:
+                    self._finish(lane, "length")
+            return
+        for row in rows:
+            for lane in range(b):
+                if active[lane] and not self._consume_token(lane, row[lane]):
+                    active[lane] = False
+
+
+class ApiState:
+    """Engine, tokenizer, chat template, KV manager and lane scheduler
+    shared by the request handlers."""
+
+    def __init__(self, engine: InferenceEngine, tokenizer: Tokenizer,
+                 model_name: str = "dllama-tpu",
+                 chat_template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
+                 lane_block_size: int = DEFAULT_LANE_BLOCK, admission_chunk: int | None = None,
+                 kv_page_size: int = 0, kv_pool_pages: int = 0):
+        if engine.batch_size < 2:
+            raise NotImplementedError(
+                "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
+                "ROADMAP A.8; serve with --batch-size > 1"
+            )
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.model_name = model_name
+        self.start_unix = time.time()
+        # request defaults captured once
+        self.default_temperature = engine.temperature
+        self.default_top_p = engine.sampler.topp
+        stops = [tokenizer.vocab[t].decode("utf-8", "replace") for t in tokenizer.eos_token_ids]
+        self.stops = stops
+        self.max_stop_len = max((len(s) for s in stops), default=0)
+        self.template = ChatTemplateGenerator(
+            chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
+        self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages)
+        self.scheduler = LaneScheduler(self, block_size=lane_block_size,
+                                       admission_chunk=admission_chunk)
+
+    def health_snapshot(self) -> dict:
+        sched = self.scheduler
+        total = self.engine.batch_size
+        active = sum(1 for ls in sched.lanes if ls is not None)
+        return {
+            "status": "ok",
+            "model": self.model_name,
+            "uptime_s": round(time.time() - self.start_unix, 3),
+            "lanes": {"total": total, "active": active, "free": total - active},
+            "admitting": len(sched.admitting),
+            "queue_depth": len(sched.pending),
+            "kv": self.kv_manager.debug(),
+        }
+
+
+def _completion_response(state: ApiState, content: str, finish_reason: str, n_prompt: int,
+                         n_completion: int, meta: dict | None = None) -> dict:
+    """The chat.completion response body."""
+    resp = {
+        "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
+        "object": "chat.completion",
+        "created": int(time.time()),
+        "model": state.model_name,
+        "choices": [{
+            "index": 0,
+            "message": {"role": "assistant", "content": content},
+            "finish_reason": finish_reason,
+        }],
+        "usage": {
+            "prompt_tokens": n_prompt,
+            "completion_tokens": n_completion,
+            "total_tokens": n_prompt + n_completion,
+        },
+    }
+    if meta is not None:
+        resp["dllama"] = meta
+    return resp
+
+
+def _sse_write(wfile, data: str) -> None:
+    """One HTTP-chunked SSE frame."""
+    raw = data.encode("utf-8")
+    wfile.write(f"{len(raw):x}\r\n".encode() + raw + b"\r\n")
+
+
+def _chunk_payload(state: ApiState, delta: str | None, stop: bool, reason: str = "stop",
+                   meta: dict | None = None) -> dict:
+    choice: dict = {"index": 0, "finish_reason": reason if stop else None}
+    if not stop:
+        choice["delta"] = {"role": "assistant", "content": delta}
+    payload = {
+        "id": "cmpl-1",
+        "object": "chat.completion.chunk",
+        "created": int(time.time()),
+        "model": state.model_name,
+        "choices": [choice],
+    }
+    if stop and meta is not None:
+        payload["dllama"] = meta
+    return payload
+
+
+def make_handler(state: ApiState):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # quiet access log
+            pass
+
+        def _json(self, payload: dict, status: int = 200) -> None:
+            body = json.dumps(payload).encode("utf-8")
+            self.send_response(status)
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Content-Type", "application/json; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_OPTIONS(self):  # CORS preflight (reference: writeCors)
+            self.send_response(204)
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Access-Control-Allow-Methods", "GET, POST, PUT, DELETE")
+            self.send_header("Access-Control-Allow-Headers", "Content-Type, Authorization")
+            self.end_headers()
+
+        def do_GET(self):
+            path = self.path.partition("?")[0]
+            if path == "/v1/models":
+                self._json({
+                    "object": "list",
+                    "data": [{"id": state.model_name, "object": "model", "created": 0,
+                              "owned_by": "user"}],
+                })
+            elif path == "/v1/health":
+                self._json(state.health_snapshot())
+            else:
+                self.send_error(404, "Not Found")
+
+        def do_POST(self):
+            if self.path.partition("?")[0] != "/v1/chat/completions":
+                self.send_error(404, "Not Found")
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                params = self._parse_params(body)
+            except (ValueError, KeyError, TypeError) as e:
+                self._json({"error": {"message": f"bad request: {e}"}}, 400)
+                return
+            job = state.scheduler.submit(params)
+            if params.stream:
+                self._stream(job)
+            else:
+                self._complete(job)
+
+        def _stream(self, job: LaneJob) -> None:
+            self.send_response(200)
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Content-Type", "text/event-stream; charset=utf-8")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            finish_reason, errored = "stop", False
+            try:
+                while True:
+                    kind, payload = job.events.get()
+                    if kind == "delta":
+                        chunk = _chunk_payload(state, payload, stop=False)
+                        _sse_write(self.wfile, f"data: {json.dumps(chunk)}\r\n\r\n")
+                    elif kind == "error":
+                        _sse_write(self.wfile, f"data: {json.dumps({'error': payload})}\r\n\r\n")
+                        errored = True
+                        break
+                    else:  # done
+                        finish_reason = payload
+                        break
+                if not errored:
+                    final = _chunk_payload(state, None, True, finish_reason, meta=job.metadata())
+                    _sse_write(self.wfile, "data: " + json.dumps(final) + "\r\n\r\n")
+                _sse_write(self.wfile, "data: [DONE]\r\n\r\n")
+                self.wfile.write(b"0\r\n\r\n")
+            except OSError:
+                # the client went away: stop paying for its lane; the
+                # chunked body is unterminated, so close the connection
+                job.cancelled = True
+                self.close_connection = True
+
+        def _complete(self, job: LaneJob) -> None:
+            while True:
+                kind, payload = job.events.get()
+                if kind == "error":
+                    # an engine fault (retryable) answers 503, a request the
+                    # server could not take 500
+                    self._json({"error": payload}, 503 if payload.get("retryable") else 500)
+                    return
+                if kind == "done":
+                    break
+            self._json(_completion_response(state, job.buffer, payload, job.n_prompt_tokens,
+                                             job.n_completion, meta=job.metadata()))
+
+        def _parse_params(self, body: dict) -> InferenceParams:
+            """(reference: parseRequest, src/dllama-api.cpp:491-520)"""
+            params = InferenceParams(temperature=state.default_temperature,
+                                     top_p=state.default_top_p, stop=[])
+            params.messages = [ChatMessage(m["role"], m["content"]) for m in body["messages"]]
+            if "stream" in body:
+                params.stream = bool(body["stream"])
+            if "temperature" in body:
+                params.temperature = float(body["temperature"])
+            if "top_p" in body:
+                params.top_p = float(body["top_p"])
+            if "seed" in body:
+                params.seed = int(body["seed"])
+            if "max_tokens" in body:
+                params.max_tokens = int(body["max_tokens"])
+            if "stop" in body:
+                stop = body["stop"]
+                # OpenAI allows a bare string or a list of strings
+                params.stop = [stop] if isinstance(stop, str) else [str(x) for x in stop]
+            return params
+
+    return Handler
+
+
+def serve(
+    engine: InferenceEngine,
+    tokenizer: Tokenizer,
+    host: str = "0.0.0.0",
+    port: int = 9990,
+    model_name: str = "dllama-tpu",
+    chat_template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
+    lane_block_size: int | None = None,
+    admission_chunk: int | None = None,
+    kv_page_size: int | None = None,
+    kv_pool_pages: int | None = None,
+) -> ThreadingHTTPServer:
+    """Build the server over a ``batch_size`` > 1 engine (its lanes get the
+    page pool here); the caller runs ``serve_forever()`` and
+    ``server_close()`` stops the scheduler too."""
+    state = ApiState(
+        engine, tokenizer, model_name, chat_template_type,
+        lane_block_size=lane_block_size or DEFAULT_LANE_BLOCK, admission_chunk=admission_chunk,
+        kv_page_size=kv_page_size or 0, kv_pool_pages=kv_pool_pages or 0,
+    )
+    server = ThreadingHTTPServer((host, port), make_handler(state))
+    server.state = state
+    inner_close = server.server_close
+
+    def _close():
+        inner_close()
+        state.scheduler.stop()
+
+    server.server_close = _close
+    return server
+
+
+def main(argv=None) -> None:
+    import argparse
+    import os
+
+    from ..cli import add_engine_args, load_engine
+
+    parser = argparse.ArgumentParser(prog="dllama-tpu-torch-api")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=9990)
+    add_engine_args(parser)
+    args = parser.parse_args(argv)
+    if args.batch_size < 2:
+        raise SystemExit("the single-stream server path (--batch-size 1) is not ported "
+                         "(ROADMAP A.8): pass --batch-size 2 or more")
+    engine, tok = load_engine(args)
+    ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
+             else ChatTemplateType.UNKNOWN)
+    server = serve(
+        engine, tok, host=args.host, port=args.port, model_name=os.path.basename(args.model),
+        chat_template_type=ttype, lane_block_size=args.lane_block_size,
+        admission_chunk=args.admission_chunk, kv_page_size=args.kv_page_size,
+        kv_pool_pages=args.kv_pool_pages,
+    )
+    print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,20 @@
-from .bpe import Tokenizer
+from .bpe import StreamDecoder, Tokenizer
+from .chat import (
+    CHAT_TEMPLATE_NAMES,
+    ChatItem,
+    ChatTemplateGenerator,
+    ChatTemplateType,
+    EosDetector,
+    EosResult,
+)
 
-__all__ = ["Tokenizer"]
+__all__ = [
+    "StreamDecoder",
+    "Tokenizer",
+    "CHAT_TEMPLATE_NAMES",
+    "ChatItem",
+    "ChatTemplateType",
+    "ChatTemplateGenerator",
+    "EosDetector",
+    "EosResult",
+]

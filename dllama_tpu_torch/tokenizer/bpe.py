@@ -162,6 +162,13 @@ class Tokenizer:
         far or None (reference: src/tokenizer.cpp:291-309)."""
         return self._decode_with(self._decoder, token)
 
+    def stream_decoder(self) -> "StreamDecoder":
+        """An INDEPENDENT streaming decoder over this vocab — one per
+        serving lane, so concurrent requests don't interleave their UTF-8
+        state (the tokenizer's own decode() keeps a single stream, like
+        the reference's single-request loop)."""
+        return StreamDecoder(self)
+
     def decode_tokens(self, tokens: list[int]) -> str:
         """Non-streaming convenience: decode a whole sequence. Starts from a
         clean decoder so stale streaming state cannot leak in."""
@@ -176,3 +183,18 @@ class Tokenizer:
         if tail:
             parts.append(tail)
         return "".join(parts)
+
+
+class StreamDecoder:
+    """Per-lane streaming token decoder: same vocab/EOS rules as the
+    owning Tokenizer, independent incremental UTF-8 state."""
+
+    def __init__(self, tokenizer: Tokenizer):
+        self._tok = tokenizer
+        self._decoder = codecs.getincrementaldecoder("utf-8")("replace")
+
+    def decode(self, token: int) -> str | None:
+        return self._tok._decode_with(self._decoder, token)
+
+    def reset(self) -> None:
+        self._decoder.reset()

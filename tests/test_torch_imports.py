@@ -64,3 +64,12 @@ def test_no_jax_or_reference_import(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "dllama_tpu"), f"{path}: imports {n}"
+
+
+def test_serving_slice_modules_are_covered():
+    """The serving slice's copies (kv/, tokenizer/chat.py, the lane server)
+    and the paged-KV helpers are among the modules checked above."""
+    mods = _port_modules()
+    for m in ("kv.pool", "kv.radix", "kv.manager", "tokenizer.chat", "runtime.api_server",
+              "ops.kv_cache"):
+        assert f"dllama_tpu_torch.{m}" in mods

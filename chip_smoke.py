@@ -7,11 +7,16 @@ Phases, each fatal on failure (a non-zero exit and no result line):
 
 1. The card (``nvidia-smi`` name and power limit, torch's device name) and
    the build of the seven CUDA sources from csrc/ (one nvcc each, in
-   parallel), with its seconds.
+   parallel), with its seconds, and each source's ptxas registers, static
+   shared memory and spills (a line a kernel, with ptxas's warnings, for
+   the two Q40 sources).
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
    vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
-   int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention, attention
+   int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention; the two Q40
+   kernels also at the tile's other prefill buckets (m = 32, 128), a
+   ragged m = 100, and Qwen3-30B-A3B's attention projections at m = 512
+   (k 2048 n 4096, k 2048 n 512, k 4096 n 2048); attention
    again at Qwen3-30B-A3B's 4 KV heads, and the four MoE kernels at A3B's
    D 2048, F 768, 128 experts, 8 active, with random routing. Each row: max
    normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
@@ -78,9 +83,10 @@ INT8_OPS = 1979e12  # H100 SXM datasheet, dense
 # normalized error of kernels with f32 outputs from f32 inputs, or from
 # bf16 inputs where no bf16 rounding follows a sum: kernel and plain version
 # share every rounding and differ in sum order only. The largest reading on
-# an H100 was 5.6e-6 (q40_matmul m=512 k=14336); a kernel that kept the
-# dequantized weight in f32 where the plain version rounds it to bf16 reads
-# ~1e-3
+# an H100 was 2.1e-5 (q40_matmul bf16 m=512 k=14336, the tensor-core tile:
+# its k16 sums run in another order than the plain matmul's over 14336
+# terms; 5.6e-6 on the f32-FMA tile); a kernel that kept the dequantized
+# weight in f32 where the plain version rounds it to bf16 reads ~1e-3
 TOL = 1e-4
 TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step
 # the MoE kernels' bf16 runs, whose f32 outputs follow a bf16 rounding of
@@ -104,6 +110,9 @@ MODELS = [
 ]
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# more x rows for the Q40 tile (bf16): the other prefill buckets and a ragged m
+Q40_TILE_M = {(4096, 14336): (32, 128), (4096, 4096): (100,)}
+QWEN_ATTN_SHAPES = [(2048, 4096), (2048, 512), (4096, 2048)]  # qwen3-30b-a3b wq, wk/wv, wo
 REPLACES = {
     "q40_matmul": "dllama_tpu/ops/quant_matmul.py:289",
     "q40i4_matmul": "dllama_tpu/ops/quant_matmul.py:334",
@@ -199,16 +208,31 @@ def random_q40(n: int, k: int, device, gen):
     return QuantWeight(q, d)
 
 
+def _q40_cases(f32: bool) -> list[tuple[int, int, list]]:
+    """(k, n, [(m, dtype), ...]) of the Q40 kernels' rows: `_x_cases` (f32
+    x only if ``f32``) at llama-8b's shapes, the tile's other prefill
+    buckets (m = 32, 128) and a ragged m = 100 in bf16, and qwen3-30b-a3b's
+    attention projections at m = 512."""
+    import torch
+
+    bf = torch.bfloat16
+    cases = []
+    for k, n in Q40_SHAPES:
+        xs = [c for c in _x_cases(k, n) if f32 or c[1] == bf]
+        cases.append((k, n, xs + [(m, bf) for m in Q40_TILE_M.get((k, n), ())]))
+    return cases + [(k, n, [(512, bf)]) for k, n in QWEN_ATTN_SHAPES]
+
+
 def check_q40(device, gen, timed: bool = True) -> list[dict]:
     import torch
 
     from dllama_tpu_torch.ops.quant_matmul import dequant, qmatmul, qmatmul_ref
 
     rows = []
-    for k, n in Q40_SHAPES:
+    for k, n, x_cases in _q40_cases(f32=False):
         w = random_q40(n, k, device, gen)
         w_bf16 = dequant(w, torch.bfloat16)  # the library yardstick's operand
-        for m in (1, 512):
+        for m, _ in x_cases:
             x = torch.randn((m, k), device=device, generator=gen).to(torch.bfloat16)
             kern, plain = qmatmul(x, w), qmatmul_ref(x, w)
             torch.cuda.synchronize(device)
@@ -253,10 +277,10 @@ def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
     )
 
     rows = []
-    for k, n in Q40_SHAPES:
+    for k, n, x_cases in _q40_cases(f32=True):
         w = random_q40(n, k, device, gen)
         pw = pack_nibbles(w)
-        for m, dtype in _x_cases(k, n):
+        for m, dtype in x_cases:
             f32 = dtype == torch.float32
             x = torch.randn((m, k), device=device, generator=gen).to(dtype)
             kern, plain, twin = qmatmul_i4(x, pw), qmatmul_ref(x, pw), qmatmul(x, w)
@@ -1216,6 +1240,27 @@ def device_profile(engine, run, n_steps: int) -> dict:
     }
 
 
+def ptxas_kernels(log: str) -> list[str]:
+    """One line a kernel of a ptxas -v report: its (mangled) name, registers,
+    static shared memory and spill stores, and any ptxas warning or wgmma
+    note about it (serialization among them)."""
+    lines, name, notes, spill = [], None, [], "?"
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, notes, spill = m.group(1), [], "?"
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = m.group(1)
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name[:72]}: registers {m.group(1)}, static smem "
+                         f"{smem.group(1) if smem else 0} B, spill stores {spill} B"
+                         + "".join(f"; {w}" for w in notes))
+            name = None
+        elif "Function properties" not in line and ("warning" in line.lower() or "wgmma" in line):
+            notes.append(line.strip())
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -1241,8 +1286,12 @@ def main() -> int:
     for name, log in _build.ptxas_log.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
+        smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
-              f"spill stores {spills} B")
+              f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
+        if name.startswith("q40"):
+            for line in ptxas_kernels(log):
+                print(f"    {line}")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)

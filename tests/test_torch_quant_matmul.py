@@ -48,7 +48,8 @@ def test_plain_matches_jax_qmatmul_ref_f32(m):
     np.testing.assert_allclose(got, np.asarray(JQ.qmatmul_ref(jnp.asarray(x), jw)), atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [1, 8, 24])
+# 32 and 128: the tile's other prefill buckets; 100: a ragged m
+@pytest.mark.parametrize("m", [1, 8, 24, 32, 100, 128])
 def test_plain_bf16_matches_tpu_kernel_interpret(m):
     k, n = 256, 256
     jw, tw, _ = _weights(k, n, seed=20 + m)

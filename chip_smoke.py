@@ -9,7 +9,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the build of the seven CUDA sources from csrc/ (one nvcc each, in
    parallel), with its seconds, and each source's ptxas registers, static
    shared memory and spills (a line a kernel, with ptxas's warnings, for
-   the two Q40 sources).
+   the two Q40 sources and the two attention sources).
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
    vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
@@ -17,7 +17,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    kernels also at the tile's other prefill buckets (m = 32, 128), a
    ragged m = 100, and Qwen3-30B-A3B's attention projections at m = 512
    (k 2048 n 4096, k 2048 n 512, k 4096 n 2048); attention
-   again at Qwen3-30B-A3B's 4 KV heads, and the four MoE kernels at A3B's
+   again at Qwen3-30B-A3B's 4 KV heads and at head dim 64 (decode at pos 0,
+   511, 563 and 4095; every attention kernel launched twice on the same
+   inputs must repeat its bits), attention's edge shapes (a ragged T = 100
+   with a parked lane, decode with a parked lane, 32 heads on one KV head:
+   `check_attention_edges`), and the four MoE kernels at A3B's
    D 2048, F 768, 128 experts, 8 active, with random routing. Each row: max
    normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
    (bytes over 3.35 TB/s or operations over the H100 SXM datasheet peak of
@@ -361,9 +365,25 @@ def _sdpa(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -> list[dict]:
+def twice_equal(fn, what: str):
+    """Run ``fn`` twice on the same inputs and require equal bits (no
+    atomics, no order that changes between runs); returns the first result."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a_t, b_t = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    require(all(torch.equal(x, y) for x, y in zip(a_t, b_t)), f"{what}: two runs differ in bits")
+    return a
+
+
+def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8,
+                    hd: int = 128) -> list[dict]:
     """Both attention kernels at h query heads over kh KV heads (llama-8b:
-    32 / 8; qwen3-30b-a3b: 32 / 4)."""
+    32 / 8; qwen3-30b-a3b: 32 / 4) and head dim hd; each launched twice on
+    the same inputs, with equal bits required. Decode at pos 0 (all but one
+    block of a cluster empty), 511, 563 (the middle of the main path's
+    500 + 128-token run) and 4095."""
     import torch
 
     from dllama_tpu_torch.ops.flash_attention import (
@@ -373,8 +393,8 @@ def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -
         flash_decode_ref,
     )
 
-    hd, t = 128, 512
-    heads = f"H={h} KH={kh}"
+    t = 512
+    heads = f"H={h} KH={kh}" if hd == 128 else f"hd={hd} H={h} KH={kh}"
     rows = []
 
     def cache(s):
@@ -385,12 +405,13 @@ def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -
     for s, pos in ((512, 0), (4096, 3584)):
         q = torch.randn((1, t, h, hd), device=device, generator=gen).to(torch.bfloat16)
         k, v = cache(s)
-        got = flash_attention_stats(q, k, v, pos)
+        got = twice_equal(lambda: flash_attention_stats(q, k, v, pos),
+                          f"flash_attention_stats {heads} S={s} pos={pos}")
         ref = flash_attention_stats_ref(q, k, v, pos)
         torch.cuda.synchronize(device)
         errs = [norm_err(a, b) for a, b in zip(got, ref)]
         rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
-        require(rel <= TOL, f"flash_attention_stats S={s} pos={pos}: error {rel:.3e} > {TOL}")
+        require(rel <= TOL, f"flash_attention_stats {heads} S={s} pos={pos}: error {rel:.3e} > {TOL}")
         vis = sum(min(s, pos + i + 1) for i in range(t))
         n_bytes = q.numel() * 2 + 2 * kh * min(s, pos + t) * hd * 2 + h * t * (hd + 2) * 4
         b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis)
@@ -409,12 +430,14 @@ def check_attention(device, gen, timed: bool = True, h: int = 32, kh: int = 8) -
         rows.append(row)
 
     k, v = cache(4096)
-    for pos in (0, 511, 4095):
+    for pos in (0, 511, 563, 4095):
         q = torch.randn((1, 1, h, hd), device=device, generator=gen).to(torch.bfloat16)
-        got, ref = flash_decode(q, k, v, pos), flash_decode_ref(q, k, v, pos)
+        got = twice_equal(lambda: flash_decode(q, k, v, pos), f"flash_decode {heads} pos={pos}")
+        ref = flash_decode_ref(q, k, v, pos)
         torch.cuda.synchronize(device)
         rel, absd = norm_err(got, ref)
-        require(rel <= TOL_BF16_OUT, f"flash_decode pos={pos}: error {rel:.3e} > {TOL_BF16_OUT}")
+        require(rel <= TOL_BF16_OUT,
+                f"flash_decode {heads} pos={pos}: error {rel:.3e} > {TOL_BF16_OUT}")
         n_bytes = q.numel() * 2 * 2 + 2 * kh * (pos + 1) * hd * 2
         b_ms, b_by = bound(n_bytes, 4.0 * hd * h * (pos + 1))
         row = dict(
@@ -466,7 +489,8 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
     table it must give `flash_decode`'s bits on the same rows. Then the
     paged prefill stats (the stats kernel with paged addressing) against
     `attention_stats` on the gathered view, and its identity-table bits
-    against `flash_attention_stats` (printed). The library yardstick is
+    against `flash_attention_stats` (required). Each kernel launched twice
+    on the same inputs must give the same bits. The library yardstick is
     scaled_dot_product_attention on the gathered contiguous view: it leaves
     the gather out."""
     import torch
@@ -489,16 +513,17 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
             (kp, vp), pt, (ks, vs), (ki, vi), pt_ident = _paged_case(device, gen, h, kh, dtype)
             q = torch.randn((4, 1, h, 128), device=device, generator=gen).to(dtype)
             before = paged_flash_decode.launches
-            got = paged_flash_decode(q, kp, vp, pt, pos)
+            shape = f"{tag} H={h} KH={kh} B=4 pos={','.join(map(str, PAGED_POS))}"
+            got = twice_equal(lambda: paged_flash_decode(q, kp, vp, pt, pos),
+                              f"paged_flash_decode {shape}")
             ref = paged_flash_decode_ref(q, kp, vp, pt, pos)
             ident = paged_flash_decode(q, ki, vi, pt_ident, pos)
             slab = flash_decode(q, ks, vs, pos)
             torch.cuda.synchronize(device)
-            require(paged_flash_decode.launches == before + 2,
+            require(paged_flash_decode.launches == before + 3,
                     "paged_flash_decode: the wrapper did not launch its kernel")
             rel, absd = norm_err(got, ref)
             tol = TOL if dtype == torch.float32 else TOL_BF16_OUT
-            shape = f"{tag} H={h} KH={kh} B=4 pos={','.join(map(str, PAGED_POS))}"
             require(rel <= tol, f"paged_flash_decode {shape}: error {rel:.3e} > {tol}")
             require(torch.equal(ident, slab),
                     f"paged_flash_decode {shape}: identity table differs from flash_decode")
@@ -523,15 +548,18 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
             t = 128
             q_pos0 = torch.tensor([256, 3000, 0, 4096 - t], dtype=torch.int32, device=device)
             qc = torch.randn((4, t, h, 128), device=device, generator=gen).to(dtype)
-            got = paged_flash_attention_stats(qc, kp, vp, pt, q_pos0)
+            shape = f"{tag} H={h} KH={kh} B=4 T={t} paged"
+            got = twice_equal(lambda: paged_flash_attention_stats(qc, kp, vp, pt, q_pos0),
+                              f"flash_attention_stats {shape}")
             ref = paged_flash_attention_stats_ref(qc, kp, vp, pt, q_pos0)
             ident = paged_flash_attention_stats(qc, ki, vi, pt_ident, q_pos0)
             slab = flash_attention_stats(qc, ks, vs, q_pos0)
             torch.cuda.synchronize(device)
             errs = [norm_err(a, b) for a, b in zip(got, ref)]
             rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
-            shape = f"{tag} H={h} KH={kh} B=4 T={t} paged"
             require(rel <= TOL, f"flash_attention_stats {shape}: error {rel:.3e} > {TOL}")
+            require(all(torch.equal(a, b) for a, b in zip(ident, slab)),
+                    f"flash_attention_stats {shape}: identity table differs from the slab entry")
             vis = sum(min(4096, int(p) + i + 1) for p in q_pos0.tolist() for i in range(t))
             n_bytes = (qc.numel() * qc.element_size() + 2 * kh * 128 * qc.element_size()
                        * sum(min(4096, int(p) + t) for p in q_pos0.tolist())
@@ -541,9 +569,94 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
             rows.append(dict(
                 name="flash_attention_stats", shape=shape, err=rel, max_abs_err=absd,
                 bound_ms=b_ms, bound_by=b_by,
-                identity_bits_equal=all(torch.equal(a, b) for a, b in zip(ident, slab)),
+                identity_bits_equal=True,
             ))
             del kp, vp, ks, vs, ki, vi
+    return rows
+
+
+RAGGED_T = 100  # a prefill chunk that fills no tile
+
+
+def check_attention_edges(device, gen) -> list[dict]:
+    """Both attention kernels at edge shapes, H 32 over KH 8 and 4, bf16 and
+    f32, each launched twice with equal bits required: prefill stats with a
+    ragged T = 100 over three lanes, one parked at q_pos0 = -T, whose state
+    must be m = -1e30, l = 0, acc = 0; decode, slab and paged, over two
+    lanes, one parked at pos -1, whose output must be zeros; and bf16
+    decode at 32 query heads a KV head (the CUDA-core body). Untimed."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats,
+        flash_attention_stats_ref,
+        flash_decode,
+        flash_decode_ref,
+        paged_flash_decode,
+        paged_flash_decode_ref,
+    )
+
+    hd, s, t, rows = 128, 512, RAGGED_T, []
+    for kh in (8, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            size = torch.tensor([], dtype=dtype).element_size()
+
+            def randn(*shape):
+                return torch.randn(shape, device=device, generator=gen).to(dtype)
+
+            starts = (300, -t, 0)
+            q_pos0 = torch.tensor(starts, dtype=torch.int32, device=device)
+            q, k, v = randn(3, t, 32, hd), randn(3, kh, s, hd), randn(3, kh, s, hd)
+            shape = f"{tag} H=32 KH={kh} B=3 T={t} q_pos0={','.join(map(str, starts))}"
+            got = twice_equal(lambda: flash_attention_stats(q, k, v, q_pos0),
+                              f"flash_attention_stats {shape}")
+            ref = flash_attention_stats_ref(q, k, v, q_pos0)
+            errs = [norm_err(a, b) for a, b in zip(got, ref)]
+            rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+            require(rel <= TOL, f"flash_attention_stats {shape}: error {rel:.3e} > {TOL}")
+            acc, m, l = got
+            require(bool((acc[1] == 0).all() and (l[1] == 0).all() and (m[1] <= -1e29).all()),
+                    f"flash_attention_stats {shape}: the parked lane's state is not empty")
+            vis = sum(min(s, max(0, p + i + 1)) for p in starts for i in range(t))
+            n_bytes = (q.numel() * size + 2 * kh * hd * size
+                       * sum(min(s, max(0, p + t)) for p in starts) + 32 * 3 * t * (hd + 2) * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * 32 * vis, peak)
+            rows.append(dict(name="flash_attention_stats", shape=shape, err=rel,
+                             max_abs_err=absd, bound_ms=b_ms, bound_by=b_by))
+
+            pos = torch.tensor([-1, 563], dtype=torch.int32, device=device)
+            qd = randn(2, 1, 32, hd)
+            (kp, vp), pt, (ks, vs), _, _ = _paged_case(device, gen, 32, kh, dtype, s=1024, b=2)
+            n_bytes = 2 * kh * 564 * hd * size + 2 * qd.numel() * size
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * 32 * 564, peak)
+            tol = TOL if dtype == torch.float32 else TOL_BF16_OUT
+            for name, fn, ref_fn, args in (
+                ("flash_decode", flash_decode, flash_decode_ref, (qd, ks, vs, pos)),
+                ("paged_flash_decode", paged_flash_decode, paged_flash_decode_ref,
+                 (qd, kp, vp, pt, pos)),
+            ):
+                shape = f"{tag} H=32 KH={kh} B=2 pos=-1,563"
+                got = twice_equal(lambda: fn(*args), f"{name} {shape}")
+                rel, absd = norm_err(got, ref_fn(*args))
+                require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
+                require(bool((got[0] == 0).all()), f"{name} {shape}: the parked lane is not zero")
+                rows.append(dict(name=name, shape=shape, err=rel, max_abs_err=absd,
+                                 bound_ms=b_ms, bound_by=b_by))
+            del q, k, v, kp, vp, ks, vs
+
+    # 32 query heads on one KV head: bf16 decode past the tensor-core body's 16
+    q = torch.randn((1, 1, 32, hd), device=device, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((1, 1, 1024, hd), device=device, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    shape = "bf16 H=32 KH=1 S=1024 pos=563"
+    got = twice_equal(lambda: flash_decode(q, k, v, 563), f"flash_decode {shape}")
+    rel, absd = norm_err(got, flash_decode_ref(q, k, v, 563))
+    require(rel <= TOL_BF16_OUT, f"flash_decode {shape}: error {rel:.3e} > {TOL_BF16_OUT}")
+    b_ms, b_by = bound(2 * 564 * hd * 2 + 2 * q.numel() * 2, 4.0 * hd * 32 * 564)
+    rows.append(dict(name="flash_decode", shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                     bound_by=b_by))
     return rows
 
 
@@ -1289,7 +1402,7 @@ def main() -> int:
         smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
-        if name.startswith("q40"):
+        if name.startswith(("q40", "flash")):
             for line in ptxas_kernels(log):
                 print(f"    {line}")
 
@@ -1297,6 +1410,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
+            + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
             + check_paged_decode(device, gen) + check_moe(device, gen))
     for r in rows:
         times = "".join(

@@ -58,7 +58,7 @@
 // 4 x 4 outputs a thread): no tensor-core type holds f32 exactly.
 #pragma once
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace dllama {
 namespace q40 {
@@ -282,62 +282,10 @@ template <typename W, int NT> __host__ __device__ constexpr int tc_stage_bytes()
   return tc_x_bytes<NT>() + TC_ROWS * tc_row_stride<W>();
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor of a k-major operand in the 128-byte
-// swizzle (8-row atoms of 1024 bytes, 1024-byte aligned): start address,
-// leading offset 16 (unused for this layout), stride 1024 bytes between
-// atoms, layout type 1
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// d[64 x 64] += A[64 x 16] (bf16 fragments in registers) . B[16 x 64] (desc)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // keep the compiler from moving accumulator accesses across wgmma issue/wait
 template <int NT> __device__ __forceinline__ void fence_acc(float (&acc)[NT][32]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[j][i])::"memory");
+  for (int j = 0; j < NT; ++j) fence_regs(acc[j]);
 }
 
 // byte i of u (a value + 8 in [0, 15]) as the float value: its bits placed
@@ -345,11 +293,6 @@ template <int NT> __device__ __forceinline__ void fence_acc(float (&acc)[NT][32]
 // leaves u - 8 (a byte permute and an add, no int-to-float conversion)
 __device__ __forceinline__ float nibble_value(uint32_t u, int i) {
   return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | i)) - 8388616.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round-to-nearest-even, as round_to
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <typename W, int NT>
@@ -372,7 +315,7 @@ struct TcTile {
       const int r = i >> 3, c = i & 7;
       const int row = m0 + r, col = kt * TC_BK + c * 8;
       const bool ok = row < m && col < k;
-      cp_async16(smem_addr(xs + r * 128 + ((c ^ (r & 7)) << 4)),
+      cp_async16(smem_addr(xs + sw128(r, c)),
                  ok ? x + (size_t)row * k + col : x, ok);
     }
     // raw weight bytes: TC_ROWS rows of tc_row_bytes
@@ -410,7 +353,7 @@ __device__ __forceinline__ void tc_stage(const TcTile<W, NT>& tile, int kt, int 
                                          float (&acc)[NT][32]) {
   constexpr int S = TC_STAGES;
   cp_async_wait<S - 3>();
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async bytes -> wgmma
+  fence_proxy_async();  // cp.async bytes -> wgmma
   __syncthreads();
   if (kt + S - 2 < nst) tile.load(kt + S - 2, (kt + S - 2) % S);
   cp_async_commit();

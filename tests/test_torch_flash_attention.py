@@ -87,3 +87,40 @@ def test_cpu_wrappers_launch_nothing():
     TF.flash_attention_stats(q, k, v, 0)
     TF.flash_decode(q[:, :1].contiguous(), k, v, 3)
     assert (TF.flash_attention_stats.launches, TF.flash_decode.launches) == before
+
+
+# The edge shapes of the card kernels' plain versions (what chip_smoke holds
+# the CUDA kernels to): head dims 64 and 128, G = 4 and 8 query heads a KV
+# head, a ragged T (37: no multiple of 16 or 64) and a parked lane.
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [4, 8])
+def test_stats_edge_shapes_match_interpret_kernel_and_jnp(g, hd):
+    b, t, kh, s = 3, 37, 2, 128
+    q_pos0 = [60, -t, 0]
+    q, k, v = _qkv(b, t, g * kh, kh, s, hd, seed=g + hd)
+    got = TF.flash_attention_stats(*_t(q, k, v), torch.tensor(q_pos0, dtype=torch.int32))
+    pos = jnp.asarray(q_pos0, jnp.int32)
+    kern = JF.flash_attention_stats(*_j(q, k, v), pos, jnp.int32(0),
+                                    block_t=t, block_s=32, interpret=True)
+    ref = J.attention_stats(*_j(q, k, v), pos, 0)
+    for a, w1, w2 in zip(got, kern, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w1).reshape(a.shape), **TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w2).reshape(a.shape), **TOL)
+    acc, m, l = got
+    assert torch.all(l[1] == 0) and torch.all(acc[1] == 0) and torch.all(m[1] <= -1e29)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [4, 8])
+def test_decode_edge_shapes_match_interpret_kernel_and_dense(g, hd):
+    b, kh, s = 3, 2, 128
+    pos = [-1, 0, 100]  # a parked lane, the first row, a ragged frontier
+    q, k, v = _qkv(b, 1, g * kh, kh, s, hd, seed=g * hd)
+    got = TF.flash_decode(*_t(q, k, v), torch.tensor(pos, dtype=torch.int32))
+    p = jnp.asarray(pos, jnp.int32)
+    kern = JF.flash_decode(*_j(q, k, v), p, block_s=32, interpret=True)
+    acc, _, l = J.attention_stats(*_j(q, k, v), p, 0)
+    dense = np.asarray(acc / jnp.where(l == 0, 1.0, l)[..., None]).transpose(0, 3, 1, 2, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+    np.testing.assert_allclose(got.numpy(), dense.reshape(b, 1, g * kh, hd), **TOL)
+    assert torch.all(got[0] == 0)

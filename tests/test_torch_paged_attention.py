@@ -124,3 +124,49 @@ def test_lane_views_is_gather_per_lane():
     for i in range(pt.shape[0]):
         assert torch.equal(views[i], tkv.gather_pages(torch.from_numpy(k),
                                                       torch.from_numpy(pt[i])))
+
+
+# The edge shapes of the card kernels' plain versions (what chip_smoke holds
+# the CUDA kernels to): page sizes 8, 16 (the server's) and 64, head dims 64
+# and 128, G = 4 and 8, a parked lane, and for chunks a ragged T = 37.
+EDGES = [(8, 4, 64), (16, 8, 128), (64, 4, 128), (16, 4, 64), (8, 8, 128), (64, 8, 64)]
+
+
+@pytest.mark.parametrize("ps,g,hd", EDGES)
+def test_paged_decode_edge_shapes_match_tpu_kernel_and_dense(ps, g, hd):
+    rng = np.random.default_rng(ps + g + hd)
+    kh, b, nb = 2, 3, 256 // ps
+    k, v, pt = _case(rng, g, ps, kh, hd, b, nb)
+    pos = np.asarray([-1, ps, (nb - 1) * ps - 1], np.int32)  # lane 2's last slot is unfilled
+    q = rng.normal(size=(b, 1, kh * g, hd)).astype(np.float32)
+    got = fa.paged_flash_decode(*(torch.from_numpy(a) for a in (q, k, v, pt, pos))).numpy()
+    kernel = np.asarray(jpaged_decode(*(jnp.asarray(a) for a in (q, k, v, pt, pos)),
+                                      interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=TOL, rtol=TOL)
+    kd = jnp.stack([jkv.paged_view(jnp.asarray(k), jnp.asarray(pt[i]), jnp.float32)
+                    for i in range(b)])
+    vd = jnp.stack([jkv.paged_view(jnp.asarray(v), jnp.asarray(pt[i]), jnp.float32)
+                    for i in range(b)])
+    dense = np.asarray(jattention_dense(jnp.asarray(q), kd, vd, jnp.asarray(pos)))
+    np.testing.assert_allclose(got, dense, atol=TOL, rtol=TOL)
+    assert np.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("ps,g,hd", EDGES)
+def test_paged_chunk_stats_edge_shapes_match_tpu_flash_stats(ps, g, hd):
+    rng = np.random.default_rng(2 * ps + g + hd)
+    kh, b, nb, t = 2, 3, 256 // ps, 37
+    k, v, pt = _case(rng, g, ps, kh, hd, b, nb)
+    q_pos0 = np.asarray([ps + 3, -t, 0], np.int32)
+    q = rng.normal(size=(b, t, kh * g, hd)).astype(np.float32)
+    got = fa.paged_flash_attention_stats(*(torch.from_numpy(a) for a in (q, k, v, pt, q_pos0)))
+    kd = jnp.stack([jkv.paged_view(jnp.asarray(k), jnp.asarray(pt[i]), jnp.float32)
+                    for i in range(b)])
+    vd = jnp.stack([jkv.paged_view(jnp.asarray(v), jnp.asarray(pt[i]), jnp.float32)
+                    for i in range(b)])
+    want = jflash_stats(jnp.asarray(q), kd, vd, jnp.asarray(q_pos0), 0, block_t=t, block_s=64,
+                        interpret=True)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w).reshape(a.shape), atol=TOL, rtol=TOL)
+    acc, m, l = got
+    assert torch.all(l[1] == 0) and torch.all(acc[1] == 0) and torch.all(m[1] <= -1e29)

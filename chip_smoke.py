@@ -9,14 +9,16 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the build of the seven CUDA sources from csrc/ (one nvcc each, in
    parallel), with its seconds, and each source's ptxas registers, static
    shared memory and spills (a line a kernel, with ptxas's warnings, for
-   the two Q40 sources and the two attention sources).
+   the two Q40 sources, the int8 source and the two attention sources).
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
    vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
-   int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention; the two Q40
-   kernels also at the tile's other prefill buckets (m = 32, 128), a
-   ragged m = 100, and Qwen3-30B-A3B's attention projections at m = 512
-   (k 2048 n 4096, k 2048 n 512, k 4096 n 2048); attention
+   int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention; the three
+   matmul kernels also at the tiles' other prefill buckets (m = 32, 128),
+   a ragged m = 100, and Qwen3-30B-A3B's attention projections at m = 512
+   (k 2048 n 4096, k 2048 n 512, k 4096 n 2048); the two Q40 kernels also
+   at the GEMV's m = 4 (the serving lanes) and m = 8, at w1's shape and the
+   classifier's; attention
    again at Qwen3-30B-A3B's 4 KV heads and at head dim 64 (decode at pos 0,
    511, 563 and 4095; every attention kernel launched twice on the same
    inputs must repeat its bits), attention's edge shapes (a ragged T = 100
@@ -28,10 +30,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    their type) and one PyTorch library call's ms as a yardstick
    (torch.matmul on the dequantized weight, scaled_dot_product_attention;
    none for the MoE kernels: no single PyTorch call computes a routed
-   SwiGLU MoE). The packed-nibble rows also hold the kernel against the Q40
-   kernel on the unpacked twin (the same code but for the weight fetch:
-   printed, with whether the bits are equal); the int8 rows at m = 512 also
-   time ``torch._int_mm`` (cuBLASLt's int8 product, no group scales).
+   SwiGLU MoE). The packed-nibble rows must also give the bits of the Q40
+   kernel on the unpacked twin (the same code but for the weight fetch),
+   and the int8 rows the bits of their plain version; the int8 rows at
+   m = 512 also time ``torch._int_mm`` (cuBLASLt's int8 product, no group
+   scales).
 3. End to end, six runs on three random Q40 ``.m`` files (max_seq_len
    4096; each with a padded byte-level ``.t``, written with the port's
    writers to a temp dir of its own, deleted before the next), each the
@@ -114,8 +117,10 @@ MODELS = [
 ]
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
-# more x rows for the Q40 tile (bf16): the other prefill buckets and a ragged m
+# more x rows for the Q40 and int8 tiles (bf16): the other prefill buckets and a ragged m
 Q40_TILE_M = {(4096, 14336): (32, 128), (4096, 4096): (100,)}
+# more x rows for the Q40 GEMVs (bf16): the serving lanes (m = 4) and a full N of 8
+Q40_GEMV_M = {(4096, 14336): (4, 8), (4096, 128256): (4, 8)}
 QWEN_ATTN_SHAPES = [(2048, 4096), (2048, 512), (4096, 2048)]  # qwen3-30b-a3b wq, wk/wv, wo
 REPLACES = {
     "q40_matmul": "dllama_tpu/ops/quant_matmul.py:289",
@@ -214,16 +219,17 @@ def random_q40(n: int, k: int, device, gen):
 
 def _q40_cases(f32: bool) -> list[tuple[int, int, list]]:
     """(k, n, [(m, dtype), ...]) of the Q40 kernels' rows: `_x_cases` (f32
-    x only if ``f32``) at llama-8b's shapes, the tile's other prefill
-    buckets (m = 32, 128) and a ragged m = 100 in bf16, and qwen3-30b-a3b's
-    attention projections at m = 512."""
+    x only if ``f32``) at llama-8b's shapes, the GEMV at m = 4 and 8 and
+    the tile's other prefill buckets (m = 32, 128) and a ragged m = 100 in
+    bf16, and qwen3-30b-a3b's attention projections at m = 512."""
     import torch
 
     bf = torch.bfloat16
     cases = []
     for k, n in Q40_SHAPES:
         xs = [c for c in _x_cases(k, n) if f32 or c[1] == bf]
-        cases.append((k, n, xs + [(m, bf) for m in Q40_TILE_M.get((k, n), ())]))
+        more = Q40_GEMV_M.get((k, n), ()) + Q40_TILE_M.get((k, n), ())
+        cases.append((k, n, xs + [(m, bf) for m in more]))
     return cases + [(k, n, [(512, bf)]) for k, n in QWEN_ATTN_SHAPES]
 
 
@@ -269,7 +275,7 @@ def _x_cases(k: int, n: int):
 def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
     """The packed-nibble kernel against its plain version at the Q40 shapes,
     and against the Q40 kernel on the unpacked twin: the two share every
-    line but the weight fetch, so their bits should be equal (printed)."""
+    line but the weight fetch, so their bits must be equal."""
     import torch
 
     from dllama_tpu_torch.ops.quant_matmul import (
@@ -292,6 +298,8 @@ def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
             rel, absd = norm_err(kern, plain)
             shape = f"{'f32 ' if f32 else ''}m={m} k={k} n={n}"
             require(rel <= TOL, f"q40i4_matmul {shape}: error {rel:.3e} > {TOL}")
+            require(torch.equal(kern, twin),
+                    f"q40i4_matmul {shape}: bits differ from q40_matmul on the unpacked twin")
             n_bytes = m * k * x.element_size() + n * k // 2 + n * (k // 32) * 2 + m * n * 4
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, F32_FLOPS if f32 else BF16_FLOPS)
             row = dict(
@@ -311,11 +319,13 @@ def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
 
 def check_i8(device, gen, timed: bool = True) -> list[dict]:
     """The grouped-int8 kernel against its plain version on the same
-    quantized operands: G 512 at the Q40 shapes and G 256 (Qwen3-30B-A3B's)
-    at k 2048 n 4096. Both form the same exact group dots, scaled alike and
-    added in group order, so they should give the same bits (printed). The m = 512 rows
-    also time torch._int_mm on xq and q (cuBLASLt's int8 product without
-    the group scales), a yardstick that is printed, not gated."""
+    quantized operands: G 512 at the Q40 shapes (with the tile's other
+    prefill buckets and a ragged m at `Q40_TILE_M`) and G 256
+    (Qwen3-30B-A3B's) at its attention projections, m = 512 (and m = 1 at
+    k 2048 n 4096). Both form the same exact group dots, scaled alike and
+    added in group order, so they must give the same bits. The m = 512
+    rows also time torch._int_mm on xq and q (cuBLASLt's int8 product
+    without the group scales), a yardstick that is printed, not gated."""
     import torch
 
     from dllama_tpu_torch.ops.int8_matmul import (
@@ -325,11 +335,16 @@ def check_i8(device, gen, timed: bool = True) -> list[dict]:
         requantize_q40,
     )
 
+    bf = torch.bfloat16
+    cases = [(k, n, 512, _x_cases(k, n) + [(m, bf) for m in Q40_TILE_M.get((k, n), ())])
+             for k, n in Q40_SHAPES]
+    cases += [(k, n, 256, [(m, bf) for m in ((1, 512) if (k, n) == (2048, 4096) else (512,))])
+              for k, n in QWEN_ATTN_SHAPES]
     rows = []
-    for k, n, group in [(k, n, 512) for k, n in Q40_SHAPES] + [(2048, 4096, 256)]:
+    for k, n, group, x_cases in cases:
         w = requantize_q40(random_q40(n, k, device, gen), group)
         ng = k // group
-        for m, dtype in _x_cases(k, n):
+        for m, dtype in x_cases:
             f32 = dtype == torch.float32
             x = torch.randn((m, k), device=device, generator=gen).to(dtype)
             xq, sx = quantize_acts(x, group)
@@ -338,6 +353,7 @@ def check_i8(device, gen, timed: bool = True) -> list[dict]:
             rel, absd = norm_err(kern, plain)
             shape = f"{'f32 ' if f32 else ''}m={m} k={k} n={n} G={group}"
             require(rel <= TOL, f"i8_matmul {shape}: error {rel:.3e} > {TOL}")
+            require(torch.equal(kern, plain), f"i8_matmul {shape}: bits differ from the plain version")
             n_bytes = m * k + m * ng * 4 + n * k + n * ng * 4 + m * n * 4
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, INT8_OPS)
             row = dict(
@@ -1402,7 +1418,7 @@ def main() -> int:
         smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
-        if name.startswith(("q40", "flash")):
+        if name.startswith(("q40", "flash", "i8")):
             for line in ptxas_kernels(log):
                 print(f"    {line}")
 

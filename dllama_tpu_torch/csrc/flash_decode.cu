@@ -327,15 +327,6 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 constexpr int MMA_WARPS = 4;  // the most splits a block: a warp each, all G heads
 
-// c[16 x 8] += a[16 x 16] . b[16 x 8] (bf16 in, f32 sums)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // four 8 x 8 b16 matrices; lane l gives row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

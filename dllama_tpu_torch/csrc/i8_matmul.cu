@@ -18,18 +18,39 @@
 // ops/int8_matmul.quantize_acts (torch ops, outside the kernel, as in JAX).
 //
 // Bound on an H100: decode (m = 1) reads every weight byte once for 2
-// integer operations a weight, so it is bound by bytes (over 3.35 TB/s);
-// at m = 512 the 1,979 TOP/s int8 tensor-core rate and the bytes are
-// close. The GEMV path (m <= 8) gives each warp two output columns and
-// each lane 16-byte loads, four __dp4a a load; a group of G inputs is
-// G / 16 lanes (for G <= 512; more groups a pass below 512, a loop above),
-// reduced in int32 by shuffles, so a warp reads 512 contiguous bytes a
-// column a step. Prefill (m > 8) is a SIMT tiled product (64 x 64 tile, 32
-// bytes of k a step, 4 x 4 outputs a thread, __dp4a on int32 words in
-// shared memory) that scales its int32 sums at each group's end: simple and
-// right, far below the int8 tensor-core peak (mma / wgmma is later work).
+// integer operations a weight, so it is bound by bytes (over 3.35 TB/s).
+// The GEMV path (m <= 8) gives each warp two output columns and each lane
+// 16-byte loads, four __dp4a a load; a group of G inputs is G / 16 lanes
+// (for G <= 512; more groups a pass below 512, a loop above), reduced in
+// int32 by shuffles, so a warp reads 512 contiguous bytes a column a step.
+//
+// Prefill (m > 8; 512 rows a chunk) does 2m integer operations a weight
+// byte, far above the ridge, so it is bound by operations: 1,979 TOP/s on
+// the int8 tensor cores, which only wgmma reaches (the SIMT __dp4a tile it
+// replaced ran at ~74 TOP/s). The tile (`i8_wgmma_kernel`) runs
+// wgmma m64n128k32 s32.s8.s8 with both operands in shared memory: xq rows
+// as A and q rows as B are both k-contiguous, the one layout wgmma takes
+// for 8-bit types, in the 128-byte swizzle (a k32 step is 32 bytes, as a
+// bf16 k16 step, so the descriptors advance as the bf16 tiles' do). A block
+// is 128 x rows by 128 weight rows: a producer warpgroup, whose one thread
+// keeps a 4-stage ring of TMA copies in flight (2-D tensor maps encoded on
+// the host, 128 k-bytes a box, rows past m or n zero-filled, completion on
+// mbarriers), and two consumer warpgroups of 64 x rows each. Every G / 32
+// k32 steps a consumer drains its wgmma pipe and scales its exact int32
+// sums into the f32 sums (the product sx * s first, the term rounded on its
+// own, the groups added in order, from staged scales in shared memory); the
+// next group's first wgmma overwrites the int32 sums (scale-d 0). The
+// blocks that share a weight tile run next to each other, so each weight
+// byte comes from device memory once. What holds it at ~5x the operations
+// bound and ~1.6x torch._int_mm at m = 512 (PERF.md): the group flush,
+// half the time (its 64 int-to-float conversions a thread run at 16 a
+// clock an SM, and the warpgroup's wgmma pipe drains for it), and a
+// wgmma rate under peak without it; 448 tiles at n = 14336 make 3.4
+// waves. setmaxnreg (the producer gives its registers to the consumers)
+// removed the consumers' spills; 6 stages, staggered warpgroups and
+// clusters sharing the weight tile by TMA multicast did not help.
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace dllama;
 
@@ -114,86 +135,199 @@ i8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   }
 }
 
-constexpr int BM = 64, BN = 64, BK = 32, TM = 4, TN = 4;  // 256 threads; BK bytes of k
-constexpr int BKW = BK / 4;  // int32 words of k a tile
+// ---- the tile (m > 8) on the int8 tensor cores (see the note at the top) ----
 
-__global__ void __launch_bounds__(256)
-i8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-               const int8_t* __restrict__ q, const float* __restrict__ s,
-               float* __restrict__ out, int m, int n, int k, int group) {
-  __shared__ __align__(16) int As[BKW][BM + 4];
-  __shared__ __align__(16) int Bs[BKW][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int lrow = tid / 4;      // tile row this thread loads (0..63)
-  const int lw = (tid % 4) * 2;  // its two words of k
-  const int ng = k / group;
-  float acc[TM][TN];
-  int iacc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc[i][j] = 0.f;
-      iacc[i][j] = 0;
-    }
+constexpr int TM = 128;  // x rows a block: two consumer warpgroups of 64
+constexpr int TN = 128;  // weight rows (out columns) a block: wgmma N
+constexpr int TK = 128;  // k bytes a stage: one 128-byte swizzled row, four k32 steps
+constexpr int STAGES = 4;
+constexpr int TILE_BYTES = TM * TK;  // = TN * TK: 16 KB each operand
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+constexpr int SCALE_WIN = 32;  // groups whose scales are staged at once
+constexpr int TC_THREADS = 384;  // a producer warpgroup and two consumers
+constexpr int TC_SMEM = 1024 + STAGES * STAGE_BYTES + SCALE_WIN * (TM + TN) * 4 + 2 * STAGES * 8;
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    const int gm = m0 + lrow, gn = n0 + lrow;
-    const int2 xa = gm < m ? __ldg(reinterpret_cast<const int2*>(xq + (size_t)gm * k + k0) + lw / 2)
-                           : make_int2(0, 0);
-    const int2 wb = gn < n ? __ldg(reinterpret_cast<const int2*>(q + (size_t)gn * k + k0) + lw / 2)
-                           : make_int2(0, 0);
-    As[lw][lrow] = xa.x;
-    As[lw + 1][lrow] = xa.y;
-    Bs[lw][lrow] = wb.x;
-    Bs[lw + 1][lrow] = wb.y;
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < BKW; ++kw) {
-      const int4 a4 = *reinterpret_cast<const int4*>(&As[kw][ty * TM]);
-      const int4 b4 = *reinterpret_cast<const int4*>(&Bs[kw][tx * TN]);
-      const int a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      const int b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) iacc[i][j] = __dp4a(a[i], b[j], iacc[i][j]);
+// the 256 consumer threads' own barrier (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// scales of groups g0 .. g0 + SCALE_WIN - 1 of the block's x rows and
+// weight rows into shared memory, [group][row], zero past m, n or the
+// last group
+__device__ __forceinline__ void stage_scales(float* ssx, float* ss, const float* __restrict__ sx,
+                                             const float* __restrict__ s, int m, int n, int ng,
+                                             int m0, int n0, int g0, int tid) {
+  for (int i = tid; i < SCALE_WIN * TM; i += 256) {
+    const int g = g0 + i / TM, r = m0 + i % TM;
+    ssx[i] = g < ng && r < m ? __ldg(sx + (size_t)r * ng + g) : 0.f;
+  }
+  for (int i = tid; i < SCALE_WIN * TN; i += 256) {
+    const int g = g0 + i / TN, c = n0 + i % TN;
+    ss[i] = g < ng && c < n ? __ldg(s + (size_t)c * ng + g) : 0.f;
+  }
+}
+
+// out [m, n] f32 from xq [m, k] and q [n, k] (TMA maps mx, mq; boxes of
+// TK bytes x 128 rows in the 128-byte swizzle): block (blockIdx.x,
+// blockIdx.y) takes x rows TM blockIdx.x .. and weight rows TN blockIdx.y
+// .. (x rows fastest, so the blocks that share a weight tile run
+// together and it is read from device memory once). Warpgroup 0 is the
+// producer (one thread issues the TMA copies of a 4-stage ring); consumer
+// warpgroup c = 1, 2 runs wgmma on x rows 64 (c - 1) .. of the tile.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+i8_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mq,
+                const float* __restrict__ sx, const float* __restrict__ s,
+                float* __restrict__ out, int m, int n, int k, int group) {
+  extern __shared__ uint8_t i8_smem_raw[];
+  uint8_t* smem = i8_smem_raw + ((1024 - (smem_addr(i8_smem_raw) & 1023)) & 1023);
+  float* ssx = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);  // [SCALE_WIN][TM]
+  float* ss = ssx + SCALE_WIN * TM;                                     // [SCALE_WIN][TN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + SCALE_WIN * TN);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  const int nst = (k + TK - 1) / TK;  // stages (the last may run past k: zero-filled)
+  const int ksteps = k / 32, gsteps = group / 32, ng = k / group;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
     }
-    __syncthreads();
-    if ((k0 + BK) % group == 0) {  // the end of group g: scale its exact sums once
-      const int g = k0 / group;
-      float sa[TM], sb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = m0 + ty * TM + i;
-        sa[i] = r < m ? sx[(size_t)r * ng + g] : 0.f;
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nst; ++kt) {
+        const int slot = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[slot], (kt / STAGES - 1) & 1);
+        uint8_t* xs = smem + slot * STAGE_BYTES;
+        mbar_expect_tx(&full[slot], STAGE_BYTES);
+        tma_load_2d(xs, &mx, kt * TK, m0, &full[slot]);
+        tma_load_2d(xs + TILE_BYTES, &mq, kt * TK, n0, &full[slot]);
       }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();  // 128 int32 and f32 sums a thread: 168 registers spilled
+  const int ctid = threadIdx.x - 128, cw = ctid >> 7;  // consumer warpgroup 0 or 1
+  const int warp = (ctid >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int xrow = 64 * cw + 16 * warp + g;  // this thread's first tile row (and + 8)
+  int iacc[64];
+  float facc[64];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = n0 + tx * TN + j;
-        sb[j] = c < n ? s[(size_t)c * ng + g] : 0.f;
-      }
+  for (int i = 0; i < 64; ++i) {
+    iacc[i] = 0;
+    facc[i] = 0.f;
+  }
+  stage_scales(ssx, ss, sx, s, m, n, ng, m0, n0, 0, ctid);
+  consumers_sync();
+
+  for (int kt = 0; kt < nst; ++kt) {
+    const int slot = kt % STAGES;
+    mbar_wait(&full[slot], (kt / STAGES) & 1);
+    const uint32_t xa = smem_addr(smem + slot * STAGE_BYTES) + cw * 64 * TK;
+    const uint32_t qa = smem_addr(smem + slot * STAGE_BYTES + TILE_BYTES);
+    fence_regs(iacc);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int st = 0; st < TK / 32; ++st) {
+      const int kk = kt * (TK / 32) + st;  // k32 step
+      if (kk < ksteps) {
+        // a group's first step overwrites the int32 sums (scale-d 0)
+        wgmma_m64n128k32_s8(iacc, wgmma_desc_sw128(xa + st * 32), wgmma_desc_sw128(qa + st * 32),
+                            kk % gsteps != 0);
+        if ((kk + 1) % gsteps == 0) {  // the end of group gi: its exact sums, scaled once
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(iacc);
+          const int gi = kk / gsteps, gw = gi % SCALE_WIN;
+          const float* rs = ssx + gw * TM + xrow;
+          const float* cs = ss + gw * TN + 2 * t;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          acc[i][j] += __fmul_rn((float)iacc[i][j], sa[i] * sb[j]);
-          iacc[i][j] = 0;
+          for (int h = 0; h < 2; ++h) {
+            const float a = rs[8 * h];
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const float2 b = *reinterpret_cast<const float2*>(cs + 8 * j);
+              const int i = 4 * j + 2 * h;
+              facc[i] = __fadd_rn(facc[i], __fmul_rn((float)iacc[i], __fmul_rn(a, b.x)));
+              facc[i + 1] =
+                  __fadd_rn(facc[i + 1], __fmul_rn((float)iacc[i + 1], __fmul_rn(a, b.y)));
+            }
+          }
+          if (gw == SCALE_WIN - 1 && gi + 1 < ng) {  // the next window of scales
+            consumers_sync();
+            stage_scales(ssx, ss, sx, s, m, n, ng, m0, n0, gi + 1, ctid);
+            consumers_sync();
+          }
+          fence_regs(iacc);
+          wgmma_fence();
         }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // every stage before this one is read: release the last
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+
+  // facc[i]: tile row xrow + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t + (i & 1)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + xrow + 8 * h;
+    if (r >= m) continue;
+    float* orow = out + (size_t)r * n;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = n0 + 8 * j + 2 * t, i = 4 * j + 2 * h;
+      if (c + 1 < n && n % 2 == 0) {
+        *reinterpret_cast<float2*>(orow + c) = make_float2(facc[i], facc[i + 1]);
+      } else {
+        if (c < n) orow[c] = facc[i];
+        if (c + 1 < n) orow[c + 1] = facc[i + 1];
+      }
     }
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < n) out[(size_t)gm * n + gn] = acc[i][j];
-    }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that nothing of
+// the driver library is linked
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// a map of int8 rows [rows, k] in boxes of TK bytes x box_rows rows, in the
+// 128-byte swizzle that wgmma's descriptors read
+bool map_rows(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k};
+  const cuuint32_t box[2] = {TK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -223,8 +357,12 @@ extern "C" int i8_matmul(const void* xq, const void* sx, const void* q, const vo
       default: i8_gemv_kernel<8><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
     }
   } else {
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    i8_gemm_kernel<<<grid, 256, 0, st>>>(x8, xs, w8, ws, o, m, n, k, group);
+    CUtensorMap mx, mq;
+    if (!map_rows(&mx, xq, m, k, TM) || !map_rows(&mq, q, n, k, TN))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaFuncSetAttribute(i8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+    const dim3 grid((m + TM - 1) / TM, (n + TN - 1) / TN);
+    i8_wgmma_kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(mx, mq, xs, ws, o, m, n, k, group);
   }
   return static_cast<int>(cudaGetLastError());
 }

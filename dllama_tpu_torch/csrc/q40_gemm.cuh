@@ -24,11 +24,27 @@
 // Bound on an H100: decode (m = 1) reads every weight byte once and does
 // 2 flops per weight (3.6 and 1.9 flops a byte for the two layouts), far
 // below the ~295 flops per byte where the tensor cores become the limit, so
-// it is bound by bytes (weights over 3.35 TB/s). The GEMV path (m <= 8)
-// gives each warp two output columns; each lane takes whole 32-value blocks
-// (two 16-byte loads int8, one packed), so a warp reads 1024 or 512
-// contiguous weight bytes a column a step, and every weight byte is read
-// once a launch.
+// it is bound by bytes (weights over 3.35 TB/s). What the CUDA-core GEMV it
+// replaced spent instead was instructions: an int-to-float conversion and a
+// bf16 round trip a weight, then an f32 FMA a weight for each x row, so
+// its time grew with m for the same bytes. The bf16 GEMV (m <= 8,
+// `gemv_mma_kernel`) makes the weight the A operand of mma.sync m16n8k16
+// and the <= 8 x rows its N = 8 columns (rows past m are zero and never
+// stored), so the per-weight work is the same at m = 8 as at 1: each warp
+// takes 16 weight rows, each lane 16-byte loads that give it 16 values of
+// a 64-value block pair (both layouts take the same values to the same
+// lanes), dequantized with no conversion in bf16x2 arithmetic that rounds
+// each weight once, as the f32 product rounded to bf16 would
+// (`weight_pair`), and x read through L1 in the same k order. The
+// weights stream past L1 (`ldg_stream`), four block pairs a warp in
+// flight. A block's 4 to 16 warps (more for fewer rows) split k; warp 0 adds
+// their sums in warp order: no atomics, no scratch, bits that repeat. f32
+// x keeps the CUDA-core GEMV (`gemv_kernel`, two output columns a warp):
+// no tensor-core type holds f32 exactly. Where it misses its bound (about
+// half of it at m = 1, k = 4096, n = 14336 on an H100, PERF.md): the rate
+// device memory gives this pattern of 64-byte row pieces (~2 TB/s), and
+// for the small weights a fixed cost a launch; per-row bulk copies
+// through shared memory were slower but at the classifier.
 //
 // Prefill with bfloat16 x (m > 8; 512 rows a chunk) does 2m flops a weight,
 // ~900 flops a byte at m = 512, above the ridge: it is bound by operations
@@ -63,6 +79,14 @@
 namespace dllama {
 namespace q40 {
 
+// 16 bytes of a weight stream, read once: not kept in L1, where x stays
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
 // One int8 value a weight: a row is k bytes.
 struct Int8Values {
   static constexpr int ROW_DIV = 1;  // k / row bytes
@@ -94,6 +118,18 @@ struct Int8Values {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       u[h] = (__byte_perm(p[8 * h], p[8 * h + 4], 0x5410) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  }
+  // the GEMV's fetch: lane t of a quad takes elements 16 (t % 2) .. + 15 of
+  // block 2 p + t / 2 of a row (the 16 bytes at 64 p + 16 t)
+  __device__ static __forceinline__ uint4 pair_bytes(const uint8_t* row, int p, int t) {
+    return ldg_stream(row + 64 * p + 16 * t);
+  }
+  // those sixteen values as value + 8 in the low nibble of each byte, four a word
+  __device__ static __forceinline__ void pair_nibbles(uint4 b, int, uint32_t (&u)[4]) {
+    u[0] = (b.x & 0x0F0F0F0Fu) ^ 0x08080808u;
+    u[1] = (b.y & 0x0F0F0F0Fu) ^ 0x08080808u;
+    u[2] = (b.z & 0x0F0F0F0Fu) ^ 0x08080808u;
+    u[3] = (b.w & 0x0F0F0F0Fu) ^ 0x08080808u;
   }
 };
 
@@ -127,14 +163,27 @@ struct PackedNibbles {
     u[0] = w & 0x0F0F0F0Fu;
     u[1] = (w >> 4) & 0x0F0F0F0Fu;
   }
+  // Int8Values::pair_bytes from packed blocks: the whole 16-byte block 2 p + t / 2 ...
+  __device__ static __forceinline__ uint4 pair_bytes(const uint8_t* row, int p, int t) {
+    return ldg_stream(row + 32 * p + 16 * (t >> 1));  // lanes 2j and 2j + 1: the same bytes
+  }
+  // ... whose low nibbles are elements 0 .. 15 and high nibbles 16 .. 31
+  __device__ static __forceinline__ void pair_nibbles(uint4 b, int t, uint32_t (&u)[4]) {
+    const int sh = 4 * (t & 1);
+    u[0] = (b.x >> sh) & 0x0F0F0F0Fu;
+    u[1] = (b.y >> sh) & 0x0F0F0F0Fu;
+    u[2] = (b.z >> sh) & 0x0F0F0F0Fu;
+    u[3] = (b.w >> sh) & 0x0F0F0F0Fu;
+  }
 };
 
 constexpr int GEMV_WARPS = 4;  // warps per block
 constexpr int GEMV_COLS = 2;   // output columns per warp
 
-template <typename W, typename T, int M>
+// f32 x (m <= 8) on CUDA cores: no tensor-core type holds f32 exactly
+template <typename W, int M>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
-gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
+gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
             const __half* __restrict__ d, float* __restrict__ out, int n, int k) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = (blockIdx.x * GEMV_WARPS + warp) * GEMV_COLS;
@@ -156,7 +205,7 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
         W::block(q + col * row_bytes, b, w[c]);
         const float sc = __half2float(d[(size_t)col * nb + b]);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) w[c][i] = round_to(w[c][i] * sc, x);
+        for (int i = 0; i < 32; ++i) w[c][i] *= sc;
       } else {
 #pragma unroll
         for (int i = 0; i < 32; ++i) w[c][i] = 0.f;
@@ -165,7 +214,7 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < M; ++r) {
       float xv[4][8];
-      const T* xp = x + (size_t)r * k + b * 32;
+      const float* xp = x + (size_t)r * k + b * 32;
 #pragma unroll
       for (int h = 0; h < 4; ++h) load8(xp + 8 * h, xv[h]);
 #pragma unroll
@@ -182,6 +231,156 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
       const int col = col0 + c;
       if (lane == 0 && col < n) out[(size_t)r * n + col] = v;
     }
+}
+
+// ---- the bf16 GEMV (m <= 8) on mma.sync (see the note at the top) ----
+
+constexpr int MV_UNROLL = 4;  // 64-value block pairs a warp loads before their mmas
+
+// Two weights of the GEMV in bf16 with no conversion: bytes 2 h, 2 h + 1 of
+// u (values + 8 in [0, 15]) under the bf16 bits of 128 (0x43uu is 128 + u
+// exactly), minus 136, give the values; the f16 scale enters as bf16 hi +
+// lo (`split_scale`), so v * lo is exact and fma(v, hi, v * lo) rounds
+// v * scale once, to nearest even: the bits of the f32 product rounded to
+// bf16 (`pack_bf16`), for four bf16x2 operations a pair.
+__device__ __forceinline__ uint32_t weight_pair(uint32_t u, int h, __nv_bfloat162 hi,
+                                                __nv_bfloat162 lo) {
+  const uint32_t b = __byte_perm(u, 0x43u, h ? 0x4342 : 0x4140);
+  const __nv_bfloat162 v =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), __float2bfloat162_rn(136.f));
+  const __nv_bfloat162 w = __hfma2(v, hi, __hmul2(v, lo));
+  return *reinterpret_cast<const uint32_t*>(&w);
+}
+// an f16 scale as bf16 hi (its f32 bits cut to 16) + lo (the exact rest:
+// at most 3 significant bits of the 11), each in both halves
+__device__ __forceinline__ void split_scale(__half d, __nv_bfloat162& hi, __nv_bfloat162& lo) {
+  const float f = __half2float(d);
+  const uint32_t h = __float_as_uint(f) & 0xFFFF0000u;
+  const uint32_t l = __float_as_uint(f - __uint_as_float(h)) & 0xFFFF0000u;
+  const uint32_t hh = h | (h >> 16), ll = l | (l >> 16);
+  hi = *reinterpret_cast<const __nv_bfloat162*>(&hh);
+  lo = *reinterpret_cast<const __nv_bfloat162*>(&ll);
+}
+
+// out^T[16 weight rows, 8 x rows] of one 64-value block pair: lane (g, t)
+// holds the 16 values of weight rows g (wa) and g + 8 (wb) that W's pair
+// fetch gives it, with their scales da, db, and x row g's 16 values at the
+// same k (xv, zero past m). A k16 step s takes values 4 s .. 4 s + 3 of
+// each: the mma's k 2t, 2t + 1, 2t + 8, 2t + 9 stand for these four on both
+// sides, so the sum runs over every k of the pair once.
+template <typename W>
+__device__ __forceinline__ void gemv_pair(uint4 wa, uint4 wb, __half da, __half db,
+                                          const uint4 (&xv)[2], int t, float (&acc)[4]) {
+  uint32_t ua[4], ub[4];
+  W::pair_nibbles(wa, t, ua);
+  W::pair_nibbles(wb, t, ub);
+  __nv_bfloat162 ha, la, hb, lb;
+  split_scale(da, ha, la);
+  split_scale(db, hb, lb);
+  const uint32_t xw[8] = {xv[0].x, xv[0].y, xv[0].z, xv[0].w, xv[1].x, xv[1].y, xv[1].z, xv[1].w};
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+    const uint32_t a[4] = {weight_pair(ua[st], 0, ha, la), weight_pair(ub[st], 0, hb, lb),
+                           weight_pair(ua[st], 1, ha, la), weight_pair(ub[st], 1, hb, lb)};
+    mma_bf16(acc, a, xw[2 * st], xw[2 * st + 1]);
+  }
+}
+
+// out [m, n] f32 = x [m <= 8, k] bf16 . W^T: block blockIdx.x takes weight
+// rows 16 blockIdx.x .. (mma's M; x rows are its N = 8), its KS warps split
+// the block pairs of k in KS contiguous runs, and warp 0 adds their sums in
+// warp order. A value of out depends on its own x row and weight row only.
+template <typename W, int KS>
+__global__ void __launch_bounds__(KS * 32)
+gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                const __half* __restrict__ d, float* __restrict__ out, int m, int n, int k) {
+  __shared__ float4 red[KS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * 16;
+  const int nb = k / 32, np = (nb + 1) / 2;  // blocks, block pairs
+  const int p0 = warp * np / KS, p1 = (warp + 1) * np / KS;
+  const size_t row_bytes = (size_t)k / W::ROW_DIV;
+  // rows past n read row n - 1 (their sums are never stored)
+  const int ra = min(r0 + g, n - 1), rb = min(r0 + g + 8, n - 1);
+  const uint8_t* qa = q + ra * row_bytes;
+  const uint8_t* qb = q + rb * row_bytes;
+  const __half* da = d + (size_t)ra * nb;
+  const __half* db = d + (size_t)rb * nb;
+  const bool has_x = g < m;
+  const __nv_bfloat16* xr = x + (size_t)(has_x ? g : 0) * k + 16 * t;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int p = p0; p < p1; p += MV_UNROLL) {
+    uint4 wa[MV_UNROLL], wb[MV_UNROLL], xv[MV_UNROLL][2];
+    __half sa[MV_UNROLL], sb[MV_UNROLL];
+#pragma unroll
+    for (int u = 0; u < MV_UNROLL; ++u) {
+      const int pp = p + u, b = 2 * pp + (t >> 1);
+      const bool ok = pp < p1 && b < nb;  // an odd nb: the last pair's second block is zero
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      wa[u] = ok ? W::pair_bytes(qa, pp, t) : z;
+      wb[u] = ok ? W::pair_bytes(qb, pp, t) : z;
+      sa[u] = ok ? __ldg(da + b) : __ushort_as_half(0);  // a zero scale: a zero weight
+      sb[u] = ok ? __ldg(db + b) : __ushort_as_half(0);
+      const uint4* xp = reinterpret_cast<const uint4*>(xr + 64 * pp);
+      xv[u][0] = ok && has_x ? __ldg(xp) : z;
+      xv[u][1] = ok && has_x ? __ldg(xp + 1) : z;
+    }
+#pragma unroll
+    for (int u = 0; u < MV_UNROLL; ++u) gemv_pair<W>(wa[u], wb[u], sa[u], sb[u], xv[u], t, acc);
+  }
+  red[warp][lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  __syncthreads();
+  if (warp == 0) {
+    float v[4] = {acc[0], acc[1], acc[2], acc[3]};
+#pragma unroll
+    for (int w = 1; w < KS; ++w) {
+      const float4 o = red[w][lane];
+      v[0] += o.x;
+      v[1] += o.y;
+      v[2] += o.z;
+      v[3] += o.w;
+    }
+    // v[i]: weight row r0 + g + 8 (i / 2), x row 2 t + i % 2
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i >> 1), xrow = 2 * t + (i & 1);
+      if (row < n && xrow < m) out[(size_t)xrow * n + row] = v[i];
+    }
+  }
+}
+
+// Warps a block (k split KS ways): 4, or more while the grid holds fewer
+// than 48 warps an SM (w1 / w3 at n = 14336 take 8; wq / wo and the narrow
+// wk / wv at n = 1024, qwen3-30b-a3b's n = 512, take 16)
+constexpr int MV_MIN_WARPS = 132 * 48;
+template <typename W>
+void launch_gemv(const __nv_bfloat16* x, const uint8_t* q, const __half* d, float* out, int m,
+                 int n, int k, cudaStream_t s) {
+  const int tiles = (n + 15) / 16;
+  int ks = 4;
+  while (ks < 16 && tiles * ks < MV_MIN_WARPS) ks *= 2;
+  switch (ks) {
+    case 4: gemv_mma_kernel<W, 4><<<tiles, 4 * 32, 0, s>>>(x, q, d, out, m, n, k); break;
+    case 8: gemv_mma_kernel<W, 8><<<tiles, 8 * 32, 0, s>>>(x, q, d, out, m, n, k); break;
+    default: gemv_mma_kernel<W, 16><<<tiles, 16 * 32, 0, s>>>(x, q, d, out, m, n, k); break;
+  }
+}
+template <typename W>
+void launch_gemv(const float* x, const uint8_t* q, const __half* d, float* out, int m, int n,
+                 int k, cudaStream_t s) {
+  const dim3 grid((n + GEMV_WARPS * GEMV_COLS - 1) / (GEMV_WARPS * GEMV_COLS));
+  const dim3 block(GEMV_WARPS * 32);
+  switch (m) {
+    case 1: gemv_kernel<W, 1><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 2: gemv_kernel<W, 2><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 3: gemv_kernel<W, 3><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 4: gemv_kernel<W, 4><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 5: gemv_kernel<W, 5><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 6: gemv_kernel<W, 6><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    case 7: gemv_kernel<W, 7><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+    default: gemv_kernel<W, 8><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
+  }
 }
 
 constexpr int BM = 64, BN = 64, BK = 32, TM = 4, TN = 4;  // 256 threads; BK is one block
@@ -287,6 +486,7 @@ template <int NT> __device__ __forceinline__ void fence_acc(float (&acc)[NT][32]
 #pragma unroll
   for (int j = 0; j < NT; ++j) fence_regs(acc[j]);
 }
+
 
 // byte i of u (a value + 8 in [0, 15]) as the float value: its bits placed
 // under the exponent of 2^23 give 2^23 + u exactly, and one exact subtraction
@@ -492,18 +692,7 @@ template <typename W, typename T>
 void launch(const T* x, const uint8_t* q, const __half* d, float* out, int m, int n, int k,
             cudaStream_t s) {
   if (m <= 8) {
-    const dim3 grid((n + GEMV_WARPS * GEMV_COLS - 1) / (GEMV_WARPS * GEMV_COLS));
-    const dim3 block(GEMV_WARPS * 32);
-    switch (m) {
-      case 1: gemv_kernel<W, T, 1><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 2: gemv_kernel<W, T, 2><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 3: gemv_kernel<W, T, 3><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 4: gemv_kernel<W, T, 4><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 5: gemv_kernel<W, T, 5><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 6: gemv_kernel<W, T, 6><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      case 7: gemv_kernel<W, T, 7><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-      default: gemv_kernel<W, T, 8><<<grid, block, 0, s>>>(x, q, d, out, n, k); break;
-    }
+    launch_gemv<W>(x, q, d, out, m, n, k, s);
   } else {
     launch_tile<W>(x, q, d, out, m, n, k, s);
   }

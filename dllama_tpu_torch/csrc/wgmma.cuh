@@ -1,8 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (q40_gemm.cuh's prefill tile, flash_attention.cu's prefill stats): cp.async
-// copies, the wgmma shared-memory descriptor of the 128-byte swizzle, wgmma
-// with A from registers, its fences, commit and wait_group.
+// (q40_gemm.cuh's prefill tile and GEMV, flash_attention.cu's prefill stats,
+// i8_matmul.cu's tile): cp.async copies, mbarriers and TMA tensor copies,
+// the wgmma shared-memory descriptor of the 128-byte swizzle, wgmma with A
+// from registers (bf16) or shared memory (int8), its fences, commit and
+// wait_group, and mma.sync m16n8k16 bf16.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap (a type only: nothing of the driver is linked)
 
 #include "common.cuh"
 
@@ -26,6 +30,45 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // barrier must follow before another thread's wgmma reads them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers: init (one thread, then fence_mbar_init and a block barrier),
+// arrive, arrive with the bytes a TMA copy will deliver, and the wait for
+// the completion of phase number `parity` (mod 2) of the barrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// TMA: the box at (c0 innermost, c1) of a 2-D tensor map into shared memory
+// (in the map's swizzle; rows and columns past the tensor's edge are
+// zero-filled), completing its bytes on `bar`. The map lives in kernel
+// parameter space (a __grid_constant__ argument).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar)) : "memory");
 }
 
 // The 128-byte swizzle: rows of 128 bytes, 16-byte chunk c of row r stored at
@@ -85,6 +128,38 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
 }
 #undef DLLAMA_F8
 
+#define DLLAMA_R8(d, i)                                                                    \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[64 x 128] (s32) = (accumulate ? d : 0) + A[64 x 32] . B[32 x 128], int8,
+// both operands K-major in shared memory (the only layout wgmma takes for
+// 8-bit types), each given by its descriptor; integer sums are exact
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : DLLAMA_R8(d, 0), DLLAMA_R8(d, 8), DLLAMA_R8(d, 16), DLLAMA_R8(d, 24),
+        DLLAMA_R8(d, 32), DLLAMA_R8(d, 40), DLLAMA_R8(d, 48), DLLAMA_R8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+#undef DLLAMA_R8
+
+// move registers from the warpgroup that runs this to the others (dec) or
+// take them (inc): a producer warpgroup keeps few, consumers many
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -99,10 +174,28 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N> __device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round-to-nearest-even, as round_to
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 sums (mma.sync, one
+// warp). Lane (g = lane / 4, t = lane % 4) holds A rows g and g + 8 at k
+// 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); B column g at k
+// 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1); d rows g, g + 8 at columns 2t,
+// 2t + 1 (d[0], d[1]; d[2], d[3]). Two bf16 a register, the lower k low.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace dllama

@@ -121,8 +121,9 @@ def i8matmul_ref(x: torch.Tensor, w: Int8Weight, act_quant=quantize_acts) -> tor
 def i8matmul_2d(xq: torch.Tensor, sx: torch.Tensor, w: Int8Weight) -> torch.Tensor:
     """The kernel on quantized operands (xq int8 [m, k], sx f32 [m, k/G])
     -> f32 [m, n]: CPU tensors take `i8matmul_2d_ref`; CUDA tensors launch
-    csrc/i8_matmul.cu (dp4a GEMV for up to 8 rows, a dp4a tiled product
-    above) or raise. ``i8matmul_2d.launches`` counts kernel launches."""
+    csrc/i8_matmul.cu (dp4a GEMV for up to 8 rows, above them a tile on the
+    int8 tensor cores fed by TMA) or raise. ``i8matmul_2d.launches`` counts
+    kernel launches."""
     if xq.device.type == "cpu":
         return i8matmul_2d_ref(xq, sx, w)
     m, k = xq.shape

@@ -145,8 +145,9 @@ def qmatmul(x: torch.Tensor, w: QuantWeight) -> torch.Tensor:
     """x [..., in] @ W^T -> [..., out] f32.
 
     CPU tensors take the plain version; CUDA tensors launch
-    csrc/q40_matmul.cu (GEMV for up to 8 rows, a tiled product above) or
-    raise. ``qmatmul.launches`` counts kernel launches."""
+    csrc/q40_matmul.cu (GEMV for up to 8 rows, on mma.sync for bf16 x; a
+    tiled product above, on wgmma for bf16 x) or raise.
+    ``qmatmul.launches`` counts kernel launches."""
     _check_x(x)
     if x.device.type == "cpu":
         return qmatmul_ref(x, w)

@@ -117,6 +117,37 @@ def test_plain_matches_i8_kernel_interpret(m, n, k, group):
     assert _norm_err(got, want) <= 1e-6
 
 
+# the int8 tile's edge shapes, scaled down: G 256 and 512, m past the GEMV
+# (9) and ragged (100), k of one group and of several. Where each k block
+# of the TPU kernel holds one group (k = G, or block_k = G) it forms the
+# one scaled group sum and adds it to the sum from 0 in group order, as the
+# plain version does: the same bits. A block of several groups is compiled
+# as a whole (interpret mode runs it through XLA), and its scaled group sums
+# come out in other last bits: normalized error <= 1e-6.
+@pytest.mark.parametrize("m,k,group,block_k,same_bits", [
+    (9, 512, 512, 4096, True),
+    (100, 256, 256, 4096, True),
+    (100, 1536, 512, 512, True),
+    (9, 2048, 512, 4096, False),
+    (100, 1024, 256, 4096, False),
+    (9, 2048, 256, 512, False),
+])
+def test_plain_matches_i8_kernel_interpret_tile_edges(m, k, group, block_k, same_bits):
+    n = 200  # not a multiple of 16: one TPU block, a partial tile on the card
+    jw, tw = _q40(n, k, seed=k + group)
+    j8, t8 = j_requantize(jw, group=group), TI.requantize_q40(tw, group)
+    x = np.random.default_rng(m + k).standard_normal((m, k)).astype(np.float32)
+    xq, sx = TI.quantize_acts(torch.from_numpy(x).to(torch.bfloat16), group)
+    got = TI.i8matmul_2d(xq, sx, t8).numpy()
+    want = np.asarray(JI.i8matmul_2d(jnp.asarray(xq.numpy()), jnp.asarray(sx.numpy()), j8.q, j8.s,
+                                     block_n=128, block_k=block_k, interpret=True))
+    np.testing.assert_array_equal(got, TI.i8matmul_2d_ref(xq, sx, t8).numpy())
+    if same_bits:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert _norm_err(got, want) <= 1e-6
+
+
 def test_plain_refuses_groups_past_exact_f32():
     xq = torch.ones((1, 2048), dtype=torch.int8)
     with pytest.raises(ValueError):

@@ -61,6 +61,37 @@ def test_plain_bf16_matches_tpu_kernel_interpret(m):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+# the bf16 GEMV's edge shapes, scaled down: every m up to 8, n not a
+# multiple of 16 (a partial 16-row tile), k an odd number of 32-blocks (a
+# half block pair); the packed-nibble plain version gives q40's bits
+@pytest.mark.parametrize("k,n", [(160, 200), (352, 72)])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gemv_edges_bf16_match_tpu_kernel_interpret(m, k, n):
+    jw, tw, _ = _weights(k, n, seed=30 + m)
+    x = np.random.default_rng(40 + m).standard_normal((m, k)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(JQ.qmatmul_2d(xj, jw.q, jw.d, block_n=128, interpret=True))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = TQ.qmatmul_ref(xt, tw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(TQ.qmatmul(xt, tw), got, rtol=0, atol=0)
+    packed = TQ.pack_nibbles(tw)
+    torch.testing.assert_close(TQ.qmatmul_ref(xt, packed), got, rtol=0, atol=0)
+    torch.testing.assert_close(TQ.qmatmul_i4(xt, packed), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k,n", [(160, 200), (352, 72)])
+@pytest.mark.parametrize("m", [1, 5, 8])
+def test_gemv_edges_f32_match_jax_qmatmul_ref(m, k, n):
+    jw, tw, _ = _weights(k, n, seed=50 + m)
+    x = np.random.default_rng(60 + m).standard_normal((m, k)).astype(np.float32)
+    want = np.asarray(JQ.qmatmul_ref(jnp.asarray(x), jw))
+    got = TQ.qmatmul(torch.from_numpy(x), tw)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    torch.testing.assert_close(TQ.qmatmul_i4(torch.from_numpy(x), TQ.pack_nibbles(tw)), got,
+                               rtol=0, atol=0)
+
+
 def test_wrapper_on_cpu_runs_plain_version_without_launch():
     _, tw, _ = _weights(64, 32)
     x = torch.randn(2, 3, 64)

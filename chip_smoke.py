@@ -9,22 +9,26 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the build of the seven CUDA sources from csrc/ (one nvcc each, in
    parallel), with its seconds, and each source's ptxas registers, static
    shared memory and spills (a line a kernel, with ptxas's warnings, for
-   the two Q40 sources, the int8 source and the two attention sources).
+   the two Q40 sources, the int8 source, the two attention sources and the
+   active MoE source).
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
    vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
    int8 at G 512, and at Qwen3-30B-A3B's G 256) and attention; the three
    matmul kernels also at the tiles' other prefill buckets (m = 32, 128),
    a ragged m = 100, and Qwen3-30B-A3B's attention projections at m = 512
-   (k 2048 n 4096, k 2048 n 512, k 4096 n 2048); the two Q40 kernels also
-   at the GEMV's m = 4 (the serving lanes) and m = 8, at w1's shape and the
-   classifier's; attention
+   (k 2048 n 4096, k 2048 n 512, k 4096 n 2048), the int8 one at m = 1
+   there too; the GEMVs also at m = 4 (the serving lanes) and m = 8, at
+   w1's shape (and the Q40 ones at the classifier's), and the int8 GEMV
+   untimed at its edges (`I8_EDGE`: n = 200, every m from 1 to 8); attention
    again at Qwen3-30B-A3B's 4 KV heads and at head dim 64 (decode at pos 0,
    511, 563 and 4095; every attention kernel launched twice on the same
    inputs must repeat its bits), attention's edge shapes (a ragged T = 100
    with a parked lane, decode with a parked lane, 32 heads on one KV head:
    `check_attention_edges`), and the four MoE kernels at A3B's
-   D 2048, F 768, 128 experts, 8 active, with random routing. Each row: max
+   D 2048, F 768, 128 experts, 8 active, with random routing (the active
+   ones also at m = 4 and at an edge shape, `MOE_EDGE`, each launched twice
+   and required to repeat its bits). Each row: max
    normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
    (bytes over 3.35 TB/s or operations over the H100 SXM datasheet peak of
    their type) and one PyTorch library call's ms as a yardstick
@@ -34,7 +38,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    kernel on the unpacked twin (the same code but for the weight fetch),
    and the int8 rows the bits of their plain version; the int8 rows at
    m = 512 also time ``torch._int_mm`` (cuBLASLt's int8 product, no group
-   scales).
+   scales). The rows of the int8 GEMV and the active MoE kernels also read
+   `time_clean` (the L2 left clean) beside `time_ms` (the L2 flushed by a
+   memset, whose dirty lines a byte-bound kernel writes back in its time).
 3. End to end, six runs on three random Q40 ``.m`` files (max_seq_len
    4096; each with a padded byte-level ``.t``, written with the port's
    writers to a temp dir of its own, deleted before the next), each the
@@ -160,6 +166,9 @@ KERNEL_ROW_SHAPE = {
     "moe_grouped_experts_q40": "bf16 N=512",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
+# the active kernels' edges at about A3B's widths: D and F not multiples of
+# a 64-value block pair, k past the 8 blocks of the down projection's cluster
+MOE_EDGE = dict(e=16, d=2016, f=736, k=10)
 
 
 class SmokeError(RuntimeError):
@@ -195,6 +204,31 @@ def time_ms(fn, device, reps: int = 20) -> float:
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize(device)
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_clean(fn, device, reps: int = 20) -> float:
+    """`time_ms` with a clean L2: after the memset that evicts the cache, a
+    read of another 256 MB evicts the memset's dirty lines too, so the
+    timed call writes none of them back (which costs a byte-bound launch
+    ~7 us under `time_ms`)."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    clean = torch.ones(64 << 20, dtype=torch.float32, device=device)
+    fn()
+    torch.cuda.synchronize(device)
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        clean.sum()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -317,15 +351,39 @@ def check_q40i4(device, gen, timed: bool = True) -> list[dict]:
     return rows
 
 
+def _i8_cases() -> list[tuple[int, int, int, list]]:
+    """(k, n, G, [(m, dtype), ...]) of the timed int8 rows: G 512 at the Q40
+    shapes (`_x_cases`, the tile's other prefill buckets and a ragged m at
+    `Q40_TILE_M`, the GEMV's m = 4 and 8 at `Q40_GEMV_M`'s w1) and G 256
+    (Qwen3-30B-A3B's) at its attention projections, m = 1 and 512."""
+    import torch
+
+    bf = torch.bfloat16
+    cases = []
+    for k, n in Q40_SHAPES:
+        more = Q40_TILE_M.get((k, n), ()) + (Q40_GEMV_M[k, n] if (k, n) == (4096, 14336) else ())
+        cases.append((k, n, 512, _x_cases(k, n) + [(m, bf) for m in more]))
+    return cases + [(k, n, 256, [(1, bf), (512, bf)]) for k, n in QWEN_ATTN_SHAPES]
+
+
+# the int8 GEMV's edge shapes (k, G) at n = 200 (a partial 16-row tile) and
+# every m from 1 to 8: k of one group at G 32, 192 and 512 (lane runs of 8,
+# 16 and 128 bytes; G 192 cuts a group into 3 items), 64 groups of 32
+# (two windows of the reduction, over a cluster of 8 blocks), and groups
+# whose parts span the 32 items of a cluster's round: 64 of G 224 (7 parts)
+# and 4 of G 544 (17)
+I8_EDGE = [(32, 32), (192, 192), (512, 512), (2048, 32), (14336, 224), (2176, 544)]
+
+
 def check_i8(device, gen, timed: bool = True) -> list[dict]:
     """The grouped-int8 kernel against its plain version on the same
-    quantized operands: G 512 at the Q40 shapes (with the tile's other
-    prefill buckets and a ragged m at `Q40_TILE_M`) and G 256
-    (Qwen3-30B-A3B's) at its attention projections, m = 512 (and m = 1 at
-    k 2048 n 4096). Both form the same exact group dots, scaled alike and
-    added in group order, so they must give the same bits. The m = 512
-    rows also time torch._int_mm on xq and q (cuBLASLt's int8 product
-    without the group scales), a yardstick that is printed, not gated."""
+    quantized operands at `_i8_cases`, and untimed at `I8_EDGE`. Both form
+    the same exact group dots, scaled alike and added in group order, so
+    they must give the same bits. The GEMV rows (m <= 8) are timed with the
+    L2 flushed (`time_ms`, the comparison with earlier runs) and clean
+    (`time_clean`); the m = 512 rows also time torch._int_mm on xq and q
+    (cuBLASLt's int8 product without the group scales), a yardstick that is
+    printed, not gated."""
     import torch
 
     from dllama_tpu_torch.ops.int8_matmul import (
@@ -336,12 +394,10 @@ def check_i8(device, gen, timed: bool = True) -> list[dict]:
     )
 
     bf = torch.bfloat16
-    cases = [(k, n, 512, _x_cases(k, n) + [(m, bf) for m in Q40_TILE_M.get((k, n), ())])
-             for k, n in Q40_SHAPES]
-    cases += [(k, n, 256, [(m, bf) for m in ((1, 512) if (k, n) == (2048, 4096) else (512,))])
-              for k, n in QWEN_ATTN_SHAPES]
+    cases = [(k, n, g, xs, timed) for k, n, g, xs in _i8_cases()]
+    cases += [(k, 200, g, [(m, bf) for m in range(1, 9)], False) for k, g in I8_EDGE]
     rows = []
-    for k, n, group, x_cases in cases:
+    for k, n, group, x_cases, timed_case in cases:
         w = requantize_q40(random_q40(n, k, device, gen), group)
         ng = k // group
         for m, dtype in x_cases:
@@ -360,9 +416,11 @@ def check_i8(device, gen, timed: bool = True) -> list[dict]:
                 name="i8_matmul", shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
                 bound_by=b_by, plain_equal=torch.equal(kern, plain),
             )
-            if timed:
+            if timed_case:
                 dense = (w.q.float().view(n, ng, group) * w.s[..., None]).view(n, k).to(dtype)
                 row["ms"] = time_ms(lambda: i8matmul_2d(xq, sx, w), device)
+                if m <= 8:
+                    row["ms_clean"] = time_clean(lambda: i8matmul_2d(xq, sx, w), device)
                 row["plain_ms"] = time_ms(lambda: i8matmul_2d_ref(xq, sx, w), device, reps=5)
                 row["library_ms"] = time_ms(lambda: torch.matmul(x, dense.t()), device)
                 del dense
@@ -678,10 +736,13 @@ def check_attention_edges(device, gen) -> list[dict]:
 
 def check_moe(device, gen, timed: bool = True) -> list[dict]:
     """The four MoE kernels against `moe_experts_ref` at the A3B expert
-    shapes with random routing: active at m = 1 and 16, grouped at N = 17
-    and 512, bf16 x over dense bf16 and Q40 experts, and f32 x at m = 16 and
-    N = 512 (kernel and plain share every rounding there: TOL). Each bf16
-    row also reads the plain version with one of its bf16 roundings
+    shapes with random routing: active at m = 1, 4 and 16, grouped at N =
+    17 and 512, bf16 x over dense bf16 and Q40 experts, and f32 x at m = 16
+    and N = 512 (kernel and plain share every rounding there: TOL); the
+    active kernels also untimed at `MOE_EDGE`, m = 3. The active kernels run
+    twice on the same inputs and must repeat their bits, and their timed
+    rows read both timers (`time_ms`, `time_clean`). Each bf16 row at the
+    A3B shapes also reads the plain version with one of its bf16 roundings
     skipped (the hidden's; for Q40 the dequantized weight's) against the
     sound one: such a fault must read above TOL_MOE_BF16, or the limit
     could not catch it."""
@@ -692,32 +753,42 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
     from dllama_tpu_torch.ops import moe
     from dllama_tpu_torch.ops.quant_matmul import QuantWeight, dequant
 
-    e, d, f, k = (MOE_SHAPE[key] for key in ("e", "d", "f", "k"))
-
-    def q40(rows, cols):
+    def q40(e, rows, cols):
         q = torch.randint(-8, 8, (e, rows, cols), dtype=torch.int8, device=device, generator=gen)
         sc = ((torch.rand((e, rows, cols // 32), device=device, generator=gen) + 0.5) * 0.004)
         sc = torch.where(torch.rand(sc.shape, device=device, generator=gen) < 0.5, -sc, sc)
         return QuantWeight(q, sc.half().contiguous())
 
-    qw = [q40(f, d), q40(d, f), q40(f, d)]  # w1, w2, w3
-    dense = {torch.bfloat16: [dequant(w, torch.bfloat16) for w in qw]}
-    dense[torch.float32] = [w.float() for w in dense[torch.bfloat16]]
+    def experts(e, d, f):
+        qw = [q40(e, f, d), q40(e, d, f), q40(e, f, d)]  # w1, w2, w3
+        dense = {torch.bfloat16: [dequant(w, torch.bfloat16) for w in qw]}
+        dense[torch.float32] = [w.float() for w in dense[torch.bfloat16]]
+        return qw, dense
+
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("moe_active_experts", 1, torch.bfloat16), ("moe_active_experts", 16, torch.bfloat16),
-        ("moe_active_experts", 16, torch.float32),
-        ("moe_active_experts_q40", 1, torch.bfloat16),
-        ("moe_active_experts_q40", 16, torch.bfloat16),
-        ("moe_active_experts_q40", 16, torch.float32),
-        ("moe_grouped_experts", 17, torch.bfloat16), ("moe_grouped_experts", 512, torch.bfloat16),
-        ("moe_grouped_experts", 512, torch.float32),
-        ("moe_grouped_experts_q40", 17, torch.bfloat16),
-        ("moe_grouped_experts_q40", 512, torch.bfloat16),
-        ("moe_grouped_experts_q40", 512, torch.float32),
-    ]
-    rows = []
-    for name, n, dtype in cases:
+        (name, n, dtype, MOE_SHAPE)
+        for name, n, dtype in [
+            ("moe_active_experts", 1, bf), ("moe_active_experts", 4, bf),
+            ("moe_active_experts", 16, bf), ("moe_active_experts", 16, f32),
+            ("moe_active_experts_q40", 1, bf), ("moe_active_experts_q40", 4, bf),
+            ("moe_active_experts_q40", 16, bf), ("moe_active_experts_q40", 16, f32),
+            ("moe_grouped_experts", 17, bf), ("moe_grouped_experts", 512, bf),
+            ("moe_grouped_experts", 512, f32),
+            ("moe_grouped_experts_q40", 17, bf), ("moe_grouped_experts_q40", 512, bf),
+            ("moe_grouped_experts_q40", 512, f32),
+        ]
+    ] + [(name, 3, bf, MOE_EDGE) for name in ("moe_active_experts", "moe_active_experts_q40")]
+    rows, weights = [], {}
+    for name, n, dtype, shape in cases:
+        e, d, f, k = (shape[key] for key in ("e", "d", "f", "k"))
+        if id(shape) not in weights:
+            weights.clear()
+            gc.collect()
+            weights[id(shape)] = experts(e, d, f)
+        qw, dense = weights[id(shape)]
         quant = name.endswith("_q40")
+        active = "active" in name
         ws = qw if quant else dense[dtype]
         fn = getattr(moe, name)
         x = torch.randn((n, d), device=device, generator=gen).to(dtype)
@@ -725,15 +796,22 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
         wts = torch.rand((n, k), device=device, generator=gen) + 0.1
         wts = wts / wts.sum(-1, keepdim=True)
         before = fn.launches
-        got, ref = fn(x, *ws, top_i, wts), moe.moe_experts_ref(x, *ws, top_i, wts)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        label = f"{tag} {'m' if active else 'N'}={n}" + ("" if shape is MOE_SHAPE else
+                                                          f" E={e} D={d} F={f} k={k}")
+        if active:  # the redesigned kernels repeat their bits
+            got = twice_equal(lambda: fn(x, *ws, top_i, wts), f"{name} {label}")
+            launched = 2
+        else:
+            got, launched = fn(x, *ws, top_i, wts), 1
+        ref = moe.moe_experts_ref(x, *ws, top_i, wts)
         torch.cuda.synchronize(device)
-        require(fn.launches == before + 1, f"{name}: the wrapper did not launch its kernel")
+        require(fn.launches == before + launched, f"{name}: the wrapper did not launch its kernel")
         rel, absd = norm_err(got, ref)
         tol = TOL if dtype == torch.float32 else TOL_MOE_BF16
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        require(rel <= tol, f"{name} {tag} n={n}: error {rel:.3e} > {tol}")
+        require(rel <= tol, f"{name} {label}: error {rel:.3e} > {tol}")
         unrounded = {}
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and shape is MOE_SHAPE:
             # x in f32 over the bf16-rounded weights: the hidden is not rounded
             faults = {"hidden": moe.moe_experts_ref(x.float(), *dense[dtype], top_i, wts)}
             if quant:  # the dequantized weight kept exact in f32
@@ -742,7 +820,7 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
                     faults["weight"] = moe.moe_experts_ref(x, *ws, top_i, wts)
             for what, fault in faults.items():
                 unrounded[what] = norm_err(fault, ref)[0]
-                require(unrounded[what] > tol, f"{name} bf16 n={n}: skipping the {what} rounding "
+                require(unrounded[what] > tol, f"{name} {label}: skipping the {what} rounding "
                         f"reads {unrounded[what]:.3e}, within the limit {tol}")
         n_exp = int(torch.unique(top_i).numel())
         w_bytes = sum((w.q.numel() + w.d.numel() * 2) if quant else w.numel() * w.element_size()
@@ -750,12 +828,13 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
         n_bytes = n_exp * w_bytes + x.numel() * x.element_size() + n * d * 4 + n * k * 8
         b_ms, b_by = bound(n_bytes, 6.0 * n * k * d * f)
         row = dict(
-            name=name, shape=f"{tag} {'m' if 'active' in name else 'N'}={n}", err=rel,
-            max_abs_err=absd, bound_ms=b_ms, bound_by=b_by, experts=n_exp, library_ms=None,
-            unrounded=unrounded,
+            name=name, shape=label, err=rel, max_abs_err=absd, bound_ms=b_ms, bound_by=b_by,
+            experts=n_exp, library_ms=None, unrounded=unrounded,
         )
-        if timed:
+        if timed and shape is MOE_SHAPE:
             row["ms"] = time_ms(lambda: fn(x, *ws, top_i, wts), device)
+            if active:
+                row["ms_clean"] = time_clean(lambda: fn(x, *ws, top_i, wts), device)
             row["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts), device, 5)
         rows.append(row)
     return rows
@@ -1418,7 +1497,7 @@ def main() -> int:
         smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
-        if name.startswith(("q40", "flash", "i8")):
+        if name.startswith(("q40", "flash", "i8", "moe_active")):
             for line in ptxas_kernels(log):
                 print(f"    {line}")
 
@@ -1431,7 +1510,7 @@ def main() -> int:
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
-            for key in ("ms", "plain_ms", "library_ms") if key in r
+            for key in ("ms", "ms_clean", "plain_ms", "library_ms") if key in r
         )
         note = " (no single PyTorch call computes a routed SwiGLU MoE)" if "experts" in r else ""
         note += "".join(f"; {what} unrounded err {e:.2e}" for what, e in r.get("unrounded", {}).items())

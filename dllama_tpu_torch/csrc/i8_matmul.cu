@@ -19,10 +19,31 @@
 //
 // Bound on an H100: decode (m = 1) reads every weight byte once for 2
 // integer operations a weight, so it is bound by bytes (over 3.35 TB/s).
-// The GEMV path (m <= 8) gives each warp two output columns and each lane
-// 16-byte loads, four __dp4a a load; a group of G inputs is G / 16 lanes
-// (for G <= 512; more groups a pass below 512, a loop above), reduced in
-// int32 by shuffles, so a warp reads 512 contiguous bytes a column a step.
+// The GEMV (m <= 8, `i8_gemv_kernel`) runs mma.sync m16n8k32 s8: 16 weight
+// rows are A, the <= 8 x rows the N = 8 columns (rows past m are zero and
+// never stored), so the work a weight byte is the same at m = 8 as at 1. A
+// group's int32 dot is exact in any order, so the k slots of a lane may take
+// any k, the same map for A and B. k is cut into items (16 rows by 4 RUN
+// bytes inside one group: 512 bytes a row at G 512, 256 at G 256); each warp
+// copies its item, and the m x rows at the same k, into its stage in shared
+// memory by cp.async, 32 lanes on whole 128-byte lines, then reads its
+// fragments from there (a quad's reads of 8 rows on distinct banks). Loading
+// the fragments straight into registers (a quad reading 64 bytes of a row a
+// load, 16 rows a warp) ran 20% slower at w1, and lane runs of 128
+// contiguous bytes (half a sector a load) at half the speed (PERF.md). The
+// items of a 16-row tile are split over a block's warps in rounds and, where
+// the tiles are fewer than the SMs (n = 512, 1024), over a cluster of up to
+// 8 blocks, so that every SM has loads in flight. Each item's int32 sums,
+// and its group's scales (loaded once a group, with its bytes), go to rank
+// 0's shared memory; one warp adds each group's parts in int32, scales the
+// sum once and adds the terms from 0 in group order, as the plain version
+// does. No atomics, no scratch in device memory: the plain version's bits on
+// every row, repeated from run to run. What holds it near 70% of its bound
+// at w1 (0.0254 ms with a clean L2, PERF.md): a fixed ~8 us a launch that
+// the narrow weights show (n = 512 and 1024 take 0.008-0.011 ms for 1-4 MB);
+// the classifier's 526 MB run at 3.0 TB/s. Walking tiles from resident
+// blocks, or copying the next item while this one's mmas run, was slower
+// (the warps' barriers each round).
 //
 // Prefill (m > 8; 512 rows a chunk) does 2m integer operations a weight
 // byte, far above the ridge, so it is bound by operations: 1,979 TOP/s on
@@ -50,89 +71,256 @@
 // removed the consumers' spills; 6 stages, staggered warpgroups and
 // clusters sharing the weight tile by TMA multicast did not help.
 
+#include <cooperative_groups.h>
+
 #include "wgmma.cuh"
 
 using namespace dllama;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int GEMV_WARPS = 4;  // warps per block
-constexpr int GEMV_COLS = 2;   // output columns per warp
+// ---- the GEMV (m <= 8) on mma.sync m16n8k32 s8 (see the note at the top) ----
 
-__device__ __forceinline__ int dot16(const int4 a, const int4 b, int c) {
-  c = __dp4a(a.x, b.x, c);
-  c = __dp4a(a.y, b.y, c);
-  c = __dp4a(a.z, b.z, c);
-  return __dp4a(a.w, b.w, c);
-}
+constexpr int NUM_SMS = 132;             // H100 SXM: the plan's sizes
+constexpr int GEMV_MAX_WARPS = 16;       // warps a block
+constexpr int GEMV_NW = 32;              // items a round of a cluster, at most
+constexpr int GEMV_MIN_ITEMS = NUM_SMS * 8;  // fewer items a launch: shorter runs, more items
+constexpr int GEMV_STAGE_BYTES = 48 * 1024;  // a block's stages of its warps' items, at most
 
-template <int M>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
+// One warp's item: 16 weight rows by IB = 4 RUN bytes of k inside one
+// group, and the m x rows at the same k, staged in shared memory (row r at r
+// IB, weight rows first, its 16-byte chunk c at c ^ (r % 8) when a row has 8
+// chunks or more, so that the quads' reads of 8 rows fall on distinct
+// banks). Lane (g, t) reads its pieces v of VB bytes at (4 v + t) VB of
+// weight rows g and g + 8 and x row g (a quad reads 4 VB contiguous bytes),
+// and each 8 bytes of them are its k slots of one k32 step: any map of k to
+// slots gives the same exact sums if A and B share it.
+template <int RUN>
+struct Item {
+  static constexpr int IB = 4 * RUN, CH = IB / 16, VB = RUN >= 16 ? 16 : 8, NV = RUN / VB;
+  __device__ static __forceinline__ int at(int r, int b) {  // staged byte b of row r
+    const int sw = CH >= 8 ? (r & 7) : 0;
+    return r * IB + ((((b >> 4) ^ sw)) << 4) + (b & 15);
+  }
+  // cp.async of the item's 16 weight rows (rows past n read row n - 1) and m
+  // x rows: each copy of the warp moves whole 128-byte lines (32 lanes on 1,
+  // 2 or 4 rows; fewer bytes for RUN < 32), which asks the memory for a line
+  // once where 16 rows' 64-byte pieces a load ask twice
+  __device__ static __forceinline__ void copy(const int8_t* q, const int8_t* xq, int k, int m,
+                                              int r0, int n, size_t off, uint8_t* ws, int lane) {
+    constexpr int RPI = 32 / CH;  // rows a copy
+#pragma unroll
+    for (int i = 0; i < 16 / RPI; ++i) {
+      const int r = RPI * i + lane / CH, ch = lane % CH;
+      const int8_t* src = q + (size_t)min(r0 + r, n - 1) * k + off + ch * 16;
+      cp_async16(smem_addr(ws + at(r, ch * 16)), src, true);
+    }
+    for (int i = lane; i < m * CH; i += 32) {
+      const int r = i / CH, ch = i % CH;
+      cp_async16(smem_addr(ws + at(16 + r, ch * 16)), xq + (size_t)r * k + off + ch * 16, true);
+    }
+  }
+  // the exact int32 dots of the staged item, once its copies have landed,
+  // and x row g (zero if g >= m)
+  __device__ static __forceinline__ void dot(const uint8_t* ws, bool has_x, int g, int t,
+                                             int (&c)[4]) {
+    cp_async_wait<0>();
+    __syncwarp();
+    if constexpr (VB == 16) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int b = (4 * v + t) * VB;
+        const uint4 wa = *reinterpret_cast<const uint4*>(ws + at(g, b));
+        const uint4 wb = *reinterpret_cast<const uint4*>(ws + at(g + 8, b));
+        const uint4 xv = has_x ? *reinterpret_cast<const uint4*>(ws + at(16 + g, b))
+                               : make_uint4(0, 0, 0, 0);
+        const uint32_t a0[4] = {wa.x, wb.x, wa.y, wb.y};
+        mma_s8(c, a0, xv.x, xv.y);
+        const uint32_t a1[4] = {wa.z, wb.z, wa.w, wb.w};
+        mma_s8(c, a1, xv.z, xv.w);
+      }
+    } else {  // RUN 8 (a group of an odd number of 32s): one k32 step
+      const uint2 wa = *reinterpret_cast<const uint2*>(ws + at(g, t * 8));
+      const uint2 wb = *reinterpret_cast<const uint2*>(ws + at(g + 8, t * 8));
+      const uint2 xv = has_x ? *reinterpret_cast<const uint2*>(ws + at(16 + g, t * 8))
+                             : make_uint2(0, 0);
+      const uint32_t a[4] = {wa.x, wb.x, wa.y, wb.y};
+      mma_s8(c, a, xv.x, xv.y);
+    }
+  }
+};
+
+// out [m <= 8, n] f32: a cluster of cs blocks (blockIdx.x = tile * cs +
+// rank) takes weight rows 16 tile .. (mma's M; the x rows are its N = 8).
+// k is cut into items of 4 RUN bytes, `parts` a group, taken in rounds of
+// cs * ks items, one a warp (a group's parts may span rounds). Each warp
+// copies its item of the round into its stage, and puts its exact int32
+// sums (and, for a group's first item, the group's 16 weight and 8 x
+// scales, loaded with its bytes) into its slot of rank 0's shared memory;
+// after the cluster's barrier, warp 0 of rank 0 walks the round's items in
+// order, adds a group's parts in int32 (carried across rounds), scales the
+// sum once (__fmul_rn of the sum and sx * s) and adds the term to its sums
+// from 0 in group order: i8matmul_2d_ref's bits. Two buffers of the round's
+// sums: the next round fills one while warp 0 reads the other.
+template <int RUN>
+__global__ void __launch_bounds__(GEMV_MAX_WARPS * 32)
 i8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                const int8_t* __restrict__ q, const float* __restrict__ s,
-               float* __restrict__ out, int n, int k, int group) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = (blockIdx.x * GEMV_WARPS + warp) * GEMV_COLS;
-  if (col0 >= n) return;
-  const int ng = k / group, cpg = group / 16;  // 16-byte chunks a group
-  const int lanes = (32 % cpg == 0) ? cpg : 32;  // lanes a group (a power of 2)
-  const int gi = lane / lanes, ci = lane % lanes;
-  float acc[M][GEMV_COLS];
-#pragma unroll
-  for (int r = 0; r < M; ++r)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) acc[r][c] = 0.f;
+               float* __restrict__ out, int m, int n, int k, int group) {
+  using It = Item<RUN>;
+  // shared memory: the round's sums, part [2][nw][32], and group scales, scl
+  // [2][nw][24] (16 weight rows, then 8 x rows), both used at rank 0 only;
+  // then a stage of (16 + m) x IB bytes a warp
+  extern __shared__ __align__(16) uint8_t gemv_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = cluster.num_blocks(), rank = cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ks = blockDim.x >> 5, nw = cs * ks, gw = rank * ks + warp;
+  int4* part = reinterpret_cast<int4*>(gemv_smem);
+  float* scl = reinterpret_cast<float*>(part + 2 * nw * 32);
+  uint8_t* ws = reinterpret_cast<uint8_t*>(scl + 2 * nw * 24) + warp * (16 + m) * It::IB;
+  const int r0 = blockIdx.x / cs * 16, ng = k / group, parts = group / It::IB, ni = ng * parts;
+  const int rounds = (ni + nw - 1) / nw;
+  const bool has_x = g < m;
+  int4* rpart = cluster.map_shared_rank(part, 0);
+  float* rscl = cluster.map_shared_rank(scl, 0);
+  // warp 0 of rank 0: the sums, and the open group's int32 parts, scales
+  // and next part
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, prod[4] = {0.f, 0.f, 0.f, 0.f};
+  int v[4] = {0, 0, 0, 0}, p = 0;
 
-  for (int g0 = 0; g0 < ng; g0 += 32 / lanes) {
-    const int g = g0 + gi;
-    int idot[M][GEMV_COLS];
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) idot[r][c] = 0;
-    if (g < ng) {
-      for (int ch = ci; ch < cpg; ch += lanes) {
-        const size_t off = (size_t)g * group + ch * 16;
-        int4 wv[GEMV_COLS];
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) {
-          const int col = col0 + c;
-          wv[c] = col < n ? __ldg(reinterpret_cast<const int4*>(q + (size_t)col * k + off))
-                          : make_int4(0, 0, 0, 0);
+  for (int round = 0; round < rounds; ++round) {
+    const int it = round * nw + gw, buf = round & 1;
+    if (it < ni) {
+      It::copy(q, xq, k, m, r0, n, (size_t)it * It::IB, ws, lane);
+      cp_async_commit();
+      float sa = 0.f, sb = 0.f, sx0 = 0.f, sx1 = 0.f;
+      const bool first = it % parts == 0;
+      if (first) {  // the group's scales, loaded with its bytes
+        const int gi = it / parts;
+        if (t == 0) {
+          sa = __ldg(s + (size_t)min(r0 + g, n - 1) * ng + gi);
+          sb = __ldg(s + (size_t)min(r0 + g + 8, n - 1) * ng + gi);
         }
-#pragma unroll
-        for (int r = 0; r < M; ++r) {
-          const int4 xv = __ldg(reinterpret_cast<const int4*>(xq + (size_t)r * k + off));
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) idot[r][c] = dot16(xv, wv[c], idot[r][c]);
+        if (g == 0) {
+          if (2 * t < m) sx0 = __ldg(sx + (size_t)(2 * t) * ng + gi);
+          if (2 * t + 1 < m) sx1 = __ldg(sx + (size_t)(2 * t + 1) * ng + gi);
+        }
+      }
+      int c[4] = {0, 0, 0, 0};
+      It::dot(ws, has_x, g, t, c);
+      __syncwarp();  // the stage is read: the next round copies into it
+      rpart[(buf * nw + gw) * 32 + lane] = make_int4(c[0], c[1], c[2], c[3]);
+      if (first) {
+        float* sc = rscl + (buf * nw + gw) * 24;
+        if (t == 0) {
+          sc[g] = sa;
+          sc[g + 8] = sb;
+        }
+        if (g == 0) {
+          sc[16 + 2 * t] = sx0;
+          sc[17 + 2 * t] = sx1;
         }
       }
     }
-    // each group's exact int32 dot over its lanes, scaled once, then the
-    // pass's groups added to the sum one by one, in group order
+    if (cs > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    if (rank == 0 && warp == 0) {
+      // c[i]: weight row r0 + g + 8 (i / 2), x row 2 t + i % 2
+      const int n_items = min(ni - round * nw, nw);
+      for (int j = 0; j < n_items; ++j) {
+        const int4 c = part[(buf * nw + j) * 32 + lane];
+        if (p == 0) {  // a group's first part: its scales
+          const float* sc = scl + (buf * nw + j) * 24;
 #pragma unroll
-    for (int r = 0; r < M; ++r)
+          for (int i = 0; i < 4; ++i)
+            prod[i] = __fmul_rn(sc[16 + 2 * t + (i & 1)], sc[g + 8 * (i >> 1)]);
+          v[0] = v[1] = v[2] = v[3] = 0;
+        }
+        v[0] += c.x;
+        v[1] += c.y;
+        v[2] += c.z;
+        v[3] += c.w;
+        if (++p == parts) {
+          p = 0;
 #pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) {
-        int v = idot[r][c];
-        for (int o = lanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-        const int col = col0 + c;
-        const float f = (g < ng && col < n)
-                            ? __fmul_rn((float)v, sx[(size_t)r * ng + g] * s[(size_t)col * ng + g])
-                            : 0.f;
-        for (int j = 0; j < 32; j += lanes) {
-          const float fj = __shfl_sync(FULL_MASK, f, j);
-          if (g0 + j / lanes < ng) acc[r][c] += fj;
+          for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn((float)v[i], prod[i]));
         }
       }
+    }
   }
-  if (lane == 0) {
+  if (rank == 0 && warp == 0) {
 #pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c)
-        if (col0 + c < n) out[(size_t)r * n + col0 + c] = acc[r][c];
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i >> 1), xrow = 2 * t + (i & 1);
+      if (row < n && xrow < m) out[(size_t)xrow * n + row] = acc[i];
+    }
   }
+}
+
+// The GEMV's launch. Lane run: the longest of 128 .. 8 bytes dividing G /
+// 4, halved down to 32 while the launch has fewer than GEMV_MIN_ITEMS
+// items. Cluster size: doubled up to 8 while the tiles fill fewer blocks
+// than SMs and each block keeps 4 items a tile. Warps a block: one item each
+// a round, at most GEMV_MAX_WARPS, GEMV_NW / cs and what GEMV_STAGE_BYTES
+// of stages hold, the fewest idle warps over a tile's rounds (then the most
+// warps).
+struct GemvPlan {
+  int run, cs, ks;
+};
+GemvPlan gemv_plan(int m, int n, int k, int group) {
+  const int tiles = (n + 15) / 16, ng = k / group, quarter = group / 4;
+  int run = 128;
+  while (quarter % run) run /= 2;
+  while (run > 32 && quarter % (run / 2) == 0 &&
+         (long)tiles * ng * (quarter / run) < GEMV_MIN_ITEMS)
+    run /= 2;
+  const int parts = quarter / run, ni = ng * parts;
+  int cs = 1;
+  while (cs < 8 && tiles * cs < NUM_SMS && ni >= 8 * cs) cs *= 2;
+  int ks_max = GEMV_STAGE_BYTES / ((16 + m) * 4 * run);
+  ks_max = ks_max < GEMV_MAX_WARPS ? ks_max : GEMV_MAX_WARPS;
+  ks_max = ks_max < GEMV_NW / cs ? ks_max : GEMV_NW / cs;
+  int ks = 0, best = 1 << 30;
+  for (int w = 1; w <= ks_max; ++w) {
+    const int nw = cs * w, idle = (ni + nw - 1) / nw * nw - ni;
+    if (idle <= best) {
+      best = idle;
+      ks = w;
+    }
+  }
+  return {run, cs, ks};
+}
+
+template <int RUN>
+cudaError_t launch_gemv(const GemvPlan& p, const int8_t* xq, const float* sx, const int8_t* q,
+                        const float* s, float* out, int m, int n, int k, int group,
+                        cudaStream_t st) {
+  const int smem = p.cs * p.ks * 2 * (32 * 16 + 24 * 4) + p.ks * (16 + m) * 4 * RUN;
+  static int configured = 0;
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        i8_gemv_kernel<RUN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + 15) / 16 * p.cs);
+  cfg.blockDim = dim3(p.ks * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, i8_gemv_kernel<RUN>, xq, sx, q, s, out, m, n, k, group);
 }
 
 // ---- the tile (m > 8) on the int8 tensor cores (see the note at the top) ----
@@ -344,18 +532,16 @@ extern "C" int i8_matmul(const void* xq, const void* sx, const void* q, const vo
   const float* ws = static_cast<const float*>(s);
   float* o = static_cast<float*>(out);
   if (m <= 8) {
-    const dim3 grid((n + GEMV_WARPS * GEMV_COLS - 1) / (GEMV_WARPS * GEMV_COLS));
-    const dim3 block(GEMV_WARPS * 32);
-    switch (m) {
-      case 1: i8_gemv_kernel<1><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 2: i8_gemv_kernel<2><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 3: i8_gemv_kernel<3><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 4: i8_gemv_kernel<4><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 5: i8_gemv_kernel<5><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 6: i8_gemv_kernel<6><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      case 7: i8_gemv_kernel<7><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
-      default: i8_gemv_kernel<8><<<grid, block, 0, st>>>(x8, xs, w8, ws, o, n, k, group); break;
+    const GemvPlan p = gemv_plan(m, n, k, group);
+    cudaError_t e;
+    switch (p.run) {
+      case 128: e = launch_gemv<128>(p, x8, xs, w8, ws, o, m, n, k, group, st); break;
+      case 64: e = launch_gemv<64>(p, x8, xs, w8, ws, o, m, n, k, group, st); break;
+      case 32: e = launch_gemv<32>(p, x8, xs, w8, ws, o, m, n, k, group, st); break;
+      case 16: e = launch_gemv<16>(p, x8, xs, w8, ws, o, m, n, k, group, st); break;
+      default: e = launch_gemv<8>(p, x8, xs, w8, ws, o, m, n, k, group, st); break;
     }
+    if (e != cudaSuccess) return static_cast<int>(e);
   } else {
     CUtensorMap mx, mq;
     if (!map_rows(&mx, xq, m, k, TM) || !map_rows(&mq, q, n, k, TN))

@@ -6,9 +6,16 @@
 // returns eight consecutive weights of one row as float, formed exactly in
 // f32 and rounded to the activation type X (the q40_matmul rule: bfloat16
 // runs round where the TPU kernels round, float32 runs round nowhere).
+// The bf16 mma.sync path (moe_active.cu) loads both kinds straight into
+// registers: a chunk of a row is 4 LANE_VALS values, `fetch` takes lane
+// t's LANE_VALS of them (runs of 8 at `col`, in loads of 16 bytes), and
+// `pairs` gives them as bf16 pairs in k order (Q40 with the Q40 GEMV's
+// rounding, q40_gemm.cuh `gemv_mma_kernel`). A warp takes one chunk at a
+// time; each kind's sizes and loads measured fastest of those tried on an
+// H100 (PERF.md).
 #pragma once
 
-#include "common.cuh"
+#include "q40_gemm.cuh"
 
 namespace dllama {
 
@@ -32,6 +39,45 @@ struct Q40Experts {
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = round_to((float)b[i] * s, static_cast<const X*>(nullptr));
   }
+
+  // lane t takes a block of 32, with its one scale, in loads that bypass L1
+  static constexpr int LANE_VALS = 32;
+  struct Frag {
+    uint4 v[LANE_VALS / 16];
+    __half d;
+  };
+  // the value where lane t's h-th run of 8 of chunk c starts
+  __device__ static __forceinline__ int col(int c, int t, int h) {
+    return 4 * LANE_VALS * c + LANE_VALS * t + 8 * h;
+  }
+  // lane t's bytes of row (e, r) in chunk c and their block's scale; zero
+  // past cols
+  __device__ __forceinline__ Frag fetch(int e, int r, int c, int t) const {
+    const size_t row = (size_t)e * rows + r;
+    const int v0 = col(c, t, 0);
+    Frag f;
+    f.d = v0 < cols ? __ldg(d + row * (cols / 32) + v0 / 32) : __ushort_as_half(0);
+#pragma unroll
+    for (int h = 0; h < LANE_VALS / 16; ++h)
+      f.v[h] = v0 < cols ? q40::ldg_stream(q + row * cols + v0 + 16 * h) : make_uint4(0, 0, 0, 0);
+    return f;
+  }
+  // those values as LANE_VALS / 2 bf16 pairs in k order, each the f32
+  // product rounded once to bf16 with no conversion (q40::weight_pair)
+  __device__ __forceinline__ void pairs(const Frag& f, uint32_t (&w)[LANE_VALS / 2]) const {
+    __nv_bfloat162 hi, lo;
+    q40::split_scale(f.d, hi, lo);
+#pragma unroll
+    for (int h = 0; h < LANE_VALS / 16; ++h) {
+      uint32_t u[4];
+      q40::Int8Values::pair_nibbles(f.v[h], 0, u);
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        w[8 * h + 2 * st] = q40::weight_pair(u[st], 0, hi, lo);
+        w[8 * h + 2 * st + 1] = q40::weight_pair(u[st], 1, hi, lo);
+      }
+    }
+  }
 };
 
 template <typename T>
@@ -44,6 +90,39 @@ struct DenseExperts {
     dllama::load8(w + ((size_t)e * rows + r) * cols + c, v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = round_to(v[i], static_cast<const X*>(nullptr));
+  }
+
+  // the mma path's, for T bf16 (x's type: nothing to round): lane t's
+  // values of row (e, r) in chunk c, zero past cols, through L1, and the
+  // same as LANE_VALS / 2 bf16 pairs in k order
+  static constexpr int LANE_VALS = 16;
+  struct Frag {
+    uint4 v[LANE_VALS / 8];  // 8 bf16 a load
+  };
+  // the value where lane t's h-th run of 8 of chunk c starts: a quad's h-th
+  // loads read 64 contiguous bytes
+  __device__ static __forceinline__ int col(int c, int t, int h) {
+    return 4 * LANE_VALS * c + 32 * h + 8 * t;
+  }
+  __device__ __forceinline__ Frag fetch(int e, int r, int c, int t) const {
+    const T* row = w + ((size_t)e * rows + r) * cols;
+    Frag f;
+#pragma unroll
+    for (int h = 0; h < LANE_VALS / 8; ++h) {
+      const int v0 = col(c, t, h);
+      f.v[h] = v0 < cols ? __ldg(reinterpret_cast<const uint4*>(row + v0))
+                         : make_uint4(0, 0, 0, 0);
+    }
+    return f;
+  }
+  __device__ __forceinline__ void pairs(const Frag& f, uint32_t (&u)[LANE_VALS / 2]) const {
+#pragma unroll
+    for (int h = 0; h < LANE_VALS / 8; ++h) {
+      u[4 * h] = f.v[h].x;
+      u[4 * h + 1] = f.v[h].y;
+      u[4 * h + 2] = f.v[h].z;
+      u[4 * h + 3] = f.v[h].w;
+    }
   }
 };
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (q40_gemm.cuh's prefill tile and GEMV, flash_attention.cu's prefill stats,
-// i8_matmul.cu's tile): cp.async copies, mbarriers and TMA tensor copies,
-// the wgmma shared-memory descriptor of the 128-byte swizzle, wgmma with A
-// from registers (bf16) or shared memory (int8), its fences, commit and
-// wait_group, and mma.sync m16n8k16 bf16.
+// i8_matmul.cu's tile and GEMV, moe_active.cu's bf16 experts): cp.async
+// copies, mbarriers and TMA tensor copies, the wgmma shared-memory
+// descriptor of the 128-byte swizzle, wgmma with A from registers (bf16) or
+// shared memory (int8), its fences, commit and wait_group, and mma.sync
+// m16n8k16 bf16 and m16n8k32 s8.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: nothing of the driver is linked)
@@ -195,6 +196,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16 x 8] += A[16 x 32] . B[32 x 8], s8 in, exact s32 sums (mma.sync,
+// one warp). Lane (g, t) holds A rows g and g + 8 at k 4t .. 4t + 3 (a[0],
+// a[1]) and 16 + 4t .. 16 + 4t + 3 (a[2], a[3]); B column g at k 4t .. (b0)
+// and 16 + 4t .. (b1); d as mma_bf16's. Four int8 a register, the lower k low.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

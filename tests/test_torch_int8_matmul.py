@@ -148,6 +148,32 @@ def test_plain_matches_i8_kernel_interpret_tile_edges(m, k, group, block_k, same
         assert _norm_err(got, want) <= 1e-6
 
 
+# the GEMV's edge shapes (m <= 8), scaled down: every m from 1 to 8 at n =
+# 200 (a partial 16-row tile), k of one group and of several, at G 32, 256
+# and 512. With k of one group the TPU kernel's one k block forms the one
+# scaled group sum and adds it to 0, as the plain version does: the same
+# bits. A k block of several groups (the default block_k) is compiled as a
+# whole, and its scaled group sums come out in other last bits: <= 1e-6.
+@pytest.mark.parametrize("group,k", [(32, 32), (32, 128), (256, 256), (256, 1024), (512, 512),
+                                     (512, 1536)])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_plain_matches_i8_kernel_interpret_gemv_edges(m, group, k):
+    n = 200
+    jw, tw = _q40(n, k, seed=k + group)
+    j8, t8 = j_requantize(jw, group=group), TI.requantize_q40(tw, group)
+    x = np.random.default_rng(m + k + group).standard_normal((m, k)).astype(np.float32)
+    xq, sx = TI.quantize_acts(torch.from_numpy(x).to(torch.bfloat16), group)
+    got = TI.i8matmul_2d(xq, sx, t8).numpy()
+    want = np.asarray(JI.i8matmul_2d(jnp.asarray(xq.numpy()), jnp.asarray(sx.numpy()), j8.q, j8.s,
+                                     block_n=128, interpret=True))
+    assert got.shape == (m, n)
+    np.testing.assert_array_equal(got, TI.i8matmul_2d_ref(xq, sx, t8).numpy())
+    if k == group:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert _norm_err(got, want) <= 1e-6
+
+
 def test_plain_refuses_groups_past_exact_f32():
     xq = torch.ones((1, 2048), dtype=torch.int8)
     with pytest.raises(ValueError):

@@ -100,7 +100,22 @@ GROUPED_CASES = [(n, k) for n in (40, 70) for k in (2, 4)]
        for n, k in GROUPED_CASES],
 )
 def test_ref_bf16_matches_tpu_kernel_interpret(name, n, k):
-    e, d, f = 8, 256, 512
+    _ref_bf16_vs_interpret(name, n, k, e=8, d=256, f=512)
+
+
+# the active kernels' edges on the card, scaled down: m 1, 4 and 16, k 2
+# and 8, D and F multiples of 32 but not of the 64-value block pair that a
+# lane's fragment load takes
+@pytest.mark.parametrize("k", [2, 8])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("name", ["moe_active_experts", "moe_active_experts_q40"])
+def test_ref_bf16_matches_tpu_active_kernel_interpret_edges(name, m, k):
+    _ref_bf16_vs_interpret(name, m, k, e=8, d=96, f=160)
+
+
+def _ref_bf16_vs_interpret(name, n, k, e, d, f):
+    """moe_experts_ref in bf16 against the TPU kernel ``name`` in interpret
+    mode on the same experts and routing: 2^-7 (a flipped hidden rounding)."""
     quant = name.endswith("q40")
     (p1, p2, p3), (j1, j2, j3) = _experts(e, d, f, quant, seed=n * 10 + k)
     top_i, w = _routing(n, e, k, seed=n + k)

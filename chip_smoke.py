@@ -10,7 +10,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    parallel), with its seconds, and each source's ptxas registers, static
    shared memory and spills (a line a kernel, with ptxas's warnings, for
    the two Q40 sources, the int8 source, the two attention sources and the
-   active MoE source).
+   two MoE sources).
 2. Each kernel against its plain PyTorch version on the card at main-path
    shapes: Llama-8B (D 4096, F 14336, 32 heads, 8 KV heads, head dim 128,
    vocab 128256) for the three matmul kernels (Q40, packed nibbles, grouped
@@ -27,8 +27,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    with a parked lane, decode with a parked lane, 32 heads on one KV head:
    `check_attention_edges`), and the four MoE kernels at A3B's
    D 2048, F 768, 128 experts, 8 active, with random routing (the active
-   ones also at m = 4 and at an edge shape, `MOE_EDGE`, each launched twice
-   and required to repeat its bits). Each row: max
+   ones also at m = 4, the grouped Q40 one also with every token on the
+   same 8 experts, and all four at an edge shape, `MOE_EDGE`; each launched
+   twice and required to repeat its bits: `check_moe`). Each row: max
    normalized error max|k - p| / max|p|, kernel ms, plain ms, the bound
    (bytes over 3.35 TB/s or operations over the H100 SXM datasheet peak of
    their type) and one PyTorch library call's ms as a yardstick
@@ -38,7 +39,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    kernel on the unpacked twin (the same code but for the weight fetch),
    and the int8 rows the bits of their plain version; the int8 rows at
    m = 512 also time ``torch._int_mm`` (cuBLASLt's int8 product, no group
-   scales). The rows of the int8 GEMV and the active MoE kernels also read
+   scales). The rows of the int8 GEMV and the MoE kernels also read
    `time_clean` (the L2 left clean) beside `time_ms` (the L2 flushed by a
    memset, whose dirty lines a byte-bound kernel writes back in its time).
 3. End to end, six runs on three random Q40 ``.m`` files (max_seq_len
@@ -52,9 +53,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    decode ms/token and tok/s, each kernel's launches in that run (the
    path's kernels must be > 0, and all equal what the shapes imply), the
    weight-read bound per token, the weight bytes and
-   ``torch.cuda.memory_allocated`` on the card and, for the quantized runs,
-   a decode profile. Whether the q40i4 and q40i8 greedy streams equal the
-   q40 one is printed, not gated. After the llama-8b runs, on the same
+   ``torch.cuda.memory_allocated`` on the card, for the quantized runs a
+   decode profile, and for every run a prefill profile (`prefill_profile`:
+   the prompt's 512-row chunk's host ms over four runs, its device ms and
+   launches, the grouped MoE kernels' share). Whether the q40i4 and q40i8
+   greedy streams equal the q40 one is printed, not gated. After the llama-8b runs, on the same
    file, the serving phase (`serving`): the port's lane server in process,
    4 lanes over the paged pool, six greedy requests (four at once, two
    queued; two share a page-aligned 256-token prefix, one diverges
@@ -166,8 +169,10 @@ KERNEL_ROW_SHAPE = {
     "moe_grouped_experts_q40": "bf16 N=512",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
-# the active kernels' edges at about A3B's widths: D and F not multiples of
-# a 64-value block pair, k past the 8 blocks of the down projection's cluster
+# the MoE kernels' edges at about A3B's widths: D and F not multiples of a
+# 64-value block pair (nor of the grouped kernels' 128-value Q40 stage, 64
+# hidden units or 128 outputs a block), k past the 8 blocks of the active
+# down projection's cluster
 MOE_EDGE = dict(e=16, d=2016, f=736, k=10)
 
 
@@ -739,13 +744,15 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
     shapes with random routing: active at m = 1, 4 and 16, grouped at N =
     17 and 512, bf16 x over dense bf16 and Q40 experts, and f32 x at m = 16
     and N = 512 (kernel and plain share every rounding there: TOL); the
-    active kernels also untimed at `MOE_EDGE`, m = 3. The active kernels run
-    twice on the same inputs and must repeat their bits, and their timed
-    rows read both timers (`time_ms`, `time_clean`). Each bf16 row at the
-    A3B shapes also reads the plain version with one of its bf16 roundings
-    skipped (the hidden's; for Q40 the dequantized weight's) against the
-    sound one: such a fault must read above TOL_MOE_BF16, or the limit
-    could not catch it."""
+    grouped Q40 kernel also at N = 512 with skewed routing (every token on
+    the same 8 experts: 8 runs an expert, 120 experts idle); untimed at
+    `MOE_EDGE`, the active kernels at m = 3 and the grouped ones at N = 17
+    and 64. Every kernel runs twice on the same inputs and must repeat its
+    bits, and each timed row reads both timers (`time_ms`, `time_clean`).
+    Each bf16 row at the A3B shapes also reads the plain version with one
+    of its bf16 roundings skipped (the hidden's; for Q40 the dequantized
+    weight's) against the sound one: such a fault must read above
+    TOL_MOE_BF16, or the limit could not catch it."""
     from unittest import mock
 
     import torch
@@ -767,7 +774,7 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
 
     bf, f32 = torch.bfloat16, torch.float32
     cases = [
-        (name, n, dtype, MOE_SHAPE)
+        (name, n, dtype, MOE_SHAPE, False)
         for name, n, dtype in [
             ("moe_active_experts", 1, bf), ("moe_active_experts", 4, bf),
             ("moe_active_experts", 16, bf), ("moe_active_experts", 16, f32),
@@ -778,9 +785,14 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
             ("moe_grouped_experts_q40", 17, bf), ("moe_grouped_experts_q40", 512, bf),
             ("moe_grouped_experts_q40", 512, f32),
         ]
-    ] + [(name, 3, bf, MOE_EDGE) for name in ("moe_active_experts", "moe_active_experts_q40")]
+    ] + [("moe_grouped_experts_q40", 512, bf, MOE_SHAPE, True)] + [
+        (name, n, bf, MOE_EDGE, False)
+        for name, n in [("moe_active_experts", 3), ("moe_active_experts_q40", 3),
+                        ("moe_grouped_experts", 17), ("moe_grouped_experts", 64),
+                        ("moe_grouped_experts_q40", 17), ("moe_grouped_experts_q40", 64)]
+    ]
     rows, weights = [], {}
-    for name, n, dtype, shape in cases:
+    for name, n, dtype, shape, skewed in cases:
         e, d, f, k = (shape[key] for key in ("e", "d", "f", "k"))
         if id(shape) not in weights:
             weights.clear()
@@ -793,20 +805,20 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
         fn = getattr(moe, name)
         x = torch.randn((n, d), device=device, generator=gen).to(dtype)
         top_i = torch.rand((n, e), device=device, generator=gen).topk(k, dim=-1).indices.int()
+        if skewed:  # the same k experts for every token, in a random order each
+            chosen = torch.randperm(e, device=device, generator=gen)[:k].int()
+            top_i = chosen[torch.rand((n, k), device=device, generator=gen).argsort(-1)]
         wts = torch.rand((n, k), device=device, generator=gen) + 0.1
         wts = wts / wts.sum(-1, keepdim=True)
         before = fn.launches
         tag = "f32" if dtype == torch.float32 else "bf16"
         label = f"{tag} {'m' if active else 'N'}={n}" + ("" if shape is MOE_SHAPE else
                                                           f" E={e} D={d} F={f} k={k}")
-        if active:  # the redesigned kernels repeat their bits
-            got = twice_equal(lambda: fn(x, *ws, top_i, wts), f"{name} {label}")
-            launched = 2
-        else:
-            got, launched = fn(x, *ws, top_i, wts), 1
+        label += " skewed" if skewed else ""
+        got = twice_equal(lambda: fn(x, *ws, top_i, wts), f"{name} {label}")
         ref = moe.moe_experts_ref(x, *ws, top_i, wts)
         torch.cuda.synchronize(device)
-        require(fn.launches == before + launched, f"{name}: the wrapper did not launch its kernel")
+        require(fn.launches == before + 2, f"{name}: the wrapper did not launch its kernel")
         rel, absd = norm_err(got, ref)
         tol = TOL if dtype == torch.float32 else TOL_MOE_BF16
         require(rel <= tol, f"{name} {label}: error {rel:.3e} > {tol}")
@@ -833,8 +845,7 @@ def check_moe(device, gen, timed: bool = True) -> list[dict]:
         )
         if timed and shape is MOE_SHAPE:
             row["ms"] = time_ms(lambda: fn(x, *ws, top_i, wts), device)
-            if active:
-                row["ms_clean"] = time_clean(lambda: fn(x, *ws, top_i, wts), device)
+            row["ms_clean"] = time_clean(lambda: fn(x, *ws, top_i, wts), device)
             row["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts), device, 5)
         rows.append(row)
     return rows
@@ -1418,10 +1429,11 @@ def lane_profile(engine, pos: int, n_steps: int = 8) -> dict:
 
 
 def device_profile(engine, run, n_steps: int) -> dict:
-    """Device kernel time of ``run()`` (n_steps decode steps) under
-    torch.profiler: device ms and launches a step, the kernels that take
-    the time, and the host ops with the most self CPU time (profiled, so
-    inflated; for where the host time goes, not how much)."""
+    """Device kernel time of ``run()`` (n_steps decode steps, or one
+    prefill) under torch.profiler: device ms and launches a step, the
+    kernels that take the time (``top``; every kernel in ``kernels``), and
+    the host ops with the most self CPU time (profiled, so inflated; for
+    where the host time goes, not how much)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1444,8 +1456,36 @@ def device_profile(engine, run, n_steps: int) -> dict:
         "device_ms_per_token": total / 1e3 / n_steps,
         "launches_per_token": sum(r[2] for r in rows) / n_steps,
         "top": [(k, us / 1e3 / n_steps, c // n_steps) for us, k, c in rows[:8]],
+        "kernels": [(k, us / 1e3 / n_steps, c // n_steps) for us, k, c in rows],
         "host_top": [(k, us / 1e3 / n_steps, c // n_steps) for us, k, c in sorted(host)[::-1][:8]],
     }
+
+
+PREFILL_REPEATS = 3  # more prefills of the prompt, unprofiled, for their host ms
+
+
+def prefill_profile(engine, prompt: list[int], first_ms: float) -> None:
+    """The prompt's prefill again (one 512-row chunk for the 500-token
+    prompt): host ms of `PREFILL_REPEATS` more runs beside the CLI run's,
+    then `device_profile` of one: device ms and launches of the chunk, the
+    grouped MoE kernels' share of its device time, and the top kernels.
+    The prefill rewrites the cache rows of the prompt (and of its padding)
+    only; nothing after it reads the engine's cache."""
+    import torch
+
+    host = [first_ms]
+    for _ in range(PREFILL_REPEATS):
+        host.append(engine.prefill(prompt).time_ms)
+    torch.cuda.synchronize(engine.device)
+    prof = device_profile(engine, lambda: engine.prefill(prompt), 1)
+    dev_ms = prof["device_ms_per_token"]
+    grouped = sum(ms for name, ms, _ in prof["kernels"] if "grouped" in name)
+    print(f"prefill profile: host ms {', '.join(f'{ms:.1f}' for ms in host)} (CLI run, then "
+          f"{PREFILL_REPEATS} more); device kernel ms {dev_ms:.3f}, device launches "
+          f"{prof['launches_per_token']:.0f}, grouped MoE kernels ms {grouped:.3f} (share "
+          f"{grouped / dev_ms:.3f}), device busy share {dev_ms / statistics.median(host):.3f}")
+    for name, ms, count in prof["top"]:
+        print(f"  prefill {ms:8.4f} ms {count:5d}x {name[:90]}")
 
 
 def ptxas_kernels(log: str) -> list[str]:
@@ -1497,7 +1537,7 @@ def main() -> int:
         smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
-        if name.startswith(("q40", "flash", "i8", "moe_active")):
+        if name.startswith(("q40", "flash", "i8", "moe")):
             for line in ptxas_kernels(log):
                 print(f"    {line}")
 
@@ -1626,6 +1666,7 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
             print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
         for name, ms, count in prof["host_top"]:
             print(f"  host {ms:8.4f} ms/token {count:5d}x {name[:80]}")
+    prefill_profile(eng, res["prompt_tokens"], res["eval"].time_ms)
     par = parity(eng, res["prompt_tokens"])
     for (name, tag), p in par.items():
         if name == "routing":

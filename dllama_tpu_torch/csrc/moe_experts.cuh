@@ -13,6 +13,14 @@
 // rounding, q40_gemm.cuh `gemv_mma_kernel`). A warp takes one chunk at a
 // time; each kind's sizes and loads measured fastest of those tried on an
 // H100 (PERF.md).
+// The grouped kernels (moe_grouped.cu) stage STAGE_K values of each of a
+// block's rows a step by cp.async (16-byte chunks from `row_bytes`, a
+// row's piece of a stage one 128-byte line, each shared row's chunks
+// swizzled so that the rows a fragment load touches lie on distinct
+// banks) and read lane t's 16 values of a 64-value pair back as bf16
+// pairs (`stage_pairs`), in the k order of the Q40 GEMV's fragments (lane
+// t's values 64 p + 16 t .. + 15); Q40 rows carry their block scales
+// beside them in the same ring (`stage_scale_chunks`).
 #pragma once
 
 #include "q40_gemm.cuh"
@@ -22,6 +30,18 @@ namespace dllama {
 // SwiGLU of one hidden unit, in the JAX kernels' order of operations.
 __device__ __forceinline__ float silu_mul(float h1, float h3) {
   return (h1 / (1.f + expf(-h1))) * h3;
+}
+
+// lane t's values 64 p + 16 t .. + 15 of a staged bf16 row (chunk c of
+// shared row sr at chunk c ^ (sr & 1): two loads on distinct banks for the
+// rows sr, sr + 1 of a load's eight lanes) as 8 bf16 pairs in k order
+__device__ __forceinline__ void stage_row_pairs(const uint8_t* srow, int sr, int p, int t,
+                                                uint32_t (&u)[8]) {
+  const int c = 8 * p + 2 * t;
+  const uint4 a = *reinterpret_cast<const uint4*>(srow + 16 * (c ^ (sr & 1)));
+  const uint4 b = *reinterpret_cast<const uint4*>(srow + 16 * ((c + 1) ^ (sr & 1)));
+  u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
+  u[4] = b.x; u[5] = b.y; u[6] = b.z; u[7] = b.w;
 }
 
 struct Q40Experts {
@@ -78,6 +98,61 @@ struct Q40Experts {
       }
     }
   }
+
+  // grouped stage: 128 values of a row, one 128-byte line, chunk c (values
+  // 16 c ..) of shared row sr at chunk c ^ 4 (sr & 1); and the row's 4 block
+  // scales in a 32-byte slot, the two aligned 16-byte chunks that hold them
+  // (a row's scales start at any even byte)
+  static constexpr int STAGE_K = 128;
+  static constexpr int CHUNK_VALS = 16;   // values a 16-byte chunk
+  static constexpr int SWIZZLE = 4;       // chunk c of an odd shared row at c ^ 4
+  static constexpr int STAGE_SCALE_BYTES = 32;
+  // the first byte of row (e, r), and the bytes of a row
+  __device__ __forceinline__ const uint8_t* row_bytes(int e, int r) const {
+    return reinterpret_cast<const uint8_t*>(q + ((size_t)e * rows + r) * cols);
+  }
+  __device__ __forceinline__ size_t row_stride() const { return (size_t)cols; }
+  // the scales of row (e, r) as a byte range [first, end)
+  __device__ __forceinline__ const uint8_t* scales_of(int e, int r, const uint8_t*& end) const {
+    const __half* row = d + ((size_t)e * rows + r) * (cols / 32);
+    end = reinterpret_cast<const uint8_t*>(row + cols / 32);
+    return reinterpret_cast<const uint8_t*>(row);
+  }
+  // cp.async of the scale chunks of stage kt of a row whose scales are
+  // [first, end) into its slot, cut at `end` (zeros past it)
+  __device__ static __forceinline__ void stage_scale_chunks(uint8_t* slot, const uint8_t* first,
+                                                            const uint8_t* end, int kt) {
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(
+        reinterpret_cast<uintptr_t>(first + kt * (STAGE_K / 16)) & ~(uintptr_t)15);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const long left = end - (src + 16 * c);
+      cp_async16_n(smem_addr(slot + 16 * c), left > 0 ? src + 16 * c : first,
+                   left > 16 ? 16 : (left > 0 ? (int)left : 0));
+    }
+  }
+  // stage kt's first scale in the slot of a row whose scales start at `first`
+  __device__ static __forceinline__ const __half* stage_scales(const uint8_t* slot,
+                                                                const uint8_t* first, int kt) {
+    const int phase = (int)(reinterpret_cast<uintptr_t>(first + kt * (STAGE_K / 16)) & 15);
+    return reinterpret_cast<const __half*>(slot + phase);
+  }
+  // lane t's values 64 p + 16 t .. + 15 of shared row srow (its scales sc)
+  // as 8 bf16 pairs in k order, each rounded once as in `pairs`
+  __device__ static __forceinline__ void stage_pairs(const uint8_t* srow, int sr,
+                                                     const __half* sc, int p, int t,
+                                                     uint32_t (&w)[8]) {
+    const uint4 b = *reinterpret_cast<const uint4*>(srow + 16 * ((4 * p + t) ^ ((sr & 1) << 2)));
+    __nv_bfloat162 hi, lo;
+    q40::split_scale(sc[2 * p + (t >> 1)], hi, lo);
+    uint32_t u[4];
+    q40::Int8Values::pair_nibbles(b, 0, u);
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      w[2 * st] = q40::weight_pair(u[st], 0, hi, lo);
+      w[2 * st + 1] = q40::weight_pair(u[st], 1, hi, lo);
+    }
+  }
 };
 
 template <typename T>
@@ -123,6 +198,22 @@ struct DenseExperts {
       u[4 * h + 2] = f.v[h].z;
       u[4 * h + 3] = f.v[h].w;
     }
+  }
+
+  // grouped stage, for T bf16: 64 values of a row, one 128-byte line, chunk
+  // c (values 8 c ..) of shared row sr at chunk c ^ (sr & 1) (the x rows'
+  // layout, `stage_row_pairs`); no scales
+  static constexpr int STAGE_K = 64;
+  static constexpr int CHUNK_VALS = 8;
+  static constexpr int SWIZZLE = 1;
+  static constexpr int STAGE_SCALE_BYTES = 0;
+  __device__ __forceinline__ const uint8_t* row_bytes(int e, int r) const {
+    return reinterpret_cast<const uint8_t*>(w + ((size_t)e * rows + r) * cols);
+  }
+  __device__ __forceinline__ size_t row_stride() const { return (size_t)cols * sizeof(T); }
+  __device__ static __forceinline__ void stage_pairs(const uint8_t* srow, int sr, const __half*,
+                                                     int p, int t, uint32_t (&u)[8]) {
+    stage_row_pairs(srow, sr, p, t, u);
   }
 };
 

@@ -17,8 +17,9 @@ Four kernels, one function: ``moe_active_experts`` / ``_q40``
 (csrc/moe_active.cu) serve decode-sized batches (B*T <= 16,
 `MOE_KERNEL_MAX_TOKENS`), one pass per (token, choice);
 ``moe_grouped_experts`` / ``_q40`` (csrc/moe_grouped.cu) serve prefill,
-with the assignments sorted by expert into row tiles (`grouped_schedule`)
-so that each expert's weights stream once per tile, not once per token.
+with the assignments sorted by expert into runs of rows (`grouped_schedule`)
+so that each expert's weights stream once per run (once a layer for an
+expert with at most `GROUP_ROWS` rows), not once per token.
 `moe_experts_ref` is the plain version of all four.
 
 Numerics, for kernels and plain version alike (the rules of `qmatmul`):
@@ -51,7 +52,7 @@ from .quant_matmul import Q_BLOCK, QuantWeight, dequant
 # Largest B*T routed through the active-experts kernels (the JAX
 # transformer's MOE_PALLAS_MAX_TOKENS); larger batches take the grouped ones.
 MOE_KERNEL_MAX_TOKENS = 16
-GROUP_ROWS = 32  # row tile of the grouped kernels (csrc/moe_grouped.cu R)
+GROUP_ROWS = 64  # rows of a run of the grouped kernels (csrc/moe_grouped.cu RUN)
 
 
 def moe_route(x: torch.Tensor, gate: torch.Tensor, n_active: int):
@@ -188,46 +189,45 @@ moe_active_experts_q40.launches = 0
 
 
 class GroupedSchedule(NamedTuple):
-    """Assignments (token t, choice j) sorted by expert into row tiles of
-    `GROUP_ROWS`; each expert's segment starts on a tile boundary, so every
-    tile belongs to one expert. Sizes depend on the shapes alone: at most
-    ceil(A/R) + min(E, A) tiles for A = n * k assignments."""
+    """Assignments (token t, choice j) sorted by expert into runs of
+    `GROUP_ROWS` rows; each expert's segment starts on a run boundary, so
+    every run belongs to one expert, and its real rows come first (padding
+    only ends an expert's last run). Sizes depend on the shapes alone: at
+    most ceil(A/R) + min(E, A) runs for A = n * k assignments."""
 
     row_token: torch.Tensor  # int32 [max_tiles * R]: token of each row, -1 = padding
     row_weight: torch.Tensor  # f32 [max_tiles * R]: routing weight, 0 for padding
-    tile_expert: torch.Tensor  # int32 [max_tiles]: expert of each tile (E past the end)
-    n_tiles: torch.Tensor  # int32 [1]: tiles in use, on the device
-    inv: torch.Tensor  # int64 [A]: row of assignment t * k + j
+    tile_expert: torch.Tensor  # int32 [max_tiles]: expert of each run (E past the end)
+    n_tiles: torch.Tensor  # int32 [1]: runs in use, on the device
+    inv: torch.Tensor  # int32 [A]: row of assignment t * k + j
 
 
 def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int) -> GroupedSchedule:
     """The grouped kernels' schedule, in torch ops on top_i's device and with
     no host readback (the JAX ``_grouped_schedule`` is jnp outside the
-    kernel too). Counts use ``scatter_add_``: ``bincount`` on CUDA reads
-    the largest id back to the host."""
+    kernel too), in few ops: each op is a launch that the host enqueues,
+    and a prefill chunk runs this once a MoE layer. An assignment's rank
+    within its expert (assignments in order t * k + j) comes from a
+    running count over a one-hot [E, A], and its row from a sum over that
+    one-hot (no sort, no gather; ``bincount`` on CUDA would read the
+    largest id back to the host)."""
     n, k = top_i.shape
     a, rows = n * k, GROUP_ROWS
     dev = top_i.device
-    flat_e = top_i.reshape(-1).long()
-    order = torch.argsort(flat_e, stable=True)
-    counts = torch.zeros(n_experts, dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
-    tiles = (counts + rows - 1) // rows
-    tile_end = torch.cumsum(tiles, 0)
-    e_sorted = flat_e[order]
-    rank = torch.arange(a, device=dev) - (torch.cumsum(counts, 0) - counts)[e_sorted]
-    row_sorted = (tile_end - tiles)[e_sorted] * rows + rank
     max_tiles = -(-a // rows) + min(n_experts, a)
+    ar = torch.arange(max(n, n_experts, max_tiles), dtype=torch.int32, device=dev)
+    seen = top_i.reshape(1, -1) == ar[:n_experts, None]  # [E, A] one-hot of each assignment
+    count = seen.cumsum(1, dtype=torch.int32)  # each expert's assignments so far
+    tiles = count[:, -1].add(rows - 1).div_(rows, rounding_mode="floor")
+    tile_end = tiles.cumsum(0, dtype=torch.int32)
+    first_row = (tile_end - tiles).mul_(rows).sub_(1)  # of each expert's segment, less 1
+    inv = count.add_(first_row[:, None]).mul_(seen).sum(0, dtype=torch.int32)
     row_token = torch.full((max_tiles * rows,), -1, dtype=torch.int32, device=dev)
-    row_token[row_sorted] = (order // k).to(torch.int32)
+    row_token.index_put_((inv.view(n, k),), ar[:n, None])
     row_weight = torch.zeros(max_tiles * rows, dtype=torch.float32, device=dev)
-    row_weight[row_sorted] = weights.reshape(-1).float()[order]
-    inv = torch.empty(a, dtype=torch.int64, device=dev)
-    inv[order] = row_sorted
-    tile_expert = torch.searchsorted(
-        tile_end, torch.arange(max_tiles, device=dev), right=True
-    ).to(torch.int32)
-    return GroupedSchedule(row_token, row_weight, tile_expert, tile_end[-1:].to(torch.int32), inv)
+    row_weight.index_put_((inv,), weights.reshape(-1).float())
+    tile_expert = torch.searchsorted(tile_end, ar[:max_tiles], right=True, out_int32=True)
+    return GroupedSchedule(row_token, row_weight, tile_expert, tile_end[-1:], inv)
 
 
 def _grouped(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
@@ -241,7 +241,7 @@ def _grouped(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
     x = x.contiguous()
     s = grouped_schedule(top_i, weights, e)
     max_tiles = s.tile_expert.shape[0]
-    hidden = torch.empty((max_tiles * GROUP_ROWS, f), dtype=torch.float32, device=x.device)
+    hidden = torch.empty((max_tiles * GROUP_ROWS, f), dtype=x.dtype, device=x.device)
     out_rows = torch.empty((max_tiles * GROUP_ROWS, d), dtype=torch.float32, device=x.device)
     code = _build.load("moe_grouped")(
         x.data_ptr(), *_pointers(quant, w1, w3, w2), s.row_token.data_ptr(),
@@ -253,7 +253,7 @@ def _grouped(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
     fn.launches += 1
     # the combine back to tokens, outside the kernel as in JAX (.at[t].add),
     # by the inverse permutation: deterministic, where index_add_ is not
-    return out_rows[s.inv].view(n, k, d).sum(dim=1)
+    return out_rows.index_select(0, s.inv).view(n, k, d).sum(dim=1)
 
 
 def moe_grouped_experts(x, w1, w2, w3, top_i, weights) -> torch.Tensor:

@@ -11,7 +11,10 @@ on CPU, inputs made with numpy from a seed.
 * ``moe_experts_ref`` with float32 x vs ``_moe_ffn`` and ``_moe_ffn_gather``
   in f32 (nothing rounded on either side): normalized error 1e-5.
 * The wrappers on CPU tensors are the plain version and refuse bad
-  operands; the grouped schedule places every assignment exactly once.
+  operands; the grouped schedule places every assignment exactly once, in
+  runs of one expert whose real rows come first, with sizes from the
+  shapes alone; the grouped kernels' arithmetic over it, emulated run by
+  run in torch, equals the plain version.
 """
 
 import jax.numpy as jnp
@@ -220,41 +223,61 @@ def test_wrapper_refuses_widths_off_32(name, d, f):
 
 
 def _emulate_grouped(x, ws, sched, k):
-    """What csrc/moe_grouped.cu computes over a schedule, in torch: per
-    tile, its expert's SwiGLU on the tile's rows, scaled by the row weight;
-    then the combine by the inverse permutation."""
+    """What csrc/moe_grouped.cu computes over a schedule, in torch, run by
+    run: the run's expert's SwiGLU on its real rows only (a prefix of the
+    run), scaled by the row weight; padding rows are never written (NaN
+    here, so that a combine that read one would show it); then the combine
+    by the inverse permutation."""
     w1, w2, w3 = ws
     rows = TM.GROUP_ROWS
     tok = sched.row_token.long()
-    xs = torch.where(tok[:, None] >= 0, x.float()[tok.clamp(min=0)], torch.zeros(()))
-    out = torch.zeros(xs.shape[0], x.shape[1])
+    out = torch.full((tok.shape[0], x.shape[1]), float("nan"))
     for g in range(int(sched.n_tiles[0])):
         e = int(sched.tile_expert[g])
-        r = slice(g * rows, (g + 1) * rows)
-        h1 = xs[r] @ TM._expert(w1, e, x.dtype).t()
-        h3 = xs[r] @ TM._expert(w3, e, x.dtype).t()
+        run = tok[g * rows:(g + 1) * rows]
+        nv = int((run >= 0).sum())
+        assert nv >= 1 and (run[:nv] >= 0).all(), "a run's real rows come first"
+        r = slice(g * rows, g * rows + nv)
+        xs = x.float()[run[:nv]]
+        h1 = xs @ TM._expert(w1, e, x.dtype).t()
+        h3 = xs @ TM._expert(w3, e, x.dtype).t()
         hidden = ((h1 / (1 + torch.exp(-h1))) * h3).to(x.dtype).float()
         out[r] = (hidden @ TM._expert(w2, e, x.dtype).t()) * sched.row_weight[r, None]
     n = x.shape[0]
     return out[sched.inv].view(n, k, -1).sum(1)
 
 
+def _skewed(n, k):
+    """Every token routed to experts 0 .. k - 1: one long segment each."""
+    return np.tile(np.arange(k, dtype=np.int32), (n, 1))
+
+
+# (n, E, k, skewed): E > A, A3B's uniform and skewed routing at N = 17 and
+# 512 (several runs an expert when skewed), MOE_EDGE's E 16 k 10 at N = 17
+# and 64
 @pytest.mark.parametrize(
     "n,e,k,skew",
-    [(1, 8, 2, False), (17, 128, 8, False), (40, 8, 4, False), (70, 8, 2, True), (512, 128, 8, False)],
+    [(1, 8, 2, False), (17, 128, 8, False), (40, 8, 4, False), (70, 8, 2, True),
+     (512, 128, 8, False), (3, 16, 2, False), (512, 128, 8, True), (17, 16, 10, False),
+     (64, 16, 10, False), (64, 16, 10, True)],
 )
 def test_grouped_schedule_places_every_assignment_once(n, e, k, skew):
     top_i, w = _routing(n, e, k, seed=n)
-    if skew:  # every token picks experts 0 and 1: one long segment each
-        top_i = np.tile(np.arange(k, dtype=np.int32), (n, 1))
+    if skew:
+        top_i = _skewed(n, k)
     s = TM.grouped_schedule(torch.from_numpy(top_i), torch.from_numpy(w), e)
     a, r = n * k, TM.GROUP_ROWS
     max_tiles = -(-a // r) + min(e, a)
     assert s.tile_expert.shape == (max_tiles,) and s.row_token.shape == (max_tiles * r,)
+    # the grid bound depends on the shapes alone: the other routing gives the same sizes
+    other = _routing(n, e, k, seed=n + 1)[0] if skew else _skewed(n, k)
+    s2 = TM.grouped_schedule(torch.from_numpy(other), torch.from_numpy(w), e)
+    assert [t.shape for t in s2] == [t.shape for t in s]
     inv = s.inv.numpy()
     assert len(set(inv.tolist())) == a  # each assignment owns one row
     np.testing.assert_array_equal(s.row_token.numpy()[inv], np.arange(a) // k)
     np.testing.assert_array_equal(s.row_weight.numpy()[inv], w.reshape(-1))
+    # each run holds one expert
     np.testing.assert_array_equal(s.tile_expert.numpy()[inv // r], top_i.reshape(-1))
     real = s.row_token.numpy() >= 0
     assert real.sum() == a and not s.row_weight.numpy()[~real].any()
@@ -263,16 +286,41 @@ def test_grouped_schedule_places_every_assignment_once(n, e, k, skew):
     assert n_tiles == int((-(-counts // r)).sum()) <= max_tiles
     assert not real[n_tiles * r:].any()
     assert (s.tile_expert.numpy()[n_tiles:] == e).all()
+    # a run's real rows come first, and only an expert's last run is short
+    per_run = real[:n_tiles * r].reshape(n_tiles, r)
+    nv = per_run.sum(1)
+    assert (nv >= 1).all() and all(per_run[g, :nv[g]].all() for g in range(n_tiles))
+    te = s.tile_expert.numpy()[:n_tiles]
+    last = np.append(te[1:] != te[:-1], True)
+    assert (nv[~last] == r).all()
+
+
+def _emulation_vs_plain(dtype, quant, n, e, k, d, f, skew):
+    ws = _port_dtype(_experts(e, d, f, quant, seed=12)[0], dtype)
+    top_i, w = _routing(n, e, k, seed=13)
+    if skew:
+        top_i = _skewed(n, k)
+    top_i, w = torch.from_numpy(top_i), torch.from_numpy(w)
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).to(dtype)
+    s = TM.grouped_schedule(top_i, w, e)
+    got = _emulate_grouped(x, ws, s, k)
+    want = TM.moe_experts_ref(x, *ws, top_i, w)
+    assert torch.isfinite(got).all()
+    assert _norm_err(got.numpy(), want.numpy()) <= 1e-6
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "q40"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_grouped_schedule_emulation_matches_plain(dtype, quant):
-    e, d, f, k, n = 8, 64, 96, 4, 45
-    ws = _port_dtype(_experts(e, d, f, quant, seed=12)[0], dtype)
-    top_i, w = (torch.from_numpy(a) for a in _routing(n, e, k, seed=13))
-    x = torch.randn(n, d, generator=torch.Generator().manual_seed(1)).to(dtype)
-    s = TM.grouped_schedule(top_i, w, e)
-    got = _emulate_grouped(x, ws, s, k)
-    want = TM.moe_experts_ref(x, *ws, top_i, w)
-    assert _norm_err(got.numpy(), want.numpy()) <= 1e-6
+    _emulation_vs_plain(dtype, quant, n=45, e=8, k=4, d=64, f=96, skew=False)
+
+
+# the runs past uniform routing: skewed (70 rows an expert, two runs each),
+# E > A (one token); at widths of multiples of 64 and 32 (MOE_EDGE's
+# ragged D and F, scaled down)
+@pytest.mark.parametrize("d,f", [(64, 128), (96, 160)], ids=["D64F128", "D96F160"])
+@pytest.mark.parametrize("n,skew", [(70, True), (1, False)], ids=["skewed", "E_gt_A"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "q40"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_emulation_runs_match_plain(dtype, quant, n, skew, d, f):
+    _emulation_vs_plain(dtype, quant, n=n, e=8, k=2, d=d, f=f, skew=skew)

@@ -46,30 +46,50 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    4096; each with a padded byte-level ``.t``, written with the port's
    writers to a temp dir of its own, deleted before the next), each the
    port's ``inference`` CLI path: a ~500-token prompt and 128 greedy
-   tokens. llama-8b (32 layers) with ``--weight-format q40``, ``q40i4`` and
+   tokens, every forward a CUDA graph (each shape eager on its first use,
+   then captured and replayed: `dllama_tpu_torch/runtime/graphs.py`).
+   llama-8b (32 layers) with ``--weight-format q40``, ``q40i4`` and
    ``q40i8``; qwen3-30b-a3b (48 layers) with ``auto`` (Q40 on the card) and
    ``q40i8`` (experts stay Q40); qwen3-30b-a3b at 4 layers with ``dense``
    (bf16 experts: full depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
-   path's kernels must be > 0, and all equal what the shapes imply), the
+   path's kernels must be > 0, and all equal what the shapes imply; a
+   replay counts its graph's captured tally), the
    weight-read bound per token, the weight bytes and
-   ``torch.cuda.memory_allocated`` on the card, for the quantized runs a
-   decode profile, and for every run a prefill profile (`prefill_profile`:
-   the prompt's 512-row chunk's host ms over four runs, its device ms and
-   launches, the grouped MoE kernels' share). Whether the q40i4 and q40i8
-   greedy streams equal the q40 one is printed, not gated. After the llama-8b runs, on the same
-   file, the serving phase (`serving`): the port's lane server in process,
-   4 lanes over the paged pool, six greedy requests (four at once, two
+   ``torch.cuda.memory_allocated`` on the card. Then graphs against the
+   eager path on the same engine (`graphs_vs_eager`): a second
+   ``generate`` with ``cuda_graphs=False`` must give the same greedy
+   stream and launch counts; `HOST_RUNS` runs a side, in turns, of the
+   prompt's 512-row prefill chunk and `HOST_BLOCKS` decode blocks (host ms,
+   graph replays a token), and a device profile of each side (device ms
+   and kernel launches a token or chunk, busy share, the grouped MoE
+   kernels' share of a prefill chunk; decode profiles for the quantized
+   runs). On llama-8b q40 a sampled stream (temperature 0.8, top-p 0.9, a
+   fixed seed) must repeat on two graphed runs and equal the eager one; on
+   llama-8b q40 and qwen3-30b-a3b q40 the engine's ``perplexity`` of the
+   prompt must give the same bits graphed and eager. Whether the q40i4 and
+   q40i8 greedy streams equal the q40 one is printed, not gated. After the
+   llama-8b runs, on the same file, the serving phase (`serving`): the
+   port's lane server in process, 4 lanes over the paged pool, every
+   lane-prefill bucket and both lane decode blocks captured before the
+   first request (`rehearse_admission`: graph count, seconds and pool
+   bytes printed), six greedy requests (four at once, two
    queued; two share a page-aligned 256-token prefix, one diverges
    mid-page), each replayed alone; TTFT and decode ms/token per request,
    aggregate decode tok/s against the single-stream q40 run, pool pages,
-   radix hits and COW forks, with gates on all of it (see `serving`).
+   radix hits and COW forks, with gates on all of it (see `serving`), and
+   a 4-lane decode step's host ms, graphed and eager in turns.
 4. End-to-end parity for each path: one prefill and one decode step
    through the kernel path and through the plain path (``forward(...,
    plain=True)``) on the same weights: logits' normalized error and top-1
    agreement, and for Qwen3-MoE how many (layer, token) top-k expert sets
    the two paths chose differently. The float32 comparison is the gate; the
-   bfloat16 ones are printed beside it. For q40i8 the gated plain run takes
+   bfloat16 ones are printed beside it. The float32 kernel path again as
+   CUDA graph replays must give its eager logits' bits (`graphed_logits`;
+   the dense run's cuBLAS products included), and the prompt's NLL from
+   the float32 prefill's logits, kernel path against plain path, must lie
+   within `nll_tolerance` of each other (printed, not gated, for q40i8,
+   whose all-plain pair differs by design). For q40i8 the gated plain run takes
    the kernel run's int8 activations, and the inputs of its int8 matmuls
    are gated too (see `parity`). For the serving phase, pool-native lanes
    against the slab path and the paged path's kernels against its plain
@@ -113,6 +133,10 @@ TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step
 TOL_MOE_BF16 = 5e-4
 TOL_E2E = 2e-2  # f32 logits after the whole model (and q40i8's int8 inputs), kernel vs plain path
 SEED = 0
+HOST_RUNS = 3  # host-timed runs a side, graphed and eager in turns
+HOST_BLOCKS = 4  # decode blocks of BLOCK tokens in a timed run
+BLOCK = 8  # the engine's decode block (generate's default block_size)
+SAMPLED_TOKENS = 32  # tokens of each sampled stream
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
@@ -1039,6 +1063,46 @@ def cast_params(engine, dtype) -> dict:
     return out
 
 
+def graphed_logits(params, h, toks, nxt, n_prompt: int) -> list:
+    """The float32 kernel path's prefill (every row, as `parity` runs it)
+    and decode step as CUDA graphs (`StepGraphs`, the engine's helper), on
+    a cache of their own: each forward runs eagerly, is captured, and is
+    replayed onto the same cache rows (its own values written again).
+    Returns the last row's logits of each, [(eager, replay), ...]."""
+    import torch
+
+    from dllama_tpu_torch.models import forward, init_kv_cache
+    from dllama_tpu_torch.runtime.graphs import StepGraphs
+
+    dev = toks.device
+    graphs = StepGraphs(dev)
+    cache = init_kv_cache(h, 1, dtype=torch.float32, device=dev)
+    out = []
+    for key, tok, pos, mode in ((("prefill", toks.shape[1], False), toks, 0, "all"),
+                                (("step", True), nxt, n_prompt, "last")):
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        last = torch.empty((1, h.vocab_size), dtype=torch.float32, device=dev)
+
+        def step(tok=tok, pos_t=pos_t, mode=mode, last=last):
+            logits, _ = forward(params, h, tok, pos_t, cache, mode)
+            last.copy_(logits[:, -1])
+
+        graphs.run(key, step)  # eager, then captured
+        eager = last.clone()
+        graphs.run(key, step)  # the replay
+        require(graphs.replays == len(out) + 1, f"graphed logits: {key} did not replay")
+        out.append((eager[0], last[0].clone()))
+    return out
+
+
+def nll_tolerance(plain_logits) -> float:
+    """The NLL's limit, derived from the logits gate: the gate lets a logit
+    move by TOL_E2E * max|plain logits|; a row's logsumexp and its target's
+    logit each move by at most what the largest logit moves, so a row's
+    NLL, and the mean over rows, by at most twice that."""
+    return 2 * TOL_E2E * plain_logits.abs().max().item()
+
+
 def parity(engine, prompt: list[int]) -> dict:
     """Phase 4: one prefill + one decode step through the kernel path and
     the plain path on the same weights, in float32 (where the two paths
@@ -1060,12 +1124,19 @@ def parity(engine, prompt: list[int]) -> dict:
     the error of every int8 matmul's input x on that run (which the
     attention and MoE kernels' differences reach, but no flip amplifies)
     are the gate, and the count of roundings the plain path's own x would
-    have flipped is printed. The all-plain pair is printed too."""
+    have flipped is printed. The all-plain pair is printed too.
+
+    The float32 runs compute every prefill row's logits (the "last" row is
+    compared as above) for the prompt's NLL, kernel path against plain path
+    (`chunk_nll`, the engine's score); and the float32 kernel path runs
+    again as CUDA graph replays (`graphed_logits`), whose logits must have
+    the eager run's bits."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
     from dllama_tpu_torch.models import transformer
     from dllama_tpu_torch.ops.int8_matmul import Int8Weight, quantize_acts
+    from dllama_tpu_torch.runtime.engine import chunk_nll
 
     h, dev = engine.header, engine.device
     toks = torch.tensor([prompt], device=dev)
@@ -1090,14 +1161,16 @@ def parity(engine, prompt: list[int]) -> dict:
     runs = [(dtype, kind) for dtype in (torch.float32, torch.bfloat16) for kind in (KERNEL, PLAIN)]
     if int8:
         runs.append((torch.float32, SHARED))
+    full = {}  # every prefill row's logits of the float32 runs, for the NLL
     with torch.inference_mode():
         for dtype, kind in runs:
             params = cast_params(engine, dtype)
             transformer.moe_route = recording((dtype, kind))
             plain = kind != KERNEL
+            mode = "all" if dtype == torch.float32 else "last"
             try:
                 cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
-                pre, cache = forward(params, h, toks, 0, cache, "last", plain=plain,
+                pre, cache = forward(params, h, toks, 0, cache, mode, plain=plain,
                                      act_quant=act_quant(dtype, kind, "prefill"))
                 if nxt is None:  # every run decodes the same token
                     nxt = pre[:, -1].argmax(-1, keepdim=True)
@@ -1106,7 +1179,12 @@ def parity(engine, prompt: list[int]) -> dict:
             finally:
                 transformer.moe_route = route
             logits[dtype, kind] = (pre[0, -1].float(), dec[0, -1].float())
-            del cache, params
+            if mode == "all":
+                full[kind] = pre
+            del cache, params, pre
+        params = cast_params(engine, torch.float32)
+        graphed = graphed_logits(params, h, toks, nxt, len(prompt))
+        del params
     pairs = {
         "f32 kernel vs plain": ((torch.float32, KERNEL), (torch.float32, PLAIN)),
         "bf16 kernel vs plain": ((torch.bfloat16, KERNEL), (torch.bfloat16, PLAIN)),
@@ -1132,6 +1210,20 @@ def parity(engine, prompt: list[int]) -> dict:
             res[name, "int8 inputs"] = dict(err=tape.err, flips=tape.flips, values=tape.values,
                                             calls=len(tape.calls))
     del tapes
+    for i, name in enumerate(("prefill", "decode")):
+        eager, replay = graphed[i]
+        kernel = logits[torch.float32, KERNEL][i]
+        res["graphs", name] = dict(
+            equal=torch.equal(replay, kernel) and torch.equal(eager, kernel),
+            err=max(norm_err(replay, kernel)[0], norm_err(eager, kernel)[0]))
+    n = len(prompt)
+    tgt = torch.tensor([prompt[1:] + [0]], device=dev)
+    mask = torch.tensor([[1.0] * (n - 1) + [0.0]], device=dev)
+    nll = {kind: chunk_nll(f, tgt, mask).item() / (n - 1) for kind, f in full.items()}
+    res["nll", "f32 kernel vs plain"] = dict(
+        kernel=nll[KERNEL], plain=nll[PLAIN], diff=abs(nll[KERNEL] - nll[PLAIN]),
+        tol=nll_tolerance(full[PLAIN]), logit_err=norm_err(full[KERNEL], full[PLAIN])[1])
+    del full
     for tag, (ka, kb) in pairs.items():
         if ka in routes and kb in routes and ka[1] == KERNEL and ka[0] == kb[0]:
             res["routing", tag] = dict(
@@ -1281,8 +1373,13 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
     tok = Tokenizer(tp)
     load_s = time.perf_counter() - t0
     h = engine.header
+    t0 = time.perf_counter()
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+    g = engine.graphs
+    rehearsal = dict(graphs=g.n_graphs, lanes=g.count("lane_prefill_paged")
+                     + g.count("lane_block_paged"), capture_s=g.capture_s,
+                     pool=g.pool_bytes(), s=time.perf_counter() - t0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     sched, kv = srv.state.scheduler, srv.state.kv_manager
@@ -1374,24 +1471,34 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
           f"shared tokens {kv.shared_tokens}, COW forks {kv.pool.stats().cow_forks}, "
           f"evictions {kv.evictions}; torch.cuda.memory_allocated {mem / 1e9:.3f} GB")
     print(f"serve launches {json.dumps(counts)}; decode steps {steps}")
+    print(f"serve graphs: rehearsal captured {rehearsal['lanes']} lane graphs (every "
+          f"lane-prefill bucket, the greedy and the sampled block) in {rehearsal['capture_s']:.2f} "
+          f"s of capture ({rehearsal['s']:.2f} s with the pool and first uses), pool "
+          f"{rehearsal['pool'] / 1e9:.3f} GB; after the requests {g.n_graphs} graphs, "
+          f"{g.replays} replays, capture {g.capture_s:.2f} s")
+    require(rehearsal["lanes"] == len(engine.prefill_buckets) + 2,
+            f"serving: rehearsal captured {rehearsal['lanes']} lane graphs")
     require(kv.hits >= 2, f"serving: {kv.hits} radix hits, wanted >= 2")
     require(kv.pool.stats().cow_forks >= 1, "serving: no COW fork")
     require(counts["paged_flash_decode"] == h.n_layers * steps and steps > 0,
             f"serving: {counts['paged_flash_decode']} paged decode launches, the steps imply "
             f"{h.n_layers * steps}")
     if device == "cuda":
-        prof = lane_profile(engine, PROMPT_TOKENS)
-        tok_s4 = SERVE_LANES * 1e3 / prof["host_ms_per_step"]
-        print(f"lane decode profile, {SERVE_LANES} lanes at pos {PROMPT_TOKENS}: host ms/step "
-              f"{prof['host_ms_per_step']:.3f} ({tok_s4:.2f} tok/s"
-              + (f", {tok_s4 / single_tok_s:.2f}x the single-stream run" if single_tok_s else "")
-              + f"), device kernel ms/step {prof['device_ms_per_token']:.3f}, device "
-              f"launches/step {prof['launches_per_token']:.0f}, device busy share "
-              f"{prof['device_ms_per_token'] / prof['host_ms_per_step']:.3f}")
-        for name, ms, count in prof["top"]:
-            print(f"  {ms:8.4f} ms/step {count:5d}x {name[:90]}")
-        for name, ms, count in prof["host_top"]:
-            print(f"  host {ms:8.4f} ms/step {count:5d}x {name[:80]}")
+        lanes = lane_profile(engine, PROMPT_TOKENS)
+        for side, name in ((True, "graphed"), (False, "eager")):
+            host_ms, prof = statistics.median(lanes["host"][side]), lanes["prof"][side]
+            tok_s4 = SERVE_LANES * 1e3 / host_ms
+            print(f"lane decode profile {name}, {SERVE_LANES} lanes at pos {PROMPT_TOKENS}: host "
+                  f"ms/step {_ms(lanes['host'][side])} ({tok_s4:.2f} tok/s"
+                  + (f", {tok_s4 / single_tok_s:.2f}x the single-stream run" if single_tok_s
+                     else "")
+                  + f"), device kernel ms/step {prof['device_ms_per_token']:.3f}, device "
+                  f"launches/step {prof['launches_per_token']:.0f}, device busy share "
+                  f"{prof['device_ms_per_token'] / host_ms:.3f}; from {prof['source']}")
+            for kname, ms, count in prof["top"]:
+                print(f"  {ms:8.4f} ms/step {count:5d}x {kname[:90]}")
+            for kname, ms, count in prof["host_top"]:
+                print(f"  host {ms:8.4f} ms/step {count:5d}x {kname[:80]}")
     engine.kv_pool = None  # the pool's 3 GB, before the f32 parity run
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
     par = lane_parity(engine, prompt)
@@ -1401,16 +1508,44 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
     return counts
 
 
-def decode_profile(engine, token: int, pos: int, n_steps: int = 8) -> dict:
-    """Device kernel time of one greedy decode block under torch.profiler:
-    per-token device ms and the kernels that take it."""
-    return device_profile(engine, lambda: engine.decode_block(token, pos, n_steps), n_steps)
+def in_turns() -> list[bool]:
+    """The sides of `HOST_RUNS` timed runs each in turns: graphed (True),
+    eager, eager, graphed, graphed, eager, ..."""
+    return [i % 4 in (0, 3) for i in range(2 * HOST_RUNS)]
 
 
-def lane_profile(engine, pos: int, n_steps: int = 8) -> dict:
+def profile_both(engine, run, n_steps: int) -> dict:
+    """`device_profile` of ``run()`` with graphs on (True) and off (False).
+    A replay launches the eager run's kernels, so where the profiler
+    reports fewer launches inside the replays than in the eager run (none
+    at all, or a part: CUPTI has shown both), the graphed side takes the
+    eager side's device figures, and ``source`` says so."""
+    out = {}
+    for graphed in (True, False):
+        engine.cuda_graphs = graphed
+        out[graphed] = device_profile(engine, run, n_steps, allow_empty=graphed)
+    engine.cuda_graphs = True
+    out[False]["source"] = "eager run"
+    seen, want = out[True]["launches_per_token"], out[False]["launches_per_token"]
+    if seen >= want:
+        out[True]["source"] = "graph replays"
+    else:
+        out[True] = dict(out[False], source=f"the eager run: the profiler reported {seen:.0f} "
+                                            f"of its {want:.0f} launches inside the replays")
+    return out
+
+
+def decode_profile(engine, token: int, pos: int, n_steps: int = BLOCK) -> dict:
+    """`profile_both` of one decode block: per-token device ms and the
+    kernels that take it, graphed and eager."""
+    return profile_both(engine, lambda: engine.decode_block(token, pos, n_steps), n_steps)
+
+
+def lane_profile(engine, pos: int, n_steps: int = BLOCK) -> dict:
     """One greedy decode block of every lane at ``pos`` (each lane on private
     pages; the KV rows below pos are whatever the pool holds, which costs
-    the same time): host ms a step, unprofiled, and `device_profile`."""
+    the same time): host ms a step of `HOST_RUNS` runs a side, graphed and
+    eager in turns, unprofiled (``host``), and `profile_both` (``prof``)."""
     import torch
 
     b, nb = engine.batch_size, engine._kv_n_blocks
@@ -1420,20 +1555,25 @@ def lane_profile(engine, pos: int, n_steps: int = 8) -> dict:
     def run():
         engine.decode_lanes([1] * b, [pos] * b, n_steps, [True] * b, [0.0] * b)
 
-    run()  # warm
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize(engine.device)
-    host_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    return dict(device_profile(engine, run, n_steps), host_ms_per_step=host_ms)
+    host = {True: [], False: []}
+    for graphed in in_turns():
+        engine.cuda_graphs = graphed
+        run()  # warm
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(engine.device)
+        host[graphed].append((time.perf_counter() - t0) * 1e3 / n_steps)
+    engine.cuda_graphs = True
+    return dict(host=host, prof=profile_both(engine, run, n_steps))
 
 
-def device_profile(engine, run, n_steps: int) -> dict:
+def device_profile(engine, run, n_steps: int, allow_empty: bool = False) -> dict:
     """Device kernel time of ``run()`` (n_steps decode steps, or one
     prefill) under torch.profiler: device ms and launches a step, the
     kernels that take the time (``top``; every kernel in ``kernels``), and
     the host ops with the most self CPU time (profiled, so inflated; for
-    where the host time goes, not how much)."""
+    where the host time goes, not how much). An empty device profile fails
+    unless ``allow_empty`` (the caller then reads ``kernels`` itself)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1449,7 +1589,7 @@ def device_profile(engine, run, n_steps: int) -> dict:
             continue
         if e.self_device_time_total > 0:
             rows.append((e.self_device_time_total, e.key, e.count))
-    require(bool(rows), "decode profile: the profiler reported no device time")
+    require(bool(rows) or allow_empty, "decode profile: the profiler reported no device time")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     return {
@@ -1461,31 +1601,131 @@ def device_profile(engine, run, n_steps: int) -> dict:
     }
 
 
-PREFILL_REPEATS = 3  # more prefills of the prompt, unprofiled, for their host ms
+def timed_runs(engine, prompt: list[int], token: int, pos: int) -> dict:
+    """`HOST_RUNS` host-timed runs a side, graphed (True) and eager in
+    turns: the prompt's prefill (host ms, each chunk synchronised) and
+    `HOST_BLOCKS` decode blocks from ``pos`` (host ms a token; each block
+    ends in its readback) with the graph replays a decoded token. Every
+    shape ran before (the CLI run), so no run pays a first use or a
+    capture. Rewrites the cache rows of the prompt and from ``pos`` on."""
+    out = {side: dict(prefill=[], decode=[], replays=[]) for side in (True, False)}
+    for graphed in in_turns():
+        engine.cuda_graphs = graphed
+        side = out[graphed]
+        side["prefill"].append(engine.prefill(prompt).time_ms)
+        r0, tok, p = engine.graphs.replays, token, pos
+        t0 = time.perf_counter()
+        for _ in range(HOST_BLOCKS):
+            tok, p = engine.decode_block(tok, p, BLOCK)[-1], p + BLOCK
+        side["decode"].append((time.perf_counter() - t0) * 1e3 / (BLOCK * HOST_BLOCKS))
+        side["replays"].append((engine.graphs.replays - r0) / (BLOCK * HOST_BLOCKS))
+    engine.cuda_graphs = True
+    return out
 
 
-def prefill_profile(engine, prompt: list[int], first_ms: float) -> None:
-    """The prompt's prefill again (one 512-row chunk for the 500-token
-    prompt): host ms of `PREFILL_REPEATS` more runs beside the CLI run's,
-    then `device_profile` of one: device ms and launches of the chunk, the
-    grouped MoE kernels' share of its device time, and the top kernels.
-    The prefill rewrites the cache rows of the prompt (and of its padding)
-    only; nothing after it reads the engine's cache."""
-    import torch
+def _ms(values) -> str:
+    return ", ".join(f"{v:.3f}" for v in values) + f" (median {statistics.median(values):.3f})"
 
-    host = [first_ms]
-    for _ in range(PREFILL_REPEATS):
-        host.append(engine.prefill(prompt).time_ms)
-    torch.cuda.synchronize(engine.device)
-    prof = device_profile(engine, lambda: engine.prefill(prompt), 1)
-    dev_ms = prof["device_ms_per_token"]
-    grouped = sum(ms for name, ms, _ in prof["kernels"] if "grouped" in name)
-    print(f"prefill profile: host ms {', '.join(f'{ms:.1f}' for ms in host)} (CLI run, then "
-          f"{PREFILL_REPEATS} more); device kernel ms {dev_ms:.3f}, device launches "
-          f"{prof['launches_per_token']:.0f}, grouped MoE kernels ms {grouped:.3f} (share "
-          f"{grouped / dev_ms:.3f}), device busy share {dev_ms / statistics.median(host):.3f}")
-    for name, ms, count in prof["top"]:
-        print(f"  prefill {ms:8.4f} ms {count:5d}x {name[:90]}")
+
+def graphs_vs_eager(engine, res: dict, want: dict, label: str) -> float:
+    """Graphs against the eager path on the CLI run's engine. Gates: a
+    second ``generate`` with ``cuda_graphs=False`` gives the CLI run's
+    greedy stream and the launch counts the shapes imply. Prints the host
+    ms of `timed_runs` a side, graph replays a token, and for each side a
+    device profile of a decode block (quantized runs) and of the prompt's
+    prefill: device ms, kernel launches, busy share (device ms over the
+    side's median host ms), the grouped MoE kernels' share of a chunk.
+    Returns the graphed side's median decode host ms a token."""
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    prompt, tokens = res["prompt_tokens"], res["tokens"]
+    n_dec, g = len(tokens), engine.graphs
+    print(f"graphs {label}: {g.n_graphs} captured in {g.capture_s:.2f} s, pool "
+          f"{g.pool_bytes() / 1e9:.3f} GB; the CLI run's host ms include each shape's "
+          f"first use and capture (prefill {res['eval'].time_ms:.1f}, decode "
+          f"{res['pred'].time_ms / n_dec:.3f} ms/token)")
+    engine.cuda_graphs = False
+    reset_launch_counts()
+    eager, eager_eval, eager_pred = engine.generate(prompt, max_steps=len(prompt) - 1 + n_dec)
+    counts = launch_counts()
+    engine.cuda_graphs = True
+    print(f"graphs {label}: eager generate equals the graphed greedy stream: {eager == tokens}; "
+          f"eager prefill ms {eager_eval.time_ms:.1f}, decode ms/token "
+          f"{eager_pred.time_ms / n_dec:.3f}; eager launches equal the shapes': {counts == want}")
+    require(eager == tokens, f"{label}: the eager greedy stream differs from the graphed one")
+    require(counts == want, f"{label}: eager launches {counts}, the shapes imply {want}")
+    runs = timed_runs(engine, prompt, tokens[-1], len(prompt) - 1 + n_dec)
+    for side, name in ((True, "graphed"), (False, "eager")):
+        r = runs[side]
+        print(f"graphs {label} {name}: decode host ms/token {_ms(r['decode'])}; graph replays "
+              f"a token {statistics.median(r['replays']):.3f}; prefill host ms {_ms(r['prefill'])}")
+    if engine.weight_format != "dense":
+        prof = decode_profile(engine, tokens[-1], len(prompt) - 1 + n_dec)
+        for side, name in ((True, "graphed"), (False, "eager")):
+            p, host_ms = prof[side], statistics.median(runs[side]["decode"])
+            print(f"decode profile {name}: device kernel ms/token {p['device_ms_per_token']:.3f}, "
+                  f"device launches/token {p['launches_per_token']:.0f}, host ms/token "
+                  f"{host_ms:.3f} (median of the unprofiled runs), device busy share "
+                  f"{p['device_ms_per_token'] / host_ms:.3f}; from {p['source']}")
+            for kname, ms, count in p["top"]:
+                print(f"  {ms:8.4f} ms/token {count:5d}x {kname[:90]}")
+            for kname, ms, count in p["host_top"]:
+                print(f"  host {ms:8.4f} ms/token {count:5d}x {kname[:80]}")
+    prof = profile_both(engine, lambda: engine.prefill(prompt), 1)
+    for side, name in ((True, "graphed"), (False, "eager")):
+        p, host_ms = prof[side], statistics.median(runs[side]["prefill"])
+        dev_ms = p["device_ms_per_token"]
+        grouped = sum(ms for kname, ms, _ in p["kernels"] if "grouped" in kname)
+        print(f"prefill profile {name}: host ms {_ms(runs[side]['prefill'])}; device kernel ms "
+              f"{dev_ms:.3f}, device launches {p['launches_per_token']:.0f}, grouped MoE kernels "
+              f"ms {grouped:.3f} (share {grouped / dev_ms:.3f}), device busy share "
+              f"{dev_ms / host_ms:.3f}; from {p['source']}")
+        for kname, ms, count in p["top"]:
+            print(f"  prefill {ms:8.4f} ms {count:5d}x {kname[:90]}")
+    return statistics.median(runs[True]["decode"])
+
+
+def sampled_streams(engine, prompt: list[int]) -> None:
+    """Sampled decode blocks (temperature 0.8, top-p 0.9, seed `SEED`):
+    `SAMPLED_TOKENS` tokens graphed twice and eagerly once, each from
+    ``set_seed(SEED)``. Gates: the three streams are equal."""
+    engine.temperature, engine.sampler.topp = 0.8, 0.9
+    streams = []
+    try:
+        for graphed in (True, True, False):
+            engine.cuda_graphs = graphed
+            engine.set_seed(SEED)
+            streams.append(engine.generate(prompt, max_steps=len(prompt) - 1 + SAMPLED_TOKENS)[0])
+    finally:
+        engine.temperature, engine.cuda_graphs = 0.0, True
+    print(f"sampled stream (temperature 0.8, top-p 0.9, seed {SEED}, {SAMPLED_TOKENS} tokens): "
+          f"two graphed runs equal {streams[0] == streams[1]}, graphed equals eager "
+          f"{streams[0] == streams[2]}; {len(set(streams[0]))} distinct tokens; first "
+          f"{streams[0][:8]}")
+    require(len(streams[0]) == SAMPLED_TOKENS, "sampled stream: wrong length")
+    require(streams[0] == streams[1], "sampled stream: two graphed runs differ")
+    require(streams[0] == streams[2], "sampled stream: graphed and eager differ")
+
+
+def perplexity_check(engine, prompt: list[int], label: str) -> None:
+    """The engine's ``perplexity`` of the prompt graphed (a first call:
+    eager first use and capture; a second: the replay) and eager. Gate:
+    the replay's NLL has the eager one's bits."""
+    engine.cuda_graphs = True
+    first = engine.perplexity(prompt)
+    t0 = time.perf_counter()
+    graphed = engine.perplexity(prompt)
+    graphed_ms = (time.perf_counter() - t0) * 1e3
+    engine.cuda_graphs = False
+    t0 = time.perf_counter()
+    eager = engine.perplexity(prompt)
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    engine.cuda_graphs = True
+    print(f"perplexity {label} (engine dtype, {graphed[2]} scored): nll graphed {graphed[0]!r} "
+          f"eager {eager[0]!r} first use {first[0]!r}, bits equal {graphed[0] == eager[0]}; "
+          f"perplexity {graphed[1]:.4f}; host ms graphed {graphed_ms:.1f} eager {eager_ms:.1f}")
+    require(graphed == eager and first == eager,
+            f"{label}: perplexity graphed {graphed} / first {first}, eager {eager}")
 
 
 def ptxas_kernels(log: str) -> list[str]:
@@ -1622,11 +1862,13 @@ def main() -> int:
 
 
 def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str):
-    """Phases 3 and 4 for one model and weight format: the CLI run, its
-    launch counts against the shapes', for a quantized format the decode
-    profile, and the parity gate. The model file lives in tmp (written by
-    the first run on it). Returns the run's label, launch counts, greedy
-    tokens and decode tok/s."""
+    """Phases 3 and 4 for one model and weight format: the CLI run (graphed),
+    its launch counts against the shapes', graphs against the eager path
+    (`graphs_vs_eager`), on llama-8b q40 the sampled streams, on the q40
+    runs of both presets the engine's perplexity, and the parity gates.
+    The model file lives in tmp (written by the first run on it). Returns
+    the run's label, launch counts, greedy tokens and graphed decode tok/s
+    (the median of the timed runs)."""
     import torch
 
     res = end_to_end(
@@ -1643,10 +1885,10 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
     group = f", int8 group {eng.i8_group}" if eng.i8_group else ""
     print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}"
           f"{group}{written}")
-    tok_s = n_dec * 1000 / res["pred"].time_ms
     print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
           f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
-          f"{res['pred'].time_ms / n_dec:.3f} tok_s {tok_s:.2f}")
+          f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f} "
+          "(graphed; first uses and captures included)")
     print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     print(f"on the card after the run: weights {nbytes(eng.params) / 1e9:.3f} GB, "
           f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
@@ -1655,23 +1897,23 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
         require(c == want[name], f"{label} {name}: {c} launches, the shapes imply {want[name]}")
         if want[name]:
             require(c > 0, f"{label}: {name} was never launched on the main path")
-    if eng.weight_format != "dense":
-        prof = decode_profile(eng, res["tokens"][-1], len(res["prompt_tokens"]) - 1 + n_dec)
-        host_ms = res["pred"].time_ms / n_dec
-        print(f"decode profile: device kernel ms/token {prof['device_ms_per_token']:.3f}, "
-              f"device launches/token {prof['launches_per_token']:.0f}, host ms/token "
-              f"{host_ms:.3f} (unprofiled run), device busy share "
-              f"{prof['device_ms_per_token'] / host_ms:.3f}")
-        for name, ms, count in prof["top"]:
-            print(f"  {ms:8.4f} ms/token {count:5d}x {name[:90]}")
-        for name, ms, count in prof["host_top"]:
-            print(f"  host {ms:8.4f} ms/token {count:5d}x {name[:80]}")
-    prefill_profile(eng, res["prompt_tokens"], res["eval"].time_ms)
+    decode_ms = graphs_vs_eager(eng, res, want, label)
+    if label == "llama-8b q40":
+        sampled_streams(eng, res["prompt_tokens"])
+    if eng.weight_format == "q40":
+        perplexity_check(eng, res["prompt_tokens"], label)
     par = parity(eng, res["prompt_tokens"])
     for (name, tag), p in par.items():
         if name == "routing":
             print(f"parity routing, {tag}: {p['differ']} of {p['of']} (layer, token) top-k "
                   "expert sets differ")
+        elif name == "graphs":
+            print(f"parity {tag} f32 kernel graphed vs eager: bits equal {p['equal']}, logits "
+                  f"err {p['err']:.3e}")
+        elif name == "nll":
+            print(f"parity nll f32 kernel vs plain: {p['kernel']!r} vs {p['plain']!r}, diff "
+                  f"{p['diff']:.3e}, limit {p['tol']:.3e} (2 x TOL_E2E x max|plain logits|); "
+                  f"largest logit error {p['logit_err']:.3e} (2x it: {2 * p['logit_err']:.3e})")
         elif tag == "int8 inputs":
             print(f"parity {name} f32 {SHARED}: the inputs of {p['calls']} int8 matmuls err "
                   f"{p['err']:.3e} against the kernel path's; the plain path's own quantization "
@@ -1687,7 +1929,17 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
         for gate in gates:
             err = par[name, gate]["err"]
             require(err <= TOL_E2E, f"{label} {name}: {gate} err {err:.3e} > {TOL_E2E}")
-    return label, counts, res["tokens"], tok_s
+        # a replay launches the eager run's kernels on the same inputs; the
+        # dense run's cuBLAS products picked the same algorithms under
+        # capture too (PERF.md §6)
+        g = par["graphs", name]
+        require(g["equal"], f"{label} {name}: f32 kernel logits graphed vs eager err "
+                f"{g['err']:.3e}, not the same bits")
+    nll = par["nll", "f32 kernel vs plain"]
+    if not int8:
+        require(nll["diff"] <= nll["tol"],
+                f"{label}: f32 NLL kernel vs plain differ by {nll['diff']:.3e} > {nll['tol']:.3e}")
+    return label, counts, res["tokens"], 1e3 / decode_ms
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""dllama-compatible CLI of the PyTorch port: the ``inference`` mode.
+"""dllama-compatible CLI of the PyTorch port: ``inference``, ``chat``, ``perplexity``.
 
     python -m dllama_tpu_torch inference --model m.m --tokenizer t.t \\
         --prompt "..." --steps 64 [--temperature 0] [--device cuda|cpu]
         [--weight-format auto|q40|q40i8|q40i4|dense]
+    python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
+    python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
 
 Flags follow the JAX package's CLI (reference: src/app.cpp:24-135). The
 device defaults to ``cuda`` and the run fails without one; ``--device cpu``
@@ -58,7 +60,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch", description="distributed-llama inference on PyTorch/CUDA"
     )
-    p.add_argument("mode", choices=["inference"])
+    p.add_argument("mode", choices=["inference", "chat", "perplexity"])
     p.add_argument("--prompt", default=None)
     p.add_argument("--steps", type=int, default=0)
     add_engine_args(p)
@@ -158,11 +160,91 @@ def run_inference(args) -> dict:
     }
 
 
+def run_chat(args) -> None:
+    """Interactive REPL on stdin (reference: dllama.cpp:174-258; dllama_tpu's
+    ``run_chat``): each user turn through the chat template, the reply
+    streamed until an EOS token or stop string, an explicit stop when the
+    context is full, and a fresh conversation after a failed generation."""
+    from .tokenizer import (
+        CHAT_TEMPLATE_NAMES, ChatItem, ChatTemplateGenerator, ChatTemplateType, EosDetector,
+        EosResult,
+    )
+
+    engine, tok = load_engine(args)
+    stops = [tok.vocab[t].decode("utf-8", "replace") for t in tok.eos_token_ids]
+    ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
+             else ChatTemplateType.UNKNOWN)
+    gen = ChatTemplateGenerator(ttype, tok.chat_template, stops[0] if stops else "")
+    pos = 0
+    is_start = True
+    print("💬 Chat mode. Type your message (Ctrl-D to exit).")
+    while True:
+        try:
+            user = input("\n👱 You: ")
+        except EOFError:
+            break
+        if not user.strip():
+            continue
+        chat = gen.generate([ChatItem("user", user)], append_generation_prompt=True)
+        tokens = tok.encode(chat.content, is_start=is_start, add_special_tokens=True)
+        is_start = False
+        if pos + len(tokens) >= engine.header.seq_len:
+            print(f"\n🚫 Context window full ({engine.header.seq_len} tokens); "
+                  "restart the chat to continue.")
+            break
+        detector = EosDetector(tok.eos_token_ids, stops, padding_left=2, padding_right=2)
+        print("\n🤖 Assistant: ", end="", flush=True)
+        tok.reset_decoder()
+
+        def on_token(t: int):
+            res = detector.append(t, tok.decode(t))
+            if res in (EosResult.NOT_EOS, EosResult.EOS):
+                delta = detector.get_delta()
+                if delta:
+                    print(delta, end="", flush=True)
+                if res == EosResult.EOS:
+                    return False
+                detector.reset()
+            return True
+
+        try:
+            out, _, _ = engine.generate(tokens, max_steps=engine.header.seq_len - 1 - pos,
+                                        on_token=on_token, start_pos=pos)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            # the cache holds a partial turn: start the conversation afresh
+            print(f"\n🚫 Generation failed ({e}); conversation reset.")
+            engine.reset()
+            pos, is_start = 0, True
+            continue
+        pos += len(tokens) - 1 + len(out)
+        print()
+
+
+def run_perplexity(args) -> None:
+    """Teacher-forced NLL over the prompt (`InferenceEngine.perplexity`: one
+    scalar a chunk), printed as dllama_tpu's ``run_perplexity`` prints it."""
+    engine, tok = load_engine(args)
+    if args.prompt is None:
+        raise SystemExit("Prompt is required")
+    tokens = tok.encode(args.prompt, is_start=True, add_special_tokens=True)
+    if len(tokens) < 2:
+        raise SystemExit("Prompt too short for perplexity")
+    nll, ppl, n_scored = engine.perplexity(tokens)
+    print(f"    nTokens: {len(tokens)}")
+    print(f"    nScored: {n_scored}")
+    print(f"        nll: {nll:.4f}")
+    print(f" perplexity: {ppl:.4f}")
+
+
 def main(argv=None):
     args = _build_parser().parse_args(argv)
     if args.mode == "inference":
         return run_inference(args)
-    return None
+    if args.mode == "chat":
+        return run_chat(args)
+    return run_perplexity(args)
 
 
 if __name__ == "__main__":

@@ -29,10 +29,19 @@ needs no attention windows. ``plain=True`` runs the plain PyTorch version
 of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
 
+``pos`` is an int or a device tensor: ``[1]`` int32 on the slab path,
+``[B]`` int32 in paged mode. An int is bounds-checked on the host and then
+filled into a tensor, so both forms run the same device code and give the
+same bits; a tensor is not checked (a CUDA graph replays with whatever
+position its static buffer holds, so the engine checks before a replay).
+RoPE rows are gathered by index and the slab K/V rows written by
+``index_copy_`` along the row axis, so no position is baked into the
+launches.
+
 Paged mode (``page_table`` given): the cache is the shared page pool,
 ``k``/``v`` [L, P, KH, ps, hd], and lane b's logical row r lives in pool
-page ``page_table[b, r // ps]`` at page row ``r % ps``. ``pos`` is then an
-int or a [B] int32 tensor on the device, RoPE rows are gathered per lane,
+page ``page_table[b, r // ps]`` at page row ``r % ps``. RoPE rows are
+gathered per lane,
 the new K/V rows are written by device index ops at their pages, and
 attention reads through the page table: the paged decode kernel at T = 1,
 the paged stats kernel for chunks. A lane at a negative position is
@@ -178,11 +187,22 @@ def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
     return posv, rows, page, prow
 
 
+def _slab_pos(pos, t: int, s: int, device) -> torch.Tensor:
+    """The slab path's position as int32 [1] on ``device``; an int is
+    bounds-checked first (a write past the cache would drop rows)."""
+    if not torch.is_tensor(pos):
+        pos = int(pos)
+        if pos < 0 or pos + t > s:
+            raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s} rows")
+        return torch.full((1,), pos, dtype=torch.int32, device=device)
+    return pos.to(device=device, dtype=torch.int32).reshape(1)
+
+
 def forward(
     params: Params,
     h: LlmHeader,
     tokens: torch.Tensor,  # [B, T] int
-    pos,  # absolute position of tokens[:, 0]: an int, or [B] int32 (paged mode)
+    pos,  # absolute position of tokens[:, 0]: an int, or int32 [1] (slab) / [B] (paged)
     cache: KvCache,
     logits_mode: str = "all",
     plain: bool = False,
@@ -206,10 +226,8 @@ def forward(
     if paged:
         posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
     else:
-        s = cache["k"].shape[3]
-        if pos < 0 or pos + t > s:
-            # a write past the cache would drop rows; fail loudly instead
-            raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s} rows")
+        posv = _slab_pos(pos, t, cache["k"].shape[3], tokens.device)
+        rows = posv.long() + torch.arange(t, device=tokens.device)  # [T] cache rows
     interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
     act = silu if h.hidden_act == HiddenAct.SILU else gelu
     is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
@@ -232,9 +250,8 @@ def forward(
     x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
     if paged:  # [B, T, hd/2]: each lane at its own position
         cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
-    else:
-        cos = params["rope_cos"][pos : pos + t]
-        sin = params["rope_sin"][pos : pos + t]
+    else:  # [T, hd/2]
+        cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
     for l, lp in enumerate(params["layers"]):
         y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
         q = mm(y, lp["wq"]).reshape(b, t, hq, hd)
@@ -251,9 +268,9 @@ def forward(
             v_cache[page, :, prow] = v.to(v_cache.dtype)
             z = attend(q, k_cache, v_cache, page_table, posv)
         else:
-            k_cache[:, :, pos : pos + t] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[:, :, pos : pos + t] = v.transpose(1, 2).to(v_cache.dtype)
-            z = attend(q, k_cache, v_cache, pos)
+            k_cache.index_copy_(2, rows, k.transpose(1, 2).to(k_cache.dtype))
+            v_cache.index_copy_(2, rows, v.transpose(1, 2).to(v_cache.dtype))
+            z = attend(q, k_cache, v_cache, posv)
         z = z.reshape(b, t, hq * hd)
         x = x + mm(z, lp["wo"]).to(x.dtype)
 

@@ -17,7 +17,10 @@ FIFO into the least-recently-used free lane, matches each conversation
 against the shared radix tree of served prefixes (`kv.manager`) and adopts
 the covering pool pages with no device copy (a fork of a mid-page boundary
 is the one copy), prefills the rest one bounded chunk a tick, and steps
-every active lane together in decode blocks. A finished stream publishes
+every active lane together in decode blocks (on the card, CUDA graphs
+that `InferenceEngine.rehearse_admission` captures before the scheduler
+starts: every lane-prefill bucket, the greedy and the sampled block).
+A finished stream publishes
 its whole pages to the tree. An engine error fails the in-flight requests
 with a retryable error payload and the scheduler keeps serving.
 
@@ -439,6 +442,9 @@ class ApiState:
         self.template = ChatTemplateGenerator(
             chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
         self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages)
+        # every admission-path graph before the first request (dllama_tpu's
+        # api_server rehearses its compiled programs the same way)
+        engine.rehearse_admission(lane_block_size)
         self.scheduler = LaneScheduler(self, block_size=lane_block_size,
                                        admission_chunk=admission_chunk)
 

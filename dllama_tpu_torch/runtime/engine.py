@@ -1,12 +1,21 @@
-"""Single-stream inference engine: bucketed prefill + greedy decode.
+"""Inference engine: bucketed prefill, decode blocks, perplexity, lanes.
 
-Counterpart of the single-stream part of dllama_tpu/runtime/engine.py
-(reference: src/app.cpp:170-230, dllama.cpp:13-116). PyTorch runs eagerly,
-so there are no compiled programs: prefill walks the prompt in the same
-bucketed chunks (`_bucket_for`, `_prefill_rows`) and greedy decoding runs
-blocks of steps whose argmax stays on the device, with one host readback
-per block (`decode_block`). Sampling with temperature > 0 uses the
-reference-parity host sampler one step at a time (`decode_step`).
+Counterpart of dllama_tpu/runtime/engine.py (reference: src/app.cpp:170-230,
+dllama.cpp:13-116). Prefill walks the prompt in bucketed chunks
+(`_bucket_for`, `prefill`); decoding runs blocks of steps whose
+next token stays on the device, with one host readback a block
+(`decode_block`: the argmax, or with temperature > 0 the on-device top-p
+sampler `sample_per_lane` keyed by (seed, position)); `decode_step` (block
+size 1) samples on the host with the reference-parity `Sampler`;
+`perplexity` scores a prompt teacher-forced, one scalar a chunk.
+
+The JAX engine runs one compiled program a shape. On the card the port
+runs each of these forwards as a CUDA graph (runtime/graphs.py): every
+prefill bucket, decode block width, the single step, each score chunk, each
+lane-prefill bucket and lane decode block is captured on its first use and
+replayed after it. ``cuda_graphs=False`` (or setting ``engine.cuda_graphs``)
+runs them eagerly; the CPU always does. Either way a forward reads its
+inputs from the static buffers the host fills before it runs.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; on the card
 every matmul and attention goes through the port's CUDA kernels. Weight
@@ -40,11 +49,13 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
+from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
 
 # Prefill chunk buckets (the reference's --nBatches role; the JAX engine
 # compiles one program per bucket, the port keeps the same chunking).
 PREFILL_BUCKETS = (1, 8, 32, 128, 512)
+I32, I64 = torch.int32, torch.int64
 
 
 @dataclasses.dataclass
@@ -53,6 +64,15 @@ class StepStats:
 
     time_ms: float
     n_tokens: int
+
+
+def chunk_nll(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Summed next-token NLL of a chunk's unmasked rows: f32 logits [1, T,
+    V], targets [1, T] int64, mask [1, T] f32 -> an f32 scalar (the JAX
+    ``_score_fn``: logsumexp less the target's logit, masked, summed)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return ((lse - tgt) * mask)[0].sum()
 
 
 class InferenceEngine:
@@ -70,11 +90,13 @@ class InferenceEngine:
         weight_format: str = "auto",
         device=None,
         batch_size: int = 1,
+        cuda_graphs: bool = True,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.graphs = StepGraphs(self.device, cuda_graphs)
         self.reader = ModelReader(model_path, max_seq_len=max_seq_len)
         self.header: LlmHeader = self.reader.header
         self.dtype = dtype
@@ -123,6 +145,15 @@ class InferenceEngine:
         self._lane_seed_base = seed
         self._rng_calls = 0
 
+    @property
+    def cuda_graphs(self) -> bool:
+        """Whether the forwards run as CUDA graphs on the card (module doc)."""
+        return self.graphs.enabled
+
+    @cuda_graphs.setter
+    def cuda_graphs(self, on: bool) -> None:
+        self.graphs.enabled = bool(on)
+
     def reset(self) -> None:
         """Drop KV state (new conversation)."""
         for t in self.cache.values():
@@ -132,14 +163,10 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
-    def _last_logits(self, tokens: list[list[int]], pos: int) -> torch.Tensor:
-        """Forward a [1, T] chunk at ``pos``; f32 logits of its last row [1, V]."""
-        arr = torch.tensor(tokens, dtype=torch.int64, device=self.device)
-        logits, self.cache = forward(
-            self.params, self.header, arr, pos, self.cache, logits_mode="last"
-        )
-        return logits[:, -1, :]
+    def _static(self, **specs) -> dict:
+        """Zeroed static buffers on the device: name=(shape, dtype)."""
+        return {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                for name, (shape, dtype) in specs.items()}
 
     def _bucket_for(self, n: int, pos: int) -> int:
         """Smallest bucket covering n tokens whose PADDED extent still fits
@@ -153,38 +180,49 @@ class InferenceEngine:
                 return b
         return fitting[-1]
 
-    def prefill(self, tokens: list[int], pos: int = 0) -> StepStats:
-        """Run all but the last prompt token through the cache (the last
-        token is the decode loop's first input, reference: dllama.cpp:38-68)."""
-        return self._prefill_rows([tokens], pos)
+    def _chunks(self, n: int, pos: int):
+        """(bucket, width, pos) of each chunk that walks n tokens from pos."""
+        while n > 0:
+            bucket = self._bucket_for(n, pos)
+            width = min(bucket, n)
+            yield bucket, width, pos
+            n -= width
+            pos += width
 
-    def _prefill_rows(self, rows: list[list[int]], pos: int = 0) -> StepStats:
-        """Chunked, bucketed prefill; everything but the last token enters
-        the cache."""
-        n = len(rows[0])
+    def prefill(self, tokens: list[int], pos: int = 0) -> StepStats:
+        """Run all but the last prompt token through the cache in bucketed
+        chunks (the last token is the decode loop's first input, reference:
+        dllama.cpp:38-68). Padding tokens write garbage into cache rows past
+        a chunk: the causal mask hides them until real tokens overwrite
+        those positions."""
+        n = len(tokens)
         if n < 1:
             raise ValueError("empty prompt")
         if pos + n - 1 > self.header.seq_len:
             raise ValueError(
                 f"prompt of {n} tokens at pos {pos} exceeds seqLen {self.header.seq_len}"
             )
-        fills = [row[:-1] for row in rows]
+        fill = tokens[:-1]
         total_ms = 0.0
-        p = pos
-        while fills[0]:
-            bucket = self._bucket_for(len(fills[0]), p)
-            width = min(bucket, len(fills[0]))
-            # padding tokens write garbage into cache rows [p+width,
-            # p+bucket): the causal mask hides them until real tokens
-            # overwrite those positions
-            padded = [fill[:width] + [0] * (bucket - width) for fill in fills]
-            fills = [fill[width:] for fill in fills]
+        for bucket, width, p in self._chunks(len(fill), pos):
+            chunk = fill[p - pos : p - pos + width] + [0] * (bucket - width)
             t0 = time.perf_counter()
-            self._last_logits(padded, p)
+            self._slab_chunk(chunk, p)
             self._sync()
             total_ms += (time.perf_counter() - t0) * 1000
-            p += width
         return StepStats(time_ms=total_ms, n_tokens=max(n - 1, 0))
+
+    @torch.inference_mode()
+    def _slab_chunk(self, tokens: list[int], pos: int) -> None:
+        """One prefill chunk [1, T] at ``pos`` (the graph ``("prefill", T,
+        False)``); its last-row logits are computed and dropped."""
+        t = len(tokens)
+        key = ("prefill", t, False)
+        b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
+        self.graphs.put(b["tok"], tokens)
+        self.graphs.put(b["pos"], pos)
+        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"],
+                                             self.cache, logits_mode="last"))
 
     def _block_width(self, pos: int, block: int) -> int:
         """The full block whenever it fits the cache, else the space left."""
@@ -192,38 +230,85 @@ class InferenceEngine:
             return block
         return self.header.seq_len - pos
 
+    @torch.inference_mode()
     def decode_step(self, token: int, pos: int) -> tuple[int, StepStats]:
         """Feed ``token`` at ``pos``; return the next token (argmax when
-        temperature is 0, else the host sampler; dllama.cpp:74-99)."""
+        temperature is 0, else the host sampler; dllama.cpp:74-99). The
+        forward is the graph ``("step", greedy)``: the last row's logits
+        land in a static buffer, and the argmax beside them when greedy."""
         if pos >= self.header.seq_len:
             raise ValueError(
                 f"decode position {pos} out of range (seqLen {self.header.seq_len})"
             )
+        greedy = self.temperature == 0.0
+        key = ("step", greedy)
+        v = self.header.vocab_size
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((1, 1), I64), pos=((1,), I32), logits=((1, v), torch.float32),
+            next=((1,), I64)))
+
+        def step():
+            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.cache,
+                                logits_mode="last")
+            b["logits"].copy_(logits[:, -1, :])
+            if greedy:
+                b["next"].copy_(torch.argmax(logits[:, -1, :], dim=-1))
+
         t0 = time.perf_counter()
-        last = self._last_logits([[token]], pos)
-        if self.temperature == 0.0:
-            nxt = int(torch.argmax(last[0]).item())
+        self.graphs.put(b["tok"], token)
+        self.graphs.put(b["pos"], pos)
+        self.graphs.run(key, step)
+        if greedy:
+            nxt = int(b["next"].item())
         else:
-            nxt = self.sampler.sample(last[0].cpu().numpy())
+            nxt = self.sampler.sample(b["logits"][0].cpu().numpy())
         return nxt, StepStats(time_ms=(time.perf_counter() - t0) * 1000, n_tokens=1)
 
+    def _draw_seed(self) -> int:
+        """The next seed of the engine's stream (reset by `set_seed`)."""
+        self._rng_calls += 1
+        return (self._lane_seed_base + 1_000_003 * self._rng_calls) & 0x7FFFFFFF
+
     @torch.inference_mode()
-    def decode_block(self, token: int, pos: int, n_steps: int) -> list[int]:
-        """Greedy-decode up to ``n_steps`` tokens: each step's argmax feeds
-        the next step on the device, and the block's tokens come back to
-        the host in one readback."""
-        n_steps = self._block_width(pos, n_steps)
-        if n_steps <= 0:
+    def decode_block(self, token: int, pos: int, n_steps: int, seed: int | None = None) -> list[int]:
+        """Decode up to ``n_steps`` tokens in one graph ``("block", n,
+        greedy)``: each step's token feeds the next on the device, and the
+        block's tokens come back to the host in one readback. With
+        temperature > 0 each step samples on the device (`sample_per_lane`
+        at the engine's temperature and top-p), its draw a function of
+        ``seed`` (default: the engine's next) and the step's position
+        only, so a stream does not depend on how it splits into blocks."""
+        n = self._block_width(pos, n_steps)
+        if n <= 0:
             return []
-        tok = torch.tensor([[token]], dtype=torch.int64, device=self.device)
-        out = torch.empty(n_steps, dtype=torch.int64, device=self.device)
-        for i in range(n_steps):
-            logits, self.cache = forward(
-                self.params, self.header, tok, pos + i, self.cache, logits_mode="last"
-            )
-            tok = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
-            out[i] = tok[0, 0]
-        return out.tolist()
+        greedy = self.temperature == 0.0
+        key = ("block", n, greedy)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((1, 1), I64), pos=((1,), I32), temp=((1,), torch.float32),
+            topp=((1,), torch.float32), seed=((1,), I64), out=((n,), I64)))
+        self.graphs.put(b["tok"], token)
+        self.graphs.put(b["pos"], pos)
+        if not greedy:
+            self.graphs.put(b["temp"], self.temperature)
+            self.graphs.put(b["topp"], self.sampler.topp)
+            self.graphs.put(b["seed"], self._draw_seed() if seed is None else seed & 0x7FFFFFFF)
+
+        def block():
+            tok = b["tok"]
+            for i in range(n):
+                p = b["pos"] + i
+                logits, _ = forward(self.params, self.header, tok, p, self.cache,
+                                    logits_mode="last")
+                last = logits[:, -1, :]
+                if greedy:
+                    nxt = torch.argmax(last, dim=-1)
+                else:
+                    nxt = sample_per_lane(last, b["temp"], b["topp"], b["seed"], p)
+                b["out"][i] = nxt[0]
+                tok = nxt[:, None]
+
+        self.graphs.run(key, block)
+        return b["out"].tolist()
 
     def generate(
         self,
@@ -236,21 +321,23 @@ class InferenceEngine:
     ):
         """Prefill + decode; returns (tokens, eval_stats, pred_stats).
         ``max_steps`` caps the absolute position (from ``start_pos``), as
-        the reference's --steps. Greedy decoding runs in blocks of
-        ``block_size``; a stop mid-block leaves the block's later KV rows as
-        garbage that the causal mask hides and later writes overwrite."""
+        the reference's --steps. Decoding runs in blocks of ``block_size``
+        (greedy or sampled on the device, one seed a call), or step by step
+        with the host sampler at ``block_size`` 1; a stop mid-block leaves
+        the block's later KV rows as garbage that the causal mask hides and
+        later writes overwrite."""
         max_pos = min(self.header.seq_len, start_pos + max_steps)
         eval_stats = self.prefill(prompt_tokens, pos=start_pos)
         pos = start_pos + len(prompt_tokens) - 1
         token = prompt_tokens[-1]
         out_tokens: list[int] = []
         pred_ms = 0.0
-        greedy = self.temperature == 0.0
+        seed = self._draw_seed() if self.temperature != 0.0 else 0
         while pos < max_pos:
             t0 = time.perf_counter()
-            if greedy and block_size > 1:
+            if block_size > 1:
                 n = self._block_width(pos, block_size)
-                toks = self.decode_block(token, pos, n)[: max_pos - pos]
+                toks = self.decode_block(token, pos, n, seed)[: max_pos - pos]
             else:
                 toks = [self.decode_step(token, pos)[0]]
             pred_ms += (time.perf_counter() - t0) * 1000
@@ -270,6 +357,56 @@ class InferenceEngine:
                 break
             token = out_tokens[-1]
         return out_tokens, eval_stats, StepStats(pred_ms, len(out_tokens))
+
+    def perplexity(self, tokens: list[int]) -> tuple[float, float, int]:
+        """Teacher-forced (nll, perplexity, n_scored) over ``tokens``, from a
+        fresh cache, chunk by chunk over the prefill buckets (dllama_tpu's
+        ``perplexity``; reference: dllama.cpp:132-172). Each chunk is the
+        graph ``("score", T)``: all its logits, their logsumexp, the
+        targets' gather and the mask of padding rows and of the final token,
+        summed on the device to one f32 scalar; the host sums the chunks'
+        scalars."""
+        t = len(tokens)
+        if t < 2:
+            raise ValueError("need at least 2 tokens for perplexity")
+        if t > self.header.seq_len:
+            raise ValueError(f"{t} tokens exceed seqLen {self.header.seq_len}")
+        bad = max(tokens)
+        if bad >= self.header.vocab_size:
+            raise ValueError(f"token id {bad} out of range for model vocab "
+                             f"{self.header.vocab_size} (tokenizer/model mismatch?)")
+        self.reset()
+        nll_sum = 0.0
+        for bucket, width, p in self._chunks(t, 0):
+            # row j (global index p+j) is scored against token p+j+1; the
+            # final token and padding rows are masked out
+            scored = [p + j + 1 < t and j < width for j in range(bucket)]
+            chunk = tokens[p : p + width] + [0] * (bucket - width)
+            targets = [tokens[p + j + 1] if ok else 0 for j, ok in enumerate(scored)]
+            nll_sum += self._score_chunk(chunk, targets, [float(ok) for ok in scored], p)
+        n_scored = t - 1
+        nll = nll_sum / n_scored
+        return nll, float(np.exp(nll)), n_scored
+
+    @torch.inference_mode()
+    def _score_chunk(self, chunk: list[int], targets: list[int], mask: list[float],
+                     pos: int) -> float:
+        """The summed NLL of one chunk's unmasked rows (graph ``("score", T)``)."""
+        t = len(chunk)
+        key = ("score", t)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((1, t), I64), pos=((1,), I32), tgt=((1, t), I64),
+            mask=((1, t), torch.float32), nll=((), torch.float32)))
+        for name, values in (("tok", chunk), ("pos", pos), ("tgt", targets), ("mask", mask)):
+            self.graphs.put(b[name], values)
+
+        def score():
+            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.cache,
+                                logits_mode="all")
+            b["nll"].copy_(chunk_nll(logits, b["tgt"], b["mask"]))
+
+        self.graphs.run(key, score)
+        return float(b["nll"].item())
 
     # -- lanes over the paged KV pool ------------------------------------------
 
@@ -325,6 +462,7 @@ class InferenceEngine:
                                    device=self.device)
         self._pt_dirty = False
         self.kv_pool = None  # free the old pool before the new one exists
+        self.graphs.clear()  # their pointers and page-table rows are the old pool's
         h = self.header
         shape = (h.n_layers, n_pages, h.n_kv_heads, page_size, h.head_dim)
         self.kv_pool = {k: torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -409,11 +547,28 @@ class InferenceEngine:
         want = min(n, budget) if budget and budget > 0 else n
         bucket = self._bucket_for(want, pos0)
         width = min(bucket, want)
-        chunk = torch.tensor([tokens[:width] + [0] * (bucket - width)], dtype=torch.int64,
-                             device=self.device)
-        forward(self.params, self.header, chunk, pos0, self.kv_pool, logits_mode="none",
-                page_table=self._page_table_dev()[lane : lane + 1])
+        pt = self._page_table_dev()[lane : lane + 1]
+        self._lane_chunk(tokens[:width] + [0] * (bucket - width), pos0, pt)
         return width
+
+    def _lane_chunk(self, tokens: list[int], pos: int, pt_row: torch.Tensor | None) -> None:
+        """One lane-prefill chunk [1, T] at ``pos`` through the page-table
+        row ``pt_row`` [1, n_blocks], copied into the graph's static row
+        (``None``: an all-zero row, every write to the scratch page 0).
+        The graph ``("lane_prefill_paged", T)``."""
+        t = len(tokens)
+        key = ("lane_prefill_paged", t)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((1, t), I64), pos=((1,), I32), pt=((1, self._kv_n_blocks), I32)))
+        self.graphs.put(b["tok"], tokens)
+        self.graphs.put(b["pos"], pos)
+        if pt_row is None:
+            b["pt"].zero_()
+        else:
+            b["pt"].copy_(pt_row)
+        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"],
+                                             self.kv_pool, logits_mode="none",
+                                             page_table=b["pt"]))
 
     def prefill_lane(self, lane: int, tokens: list[int], pos0: int = 0) -> None:
         """Prefill one lane's prompt (all but the last token) chunk by
@@ -474,35 +629,70 @@ class InferenceEngine:
             & 0x7FFFFFFF
             for i, s in enumerate(seeds or [None] * b)
         ]
-        dev = self.device
         # every step's positions, -1 for parked lanes and past the cache:
         # one host-to-device copy a block
-        cur = torch.tensor(
-            [[pos[j] + i if active[j] and 0 <= pos[j] + i < seq_len else -1 for j in range(b)]
-             for i in range(n_steps)],
-            dtype=torch.int32, device=dev,
-        )
+        cur = [[pos[j] + i if active[j] and 0 <= pos[j] + i < seq_len else -1 for j in range(b)]
+               for i in range(n_steps)]
         sampled = any(active[j] and temperature[j] > 0.0 for j in range(b))
-        if sampled:
-            temps = torch.tensor(temperature, dtype=torch.float32, device=dev)
-            topps = torch.tensor(topp, dtype=torch.float32, device=dev)
-            seed_t = torch.tensor(seed_vec, dtype=torch.int64, device=dev)
-        tok = torch.tensor([[t] for t in tokens], dtype=torch.int64, device=dev)
-        out = torch.empty((n_steps, b), dtype=torch.int64, device=dev)
-        pt = self._page_table_dev()
-        for i in range(n_steps):
-            logits, _ = forward(self.params, self.header, tok, cur[i], self.kv_pool,
-                                logits_mode="last", page_table=pt)
-            last = logits[:, -1, :]
-            if sampled:
-                nxt = sample_per_lane(last, temps, topps, seed_t, cur[i])
-            else:
-                nxt = torch.argmax(last, dim=-1)
-            nxt = torch.where(cur[i] >= 0, nxt, 0)
-            out[i] = nxt
-            tok = nxt[:, None]
+        out = self._lane_block(tokens, cur, sampled, temperature, topp, seed_vec)
         self.lane_decode_steps += n_steps
-        return out.tolist()
+        return out
+
+    def _lane_block(self, tokens: list[int], cur: list[list[int]], sampled: bool,
+                    temperature: list[float], topp: list[float], seeds: list[int]):
+        """Every lane's decode block in the graph ``("lane_block_paged", n,
+        sampled)``: tokens [B], positions ``cur`` [n][B] (-1: parked, reads
+        nothing and writes to the scratch page), sampling settings [B] (read
+        only when ``sampled``). Returns [n][B], 0 for parked rows."""
+        n, bsz = len(cur), self.batch_size
+        key = ("lane_block_paged", n, sampled)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((bsz, 1), I64), cur=((n, bsz), I32), temp=((bsz,), torch.float32),
+            topp=((bsz,), torch.float32), seed=((bsz,), I64), out=((n, bsz), I64)))
+        self.graphs.put(b["tok"], tokens)
+        self.graphs.put(b["cur"], cur)
+        if sampled:
+            self.graphs.put(b["temp"], temperature)
+            self.graphs.put(b["topp"], topp)
+            self.graphs.put(b["seed"], seeds)
+        pt = self._page_table_dev()
+
+        def block():
+            tok = b["tok"]
+            for i in range(n):
+                p = b["cur"][i]
+                logits, _ = forward(self.params, self.header, tok, p, self.kv_pool,
+                                    logits_mode="last", page_table=pt)
+                last = logits[:, -1, :]
+                if sampled:
+                    nxt = sample_per_lane(last, b["temp"], b["topp"], b["seed"], p)
+                else:
+                    nxt = torch.argmax(last, dim=-1)
+                nxt = torch.where(p >= 0, nxt, 0)
+                b["out"][i] = nxt
+                tok = nxt[:, None]
+
+        self.graphs.run(key, block)
+        return b["out"].tolist()
+
+    def rehearse_admission(self, block_size: int) -> None:
+        """Capture the admission path's graphs before serving (dllama_tpu's
+        ``rehearse_admission``): every lane-prefill bucket and the greedy
+        and sampled lane decode block of ``block_size`` steps. Each first
+        use runs on the scratch page only (an all-zero page-table row, every
+        lane parked), so no lane's pages change. A no-op where graphs are
+        off (the CPU among them)."""
+        self._require_kv_pool()
+        if not self.graphs.active:
+            return
+        bsz, n = self.batch_size, max(1, min(block_size, self.header.seq_len))
+        with torch.inference_mode():
+            for bucket in self.prefill_buckets:
+                self._lane_chunk([0] * bucket, 0, None)
+            for sampled in (False, True):
+                self._lane_block([0] * bsz, [[-1] * bsz] * n, sampled, [1.0] * bsz,
+                                 [1.0] * bsz, [0] * bsz)
+        self._sync()
 
     def generate_batch(self, prompts: list[list[int]], max_steps: int,
                        block_size: int = 8) -> list[list[int]]:

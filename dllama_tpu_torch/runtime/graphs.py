@@ -1,0 +1,141 @@
+"""The engine's step programs as CUDA graphs: captured once a shape, replayed.
+
+Counterpart of the JAX engine's compile cache (``_compiled`` and
+``_compile_lock`` in dllama_tpu/runtime/engine.py), which holds one
+AOT-compiled program a shape. The port launches the same kernels and torch
+ops from Python; `StepGraphs` records one shape's launches into a CUDA
+graph and replays it, so a block of forwards costs the host one launch.
+Keys follow the JAX program keys: ``("block", n, greedy)``, ``("prefill",
+t, paged)``, ``("score", t)``, ``("lane_prefill_paged", t)``,
+``("lane_block_paged", n, sampled)``, ``("step", greedy)``.
+
+A step reads its inputs from static buffers (`buffers`: tokens, the base
+position, the lanes' positions, a page-table row, temperatures, top-p
+values, seeds), which the engine fills with `put` before a run, and writes
+what its caller reads into static outputs. Both are allocated outside the
+graphs' memory pool: every graph shares one pool, so a tensor made inside
+a capture is scratch that the next replay of another graph may overwrite.
+
+The first run of a key is eager and does the real work: it builds and
+loads the kernels' libraries, and the launchers set their shared-memory
+attributes. Then the key is captured (a capture runs nothing) and every
+later run replays it. A capture or replay that fails raises; nothing falls
+back to the eager path.
+
+The kernel wrappers count their launches in Python attributes (``ops``
+``KERNELS``), which a replay does not move and a capture would move for
+kernels that never ran. So a capture leaves the counters as they were and
+keeps what the step added as the graph's tally, and each replay adds the
+tally: the counts stay those of an eager run.
+
+Graphs run only on a CUDA device and only while ``enabled`` (the engine's
+``cuda_graphs``); otherwise every run is eager. On the CPU ``enabled`` is
+ignored. Like the engine that owns it, a `StepGraphs` serves one thread
+at a time.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops import KERNELS, launch_counts
+
+
+def _add_launches(tally: dict[str, int], sign: int = 1) -> None:
+    for name, n in tally.items():
+        KERNELS[name].launches += sign * n
+
+
+class StepGraphs:
+    """One engine's graphs, static buffers and capture statistics."""
+
+    def __init__(self, device: torch.device, enabled: bool = True):
+        self.device = device
+        self.enabled = enabled
+        self._graphs: dict = {}  # key -> (replayable graph, launch tally)
+        self._buffers: dict = {}  # key -> dict of static tensors
+        self._pool = None
+        self.capture_s = 0.0  # seconds spent capturing
+        self.replays = 0
+
+    @property
+    def active(self) -> bool:
+        return self.enabled and self.device.type == "cuda"
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graphs)
+
+    def count(self, kind: str) -> int:
+        """Graphs whose key starts with ``kind``."""
+        return sum(1 for key in self._graphs if key[0] == kind)
+
+    def clear(self) -> None:
+        """Drop every graph and buffer (the tensors they point at changed)."""
+        self._graphs.clear()
+        self._buffers.clear()
+
+    def buffers(self, key, make: Callable[[], dict]) -> dict:
+        """The static buffers of ``key``, made by ``make()`` on first use."""
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            bufs = self._buffers[key] = make()
+        return bufs
+
+    def put(self, dst: torch.Tensor, values) -> None:
+        """Fill a static input from host values: a copy from pinned memory
+        on the card (the host allocator keeps the pinned block until the
+        copy has run), a plain copy on the CPU."""
+        src = torch.as_tensor(np.asarray(values), dtype=dst.dtype).reshape(dst.shape)
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def run(self, key, step: Callable[[], None]) -> None:
+        """Run ``step`` as the graph of ``key``: eager on its first use (and
+        whenever graphs are off), captured after that first use, replayed
+        on every later run."""
+        if not self.active:
+            step()
+            return
+        entry = self._graphs.get(key)
+        if entry is not None:
+            graph, tally = entry
+            graph.replay()
+            _add_launches(tally)
+            self.replays += 1
+            return
+        step()
+        self._graphs[key] = self._capture(step)
+
+    def _capture(self, step: Callable[[], None]):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        try:
+            graph = self._record(step)
+        finally:
+            after = launch_counts()
+            tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            _add_launches(tally, -1)
+            self.capture_s += time.perf_counter() - t0
+        return graph, tally
+
+    def _record(self, step: Callable[[], None]):
+        """Capture ``step`` into a CUDA graph in the shared pool."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            step()
+        return graph
+
+    def pool_bytes(self) -> int:
+        """Bytes the graphs' pool holds on the card (0 before any capture)."""
+        if self._pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))

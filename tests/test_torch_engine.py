@@ -1,7 +1,9 @@
 """The port's engine and CLI on CPU: the greedy token stream equals the JAX
 InferenceEngine's (f32, weight_format="q40") for a tiny Llama and a tiny
 Qwen3-MoE, and for the q40i4 and q40i8 formats on a dim-128 Llama and the
-tiny Qwen3-MoE; the inference CLI runs and lists every weight format."""
+tiny Qwen3-MoE; the inference CLI runs and lists every weight format;
+sampled decode blocks repeat per seed and stay inside the JAX top-p
+support."""
 
 import jax.numpy as jnp
 import pytest
@@ -114,6 +116,38 @@ def test_sampled_stream_reproducible_per_seed(tiny):
                               device="cpu")
         outs.append(eng.generate([1, 2, 3], max_steps=16)[0])
     assert outs[0] == outs[1] and len(outs[0]) == 14
+
+
+@pytest.mark.parametrize("block", [4, 8])
+def test_sampled_blocks_reproducible_and_inside_topp(tiny, monkeypatch, block):
+    """Sampled decode blocks (temperature > 0, block_size > 1) sample on the
+    device: the stream repeats per seed whatever the block size (a draw is
+    a function of (seed, position)), differs for another seed, and every
+    token lies in the JAX ``_topp_mask`` support of its step's logits."""
+    import numpy as np
+    from dllama_tpu.runtime.engine import _topp_mask
+    from dllama_tpu_torch.runtime import engine as engine_mod
+
+    steps = []
+    real = engine_mod.sample_per_lane
+
+    def recording(logits, temperature, topp, seeds, positions):
+        out = real(logits, temperature, topp, seeds, positions)
+        steps.append((logits.clone(), float(temperature[0]), float(topp[0]), int(out[0])))
+        return out
+
+    monkeypatch.setattr(engine_mod, "sample_per_lane", recording)
+    outs = []
+    for seed, block_size in ((7, block), (7, 3), (8, block)):
+        eng = InferenceEngine(tiny[0], dtype=torch.float32, temperature=0.9, topp=0.9,
+                              seed=seed, device="cpu")
+        outs.append(eng.generate([1, 2, 3], max_steps=30, block_size=block_size)[0])
+    assert outs[0] == outs[1] and len(outs[0]) == 28 and outs[2] != outs[0]
+    assert len(steps) >= 3 * 28
+    for logits, temp, topp, tok in steps:
+        probs = torch.softmax(logits / temp, dim=-1).numpy()
+        support = np.asarray(_topp_mask(jnp.asarray(probs), jnp.float32(topp)))[0] > 0
+        assert support[tok], (tok, int(support.sum()))
 
 
 def test_engine_bounds_checks(tiny):

@@ -42,16 +42,31 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    scales). The rows of the int8 GEMV and the MoE kernels also read
    `time_clean` (the L2 left clean) beside `time_ms` (the L2 flushed by a
    memset, whose dirty lines a byte-bound kernel writes back in its time).
-3. End to end, six runs on three random Q40 ``.m`` files (max_seq_len
+   The int8 KV cache's instantiations of both attention kernels
+   (`check_kv8`: QuantKV leaves of int8 values and f32 row scales, the
+   kernels' ``*_kv8`` counters): prefill stats at H 32 over KH 8 (hd 128
+   and 64, bf16 and f32) and KH 4 (bf16), T 512 over S 4096 at pos 3584
+   and S 512 at pos 0; slab decode at pos 0, 563, 4095 (4095 only for the
+   other shapes); paged decode at B 4, pos 0, 15, 16, 4095, and the paged
+   stats at T 128, KH 8 in bf16 and f32 and KH 4 in bf16, through a
+   shuffled table and with the identity table's bits equal to the slab
+   entries'; a parked lane in stats and in both decodes; 32 query heads a KV head. Each within TOL
+   (f32 outputs) or TOL_BF16_OUT (bf16) of its plain version (the cache
+   dequantized in f32), equal bits on two runs, its launches counted under
+   its ``*_kv8`` counter; ``ms``, ``ms_clean``, ``plain_ms``, the bound of
+   the int8 bytes, ``library_ms`` none (no single PyTorch call attends over
+   int8 K/V) and ``composite_ms``, the dequantization then SDPA (two calls).
+3. End to end, seven runs on three random Q40 ``.m`` files (max_seq_len
    4096; each with a padded byte-level ``.t``, written with the port's
    writers to a temp dir of its own, deleted before the next), each the
    port's ``inference`` CLI path: a ~500-token prompt and 128 greedy
    tokens, every forward a CUDA graph (each shape eager on its first use,
    then captured and replayed: `dllama_tpu_torch/runtime/graphs.py`).
-   llama-8b (32 layers) with ``--weight-format q40``, ``q40i4`` and
-   ``q40i8``; qwen3-30b-a3b (48 layers) with ``auto`` (Q40 on the card) and
-   ``q40i8`` (experts stay Q40); qwen3-30b-a3b at 4 layers with ``dense``
-   (bf16 experts: full depth would be 60 GB of them). Load s, prefill ms,
+   llama-8b (32 layers) with ``--weight-format q40`` (also with
+   ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (48
+   layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
+   Q40); qwen3-30b-a3b at 4 layers with ``dense`` (bf16 experts: full
+   depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
    path's kernels must be > 0, and all equal what the shapes imply; a
    replay counts its graph's captured tally), the
@@ -78,7 +93,14 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    mid-page), each replayed alone; TTFT and decode ms/token per request,
    aggregate decode tok/s against the single-stream q40 run, pool pages,
    radix hits and COW forks, with gates on all of it (see `serving`), and
-   a 4-lane decode step's host ms, graphed and eager in turns.
+   a 4-lane decode step's host ms, graphed and eager in turns. The serving
+   phase runs once more on an int8 pool (``kv_dtype="int8"``, the same
+   1,537 pages; its bytes and /v1/health's page bytes printed), with the
+   same gates on the int8 kernels' launches and answers.
+   llama-8b also runs ``q40`` with ``--kv-dtype int8`` (``q40 kv-int8``):
+   the same gates, launches under the ``*_kv8`` counters, the cache's bytes
+   against a bf16 cache's, and where its greedy stream leaves the bf16-KV
+   q40 stream (printed, not gated).
 4. End-to-end parity for each path: one prefill and one decode step
    through the kernel path and through the plain path (``forward(...,
    plain=True)``) on the same weights: logits' normalized error and top-1
@@ -93,8 +115,13 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the kernel run's int8 activations, and the inputs of its int8 matmuls
    are gated too (see `parity`). For the serving phase, pool-native lanes
    against the slab path and the paged path's kernels against its plain
-   versions, f32 (`lane_parity`).
-5. A ``{"kernels": [...]}`` JSON line; last, the device JSON line.
+   versions, f32 (`lane_parity`; int8 caches and pool for the int8 pass).
+   An int8-KV run holds every cache of its parity runs in int8.
+5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
+   (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
+   ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
+   QuantKV branch or the JAX route) with ``composite_ms`` beside the
+   contract's keys; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
 """
@@ -142,9 +169,10 @@ DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
 MOE_LAYERS = 48  # the whole qwen3-30b-a3b depth (q40 path)
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
-# model file -> (its label, preset, layers, the weight formats run on it)
+# model file -> (its label, preset, layers, the runs on it: a weight format,
+# " kv-int8" added for the int8 KV cache)
 MODELS = [
-    ("llama-8b", "llama-8b", N_LAYERS, ("q40", "q40i4", "q40i8")),
+    ("llama-8b", "llama-8b", N_LAYERS, ("q40", "q40 kv-int8", "q40i4", "q40i8")),
     ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_LAYERS, ("auto", "q40i8")),
     ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_DENSE_LAYERS, ("dense",)),
 ]
@@ -166,6 +194,12 @@ REPLACES = {
     "moe_active_experts_q40": "dllama_tpu/ops/moe_kernel.py:250",
     "moe_grouped_experts": "dllama_tpu/ops/moe_kernel.py:449",
     "moe_grouped_experts_q40": "dllama_tpu/ops/moe_kernel.py:563",
+    # the int8 KV cache: the QuantKV branches of the two TPU kernels (the
+    # lines that scale the K tile), and the JAX engine's int8 slab decode
+    # (dequant_kv, then XLA attention)
+    "flash_attention_stats_kv8": "dllama_tpu/ops/flash_attention.py:124",
+    "flash_decode_kv8": "dllama_tpu/models/transformer.py:218",
+    "paged_flash_decode_kv8": "dllama_tpu/ops/flash_attention.py:595",
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
@@ -178,6 +212,9 @@ SOURCES = {
     "moe_active_experts_q40": "dllama_tpu_torch/csrc/moe_active.cu",
     "moe_grouped_experts": "dllama_tpu_torch/csrc/moe_grouped.cu",
     "moe_grouped_experts_q40": "dllama_tpu_torch/csrc/moe_grouped.cu",
+    "flash_attention_stats_kv8": "dllama_tpu_torch/csrc/flash_attention.cu",
+    "flash_decode_kv8": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "paged_flash_decode_kv8": "dllama_tpu_torch/csrc/flash_decode.cu",
 }
 # the row of phase 2 whose times stand in the kernels line
 KERNEL_ROW_SHAPE = {
@@ -191,6 +228,9 @@ KERNEL_ROW_SHAPE = {
     "moe_active_experts_q40": "bf16 m=1",
     "moe_grouped_experts": "bf16 N=512",
     "moe_grouped_experts_q40": "bf16 N=512",
+    "flash_attention_stats_kv8": "bf16 H=32 KH=8 T=512 S=4096 pos=3584",
+    "flash_decode_kv8": "bf16 H=32 KH=8 S=4096 pos=4095",
+    "paged_flash_decode_kv8": "bf16 H=32 KH=8 B=4 pos=0,15,16,4095",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
 # the MoE kernels' edges at about A3B's widths: D and F not multiples of a
@@ -678,6 +718,263 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
     return rows
 
 
+def random_kv8(shape, device, gen):
+    """A random int8 cache leaf: normal rows quantized as the engine writes
+    them (`quantize_kv_rows`: int8 values, one f32 scale a row)."""
+    import torch
+
+    from dllama_tpu_torch.ops.kv_cache import QuantKV, quantize_kv_rows
+
+    return QuantKV(*quantize_kv_rows(torch.randn(shape, device=device, generator=gen)))
+
+
+def _ident_pages(x, b: int, kh: int, nb: int):
+    """The slab leaf x [b, KH, nb * PAGE, last] as pool pages [1 + b * nb, KH,
+    PAGE, last] under the identity table (page 0 scratch); QuantKV leaf by leaf."""
+    import torch
+
+    from dllama_tpu_torch.ops.kv_cache import QuantKV
+
+    if isinstance(x, QuantKV):
+        return QuantKV(*(_ident_pages(t, b, kh, nb) for t in x))
+    last = x.shape[-1]
+    pages = x.reshape(b, kh, nb, PAGE, last).transpose(1, 2).reshape(b * nb, kh, PAGE, last)
+    return torch.cat([torch.zeros_like(pages[:1]), pages]).contiguous()
+
+
+def _kv8_bytes(kh: int, rows: int, hd: int) -> int:
+    """Bytes of ``rows`` K and V rows of kh heads in the int8 cache (values
+    and f32 scales)."""
+    return 2 * kh * rows * (hd + 4)
+
+
+def check_kv8(device, gen, timed: bool = True) -> list[dict]:
+    """The int8-KV instantiations of both attention kernels (``--kv-dtype
+    int8``: QuantKV leaves of int8 values and f32 row scales, made by
+    `random_kv8`) against their plain versions (the cache dequantized in
+    f32, then `attention_stats`): prefill stats at H 32 over KH 8 and 4, hd
+    128 and 64, T 512 over S 4096 at pos 3584 (and S 512 at pos 0), bf16
+    and f32; the paged stats on a shuffled table and on the identity table
+    (bits equal to the slab entry); slab decode at pos 0, 563 and 4095;
+    paged decode at B 4, pos 0, 15, 16, 4095 (identity-table bits equal to
+    the slab entry); a parked lane in stats (q_pos0 -T), slab and paged
+    decode (pos -1); 32 query heads a KV head (the CUDA-core decode body).
+    Every kernel launched twice on the same inputs must repeat its bits, and
+    each wrapper must count its launches under its ``*_kv8`` counter. No
+    single PyTorch call attends over int8 K/V: ``library_ms`` is none, and
+    ``composite_ms`` times the dequantization of the visible rows and
+    scaled_dot_product_attention on them (two calls) for reference."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats,
+        flash_attention_stats_kv8,
+        flash_attention_stats_ref,
+        flash_decode,
+        flash_decode_kv8,
+        flash_decode_ref,
+        paged_flash_attention_stats,
+        paged_flash_attention_stats_ref,
+        paged_flash_decode,
+        paged_flash_decode_kv8,
+        paged_flash_decode_ref,
+    )
+    from dllama_tpu_torch.ops.kv_cache import QuantKV, dequant_kv, paged_view, slice_kv
+
+    rows = []
+
+    def counted(fn, counter, n_calls, what):
+        """fn() run twice (equal bits required), counting n_calls launches a run."""
+        before = counter.launches
+        out = twice_equal(fn, what)
+        require(counter.launches == before + 2 * n_calls,
+                f"{what}: {counter.launches - before} launches under {counter.__name__}, "
+                f"wanted {2 * n_calls}")
+        return out
+
+    def record(name, shape, got, ref, tol, n_bytes, ops, dtype, times=None, **extra):
+        got_t, ref_t = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        errs = [norm_err(a, b) for a, b in zip(got_t, ref_t)]
+        rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
+        b_ms, b_by = bound(n_bytes, ops, F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        row = dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                   bound_by=b_by, **extra)
+        if timed and times is not None:
+            kernel, plain, composite = times
+            row["ms"] = time_ms(kernel, device)
+            row["ms_clean"] = time_clean(kernel, device)
+            row["plain_ms"] = time_ms(plain, device, 5)
+            row["library_ms"] = None
+            row["composite_ms"] = time_ms(composite, device)
+        rows.append(row)
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, device=device, generator=gen).to(dtype)
+
+    t = 512
+    for h, kh, hd, dtypes in ((32, 8, 128, (torch.bfloat16, torch.float32)),
+                              (32, 4, 128, (torch.bfloat16,)),
+                              (32, 8, 64, (torch.bfloat16, torch.float32))):
+        for dtype in dtypes:
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            heads = f"{tag} H={h} KH={kh}" + ("" if hd == 128 else f" hd={hd}")
+            size = torch.tensor([], dtype=dtype).element_size()
+            tol_out = TOL if dtype == torch.float32 else TOL_BF16_OUT
+            k, v = random_kv8((1, kh, 4096, hd), device, gen), random_kv8((1, kh, 4096, hd),
+                                                                          device, gen)
+            for s, pos in ((512, 0), (4096, 3584)):
+                q = randn(dtype, 1, t, h, hd)
+                ks, vs = (QuantKV(*(x.contiguous() for x in slice_kv(leaf, s))) for leaf in (k, v))
+                shape = f"{heads} T={t} S={s} pos={pos}"
+                got = counted(lambda: flash_attention_stats(q, ks, vs, pos),
+                              flash_attention_stats_kv8, 1, f"flash_attention_stats_kv8 {shape}")
+                ref = flash_attention_stats_ref(q, ks, vs, pos)
+                vis = sum(min(s, pos + i + 1) for i in range(t))
+                n_bytes = (q.numel() * size + _kv8_bytes(kh, min(s, pos + t), hd)
+                           + h * t * (hd + 2) * 4)
+                qpos = pos + torch.arange(t, device=device)
+                mask = torch.arange(pos + t, device=device)[None, :] <= qpos[:, None]
+                qs = q.transpose(1, 2)
+
+                def composite(q=qs, k=ks, v=vs, n=pos + t, mask=mask):
+                    return _sdpa(q, dequant_kv(slice_kv(k, n), q.dtype),
+                                 dequant_kv(slice_kv(v, n), q.dtype), mask)
+
+                record("flash_attention_stats_kv8", shape, got, ref, TOL, n_bytes,
+                       4.0 * hd * h * vis, dtype,
+                       (lambda: flash_attention_stats(q, ks, vs, pos),
+                        lambda: flash_attention_stats_ref(q, ks, vs, pos), composite))
+            for pos in ((0, 563, 4095) if dtype == torch.bfloat16 and kh == 8 and hd == 128
+                        else (4095,)):
+                q = randn(dtype, 1, 1, h, hd)
+                shape = f"{heads} S=4096 pos={pos}"
+                got = counted(lambda: flash_decode(q, k, v, pos), flash_decode_kv8, 1,
+                              f"flash_decode_kv8 {shape}")
+                ref = flash_decode_ref(q, k, v, pos)
+                n_bytes = 2 * q.numel() * size + _kv8_bytes(kh, pos + 1, hd)
+                qs = q.transpose(1, 2)
+
+                def composite(q=qs, k=k, v=v, n=pos + 1):
+                    return _sdpa(q, dequant_kv(slice_kv(k, n), q.dtype),
+                                 dequant_kv(slice_kv(v, n), q.dtype), None)
+
+                record("flash_decode_kv8", shape, got, ref, tol_out, n_bytes,
+                       4.0 * hd * h * (pos + 1), dtype,
+                       (lambda: flash_decode(q, k, v, pos),
+                        lambda: flash_decode_ref(q, k, v, pos), composite))
+            del k, v
+
+    # paged: B 4 lanes at PAGED_POS through a shuffled table, two lanes sharing
+    # pages; the identity table must give the slab entries' bits
+    b, s, hd = 4, 4096, 128
+    nb = s // PAGE
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=device)
+    for kh, dtypes in ((8, (torch.bfloat16, torch.float32)), (4, (torch.bfloat16,))):
+        for dtype in dtypes:
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            size = torch.tensor([], dtype=dtype).element_size()
+            tol_out = TOL if dtype == torch.float32 else TOL_BF16_OUT
+            perm = torch.randperm(b * nb, device=device, generator=gen) + 1
+            pt = perm.reshape(b, nb).to(torch.int32)
+            pt[1, :4] = pt[0, :4]
+            kp, vp = (random_kv8((1 + b * nb, kh, PAGE, hd), device, gen) for _ in range(2))
+            ks, vs = (random_kv8((b, kh, s, hd), device, gen) for _ in range(2))
+            ki, vi = _ident_pages(ks, b, kh, nb), _ident_pages(vs, b, kh, nb)
+            pt_ident = (1 + torch.arange(b * nb, device=device, dtype=torch.int32)).reshape(b, nb)
+            q = randn(dtype, b, 1, 32, hd)
+            shape = f"{tag} H=32 KH={kh} B=4 pos={','.join(map(str, PAGED_POS))}"
+            got = counted(lambda: paged_flash_decode(q, kp, vp, pt, pos), paged_flash_decode_kv8,
+                          1, f"paged_flash_decode_kv8 {shape}")
+            ref = paged_flash_decode_ref(q, kp, vp, pt, pos)
+            ident = paged_flash_decode(q, ki, vi, pt_ident, pos)
+            slab = flash_decode(q, ks, vs, pos)
+            torch.cuda.synchronize(device)
+            require(torch.equal(ident, slab),
+                    f"paged_flash_decode_kv8 {shape}: identity table differs from flash_decode_kv8")
+            n_rows = sum(p + 1 for p in PAGED_POS)
+            n_bytes = _kv8_bytes(kh, n_rows, hd) + 2 * q.numel() * size + pt.numel() * 4
+            mask = (torch.arange(s, device=device)[None, :] <= pos[:, None])[:, None, None]
+            qs = q.transpose(1, 2)
+
+            def composite(q=qs, kp=kp, vp=vp, pt=pt, mask=mask):
+                kk = torch.stack([paged_view(kp, pt[i], q.dtype) for i in range(b)])
+                vv = torch.stack([paged_view(vp, pt[i], q.dtype) for i in range(b)])
+                return _sdpa(q, kk, vv, mask)
+
+            record("paged_flash_decode_kv8", shape, got, ref, tol_out, n_bytes,
+                   4.0 * hd * 32 * n_rows, dtype,
+                   (lambda: paged_flash_decode(q, kp, vp, pt, pos),
+                    lambda: paged_flash_decode_ref(q, kp, vp, pt, pos), composite),
+                   identity_bits_equal=True)
+
+            tc = 128
+            q_pos0 = torch.tensor([256, 3000, 0, s - tc], dtype=torch.int32, device=device)
+            qc = randn(dtype, b, tc, 32, hd)
+            shape = f"{tag} H=32 KH={kh} B=4 T={tc} paged"
+            got = counted(lambda: paged_flash_attention_stats(qc, kp, vp, pt, q_pos0),
+                          flash_attention_stats_kv8, 1, f"flash_attention_stats_kv8 {shape}")
+            ref = paged_flash_attention_stats_ref(qc, kp, vp, pt, q_pos0)
+            ident = paged_flash_attention_stats(qc, ki, vi, pt_ident, q_pos0)
+            slab = flash_attention_stats(qc, ks, vs, q_pos0)
+            torch.cuda.synchronize(device)
+            require(all(torch.equal(x, y) for x, y in zip(ident, slab)),
+                    f"flash_attention_stats_kv8 {shape}: identity table differs from the slab "
+                    "entry")
+            vis = sum(min(s, int(p) + i + 1) for p in q_pos0.tolist() for i in range(tc))
+            n_bytes = (qc.numel() * size + _kv8_bytes(kh, sum(min(s, int(p) + tc)
+                                                              for p in q_pos0.tolist()), hd)
+                       + 32 * b * tc * (hd + 2) * 4)
+            record("flash_attention_stats_kv8", shape, got, ref, TOL, n_bytes,
+                   4.0 * hd * 32 * vis, dtype, identity_bits_equal=True)
+
+            # parked lanes: stats at q_pos0 -T, decode (slab and paged) at pos -1
+            starts = (300, -RAGGED_T, 0)
+            q_par = torch.tensor(starts, dtype=torch.int32, device=device)
+            qe, ke, ve = randn(dtype, 3, RAGGED_T, 32, hd), *(random_kv8((3, kh, 512, hd), device,
+                                                                         gen) for _ in range(2))
+            shape = f"{tag} H=32 KH={kh} B=3 T={RAGGED_T} q_pos0={','.join(map(str, starts))}"
+            got = counted(lambda: flash_attention_stats(qe, ke, ve, q_par),
+                          flash_attention_stats_kv8, 1, f"flash_attention_stats_kv8 {shape}")
+            acc, m, l = got
+            require(bool((acc[1] == 0).all() and (l[1] == 0).all() and (m[1] <= -1e29).all()),
+                    f"flash_attention_stats_kv8 {shape}: the parked lane's state is not empty")
+            vis = sum(min(512, max(0, p + i + 1)) for p in starts for i in range(RAGGED_T))
+            n_bytes = (qe.numel() * size + _kv8_bytes(kh, sum(min(512, max(0, p + RAGGED_T))
+                                                              for p in starts), hd)
+                       + 32 * 3 * RAGGED_T * (hd + 2) * 4)
+            record("flash_attention_stats_kv8", shape, got,
+                   flash_attention_stats_ref(qe, ke, ve, q_par), TOL, n_bytes,
+                   4.0 * hd * 32 * vis, dtype)
+            pos2 = torch.tensor([-1, 563], dtype=torch.int32, device=device)
+            qd = randn(dtype, 2, 1, 32, hd)
+            ks2, vs2 = (random_kv8((2, kh, 1024, hd), device, gen) for _ in range(2))
+            pt2 = pt[:2, : 1024 // PAGE].contiguous()
+            shape = f"{tag} H=32 KH={kh} B=2 pos=-1,563"
+            n_bytes = _kv8_bytes(kh, 564, hd) + 2 * qd.numel() * size
+            for name, fn, ref_fn, counter, args in (
+                ("flash_decode_kv8", flash_decode, flash_decode_ref, flash_decode_kv8,
+                 (qd, ks2, vs2, pos2)),
+                ("paged_flash_decode_kv8", paged_flash_decode, paged_flash_decode_ref,
+                 paged_flash_decode_kv8, (qd, kp, vp, pt2, pos2)),
+            ):
+                got = counted(lambda: fn(*args), counter, 1, f"{name} {shape}")
+                require(bool((got[0] == 0).all()), f"{name} {shape}: the parked lane is not zero")
+                record(name, shape, got, ref_fn(*args), tol_out, n_bytes, 4.0 * hd * 32 * 564,
+                       dtype)
+            del kp, vp, ks, vs, ki, vi
+
+    # 32 query heads on one KV head: bf16 decode past the tensor-core body's 16
+    q = randn(torch.bfloat16, 1, 1, 32, 128)
+    k, v = (random_kv8((1, 1, 1024, 128), device, gen) for _ in range(2))
+    shape = "bf16 H=32 KH=1 S=1024 pos=563"
+    got = counted(lambda: flash_decode(q, k, v, 563), flash_decode_kv8, 1,
+                  f"flash_decode_kv8 {shape}")
+    record("flash_decode_kv8", shape, got, flash_decode_ref(q, k, v, 563), TOL_BF16_OUT,
+           _kv8_bytes(1, 564, 128) + 2 * q.numel() * 2, 4.0 * 128 * 32 * 564, torch.bfloat16)
+    return rows
+
+
 RAGGED_T = 100  # a prefill chunk that fills no tile
 
 
@@ -917,9 +1214,9 @@ def model_file_bytes(preset: str | dict, n_layers: int | None, max_seq_len: int)
 
 def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tokens: int,
                decode_tokens: int, max_seq_len: int, seed: int, tmp: str,
-               weight_format: str = "auto") -> dict:
+               weight_format: str = "auto", kv_dtype: str | None = None) -> dict:
     """Phase 3: write the model into tmp (unless a run before wrote it),
-    run the port's inference CLI path."""
+    run the port's inference CLI path (``--kv-dtype kv_dtype`` if given)."""
     from dllama_tpu_torch import cli
     from dllama_tpu_torch.models.synthetic import write_synth_model
     from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -941,7 +1238,7 @@ def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tok
         "inference", "--model", mp, "--tokenizer", tp, "--prompt", text,
         "--steps", str(prompt_tokens - 1 + decode_tokens), "--temperature", "0",
         "--device", device, "--seed", str(seed), "--weight-format", weight_format,
-    ])
+    ] + (["--kv-dtype", kv_dtype] if kv_dtype else []))
     counts = launch_counts()
     res.update(header=res["engine"].header, write_s=write_s, counts=counts, model_path=mp)
     return res
@@ -964,11 +1261,13 @@ def forward_rows(n_prompt: int, n_decode: int) -> list[int]:
 MATMUL_KERNEL = {"q40": "q40_matmul", "q40i4": "q40i4_matmul", "q40i8": "i8_matmul"}
 
 
-def expected_launches(h, n_prompt: int, n_decode: int, weight_format: str) -> dict:
+def expected_launches(h, n_prompt: int, n_decode: int, weight_format: str,
+                      kv8: bool = False) -> dict:
     """Launches the shapes imply. Per forward of n rows and L layers: the
     format's matmul kernel 7 a layer + the classifier (4 a layer for
     Qwen3-MoE, whose experts are not matmuls), none with dense weights; one
-    attention a layer (stats for n > 1, decode for 1); for Qwen3-MoE one MoE
+    attention a layer (stats for n > 1, decode for 1; their int8-KV
+    instantiations, ``*_kv8``, when ``kv8``); for Qwen3-MoE one MoE
     kernel a layer, the active-experts one for n <= 16, else the grouped
     one, on Q40 experts under every quantized format."""
     from dllama_tpu_torch.ops import KERNELS
@@ -980,7 +1279,8 @@ def expected_launches(h, n_prompt: int, n_decode: int, weight_format: str) -> di
     for n in forward_rows(n_prompt, n_decode):
         if matmul:
             want[matmul] += (4 if moe else 7) * n_l + 1
-        want["flash_attention_stats" if n > 1 else "flash_decode"] += n_l
+        attn = "flash_attention_stats" if n > 1 else "flash_decode"
+        want[attn + ("_kv8" if kv8 else "")] += n_l
         if moe:
             kind = "active" if n <= MOE_KERNEL_MAX_TOKENS else "grouped"
             want[f"moe_{kind}_experts{'_q40' if matmul else ''}"] += n_l
@@ -1063,10 +1363,10 @@ def cast_params(engine, dtype) -> dict:
     return out
 
 
-def graphed_logits(params, h, toks, nxt, n_prompt: int) -> list:
+def graphed_logits(params, h, toks, nxt, n_prompt: int, kv8: bool = False) -> list:
     """The float32 kernel path's prefill (every row, as `parity` runs it)
     and decode step as CUDA graphs (`StepGraphs`, the engine's helper), on
-    a cache of their own: each forward runs eagerly, is captured, and is
+    a cache of their own (int8 when ``kv8``): each forward runs eagerly, is captured, and is
     replayed onto the same cache rows (its own values written again).
     Returns the last row's logits of each, [(eager, replay), ...]."""
     import torch
@@ -1076,7 +1376,7 @@ def graphed_logits(params, h, toks, nxt, n_prompt: int) -> list:
 
     dev = toks.device
     graphs = StepGraphs(dev)
-    cache = init_kv_cache(h, 1, dtype=torch.float32, device=dev)
+    cache = init_kv_cache(h, 1, dtype=torch.int8 if kv8 else torch.float32, device=dev)
     out = []
     for key, tok, pos, mode in ((("prefill", toks.shape[1], False), toks, 0, "all"),
                                 (("step", True), nxt, n_prompt, "last")):
@@ -1130,7 +1430,9 @@ def parity(engine, prompt: list[int]) -> dict:
     compared as above) for the prompt's NLL, kernel path against plain path
     (`chunk_nll`, the engine's score); and the float32 kernel path runs
     again as CUDA graph replays (`graphed_logits`), whose logits must have
-    the eager run's bits."""
+    the eager run's bits. An int8-KV engine's runs all hold their cache in
+    int8 (rows quantized as they are written, the kernels and the plain
+    versions reading the same int8 rows)."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
@@ -1141,6 +1443,7 @@ def parity(engine, prompt: list[int]) -> dict:
     h, dev = engine.header, engine.device
     toks = torch.tensor([prompt], device=dev)
     int8 = isinstance(engine.params["wcls"], Int8Weight)
+    kv8 = engine.kv_dtype == torch.int8
 
     logits, routes, nxt = {}, {}, None
     route = transformer.moe_route
@@ -1169,7 +1472,7 @@ def parity(engine, prompt: list[int]) -> dict:
             plain = kind != KERNEL
             mode = "all" if dtype == torch.float32 else "last"
             try:
-                cache = init_kv_cache(h, 1, dtype=dtype, device=dev)
+                cache = init_kv_cache(h, 1, dtype=torch.int8 if kv8 else dtype, device=dev)
                 pre, cache = forward(params, h, toks, 0, cache, mode, plain=plain,
                                      act_quant=act_quant(dtype, kind, "prefill"))
                 if nxt is None:  # every run decodes the same token
@@ -1183,7 +1486,7 @@ def parity(engine, prompt: list[int]) -> dict:
                 full[kind] = pre
             del cache, params, pre
         params = cast_params(engine, torch.float32)
-        graphed = graphed_logits(params, h, toks, nxt, len(prompt))
+        graphed = graphed_logits(params, h, toks, nxt, len(prompt), kv8)
         del params
     pairs = {
         "f32 kernel vs plain": ((torch.float32, KERNEL), (torch.float32, PLAIN)),
@@ -1242,26 +1545,29 @@ def lane_parity(engine, prompt: list[int]) -> dict:
     """One prefill and one decode step in float32 through the slab path
     (kernels), the pool-native paged path (kernels: the paged stats and
     paged decode kernels through a page table) and the paged path's plain
-    versions, on the engine's weights, into a pool of its own. Returns the
-    logits errors of "lane vs slab" (the same arithmetic: expected 0) and
-    "lane kernel vs plain"."""
+    versions, on the engine's weights, into a pool of its own (caches and
+    pool in the engine's KV dtype when it is int8). Returns the logits
+    errors of "lane vs slab" (the same arithmetic: expected 0) and "lane
+    kernel vs plain"."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
+    from dllama_tpu_torch.ops.kv_cache import new_kv_leaf
 
     h, dev = engine.header, engine.device
     params = cast_params(engine, torch.float32)
     toks = torch.tensor([prompt], device=dev)
     n_blocks = -(-(len(prompt) + 1) // PAGE)
     pt = (1 + torch.arange(n_blocks, device=dev, dtype=torch.int32))[None]
+    kv = torch.int8 if engine.kv_dtype == torch.int8 else torch.float32
     logits = {}
     with torch.inference_mode():
         for name in ("slab", "lane", "lane plain"):
             if name == "slab":
-                cache, kw = init_kv_cache(h, 1, dtype=torch.float32, device=dev), {}
+                cache, kw = init_kv_cache(h, 1, dtype=kv, device=dev), {}
             else:
                 shape = (h.n_layers, n_blocks + 1, h.n_kv_heads, PAGE, h.head_dim)
-                cache = {k: torch.zeros(shape, device=dev) for k in ("k", "v")}
+                cache = {k: new_kv_leaf(shape, kv, dev) for k in ("k", "v")}
                 kw = dict(page_table=pt, plain=name == "lane plain")
             pre, cache = forward(params, h, toks, 0, cache, "last", **kw)
             nxt = pre[:, -1].argmax(-1, keepdim=True)
@@ -1347,16 +1653,20 @@ def _request(url: str, payload: dict) -> dict:
     return dict(content=content, finish=finish, meta=meta, wall=wall)
 
 
-def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict:
+def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
+            kv_dtype: str | None = None) -> dict:
     """The serving phase: the port's lane server (`serve`, in process on
     127.0.0.1:0) over the model file in tmp, 4 lanes, pool page 16, the
-    pool sized by default. Six greedy requests: four at once, then two
+    pool sized by default, in ``kv_dtype`` (None: the engine's bf16;
+    "int8": the int8 pool, whose decode kernel is then
+    paged_flash_decode_kv8). Six greedy requests: four at once, then two
     queued behind them; then each replayed alone. Gates: every request
     ends with stop or length; each concurrent answer equals its solo
     replay (text and token count); the manager counted >= 2 radix hits
-    and >= 1 COW fork; the paged decode kernel launched n_layers times a
-    decode step; lane vs slab and lane kernel vs plain f32 logits <=
-    TOL_E2E. Returns the serving run's launch counts."""
+    and >= 1 COW fork; the pool type's paged decode kernel launched
+    n_layers times a decode step, and no attention kernel but it and the
+    pool type's stats kernel; lane vs slab and lane kernel vs plain f32
+    logits <= TOL_E2E. Returns the serving run's launch counts."""
     import threading
 
     import torch
@@ -1369,7 +1679,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
     mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
     t0 = time.perf_counter()
     engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40",
-                             device=device, batch_size=SERVE_LANES)
+                             device=device, batch_size=SERVE_LANES, kv_dtype=kv_dtype)
     tok = Tokenizer(tp)
     load_s = time.perf_counter() - t0
     h = engine.header
@@ -1444,9 +1754,12 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
     finally:
         srv.shutdown()
         srv.server_close()
-    print(f"== llama-8b q40 serving: {h.n_layers} layers, seq_len {h.seq_len}, "
+    kv_tag = f" kv-{kv_dtype}" if kv_dtype else ""
+    health = srv.state.health_snapshot()["kv"]
+    print(f"== llama-8b q40{kv_tag} serving: {h.n_layers} layers, seq_len {h.seq_len}, "
           f"{SERVE_LANES} lanes, pool {kv.pool.n_pages} pages of {PAGE} rows "
-          f"({nbytes(engine.kv_pool) / 1e9:.3f} GB); {smi}; engine loaded in {load_s:.2f} s")
+          f"({nbytes(engine.kv_pool) / 1e9:.3f} GB, {health['dtype']}, /v1/health page_bytes "
+          f"{health['page_bytes']}); {smi}; engine loaded in {load_s:.2f} s")
     for i, (r, s_) in enumerate(zip(results, solo)):
         ttft = r["meta"]["ttft_ms"]
         dec = (r["wall"] * 1e3 - ttft) / max(r["n"] - 1, 1)
@@ -1470,7 +1783,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
           f"requests; after them {json.dumps(pool)}; radix hits {kv.hits}, "
           f"shared tokens {kv.shared_tokens}, COW forks {kv.pool.stats().cow_forks}, "
           f"evictions {kv.evictions}; torch.cuda.memory_allocated {mem / 1e9:.3f} GB")
-    print(f"serve launches {json.dumps(counts)}; decode steps {steps}")
+    print(f"serve{kv_tag} launches {json.dumps(counts)}; decode steps {steps}")
     print(f"serve graphs: rehearsal captured {rehearsal['lanes']} lane graphs (every "
           f"lane-prefill bucket, the greedy and the sampled block) in {rehearsal['capture_s']:.2f} "
           f"s of capture ({rehearsal['s']:.2f} s with the pool and first uses), pool "
@@ -1480,10 +1793,16 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
             f"serving: rehearsal captured {rehearsal['lanes']} lane graphs")
     require(kv.hits >= 2, f"serving: {kv.hits} radix hits, wanted >= 2")
     require(kv.pool.stats().cow_forks >= 1, "serving: no COW fork")
-    require(counts["paged_flash_decode"] == h.n_layers * steps and steps > 0,
-            f"serving: {counts['paged_flash_decode']} paged decode launches, the steps imply "
+    decode_kernel = "paged_flash_decode_kv8" if kv_dtype == "int8" else "paged_flash_decode"
+    require(counts[decode_kernel] == h.n_layers * steps and steps > 0,
+            f"serving: {counts[decode_kernel]} {decode_kernel} launches, the steps imply "
             f"{h.n_layers * steps}")
-    if device == "cuda":
+    stats = "flash_attention_stats" + ("_kv8" if kv_dtype == "int8" else "")
+    other = [name for name, c in counts.items() if c and "flash" in name
+             and name not in (decode_kernel, stats)]
+    require(counts[stats] > 0 and not other,
+            f"serving: attention launches {counts}, wanted only {stats} and {decode_kernel}")
+    if device == "cuda" and not kv_dtype:
         lanes = lane_profile(engine, PROMPT_TOKENS)
         for side, name in ((True, "graphed"), (False, "eager")):
             host_ms, prof = statistics.median(lanes["host"][side]), lanes["prof"][side]
@@ -1503,7 +1822,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str) -> dict
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
     par = lane_parity(engine, prompt)
     for (step, tag), err in par.items():
-        print(f"parity serving {step} f32 {tag}: logits err {err:.3e}")
+        print(f"parity serving{kv_tag} {step} f32 {tag}: logits err {err:.3e}")
         require(err <= TOL_E2E, f"serving {step}: {tag} err {err:.3e} > {TOL_E2E}")
     return counts
 
@@ -1786,7 +2105,7 @@ def main() -> int:
     rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
-            + check_paged_decode(device, gen) + check_moe(device, gen))
+            + check_paged_decode(device, gen) + check_kv8(device, gen) + check_moe(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -1801,6 +2120,9 @@ def main() -> int:
             note += f"; bits equal to plain {r['plain_equal']}"
         if "int_mm_ms" in r:
             note += f"; torch._int_mm {r['int_mm_ms']:.4f}"
+        if "composite_ms" in r:
+            note += (f" (no single PyTorch call attends over int8 K/V); dequantize + SDPA, two "
+                     f"calls, {r['composite_ms']:.4f}")
         if "identity_bits_equal" in r:
             note += f"; identity table bits equal to the slab kernel {r['identity_bits_equal']}"
         print(
@@ -1819,22 +2141,26 @@ def main() -> int:
             print(f"{model}: depth cut to {n_layers} of {depth} layers (bf16 experts are "
                   f"1.26 GB a layer: the whole model would not fit the card)")
         with tempfile.TemporaryDirectory() as tmp:
-            for weight_format in formats:
+            for spec in formats:
+                weight_format, _, kv_dtype = spec.partition(" kv-")
                 label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
-                                                                weight_format, tmp)
+                                                                weight_format, tmp,
+                                                                kv_dtype or None)
                 counts[label], streams[label] = counts_, tokens
                 gc.collect()
                 torch.cuda.empty_cache()
-            if model == "llama-8b":  # the serving phase, on the same file
-                t0 = time.perf_counter()
-                counts["llama-8b q40 serving"] = serving("cuda", tmp, tok_s.get("llama-8b q40"),
-                                                         smi)
-                print(f"serving phase: {time.perf_counter() - t0:.1f} s")
-                gc.collect()
-                torch.cuda.empty_cache()
+            if model == "llama-8b":  # the serving phase, on the same file, bf16 and int8 KV
+                for kv_dtype in (None, "int8"):
+                    t0 = time.perf_counter()
+                    tag = f" kv-{kv_dtype}" if kv_dtype else ""
+                    counts[f"llama-8b q40{tag} serving"] = serving(
+                        "cuda", tmp, tok_s.get("llama-8b q40"), smi, kv_dtype)
+                    print(f"serving phase{tag}: {time.perf_counter() - t0:.1f} s")
+                    gc.collect()
+                    torch.cuda.empty_cache()
     for label in streams:
-        model, fmt = label.rsplit(" ", 1)
-        if fmt in ("q40i4", "q40i8") and f"{model} q40" in streams:
+        model, fmt = label.split(" ", 1)
+        if fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams:
             a, b = streams[f"{model} q40"], streams[label]
             first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
             print(f"{label} greedy stream equals the q40 one: {a == b}"
@@ -1853,6 +2179,7 @@ def main() -> int:
             max_norm_err=max(r["err"] for r in mine), shape=rep["shape"],
             ms=rep.get("ms"), plain_ms=rep.get("plain_ms"), bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
+            **({"composite_ms": rep["composite_ms"]} if "composite_ms" in rep else {}),
         ))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1861,8 +2188,10 @@ def main() -> int:
     return 0
 
 
-def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str):
-    """Phases 3 and 4 for one model and weight format: the CLI run (graphed),
+def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str,
+             kv_dtype: str | None = None):
+    """Phases 3 and 4 for one model and weight format (and KV dtype, None
+    for the engine's): the CLI run (graphed),
     its launch counts against the shapes', graphs against the eager path
     (`graphs_vs_eager`), on llama-8b q40 the sampled streams, on the q40
     runs of both presets the engine's perplexity, and the parity gates.
@@ -1873,13 +2202,15 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
 
     res = end_to_end(
         "cuda", preset, n_layers, PROMPT_TOKENS, DECODE_TOKENS, 4096, SEED, tmp, weight_format,
+        kv_dtype,
     )
     h, eng = res["header"], res["engine"]
-    label = f"{model} {eng.weight_format}"
+    kv8 = eng.kv_dtype == torch.int8
+    label = f"{model} {eng.weight_format}" + (" kv-int8" if kv8 else "")
     n_dec = res["pred"].n_tokens
     require(n_dec == DECODE_TOKENS, f"{label}: decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
     counts = res["counts"]
-    want = expected_launches(h, len(res["prompt_tokens"]), n_dec, eng.weight_format)
+    want = expected_launches(h, len(res["prompt_tokens"]), n_dec, eng.weight_format, kv8)
     wb = weight_bytes(eng.params, h)
     written = "" if res["write_s"] is None else f"; written in {res['write_s']:.1f} s"
     group = f", int8 group {eng.i8_group}" if eng.i8_group else ""
@@ -1892,6 +2223,9 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
     print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     print(f"on the card after the run: weights {nbytes(eng.params) / 1e9:.3f} GB, "
           f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    bf16_kv = 2 * h.n_layers * h.n_kv_heads * h.seq_len * h.head_dim * 2
+    print(f"kv cache {label}: {nbytes(eng.cache)} B on the card ({eng.kv_dtype}), a bf16 cache "
+          f"of the same rows {bf16_kv} B: {nbytes(eng.cache) / bf16_kv:.4f}x")
     print(f"launches {json.dumps(counts)} expected {json.dumps(want)}")
     for name, c in counts.items():
         require(c == want[name], f"{label} {name}: {c} launches, the shapes imply {want[name]}")

@@ -2,7 +2,7 @@
 
     python -m dllama_tpu_torch inference --model m.m --tokenizer t.t \\
         --prompt "..." --steps 64 [--temperature 0] [--device cuda|cpu]
-        [--weight-format auto|q40|q40i8|q40i4|dense]
+        [--weight-format auto|q40|q40i8|q40i4|dense] [--kv-dtype int8]
     python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
     python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
 
@@ -31,6 +31,9 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tokenizer", required=True)
     p.add_argument("--max-seq-len", type=int, default=0)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
+    p.add_argument("--kv-dtype", default=None, choices=[None, "bf16", "f32", "int8"],
+                   help="int8: per-row quantized KV cache (about half of bf16's bytes); a "
+                   "float type must equal --dtype (default: --dtype)")
     p.add_argument(
         "--weight-format", default="auto", choices=["auto", "q40", "q40i8", "q40i4", "dense"],
         help="q40: int8 values + f16 scales; q40i8: requantized to grouped int8 at load; "
@@ -82,6 +85,7 @@ def load_engine(args):
         weight_format=args.weight_format,
         device=args.device,
         batch_size=args.batch_size,
+        kv_dtype=args.kv_dtype,
     )
     h = engine.header
     print(f"💡 Arch: {h.arch.name}")
@@ -102,6 +106,8 @@ def load_engine(args):
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")
     print(f"💡 WeightFormat: {engine.weight_format}")
+    if engine.kv_dtype != engine.dtype:
+        print(f"💡 KvDtype: {str(engine.kv_dtype).removeprefix('torch.')}")
     if engine.i8_group:
         print(f"💡 Int8Group: {engine.i8_group}")
     if tok.vocab_size != h.vocab_size:

@@ -1,4 +1,5 @@
-// Shared device helpers for the port's kernels (float32 and bfloat16 inputs).
+// Shared device helpers for the port's kernels (float32 and bfloat16 inputs,
+// int8 KV cache values).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +43,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
     const float2 f = __bfloat1622float2(h[j]);
     v[2 * j] = f.x;
     v[2 * j + 1] = f.y;
+  }
+}
+
+// Eight consecutive int8 values as float (the int8 KV cache); p 8-byte aligned.
+__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = static_cast<float>(static_cast<int8_t>(u.x >> (8 * j)));
+    v[4 + j] = static_cast<float>(static_cast<int8_t>(u.y >> (8 * j)));
   }
 }
 

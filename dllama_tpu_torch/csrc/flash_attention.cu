@@ -55,6 +55,25 @@
 // entry's bits. It serves admission chunks that attend to a lane's adopted
 // prefix pages; the JAX engine gathers those pages into a slab view instead
 // (dllama_tpu/runtime/engine.py _paged_gather).
+//
+// The int8 KV cache (C entries `flash_attention_stats_q8` and
+// `flash_attention_stats_paged_q8`, the KV type a template parameter of both
+// bodies) replaces the TPU kernel's QuantKV branch (_flash_stats_kernel
+// quant_kv: int8 tiles and [bs, 1] f32 scale refs, dequantized in f32 on the
+// tile). K/V arrive as int8 rows [.., S, hd] and one f32 scale a row [.., S,
+// 1]: half the tile bytes of bf16, plus 4 B a row. The f32 body dequantizes
+// each staged row in f32 (k8 * ks), the TPU kernel's arithmetic. The bf16
+// body copies each int8 tile and its 64 + 64 scales into an int8 stage of
+// the cp.async ring, then both warpgroups convert the tile into the one
+// swizzled bf16 K and V tile the wgmma descriptors read (int8 values are
+// exact in bf16); K's row scale multiplies the score column after Q K^T,
+// before the mask and the max, and V's row scale multiplies P's column
+// before P is split into its hi and lo parts (l sums the unscaled p), so the
+// result differs from `attention_stats` on the dequantized cache by where
+// the scale multiplies and sum order only. The conversion pass runs between
+// the copy and the products: a later PR can overlap it (PERF.md).
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -69,9 +88,10 @@ constexpr int WARPS = 4;
 constexpr int BT = ROWS * WARPS;      // query rows per block
 constexpr int BS = 32;                // keys per tile (also the page contract's unit)
 
-template <typename T, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_stats_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                   const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                    const int* __restrict__ q_pos0, int s_pos0, const int* __restrict__ pt,
                    int n_blocks, int ps, float* __restrict__ acc_out,
                    float* __restrict__ m_out, float* __restrict__ l_out, int n_t, int n_h,
@@ -95,11 +115,18 @@ flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   // causal frontier of the tile's last real row, in local key rows
   const int last_pos = pos0 + min(BT, n_t - t0) - 1;
   const int n_keys = max(0, min(n_s, last_pos - s_pos0 + 1));
-  const T* kb = k;
-  const T* vb = v;
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;  // the int8 KV cache
+  const KV* kb = k;
+  const KV* vb = v;
+  const float* ksb = k_scale;
+  const float* vsb = v_scale;
   if (!PAGED) {
     kb += (size_t)(b * n_kh + kh) * n_s * HD;
     vb += (size_t)(b * n_kh + kh) * n_s * HD;
+    if constexpr (Q8) {
+      ksb += (size_t)(b * n_kh + kh) * n_s;
+      vsb += (size_t)(b * n_kh + kh) * n_s;
+    }
   }
   const int* pt_b = PAGED ? pt + (size_t)b * n_blocks : nullptr;
   if (PAGED && n_keys > 0) stage_page_ids(Pid[0], pt_b, 0, n_keys, ps, threadIdx.x);
@@ -124,6 +151,15 @@ flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                                  : (size_t)(s0 + r) * HD;
         load8(kb + row + c, kv);
         load8(vb + row + c, vv);
+        if constexpr (Q8) {  // dequantized on the tile in f32, as the TPU kernel does
+          const size_t srow = PAGED ? paged_row(ids, s0, r, ps, kh, n_kh, 1) : (size_t)(s0 + r);
+          const float ks = __ldg(ksb + srow), vs = __ldg(vsb + srow);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            kv[j] *= ks;
+            vv[j] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) kv[j] = vv[j] = 0.f;
@@ -194,9 +230,18 @@ constexpr int TC_BN = 64;              // keys a tile: two 32-row sub-tiles of p
 constexpr int TC_CHUNK = TC_BN * 128;  // bytes of 64 columns of a K or V tile
 
 template <int HD> __host__ __device__ constexpr int tc_tile_bytes() { return TC_BN * HD * 2; }
-// two stages of a K and a V tile, each [HD / 64][TC_BN rows][128 B] swizzled
-template <int HD> __host__ __device__ constexpr int tc_smem_bytes() {
-  return 2 * 2 * tc_tile_bytes<HD>();
+// the int8 cache: a stage holds the int8 K and V tiles [TC_BN][HD] and their
+// f32 row scales [TC_BN] each
+template <int HD> __host__ __device__ constexpr int q8_tile_bytes() { return TC_BN * HD; }
+template <int HD> __host__ __device__ constexpr int q8_stage_bytes() {
+  return 2 * q8_tile_bytes<HD>() + 2 * TC_BN * 4;
+}
+// bf16: two stages of a K and a V tile, each [HD / 64][TC_BN rows][128 B]
+// swizzled; int8: one such K and V tile (converted from the int8 stage in
+// hand), then two int8 stages
+template <typename KV, int HD> __host__ __device__ constexpr int tc_smem_bytes() {
+  return std::is_same<KV, int8_t>::value ? 2 * tc_tile_bytes<HD>() + 2 * q8_stage_bytes<HD>()
+                                         : 2 * 2 * tc_tile_bytes<HD>();
 }
 
 // O[64 x HD] += P[64 x 16] . V[16 x HD], V MN-major: 16 key rows of the tile
@@ -209,16 +254,19 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)
   }
 }
 
-template <int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos0,
+flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                      const KV* __restrict__ v, const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale, const int* __restrict__ q_pos0,
                       int s_pos0, const int* __restrict__ pt, int n_blocks, int ps,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int n_t, int n_h, int n_kh, int n_s,
                       float scale) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;  // the int8 KV cache
   constexpr int KS = HD / 16;  // k16 steps of Q K^T
-  constexpr int CH = HD / 8;   // 16-byte chunks of a K/V row
+  constexpr int CH = HD / 8;   // 16-byte chunks of a bf16 K/V row
+  constexpr int C8 = HD / 16;  // 16-byte chunks of an int8 row
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ int Pid[2][TC_BN];  // page ids of a tile (PAGED), by tile parity
 
@@ -258,36 +306,68 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int last_pos = q_pos0[b] + t0 + min(block_rows, n_t - t0) - 1;
   const int n_keys = max(0, min(n_s, last_pos - s_pos0 + 1));
   const int n_tiles = (n_keys + TC_BN - 1) / TC_BN;
-  const __nv_bfloat16* kb = k;
-  const __nv_bfloat16* vb = v;
+  const KV* kb = k;
+  const KV* vb = v;
+  const float* ksb = k_scale;
+  const float* vsb = v_scale;
   if (!PAGED) {
     kb += (size_t)(b * n_kh + kh) * n_s * HD;
     vb += (size_t)(b * n_kh + kh) * n_s * HD;
+    if constexpr (Q8) {
+      ksb += (size_t)(b * n_kh + kh) * n_s;
+      vsb += (size_t)(b * n_kh + kh) * n_s;
+    }
   }
   const int* pt_b = PAGED ? pt + (size_t)b * n_blocks : nullptr;
+  // the int8 stage of tile j (after the bf16 K and V tiles)
+  auto q8_stage = [&](int j) {
+    return smem + 2 * tc_tile_bytes<HD>() + (j & 1) * q8_stage_bytes<HD>();
+  };
 
   // page ids of tile j into Pid[j & 1]: a warp for each 32-row sub-tile
   auto stage_ids = [&](int j) {
     if (PAGED && tid < 64 && j < n_tiles)
       stage_page_ids(Pid[j & 1] + (tid & 32), pt_b, j * TC_BN + (tid & 32), n_keys, ps, tid & 31);
   };
-  // cp.async of tile j into stage j & 1; rows at or past n_keys are zero-filled
-  auto load_tile = [&](int j) {
-    uint8_t* ks = smem + (j & 1) * 2 * tc_tile_bytes<HD>();
-    uint8_t* vs = ks + tc_tile_bytes<HD>();
+  // the lane row r's offset in tile j's source (page table or slab); 0 past n_keys
+  auto src_row = [&](int j, int r, int hd) -> size_t {
     const int s0 = j * TC_BN;
+    if (s0 + r >= n_keys) return 0;
+    return PAGED ? paged_row(Pid[j & 1] + (r & 32), s0 + (r & 32), r & 31, ps, kh, n_kh, hd)
+                 : (size_t)(s0 + r) * hd;
+  };
+  // cp.async of tile j into stage j & 1; rows at or past n_keys are
+  // zero-filled. bf16: into the swizzled tiles; int8: the rows as they are
+  // and their scales into the int8 stage
+  auto load_tile = [&](int j) {
+    const int s0 = j * TC_BN;
+    if constexpr (Q8) {
+      uint8_t* st = q8_stage(j);
 #pragma unroll
-    for (int i = 0; i < TC_BN * CH / TC_THREADS; ++i) {
-      const int e = tid + TC_THREADS * i, r = e / CH, c = e % CH;
-      const bool ok = s0 + r < n_keys;
-      size_t row = 0;
-      if (ok) {
-        row = PAGED ? paged_row(Pid[j & 1] + (r & 32), s0 + (r & 32), r & 31, ps, kh, n_kh, HD)
-                    : (size_t)(s0 + r) * HD;
+      for (int i = 0; i < TC_BN * C8 / TC_THREADS; ++i) {
+        const int e = tid + TC_THREADS * i, r = e / C8, c = e % C8;
+        const size_t row = src_row(j, r, HD);
+        const bool ok = s0 + r < n_keys;
+        cp_async16(smem_addr(st + r * HD + c * 16), kb + row + c * 16, ok);
+        cp_async16(smem_addr(st + q8_tile_bytes<HD>() + r * HD + c * 16), vb + row + c * 16, ok);
       }
-      const int off = (c >> 3) * TC_CHUNK + sw128(r, c & 7);
-      cp_async16(smem_addr(ks + off), kb + row + c * 8, ok);
-      cp_async16(smem_addr(vs + off), vb + row + c * 8, ok);
+      if (tid < 2 * TC_BN) {
+        const int r = tid % TC_BN;
+        cp_async4(smem_addr(st + 2 * q8_tile_bytes<HD>() + 4 * tid),
+                  (tid < TC_BN ? ksb : vsb) + src_row(j, r, 1), s0 + r < n_keys);
+      }
+    } else {
+      uint8_t* ks = smem + (j & 1) * 2 * tc_tile_bytes<HD>();
+      uint8_t* vs = ks + tc_tile_bytes<HD>();
+#pragma unroll
+      for (int i = 0; i < TC_BN * CH / TC_THREADS; ++i) {
+        const int e = tid + TC_THREADS * i, r = e / CH, c = e % CH;
+        const bool ok = s0 + r < n_keys;
+        const size_t row = src_row(j, r, HD);
+        const int off = (c >> 3) * TC_CHUNK + sw128(r, c & 7);
+        cp_async16(smem_addr(ks + off), kb + row + c * 8, ok);
+        cp_async16(smem_addr(vs + off), vb + row + c * 8, ok);
+      }
     }
   };
 
@@ -307,7 +387,25 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     fence_proxy_async();
     __syncthreads();
     stage_ids(j + 2);  // into the buffer tile j's copy read; used after the barrier below
-    const uint32_t ka = smem_addr(smem + (j & 1) * 2 * tc_tile_bytes<HD>());
+    // the int8 cache: tile j's K and V rows into the bf16 tiles (exact), in
+    // the swizzled layout of the bf16 copies; its row scales stay in the stage
+    const float* k_sc = reinterpret_cast<const float*>(q8_stage(j) + 2 * q8_tile_bytes<HD>());
+    const float* v_sc = k_sc + TC_BN;
+    if constexpr (Q8) {
+      const uint8_t* st = q8_stage(j);
+#pragma unroll
+      for (int i = 0; i < 2 * TC_BN * CH / TC_THREADS; ++i) {
+        const int e = tid + TC_THREADS * i, w = e / (TC_BN * CH), r = (e / CH) % TC_BN, c = e % CH;
+        const uint2 u =
+            *reinterpret_cast<const uint2*>(st + w * q8_tile_bytes<HD>() + r * HD + c * 8);
+        *reinterpret_cast<uint4*>(smem + w * tc_tile_bytes<HD>() + (c >> 3) * TC_CHUNK +
+                                  sw128(r, c & 7)) =
+            make_uint4(s8x2_bf16(u.x), s8x2_bf16(u.x >> 16), s8x2_bf16(u.y), s8x2_bf16(u.y >> 16));
+      }
+      fence_proxy_async();  // the converted tiles made visible to wgmma
+      __syncthreads();
+    }
+    const uint32_t ka = smem_addr(smem + (Q8 ? 0 : (j & 1) * 2 * tc_tile_bytes<HD>()));
     const uint32_t va = ka + tc_tile_bytes<HD>();
 
     // S = Q K^T: k16 step st starts 32 bytes into each swizzled row of its 64-column chunk
@@ -330,7 +428,9 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1, key = key0 + 8 * (i >> 2) + (i & 1);
-      s[i] = key < n_s && s_pos0 + key <= qpos[h] ? s[i] * scale : NEG_INF;
+      float x = s[i];
+      if constexpr (Q8) x *= k_sc[key - j * TC_BN];  // K's row scale on its score column
+      s[i] = key < n_s && s_pos0 + key <= qpos[h] ? x * scale : NEG_INF;
       mx[h] = fmaxf(mx[h], s[i]);
     }
 #pragma unroll
@@ -356,13 +456,20 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // P as A fragments in two bf16 parts: p = hi + lo + O(2^-18 p), no new rounding
+    // P as A fragments in two bf16 parts: p = hi + lo + O(2^-18 p), no new
+    // rounding; the int8 cache's V row scale goes on P's column here, after
+    // l took the unscaled sum
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const float x0 = s[8 * kk + 2 * f], x1 = s[8 * kk + 2 * f + 1];
+        float x0 = s[8 * kk + 2 * f], x1 = s[8 * kk + 2 * f + 1];
+        if constexpr (Q8) {
+          const float* w = v_sc + 8 * ((8 * kk + 2 * f) >> 2) + 2 * tq;
+          x0 *= w[0];
+          x1 *= w[1];
+        }
         ph[kk][f] = pack_bf16(x0, x1);
         const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ph[kk][f]));
         pl[kk][f] = pack_bf16(x0 - hi.x, x1 - hi.y);
@@ -399,76 +506,87 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 }
 
-template <int HD, bool PAGED>
-void launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-               const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
-               float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, float scale,
-               cudaStream_t s) {
-  constexpr int smem = tc_smem_bytes<HD>();
-  cudaFuncSetAttribute(flash_stats_tc_kernel<HD, PAGED>,
+template <typename KV, int HD, bool PAGED>
+void launch_tc(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
+               const float* vsc, const int* q_pos0, int s_pos0, const int* pt, int n_blocks,
+               int ps, float* acc, float* m, float* l, int n_b, int n_t, int n_h, int n_kh,
+               int n_s, float scale, cudaStream_t s) {
+  constexpr int smem = tc_smem_bytes<KV, HD>();
+  cudaFuncSetAttribute(flash_stats_tc_kernel<KV, HD, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int rows = 64 / (n_h / n_kh) * TC_WG;  // query rows a block
   const dim3 grid(n_kh, n_b, (n_t + rows - 1) / rows);
-  flash_stats_tc_kernel<HD, PAGED><<<grid, TC_THREADS, smem, s>>>(
-      q, k, v, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s, scale);
+  flash_stats_tc_kernel<KV, HD, PAGED><<<grid, TC_THREADS, smem, s>>>(
+      q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
+      scale);
 }
 
-template <int HD, bool PAGED>
-void launch_hd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+template <typename KV, int HD, bool PAGED>
+void launch_hd(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
+               const float* vsc, const int* q_pos0, int s_pos0, const int* pt, int n_blocks,
+               int ps, float* acc, float* m, float* l, int n_b, int n_t, int n_h, int n_kh,
+               int n_s, float scale, cudaStream_t s) {
+  launch_tc<KV, HD, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b,
+                           n_t, n_h, n_kh, n_s, scale, s);
+}
+template <typename KV, int HD, bool PAGED>
+void launch_hd(const float* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
                const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
                float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, float scale,
                cudaStream_t s) {
-  launch_tc<HD, PAGED>(q, k, v, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h,
-                       n_kh, n_s, scale, s);
-}
-template <int HD, bool PAGED>
-void launch_hd(const float* q, const float* k, const float* v, const int* q_pos0, int s_pos0,
-               const int* pt, int n_blocks, int ps, float* acc, float* m, float* l, int n_b,
-               int n_t, int n_h, int n_kh, int n_s, float scale, cudaStream_t s) {
   const dim3 grid((n_t + BT - 1) / BT, n_h, n_b);
-  flash_stats_kernel<float, HD, PAGED><<<grid, WARPS * 32, 0, s>>>(
-      q, k, v, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s, scale);
+  flash_stats_kernel<float, KV, HD, PAGED><<<grid, WARPS * 32, 0, s>>>(
+      q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
+      scale);
 }
 
-template <typename T, bool PAGED>
-int launch(const T* q, const T* k, const T* v, const int* q_pos0, int s_pos0, const int* pt,
-           int n_blocks, int ps, float* acc, float* m, float* l, int n_b, int n_t, int n_h,
-           int n_kh, int n_s, int hd, float scale, cudaStream_t s) {
+template <typename T, typename KV, bool PAGED>
+int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
+           const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
+           float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
+           cudaStream_t s) {
   if (n_h % n_kh != 0 || n_h / n_kh > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (PAGED && (ps < 1 || (ps < BS ? BS % ps : ps % BS))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd == 128) {
-    launch_hd<128, PAGED>(q, k, v, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h,
-                          n_kh, n_s, scale, s);
+    launch_hd<KV, 128, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+                              n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else if (hd == 64) {
-    launch_hd<64, PAGED>(q, k, v, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h,
-                         n_kh, n_s, scale, s);
+    launch_hd<KV, 64, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+                             n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool PAGED>
-int dispatch(const void* q, const void* k, const void* v, const void* q_pos0, int s_pos0,
-             const void* pt, int n_blocks, int ps, void* acc, void* m, void* l, int n_b,
-             int n_t, int n_h, int n_kh, int n_s, int hd, float scale, int bf16, void* stream) {
+// Q8: k and v are the int8 cache's values, ksc and vsc its f32 row scales
+// (the cache's shape with a last dim of 1); else k and v are in q's type
+template <bool PAGED, bool Q8>
+int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
+             const void* q_pos0, int s_pos0, const void* pt, int n_blocks, int ps, void* acc,
+             void* m, void* l, int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
+             int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pos = static_cast<const int*>(q_pos0);
   const int* t = static_cast<const int*>(pt);
+  const float* ks = static_cast<const float*>(ksc);
+  const float* vs = static_cast<const float*>(vsc);
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
   if (bf16) {
     using B = __nv_bfloat16;
-    return launch<B, PAGED>(static_cast<const B*>(q), static_cast<const B*>(k),
-                            static_cast<const B*>(v), pos, s_pos0, t, n_blocks, ps, a, mm, ll,
-                            n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
+    using KV = typename std::conditional<Q8, int8_t, B>::type;
+    return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
+                                static_cast<const KV*>(v), ks, vs, pos, s_pos0, t, n_blocks, ps,
+                                a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
   }
-  return launch<float, PAGED>(static_cast<const float*>(q), static_cast<const float*>(k),
-                              static_cast<const float*>(v), pos, s_pos0, t, n_blocks, ps, a, mm,
-                              ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
+  using KV = typename std::conditional<Q8, int8_t, float>::type;
+  return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
+                                  static_cast<const KV*>(v), ks, vs, pos, s_pos0, t, n_blocks,
+                                  ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
 }
 
 }  // namespace
@@ -480,8 +598,8 @@ extern "C" int flash_attention_stats(const void* q, const void* k, const void* v
                                      const void* q_pos0, int s_pos0, void* acc, void* m,
                                      void* l, int n_b, int n_t, int n_h, int n_kh, int n_s,
                                      int hd, float scale, int bf16, void* stream) {
-  return dispatch<false>(q, k, v, q_pos0, s_pos0, nullptr, 0, 0, acc, m, l, n_b, n_t, n_h, n_kh,
-                         n_s, hd, scale, bf16, stream);
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, q_pos0, s_pos0, nullptr, 0, 0, acc, m,
+                                l, n_b, n_t, n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
 // The same over k/v pages [P, KH, ps, hd] read through page_table int32
@@ -492,6 +610,32 @@ extern "C" int flash_attention_stats_paged(const void* q, const void* k_pages,
                                            const void* q_pos0, void* acc, void* m, void* l,
                                            int n_b, int n_t, int n_h, int n_kh, int n_blocks,
                                            int ps, int hd, float scale, int bf16, void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, q_pos0, 0, page_table, n_blocks, ps, acc, m, l, n_b,
-                        n_t, n_h, n_kh, n_blocks * ps, hd, scale, bf16, stream);
+  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, q_pos0, 0, page_table,
+                               n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh, n_blocks * ps, hd,
+                               scale, bf16, stream);
+}
+
+// flash_attention_stats over the int8 cache: k/v int8 [B, KH, S, hd] with
+// f32 row scales k_scale/v_scale [B, KH, S, 1]; q bf16 when bf16 else f32.
+extern "C" int flash_attention_stats_q8(const void* q, const void* k, const void* k_scale,
+                                        const void* v, const void* v_scale, const void* q_pos0,
+                                        int s_pos0, void* acc, void* m, void* l, int n_b,
+                                        int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
+                                        int bf16, void* stream) {
+  return dispatch<false, true>(q, k, v, k_scale, v_scale, q_pos0, s_pos0, nullptr, 0, 0, acc, m,
+                               l, n_b, n_t, n_h, n_kh, n_s, hd, scale, bf16, stream);
+}
+
+// flash_attention_stats_paged over an int8 pool: pages int8 [P, KH, ps, hd]
+// with f32 row scales [P, KH, ps, 1].
+extern "C" int flash_attention_stats_paged_q8(const void* q, const void* k_pages,
+                                              const void* k_scale, const void* v_pages,
+                                              const void* v_scale, const void* page_table,
+                                              const void* q_pos0, void* acc, void* m, void* l,
+                                              int n_b, int n_t, int n_h, int n_kh, int n_blocks,
+                                              int ps, int hd, float scale, int bf16,
+                                              void* stream) {
+  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, q_pos0, 0, page_table,
+                              n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh, n_blocks * ps, hd,
+                              scale, bf16, stream);
 }

@@ -59,6 +59,23 @@
 // frontier and never reads a page-table slot past it (unfilled slots point
 // at the scratch page 0). Everything else is the same code, so with an
 // identity page table the paged entry gives flash_decode's bits.
+//
+// The int8 KV cache (C entries `flash_decode_q8` and `paged_flash_decode_q8`,
+// the KV type a template parameter of both bodies): K/V rows stream through
+// the same ring as int8 (hd / 16 chunks a row: 8 at hd 128, 4 at hd 64, the
+// 64-byte rows swizzled by row pair), each tile's 32 K and 32 V f32 row
+// scales with it (4-byte cp.async, zero-filled past the frontier like the
+// rows). The paged entry replaces the TPU kernel's QuantKV branch
+// (_paged_decode_kernel quant_kv); the slab entry is the port's own route,
+// where the JAX engine decodes an int8 slab with dequant_kv and XLA
+// attention (dllama_tpu/models/transformer.py). The CUDA-core body reads
+// the int8 values as floats and scales each score by K's row scale and
+// each probability by V's. The tensor-core body builds its fragments from
+// int8 in registers (ldmatrix cannot convert): a K fragment is one 32-bit
+// word of a key row (the query's dims taken in the matching order, 16 s +
+// 4 tq .. + 3), a V fragment four bytes of four key rows; K's scales go on
+// the score columns before the mask, V's on P's columns before the hi / lo
+// split, and l sums the unscaled p. Bytes: 2 * KH * (pos + 1) * (hd + 4) B.
 
 #include <cooperative_groups.h>
 
@@ -76,17 +93,26 @@ constexpr int CLUSTER = 8;  // blocks a (KV head, lane): the portable cluster si
 constexpr int STAGES = 2;  // cp.async ring depth of a split
 constexpr int SMEM_BUDGET = 227 * 1024;  // dynamic shared memory a block may take
 
-template <typename T, int HD> struct Tile {
-  static constexpr int ROW = HD * (int)sizeof(T);  // bytes of a K/V row
-  static constexpr int CH = ROW / 16;              // 16-byte chunks a row
-  static constexpr int EPC = 16 / (int)sizeof(T);  // elements a chunk
-  static constexpr int BYTES = BS * ROW;           // a K or a V tile
-  static constexpr int STATE = HD + 2;             // m, l and acc of a head, f32
-  // bytes of the tile ring ([n_split][STAGES][K, V]), which the splits'
+template <typename KV, int HD> struct Tile {
+  static constexpr bool Q8 = std::is_same<KV, int8_t>::value;  // the int8 KV cache
+  static constexpr int ROW = HD * (int)sizeof(KV);  // bytes of a K/V row
+  static constexpr int CH = ROW / 16;               // 16-byte chunks a row
+  static constexpr int EPC = 16 / (int)sizeof(KV);  // elements a chunk
+  static constexpr int BYTES = BS * ROW;            // a K or a V tile
+  static constexpr int SCALES = Q8 ? BS * 4 : 0;    // a K or a V tile's f32 row scales
+  static constexpr int STAGE = 2 * (BYTES + SCALES);  // K tile, V tile, K scales, V scales
+  static constexpr int STATE = HD + 2;              // m, l and acc of a head, f32
+  // byte offset of chunk c in row r: XOR-swizzled by row so that eight
+  // rows read at one chunk lie on distinct banks; rows narrower than 128
+  // bytes (int8 at hd 64: 4 chunks) swizzle by the row pair
+  __host__ __device__ static constexpr int at(int r, int c) {
+    return (CH >= 8 ? c ^ (r & 7) : c ^ ((r * CH / 8) & (CH - 1))) << 4;
+  }
+  // bytes of the tile ring ([n_split][STAGES] stages), which the splits'
   // merge reuses
   __host__ __device__ static constexpr int area(int n_split, int g_n) {
-    return ((n_split * STAGES * 2 * BYTES > n_split * g_n * STATE * 4
-                 ? n_split * STAGES * 2 * BYTES
+    return ((n_split * STAGES * STAGE > n_split * g_n * STATE * 4
+                 ? n_split * STAGES * STAGE
                  : n_split * g_n * STATE * 4) +
             15) & ~15;
   }
@@ -112,30 +138,52 @@ __device__ __forceinline__ void chunk_floats(const uint8_t* p, float (&f)[8]) {
     f[2 * j + 1] = x.y;
   }
 }
+__device__ __forceinline__ void chunk_floats(const uint8_t* p, float (&f)[16]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) f[j] = static_cast<float>(static_cast<int8_t>(w[j >> 2] >> (8 * (j & 3))));
+}
 __device__ __forceinline__ float2 pair_floats(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 pair_floats(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 pair_floats(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(c.x, c.y);
+}
 
-// cp.async of the 32-row K/V tile at lane row s0 into ks (K, then V at ks +
-// BYTES) by n threads, this one i: 16-byte chunk c of row r lands at chunk
-// c ^ (r % 8) of its row (conflict-free both for a lane reading its own row
-// and for ldmatrix); rows at or past n_keys are zero-filled, never read
-template <typename T, int HD, bool PAGED>
-__device__ __forceinline__ void load_tile(uint8_t* ks, const T* kb, const T* vb, const int* ids,
+// cp.async of the 32-row K/V tile at lane row s0 into the stage st (K, then
+// V at st + BYTES; for the int8 cache the tile's K and V row scales after
+// them, from ksb and vsb) by n threads, this one i: 16-byte chunk c of row r
+// lands at Tile::at(r, c) of its row (conflict-free both for a lane reading
+// its own row and for the fragment reads); rows at or past n_keys, and their
+// scales, are zero-filled, never read
+template <typename KV, int HD, bool PAGED>
+__device__ __forceinline__ void load_tile(uint8_t* st, const KV* kb, const KV* vb,
+                                          const float* ksb, const float* vsb, const int* ids,
                                           int s0, int n_keys, int ps, int kh, int n_kh, int i,
                                           int n) {
-  using TL = Tile<T, HD>;
+  using TL = Tile<KV, HD>;
   for (int e = i; e < BS * TL::CH; e += n) {
     const int r = e / TL::CH, c = e % TL::CH;
     const bool ok = s0 + r < n_keys;
     size_t row = 0;
     if (ok) row = PAGED ? paged_row(ids, s0, r, ps, kh, n_kh, HD) : (size_t)(s0 + r) * HD;
-    const int off = r * TL::ROW + ((c ^ (r & 7)) << 4);
-    cp_async16(smem_addr(ks + off), kb + row + c * TL::EPC, ok);
-    cp_async16(smem_addr(ks + TL::BYTES + off), vb + row + c * TL::EPC, ok);
+    const int off = r * TL::ROW + TL::at(r, c);
+    cp_async16(smem_addr(st + off), kb + row + c * TL::EPC, ok);
+    cp_async16(smem_addr(st + TL::BYTES + off), vb + row + c * TL::EPC, ok);
+  }
+  if constexpr (TL::Q8) {
+    for (int r = i; r < BS; r += n) {
+      const bool ok = s0 + r < n_keys;
+      size_t row = 0;
+      if (ok) row = PAGED ? paged_row(ids, s0, r, ps, kh, n_kh, 1) : (size_t)(s0 + r);
+      cp_async4(smem_addr(st + 2 * TL::BYTES + 4 * r), ksb + row, ok);
+      cp_async4(smem_addr(st + 2 * TL::BYTES + TL::SCALES + 4 * r), vsb + row, ok);
+    }
   }
 }
 
@@ -204,13 +252,14 @@ __device__ __forceinline__ void merge_store(const float* Ms, const float* Ls, co
 
 // ---- the CUDA-core body: f32 inputs, and bf16 with more than 16 heads a KV head ----
 
-template <typename T, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(1024)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                     const int* __restrict__ pos, int s_pos0, const int* __restrict__ pt,
                     int n_blocks, int ps, T* __restrict__ out, int n_h, int n_kh, int n_s,
                     float scale, int n_split) {
-  using TL = Tile<T, HD>;
+  using TL = Tile<KV, HD>;
   constexpr int DPL = HD / 32;  // output dims a lane
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -231,11 +280,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int n_keys = max(0, min(n_s, limit + 1));
   const int n_tiles = (n_keys + BS - 1) / BS;
   const int lo = rank * n_tiles / CLUSTER, hi = (rank + 1) * n_tiles / CLUSTER;  // its tiles
-  const T* kb = k;
-  const T* vb = v;
+  const KV* kb = k;
+  const KV* vb = v;
+  const float* ksb = k_scale;
+  const float* vsb = v_scale;
   if (!PAGED) {
     kb += (size_t)(b * n_kh + kh) * n_s * HD;
     vb += (size_t)(b * n_kh + kh) * n_s * HD;
+    if constexpr (TL::Q8) {
+      ksb += (size_t)(b * n_kh + kh) * n_s;
+      vsb += (size_t)(b * n_kh + kh) * n_s;
+    }
   }
   const int* pt_b = PAGED ? pt + (size_t)b * n_blocks : nullptr;
 
@@ -243,21 +298,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   // and page-id buffer it % STAGES
   auto tile_of = [&](int it) { return lo + it * n_split + split; };
   auto ids_of = [&](int it) { return Pid + ((it % STAGES) * n_split + split) * BS; };
-  auto stage_of = [&](int it) { return ring + (split * STAGES + it % STAGES) * 2 * TL::BYTES; };
+  auto stage_of = [&](int it) { return ring + (split * STAGES + it % STAGES) * TL::STAGE; };
   auto stage_ids = [&](int it) {
     if (PAGED && tile_of(it) < hi)
       stage_page_ids(ids_of(it), pt_b, tile_of(it) * BS, n_keys, ps, tid_g);
   };
   auto load = [&](int it) {
     if (tile_of(it) < hi)
-      load_tile<T, HD, PAGED>(stage_of(it), kb, vb, ids_of(it), tile_of(it) * BS, n_keys, ps, kh,
-                              n_kh, tid_g, group_threads);
+      load_tile<KV, HD, PAGED>(stage_of(it), kb, vb, ksb, vsb, ids_of(it), tile_of(it) * BS,
+                               n_keys, ps, kh, n_kh, tid_g, group_threads);
   };
 
   float m = NEG_INF, l = 0.f, acc[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  const int v_off = lane * DPL * (int)sizeof(T);  // byte of this lane's dims in a V row
+  const int v_off = lane * DPL * (int)sizeof(KV);  // byte of this lane's dims in a V row
 
   for (int it = 0; it < STAGES; ++it) stage_ids(it);
   __syncthreads();  // Qs and the first page ids
@@ -276,16 +331,20 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (t < hi) {
       const uint8_t* ks = stage_of(it);
       const uint8_t* vs = ks + TL::BYTES;
+      // the int8 cache's row scales: K's on the score, V's on the probability
+      const float* k_sc = reinterpret_cast<const float*>(ks + 2 * TL::BYTES);
+      const float* v_sc = k_sc + BS;
       const uint8_t* kr = ks + lane * TL::ROW;
       const float* qg = Qs + g * HD;
       float s = 0.f;
 #pragma unroll
       for (int c = 0; c < TL::CH; ++c) {
         float f[TL::EPC];
-        chunk_floats(kr + ((c ^ (lane & 7)) << 4), f);
+        chunk_floats(kr + TL::at(lane, c), f);
 #pragma unroll
         for (int e = 0; e < TL::EPC; ++e) s = fmaf(qg[c * TL::EPC + e], f[e], s);
       }
+      if constexpr (TL::Q8) s *= k_sc[lane];
       const int key = t * BS + lane;
       const bool visible = key < n_s && key <= limit;
       float alpha;
@@ -294,9 +353,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
 #pragma unroll 4
       for (int j = 0; j < BS; ++j) {
-        const float pj = __shfl_sync(FULL_MASK, p, j);
-        const T* vr = reinterpret_cast<const T*>(
-            vs + j * TL::ROW + ((((v_off >> 4) ^ (j & 7))) << 4) + (v_off & 15));
+        float pj = __shfl_sync(FULL_MASK, p, j);
+        if constexpr (TL::Q8) pj *= v_sc[j];
+        const KV* vr = reinterpret_cast<const KV*>(vs + j * TL::ROW + TL::at(j, v_off >> 4) +
+                                                   (v_off & 15));
 #pragma unroll
         for (int i = 0; i < DPL / 2; ++i) {
           const float2 f = pair_floats(vr + 2 * i);
@@ -339,15 +399,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
-template <int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MMA_WARPS * 32)
-flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                        const KV* __restrict__ v, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, const int* __restrict__ pos,
                         int s_pos0, const int* __restrict__ pt, int n_blocks, int ps,
                         __nv_bfloat16* __restrict__ out, int n_h, int n_kh, int n_s,
                         float scale, int n_split) {
   using B16 = __nv_bfloat16;
-  using TL = Tile<B16, HD>;
+  using TL = Tile<KV, HD>;
+  constexpr bool Q8 = TL::Q8;
   constexpr int KS = HD / 16;  // k16 steps of q . k
   constexpr int NT = HD / 8;   // 8-column tiles of the output (a 16-byte chunk each)
   extern __shared__ __align__(16) uint8_t smem[];
@@ -360,28 +422,37 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   int* Pid = reinterpret_cast<int*>(R + g_n * TL::STATE);
 
   // the G query heads as m16n8k16 A fragments (rows G .. 15 zero): k16 step
-  // s holds row gq + 8 (f & 1), columns 16 s + 8 (f >> 1) + 2 tq, + 1
+  // s holds row gq + 8 (f & 1) at k 2 tq, + 1 (f < 2) and 2 tq + 8, + 9
+  // (f >= 2). Those k are dims 16 s + 2 tq, + 1 and + 8, + 9; for the int8
+  // cache dims 16 s + 4 tq .. + 3 in that order, so that a lane's K
+  // fragment is the four int8 values of one 32-bit word of a key row (the
+  // sum over dims does not depend on their order)
   uint32_t qa[KS][4];
-  const B16* qb = q + ((size_t)b * n_h + kh * g_n) * HD + 2 * tq;
+  const B16* qb = q + ((size_t)b * n_h + kh * g_n) * HD;
 #pragma unroll
   for (int s = 0; s < KS; ++s)
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       const int row = gq + 8 * (f & 1);
-      qa[s][f] = row < g_n
-                     ? __ldg(reinterpret_cast<const unsigned*>(qb + row * HD + 16 * s + 8 * (f >> 1)))
-                     : 0u;
+      const int col = Q8 ? 16 * s + 4 * tq + 2 * (f >> 1) : 16 * s + 8 * (f >> 1) + 2 * tq;
+      qa[s][f] = row < g_n ? __ldg(reinterpret_cast<const unsigned*>(qb + row * HD + col)) : 0u;
     }
 
   const int limit = pos[b] - s_pos0;  // highest visible local row
   const int n_keys = max(0, min(n_s, limit + 1));
   const int n_tiles = (n_keys + BS - 1) / BS;
   const int lo = rank * n_tiles / CLUSTER, hi = (rank + 1) * n_tiles / CLUSTER;  // its tiles
-  const B16* kb = k;
-  const B16* vb = v;
+  const KV* kb = k;
+  const KV* vb = v;
+  const float* ksb = k_scale;
+  const float* vsb = v_scale;
   if (!PAGED) {
     kb += (size_t)(b * n_kh + kh) * n_s * HD;
     vb += (size_t)(b * n_kh + kh) * n_s * HD;
+    if constexpr (Q8) {
+      ksb += (size_t)(b * n_kh + kh) * n_s;
+      vsb += (size_t)(b * n_kh + kh) * n_s;
+    }
   }
   const int* pt_b = PAGED ? pt + (size_t)b * n_blocks : nullptr;
 
@@ -389,15 +460,15 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   // streams its own tiles through its own ring, so a warp barrier suffices
   auto tile_of = [&](int it) { return lo + it * n_split + warp; };
   auto ids_of = [&](int it) { return Pid + ((it % STAGES) * n_split + warp) * BS; };
-  auto stage_of = [&](int it) { return ring + (warp * STAGES + it % STAGES) * 2 * TL::BYTES; };
+  auto stage_of = [&](int it) { return ring + (warp * STAGES + it % STAGES) * TL::STAGE; };
   auto stage_ids = [&](int it) {
     if (PAGED && tile_of(it) < hi)
       stage_page_ids(ids_of(it), pt_b, tile_of(it) * BS, n_keys, ps, lane);
   };
   auto load = [&](int it) {
     if (tile_of(it) < hi)
-      load_tile<B16, HD, PAGED>(stage_of(it), kb, vb, ids_of(it), tile_of(it) * BS, n_keys, ps,
-                                kh, n_kh, lane, 32);
+      load_tile<KV, HD, PAGED>(stage_of(it), kb, vb, ksb, vsb, ids_of(it), tile_of(it) * BS,
+                               n_keys, ps, kh, n_kh, lane, 32);
   };
 
   // rows gq (h 0) and gq + 8 (h 1): their m, l and output tiles
@@ -420,25 +491,51 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     cp_async_wait<STAGES - 1>();  // this iteration's tile has landed
     __syncwarp();
     stage_ids(it + STAGES);  // into the buffer this tile's copy read; used after a barrier
-    const uint32_t ka = smem_addr(stage_of(it)), va = ka + TL::BYTES;
+    const uint8_t* st = stage_of(it);
+    const uint32_t ka = smem_addr(st), va = ka + TL::BYTES;  // the bf16 fragments' addresses
 
-    // S = Q K^T over the tile's four 8-key column tiles; ldmatrix x4 gives
-    // the K fragments of key tiles 2 np and 2 np + 1 at k16 step s
+    // S = Q K^T over the tile's four 8-key column tiles; bf16: ldmatrix x4
+    // gives the K fragments of key tiles 2 np and 2 np + 1 at k16 step s;
+    // int8: lane (gq, tq) reads the word of dims 16 s + 4 tq .. of key row
+    // 8 j + gq and converts it (exact in bf16)
     float sc[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (Q8) {
 #pragma unroll
-    for (int s = 0; s < KS; ++s)
+      for (int s = 0; s < KS; ++s)
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int r = 16 * np + 8 * (lane >> 4) + (lane & 7), c = 2 * s + ((lane >> 3) & 1);
-        uint32_t kf[4];
-        ldsm_x4(ka + r * TL::ROW + ((c ^ (r & 7)) << 4), kf);
-        mma_bf16(sc[2 * np], qa[s], kf[0], kf[1]);
-        mma_bf16(sc[2 * np + 1], qa[s], kf[2], kf[3]);
+        for (int j = 0; j < 4; ++j) {
+          const int r = 8 * j + gq;
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(st + r * TL::ROW + TL::at(r, s) + 4 * tq);
+          mma_bf16(sc[j], qa[s], s8x2_bf16(w), s8x2_bf16(w >> 16));
+        }
+    } else {
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int r = 16 * np + 8 * (lane >> 4) + (lane & 7), c = 2 * s + ((lane >> 3) & 1);
+          uint32_t kf[4];
+          ldsm_x4(ka + r * TL::ROW + TL::at(r, c), kf);
+          mma_bf16(sc[2 * np], qa[s], kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qa[s], kf[2], kf[3]);
+        }
+    }
+    // the int8 cache's row scales of this lane's keys 8 j + 2 tq, + 1: K's
+    // on the score, V's on the probability (not on l)
+    float2 k_sc[4], v_sc[4];
+    if constexpr (Q8) {
+      const float* sk = reinterpret_cast<const float*>(st + 2 * TL::BYTES);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        k_sc[j] = *reinterpret_cast<const float2*>(sk + 8 * j + 2 * tq);
+        v_sc[j] = *reinterpret_cast<const float2*>(sk + BS + 8 * j + 2 * tq);
       }
+    }
 
     // the online softmax with the JAX kernel's guards (common.cuh
     // online_softmax): sc[j][e] is row h = e >> 1, key 8 j + 2 tq + (e & 1)
@@ -449,7 +546,9 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + 8 * j + (e & 1);
-        sc[j][e] = key < n_s && key <= limit ? sc[j][e] * scale : NEG_INF;
+        float x = sc[j][e];
+        if constexpr (Q8) x *= (e & 1) ? k_sc[j].y : k_sc[j].x;
+        sc[j][e] = key < n_s && key <= limit ? x * scale : NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
       }
 #pragma unroll
@@ -486,27 +585,48 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const float x0 = sc[2 * kk + (f >> 1)][2 * (f & 1)];
-        const float x1 = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+        float x0 = sc[2 * kk + (f >> 1)][2 * (f & 1)];
+        float x1 = sc[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+        if constexpr (Q8) {
+          x0 *= v_sc[2 * kk + (f >> 1)].x;
+          x1 *= v_sc[2 * kk + (f >> 1)].y;
+        }
         ph[kk][f] = pack_bf16(x0, x1);
         const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ph[kk][f]));
         pl[kk][f] = pack_bf16(x0 - hi.x, x1 - hi.y);
       }
 
-    // O += P V; ldmatrix x4 .trans gives the V fragments of output tiles
-    // 2 np and 2 np + 1 at k16 step kk
+    // O += P V; bf16: ldmatrix x4 .trans gives the V fragments of output
+    // tiles 2 np and 2 np + 1 at k16 step kk; int8: lane (gq, tq) reads dim
+    // 8 n + gq of key rows 16 kk + 2 tq, + 1, + 8, + 9 (one byte each)
+    if constexpr (Q8) {
+      const int8_t* vt = reinterpret_cast<const int8_t*>(st + TL::BYTES);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+      for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        const int r = 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7), c = 2 * np + (lane >> 4);
-        uint32_t vf[4];
-        ldsm_x4_trans(va + r * TL::ROW + ((c ^ (r & 7)) << 4), vf);
-        mma_bf16(o[2 * np], ph[kk], vf[0], vf[1]);
-        mma_bf16(o[2 * np], pl[kk], vf[0], vf[1]);
-        mma_bf16(o[2 * np + 1], ph[kk], vf[2], vf[3]);
-        mma_bf16(o[2 * np + 1], pl[kk], vf[2], vf[3]);
-      }
+        for (int n = 0; n < NT; ++n) {
+          const int d = 8 * n + gq, r = 16 * kk + 2 * tq;
+          auto val = [&](int rr) {
+            return static_cast<float>(vt[rr * TL::ROW + TL::at(rr, d >> 4) + (d & 15)]);
+          };
+          const uint32_t b0 = pack_bf16(val(r), val(r + 1)), b1 = pack_bf16(val(r + 8), val(r + 9));
+          mma_bf16(o[n], ph[kk], b0, b1);
+          mma_bf16(o[n], pl[kk], b0, b1);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int r = 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7), c = 2 * np + (lane >> 4);
+          uint32_t vf[4];
+          ldsm_x4_trans(va + r * TL::ROW + TL::at(r, c), vf);
+          mma_bf16(o[2 * np], ph[kk], vf[0], vf[1]);
+          mma_bf16(o[2 * np], pl[kk], vf[0], vf[1]);
+          mma_bf16(o[2 * np + 1], ph[kk], vf[2], vf[3]);
+          mma_bf16(o[2 * np + 1], pl[kk], vf[2], vf[3]);
+        }
+    }
     __syncwarp();  // the stage consumed, the page ids staged
   }
   cp_async_wait<0>();
@@ -532,9 +652,9 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                        cluster);
 }
 
-template <int HD, bool PAGED>
-int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-               const int* pos, int s_pos0, const int* pt, int n_blocks, int ps,
+template <typename KV, int HD, bool PAGED>
+int launch_mma(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
+               const float* vsc, const int* pos, int s_pos0, const int* pt, int n_blocks, int ps,
                __nv_bfloat16* out, int n_b, int n_h, int n_kh, int n_s, float scale,
                cudaStream_t s) {
   // four warps a block while the clusters are few (batch 1); three past
@@ -543,28 +663,28 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat
   // ~500 take 0.0271 / 0.0193 ms at KH 8 / 4 with three, 0.0350 / 0.0286
   // with four; one lane at pos 4095 0.0188 with four, 0.0220 with three)
   const int n_split = n_b * n_kh <= 8 ? MMA_WARPS : MMA_WARPS - 1;
-  const int bytes = Tile<__nv_bfloat16, HD>::smem(n_split, n_h / n_kh);
+  const int bytes = Tile<KV, HD>::smem(n_split, n_h / n_kh);
   static int configured = 0;
   if (bytes > configured) {
-    cudaFuncSetAttribute(flash_decode_mma_kernel<HD, PAGED>,
+    cudaFuncSetAttribute(flash_decode_mma_kernel<KV, HD, PAGED>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     configured = bytes;
   }
-  flash_decode_mma_kernel<HD, PAGED><<<dim3(CLUSTER * n_kh, n_b), n_split * 32, bytes, s>>>(
-      q, k, v, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
+  flash_decode_mma_kernel<KV, HD, PAGED><<<dim3(CLUSTER * n_kh, n_b), n_split * 32, bytes, s>>>(
+      q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD, bool PAGED>
-int launch_hd(const T* q, const T* k, const T* v, const int* pos, int s_pos0, const int* pt,
-              int n_blocks, int ps, T* out, int n_b, int n_h, int n_kh, int n_s, float scale,
-              cudaStream_t s) {
-  using TL = Tile<T, HD>;
+template <typename T, typename KV, int HD, bool PAGED>
+int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
+              const int* pos, int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b,
+              int n_h, int n_kh, int n_s, float scale, cudaStream_t s) {
+  using TL = Tile<KV, HD>;
   const int g_n = n_h / n_kh;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (g_n <= 16) {
-      return launch_mma<HD, PAGED>(q, k, v, pos, s_pos0, pt, n_blocks, ps, out, n_b, n_h, n_kh,
-                                   n_s, scale, s);
+      return launch_mma<KV, HD, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+                                       n_b, n_h, n_kh, n_s, scale, s);
     }
   }
   int n_split = max(1, min(4, 32 / g_n));
@@ -572,50 +692,57 @@ int launch_hd(const T* q, const T* k, const T* v, const int* pos, int s_pos0, co
   const int bytes = TL::smem(n_split, g_n);
   static int configured = 0;
   if (bytes > configured) {
-    cudaFuncSetAttribute(flash_decode_kernel<T, HD, PAGED>,
+    cudaFuncSetAttribute(flash_decode_kernel<T, KV, HD, PAGED>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     configured = bytes;
   }
-  flash_decode_kernel<T, HD, PAGED><<<dim3(CLUSTER * n_kh, n_b), n_split * g_n * 32, bytes, s>>>(
-      q, k, v, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
+  flash_decode_kernel<T, KV, HD, PAGED>
+      <<<dim3(CLUSTER * n_kh, n_b), n_split * g_n * 32, bytes, s>>>(
+          q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PAGED>
-int launch(const T* q, const T* k, const T* v, const int* pos, int s_pos0, const int* pt,
-           int n_blocks, int ps, T* out, int n_b, int n_h, int n_kh, int n_s, int hd,
-           float scale, cudaStream_t s) {
+template <typename T, typename KV, bool PAGED>
+int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
+           const int* pos, int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b,
+           int n_h, int n_kh, int n_s, int hd, float scale, cudaStream_t s) {
   if (n_h % n_kh != 0 || n_h / n_kh > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (PAGED && (ps < 1 || (ps < BS ? BS % ps : ps % BS))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd == 128) {
-    return launch_hd<T, 128, PAGED>(q, k, v, pos, s_pos0, pt, n_blocks, ps, out, n_b, n_h, n_kh,
-                                    n_s, scale, s);
+    return launch_hd<T, KV, 128, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+                                        n_b, n_h, n_kh, n_s, scale, s);
   }
   if (hd == 64) {
-    return launch_hd<T, 64, PAGED>(q, k, v, pos, s_pos0, pt, n_blocks, ps, out, n_b, n_h, n_kh,
-                                   n_s, scale, s);
+    return launch_hd<T, KV, 64, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+                                       n_b, n_h, n_kh, n_s, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PAGED>
-int dispatch(const void* q, const void* k, const void* v, const void* pos, int s_pos0,
-             const void* pt, int n_blocks, int ps, void* out, int n_b, int n_h, int n_kh,
-             int n_s, int hd, float scale, int bf16, void* stream) {
+// Q8: k and v are the int8 cache's values, ksc and vsc its f32 row scales
+// (the cache's shape with a last dim of 1); else k and v are in q's type
+template <bool PAGED, bool Q8>
+int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
+             const void* pos, int s_pos0, const void* pt, int n_blocks, int ps, void* out,
+             int n_b, int n_h, int n_kh, int n_s, int hd, float scale, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* t = static_cast<const int*>(pt);
+  const float* ks = static_cast<const float*>(ksc);
+  const float* vs = static_cast<const float*>(vsc);
   if (bf16) {
     using B = __nv_bfloat16;
-    return launch<B, PAGED>(static_cast<const B*>(q), static_cast<const B*>(k),
-                            static_cast<const B*>(v), p, s_pos0, t, n_blocks, ps,
-                            static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
+    using KV = typename std::conditional<Q8, int8_t, B>::type;
+    return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
+                                static_cast<const KV*>(v), ks, vs, p, s_pos0, t, n_blocks, ps,
+                                static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
   }
-  return launch<float, PAGED>(static_cast<const float*>(q), static_cast<const float*>(k),
-                              static_cast<const float*>(v), p, s_pos0, t, n_blocks, ps,
-                              static_cast<float*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
+  using KV = typename std::conditional<Q8, int8_t, float>::type;
+  return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
+                                  static_cast<const KV*>(v), ks, vs, p, s_pos0, t, n_blocks, ps,
+                                  static_cast<float*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
 }
 
 }  // namespace
@@ -626,8 +753,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* pos, int s
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* pos,
                             int s_pos0, void* out, int n_b, int n_h, int n_kh, int n_s, int hd,
                             float scale, int bf16, void* stream) {
-  return dispatch<false>(q, k, v, pos, s_pos0, nullptr, 0, 0, out, n_b, n_h, n_kh, n_s, hd,
-                         scale, bf16, stream);
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, pos, s_pos0, nullptr, 0, 0, out, n_b,
+                                n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
 // q [B, 1, H, hd], k/v pages [P, KH, ps, hd], page_table int32 [B, n_blocks],
@@ -637,6 +764,29 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages, const void
                                   const void* page_table, const void* pos, void* out, int n_b,
                                   int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
                                   int bf16, void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, pos, 0, page_table, n_blocks, ps, out, n_b, n_h,
-                        n_kh, n_blocks * ps, hd, scale, bf16, stream);
+  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, pos, 0, page_table,
+                               n_blocks, ps, out, n_b, n_h, n_kh, n_blocks * ps, hd, scale, bf16,
+                               stream);
+}
+
+// flash_decode over the int8 cache: k/v int8 [B, KH, S, hd] with f32 row
+// scales k_scale/v_scale [B, KH, S, 1]; q and out bf16 when bf16 else f32.
+extern "C" int flash_decode_q8(const void* q, const void* k, const void* k_scale, const void* v,
+                               const void* v_scale, const void* pos, int s_pos0, void* out,
+                               int n_b, int n_h, int n_kh, int n_s, int hd, float scale, int bf16,
+                               void* stream) {
+  return dispatch<false, true>(q, k, v, k_scale, v_scale, pos, s_pos0, nullptr, 0, 0, out, n_b,
+                               n_h, n_kh, n_s, hd, scale, bf16, stream);
+}
+
+// paged_flash_decode over an int8 pool: pages int8 [P, KH, ps, hd] with f32
+// row scales [P, KH, ps, 1]; no row or scale at or past a lane's frontier is read.
+extern "C" int paged_flash_decode_q8(const void* q, const void* k_pages, const void* k_scale,
+                                     const void* v_pages, const void* v_scale,
+                                     const void* page_table, const void* pos, void* out, int n_b,
+                                     int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
+                                     int bf16, void* stream) {
+  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, pos, 0, page_table,
+                              n_blocks, ps, out, n_b, n_h, n_kh, n_blocks * ps, hd, scale, bf16,
+                              stream);
 }

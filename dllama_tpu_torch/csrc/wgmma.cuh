@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (q40_gemm.cuh's prefill tile and GEMV, flash_attention.cu's prefill stats,
 // i8_matmul.cu's tile and GEMV, moe_active.cu's bf16 experts): cp.async
-// copies, mbarriers and TMA tensor copies, the wgmma shared-memory
-// descriptor of the 128-byte swizzle, wgmma with A from registers (bf16) or
+// copies (16 bytes, and 4 for the int8 KV cache's row scales), mbarriers and
+// TMA tensor copies, the wgmma shared-memory descriptor of the 128-byte swizzle, wgmma with A from registers (bf16) or
 // shared memory (int8), its fences, commit and wait_group, and mma.sync
 // m16n8k16 bf16 and m16n8k32 s8.
 #pragma once
@@ -30,6 +30,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// 4 bytes global -> shared (src 4-byte aligned), zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
 }
 // cp.async bytes (generic proxy) made visible to wgmma (async proxy); a
 // barrier must follow before another thread's wgmma reads them
@@ -187,6 +192,12 @@ template <int N> __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round-to-nearest-even, as round_to
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the two low bytes of w as int8 values, exact in bf16: byte 0 in the low half
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t w) {
+  return pack_bf16(static_cast<float>(static_cast<int8_t>(w & 0xff)),
+                   static_cast<float>(static_cast<int8_t>((w >> 8) & 0xff)));
 }
 
 // d[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 sums (mma.sync, one

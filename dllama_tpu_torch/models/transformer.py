@@ -14,6 +14,11 @@ are ``QuantWeight`` (q40), ``PackedQuantWeight`` (q40i4) or ``Int8Weight``
 (q40i8), each with its CUDA kernel on the card, or dense [out, in]
 tensors. The KV cache is head-major, [L, B, KH, S, hd], and is updated in
 place (JAX returns a new cache; the port writes the rows where they go).
+With ``torch.int8`` (``--kv-dtype int8``) each leaf is a `QuantKV`: int8
+values and one f32 scale a row [L, B, KH, S, 1]. A chunk's new rows are
+quantized once (`quantize_kv_rows`) and values and scales written by the
+same index ops; the attention kernels read the int8 planes and the scales
+as they are stored (ops/flash_attention.py).
 Qwen3-MoE layers hold ``moe_gate`` [E, D] f32 and stacked experts
 ``w1``/``w3`` [E, F, D] and ``w2`` [E, D, F] in place of the dense FFN.
 
@@ -80,6 +85,7 @@ from ..ops.moe import (
     moe_route,
 )
 from ..ops.int8_matmul import Int8Weight, i8matmul, i8matmul_ref, quantize_acts
+from ..ops.kv_cache import QuantKV, kv_layer, new_kv_leaf, quantize_kv_rows
 from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, qmatmul, qmatmul_i4, qmatmul_ref
 from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
 
@@ -91,13 +97,23 @@ def init_kv_cache(
     h: LlmHeader, batch_size: int, dtype=torch.float32, seq_len: int | None = None, device=None
 ) -> KvCache:
     """Zeroed head-major KV cache [L, B, KH, S, hd] on ``device`` (default
-    ``cuda``; reference: per-layer k/v buffers, src/llm.cpp:260-261)."""
+    ``cuda``; reference: per-layer k/v buffers, src/llm.cpp:260-261).
+    ``torch.int8`` gives QuantKV leaves with scales of ones."""
     device = resolve_device(device)
     shape = (h.n_layers, batch_size, h.n_kv_heads, seq_len or h.seq_len, h.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    return {name: new_kv_leaf(shape, dtype, device) for name in ("k", "v")}
+
+
+def _append(cache_l, val: torch.Tensor, write) -> None:
+    """Write a chunk's rows ``val`` into a cache leaf through ``write(dst,
+    rows)``: an int8 leaf quantizes them once (one scale a row) and takes
+    values and scales through the same writer (JAX's ``_cache_append``)."""
+    if isinstance(cache_l, QuantKV):
+        qv, sv = quantize_kv_rows(val)
+        write(cache_l.q, qv)
+        write(cache_l.s, sv)
+    else:
+        write(cache_l, val.to(cache_l.dtype))
 
 
 # Q40 weight type -> (kernel wrapper, plain version), both -> f32
@@ -262,14 +278,21 @@ def forward(
             k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
         q = apply_rope(q, cos, sin, interleaved)
         k = apply_rope(k, cos, sin, interleaved)
-        k_cache, v_cache = cache["k"][l], cache["v"][l]  # [B, KH, S, hd] or [P, KH, ps, hd]
+        # [B, KH, S, hd] or [P, KH, ps, hd] (values and scales for int8)
+        k_cache, v_cache = kv_layer(cache["k"], l), kv_layer(cache["v"], l)
         if paged:
-            k_cache[page, :, prow] = k.to(k_cache.dtype)  # [B, T, KH, hd] rows
-            v_cache[page, :, prow] = v.to(v_cache.dtype)
+            def write(dst, x):  # x [B, T, KH, hd or 1] rows at their pages
+                dst[page, :, prow] = x
+
+            _append(k_cache, k, write)
+            _append(v_cache, v, write)
             z = attend(q, k_cache, v_cache, page_table, posv)
         else:
-            k_cache.index_copy_(2, rows, k.transpose(1, 2).to(k_cache.dtype))
-            v_cache.index_copy_(2, rows, v.transpose(1, 2).to(v_cache.dtype))
+            def write(dst, x):  # x [B, KH, T, hd or 1]
+                dst.index_copy_(2, rows, x)
+
+            _append(k_cache, k.transpose(1, 2), write)
+            _append(v_cache, v.transpose(1, 2), write)
             z = attend(q, k_cache, v_cache, posv)
         z = z.reshape(b, t, hq * hd)
         x = x + mm(z, lp["wo"]).to(x.dtype)

@@ -1,9 +1,17 @@
 """Model ops: plain torch (torch_ops) and the CUDA kernel wrappers.
 
 `KERNELS` lists the wrappers whose ``.launches`` counts show that a run went
-through the hand-written kernels."""
+through the hand-written kernels (the int8-KV instantiations of the
+attention kernels count apart, as ``*_kv8``)."""
 
-from .flash_attention import flash_attention_stats, flash_decode, paged_flash_decode
+from .flash_attention import (
+    flash_attention_stats,
+    flash_attention_stats_kv8,
+    flash_decode,
+    flash_decode_kv8,
+    paged_flash_decode,
+    paged_flash_decode_kv8,
+)
 from .int8_matmul import i8matmul_2d
 from .moe import (
     moe_active_experts,
@@ -20,6 +28,9 @@ KERNELS = {
     "flash_attention_stats": flash_attention_stats,
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
+    "flash_attention_stats_kv8": flash_attention_stats_kv8,
+    "flash_decode_kv8": flash_decode_kv8,
+    "paged_flash_decode_kv8": paged_flash_decode_kv8,
     "moe_active_experts": moe_active_experts,
     "moe_active_experts_q40": moe_active_experts_q40,
     "moe_grouped_experts": moe_grouped_experts,

@@ -47,6 +47,13 @@ SIGNATURES = {
         "flash_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "flash_decode": ("flash_decode", [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _P]),
     "paged_flash_decode": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    # the int8-KV entries: each K/V plane is a pair (int8 values, f32 row scales)
+    "flash_attention_stats_q8": (
+        "flash_attention", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_stats_paged_q8": (
+        "flash_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
+    "flash_decode_q8": ("flash_decode", [_P] * 6 + [_I, _P] + [_I] * 5 + [_F, _I, _P]),
+    "paged_flash_decode_q8": ("flash_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
     "moe_grouped": ("moe_grouped", [_P] * 13 + [_I] * 5 + [_P]),
 }

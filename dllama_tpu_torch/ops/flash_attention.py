@@ -14,11 +14,23 @@ Counterpart of dllama_tpu/ops/flash_attention.py. Three CUDA kernels:
   table: logical row r of lane b lives in pool page ``page_table[b, r //
   ps]`` of the pool [P, KH, ps, hd], at page row ``r % ps``.
 
+Each takes the cache as dense leaves in q's dtype or as int8 `QuantKV`
+pairs (``--kv-dtype int8``: int8 values and one f32 scale a row). A QuantKV
+cache goes to the same kernels' int8 instantiations (the ``_q8`` C
+entries), which read the int8 planes and the scales and put each row's
+scale on its score and on its probability in f32 (the TPU kernels' QuantKV
+branch dequantizes the tile in f32: the same arithmetic). Their launches
+count apart, in the `KernelCount`s ``flash_attention_stats_kv8`` (slab and
+paged), ``flash_decode_kv8`` and ``paged_flash_decode_kv8``. The JAX
+engine decodes an int8 slab with ``dequant_kv`` and XLA attention; the
+port's int8 slab decode is the kernel.
+
 Semantics are ops/torch_ops.attention_stats / attention_dense: query head h
 reads KV head h // (H / KH), keys at positions ``s_pos0 + j`` are visible to
 a query at position p when ``s_pos0 + j <= p``, softmax in f32, and a fully
-masked row gives m = -1e30, l = 0 and a zero output. CPU tensors take the
-plain versions; CUDA tensors launch the kernels or raise. Each wrapper
+masked row gives m = -1e30, l = 0 and a zero output. The plain versions
+dequantize a QuantKV cache in f32 (values * scales) first. CPU tensors take
+the plain versions; CUDA tensors launch the kernels or raise. Each wrapper
 counts its launches in ``.launches``.
 """
 
@@ -28,7 +40,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .kv_cache import lane_views
+from .kv_cache import QuantKV, dequant_kv, lane_views
 from .torch_ops import attention_stats, normalize_stats
 
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -44,15 +56,45 @@ def _lane_pos(pos, b: int, device) -> torch.Tensor:
     return (p.expand(b) if p.numel() == 1 else p).contiguous()
 
 
-def _check_paged(name: str, q, k_pages, v_pages, page_table, pos) -> None:
-    """The paged kernels' contract on CUDA tensors: q's dtype for the pool,
-    int32 page table and positions on the card, head dims the kernels
-    instantiate, and a page size that divides 32 or is a multiple of 32."""
+def _quant(name: str, k, v) -> bool:
+    """Whether the cache is int8 (both leaves QuantKV); a mixed pair raises."""
+    quant = isinstance(k, QuantKV)
+    if isinstance(v, QuantKV) != quant:
+        raise TypeError(f"{name}: k and v must both be QuantKV or both dense, got "
+                        f"k={type(k).__name__}, v={type(v).__name__}")
+    return quant
+
+
+def _check_kv(name: str, q, k, v) -> None:
+    """The cache leaves' contract on CUDA tensors: dense leaves in q's
+    dtype, or QuantKV pairs of int8 values [..., S, hd] and f32 scales
+    [..., S, 1]; q float32 or bfloat16; every tensor contiguous on the card."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: takes float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"{name}: q and the pool must share a dtype")
-    for t in (q, k_pages, v_pages, page_table, pos):
+    if _quant(name, k, v):
+        for leaf in (k, v):
+            if leaf.q.dtype != torch.int8 or leaf.s.dtype != torch.float32:
+                raise TypeError(f"{name}: a QuantKV leaf holds int8 values and float32 scales, "
+                                f"got {leaf.q.dtype} and {leaf.s.dtype}")
+            if leaf.s.shape != leaf.q.shape[:-1] + (1,):
+                raise ValueError(f"{name}: scales {tuple(leaf.s.shape)} do not fit values "
+                                 f"{tuple(leaf.q.shape)} (want [..., S, 1])")
+        tensors = (q, k.q, k.s, v.q, v.s)
+    else:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"{name}: q, k and v must share a dtype")
+        tensors = (q, k, v)
+    for t in tensors:
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name}: CUDA tensors must be contiguous on the card")
+
+
+def _check_paged(name: str, q, k_pages, v_pages, page_table, pos) -> None:
+    """The paged kernels' contract on CUDA tensors: `_check_kv` for the
+    pool, int32 page table and positions on the card, head dims the kernels
+    instantiate, and a page size that divides 32 or is a multiple of 32."""
+    _check_kv(name, q, k_pages, v_pages)
+    for t in (page_table, pos):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name}: CUDA tensors must be contiguous on the card")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
@@ -73,13 +115,7 @@ def _check_paged(name: str, q, k_pages, v_pages, page_table, pos) -> None:
 
 
 def _check_cuda(name: str, q, k, v) -> None:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: takes float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must share a dtype")
-    for t in (q, k, v):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{name}: CUDA tensors must be contiguous on the card")
+    _check_kv(name, q, k, v)
     b, _, h, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd or h % k.shape[1]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit cache {tuple(k.shape)}")
@@ -89,35 +125,70 @@ def _check_cuda(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: more than 32 query heads per KV head")
 
 
+def _kv_ptrs(k, v) -> tuple:
+    """The C entry's cache pointers: (k, v), or (k values, k scales, v
+    values, v scales) for a QuantKV cache."""
+    if isinstance(k, QuantKV):
+        return k.q.data_ptr(), k.s.data_ptr(), v.q.data_ptr(), v.s.data_ptr()
+    return k.data_ptr(), v.data_ptr()
+
+
+def _plain_kv(k, v) -> tuple:
+    """The plain versions' cache: a QuantKV dequantized in f32 (the TPU
+    kernels' arithmetic), a dense leaf as it is."""
+    return dequant_kv(k, torch.float32), dequant_kv(v, torch.float32)
+
+
 def flash_attention_stats_ref(q, k, v, q_pos0, s_pos0=0):
     """Plain version of `flash_attention_stats`."""
-    return attention_stats(q, k, v, q_pos0, s_pos0)
+    return attention_stats(q, *_plain_kv(k, v), q_pos0, s_pos0)
+
+
+def _stats_out(q, kh: int):
+    b, t, h, hd = q.shape
+    acc = torch.empty((b, kh, h // kh, t, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, kh, h // kh, t), dtype=torch.float32, device=q.device)
+    return acc, m, torch.empty_like(m)
+
+
+class KernelCount:
+    """The ``.launches`` of a kernel's int8-KV instantiation (``*_kv8``),
+    which the kernel's wrapper counts here rather than on itself (ops
+    ``KERNELS`` reads both alike)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+flash_attention_stats_kv8 = KernelCount("flash_attention_stats_kv8")
+flash_decode_kv8 = KernelCount("flash_decode_kv8")
+paged_flash_decode_kv8 = KernelCount("paged_flash_decode_kv8")
 
 
 def flash_attention_stats(
     q: torch.Tensor,  # [B, T, H, hd]
-    k: torch.Tensor,  # [B, KH, S, hd]
-    v: torch.Tensor,  # [B, KH, S, hd]
+    k,  # [B, KH, S, hd], or a QuantKV
+    v,  # [B, KH, S, hd], or a QuantKV
     q_pos0,  # int or [B]: position of q[:, 0] per lane
     s_pos0: int = 0,  # absolute position of k[:, :, 0]
 ):
     """Blockwise causal GQA attention state (acc, m, l), f32."""
+    quant = _quant("flash_attention_stats", k, v)
     if q.device.type == "cpu":
         return flash_attention_stats_ref(q, k, v, q_pos0, s_pos0)
     _check_cuda("flash_attention_stats", q, k, v)
     b, t, h, hd = q.shape
     kh, s = k.shape[1], k.shape[2]
     pos = _lane_pos(q_pos0, b, q.device)
-    acc = torch.empty((b, kh, h // kh, t, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, kh, h // kh, t), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    code = _build.load("flash_attention_stats")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), int(s_pos0),
+    acc, m, l = _stats_out(q, kh)
+    code = _build.load("flash_attention_stats_q8" if quant else "flash_attention_stats")(
+        q.data_ptr(), *_kv_ptrs(k, v), pos.data_ptr(), int(s_pos0),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
         float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16), _build.stream(q.device),
     )
     _build.check(code, "flash_attention_stats")
-    flash_attention_stats.launches += 1
+    (flash_attention_stats_kv8 if quant else flash_attention_stats).launches += 1
     return acc, m, l
 
 
@@ -139,19 +210,22 @@ def flash_attention_ref(q, k_cache, v_cache, pos) -> torch.Tensor:
 
 def flash_decode_ref(q, k_cache, v_cache, pos) -> torch.Tensor:
     """Plain version of `flash_decode`."""
-    acc, _, l = attention_stats(q, k_cache, v_cache, pos, 0)
+    acc, _, l = attention_stats(q, *_plain_kv(k_cache, v_cache), pos, 0)
     return normalize_stats(acc, l, q.dtype)
 
 
 def flash_decode(
     q: torch.Tensor,  # [B, 1, H, hd]
-    k_cache: torch.Tensor,  # [B, KH, S, hd]
-    v_cache: torch.Tensor,
+    k_cache,  # [B, KH, S, hd], or a QuantKV
+    v_cache,
     pos,  # int or [B] per-lane positions
 ) -> torch.Tensor:
-    """Normalized single-token decode attention [B, 1, H, hd] in q's dtype."""
+    """Normalized single-token decode attention [B, 1, H, hd] in q's dtype
+    (for an int8 slab the port's own route: the JAX engine takes
+    ``dequant_kv`` and XLA attention there)."""
     if q.shape[1] != 1:
         raise ValueError("flash_decode is the T=1 path")
+    quant = _quant("flash_decode", k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, pos)
     _check_cuda("flash_decode", q, k_cache, v_cache)
@@ -159,13 +233,13 @@ def flash_decode(
     kh, s = k_cache.shape[1], k_cache.shape[2]
     p = _lane_pos(pos, b, q.device)
     out = torch.empty_like(q)
-    code = _build.load("flash_decode")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), p.data_ptr(), 0,
+    code = _build.load("flash_decode_q8" if quant else "flash_decode")(
+        q.data_ptr(), *_kv_ptrs(k_cache, v_cache), p.data_ptr(), 0,
         out.data_ptr(), b, h, kh, s, hd, float(1.0 / np.sqrt(hd)),
         int(q.dtype == torch.bfloat16), _build.stream(q.device),
     )
     _build.check(code, "flash_decode")
-    flash_decode.launches += 1
+    (flash_decode_kv8 if quant else flash_decode).launches += 1
     return out
 
 
@@ -178,34 +252,36 @@ def paged_flash_decode_ref(q, k_pages, v_pages, page_table, pos) -> torch.Tensor
     dense attention."""
     k = lane_views(k_pages, page_table)
     v = lane_views(v_pages, page_table)
-    acc, _, l = attention_stats(q, k, v, pos, 0)
+    acc, _, l = attention_stats(q, *_plain_kv(k, v), pos, 0)
     return normalize_stats(acc, l, q.dtype)
 
 
 def paged_flash_decode(
     q: torch.Tensor,  # [B, 1, H, hd]
-    k_pages: torch.Tensor,  # [P, KH, ps, hd] one layer of the pool
-    v_pages: torch.Tensor,
+    k_pages,  # [P, KH, ps, hd] one layer of the pool, or a QuantKV
+    v_pages,
     page_table: torch.Tensor,  # [B, n_blocks] int32, on q's device
     pos: torch.Tensor,  # [B] int32, on q's device; a lane at pos < 0 reads nothing
 ) -> torch.Tensor:
     """Normalized single-token decode attention [B, 1, H, hd] in q's dtype,
-    K/V read through the page table."""
+    K/V read through the page table (no row or scale at or past a lane's
+    frontier is read)."""
     if q.shape[1] != 1:
         raise ValueError("paged_flash_decode is the T=1 path")
+    quant = _quant("paged_flash_decode", k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, k_pages, v_pages, page_table, pos)
     _check_paged("paged_flash_decode", q, k_pages, v_pages, page_table, pos)
     b, _, h, hd = q.shape
     kh, ps = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
-    code = _build.load("paged_flash_decode")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+    code = _build.load("paged_flash_decode_q8" if quant else "paged_flash_decode")(
+        q.data_ptr(), *_kv_ptrs(k_pages, v_pages), page_table.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, h, kh, page_table.shape[1], ps, hd,
         float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16), _build.stream(q.device),
     )
     _build.check(code, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+    (paged_flash_decode_kv8 if quant else paged_flash_decode).launches += 1
     return out
 
 
@@ -216,34 +292,35 @@ def paged_flash_attention_stats_ref(q, k_pages, v_pages, page_table, q_pos0):
     """Plain version of `paged_flash_attention_stats`."""
     k = lane_views(k_pages, page_table)
     v = lane_views(v_pages, page_table)
-    return attention_stats(q, k, v, q_pos0, 0)
+    return attention_stats(q, *_plain_kv(k, v), q_pos0, 0)
 
 
 def paged_flash_attention_stats(
     q: torch.Tensor,  # [B, T, H, hd]
-    k_pages: torch.Tensor,  # [P, KH, ps, hd]
-    v_pages: torch.Tensor,
+    k_pages,  # [P, KH, ps, hd], or a QuantKV
+    v_pages,
     page_table: torch.Tensor,  # [B, n_blocks] int32
     q_pos0: torch.Tensor,  # [B] int32: position of q[:, 0] per lane
 ):
     """`flash_attention_stats` with the keys read through the page table
-    (logical rows from 0); its launches count under flash_attention_stats."""
+    (logical rows from 0); its launches count under flash_attention_stats
+    (flash_attention_stats_kv8 for an int8 pool)."""
+    quant = _quant("paged_flash_attention_stats", k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_flash_attention_stats_ref(q, k_pages, v_pages, page_table, q_pos0)
     _check_paged("paged_flash_attention_stats", q, k_pages, v_pages, page_table, q_pos0)
     b, t, h, hd = q.shape
     kh, ps = k_pages.shape[1], k_pages.shape[2]
-    acc = torch.empty((b, kh, h // kh, t, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, kh, h // kh, t), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    code = _build.load("flash_attention_stats_paged")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+    acc, m, l = _stats_out(q, kh)
+    entry = "flash_attention_stats_paged" + ("_q8" if quant else "")
+    code = _build.load(entry)(
+        q.data_ptr(), *_kv_ptrs(k_pages, v_pages), page_table.data_ptr(),
         q_pos0.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh,
         page_table.shape[1], ps, hd, float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16),
         _build.stream(q.device),
     )
     _build.check(code, "paged_flash_attention_stats")
-    flash_attention_stats.launches += 1
+    (flash_attention_stats_kv8 if quant else flash_attention_stats).launches += 1
     return acc, m, l
 
 

@@ -10,7 +10,9 @@ src/dllama-api.cpp):
   with ``temperature``, ``top_p``, ``seed``, ``max_tokens`` and ``stop``
   (src/dllama-api.cpp:491-520), greedy or sampled per request;
 * ``GET /v1/models`` — single-model listing (src/dllama-api.cpp:538-547);
-* ``GET /v1/health`` — model name, lane occupancy, queue depth, uptime.
+* ``GET /v1/health`` — model name, lane occupancy, queue depth, uptime,
+  and the KV pool (pages, radix hits, COW forks, its dtype and the device
+  bytes of a page).
 
 A `LaneScheduler` thread owns every engine call. It admits queued requests
 FIFO into the least-recently-used free lane, matches each conversation
@@ -459,7 +461,9 @@ class ApiState:
             "lanes": {"total": total, "active": active, "free": total - active},
             "admitting": len(sched.admitting),
             "queue_depth": len(sched.pending),
-            "kv": self.kv_manager.debug(),
+            "kv": dict(self.kv_manager.debug(),
+                       dtype=str(self.engine.kv_dtype).removeprefix("torch."),
+                       page_bytes=self.engine.kv_page_bytes()),
         }
 
 

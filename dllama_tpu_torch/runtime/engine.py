@@ -9,6 +9,11 @@ sampler `sample_per_lane` keyed by (seed, position)); `decode_step` (block
 size 1) samples on the host with the reference-parity `Sampler`;
 `perplexity` scores a prompt teacher-forced, one scalar a chunk.
 
+``kv_dtype="int8"`` holds K/V as int8 with one f32 scale a row (`QuantKV`)
+in the slab cache and in the lanes' pool: about half of bf16's bytes, read
+by the attention kernels' int8 instantiations. A float ``kv_dtype`` must
+equal ``dtype`` (the port's kernels take one type for q and the cache).
+
 The JAX engine runs one compiled program a shape. On the card the port
 runs each of these forwards as a CUDA graph (runtime/graphs.py): every
 prefill bucket, decode block width, the single step, each score chunk, each
@@ -49,6 +54,7 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
+from ..ops.kv_cache import kv_tensors, new_kv_leaf, reset_kv_leaf
 from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
 
@@ -56,6 +62,24 @@ from .sampler import Sampler, sample_per_lane
 # compiles one program per bucket, the port keeps the same chunking).
 PREFILL_BUCKETS = (1, 8, 32, 128, 512)
 I32, I64 = torch.int32, torch.int64
+# kv_dtype names, as the JAX engine's
+KV_DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
+             "int8": torch.int8}
+
+
+def resolve_kv_dtype(kv_dtype, dtype) -> torch.dtype:
+    """The cache's dtype from ``kv_dtype`` (None: ``dtype``; a name of
+    `KV_DTYPES` or a torch dtype). The JAX engine's names and message; a
+    float cache type other than ``dtype`` raises too (ROADMAP queues it)."""
+    if isinstance(kv_dtype, str):
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {sorted(KV_DTYPES)}, got {kv_dtype!r}")
+        kv_dtype = KV_DTYPES[kv_dtype]
+    kv_dtype = kv_dtype or dtype
+    if kv_dtype not in (torch.int8, dtype):
+        raise ValueError(f"kv_dtype {kv_dtype} with dtype {dtype}: a float cache takes the "
+                         "model's dtype (the kernels take one type for q and the cache)")
+    return kv_dtype
 
 
 @dataclasses.dataclass
@@ -91,9 +115,11 @@ class InferenceEngine:
         device=None,
         batch_size: int = 1,
         cuda_graphs: bool = True,
+        kv_dtype=None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.graphs = StepGraphs(self.device, cuda_graphs)
@@ -128,7 +154,7 @@ class InferenceEngine:
         if weight_format == "q40i8":
             self.i8_group = pick_group(self.header)
             self.params = requantize_params(self.params, self.header, self.i8_group)
-        self.cache = init_kv_cache(self.header, 1, dtype=dtype, device=self.device)
+        self.cache = init_kv_cache(self.header, 1, dtype=self.kv_dtype, device=self.device)
         # the lanes' page pool (init_kv_pool)
         self.kv_pool = None
         self.kv_pool_epoch = 0
@@ -155,9 +181,9 @@ class InferenceEngine:
         self.graphs.enabled = bool(on)
 
     def reset(self) -> None:
-        """Drop KV state (new conversation)."""
-        for t in self.cache.values():
-            t.zero_()
+        """Drop KV state (new conversation), in place."""
+        for leaf in self.cache.values():
+            reset_kv_leaf(leaf)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -426,10 +452,11 @@ class InferenceEngine:
 
     def init_kv_pool(self, page_size: int, n_pages: int = 0, native: bool = True) -> int:
         """Allocate the shared KV page pool ``[L, n_pages, KH, page_size,
-        hd]`` per k/v leaf. Page 0 is scratch: parked lanes and unfilled
-        page-table slots point there. ``n_pages`` <= 0 picks one sequence
-        per lane plus two shareable ones: ``(batch_size + 2) * n_blocks +
-        1``. Returns the page count.
+        hd]`` per k/v leaf (QuantKV pairs for an int8 cache, scales [L,
+        n_pages, KH, page_size, 1] of ones). Page 0 is scratch: parked
+        lanes and unfilled page-table slots point there. ``n_pages`` <= 0
+        picks one sequence per lane plus two shareable ones: ``(batch_size
+        + 2) * n_blocks + 1``. Returns the page count.
 
         The JAX engine also requires ``page_size`` <= its lane padding,
         because its parked lanes write into padding rows; the port has no
@@ -465,17 +492,17 @@ class InferenceEngine:
         self.graphs.clear()  # their pointers and page-table rows are the old pool's
         h = self.header
         shape = (h.n_layers, n_pages, h.n_kv_heads, page_size, h.head_dim)
-        self.kv_pool = {k: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                        for k in ("k", "v")}
+        self.kv_pool = {k: new_kv_leaf(shape, self.kv_dtype, self.device) for k in ("k", "v")}
         self.kv_pool_epoch += 1
         return n_pages
 
     def reset_kv_pool(self) -> None:
-        """Zero the pool and every page-table row. The caller resets its
-        host-side page accounting to match."""
+        """Zero the pool (an int8 pool's scales back to ones), in place, and
+        every page-table row. The caller resets its host-side page
+        accounting to match."""
         self._require_kv_pool()
-        for t in self.kv_pool.values():
-            t.zero_()
+        for leaf in self.kv_pool.values():
+            reset_kv_leaf(leaf)
         self.kv_pool_epoch += 1
         self.clear_all_lane_pages()
 
@@ -516,16 +543,26 @@ class InferenceEngine:
     @torch.inference_mode()
     def kv_page_copy(self, src_ids: list[int], dst_ids: list[int]) -> None:
         """Copy pool pages ``src_ids[i]`` -> ``dst_ids[i]`` on the device, in
-        every layer (the COW fork of a mid-page adoption)."""
+        every layer and every tensor of a leaf, an int8 pool's scales too
+        (the COW fork of a mid-page adoption)."""
         self._require_kv_pool()
         n = len(src_ids)
         if n < 1 or len(dst_ids) != n:
             raise ValueError("src/dst page lists must match and be non-empty")
         src = torch.tensor(src_ids, dtype=torch.int64, device=self.device)
         dst = torch.tensor(dst_ids, dtype=torch.int64, device=self.device)
-        for t in self.kv_pool.values():
-            t[:, dst] = t[:, src]
+        for leaf in self.kv_pool.values():
+            for t in kv_tensors(leaf):
+                t[:, dst] = t[:, src]
         self.kv_copy_pages += n
+
+    def kv_page_bytes(self) -> int:
+        """Device bytes of one pool page, summed over the k/v leaves (an
+        int8 pool's scales included) and all layers (the JAX engine's
+        ``_kv_page_bytes``)."""
+        self._require_kv_pool()
+        return sum(t[:, 0].numel() * t.element_size()
+                   for leaf in self.kv_pool.values() for t in kv_tensors(leaf))
 
     @torch.inference_mode()
     def prefill_lane_chunk(self, lane: int, tokens: list[int], pos0: int,

@@ -56,6 +56,12 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    its ``*_kv8`` counter; ``ms``, ``ms_clean``, ``plain_ms``, the bound of
    the int8 bytes, ``library_ms`` none (no single PyTorch call attends over
    int8 K/V) and ``composite_ms``, the dequantization then SDPA (two calls).
+   The shapes of a speculative verify pass (`check_verify_stats`): the
+   paged stats kernel at B 4 live lanes (pos 0, 15, 16, 4090) and one
+   parked at -T, T 2, 3 and 5, bf16, f32 and an int8 pool, each twice with
+   equal bits, within TOL on the live lanes, the parked lane's state empty,
+   the identity table's bits equal to the slab entry's, timed beside SDPA on
+   the gathered view; and the Q40 tile at a verify pass's m = 12 and 20.
 3. End to end, seven runs on three random Q40 ``.m`` files (max_seq_len
    4096; each with a padded byte-level ``.t``, written with the port's
    writers to a temp dir of its own, deleted before the next), each the
@@ -88,12 +94,20 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    port's lane server in process, 4 lanes over the paged pool, every
    lane-prefill bucket and both lane decode blocks captured before the
    first request (`rehearse_admission`: graph count, seconds and pool
-   bytes printed), six greedy requests (four at once, two
+   bytes printed), seven greedy requests (four at once, three
    queued; two share a page-aligned 256-token prefix, one diverges
-   mid-page), each replayed alone; TTFT and decode ms/token per request,
+   mid-page; one repetitive), each replayed alone; TTFT and decode
+   ms/token per request,
    aggregate decode tok/s against the single-stream q40 run, pool pages,
    radix hits and COW forks, with gates on all of it (see `serving`), and
-   a 4-lane decode step's host ms, graphed and eager in turns. The serving
+   a 4-lane decode step's host ms, graphed and eager in turns. Then the
+   speculation round on the same engine (`serving_spec`: ``speculation
+   shared``, spec_k 4, the same requests, each equal to its solo replay,
+   >= 1 verify pass, the stats kernel n_layers times a verify pass and a
+   prefill chunk; acceptance, tokens a pass, lane tok/s against the
+   spec-off round, where each answer parts from its spec-off answer, and
+   a verify pass's graphed host ms at T 2, 3 and 5 against a decode step,
+   with a device profile of the T = 5 pass). The serving
    phase runs once more on an int8 pool (``kv_dtype="int8"``, the same
    1,537 pages; its bytes and /v1/health's page bytes printed), with the
    same gates on the int8 kernels' launches and answers.
@@ -115,7 +129,10 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the kernel run's int8 activations, and the inputs of its int8 matmuls
    are gated too (see `parity`). For the serving phase, pool-native lanes
    against the slab path and the paged path's kernels against its plain
-   versions, f32 (`lane_parity`; int8 caches and pool for the int8 pass).
+   versions, f32 (`lane_parity`; int8 caches and pool for the int8 pass),
+   and verify against stepwise decode at 4 layers in f32 (`spec_parity`:
+   the verify grid equal to stepwise greedy decode, verify-row logits within
+   TOL_E2E of the decode steps').
    An int8-KV run holds every cache of its parity runs in int8.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
@@ -180,6 +197,9 @@ MODELS = [
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 # more x rows for the Q40 and int8 tiles (bf16): the other prefill buckets and a ragged m
 Q40_TILE_M = {(4096, 14336): (32, 128), (4096, 4096): (100,)}
+# more x rows for the Q40 tiles (bf16): a speculative verify pass of 4 lanes at
+# T = 3 and 5 (m = 8, T = 2, takes the GEMV's row)
+Q40_VERIFY_M = {(4096, 14336): (12, 20)}
 # more x rows for the Q40 GEMVs (bf16): the serving lanes (m = 4) and a full N of 8
 Q40_GEMV_M = {(4096, 14336): (4, 8), (4096, 128256): (4, 8)}
 QWEN_ATTN_SHAPES = [(2048, 4096), (2048, 512), (4096, 2048)]  # qwen3-30b-a3b wq, wk/wv, wo
@@ -322,16 +342,18 @@ def random_q40(n: int, k: int, device, gen):
 
 def _q40_cases(f32: bool) -> list[tuple[int, int, list]]:
     """(k, n, [(m, dtype), ...]) of the Q40 kernels' rows: `_x_cases` (f32
-    x only if ``f32``) at llama-8b's shapes, the GEMV at m = 4 and 8 and
-    the tile's other prefill buckets (m = 32, 128) and a ragged m = 100 in
-    bf16, and qwen3-30b-a3b's attention projections at m = 512."""
+    x only if ``f32``) at llama-8b's shapes, the GEMV at m = 4 and 8, the
+    tile at a verify pass's m = 12 and 20, the tile's other prefill buckets
+    (m = 32, 128) and a ragged m = 100 in bf16, and qwen3-30b-a3b's
+    attention projections at m = 512."""
     import torch
 
     bf = torch.bfloat16
     cases = []
     for k, n in Q40_SHAPES:
         xs = [c for c in _x_cases(k, n) if f32 or c[1] == bf]
-        more = Q40_GEMV_M.get((k, n), ()) + Q40_TILE_M.get((k, n), ())
+        more = (Q40_GEMV_M.get((k, n), ()) + Q40_VERIFY_M.get((k, n), ())
+                + Q40_TILE_M.get((k, n), ()))
         cases.append((k, n, xs + [(m, bf) for m in more]))
     return cases + [(k, n, [(512, bf)]) for k, n in QWEN_ATTN_SHAPES]
 
@@ -715,6 +737,107 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
                 identity_bits_equal=True,
             ))
             del kp, vp, ks, vs, ki, vi
+    return rows
+
+
+VERIFY_T = (2, 3, 5)  # verify widths at spec_k 4: 1 + each draft bucket (1, 2, 4)
+VERIFY_POS = (0, 15, 16, 4090)  # four live lanes; a fifth parked at -T
+
+
+def check_verify_stats(device, gen, timed: bool = True) -> list[dict]:
+    """The paged stats kernel at the shapes of a speculative verify pass
+    (`InferenceEngine.verify_lanes`, llama-8b heads H 32 over KH 8, hd 128,
+    page 16): T in VERIFY_T rows a lane at VERIFY_POS and one lane parked at
+    -T, with a bf16, an f32 and an int8 pool (bf16 q). Each is launched
+    twice with equal bits required (its launches counted under
+    flash_attention_stats or flash_attention_stats_kv8), held within TOL of
+    its plain version on the live lanes, the parked lane's state must be m =
+    -1e30, l = 0, acc = 0, and the identity table must give the slab entry's
+    bits. Timed: the kernel, its plain version, and scaled_dot_product_attention
+    on the gathered view (SDPA after the gather and the dequantization, two
+    calls, as ``composite_ms`` for the int8 pool, whose ``library_ms`` is none)."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats,
+        flash_attention_stats_kv8,
+        paged_flash_attention_stats,
+        paged_flash_attention_stats_ref,
+    )
+    from dllama_tpu_torch.ops.kv_cache import dequant_kv, lane_views
+
+    h, kh, hd, s, b = 32, 8, 128, 4096, len(VERIFY_POS) + 1
+    nb = s // PAGE
+    rows = []
+    for tag in ("bf16", "f32", "int8"):
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        kv8 = tag == "int8"
+        counter = flash_attention_stats_kv8 if kv8 else flash_attention_stats
+        perm = torch.randperm(b * nb, device=device, generator=gen) + 1
+        pt = perm.reshape(b, nb).to(torch.int32)
+        pt_ident = (1 + torch.arange(b * nb, device=device, dtype=torch.int32)).reshape(b, nb)
+        if kv8:
+            kp, vp = (random_kv8((1 + b * nb, kh, PAGE, hd), device, gen) for _ in range(2))
+            ks, vs = (random_kv8((b, kh, s, hd), device, gen) for _ in range(2))
+            ki, vi = _ident_pages(ks, b, kh, nb), _ident_pages(vs, b, kh, nb)
+        else:
+            kp, vp = (torch.randn((1 + b * nb, kh, PAGE, hd), device=device,
+                                  generator=gen).to(dtype) for _ in range(2))
+            ks, vs = (torch.randn((b, kh, s, hd), device=device, generator=gen).to(dtype)
+                      for _ in range(2))
+            ki, vi = _ident_pages(ks, b, kh, nb), _ident_pages(vs, b, kh, nb)
+        for t in VERIFY_T:
+            q_pos0 = torch.tensor(VERIFY_POS + (-t,), dtype=torch.int32, device=device)
+            q = torch.randn((b, t, h, hd), device=device, generator=gen).to(dtype)
+            shape = f"{tag} H={h} KH={kh} B=4+1 T={t} verify"
+            before = counter.launches
+            got = twice_equal(lambda: paged_flash_attention_stats(q, kp, vp, pt, q_pos0),
+                              f"{counter.__name__} {shape}")
+            require(counter.launches == before + 2,
+                    f"{counter.__name__} {shape}: the wrapper did not count its launches")
+            ref = paged_flash_attention_stats_ref(q, kp, vp, pt, q_pos0)
+            ident = paged_flash_attention_stats(q, ki, vi, pt_ident, q_pos0)
+            slab = flash_attention_stats(q, ks, vs, q_pos0)
+            torch.cuda.synchronize(device)
+            require(all(torch.equal(x, y) for x, y in zip(ident, slab)),
+                    f"{counter.__name__} {shape}: identity table differs from the slab entry")
+            acc, m, l = got
+            require(bool((acc[-1] == 0).all() and (l[-1] == 0).all() and (m[-1] <= -1e29).all()),
+                    f"{counter.__name__} {shape}: the parked lane's state is not empty")
+            errs = [norm_err(x[:-1], y[:-1]) for x, y in zip(got, ref)]
+            rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+            require(rel <= TOL, f"{counter.__name__} {shape}: error {rel:.3e} > {TOL}")
+            vis = sum(p + i + 1 for p in VERIFY_POS for i in range(t))
+            row_bytes = (hd + 4) if kv8 else hd * (4 if tag == "f32" else 2)
+            n_bytes = (q.numel() * q.element_size()
+                       + 2 * kh * row_bytes * sum(p + t for p in VERIFY_POS)
+                       + h * b * t * (hd + 2) * 4 + pt.numel() * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis,
+                               F32_FLOPS if tag == "f32" else BF16_FLOPS)
+            row = dict(name=counter.__name__, shape=shape, err=rel, max_abs_err=absd,
+                       bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
+            if timed:
+                qs = q.transpose(1, 2)
+                qpos = q_pos0[:, None] + torch.arange(t, device=device)[None, :]
+                mask = (torch.arange(s, device=device)[None, None, :]
+                        <= qpos[:, :, None])[:, None]
+                row["ms"] = time_ms(lambda: paged_flash_attention_stats(q, kp, vp, pt, q_pos0),
+                                    device)
+                row["plain_ms"] = time_ms(
+                    lambda: paged_flash_attention_stats_ref(q, kp, vp, pt, q_pos0), device, 5)
+                if kv8:
+                    def composite(q=qs, kp=kp, vp=vp, pt=pt, mask=mask):
+                        return _sdpa(q, dequant_kv(lane_views(kp, pt), q.dtype),
+                                     dequant_kv(lane_views(vp, pt), q.dtype), mask)
+
+                    row["library_ms"] = None
+                    row["composite_ms"] = time_ms(composite, device)
+                else:
+                    kv_k, kv_v = lane_views(kp, pt), lane_views(vp, pt)
+                    row["library_ms"] = time_ms(lambda: _sdpa(qs, kv_k, kv_v, mask), device)
+                    del kv_k, kv_v
+            rows.append(row)
+        del kp, vp, ks, vs, ki, vi
     return rows
 
 
@@ -1584,12 +1707,13 @@ def lane_parity(engine, prompt: list[int]) -> dict:
 
 
 def serving_payloads(tok) -> list[dict]:
-    """The six greedy chat requests of the serving phase. Requests 0, 4 and
+    """The seven greedy chat requests of the serving phase. Requests 0, 4 and
     5 share a system prompt sized so that it, BOS and the user header make
     SHARED_PREFIX tokens (page-aligned); request 4's user text differs from
     request 0's at its first character (a whole-page match: adopted with no
     copy), request 5's at its sixth (a mid-page match: one COW fork).
-    Request 3 is streamed."""
+    Request 3 is streamed. Request 6 is repetitive ("Repeat this list
+    forever: ..."), the traffic n-gram speculation drafts from."""
     from dllama_tpu_torch.tokenizer import ChatItem, ChatTemplateGenerator, ChatTemplateType
 
     template = ChatTemplateGenerator(ChatTemplateType.LLAMA3, None, "</s>")
@@ -1612,6 +1736,7 @@ def serving_payloads(tok) -> list[dict]:
         (None, "Stream: " + prompt_text(40)),
         (system, "Bravo: list three ideas from the text above."),
         (system, "Alpha, no: rewrite the text above as a question."),
+        (None, "Repeat this list forever: " + ", ".join(["red", "green", "blue"] * 16)),
     ]
     out = []
     for i, (sys_text, user) in enumerate(users):
@@ -1659,14 +1784,17 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     127.0.0.1:0) over the model file in tmp, 4 lanes, pool page 16, the
     pool sized by default, in ``kv_dtype`` (None: the engine's bf16;
     "int8": the int8 pool, whose decode kernel is then
-    paged_flash_decode_kv8). Six greedy requests: four at once, then two
-    queued behind them; then each replayed alone. Gates: every request
-    ends with stop or length; each concurrent answer equals its solo
-    replay (text and token count); the manager counted >= 2 radix hits
-    and >= 1 COW fork; the pool type's paged decode kernel launched
-    n_layers times a decode step, and no attention kernel but it and the
-    pool type's stats kernel; lane vs slab and lane kernel vs plain f32
-    logits <= TOL_E2E. Returns the serving run's launch counts."""
+    paged_flash_decode_kv8). Seven greedy requests (`serving_payloads`):
+    four at once, then three queued behind them; then each replayed alone.
+    Gates: every request ends with stop or length; each concurrent answer
+    equals its solo replay (text and token count); the manager counted >= 2
+    radix hits and >= 1 COW fork; the pool type's paged decode kernel
+    launched n_layers times a decode step, and no attention kernel but it
+    and the pool type's stats kernel; lane vs slab and lane kernel vs plain
+    f32 logits <= TOL_E2E. With the engine's bf16 pool, then the
+    speculation round on the same engine (`serving_spec`) and the f32
+    verify parity (`spec_parity`). Returns the launch counts by label: the
+    serving run's, and the speculation round's."""
     import threading
 
     import torch
@@ -1709,47 +1837,20 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         return rows
 
     engine.decode_lanes = timed_decode
-    # each request's generated tokens, by request id (a stream carries no usage)
-    n_generated: dict = {}
-    finish = sched._finish
-
-    def counted_finish(lane, reason):
-        job = sched.lanes[lane].job
-        n_generated[job.request_id] = job.n_completion
-        finish(lane, reason)
-
-    sched._finish = counted_finish
+    generated = _track_generated(sched)
     try:
         payloads = serving_payloads(tok)
         reset_launch_counts()
         engine.lane_decode_steps = 0
-        results: list = [None] * len(payloads)
-        errors: list = []
-
-        def send(i):
-            try:
-                results[i] = _request(url, payloads[i])
-            except Exception as e:  # reported below
-                errors.append((i, repr(e)))
-
-        threads, t_conc = [], time.perf_counter()
-        for i in range(len(payloads)):
-            threads.append(threading.Thread(target=send, args=(i,)))
-            threads[-1].start()
-            deadline = time.perf_counter() + 60
-            while sched.n_submitted < i + 1 and time.perf_counter() < deadline:
-                time.sleep(0.001)  # submit in order: requests 4 and 5 queue behind 0-3
-        for th in threads:
-            th.join(timeout=600)
-        t_conc = time.perf_counter() - t_conc
-        require(not errors and all(r is not None for r in results), f"serving: {errors}")
+        results, t_conc = _concurrent(url, sched, payloads)
         conc_decode = dict(decode)
         pool = kv.debug()["pool"]
         mem = torch.cuda.memory_allocated() if device == "cuda" else 0
         solo = [_request(url, p) for p in payloads]
         counts = launch_counts()
         for r in results + solo:
-            r["n"] = n_generated[r["meta"]["request_id"]]
+            r["tokens"] = generated[r["meta"]["request_id"]]
+            r["n"] = len(r["tokens"])
         steps = engine.lane_decode_steps
     finally:
         srv.shutdown()
@@ -1802,8 +1903,10 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
              and name not in (decode_kernel, stats)]
     require(counts[stats] > 0 and not other,
             f"serving: attention launches {counts}, wanted only {stats} and {decode_kernel}")
+    lane_step_ms = None
     if device == "cuda" and not kv_dtype:
         lanes = lane_profile(engine, PROMPT_TOKENS)
+        lane_step_ms = statistics.median(lanes["host"][True])
         for side, name in ((True, "graphed"), (False, "eager")):
             host_ms, prof = statistics.median(lanes["host"][side]), lanes["prof"][side]
             tok_s4 = SERVE_LANES * 1e3 / host_ms
@@ -1818,13 +1921,287 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
                 print(f"  {ms:8.4f} ms/step {count:5d}x {kname[:90]}")
             for kname, ms, count in prof["host_top"]:
                 print(f"  host {ms:8.4f} ms/step {count:5d}x {kname[:80]}")
-    engine.kv_pool = None  # the pool's 3 GB, before the f32 parity run
+    out = {f"llama-8b q40{kv_tag} serving": counts}
+    if not kv_dtype:
+        off = dict(results=results, lane_tok_s=agg, decode_s=conc_decode["s"],
+                   tokens=conc_decode["tokens"])
+        out["llama-8b q40 serving spec"] = serving_spec(engine, tok, off, lane_step_ms)
+    engine.kv_pool = None  # the pool's 3 GB, before the f32 parity runs
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
     par = lane_parity(engine, prompt)
     for (step, tag), err in par.items():
         print(f"parity serving{kv_tag} {step} f32 {tag}: logits err {err:.3e}")
         require(err <= TOL_E2E, f"serving {step}: {tag} err {err:.3e} > {TOL_E2E}")
+    if not kv_dtype:
+        sp = spec_parity(engine, prompt)
+        print(f"parity spec f32, {SPEC_PARITY_LAYERS} layers, {engine.batch_size} lanes at pos "
+              f"{sp['pos']}: verify_lanes grid equals stepwise greedy decode_lanes {sp['equal']}; "
+              f"verify-row logits vs the decode steps' err {sp['err']:.3e}")
+        require(sp["equal"], f"spec parity: verify grid {sp['grid']} != stepwise {sp['want']}")
+        require(sp["err"] <= TOL_E2E, f"spec parity: logits err {sp['err']:.3e} > {TOL_E2E}")
+    return out
+
+
+def _track_generated(sched) -> dict:
+    """Each finished request's generated tokens, by request id (a stream
+    carries no usage): the scheduler's ``_finish`` wrapped."""
+    generated: dict = {}
+    finish = sched._finish
+
+    def tracked(lane, reason):
+        ls = sched.lanes[lane]
+        generated[ls.job.request_id] = list(ls.history[ls.job.n_prompt_tokens:])
+        finish(lane, reason)
+
+    sched._finish = tracked
+    return generated
+
+
+def _concurrent(url: str, sched, payloads: list[dict]) -> tuple[list, float]:
+    """Send every payload at once, in order (the lanes take the first four,
+    the rest queue); returns the results and the wall seconds."""
+    import threading
+
+    results: list = [None] * len(payloads)
+    errors: list = []
+
+    def send(i):
+        try:
+            results[i] = _request(url, payloads[i])
+        except Exception as e:  # reported below
+            errors.append((i, repr(e)))
+
+    n0, threads, t0 = sched.n_submitted, [], time.perf_counter()
+    for i in range(len(payloads)):
+        threads.append(threading.Thread(target=send, args=(i,)))
+        threads[-1].start()
+        deadline = time.perf_counter() + 60
+        while sched.n_submitted < n0 + i + 1 and time.perf_counter() < deadline:
+            time.sleep(0.001)  # submit in order: requests 4.. queue behind 0-3
+    for th in threads:
+        th.join(timeout=600)
+    require(not errors and all(r is not None for r in results), f"serving: {errors}")
+    return results, time.perf_counter() - t0
+
+
+SPEC_K = 4  # the JAX package's default draft length (runtime/spec.py DEFAULT_SPEC_K)
+
+
+def serving_spec(engine, tok, off: dict, lane_step_ms: float | None) -> dict:
+    """The speculation round of the serving phase: a second `serve` over the
+    serving engine (the spec-off round shut down; its pool made anew) with
+    ``speculation="shared"``, spec_k SPEC_K: the seven requests, four at
+    once, then each replayed alone. Gates: every answer ends with stop or
+    length and equals its solo replay (text and tokens); at least one verify
+    pass ran, with drafted tokens > 0; the rehearsal captured one verify
+    graph a draft bucket; the stats kernel launched n_layers times for each
+    verify pass and each prefill chunk, the paged decode kernel n_layers
+    times a decode step, and no other attention kernel. Prints the
+    acceptance, tokens a verify pass, drafted tokens by source, lane tok/s
+    against the spec-off round's (``off``), where each answer parts from
+    its spec-off answer (not gated: bf16 verify rows run the stats kernel
+    and the Q40 tile, decode steps the decode kernel and the GEMV), and a
+    verify pass's graphed host ms at each T against a 4-lane decode step
+    (``lane_step_ms``), with a device profile of the T = 5 pass on the
+    card. Returns the round's launch counts."""
+    import threading
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.spec import spec_buckets
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    engine.__dict__.pop("decode_lanes", None)  # the spec-off round's timer
+    h, b = engine.header, engine.batch_size
+    t0 = time.perf_counter()
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE,
+                speculation="shared", spec_k=SPEC_K)
+    g = engine.graphs
+    rehearsal = dict(verify=g.count("lane_verify_paged"), graphs=g.n_graphs,
+                     s=time.perf_counter() - t0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    sched = srv.state.scheduler
+    timer = {"decode_s": 0.0, "decode_tokens": 0, "verify_s": 0.0, "chunks": 0}
+    inner = {name: getattr(engine, name)
+             for name in ("decode_lanes", "verify_lanes", "prefill_lane_chunk")}
+
+    def timed_decode(tokens, pos, n_steps, active, *args, **kw):
+        t = time.perf_counter()
+        rows = inner["decode_lanes"](tokens, pos, n_steps, active, *args, **kw)
+        timer["decode_s"] += time.perf_counter() - t
+        timer["decode_tokens"] += len(rows) * sum(map(bool, active))
+        return rows
+
+    def timed_verify(rows, pos, active):
+        t = time.perf_counter()
+        grid = inner["verify_lanes"](rows, pos, active)
+        timer["verify_s"] += time.perf_counter() - t
+        return grid
+
+    def counted_chunk(*args, **kw):
+        timer["chunks"] += 1
+        return inner["prefill_lane_chunk"](*args, **kw)
+
+    engine.decode_lanes, engine.verify_lanes = timed_decode, timed_verify
+    engine.prefill_lane_chunk = counted_chunk
+    generated = _track_generated(sched)
+    try:
+        payloads = serving_payloads(tok)
+        reset_launch_counts()
+        engine.lane_decode_steps = engine.lane_verify_steps = 0
+        results, t_conc = _concurrent(url, sched, payloads)
+        conc, conc_spec = dict(timer), sched.spec_stats()
+        conc_emitted = sched.spec_accepted + sched.spec_accept_len_count
+        solo = [_request(url, p) for p in payloads]
+        counts = launch_counts()
+        for r in results + solo:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+        steps, passes, chunks = engine.lane_decode_steps, engine.lane_verify_steps, timer["chunks"]
+        spec = sched.spec_stats()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for name in inner:
+            engine.__dict__.pop(name, None)
+    print(f"== llama-8b q40 serving spec: speculation shared, spec_k {SPEC_K}, "
+          f"{len(payloads)} requests, {b} lanes; rehearsal captured {rehearsal['verify']} verify "
+          f"graphs ({rehearsal['graphs']} in all, {rehearsal['s']:.2f} s with the pool)")
+    for i, (r, s_, o) in enumerate(zip(results, solo, off["results"])):
+        same = r["content"] == s_["content"] and r["tokens"] == s_["tokens"]
+        part = next((j for j, (x, y) in enumerate(zip(r["tokens"], o["tokens"])) if x != y),
+                    None if len(r["tokens"]) == len(o["tokens"]) else
+                    min(len(r["tokens"]), len(o["tokens"])))
+        print(f"serve spec r{i}: lane {r['meta']['lane']} reused "
+              f"{r['meta']['reused_prefix_tokens']} finish {r['finish']} tokens "
+              f"{len(r['tokens'])} ttft_ms {r['meta']['ttft_ms']}; equals solo {same}; "
+              f"equals spec-off {part is None}"
+              + ("" if part is None else f" (parts at token {part} of {len(o['tokens'])})"))
+        require(r["finish"] in ("stop", "length") and s_["finish"] in ("stop", "length"),
+                f"serving spec r{i}: finish {r['finish']} / solo {s_['finish']}")
+        require(same, f"serving spec r{i}: the concurrent answer differs from its solo replay")
+    lane_s = conc["decode_s"] + conc["verify_s"]
+    spec_tok_s = (conc["decode_tokens"] + conc_emitted) / lane_s
+    print(f"serve spec aggregate: {conc['decode_tokens']} lane tokens from decode blocks in "
+          f"{conc['decode_s']:.3f} s and {conc_emitted} from {conc_spec['verify_passes']} verify "
+          f"passes in {conc['verify_s']:.3f} s: {spec_tok_s:.2f} lane tok/s against the spec-off "
+          f"round's {off['lane_tok_s']:.2f} ({spec_tok_s / off['lane_tok_s']:.2f}x; "
+          f"{t_conc:.2f} s wall)")
+    print(f"serve spec acceptance: accepted {spec['accepted']} of {spec['drafted']} drafted "
+          f"({spec['accepted'] / max(spec['drafted'], 1):.3f}); {spec['verify_passes']} verify "
+          f"passes, {(sched.spec_accepted + sched.spec_accept_len_count) / max(passes, 1):.2f} "
+          f"tokens a pass, {spec['tokens_per_lane_pass']:.2f} a lane a pass; drafted by source "
+          f"{json.dumps(spec['sources'])}; store {json.dumps(spec['store'])}")
+    print(f"serve spec launches {json.dumps(counts)}; decode steps {steps}, verify passes "
+          f"{passes}, prefill chunks {chunks}")
+    require(rehearsal["verify"] == len(spec_buckets(SPEC_K)),
+            f"serving spec: rehearsal captured {rehearsal['verify']} verify graphs")
+    require(passes >= 1 and spec["drafted"] > 0,
+            f"serving spec: {passes} verify passes, {spec['drafted']} drafted tokens")
+    require(counts["flash_attention_stats"] == h.n_layers * (chunks + passes),
+            f"serving spec: {counts['flash_attention_stats']} stats launches, the chunks and "
+            f"verify passes imply {h.n_layers * (chunks + passes)}")
+    require(counts["paged_flash_decode"] == h.n_layers * steps,
+            f"serving spec: {counts['paged_flash_decode']} decode launches, the steps imply "
+            f"{h.n_layers * steps}")
+    other = [name for name, c in counts.items() if c and "flash" in name
+             and name not in ("paged_flash_decode", "flash_attention_stats")]
+    require(not other, f"serving spec: attention launches {counts}")
+    verify_cost(engine, lane_step_ms)
     return counts
+
+
+def verify_cost(engine, lane_step_ms: float | None) -> None:
+    """A verify pass's host ms at each T in VERIFY_T, every lane live at
+    PROMPT_TOKENS on private pages (`HOST_RUNS` runs each after a warm one,
+    graphed where graphs run), against a 4-lane decode step's; on the card
+    a device profile of the T = 5 pass too, graphed and eager."""
+    import torch
+
+    b, nb = engine.batch_size, engine._kv_n_blocks
+    for lane in range(b):
+        engine.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
+    pos, act = [PROMPT_TOKENS] * b, [True] * b
+    for t in VERIFY_T:
+        rows = [[1] * t] * b
+        engine.verify_lanes(rows, pos, act)  # warm
+        runs = []
+        for _ in range(HOST_RUNS):
+            t0 = time.perf_counter()
+            engine.verify_lanes(rows, pos, act)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(runs)
+        print(f"verify pass T={t}, {b} lanes at pos {PROMPT_TOKENS} (m = {b * t} rows a "
+              f"projection), {'graphed' if engine.graphs.active else 'eager'}: host ms "
+              f"{_ms(runs)}"
+              + (f"; {ms / lane_step_ms:.2f}x a 4-lane decode step's {lane_step_ms:.3f} ms, "
+                 f"break-even at {ms / lane_step_ms:.2f} tokens a lane a pass"
+                 if lane_step_ms else ""))
+    if engine.device.type == "cuda":
+        rows = [[1] * VERIFY_T[-1]] * b
+        prof = profile_both(engine, lambda: engine.verify_lanes(rows, pos, act), 1)
+        for side, name in ((True, "graphed"), (False, "eager")):
+            p = prof[side]
+            print(f"verify profile {name}, T={VERIFY_T[-1]}, {b} lanes: device kernel ms/pass "
+                  f"{p['device_ms_per_token']:.3f}, device launches/pass "
+                  f"{p['launches_per_token']:.0f}; from {p['source']}")
+            for kname, ms, count in p["top"]:
+                print(f"  {ms:8.4f} ms/pass {count:5d}x {kname[:90]}")
+        torch.cuda.synchronize(engine.device)
+
+
+SPEC_PARITY_LAYERS = 4
+
+
+def spec_parity(engine, prompt: list[int]) -> dict:
+    """Verify parity in float32 at SPEC_PARITY_LAYERS layers of the
+    engine's weights: a copy of the engine (the same quantized leaves, f32
+    activations, an f32 pool of its own, int8 for an int8 engine; graphs as
+    the engine's) prefills its lanes at ragged lengths and decodes 5 greedy
+    steps with decode_lanes; verify_lanes over [pending, the first 4 of
+    them] must give the 5 tokens, and the logits of one forward of those 5
+    rows must equal the 5 decode steps' (T = 1 forwards). Returns the
+    grids, whether they are equal, the positions and the logits error."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from dllama_tpu_torch.models import forward
+    from dllama_tpu_torch.runtime.graphs import StepGraphs
+
+    e = copy.copy(engine)
+    e.params = cast_params(engine, torch.float32)
+    e.params["layers"] = e.params["layers"][:SPEC_PARITY_LAYERS]
+    e.header = dataclasses.replace(engine.header, n_layers=SPEC_PARITY_LAYERS)
+    e.dtype = torch.float32
+    e.kv_dtype = torch.int8 if engine.kv_dtype == torch.int8 else torch.float32
+    e.graphs = StepGraphs(engine.device, engine.cuda_graphs)
+    e.kv_pool = None
+    b, n = e.batch_size, 5
+    e.init_kv_pool(PAGE, 1 + b * -(-e.header.seq_len // PAGE))
+    nb, dev = e._kv_n_blocks, e.device
+    prompts = [prompt[: len(prompt) - 37 * lane] for lane in range(b)]
+    for lane, p in enumerate(prompts):
+        e.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
+        e.prefill_lane(lane, p)
+    pos, pend = [len(p) - 1 for p in prompts], [p[-1] for p in prompts]
+    steps = e.decode_lanes(pend, pos, n, [True] * b)
+    want = [[steps[i][lane] for i in range(n)] for lane in range(b)]
+    rows = [[pend[lane]] + want[lane][: n - 1] for lane in range(b)]
+    grid = e.verify_lanes(rows, pos, [True] * b)
+    with torch.inference_mode():
+        pt = e._page_table_dev()
+        toks = torch.tensor(rows, device=dev)
+        posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+        verify, _ = forward(e.params, e.header, toks, posv, e.kv_pool, "all", page_table=pt)
+        stepwise = torch.stack([
+            forward(e.params, e.header, toks[:, i: i + 1], posv + i, e.kv_pool, "last",
+                    page_table=pt)[0][:, -1] for i in range(n)], dim=1)
+        err = norm_err(verify, stepwise)[0]
+    e.kv_pool = None
+    return dict(equal=grid == want, grid=grid, want=want, pos=pos, err=err)
 
 
 def in_turns() -> list[bool]:
@@ -2105,7 +2482,8 @@ def main() -> int:
     rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
-            + check_paged_decode(device, gen) + check_kv8(device, gen) + check_moe(device, gen))
+            + check_paged_decode(device, gen) + check_verify_stats(device, gen)
+            + check_kv8(device, gen) + check_moe(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -2153,8 +2531,8 @@ def main() -> int:
                 for kv_dtype in (None, "int8"):
                     t0 = time.perf_counter()
                     tag = f" kv-{kv_dtype}" if kv_dtype else ""
-                    counts[f"llama-8b q40{tag} serving"] = serving(
-                        "cuda", tmp, tok_s.get("llama-8b q40"), smi, kv_dtype)
+                    counts.update(serving("cuda", tmp, tok_s.get("llama-8b q40"), smi,
+                                          kv_dtype))
                     print(f"serving phase{tag}: {time.perf_counter() - t0:.1f} s")
                     gc.collect()
                     torch.cuda.empty_cache()

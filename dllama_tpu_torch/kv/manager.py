@@ -18,7 +18,9 @@ A.7). The pool is the lanes' only KV home:
   deduplicated against the tree so a prefix two streams share is stored
   once;
 - ``release_lane`` / ``release_all_lanes`` — refcount hygiene and the
-  error path.
+  error path;
+- ``anchor_for`` — the radix anchor of a lane's last match, the key the
+  shared n-gram drafter groups sibling streams by (runtime/spec.py).
 
 The JAX manager's metrics, recorder events, spans, fault draws and lock
 watch are left out; the counts the tests and the chip smoke read are plain
@@ -51,6 +53,10 @@ class PagedKVManager:
         self.lock = threading.Lock()
         self._lane_pages: dict[int, list[int]] = {}
         self._lane_match_tokens: dict[int, int] = {}
+        # radix anchor of each lane's last match (runtime/spec.py's shared
+        # n-gram store): (node_id, matched token count), absent when the
+        # match found nothing
+        self._lane_anchor: dict[int, tuple[int, int]] = {}
         self.hits = 0  # admissions that adopted a stored prefix
         self.shared_tokens = 0  # prompt tokens served from shared pages
         self.evictions = 0  # pages LRU-evicted from radix leaves
@@ -72,6 +78,12 @@ class PagedKVManager:
             if stale:
                 self.pool.release(stale)
             mr = self.tree.match(tokens)
+            # the anchor follows the raw token match, not the page cap:
+            # grouping siblings needs prefix identity, not adoptable KV
+            if mr.anchor is not None:
+                self._lane_anchor[lane] = (mr.anchor, mr.n_tokens)
+            else:
+                self._lane_anchor.pop(lane, None)
             m = min(mr.n_tokens, len(mr.pages) * ps, len(tokens) - 1)
             if m <= 0:
                 self._lane_match_tokens[lane] = 0
@@ -124,10 +136,18 @@ class PagedKVManager:
             return [self.pool.fork(fork_src)]
         return self.pool.alloc(n)
 
+    def anchor_for(self, lane: int) -> tuple[int, int] | None:
+        """(radix node_id, matched token count) of ``lane``'s last `match`,
+        or None when nothing matched: the grouping key the scheduler hands
+        the shared n-gram drafter."""
+        with self.lock:
+            return self._lane_anchor.get(lane)
+
     def release_lane(self, lane: int) -> None:
         with self.lock:
             pages = self._lane_pages.pop(lane, None)
             self._lane_match_tokens.pop(lane, None)
+            self._lane_anchor.pop(lane, None)
             if pages:
                 self.pool.release(pages)
             self.engine.clear_lane_pages(lane)
@@ -184,6 +204,7 @@ class PagedKVManager:
                 self.pool.release(pages)
             self._lane_pages.clear()
             self._lane_match_tokens.clear()
+            self._lane_anchor.clear()
             self.engine.clear_all_lane_pages()
 
     def check(self) -> None:

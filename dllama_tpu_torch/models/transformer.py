@@ -50,7 +50,8 @@ gathered per lane,
 the new K/V rows are written by device index ops at their pages, and
 attention reads through the page table: the paged decode kernel at T = 1,
 the paged stats kernel for chunks. A lane at a negative position is
-parked: it reads nothing and its row lands on the scratch page 0, so a
+parked: all T of its rows land on the scratch page 0, and at a position
+<= -T (-1 for a decode step) it reads nothing either, so a
 fixed batch of lanes runs whatever number of them is live (every row of a
 batch goes through the same shapes, so a lane's values do not depend on
 the others). The JAX engine gathers the pages into a slab view instead
@@ -185,8 +186,10 @@ def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str,
 
 def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
     """Positions [B] int32 and, for each chunk row, its RoPE row and the
-    pool page and page row it is written to ([B, T] each). Parked lanes
-    (pos < 0) write to page 0, row 0."""
+    pool page and page row it is written to ([B, T] each). Every row of a
+    parked lane (pos < 0) writes to page 0, row 0: at T > 1 a lane parked
+    at -1 would otherwise write its rows 0..T-2 into the pages its
+    page-table row names (at T = 1 the two rules agree)."""
     dev = page_table.device
     if isinstance(pos, int):
         n_rows = page_table.shape[1] * ps
@@ -196,7 +199,7 @@ def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
     else:
         posv = pos.to(device=dev, dtype=torch.int32).reshape(b)
     rows = posv[:, None].long() + torch.arange(t, device=dev)[None, :]
-    live = rows >= 0
+    live = posv[:, None] >= 0
     rows = rows.clamp(min=0)
     page = torch.where(live, page_table.long().gather(1, rows // ps), 0)
     prow = torch.where(live, rows % ps, 0)

@@ -11,8 +11,8 @@ src/dllama-api.cpp):
   (src/dllama-api.cpp:491-520), greedy or sampled per request;
 * ``GET /v1/models`` — single-model listing (src/dllama-api.cpp:538-547);
 * ``GET /v1/health`` — model name, lane occupancy, queue depth, uptime,
-  and the KV pool (pages, radix hits, COW forks, its dtype and the device
-  bytes of a page).
+  the KV pool (pages, radix hits, COW forks, its dtype and the device
+  bytes of a page) and the speculation counters.
 
 A `LaneScheduler` thread owns every engine call. It admits queued requests
 FIFO into the least-recently-used free lane, matches each conversation
@@ -26,10 +26,24 @@ A finished stream publishes
 its whole pages to the tree. An engine error fails the in-flight requests
 with a retryable error payload and the scheduler keeps serving.
 
+Speculation (``--speculation off|ngram|shared``, ``--spec-k``;
+runtime/spec.py): each greedy lane keeps an n-gram drafter over its own
+history (``ngram``) and, with ``shared``, drafts from the continuations its
+sibling streams under the same radix anchor published. Each tick every
+lane with a draft goes through ONE batched verify pass
+(`InferenceEngine.verify_lanes`: one forward of 1 + k rows a lane at its
+own position through the page pool); the lane emits its longest draft
+prefix that agrees with the pass's argmax plus one correction token, each
+through the decode block's per-token path, so greedy streams are the same
+bytes as with ``off``. Sampled lanes and greedy lanes without a draft take
+the decode block in the same tick. ``off`` (the default) builds no
+drafters, no store and no verify graphs. The draft-model source
+(``draft``) waits for ROADMAP A.12.
+
 Left for later slices (ROADMAP A.8): the single-stream (``--batch-size
-1``) path with its NaiveCache, speculation, predictive admission and EDF,
-park/resume, faults and retry, shedding and drain, and the observability
-routes (``/metrics``, ``/v1/debug/*``).
+1``) path with its NaiveCache, predictive admission and EDF, park/resume,
+faults and retry, shedding and drain, and the observability routes
+(``/metrics``, ``/v1/debug/*``).
 """
 
 from __future__ import annotations
@@ -56,6 +70,14 @@ from ..tokenizer import (
     Tokenizer,
 )
 from .engine import InferenceEngine
+from .spec import (
+    DEFAULT_SPEC_K,
+    NgramDrafter,
+    SharedNgramStore,
+    bucket_for,
+    resolve_spec_knobs,
+    spec_buckets,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -156,7 +178,8 @@ class LaneScheduler:
     docstring). One thread makes every engine call."""
 
     def __init__(self, state: "ApiState", block_size: int = DEFAULT_LANE_BLOCK,
-                 admission_chunk: int | None = None):
+                 admission_chunk: int | None = None, speculation: str = "off",
+                 spec_k: int = DEFAULT_SPEC_K):
         self.state = state
         self.engine = state.engine
         self.kv: PagedKVManager = state.kv_manager
@@ -175,10 +198,35 @@ class LaneScheduler:
         self._rr = -1  # round-robin cursor over admitting lanes
         self.pending: list[LaneJob] = []
         self.n_submitted = 0
+        # speculation (module docstring); "off" is a pure bypass
+        self.spec_mode = speculation
+        self.spec_on = speculation != "off"
+        self.spec_k = self.clamp_spec_k(self.engine, spec_k)
+        self.spec_buckets = spec_buckets(self.spec_k)
+        self.drafters: dict[int, NgramDrafter] = {}
+        # the cross-lane store, keyed by radix anchors (mode "shared" only)
+        self.spec_store = SharedNgramStore() if speculation == "shared" else None
+        # the JAX server's dllama_spec_* series as plain counters: draft
+        # tokens proposed and accepted, the accept-length sum and count (a
+        # verify pass emits 1 + accepted tokens a lane), verify passes, and
+        # draft tokens by source
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_accept_len_sum = 0
+        self.spec_accept_len_count = 0
+        self.spec_verify_dispatches = 0
+        self.spec_source: dict[str, int] = {}
         self.cv = threading.Condition()
         self._stop = False
         self.thread = threading.Thread(target=self._loop, daemon=True, name="dllama-scheduler")
         self.thread.start()
+
+    @staticmethod
+    def clamp_spec_k(engine: InferenceEngine, spec_k: int) -> int:
+        """The draft length a verify pass takes: a verify row (1 + k
+        tokens) runs as one chunk, so k is capped by the largest prefill
+        bucket (the JAX scheduler caps it by its lane padding)."""
+        return max(1, min(int(spec_k), max(engine.prefill_buckets) - 1))
 
     def stop(self, timeout: float = 5.0) -> None:
         """Stop the scheduler thread (idempotent)."""
@@ -204,6 +252,7 @@ class LaneScheduler:
         ls = self.lanes[lane]
         ls.job.events.put(("error", err))
         self.lanes[lane] = None
+        self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _fail_admitting(self, lane: int, err: dict) -> None:
@@ -211,6 +260,7 @@ class LaneScheduler:
         if adm is None:
             return
         adm.job.events.put(("error", err))
+        self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _drop_all(self, e: Exception) -> None:
@@ -223,6 +273,7 @@ class LaneScheduler:
         for lane in list(self.admitting):
             self._fail_admitting(lane, err)
         self.kv.release_all_lanes()
+        self.drafters.clear()
 
     # -- scheduler thread --------------------------------------------------
 
@@ -341,11 +392,16 @@ class LaneScheduler:
             top_p=p.top_p, seed=p.seed, history=list(adm.tokens),
         )
         del self.admitting[lane]
+        if self.spec_on and p.temperature <= 0.0:
+            # greedy lanes only: a sampled lane's next token is not the
+            # argmax the verify pass returns, so it stays on the decode block
+            self.drafters[lane] = self._make_drafter(lane, job.request_id)
 
     def _abort_admission(self, lane: int) -> None:
         """Client went away mid-admission: stop prefilling for nobody."""
         adm = self.admitting.pop(lane)
         adm.job.events.put(("done", "cancelled"))
+        self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _finish(self, lane: int, reason: str) -> None:
@@ -354,6 +410,7 @@ class LaneScheduler:
             # publish BEFORE signalling done, so a client's immediate
             # follow-up request matches this conversation
             self.kv.publish(lane, ls.history[: ls.pos])
+        self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
         ls.job.events.put(("done", reason))
         self.lanes[lane] = None
@@ -363,7 +420,9 @@ class LaneScheduler:
     def _consume_token(self, lane: int, t: int) -> bool:
         """Advance one lane by one generated token: history, stream decode,
         EOS and stop-string detection, the length cap. False once the lane
-        finished (its remaining block rows are dropped)."""
+        finished (its remaining block rows are dropped). The decode block
+        and the verify pass both flush through it, so an accepted draft
+        run gets exactly the per-token handling of plain decode."""
         ls = self.lanes[lane]
         if ls is None:
             return False
@@ -389,13 +448,115 @@ class LaneScheduler:
             return False
         return True
 
+    # -- speculation -------------------------------------------------------
+
+    def spec_stats(self) -> dict:
+        """The speculation counters in one snapshot (/v1/health's
+        ``speculation``): drafted and accepted tokens, verify passes, the
+        tokens a lane got from a verify pass on average (1 + accepted), the
+        draft tokens by source, and the shared store's size and hits."""
+        n = self.spec_accept_len_count
+        return {
+            "mode": self.spec_mode,
+            "k": self.spec_k,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "verify_passes": self.spec_verify_dispatches,
+            "tokens_per_lane_pass": 1.0 + self.spec_accept_len_sum / n if n else 0.0,
+            "sources": dict(self.spec_source),
+            "store": self.spec_store.stats() if self.spec_store is not None else None,
+        }
+
+    def _lane_anchor(self, lane: int) -> tuple[int | None, int]:
+        """The lane's radix anchor (node_id, matched tokens) from its
+        admission match, or (None, 0) when sharing is off or nothing
+        matched."""
+        if self.spec_store is not None:
+            a = self.kv.anchor_for(lane)
+            if a is not None:
+                return a
+        return (None, 0)
+
+    def _make_drafter(self, lane: int, stream_id: str) -> NgramDrafter:
+        anchor, aoff = self._lane_anchor(lane)
+        return NgramDrafter(k_max=self.spec_k, shared_store=self.spec_store,
+                            stream_id=stream_id, anchor=anchor, anchor_offset=aoff)
+
+    def _spec_drafts(self) -> dict[int, list[int]]:
+        """This tick's drafts: each greedy lane whose drafter proposes >= 1
+        token within the lane's room (max_tokens and seq_len both cap the
+        accepted run of len(draft) + 1 tokens). The drafter ranks its
+        private n-gram match against the shared store's by matched length."""
+        out: dict[int, list[int]] = {}
+        seq_len = self.engine.header.seq_len
+        for lane, dr in self.drafters.items():
+            ls = self.lanes[lane]
+            if ls is None:
+                continue
+            dr.update(ls.history)
+            room = min(ls.max_pos, seq_len) - ls.pos - 1
+            if room < 1:
+                continue
+            d = dr.draft(budget=min(self.spec_k, room))
+            if d:
+                out[lane] = d
+                self.spec_source[dr.last_source] = (self.spec_source.get(dr.last_source, 0)
+                                                    + len(d))
+        return out
+
+    def _spec_verify(self, drafts: dict[int, list[int]]) -> None:
+        """One verify pass for every drafting lane: rows [pending, draft...,
+        pads] of one bucketed width, each lane's longest draft prefix that
+        agrees with the pass's argmax accepted plus one correction token,
+        flushed through `_consume_token`. A lane too close to seq_len for
+        the shared width leaves ``drafts`` and decodes in the block."""
+        b = len(self.lanes)
+        seq_len = self.engine.header.seq_len
+        t = 1 + bucket_for(max(len(d) for d in drafts.values()), self.spec_buckets)
+        for lane in list(drafts):
+            if self.lanes[lane].pos + t > seq_len:
+                del drafts[lane]
+        if not drafts:
+            return
+        rows = [[0] * t for _ in range(b)]
+        pos, act = [0] * b, [False] * b
+        for lane, d in drafts.items():
+            ls = self.lanes[lane]
+            rows[lane] = [ls.token, *d] + [0] * (t - 1 - len(d))
+            pos[lane], act[lane] = ls.pos, True
+        grid = self.engine.verify_lanes(rows, pos, act)
+        self.spec_verify_dispatches += 1
+        for lane, d in drafts.items():
+            out = grid[lane]
+            # out[0] is the greedy token after the pending one, out[j] the
+            # one after draft j-1: accept while they agree, then out[a]
+            a = 0
+            while a < len(d) and out[a] == d[a]:
+                a += 1
+            self.drafters[lane].feedback(len(d), a)
+            self.spec_drafted += len(d)
+            self.spec_accepted += a
+            self.spec_accept_len_sum += a
+            self.spec_accept_len_count += 1
+            for tok in d[:a] + [out[a]]:
+                if not self._consume_token(lane, tok):
+                    break
+
     def _step_block(self) -> None:
         b = len(self.lanes)
         for lane in range(b):  # free lanes whose client went away
             ls = self.lanes[lane]
             if ls is not None and ls.job.cancelled:
                 self._finish(lane, "cancelled")
-        active = [ls is not None for ls in self.lanes]
+        # verify first: greedy lanes with a draft take one batched verify
+        # pass; every other live lane decodes in the same tick's block
+        verified: set[int] = set()
+        if self.spec_on and self.drafters:
+            drafts = self._spec_drafts()
+            if drafts:
+                self._spec_verify(drafts)
+                verified = set(drafts)
+        active = [ls is not None and lane not in verified for lane, ls in enumerate(self.lanes)]
         if not any(active):
             return
         rows = self.engine.decode_lanes(
@@ -406,9 +567,9 @@ class LaneScheduler:
             [ls.top_p if ls else 1.0 for ls in self.lanes],
             seeds=[ls.seed if ls else None for ls in self.lanes],
         )
-        if not rows:  # every active lane is out of sequence space
+        if not rows:  # every lane in the block is out of sequence space
             for lane in range(b):
-                if self.lanes[lane] is not None:
+                if active[lane]:
                     self._finish(lane, "length")
             return
         for row in rows:
@@ -425,11 +586,19 @@ class ApiState:
                  model_name: str = "dllama-tpu",
                  chat_template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
                  lane_block_size: int = DEFAULT_LANE_BLOCK, admission_chunk: int | None = None,
-                 kv_page_size: int = 0, kv_pool_pages: int = 0):
+                 kv_page_size: int = 0, kv_pool_pages: int = 0, speculation: str | None = None,
+                 spec_k: int | None = None):
         if engine.batch_size < 2:
             raise NotImplementedError(
                 "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
                 "ROADMAP A.8; serve with --batch-size > 1"
+            )
+        # explicit knobs beat DLLAMA_SPECULATION / DLLAMA_SPEC_K beat the defaults
+        speculation, spec_k = resolve_spec_knobs(speculation, spec_k)
+        if speculation == "draft":
+            raise NotImplementedError(
+                "draft-model speculation (--speculation draft) is not ported: ROADMAP A.12; "
+                "use off, ngram or shared"
             )
         self.engine = engine
         self.tokenizer = tokenizer
@@ -444,11 +613,14 @@ class ApiState:
         self.template = ChatTemplateGenerator(
             chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
         self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages)
-        # every admission-path graph before the first request (dllama_tpu's
-        # api_server rehearses its compiled programs the same way)
-        engine.rehearse_admission(lane_block_size)
+        # every admission-path graph before the first request, the verify
+        # buckets too when speculation is on (dllama_tpu's api_server
+        # rehearses its compiled programs the same way)
+        engine.rehearse_admission(lane_block_size, spec_k=0 if speculation == "off"
+                                  else LaneScheduler.clamp_spec_k(engine, spec_k))
         self.scheduler = LaneScheduler(self, block_size=lane_block_size,
-                                       admission_chunk=admission_chunk)
+                                       admission_chunk=admission_chunk, speculation=speculation,
+                                       spec_k=spec_k)
 
     def health_snapshot(self) -> dict:
         sched = self.scheduler
@@ -464,6 +636,7 @@ class ApiState:
             "kv": dict(self.kv_manager.debug(),
                        dtype=str(self.engine.kv_dtype).removeprefix("torch."),
                        page_bytes=self.engine.kv_page_bytes()),
+            "speculation": sched.spec_stats(),
         }
 
 
@@ -646,14 +819,19 @@ def serve(
     admission_chunk: int | None = None,
     kv_page_size: int | None = None,
     kv_pool_pages: int | None = None,
+    speculation: str | None = None,
+    spec_k: int | None = None,
 ) -> ThreadingHTTPServer:
     """Build the server over a ``batch_size`` > 1 engine (its lanes get the
     page pool here); the caller runs ``serve_forever()`` and
-    ``server_close()`` stops the scheduler too."""
+    ``server_close()`` stops the scheduler too. ``speculation`` and
+    ``spec_k`` default to ``DLLAMA_SPECULATION`` / ``DLLAMA_SPEC_K``, then
+    ``off`` and 4."""
     state = ApiState(
         engine, tokenizer, model_name, chat_template_type,
         lane_block_size=lane_block_size or DEFAULT_LANE_BLOCK, admission_chunk=admission_chunk,
         kv_page_size=kv_page_size or 0, kv_pool_pages=kv_pool_pages or 0,
+        speculation=speculation, spec_k=spec_k,
     )
     server = ThreadingHTTPServer((host, port), make_handler(state))
     server.state = state
@@ -667,17 +845,33 @@ def serve(
     return server
 
 
-def main(argv=None) -> None:
+def build_parser():
+    """The server's flags: host and port, speculation, and the engine's
+    (`cli.add_engine_args`)."""
     import argparse
-    import os
 
-    from ..cli import add_engine_args, load_engine
+    from ..cli import add_engine_args
 
     parser = argparse.ArgumentParser(prog="dllama-tpu-torch-api")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=9990)
+    parser.add_argument("--speculation", default=None, choices=["off", "ngram", "shared"],
+                        help="greedy lanes draft from n-grams of their own history "
+                             "(ngram) and of sibling streams (shared), verified in one pass "
+                             "a tick (default: $DLLAMA_SPECULATION, else off)")
+    parser.add_argument("--spec-k", type=int, default=None,
+                        help="most draft tokens a verify pass checks a lane "
+                             "(default: $DLLAMA_SPEC_K, else 4)")
     add_engine_args(parser)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> None:
+    import os
+
+    from ..cli import load_engine
+
+    args = build_parser().parse_args(argv)
     if args.batch_size < 2:
         raise SystemExit("the single-stream server path (--batch-size 1) is not ported "
                          "(ROADMAP A.8): pass --batch-size 2 or more")
@@ -688,7 +882,7 @@ def main(argv=None) -> None:
         engine, tok, host=args.host, port=args.port, model_name=os.path.basename(args.model),
         chat_template_type=ttype, lane_block_size=args.lane_block_size,
         admission_chunk=args.admission_chunk, kv_page_size=args.kv_page_size,
-        kv_pool_pages=args.kv_pool_pages,
+        kv_pool_pages=args.kv_pool_pages, speculation=args.speculation, spec_k=args.spec_k,
     )
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")
     try:

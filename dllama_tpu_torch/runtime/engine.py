@@ -37,8 +37,10 @@ ported (ROADMAP A.7 holds the slab lanes). A decode block runs every lane
 of the batch (idle lanes parked at position -1: they read nothing and
 write to scratch page 0), so each lane's values are the same whatever the
 others do. The host keeps the page table and copies it to the card when it
-changes, not on every step. The single-stream path keeps its own slab
-cache [L, 1, KH, S, hd].
+changes, not on every step. `verify_lanes` checks speculative drafts: one
+forward of 1 + k rows a lane at its own position, the greedy argmax grid
+back in one readback. The single-stream path keeps its own slab cache [L,
+1, KH, S, hd].
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ..ops.int8_matmul import pick_group, requantize_params
 from ..ops.kv_cache import kv_tensors, new_kv_leaf, reset_kv_leaf
 from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
+from .spec import spec_buckets
 
 # Prefill chunk buckets (the reference's --nBatches role; the JAX engine
 # compiles one program per bucket, the port keeps the same chunking).
@@ -164,10 +167,12 @@ class InferenceEngine:
         self._page_table = None  # host [B, n_blocks] int32, the truth
         self._pt_dev = None  # its copy on the device
         self._pt_dirty = False
-        # plain counters: pool pages copied on the device (the COW forks)
-        # and decode steps run by decode_lanes (each one forward of B rows)
+        # plain counters: pool pages copied on the device (the COW forks),
+        # decode steps run by decode_lanes (each one forward of B rows) and
+        # verify passes run by verify_lanes (each one forward of B x t rows)
         self.kv_copy_pages = 0
         self.lane_decode_steps = 0
+        self.lane_verify_steps = 0
         self._lane_seed_base = seed
         self._rng_calls = 0
 
@@ -712,13 +717,78 @@ class InferenceEngine:
         self.graphs.run(key, block)
         return b["out"].tolist()
 
-    def rehearse_admission(self, block_size: int) -> None:
+    @torch.inference_mode()
+    def verify_lanes(self, rows: list[list[int]], pos: list[int],
+                     active: list[bool]) -> list[list[int]]:
+        """Verify each active lane's draft row in ONE forward (dllama_tpu's
+        ``verify_lanes``). ``rows[l]`` is [pending token, draft_0 ..
+        draft_{k-1}, pads] of one shared width t, fed at positions pos[l] ..
+        pos[l] + t - 1 through the lane's pages; returns the greedy argmax
+        grid [lanes][t] (inactive lanes report 0), in one readback. The
+        caller accepts the longest draft prefix that agrees with the argmax
+        of the row before plus one correction token, and rewinds the rest:
+        the rejected rows' KV stays in the pool at or past the lane's
+        rewound position, where the causal mask hides it until later
+        writes overwrite it (why a publish of history[:pos] composes with
+        rewinds). Inactive lanes are parked at -t: the stats kernel reads
+        nothing for them and their rows land on the scratch page 0.
+
+        Checked on the host: one width, 2 <= t <= the largest prefill
+        bucket, and pos + t <= seq_len for every live lane (on the card a
+        page-table index past the table is not checked). The graph
+        ``("lane_verify_paged", t)``."""
+        self._require_kv_pool()
+        b, seq_len = self.batch_size, self.header.seq_len
+        if len(rows) != b or len(pos) != b or len(active) != b:
+            raise ValueError("rows/pos/active must have one entry per lane")
+        t = len(rows[0])
+        if t < 2:
+            raise ValueError("verify rows need a pending token + >=1 draft")
+        if any(len(r) != t for r in rows):
+            raise ValueError("verify rows must share one bucketed width")
+        if t > max(self.prefill_buckets):
+            raise ValueError(f"verify width {t} exceeds the largest prefill bucket "
+                             f"{max(self.prefill_buckets)}")
+        live = [i for i, a in enumerate(active) if a]
+        if not live:
+            return []
+        for i in live:
+            if pos[i] < 0 or pos[i] + t > seq_len:
+                raise ValueError(f"lane {i}: verify row at pos {pos[i]} width {t} "
+                                 f"exceeds seqLen {seq_len}")
+        out = self._lane_verify(rows, [pos[i] if active[i] else -t for i in range(b)])
+        self.lane_verify_steps += 1
+        return out
+
+    def _lane_verify(self, rows: list[list[int]], cur: list[int]) -> list[list[int]]:
+        """Every lane's verify row [B, t] at positions ``cur`` [B] (-t:
+        parked) in the graph ``("lane_verify_paged", t)``: all logits, their
+        argmax on the device, 0 for parked lanes. Returns [B][t]."""
+        t, bsz = len(rows[0]), self.batch_size
+        key = ("lane_verify_paged", t)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((bsz, t), I64), pos=((bsz,), I32), out=((bsz, t), I64)))
+        self.graphs.put(b["tok"], rows)
+        self.graphs.put(b["pos"], cur)
+        pt = self._page_table_dev()
+
+        def verify():
+            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.kv_pool,
+                                logits_mode="all", page_table=pt)
+            b["out"].copy_(torch.where(b["pos"][:, None] >= 0, torch.argmax(logits, dim=-1), 0))
+
+        self.graphs.run(key, verify)
+        return b["out"].tolist()
+
+    def rehearse_admission(self, block_size: int, spec_k: int = 0) -> None:
         """Capture the admission path's graphs before serving (dllama_tpu's
-        ``rehearse_admission``): every lane-prefill bucket and the greedy
-        and sampled lane decode block of ``block_size`` steps. Each first
-        use runs on the scratch page only (an all-zero page-table row, every
-        lane parked), so no lane's pages change. A no-op where graphs are
-        off (the CPU among them)."""
+        ``rehearse_admission``): every lane-prefill bucket, the greedy and
+        sampled lane decode block of ``block_size`` steps and, with
+        ``spec_k`` > 0, one verify graph per draft bucket
+        (`spec_buckets(min(spec_k, largest prefill bucket - 1))`, width 1 +
+        bucket). Each first use runs on the scratch page only (an all-zero
+        page-table row, every lane parked), so no lane's pages change. A
+        no-op where graphs are off (the CPU among them)."""
         self._require_kv_pool()
         if not self.graphs.active:
             return
@@ -729,6 +799,9 @@ class InferenceEngine:
             for sampled in (False, True):
                 self._lane_block([0] * bsz, [[-1] * bsz] * n, sampled, [1.0] * bsz,
                                  [1.0] * bsz, [0] * bsz)
+            if spec_k > 0:
+                for kb in spec_buckets(min(spec_k, max(self.prefill_buckets) - 1)):
+                    self._lane_verify([[0] * (kb + 1)] * bsz, [-(kb + 1)] * bsz)
         self._sync()
 
     def generate_batch(self, prompts: list[list[int]], max_steps: int,

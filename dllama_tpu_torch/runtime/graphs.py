@@ -7,7 +7,8 @@ ops from Python; `StepGraphs` records one shape's launches into a CUDA
 graph and replays it, so a block of forwards costs the host one launch.
 Keys follow the JAX program keys: ``("block", n, greedy)``, ``("prefill",
 t, paged)``, ``("score", t)``, ``("lane_prefill_paged", t)``,
-``("lane_block_paged", n, sampled)``, ``("step", greedy)``.
+``("lane_block_paged", n, sampled)``, ``("lane_verify_paged", t)``,
+``("step", greedy)``.
 
 A step reads its inputs from static buffers (`buffers`: tokens, the base
 position, the lanes' positions, a page-table row, temperatures, top-p

@@ -73,3 +73,12 @@ def test_serving_slice_modules_are_covered():
     for m in ("kv.pool", "kv.radix", "kv.manager", "tokenizer.chat", "runtime.api_server",
               "ops.kv_cache"):
         assert f"dllama_tpu_torch.{m}" in mods
+
+
+def test_speculation_slice_modules_are_covered():
+    """The speculation slice's copies (runtime/spec.py and the lockwatch it
+    takes its lock from) are among the modules and files checked above."""
+    mods, files = _port_modules(), _port_files()
+    for m in ("runtime.spec", "analysis.lockwatch"):
+        assert f"dllama_tpu_torch.{m}" in mods
+        assert os.path.join(PKG, *m.split(".")) + ".py" in files

@@ -110,7 +110,15 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    with a device profile of the T = 5 pass). The serving
    phase runs once more on an int8 pool (``kv_dtype="int8"``, the same
    1,537 pages; its bytes and /v1/health's page bytes printed), with the
-   same gates on the int8 kernels' launches and answers.
+   same gates on the int8 kernels' launches and answers. The resilience
+   round (`serving_resilience`) serves the seven requests again on the
+   serving engine under the chaos plane: fault-free, transient faults,
+   a decode poison, an admission poison, park/resume at max_streams 7,
+   and a drain; no graph captured and the pool in place throughout, each
+   resumed stream's K/V rows held to its rows before; on the int8 pool
+   fault-free and the decode poison; and on an f32 engine over the same
+   file (`resilience_f32`) fault-free, both poisons and park/resume, every
+   answer equal to the fault-free one.
    llama-8b also runs ``q40`` with ``--kv-dtype int8`` (``q40 kv-int8``):
    the same gates, launches under the ``*_kv8`` counters, the cache's bytes
    against a bf16 cache's, and where its greedy stream leaves the bf16-KV
@@ -176,6 +184,14 @@ TOL_BF16_OUT = 2.0**-7  # bf16 outputs: one rounding step
 # readings are in PERF.md)
 TOL_MOE_BF16 = 5e-4
 TOL_E2E = 2e-2  # f32 logits after the whole model (and q40i8's int8 inputs), kernel vs plain path
+# a resumed stream's re-prefilled K/V rows against its rows before the
+# fault or the park (`serving_resilience`), by the pool's type: f32 is held
+# like f32 logits after the whole model; bf16 rows (and int8 ones, rounded
+# from bf16) re-made by other kernels through 32 bf16 layers are held an
+# order above one rounding step, as far as the model's bf16 logits move
+# between two kernel paths (the bf16 parity lines: 4-6e-2), where a lost,
+# zeroed or misplaced row reads ~1
+TOL_KV_RESUME = {"torch.float32": TOL_E2E, "torch.bfloat16": 0.1, "torch.int8": 0.1}
 SEED = 0
 HOST_RUNS = 3  # host-timed runs a side, graphed and eager in turns
 HOST_BLOCKS = 4  # decode blocks of BLOCK tokens in a timed run
@@ -1747,16 +1763,25 @@ def serving_payloads(tok) -> list[dict]:
     return out
 
 
-def _request(url: str, payload: dict) -> dict:
+def _request(url: str, payload: dict, allow_error: bool = False) -> dict:
     """POST one chat completion; its content, finish reason, ``dllama``
-    metadata and wall time (streamed or not)."""
+    metadata and wall time (streamed or not). With ``allow_error`` an
+    error answer (an HTTP status, or an error event in a stream) returns
+    ``dict(error=status or "stream", body=..., retry_after=...)``."""
+    import urllib.error
     import urllib.request
 
     req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"}, method="POST")
     t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as r:
-        raw = r.read().decode()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read().decode()
+    except urllib.error.HTTPError as e:
+        if not allow_error:
+            raise
+        return dict(error=e.code, body=json.loads(e.read()).get("error", {}),
+                    retry_after=e.headers.get("Retry-After"))
     wall = time.perf_counter() - t0
     if not payload["stream"]:
         body = json.loads(raw)
@@ -1768,6 +1793,8 @@ def _request(url: str, payload: dict) -> dict:
         if not line.startswith("data: {"):
             continue
         chunk = json.loads(line[6:])
+        if "error" in chunk and allow_error:
+            return dict(error="stream", body=chunk["error"], retry_after=None)
         require("error" not in chunk, f"serving: stream error {chunk.get('error')}")
         choice = chunk["choices"][0]
         if choice["finish_reason"] is None:
@@ -1792,9 +1819,11 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     launched n_layers times a decode step, and no attention kernel but it
     and the pool type's stats kernel; lane vs slab and lane kernel vs plain
     f32 logits <= TOL_E2E. With the engine's bf16 pool, then the
-    speculation round on the same engine (`serving_spec`) and the f32
-    verify parity (`spec_parity`). Returns the launch counts by label: the
-    serving run's, and the speculation round's."""
+    speculation round on the same engine (`serving_spec`), the resilience
+    round (`serving_resilience`; on the int8 pool its fault-free round and
+    the decode poison), its f32 pass (`resilience_f32`) and the f32 verify
+    parity (`spec_parity`). Returns the launch counts by label: the serving
+    run's, the speculation round's and the resilience rounds'."""
     import threading
 
     import torch
@@ -1926,6 +1955,10 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         off = dict(results=results, lane_tok_s=agg, decode_s=conc_decode["s"],
                    tokens=conc_decode["tokens"])
         out["llama-8b q40 serving spec"] = serving_spec(engine, tok, off, lane_step_ms)
+    out[f"llama-8b q40{kv_tag} serving resilience"] = serving_resilience(
+        engine, tok, results, smi, "0b" if kv_dtype else "0abcde", f"llama-8b q40{kv_tag}")
+    if not kv_dtype:
+        out["llama-8b q40 f32 serving resilience"] = resilience_f32(device, mp, tp, smi)
     engine.kv_pool = None  # the pool's 3 GB, before the f32 parity runs
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
     par = lane_parity(engine, prompt)
@@ -1957,9 +1990,12 @@ def _track_generated(sched) -> dict:
     return generated
 
 
-def _concurrent(url: str, sched, payloads: list[dict]) -> tuple[list, float]:
+def _concurrent(url: str, sched, payloads: list[dict], allow_error: bool = False,
+                during=None) -> tuple[list, float]:
     """Send every payload at once, in order (the lanes take the first four,
-    the rest queue); returns the results and the wall seconds."""
+    the rest queue); returns the results and the wall seconds. ``during``,
+    if given, is called once every request is in the queue, before the
+    joins."""
     import threading
 
     results: list = [None] * len(payloads)
@@ -1967,7 +2003,7 @@ def _concurrent(url: str, sched, payloads: list[dict]) -> tuple[list, float]:
 
     def send(i):
         try:
-            results[i] = _request(url, payloads[i])
+            results[i] = _request(url, payloads[i], allow_error)
         except Exception as e:  # reported below
             errors.append((i, repr(e)))
 
@@ -1978,6 +2014,8 @@ def _concurrent(url: str, sched, payloads: list[dict]) -> tuple[list, float]:
         deadline = time.perf_counter() + 60
         while sched.n_submitted < n0 + i + 1 and time.perf_counter() < deadline:
             time.sleep(0.001)  # submit in order: requests 4.. queue behind 0-3
+    if during is not None:
+        during()
     for th in threads:
         th.join(timeout=600)
     require(not errors and all(r is not None for r in results), f"serving: {errors}")
@@ -2149,6 +2187,335 @@ def verify_cost(engine, lane_step_ms: float | None) -> None:
             for kname, ms, count in p["top"]:
                 print(f"  {ms:8.4f} ms/pass {count:5d}x {kname[:90]}")
         torch.cuda.synchronize(engine.device)
+
+
+# (spec, what must hold), by round: (0) fault-free, (a) transient faults,
+# (b) a decode poison, (c) an admission poison, (d) park/resume at
+# max_streams 7 on 4 lanes, (e) a drain with streams in flight
+RESILIENCE_ROUNDS = {
+    "0": ("fault-free", None),
+    "a": ("transient", "dispatch:every=7:seed=1"),
+    "b": ("decode poison", "dispatch:op=decode_lanes:nth=2:kind=poison"),
+    "c": ("admission poison", "dispatch:op=prefill_lane_chunk:nth=2:kind=poison"),
+    "d": ("park/resume", None),
+    "e": ("drain", None),
+}
+PARK_STREAMS = 7  # --max-streams of round (d): the seven requests over 4 lanes
+
+
+def resilience_f32(device: str, mp: str, tp: str, smi: str) -> dict:
+    """Rounds 0, (b), (c) and (d) of `serving_resilience` on an f32 engine
+    over the serving file (f32 activations and pool, the Q40 weights as
+    they are): a re-prefilled row differs from the decoded one by sum order
+    only, so every answer must equal round 0's. Returns the launch counts."""
+    import torch
+
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    engine = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=SEED,
+                             weight_format="q40", device=device, batch_size=SERVE_LANES)
+    try:
+        return serving_resilience(engine, Tokenizer(tp), None, smi, "0bcd", "llama-8b q40 f32",
+                                  exact=True)
+    finally:
+        engine.kv_pool = engine.params = None
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _lane_kv(engine, lane: int, n: int):
+    """Rows [0, n) of ``lane``'s K and V in every layer, read through the
+    engine's host page table, in f32 (an int8 pool's rows dequantized):
+    [2, n_layers, n_kv_heads, n, head_dim]."""
+    import torch
+
+    from dllama_tpu_torch.ops.kv_cache import QuantKV
+
+    ps = engine._kv_page_size
+    pages = torch.as_tensor(engine._page_table[lane][: -(-n // ps)].astype("int64"),
+                            device=engine.device)
+    out = []
+    for leaf in engine.kv_pool.values():
+        if isinstance(leaf, QuantKV):
+            v = leaf.q[:, pages].float() * leaf.s[:, pages]
+        else:
+            v = leaf[:, pages].float()
+        n_l, n_p, kh, _, hd = v.shape
+        out.append(v.permute(0, 2, 1, 3, 4).reshape(n_l, kh, n_p * ps, hd)[:, :, :n])
+    return torch.stack(out)
+
+
+def _pool_ptrs(engine) -> list[int]:
+    from dllama_tpu_torch.ops.kv_cache import kv_tensors
+
+    return [t.data_ptr() for leaf in engine.kv_pool.values() for t in kv_tensors(leaf)]
+
+
+def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
+                       rounds: str = "0abcde", label: str = "llama-8b q40",
+                       exact: bool = False) -> dict:
+    """The resilience round of the serving phase: a third `serve` over the
+    serving engine (speculation off; the pool made anew and the rehearsal's
+    graphs captured again) and the seven requests, four at once, in each of
+    ``rounds`` (`RESILIENCE_ROUNDS`), each schedule armed through the chaos
+    plane (`set_fault_plane`) and each round on an empty pool (`kv.reset`,
+    in place), as the spec-off round began, so every round prefills what
+    that round prefilled. Truth is each request's answer in the spec-off
+    round (``truth``: equal to its solo replay, gated there).
+    ``truth`` None: round 0's answers are the truth. Gates, in every round:
+    every answer that did not fail ends with stop or length; in rounds 0,
+    (a) and (e) it equals its truth (text and tokens), and in (b), (c) and
+    (d), where a stream's rows are re-prefilled, only with ``exact`` (f32):
+    in bf16 the tile and the stats kernel re-make rows that the GEMV and
+    the decode kernel wrote, in other sum orders, and near-tied random
+    logits turn that into other tokens (PERF.md §6), so there the
+    round prints where answers part and gates instead each resumed
+    stream's K/V rows against the rows it had before the fault or the park
+    (`_lane_kv`: max|after - before| / max|before| within `TOL_KV_RESUME`
+    of the pool's type); no graph was captured
+    (the graph count and ``capture_s`` as after the rehearsal); the pool's
+    ``data_ptr`` did not move; ``kv.check()`` passes; the scheduler is idle
+    after it. By round: (a) dispatch retries > 0; (b) lanes recovered >= 1;
+    (c) exactly one request failed, retryable (503 with Retry-After, or an
+    error event in its stream), and one recovery ran; (d) parks >= 1 and
+    resumes equal to parks; (e) ``POST /v1/drain`` once every request is
+    queued: a new request answers 503 with ``Retry-After: 5``, the seven
+    finish, ``drained`` is set. The decode kernel launched n_layers times a
+    decode step, and no attention kernel but it and the stats kernel.
+    Prints each round's lane tok/s against the fault-free round's, the
+    largest gap between two tokens of a stream, for (b) and (c) the time
+    from the fault to the last resumed lane's next token, the tokens the
+    resumes re-prefilled against those they re-matched, with the card's
+    name and power limit. Returns the round's launch counts."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.faults import set_fault_plane
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    h = engine.header
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    state, sched, kv, g = srv.state, srv.state.scheduler, srv.state.kv_manager, engine.graphs
+    graphs0, ptrs0 = (g.n_graphs, g.capture_s), _pool_ptrs(engine)
+    # the scheduler's hooks: decode time and lane tokens, each token's time
+    # by request, each recovery's start with the requests it resumed, and
+    # each live stream's K/V rows before a pool reset or a park, held
+    # against its rows once its resume re-prefilled them
+    timer = {"s": 0.0, "tokens": 0}
+    times: dict = {}
+    recs: list = []
+    before: dict = {}
+    restored: list = []
+    inner, consume, recover = engine.decode_lanes, sched._consume_token, sched._recover
+    reset_pool, park, finish_adm = (engine.reset_kv_pool, sched._park_stream,
+                                    sched._finish_admission)
+
+    def snapshot(lane):
+        ls = sched.lanes[lane]
+        before[ls.job.request_id] = _lane_kv(engine, lane, ls.pos)
+
+    def snapshot_reset():
+        for lane, ls in enumerate(sched.lanes):
+            if ls is not None:
+                snapshot(lane)
+        reset_pool()
+
+    def snapshot_park(lane):
+        snapshot(lane)
+        park(lane)
+
+    def check_resume(lane, adm):
+        finish_adm(lane, adm)
+        ls = adm.resume_state
+        was = None if ls is None else before.pop(ls.job.request_id, None)
+        if was is not None:
+            now = _lane_kv(engine, lane, ls.pos)
+            same_rows = int((now == was).all(dim=4).all(dim=2).all(dim=1).all(dim=0).sum())
+            restored.append(((now - was).abs().max().item() / was.abs().max().item(),
+                             ls.pos, same_rows))
+
+    def timed_decode(tokens, pos, n_steps, active, *args, **kw):
+        t = time.perf_counter()
+        try:
+            rows = inner(tokens, pos, n_steps, active, *args, **kw)
+        finally:
+            timer["s"] += time.perf_counter() - t
+        timer["tokens"] += len(rows) * sum(map(bool, active))
+        return rows
+
+    def timed_consume(lane, t):
+        ls = sched.lanes[lane]
+        if ls is not None:
+            times.setdefault(ls.job.request_id, []).append(time.perf_counter())
+        return consume(lane, t)
+
+    def timed_recover(e, culprit):
+        resumed = [ls.job.request_id for lane, ls in enumerate(sched.lanes)
+                   if ls is not None and lane != culprit]
+        recs.append((time.perf_counter(), resumed))
+        recover(e, culprit)
+
+    engine.decode_lanes, sched._consume_token, sched._recover = (timed_decode, timed_consume,
+                                                                 timed_recover)
+    engine.reset_kv_pool, sched._park_stream, sched._finish_admission = (
+        snapshot_reset, snapshot_park, check_resume)
+    generated = _track_generated(sched)
+    payloads = serving_payloads(tok)
+    base: dict = {}
+    truth_name = None
+    try:
+        reset_launch_counts()
+        engine.lane_decode_steps = 0
+        for key in rounds:
+            name, spec = RESILIENCE_ROUNDS[key]
+            timer.update(s=0.0, tokens=0)
+            times.clear()
+            recs.clear()
+            before.clear()
+            restored.clear()
+            c0 = {k: getattr(sched, k) for k in ("dispatch_retries", "recoveries",
+                                                 "lanes_recovered", "parks", "resumes",
+                                                 "resume_reused_tokens", "resume_prefill_tokens")}
+            drain: dict = {}
+            kv.reset()
+            before.clear()  # the reset's own snapshot: no lane was live
+
+            def during():
+                if key == "e":
+                    req = urllib.request.Request(url + "/v1/drain", data=b"", method="POST")
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        drain["begin"] = json.loads(r.read())
+                    drain["late"] = _request(url, payloads[0], allow_error=True)
+
+            plane = set_fault_plane(spec or "")
+            sched.max_streams = PARK_STREAMS if key == "d" else 0
+            try:
+                results, wall = _concurrent(url, sched, payloads, allow_error=True, during=during)
+            finally:
+                fired = plane.counts()
+                set_fault_plane("")
+                sched.max_streams = 0
+            deadline = time.perf_counter() + 30
+            while (any(sched.lanes) or sched.admitting or sched.pending) and (
+                    time.perf_counter() < deadline):
+                time.sleep(0.01)  # the last _finish clears its lane after "done"
+            d = {k: getattr(sched, k) - v for k, v in c0.items()}
+            failed = [i for i, r in enumerate(results) if "error" in r]
+            for r in results:
+                if "error" not in r:
+                    r["tokens"] = generated[r["meta"]["request_id"]]
+            truth_name = truth_name or ("the spec-off round's" if truth else "round 0's")
+            truth = truth or results
+            parts = []
+            for i, (r, want) in enumerate(zip(results, truth)):
+                if "error" in r:
+                    continue
+                require(r["finish"] in ("stop", "length"),
+                        f"resilience {key} r{i}: finish {r['finish']}")
+                if r["content"] != want["content"] or r["tokens"] != want["tokens"]:
+                    at = next((j for j, (x, y) in enumerate(zip(r["tokens"], want["tokens"]))
+                               if x != y), min(len(r["tokens"]), len(want["tokens"])))
+                    parts.append(f"r{i} at token {at} of {len(want['tokens'])}")
+            gaps = [b - a for ts in times.values() for a, b in zip(ts, ts[1:])]
+            tok_s = timer["tokens"] / timer["s"] if timer["s"] else 0.0
+            base = base or dict(tok_s=tok_s, gap=max(gaps, default=0.0))
+            rec_s = [min((t for t in times.get(rid, []) if t > t0), default=t0) - t0
+                     for t0, resumed in recs for rid in resumed]
+            print(f"resilience {key} {name}{'' if spec is None else ' ' + spec} ({label}, "
+                  f"{SERVE_LANES} lanes): {len(payloads) - len(failed)} of {len(payloads)} "
+                  f"answered, failed {failed}; answers equal to {truth_name} "
+                  f"{not parts}{'' if not parts else ' (parts: ' + ', '.join(parts) + ')'}; "
+                  f"faults fired {json.dumps(fired)}; {json.dumps(d)}; lane tok/s {tok_s:.2f} "
+                  f"({tok_s / base['tok_s']:.3f}x the fault-free round's {base['tok_s']:.2f}); "
+                  f"largest token gap {max(gaps, default=0.0) * 1e3:.1f} ms (fault-free "
+                  f"{base['gap'] * 1e3:.1f} ms); {wall:.2f} s wall; {smi}")
+            if recs:
+                print(f"resilience {key} recovery: {len(recs)} recoveries resumed "
+                      f"{sum(len(r) for _, r in recs)} streams; fault to the last resumed "
+                      f"lane's next token {max(rec_s, default=0.0) * 1e3:.1f} ms; re-prefilled "
+                      f"{d['resume_prefill_tokens']} tokens, re-matched "
+                      f"{d['resume_reused_tokens']}; {smi}")
+            if key == "d":
+                print(f"resilience d resume: {d['parks']} parks, {d['resumes']} resumes; "
+                      f"re-prefilled {d['resume_prefill_tokens']} tokens against "
+                      f"{d['resume_reused_tokens']} re-matched from the radix tree; {smi}")
+            kv_tol = TOL_KV_RESUME[str(engine.kv_dtype)]
+            if key in "bcd":
+                err = max((e for e, _, _ in restored), default=0.0)
+                print(f"resilience {key} K/V restored: {len(restored)} resumed streams, "
+                      f"{sum(n for _, n, _ in restored)} rows, "
+                      f"{sum(m for _, _, m in restored)} of them bit-equal; max|after - before| "
+                      f"/ max|before| {err:.3e} (limit {kv_tol:.3e}); {smi}")
+                require(len(restored) == d["lanes_recovered"] + d["resumes"] and restored,
+                        f"resilience {key}: {len(restored)} resumes checked, "
+                        f"{d['lanes_recovered'] + d['resumes']} ran")
+                require(err <= kv_tol, f"resilience {key}: K/V restored with err {err:.3e}")
+            require(not parts or (key in "bcd" and not exact),
+                    f"resilience {key}: answers part from {truth_name}: {parts}")
+            require((g.n_graphs, g.capture_s) == graphs0,
+                    f"resilience {key}: graphs {g.n_graphs} / capture {g.capture_s:.3f} s after "
+                    f"the round, {graphs0} after the rehearsal")
+            require(_pool_ptrs(engine) == ptrs0, f"resilience {key}: the pool moved")
+            kv.check()
+            require(not (any(sched.lanes) or sched.admitting or sched.pending),
+                    f"resilience {key}: the scheduler is not idle after the round")
+            if key == "a":
+                require(d["dispatch_retries"] > 0 and fired.get("dispatch", 0) > 0,
+                        f"resilience a: {d['dispatch_retries']} retries, faults {fired}")
+            if key == "b":
+                require(d["lanes_recovered"] >= 1, f"resilience b: {d['lanes_recovered']} "
+                        "lanes recovered")
+            if key == "c":
+                require(len(failed) == 1 and d["recoveries"] == 1,
+                        f"resilience c: failed {failed}, {d['recoveries']} recoveries")
+                for r in (results[i] for i in failed):
+                    require(r["body"].get("retryable") is True
+                            and (r["error"] == "stream" or (r["error"] == 503
+                                                            and r["retry_after"] == "1")),
+                            f"resilience c: the culprit's answer {r}")
+            elif key in "0abde":
+                require(not failed, f"resilience {key}: failed {failed}")
+            if key == "d":
+                require(d["parks"] >= 1 and d["resumes"] == d["parks"] and not sched._n_parked,
+                        f"resilience d: {d['parks']} parks, {d['resumes']} resumes")
+            if key == "e":
+                late = drain["late"]
+                print(f"resilience e drain: POST /v1/drain {json.dumps(drain['begin'])}; a new "
+                      f"request answered {late.get('error')} Retry-After "
+                      f"{late.get('retry_after')}; drained {state.drained.wait(timeout=60)}")
+                require(drain["begin"]["status"] == "draining"
+                        and drain["begin"]["in_flight"] >= 1,
+                        f"resilience e: drain answered {drain['begin']}")
+                require(late.get("error") == 503 and late.get("retry_after") == "5",
+                        f"resilience e: a request during the drain got {late}")
+                require(state.drained.is_set(), "resilience e: drained was not set")
+        counts = launch_counts()
+        steps = engine.lane_decode_steps
+    finally:
+        set_fault_plane("")
+        srv.shutdown()
+        srv.server_close()
+        engine.__dict__.pop("decode_lanes", None)
+        engine.__dict__.pop("reset_kv_pool", None)
+    kv8 = "_kv8" if engine.kv_dtype == torch.int8 else ""
+    decode_kernel, stats = "paged_flash_decode" + kv8, "flash_attention_stats" + kv8
+    print(f"resilience launches ({label}) {json.dumps(counts)}; decode steps {steps}; health "
+          f"{json.dumps(srv.state.health_snapshot()['resilience'])}")
+    require(counts[decode_kernel] == h.n_layers * steps and steps > 0,
+            f"resilience: {counts[decode_kernel]} {decode_kernel} launches, the steps imply "
+            f"{h.n_layers * steps}")
+    other = [k for k, c in counts.items() if c and "flash" in k and k not in (decode_kernel, stats)]
+    require(counts[stats] > 0 and not other, f"resilience: attention launches {counts}")
+    return counts
 
 
 SPEC_PARITY_LAYERS = 4

@@ -18,14 +18,21 @@ A.7). The pool is the lanes' only KV home:
   deduplicated against the tree so a prefix two streams share is stored
   once;
 - ``release_lane`` / ``release_all_lanes`` — refcount hygiene and the
-  error path;
+  error path; ``reset`` — the recovery path's big hammer: every page and
+  stored prefix dropped (after a failed dispatch the pool's bytes are not
+  trusted);
 - ``anchor_for`` — the radix anchor of a lane's last match, the key the
   shared n-gram drafter groups sibling streams by (runtime/spec.py).
 
-The JAX manager's metrics, recorder events, spans, fault draws and lock
-watch are left out; the counts the tests and the chip smoke read are plain
-attributes (``hits``, ``shared_tokens``, ``evictions``, and the pool's
-``cow_forks``). All engine calls come from the scheduler thread; ``lock``
+The chaos plane's draws are the JAX manager's (runtime/faults.py):
+``kv_alloc`` (``op=adopt``) before an adopt allocates, raised to the
+scheduler, which retries it; ``dispatch`` (``op=kv_publish``) on entry to a
+publish and ``kv_alloc`` (``op=publish``) where it would take the tree's
+pages, each absorbed: the stream already finished, only future reuse is
+lost. The JAX manager's metrics, recorder events, spans and lock watch are
+left out; the counts the tests and the chip smoke read are plain
+attributes (``hits``, ``shared_tokens``, ``evictions``, ``publish_skips``
+and the pool's ``cow_forks``). All engine calls come from the scheduler thread; ``lock``
 protects the host accounting against concurrent readers (``debug``).
 """
 
@@ -35,6 +42,7 @@ import logging
 import threading
 from typing import Any
 
+from ..runtime.faults import get_fault_plane
 from .pool import PagePool
 from .radix import RadixTree
 
@@ -60,6 +68,7 @@ class PagedKVManager:
         self.hits = 0  # admissions that adopted a stored prefix
         self.shared_tokens = 0  # prompt tokens served from shared pages
         self.evictions = 0  # pages LRU-evicted from radix leaves
+        self.publish_skips = 0  # publishes an injected fault dropped
 
     # -- admission ---------------------------------------------------------
     def match(self, lane: int, tokens: list[int]) -> tuple[int, list[int]]:
@@ -102,6 +111,9 @@ class PagedKVManager:
         ps = self.page_size
         n_blocks = self.engine._kv_n_blocks
         with self.lock:
+            fault = get_fault_plane().draw("kv_alloc", op="adopt")
+            if fault is not None:
+                raise fault
             m = self._lane_match_tokens.get(lane, 0)
             lane_list = list(pages)
             if m % ps and lane_list:
@@ -158,12 +170,17 @@ class PagedKVManager:
         its pages) as whole pages: the tree takes its own reference on the
         lane's pages for the slots it does not hold yet, and inserts the
         token path. Returns the number of pages newly stored (0: full
-        dedup, or no whole page to store)."""
+        dedup, no whole page to store, or an injected fault: the publish
+        narrows itself, releasing the tree's new references, and nothing
+        fails)."""
         ps = self.page_size
         n_full = len(tokens) // ps
         if n_full == 0:
             return 0
         full = list(tokens[: n_full * ps])
+        if get_fault_plane().draw("dispatch", op="kv_publish") is not None:
+            self.publish_skips += 1
+            return 0
         with self.lock:
             lane_list = self._lane_pages.get(lane) or []
             if len(lane_list) < n_full:
@@ -178,6 +195,10 @@ class PagedKVManager:
             # dies with release_lane, and a tree pointing at freed pages
             # would hand later admissions recycled KV
             self.pool.retain(pages)
+            if get_fault_plane().draw("kv_alloc", op="publish") is not None:
+                self.pool.release(pages)
+                self.publish_skips += 1
+                return 0
             try:
                 self.tree.insert(full, pages, first_slot=k_shared)
             except ValueError:
@@ -195,6 +216,21 @@ class PagedKVManager:
             self.shared_tokens += n_tokens
 
     # -- error path / introspection ----------------------------------------
+    def reset(self, reset_device: bool = True) -> None:
+        """Drop every page and stored prefix: the host accounting and, by
+        default, the device pool (`InferenceEngine.reset_kv_pool`). The
+        recovery path passes ``reset_device=False``: the engine's dispatch
+        guard already reset the pool in place."""
+        with self.lock:
+            self.tree.clear()
+            self.pool.reset()
+            self._lane_pages.clear()
+            self._lane_match_tokens.clear()
+            self._lane_anchor.clear()
+            self.engine.clear_all_lane_pages()
+        if reset_device:
+            self.engine.reset_kv_pool()
+
     def release_all_lanes(self) -> None:
         """Scheduler-error path: every lane was dropped, release their
         retains. The tree's stored prefixes stay valid (no dispatch writes

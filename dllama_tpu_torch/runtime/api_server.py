@@ -1,7 +1,8 @@
 """OpenAI-compatible HTTP API server over pool-native lanes.
 
     python -m dllama_tpu_torch.runtime.api_server --model m.m --tokenizer t.t \\
-        --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu]
+        --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu] \\
+        [--faults SPEC] [--retry-max N] [--max-queue-depth N] [--max-streams N]
 
 The port's core of dllama_tpu/runtime/api_server.py (reference:
 src/dllama-api.cpp):
@@ -10,9 +11,12 @@ src/dllama-api.cpp):
   with ``temperature``, ``top_p``, ``seed``, ``max_tokens`` and ``stop``
   (src/dllama-api.cpp:491-520), greedy or sampled per request;
 * ``GET /v1/models`` — single-model listing (src/dllama-api.cpp:538-547);
-* ``GET /v1/health`` — model name, lane occupancy, queue depth, uptime,
-  the KV pool (pages, radix hits, COW forks, its dtype and the device
-  bytes of a page) and the speculation counters.
+* ``GET /v1/health`` — status (``ok`` or ``draining``), model name, lane
+  occupancy, queue depth, uptime, the KV pool (pages, radix hits, COW
+  forks, its dtype and the device bytes of a page), the speculation
+  counters and the resilience counters;
+* ``POST /v1/drain`` — graceful drain (SIGTERM too): admission stops,
+  the streams in flight run to their end, then ``drained`` is set.
 
 A `LaneScheduler` thread owns every engine call. It admits queued requests
 FIFO into the least-recently-used free lane, matches each conversation
@@ -23,8 +27,29 @@ every active lane together in decode blocks (on the card, CUDA graphs
 that `InferenceEngine.rehearse_admission` captures before the scheduler
 starts: every lane-prefill bucket, the greedy and the sampled block).
 A finished stream publishes
-its whole pages to the tree. An engine error fails the in-flight requests
-with a retryable error payload and the scheduler keeps serving.
+its whole pages to the tree.
+
+Resilience (the JAX server's port of the reference's crash-retry loop,
+src/dllama-api.cpp:616-628): every engine dispatch (prefill chunk, decode
+block, verify pass, adopt) goes through `LaneScheduler._retry_dispatch`,
+which retries a failure up to ``--retry-max`` times with a doubling
+backoff while the engine's ``cache_epoch`` stands still (the pool is
+intact: the dispatch did nothing). A failure that moved the epoch reset
+the pool (the engine's dispatch guard): `_recover` resets the page
+accounting and turns every surviving stream into a resume that re-prefills
+its history from host-side truth and reinstalls its untouched lane state,
+so the stream goes on where it was (in f32 byte for byte; in bf16 the
+re-made rows carry the prefill kernels' roundings, not decode's); only the
+lane whose own admission poisoned the pool fails, with a retryable error. Retries
+exhausted on an intact pool fail the in-flight requests with a retryable
+error (503 and ``Retry-After``), and the scheduler keeps serving. The
+chaos plane (runtime/faults.py, ``--faults``) injects such failures on
+purpose. ``--max-queue-depth`` sheds by ``priority`` (``low`` at half the
+depth, ``high`` at twice it; 429 and ``Retry-After``); a drain answers 503
+with ``Retry-After: 5``. With ``--max-streams`` above the lane count, a
+queued request parks the most-progressed stream (its whole pages published,
+its lane freed, its job requeued); the resume adopts the pages with no
+device copy and re-prefills only the page tail.
 
 Speculation (``--speculation off|ngram|shared``, ``--spec-k``;
 runtime/spec.py): each greedy lane keeps an n-gram drafter over its own
@@ -40,16 +65,18 @@ the decode block in the same tick. ``off`` (the default) builds no
 drafters, no store and no verify graphs. The draft-model source
 (``draft``) waits for ROADMAP A.12.
 
-Left for later slices (ROADMAP A.8): the single-stream (``--batch-size
-1``) path with its NaiveCache, predictive admission and EDF, park/resume,
-faults and retry, shedding and drain, and the observability routes
-(``/metrics``, ``/v1/debug/*``).
+Left for later slices: the single-stream (``--batch-size 1``) path with its
+NaiveCache (ROADMAP A.8); the observability routes (``/metrics``,
+``/v1/debug/*``) and with them the ``infeasible`` and ``degraded`` shedding
+reasons and the predicted ``Retry-After`` (A.6: this server quotes the JAX
+server's floors); predictive admission, EDF and deadline preemption (A.7).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -70,6 +97,7 @@ from ..tokenizer import (
     Tokenizer,
 )
 from .engine import InferenceEngine
+from .faults import get_fault_plane, set_fault_plane
 from .spec import (
     DEFAULT_SPEC_K,
     NgramDrafter,
@@ -82,6 +110,43 @@ from .spec import (
 logger = logging.getLogger(__name__)
 
 DEFAULT_LANE_BLOCK = 8
+PRIORITIES = ("low", "normal", "high")
+# shed when the queue holds this share of --max-queue-depth, by priority
+SHED_FACTOR = {"low": 0.5, "normal": 1.0, "high": 2.0}
+# the JAX server's Retry-After floors (seconds) when it has no predictor
+RETRY_AFTER_DRAINING = 5
+RETRY_AFTER = 1
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name, "")
+    return int(v) if v else default
+
+
+def resolve_stream_knobs(max_streams: int | None = None) -> int:
+    """Oversubscription knob: explicit (``--max-streams``) beats
+    ``DLLAMA_MAX_STREAMS`` beats 0 (off: streams cap at the lane count).
+    Above the lane count the scheduler parks a stream for a queued request
+    and resumes it later (module docstring)."""
+    if max_streams is None:
+        max_streams = _env_int("DLLAMA_MAX_STREAMS", 0)
+    return int(max_streams)
+
+
+def resolve_resilience_knobs(retry_max: int | None = None, retry_backoff_ms: int | None = None,
+                             max_queue_depth: int | None = None) -> tuple[int, int, int]:
+    """Retry and shed knobs: explicit (CLI flag) beats the environment
+    (``DLLAMA_RETRY_MAX``, ``DLLAMA_RETRY_BACKOFF_MS``,
+    ``DLLAMA_MAX_QUEUE_DEPTH``) beats the defaults 3, 5 and 0. retry_max
+    counts attempts after the first failure (0: no retries);
+    max_queue_depth 0 sheds nothing."""
+    if retry_max is None:
+        retry_max = _env_int("DLLAMA_RETRY_MAX", 3)
+    if retry_backoff_ms is None:
+        retry_backoff_ms = _env_int("DLLAMA_RETRY_BACKOFF_MS", 5)
+    if max_queue_depth is None:
+        max_queue_depth = _env_int("DLLAMA_MAX_QUEUE_DEPTH", 0)
+    return int(retry_max), int(retry_backoff_ms), int(max_queue_depth)
 
 
 @dataclass
@@ -99,6 +164,8 @@ class InferenceParams:
     stream: bool = False
     max_tokens: int = -1
     stop: list[str] = field(default_factory=list)
+    # load-shedding class (one of PRIORITIES; `ApiState.admission_decision`)
+    priority: str = "normal"
 
 
 class LaneJob:
@@ -122,6 +189,8 @@ class LaneJob:
         self.t_submit = time.perf_counter()
         self.t_admit: float | None = None
         self.t_first: float | None = None
+        # a parked stream's preserved lane state, until its resume
+        self._park_resume: _LaneState | None = None
 
     def metadata(self) -> dict:
         """Serving metadata for the client: request id, lane, TTFT, queue
@@ -154,6 +223,8 @@ class _LaneState:
     # [0, pos) hold history[:pos]; the last entry is the pending token whose
     # row the next decode step writes. _finish publishes history[:pos].
     history: list = field(default_factory=list)
+    # the lane's drafter while a park or a recovery holds the state
+    drafter: object = None
 
 
 @dataclass
@@ -171,6 +242,11 @@ class _AdmittingLane:
     public_prompt: str
     adopt_pages: list = field(default_factory=list)
     adopted: bool = False  # the adopt ran (it is its own tick)
+    start_pos: int = 0  # the adopted prefix's length
+    # a resume (recovery or park): ``tokens`` is the stream's whole fed
+    # history and _finish_admission reinstalls this state untouched
+    resume_state: _LaneState | None = None
+    from_park: bool = False
 
 
 class LaneScheduler:
@@ -179,7 +255,8 @@ class LaneScheduler:
 
     def __init__(self, state: "ApiState", block_size: int = DEFAULT_LANE_BLOCK,
                  admission_chunk: int | None = None, speculation: str = "off",
-                 spec_k: int = DEFAULT_SPEC_K):
+                 spec_k: int = DEFAULT_SPEC_K, max_streams: int = 0, retry_max: int = 3,
+                 retry_backoff_ms: int = 5):
         self.state = state
         self.engine = state.engine
         self.kv: PagedKVManager = state.kv_manager
@@ -198,6 +275,28 @@ class LaneScheduler:
         self._rr = -1  # round-robin cursor over admitting lanes
         self.pending: list[LaneJob] = []
         self.n_submitted = 0
+        # park/resume above the lane count (module docstring; 0: off)
+        self.max_streams = max(0, int(max_streams))
+        # tokens a lane emitted since its last (re)admission: a park victim
+        # needs a full block of them, so a deep queue rotates the lanes
+        # instead of thrashing park and resume
+        self._progress = [0] * b
+        self._n_parked = 0
+        # transient-dispatch retries: attempts after the first failure and
+        # the backoff's base
+        self.retry_max = max(0, int(retry_max))
+        self.retry_backoff_s = max(0, int(retry_backoff_ms)) / 1000.0
+        # the JAX server's resilience series as plain counters: dispatch
+        # retries, recoveries (poisoned pools) and the lanes they resumed,
+        # parks and resumes, and the tokens resumes re-matched from the
+        # radix tree and re-prefilled
+        self.dispatch_retries = 0
+        self.recoveries = 0
+        self.lanes_recovered = 0
+        self.parks = 0
+        self.resumes = 0
+        self.resume_reused_tokens = 0
+        self.resume_prefill_tokens = 0
         # speculation (module docstring); "off" is a pure bypass
         self.spec_mode = speculation
         self.spec_on = speculation != "off"
@@ -244,7 +343,46 @@ class LaneScheduler:
             self.cv.notify()
         return job
 
-    # -- failure paths -----------------------------------------------------
+    def resilience_stats(self) -> dict:
+        """The resilience counters in one snapshot (/v1/health's
+        ``resilience``), the chaos plane's injected faults by site too."""
+        return {
+            "retry_max": self.retry_max,
+            "dispatch_retries": self.dispatch_retries,
+            "recoveries": self.recoveries,
+            "lanes_recovered": self.lanes_recovered,
+            "cache_epoch": self.engine.cache_epoch,
+            "max_streams": max(self.max_streams, len(self.lanes)),
+            "parked": self._n_parked,
+            "parks": self.parks,
+            "resumes": self.resumes,
+            "resume_reused_tokens": self.resume_reused_tokens,
+            "resume_prefill_tokens": self.resume_prefill_tokens,
+            "shed": dict(self.state.shed),
+            "faults": get_fault_plane().counts(),
+        }
+
+    # -- failure classification and recovery -------------------------------
+
+    def _retry_dispatch(self, fn):
+        """Run one engine dispatch, retrying a failure up to ``retry_max``
+        times with a doubling backoff while the engine's ``cache_epoch``
+        stands still: the pool is as it was before the call, so the
+        dispatch is safe to repeat. A failure that moved the epoch re-raises
+        at once: the pool was reset, and the caller's recovery owns it."""
+        attempt = 0
+        while True:
+            epoch = self.engine.cache_epoch
+            try:
+                return fn()
+            except Exception as e:
+                if self.engine.cache_epoch != epoch or attempt >= self.retry_max:
+                    raise
+                attempt += 1
+                self.dispatch_retries += 1
+                logger.warning("engine dispatch failed (%s: %s); retry %d of %d",
+                               type(e).__name__, e, attempt, self.retry_max)
+                time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
 
     def _fail_active(self, lane: int, err: dict) -> None:
         """Error out one active lane's request and free the lane (nothing
@@ -256,16 +394,19 @@ class LaneScheduler:
         self.kv.release_lane(lane)
 
     def _fail_admitting(self, lane: int, err: dict) -> None:
+        """Error out one request mid-admission and release its retains."""
         adm = self.admitting.pop(lane, None)
         if adm is None:
             return
+        if adm.from_park:
+            self._n_parked -= 1
         adm.job.events.put(("error", err))
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _drop_all(self, e: Exception) -> None:
-        """An engine error in a decode block: fail every in-flight request
-        with a retryable error and keep the scheduler alive."""
+        """Retries exhausted on an intact pool: fail every in-flight
+        request with a retryable error and keep the scheduler alive."""
         err = {"message": str(e), "retryable": True}
         for lane in range(len(self.lanes)):
             if self.lanes[lane] is not None:
@@ -274,6 +415,47 @@ class LaneScheduler:
             self._fail_admitting(lane, err)
         self.kv.release_all_lanes()
         self.drafters.clear()
+
+    def _recover(self, e: Exception, culprit: int | None) -> None:
+        """A failed dispatch reset the pool (the epoch moved): every page
+        id of the lanes, the radix tree and the adopt lists names zeroed
+        rows, so the page accounting resets too (the device pool is
+        already zero). Each active lane becomes a resume: an admission of
+        its whole fed history that re-prefills it (nothing is left to
+        re-match) and reinstalls the untouched _LaneState, its drafter
+        riding along, so the stream goes on where it was. Lanes
+        mid-admission rewind to position 0. Only ``culprit``, the lane
+        whose own admission dispatch failed, gets a retryable error."""
+        err = {"message": str(e), "retryable": True}
+        self.kv.reset(reset_device=False)
+        for lane in list(self.admitting):
+            if lane == culprit:
+                self._fail_admitting(lane, err)
+                continue
+            adm = self.admitting[lane]
+            adm.cursor = adm.start_pos = 0
+            adm.adopt_pages = []
+            adm.adopted = False
+        for lane, ls in enumerate(self.lanes):
+            if ls is None:
+                continue
+            if lane == culprit:
+                self._fail_active(lane, err)
+                continue
+            if ls.job.cancelled:
+                self._finish(lane, "cancelled")
+                continue
+            self.lanes[lane] = None
+            ls.drafter = self.drafters.pop(lane, None)
+            start_pos, pages = self.kv.match(lane, ls.history)
+            self.admitting[lane] = _AdmittingLane(
+                job=ls.job, tokens=list(ls.history), cursor=start_pos,
+                prompt_end=len(ls.history) - 1, max_pos=ls.max_pos, public_prompt="",
+                adopt_pages=pages, start_pos=start_pos, resume_state=ls,
+            )
+        self.recoveries += 1
+        with self.cv:
+            self.cv.notify_all()
 
     # -- scheduler thread --------------------------------------------------
 
@@ -303,16 +485,86 @@ class LaneScheduler:
                 self._admission_count += 1
                 self.lane_used[lane] = self._admission_count
                 admissions.append((lane, job))
+            n_pending = len(self.pending)
         for lane, job in admissions:
             self._begin_admission(lane, job)
+        self._maybe_park(n_pending)
         self._admission_tick()
         if any(self.lanes):
+            epoch0 = self.engine.cache_epoch
             try:
                 self._step_block()
             except Exception as e:
-                logger.exception("lane scheduler step failed; dropping in-flight lanes")
-                self._drop_all(e)
+                # transient failures were retried in _retry_dispatch; what
+                # gets here moved the epoch (the pool was reset: the lanes
+                # resume; no lane of a batched dispatch is the culprit) or
+                # exhausted the retries on an intact pool
+                poisoned = self.engine.cache_epoch != epoch0
+                logger.exception("lane scheduler step failed (%s)",
+                                 "pool reset; recovering lanes" if poisoned
+                                 else "pool intact; dropping in-flight lanes")
+                if poisoned:
+                    self._recover(e, culprit=None)
+                else:
+                    self._drop_all(e)
         return True
+
+    # -- oversubscription: park and resume ---------------------------------
+
+    def _maybe_park(self, n_pending: int) -> None:
+        """Park ONE active lane when requests wait, no lane is free or
+        admitting, and ``max_streams`` exceeds the lanes. The victim is
+        the lane that emitted the most tokens since its last (re)admission,
+        at least one full block. ``n_pending`` is the tick's queue depth,
+        read under the cv."""
+        if self.max_streams <= len(self.lanes) or n_pending <= 0 or self.admitting:
+            return
+        if any(ls is None for ls in self.lanes):
+            return
+        victim, best = -1, self.block_size - 1
+        for lane, ls in enumerate(self.lanes):
+            if not ls.job.cancelled and self._progress[lane] > best:
+                victim, best = lane, self._progress[lane]
+        if victim >= 0:
+            self._park_stream(victim)
+
+    def _park_stream(self, lane: int) -> None:
+        """Free ``lane`` for a queued request: publish the history's whole
+        pages (no device work), release the lane and requeue the job with
+        its preserved _LaneState and drafter (`_resume_parked`)."""
+        ls = self.lanes[lane]
+        self.kv.publish(lane, ls.history[: ls.pos])
+        self.kv.release_lane(lane)
+        self.lanes[lane] = None
+        ls.drafter = self.drafters.pop(lane, None)
+        self._progress[lane] = 0
+        ls.job._park_resume = ls
+        self._n_parked += 1
+        self.parks += 1
+        with self.cv:
+            self.pending.append(ls.job)
+            self.cv.notify()
+
+    def _resume_parked(self, lane: int, job: LaneJob, ls: _LaneState) -> None:
+        """Queue a parked stream's re-admission on ``lane``: the radix
+        match adopts its published pages back (no device copy) and only the
+        page tail re-prefills; _finish_admission reinstalls ``ls``."""
+        job._park_resume = None
+        job.lane = lane
+        try:
+            start_pos, pages = self.kv.match(lane, ls.history)
+            if start_pos > 0:
+                self.kv.note_hit(start_pos)
+            self.admitting[lane] = _AdmittingLane(
+                job=job, tokens=list(ls.history), cursor=start_pos,
+                prompt_end=len(ls.history) - 1, max_pos=ls.max_pos, public_prompt="",
+                adopt_pages=pages, start_pos=start_pos, resume_state=ls, from_park=True,
+            )
+        except Exception as e:
+            logger.exception("resume of a parked stream on lane %d failed", lane)
+            job.events.put(("error", {"message": str(e), "retryable": True}))
+            self._n_parked -= 1
+            self.kv.release_lane(lane)
 
     def _begin_admission(self, lane: int, job: LaneJob) -> None:
         """Tokenize the whole conversation, match it against the radix
@@ -321,6 +573,9 @@ class LaneScheduler:
         a prompt too long) are the client's: retryable False."""
         state, tok = self.state, self.state.tokenizer
         p = job.params
+        if job._park_resume is not None:
+            self._resume_parked(lane, job, job._park_resume)
+            return
         try:
             items = [ChatItem(m.role, m.content) for m in p.messages]
             prompt = state.template.generate(items, append_generation_prompt=True)
@@ -340,7 +595,7 @@ class LaneScheduler:
             self.admitting[lane] = _AdmittingLane(
                 job=job, tokens=tokens, cursor=start_pos, prompt_end=prompt_end,
                 max_pos=max_pos, public_prompt=prompt.public_prompt or "",
-                adopt_pages=adopt_pages,
+                adopt_pages=adopt_pages, start_pos=start_pos,
             )
         except Exception as e:
             job.events.put(("error", {"message": str(e), "retryable": False}))
@@ -362,23 +617,51 @@ class LaneScheduler:
             self._abort_admission(lane)
             return
         fills = adm.tokens[:-1]
+        epoch0 = self.engine.cache_epoch
         try:
             if not adm.adopted:
-                self.kv.adopt(lane, adm.adopt_pages)
+                self._retry_dispatch(lambda: self.kv.adopt(lane, adm.adopt_pages))
                 adm.adopted = True
             elif adm.cursor < len(fills):
-                adm.cursor += self.engine.prefill_lane_chunk(
-                    lane, fills[adm.cursor:], adm.cursor, budget=self.admission_chunk)
+                adm.cursor += self._retry_dispatch(lambda: self.engine.prefill_lane_chunk(
+                    lane, fills[adm.cursor:], adm.cursor, budget=self.admission_chunk))
             if adm.adopted and adm.cursor >= len(fills):
                 self._finish_admission(lane, adm)
         except Exception as e:
             logger.exception("admission of lane %d failed", lane)
-            self._fail_admitting(lane, {"message": str(e), "retryable": True})
+            if self.engine.cache_epoch != epoch0:
+                # the failed dispatch reset the pool under every lane: they
+                # all resume, and this admission fails
+                self._recover(e, culprit=lane)
+            else:
+                self._fail_admitting(lane, {"message": str(e), "retryable": True})
 
     def _finish_admission(self, lane: int, adm: _AdmittingLane) -> None:
-        """The last fill token landed: install the decode-side _LaneState."""
+        """The last fill token landed: install the decode-side _LaneState,
+        or a resume's preserved one as it was (the stream decoder, the EOS
+        detector and the counts go on; the client sees no restart)."""
         state, tok = self.state, self.state.tokenizer
         job, p = adm.job, adm.job.params
+        self._progress[lane] = 0
+        ls = adm.resume_state
+        if ls is not None:
+            self.lanes[lane] = ls
+            del self.admitting[lane]
+            dr, ls.drafter = ls.drafter, None
+            if self.spec_on and ls.temperature <= 0.0:
+                if isinstance(dr, NgramDrafter):
+                    dr.rebind(*self._lane_anchor(lane))
+                else:
+                    dr = self._make_drafter(lane, job.request_id)
+                self.drafters[lane] = dr
+            self.resume_reused_tokens += adm.start_pos
+            self.resume_prefill_tokens += adm.prompt_end - adm.start_pos
+            if adm.from_park:
+                self._n_parked -= 1
+                self.resumes += 1
+            else:
+                self.lanes_recovered += 1
+            return
         if adm.public_prompt:
             job.buffer += adm.public_prompt
             job.events.put(("delta", adm.public_prompt))
@@ -400,6 +683,8 @@ class LaneScheduler:
     def _abort_admission(self, lane: int) -> None:
         """Client went away mid-admission: stop prefilling for nobody."""
         adm = self.admitting.pop(lane)
+        if adm.from_park:
+            self._n_parked -= 1
         adm.job.events.put(("done", "cancelled"))
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
@@ -426,6 +711,7 @@ class LaneScheduler:
         ls = self.lanes[lane]
         if ls is None:
             return False
+        self._progress[lane] += 1
         ls.pos += 1
         ls.token = t
         ls.history.append(t)
@@ -524,7 +810,7 @@ class LaneScheduler:
             ls = self.lanes[lane]
             rows[lane] = [ls.token, *d] + [0] * (t - 1 - len(d))
             pos[lane], act[lane] = ls.pos, True
-        grid = self.engine.verify_lanes(rows, pos, act)
+        grid = self._retry_dispatch(lambda: self.engine.verify_lanes(rows, pos, act))
         self.spec_verify_dispatches += 1
         for lane, d in drafts.items():
             out = grid[lane]
@@ -559,14 +845,13 @@ class LaneScheduler:
         active = [ls is not None and lane not in verified for lane, ls in enumerate(self.lanes)]
         if not any(active):
             return
-        rows = self.engine.decode_lanes(
-            [ls.token if ls else 0 for ls in self.lanes],
-            [ls.pos if ls else 0 for ls in self.lanes],
-            self.block_size, active,
-            [ls.temperature if ls else 0.0 for ls in self.lanes],
-            [ls.top_p if ls else 1.0 for ls in self.lanes],
-            seeds=[ls.seed if ls else None for ls in self.lanes],
-        )
+        tokens = [ls.token if ls else 0 for ls in self.lanes]
+        pos = [ls.pos if ls else 0 for ls in self.lanes]
+        temps = [ls.temperature if ls else 0.0 for ls in self.lanes]
+        topps = [ls.top_p if ls else 1.0 for ls in self.lanes]
+        seeds = [ls.seed if ls else None for ls in self.lanes]
+        rows = self._retry_dispatch(lambda: self.engine.decode_lanes(
+            tokens, pos, self.block_size, active, temps, topps, seeds=seeds))
         if not rows:  # every lane in the block is out of sequence space
             for lane in range(b):
                 if active[lane]:
@@ -580,21 +865,25 @@ class LaneScheduler:
 
 class ApiState:
     """Engine, tokenizer, chat template, KV manager and lane scheduler
-    shared by the request handlers."""
+    shared by the request handlers, and the shedding and drain state."""
 
     def __init__(self, engine: InferenceEngine, tokenizer: Tokenizer,
                  model_name: str = "dllama-tpu",
                  chat_template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
                  lane_block_size: int = DEFAULT_LANE_BLOCK, admission_chunk: int | None = None,
                  kv_page_size: int = 0, kv_pool_pages: int = 0, speculation: str | None = None,
-                 spec_k: int | None = None):
+                 spec_k: int | None = None, max_streams: int | None = None,
+                 retry_max: int | None = None, retry_backoff_ms: int | None = None,
+                 max_queue_depth: int | None = None):
         if engine.batch_size < 2:
             raise NotImplementedError(
                 "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
                 "ROADMAP A.8; serve with --batch-size > 1"
             )
-        # explicit knobs beat DLLAMA_SPECULATION / DLLAMA_SPEC_K beat the defaults
+        # explicit knobs beat the DLLAMA_* environment beats the defaults
         speculation, spec_k = resolve_spec_knobs(speculation, spec_k)
+        retry_max, retry_backoff_ms, self.max_queue_depth = resolve_resilience_knobs(
+            retry_max, retry_backoff_ms, max_queue_depth)
         if speculation == "draft":
             raise NotImplementedError(
                 "draft-model speculation (--speculation draft) is not ported: ROADMAP A.12; "
@@ -604,6 +893,13 @@ class ApiState:
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.start_unix = time.time()
+        # requests refused at admission, by reason; graceful drain (the
+        # handler threads write both under _lock, never the scheduler's cv)
+        self._lock = threading.Lock()
+        self.shed: dict[str, int] = {}
+        self.draining = False
+        self.draining_since: float | None = None
+        self.drained = threading.Event()
         # request defaults captured once
         self.default_temperature = engine.temperature
         self.default_top_p = engine.sampler.topp
@@ -620,14 +916,60 @@ class ApiState:
                                   else LaneScheduler.clamp_spec_k(engine, spec_k))
         self.scheduler = LaneScheduler(self, block_size=lane_block_size,
                                        admission_chunk=admission_chunk, speculation=speculation,
-                                       spec_k=spec_k)
+                                       spec_k=spec_k, max_streams=resolve_stream_knobs(max_streams),
+                                       retry_max=retry_max, retry_backoff_ms=retry_backoff_ms)
+
+    def admission_decision(self, priority: str) -> tuple[str, int] | None:
+        """The shedding gate, before a request reaches the queue: None
+        admits, else (reason, Retry-After seconds). A drain refuses all;
+        ``--max-queue-depth`` refuses by priority once the queue holds
+        `SHED_FACTOR` of it (the JAX server's ladder and its Retry-After
+        floors: its ``infeasible`` and ``degraded`` reasons wait for the
+        load predictor and the anomaly monitor, ROADMAP A.6)."""
+        if self.draining:
+            return "draining", RETRY_AFTER_DRAINING
+        depth = self.max_queue_depth
+        if depth > 0 and len(self.scheduler.pending) >= depth * SHED_FACTOR.get(priority, 1.0):
+            return "queue_full", RETRY_AFTER
+        return None
+
+    def note_shed(self, reason: str) -> None:
+        with self._lock:
+            self.shed[reason] = self.shed.get(reason, 0) + 1
+
+    def in_flight(self) -> int:
+        sched = self.scheduler
+        return sum(ls is not None for ls in sched.lanes) + len(sched.admitting) + len(
+            sched.pending)
+
+    def begin_drain(self) -> dict:
+        """Start a graceful drain (``POST /v1/drain``, SIGTERM): admission
+        sheds every request, the streams in flight run to their end, then
+        ``drained`` is set. Idempotent."""
+        with self._lock:
+            start = not self.draining
+            if start:
+                self.draining, self.draining_since = True, time.time()
+        if start:
+            threading.Thread(target=self._drain_watch, daemon=True, name="dllama-drain").start()
+        return {"status": "draining", "in_flight": self.in_flight(),
+                "drained": self.drained.is_set(), "since_unix": self.draining_since}
+
+    def _drain_watch(self) -> None:
+        """Poll until nothing is in flight, then set ``drained`` (the
+        SIGTERM handler waits on it before it shuts the server down)."""
+        while self.in_flight():
+            time.sleep(0.05)
+        self.drained.set()
 
     def health_snapshot(self) -> dict:
         sched = self.scheduler
         total = self.engine.batch_size
         active = sum(1 for ls in sched.lanes if ls is not None)
+        extra = {"draining_since_unix": self.draining_since} if self.draining else {}
         return {
-            "status": "ok",
+            "status": "draining" if self.draining else "ok",
+            **extra,
             "model": self.model_name,
             "uptime_s": round(time.time() - self.start_unix, 3),
             "lanes": {"total": total, "active": active, "free": total - active},
@@ -637,6 +979,7 @@ class ApiState:
                        dtype=str(self.engine.kv_dtype).removeprefix("torch."),
                        page_bytes=self.engine.kv_page_bytes()),
             "speculation": sched.spec_stats(),
+            "resilience": sched.resilience_stats(),
         }
 
 
@@ -694,12 +1037,16 @@ def make_handler(state: ApiState):
         def log_message(self, fmt, *args):  # quiet access log
             pass
 
-        def _json(self, payload: dict, status: int = 200) -> None:
+        def _json(self, payload: dict, status: int = 200,
+                  retry_after: int | None = None) -> None:
             body = json.dumps(payload).encode("utf-8")
             self.send_response(status)
             self.send_header("Access-Control-Allow-Origin", "*")
             self.send_header("Content-Type", "application/json; charset=utf-8")
             self.send_header("Content-Length", str(len(body)))
+            if retry_after is not None:
+                # shed, drain and retryable failures say when to come back
+                self.send_header("Retry-After", str(retry_after))
             self.end_headers()
             self.wfile.write(body)
 
@@ -724,7 +1071,11 @@ def make_handler(state: ApiState):
                 self.send_error(404, "Not Found")
 
         def do_POST(self):
-            if self.path.partition("?")[0] != "/v1/chat/completions":
+            path = self.path.partition("?")[0]
+            if path == "/v1/drain":
+                self._json(state.begin_drain())
+                return
+            if path != "/v1/chat/completions":
                 self.send_error(404, "Not Found")
                 return
             try:
@@ -733,6 +1084,16 @@ def make_handler(state: ApiState):
                 params = self._parse_params(body)
             except (ValueError, KeyError, TypeError) as e:
                 self._json({"error": {"message": f"bad request: {e}"}}, 400)
+                return
+            # shed before the request touches the queue: a refusal costs
+            # the server nothing
+            shed = state.admission_decision(params.priority)
+            if shed is not None:
+                reason, retry_after = shed
+                state.note_shed(reason)
+                self._json({"error": {"message": f"request shed: {reason}", "retryable": True,
+                                      "retry_after_s": retry_after}},
+                           503 if reason == "draining" else 429, retry_after=retry_after)
                 return
             job = state.scheduler.submit(params)
             if params.stream:
@@ -752,6 +1113,11 @@ def make_handler(state: ApiState):
                     kind, payload = job.events.get()
                     if kind == "delta":
                         chunk = _chunk_payload(state, payload, stop=False)
+                        # chaos site: an injected flush failure is a client
+                        # gone mid-stream (the cancel path below)
+                        fault = get_fault_plane().draw("sse_flush")
+                        if fault is not None:
+                            raise OSError(str(fault))
                         _sse_write(self.wfile, f"data: {json.dumps(chunk)}\r\n\r\n")
                     elif kind == "error":
                         _sse_write(self.wfile, f"data: {json.dumps({'error': payload})}\r\n\r\n")
@@ -775,9 +1141,11 @@ def make_handler(state: ApiState):
             while True:
                 kind, payload = job.events.get()
                 if kind == "error":
-                    # an engine fault (retryable) answers 503, a request the
-                    # server could not take 500
-                    self._json({"error": payload}, 503 if payload.get("retryable") else 500)
+                    # an engine fault (retryable) answers 503 and
+                    # Retry-After, a request the server could not take 500
+                    retryable = bool(payload.get("retryable"))
+                    self._json({"error": payload}, 503 if retryable else 500,
+                               retry_after=RETRY_AFTER if retryable else None)
                     return
                 if kind == "done":
                     break
@@ -803,6 +1171,11 @@ def make_handler(state: ApiState):
                 stop = body["stop"]
                 # OpenAI allows a bare string or a list of strings
                 params.stop = [stop] if isinstance(stop, str) else [str(x) for x in stop]
+            if "priority" in body:
+                priority = str(body["priority"])
+                if priority not in PRIORITIES:
+                    raise ValueError(f"unknown priority {priority!r}")
+                params.priority = priority
             return params
 
     return Handler
@@ -821,17 +1194,28 @@ def serve(
     kv_pool_pages: int | None = None,
     speculation: str | None = None,
     spec_k: int | None = None,
+    max_streams: int | None = None,
+    retry_max: int | None = None,
+    retry_backoff_ms: int | None = None,
+    max_queue_depth: int | None = None,
+    faults: str | None = None,
 ) -> ThreadingHTTPServer:
     """Build the server over a ``batch_size`` > 1 engine (its lanes get the
     page pool here); the caller runs ``serve_forever()`` and
     ``server_close()`` stops the scheduler too. ``speculation`` and
     ``spec_k`` default to ``DLLAMA_SPECULATION`` / ``DLLAMA_SPEC_K``, then
-    ``off`` and 4."""
+    ``off`` and 4; ``max_streams``, ``retry_max``, ``retry_backoff_ms`` and
+    ``max_queue_depth`` to their ``DLLAMA_*`` variables, then 0, 3, 5 and
+    0 (`resolve_stream_knobs`, `resolve_resilience_knobs`). ``faults`` arms
+    the process-wide chaos plane (``DLLAMA_FAULTS`` armed it at import)."""
+    if faults is not None:
+        set_fault_plane(faults)
     state = ApiState(
         engine, tokenizer, model_name, chat_template_type,
         lane_block_size=lane_block_size or DEFAULT_LANE_BLOCK, admission_chunk=admission_chunk,
         kv_page_size=kv_page_size or 0, kv_pool_pages=kv_pool_pages or 0,
-        speculation=speculation, spec_k=spec_k,
+        speculation=speculation, spec_k=spec_k, max_streams=max_streams, retry_max=retry_max,
+        retry_backoff_ms=retry_backoff_ms, max_queue_depth=max_queue_depth,
     )
     server = ThreadingHTTPServer((host, port), make_handler(state))
     server.state = state
@@ -845,9 +1229,30 @@ def serve(
     return server
 
 
+def _install_drain_handler(server) -> None:
+    """SIGTERM drains: admission stops, the streams in flight finish (60 s
+    at most), then the server shuts down. Signal handlers install only
+    from the main thread; elsewhere this does nothing."""
+    import signal
+
+    def on_term(signum, frame):
+        server.state.begin_drain()
+
+        def wait_and_stop():
+            server.state.drained.wait(timeout=60.0)
+            server.shutdown()
+
+        threading.Thread(target=wait_and_stop, daemon=True, name="dllama-drain-stop").start()
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except ValueError:
+        pass
+
+
 def build_parser():
-    """The server's flags: host and port, speculation, and the engine's
-    (`cli.add_engine_args`)."""
+    """The server's flags: host and port, speculation, resilience, and the
+    engine's (`cli.add_engine_args`)."""
     import argparse
 
     from ..cli import add_engine_args
@@ -862,13 +1267,29 @@ def build_parser():
     parser.add_argument("--spec-k", type=int, default=None,
                         help="most draft tokens a verify pass checks a lane "
                              "(default: $DLLAMA_SPEC_K, else 4)")
+    parser.add_argument("--faults", default=None, metavar="SPEC",
+                        help="arm the chaos plane with a fault schedule, e.g. "
+                             "'dispatch:op=decode_lanes:nth=2:kind=poison' (runtime/faults.py; "
+                             "default: $DLLAMA_FAULTS)")
+    parser.add_argument("--retry-max", type=int, default=None,
+                        help="retries of a failed engine dispatch on an intact pool "
+                             "(default: $DLLAMA_RETRY_MAX, else 3; 0: none)")
+    parser.add_argument("--retry-backoff-ms", type=int, default=None,
+                        help="backoff before the first retry, doubling after each "
+                             "(default: $DLLAMA_RETRY_BACKOFF_MS, else 5)")
+    parser.add_argument("--max-queue-depth", type=int, default=None,
+                        help="shed (429, Retry-After) once this many requests wait; priority "
+                             "low sheds at half, high at twice (default: "
+                             "$DLLAMA_MAX_QUEUE_DEPTH, else 0: never)")
+    parser.add_argument("--max-streams", type=int, default=None,
+                        help="above the lane count, park the most-progressed stream for a "
+                             "queued request and resume it later (default: "
+                             "$DLLAMA_MAX_STREAMS, else 0: off)")
     add_engine_args(parser)
     return parser
 
 
 def main(argv=None) -> None:
-    import os
-
     from ..cli import load_engine
 
     args = build_parser().parse_args(argv)
@@ -883,7 +1304,11 @@ def main(argv=None) -> None:
         chat_template_type=ttype, lane_block_size=args.lane_block_size,
         admission_chunk=args.admission_chunk, kv_page_size=args.kv_page_size,
         kv_pool_pages=args.kv_pool_pages, speculation=args.speculation, spec_k=args.spec_k,
+        max_streams=args.max_streams, retry_max=args.retry_max,
+        retry_backoff_ms=args.retry_backoff_ms, max_queue_depth=args.max_queue_depth,
+        faults=args.faults,
     )
+    _install_drain_handler(server)
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")
     try:
         server.serve_forever()

@@ -41,10 +41,22 @@ changes, not on every step. `verify_lanes` checks speculative drafts: one
 forward of 1 + k rows a lane at its own position, the greedy argmax grid
 back in one readback. The single-stream path keeps its own slab cache [L,
 1, KH, S, hd].
+
+Crash consistency (dllama_tpu's ``_kv_pool_guard``): each lane dispatch
+(`prefill_lane_chunk`, `decode_lanes`, `verify_lanes`, `kv_page_copy`)
+runs inside `_kv_pool_guard`, its readback included (a replay's CUDA error
+shows up there). A dispatch that raises inside it leaves the pool's bytes
+unknown, so the guard zeroes the pool in place (`reset_kv_pool`: the
+captured graphs keep their pointers), moves ``kv_pool_epoch`` and
+``cache_epoch`` and re-raises; the scheduler tells a poisoned pool from an
+intact one by ``cache_epoch``. The chaos plane (runtime/faults.py) draws
+once a dispatch at each entry: a transient fault is raised before the
+guard with no device work done, a poison fault inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -57,6 +69,7 @@ from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
 from ..ops.kv_cache import kv_tensors, new_kv_leaf, reset_kv_leaf
+from .faults import get_fault_plane
 from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
 from .spec import spec_buckets
@@ -161,6 +174,9 @@ class InferenceEngine:
         # the lanes' page pool (init_kv_pool)
         self.kv_pool = None
         self.kv_pool_epoch = 0
+        # moves whenever a failed dispatch reset the pool (the lanes' only
+        # KV home): the scheduler's poisoned-or-intact signal
+        self.cache_epoch = 0
         self._kv_page_size = 0
         self._kv_pool_pages = 0
         self._kv_n_blocks = 0
@@ -511,6 +527,31 @@ class InferenceEngine:
         self.kv_pool_epoch += 1
         self.clear_all_lane_pages()
 
+    @contextlib.contextmanager
+    def _kv_pool_guard(self):
+        """A lane dispatch that raises leaves the pool's bytes unknown:
+        reset it in place (`reset_kv_pool`; the host-side page accounting
+        is the manager's to reset), move ``cache_epoch`` and re-raise. If
+        the reset raises too (a CUDA error that broke the context), that
+        error propagates, raised from the first, with the epoch moved all
+        the same, so no caller retries against the pool."""
+        try:
+            yield
+        except BaseException as e:
+            try:
+                self.reset_kv_pool()
+            except Exception as reset_err:
+                raise reset_err from e
+            finally:
+                self.cache_epoch += 1
+            raise
+
+    def _fault(self, op: str):
+        """The chaos plane's armed fault for this dispatch, if any
+        (runtime/faults.py). Callers raise a transient one before their
+        `_kv_pool_guard` and a poison one inside it."""
+        return get_fault_plane().draw("dispatch", op=op)
+
     def adopt_pages(self, lane: int, page_ids: list[int]) -> None:
         """Point ``lane``'s page-table row at ``page_ids`` (slot i backs rows
         [i*ps, (i+1)*ps)); unfilled slots fall back to page 0. No device
@@ -554,11 +595,17 @@ class InferenceEngine:
         n = len(src_ids)
         if n < 1 or len(dst_ids) != n:
             raise ValueError("src/dst page lists must match and be non-empty")
-        src = torch.tensor(src_ids, dtype=torch.int64, device=self.device)
-        dst = torch.tensor(dst_ids, dtype=torch.int64, device=self.device)
-        for leaf in self.kv_pool.values():
-            for t in kv_tensors(leaf):
-                t[:, dst] = t[:, src]
+        fault = self._fault("kv_page_copy")
+        if fault is not None and not fault.poison:
+            raise fault
+        with self._kv_pool_guard():
+            if fault is not None:
+                raise fault
+            src = torch.tensor(src_ids, dtype=torch.int64, device=self.device)
+            dst = torch.tensor(dst_ids, dtype=torch.int64, device=self.device)
+            for leaf in self.kv_pool.values():
+                for t in kv_tensors(leaf):
+                    t[:, dst] = t[:, src]
         self.kv_copy_pages += n
 
     def kv_page_bytes(self) -> int:
@@ -586,11 +633,17 @@ class InferenceEngine:
             raise ValueError("empty chunk")
         if pos0 < 0 or pos0 + n > self.header.seq_len:
             raise ValueError(f"{n} fill tokens at pos {pos0} exceed seqLen {self.header.seq_len}")
+        fault = self._fault("prefill_lane_chunk")
+        if fault is not None and not fault.poison:
+            raise fault
         want = min(n, budget) if budget and budget > 0 else n
         bucket = self._bucket_for(want, pos0)
         width = min(bucket, want)
-        pt = self._page_table_dev()[lane : lane + 1]
-        self._lane_chunk(tokens[:width] + [0] * (bucket - width), pos0, pt)
+        with self._kv_pool_guard():
+            if fault is not None:
+                raise fault
+            pt = self._page_table_dev()[lane : lane + 1]
+            self._lane_chunk(tokens[:width] + [0] * (bucket - width), pos0, pt)
         return width
 
     def _lane_chunk(self, tokens: list[int], pos: int, pt_row: torch.Tensor | None) -> None:
@@ -676,7 +729,13 @@ class InferenceEngine:
         cur = [[pos[j] + i if active[j] and 0 <= pos[j] + i < seq_len else -1 for j in range(b)]
                for i in range(n_steps)]
         sampled = any(active[j] and temperature[j] > 0.0 for j in range(b))
-        out = self._lane_block(tokens, cur, sampled, temperature, topp, seed_vec)
+        fault = self._fault("decode_lanes")
+        if fault is not None and not fault.poison:
+            raise fault
+        with self._kv_pool_guard():
+            if fault is not None:
+                raise fault
+            out = self._lane_block(tokens, cur, sampled, temperature, topp, seed_vec)
         self.lane_decode_steps += n_steps
         return out
 
@@ -756,7 +815,13 @@ class InferenceEngine:
             if pos[i] < 0 or pos[i] + t > seq_len:
                 raise ValueError(f"lane {i}: verify row at pos {pos[i]} width {t} "
                                  f"exceeds seqLen {seq_len}")
-        out = self._lane_verify(rows, [pos[i] if active[i] else -t for i in range(b)])
+        fault = self._fault("verify_lanes")
+        if fault is not None and not fault.poison:
+            raise fault
+        with self._kv_pool_guard():
+            if fault is not None:
+                raise fault
+            out = self._lane_verify(rows, [pos[i] if active[i] else -t for i in range(b)])
         self.lane_verify_steps += 1
         return out
 

@@ -163,16 +163,17 @@ def test_single_stream_server_path_is_refused(files):
 
 
 def test_engine_error_fails_in_flight_and_keeps_serving(servers):
-    """An engine error in a decode block fails the in-flight request with
-    the JAX server's retryable error payload (503), and the scheduler goes
-    on serving."""
+    """An engine error in a decode block that outlasts the scheduler's
+    retries (the pool intact: the epoch did not move) fails the in-flight
+    request with the JAX server's retryable error payload (503 and
+    Retry-After), and the scheduler goes on serving."""
     _, url, srv = servers
-    engine = srv.state.engine
+    engine, sched = srv.state.engine, srv.state.scheduler
     inner, calls = engine.decode_lanes, []
 
     def failing(*args, **kw):
         calls.append(1)
-        if len(calls) == 1:
+        if len(calls) <= 1 + sched.retry_max:
             raise RuntimeError("injected decode failure")
         return inner(*args, **kw)
 
@@ -180,7 +181,8 @@ def test_engine_error_fails_in_flight_and_keeps_serving(servers):
     try:
         with pytest.raises(urllib.error.HTTPError) as err:
             _ask(url, "hello")
-        assert err.value.code == 503
+        assert err.value.code == 503 and err.value.headers["Retry-After"] == "1"
+        assert len(calls) == 1 + sched.retry_max
         body = json.loads(err.value.read())
         assert body["error"] == {"message": "injected decode failure", "retryable": True}
         assert _ask(url, "hello")["choices"][0]["finish_reason"] in ("stop", "length")

@@ -82,3 +82,11 @@ def test_speculation_slice_modules_are_covered():
     for m in ("runtime.spec", "analysis.lockwatch"):
         assert f"dllama_tpu_torch.{m}" in mods
         assert os.path.join(PKG, *m.split(".")) + ".py" in files
+
+
+def test_resilience_slice_module_is_covered():
+    """The resilience slice's copy (runtime/faults.py, the chaos plane) is
+    among the modules and files checked above."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.runtime.faults" in mods
+    assert os.path.join(PKG, "runtime", "faults.py") in files

@@ -118,7 +118,20 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    resumed stream's K/V rows held to its rows before; on the int8 pool
    fault-free and the decode poison; and on an f32 engine over the same
    file (`resilience_f32`) fault-free, both poisons and park/resume, every
-   answer equal to the fault-free one.
+   answer equal to the fault-free one; each resilience round's registry
+   deltas (retries, recovered lanes, injected faults by site) equal its
+   /v1/health deltas. The observability round (`serving_obs`) serves the
+   seven requests again with ``/metrics`` scraped before and after: every
+   line parses, the request, TTFT, TPOT and decode_lanes step counts move
+   as the round's own tallies say, the decode_lanes and prefill_lane_chunk
+   roofline fractions lie in (0, 1.05], ``/v1/debug/memory`` reads within
+   10% of the engine's analytic memory, the timelines hold each request's
+   spans; then the mix with the registry off and on in turns (lane tok/s
+   printed), the watchdog's gate (no stall over the fault-free rounds),
+   and the mix once more with a 1 s ``POST /v1/debug/profile`` whose trace
+   must name the Q40 GEMV and the paged decode kernel. Each CLI run prints
+   its decode_block roofline fraction from the registry (gated to (0,
+   1.05] too).
    llama-8b also runs ``q40`` with ``--kv-dtype int8`` (``q40 kv-int8``):
    the same gates, launches under the ``*_kv8`` counters, the cache's bytes
    against a bf16 cache's, and where its greedy stream leaves the bf16-KV
@@ -1427,30 +1440,20 @@ def expected_launches(h, n_prompt: int, n_decode: int, weight_format: str,
 
 
 def nbytes(v) -> int:
-    """Bytes of every tensor in v: a tensor, or a list, tuple (a quantized
-    weight: values and scales) or dict of them."""
-    import torch
+    """Bytes of every tensor in v (`dllama_tpu_torch.obs.cost.nbytes`)."""
+    from dllama_tpu_torch.obs.cost import nbytes as count
 
-    if torch.is_tensor(v):
-        return v.numel() * v.element_size()
-    if isinstance(v, (list, tuple, dict)):
-        return sum(nbytes(x) for x in (v.values() if isinstance(v, dict) else v))
-    return 0
+    return count(v)
 
 
 def weight_bytes(params, h) -> int:
     """Weight bytes one decoded token reads: every non-expert matmul weight
     (values and scales) and, in a MoE layer, the f32 gate and k of the E
-    experts."""
-    total = nbytes(params["wcls"])
-    for lp in params["layers"]:
-        total += sum(nbytes(lp[key]) for key in ("wq", "wk", "wv", "wo"))
-        ffn = sum(nbytes(lp[key]) for key in ("w1", "w2", "w3"))
-        if h.is_moe:
-            total += nbytes(lp["moe_gate"]) + ffn * h.n_active_experts // h.n_experts
-        else:
-            total += ffn
-    return total
+    experts, from the tensors (the engine's own count,
+    `dllama_tpu_torch.obs.cost.weight_bytes_per_token`)."""
+    from dllama_tpu_torch.obs.cost import weight_bytes_per_token
+
+    return weight_bytes_per_token(h, "", params=params)
 
 
 class ActTape:
@@ -1834,6 +1837,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     from dllama_tpu_torch.tokenizer import ChatTemplateType, Tokenizer
 
     mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    stalls0 = watchdog_stalls()
     t0 = time.perf_counter()
     engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40",
                              device=device, batch_size=SERVE_LANES, kv_dtype=kv_dtype)
@@ -1885,6 +1889,8 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         srv.shutdown()
         srv.server_close()
     kv_tag = f" kv-{kv_dtype}" if kv_dtype else ""
+    print(f"obs anomaly after the serving{kv_tag} round: "
+          f"{json.dumps(srv.state.anomaly.status())}")
     health = srv.state.health_snapshot()["kv"]
     print(f"== llama-8b q40{kv_tag} serving: {h.n_layers} layers, seq_len {h.seq_len}, "
           f"{SERVE_LANES} lanes, pool {kv.pool.n_pages} pages of {PAGE} rows "
@@ -1955,6 +1961,10 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         off = dict(results=results, lane_tok_s=agg, decode_s=conc_decode["s"],
                    tokens=conc_decode["tokens"])
         out["llama-8b q40 serving spec"] = serving_spec(engine, tok, off, lane_step_ms)
+        out["llama-8b q40 serving obs"] = serving_obs(engine, tok, smi, lane_step_ms, tmp,
+                                                      stalls0)
+    else:
+        gate_watchdog(stalls0, kv_tag, smi)
     out[f"llama-8b q40{kv_tag} serving resilience"] = serving_resilience(
         engine, tok, results, smi, "0b" if kv_dtype else "0abcde", f"llama-8b q40{kv_tag}")
     if not kv_dtype:
@@ -1973,6 +1983,290 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         require(sp["equal"], f"spec parity: verify grid {sp['grid']} != stepwise {sp['want']}")
         require(sp["err"] <= TOL_E2E, f"spec parity: logits err {sp['err']:.3e} > {TOL_E2E}")
     return out
+
+
+OBS_PROFILE_S = 1.0  # seconds of the profile capture during the observability round's mix
+OBS_TURNS = (False, True, True, False)  # the mix with the registry off and on, in turns
+OBS_ROOF_MAX = 1.05  # a roofline fraction past this means the step's bytes are miscounted
+OBS_MEM_TOL = 0.10  # the JAX package's divergence warning (obs/device.py)
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _post_json(url: str, payload: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def scrape(url: str) -> dict:
+    """``GET /metrics`` parsed: every sample line a name (labels included)
+    and a number, every other line a HELP or TYPE comment, else a fault."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=120) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            require(line.startswith(("# HELP ", "# TYPE ")), f"obs: a bad /metrics line {line!r}")
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            require(False, f"obs: a /metrics sample that does not parse: {line!r}")
+    return out
+
+
+def metric_sum(samples: dict, family: str) -> float:
+    """The sum of a family's samples (every label set), histograms' _count
+    or _sum named in full."""
+    return sum(v for k, v in samples.items() if k == family or k.startswith(family + "{"))
+
+
+def _recorder_events(kind: str) -> list[dict]:
+    from dllama_tpu_torch.obs.recorder import get_recorder
+
+    return get_recorder().events(kind)
+
+
+def watchdog_stalls() -> float:
+    from dllama_tpu_torch.obs.metrics import get_registry
+
+    fam = get_registry().counter("dllama_watchdog_stalls_total", labelnames=("reason",))
+    return sum(fam.child_values().values())
+
+
+def set_obs(on: bool) -> None:
+    """The port's registry, flight recorder and span tracker on or off."""
+    from dllama_tpu_torch.obs.metrics import get_registry
+    from dllama_tpu_torch.obs.recorder import get_recorder
+    from dllama_tpu_torch.obs.spans import get_span_tracker
+
+    for x in (get_registry(), get_recorder(), get_span_tracker()):
+        x.enable() if on else x.disable()
+
+
+def _timeline_ttft(full: dict, rid: str) -> float | None:
+    """A request's TTFT read off the span timeline (ms): from its queue
+    span's start to the end of the first decode_lanes engine span that
+    began after its decode span did (that block's readback carried its
+    first token)."""
+    xs = [e for e in full["traceEvents"] if e["ph"] == "X"]
+    mine = {e["name"]: e for e in xs if e["args"].get("request_id") == rid
+            and e["name"] in ("queue", "decode")}
+    if "queue" not in mine or "decode" not in mine:
+        return None
+    start = mine["decode"]["ts"]
+    blocks = [e for e in xs if e["name"] == "decode_lanes" and e["ts"] >= start]
+    if not blocks:
+        return None
+    first = min(blocks, key=lambda e: e["ts"])
+    return (first["ts"] + first["dur"] - mine["queue"]["ts"]) / 1e3
+
+
+def gate_watchdog(stalls0: float, label: str, smi: str) -> None:
+    """The watchdog counted no stall since ``stalls0`` (its reasons printed)."""
+    stalls = watchdog_stalls() - stalls0
+    recent = _recorder_events("watchdog_stall")[-int(stalls):] if stalls else []
+    print(f"obs watchdog: {stalls:.0f} stalls over the fault-free serving{label} rounds"
+          + "".join(f"; {e['reason']}: {e['detail']}" for e in recent) + f"; {smi}")
+    require(stalls == 0, f"obs: the watchdog counted {stalls} stalls over the fault-free rounds")
+
+
+def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
+                stalls0: float) -> dict:
+    """The observability round of the serving phase: a fourth `serve` over
+    the serving engine (speculation off; the pool made anew) and the seven
+    requests, four at once, ``/metrics`` scraped before and after.
+    Gates: every /metrics line parses; ``dllama_requests_finished_total``
+    and the TTFT histogram's count move by 7, the decode_lanes step
+    histogram's count and the TPOT histogram's (one a decode block, as in
+    the JAX server) by the decode blocks the round ran, and the paged
+    decode kernel launched n_layers times a decode step;
+    ``dllama_step_roofline_fraction`` is set for decode_lanes and
+    prefill_lane_chunk, each in (0, `OBS_ROOF_MAX`]; ``/v1/debug/memory``
+    reads ``bytes_in_use`` within `OBS_MEM_TOL` of the engine's analytic
+    memory; each request's timeline holds its queue, adopt and decode
+    spans and the full timeline the engine's spans. Then lane tok/s with
+    the registry, the recorder and the spans off and on, `OBS_TURNS` (each
+    turn on an empty pool, printed), and the watchdog's gate: no stall
+    since ``stalls0`` (the fault-free rounds before this one and this
+    one). Last, the mix once more with ``POST /v1/debug/profile``
+    ({"seconds": `OBS_PROFILE_S`}) during it: the profile answers 200 with
+    a trace naming the Q40 GEMV (``gemv_mma_kernel``) and the paged decode
+    kernel (``flash_decode_mma_kernel<..., true>``); the seconds its start,
+    stop and export took and the watchdog's stalls during it are printed
+    (the profiler's stop and the trace's export hold the interpreter for
+    seconds, which the watchdog sees as a decode stall). Printed too: each
+    request's TTFT from its response and from the timeline, each
+    timeline's coverage, the fractions beside the share the lane decode
+    profile's host ms implies (``lane_step_ms``), the memory's parts and
+    the anomaly monitor's status, with the card's name and power limit.
+    Returns the round's launch counts."""
+    import threading
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    engine.__dict__.pop("decode_lanes", None)
+    h = engine.header
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
+    timer = {"s": 0.0, "tokens": 0, "blocks": 0}
+    inner = engine.decode_lanes
+
+    def timed_decode(tokens, pos, n_steps, active, *args, **kw):
+        t = time.perf_counter()
+        rows = inner(tokens, pos, n_steps, active, *args, **kw)
+        timer["s"] += time.perf_counter() - t
+        timer["tokens"] += len(rows) * sum(map(bool, active))
+        timer["blocks"] += 1
+        return rows
+
+    engine.decode_lanes = timed_decode
+    payloads = serving_payloads(tok)
+    prof: dict = {}
+
+    def during():
+        prof["status"], prof["body"] = _post_json(url + "/v1/debug/profile", {
+            "seconds": OBS_PROFILE_S, "out_dir": os.path.join(tmp, "profile")})
+
+    def idle():
+        deadline = time.perf_counter() + 30
+        while (any(sched.lanes) or sched.admitting or sched.pending) and (
+                time.perf_counter() < deadline):
+            time.sleep(0.01)
+
+    turns = {True: [], False: []}
+    try:
+        reset_launch_counts()
+        engine.lane_decode_steps = 0
+        before = scrape(url)
+        results, wall = _concurrent(url, sched, payloads)
+        idle()
+        after = scrape(url)
+        counts, steps, blocks = launch_counts(), engine.lane_decode_steps, timer["blocks"]
+        full = _get_json(url + "/v1/debug/timeline")
+        lines = [_get_json(url + f"/v1/debug/timeline?request_id={r['meta']['request_id']}")
+                 for r in results]
+        memory = _get_json(url + "/v1/debug/memory")
+        cost = _get_json(url + "/v1/debug/compile")["cost"]
+        anomaly = state.anomaly.status()
+        for on in OBS_TURNS:
+            set_obs(on)
+            kv.reset()
+            timer.update(s=0.0, tokens=0)
+            _concurrent(url, sched, payloads)
+            idle()
+            turns[on].append(timer["tokens"] / timer["s"])
+        set_obs(True)
+        gate_watchdog(stalls0, "", smi)
+        stalls1 = watchdog_stalls()
+        kv.reset()
+        _concurrent(url, sched, payloads, during=during)
+        idle()
+        profile_stalls = watchdog_stalls() - stalls1
+    finally:
+        set_obs(True)
+        srv.shutdown()
+        srv.server_close()
+        engine.__dict__.pop("decode_lanes", None)
+
+    def delta(family):
+        return metric_sum(after, family) - metric_sum(before, family)
+
+    n = len(payloads)
+    print(f"== llama-8b q40 serving obs: {n} requests, {SERVE_LANES} lanes, {len(after)} samples "
+          f"in /metrics, every line parsed; {wall:.2f} s wall; {smi}")
+    finished, ttft_n = delta("dllama_requests_finished_total"), delta("dllama_ttft_seconds_count")
+    step_n = delta('dllama_engine_step_seconds_count{kind="decode_lanes"}')
+    tpot_n = delta("dllama_tpot_seconds_count")
+    print(f"serve obs counters: requests finished +{finished:.0f}, TTFT count +{ttft_n:.0f}, "
+          f"decode_lanes steps +{step_n:.0f} and TPOT count +{tpot_n:.0f} against {blocks} "
+          f"decode blocks ({steps} decode steps); prefill chunks "
+          f"+{delta('dllama_admission_chunks_total'):.0f}, admissions "
+          f"+{delta('dllama_admissions_total'):.0f}, prefix hits "
+          f"+{delta('dllama_prefix_cache_hits_total'):.0f}")
+    require(finished == n and ttft_n == n,
+            f"obs: {finished} requests finished and {ttft_n} TTFTs counted for {n} requests")
+    require(step_n == blocks and tpot_n == blocks and blocks > 0,
+            f"obs: decode_lanes steps +{step_n}, TPOT +{tpot_n}, the round ran {blocks} blocks")
+    require(counts["paged_flash_decode"] == h.n_layers * steps and steps > 0,
+            f"obs: {counts['paged_flash_decode']} paged decode launches, the steps imply "
+            f"{h.n_layers * steps}")
+    for i, (r, tl) in enumerate(zip(results, lines)):
+        rid = r["meta"]["request_id"]
+        names = {e["name"] for e in tl["traceEvents"] if e["ph"] == "X"}
+        summ = tl["dllama"]["summary"]
+        tl_ttft = _timeline_ttft(full, rid)
+        print(f"serve obs r{i}: ttft_ms response {r['meta']['ttft_ms']}, timeline "
+              + ("none" if tl_ttft is None else f"{tl_ttft:.3f}")
+              + f"; timeline coverage {summ['coverage']} over {summ['wall_ms']} ms, phases "
+              f"{json.dumps({k: v['total_ms'] for k, v in summ['phases'].items()})}")
+        require({"queue", "adopt", "decode"} <= names,
+                f"obs r{i}: the timeline holds {sorted(names)}")
+    engine_spans = {e["name"] for e in full["traceEvents"] if e["ph"] == "X"}
+    require({"decode_lanes", "decode_lanes.device", "prefill_lane_chunk"} <= engine_spans,
+            f"obs: the timeline's engine spans {sorted(engine_spans)}")
+    peak = cost["hbm_peak_bytes_per_s"]
+    for kind in ("decode_lanes", "prefill_lane_chunk"):
+        k = cost["kinds"].get(kind) or {}
+        frac = k.get("roofline_fraction")
+        implied = ""
+        if kind == "decode_lanes" and lane_step_ms and k:
+            n_steps = k["key"][1]
+            implied = (f"; the lane decode profile's {lane_step_ms:.3f} host ms a step implies "
+                       f"{k['bytes_accessed'] / n_steps / (lane_step_ms / 1e3) / peak:.4f}")
+        print(f"roofline {kind}: key {k.get('key')}, {k.get('bytes_accessed', 0) / 1e9:.4f} GB "
+              f"and {k.get('flops', 0) / 1e12:.4f} TFLOP a dispatch over "
+              f"{(k.get('mean_step_s') or 0) * 1e3:.3f} device ms (mean of "
+              f"{k.get('dispatches')}), fraction {frac}{implied}; {smi}")
+        require(frac is not None and 0 < frac <= OBS_ROOF_MAX,
+                f"obs: {kind} roofline fraction {frac}")
+    comp, ana = memory["comparison"], memory["analytic"]
+    dev = (memory["devices"] or [{}])[0]
+    print(f"obs memory: bytes_in_use {dev.get('bytes_in_use')} (peak "
+          f"{dev.get('peak_bytes_in_use')}, limit {dev.get('bytes_limit')}) against analytic "
+          f"{ana['total_bytes']} (params {ana['params_bytes']}, cache {ana['cache_bytes']}, "
+          f"pool {ana['pool_bytes']}, graphs {ana['graph_bytes']}): divergence "
+          f"{comp['max_divergence_fraction']}, limit {OBS_MEM_TOL}; {smi}")
+    require(comp["available"] and abs(comp["max_divergence_fraction"]) < OBS_MEM_TOL,
+            f"obs: memory divergence {comp['max_divergence_fraction']}")
+    body = prof.get("body", {})
+    kernels = body.get("kernels", [])
+    gemv = [k for k in kernels if "gemv_mma_kernel" in k]
+    paged = [k for k in kernels if "flash_decode_mma_kernel" in k and "true>" in k]
+    print(f"obs profile: {prof.get('status')} in {body.get('seconds')} s, {body.get('n_events')} "
+          f"events, {len(kernels)} kernel names, the GEMV {gemv[:1]}, the paged decode "
+          f"{paged[:1]}; seconds {json.dumps(body.get('timings_s'))}; the watchdog counted "
+          f"{profile_stalls:.0f} stalls during the profiled mix; {smi}")
+    require(prof.get("status") == 200 and gemv and paged,
+            f"obs: the profile answered {prof.get('status')} {str(body)[:300]}")
+    print(f"obs anomaly after the observability round: {json.dumps(anomaly)}")
+    on, off = statistics.median(turns[True]), statistics.median(turns[False])
+    print(f"obs overhead: lane tok/s with obs on {_ms(turns[True])}, off {_ms(turns[False])} "
+          f"(in turns {list(OBS_TURNS)}): on/off {on / off:.4f}; {smi}")
+    return counts
 
 
 def _track_generated(sched) -> dict:
@@ -2103,6 +2397,7 @@ def serving_spec(engine, tok, off: dict, lane_step_ms: float | None) -> dict:
         srv.server_close()
         for name in inner:
             engine.__dict__.pop(name, None)
+    print(f"obs anomaly after the speculation round: {json.dumps(srv.state.anomaly.status())}")
     print(f"== llama-8b q40 serving spec: speculation shared, spec_k {SPEC_K}, "
           f"{len(payloads)} requests, {b} lanes; rehearsal captured {rehearsal['verify']} verify "
           f"graphs ({rehearsal['graphs']} in all, {rehearsal['s']:.2f} s with the pool)")
@@ -2253,6 +2548,18 @@ def _pool_ptrs(engine) -> list[int]:
     return [t.data_ptr() for leaf in engine.kv_pool.values() for t in kv_tensors(leaf)]
 
 
+def _resilience_metrics() -> dict:
+    """The registry's retries, recovered lanes and injected faults by site."""
+    from dllama_tpu_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+    out = {"retries": reg.counter("dllama_dispatch_retries_total").value,
+           "recovered": reg.counter("dllama_lanes_recovered_total").value}
+    faults = reg.counter("dllama_faults_injected_total", labelnames=("site",))
+    out.update({("faults", k[0]): v for k, v in faults.child_values().items()})
+    return out
+
+
 def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
                        rounds: str = "0abcde", label: str = "llama-8b q40",
                        exact: bool = False) -> dict:
@@ -2385,6 +2692,7 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
             c0 = {k: getattr(sched, k) for k in ("dispatch_retries", "recoveries",
                                                  "lanes_recovered", "parks", "resumes",
                                                  "resume_reused_tokens", "resume_prefill_tokens")}
+            m0 = _resilience_metrics()
             drain: dict = {}
             kv.reset()
             before.clear()  # the reset's own snapshot: no lane was live
@@ -2409,6 +2717,15 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
                     time.perf_counter() < deadline):
                 time.sleep(0.01)  # the last _finish clears its lane after "done"
             d = {k: getattr(sched, k) - v for k, v in c0.items()}
+            m1 = _resilience_metrics()
+            md = {k: m1.get(k, 0) - m0.get(k, 0) for k in set(m0) | set(m1)}
+            md = {k: v for k, v in md.items() if v}
+            want = {"retries": d["dispatch_retries"], "recovered": d["lanes_recovered"],
+                    **{("faults", site): c for site, c in fired.items() if c}}
+            want = {k: v for k, v in want.items() if v}
+            print(f"obs resilience {key}: registry deltas {sorted(md.items(), key=str)}, "
+                  f"/v1/health deltas {sorted(want.items(), key=str)}; {smi}")
+            require(md == want, f"resilience {key}: registry deltas {md}, health deltas {want}")
             failed = [i for i, r in enumerate(results) if "error" in r]
             for r in results:
                 if "error" not in r:
@@ -2506,6 +2823,8 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
         srv.server_close()
         engine.__dict__.pop("decode_lanes", None)
         engine.__dict__.pop("reset_kv_pool", None)
+    print(f"obs anomaly after the resilience rounds ({label}): "
+          f"{json.dumps(srv.state.anomaly.status())}")
     kv8 = "_kv8" if engine.kv_dtype == torch.int8 else ""
     decode_kernel, stats = "paged_flash_decode" + kv8, "flash_attention_stats" + kv8
     print(f"resilience launches ({label}) {json.dumps(counts)}; decode steps {steps}; health "
@@ -2966,6 +3285,16 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
           f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f} "
           "(graphed; first uses and captures included)")
     print(f"weight bytes per token {wb} -> bound {wb / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
+    eng.settle_costs()
+    roof = eng.cost_report()["kinds"].get("decode_block") or {}
+    frac = roof.get("roofline_fraction")
+    print(f"roofline {label} decode_block (the CLI run's registry): key {roof.get('key')}, "
+          f"{roof.get('bytes_accessed', 0) / 1e9:.4f} GB a dispatch over "
+          f"{(roof.get('mean_step_s') or 0) * 1e3:.3f} device ms (mean of "
+          f"{roof.get('dispatches')}), dllama_step_roofline_fraction{{kind=\"decode_block\"}} "
+          f"{frac}")
+    require(frac is not None and 0 < frac <= OBS_ROOF_MAX,
+            f"{label}: decode_block roofline fraction {frac}")
     print(f"on the card after the run: weights {nbytes(eng.params) / 1e9:.3f} GB, "
           f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     bf16_kv = 2 * h.n_layers * h.n_kv_heads * h.seq_len * h.head_dim * 2

@@ -5,17 +5,23 @@
         [--weight-format auto|q40|q40i8|q40i4|dense] [--kv-dtype int8]
     python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
     python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
+    (each also takes --trace-out PATH, --timeline-out PATH, --postmortem-dir DIR;
+    inference --profile DIR)
 
 Flags follow the JAX package's CLI (reference: src/app.cpp:24-135). The
 device defaults to ``cuda`` and the run fails without one; ``--device cpu``
-runs the plain PyTorch versions of the kernels. `add_engine_args` and
-`load_engine` are shared with the API server (runtime/api_server.py),
-whose lane and KV-pool flags they also carry.
+runs the plain PyTorch versions of the kernels. `add_engine_args`,
+`add_obs_args` and `load_engine` are shared with the API server
+(runtime/api_server.py), whose lane and KV-pool flags they also carry.
+`load_engine` prints the engine's memory report and the decode roofline
+(obs/cost.py) and compares the memory with the card's allocator
+(obs/device.py), as the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -59,6 +65,21 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="chat template of the server (default: detected from the tokenizer)")
 
 
+def add_obs_args(p: argparse.ArgumentParser) -> None:
+    """The observability flags the CLI and the server share (obs/)."""
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="append one JSON line a finished request or generation (request id, "
+                   "queue wait, prefill, TTFT, token counts, finish reason) to PATH "
+                   "(obs/trace.py)")
+    p.add_argument("--timeline-out", default=None, metavar="PATH",
+                   help="write the span timeline as Chrome-trace JSON to PATH (obs/spans.py; "
+                   "the server rewrites it throttled a finished request, the CLI once at exit)")
+    p.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                   help="write the flight recorder's event ring as a JSON postmortem into DIR "
+                   "when a dispatch or the scheduler loop raises (obs/recorder.py; default: "
+                   "$DLLAMA_POSTMORTEM_DIR)")
+
+
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch", description="distributed-llama inference on PyTorch/CUDA"
@@ -66,7 +87,11 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("mode", choices=["inference", "chat", "perplexity"])
     p.add_argument("--prompt", default=None)
     p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run (CPU, and CUDA on the card) "
+                   "as Chrome-trace JSON into DIR")
     add_engine_args(p)
+    add_obs_args(p)
     return p
 
 
@@ -115,6 +140,21 @@ def load_engine(args):
             f"⚠️  tokenizer vocab ({tok.vocab_size}) != model vocab ({h.vocab_size}); "
             "decoding may fail for out-of-range tokens"
         )
+    from .obs.cost import print_roofline_report
+    from .obs.device import compare_with_analytic, memory_report, sample_device_memory
+    from .obs.recorder import get_recorder
+
+    mem = memory_report(engine)
+    mem.print()
+    # the analytic decode floor beside the memory report: what "as fast as
+    # the card allows" means in ms/token for this model and format
+    print_roofline_report(h, engine.weight_format, i8_group=engine.i8_group or 512,
+                          params=engine.params, dtype_bytes=engine.dtype.itemsize, device=dev)
+    # the card's allocator against the analytic figure: a gap past 10% logs
+    # a warning (a leak, or an analytic model gone stale)
+    compare_with_analytic(mem.per_device_bytes, sample_device_memory(engine.obs, dev))
+    if getattr(args, "postmortem_dir", None):
+        get_recorder().postmortem_dir = args.postmortem_dir
     return engine, tok
 
 
@@ -130,16 +170,40 @@ def run_inference(args) -> dict:
     tokens = tok.encode(args.prompt, is_start=True, add_special_tokens=True)
     if len(tokens) > engine.header.seq_len:
         raise SystemExit("The number of prompt tokens is greater than the sequence length")
+    from .obs.spans import get_span_tracker
+    from .obs.trace import NULL_SPAN, Tracer
+
+    # one JSON line for the whole generation, the server's --trace-out
+    # schema (obs/trace.py), and its request-attributed timeline span
+    trace_out = getattr(args, "trace_out", None)
+    tracer = Tracer(sink_path=trace_out) if trace_out else None
+    span = tracer.span(path="cli") if tracer is not None else NULL_SPAN
+    span.mark_admitted()
+    spans = get_span_tracker()
+    gen_span = spans.begin("generate", component="cli", request_id=span.request_id,
+                           n_prompt=len(tokens), steps=args.steps)
     print(args.prompt)
     tok.reset_decoder()
 
     def on_token(t: int) -> None:
+        span.mark_first_token()  # single-shot
         piece = tok.decode(t)
         if piece is not None:
             sys.stdout.write(piece)
             sys.stdout.flush()
 
-    out, eval_stats, pred_stats = engine.generate(tokens, max_steps=args.steps, on_token=on_token)
+    with _profiled(getattr(args, "profile", None), engine.device):
+        out, eval_stats, pred_stats = engine.generate(tokens, max_steps=args.steps,
+                                                      on_token=on_token)
+    engine.settle_costs()
+    span.set_prefill_seconds(eval_stats.time_ms / 1000.0)
+    spans.end(gen_span, n_completion=len(out))
+    span.finish("length", n_prompt=len(tokens), n_completion=len(out))
+    if tracer is not None:
+        tracer.close()
+    if getattr(args, "timeline_out", None):
+        n_spans = spans.export_file(args.timeline_out)
+        print(f"🧭 timeline: {n_spans} spans -> {args.timeline_out}")
     n_eval = max(eval_stats.n_tokens, 1)
     n_pred = pred_stats.n_tokens
     print()
@@ -164,6 +228,27 @@ def run_inference(args) -> dict:
         "eval": eval_stats,
         "pred": pred_stats,
     }
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str | None, device):
+    """A ``torch.profiler`` trace of the body (CPU activity, and CUDA on
+    the card) written as ``trace.json`` into ``out_dir``; nothing when
+    ``out_dir`` is None."""
+    if not out_dir:
+        yield
+        return
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"🔬 profile: {path}")
 
 
 def run_chat(args) -> None:

@@ -29,11 +29,21 @@ The chaos plane's draws are the JAX manager's (runtime/faults.py):
 scheduler, which retries it; ``dispatch`` (``op=kv_publish``) on entry to a
 publish and ``kv_alloc`` (``op=publish``) where it would take the tree's
 pages, each absorbed: the stream already finished, only future reuse is
-lost. The JAX manager's metrics, recorder events, spans and lock watch are
-left out; the counts the tests and the chip smoke read are plain
-attributes (``hits``, ``shared_tokens``, ``evictions``, ``publish_skips``
-and the pool's ``cow_forks``). All engine calls come from the scheduler thread; ``lock``
-protects the host accounting against concurrent readers (``debug``).
+lost.
+
+Observability is the JAX manager's (obs/): the ``dllama_kv_pages_*``
+gauges, the ``dllama_radix_*``, ``dllama_kv_cow_forks_total`` and
+``dllama_shared_prefix_tokens_total`` counters (radix evictions also feed
+the server's ``dllama_cache_evictions_total``, handed in as
+``evict_counter``), the pool's and the manager's flight-recorder events
+(``kv_cow_fork``, ``kv_evict``, ``kv_publish_skipped``, ``kv_pool_reset``)
+and ``component="kv"`` spans over ``match``, ``adopt`` and ``publish``.
+The manager's own counts stay plain attributes too (``hits``,
+``shared_tokens``, ``evictions``, ``publish_skips`` and the pool's
+``cow_forks``): ``debug()`` and ``/v1/health`` read them, one server at a
+time, where the registry counts for the whole process. All engine calls
+come from the scheduler thread; ``lock`` protects the host accounting
+against concurrent readers (``debug``, ``/metrics``).
 """
 
 from __future__ import annotations
@@ -42,6 +52,9 @@ import logging
 import threading
 from typing import Any
 
+from ..obs.metrics import get_registry
+from ..obs.recorder import get_recorder
+from ..obs.spans import get_span_tracker
 from ..runtime.faults import get_fault_plane
 from .pool import PagePool
 from .radix import RadixTree
@@ -52,11 +65,16 @@ DEFAULT_PAGE_SIZE = 16
 
 
 class PagedKVManager:
-    def __init__(self, engine: Any, page_size: int = 0, n_pages: int = 0) -> None:
+    def __init__(self, engine: Any, page_size: int = 0, n_pages: int = 0,
+                 evict_counter: Any = None) -> None:
         self.engine = engine
         self.page_size = page_size or DEFAULT_PAGE_SIZE
         n = engine.init_kv_pool(self.page_size, n_pages, native=True)
-        self.pool = PagePool(n, self.page_size)
+        self.recorder = get_recorder()
+        # component="kv" spans over the host-side accounting (the engine's
+        # COW page copy records its own span)
+        self.spans = get_span_tracker()
+        self.pool = PagePool(n, self.page_size, on_event=self._pool_event)
         self.tree = RadixTree(self.page_size)
         self.lock = threading.Lock()
         self._lane_pages: dict[int, list[int]] = {}
@@ -69,6 +87,56 @@ class PagedKVManager:
         self.shared_tokens = 0  # prompt tokens served from shared pages
         self.evictions = 0  # pages LRU-evicted from radix leaves
         self.publish_skips = 0  # publishes an injected fault dropped
+        # dashboards keep their dllama_cache_evictions_total series: the
+        # ApiState hands us its handle and radix evictions feed it
+        self._evict_counter = evict_counter
+        obs = get_registry()
+        self.g_total = obs.gauge(
+            "dllama_kv_pages_total",
+            "Usable pages in the shared KV pool (excludes the scratch page).",
+        )
+        self.g_free = obs.gauge(
+            "dllama_kv_pages_free", "KV pool pages on the free list."
+        )
+        self.g_shared = obs.gauge(
+            "dllama_kv_pages_shared",
+            "KV pool pages referenced by the radix tree AND at least one "
+            "live lane (refcount >= 2) — the physically-shared prefix "
+            "storage.",
+        )
+        self.c_hits = obs.counter(
+            "dllama_radix_hits_total",
+            "Admissions whose conversation matched a stored radix prefix "
+            "and adopted shared pages.",
+        )
+        self.c_evictions = obs.counter(
+            "dllama_radix_evictions_total",
+            "Pages LRU-evicted from radix-tree leaves to make room for a "
+            "lane's pages.",
+        )
+        self.c_shared_tokens = obs.counter(
+            "dllama_shared_prefix_tokens_total",
+            "Prompt tokens served from shared pool pages instead of being "
+            "re-prefilled (sum of adopted prefix lengths).",
+        )
+        self.c_cow = obs.counter(
+            "dllama_kv_cow_forks_total",
+            "Copy-on-write page forks: an adoption matched a stored prefix "
+            "mid-page and took a private copy of that page slot.",
+        )
+        self.g_total.set(n - 1)
+        self._update_gauges_locked()
+
+    # -- internals ---------------------------------------------------------
+    def _pool_event(self, kind: str, payload: dict) -> None:
+        self.recorder.record(kind, **payload)
+        if kind == "kv_cow_fork":
+            self.c_cow.inc()
+
+    def _update_gauges_locked(self) -> None:
+        st = self.pool.stats()
+        self.g_free.set(st.free)
+        self.g_shared.set(st.shared)
 
     # -- admission ---------------------------------------------------------
     def match(self, lane: int, tokens: list[int]) -> tuple[int, list[int]]:
@@ -81,7 +149,9 @@ class PagedKVManager:
         inside the lock (see the module docstring); every admission-failure
         path releases them through `release_lane`."""
         ps = self.page_size
-        with self.lock:
+        with self.spans.span(
+            "kv_match", component="kv", lane=lane, n_tokens=len(tokens)
+        ), self.lock:
             # a lane admitted twice without release would leak a retain
             stale = self._lane_pages.pop(lane, None)
             if stale:
@@ -96,11 +166,13 @@ class PagedKVManager:
             m = min(mr.n_tokens, len(mr.pages) * ps, len(tokens) - 1)
             if m <= 0:
                 self._lane_match_tokens[lane] = 0
+                self._update_gauges_locked()
                 return 0, []
             pages = mr.pages[: -(-m // ps)]
             self.pool.retain(pages)
             self._lane_pages[lane] = list(pages)
             self._lane_match_tokens[lane] = m
+            self._update_gauges_locked()
             return m, pages
 
     def adopt(self, lane: int, pages: list[int]) -> None:
@@ -110,7 +182,9 @@ class PagedKVManager:
         the rest of the lane's rows get fresh private pages."""
         ps = self.page_size
         n_blocks = self.engine._kv_n_blocks
-        with self.lock:
+        with self.spans.span(
+            "kv_adopt_native", component="kv", lane=lane, n_pages=len(pages)
+        ), self.lock:
             fault = get_fault_plane().draw("kv_alloc", op="adopt")
             if fault is not None:
                 raise fault
@@ -120,7 +194,7 @@ class PagedKVManager:
                 # the lane will write rows >= m into this slot: it needs a
                 # private copy of the shared page
                 orig = lane_list[-1]
-                fork = self._alloc_lane_pages(1, fork_src=orig)[0]
+                fork = self._alloc_lane_pages(1, lane, fork_src=orig)[0]
                 try:
                     self.engine.kv_page_copy([orig], [fork])
                 except BaseException:
@@ -132,18 +206,25 @@ class PagedKVManager:
                 lane_list[-1] = fork
             need = n_blocks - len(lane_list)
             if need > 0:
-                lane_list += self._alloc_lane_pages(need)
+                lane_list += self._alloc_lane_pages(need, lane)
             self._lane_pages[lane] = lane_list
             self.engine.adopt_pages(lane, lane_list)
+            self._update_gauges_locked()
 
-    def _alloc_lane_pages(self, n: int, fork_src: int | None = None) -> list[int]:
+    def _alloc_lane_pages(self, n: int, lane: int, fork_src: int | None = None) -> list[int]:
         """``n`` private pages for a lane (or the fork of ``fork_src``),
         LRU-evicting refcount-1 tree leaves under pressure; raises
         MemoryError when the pool cannot hold them (admission cannot go on
         without somewhere to write). Called under ``lock``."""
         short = n - self.pool.free_pages
         if short > 0:
-            self.evictions += self.tree.evict(short, self.pool)
+            freed = self.tree.evict(short, self.pool)
+            self.evictions += freed
+            self.c_evictions.inc(freed)
+            if self._evict_counter is not None:
+                self._evict_counter.inc(freed)
+            if freed:
+                self.recorder.record("kv_evict", n_pages=freed, lane=lane)
         if fork_src is not None:
             return [self.pool.fork(fork_src)]
         return self.pool.alloc(n)
@@ -163,6 +244,7 @@ class PagedKVManager:
             if pages:
                 self.pool.release(pages)
             self.engine.clear_lane_pages(lane)
+            self._update_gauges_locked()
 
     # -- finish ------------------------------------------------------------
     def publish(self, lane: int, tokens: list[int]) -> int:
@@ -173,13 +255,24 @@ class PagedKVManager:
         dedup, no whole page to store, or an injected fault: the publish
         narrows itself, releasing the tree's new references, and nothing
         fails)."""
+        with self.spans.span(
+            "kv_publish_host", component="kv", lane=lane,
+            n_tokens=len(tokens),
+        ):
+            return self._publish(lane, tokens)
+
+    def _publish(self, lane: int, tokens: list[int]) -> int:
         ps = self.page_size
         n_full = len(tokens) // ps
         if n_full == 0:
             return 0
         full = list(tokens[: n_full * ps])
-        if get_fault_plane().draw("dispatch", op="kv_publish") is not None:
+        fault = get_fault_plane().draw("dispatch", op="kv_publish")
+        if fault is not None:
             self.publish_skips += 1
+            self.recorder.record(
+                "kv_publish_skipped", lane=lane, want=n_full, error=str(fault)
+            )
             return 0
         with self.lock:
             lane_list = self._lane_pages.get(lane) or []
@@ -195,9 +288,13 @@ class PagedKVManager:
             # dies with release_lane, and a tree pointing at freed pages
             # would hand later admissions recycled KV
             self.pool.retain(pages)
-            if get_fault_plane().draw("kv_alloc", op="publish") is not None:
+            fault = get_fault_plane().draw("kv_alloc", op="publish")
+            if fault is not None:
                 self.pool.release(pages)
                 self.publish_skips += 1
+                self.recorder.record(
+                    "kv_alloc_failed", lane=lane, want=n_new, error=str(fault)
+                )
                 return 0
             try:
                 self.tree.insert(full, pages, first_slot=k_shared)
@@ -207,13 +304,17 @@ class PagedKVManager:
                 # reuse is lost)
                 logger.exception("kv radix insert rejected; publish dropped")
                 self.pool.release(pages)
+                self._update_gauges_locked()
                 return 0
+            self._update_gauges_locked()
         return n_new
 
     def note_hit(self, n_tokens: int) -> None:
         with self.lock:
             self.hits += 1
             self.shared_tokens += n_tokens
+        self.c_hits.inc()
+        self.c_shared_tokens.inc(n_tokens)
 
     # -- error path / introspection ----------------------------------------
     def reset(self, reset_device: bool = True) -> None:
@@ -228,8 +329,10 @@ class PagedKVManager:
             self._lane_match_tokens.clear()
             self._lane_anchor.clear()
             self.engine.clear_all_lane_pages()
+            self._update_gauges_locked()
         if reset_device:
             self.engine.reset_kv_pool()
+        self.recorder.record("kv_pool_reset")
 
     def release_all_lanes(self) -> None:
         """Scheduler-error path: every lane was dropped, release their
@@ -242,6 +345,7 @@ class PagedKVManager:
             self._lane_match_tokens.clear()
             self._lane_anchor.clear()
             self.engine.clear_all_lane_pages()
+            self._update_gauges_locked()
 
     def check(self) -> None:
         with self.lock:

@@ -2,7 +2,9 @@
 
     python -m dllama_tpu_torch.runtime.api_server --model m.m --tokenizer t.t \\
         --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu] \\
-        [--faults SPEC] [--retry-max N] [--max-queue-depth N] [--max-streams N]
+        [--faults SPEC] [--retry-max N] [--max-queue-depth N] [--max-streams N] \\
+        [--trace-out PATH] [--timeline-out PATH] [--postmortem-dir DIR] \\
+        [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S]
 
 The port's core of dllama_tpu/runtime/api_server.py (reference:
 src/dllama-api.cpp):
@@ -11,12 +13,28 @@ src/dllama-api.cpp):
   with ``temperature``, ``top_p``, ``seed``, ``max_tokens`` and ``stop``
   (src/dllama-api.cpp:491-520), greedy or sampled per request;
 * ``GET /v1/models`` — single-model listing (src/dllama-api.cpp:538-547);
-* ``GET /v1/health`` — status (``ok`` or ``draining``), model name, lane
-  occupancy, queue depth, uptime, the KV pool (pages, radix hits, COW
-  forks, its dtype and the device bytes of a page), the speculation
-  counters and the resilience counters;
+* ``GET /v1/health`` — status (``ok``, ``degraded`` with its
+  ``degraded_reasons`` from the watchdog and the anomaly monitor, or
+  ``draining``), model name, lane occupancy, queue depth, uptime, the KV
+  pool (pages, radix hits, COW forks, its dtype and the device bytes of a
+  page), the speculation counters and the resilience counters;
 * ``POST /v1/drain`` — graceful drain (SIGTERM too): admission stops,
-  the streams in flight run to their end, then ``drained`` is set.
+  the streams in flight run to their end, then ``drained`` is set;
+* ``GET /metrics`` — the registry in Prometheus text (obs/metrics.py),
+  after the refresh hooks (device memory, SLO windows, step cost);
+* ``GET /v1/debug/recorder``, ``/memory``, ``/kv``, ``/compile``,
+  ``/timeline`` (``?request_id=``, ``replica``, ``pid_prefix``,
+  ``pid_base``), ``/slo``, ``/series`` (``?name=&window=``) — the flight
+  recorder's ring, device memory against the engine's analytic
+  ``memory_report``, the pool and radix tree, the graph keys with their
+  capture seconds and analytic costs and the roofline by kind, the span
+  timeline as Chrome-trace JSON, the SLO windows, the in-process series;
+* ``POST /v1/debug/profile`` — a ``torch.profiler`` capture (CPU, and CUDA
+  on the card) of ``seconds`` written as a Chrome trace into ``out_dir``;
+  it starts and stops on the scheduler thread between dispatches; 409
+  while one runs, 500 when the capture fails;
+* ``GET /dashboard`` — the live single-file dashboard; ``/health`` and
+  ``/healthz`` — liveness.
 
 A `LaneScheduler` thread owns every engine call. It admits queued requests
 FIFO into the least-recently-used free lane, matches each conversation
@@ -65,11 +83,27 @@ the decode block in the same tick. ``off`` (the default) builds no
 drafters, no store and no verify graphs. The draft-model source
 (``draft``) waits for ROADMAP A.12.
 
+Observability (obs/, the JAX server's): every serving family of the JAX
+``ApiState`` but predictive admission's, fed where the JAX scheduler feeds
+them; a request span (``--trace-out``) and timeline spans for the queue,
+the admission steps, decode, parks and publishes around the engine's own;
+the windowed SLOs (``--slo-ttft-ms``, ``--slo-tpot-ms``); a series sampler
+(``--series-retention``) whose ticks drive the anomaly monitor; the
+watchdog, beaten each scheduler tick and told of each dispatch. Either of
+the last two puts ``/v1/health`` in ``degraded``, which sheds ``low``
+requests (429, ``Retry-After: 2``). The sampler and the watchdog start
+after ``rehearse_admission``, so their threads never run beside a
+rehearsal capture; the refresh hooks they run read host-side numbers only.
+``resilience_stats`` and ``spec_stats`` read the registry's counters, less
+their values when the scheduler started (one registry serves the process);
+the counts without a family stay plain attributes.
+
 Left for later slices: the single-stream (``--batch-size 1``) path with its
-NaiveCache (ROADMAP A.8); the observability routes (``/metrics``,
-``/v1/debug/*``) and with them the ``infeasible`` and ``degraded`` shedding
-reasons and the predicted ``Retry-After`` (A.6: this server quotes the JAX
-server's floors); predictive admission, EDF and deadline preemption (A.7).
+NaiveCache (ROADMAP A.8); predictive admission, EDF and deadline
+preemption, and with them the ``infeasible`` shedding reason, the
+predicted ``Retry-After`` (this server quotes the JAX server's floors),
+``/v1/debug/admission`` and the ``dllama_admission_*`` and
+``dllama_preemptions_total`` families (A.7).
 """
 
 from __future__ import annotations
@@ -78,15 +112,27 @@ import json
 import logging
 import os
 import queue
+import re
 import threading
 import time
 import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 import torch
 
 from ..kv.manager import PagedKVManager
+from ..obs.anomaly import DEFAULT_SIGNAL_SERIES, AnomalyMonitor, build_default_rules
+from ..obs.dashboard import DASHBOARD_CONTENT_TYPE, render_dashboard
+from ..obs.device import compare_with_analytic, memory_report, sample_device_memory
+from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
+from ..obs.recorder import get_recorder
+from ..obs.slo import SloTracker, resolve_slo_knobs
+from ..obs.spans import get_span_tracker
+from ..obs.timeseries import MetricsSampler, SeriesStore, resolve_series_knobs
+from ..obs.trace import Tracer
+from ..obs.watchdog import EngineWatchdog, resolve_watchdog_knobs
 from ..tokenizer import (
     CHAT_TEMPLATE_NAMES,
     ChatItem,
@@ -115,6 +161,7 @@ PRIORITIES = ("low", "normal", "high")
 SHED_FACTOR = {"low": 0.5, "normal": 1.0, "high": 2.0}
 # the JAX server's Retry-After floors (seconds) when it has no predictor
 RETRY_AFTER_DRAINING = 5
+RETRY_AFTER_DEGRADED = 2
 RETRY_AFTER = 1
 
 
@@ -174,12 +221,16 @@ class LaneJob:
     ("error", {"message": ..., "retryable": ...}). The handler sets
     ``cancelled`` when the client goes away; the scheduler then frees the
     lane. The times (``perf_counter`` seconds) and ``lane`` /
-    ``reused_prefix_tokens`` feed the response's ``dllama`` metadata."""
+    ``reused_prefix_tokens`` feed the response's ``dllama`` metadata.
+    ``span`` is the request's lifecycle record (obs/trace.py; its id is the
+    request id) and ``queue_span`` its open timeline span while it waits."""
 
-    def __init__(self, params: InferenceParams):
+    def __init__(self, params: InferenceParams, span):
         self.params = params
         self.events: queue.Queue = queue.Queue()
-        self.request_id = uuid.uuid4().hex[:16]
+        self.span = span
+        self.queue_span = None
+        self.request_id = span.request_id
         self.n_prompt_tokens = 0
         self.n_completion = 0
         self.buffer = ""
@@ -225,6 +276,8 @@ class _LaneState:
     history: list = field(default_factory=list)
     # the lane's drafter while a park or a recovery holds the state
     drafter: object = None
+    # the request's open "decode" timeline span (obs/spans.py)
+    decode_span: object = None
 
 
 @dataclass
@@ -247,6 +300,8 @@ class _AdmittingLane:
     # history and _finish_admission reinstalls this state untouched
     resume_state: _LaneState | None = None
     from_park: bool = False
+    prefill_s: float = 0.0  # seconds of the adopt and the chunks so far
+    n_chunks: int = 0
 
 
 class LaneScheduler:
@@ -286,17 +341,18 @@ class LaneScheduler:
         # the backoff's base
         self.retry_max = max(0, int(retry_max))
         self.retry_backoff_s = max(0, int(retry_backoff_ms)) / 1000.0
-        # the JAX server's resilience series as plain counters: dispatch
-        # retries, recoveries (poisoned pools) and the lanes they resumed,
-        # parks and resumes, and the tokens resumes re-matched from the
-        # radix tree and re-prefilled
-        self.dispatch_retries = 0
+        # the resilience counts without a registry family, as plain
+        # counters: recoveries (poisoned pools), parks, and the tokens
+        # resumes re-matched from the radix tree and re-prefilled (the
+        # retries, lanes recovered and resumes are registry reads below)
         self.recoveries = 0
-        self.lanes_recovered = 0
         self.parks = 0
-        self.resumes = 0
         self.resume_reused_tokens = 0
         self.resume_prefill_tokens = 0
+        # the stall and inter-dispatch accounting's clock (a test may
+        # inject one)
+        self._clock = time.perf_counter
+        self._last_decode_end: float | None = None
         # speculation (module docstring); "off" is a pure bypass
         self.spec_mode = speculation
         self.spec_on = speculation != "off"
@@ -305,18 +361,16 @@ class LaneScheduler:
         self.drafters: dict[int, NgramDrafter] = {}
         # the cross-lane store, keyed by radix anchors (mode "shared" only)
         self.spec_store = SharedNgramStore() if speculation == "shared" else None
-        # the JAX server's dllama_spec_* series as plain counters: draft
-        # tokens proposed and accepted, the accept-length sum and count (a
-        # verify pass emits 1 + accepted tokens a lane), verify passes, and
-        # draft tokens by source
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self.spec_accept_len_sum = 0
-        self.spec_accept_len_count = 0
+        # verify passes (no registry family; the drafted and accepted
+        # tokens, the accept lengths and the sources are registry reads)
         self.spec_verify_dispatches = 0
-        self.spec_source: dict[str, int] = {}
         self.cv = threading.Condition()
         self._stop = False
+        # calls to run on this thread between two ticks (`run_between_ticks`)
+        self._between: list = []
+        # the registry's values when this scheduler started: its reads
+        # below are the deltas since (one registry serves the process)
+        self._base = self._registry_counts()
         self.thread = threading.Thread(target=self._loop, daemon=True, name="dllama-scheduler")
         self.thread.start()
 
@@ -336,16 +390,114 @@ class LaneScheduler:
             self.thread.join(timeout=timeout)
 
     def submit(self, params: InferenceParams) -> LaneJob:
-        job = LaneJob(params)
+        st = self.state
+        job = LaneJob(params, st.tracer.span(path="lanes"))
+        # the queue span begins here, on the handler thread, and ends on
+        # the scheduler thread once the admission's tokenize and radix
+        # match are done: "queue" covers the wait and the admission set-up
+        job.queue_span = st.spans.begin("queue", component="scheduler",
+                                        request_id=job.request_id)
         with self.cv:
             self.pending.append(job)
             self.n_submitted += 1
+            st.m_queue_depth.set(len(self.pending))
             self.cv.notify()
         return job
 
+    def run_between_ticks(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the scheduler thread between two ticks (no
+        dispatch in flight) and return its value or raise its error; a
+        waiting scheduler wakes for it. The profile route starts and stops
+        ``torch.profiler`` this way."""
+        box: dict = {"done": threading.Event()}
+        with self.cv:
+            self._between.append((fn, box))
+            self.cv.notify_all()
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"the scheduler ran no tick in {timeout} s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+    def _run_between(self) -> None:
+        with self.cv:
+            calls, self._between = self._between, []
+        for fn, box in calls:
+            try:
+                box["value"] = fn()
+            except Exception as e:
+                box["error"] = e
+            box["done"].set()
+
+    def _registry_counts(self) -> dict:
+        """The registry values `resilience_stats` and `spec_stats` read."""
+        st = self.state
+        out = {
+            "dispatch_retries": st.m_dispatch_retries.value,
+            "lanes_recovered": st.m_lanes_recovered.value,
+            "resumes": st.m_stream_resumes.value,
+            "drafted": st.m_spec_drafted.value,
+            "accepted": st.m_spec_accepted.value,
+            "accept_len_sum": st.m_spec_accept_len.sum,
+            "accept_len_count": st.m_spec_accept_len.count,
+        }
+        out.update({("shed", k[0]): v for k, v in st.m_shed.child_values().items()})
+        if st.m_spec_source is not None:
+            out.update({("source", k[0]): v
+                        for k, v in st.m_spec_source.child_values().items()})
+        return out
+
+    def _delta(self, name) -> int:
+        """A registry value less its value when this scheduler started."""
+        now = self._registry_counts().get(name, 0)
+        return int(now - self._base.get(name, 0))
+
+    def _deltas(self, label: str) -> dict[str, int]:
+        now = self._registry_counts()
+        out = {k[1]: int(v - self._base.get(k, 0)) for k, v in now.items()
+               if isinstance(k, tuple) and k[0] == label}
+        return {k: v for k, v in sorted(out.items()) if v}
+
+    @property
+    def dispatch_retries(self) -> int:
+        return self._delta("dispatch_retries")
+
+    @property
+    def lanes_recovered(self) -> int:
+        return self._delta("lanes_recovered")
+
+    @property
+    def resumes(self) -> int:
+        return self._delta("resumes")
+
+    @property
+    def spec_drafted(self) -> int:
+        return self._delta("drafted")
+
+    @property
+    def spec_accepted(self) -> int:
+        return self._delta("accepted")
+
+    @property
+    def spec_accept_len_sum(self) -> int:
+        return self._delta("accept_len_sum")
+
+    @property
+    def spec_accept_len_count(self) -> int:
+        return self._delta("accept_len_count")
+
+    @property
+    def spec_source(self) -> dict[str, int]:
+        return self._deltas("source")
+
+    def _set_lane_gauge(self) -> None:
+        self.state.m_lanes_active.set(sum(1 for ls in self.lanes if ls is not None))
+
     def resilience_stats(self) -> dict:
         """The resilience counters in one snapshot (/v1/health's
-        ``resilience``), the chaos plane's injected faults by site too."""
+        ``resilience``), the chaos plane's injected faults by site too.
+        Retries, lanes recovered, resumes and the shed requests by reason
+        are registry reads (`_delta`)."""
         return {
             "retry_max": self.retry_max,
             "dispatch_retries": self.dispatch_retries,
@@ -358,37 +510,55 @@ class LaneScheduler:
             "resumes": self.resumes,
             "resume_reused_tokens": self.resume_reused_tokens,
             "resume_prefill_tokens": self.resume_prefill_tokens,
-            "shed": dict(self.state.shed),
+            "shed": self._deltas("shed"),
             "faults": get_fault_plane().counts(),
         }
 
     # -- failure classification and recovery -------------------------------
 
-    def _retry_dispatch(self, fn):
+    def _retry_dispatch(self, fn, what: str = "dispatch"):
         """Run one engine dispatch, retrying a failure up to ``retry_max``
         times with a doubling backoff while the engine's ``cache_epoch``
         stands still: the pool is as it was before the call, so the
         dispatch is safe to repeat. A failure that moved the epoch re-raises
-        at once: the pool was reset, and the caller's recovery owns it."""
-        attempt = 0
-        while True:
-            epoch = self.engine.cache_epoch
-            try:
-                return fn()
-            except Exception as e:
-                if self.engine.cache_epoch != epoch or attempt >= self.retry_max:
-                    raise
-                attempt += 1
-                self.dispatch_retries += 1
-                logger.warning("engine dispatch failed (%s: %s); retry %d of %d",
-                               type(e).__name__, e, attempt, self.retry_max)
-                time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
+        at once: the pool was reset, and the caller's recovery owns it.
+        The watchdog sees the dispatch ``what`` in flight throughout."""
+        wd = self.state.watchdog
+        wd.dispatch_begin(what)
+        try:
+            attempt = 0
+            while True:
+                epoch = self.engine.cache_epoch
+                try:
+                    return fn()
+                except Exception as e:
+                    if self.engine.cache_epoch != epoch or attempt >= self.retry_max:
+                        raise
+                    attempt += 1
+                    self.state.m_dispatch_retries.inc()
+                    self.state.recorder.record(
+                        "dispatch_retry", step=what, attempt=attempt, error=str(e),
+                        error_type=type(e).__name__)
+                    logger.warning("engine dispatch failed (%s: %s); retry %d of %d",
+                                   type(e).__name__, e, attempt, self.retry_max)
+                    time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
+        finally:
+            wd.dispatch_end()
+
+    def _finish_span(self, job: LaneJob, reason: str, **counts) -> None:
+        """Close the request's lifecycle span once and count its finish."""
+        if job.span.finish(reason, **counts) is not None:
+            self.state.m_finished.labels(reason=reason).inc()
+            if reason == "cancelled":
+                self.state.m_cancellations.inc()
 
     def _fail_active(self, lane: int, err: dict) -> None:
         """Error out one active lane's request and free the lane (nothing
         is published: its KV is not trusted on any path that gets here)."""
         ls = self.lanes[lane]
+        self.state.spans.end(ls.decode_span, error=err["message"])
         ls.job.events.put(("error", err))
+        self._finish_span(ls.job, "error", n_completion=ls.job.n_completion)
         self.lanes[lane] = None
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
@@ -400,7 +570,12 @@ class LaneScheduler:
             return
         if adm.from_park:
             self._n_parked -= 1
+            self.state.m_streams_parked.set(self._n_parked)
+        if adm.resume_state is not None:
+            # a resume that failed: the stream's decode span is still open
+            self.state.spans.end(adm.resume_state.decode_span, error=err["message"])
         adm.job.events.put(("error", err))
+        self._finish_span(adm.job, "error", n_completion=adm.job.n_completion)
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
 
@@ -415,6 +590,7 @@ class LaneScheduler:
             self._fail_admitting(lane, err)
         self.kv.release_all_lanes()
         self.drafters.clear()
+        self._set_lane_gauge()
 
     def _recover(self, e: Exception, culprit: int | None) -> None:
         """A failed dispatch reset the pool (the epoch moved): every page
@@ -454,6 +630,11 @@ class LaneScheduler:
                 adopt_pages=pages, start_pos=start_pos, resume_state=ls,
             )
         self.recoveries += 1
+        self.state.recorder.record(
+            "lane_recovery", error=str(e), error_type=type(e).__name__, culprit=culprit,
+            n_resumed=sum(1 for a in self.admitting.values() if a.resume_state is not None),
+            n_admitting=len(self.admitting))
+        self._set_lane_gauge()
         with self.cv:
             self.cv.notify_all()
 
@@ -469,9 +650,10 @@ class LaneScheduler:
     def _tick(self) -> bool:
         """One scheduler tick: admissions into free lanes, at most one
         admission step, one decode block. False once stopped."""
+        st = self.state
         with self.cv:
             while (not self._stop and not self.pending and not any(self.lanes)
-                   and not self.admitting):
+                   and not self.admitting and not self._between):
                 self.cv.wait()
             if self._stop:
                 return False
@@ -486,6 +668,13 @@ class LaneScheduler:
                 self.lane_used[lane] = self._admission_count
                 admissions.append((lane, job))
             n_pending = len(self.pending)
+            st.m_queue_depth.set(n_pending)
+        self._run_between()
+        # the watchdog's scheduler-stalled rule audits the gap between beats
+        st.watchdog.beat(n_active=sum(1 for ls in self.lanes if ls is not None),
+                         n_admitting=len(self.admitting))
+        tick_sp = st.spans.begin("sched_tick", component="scheduler", n_pending=n_pending,
+                                 n_admitting=len(self.admitting))
         for lane, job in admissions:
             self._begin_admission(lane, job)
         self._maybe_park(n_pending)
@@ -503,10 +692,19 @@ class LaneScheduler:
                 logger.exception("lane scheduler step failed (%s)",
                                  "pool reset; recovering lanes" if poisoned
                                  else "pool intact; dropping in-flight lanes")
+                st.m_sched_errors.inc()
+                st.recorder.record("scheduler_error", error=str(e), error_type=type(e).__name__,
+                                   poisoned=poisoned,
+                                   n_lanes=sum(1 for ls in self.lanes if ls is not None))
+                st.recorder.postmortem("scheduler-loop", e)
                 if poisoned:
                     self._recover(e, culprit=None)
                 else:
                     self._drop_all(e)
+        st.spans.end(tick_sp)
+        if not any(self.lanes):
+            # decode went idle: the next block starts a new stall window
+            self._last_decode_end = None
         return True
 
     # -- oversubscription: park and resume ---------------------------------
@@ -533,28 +731,47 @@ class LaneScheduler:
         pages (no device work), release the lane and requeue the job with
         its preserved _LaneState and drafter (`_resume_parked`)."""
         ls = self.lanes[lane]
-        self.kv.publish(lane, ls.history[: ls.pos])
-        self.kv.release_lane(lane)
+        st = self.state
+        rid = ls.job.request_id
+        with st.spans.span("park", component="scheduler", request_id=rid, lane=lane,
+                           pos=ls.pos):
+            self.kv.publish(lane, ls.history[: ls.pos])
+            self.kv.release_lane(lane)
         self.lanes[lane] = None
         ls.drafter = self.drafters.pop(lane, None)
         self._progress[lane] = 0
         ls.job._park_resume = ls
+        # parked is queued again: a fresh queue span covers the parked wait
+        # (the decode span stays open: the stream pauses, never restarts)
+        ls.job.queue_span = st.spans.begin("queue", component="scheduler", request_id=rid,
+                                           parked=True)
         self._n_parked += 1
         self.parks += 1
+        st.m_streams_parked.set(self._n_parked)
+        self._set_lane_gauge()
         with self.cv:
             self.pending.append(ls.job)
+            n_pending = len(self.pending)
+            st.m_queue_depth.set(n_pending)
             self.cv.notify()
+        st.recorder.record("stream_park", lane=lane, pos=ls.pos, n_pending=n_pending,
+                           n_parked=self._n_parked)
 
     def _resume_parked(self, lane: int, job: LaneJob, ls: _LaneState) -> None:
         """Queue a parked stream's re-admission on ``lane``: the radix
         match adopts its published pages back (no device copy) and only the
         page tail re-prefills; _finish_admission reinstalls ``ls``."""
+        st = self.state
         job._park_resume = None
         job.lane = lane
         try:
             start_pos, pages = self.kv.match(lane, ls.history)
             if start_pos > 0:
+                st.m_prefix_hits.inc()
+                st.m_reused_tokens.inc(start_pos)
                 self.kv.note_hit(start_pos)
+            st.spans.end(job.queue_span, lane=lane, resumed_from_park=True,
+                         reused_prefix_tokens=start_pos)
             self.admitting[lane] = _AdmittingLane(
                 job=job, tokens=list(ls.history), cursor=start_pos,
                 prompt_end=len(ls.history) - 1, max_pos=ls.max_pos, public_prompt="",
@@ -562,8 +779,12 @@ class LaneScheduler:
             )
         except Exception as e:
             logger.exception("resume of a parked stream on lane %d failed", lane)
+            st.spans.end(job.queue_span, error=str(e))
+            st.spans.end(ls.decode_span, error=str(e))
             job.events.put(("error", {"message": str(e), "retryable": True}))
+            self._finish_span(job, "error", n_completion=job.n_completion)
             self._n_parked -= 1
+            st.m_streams_parked.set(self._n_parked)
             self.kv.release_lane(lane)
 
     def _begin_admission(self, lane: int, job: LaneJob) -> None:
@@ -582,10 +803,20 @@ class LaneScheduler:
             tokens = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
             start_pos, adopt_pages = self.kv.match(lane, tokens)
             if start_pos > 0:
+                state.m_prefix_hits.inc()
+                state.m_reused_tokens.inc(start_pos)
                 self.kv.note_hit(start_pos)
+            else:
+                state.m_prefix_misses.inc()
             job.lane = lane
             job.reused_prefix_tokens = start_pos
             job.t_admit = time.perf_counter()
+            qw = job.span.mark_admitted(lane=lane, reused_prefix_tokens=start_pos)
+            state.spans.end(job.queue_span, lane=lane, n_prompt=len(tokens),
+                            reused_prefix_tokens=start_pos)
+            if qw is not None:
+                state.m_queue_wait.observe(qw)
+            state.m_admissions.inc()
             seq_len = self.engine.header.seq_len
             prompt_end = len(tokens) - 1
             if prompt_end >= seq_len:
@@ -598,7 +829,9 @@ class LaneScheduler:
                 adopt_pages=adopt_pages, start_pos=start_pos,
             )
         except Exception as e:
+            state.spans.end(job.queue_span, error=str(e))
             job.events.put(("error", {"message": str(e), "retryable": False}))
+            self._finish_span(job, "error")
             self.kv.release_lane(lane)
 
     def _admission_tick(self) -> None:
@@ -617,18 +850,38 @@ class LaneScheduler:
             self._abort_admission(lane)
             return
         fills = adm.tokens[:-1]
+        st, rid = self.state, adm.job.request_id
         epoch0 = self.engine.cache_epoch
         try:
             if not adm.adopted:
-                self._retry_dispatch(lambda: self.kv.adopt(lane, adm.adopt_pages))
+                t0 = self._clock()
+                with st.spans.span("adopt", component="scheduler", request_id=rid, lane=lane,
+                                   n_pages=len(adm.adopt_pages)):
+                    self._retry_dispatch(lambda: self.kv.adopt(lane, adm.adopt_pages),
+                                         "kv_adopt")
+                adm.prefill_s += self._clock() - t0
                 adm.adopted = True
             elif adm.cursor < len(fills):
-                adm.cursor += self._retry_dispatch(lambda: self.engine.prefill_lane_chunk(
-                    lane, fills[adm.cursor:], adm.cursor, budget=self.admission_chunk))
+                t0 = self._clock()
+                with st.spans.span("admission_chunk", component="scheduler", request_id=rid,
+                                   lane=lane, pos=adm.cursor):
+                    width = self._retry_dispatch(lambda: self.engine.prefill_lane_chunk(
+                        lane, fills[adm.cursor:], adm.cursor, budget=self.admission_chunk),
+                        "prefill_lane_chunk")
+                adm.prefill_s += self._clock() - t0
+                adm.cursor += width
+                adm.n_chunks += 1
+                st.m_admission_chunks.inc()
+                st.recorder.record("admission_chunk", lane=lane, chunk=adm.n_chunks,
+                                   pos=adm.cursor - width, n_tokens=width,
+                                   done=adm.cursor >= len(fills))
             if adm.adopted and adm.cursor >= len(fills):
                 self._finish_admission(lane, adm)
         except Exception as e:
             logger.exception("admission of lane %d failed", lane)
+            st.recorder.record("admission_error", lane=lane, error=str(e),
+                               error_type=type(e).__name__,
+                               poisoned=self.engine.cache_epoch != epoch0)
             if self.engine.cache_epoch != epoch0:
                 # the failed dispatch reset the pool under every lane: they
                 # all resume, and this admission fails
@@ -656,12 +909,21 @@ class LaneScheduler:
                 self.drafters[lane] = dr
             self.resume_reused_tokens += adm.start_pos
             self.resume_prefill_tokens += adm.prompt_end - adm.start_pos
+            self._set_lane_gauge()
+            event = dict(lane=lane, pos=ls.pos, reused_prefix_tokens=adm.start_pos,
+                         n_chunks=adm.n_chunks)
             if adm.from_park:
                 self._n_parked -= 1
-                self.resumes += 1
+                state.m_streams_parked.set(self._n_parked)
+                state.m_stream_resumes.inc()
+                state.recorder.record("stream_resume", **event)
             else:
-                self.lanes_recovered += 1
+                state.m_lanes_recovered.inc()
+                state.recorder.record("lane_recovered", **event)
             return
+        job.span.set_prefill_seconds(adm.prefill_s)
+        job.span.set_tokens(n_prompt=len(adm.tokens))
+        state.m_prefill.observe(adm.prefill_s)
         if adm.public_prompt:
             job.buffer += adm.public_prompt
             job.events.put(("delta", adm.public_prompt))
@@ -673,32 +935,57 @@ class LaneScheduler:
             job=job, pos=adm.prompt_end, token=adm.tokens[-1], max_pos=adm.max_pos,
             detector=detector, decoder=tok.stream_decoder(), temperature=p.temperature,
             top_p=p.top_p, seed=p.seed, history=list(adm.tokens),
+            decode_span=state.spans.begin("decode", component="scheduler",
+                                          request_id=job.request_id, lane=lane,
+                                          n_prompt=len(adm.tokens)),
         )
         del self.admitting[lane]
         if self.spec_on and p.temperature <= 0.0:
             # greedy lanes only: a sampled lane's next token is not the
             # argmax the verify pass returns, so it stays on the decode block
             self.drafters[lane] = self._make_drafter(lane, job.request_id)
+        self._set_lane_gauge()
+        state.recorder.record("admit", lane=lane, reused_prefix_tokens=adm.start_pos,
+                              n_prompt=len(adm.tokens), n_chunks=adm.n_chunks)
 
     def _abort_admission(self, lane: int) -> None:
         """Client went away mid-admission: stop prefilling for nobody."""
         adm = self.admitting.pop(lane)
+        job = adm.job
         if adm.from_park:
             self._n_parked -= 1
-        adm.job.events.put(("done", "cancelled"))
+            self.state.m_streams_parked.set(self._n_parked)
+        if adm.resume_state is not None:
+            self.state.spans.end(adm.resume_state.decode_span, reason="cancelled")
+        self._finish_span(job, "cancelled", n_prompt=len(adm.tokens),
+                          n_completion=job.n_completion)
+        job.events.put(("done", "cancelled"))
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
+        self.state.recorder.record("finish", lane=lane, reason="cancelled", pos=adm.cursor,
+                                   n_completion=job.n_completion)
 
     def _finish(self, lane: int, reason: str) -> None:
         ls = self.lanes[lane]
+        st, job = self.state, ls.job
+        st.spans.end(ls.decode_span, reason=reason, n_completion=job.n_completion)
         if reason in ("stop", "length"):
             # publish BEFORE signalling done, so a client's immediate
             # follow-up request matches this conversation
-            self.kv.publish(lane, ls.history[: ls.pos])
+            with st.spans.span("publish", component="scheduler", request_id=job.request_id,
+                               lane=lane, n_tokens=ls.pos):
+                self.kv.publish(lane, ls.history[: ls.pos])
         self.drafters.pop(lane, None)
         self.kv.release_lane(lane)
-        ls.job.events.put(("done", reason))
+        self._finish_span(job, reason, n_prompt=job.n_prompt_tokens,
+                          n_completion=job.n_completion)
+        st.slo.observe_span(job.span)
+        st.spans.maybe_flush()
+        job.events.put(("done", reason))
+        st.recorder.record("finish", lane=lane, reason=reason, pos=ls.pos,
+                           n_completion=job.n_completion)
         self.lanes[lane] = None
+        self._set_lane_gauge()
         with self.cv:
             self.cv.notify()
 
@@ -718,6 +1005,9 @@ class LaneScheduler:
         ls.job.n_completion += 1
         if ls.job.n_completion == 1:
             ls.job.t_first = time.perf_counter()
+            ttft = ls.job.span.mark_first_token()
+            if ttft is not None:
+                self.state.m_ttft.observe(ttft)
         piece = ls.decoder.decode(t)
         eos_type = ls.detector.append(t, piece)
         if eos_type in (EosResult.NOT_EOS, EosResult.EOS):
@@ -749,7 +1039,7 @@ class LaneScheduler:
             "accepted": self.spec_accepted,
             "verify_passes": self.spec_verify_dispatches,
             "tokens_per_lane_pass": 1.0 + self.spec_accept_len_sum / n if n else 0.0,
-            "sources": dict(self.spec_source),
+            "sources": self.spec_source,
             "store": self.spec_store.stats() if self.spec_store is not None else None,
         }
 
@@ -774,6 +1064,7 @@ class LaneScheduler:
         accepted run of len(draft) + 1 tokens). The drafter ranks its
         private n-gram match against the shared store's by matched length."""
         out: dict[int, list[int]] = {}
+        st = self.state
         seq_len = self.engine.header.seq_len
         for lane, dr in self.drafters.items():
             ls = self.lanes[lane]
@@ -786,8 +1077,15 @@ class LaneScheduler:
             d = dr.draft(budget=min(self.spec_k, room))
             if d:
                 out[lane] = d
-                self.spec_source[dr.last_source] = (self.spec_source.get(dr.last_source, 0)
-                                                    + len(d))
+                if st.m_spec_source is not None and dr.last_source:
+                    st.m_spec_source.labels(source=dr.last_source).inc(len(d))
+        if self.spec_store is not None and st.g_spec_store_groups is not None:
+            stats = self.spec_store.stats()
+            st.g_spec_store_groups.set(stats["groups"])
+            st.g_spec_store_streams.set(stats["streams"])
+            st.g_spec_store_tokens.set(stats["tokens"])
+            st.g_spec_store_hits.set(stats["hits"])
+            st.g_spec_store_misses.set(stats["misses"])
         return out
 
     def _spec_verify(self, drafts: dict[int, list[int]]) -> None:
@@ -810,8 +1108,18 @@ class LaneScheduler:
             ls = self.lanes[lane]
             rows[lane] = [ls.token, *d] + [0] * (t - 1 - len(d))
             pos[lane], act[lane] = ls.pos, True
-        grid = self._retry_dispatch(lambda: self.engine.verify_lanes(rows, pos, act))
+        st = self.state
+        now = self._clock()
+        if self._last_decode_end is not None:
+            st.m_decode_stall.observe(now - self._last_decode_end)
+        t0 = time.perf_counter()
+        with st.spans.span("spec_verify", component="scheduler", n_lanes=len(drafts), t=t):
+            grid = self._retry_dispatch(lambda: self.engine.verify_lanes(rows, pos, act),
+                                        "verify_lanes")
+        self._last_decode_end = self._clock()
+        dt = time.perf_counter() - t0
         self.spec_verify_dispatches += 1
+        n_emitted = 0
         for lane, d in drafts.items():
             out = grid[lane]
             # out[0] is the greedy token after the pending one, out[j] the
@@ -820,13 +1128,22 @@ class LaneScheduler:
             while a < len(d) and out[a] == d[a]:
                 a += 1
             self.drafters[lane].feedback(len(d), a)
-            self.spec_drafted += len(d)
-            self.spec_accepted += a
-            self.spec_accept_len_sum += a
-            self.spec_accept_len_count += 1
-            for tok in d[:a] + [out[a]]:
+            st.m_spec_drafted.inc(len(d))
+            st.m_spec_accepted.inc(a)
+            st.m_spec_accept_len.observe(float(a))
+            st.recorder.record("spec_verify", lane=lane, k=len(d), accepted=a, pos=pos[lane])
+            emitted = d[:a] + [out[a]]
+            n_emitted += len(emitted)
+            st.m_tpot.observe(dt / len(emitted))
+            for tok in emitted:
                 if not self._consume_token(lane, tok):
                     break
+        st.slo.note_tokens(n_emitted)
+        if st.m_spec_drafted.value > 0:
+            st.g_spec_rate.set(st.m_spec_accepted.value / st.m_spec_drafted.value)
+        if st.g_spec_tokens_per_pass is not None and st.m_spec_accept_len.count > 0:
+            st.g_spec_tokens_per_pass.set(
+                1.0 + st.m_spec_accept_len.sum / st.m_spec_accept_len.count)
 
     def _step_block(self) -> None:
         b = len(self.lanes)
@@ -850,8 +1167,17 @@ class LaneScheduler:
         temps = [ls.temperature if ls else 0.0 for ls in self.lanes]
         topps = [ls.top_p if ls else 1.0 for ls in self.lanes]
         seeds = [ls.seed if ls else None for ls in self.lanes]
+        st = self.state
+        now = self._clock()
+        if self._last_decode_end is not None:
+            st.m_decode_stall.observe(now - self._last_decode_end)
+        t0 = time.perf_counter()
         rows = self._retry_dispatch(lambda: self.engine.decode_lanes(
-            tokens, pos, self.block_size, active, temps, topps, seeds=seeds))
+            tokens, pos, self.block_size, active, temps, topps, seeds=seeds), "decode_lanes")
+        self._last_decode_end = self._clock()
+        if rows:
+            st.m_tpot.observe((time.perf_counter() - t0) / len(rows))
+            st.slo.note_tokens(len(rows) * sum(1 for a in active if a))
         if not rows:  # every lane in the block is out of sequence space
             for lane in range(b):
                 if active[lane]:
@@ -865,7 +1191,11 @@ class LaneScheduler:
 
 class ApiState:
     """Engine, tokenizer, chat template, KV manager and lane scheduler
-    shared by the request handlers, and the shedding and drain state."""
+    shared by the request handlers, the shedding and drain state, and the
+    observability of the JAX ``ApiState``: the registry's serving families
+    (`_register_families`), the tracer, the span tracker, the SLO windows,
+    the series store and its sampler, the anomaly monitor and the
+    watchdog."""
 
     def __init__(self, engine: InferenceEngine, tokenizer: Tokenizer,
                  model_name: str = "dllama-tpu",
@@ -874,7 +1204,9 @@ class ApiState:
                  kv_page_size: int = 0, kv_pool_pages: int = 0, speculation: str | None = None,
                  spec_k: int | None = None, max_streams: int | None = None,
                  retry_max: int | None = None, retry_backoff_ms: int | None = None,
-                 max_queue_depth: int | None = None):
+                 max_queue_depth: int | None = None, tracer: Tracer | None = None,
+                 slo_ttft_ms: float | None = None, slo_tpot_ms: float | None = None,
+                 series_retention: float | None = None):
         if engine.batch_size < 2:
             raise NotImplementedError(
                 "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
@@ -893,13 +1225,35 @@ class ApiState:
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.start_unix = time.time()
-        # requests refused at admission, by reason; graceful drain (the
-        # handler threads write both under _lock, never the scheduler's cv)
+        # graceful drain (the handler threads write it under _lock, never
+        # the scheduler's cv)
         self._lock = threading.Lock()
-        self.shed: dict[str, int] = {}
         self.draining = False
         self.draining_since: float | None = None
         self.drained = threading.Event()
+        # observability (obs/): every handle exists before the scheduler
+        # thread starts using it, so the hot path never looks one up
+        self.obs = get_registry()
+        self.recorder = get_recorder()
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.spans = get_span_tracker()
+        ttft_ms, tpot_ms = resolve_slo_knobs(slo_ttft_ms, slo_tpot_ms)
+        self.slo = SloTracker(ttft_target_ms=ttft_ms, tpot_target_ms=tpot_ms)
+        self._register_families(speculation)
+        # one refresh path for every on-demand gauge: the /metrics scrape
+        # and the series sampler both run the registry's hooks (keyed: a
+        # rebuilt ApiState replaces its hooks). Host-side numbers only:
+        # the allocator's counters and Python values
+        self.obs.add_refresh_hook("device_memory",
+                                  lambda: sample_device_memory(self.obs, engine.device))
+        self.obs.add_refresh_hook("slo", self.slo.snapshot)
+        retention_s, interval_s = resolve_series_knobs(series_retention)
+        self.series = SeriesStore(interval_s=interval_s, retention_s=retention_s)
+        self.sampler = MetricsSampler(self.series)
+        self.anomaly = AnomalyMonitor(build_default_rules(self.series))
+        self.sampler.on_sample.append(self.anomaly.evaluate)
+        # POST /v1/debug/profile: one capture at a time
+        self.profile_lock = threading.Lock()
         # request defaults captured once
         self.default_temperature = engine.temperature
         self.default_top_p = engine.sampler.topp
@@ -908,34 +1262,202 @@ class ApiState:
         self.max_stop_len = max((len(s) for s in stops), default=0)
         self.template = ChatTemplateGenerator(
             chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
-        self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages)
+        self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages,
+                                         evict_counter=self.m_evictions)
         # every admission-path graph before the first request, the verify
         # buckets too when speculation is on (dllama_tpu's api_server
         # rehearses its compiled programs the same way)
         engine.rehearse_admission(lane_block_size, spec_k=0 if speculation == "off"
                                   else LaneScheduler.clamp_spec_k(engine, spec_k))
+        # the watchdog starts after the rehearsal (its thread never runs
+        # beside a capture) and before the scheduler, which beats it every
+        # tick; its decode-stalled threshold scales off the engine's own
+        # p99 block seconds, so a slow model does not false-alarm
+        self.watchdog = EngineWatchdog(
+            block_p99=lambda: engine._m_step.labels(kind="decode_lanes").percentile(0.99),
+            recorder=self.recorder, **resolve_watchdog_knobs())
+        self.watchdog.start()
         self.scheduler = LaneScheduler(self, block_size=lane_block_size,
                                        admission_chunk=admission_chunk, speculation=speculation,
                                        spec_k=spec_k, max_streams=resolve_stream_knobs(max_streams),
                                        retry_max=retry_max, retry_backoff_ms=retry_backoff_ms)
+        self.m_lanes_total.set(engine.batch_size)
+        self.g_draining.set(0)
+        # every postmortem dump embeds a /v1/health snapshot and the last
+        # 60 s of the anomaly rules' series
+        self.recorder.add_context_provider("health", self.health_snapshot)
+        self.recorder.add_context_provider("series_60s", self._series_context)
+        # the sampler last: every gauge and hook it reads exists now
+        self.sampler.start()
+
+    def _register_families(self, speculation: str) -> None:
+        """Every serving family of the JAX ``ApiState`` but predictive
+        admission's (``dllama_admission_*``, ``dllama_preemptions_total``),
+        with the JAX names, help and labels."""
+        obs = self.obs
+        self.m_http = obs.counter(
+            "dllama_http_requests_total",
+            "HTTP requests by path (unknown paths fold into 'other').", labelnames=("path",))
+        self.m_queue_depth = obs.gauge(
+            "dllama_queue_depth", "Requests waiting for a free lane (lane-scheduler path).")
+        self.m_lanes_total = obs.gauge("dllama_lanes_total", "Serving lanes this engine exposes.")
+        self.m_lanes_active = obs.gauge("dllama_lanes_active",
+                                        "Lanes currently decoding a request.")
+        self.m_queue_wait = obs.histogram("dllama_queue_wait_seconds",
+                                          "Submit -> admission wait (lane assignment).")
+        self.m_prefill = obs.histogram("dllama_prefill_seconds",
+                                       "Prompt prefill wall time at admission.")
+        self.m_ttft = obs.histogram("dllama_ttft_seconds",
+                                    "Submit -> first generated token (time to first token).")
+        self.m_tpot = obs.histogram(
+            "dllama_tpot_seconds",
+            "Per-token decode latency a streaming client observes "
+            "(block wall time / tokens per lane in the block).",
+            buckets=DEFAULT_TOKEN_BUCKETS_S)
+        self.m_admissions = obs.counter("dllama_admissions_total",
+                                        "Requests admitted into a lane.")
+        self.m_prefix_hits = obs.counter(
+            "dllama_prefix_cache_hits_total",
+            "Admissions that reused a stored prompt prefix (radix-tree match).")
+        self.m_prefix_misses = obs.counter("dllama_prefix_cache_misses_total",
+                                           "Admissions that prefilled from position 0.")
+        self.m_reused_tokens = obs.counter("dllama_reused_prefix_tokens_total",
+                                           "KV positions skipped thanks to prompt-prefix reuse.")
+        self.m_evictions = obs.counter(
+            "dllama_cache_evictions_total",
+            "Stored prompt prefixes dropped to make room: radix-tree LRU page evictions "
+            "(see also dllama_radix_evictions_total).")
+        self.m_cancellations = obs.counter(
+            "dllama_sse_cancellations_total",
+            "Streaming requests whose client disconnected mid-response.")
+        self.m_finished = obs.counter(
+            "dllama_requests_finished_total",
+            "Completed requests by finish reason (stop/length/cancelled/error).",
+            labelnames=("reason",))
+        self.m_sched_errors = obs.counter(
+            "dllama_scheduler_errors_total",
+            "Engine errors that reached the lane-scheduler loop (each one recovered or "
+            "dropped the in-flight lanes; see the traceback log).")
+        self.m_dispatch_retries = obs.counter(
+            "dllama_dispatch_retries_total",
+            "Transient engine-dispatch failures re-issued by the scheduler's bounded-backoff "
+            "retry (the cache epoch did not move, so lane KV survived the failure).")
+        self.m_lanes_recovered = obs.counter(
+            "dllama_lanes_recovered_total",
+            "Lanes resumed after a poisoning dispatch failure: the pool was reset and the "
+            "stream's history re-prefilled, and its stream continued.")
+        self.m_shed = obs.counter(
+            "dllama_requests_shed_total",
+            "Requests refused at admission with 429/503 + Retry-After, by reason "
+            "(draining / queue_full / degraded).", labelnames=("reason",))
+        self.g_draining = obs.gauge(
+            "dllama_draining",
+            "1 while the server drains (admission stopped, in-flight streams finishing), "
+            "else 0.")
+        self.m_admission_chunks = obs.counter(
+            "dllama_admission_chunks_total",
+            "Bounded prefill chunks dispatched by the chunked admission state machine (one "
+            "per scheduler tick per admitting lane).")
+        self.m_decode_stall = obs.histogram(
+            "dllama_decode_stall_seconds",
+            "Gap between consecutive decode-block dispatches while >=1 lane is active — the "
+            "inter-token stall streaming clients see; bounded by one admission chunk + one "
+            "block.")
+        self.m_spec_drafted = obs.counter(
+            "dllama_spec_draft_tokens_total",
+            "Draft tokens proposed by the n-gram speculator across verify dispatches.")
+        self.m_spec_accepted = obs.counter(
+            "dllama_spec_accepted_tokens_total",
+            "Draft tokens accepted by batched verification (the greedy argmax agreed with "
+            "the draft at that position).")
+        self.m_spec_accept_len = obs.histogram(
+            "dllama_spec_accept_length",
+            "Accepted draft-prefix length per lane per verify dispatch (0 = the first draft "
+            "token already diverged; each dispatch still emits one correction token).",
+            buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0))
+        self.g_spec_rate = obs.gauge(
+            "dllama_spec_acceptance_rate",
+            "Cumulative accepted/drafted token ratio of the n-gram speculator (0 until the "
+            "first verify dispatch).")
+        # registered only with speculation on, so "off" adds no series
+        self.m_spec_source = self.g_spec_tokens_per_pass = None
+        self.g_spec_store_groups = self.g_spec_store_streams = None
+        self.g_spec_store_tokens = self.g_spec_store_hits = self.g_spec_store_misses = None
+        if speculation != "off":
+            self.m_spec_source = obs.counter(
+                "dllama_spec_source_total",
+                "Draft tokens proposed, by source: the lane's private n-gram index or a "
+                "sibling continuation from the shared store.", labelnames=("source",))
+            self.g_spec_tokens_per_pass = obs.gauge(
+                "dllama_spec_tokens_per_weight_pass",
+                "Mean tokens emitted per verify dispatch (1 + mean accepted prefix length) "
+                "— compare against the roofline ceiling printed at startup.")
+        if speculation == "shared":
+            self.g_spec_store_groups = obs.gauge(
+                "dllama_spec_shared_store_groups",
+                "Anchor groups (radix node identities) currently held by the cross-lane "
+                "shared n-gram store.")
+            self.g_spec_store_streams = obs.gauge(
+                "dllama_spec_shared_store_streams",
+                "Published stream continuations across all anchor groups in the shared "
+                "n-gram store.")
+            self.g_spec_store_tokens = obs.gauge(
+                "dllama_spec_shared_store_tokens",
+                "Accepted tokens retained across all shared-store stream continuations.")
+            self.g_spec_store_hits = obs.gauge(
+                "dllama_spec_shared_store_hits",
+                "Cumulative shared-store lookups that returned a sibling continuation.")
+            self.g_spec_store_misses = obs.gauge(
+                "dllama_spec_shared_store_misses",
+                "Cumulative shared-store lookups that found no usable sibling continuation.")
+        self.m_streams_parked = obs.gauge(
+            "dllama_streams_parked",
+            "Admitted streams currently parked out of their lane (--max-streams "
+            "oversubscription): KV published to the shared pool, page list dropped, waiting "
+            "to resume.")
+        self.m_stream_resumes = obs.counter(
+            "dllama_stream_resumes_total",
+            "Parked streams resumed into a lane via radix re-match through the "
+            "recovery-admission path.")
+
+    @property
+    def shed(self) -> dict[str, int]:
+        """Requests refused at admission by reason, since this server
+        started (the registry's ``dllama_requests_shed_total``)."""
+        return self.scheduler._deltas("shed")
+
+    def degraded_reasons(self) -> list[str]:
+        """Composed degradation: the watchdog (a hard stall) and the
+        anomaly monitor (a soft baseline deviation) each add reasons.
+        Shared by /v1/health and `admission_decision`."""
+        reasons: list[str] = []
+        wd = self.watchdog
+        if wd.degraded:
+            reasons.append(f"watchdog:{wd.status().get('reason')}")
+        if self.anomaly.degraded:
+            reasons.extend(f"anomaly:{s}" for s in self.anomaly.active_signals())
+        return reasons
 
     def admission_decision(self, priority: str) -> tuple[str, int] | None:
         """The shedding gate, before a request reaches the queue: None
         admits, else (reason, Retry-After seconds). A drain refuses all;
         ``--max-queue-depth`` refuses by priority once the queue holds
-        `SHED_FACTOR` of it (the JAX server's ladder and its Retry-After
-        floors: its ``infeasible`` and ``degraded`` reasons wait for the
-        load predictor and the anomaly monitor, ROADMAP A.6)."""
+        `SHED_FACTOR` of it; a ``low`` request is refused while the server
+        is degraded (the JAX server's ladder and its Retry-After floors: its
+        ``infeasible`` reason waits for the load predictor, ROADMAP A.7)."""
         if self.draining:
             return "draining", RETRY_AFTER_DRAINING
         depth = self.max_queue_depth
         if depth > 0 and len(self.scheduler.pending) >= depth * SHED_FACTOR.get(priority, 1.0):
             return "queue_full", RETRY_AFTER
+        if priority == "low" and self.degraded_reasons():
+            return "degraded", RETRY_AFTER_DEGRADED
         return None
 
-    def note_shed(self, reason: str) -> None:
-        with self._lock:
-            self.shed[reason] = self.shed.get(reason, 0) + 1
+    def note_shed(self, reason: str, priority: str = "normal", retry_after: int = 0) -> None:
+        self.m_shed.labels(reason=reason).inc()
+        self.recorder.record("request_shed", reason=reason, priority=priority,
+                             retry_after_s=retry_after)
 
     def in_flight(self) -> int:
         sched = self.scheduler
@@ -944,32 +1466,58 @@ class ApiState:
 
     def begin_drain(self) -> dict:
         """Start a graceful drain (``POST /v1/drain``, SIGTERM): admission
-        sheds every request, the streams in flight run to their end, then
-        ``drained`` is set. Idempotent."""
+        sheds every request, the streams in flight run to their end, the
+        span sink flushes, then ``drained`` is set. Idempotent."""
         with self._lock:
             start = not self.draining
             if start:
                 self.draining, self.draining_since = True, time.time()
         if start:
+            in_flight = self.in_flight()
+            self.g_draining.set(1)
+            self.recorder.record("drain_begin", in_flight=in_flight)
             threading.Thread(target=self._drain_watch, daemon=True, name="dllama-drain").start()
         return {"status": "draining", "in_flight": self.in_flight(),
                 "drained": self.drained.is_set(), "since_unix": self.draining_since}
 
     def _drain_watch(self) -> None:
-        """Poll until nothing is in flight, then set ``drained`` (the
-        SIGTERM handler waits on it before it shuts the server down)."""
+        """Poll until nothing is in flight, flush the span sink, then set
+        ``drained`` (the SIGTERM handler waits on it before it shuts the
+        server down)."""
         while self.in_flight():
             time.sleep(0.05)
+        self.spans.flush()
+        self.recorder.record("drain_complete")
+        since = self.draining_since
+        self.recorder.record("drained", in_flight=0,
+                             drain_s=round(time.time() - since, 3) if since is not None else 0.0)
         self.drained.set()
 
+    def _series_context(self) -> dict:
+        out = {}
+        for name in DEFAULT_SIGNAL_SERIES:
+            q = self.series.query(name, 60.0)
+            if q is not None:
+                out[name] = q
+        return out
+
+    def memory_snapshot(self) -> dict:
+        """``/v1/debug/memory``: the card's allocator counters against the
+        engine's analytic `memory_report` (host-side reads only)."""
+        stats = sample_device_memory(self.obs, self.engine.device)
+        mr = memory_report(self.engine)
+        return {"devices": stats, "analytic": mr.as_dict(),
+                "comparison": compare_with_analytic(mr.per_device_bytes, stats)}
+
     def health_snapshot(self) -> dict:
+        """The /v1/health payload, also embedded into postmortem dumps (the
+        recorder's context providers), so it never takes the scheduler's
+        cv: the lane and queue reads are GIL-atomic snapshots."""
         sched = self.scheduler
         total = self.engine.batch_size
         active = sum(1 for ls in sched.lanes if ls is not None)
-        extra = {"draining_since_unix": self.draining_since} if self.draining else {}
-        return {
-            "status": "draining" if self.draining else "ok",
-            **extra,
+        payload = {
+            "status": "ok",
             "model": self.model_name,
             "uptime_s": round(time.time() - self.start_unix, 3),
             "lanes": {"total": total, "active": active, "free": total - active},
@@ -981,6 +1529,21 @@ class ApiState:
             "speculation": sched.spec_stats(),
             "resilience": sched.resilience_stats(),
         }
+        reasons = self.degraded_reasons()
+        if self.watchdog.degraded:
+            payload["watchdog"] = self.watchdog.status()
+        if self.anomaly.degraded:
+            payload["anomaly"] = self.anomaly.status()
+        if reasons:
+            # a degraded server still accepts connections: health says so,
+            # so a probe or a router can act on it
+            payload["status"] = "degraded"
+            payload["degraded_reasons"] = reasons
+        if self.draining:
+            # draining wins: routers must stop sending traffic
+            payload["status"] = "draining"
+            payload["draining_since_unix"] = self.draining_since
+        return payload
 
 
 def _completion_response(state: ApiState, content: str, finish_reason: str, n_prompt: int,
@@ -1030,12 +1593,90 @@ def _chunk_payload(state: ApiState, delta: str | None, stop: bool, reason: str =
     return payload
 
 
+# a Chrome trace's complete events and kernel names, read as text
+_TRACE_EVENT = re.compile(r'"ph":\s*"X"')
+_TRACE_KERNEL = re.compile(r'"ph":\s*"X",\s*"cat":\s*"kernel",\s*"name":\s*"((?:[^"\\]|\\.)*)"')
+_KNOWN_PATHS = frozenset({
+    "/v1/chat/completions", "/v1/models", "/v1/health", "/v1/debug/recorder",
+    "/v1/debug/memory", "/v1/debug/compile", "/v1/debug/kv", "/v1/debug/timeline",
+    "/v1/debug/slo", "/v1/debug/series", "/v1/debug/profile", "/v1/drain", "/dashboard",
+    "/metrics", "/health", "/healthz",
+})
+
+
+def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
+    """A ``torch.profiler`` capture of ``seconds`` of serving, written as a
+    Chrome trace into ``out_dir``: CPU activity, and CUDA on the card.
+    The profiler starts and stops on the scheduler thread between two
+    ticks (`LaneScheduler.run_between_ticks`): no dispatch, and so no graph
+    replay, is in flight when it does, and the scheduler thread's host ops
+    are the ones recorded. A ``dllama.profile_window`` range marks the
+    window. The trace is scanned as text for its complete events and kernel
+    names (a second of graphed decode writes ~10^5 events, and a JSON parse
+    of them would hold the interpreter from the scheduler thread). Raises
+    when the capture fails or the trace holds no event. ``timings_s``: the
+    start, the window, the stop and the export, each in seconds."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU]
+    if state.engine.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    window = record_function("dllama.profile_window")
+    sched = state.scheduler
+
+    def start():
+        prof.start()
+        window.__enter__()
+
+    def stop():
+        window.__exit__(None, None, None)
+        prof.stop()
+
+    t = [time.perf_counter()]
+    sched.run_between_ticks(start)
+    t.append(time.perf_counter())
+    try:
+        time.sleep(seconds)
+    finally:
+        t.append(time.perf_counter())
+        sched.run_between_ticks(stop)
+        t.append(time.perf_counter())
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    t.append(time.perf_counter())
+    with open(path) as f:
+        text = f.read()
+    n_events = len(_TRACE_EVENT.findall(text))
+    if not n_events:
+        raise RuntimeError(f"the profiler wrote no event to {path}")
+    kernels = sorted({json.loads(f'"{n}"') for n in _TRACE_KERNEL.findall(text)})
+    return {"log_dir": out_dir, "seconds": seconds, "n_files": len(os.listdir(out_dir)),
+            "trace": path, "n_events": n_events, "kernels": kernels,
+            "timings_s": {k: round(b - a, 4) for k, a, b in
+                          zip(("start", "window", "stop", "export"), t, t[1:])}}
+
+
 def make_handler(state: ApiState):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
+        def _count_request(self) -> None:
+            # unknown paths fold into one label (a scanner cannot blow up
+            # the family's cardinality); a query string splits no series
+            path = self.path.partition("?")[0]
+            state.m_http.labels(path=path if path in _KNOWN_PATHS else "other").inc()
+
         def log_message(self, fmt, *args):  # quiet access log
             pass
+
+        def _body(self, body: bytes, content_type: str) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def _json(self, payload: dict, status: int = 200,
                   retry_after: int | None = None) -> None:
@@ -1058,7 +1699,13 @@ def make_handler(state: ApiState):
             self.end_headers()
 
         def do_GET(self):
-            path = self.path.partition("?")[0]
+            self._count_request()
+            path, _, query = self.path.partition("?")
+            params = parse_qs(query)
+
+            def arg(name, default=None):
+                return (params.get(name) or [default])[0]
+
             if path == "/v1/models":
                 self._json({
                     "object": "list",
@@ -1066,12 +1713,99 @@ def make_handler(state: ApiState):
                               "owned_by": "user"}],
                 })
             elif path == "/v1/health":
+                # ok / degraded / draining, the snapshot postmortems embed
                 self._json(state.health_snapshot())
+            elif path == "/metrics":
+                # the refresh path the series sampler runs too
+                state.obs.run_refresh_hooks()
+                self._body(state.obs.render().encode("utf-8"), state.obs.CONTENT_TYPE)
+            elif path == "/v1/debug/recorder":
+                self._json(state.recorder.dump())
+            elif path == "/v1/debug/memory":
+                self._json(state.memory_snapshot())
+            elif path == "/v1/debug/kv":
+                self._json(dict(state.kv_manager.debug(), enabled=True))
+            elif path == "/v1/debug/compile":
+                self._json({"programs": state.engine.graph_report(),
+                            "cost": state.engine.cost_report()})
+            elif path == "/v1/debug/timeline":
+                # Chrome-trace JSON of the span ring; ?request_id= narrows
+                # it to one request and adds its millisecond accounting
+                try:
+                    base = int(arg("pid_base", "0"))
+                except ValueError:
+                    base = 0
+                self._json(state.spans.chrome_trace(
+                    request_id=arg("request_id"), replica=arg("replica"),
+                    pid_prefix=arg("pid_prefix"), pid_base=base))
+            elif path == "/v1/debug/slo":
+                self._json(state.slo.snapshot())
+            elif path == "/v1/debug/series":
+                name = arg("name")
+                if name is None:
+                    self._json({"names": state.series.names(),
+                                "interval_s": state.series.interval_s,
+                                "retention_s": state.series.retention_s,
+                                "anomaly": state.anomaly.status()})
+                    return
+                try:
+                    window = float(arg("window", "300"))
+                except ValueError:
+                    self._json({"error": {"message": "bad window"}}, 400)
+                    return
+                result = state.series.query(name, window)
+                if result is None:
+                    self._json({"error": {"message": f"no series {name!r}"}}, 404)
+                    return
+                self._json(result)
+            elif path == "/dashboard":
+                self._body(render_dashboard(), DASHBOARD_CONTENT_TYPE)
+            elif path in ("/health", "/healthz"):
+                self._json({"status": "ok"})
             else:
                 self.send_error(404, "Not Found")
 
+        def _profile(self) -> None:
+            """``POST /v1/debug/profile`` {"seconds": 2.0, "out_dir": ...}
+            (both optional): `profile_capture`; 409 while another capture
+            runs, 500 with the error when the capture fails."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                seconds = float(body.get("seconds", 2.0))
+                out_dir = body.get("out_dir")
+            except (ValueError, TypeError, AttributeError) as e:
+                self._json({"error": {"message": f"bad request: {e}"}}, 400)
+                return
+            if not 0.0 < seconds <= 60.0:
+                self._json({"error": {"message": "seconds must be in (0, 60]"}}, 400)
+                return
+            if not out_dir:
+                import tempfile
+
+                out_dir = os.path.join(tempfile.gettempdir(),
+                                       f"dllama-profile-{uuid.uuid4().hex[:8]}")
+            if not state.profile_lock.acquire(blocking=False):
+                self._json({"error": {"message": "a capture is already running"}}, 409)
+                return
+            try:
+                result = profile_capture(state, seconds, out_dir)
+            except Exception as e:
+                logger.exception("profile capture failed")
+                self._json({"error": {"message": f"profile capture failed: {e}"}}, 500)
+                return
+            finally:
+                state.profile_lock.release()
+            state.recorder.record("profile_capture", log_dir=out_dir, seconds=seconds,
+                                  n_files=result["n_files"], n_events=result["n_events"])
+            self._json(result)
+
         def do_POST(self):
+            self._count_request()
             path = self.path.partition("?")[0]
+            if path == "/v1/debug/profile":
+                self._profile()
+                return
             if path == "/v1/drain":
                 self._json(state.begin_drain())
                 return
@@ -1090,7 +1824,7 @@ def make_handler(state: ApiState):
             shed = state.admission_decision(params.priority)
             if shed is not None:
                 reason, retry_after = shed
-                state.note_shed(reason)
+                state.note_shed(reason, params.priority, retry_after)
                 self._json({"error": {"message": f"request shed: {reason}", "retryable": True,
                                       "retry_after_s": retry_after}},
                            503 if reason == "draining" else 429, retry_after=retry_after)
@@ -1113,12 +1847,16 @@ def make_handler(state: ApiState):
                     kind, payload = job.events.get()
                     if kind == "delta":
                         chunk = _chunk_payload(state, payload, stop=False)
-                        # chaos site: an injected flush failure is a client
-                        # gone mid-stream (the cancel path below)
-                        fault = get_fault_plane().draw("sse_flush")
-                        if fault is not None:
-                            raise OSError(str(fault))
-                        _sse_write(self.wfile, f"data: {json.dumps(chunk)}\r\n\r\n")
+                        # one span a frame: a slow client's backpressure
+                        # shows on the timeline's http track
+                        with state.spans.span("sse_flush", component="http",
+                                              request_id=job.request_id, lane=job.lane):
+                            # chaos site: an injected flush failure is a
+                            # client gone mid-stream (the cancel path below)
+                            fault = get_fault_plane().draw("sse_flush")
+                            if fault is not None:
+                                raise OSError(str(fault))
+                            _sse_write(self.wfile, f"data: {json.dumps(chunk)}\r\n\r\n")
                     elif kind == "error":
                         _sse_write(self.wfile, f"data: {json.dumps({'error': payload})}\r\n\r\n")
                         errored = True
@@ -1199,6 +1937,12 @@ def serve(
     retry_backoff_ms: int | None = None,
     max_queue_depth: int | None = None,
     faults: str | None = None,
+    trace_out: str | None = None,
+    timeline_out: str | None = None,
+    postmortem_dir: str | None = None,
+    slo_ttft_ms: float | None = None,
+    slo_tpot_ms: float | None = None,
+    series_retention: float | None = None,
 ) -> ThreadingHTTPServer:
     """Build the server over a ``batch_size`` > 1 engine (its lanes get the
     page pool here); the caller runs ``serve_forever()`` and
@@ -1207,7 +1951,14 @@ def serve(
     ``off`` and 4; ``max_streams``, ``retry_max``, ``retry_backoff_ms`` and
     ``max_queue_depth`` to their ``DLLAMA_*`` variables, then 0, 3, 5 and
     0 (`resolve_stream_knobs`, `resolve_resilience_knobs`). ``faults`` arms
-    the process-wide chaos plane (``DLLAMA_FAULTS`` armed it at import)."""
+    the process-wide chaos plane (``DLLAMA_FAULTS`` armed it at import).
+    Observability: ``trace_out`` appends one JSON line a finished request;
+    ``timeline_out`` rewrites the span timeline there (throttled, and once
+    more at close); ``postmortem_dir`` (else ``DLLAMA_POSTMORTEM_DIR``)
+    receives the flight recorder's dumps; ``slo_ttft_ms`` /
+    ``slo_tpot_ms`` (else ``DLLAMA_SLO_*``) set the SLO targets and
+    ``series_retention`` (else ``DLLAMA_SERIES_RETENTION_S``, then 3600)
+    the series store's seconds."""
     if faults is not None:
         set_fault_plane(faults)
     state = ApiState(
@@ -1216,7 +1967,13 @@ def serve(
         kv_page_size=kv_page_size or 0, kv_pool_pages=kv_pool_pages or 0,
         speculation=speculation, spec_k=spec_k, max_streams=max_streams, retry_max=retry_max,
         retry_backoff_ms=retry_backoff_ms, max_queue_depth=max_queue_depth,
+        tracer=Tracer(sink_path=trace_out) if trace_out else None, slo_ttft_ms=slo_ttft_ms,
+        slo_tpot_ms=slo_tpot_ms, series_retention=series_retention,
     )
+    if postmortem_dir:
+        state.recorder.postmortem_dir = postmortem_dir
+    if timeline_out:
+        state.spans.set_sink(timeline_out)
     server = ThreadingHTTPServer((host, port), make_handler(state))
     server.state = state
     inner_close = server.server_close
@@ -1224,6 +1981,14 @@ def serve(
     def _close():
         inner_close()
         state.scheduler.stop()
+        state.watchdog.stop()
+        # join the sampler: a closed server leaves no thread writing the
+        # shared registry
+        state.sampler.stop()
+        if timeline_out:
+            state.spans.flush()
+        if trace_out:
+            state.tracer.close()
 
     server.server_close = _close
     return server
@@ -1255,7 +2020,7 @@ def build_parser():
     engine's (`cli.add_engine_args`)."""
     import argparse
 
-    from ..cli import add_engine_args
+    from ..cli import add_engine_args, add_obs_args
 
     parser = argparse.ArgumentParser(prog="dllama-tpu-torch-api")
     parser.add_argument("--host", default="0.0.0.0")
@@ -1286,6 +2051,17 @@ def build_parser():
                              "queued request and resume it later (default: "
                              "$DLLAMA_MAX_STREAMS, else 0: off)")
     add_engine_args(parser)
+    add_obs_args(parser)
+    parser.add_argument("--slo-ttft-ms", type=float, default=None,
+                        help="TTFT SLO target in ms of the windowed attainment and goodput "
+                             "gauges (obs/slo.py; default: $DLLAMA_SLO_TTFT_MS, else none)")
+    parser.add_argument("--slo-tpot-ms", type=float, default=None,
+                        help="mean-TPOT SLO target in ms (obs/slo.py; default: "
+                             "$DLLAMA_SLO_TPOT_MS, else none)")
+    parser.add_argument("--series-retention", type=float, default=None, metavar="SECONDS",
+                        help="seconds of in-process metric series kept for /v1/debug/series "
+                             "and /dashboard (obs/timeseries.py; default: "
+                             "$DLLAMA_SERIES_RETENTION_S, else 3600)")
     return parser
 
 
@@ -1306,7 +2082,9 @@ def main(argv=None) -> None:
         kv_pool_pages=args.kv_pool_pages, speculation=args.speculation, spec_k=args.spec_k,
         max_streams=args.max_streams, retry_max=args.retry_max,
         retry_backoff_ms=args.retry_backoff_ms, max_queue_depth=args.max_queue_depth,
-        faults=args.faults,
+        faults=args.faults, trace_out=args.trace_out, timeline_out=args.timeline_out,
+        postmortem_dir=args.postmortem_dir, slo_ttft_ms=args.slo_ttft_ms,
+        slo_tpot_ms=args.slo_tpot_ms, series_retention=args.series_retention,
     )
     _install_drain_handler(server)
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")

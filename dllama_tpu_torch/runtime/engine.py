@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -68,6 +69,10 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
+from ..obs.cost import StepCostModel, extract_cost, hbm_peak_bytes_per_s, roofline_fraction
+from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
+from ..obs.recorder import get_recorder
+from ..obs.spans import get_span_tracker
 from ..ops.kv_cache import kv_tensors, new_kv_leaf, reset_kv_leaf
 from .faults import get_fault_plane
 from .graphs import StepGraphs
@@ -96,6 +101,108 @@ def resolve_kv_dtype(kv_dtype, dtype) -> torch.dtype:
         raise ValueError(f"kv_dtype {kv_dtype} with dtype {dtype}: a float cache takes the "
                          "model's dtype (the kernels take one type for q and the cache)")
     return kv_dtype
+
+
+# graph key head -> step kind (the dllama_engine_step_seconds label)
+KEY_KINDS = {
+    "prefill": "prefill",
+    "step": "decode_step",
+    "block": "decode_block",
+    "score": "score",
+    "kv_page_copy": "kv_page_copy",
+    "lane_prefill_paged": "prefill_lane_chunk",
+    "lane_block_paged": "decode_lanes",
+    "lane_verify_paged": "verify_lanes",
+}
+
+
+def _pairs(rows: int, pos: int) -> int:
+    """(query row, cache row) pairs of ``rows`` causal rows from ``pos``."""
+    return rows * pos + rows * (rows + 1) // 2
+
+
+class _Dispatch:
+    """One engine dispatch's observability (the JAX engine brackets each
+    compiled-program call the same way): a ``step_dispatch`` recorder
+    event, an ``engine`` span with a ``<kind>.device`` sub-span around the
+    readback that already ends the dispatch (`device`), then
+    ``dllama_engine_step_seconds{kind}`` (host seconds, call and readback),
+    ``dllama_engine_block_token_seconds`` on block paths and a
+    ``step_complete`` event. On the card two CUDA events bracket the
+    dispatch on the stream, the first recorded right before the graph's
+    launch (`StepGraphs.before_run`: host work before it, such as a stall
+    of this thread, does not count as device time), the second before the
+    readback; their device seconds and the step's analytic
+    (flops, bytes) feed the engine's per-key cost accumulator once the end
+    event has completed (`InferenceEngine.settle_costs`, on the engine's
+    own thread: nothing here synchronises), unless the dispatch captured
+    its graph. A dispatch that raises ends its span with the error and
+    records nothing else."""
+
+    __slots__ = ("engine", "kind", "key", "fields", "cost", "n_tokens", "span", "t0", "ev",
+                 "capture_s", "graphed")
+
+    def __init__(self, engine, kind: str, key, cost, n_tokens: int = 0, graphed: bool = True,
+                 **fields):
+        self.engine, self.kind, self.key, self.cost = engine, kind, key, cost
+        self.n_tokens, self.fields, self.graphed = n_tokens, fields, graphed
+        self.ev = None
+
+    def __enter__(self):
+        e = self.engine
+        e.settle_costs()
+        e.recorder.record("step_dispatch", step=self.kind, **self.fields)
+        self.span = e._spans.begin(self.kind, component="engine", **self.fields)
+        self.capture_s = e.graphs.capture_s
+        if e.device.type == "cuda" and e.obs.enabled:
+            self.ev = [None, None]
+            if self.graphed:
+                e.graphs.before_run = self._mark_start
+            else:
+                self._mark_start()
+        self.t0 = time.perf_counter()
+        return self
+
+    def _mark_start(self) -> None:
+        self.ev[0] = torch.cuda.Event(enable_timing=True)
+        self.ev[0].record()
+
+    def _mark_end(self) -> None:
+        if self.ev is not None and self.ev[0] is not None and self.ev[1] is None:
+            self.ev[1] = torch.cuda.Event(enable_timing=True)
+            self.ev[1].record()
+
+    def device(self, read):
+        """``read()``, the dispatch's readback, inside the ``.device`` span."""
+        self._mark_end()
+        e = self.engine
+        sp = e._spans.begin(self.kind + ".device", component="engine")
+        try:
+            return read()
+        finally:
+            e._spans.end(sp)
+
+    def __exit__(self, exc_type, exc, tb):
+        e = self.engine
+        if e.graphs.before_run == self._mark_start:  # no run happened
+            e.graphs.before_run = None
+        if exc is not None:
+            e._spans.end(self.span, error=str(exc))
+            return False
+        self._mark_end()
+        dt = time.perf_counter() - self.t0
+        e._spans.end(self.span)
+        e._m_step.labels(kind=self.kind).observe(dt)
+        if self.n_tokens:
+            e._m_tpot.observe(dt / self.n_tokens)
+        e.recorder.record("step_complete", step=self.kind, ms=round(dt * 1000, 3), **self.fields)
+        if self.ev is not None and self.ev[1] is None:
+            return False  # no launch happened to time
+        # a key's first use (eager, the kernels' first loads, then the
+        # capture) is no representative step: its cost is not counted
+        if e.obs.enabled and e.graphs.capture_s == self.capture_s:
+            e._note_cost(self.key, self.ev, dt, self.cost)
+        return False
 
 
 @dataclasses.dataclass
@@ -138,6 +245,7 @@ class InferenceEngine:
         self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self._init_obs()
         self.graphs = StepGraphs(self.device, cuda_graphs)
         self.reader = ModelReader(model_path, max_seq_len=max_seq_len)
         self.header: LlmHeader = self.reader.header
@@ -171,6 +279,9 @@ class InferenceEngine:
             self.i8_group = pick_group(self.header)
             self.params = requantize_params(self.params, self.header, self.i8_group)
         self.cache = init_kv_cache(self.header, 1, dtype=self.kv_dtype, device=self.device)
+        self._cost = StepCostModel(self.header, self.params,
+                                   torch.empty(0, dtype=self.kv_dtype).element_size(),
+                                   self.kv_dtype == torch.int8)
         # the lanes' page pool (init_kv_pool)
         self.kv_pool = None
         self.kv_pool_epoch = 0
@@ -191,6 +302,192 @@ class InferenceEngine:
         self.lane_verify_steps = 0
         self._lane_seed_base = seed
         self._rng_calls = 0
+
+    # -- observability -----------------------------------------------------
+
+    def _init_obs(self) -> None:
+        """The JAX engine's observability handles (obs/): the step and
+        per-token histograms, the capture (compile), cache-epoch and COW
+        copy counters, the flight recorder and the span tracker, created
+        before the first dispatch; every handle is a no-op while the
+        registry is disabled. The per-key cost accumulator feeds
+        `cost_report`, the registry's ``engine.cost`` refresh hook."""
+        self.obs = get_registry()
+        self.recorder = get_recorder()
+        self._spans = get_span_tracker()
+        self._m_step = self.obs.histogram(
+            "dllama_engine_step_seconds",
+            "Wall time of one engine dispatch (graph replay or eager run + "
+            "host readback), by step kind.",
+            labelnames=("kind",),
+        )
+        self._m_compiles = self.obs.counter(
+            "dllama_engine_compiles_total",
+            "Step-program builds by origin: dispatch = a CUDA graph captured "
+            "on its key's first use (the port's counterpart of a synchronous "
+            "compile; the port has no background prefetch).",
+            labelnames=("origin",),
+        )
+        self._m_epochs = self.obs.counter(
+            "dllama_engine_cache_epochs_total",
+            "KV rebuilds: the lanes' pool reset by a failed dispatch "
+            "(crash-consistency recovery).",
+        )
+        self._m_tpot = self.obs.histogram(
+            "dllama_engine_block_token_seconds",
+            "Per-token share of a block decode dispatch (dispatch wall "
+            "time / tokens in the block).",
+            buckets=DEFAULT_TOKEN_BUCKETS_S,
+        )
+        self._m_kv_copy_bytes = self.obs.counter(
+            "dllama_kv_copy_bytes_total",
+            "Device bytes moved by KV page copies: the pool's COW mid-page "
+            "forks (a full-page prefix adoption moves zero bytes).",
+        )
+        # graph key -> [dispatches, device seconds, flops, bytes], settled
+        # ones only; the dispatches whose end event has not completed wait
+        # in _cost_pending
+        self._key_cost: dict = {}
+        self._cost_pending: list = []
+        self._cost_lock = threading.Lock()
+        # the card's HBM peak, read once here (the refresh hooks run on
+        # other threads and read Python numbers only)
+        self._hbm_peak = hbm_peak_bytes_per_s(self.device)
+        self.obs.add_refresh_hook("engine.cost", self.cost_report)
+
+    def _on_capture(self, key, seconds: float) -> None:
+        self._m_compiles.labels(origin="dispatch").inc()
+        self.recorder.record("compile", key=str(key), origin="dispatch", s=round(seconds, 4))
+
+    def _note_cost(self, key, ev, host_s: float, cost) -> None:
+        """Queue one finished dispatch for the key's cost accumulator: on
+        the card its device seconds come from its CUDA events once they
+        complete; on the CPU its host seconds count at once."""
+        flops, nbytes = cost
+        if ev is None:
+            self._add_cost(key, host_s, flops, nbytes)
+        else:
+            self._cost_pending.append((key, ev[0], ev[1], flops, nbytes))
+
+    def _add_cost(self, key, seconds: float, flops: float, nbytes: float) -> None:
+        with self._cost_lock:
+            acc = self._key_cost.setdefault(key, [0, 0.0, 0.0, 0.0])
+            acc[0] += 1
+            acc[1] += seconds
+            acc[2] += flops
+            acc[3] += nbytes
+
+    def settle_costs(self) -> None:
+        """Fold every pending dispatch whose end event has completed into
+        its key's accumulator. ``Event.query`` does not block, so this adds
+        no synchronisation; called on the engine's own thread at each
+        dispatch (and by callers that want the last one counted)."""
+        if not self._cost_pending:
+            return
+        left = []
+        for key, e0, e1, flops, nbytes in self._cost_pending:
+            if e1.query():
+                self._add_cost(key, e0.elapsed_time(e1) / 1e3, flops, nbytes)
+            else:
+                left.append((key, e0, e1, flops, nbytes))
+        self._cost_pending = left
+
+    @staticmethod
+    def _key_kind(key) -> str:
+        """Step kind of a graph key (`KEY_KINDS`), the
+        ``dllama_engine_step_seconds{kind=}`` label value."""
+        return KEY_KINDS.get(key[0], key[0])
+
+    def graph_report(self) -> list[dict]:
+        """One row per graph key (the JAX engine's
+        ``compile_cache_report``, what ``/v1/debug/compile`` serves): the
+        key, its step kind, its origin, the capture's seconds (None for a
+        key that has not been captured: eager runs, the CPU) and its
+        analytic cost a dispatch (`obs.cost.extract_cost`), or
+        ``"unavailable"`` before a dispatch of it has settled. Python
+        numbers only: callable from any thread."""
+        with self._cost_lock:
+            costs = {k: list(v) for k, v in self._key_cost.items()}
+        captured = dict(self.graphs.capture_seconds)
+        out = []
+        for key in list(dict.fromkeys([*captured, *costs])):
+            cost = extract_cost(costs.get(key))
+            out.append({
+                "key": list(key),
+                "kind": self._key_kind(key),
+                "origin": "dispatch",
+                "compile_seconds": captured.get(key),
+                "cost": cost if cost is not None else "unavailable",
+            })
+        return out
+
+    def cost_report(self) -> dict:
+        """Fold the per-key costs into per-kind gauges and the fraction
+        of the HBM roofline each kind achieved:
+        ``dllama_compiled_step_flops``, ``dllama_compiled_step_bytes_accessed``
+        and ``dllama_step_roofline_fraction`` by kind (the registry's
+        ``engine.cost`` hook).
+
+        The representative key of a kind is the one whose dispatch moves
+        the most bytes (the widest block or bucket), as in the JAX engine.
+        Its fraction divides that key's mean bytes by that key's own mean
+        device seconds (CUDA events on the card; host seconds on the CPU,
+        where the peak is unknown and no fraction is set). This differs
+        from the JAX engine on purpose: it divides the largest program's
+        bytes by the mean seconds over every width of the kind, which
+        overstates the share when remainder blocks of 1-7 steps run beside
+        8-step ones. Python numbers only: callable from any thread."""
+        g_flops = self.obs.gauge(
+            "dllama_compiled_step_flops",
+            "Analytic flops of one dispatch of the representative (most "
+            "bytes) graph key, per step kind (from the port's layouts).",
+            labelnames=("kind",),
+        )
+        g_bytes = self.obs.gauge(
+            "dllama_compiled_step_bytes_accessed",
+            "Analytic bytes one dispatch of the representative graph key "
+            "moves (weights read, KV rows read and written), per step kind.",
+            labelnames=("kind",),
+        )
+        g_roof = self.obs.gauge(
+            "dllama_step_roofline_fraction",
+            "Achieved HBM bandwidth (the representative key's bytes / its "
+            "mean device seconds) over the card's peak, per step kind; only "
+            "set when the card's peak is known.",
+            labelnames=("kind",),
+        )
+        peak = self._hbm_peak
+        with self._cost_lock:
+            costs = {k: list(v) for k, v in self._key_cost.items()}
+        per_kind: dict[str, dict] = {}
+        for key, acc in costs.items():
+            cost = extract_cost(acc)
+            if cost is None:
+                continue
+            kind = self._key_kind(key)
+            cur = per_kind.get(kind)
+            if cur is None or cost["bytes_accessed"] > cur["bytes_accessed"]:
+                per_kind[kind] = dict(key=list(key), **cost, dispatches=acc[0],
+                                      mean_step_s=acc[1] / acc[0] if acc[1] > 0 else None)
+        for kind, info in per_kind.items():
+            g_flops.labels(kind=kind).set(info["flops"])
+            g_bytes.labels(kind=kind).set(info["bytes_accessed"])
+            frac = roofline_fraction(info["bytes_accessed"], info["mean_step_s"] or 0.0, peak)
+            info["roofline_fraction"] = frac
+            if frac is not None:
+                g_roof.labels(kind=kind).set(frac)
+        return {"hbm_peak_bytes_per_s": peak, "kinds": per_kind}
+
+    @property
+    def graphs(self) -> StepGraphs:
+        """The engine's graphs (runtime/graphs.py); one set in their place
+        reports its captures to the engine's compile counter too."""
+        return self._graphs
+
+    @graphs.setter
+    def graphs(self, graphs: StepGraphs) -> None:
+        graphs.on_capture = self._on_capture
+        self._graphs = graphs
 
     @property
     def cuda_graphs(self) -> bool:
@@ -253,9 +550,12 @@ class InferenceEngine:
         total_ms = 0.0
         for bucket, width, p in self._chunks(len(fill), pos):
             chunk = fill[p - pos : p - pos + width] + [0] * (bucket - width)
+            cost = self._cost.forward(bucket, 1, p + bucket, bucket, _pairs(bucket, p))
             t0 = time.perf_counter()
-            self._slab_chunk(chunk, p)
-            self._sync()
+            with _Dispatch(self, "prefill", ("prefill", bucket, False), cost, pos=p,
+                           bucket=bucket) as d:
+                self._slab_chunk(chunk, p)
+                d.device(self._sync)
             total_ms += (time.perf_counter() - t0) * 1000
         return StepStats(time_ms=total_ms, n_tokens=max(n - 1, 0))
 
@@ -302,13 +602,18 @@ class InferenceEngine:
                 b["next"].copy_(torch.argmax(logits[:, -1, :], dim=-1))
 
         t0 = time.perf_counter()
-        self.graphs.put(b["tok"], token)
-        self.graphs.put(b["pos"], pos)
-        self.graphs.run(key, step)
-        if greedy:
-            nxt = int(b["next"].item())
-        else:
-            nxt = self.sampler.sample(b["logits"][0].cpu().numpy())
+        cost = self._cost.forward(1, 1, pos + 1, 1, pos + 1)
+        with _Dispatch(self, "decode_step", key, cost, pos=pos) as d:
+            self.graphs.put(b["tok"], token)
+            self.graphs.put(b["pos"], pos)
+            self.graphs.run(key, step)
+            if greedy:
+                nxt = int(d.device(b["next"].item))
+            else:
+                logits = d.device(lambda: b["logits"][0].cpu().numpy())
+        if not greedy:
+            with self._spans.span("sample", component="engine", pos=pos):
+                nxt = self.sampler.sample(logits)
         return nxt, StepStats(time_ms=(time.perf_counter() - t0) * 1000, n_tokens=1)
 
     def _draw_seed(self) -> int:
@@ -354,8 +659,11 @@ class InferenceEngine:
                 b["out"][i] = nxt[0]
                 tok = nxt[:, None]
 
-        self.graphs.run(key, block)
-        return b["out"].tolist()
+        reads = _pairs(n, pos)
+        cost = self._cost.forward(n, n, reads, n, reads, n=n)
+        with _Dispatch(self, "decode_block", key, cost, n_tokens=n, pos=pos, n_steps=n) as d:
+            self.graphs.run(key, block)
+            return d.device(b["out"].tolist)
 
     def generate(
         self,
@@ -452,8 +760,10 @@ class InferenceEngine:
                                 logits_mode="all")
             b["nll"].copy_(chunk_nll(logits, b["tgt"], b["mask"]))
 
-        self.graphs.run(key, score)
-        return float(b["nll"].item())
+        cost = self._cost.forward(t, t, pos + t, t, _pairs(t, pos))
+        with _Dispatch(self, "score", key, cost, pos=pos, bucket=t) as d:
+            self.graphs.run(key, score)
+            return float(d.device(b["nll"].item))
 
     # -- lanes over the paged KV pool ------------------------------------------
 
@@ -538,12 +848,16 @@ class InferenceEngine:
         try:
             yield
         except BaseException as e:
+            self.recorder.record("error", error=str(e), error_type=type(e).__name__)
+            self.recorder.postmortem("engine-step", e)
             try:
                 self.reset_kv_pool()
             except Exception as reset_err:
                 raise reset_err from e
             finally:
                 self.cache_epoch += 1
+                self._m_epochs.inc()
+                self.recorder.record("cache_epoch", epoch=self.cache_epoch, native=True)
             raise
 
     def _fault(self, op: str):
@@ -598,7 +912,9 @@ class InferenceEngine:
         fault = self._fault("kv_page_copy")
         if fault is not None and not fault.poison:
             raise fault
-        with self._kv_pool_guard():
+        moved = n * self.kv_page_bytes()
+        with self._kv_pool_guard(), _Dispatch(self, "kv_page_copy", ("kv_page_copy", n),
+                                              (0.0, 2.0 * moved), graphed=False, n_pages=n):
             if fault is not None:
                 raise fault
             src = torch.tensor(src_ids, dtype=torch.int64, device=self.device)
@@ -607,6 +923,7 @@ class InferenceEngine:
                 for t in kv_tensors(leaf):
                     t[:, dst] = t[:, src]
         self.kv_copy_pages += n
+        self._m_kv_copy_bytes.inc(moved)
 
     def kv_page_bytes(self) -> int:
         """Device bytes of one pool page, summed over the k/v leaves (an
@@ -639,7 +956,10 @@ class InferenceEngine:
         want = min(n, budget) if budget and budget > 0 else n
         bucket = self._bucket_for(want, pos0)
         width = min(bucket, want)
-        with self._kv_pool_guard():
+        cost = self._cost.forward(bucket, 0, pos0 + bucket, bucket, _pairs(bucket, pos0))
+        with self._kv_pool_guard(), _Dispatch(
+                self, "prefill_lane_chunk", ("lane_prefill_paged", bucket), cost, lane=lane,
+                pos=pos0, n_tokens=width, bucket=bucket):
             if fault is not None:
                 raise fault
             pt = self._page_table_dev()[lane : lane + 1]
@@ -732,10 +1052,17 @@ class InferenceEngine:
         fault = self._fault("decode_lanes")
         if fault is not None and not fault.poison:
             raise fault
-        with self._kv_pool_guard():
+        reads = sum(p + 1 for row in cur for p in row if p >= 0)
+        live_rows = sum(p >= 0 for row in cur for p in row)
+        cost = self._cost.forward(n_steps * b, n_steps * b, reads, live_rows, reads, n=n_steps)
+        with self._kv_pool_guard(), _Dispatch(
+                self, "decode_lanes", ("lane_block_paged", n_steps, sampled), cost,
+                n_tokens=n_steps, pos=max(pos[i] for i in live), n_steps=n_steps,
+                n_live=len(live)) as d:
             if fault is not None:
                 raise fault
-            out = self._lane_block(tokens, cur, sampled, temperature, topp, seed_vec)
+            out = d.device(self._lane_block(tokens, cur, sampled, temperature, topp,
+                                            seed_vec).tolist)
         self.lane_decode_steps += n_steps
         return out
 
@@ -744,7 +1071,8 @@ class InferenceEngine:
         """Every lane's decode block in the graph ``("lane_block_paged", n,
         sampled)``: tokens [B], positions ``cur`` [n][B] (-1: parked, reads
         nothing and writes to the scratch page), sampling settings [B] (read
-        only when ``sampled``). Returns [n][B], 0 for parked rows."""
+        only when ``sampled``). Returns the static output [n, B] on the
+        device, 0 for parked rows."""
         n, bsz = len(cur), self.batch_size
         key = ("lane_block_paged", n, sampled)
         b = self.graphs.buffers(key, lambda: self._static(
@@ -774,7 +1102,7 @@ class InferenceEngine:
                 tok = nxt[:, None]
 
         self.graphs.run(key, block)
-        return b["out"].tolist()
+        return b["out"]
 
     @torch.inference_mode()
     def verify_lanes(self, rows: list[list[int]], pos: list[int],
@@ -818,17 +1146,24 @@ class InferenceEngine:
         fault = self._fault("verify_lanes")
         if fault is not None and not fault.poison:
             raise fault
-        with self._kv_pool_guard():
+        reads = sum(pos[i] + t for i in live)
+        cost = self._cost.forward(b * t, b * t, reads, len(live) * t,
+                                  sum(_pairs(t, pos[i]) for i in live))
+        with self._kv_pool_guard(), _Dispatch(
+                self, "verify_lanes", ("lane_verify_paged", t), cost, t=t,
+                pos=max(pos[i] for i in live), n_live=len(live)) as d:
             if fault is not None:
                 raise fault
-            out = self._lane_verify(rows, [pos[i] if active[i] else -t for i in range(b)])
+            out = d.device(self._lane_verify(
+                rows, [pos[i] if active[i] else -t for i in range(b)]).tolist)
         self.lane_verify_steps += 1
         return out
 
-    def _lane_verify(self, rows: list[list[int]], cur: list[int]) -> list[list[int]]:
+    def _lane_verify(self, rows: list[list[int]], cur: list[int]) -> torch.Tensor:
         """Every lane's verify row [B, t] at positions ``cur`` [B] (-t:
         parked) in the graph ``("lane_verify_paged", t)``: all logits, their
-        argmax on the device, 0 for parked lanes. Returns [B][t]."""
+        argmax on the device, 0 for parked lanes. Returns the static output
+        [B, t] on the device."""
         t, bsz = len(rows[0]), self.batch_size
         key = ("lane_verify_paged", t)
         b = self.graphs.buffers(key, lambda: self._static(
@@ -843,7 +1178,7 @@ class InferenceEngine:
             b["out"].copy_(torch.where(b["pos"][:, None] >= 0, torch.argmax(logits, dim=-1), 0))
 
         self.graphs.run(key, verify)
-        return b["out"].tolist()
+        return b["out"]
 
     def rehearse_admission(self, block_size: int, spec_k: int = 0) -> None:
         """Capture the admission path's graphs before serving (dllama_tpu's

@@ -35,9 +35,10 @@ mid-stream). ``KNOWN_SITES`` and ``KINDS`` are the JAX module's, so a spec
 parses alike in both packages; ``prefetch`` (the JAX engine's AOT compile
 thread) has no draw site in the port, which compiles nothing ahead.
 
-The JAX plane's ``dllama_faults_injected_total`` counter and flight
-recorder event are left out (ROADMAP A.6 re-attaches them); the injected
-totals by site stay readable through ``counts()``.
+Every injection increments ``dllama_faults_injected_total{site}`` and
+records a ``fault_injected`` event in the flight recorder (obs/), so a chaos
+run's postmortems show which failures were injected and which were
+organic; ``counts()`` gives the plane's own totals by site.
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ import os
 import random
 import threading
 from dataclasses import dataclass, field
+
+from ..obs.metrics import get_registry
+from ..obs.recorder import get_recorder
 
 KNOWN_SITES = ("dispatch", "kv_alloc", "sse_flush", "prefetch")
 KINDS = ("transient", "poison")
@@ -183,6 +187,14 @@ class FaultPlane:
         self.spec = spec
         self.schedules = parse_fault_spec(spec) if spec else []
         self._lock = threading.Lock()
+        self._m_injected = None
+        if self.schedules:
+            self._m_injected = get_registry().counter(
+                "dllama_faults_injected_total",
+                "Faults injected by the chaos plane, by site "
+                "(runtime/faults.py; 0 series when no schedule is armed).",
+                labelnames=("site",),
+            )
 
     @property
     def armed(self) -> bool:
@@ -201,6 +213,13 @@ class FaultPlane:
                     continue
                 if s.should_fire() and fault is None:
                     fault = InjectedFault(site, op, s.kind, s.injected)
+        if fault is not None:
+            if self._m_injected is not None:
+                self._m_injected.labels(site=site).inc()
+            get_recorder().record(
+                "fault_injected", site=site, op=op, fault_kind=fault.kind,
+                seq=fault.seq,
+            )
         return fault
 
     def counts(self) -> dict[str, int]:

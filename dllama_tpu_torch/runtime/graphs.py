@@ -61,7 +61,14 @@ class StepGraphs:
         self._buffers: dict = {}  # key -> dict of static tensors
         self._pool = None
         self.capture_s = 0.0  # seconds spent capturing
+        self.capture_seconds: dict = {}  # key -> its capture's seconds
         self.replays = 0
+        # called as on_capture(key, seconds) after each capture (the
+        # engine's compile counter and flight recorder)
+        self.on_capture: Callable | None = None
+        # called once, right before the next run's replay or eager step,
+        # then cleared (the engine's dispatch timing starts there)
+        self.before_run: Callable | None = None
 
     @property
     def active(self) -> bool:
@@ -79,6 +86,7 @@ class StepGraphs:
         """Drop every graph and buffer (the tensors they point at changed)."""
         self._graphs.clear()
         self._buffers.clear()
+        self.capture_seconds.clear()
 
     def buffers(self, key, make: Callable[[], dict]) -> dict:
         """The static buffers of ``key``, made by ``make()`` on first use."""
@@ -100,6 +108,9 @@ class StepGraphs:
         """Run ``step`` as the graph of ``key``: eager on its first use (and
         whenever graphs are off), captured after that first use, replayed
         on every later run."""
+        hook, self.before_run = self.before_run, None
+        if hook is not None:
+            hook()
         if not self.active:
             step()
             return
@@ -111,9 +122,9 @@ class StepGraphs:
             self.replays += 1
             return
         step()
-        self._graphs[key] = self._capture(step)
+        self._graphs[key] = self._capture(key, step)
 
-    def _capture(self, step: Callable[[], None]):
+    def _capture(self, key, step: Callable[[], None]):
         before = launch_counts()
         t0 = time.perf_counter()
         try:
@@ -122,7 +133,11 @@ class StepGraphs:
             after = launch_counts()
             tally = {k: after[k] - before[k] for k in after if after[k] != before[k]}
             _add_launches(tally, -1)
-            self.capture_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.capture_s += dt
+            self.capture_seconds[key] = dt
+        if self.on_capture is not None:
+            self.on_capture(key, dt)
         return graph, tally
 
     def _record(self, step: Callable[[], None]):
@@ -133,6 +148,11 @@ class StepGraphs:
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             step()
         return graph
+
+    def buffer_bytes(self) -> int:
+        """Bytes of every key's static buffers."""
+        return sum(t.numel() * t.element_size() for bufs in self._buffers.values()
+                   for t in bufs.values())
 
     def pool_bytes(self) -> int:
         """Bytes the graphs' pool holds on the card (0 before any capture)."""

@@ -90,3 +90,29 @@ def test_resilience_slice_module_is_covered():
     mods, files = _port_modules(), _port_files()
     assert "dllama_tpu_torch.runtime.faults" in mods
     assert os.path.join(PKG, "runtime", "faults.py") in files
+
+
+def test_observability_slice_modules_are_covered():
+    """The observability slice's copies and rewrites (obs/) are among the
+    modules and files checked above, and the package imports without a
+    card (no triton, no nvcc, no CUDA call at import)."""
+    mods = _port_modules()
+    files = _port_files()
+    for m in ("anomaly", "cost", "dashboard", "device", "metrics", "recorder", "slo", "spans",
+              "timeseries", "trace", "watchdog"):
+        assert f"dllama_tpu_torch.obs.{m}" in mods
+        assert os.path.join(PKG, "obs", f"{m}.py") in files
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['dllama_tpu'] = None\n"
+        "sys.modules['triton'] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "import dllama_tpu_torch.obs as obs\n"
+        "assert all(hasattr(obs, n) for n in obs.__all__)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -127,9 +127,21 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    roofline fractions lie in (0, 1.05], ``/v1/debug/memory`` reads within
    10% of the engine's analytic memory, the timelines hold each request's
    spans; then the mix with the registry off and on in turns (lane tok/s
-   printed), the watchdog's gate (no stall over the fault-free rounds),
-   and the mix once more with a 1 s ``POST /v1/debug/profile`` whose trace
-   must name the Q40 GEMV and the paged decode kernel. Each CLI run prints
+   printed), and the mix once more with a 1 s ``POST /v1/debug/profile``
+   whose trace must name the Q40 GEMV and the paged decode kernel and link
+   launches to their kernels, all
+   inside the watchdog's gate (no stall over the fault-free rounds; the
+   profiler's stop is a pause the server declares). The admission round
+   (`serving_admission`) serves the mix with predictive admission off and
+   on in turns (every answer equal), prints the load predictor's
+   calibration (its forecast errors gated finite and counted, its step
+   costs the engine's device seconds, its TTFT correction off its clamp),
+   refuses a
+   ``ttft_budget_ms: 1`` request as ``infeasible`` with a Retry-After that
+   does not fall when the queue is 3 deeper, and preempts one of four
+   ``low`` streams for a ``high`` request whose deadline the forecasts
+   bracket (`admission_preemption`: one preemption, the victim resumed;
+   answers equal in f32 on the resilience f32 engine). Each CLI run prints
    its decode_block roofline fraction from the registry (gated to (0,
    1.05] too).
    llama-8b also runs ``q40`` with ``--kv-dtype int8`` (``q40 kv-int8``):
@@ -168,6 +180,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1822,11 +1835,14 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     launched n_layers times a decode step, and no attention kernel but it
     and the pool type's stats kernel; lane vs slab and lane kernel vs plain
     f32 logits <= TOL_E2E. With the engine's bf16 pool, then the
-    speculation round on the same engine (`serving_spec`), the resilience
+    speculation round on the same engine (`serving_spec`), the
+    observability round (`serving_obs`), the admission round
+    (`serving_admission`), the resilience
     round (`serving_resilience`; on the int8 pool its fault-free round and
     the decode poison), its f32 pass (`resilience_f32`) and the f32 verify
     parity (`spec_parity`). Returns the launch counts by label: the serving
-    run's, the speculation round's and the resilience rounds'."""
+    run's, the speculation, observability and admission rounds' and the
+    resilience rounds'."""
     import threading
 
     import torch
@@ -1963,6 +1979,8 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         out["llama-8b q40 serving spec"] = serving_spec(engine, tok, off, lane_step_ms)
         out["llama-8b q40 serving obs"] = serving_obs(engine, tok, smi, lane_step_ms, tmp,
                                                       stalls0)
+        for key, c in serving_admission(engine, tok, smi, stalls0).items():
+            out[f"llama-8b q40 {key}"] = c
     else:
         gate_watchdog(stalls0, kv_tag, smi)
     out[f"llama-8b q40{kv_tag} serving resilience"] = serving_resilience(
@@ -2107,13 +2125,17 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     the registry, the recorder and the spans off and on, `OBS_TURNS` (each
     turn on an empty pool, printed), and the watchdog's gate: no stall
     since ``stalls0`` (the fault-free rounds before this one and this
-    one). Last, the mix once more with ``POST /v1/debug/profile``
+    one), which covers a last mix with ``POST /v1/debug/profile``
     ({"seconds": `OBS_PROFILE_S`}) during it: the profile answers 200 with
     a trace naming the Q40 GEMV (``gemv_mma_kernel``) and the paged decode
-    kernel (``flash_decode_mma_kernel<..., true>``); the seconds its start,
-    stop and export took and the watchdog's stalls during it are printed
-    (the profiler's stop and the trace's export hold the interpreter for
-    seconds, which the watchdog sees as a decode stall). Printed too: each
+    kernel (``flash_decode_mma_kernel<..., true>``), with launches linked
+    to their kernels by correlation id (``n_flows``). The profiler's stop
+    holds the interpreter for seconds; the server declares it to the
+    watchdog as a pause, so it is no stall. Printed: the seconds the
+    profile's start, stop and export took (and those the start and stop
+    held the scheduler thread), the scheduler's longest tick during the
+    profile and the largest gap between two tokens of a stream, which is
+    what a client sees of the stop. Printed too: each
     request's TTFT from its response and from the timeline, each
     timeline's coverage, the fractions beside the share the lane decode
     profile's host ms implies (``lane_step_ms``), the memory's parts and
@@ -2158,6 +2180,28 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
             time.sleep(0.01)
 
     turns = {True: [], False: []}
+    # the profiled mix: each scheduler tick's span and each token's time
+    ticks, times = [], {}
+    tick, consume = sched._tick, sched._consume_token
+
+    def timed_tick():
+        t = time.perf_counter()
+        try:
+            return tick()
+        finally:
+            ticks.append((t, time.perf_counter()))
+
+    def timed_consume(lane, t):
+        ls = sched.lanes[lane]
+        if ls is not None:
+            times.setdefault(ls.job.request_id, []).append(time.perf_counter())
+        return consume(lane, t)
+
+    def profiled():
+        w0 = time.perf_counter()
+        during()
+        prof["span"] = (w0, time.perf_counter())
+
     try:
         reset_launch_counts()
         engine.lane_decode_steps = 0
@@ -2180,12 +2224,17 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
             idle()
             turns[on].append(timer["tokens"] / timer["s"])
         set_obs(True)
-        gate_watchdog(stalls0, "", smi)
         stalls1 = watchdog_stalls()
         kv.reset()
-        _concurrent(url, sched, payloads, during=during)
-        idle()
+        sched._tick, sched._consume_token = timed_tick, timed_consume
+        try:
+            _concurrent(url, sched, payloads, during=profiled)
+            idle()
+        finally:
+            sched.__dict__.pop("_tick", None)
+            sched.__dict__.pop("_consume_token", None)
         profile_stalls = watchdog_stalls() - stalls1
+        gate_watchdog(stalls0, "", smi)
     finally:
         set_obs(True)
         srv.shutdown()
@@ -2256,17 +2305,367 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     kernels = body.get("kernels", [])
     gemv = [k for k in kernels if "gemv_mma_kernel" in k]
     paged = [k for k in kernels if "flash_decode_mma_kernel" in k and "true>" in k]
+    w0, w1 = prof.get("span", (0.0, 0.0))
+    tick_max = max((b - a for a, b in ticks if b > w0 and a < w1), default=0.0)
+    gap_max = max((b - a for ts in times.values() for a, b in zip(ts, ts[1:])), default=0.0)
     print(f"obs profile: {prof.get('status')} in {body.get('seconds')} s, {body.get('n_events')} "
           f"events, {len(kernels)} kernel names, the GEMV {gemv[:1]}, the paged decode "
-          f"{paged[:1]}; seconds {json.dumps(body.get('timings_s'))}; the watchdog counted "
-          f"{profile_stalls:.0f} stalls during the profiled mix; {smi}")
-    require(prof.get("status") == 200 and gemv and paged,
+          f"{paged[:1]}; {body.get('n_flows')} launches linked to their kernels; seconds {json.dumps(body.get('timings_s'))}; inside the watchdog's "
+          f"gate, which counted {profile_stalls:.0f} stalls during the profiled mix; the "
+          f"scheduler's longest tick during the profile {tick_max:.3f} s; the largest gap "
+          f"between two tokens of a stream {gap_max:.3f} s; {smi}")
+    require(prof.get("status") == 200 and gemv and paged and body.get("n_flows", 0) > 0,
             f"obs: the profile answered {prof.get('status')} {str(body)[:300]}")
     print(f"obs anomaly after the observability round: {json.dumps(anomaly)}")
     on, off = statistics.median(turns[True]), statistics.median(turns[False])
     print(f"obs overhead: lane tok/s with obs on {_ms(turns[True])}, off {_ms(turns[False])} "
           f"(in turns {list(OBS_TURNS)}): on/off {on / off:.4f}; {smi}")
     return counts
+
+
+ADMISSION_TURNS = (False, True, True, False)  # the mix with predictive mode off and on, in turns
+PREEMPT_MAX_TOKENS = 96  # the four low streams of the preemption case
+PREEMPT_HIGH = {"messages": [{"role": "user", "content": "Urgent: one line on the deadline."}],
+                "max_tokens": 16, "temperature": 0, "stream": False, "priority": "high"}
+
+
+def _retry_after_ok(value, floor: int) -> bool:
+    """A Retry-After the server derived from its predicted queue drain: whole
+    seconds, at least the JAX server's ``floor``, at most the default
+    ``--admission-max-wait-ms`` (30 s)."""
+    return value is not None and str(value).isdigit() and floor <= int(value) <= 30
+
+
+def _admission_server(engine, tok):
+    """`serve` over the engine with predictive admission on, started."""
+    import threading
+
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE,
+                admission_predict=True)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _wait_idle(sched) -> None:
+    deadline = time.perf_counter() + 60
+    while (any(sched.lanes) or sched.admitting or sched.pending) and (
+            time.perf_counter() < deadline):
+        time.sleep(0.01)
+
+
+def _held(sched):
+    """Hold the scheduler thread between two ticks (`run_between_ticks`)
+    until the returned release is called: no lane steps, the queue stays as
+    it is, the cv stays free for the handler threads."""
+    import threading
+
+    entered, release = threading.Event(), threading.Event()
+
+    def hold():
+        entered.set()
+        release.wait(60)
+
+    t = threading.Thread(target=sched.run_between_ticks, args=(hold,), kwargs={"timeout": 60},
+                         daemon=True)
+    t.start()
+    require(entered.wait(60), "admission: the scheduler ran no tick to hold")
+
+    def done():
+        release.set()
+        t.join(60)
+
+    return done
+
+
+def _forecasts(snap: dict, n_tok: int, chunk: int, block: int) -> tuple[float, float]:
+    """The two TTFT forecasts (ms) `_maybe_preempt` weighs for a queued
+    head of ``n_tok`` prompt tokens while every lane decodes, from
+    ``/v1/debug/admission``'s numbers (runtime/admission.py's arithmetic):
+    waiting behind the full lanes with itself in the queue, and on a lane
+    freed now with no queue."""
+    pr = snap["predictor"]
+    chunk_s, step_s, corr = pr["prefill_chunk_s"], pr["decode_step_s"], pr["ttft_correction"]
+    n_chunks = max(1, -(-n_tok // chunk))
+    prefill = n_chunks * (chunk_s + step_s)
+    drain = (chunk_s + max(1, block) * step_s * 0.5) * corr
+    return (drain + prefill) * 1000.0 * corr, prefill * 1000.0 * corr
+
+
+def admission_preemption(engine, tok, smi: str, label: str, exact: bool) -> dict:
+    """Case (e) of `serving_admission` on its own server over ``engine``:
+    four ``low`` streams (the mix's requests 0-3, `PREEMPT_MAX_TOKENS`
+    tokens) decoding on the four lanes past the park floor, then a ``high``
+    request whose ``deadline_ms`` lies between the two forecasts
+    `_maybe_preempt` weighs (`_forecasts`, from ``/v1/debug/admission``):
+    infeasible while it waits, feasible on a lane freed now. Gates:
+    ``dllama_preemptions_total`` moves by one, with a ``stream_preempt``,
+    a park and a resume recorded; every stream finishes with stop or
+    length; with ``exact`` (f32) every answer equals its run without the
+    high request (the lows alone, the high alone). In bf16 the victim's
+    re-made page tail comes from the prefill kernels, so where an answer
+    parts is printed, not gated. Returns the case's numbers."""
+    import threading
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    srv, url = _admission_server(engine, tok)
+    state, sched = srv.state, srv.state.scheduler
+    generated = _track_generated(sched)
+    lows = [dict(p, max_tokens=PREEMPT_MAX_TOKENS, priority="low")
+            for p in serving_payloads(tok)[:SERVE_LANES]]
+    try:
+        alone, _ = _concurrent(url, sched, lows)
+        _wait_idle(sched)
+        high_alone = _request(url, PREEMPT_HIGH)
+        _wait_idle(sched)
+        for r in alone + [high_alone]:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+        state.kv_manager.reset()
+        pre0 = dict(state.m_preemptions.child_values())
+        seq0 = state.recorder.total_recorded
+        reset_launch_counts()
+        out: dict = {}
+
+        def during():
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                with sched.cv:
+                    busy = all(ls is not None and sched._progress[i] > sched.block_size
+                               for i, ls in enumerate(sched.lanes))
+                if busy:
+                    break
+                time.sleep(0.002)
+            require(busy, f"{label} preemption: the four low streams never all decoded")
+            snap = _get_json(url + "/v1/debug/admission")
+            n_tok = state.estimate_prompt_tokens(_params_of(PREEMPT_HIGH))
+            wait_ms, now_ms = _forecasts(snap, n_tok, sched.admission_chunk, sched.block_size)
+            # near the waiting forecast: the margin below it is for the
+            # seconds between the request's arrival and the next tick
+            out.update(snap=snap, wait_ms=wait_ms, now_ms=now_ms,
+                       budget=now_ms + 0.9 * (wait_ms - now_ms))
+            out["high"] = _request(url, dict(PREEMPT_HIGH, deadline_ms=out["budget"]))
+
+        results, wall = _concurrent(url, sched, lows, during=during)
+        _wait_idle(sched)
+        out["counts"] = launch_counts()
+        out["high"]["tokens"] = generated[out["high"]["meta"]["request_id"]]
+        for r in results:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+        pre = {k[0]: v - pre0.get(k, 0) for k, v in state.m_preemptions.child_values().items()}
+        kinds = [e["kind"] for e in state.recorder.events() if e["seq"] > seq0]
+        preempt = [e for e in state.recorder.events("stream_preempt") if e["seq"] > seq0]
+        state.kv_manager.check()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    parts = []
+    for i, (r, want) in enumerate(zip(results + [out["high"]], alone + [high_alone])):
+        require(r["finish"] in ("stop", "length"), f"{label} preemption r{i}: {r['finish']}")
+        if r["tokens"] != want["tokens"] or r["content"] != want["content"]:
+            at = next((j for j, (x, y) in enumerate(zip(r["tokens"], want["tokens"])) if x != y),
+                      min(len(r["tokens"]), len(want["tokens"])))
+            parts.append(f"{'high' if i == len(results) else f'low r{i}'} at token {at} of "
+                         f"{len(want['tokens'])}")
+    n_pre = sum(pre.values())
+    victim = preempt[0] if preempt else {}
+    print(f"admission preemption ({label}, {SERVE_LANES} low streams): forecasts for the high "
+          f"request waiting {out['wait_ms']:.1f} ms, on a freed lane {out['now_ms']:.1f} ms, its "
+          f"deadline_ms {out['budget']:.1f} (from /v1/debug/admission: prefill_chunk_s "
+          f"{out['snap']['predictor']['prefill_chunk_s']}, decode_step_s "
+          f"{out['snap']['predictor']['decode_step_s']}, ttft_correction "
+          f"{out['snap']['predictor']['ttft_correction']}); preemptions {json.dumps(pre)}; "
+          f"victim lane {victim.get('lane')} ({victim.get('reason')}), head remaining "
+          f"{victim.get('head_remaining_ms')} ms; high TTFT {out['high']['meta']['ttft_ms']} ms "
+          f"(alone {high_alone['meta']['ttft_ms']}); answers equal to their runs without the "
+          f"high request {not parts}" + ("" if not parts else f" (parts: {', '.join(parts)})")
+          + f"; {wall:.2f} s wall; {smi}")
+    require(n_pre == 1, f"{label} preemption: dllama_preemptions_total moved by {n_pre}")
+    require({"stream_preempt", "stream_park", "stream_resume"} <= set(kinds),
+            f"{label} preemption: recorded {sorted(set(kinds))}")
+    require(not exact or not parts, f"{label} preemption: answers parted: {parts}")
+    return out["counts"]
+
+
+def _params_of(payload: dict):
+    from dllama_tpu_torch.runtime.api_server import ChatMessage, InferenceParams
+
+    return InferenceParams(messages=[ChatMessage(m["role"], m["content"])
+                                     for m in payload["messages"]],
+                           max_tokens=payload["max_tokens"], temperature=0.0,
+                           priority=payload.get("priority", "normal"))
+
+
+def serving_admission(engine, tok, smi: str, stalls0: float) -> dict:
+    """The admission round of the serving phase (runtime/admission.py), on
+    the serving engine with predictive admission on (a fifth `serve`, the
+    pool made anew):
+
+    (b) the seven-request mix with predictive mode off and on in turns
+    (`ADMISSION_TURNS`, each on an empty pool, unhinted requests): every
+    answer of an "on" turn equals the same request's "off" answer, text and
+    tokens; lane tok/s of each turn printed;
+    (c) ``/v1/debug/admission`` after those turns: the predictor's
+    prefill-chunk and decode-step seconds beside the step histograms'
+    medians and the analytic bound (the kind's bytes over the card's
+    peak), the TTFT forecast error's p50 and p95, the corrections; gated:
+    both errors counted (``dllama_admission_predict_error_ms`` by signal)
+    and finite, on the card each step cost the engine's device mean
+    (`InferenceEngine.device_step_seconds`), and the TTFT correction below
+    its clamp;
+    (d) the mix once more, and once its four lanes decode and three wait,
+    with the scheduler held between ticks: a request with ``ttft_budget_ms:
+    1`` answers 429 ``infeasible`` (``dllama_admission_rejected_total``
+    +1, the queue as it was) with a Retry-After >= 1, and again once three
+    unhinted requests queued behind (accepted: they finish), its
+    Retry-After no lower;
+    (e) `admission_preemption` (bf16: partings printed);
+    then the watchdog's gate over every fault-free round so far. Returns
+    the round's launch counts."""
+    from dllama_tpu_torch.obs.cost import hbm_peak_bytes_per_s
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.admission import _CORR_MAX as CORR_MAX
+    from dllama_tpu_torch.runtime.admission import LoadPredictor
+    from dllama_tpu_torch.runtime.api_server import RETRY_AFTER
+
+    engine.__dict__.pop("decode_lanes", None)
+    srv, url = _admission_server(engine, tok)
+    state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
+    timer = {"s": 0.0, "tokens": 0}
+    inner = engine.decode_lanes
+
+    def timed_decode(tokens, pos, n_steps, active, *args, **kw):
+        t = time.perf_counter()
+        rows = inner(tokens, pos, n_steps, active, *args, **kw)
+        timer["s"] += time.perf_counter() - t
+        timer["tokens"] += len(rows) * sum(map(bool, active))
+        return rows
+
+    engine.decode_lanes = timed_decode
+    generated = _track_generated(sched)
+    payloads = serving_payloads(tok)
+    turns: dict = {True: [], False: []}
+    answers: dict = {True: [], False: []}
+    refused: list = []
+    extra: list = []
+    extra_threads: list = []
+    try:
+        reset_launch_counts()
+        err0 = {sig: state.m_predict_error.labels(signal=sig).count for sig in ("ttft", "tpot")}
+        for on in ADMISSION_TURNS:
+            state.admission_predict = on
+            kv.reset()
+            timer.update(s=0.0, tokens=0)
+            results, _ = _concurrent(url, sched, payloads)
+            _wait_idle(sched)
+            turns[on].append(timer["tokens"] / timer["s"])
+            answers[on].append([(r["content"], generated[r["meta"]["request_id"]])
+                                for r in results])
+        state.admission_predict = True
+        snap = _get_json(url + "/v1/debug/admission")
+        errs = {sig: state.m_predict_error.labels(signal=sig).count - err0[sig]
+                for sig in ("ttft", "tpot")}
+        p50 = {k: engine._m_step.labels(kind=k).percentile(0.5)
+               for k in ("prefill_lane_chunk", "decode_lanes")}
+        timed = {k: engine.device_step_seconds(k) for k in p50}
+        cost, peak = engine.cost_report(), hbm_peak_bytes_per_s(engine.device)
+        analytic = {k: (cost["kinds"].get(k) or {}).get("bytes_accessed", 0) / peak
+                    for k in p50} if peak else {}
+        rejected0 = state.m_admission_rejected.labels(reason="infeasible").value
+        kv.reset()
+
+        def during():
+            # every lane decoding first: a hold taken while a tick has
+            # popped requests it has not begun to admit would show their
+            # lanes free
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                with sched.cv:
+                    if all(ls is not None for ls in sched.lanes):
+                        break
+                time.sleep(0.002)
+            release = _held(sched)
+            try:
+                depth = len(sched.pending)
+                hinted = dict(payloads[1], ttft_budget_ms=1)
+                refused.append((depth, _request(url, hinted, allow_error=True)))
+                require(len(sched.pending) == depth, "admission: the refused request queued")
+                import threading
+
+                for p in payloads[:3]:
+                    th = threading.Thread(target=lambda p=p: extra.append(_request(url, p)),
+                                          daemon=True)
+                    th.start()
+                    extra_threads.append(th)
+                deadline = time.perf_counter() + 30
+                while len(sched.pending) < depth + 3 and time.perf_counter() < deadline:
+                    time.sleep(0.002)
+                refused.append((len(sched.pending), _request(url, hinted, allow_error=True)))
+            finally:
+                release()
+
+        _concurrent(url, sched, payloads, during=during)
+        for th in extra_threads:
+            th.join(300)
+        _wait_idle(sched)
+        rejected = state.m_admission_rejected.labels(reason="infeasible").value - rejected0
+        counts = launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.__dict__.pop("decode_lanes", None)
+    on, off = statistics.median(turns[True]), statistics.median(turns[False])
+    same = all(a == answers[False][0] for a in answers[True] + answers[False])
+    print(f"== llama-8b q40 serving admission: predictive mode on against off, in turns "
+          f"{list(ADMISSION_TURNS)}: lane tok/s on {_ms(turns[True])}, off {_ms(turns[False])}: "
+          f"on/off {on / off:.4f}; every answer equal to the off turn's {same}; {smi}")
+    require(same, "admission (b): an answer with predictive mode on differs from off")
+    pr, pe = snap["predictor"], snap["prediction_error"]
+    print(f"admission calibration: predictor prefill_chunk_s {pr['prefill_chunk_s']} (device "
+          f"mean {timed['prefill_lane_chunk']} (dispatches, s); host histogram p50 "
+          f"{p50['prefill_lane_chunk']:.6f}, analytic bound "
+          f"{analytic.get('prefill_lane_chunk', 0):.6f}), decode_step_s {pr['decode_step_s']} "
+          f"(device mean {timed['decode_lanes']}; p50 {p50['decode_lanes']:.6f}, a block of "
+          f"{BLOCK} steps; analytic {analytic.get('decode_lanes', 0):.6f}); TTFT error p50 {pe['p50_ms']} ms, p95 "
+          f"{pe['p95_ms']} ms over {pe['n']}; corrections ttft {pr['ttft_correction']}, tpot "
+          f"{pr['tpot_correction']}; errors counted {json.dumps(errs)}; occupancy "
+          f"{json.dumps(snap['occupancy'])}; {smi}")
+    require(all(v > 0 for v in errs.values()) and pe["n"] > 0
+            and all(math.isfinite(pe[k]) for k in ("p50_ms", "p95_ms")),
+            f"admission (c): forecast errors {errs}, {pe}")
+    # on the card the predictor's step costs are the engine's device seconds
+    # (a lane prefill chunk's host seconds are its enqueue), and calibrated
+    # on them the TTFT correction stays off its clamp
+    for k, field in (("prefill_lane_chunk", "prefill_chunk_s"), ("decode_lanes", "decode_step_s")):
+        if engine.device.type != "cuda":
+            break
+        n_timed, mean_s = timed[k] or (0, 0.0)
+        require(n_timed >= LoadPredictor.MIN_STEP_SAMPLES and abs(pr[field] - mean_s) < 1e-6,
+                f"admission (c): predictor {field} {pr[field]}, device mean {timed[k]}")
+    require(pr["ttft_correction"] < CORR_MAX,
+            f"admission (c): the TTFT correction {pr['ttft_correction']} at its clamp {CORR_MAX}")
+    (d0, r0), (d1, r1) = refused
+    ra = [r.get("retry_after") for r in (r0, r1)]
+    print(f"admission infeasible: ttft_budget_ms 1 with the lanes busy and {d0} queued: "
+          f"{r0.get('error')} {r0.get('body', {}).get('message')}, Retry-After {ra[0]}; with "
+          f"{d1} queued: {r1.get('error')}, Retry-After {ra[1]}; rejected +{rejected:.0f}; the "
+          f"three unhinted requests queued behind answered "
+          f"{[x.get('finish') for x in extra]}; {smi}")
+    for r in (r0, r1):
+        require(r.get("error") == 429 and "infeasible" in r["body"].get("message", ""),
+                f"admission (d): {r}")
+    require(d1 >= d0 + 3 and _retry_after_ok(ra[0], RETRY_AFTER) and _retry_after_ok(
+        ra[1], int(ra[0])),
+            f"admission (d): Retry-After {ra} at depths {d0}, {d1}")
+    require(rejected == 2, f"admission (d): {rejected} infeasible rejections counted")
+    require(len(extra) == 3 and all(x["finish"] in ("stop", "length") for x in extra),
+            f"admission (d): the unhinted requests answered {extra}")
+    pre_counts = admission_preemption(engine, tok, smi, "llama-8b q40", exact=False)
+    gate_watchdog(stalls0, " admission", smi)
+    return {"serving admission": counts, "serving admission preemption": pre_counts}
 
 
 def _track_generated(sched) -> dict:
@@ -2502,7 +2901,10 @@ def resilience_f32(device: str, mp: str, tp: str, smi: str) -> dict:
     """Rounds 0, (b), (c) and (d) of `serving_resilience` on an f32 engine
     over the serving file (f32 activations and pool, the Q40 weights as
     they are): a re-prefilled row differs from the decoded one by sum order
-    only, so every answer must equal round 0's. Returns the launch counts."""
+    only, so every answer must equal round 0's. Then the admission round's
+    preemption (`admission_preemption`) on the same engine, each answer
+    gated equal to its run without the preempting request. Returns the
+    launch counts of both."""
     import torch
 
     from dllama_tpu_torch.runtime.engine import InferenceEngine
@@ -2510,9 +2912,12 @@ def resilience_f32(device: str, mp: str, tp: str, smi: str) -> dict:
 
     engine = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=SEED,
                              weight_format="q40", device=device, batch_size=SERVE_LANES)
+    tok = Tokenizer(tp)
     try:
-        return serving_resilience(engine, Tokenizer(tp), None, smi, "0bcd", "llama-8b q40 f32",
-                                  exact=True)
+        counts = serving_resilience(engine, tok, None, smi, "0bcd", "llama-8b q40 f32",
+                                    exact=True)
+        pre = admission_preemption(engine, tok, smi, "llama-8b q40 f32", exact=True)
+        return {k: counts[k] + pre[k] for k in counts}
     finally:
         engine.kv_pool = engine.params = None
         gc.collect()
@@ -2585,11 +2990,12 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
     (the graph count and ``capture_s`` as after the rehearsal); the pool's
     ``data_ptr`` did not move; ``kv.check()`` passes; the scheduler is idle
     after it. By round: (a) dispatch retries > 0; (b) lanes recovered >= 1;
-    (c) exactly one request failed, retryable (503 with Retry-After, or an
-    error event in its stream), and one recovery ran; (d) parks >= 1 and
-    resumes equal to parks; (e) ``POST /v1/drain`` once every request is
-    queued: a new request answers 503 with ``Retry-After: 5``, the seven
-    finish, ``drained`` is set. The decode kernel launched n_layers times a
+    (c) exactly one request failed, retryable (503 with the predicted
+    Retry-After, at least 1, or an error event in its stream), and one
+    recovery ran; (d) parks >= 1 and resumes equal to parks; (e) ``POST
+    /v1/drain`` once every request is queued: a new request answers 503
+    with the predicted Retry-After, at least 5, the seven finish,
+    ``drained`` is set. The decode kernel launched n_layers times a
     decode step, and no attention kernel but it and the stats kernel.
     Prints each round's lane tok/s against the fault-free round's, the
     largest gap between two tokens of a stream, for (b) and (c) the time
@@ -2602,7 +3008,7 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
     import torch
 
     from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
-    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.api_server import RETRY_AFTER, RETRY_AFTER_DRAINING, serve
     from dllama_tpu_torch.runtime.faults import set_fault_plane
     from dllama_tpu_torch.tokenizer import ChatTemplateType
 
@@ -2796,8 +3202,8 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
                         f"resilience c: failed {failed}, {d['recoveries']} recoveries")
                 for r in (results[i] for i in failed):
                     require(r["body"].get("retryable") is True
-                            and (r["error"] == "stream" or (r["error"] == 503
-                                                            and r["retry_after"] == "1")),
+                            and (r["error"] == "stream" or (r["error"] == 503 and _retry_after_ok(
+                                r["retry_after"], RETRY_AFTER))),
                             f"resilience c: the culprit's answer {r}")
             elif key in "0abde":
                 require(not failed, f"resilience {key}: failed {failed}")
@@ -2812,7 +3218,8 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
                 require(drain["begin"]["status"] == "draining"
                         and drain["begin"]["in_flight"] >= 1,
                         f"resilience e: drain answered {drain['begin']}")
-                require(late.get("error") == 503 and late.get("retry_after") == "5",
+                require(late.get("error") == 503
+                        and _retry_after_ok(late.get("retry_after"), RETRY_AFTER_DRAINING),
                         f"resilience e: a request during the drain got {late}")
                 require(state.drained.is_set(), "resilience e: drained was not set")
         counts = launch_counts()

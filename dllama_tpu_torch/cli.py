@@ -63,6 +63,23 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="prompt tokens prefilled a scheduler tick (default: the largest bucket)")
     p.add_argument("--chat-template", default=None, choices=sorted(CHAT_TEMPLATE_NAMES),
                    help="chat template of the server (default: detected from the tokenizer)")
+    p.add_argument("--admission-predict", action="store_true", default=None,
+                   help="predictive admission: forecast each request's TTFT and TPOT from the "
+                   "engine's step costs and the lanes' load, refuse deadline-hinted work that "
+                   "cannot meet its budget before it queues, admit in EDF order and preempt "
+                   "for deadlines (runtime/admission.py; default: $DLLAMA_ADMISSION_PREDICT, "
+                   "else off)")
+    p.add_argument("--admission-max-wait-ms", type=int, default=None,
+                   help="cap on the predicted queue drain a Retry-After quotes (default: "
+                   "$DLLAMA_ADMISSION_MAX_WAIT_MS, else 30000)")
+    p.add_argument("--deadline-default-ms", type=int, default=None,
+                   help="effective deadline of a request with no deadline_ms/ttft_budget_ms "
+                   "hint, anchoring the EDF order (default: $DLLAMA_DEADLINE_DEFAULT_MS, "
+                   "else 600000)")
+    p.add_argument("--deadline-priority-step-ms", type=int, default=None,
+                   help="deadline offset a priority rung for unhinted requests: high one step "
+                   "earlier, low one step later (default: $DLLAMA_DEADLINE_PRIORITY_STEP_MS, "
+                   "else 60000)")
 
 
 def add_obs_args(p: argparse.ArgumentParser) -> None:

@@ -108,4 +108,26 @@ __device__ __forceinline__ size_t paged_row(const int* ids, int s0, int r, int p
   return (((size_t)page * n_kh + kh) * ps + (s0 + r) % ps) * hd;
 }
 
+// The dynamic shared memory a kernel may take above 48 KB is an attribute
+// of the kernel on the CURRENT device (cudaFuncSetAttribute acts on it
+// alone), so a launcher keeps the size it set per device: a second card in
+// the same process gets its own call. One static instance a kernel.
+struct SmemLimit {
+  static constexpr int MAX_DEVICES = 64;
+  int bytes[MAX_DEVICES] = {};
+
+  // Raise the kernel's limit on the current device to at least `need`.
+  template <typename K>
+  cudaError_t raise(K* kernel, int need) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (need <= bytes[dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
+    if (e == cudaSuccess) bytes[dev] = need;
+    return e;
+  }
+};
+
 }  // namespace dllama

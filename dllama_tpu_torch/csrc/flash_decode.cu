@@ -664,12 +664,9 @@ int launch_mma(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ks
   // with four; one lane at pos 4095 0.0188 with four, 0.0220 with three)
   const int n_split = n_b * n_kh <= 8 ? MMA_WARPS : MMA_WARPS - 1;
   const int bytes = Tile<KV, HD>::smem(n_split, n_h / n_kh);
-  static int configured = 0;
-  if (bytes > configured) {
-    cudaFuncSetAttribute(flash_decode_mma_kernel<KV, HD, PAGED>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    configured = bytes;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(flash_decode_mma_kernel<KV, HD, PAGED>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   flash_decode_mma_kernel<KV, HD, PAGED><<<dim3(CLUSTER * n_kh, n_b), n_split * 32, bytes, s>>>(
       q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
   return static_cast<int>(cudaGetLastError());
@@ -690,12 +687,9 @@ int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const floa
   int n_split = max(1, min(4, 32 / g_n));
   while (n_split > 1 && TL::smem(n_split, g_n) > SMEM_BUDGET) --n_split;
   const int bytes = TL::smem(n_split, g_n);
-  static int configured = 0;
-  if (bytes > configured) {
-    cudaFuncSetAttribute(flash_decode_kernel<T, KV, HD, PAGED>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    configured = bytes;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(flash_decode_kernel<T, KV, HD, PAGED>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   flash_decode_kernel<T, KV, HD, PAGED>
       <<<dim3(CLUSTER * n_kh, n_b), n_split * g_n * 32, bytes, s>>>(
           q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);

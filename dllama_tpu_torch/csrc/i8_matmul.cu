@@ -301,13 +301,9 @@ cudaError_t launch_gemv(const GemvPlan& p, const int8_t* xq, const float* sx, co
                         const float* s, float* out, int m, int n, int k, int group,
                         cudaStream_t st) {
   const int smem = p.cs * p.ks * 2 * (32 * 16 + 24 * 4) + p.ks * (16 + m) * 4 * RUN;
-  static int configured = 0;
-  if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        i8_gemv_kernel<RUN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = smem;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(i8_gemv_kernel<RUN>, smem);
+  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + 15) / 16 * p.cs);
   cfg.blockDim = dim3(p.ks * 32);

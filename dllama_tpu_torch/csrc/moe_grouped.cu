@@ -493,19 +493,12 @@ int launch(const __nv_bfloat16* x, W w1, W w3, W w2, const int* row_token,
            float* out, int max_tiles, int n_d, int n_f, cudaStream_t s) {
   constexpr int smem = Ring<W>::BYTES;
   auto* h = static_cast<__nv_bfloat16*>(hidden);
-  // the kernels' shared-memory limit, once a device (a host call that a
-  // prefill chunk would otherwise make twice a MoE layer)
-  static int ready_device = -1;
-  int device;
-  if (cudaGetDevice(&device) != cudaSuccess) return static_cast<int>(cudaErrorInvalidValue);
-  if (device != ready_device) {
-    if (cudaFuncSetAttribute(grouped_up_mma_kernel<W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
-        cudaFuncSetAttribute(grouped_down_mma_kernel<W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
-      return static_cast<int>(cudaErrorInvalidValue);
-    ready_device = device;
-  }
+  // the kernels' shared-memory limit, set once a device (a host call that
+  // a prefill chunk would otherwise make twice a MoE layer)
+  static SmemLimit up_limit, down_limit;
+  if (up_limit.raise(grouped_up_mma_kernel<W>, smem) != cudaSuccess ||
+      down_limit.raise(grouped_down_mma_kernel<W>, smem) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
   grouped_up_mma_kernel<W><<<dim3(max_tiles, (n_f + ROWS / 2 - 1) / (ROWS / 2)), THREADS, smem,
                              s>>>(x, w1, w3, row_token, tile_expert, n_tiles, h, n_d, n_f);
   grouped_down_mma_kernel<W><<<dim3(max_tiles, (n_d + ROWS - 1) / ROWS), THREADS, smem, s>>>(

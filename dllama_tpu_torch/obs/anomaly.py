@@ -370,9 +370,9 @@ def build_default_rules(store: SeriesStore) -> list[AnomalyRule]:
       self-calibration (runtime/admission.py) should keep this bounded,
       so a sustained spike means the predictor is steering admission /
       EDF ordering / preemption with a broken model of the machine. The
-      port has no predictive admission yet (ROADMAP A item 7): the
-      ``dllama_admission_*`` series this rule reads do not exist, so it
-      never fires there.
+      lane server scores a forecast at every clean finish, with predictive
+      mode on or off (``dllama_admission_predict_error_ms``), so the
+      series this rule reads exist once a request has finished.
     """
     return [
         AnomalyRule(

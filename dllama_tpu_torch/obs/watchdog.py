@@ -11,7 +11,11 @@ thread that audits liveness signals the scheduler feeds it:
   scheduler makes (decode block, admission chunk, adopt), so the oldest
   in-flight dispatch's age is known;
 * **decode / admission progress** — timestamps of the last decode-block
-  dispatch and the last admission chunk/adopt that completed.
+  dispatch and the last admission chunk/adopt that completed;
+* **pause begin/end** — a stretch on the scheduler thread declared not
+  to be a stall (the profiler's start and stop, which hold the
+  interpreter): while one is open only the dispatch-hung rule audits it,
+  and its end moves the gap rules' clocks past it.
 
 Every ``interval_s`` it evaluates three stall rules (all against an
 injectable clock, so tests drive them deterministically):
@@ -117,6 +121,7 @@ class EngineWatchdog:
         self._n_admitting = 0
         self._dispatch_t0: float | None = None
         self._dispatch_kind: str | None = None
+        self._paused = False
         self._last_decode: float | None = None
         self._last_admission: float | None = None
         self._admitting_since: float | None = None
@@ -162,6 +167,31 @@ class EngineWatchdog:
             self._dispatch_t0 = None
             self._dispatch_kind = None
 
+    def pause_begin(self, what: str) -> None:
+        """Declare that the scheduler thread starts ``what``, a stretch
+        that is no stall (as a dispatch is declared): until `pause_end`
+        it is audited as a dispatch in flight (dispatch-hung only)."""
+        with self._lock:
+            self._dispatch_t0 = self._clock()
+            self._dispatch_kind = what
+            self._paused = True
+
+    def pause_end(self) -> None:
+        """End the declared pause: the beat, decode and admission clocks
+        move forward by its length, so the gap rules see no gap."""
+        now = self._clock()
+        with self._lock:
+            if self._paused and self._dispatch_t0 is not None:
+                dt = max(0.0, now - self._dispatch_t0)
+                for name in ("_last_beat", "_last_decode", "_last_admission",
+                             "_admitting_since"):
+                    t = getattr(self, name)
+                    if t is not None:
+                        setattr(self, name, t + dt)
+            self._paused = False
+            self._dispatch_t0 = None
+            self._dispatch_kind = None
+
     # -- detection ---------------------------------------------------------
 
     def _evaluate(self, now: float) -> tuple[str, str] | None:
@@ -176,6 +206,7 @@ class EngineWatchdog:
             last_decode = self._last_decode
             last_admission = self._last_admission
             admitting_since = self._admitting_since
+            paused = self._paused
         if last_beat is None:
             return None  # scheduler never ran; nothing to audit
         self.g_beat_age.set(max(now - last_beat, 0.0))
@@ -188,6 +219,8 @@ class EngineWatchdog:
                     f"{dispatch_kind} in flight for {age:.1f}s "
                     f"(timeout {self.dispatch_timeout_s:.1f}s)",
                 )
+        if paused:
+            return None  # a declared pause is no gap
         if busy and now - last_beat > self.dispatch_timeout_s:
             return (
                 "scheduler-stalled",

@@ -4,7 +4,9 @@
         --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu] \\
         [--faults SPEC] [--retry-max N] [--max-queue-depth N] [--max-streams N] \\
         [--trace-out PATH] [--timeline-out PATH] [--postmortem-dir DIR] \\
-        [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S]
+        [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S] \\
+        [--admission-predict] [--admission-max-wait-ms MS] [--deadline-default-ms MS] \\
+        [--deadline-priority-step-ms MS]
 
 The port's core of dllama_tpu/runtime/api_server.py (reference:
 src/dllama-api.cpp):
@@ -24,15 +26,18 @@ src/dllama-api.cpp):
   after the refresh hooks (device memory, SLO windows, step cost);
 * ``GET /v1/debug/recorder``, ``/memory``, ``/kv``, ``/compile``,
   ``/timeline`` (``?request_id=``, ``replica``, ``pid_prefix``,
-  ``pid_base``), ``/slo``, ``/series`` (``?name=&window=``) — the flight
-  recorder's ring, device memory against the engine's analytic
-  ``memory_report``, the pool and radix tree, the graph keys with their
-  capture seconds and analytic costs and the roofline by kind, the span
-  timeline as Chrome-trace JSON, the SLO windows, the in-process series;
+  ``pid_base``), ``/slo``, ``/series`` (``?name=&window=``),
+  ``/admission`` — the flight recorder's ring, device memory against the
+  engine's analytic ``memory_report``, the pool and radix tree, the graph
+  keys with their capture seconds and analytic costs and the roofline by
+  kind, the span timeline as Chrome-trace JSON, the SLO windows, the
+  in-process series, the load predictor's calibration with the occupancy
+  it forecasts against and its recent errors;
 * ``POST /v1/debug/profile`` — a ``torch.profiler`` capture (CPU, and CUDA
   on the card) of ``seconds`` written as a Chrome trace into ``out_dir``;
-  it starts and stops on the scheduler thread between dispatches; 409
-  while one runs, 500 when the capture fails;
+  it starts and stops on the scheduler thread between dispatches, each
+  declared to the watchdog as a pause (`profile_capture`); 409 while one
+  runs, 500 when the capture fails;
 * ``GET /dashboard`` — the live single-file dashboard; ``/health`` and
   ``/healthz`` — liveness.
 
@@ -64,7 +69,7 @@ error (503 and ``Retry-After``), and the scheduler keeps serving. The
 chaos plane (runtime/faults.py, ``--faults``) injects such failures on
 purpose. ``--max-queue-depth`` sheds by ``priority`` (``low`` at half the
 depth, ``high`` at twice it; 429 and ``Retry-After``); a drain answers 503
-with ``Retry-After: 5``. With ``--max-streams`` above the lane count, a
+with ``Retry-After`` of at least 5. With ``--max-streams`` above the lane count, a
 queued request parks the most-progressed stream (its whole pages published,
 its lane freed, its job requeued); the resume adopts the pages with no
 device copy and re-prefills only the page tail.
@@ -84,26 +89,39 @@ drafters, no store and no verify graphs. The draft-model source
 (``draft``) waits for ROADMAP A.12.
 
 Observability (obs/, the JAX server's): every serving family of the JAX
-``ApiState`` but predictive admission's, fed where the JAX scheduler feeds
-them; a request span (``--trace-out``) and timeline spans for the queue,
+``ApiState``, fed where the JAX scheduler feeds them; a request span (``--trace-out``) and timeline spans for the queue,
 the admission steps, decode, parks and publishes around the engine's own;
 the windowed SLOs (``--slo-ttft-ms``, ``--slo-tpot-ms``); a series sampler
 (``--series-retention``) whose ticks drive the anomaly monitor; the
 watchdog, beaten each scheduler tick and told of each dispatch. Either of
 the last two puts ``/v1/health`` in ``degraded``, which sheds ``low``
-requests (429, ``Retry-After: 2``). The sampler and the watchdog start
+requests (429, ``Retry-After`` of at least 2). The sampler and the watchdog start
 after ``rehearse_admission``, so their threads never run beside a
 rehearsal capture; the refresh hooks they run read host-side numbers only.
 ``resilience_stats`` and ``spec_stats`` read the registry's counters, less
 their values when the scheduler started (one registry serves the process);
 the counts without a family stay plain attributes.
 
+Admission (runtime/admission.py, the JAX server's): a `LoadPredictor`
+forecasts each request's TTFT and TPOT from the engine's measured step
+seconds (the analytic bound and cold floors before enough dispatches),
+the lanes' occupancy and the radix match; admission records its forecast
+and a clean finish scores it (``dllama_admission_*``, the EWMA
+corrections). Every ``Retry-After`` (sheds and retryable errors) is the
+predicted queue drain, the JAX server's constants its floors. With
+``--admission-predict`` the pending queue is picked by earliest effective
+deadline (``deadline_ms`` / ``ttft_budget_ms`` body fields, the
+``x-dllama-deadline-ms`` header; unhinted requests by priority offsets, so
+with no hints the order is priority, then arrival), a hinted request whose
+forecast misses its budget even if admitted now is refused as
+``infeasible`` (429) before it queues, and `LaneScheduler._maybe_preempt`
+parks a lower-priority or deadline-blown stream when that lets the EDF
+head meet its budget (``dllama_preemptions_total``); the victim resumes
+byte for byte. The EDF keys, the preemption's clock and the scored TTFTs
+all read the scheduler's ``_clock``.
+
 Left for later slices: the single-stream (``--batch-size 1``) path with its
-NaiveCache (ROADMAP A.8); predictive admission, EDF and deadline
-preemption, and with them the ``infeasible`` shedding reason, the
-predicted ``Retry-After`` (this server quotes the JAX server's floors),
-``/v1/debug/admission`` and the ``dllama_admission_*`` and
-``dllama_preemptions_total`` families (A.7).
+NaiveCache (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -112,10 +130,10 @@ import json
 import logging
 import os
 import queue
-import re
 import threading
 import time
 import uuid
+from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
@@ -142,6 +160,13 @@ from ..tokenizer import (
     EosResult,
     Tokenizer,
 )
+from .admission import (
+    LoadPredictor,
+    OccupancySnapshot,
+    effective_deadline_ms,
+    resolve_admission_knobs,
+    resolve_deadline_knobs,
+)
 from .engine import InferenceEngine
 from .faults import get_fault_plane, set_fault_plane
 from .spec import (
@@ -159,10 +184,12 @@ DEFAULT_LANE_BLOCK = 8
 PRIORITIES = ("low", "normal", "high")
 # shed when the queue holds this share of --max-queue-depth, by priority
 SHED_FACTOR = {"low": 0.5, "normal": 1.0, "high": 2.0}
-# the JAX server's Retry-After floors (seconds) when it has no predictor
+# the JAX server's Retry-After floors (seconds) under the predicted drain
 RETRY_AFTER_DRAINING = 5
 RETRY_AFTER_DEGRADED = 2
 RETRY_AFTER = 1
+# priority rank: a preemption victim ranks below the request it serves
+PRIORITY_RANK = {"low": 0, "normal": 1, "high": 2}
 
 
 def _env_int(name: str, default: int) -> int:
@@ -213,6 +240,16 @@ class InferenceParams:
     stop: list[str] = field(default_factory=list)
     # load-shedding class (one of PRIORITIES; `ApiState.admission_decision`)
     priority: str = "normal"
+    # latency budgets (runtime/admission.py): deadline_ms bounds the whole
+    # completion, ttft_budget_ms the first token; either makes the request
+    # hinted, which the predictive controller may refuse as infeasible and
+    # EDF orders by its effective deadline
+    deadline_ms: float | None = None
+    ttft_budget_ms: float | None = None
+
+    @property
+    def deadline_hinted(self) -> bool:
+        return self.deadline_ms is not None or self.ttft_budget_ms is not None
 
 
 class LaneJob:
@@ -225,7 +262,7 @@ class LaneJob:
     ``span`` is the request's lifecycle record (obs/trace.py; its id is the
     request id) and ``queue_span`` its open timeline span while it waits."""
 
-    def __init__(self, params: InferenceParams, span):
+    def __init__(self, params: InferenceParams, span, t_submit: float):
         self.params = params
         self.events: queue.Queue = queue.Queue()
         self.span = span
@@ -237,11 +274,18 @@ class LaneJob:
         self.cancelled = False
         self.lane: int | None = None
         self.reused_prefix_tokens = 0
-        self.t_submit = time.perf_counter()
+        # submit, admission and first-token times on the scheduler's clock
+        self.t_submit = t_submit
         self.t_admit: float | None = None
         self.t_first: float | None = None
         # a parked stream's preserved lane state, until its resume
         self._park_resume: _LaneState | None = None
+        # predictive admission, on the scheduler's clock: the EDF key (set
+        # at submit) and the forecast recorded at admission start, which
+        # `_finish` scores
+        self.edf_deadline_ms: float | None = None
+        self.predicted_ttft_ms: float | None = None
+        self.predicted_tpot_ms: float | None = None
 
     def metadata(self) -> dict:
         """Serving metadata for the client: request id, lane, TTFT, queue
@@ -302,6 +346,12 @@ class _AdmittingLane:
     from_park: bool = False
     prefill_s: float = 0.0  # seconds of the adopt and the chunks so far
     n_chunks: int = 0
+
+
+def _edf_key(job) -> float:
+    """A queued entry's EDF key; an entry without one sorts last."""
+    key = getattr(job, "edf_deadline_ms", None)
+    return key if key is not None else float("inf")
 
 
 class LaneScheduler:
@@ -391,7 +441,13 @@ class LaneScheduler:
 
     def submit(self, params: InferenceParams) -> LaneJob:
         st = self.state
-        job = LaneJob(params, st.tracer.span(path="lanes"))
+        job = LaneJob(params, st.tracer.span(path="lanes"), self._clock())
+        # the EDF key: hints win; otherwise the priority ladder as deadline
+        # offsets, so with no hints the pick order is (priority, arrival)
+        job.edf_deadline_ms = effective_deadline_ms(
+            job.t_submit * 1000.0, priority=params.priority, deadline_ms=params.deadline_ms,
+            ttft_budget_ms=params.ttft_budget_ms, default_ms=st.deadline_default_ms,
+            priority_step_ms=st.deadline_priority_step_ms)
         # the queue span begins here, on the handler thread, and ends on
         # the scheduler thread once the admission's tokenize and radix
         # match are done: "queue" covers the wait and the admission set-up
@@ -403,6 +459,25 @@ class LaneScheduler:
             st.m_queue_depth.set(len(self.pending))
             self.cv.notify()
         return job
+
+    def occupancy(self) -> OccupancySnapshot:
+        """The load snapshot the `LoadPredictor` forecasts against: lanes
+        active and admitting, the chunks the admitting lanes still owe,
+        parked streams and the queue depth, read together under the cv;
+        callable from any thread (the scheduler calls it outside its cv
+        block)."""
+        chunk = max(1, self.admission_chunk)
+        with self.cv:
+            active = sum(1 for ls in self.lanes if ls is not None)
+            admitting = list(self.admitting.values())
+            queue_depth = len(self.pending)
+            parked = self._n_parked
+        chunks_left = sum(max(1, -(-max(0, adm.prompt_end - adm.cursor) // chunk))
+                          for adm in admitting)
+        return OccupancySnapshot(
+            lanes_total=len(self.lanes), active_lanes=active, parked=parked,
+            admitting=len(admitting), admitting_chunks=chunks_left, queue_depth=queue_depth,
+            block_size=self.block_size, admission_chunk=chunk)
 
     def run_between_ticks(self, fn, timeout: float = 60.0):
         """Run ``fn()`` on the scheduler thread between two ticks (no
@@ -661,7 +736,14 @@ class LaneScheduler:
             free = [i for i in range(len(self.lanes))
                     if self.lanes[i] is None and i not in self.admitting]
             while self.pending and free:
-                job = self.pending.pop(0)
+                # predictive mode picks the earliest effective deadline,
+                # queue order breaking ties (an entry without a key sorts
+                # last); otherwise FIFO
+                idx = 0
+                if st.admission_predict:
+                    idx = min(range(len(self.pending)), key=lambda i: (
+                        _edf_key(self.pending[i]), i))
+                job = self.pending.pop(idx)
                 lane = min(free, key=lambda i: self.lane_used[i])
                 free.remove(lane)
                 self._admission_count += 1
@@ -678,6 +760,7 @@ class LaneScheduler:
         for lane, job in admissions:
             self._begin_admission(lane, job)
         self._maybe_park(n_pending)
+        self._maybe_preempt(n_pending)
         self._admission_tick()
         if any(self.lanes):
             epoch0 = self.engine.cache_epoch
@@ -725,6 +808,63 @@ class LaneScheduler:
                 victim, best = lane, self._progress[lane]
         if victim >= 0:
             self._park_stream(victim)
+
+    def _maybe_preempt(self, n_pending: int) -> None:
+        """Deadline preemption (predictive mode only): when the EDF head is
+        a HINTED request that blows its budget waiting for a lane to turn
+        over but would meet it on a lane freed now, park ONE active stream
+        of lower priority, or one past its own deadline, through
+        `_park_stream`. The victim requeues with its later key, so EDF
+        resumes it after the deadline traffic: paused, never restarted.
+        Nothing fires when the head is infeasible either way."""
+        st = self.state
+        if (not st.admission_predict or n_pending <= 0 or self.admitting
+                or any(ls is None for ls in self.lanes)):
+            return
+        with self.cv:
+            if not self.pending:
+                return
+            head = min(self.pending, key=_edf_key)
+        head_key = _edf_key(head)
+        if head_key == float("inf") or not head.params.deadline_hinted:
+            return
+        now_ms = self._clock() * 1000.0
+        remaining_ms = head_key - now_ms
+        if remaining_ms <= 0:
+            return
+        n_tok = head.n_prompt_tokens or st.estimate_prompt_tokens(head.params)
+        if st.predictor.predict(n_tok, self.occupancy()).ttft_ms <= remaining_ms:
+            return  # feasible by waiting: no victim needed
+        # the forecast on a lane freed now: no queue ahead, one lane fewer
+        occ = self.occupancy()
+        occ.queue_depth = 0
+        occ.active_lanes = max(0, occ.active_lanes - 1)
+        now_pred = st.predictor.predict(n_tok, occ)
+        if now_pred.ttft_ms > remaining_ms:
+            return  # infeasible either way
+        head_rank = PRIORITY_RANK.get(head.params.priority, 1)
+        victim, v_score, v_blown = -1, None, False
+        for lane, ls in enumerate(self.lanes):
+            # the park floor: at least one full block since (re)admission
+            if ls.job.cancelled or self._progress[lane] <= self.block_size - 1:
+                continue
+            rank = PRIORITY_RANK.get(ls.job.params.priority, 1)
+            vkey = _edf_key(ls.job)
+            blown = vkey < now_ms
+            if rank >= head_rank and not blown:
+                continue  # only lower-priority or deadline-blown streams
+            score = (rank, -vkey)
+            if v_score is None or score < v_score:
+                victim, v_score, v_blown = lane, score, blown
+        if victim < 0:
+            return
+        reason = "deadline_blown" if v_blown else "priority"
+        rid = self.lanes[victim].job.request_id
+        self._park_stream(victim)
+        st.m_preemptions.labels(reason=reason).inc()
+        st.recorder.record("stream_preempt", lane=victim, reason=reason, victim_request=rid,
+                           head_request=head.request_id, head_remaining_ms=round(remaining_ms, 3),
+                           predicted_ttft_ms=round(now_pred.ttft_ms, 3))
 
     def _park_stream(self, lane: int) -> None:
         """Free ``lane`` for a queued request: publish the history's whole
@@ -810,13 +950,21 @@ class LaneScheduler:
                 state.m_prefix_misses.inc()
             job.lane = lane
             job.reused_prefix_tokens = start_pos
-            job.t_admit = time.perf_counter()
+            job.t_admit = self._clock()
             qw = job.span.mark_admitted(lane=lane, reused_prefix_tokens=start_pos)
             state.spans.end(job.queue_span, lane=lane, n_prompt=len(tokens),
                             reused_prefix_tokens=start_pos)
             if qw is not None:
                 state.m_queue_wait.observe(qw)
             state.m_admissions.inc()
+            # the forecast `_finish` scores: the queue wait is known now
+            # (on the scheduler's clock) and the match says how much
+            # prefill is skipped
+            fc = state.predictor.predict(len(tokens), self.occupancy(), matched_tokens=start_pos)
+            waited_ms = (job.t_admit - job.t_submit) * 1000.0
+            job.predicted_ttft_ms = waited_ms + fc.ttft_ms - fc.queue_wait_ms
+            job.predicted_tpot_ms = fc.tpot_ms
+            state.m_predicted_ttft.observe(job.predicted_ttft_ms)
             seq_len = self.engine.header.seq_len
             prompt_end = len(tokens) - 1
             if prompt_end >= seq_len:
@@ -979,7 +1127,8 @@ class LaneScheduler:
         self.kv.release_lane(lane)
         self._finish_span(job, reason, n_prompt=job.n_prompt_tokens,
                           n_completion=job.n_completion)
-        st.slo.observe_span(job.span)
+        st.slo.observe_span(job.span, deadline_ms=job.params.deadline_ms)
+        self._score_prediction(job, reason)
         st.spans.maybe_flush()
         job.events.put(("done", reason))
         st.recorder.record("finish", lane=lane, reason=reason, pos=ls.pos,
@@ -988,6 +1137,28 @@ class LaneScheduler:
         self._set_lane_gauge()
         with self.cv:
             self.cv.notify()
+
+    def _score_prediction(self, job: LaneJob, reason: str) -> None:
+        """Forecast against outcome for one finished request, on the
+        scheduler's clock: the absolute errors feed the error histogram
+        and the error ring, and the EWMA corrections fold the observed
+        ratios back into the predictor. Only ``stop`` and ``length``
+        finishes count: a cancelled stream says nothing of the model."""
+        st = self.state
+        pred = st.predictor
+        if job.predicted_ttft_ms is None or job.t_first is None or reason not in ("stop", "length"):
+            return
+        ttft_ms = (job.t_first - job.t_submit) * 1000.0
+        if ttft_ms > 0:
+            err_ms = abs(ttft_ms - job.predicted_ttft_ms)
+            st.m_predict_error.labels(signal="ttft").observe(err_ms)
+            st.note_predict_error(err_ms)
+            pred.observe_ttft(job.predicted_ttft_ms, ttft_ms)
+        n = job.n_completion
+        if n > 1:
+            tpot_ms = (self._clock() - job.t_first) / (n - 1) * 1000.0
+            st.m_predict_error.labels(signal="tpot").observe(abs(tpot_ms - job.predicted_tpot_ms))
+            pred.observe_tpot(job.predicted_tpot_ms, tpot_ms)
 
     def _consume_token(self, lane: int, t: int) -> bool:
         """Advance one lane by one generated token: history, stream decode,
@@ -1004,7 +1175,7 @@ class LaneScheduler:
         ls.history.append(t)
         ls.job.n_completion += 1
         if ls.job.n_completion == 1:
-            ls.job.t_first = time.perf_counter()
+            ls.job.t_first = self._clock()
             ttft = ls.job.span.mark_first_token()
             if ttft is not None:
                 self.state.m_ttft.observe(ttft)
@@ -1206,7 +1377,10 @@ class ApiState:
                  retry_max: int | None = None, retry_backoff_ms: int | None = None,
                  max_queue_depth: int | None = None, tracer: Tracer | None = None,
                  slo_ttft_ms: float | None = None, slo_tpot_ms: float | None = None,
-                 series_retention: float | None = None):
+                 series_retention: float | None = None, admission_predict: bool | None = None,
+                 admission_max_wait_ms: int | None = None,
+                 deadline_default_ms: int | None = None,
+                 deadline_priority_step_ms: int | None = None):
         if engine.batch_size < 2:
             raise NotImplementedError(
                 "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
@@ -1216,6 +1390,16 @@ class ApiState:
         speculation, spec_k = resolve_spec_knobs(speculation, spec_k)
         retry_max, retry_backoff_ms, self.max_queue_depth = resolve_resilience_knobs(
             retry_max, retry_backoff_ms, max_queue_depth)
+        # predictive admission (runtime/admission.py): the switch gates the
+        # controller (infeasible refusals, EDF, deadline preemption); the
+        # deadline knobs shape the synthetic deadlines of unhinted requests
+        self.admission_predict, self.admission_max_wait_ms = resolve_admission_knobs(
+            admission_predict, admission_max_wait_ms)
+        self.deadline_default_ms, self.deadline_priority_step_ms = resolve_deadline_knobs(
+            deadline_default_ms, deadline_priority_step_ms)
+        # the recent |predicted - observed| TTFTs in ms (appended on the
+        # scheduler thread; /v1/debug/admission reads their p50 and p95)
+        self.predict_errors: deque = deque(maxlen=512)
         if speculation == "draft":
             raise NotImplementedError(
                 "draft-model speculation (--speculation draft) is not ported: ROADMAP A.12; "
@@ -1264,6 +1448,10 @@ class ApiState:
             chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
         self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages,
                                          evict_counter=self.m_evictions)
+        # the load predictor exists before the scheduler thread (admission
+        # records forecasts through it); every Retry-After reads it, with
+        # predictive mode on or off
+        self.predictor = LoadPredictor(engine)
         # every admission-path graph before the first request, the verify
         # buckets too when speculation is on (dllama_tpu's api_server
         # rehearses its compiled programs the same way)
@@ -1419,6 +1607,31 @@ class ApiState:
             "dllama_stream_resumes_total",
             "Parked streams resumed into a lane via radix re-match through the "
             "recovery-admission path.")
+        # predictive admission: the forecast and its error, in ms buckets
+        # (a warm prefix on an idle engine forecasts ~1 ms, a deep queue
+        # tens of seconds)
+        ms_buckets = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0, 1000.0, 2000.0,
+                      5000.0, 10000.0, 30000.0, 60000.0)
+        self.m_predicted_ttft = obs.histogram(
+            "dllama_admission_predicted_ttft_ms",
+            "LoadPredictor TTFT forecast recorded at admission (known queue wait + "
+            "cost-model/percentile prefill forecast over the radix-matched suffix), in "
+            "milliseconds.", buckets=ms_buckets)
+        self.m_predict_error = obs.histogram(
+            "dllama_admission_predict_error_ms",
+            "Absolute estimated-vs-observed error of the admission forecast on clean finishes, "
+            "by signal (ttft / tpot), in milliseconds; the EWMA correction factor feeds on the "
+            "same pairs.", labelnames=("signal",), buckets=ms_buckets)
+        self.m_admission_rejected = obs.counter(
+            "dllama_admission_rejected_total",
+            "Requests rejected by the PREDICTIVE controller before touching the queue, by "
+            "reason (infeasible = the forecast says the deadline/TTFT budget cannot be met "
+            "even if admitted now).", labelnames=("reason",))
+        self.m_preemptions = obs.counter(
+            "dllama_preemptions_total",
+            "Active streams parked by deadline preemption so a feasible hinted request could "
+            "meet its SLO, by reason (priority = lower-priority victim; deadline_blown = the "
+            "victim's own effective deadline had already passed).", labelnames=("reason",))
 
     @property
     def shed(self) -> dict[str, int]:
@@ -1438,20 +1651,74 @@ class ApiState:
             reasons.extend(f"anomaly:{s}" for s in self.anomaly.active_signals())
         return reasons
 
-    def admission_decision(self, priority: str) -> tuple[str, int] | None:
+    def estimate_prompt_tokens(self, params: InferenceParams) -> int:
+        """A coarse prompt length before tokenizing, for the pre-queue
+        feasibility gate: ~4 characters a token plus a template overhead a
+        message, no radix match assumed (the forecast recorded at
+        admission has the real count and match; the EWMA correction takes
+        up the bias)."""
+        n_chars = sum(len(m.content) for m in params.messages)
+        return max(2, n_chars // 4 + 8 * max(1, len(params.messages)))
+
+    def note_predict_error(self, err_ms: float) -> None:
+        self.predict_errors.append(float(err_ms))
+
+    def predict_error_stats(self) -> dict:
+        """p50 and p95 of the recent TTFT forecast errors (ms)."""
+        errs = sorted(self.predict_errors)
+        n = len(errs)
+        if not n:
+            return {"n": 0, "p50_ms": None, "p95_ms": None}
+        return {"n": n, "p50_ms": round(errs[n // 2], 3),
+                "p95_ms": round(errs[min(n - 1, int(n * 0.95))], 3)}
+
+    def predicted_retry_after(self, floor: int = RETRY_AFTER) -> int:
+        """``Retry-After`` from the predicted queue drain (monotonic in
+        queue depth, capped by ``--admission-max-wait-ms``), never below
+        ``floor``: every shed and every retryable error quotes it."""
+        return max(floor, self.predictor.retry_after_s(self.scheduler.occupancy(),
+                                                       self.admission_max_wait_ms))
+
+    def admission_snapshot(self) -> dict:
+        """``GET /v1/debug/admission``: the knobs, the predictor's
+        calibration, the occupancy it forecasts against, the Retry-After it
+        quotes now and the recent forecast errors."""
+        occ = self.scheduler.occupancy()
+        return {
+            "predictive": self.admission_predict,
+            "max_wait_ms": self.admission_max_wait_ms,
+            "deadline_default_ms": self.deadline_default_ms,
+            "deadline_priority_step_ms": self.deadline_priority_step_ms,
+            "prediction_error": self.predict_error_stats(),
+            "occupancy": occ.as_dict(),
+            "predictor": self.predictor.snapshot(),
+            "retry_after_s": self.predictor.retry_after_s(occ, self.admission_max_wait_ms),
+        }
+
+    def admission_decision(self, priority: str,
+                           params: InferenceParams | None = None) -> tuple[str, int] | None:
         """The shedding gate, before a request reaches the queue: None
         admits, else (reason, Retry-After seconds). A drain refuses all;
         ``--max-queue-depth`` refuses by priority once the queue holds
         `SHED_FACTOR` of it; a ``low`` request is refused while the server
-        is degraded (the JAX server's ladder and its Retry-After floors: its
-        ``infeasible`` reason waits for the load predictor, ROADMAP A.7)."""
+        is degraded. In predictive mode a HINTED request whose forecast
+        misses its budget even if admitted now is refused as
+        ``infeasible``; an unhinted one never is. Every Retry-After is the
+        predicted drain, the JAX server's constants its floors."""
         if self.draining:
-            return "draining", RETRY_AFTER_DRAINING
+            return "draining", self.predicted_retry_after(RETRY_AFTER_DRAINING)
         depth = self.max_queue_depth
         if depth > 0 and len(self.scheduler.pending) >= depth * SHED_FACTOR.get(priority, 1.0):
-            return "queue_full", RETRY_AFTER
+            return "queue_full", self.predicted_retry_after()
         if priority == "low" and self.degraded_reasons():
-            return "degraded", RETRY_AFTER_DEGRADED
+            return "degraded", self.predicted_retry_after(RETRY_AFTER_DEGRADED)
+        if self.admission_predict and params is not None and params.deadline_hinted:
+            budget = min(h for h in (params.deadline_ms, params.ttft_budget_ms) if h is not None)
+            pred = self.predictor.predict(self.estimate_prompt_tokens(params),
+                                          self.scheduler.occupancy())
+            if pred.ttft_ms > budget:
+                self.m_admission_rejected.labels(reason="infeasible").inc()
+                return "infeasible", self.predicted_retry_after()
         return None
 
     def note_shed(self, reason: str, priority: str = "normal", retry_after: int = 0) -> None:
@@ -1593,29 +1860,108 @@ def _chunk_payload(state: ApiState, delta: str | None, stop: bool, reason: str =
     return payload
 
 
-# a Chrome trace's complete events and kernel names, read as text
-_TRACE_EVENT = re.compile(r'"ph":\s*"X"')
-_TRACE_KERNEL = re.compile(r'"ph":\s*"X",\s*"cat":\s*"kernel",\s*"name":\s*"((?:[^"\\]|\\.)*)"')
 _KNOWN_PATHS = frozenset({
     "/v1/chat/completions", "/v1/models", "/v1/health", "/v1/debug/recorder",
     "/v1/debug/memory", "/v1/debug/compile", "/v1/debug/kv", "/v1/debug/timeline",
-    "/v1/debug/slo", "/v1/debug/series", "/v1/debug/profile", "/v1/drain", "/dashboard",
-    "/metrics", "/health", "/healthz",
+    "/v1/debug/slo", "/v1/debug/series", "/v1/debug/profile", "/v1/debug/admission",
+    "/v1/drain", "/dashboard", "/metrics", "/health", "/healthz",
 })
+
+
+def write_chrome_trace(events, path: str) -> dict:
+    """Write a profiler's events (``KinetoEvent``s) to ``path`` as a
+    Chrome trace of complete events: host ops on process 0 by thread
+    (``cpu_op``, and the CUDA API calls as ``cuda_runtime`` /
+    ``cuda_driver``), device activity on process 1 + the device index by
+    stream. Each event keeps its ids as ``args``: a host op its
+    ``External id``; a CUDA API call and a device event their
+    ``correlation`` and the ``External id`` of the op that issued them,
+    a device event its device and stream (not its launch metadata: grid,
+    block and registers would double the profiler's stop). A
+    flow (``ph`` s/f, category ``ac2g``, the correlation id) ties each
+    launch to its kernels, as torch's own export does. Written in Python
+    one event at a time, so the interpreter switches to the scheduler
+    thread between events, where the profiler's own export holds it for
+    seconds. Returns the number of events, the sorted kernel names and
+    the number of correlation ids that link a launch to device work."""
+    from torch.autograd import DeviceType
+
+    n, kernels, devices, launched, ran = 0, set(), set(), set(), set()
+    with open(path, "w") as f:
+        f.write('{"traceEvents": [\n')
+        f.write(json.dumps({"ph": "M", "name": "process_name", "pid": 0,
+                            "args": {"name": "host"}}))
+        annotated = None
+        for e in events:
+            if annotated is None:
+                annotated = hasattr(e, "is_user_annotation")
+            name, ts = e.name(), e.start_ns() / 1e3
+            corr, flow = e.correlation_id(), None
+            if e.device_type() == DeviceType.CPU:
+                pid, tid = 0, e.start_thread_id()
+                # the CUDA API calls by name (``cudaLaunchKernel``,
+                # ``cuLaunchKernel``): torch 2.11's events carry no
+                # activity type
+                cat = ("cuda_runtime" if name.startswith("cuda")
+                       else "cuda_driver" if name[:2] == "cu" and name[2:3].isupper()
+                       else "cpu_op")
+                if cat == "cpu_op":
+                    args = {"External id": corr}
+                else:
+                    args = {"correlation": corr, "External id": e.linked_correlation_id()}
+                    if corr:
+                        flow = "s"
+                        launched.add(corr)
+            else:
+                pid, tid = 1 + e.device_index(), e.device_resource_id()
+                devices.add(e.device_index())
+                cat = ("gpu_user_annotation" if annotated and e.is_user_annotation()
+                       else "gpu_memcpy" if name.startswith("Memcpy")
+                       else "gpu_memset" if name.startswith("Memset") else "kernel")
+                if cat == "kernel":
+                    kernels.add(name)
+                args = {"correlation": corr, "External id": e.linked_correlation_id(),
+                        "device": e.device_index(), "stream": tid}
+                if corr:
+                    flow = "f"
+                    ran.add(corr)
+            f.write(",\n" + json.dumps({"ph": "X", "cat": cat, "name": name, "pid": pid,
+                                          "tid": tid, "ts": ts, "dur": e.duration_ns() / 1e3,
+                                          "args": args}))
+            if flow is not None:
+                f.write(",\n" + json.dumps(
+                    {"ph": flow, "cat": "ac2g", "name": "ac2g", "id": corr, "pid": pid,
+                     "tid": tid, "ts": ts, **({"bp": "e"} if flow == "f" else {})}))
+            n += 1
+        for d in sorted(devices):
+            f.write(",\n" + json.dumps({"ph": "M", "name": "process_name", "pid": 1 + d,
+                                          "args": {"name": f"device {d}"}}))
+        f.write("\n]}\n")
+    return {"n_events": n, "kernels": sorted(kernels), "n_flows": len(launched & ran)}
 
 
 def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
     """A ``torch.profiler`` capture of ``seconds`` of serving, written as a
     Chrome trace into ``out_dir``: CPU activity, and CUDA on the card.
+
     The profiler starts and stops on the scheduler thread between two
     ticks (`LaneScheduler.run_between_ticks`): no dispatch, and so no graph
-    replay, is in flight when it does, and the scheduler thread's host ops
-    are the ones recorded. A ``dllama.profile_window`` range marks the
-    window. The trace is scanned as text for its complete events and kernel
-    names (a second of graphed decode writes ~10^5 events, and a JSON parse
-    of them would hold the interpreter from the scheduler thread). Raises
-    when the capture fails or the trace holds no event. ``timings_s``: the
-    start, the window, the stop and the export, each in seconds."""
+    replay, is in flight when it does, the scheduler thread's host ops are
+    the ones recorded, and no other thread launches device work while the
+    stop collects the device's records (a stop from another thread while
+    the scheduler replays a graph has deadlocked inside CUDA). The
+    start and the stop hold the interpreter for as long as they take
+    (torch's ``_disable_profiler`` collects and converts every device
+    record without releasing it: seconds for a second of graphed decode),
+    so each is declared to the watchdog as a pause (`EngineWatchdog.
+    pause_begin`), not counted as a stall. The trace is written on the
+    calling thread by `write_chrome_trace`, which lets the scheduler run
+    between events, where ``export_chrome_trace`` would hold the
+    interpreter throughout. A ``dllama.profile_window`` range marks the
+    window. Raises when the capture fails or the trace holds no event.
+    ``timings_s``: the start, the window, the stop and the export as the
+    caller saw them, and the seconds the start and the stop held the
+    scheduler thread (``scheduler_start``, ``scheduler_stop``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
@@ -1623,7 +1969,19 @@ def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     window = record_function("dllama.profile_window")
-    sched = state.scheduler
+    sched, wd = state.scheduler, state.watchdog
+    held: dict[str, float] = {}
+
+    def declared(what, fn):
+        def run():
+            wd.pause_begin("profile_" + what)
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                held["scheduler_" + what] = time.perf_counter() - t0
+                wd.pause_end()
+        return run
 
     def start():
         prof.start()
@@ -1634,28 +1992,25 @@ def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
         prof.stop()
 
     t = [time.perf_counter()]
-    sched.run_between_ticks(start)
+    sched.run_between_ticks(declared("start", start))
     t.append(time.perf_counter())
     try:
         time.sleep(seconds)
     finally:
         t.append(time.perf_counter())
-        sched.run_between_ticks(stop)
+        sched.run_between_ticks(declared("stop", stop))
         t.append(time.perf_counter())
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
-    prof.export_chrome_trace(path)
+    written = write_chrome_trace(prof.profiler.kineto_results.events(), path)
     t.append(time.perf_counter())
-    with open(path) as f:
-        text = f.read()
-    n_events = len(_TRACE_EVENT.findall(text))
-    if not n_events:
+    if not written["n_events"]:
         raise RuntimeError(f"the profiler wrote no event to {path}")
-    kernels = sorted({json.loads(f'"{n}"') for n in _TRACE_KERNEL.findall(text)})
+    timings = {k: round(b - a, 4) for k, a, b in
+               zip(("start", "window", "stop", "export"), t, t[1:])}
+    timings.update({k: round(v, 4) for k, v in held.items()})
     return {"log_dir": out_dir, "seconds": seconds, "n_files": len(os.listdir(out_dir)),
-            "trace": path, "n_events": n_events, "kernels": kernels,
-            "timings_s": {k: round(b - a, 4) for k, a, b in
-                          zip(("start", "window", "stop", "export"), t, t[1:])}}
+            "trace": path, **written, "timings_s": timings}
 
 
 def make_handler(state: ApiState):
@@ -1740,6 +2095,8 @@ def make_handler(state: ApiState):
                     pid_prefix=arg("pid_prefix"), pid_base=base))
             elif path == "/v1/debug/slo":
                 self._json(state.slo.snapshot())
+            elif path == "/v1/debug/admission":
+                self._json(state.admission_snapshot())
             elif path == "/v1/debug/series":
                 name = arg("name")
                 if name is None:
@@ -1821,7 +2178,7 @@ def make_handler(state: ApiState):
                 return
             # shed before the request touches the queue: a refusal costs
             # the server nothing
-            shed = state.admission_decision(params.priority)
+            shed = state.admission_decision(params.priority, params)
             if shed is not None:
                 reason, retry_after = shed
                 state.note_shed(reason, params.priority, retry_after)
@@ -1883,7 +2240,7 @@ def make_handler(state: ApiState):
                     # Retry-After, a request the server could not take 500
                     retryable = bool(payload.get("retryable"))
                     self._json({"error": payload}, 503 if retryable else 500,
-                               retry_after=RETRY_AFTER if retryable else None)
+                               retry_after=state.predicted_retry_after() if retryable else None)
                     return
                 if kind == "done":
                     break
@@ -1914,6 +2271,23 @@ def make_handler(state: ApiState):
                 if priority not in PRIORITIES:
                     raise ValueError(f"unknown priority {priority!r}")
                 params.priority = priority
+            # latency budgets: the body's fields win; the relay header
+            # x-dllama-deadline-ms backs deadline_ms up (a malformed or
+            # non-positive header is ignored, never fails the request)
+            for name in ("deadline_ms", "ttft_budget_ms"):
+                if body.get(name) is not None:
+                    value = float(body[name])
+                    if value <= 0:
+                        raise ValueError(f"{name} must be > 0")
+                    setattr(params, name, value)
+            header = self.headers.get("x-dllama-deadline-ms")
+            if header and params.deadline_ms is None:
+                try:
+                    value = float(header)
+                except ValueError:
+                    value = 0.0
+                if value > 0:
+                    params.deadline_ms = value
             return params
 
     return Handler
@@ -1943,6 +2317,10 @@ def serve(
     slo_ttft_ms: float | None = None,
     slo_tpot_ms: float | None = None,
     series_retention: float | None = None,
+    admission_predict: bool | None = None,
+    admission_max_wait_ms: int | None = None,
+    deadline_default_ms: int | None = None,
+    deadline_priority_step_ms: int | None = None,
 ) -> ThreadingHTTPServer:
     """Build the server over a ``batch_size`` > 1 engine (its lanes get the
     page pool here); the caller runs ``serve_forever()`` and
@@ -1958,7 +2336,12 @@ def serve(
     receives the flight recorder's dumps; ``slo_ttft_ms`` /
     ``slo_tpot_ms`` (else ``DLLAMA_SLO_*``) set the SLO targets and
     ``series_retention`` (else ``DLLAMA_SERIES_RETENTION_S``, then 3600)
-    the series store's seconds."""
+    the series store's seconds. Predictive admission: ``admission_predict``
+    and ``admission_max_wait_ms`` default to ``DLLAMA_ADMISSION_PREDICT`` /
+    ``DLLAMA_ADMISSION_MAX_WAIT_MS``, then off and 30000;
+    ``deadline_default_ms`` and ``deadline_priority_step_ms`` to
+    ``DLLAMA_DEADLINE_DEFAULT_MS`` / ``DLLAMA_DEADLINE_PRIORITY_STEP_MS``,
+    then 600000 and 60000 (runtime/admission.py)."""
     if faults is not None:
         set_fault_plane(faults)
     state = ApiState(
@@ -1969,6 +2352,9 @@ def serve(
         retry_backoff_ms=retry_backoff_ms, max_queue_depth=max_queue_depth,
         tracer=Tracer(sink_path=trace_out) if trace_out else None, slo_ttft_ms=slo_ttft_ms,
         slo_tpot_ms=slo_tpot_ms, series_retention=series_retention,
+        admission_predict=admission_predict, admission_max_wait_ms=admission_max_wait_ms,
+        deadline_default_ms=deadline_default_ms,
+        deadline_priority_step_ms=deadline_priority_step_ms,
     )
     if postmortem_dir:
         state.recorder.postmortem_dir = postmortem_dir
@@ -2085,6 +2471,10 @@ def main(argv=None) -> None:
         faults=args.faults, trace_out=args.trace_out, timeline_out=args.timeline_out,
         postmortem_dir=args.postmortem_dir, slo_ttft_ms=args.slo_ttft_ms,
         slo_tpot_ms=args.slo_tpot_ms, series_retention=args.series_retention,
+        admission_predict=args.admission_predict,
+        admission_max_wait_ms=args.admission_max_wait_ms,
+        deadline_default_ms=args.deadline_default_ms,
+        deadline_priority_step_ms=args.deadline_priority_step_ms,
     )
     _install_drain_handler(server)
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")

@@ -127,8 +127,8 @@ class _Dispatch:
     event, an ``engine`` span with a ``<kind>.device`` sub-span around the
     readback that already ends the dispatch (`device`), then
     ``dllama_engine_step_seconds{kind}`` (host seconds, call and readback),
-    ``dllama_engine_block_token_seconds`` on block paths and a
-    ``step_complete`` event. On the card two CUDA events bracket the
+    ``dllama_engine_block_token_seconds`` on block paths (neither for a
+    dispatch that captured its graph) and a ``step_complete`` event. On the card two CUDA events bracket the
     dispatch on the stream, the first recorded right before the graph's
     launch (`StepGraphs.before_run`: host work before it, such as a stall
     of this thread, does not count as device time), the second before the
@@ -192,15 +192,19 @@ class _Dispatch:
         self._mark_end()
         dt = time.perf_counter() - self.t0
         e._spans.end(self.span)
-        e._m_step.labels(kind=self.kind).observe(dt)
-        if self.n_tokens:
-            e._m_tpot.observe(dt / self.n_tokens)
+        # a key's first use (eager, the kernels' first loads, then the
+        # capture) is no representative step: neither its seconds (the
+        # load predictor's and the watchdog's input) nor its cost count
+        captured = e.graphs.capture_s != self.capture_s
+        step = e._m_step.labels(kind=self.kind)
+        if not captured:
+            step.observe(dt)
+            if self.n_tokens:
+                e._m_tpot.observe(dt / self.n_tokens)
         e.recorder.record("step_complete", step=self.kind, ms=round(dt * 1000, 3), **self.fields)
         if self.ev is not None and self.ev[1] is None:
             return False  # no launch happened to time
-        # a key's first use (eager, the kernels' first loads, then the
-        # capture) is no representative step: its cost is not counted
-        if e.obs.enabled and e.graphs.capture_s == self.capture_s:
+        if e.obs.enabled and not captured:
             e._note_cost(self.key, self.ev, dt, self.cost)
         return False
 
@@ -391,6 +395,25 @@ class InferenceEngine:
             else:
                 left.append((key, e0, e1, flops, nbytes))
         self._cost_pending = left
+
+    def device_step_seconds(self, kind: str) -> tuple[int, float] | None:
+        """The settled dispatches of step kind ``kind`` (every graph key of
+        it, capture dispatches left out) and their mean device seconds,
+        from their CUDA events; None on the CPU, where no dispatch is
+        timed on a device, and before any has settled. The load
+        predictor's step cost on the card: a lane prefill chunk reads
+        nothing back, so its host seconds are its enqueue, while its
+        device time lands in the next decode block's readback. Python
+        numbers only: callable from any thread."""
+        if self.device.type != "cuda":
+            return None
+        n, s = 0, 0.0
+        with self._cost_lock:
+            for key, acc in self._key_cost.items():
+                if self._key_kind(key) == kind:
+                    n += acc[0]
+                    s += acc[1]
+        return (n, s / n) if n else None
 
     @staticmethod
     def _key_kind(key) -> str:

@@ -15,9 +15,9 @@ the JAX package where it has a counterpart:
   poison also the JAX lane server's under the same spec; a mid-stream decode
   poison continues byte for byte; ``kv_alloc`` and publish faults are
   absorbed; an ``sse_flush`` fault cancels only its stream; a failed
-  admission releases its pages; the queue-full ladder by priority; a bad
-  priority answers 400; a drain answers 503 with Retry-After 5 and
-  /v1/health says ``draining``;
+  admission releases its pages; the queue-full ladder by priority, its
+  Retry-After the predicted drain; a bad priority answers 400; a drain
+  answers 503 with Retry-After 5 and /v1/health says ``draining``;
 * park/resume (``max_streams`` 6 on 2 lanes): every answer equals its solo
   run, with speculation off and shared; a poison recovery under ``shared``
   equals spec-off; a poison recovery on an int8 pool equals its fault-free
@@ -25,9 +25,11 @@ the JAX package where it has a counterpart:
 * the knobs' environment fallbacks equal the JAX ``resolve_*`` functions.
 
 No test waits on a sleep: faults are armed by ``nth`` and ``op``, and the
-drain test holds the scheduler's cv while it looks.
+shed and drain tests hold the scheduler thread between two ticks while
+they look.
 """
 
+import contextlib
 import http.client
 import json
 import threading
@@ -308,6 +310,47 @@ def _ask_many(srv, prompts, max_tokens=8):
     return results
 
 
+@contextlib.contextmanager
+def _quoted_retry_after(state):
+    """Every value ``state.predicted_retry_after`` returns during the block,
+    in order: the Retry-After the server read when it answered (a
+    retryable error reads it once, as it answers)."""
+    quoted, real = [], state.predicted_retry_after
+
+    def spy(*a, **k):
+        quoted.append(real(*a, **k))
+        return quoted[-1]
+
+    state.predicted_retry_after = spy
+    try:
+        yield quoted
+    finally:
+        del state.predicted_retry_after
+
+
+@contextlib.contextmanager
+def _scheduler_held(sched):
+    """Hold the scheduler thread between two ticks (`run_between_ticks`)
+    for the block: no tick pops the queue or steps a lane, while the cv
+    stays free for the handler threads (the admission gate reads the
+    occupancy under it)."""
+    entered, release = threading.Event(), threading.Event()
+
+    def hold():
+        entered.set()
+        release.wait(LIMIT)
+
+    t = threading.Thread(target=sched.run_between_ticks, args=(hold,),
+                         kwargs={"timeout": LIMIT})
+    t.start()
+    try:
+        assert entered.wait(LIMIT), "the scheduler ran no tick"
+        yield
+    finally:
+        release.set()
+        t.join(LIMIT)
+
+
 def _health(srv):
     with urllib.request.urlopen(_url(srv) + "/v1/health", timeout=LIMIT) as r:
         return json.loads(r.read())
@@ -335,7 +378,8 @@ def _chaos_round(srv, plane_mod, spec):
 def test_chaos_soak_schedule(server, baseline, jax_server, spec, n_fail):
     sched = server.state.scheduler
     recovered = sched.lanes_recovered
-    results, counts = _chaos_round(server, faults, spec)
+    with _quoted_retry_after(server.state) as quoted:
+        results, counts = _chaos_round(server, faults, spec)
     failed = []
     for prompt, res in zip(SOAK_PROMPTS, results):
         if res[0] == "ok":
@@ -343,7 +387,10 @@ def test_chaos_soak_schedule(server, baseline, jax_server, spec, n_fail):
         else:
             failed.append(res)
             _, code, err, retry_after = res
-            assert code == 503 and err.get("retryable") is True and retry_after == "1", res
+            assert code == 503 and err.get("retryable") is True, res
+    # each retryable error quotes the predicted drain read as it answered
+    assert sorted(r[3] for r in failed) == sorted(str(v) for v in quoted), (failed, quoted)
+    assert all(v >= 1 for v in quoted), quoted
     if n_fail is not None:
         assert len(failed) == n_fail, results
     if ":nth=" in spec:
@@ -456,40 +503,49 @@ def test_failed_admission_releases_pages(server):
 
     engine.prefill_lane_chunk = boom
     try:
-        res = _ask(server, prompt2)
+        with _quoted_retry_after(server.state) as quoted:
+            res = _ask(server, prompt2)
     finally:
         engine.prefill_lane_chunk = real
     assert res[0] == "error" and len(calls) == 1 + sched.retry_max
     _, code, err, retry_after = res
-    assert code == 503 and err["retryable"] is True and retry_after == "1"
+    assert code == 503 and err["retryable"] is True
+    assert len(quoted) == 1 and quoted[0] >= 1 and retry_after == str(quoted[0]), quoted
     assert not sched.admitting and sched.kv.debug()["lanes"] == {}
     sched.kv.check()
     assert _ask(server, prompt2)[0] == "ok"
 
 
 def test_queue_full_shed_ladder_and_bad_priority(server):
-    """With the queue at depth 2 (two sentinels, the scheduler held off by
-    its cv), normal and low requests shed with 429 and Retry-After; high
-    rides out twice the depth. A priority outside the ladder answers 400."""
+    """With the queue at depth 2 (two sentinels, the scheduler held between
+    ticks), normal and low requests shed with 429 and the predicted
+    Retry-After (at least 1); high rides out twice the depth. A priority
+    outside the ladder answers 400."""
     state, sched = server.state, server.state.scheduler
     shed0 = dict(state.shed)
     state.max_queue_depth = 2
     try:
-        with sched.cv:
-            sched.pending.extend([object(), object()])
+        with _scheduler_held(sched):
+            with sched.cv:
+                sched.pending.extend([object(), object()])
             try:
+                retry = state.predicted_retry_after()
+                assert retry >= 1
                 for priority in ("normal", "low"):
                     res = _ask(server, "shed me", priority=priority)
                     assert res[0] == "error" and res[1] == 429, res
                     assert "queue_full" in res[2]["message"] and res[2]["retryable"] is True
-                    assert res[3] == str(res[2]["retry_after_s"]) == "1"
+                    assert res[3] == str(res[2]["retry_after_s"]) == str(retry)
                 assert state.admission_decision("high") is None
-                assert state.admission_decision("low") == ("queue_full", 1)
-                sched.pending.pop()
-                assert state.admission_decision("low") == ("queue_full", 1)
+                assert state.admission_decision("low") == ("queue_full", retry)
+                with sched.cv:
+                    sched.pending.pop()
+                assert state.admission_decision("low") == (
+                    "queue_full", state.predicted_retry_after())
                 assert state.admission_decision("normal") is None
             finally:
-                sched.pending.clear()
+                with sched.cv:
+                    sched.pending.clear()
     finally:
         state.max_queue_depth = 0
     assert state.shed == dict(shed0, queue_full=shed0.get("queue_full", 0) + 2)
@@ -524,7 +580,7 @@ def test_drain(files):
     t.start()
     try:
         assert started.wait(timeout=LIMIT), "the stream never started"
-        with sched.cv:  # the scheduler pauses: the stream is still in flight
+        with _scheduler_held(sched):  # the stream is still in flight
             body = json.loads(_post(_url(srv), "/v1/drain"))
             assert body["status"] == "draining" and body["in_flight"] == 1
             assert not body["drained"]

@@ -116,3 +116,25 @@ def test_observability_slice_modules_are_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_admission_slice_module_is_covered():
+    """The admission slice's copy (runtime/admission.py, the load
+    predictor) is among the modules and files checked above, and imports
+    with jax, dllama_tpu and torch all blocked: it is stdlib only."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.runtime.admission" in mods
+    path = os.path.join(PKG, "runtime", "admission.py")
+    assert path in files
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('jax', 'dllama_tpu', 'torch', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"spec = importlib.util.spec_from_file_location('admission', {path!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert mod.LoadPredictor and mod.effective_deadline_ms\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

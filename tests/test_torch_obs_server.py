@@ -3,9 +3,8 @@ CPU, against the JAX lane server on the same tiny f32 model.
 
 * The same request script (a shared prefix, concurrent streams over two
   lanes that park and resume, one fault schedule, one drain) on both
-  servers: ``/metrics`` carries the JAX families less predictive
-  admission's, xlalint's and the window crossings', and the deterministic
-  counters are equal.
+  servers: ``/metrics`` carries the JAX families less xlalint's and the
+  window crossings', and the deterministic counters are equal.
 * ``/v1/health`` keeps its fields; a forced watchdog stall (a fake clock)
   and an anomaly (sampler ticks driven by hand) report ``degraded`` and
   shed ``low`` requests with ``Retry-After: 2``.
@@ -58,11 +57,9 @@ KNOBS = dict(lane_block_size=4, admission_chunk=16, kv_page_size=8, max_streams=
              retry_backoff_ms=0)
 PREFIX = "You are a helpful assistant who answers in short sentences. " * 2
 FAULTS = "dispatch:op=decode_lanes:nth=3,dispatch:op=decode_lanes:nth=9:kind=poison"
-# families the port leaves out: predictive admission's (ROADMAP A item
-# 7), xlalint's and the window crossings' (no counterpart in the port)
-LEFT_OUT = ("dllama_admission_predicted_ttft_ms", "dllama_admission_predict_error_ms",
-            "dllama_admission_rejected_total", "dllama_preemptions_total",
-            "dllama_xlalint_findings_total", "dllama_engine_window_crossings_total")
+# families the port leaves out: xlalint's and the window crossings' (no
+# counterpart in the port)
+LEFT_OUT = ("dllama_xlalint_findings_total", "dllama_engine_window_crossings_total")
 # the counters the script makes deterministic, by family
 COUNTERS = ("dllama_requests_finished_total", "dllama_admissions_total",
             "dllama_prefix_cache_hits_total", "dllama_prefix_cache_misses_total",
@@ -437,7 +434,8 @@ def test_profile_route_writes_a_trace_and_refuses_a_second(files, tmp_path):
         status, body, _ = first["r"]
         assert status == 200
         assert {"log_dir", "seconds", "n_files"} <= set(body)
-        assert set(body["timings_s"]) == {"start", "window", "stop", "export"}
+        assert set(body["timings_s"]) == {"start", "window", "stop", "export",
+                                          "scheduler_start", "scheduler_stop"}
         assert body["n_events"] > 0 and os.path.exists(body["trace"])
         with open(body["trace"]) as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}

@@ -883,6 +883,143 @@ def check_verify_stats(device, gen, timed: bool = True) -> list[dict]:
     return rows
 
 
+SLAB_PAD = 512  # the lanes' slab padding rows: the largest prefill bucket (engine._lane_pad)
+SLAB_DECODE_POS = (0, 15, 16, 4095, -1)  # four live lanes and one parked
+SLAB_CHUNK_POS = (0, 1024, 2560, 3584)  # a 512-row lane chunk's four live lanes; one parked at -T
+
+
+def check_slab_lanes(device, gen, timed: bool = True) -> list[dict]:
+    """The slab entries of both attention kernels at the slab lanes' shapes
+    (`InferenceEngine.decode_lanes` / ``verify_lanes`` / a lane chunk with
+    ``kv_native`` off): llama-8b heads (H 32 over KH 8, hd 128) over the
+    lanes' slab of 4096 + `SLAB_PAD` rows, B = 5 lanes, one of them parked.
+    Decode at `SLAB_DECODE_POS` (the parked lane at -1 must read nothing and
+    give zeros); stats at the verify widths T = 2, 3, 5 (lanes at
+    `VERIFY_POS`) and a 512-row chunk (lanes at `SLAB_CHUNK_POS`), the
+    parked lane at -T (its state m = -1e30, l = 0, acc = 0); each in bf16,
+    f32 and int8 (bf16 q). Each row: within TOL (f32 outputs: the stats, the
+    f32 decode) or TOL_BF16_OUT (bf16 outputs) of its plain version, the
+    same bits on two launches, its launches counted under its wrapper's
+    counter (``*_kv8`` for int8), and the paged entry's bits through the
+    identity page table over the same rows (pages of 16). Timed: the kernel,
+    its plain version, and scaled_dot_product_attention on the slab with the
+    causal mask (SDPA after a dequantization, two calls, as ``composite_ms``
+    for int8, whose ``library_ms`` is none)."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats,
+        flash_attention_stats_kv8,
+        flash_attention_stats_ref,
+        flash_decode,
+        flash_decode_kv8,
+        flash_decode_ref,
+        paged_flash_attention_stats,
+        paged_flash_decode,
+    )
+    from dllama_tpu_torch.ops.kv_cache import dequant_kv
+
+    h, kh, hd, s = 32, 8, 128, 4096 + SLAB_PAD
+    b, nb = len(SLAB_DECODE_POS), s // PAGE
+    pt_ident = (1 + torch.arange(b * nb, device=device, dtype=torch.int32)).reshape(b, nb)
+    rows = []
+    for tag in ("bf16", "f32", "int8"):
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        kv8 = tag == "int8"
+        peak = F32_FLOPS if tag == "f32" else BF16_FLOPS
+        row_bytes = (hd + 4) if kv8 else hd * (4 if tag == "f32" else 2)
+        if kv8:
+            k, v = (random_kv8((b, kh, s, hd), device, gen) for _ in range(2))
+        else:
+            k, v = (torch.randn((b, kh, s, hd), device=device, generator=gen).to(dtype)
+                    for _ in range(2))
+        ki, vi = _ident_pages(k, b, kh, nb), _ident_pages(v, b, kh, nb)
+
+        def library(q, qpos, k=k, v=v):
+            """SDPA over the slab (the int8 slab dequantized first)."""
+            mask = (torch.arange(s, device=device)[None, None, :] <= qpos[:, :, None])[:, None]
+            qs = q.transpose(1, 2)
+            if kv8:
+                return lambda: _sdpa(qs, dequant_kv(k, q.dtype), dequant_kv(v, q.dtype), mask)
+            return lambda: _sdpa(qs, k, v, mask)
+
+        # decode: B lanes at their own positions, one parked
+        counter = flash_decode_kv8 if kv8 else flash_decode
+        pos = torch.tensor(SLAB_DECODE_POS, dtype=torch.int32, device=device)
+        q = torch.randn((b, 1, h, hd), device=device, generator=gen).to(dtype)
+        shape = f"{tag} H={h} KH={kh} B=4+1 S={s} pos={','.join(map(str, SLAB_DECODE_POS))} slab"
+        before = counter.launches
+        got = twice_equal(lambda: flash_decode(q, k, v, pos), f"{counter.__name__} {shape}")
+        require(counter.launches == before + 2,
+                f"{counter.__name__} {shape}: the wrapper did not count its launches")
+        ident = paged_flash_decode(q, ki, vi, pt_ident, pos)
+        ref = flash_decode_ref(q, k, v, pos)
+        torch.cuda.synchronize(device)
+        require(torch.equal(ident, got),
+                f"{counter.__name__} {shape}: the paged entry's identity-table bits differ")
+        require(bool((got[-1] == 0).all()), f"{counter.__name__} {shape}: the parked lane "
+                "is not zero")
+        rel, absd = norm_err(got, ref)
+        tol = TOL if tag == "f32" else TOL_BF16_OUT
+        require(rel <= tol, f"{counter.__name__} {shape}: error {rel:.3e} > {tol}")
+        live = sum(p + 1 for p in SLAB_DECODE_POS if p >= 0)
+        b_ms, b_by = bound(2 * kh * live * row_bytes + 2 * q.numel() * q.element_size(),
+                           4.0 * hd * h * live, peak)
+        row = dict(name=counter.__name__, shape=shape, err=rel, max_abs_err=absd,
+                   bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
+        if timed:
+            row["ms"] = time_ms(lambda: flash_decode(q, k, v, pos), device)
+            row["plain_ms"] = time_ms(lambda: flash_decode_ref(q, k, v, pos), device, 5)
+            lib = library(q, pos[:, None])
+            row["library_ms"] = None if kv8 else time_ms(lib, device)
+            if kv8:
+                row["composite_ms"] = time_ms(lib, device)
+        rows.append(row)
+
+        # stats: verify widths and a 512-row lane chunk, one lane parked at -T
+        counter = flash_attention_stats_kv8 if kv8 else flash_attention_stats
+        for t, live_pos in [(t, VERIFY_POS) for t in VERIFY_T] + [(512, SLAB_CHUNK_POS)]:
+            q_pos0 = torch.tensor(live_pos + (-t,), dtype=torch.int32, device=device)
+            q = torch.randn((b, t, h, hd), device=device, generator=gen).to(dtype)
+            shape = (f"{tag} H={h} KH={kh} B=4+1 T={t} S={s} "
+                     f"pos={','.join(map(str, live_pos))},-{t} slab")
+            before = counter.launches
+            got = twice_equal(lambda: flash_attention_stats(q, k, v, q_pos0),
+                              f"{counter.__name__} {shape}")
+            require(counter.launches == before + 2,
+                    f"{counter.__name__} {shape}: the wrapper did not count its launches")
+            ident = paged_flash_attention_stats(q, ki, vi, pt_ident, q_pos0)
+            ref = flash_attention_stats_ref(q, k, v, q_pos0)
+            torch.cuda.synchronize(device)
+            require(all(torch.equal(x, y) for x, y in zip(ident, got)),
+                    f"{counter.__name__} {shape}: the paged entry's identity-table bits differ")
+            acc, m, l = got
+            require(bool((acc[-1] == 0).all() and (l[-1] == 0).all() and (m[-1] <= -1e29).all()),
+                    f"{counter.__name__} {shape}: the parked lane's state is not empty")
+            errs = [norm_err(x[:-1], y[:-1]) for x, y in zip(got, ref)]
+            rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+            require(rel <= TOL, f"{counter.__name__} {shape}: error {rel:.3e} > {TOL}")
+            vis = sum(p + i + 1 for p in live_pos for i in range(t))
+            n_bytes = (q.numel() * q.element_size()
+                       + 2 * kh * row_bytes * sum(p + t for p in live_pos)
+                       + h * b * t * (hd + 2) * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis, peak)
+            row = dict(name=counter.__name__, shape=shape, err=rel, max_abs_err=absd,
+                       bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
+            if timed:
+                row["ms"] = time_ms(lambda: flash_attention_stats(q, k, v, q_pos0), device)
+                row["plain_ms"] = time_ms(lambda: flash_attention_stats_ref(q, k, v, q_pos0),
+                                          device, 5)
+                lib = library(q, q_pos0[:, None] + torch.arange(t, device=device)[None, :])
+                row["library_ms"] = None if kv8 else time_ms(lib, device)
+                if kv8:
+                    row["composite_ms"] = time_ms(lib, device)
+            rows.append(row)
+            del q, got, ident, ref
+        del k, v, ki, vi
+    return rows
+
+
 def random_kv8(shape, device, gen):
     """A random int8 cache leaf: normal rows quantized as the engine writes
     them (`quantize_kv_rows`: int8 values, one f32 scale a row)."""
@@ -1862,7 +1999,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     h = engine.header
     t0 = time.perf_counter()
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
-                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
     g = engine.graphs
     rehearsal = dict(graphs=g.n_graphs, lanes=g.count("lane_prefill_paged")
                      + g.count("lane_block_paged"), capture_s=g.capture_s,
@@ -1974,6 +2111,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
                 print(f"  host {ms:8.4f} ms/step {count:5d}x {kname[:80]}")
     out = {f"llama-8b q40{kv_tag} serving": counts}
     if not kv_dtype:
+        out["llama-8b q40 serving slab"] = serving_slab(engine, tok, results, agg, smi)
         off = dict(results=results, lane_tok_s=agg, decode_s=conc_decode["s"],
                    tokens=conc_decode["tokens"])
         out["llama-8b q40 serving spec"] = serving_spec(engine, tok, off, lane_step_ms)
@@ -2001,6 +2139,338 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
         require(sp["equal"], f"spec parity: verify grid {sp['grid']} != stepwise {sp['want']}")
         require(sp["err"] <= TOL_E2E, f"spec parity: logits err {sp['err']:.3e} > {TOL_E2E}")
     return out
+
+
+SLAB_POISON = "dispatch:op=decode_lanes:nth=3:kind=poison"  # the slab round's decode poison
+ADOPT_PAGES = 64  # pages of the timed bucketed adopt (one bucket: 1,024 rows)
+
+
+def _timed_mix(url: str, sched, engine, payloads: list[dict], **kw):
+    """The mix through `_concurrent` with every decode block timed (its
+    readback waits for the card): (results, wall seconds, lane tok/s)."""
+    timer = {"s": 0.0, "tokens": 0}
+    inner = engine.decode_lanes
+
+    def timed(tokens, pos, n_steps, active, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            rows = inner(tokens, pos, n_steps, active, *args, **kwargs)
+        finally:
+            timer["s"] += time.perf_counter() - t
+        timer["tokens"] += len(rows) * sum(map(bool, active))
+        return rows
+
+    engine.decode_lanes = timed
+    try:
+        results, wall = _concurrent(url, sched, payloads, **kw)
+    finally:
+        engine.decode_lanes = inner
+    return results, wall, timer["tokens"] / timer["s"] if timer["s"] else 0.0
+
+
+def _parts(results: list[dict], truth: list[dict]) -> list[str]:
+    """Where each answer parts from its truth (text or tokens); a failed
+    request (an ``error`` result) is left out."""
+    out = []
+    for i, (r, want) in enumerate(zip(results, truth)):
+        if "error" in r:
+            continue
+        if r["content"] != want["content"] or r["tokens"] != want["tokens"]:
+            at = next((j for j, (x, y) in enumerate(zip(r["tokens"], want["tokens"])) if x != y),
+                      min(len(r["tokens"]), len(want["tokens"])))
+            out.append(f"r{i} at token {at} of {len(want['tokens'])}")
+    return out
+
+
+def serving_slab(engine, tok, native: list[dict], native_tok_s: float, smi: str) -> dict:
+    """The slab round of the serving phase (the JAX server's default lanes,
+    ``kv_native=False``): a `serve` over the serving engine with slab lanes
+    and a page pool of `PAGE`-row pages (the engine frees its native pool,
+    allocates the lanes' slab of 4 x (4096 + `SLAB_PAD`) rows and the
+    default slab-mode pool, 2 * 4096 / 16 + 1 pages; the rehearsal captures
+    every lane-prefill bucket for every lane and both blocks). The seven
+    requests, four at once, then each alone. Gates: each answer equals its
+    solo replay and the native round's answer (``native``) for the same
+    request, text and tokens, byte for byte (the slab and paged entries give
+    the same bits for the same rows; the adopt and publish copies move rows
+    exactly); >= 2 radix hits, a whole-page and a mid-page adoption
+    (``kv.match`` lengths), adopt and publish copies both > 0 pages; the
+    slab decode kernel launched n_layers times a decode step, the stats
+    kernel > 0 and no paged kernel. Prints the lane tok/s of the slab mix
+    against the native one in turns (native, slab, slab, native; not
+    gated), a 4-lane slab step's device profile with the slab decode's
+    launches a step, and one bucketed adopt of `ADOPT_PAGES` pages timed by
+    CUDA events, its GB/s (each row read and written once) against 3.35
+    TB/s. Then the decode poison `SLAB_POISON`: the pool's epoch must not
+    move and ``cache_epoch`` must; the lanes recover by re-adopting their
+    published prefixes (re-matched tokens > 0); every stream finishes with
+    stop or length; where a bf16 answer parts from the slab mix's is
+    printed (re-made rows come from the prefill kernels). Returns the
+    launch counts of the gated mix and its replays."""
+    import threading
+
+    import torch
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.faults import set_fault_plane
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    h = engine.header
+    t0 = time.perf_counter()
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=False)
+    g = engine.graphs
+    n_lane_graphs = g.count("lane_prefill") + g.count("lane_block")
+    setup_s = time.perf_counter() - t0
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
+    matched: list = []
+    match = kv.match
+
+    def tracked_match(lane, tokens):
+        m, pages = match(lane, tokens)
+        matched.append(m)
+        return m, pages
+
+    kv.match = tracked_match
+    generated = _track_generated(sched)
+    payloads = serving_payloads(tok)
+    try:
+        reset_launch_counts()
+        engine.lane_decode_steps = 0
+        a0, p0 = engine.kv_adopt_pages, engine.kv_publish_pages
+        results, _, slab_tok_s = _timed_mix(url, sched, engine, payloads)
+        solo = [_request(url, p) for p in payloads]
+        counts, steps = launch_counts(), engine.lane_decode_steps
+        adopted, published = engine.kv_adopt_pages - a0, engine.kv_publish_pages - p0
+        for r in results + solo:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+        kv.reset()  # the turn's mix starts on an empty tree, as each native one does
+        _, _, slab_tok_s2 = _timed_mix(url, sched, engine, payloads)
+        # the decode poison: the lanes' slab is zeroed, the pool is not
+        pool_epoch, cache_epoch = engine.kv_pool_epoch, engine.cache_epoch
+        c0 = {k: getattr(sched, k) for k in ("lanes_recovered", "resume_reused_tokens",
+                                             "resume_prefill_tokens")}
+        plane = set_fault_plane(SLAB_POISON)
+        try:
+            poisoned, _, _ = _timed_mix(url, sched, engine, payloads)
+        finally:
+            fired = plane.counts()
+            set_fault_plane("")
+        deadline = time.perf_counter() + 30
+        while (any(sched.lanes) or sched.admitting or sched.pending) and (
+                time.perf_counter() < deadline):
+            time.sleep(0.01)
+        for r in poisoned:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+        d = {k: getattr(sched, k) - v for k, v in c0.items()}
+        epochs = (engine.kv_pool_epoch - pool_epoch, engine.cache_epoch - cache_epoch)
+        kv.check()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"== llama-8b q40 serving slab: {h.n_layers} layers, {SERVE_LANES} slab lanes of "
+          f"{h.seq_len} + {engine._lane_pad} rows ({nbytes(engine.lane_cache) / 1e9:.3f} GB), "
+          f"pool {kv.pool.n_pages} pages of {PAGE} rows ({nbytes(engine.kv_pool) / 1e9:.3f} GB); "
+          f"set-up with the rehearsal {setup_s:.2f} s, {n_lane_graphs} lane graphs; {smi}")
+    for i, (r, s_, n_) in enumerate(zip(results, solo, native)):
+        same = r["content"] == s_["content"] and r["tokens"] == s_["tokens"]
+        same_native = r["content"] == n_["content"] and r["tokens"] == n_["tokens"]
+        print(f"serve slab r{i}: lane {r['meta']['lane']} reused "
+              f"{r['meta']['reused_prefix_tokens']} finish {r['finish']} tokens "
+              f"{len(r['tokens'])} ttft_ms {r['meta']['ttft_ms']}; equals solo {same}, equals "
+              f"the native round's {same_native}")
+        require(r["finish"] in ("stop", "length"), f"serving slab r{i}: finish {r['finish']}")
+        require(same, f"serving slab r{i}: the concurrent answer differs from its solo replay")
+        require(same_native, f"serving slab r{i}: the answer differs from the native round's")
+    whole = [m for m in matched if m > 0 and m % PAGE == 0]
+    mid = [m for m in matched if m % PAGE]
+    print(f"serve slab copies: adopt {adopted} pages, publish {published} pages; matches "
+          f"{sorted(set(matched))} (whole-page {len(whole)}, mid-page {len(mid)}); radix hits "
+          f"{kv.hits}, COW forks {kv.pool.stats().cow_forks}; launches {json.dumps(counts)}; "
+          f"decode steps {steps}")
+    require(kv.hits >= 2, f"serving slab: {kv.hits} radix hits, wanted >= 2")
+    require(whole and mid, f"serving slab: matches {matched}: wanted a whole-page and a "
+            "mid-page adoption")
+    require(adopted > 0 and published > 0,
+            f"serving slab: adopt {adopted} and publish {published} pages, wanted both > 0")
+    require(n_lane_graphs == SERVE_LANES * len(engine.prefill_buckets) + 2,
+            f"serving slab: the rehearsal captured {n_lane_graphs} lane graphs")
+    require(counts["flash_decode"] == h.n_layers * steps and steps > 0,
+            f"serving slab: {counts['flash_decode']} flash_decode launches, the steps imply "
+            f"{h.n_layers * steps}")
+    other = [n for n, c in counts.items() if c and "flash" in n
+             and n not in ("flash_decode", "flash_attention_stats")]
+    require(counts["flash_attention_stats"] > 0 and not other,
+            f"serving slab: attention launches {counts}, wanted the slab entries only")
+    parts = _parts(poisoned, results)
+    print(f"serve slab decode poison {SLAB_POISON}: faults fired {json.dumps(fired)}; epochs "
+          f"moved: pool {epochs[0]}, cache {epochs[1]}; {json.dumps(d)}; every stream finished "
+          f"{all(r['finish'] in ('stop', 'length') for r in poisoned)}; answers equal to the "
+          f"slab mix's {not parts}{'' if not parts else ' (parts: ' + ', '.join(parts) + ')'}")
+    require(epochs == (0, 1), f"serving slab poison: epochs moved {epochs}, wanted (0, 1)")
+    require(d["lanes_recovered"] >= 1 and d["resume_reused_tokens"] > 0,
+            f"serving slab poison: {d}: wanted a recovery that re-adopted published prefixes")
+    require(all(r["finish"] in ("stop", "length") for r in poisoned),
+            "serving slab poison: a stream did not finish")
+
+    lanes = lane_profile(engine, PROMPT_TOKENS)
+    reset_launch_counts()
+    engine.decode_lanes([1] * SERVE_LANES, [PROMPT_TOKENS] * SERVE_LANES, BLOCK,
+                        [True] * SERVE_LANES, [0.0] * SERVE_LANES)
+    per_step = launch_counts()["flash_decode"] / BLOCK
+    for side, name in ((True, "graphed"), (False, "eager")):
+        host_ms, prof = statistics.median(lanes["host"][side]), lanes["prof"][side]
+        print(f"lane decode profile slab {name}, {SERVE_LANES} lanes at pos {PROMPT_TOKENS}: host "
+              f"ms/step {_ms(lanes['host'][side])}, device kernel ms/step "
+              f"{prof['device_ms_per_token']:.3f}, device launches/step "
+              f"{prof['launches_per_token']:.0f}, flash_decode launches/step {per_step:.0f}, "
+              f"device busy share {prof['device_ms_per_token'] / host_ms:.3f}; from "
+              f"{prof['source']}; {smi}")
+        for kname, ms, count in prof["top"][:6]:
+            print(f"  {ms:8.4f} ms/step {count:5d}x {kname[:90]}")
+    require(per_step == h.n_layers, f"serving slab: {per_step} flash_decode launches a step")
+
+    ids = list(range(1, 1 + ADOPT_PAGES))
+    engine.kv_adopt(0, ids)  # warm
+    ms = []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        engine.kv_adopt(0, ids)
+        e1.record()
+        torch.cuda.synchronize(engine.device)
+        ms.append(e0.elapsed_time(e1))
+    moved = ADOPT_PAGES * engine.kv_page_bytes()
+    adopt_ms = statistics.median(ms)
+    print(f"serve slab adopt: {ADOPT_PAGES} pages ({moved / 1e6:.1f} MB, one bucket) in "
+          f"{adopt_ms:.4f} ms (median of 5, CUDA events): {2 * moved / adopt_ms / 1e6:.1f} GB/s "
+          f"read + write, {2 * moved / adopt_ms * 1e3 / HBM_BYTES_PER_S:.4f} of 3.35 TB/s; "
+          f"bound {2 * moved / HBM_BYTES_PER_S * 1e3:.4f} ms; {smi}")
+
+    # the native mix once more, for the turns
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        _, _, native_tok_s2 = _timed_mix(f"http://127.0.0.1:{srv.server_address[1]}",
+                                         srv.state.scheduler, engine, payloads)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    turns = [native_tok_s, slab_tok_s, slab_tok_s2, native_tok_s2]
+    print(f"serve slab vs native lane tok/s in turns (native, slab, slab, native): "
+          f"{', '.join(f'{x:.2f}' for x in turns)}; slab / native "
+          f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.4f}; {smi}")
+    return counts
+
+
+def serving_single(device: str, tmp: str, smi: str) -> dict:
+    """The serialized server (``--batch-size 1``, the JAX CLI's default),
+    bf16, on the serving file: a batch-1 engine and `serve` with no lanes.
+    (a) A chat of `SERVE_MAX_TOKENS` greedy tokens (`serving_payloads`'s
+    request 1): its token ids must equal `InferenceEngine.generate` on the
+    same prompt tokens from a reset cache. (b) Its continuation (the reply
+    and a new user turn) must hit the NaiveCache: its reused prefix equals
+    the first turn's end position (the cut's KV-only step included); then
+    the same conversation cold (after an unrelated request reset the
+    cache), then the chat and its continuation once more: every shape's
+    graph is captured by then, so these two give the steady TTFTs (the
+    continuation's warm against the cold one's, and whether the two answers
+    agree: not gated, cached rows came from the decode kernels, cold ones
+    from prefill's) and the chat's decode ms/token. (c) A streamed request:
+    its SSE text equals the same request's non-stream text. Gates: every
+    finish stop or length; both continuations reused the first turn's end
+    position; the slab decode and stats kernels launched, no paged kernel.
+    Returns the launch counts."""
+    import threading
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import ChatTemplateType, Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    t0 = time.perf_counter()
+    engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40", device=device)
+    tok = Tokenizer(tp)
+    load_s = time.perf_counter() - t0
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    state = srv.state
+    calls: list = []
+    generate = engine.generate
+
+    def tracked(prompt, max_steps, **kw):
+        out = generate(prompt, max_steps, **kw)
+        calls.append((list(prompt), max_steps, kw.get("start_pos", 0), list(out[0])))
+        return out
+
+    engine.generate = tracked
+    chat = dict(serving_payloads(tok)[1], stream=False)
+    try:
+        reset_launch_counts()
+        first = _request(url, chat)
+        prompt, max_steps, start, served = calls[-1]
+        end_pos = state.naive_cache.items[-1].end_pos
+        follow = dict(chat, messages=chat["messages"] + [
+            {"role": "assistant", "content": first["content"]},
+            {"role": "user", "content": "Go on, in two lines."}])
+        warm = _request(url, follow)
+        _request(url, dict(chat, messages=[{"role": "user", "content": "Unrelated: hello."}],
+                           max_tokens=4))
+        cold = _request(url, follow)
+        again = _request(url, chat)
+        warm2 = _request(url, follow)
+        plain = _request(url, serving_payloads(tok)[3] | {"stream": False})
+        streamed = _request(url, serving_payloads(tok)[3])
+        counts = launch_counts()
+    finally:
+        engine.generate = generate
+        srv.shutdown()
+        srv.server_close()
+    engine.reset()
+    want = generate(prompt, max_steps, start_pos=start)[0]
+    print(f"== llama-8b q40 serving single: batch 1, {engine.header.n_layers} layers, the "
+          f"serialized path; engine loaded in {load_s:.2f} s; {smi}")
+    for name, r in (("chat", first), ("continuation", warm), ("continuation cold", cold),
+                    ("chat again", again), ("continuation again", warm2), ("plain", plain),
+                    ("streamed", streamed)):
+        print(f"serve single {name}: finish {r['finish']} reused "
+              f"{r['meta']['reused_prefix_tokens']} ttft_ms {r['meta']['ttft_ms']} wall_s "
+              f"{r['wall']:.3f}")
+        require(r["finish"] in ("stop", "length"), f"serving single {name}: {r['finish']}")
+    n_dec = len(served)
+    dec_ms = (again["wall"] * 1e3 - again["meta"]["ttft_ms"]) / max(n_dec - 1, 1)
+    print(f"serve single chat again (graphs replayed): ttft_ms {again['meta']['ttft_ms']} over "
+          f"{len(prompt)} prompt tokens, decode_ms_per_token {dec_ms:.3f} over {n_dec} tokens "
+          f"(client wall after the first token; the cut's KV-only step included; the first "
+          f"chat's {first['meta']['ttft_ms']} ms TTFT paid its shapes' captures); {smi}")
+    print(f"serve single chat: {n_dec} tokens equal engine.generate's on the same "
+          f"{len(prompt)} prompt tokens {want[:n_dec] == served}; continuation reused "
+          f"{warm2['meta']['reused_prefix_tokens']} of end position {end_pos}, ttft_ms "
+          f"{warm2['meta']['ttft_ms']} against {cold['meta']['ttft_ms']} cold (answers equal "
+          f"{warm2['content'] == cold['content']}); streamed text equals the non-stream text "
+          f"{streamed['content'] == plain['content']}; launches {json.dumps(counts)}")
+    require(n_dec > 0 and want[:n_dec] == served,
+            f"serving single: the {n_dec} served tokens differ from engine.generate's")
+    for r in (warm, warm2):
+        require(r["meta"]["reused_prefix_tokens"] == end_pos > 0,
+                f"serving single: a continuation reused {r['meta']['reused_prefix_tokens']} "
+                f"tokens, the first turn ended at {end_pos}")
+    require(cold["meta"]["reused_prefix_tokens"] == 0, "serving single: the cold turn hit")
+    require(streamed["content"] == plain["content"],
+            "serving single: the streamed text differs from the non-stream text")
+    other = [n for n, c in counts.items() if c and "flash" in n
+             and n not in ("flash_decode", "flash_attention_stats")]
+    require(counts["flash_decode"] > 0 and counts["flash_attention_stats"] > 0 and not other,
+            f"serving single: attention launches {counts}")
+    engine.params = engine.cache = None
+    return {"llama-8b q40 serving single": counts}
 
 
 OBS_PROFILE_S = 1.0  # seconds of the profile capture during the observability round's mix
@@ -2150,7 +2620,7 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     engine.__dict__.pop("decode_lanes", None)
     h = engine.header
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
-                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
@@ -2344,7 +2814,7 @@ def _admission_server(engine, tok):
     from dllama_tpu_torch.tokenizer import ChatTemplateType
 
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
-                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE,
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True,
                 admission_predict=True)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
@@ -2746,7 +3216,7 @@ def serving_spec(engine, tok, off: dict, lane_step_ms: float | None) -> dict:
     h, b = engine.header, engine.batch_size
     t0 = time.perf_counter()
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
-                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE,
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True,
                 speculation="shared", spec_k=SPEC_K)
     g = engine.graphs
     rehearsal = dict(verify=g.count("lane_verify_paged"), graphs=g.n_graphs,
@@ -3014,7 +3484,7 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
 
     h = engine.header
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
-                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE)
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state, sched, kv, g = srv.state, srv.state.scheduler, srv.state.kv_manager, engine.graphs
@@ -3138,16 +3608,11 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
                     r["tokens"] = generated[r["meta"]["request_id"]]
             truth_name = truth_name or ("the spec-off round's" if truth else "round 0's")
             truth = truth or results
-            parts = []
-            for i, (r, want) in enumerate(zip(results, truth)):
-                if "error" in r:
-                    continue
-                require(r["finish"] in ("stop", "length"),
-                        f"resilience {key} r{i}: finish {r['finish']}")
-                if r["content"] != want["content"] or r["tokens"] != want["tokens"]:
-                    at = next((j for j, (x, y) in enumerate(zip(r["tokens"], want["tokens"]))
-                               if x != y), min(len(r["tokens"]), len(want["tokens"])))
-                    parts.append(f"r{i} at token {at} of {len(want['tokens'])}")
+            for i, r in enumerate(results):
+                if "error" not in r:
+                    require(r["finish"] in ("stop", "length"),
+                            f"resilience {key} r{i}: finish {r['finish']}")
+            parts = _parts(results, truth)
             gaps = [b - a for ts in times.values() for a, b in zip(ts, ts[1:])]
             tok_s = timer["tokens"] / timer["s"] if timer["s"] else 0.0
             base = base or dict(tok_s=tok_s, gap=max(gaps, default=0.0))
@@ -3273,7 +3738,7 @@ def spec_parity(engine, prompt: list[int]) -> dict:
     e.graphs = StepGraphs(engine.device, engine.cuda_graphs)
     e.kv_pool = None
     b, n = e.batch_size, 5
-    e.init_kv_pool(PAGE, 1 + b * -(-e.header.seq_len // PAGE))
+    e.init_kv_pool(PAGE, 1 + b * -(-e.header.seq_len // PAGE), native=True)
     nb, dev = e._kv_n_blocks, e.device
     prompts = [prompt[: len(prompt) - 37 * lane] for lane in range(b)]
     for lane, p in enumerate(prompts):
@@ -3331,15 +3796,17 @@ def decode_profile(engine, token: int, pos: int, n_steps: int = BLOCK) -> dict:
 
 
 def lane_profile(engine, pos: int, n_steps: int = BLOCK) -> dict:
-    """One greedy decode block of every lane at ``pos`` (each lane on private
-    pages; the KV rows below pos are whatever the pool holds, which costs
-    the same time): host ms a step of `HOST_RUNS` runs a side, graphed and
-    eager in turns, unprofiled (``host``), and `profile_both` (``prof``)."""
+    """One greedy decode block of every lane at ``pos`` (pool-native: each
+    lane on private pages; slab: its slab rows; the KV rows below pos are
+    whatever they hold, which costs the same time): host ms a step of
+    `HOST_RUNS` runs a side, graphed and eager in turns, unprofiled
+    (``host``), and `profile_both` (``prof``)."""
     import torch
 
     b, nb = engine.batch_size, engine._kv_n_blocks
-    for lane in range(b):
-        engine.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
+    if engine.kv_native:  # slab lanes decode on their slab rows
+        for lane in range(b):
+            engine.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
 
     def run():
         engine.decode_lanes([1] * b, [pos] * b, n_steps, [True] * b, [0.0] * b)
@@ -3576,7 +4043,7 @@ def main() -> int:
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
             + check_paged_decode(device, gen) + check_verify_stats(device, gen)
-            + check_kv8(device, gen) + check_moe(device, gen))
+            + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -3629,6 +4096,11 @@ def main() -> int:
                     print(f"serving phase{tag}: {time.perf_counter() - t0:.1f} s")
                     gc.collect()
                     torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                counts.update(serving_single("cuda", tmp, smi))
+                print(f"serving single phase: {time.perf_counter() - t0:.1f} s")
+                gc.collect()
+                torch.cuda.empty_cache()
     for label in streams:
         model, fmt = label.split(" ", 1)
         if fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams:

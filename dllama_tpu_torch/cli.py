@@ -50,13 +50,19 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=int(time.time()))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--batch-size", type=int, default=1, dest="batch_size",
-                   help="lanes: concurrent streams decoded together (the server needs > 1)")
+                   help="lanes: concurrent streams decoded together (the server's default 1 "
+                   "serves one request at a time, with its NaiveCache)")
     p.add_argument("--kv-page-size", type=int, default=None,
-                   help="rows a KV pool page holds (default 16)")
+                   help="rows a KV pool page holds (default: $DLLAMA_KV_PAGE_SIZE, else 16); "
+                   "negative: lanes with no pool (no prefix reuse)")
     p.add_argument("--kv-pool-pages", type=int, default=None,
-                   help="pool pages (default: (batch-size + 2) sequences + the scratch page)")
-    p.add_argument("--kv-native", type=int, default=1, choices=[1],
-                   help="pool-native lanes (the only mode ported)")
+                   help="pool pages (default: $DLLAMA_KV_POOL_PAGES, else two sequences' worth, "
+                   "2 * seq_len / page size + 1, for slab lanes and (batch-size + 2) sequences "
+                   "+ the scratch page for pool-native lanes)")
+    p.add_argument("--kv-native", type=int, default=None, choices=[0, 1], metavar="0|1",
+                   help="1: pool-native lanes (KV in the pool through a page table; adoption "
+                   "moves no bytes); 0: slab lanes (adopt and publish by copies) (default: "
+                   "$DLLAMA_KV_NATIVE, else 0)")
     p.add_argument("--lane-block-size", "--lane-block", type=int, default=None,
                    dest="lane_block_size", help="decode steps a lane block runs (default 8)")
     p.add_argument("--admission-chunk", type=int, default=None,

@@ -1,33 +1,40 @@
 """PagedKVManager: glue between the page pool / radix tree and the engine.
 
-The port's copy of dllama_tpu/kv/manager.py in pool-native mode, the only
-mode the port has (the slab mode's adopt/publish copies wait for ROADMAP
-A.7). The pool is the lanes' only KV home:
+The port's copy of dllama_tpu/kv/manager.py, in its two modes
+(``native``). In slab mode (the default, as in the JAX package) each lane's
+KV lives in the engine's lanes' slab and the pool stores shared prefixes by
+copies; in native mode the pool is the lanes' only KV home:
 
 - ``match``   — at admission, find the longest stored token prefix of the
   request's (fully retokenized) conversation and the pages covering it,
   retaining them for the lane on the spot (the scheduler adopts a tick
   later; unpinned pages could be evicted and reallocated in that gap);
-- ``adopt``   — build the lane's page list: the shared prefix pages as
-  they are, a copy-on-write fork of a mid-page boundary (the only device
-  copy), fresh private pages for everything the lane will write; then
-  point the engine's page table at it. A full-page prefix moves zero
-  device bytes;
-- ``publish`` — at finish, hand the whole pages of the lane's fed tokens
-  to the radix tree (an ownership transfer: the lane already wrote them),
+- ``adopt``   — slab: copy the matched pages into the lane's slab rows
+  (`InferenceEngine.kv_adopt`). Native: build the lane's page list, the
+  shared prefix pages as they are, a copy-on-write fork of a mid-page
+  boundary (the only device copy), fresh private pages for everything the
+  lane will write; then point the engine's page table at it. A full-page
+  prefix moves zero device bytes;
+- ``publish`` — at finish, store the whole pages of the lane's fed tokens,
   deduplicated against the tree so a prefix two streams share is stored
-  once;
+  once. Slab: fresh pages (a copy-on-write fork where the stored prefix
+  diverged mid-page), the matched prefix pinned across the eviction that
+  makes room, then the lane's rows copied in (`InferenceEngine.kv_publish`);
+  a publish that poisoned the pool (its epoch moved) resets the
+  accounting, a transient failure releases only that publish's pages.
+  Native: an ownership transfer, the lane already wrote them;
 - ``release_lane`` / ``release_all_lanes`` — refcount hygiene and the
-  error path; ``reset`` — the recovery path's big hammer: every page and
-  stored prefix dropped (after a failed dispatch the pool's bytes are not
-  trusted);
+  error path (a slab lane has no page-table row to clear); ``reset`` —
+  the recovery path's big hammer: every page and stored prefix dropped
+  (after a failed dispatch the pool's bytes are not trusted);
 - ``anchor_for`` — the radix anchor of a lane's last match, the key the
   shared n-gram drafter groups sibling streams by (runtime/spec.py).
 
 The chaos plane's draws are the JAX manager's (runtime/faults.py):
 ``kv_alloc`` (``op=adopt``) before an adopt allocates, raised to the
-scheduler, which retries it; ``dispatch`` (``op=kv_publish``) on entry to a
-publish and ``kv_alloc`` (``op=publish``) where it would take the tree's
+scheduler, which retries it (native mode); ``dispatch`` (``op=kv_publish``)
+on entry to a native publish (the engine draws it in ``kv_publish`` for a
+slab one) and ``kv_alloc`` (``op=publish``) where a publish would take its
 pages, each absorbed: the stream already finished, only future reuse is
 lost.
 
@@ -55,7 +62,7 @@ from typing import Any
 from ..obs.metrics import get_registry
 from ..obs.recorder import get_recorder
 from ..obs.spans import get_span_tracker
-from ..runtime.faults import get_fault_plane
+from ..runtime.faults import InjectedFault, get_fault_plane
 from .pool import PagePool
 from .radix import RadixTree
 
@@ -66,10 +73,11 @@ DEFAULT_PAGE_SIZE = 16
 
 class PagedKVManager:
     def __init__(self, engine: Any, page_size: int = 0, n_pages: int = 0,
-                 evict_counter: Any = None) -> None:
+                 evict_counter: Any = None, native: bool = False) -> None:
         self.engine = engine
         self.page_size = page_size or DEFAULT_PAGE_SIZE
-        n = engine.init_kv_pool(self.page_size, n_pages, native=True)
+        self.native = bool(native)
+        n = engine.init_kv_pool(self.page_size, n_pages, native=self.native)
         self.recorder = get_recorder()
         # component="kv" spans over the host-side accounting (the engine's
         # COW page copy records its own span)
@@ -112,7 +120,7 @@ class PagedKVManager:
         self.c_evictions = obs.counter(
             "dllama_radix_evictions_total",
             "Pages LRU-evicted from radix-tree leaves to make room for a "
-            "lane's pages.",
+            "lane's pages (native) or a publish (slab).",
         )
         self.c_shared_tokens = obs.counter(
             "dllama_shared_prefix_tokens_total",
@@ -121,8 +129,9 @@ class PagedKVManager:
         )
         self.c_cow = obs.counter(
             "dllama_kv_cow_forks_total",
-            "Copy-on-write page forks: an adoption matched a stored prefix "
-            "mid-page and took a private copy of that page slot.",
+            "Copy-on-write page forks: an adoption (native) or a publish "
+            "(slab) diverged mid-page from a stored prefix and took a "
+            "private copy of that page slot.",
         )
         self.g_total.set(n - 1)
         self._update_gauges_locked()
@@ -176,10 +185,18 @@ class PagedKVManager:
             return m, pages
 
     def adopt(self, lane: int, pages: list[int]) -> None:
-        """Build ``lane``'s full page list from the matched ``pages``
-        (already retained by `match`) and install it in the engine's page
-        table: a mid-page boundary page is forked (one device page copy),
-        the rest of the lane's rows get fresh private pages."""
+        """Slab mode: copy ``pages`` (already retained by `match`) into
+        ``lane``'s slab rows (nothing for an empty match). Native mode:
+        build the lane's full page list from them and install it in the
+        engine's page table: a mid-page boundary page is forked (one device
+        page copy), the rest of the lane's rows get fresh private pages."""
+        if not self.native:
+            if pages:
+                self.engine.kv_adopt(lane, pages)
+            return
+        self._adopt_native(lane, pages)
+
+    def _adopt_native(self, lane: int, pages: list[int]) -> None:
         ps = self.page_size
         n_blocks = self.engine._kv_n_blocks
         with self.spans.span(
@@ -212,10 +229,18 @@ class PagedKVManager:
             self._update_gauges_locked()
 
     def _alloc_lane_pages(self, n: int, lane: int, fork_src: int | None = None) -> list[int]:
-        """``n`` private pages for a lane (or the fork of ``fork_src``),
-        LRU-evicting refcount-1 tree leaves under pressure; raises
-        MemoryError when the pool cannot hold them (admission cannot go on
-        without somewhere to write). Called under ``lock``."""
+        """``n`` private pages for a native lane (or the fork of
+        ``fork_src``), LRU-evicting refcount-1 tree leaves under pressure;
+        raises MemoryError when the pool cannot hold them (admission cannot
+        go on without somewhere to write). Called under ``lock``."""
+        self._evict_for(n, lane)
+        if fork_src is not None:
+            return [self.pool.fork(fork_src)]
+        return self.pool.alloc(n)
+
+    def _evict_for(self, n: int, lane: int) -> None:
+        """LRU-evict refcount-1 tree leaves until ``n`` pages are free (or
+        none is left to evict). Called under ``lock``."""
         short = n - self.pool.free_pages
         if short > 0:
             freed = self.tree.evict(short, self.pool)
@@ -225,9 +250,6 @@ class PagedKVManager:
                 self._evict_counter.inc(freed)
             if freed:
                 self.recorder.record("kv_evict", n_pages=freed, lane=lane)
-        if fork_src is not None:
-            return [self.pool.fork(fork_src)]
-        return self.pool.alloc(n)
 
     def anchor_for(self, lane: int) -> tuple[int, int] | None:
         """(radix node_id, matched token count) of ``lane``'s last `match`,
@@ -243,18 +265,20 @@ class PagedKVManager:
             self._lane_anchor.pop(lane, None)
             if pages:
                 self.pool.release(pages)
-            self.engine.clear_lane_pages(lane)
+            if self.native:
+                self.engine.clear_lane_pages(lane)
             self._update_gauges_locked()
 
     # -- finish ------------------------------------------------------------
     def publish(self, lane: int, tokens: list[int]) -> int:
         """Store ``lane``'s fed ``tokens`` (KV rows [0, len(tokens)) live in
-        its pages) as whole pages: the tree takes its own reference on the
-        lane's pages for the slots it does not hold yet, and inserts the
-        token path. Returns the number of pages newly stored (0: full
-        dedup, no whole page to store, or an injected fault: the publish
-        narrows itself, releasing the tree's new references, and nothing
-        fails)."""
+        its slab rows or its pages) as whole pages, for the slots the tree
+        does not hold yet: copied into fresh pages (slab), or the lane's
+        own pages with a reference for the tree (native); then the token
+        path goes into the tree. Returns the number of pages newly stored
+        (0: full dedup, no whole page to store, a full pool, or a failure:
+        the publish narrows itself, releasing its new pages or references,
+        and nothing fails)."""
         with self.spans.span(
             "kv_publish_host", component="kv", lane=lane,
             n_tokens=len(tokens),
@@ -262,6 +286,8 @@ class PagedKVManager:
             return self._publish(lane, tokens)
 
     def _publish(self, lane: int, tokens: list[int]) -> int:
+        if not self.native:
+            return self._publish_slab(lane, tokens)
         ps = self.page_size
         n_full = len(tokens) // ps
         if n_full == 0:
@@ -309,6 +335,91 @@ class PagedKVManager:
             self._update_gauges_locked()
         return n_new
 
+    def _publish_slab(self, lane: int, tokens: list[int]) -> int:
+        """The JAX manager's slab publish: pin the matched prefix across the
+        eviction that makes room (under pressure its own leaf may be the
+        refcount-1 victim), allocate the new slots (a fork where the stored
+        prefix diverged mid-page), copy the lane's rows in, insert."""
+        ps = self.page_size
+        n_full = len(tokens) // ps
+        if n_full == 0:
+            return 0
+        full = list(tokens[: n_full * ps])
+        with self.lock:
+            mr = self.tree.match(full)
+            k_shared = min(mr.n_tokens // ps, n_full)
+            n_new = n_full - k_shared
+            if n_new == 0:
+                return 0
+            self.pool.retain(mr.pages)
+            try:
+                self._evict_for(n_new, lane)
+                if n_new > self.pool.free_pages:
+                    # the pool is full of retained and live pages: skip (the
+                    # stream already served; only future reuse is lost)
+                    self.publish_skips += 1
+                    self.recorder.record("kv_publish_skipped", lane=lane, want=n_new,
+                                         free=self.pool.free_pages)
+                    return 0
+                diverged = mr.n_tokens > k_shared * ps and len(mr.pages) > k_shared
+                pages = self._alloc_publish_pages(mr.pages[k_shared] if diverged else None,
+                                                  n_new, lane)
+            finally:
+                self.pool.release(mr.pages)
+            if pages is None:
+                return 0
+        pool_epoch0 = self.engine.kv_pool_epoch
+        try:
+            self.engine.kv_publish(lane, pages, start_page=k_shared)
+        except Exception:
+            if self.engine.kv_pool_epoch != pool_epoch0:
+                # the copy failed inside the pool's guard, which zeroed the
+                # pool: every stored page is gone with it
+                logger.exception("kv_publish poisoned the pool; resetting")
+                self.reset(reset_device=False)
+            else:
+                # failed before the pool was touched: only this publish's
+                # fresh pages are suspect
+                logger.exception("kv_publish failed; dropping this publish's pages")
+                with self.lock:
+                    self.pool.release(pages)
+                    self._update_gauges_locked()
+            self.publish_skips += 1
+            return 0
+        with self.lock:
+            try:
+                self.tree.insert(full, pages, first_slot=k_shared)
+            except ValueError:
+                logger.exception("kv radix insert rejected; publish dropped")
+                self.pool.release(pages)
+                self._update_gauges_locked()
+                return 0
+            self._update_gauges_locked()
+        return n_new
+
+    def _alloc_publish_pages(self, fork_page: int | None, n_new: int,
+                             lane: int) -> list[int] | None:
+        """``n_new`` pages for a slab publish, the first a copy-on-write
+        fork of ``fork_page`` when the stored prefix diverged mid-page; None
+        on a full pool or an injected ``kv_alloc`` fault (only future reuse
+        is lost). Called under ``lock``."""
+        try:
+            fault = get_fault_plane().draw("kv_alloc", op="publish")
+            if fault is not None:
+                raise fault
+            if fork_page is None:
+                return self.pool.alloc(n_new)
+            rest = self.pool.alloc(n_new - 1)
+            try:
+                return [self.pool.fork(fork_page)] + rest
+            except MemoryError:
+                self.pool.release(rest)
+                raise
+        except (MemoryError, InjectedFault) as e:
+            self.publish_skips += 1
+            self.recorder.record("kv_alloc_failed", lane=lane, want=n_new, error=str(e))
+            return None
+
     def note_hit(self, n_tokens: int) -> None:
         with self.lock:
             self.hits += 1
@@ -328,7 +439,8 @@ class PagedKVManager:
             self._lane_pages.clear()
             self._lane_match_tokens.clear()
             self._lane_anchor.clear()
-            self.engine.clear_all_lane_pages()
+            if self.native:
+                self.engine.clear_all_lane_pages()
             self._update_gauges_locked()
         if reset_device:
             self.engine.reset_kv_pool()
@@ -344,7 +456,8 @@ class PagedKVManager:
             self._lane_pages.clear()
             self._lane_match_tokens.clear()
             self._lane_anchor.clear()
-            self.engine.clear_all_lane_pages()
+            if self.native:
+                self.engine.clear_all_lane_pages()
             self._update_gauges_locked()
 
     def check(self) -> None:

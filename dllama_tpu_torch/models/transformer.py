@@ -35,13 +35,21 @@ of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
 
 ``pos`` is an int or a device tensor: ``[1]`` int32 on the slab path,
-``[B]`` int32 in paged mode. An int is bounds-checked on the host and then
-filled into a tensor, so both forms run the same device code and give the
-same bits; a tensor is not checked (a CUDA graph replays with whatever
-position its static buffer holds, so the engine checks before a replay).
-RoPE rows are gathered by index and the slab K/V rows written by
+``[B]`` int32 in paged mode and for slab lanes. An int is bounds-checked on
+the host and then filled into a tensor, so both forms run the same device
+code and give the same bits; a tensor is not checked (a CUDA graph replays
+with whatever position its static buffer holds, so the engine checks before
+a replay). RoPE rows are gathered by index and the slab K/V rows written by
 ``index_copy_`` along the row axis, so no position is baked into the
 launches.
+
+Slab lanes (``park`` given): the cache is the lanes' slab [L, B, KH, S +
+pad, hd] and ``pos`` is [B], a position a lane. Lane b's RoPE rows and its
+K/V rows are its own (pos[b] + i); a parked lane (pos < 0) writes its T rows
+into the padding rows ``park + i`` (``park`` = seq_len, the first padding
+row, as the JAX engine's ``_park``), which no live lane reads (every live
+row is < seq_len), and reads nothing at a position <= -T (-1 for a decode
+step). The slab attention entries take the per-lane positions as they are.
 
 Paged mode (``page_table`` given): the cache is the shared page pool,
 ``k``/``v`` [L, P, KH, ps, hd], and lane b's logical row r lives in pool
@@ -206,6 +214,22 @@ def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
     return posv, rows, page, prow
 
 
+def _lane_slab_rows(pos, b: int, t: int, park: int, device):
+    """Slab lanes: positions [B] int32, each chunk row's RoPE row and the
+    slab row it is written to ([B, T] each). A parked lane (pos < 0) writes
+    to the padding rows park .. park + T - 1; its RoPE rows are row 0's."""
+    if isinstance(pos, int):
+        if pos < 0 or pos + t > park:
+            raise ValueError(f"chunk [{pos}, {pos + t}) outside the lanes' {park} rows")
+        posv = torch.full((b,), pos, dtype=torch.int32, device=device)
+    else:
+        posv = pos.to(device=device, dtype=torch.int32).reshape(b)
+    step = torch.arange(t, device=device)[None, :]
+    rows = posv[:, None].long() + step
+    live = posv[:, None] >= 0
+    return posv, rows.clamp(min=0), torch.where(live, rows, park + step)
+
+
 def _slab_pos(pos, t: int, s: int, device) -> torch.Tensor:
     """The slab path's position as int32 [1] on ``device``; an int is
     bounds-checked first (a write past the cache would drop rows)."""
@@ -227,6 +251,7 @@ def forward(
     plain: bool = False,
     act_quant=quantize_acts,
     page_table: torch.Tensor | None = None,  # [B, n_blocks] int32: paged mode
+    park: int | None = None,  # slab lanes: the first padding row (seq_len)
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
     are written in place. Returns (logits [B, T or 1, V] f32, or None for
@@ -237,13 +262,17 @@ def forward(
     `quantize_acts`; a caller that holds one run to another can hand both
     the same int8 activations (chip_smoke.py's parity check).
 
-    With ``page_table`` the cache is the page pool (module docstring); the
-    caller keeps every live row inside the lane's page-table row (the card
-    does not check page-table indices)."""
+    With ``page_table`` the cache is the page pool, with ``park`` the
+    lanes' slab (module docstring); the caller keeps every live row inside
+    the lane's page-table row or below ``park`` (the card checks neither)."""
     b, t = tokens.shape
     paged = page_table is not None
+    lanes = park is not None
     if paged:
         posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
+    elif lanes:
+        posv, rows, wrows = _lane_slab_rows(pos, b, t, park, tokens.device)
+        lane_idx = torch.arange(b, device=tokens.device)[:, None]
     else:
         posv = _slab_pos(pos, t, cache["k"].shape[3], tokens.device)
         rows = posv.long() + torch.arange(t, device=tokens.device)  # [T] cache rows
@@ -267,10 +296,9 @@ def forward(
         return _mm(x, w, plain, act_quant)
 
     x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
-    if paged:  # [B, T, hd/2]: each lane at its own position
-        cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
-    else:  # [T, hd/2]
-        cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
+    # [B, T, hd/2] with each lane at its own position (paged, slab lanes),
+    # else [T, hd/2]
+    cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
     for l, lp in enumerate(params["layers"]):
         y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
         q = mm(y, lp["wq"]).reshape(b, t, hq, hd)
@@ -290,6 +318,13 @@ def forward(
             _append(k_cache, k, write)
             _append(v_cache, v, write)
             z = attend(q, k_cache, v_cache, page_table, posv)
+        elif lanes:
+            def write(dst, x):  # x [B, T, KH, hd or 1] rows at each lane's rows
+                dst[lane_idx, :, wrows] = x
+
+            _append(k_cache, k, write)
+            _append(v_cache, v, write)
+            z = attend(q, k_cache, v_cache, posv)
         else:
             def write(dst, x):  # x [B, KH, T, hd or 1]
                 dst.index_copy_(2, rows, x)

@@ -245,6 +245,12 @@ class StepCostModel:
         nbytes_ += h.n_layers * self.kv_row * (kv_read + kv_write)
         return flops, float(nbytes_)
 
+    def kv_copy(self, rows: int) -> tuple[float, float]:
+        """A copy of ``rows`` K/V rows of every layer between the lanes'
+        slab and the pool (`InferenceEngine.kv_adopt` / ``kv_publish``):
+        each row read once and written once, no operations."""
+        return 0.0, float(2 * self.h.n_layers * self.kv_row * rows)
+
 
 def extract_cost(acc) -> dict | None:
     """{flops, bytes_accessed} of one dispatch of a graph key: the mean

@@ -1,7 +1,8 @@
 """Device memory telemetry: what the card actually holds.
 
 `memory_report` is the ANALYTIC accounting: the bytes the engine allocates
-on purpose (its parameters, the slab cache, the lanes' page pool with an
+on purpose (its parameters, the slab caches (the single stream's and the
+slab lanes'), the lanes' page pool with an
 int8 pool's scales, the graphs' static buffers and private pool). This
 module reads the caching allocator's own ledger through
 ``torch.cuda.memory_stats`` so creeping allocations (a leaked buffer, a
@@ -175,15 +176,17 @@ class MemoryReport:
 
 def memory_report(engine) -> MemoryReport:
     """The analytic side of ``compare_with_analytic`` for ``engine``: its
-    params, its slab cache, its lanes' pool (an int8 cache's scales
-    included) and its graphs (the static input/output buffers and the
-    private pool the captured graphs hold, `StepGraphs.pool_bytes`)."""
+    params, its slab caches (the single stream's and the slab lanes'), its
+    lanes' pool (an int8 cache's scales included) and its graphs (the
+    static input/output buffers and the private pool the captured graphs
+    hold, `StepGraphs.pool_bytes`)."""
     from .cost import nbytes
 
     g = engine.graphs
     return MemoryReport(
         params_bytes=nbytes(engine.params),
-        cache_bytes=nbytes(engine.cache),
+        cache_bytes=nbytes(engine.cache) + (nbytes(engine.lane_cache)
+                                            if engine.lane_cache is not None else 0),
         pool_bytes=nbytes(engine.kv_pool) if engine.kv_pool is not None else 0,
         graph_bytes=g.buffer_bytes() + g.pool_bytes(),
     )

@@ -13,6 +13,13 @@ ps, hd] values and [P, KH, ps, 1] scales); a page list [n] names the pages
 that back logical rows [0, n*ps) of one lane, in order (`gather_pages`,
 `scatter_pages`, `paged_view`, `lane_views`). Every function here takes
 either kind of leaf.
+
+Slab lanes keep each lane's rows in a slab [L, B, KH, S + pad, hd] and
+share prefixes through the pool by copies (`pages_to_rows`: a pool page
+list into a lane's rows, the JAX engine's ``kv_adopt`` program;
+`rows_to_pages`: a lane's rows into pool pages, its ``kv_publish``). The
+JAX engine computes these copies in jnp, outside any Pallas kernel; here
+they are torch index copies, in place, of every layer at once.
 """
 
 from __future__ import annotations
@@ -139,3 +146,33 @@ def lane_views(pool_l, page_table: torch.Tensor):
     pages = pool_l[page_table.long()]  # [B, nb, KH, ps, hd]
     b, nb, kh, ps, last = pages.shape
     return pages.transpose(1, 2).reshape(b, kh, nb * ps, last)
+
+
+def kv_lane(leaf, lane: int):
+    """Lane ``lane`` of an [L, B, ...] slab leaf as an [L, 1, ...] view
+    (writes land in the slab; each layer of it is contiguous)."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(leaf.q[:, lane : lane + 1], leaf.s[:, lane : lane + 1])
+    return leaf[:, lane : lane + 1]
+
+
+def pages_to_rows(slab, pool, lane: int, row0: int, page_ids: torch.Tensor) -> None:
+    """Copy the pool pages ``page_ids`` [n] ([L, P, KH, ps, hd] leaves)
+    into ``lane``'s slab rows [row0, row0 + n*ps) ([L, B, KH, S, hd]), in
+    page order, in every layer: values and an int8 leaf's scales alike."""
+    ids = page_ids.long()
+    for dst, src in zip(kv_tensors(slab), kv_tensors(pool)):
+        pages = src[:, ids]  # [L, n, KH, ps, last]
+        nl, n, kh, ps, last = pages.shape
+        dst[:, lane, :, row0 : row0 + n * ps] = pages.transpose(1, 2).reshape(nl, kh, n * ps, last)
+
+
+def rows_to_pages(slab, pool, lane: int, row0: int, page_ids: torch.Tensor) -> None:
+    """The inverse of `pages_to_rows`: ``lane``'s slab rows [row0, row0 +
+    n*ps) written into the pool pages ``page_ids`` [n], in place."""
+    ids = page_ids.long()
+    n = ids.shape[0]
+    for src, dst in zip(kv_tensors(slab), kv_tensors(pool)):
+        nl, _, kh, ps, last = dst.shape
+        rows = src[:, lane, :, row0 : row0 + n * ps]  # [L, KH, n*ps, last]
+        dst[:, ids] = rows.reshape(nl, kh, n, ps, last).transpose(1, 2)

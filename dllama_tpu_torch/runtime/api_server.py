@@ -1,7 +1,8 @@
-"""OpenAI-compatible HTTP API server over pool-native lanes.
+"""OpenAI-compatible HTTP API server: one request at a time, or lanes.
 
     python -m dllama_tpu_torch.runtime.api_server --model m.m --tokenizer t.t \\
-        --batch-size 4 [--kv-page-size 16] [--weight-format q40] [--device cuda|cpu] \\
+        [--batch-size 4] [--kv-page-size 16] [--kv-native 0|1] [--weight-format q40] \\
+        [--device cuda|cpu] \\
         [--faults SPEC] [--retry-max N] [--max-queue-depth N] [--max-streams N] \\
         [--trace-out PATH] [--timeline-out PATH] [--postmortem-dir DIR] \\
         [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S] \\
@@ -41,16 +42,39 @@ src/dllama-api.cpp):
 * ``GET /dashboard`` — the live single-file dashboard; ``/health`` and
   ``/healthz`` — liveness.
 
-A `LaneScheduler` thread owns every engine call. It admits queued requests
-FIFO into the least-recently-used free lane, matches each conversation
-against the shared radix tree of served prefixes (`kv.manager`) and adopts
-the covering pool pages with no device copy (a fork of a mid-page boundary
-is the one copy), prefills the rest one bounded chunk a tick, and steps
-every active lane together in decode blocks (on the card, CUDA graphs
-that `InferenceEngine.rehearse_admission` captures before the scheduler
-starts: every lane-prefill bucket, the greedy and the sampled block).
-A finished stream publishes
-its whole pages to the tree.
+With ``--batch-size 1`` (the default, as the JAX CLI's) the server is the
+reference's serialized loop (src/dllama-api.cpp:367-487): each request
+takes the engine lock (its queue wait is the lock wait) and runs
+`ApiState.complete` on the engine's single-stream slab. A `NaiveCache`
+remembers the conversation the slab holds: a request that extends it
+prefills only the new messages from the cached end position (the
+``dllama.reused_prefix_tokens`` of the response); anything else resets the
+slab. A ``max_tokens`` cut runs one KV-only step so the next turn resumes
+from a complete context; a conversation that reaches seq_len resets. A
+dispatch that fails zeroes the slab and moves the engine's
+``cache_epoch`` (its guard), and a moved epoch clears the NaiveCache: the
+next request starts cold. Errors answer 400 (the client's: a prompt too
+long) or 500 (the engine's) as JSON, in a stream as an error event before
+``[DONE]``; ``resume_tokens`` is refused (400: it needs the lanes).
+Shedding and drain work as on the lanes, with no queue to shed on and the
+JAX floors as every ``Retry-After``; there is no watchdog or load
+predictor on this path (as in the JAX server).
+
+With ``--batch-size`` > 1 a `LaneScheduler` thread owns every engine
+call. It admits queued requests FIFO into the least-recently-used free
+lane, matches each conversation against the shared radix tree of served
+prefixes (`kv.manager`), adopts the covering pool pages, prefills the rest
+one bounded chunk a tick, and steps every active lane together in decode
+blocks (on the card, CUDA graphs that `InferenceEngine.rehearse_admission`
+captures before the scheduler starts: every lane-prefill bucket, the
+greedy and the sampled block). A finished stream publishes its whole pages
+to the tree. The lanes run in one of two modes (`resolve_kv_knobs`:
+``--kv-native``, else ``DLLAMA_KV_NATIVE``, else 0, the JAX default):
+slab lanes keep their KV in the engine's lanes' slab and adopt and publish
+by copies (an adopt tick only when there are pages to copy); pool-native
+lanes keep it in the pool, adopt with no device copy (a fork of a mid-page
+boundary is the one copy) and publish by ownership. A page size < 0 runs
+slab lanes with no pool at all (the sharing-off baseline).
 
 Resilience (the JAX server's port of the reference's crash-retry loop,
 src/dllama-api.cpp:616-628): every engine dispatch (prefill chunk, decode
@@ -63,7 +87,11 @@ accounting and turns every surviving stream into a resume that re-prefills
 its history from host-side truth and reinstalls its untouched lane state,
 so the stream goes on where it was (in f32 byte for byte; in bf16 the
 re-made rows carry the prefill kernels' roundings, not decode's); only the
-lane whose own admission poisoned the pool fails, with a retryable error. Retries
+lane whose own admission poisoned the pool fails, with a retryable error. In
+slab mode a failed lane step zeroes the lanes' slab, not the pool: the
+resumes re-adopt their published prefixes and re-prefill the rest; a
+failed publish zeroes the pool, not the slab (the manager resets its
+accounting, and the streams go on). Retries
 exhausted on an intact pool fail the in-flight requests with a retryable
 error (503 and ``Retry-After``), and the scheduler keeps serving. The
 chaos plane (runtime/faults.py, ``--faults``) injects such failures on
@@ -119,9 +147,6 @@ parks a lower-priority or deadline-blown stream when that lets the EDF
 head meet its budget (``dllama_preemptions_total``); the victim resumes
 byte for byte. The EDF keys, the preemption's clock and the scored TTFTs
 all read the scheduler's ``_clock``.
-
-Left for later slices: the single-stream (``--batch-size 1``) path with its
-NaiveCache (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -197,6 +222,26 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v else default
 
 
+def resolve_kv_knobs(kv_page_size: int | None = None, kv_pool_pages: int | None = None,
+                     kv_native: bool | None = None) -> tuple[int, int, bool]:
+    """The paged-KV knobs (the JAX server's): explicit (CLI flag) beats
+    ``DLLAMA_KV_PAGE_SIZE`` / ``DLLAMA_KV_POOL_PAGES`` /
+    ``DLLAMA_KV_NATIVE`` beats the defaults 0, 0 and 0. page_size 0: the
+    manager's default (16); < 0: no pool (slab lanes with no prefix
+    sharing, the sharing-off baseline). pool_pages 0: sized by the engine
+    (2 * seq_len / page_size + 1 in slab mode; one sequence a lane plus two
+    in native mode). kv_native 1: pool-native lanes (KV in the pool through
+    a page table, adoption by page table, publish by ownership); 0: slab
+    lanes (adopt and publish by copies)."""
+    if kv_page_size is None:
+        kv_page_size = _env_int("DLLAMA_KV_PAGE_SIZE", 0)
+    if kv_pool_pages is None:
+        kv_pool_pages = _env_int("DLLAMA_KV_POOL_PAGES", 0)
+    if kv_native is None:
+        kv_native = bool(_env_int("DLLAMA_KV_NATIVE", 0))
+    return int(kv_page_size), int(kv_pool_pages), bool(kv_native)
+
+
 def resolve_stream_knobs(max_streams: int | None = None) -> int:
     """Oversubscription knob: explicit (``--max-streams``) beats
     ``DLLAMA_MAX_STREAMS`` beats 0 (off: streams cap at the lane count).
@@ -230,6 +275,54 @@ class ChatMessage:
 
 
 @dataclass
+class NaiveCacheItem:
+    end_pos: int
+    message: ChatMessage
+
+
+class NaiveCache:
+    """The serialized path's prompt-prefix KV reuse (the JAX server's;
+    reference: src/dllama-api.cpp:298-343): the messages the engine's
+    slab holds, each with the position its rows end at."""
+
+    def __init__(self):
+        self.items: list[NaiveCacheItem] = []
+
+    def push(self, item: NaiveCacheItem) -> None:
+        self.items.append(item)
+
+    def clear(self) -> None:
+        self.items = []
+
+    def _matches_all(self, messages: list[ChatMessage]) -> bool:
+        """True when ``messages`` strictly extends the cached conversation."""
+        n = len(self.items)
+        if n == 0 or len(messages) <= n:
+            return False
+        return all(self.items[i].message.role == messages[i].role
+                   and self.items[i].message.content == messages[i].content for i in range(n))
+
+    def probe(self, messages: list[ChatMessage]) -> int:
+        """The start position a resolve would reuse, without changing the
+        cache."""
+        return self.items[-1].end_pos if self._matches_all(messages) else 0
+
+    def resolve_delta_prompt(self, messages: list[ChatMessage]) -> tuple[list[ChatMessage], int]:
+        """If ``messages`` extends the cached conversation, the new suffix
+        and the cache's end position; else the cache is cleared and the
+        whole conversation starts at 0."""
+        if not self.items:
+            return messages, 0
+        if self._matches_all(messages):
+            n = len(self.items)
+            start_pos = self.items[-1].end_pos
+            logger.info("naive cache hit: %d messages, pos %d", n, start_pos)
+            return messages[n:], start_pos
+        self.clear()
+        return messages, 0
+
+
+@dataclass
 class InferenceParams:
     messages: list[ChatMessage] = field(default_factory=list)
     temperature: float = 0.8
@@ -246,6 +339,10 @@ class InferenceParams:
     # EDF orders by its effective deadline
     deadline_ms: float | None = None
     ttft_budget_ms: float | None = None
+    # a raw fed-token history that stands in for the chat template and the
+    # tokenizer (the JAX server's fleet failover resume): the lanes admit it
+    # like any prompt; the serialized path refuses it
+    resume_tokens: list[int] | None = None
 
     @property
     def deadline_hinted(self) -> bool:
@@ -348,6 +445,38 @@ class _AdmittingLane:
     n_chunks: int = 0
 
 
+class _NoPool:
+    """The scheduler's KV manager for lanes with no pool (a page size < 0,
+    the JAX server's ``kv_manager`` None): slab lanes, nothing to match,
+    adopt or publish."""
+
+    native = False
+
+    def match(self, lane: int, tokens: list[int]) -> tuple[int, list[int]]:
+        return 0, []
+
+    def adopt(self, lane: int, pages: list[int]) -> None:
+        pass
+
+    def publish(self, lane: int, tokens: list[int]) -> int:
+        return 0
+
+    def release_lane(self, lane: int) -> None:
+        pass
+
+    def release_all_lanes(self) -> None:
+        pass
+
+    def reset(self, reset_device: bool = True) -> None:
+        pass
+
+    def note_hit(self, n_tokens: int) -> None:
+        pass
+
+    def anchor_for(self, lane: int) -> None:
+        return None
+
+
 def _edf_key(job) -> float:
     """A queued entry's EDF key; an entry without one sorts last."""
     key = getattr(job, "edf_deadline_ms", None)
@@ -364,7 +493,7 @@ class LaneScheduler:
                  retry_backoff_ms: int = 5):
         self.state = state
         self.engine = state.engine
-        self.kv: PagedKVManager = state.kv_manager
+        self.kv = state.kv_manager if state.kv_manager is not None else _NoPool()
         self.block_size = max(1, int(block_size))
         # at most this many prompt tokens prefill a tick (0/None: the
         # largest bucket), so an active stream waits at most one chunk and
@@ -668,25 +797,32 @@ class LaneScheduler:
         self._set_lane_gauge()
 
     def _recover(self, e: Exception, culprit: int | None) -> None:
-        """A failed dispatch reset the pool (the epoch moved): every page
-        id of the lanes, the radix tree and the adopt lists names zeroed
-        rows, so the page accounting resets too (the device pool is
-        already zero). Each active lane becomes a resume: an admission of
-        its whole fed history that re-prefills it (nothing is left to
-        re-match) and reinstalls the untouched _LaneState, its drafter
-        riding along, so the stream goes on where it was. Lanes
-        mid-admission rewind to position 0. Only ``culprit``, the lane
-        whose own admission dispatch failed, gets a retryable error."""
+        """A failed dispatch zeroed the lanes' KV (the epoch moved): the
+        slab in slab mode, where the pool and the radix tree survive; the
+        pool in native mode, where every page id of the lanes, the tree and
+        the adopt lists names zeroed rows, so the page accounting resets
+        too (the device pool is already zero). Each active lane becomes a
+        resume: an admission of its whole fed history that re-matches it
+        against the tree (slab: its published prefix adopts back; native:
+        nothing is left), re-prefills the rest and reinstalls the untouched
+        _LaneState, its drafter riding along, so the stream goes on where
+        it was. Lanes mid-admission rewind to their adopted prefix, which
+        they adopt again (native: to position 0). Only ``culprit``, the
+        lane whose own admission dispatch failed, gets a retryable error."""
         err = {"message": str(e), "retryable": True}
-        self.kv.reset(reset_device=False)
+        native = self.kv.native
+        if native:
+            self.kv.reset(reset_device=False)
         for lane in list(self.admitting):
             if lane == culprit:
                 self._fail_admitting(lane, err)
                 continue
             adm = self.admitting[lane]
-            adm.cursor = adm.start_pos = 0
-            adm.adopt_pages = []
+            adm.cursor = adm.start_pos
             adm.adopted = False
+            if native:
+                adm.cursor = adm.start_pos = 0
+                adm.adopt_pages = []
         for lane, ls in enumerate(self.lanes):
             if ls is None:
                 continue
@@ -938,9 +1074,18 @@ class LaneScheduler:
             self._resume_parked(lane, job, job._park_resume)
             return
         try:
-            items = [ChatItem(m.role, m.content) for m in p.messages]
-            prompt = state.template.generate(items, append_generation_prompt=True)
-            tokens = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
+            if p.resume_tokens is not None:
+                # a raw fed history (prompt and emitted tokens) stands in
+                # for the template: admitted like any prompt, it goes on
+                # from its last token
+                if len(p.resume_tokens) < 2:
+                    raise ValueError("resume_tokens needs at least 2 token ids")
+                tokens, public_prompt = [int(t) for t in p.resume_tokens], ""
+            else:
+                items = [ChatItem(m.role, m.content) for m in p.messages]
+                prompt = state.template.generate(items, append_generation_prompt=True)
+                tokens = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
+                public_prompt = prompt.public_prompt or ""
             start_pos, adopt_pages = self.kv.match(lane, tokens)
             if start_pos > 0:
                 state.m_prefix_hits.inc()
@@ -973,7 +1118,7 @@ class LaneScheduler:
             job.n_prompt_tokens = len(tokens)
             self.admitting[lane] = _AdmittingLane(
                 job=job, tokens=tokens, cursor=start_pos, prompt_end=prompt_end,
-                max_pos=max_pos, public_prompt=prompt.public_prompt or "",
+                max_pos=max_pos, public_prompt=public_prompt,
                 adopt_pages=adopt_pages, start_pos=start_pos,
             )
         except Exception as e:
@@ -984,8 +1129,9 @@ class LaneScheduler:
 
     def _admission_tick(self) -> None:
         """At most ONE admission step per tick, round-robin over the
-        admitting lanes: the lane's adopt (it allocates the lane's pages
-        and installs its page table, even on an empty match), then one
+        admitting lanes: the lane's adopt (native: it allocates the lane's
+        pages and installs its page table, even on an empty match; slab:
+        the copy of the matched pages, only when there are some), then one
         bounded prefill chunk a tick; the lane turns to decode once its
         last fill token lands."""
         if not self.admitting:
@@ -1000,6 +1146,8 @@ class LaneScheduler:
         fills = adm.tokens[:-1]
         st, rid = self.state, adm.job.request_id
         epoch0 = self.engine.cache_epoch
+        if not (adm.adopt_pages or self.kv.native):
+            adm.adopted = True  # a slab lane with nothing to copy: no adopt tick
         try:
             if not adm.adopted:
                 t0 = self._clock()
@@ -1366,13 +1514,16 @@ class ApiState:
     observability of the JAX ``ApiState``: the registry's serving families
     (`_register_families`), the tracer, the span tracker, the SLO windows,
     the series store and its sampler, the anomaly monitor and the
-    watchdog."""
+    watchdog. With a batch-1 engine there is no scheduler, KV manager, load
+    predictor or watchdog (None, as in the JAX server): requests run one
+    at a time under ``lock`` through `complete`, with the `NaiveCache`."""
 
     def __init__(self, engine: InferenceEngine, tokenizer: Tokenizer,
                  model_name: str = "dllama-tpu",
                  chat_template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
                  lane_block_size: int = DEFAULT_LANE_BLOCK, admission_chunk: int | None = None,
-                 kv_page_size: int = 0, kv_pool_pages: int = 0, speculation: str | None = None,
+                 kv_page_size: int = 0, kv_pool_pages: int = 0, kv_native: bool = False,
+                 speculation: str | None = None,
                  spec_k: int | None = None, max_streams: int | None = None,
                  retry_max: int | None = None, retry_backoff_ms: int | None = None,
                  max_queue_depth: int | None = None, tracer: Tracer | None = None,
@@ -1381,11 +1532,6 @@ class ApiState:
                  admission_max_wait_ms: int | None = None,
                  deadline_default_ms: int | None = None,
                  deadline_priority_step_ms: int | None = None):
-        if engine.batch_size < 2:
-            raise NotImplementedError(
-                "the single-stream server path (--batch-size 1, NaiveCache) is not ported: "
-                "ROADMAP A.8; serve with --batch-size > 1"
-            )
         # explicit knobs beat the DLLAMA_* environment beats the defaults
         speculation, spec_k = resolve_spec_knobs(speculation, spec_k)
         retry_max, retry_backoff_ms, self.max_queue_depth = resolve_resilience_knobs(
@@ -1424,6 +1570,9 @@ class ApiState:
         ttft_ms, tpot_ms = resolve_slo_knobs(slo_ttft_ms, slo_tpot_ms)
         self.slo = SloTracker(ttft_target_ms=ttft_ms, tpot_target_ms=tpot_ms)
         self._register_families(speculation)
+        # the shed counts at start: the serialized path's `shed` reads the
+        # registry less them (the scheduler keeps its own base)
+        self._shed_base = {k[0]: v for k, v in self.m_shed.child_values().items()}
         # one refresh path for every on-demand gauge: the /metrics scrape
         # and the series sampler both run the registry's hooks (keyed: a
         # rebuilt ApiState replaces its hooks). Host-side numbers only:
@@ -1446,29 +1595,43 @@ class ApiState:
         self.max_stop_len = max((len(s) for s in stops), default=0)
         self.template = ChatTemplateGenerator(
             chat_template_type, tokenizer.chat_template, stops[0] if stops else "")
-        self.kv_manager = PagedKVManager(engine, page_size=kv_page_size, n_pages=kv_pool_pages,
-                                         evict_counter=self.m_evictions)
-        # the load predictor exists before the scheduler thread (admission
-        # records forecasts through it); every Retry-After reads it, with
-        # predictive mode on or off
-        self.predictor = LoadPredictor(engine)
-        # every admission-path graph before the first request, the verify
-        # buckets too when speculation is on (dllama_tpu's api_server
-        # rehearses its compiled programs the same way)
-        engine.rehearse_admission(lane_block_size, spec_k=0 if speculation == "off"
-                                  else LaneScheduler.clamp_spec_k(engine, spec_k))
-        # the watchdog starts after the rehearsal (its thread never runs
-        # beside a capture) and before the scheduler, which beats it every
-        # tick; its decode-stalled threshold scales off the engine's own
-        # p99 block seconds, so a slow model does not false-alarm
-        self.watchdog = EngineWatchdog(
-            block_p99=lambda: engine._m_step.labels(kind="decode_lanes").percentile(0.99),
-            recorder=self.recorder, **resolve_watchdog_knobs())
-        self.watchdog.start()
-        self.scheduler = LaneScheduler(self, block_size=lane_block_size,
-                                       admission_chunk=admission_chunk, speculation=speculation,
-                                       spec_k=spec_k, max_streams=resolve_stream_knobs(max_streams),
-                                       retry_max=retry_max, retry_backoff_ms=retry_backoff_ms)
+        # the serialized path: the conversation the single-stream slab
+        # holds, and the engine lock a request holds for its whole run
+        self.naive_cache = NaiveCache()
+        self.lock = threading.Lock()
+        lanes_on = engine.batch_size > 1
+        # the lanes' pool and radix tree, slab or native (a page size < 0:
+        # no pool, the sharing-off baseline)
+        self.kv_manager = None
+        if lanes_on and kv_page_size >= 0:
+            self.kv_manager = PagedKVManager(engine, page_size=kv_page_size,
+                                             n_pages=kv_pool_pages,
+                                             evict_counter=self.m_evictions, native=kv_native)
+        self.predictor = self.watchdog = self.scheduler = None
+        if lanes_on:
+            # the load predictor exists before the scheduler thread
+            # (admission records forecasts through it); every Retry-After
+            # reads it, with predictive mode on or off
+            self.predictor = LoadPredictor(engine)
+            # every admission-path graph before the first request, the
+            # verify buckets too when speculation is on (dllama_tpu's
+            # api_server rehearses its compiled programs the same way)
+            engine.rehearse_admission(lane_block_size, spec_k=0 if speculation == "off"
+                                      else LaneScheduler.clamp_spec_k(engine, spec_k))
+            # the watchdog starts after the rehearsal (its thread never
+            # runs beside a capture) and before the scheduler, which beats
+            # it every tick; its decode-stalled threshold scales off the
+            # engine's own p99 block seconds, so a slow model does not
+            # false-alarm
+            self.watchdog = EngineWatchdog(
+                block_p99=lambda: engine._m_step.labels(kind="decode_lanes").percentile(0.99),
+                recorder=self.recorder, **resolve_watchdog_knobs())
+            self.watchdog.start()
+            self.scheduler = LaneScheduler(
+                self, block_size=lane_block_size, admission_chunk=admission_chunk,
+                speculation=speculation, spec_k=spec_k,
+                max_streams=resolve_stream_knobs(max_streams), retry_max=retry_max,
+                retry_backoff_ms=retry_backoff_ms)
         self.m_lanes_total.set(engine.batch_size)
         self.g_draining.set(0)
         # every postmortem dump embeds a /v1/health snapshot and the last
@@ -1637,6 +1800,10 @@ class ApiState:
     def shed(self) -> dict[str, int]:
         """Requests refused at admission by reason, since this server
         started (the registry's ``dllama_requests_shed_total``)."""
+        if self.scheduler is None:
+            now = {k[0]: v for k, v in self.m_shed.child_values().items()}
+            return {k: int(v - self._shed_base.get(k, 0)) for k, v in sorted(now.items())
+                    if v - self._shed_base.get(k, 0)}
         return self.scheduler._deltas("shed")
 
     def degraded_reasons(self) -> list[str]:
@@ -1645,7 +1812,7 @@ class ApiState:
         Shared by /v1/health and `admission_decision`."""
         reasons: list[str] = []
         wd = self.watchdog
-        if wd.degraded:
+        if wd is not None and wd.degraded:
             reasons.append(f"watchdog:{wd.status().get('reason')}")
         if self.anomaly.degraded:
             reasons.extend(f"anomaly:{s}" for s in self.anomaly.active_signals())
@@ -1656,7 +1823,9 @@ class ApiState:
         feasibility gate: ~4 characters a token plus a template overhead a
         message, no radix match assumed (the forecast recorded at
         admission has the real count and match; the EWMA correction takes
-        up the bias)."""
+        up the bias); a resume's token count."""
+        if params.resume_tokens is not None:
+            return len(params.resume_tokens)
         n_chars = sum(len(m.content) for m in params.messages)
         return max(2, n_chars // 4 + 8 * max(1, len(params.messages)))
 
@@ -1675,25 +1844,31 @@ class ApiState:
     def predicted_retry_after(self, floor: int = RETRY_AFTER) -> int:
         """``Retry-After`` from the predicted queue drain (monotonic in
         queue depth, capped by ``--admission-max-wait-ms``), never below
-        ``floor``: every shed and every retryable error quotes it."""
+        ``floor``: every shed and every retryable error quotes it. The
+        serialized path has no queue to predict: ``floor``."""
+        if self.scheduler is None:
+            return floor
         return max(floor, self.predictor.retry_after_s(self.scheduler.occupancy(),
                                                        self.admission_max_wait_ms))
 
     def admission_snapshot(self) -> dict:
         """``GET /v1/debug/admission``: the knobs, the predictor's
         calibration, the occupancy it forecasts against, the Retry-After it
-        quotes now and the recent forecast errors."""
-        occ = self.scheduler.occupancy()
-        return {
+        quotes now and the recent forecast errors (the knobs and the errors
+        alone on the serialized path)."""
+        out = {
             "predictive": self.admission_predict,
             "max_wait_ms": self.admission_max_wait_ms,
             "deadline_default_ms": self.deadline_default_ms,
             "deadline_priority_step_ms": self.deadline_priority_step_ms,
             "prediction_error": self.predict_error_stats(),
-            "occupancy": occ.as_dict(),
-            "predictor": self.predictor.snapshot(),
-            "retry_after_s": self.predictor.retry_after_s(occ, self.admission_max_wait_ms),
         }
+        if self.scheduler is not None:
+            occ = self.scheduler.occupancy()
+            out.update(occupancy=occ.as_dict(), predictor=self.predictor.snapshot(),
+                       retry_after_s=self.predictor.retry_after_s(occ,
+                                                                  self.admission_max_wait_ms))
+        return out
 
     def admission_decision(self, priority: str,
                            params: InferenceParams | None = None) -> tuple[str, int] | None:
@@ -1704,15 +1879,19 @@ class ApiState:
         is degraded. In predictive mode a HINTED request whose forecast
         misses its budget even if admitted now is refused as
         ``infeasible``; an unhinted one never is. Every Retry-After is the
-        predicted drain, the JAX server's constants its floors."""
+        predicted drain, the JAX server's constants its floors. The
+        serialized path has no queue and no predictor: a drain and the
+        degraded ``low`` refusal only."""
         if self.draining:
             return "draining", self.predicted_retry_after(RETRY_AFTER_DRAINING)
-        depth = self.max_queue_depth
-        if depth > 0 and len(self.scheduler.pending) >= depth * SHED_FACTOR.get(priority, 1.0):
+        sched, depth = self.scheduler, self.max_queue_depth
+        if (sched is not None and depth > 0
+                and len(sched.pending) >= depth * SHED_FACTOR.get(priority, 1.0)):
             return "queue_full", self.predicted_retry_after()
         if priority == "low" and self.degraded_reasons():
             return "degraded", self.predicted_retry_after(RETRY_AFTER_DEGRADED)
-        if self.admission_predict and params is not None and params.deadline_hinted:
+        if (self.admission_predict and sched is not None and params is not None
+                and params.deadline_hinted):
             budget = min(h for h in (params.deadline_ms, params.ttft_budget_ms) if h is not None)
             pred = self.predictor.predict(self.estimate_prompt_tokens(params),
                                           self.scheduler.occupancy())
@@ -1728,6 +1907,8 @@ class ApiState:
 
     def in_flight(self) -> int:
         sched = self.scheduler
+        if sched is None:
+            return int(self.lock.locked())
         return sum(ls is not None for ls in sched.lanes) + len(sched.admitting) + len(
             sched.pending)
 
@@ -1780,24 +1961,40 @@ class ApiState:
         """The /v1/health payload, also embedded into postmortem dumps (the
         recorder's context providers), so it never takes the scheduler's
         cv: the lane and queue reads are GIL-atomic snapshots."""
-        sched = self.scheduler
+        sched, kv = self.scheduler, self.kv_manager
         total = self.engine.batch_size
-        active = sum(1 for ls in sched.lanes if ls is not None)
+        if sched is not None:
+            active = sum(1 for ls in sched.lanes if ls is not None)
+            admitting, queued, parked = len(sched.admitting), len(sched.pending), sched._n_parked
+            max_streams = max(sched.max_streams, total)
+        else:
+            active, admitting, queued, parked, max_streams = int(self.lock.locked()), 0, 0, 0, 1
+        kv_info = {"enabled": False}
+        if kv is not None:
+            kv_info = dict(kv.debug(), enabled=True, native=kv.native,
+                           page_bytes=self.engine.kv_page_bytes())
+        kv_info["dtype"] = str(self.engine.kv_dtype).removeprefix("torch.")
         payload = {
             "status": "ok",
             "model": self.model_name,
             "uptime_s": round(time.time() - self.start_unix, 3),
             "lanes": {"total": total, "active": active, "free": total - active},
-            "admitting": len(sched.admitting),
-            "queue_depth": len(sched.pending),
-            "kv": dict(self.kv_manager.debug(),
-                       dtype=str(self.engine.kv_dtype).removeprefix("torch."),
-                       page_bytes=self.engine.kv_page_bytes()),
-            "speculation": sched.spec_stats(),
-            "resilience": sched.resilience_stats(),
+            "admitting": admitting,
+            "queue_depth": queued,
+            "cache_epoch": self.engine.cache_epoch,
+            # the JAX server's router-facing capacity: the stream ceiling,
+            # what holds a slot toward it, and whether the lanes are
+            # pool-native (parks and resumes copy nothing)
+            "capacity": {"lanes": total, "max_streams": max_streams,
+                         "in_flight": active + admitting + parked + queued, "parked": parked,
+                         "kv_native": bool(kv is not None and kv.native)},
+            "kv": kv_info,
         }
+        if sched is not None:
+            payload["speculation"] = sched.spec_stats()
+            payload["resilience"] = sched.resilience_stats()
         reasons = self.degraded_reasons()
-        if self.watchdog.degraded:
+        if self.watchdog is not None and self.watchdog.degraded:
             payload["watchdog"] = self.watchdog.status()
         if self.anomaly.degraded:
             payload["anomaly"] = self.anomaly.status()
@@ -1811,6 +2008,128 @@ class ApiState:
             payload["status"] = "draining"
             payload["draining_since_unix"] = self.draining_since
         return payload
+
+    # -- the serialized path -------------------------------------------------
+
+    def complete(self, params: InferenceParams, emit, span) -> dict:
+        """One serialized completion (the JAX ``ApiState.complete``), crash
+        consistent: a dispatch that failed zeroed the engine's slab and moved
+        ``cache_epoch`` (its guard), so the positions the NaiveCache records no
+        longer hold; a moved epoch clears it. A client's error raised before any
+        dispatch moves no epoch and keeps the cache. An OSError comes from
+        ``emit``, the client's socket: the request was cancelled."""
+        epoch = self.engine.cache_epoch
+        try:
+            return self._complete(params, emit, span)
+        except BaseException as e:
+            if self.engine.cache_epoch != epoch:
+                self.naive_cache.clear()
+            reason = "cancelled" if isinstance(e, OSError) else "error"
+            if span.finish(reason) is not None:
+                self.m_finished.labels(reason=reason).inc()
+                if reason == "cancelled":
+                    self.m_cancellations.inc()
+            raise
+
+    def _complete(self, params: InferenceParams, emit, span) -> dict:
+        """The serialized path's completion (the JAX ``ApiState._complete``;
+        reference: ApiServer::complete, src/dllama-api.cpp:367-487), under the
+        engine lock: resolve the delta prompt against the `NaiveCache` (a miss
+        resets the slab), prefill it from the cached end position and decode
+        with the engine's blocks, ``emit(delta)`` a text delta. A ``max_tokens``
+        cut runs one KV-only step, so that a cached continuation resumes from a
+        complete context; a conversation that reaches seq_len resets. The
+        NaiveCache learns the conversation only once its rows exist."""
+        engine, tok = self.engine, self.tokenizer
+        engine.temperature = params.temperature
+        engine.sampler.set_temp(params.temperature)
+        engine.sampler.set_topp(params.top_p)
+        if params.seed is not None:
+            engine.set_seed(params.seed)
+        delta_prompt, start_pos = self.naive_cache.resolve_delta_prompt(params.messages)
+        if start_pos > 0:
+            self.m_prefix_hits.inc()
+            self.m_reused_tokens.inc(start_pos)
+        else:
+            self.m_prefix_misses.inc()
+        span.set_reused_prefix(start_pos)
+        if start_pos == 0:
+            engine.reset()
+        items = [ChatItem(m.role, m.content) for m in delta_prompt]
+        prompt = self.template.generate(items, append_generation_prompt=True)
+        tokens = tok.encode(prompt.content, is_start=start_pos == 0, add_special_tokens=True)
+        n_prompt = len(tokens)
+        seq_len = engine.header.seq_len
+        prompt_end = min(start_pos + n_prompt - 1, seq_len)
+        max_pos = min(prompt_end + params.max_tokens, seq_len) if params.max_tokens > 0 else seq_len
+        buffer = ""
+        if prompt.public_prompt:
+            emit(prompt.public_prompt)
+            buffer += prompt.public_prompt
+        tok.reset_decoder()
+        detector = EosDetector(tok.eos_token_ids, self.stops if not params.stop else params.stop,
+                               padding_left=self.max_stop_len, padding_right=self.max_stop_len)
+        out = {"hit_eos": False, "buffer": buffer}
+        t_gen = time.perf_counter()
+
+        def on_token(t: int):
+            self.slo.note_tokens(1)
+            ttft = span.mark_first_token()
+            if ttft is not None:
+                self.m_ttft.observe(ttft)
+                # this path's prefill: generate's start to the first token's
+                # readback (the prefill and the first decode block)
+                pf = time.perf_counter() - t_gen
+                span.set_prefill_seconds(pf)
+                self.m_prefill.observe(pf)
+            eos_type = detector.append(t, tok.decode(t))
+            if eos_type in (EosResult.NOT_EOS, EosResult.EOS):
+                delta = detector.get_delta()
+                if delta:
+                    emit(delta)
+                    out["buffer"] += delta
+                detector.reset()
+            if eos_type == EosResult.EOS:
+                out["hit_eos"] = True
+                return False
+            return True
+
+        out_tokens, _, _ = engine.generate(tokens, max_steps=max_pos - start_pos, on_token=on_token,
+                                           start_pos=start_pos)
+        pos = prompt_end + len(out_tokens)
+        token = out_tokens[-1] if out_tokens else tokens[-1]
+        n_completion = pos - prompt_end
+        if not out["hit_eos"] and pos < seq_len:
+            # the cut's last token has no KV row yet (a block past the cut
+            # wrote it already, and writing the same row again changes nothing)
+            engine.decode_step(token, pos)
+            pos += 1
+        if pos >= seq_len:
+            self.naive_cache.clear()
+            engine.reset()
+        else:
+            for m in delta_prompt:
+                self.naive_cache.push(NaiveCacheItem(prompt_end, m))
+            self.naive_cache.push(NaiveCacheItem(pos, ChatMessage("assistant", out["buffer"])))
+        reason = "stop" if out["hit_eos"] else "length"
+        if span.finish(reason, n_prompt=n_prompt, n_completion=n_completion) is not None:
+            self.m_finished.labels(reason=reason).inc()
+            self.slo.observe_span(span)
+            self.spans.maybe_flush()
+        return _completion_response(self, out["buffer"], reason, n_prompt, n_completion,
+                                    meta=_span_metadata(span))
+
+
+def _span_metadata(span) -> dict:
+    """The serialized path's ``dllama`` metadata (the lanes' `LaneJob.
+    metadata`): request id, lane (None), TTFT, queue wait (the engine-lock
+    wait) and the reused prefix."""
+    def ms(v):
+        return None if v is None else round(v, 3)
+
+    return {"request_id": span.request_id, "lane": span.lane, "ttft_ms": ms(span.ttft_ms),
+            "queue_ms": ms(span.queue_wait_ms),
+            "reused_prefix_tokens": span.reused_prefix_tokens}
 
 
 def _completion_response(state: ApiState, content: str, finish_reason: str, n_prompt: int,
@@ -1945,7 +2264,8 @@ def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
     Chrome trace into ``out_dir``: CPU activity, and CUDA on the card.
 
     The profiler starts and stops on the scheduler thread between two
-    ticks (`LaneScheduler.run_between_ticks`): no dispatch, and so no graph
+    ticks (`LaneScheduler.run_between_ticks`; on the serialized path under
+    the engine lock, between two requests): no dispatch, and so no graph
     replay, is in flight when it does, the scheduler thread's host ops are
     the ones recorded, and no other thread launches device work while the
     stop collects the device's records (a stop from another thread while
@@ -1974,14 +2294,24 @@ def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
 
     def declared(what, fn):
         def run():
-            wd.pause_begin("profile_" + what)
+            if wd is not None:
+                wd.pause_begin("profile_" + what)
             t0 = time.perf_counter()
             try:
                 fn()
             finally:
                 held["scheduler_" + what] = time.perf_counter() - t0
-                wd.pause_end()
+                if wd is not None:
+                    wd.pause_end()
         return run
+
+    def between(fn):
+        # the serialized path has no scheduler: between two requests is
+        # when no dispatch is in flight
+        if sched is not None:
+            return sched.run_between_ticks(fn)
+        with state.lock:
+            return fn()
 
     def start():
         prof.start()
@@ -1992,13 +2322,13 @@ def profile_capture(state: ApiState, seconds: float, out_dir: str) -> dict:
         prof.stop()
 
     t = [time.perf_counter()]
-    sched.run_between_ticks(declared("start", start))
+    between(declared("start", start))
     t.append(time.perf_counter())
     try:
         time.sleep(seconds)
     finally:
         t.append(time.perf_counter())
-        sched.run_between_ticks(declared("stop", stop))
+        between(declared("stop", stop))
         t.append(time.perf_counter())
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
@@ -2079,7 +2409,9 @@ def make_handler(state: ApiState):
             elif path == "/v1/debug/memory":
                 self._json(state.memory_snapshot())
             elif path == "/v1/debug/kv":
-                self._json(dict(state.kv_manager.debug(), enabled=True))
+                kv = state.kv_manager
+                self._json(dict(kv.debug(), enabled=True, native=kv.native) if kv is not None
+                           else {"enabled": False})
             elif path == "/v1/debug/compile":
                 self._json({"programs": state.engine.graph_report(),
                             "cost": state.engine.cost_report()})
@@ -2186,18 +2518,86 @@ def make_handler(state: ApiState):
                                       "retry_after_s": retry_after}},
                            503 if reason == "draining" else 429, retry_after=retry_after)
                 return
-            job = state.scheduler.submit(params)
-            if params.stream:
-                self._stream(job)
-            else:
-                self._complete(job)
+            if state.scheduler is not None:
+                job = state.scheduler.submit(params)
+                if params.stream:
+                    self._stream(job)
+                else:
+                    self._complete(job)
+                return
+            if params.resume_tokens is not None:
+                # the serialized path has no resume admission: a resume here
+                # would silently retokenize
+                self._json({"error": {"message": "resume_tokens requires the lane scheduler "
+                                                 "(batch_size > 1)"}}, 400)
+                return
+            self._serialized(params)
 
-        def _stream(self, job: LaneJob) -> None:
+        def _serialized(self, params: InferenceParams) -> None:
+            """One request on the serialized path, under the engine lock:
+            its queue wait is the lock wait; ``dllama_lanes_active`` is 1
+            while it runs. A ``ValueError`` (the client's: a prompt too long)
+            answers 400, any other error 500, as JSON; a stream carries the
+            error as an event and still ends in ``[DONE]``."""
+            span = state.tracer.span(path="single")
+            with state.lock:
+                state.m_queue_wait.observe(span.mark_admitted())
+                state.m_admissions.inc()
+                state.m_lanes_active.set(1)
+                try:
+                    if params.stream:
+                        self._stream_single(params, span)
+                        return
+                    try:
+                        response = state.complete(params, emit=lambda d: None, span=span)
+                    except ValueError as e:
+                        self._json({"error": {"message": str(e)}}, 400)
+                        return
+                    except Exception as e:
+                        logger.exception("serialized completion failed")
+                        self._json({"error": {"message": str(e)}}, 500)
+                        return
+                    self._json(response)
+                finally:
+                    state.m_lanes_active.set(0)
+
+        def _stream_single(self, params: InferenceParams, span) -> None:
+            """The serialized path's SSE stream (the JAX handler's
+            ``_stream``): a chunk a text delta as `complete` emits it; an
+            error after the headers is an error event; then the final chunk
+            and ``[DONE]``. A client gone mid-stream (an OSError from the
+            socket) ends it: `complete` counted the cancellation."""
+            self._sse_headers()
+
+            def emit(delta: str) -> None:
+                _sse_write(self.wfile, f"data: {json.dumps(_chunk_payload(state, delta, False))}"
+                                       "\r\n\r\n")
+
+            finish_reason = "stop"
+            try:
+                finish_reason = state.complete(params, emit=emit,
+                                               span=span)["choices"][0]["finish_reason"]
+            except OSError:
+                self.close_connection = True
+                return
+            except Exception as e:
+                logger.exception("serialized completion failed")
+                _sse_write(self.wfile, f"data: {json.dumps({'error': {'message': str(e)}})}"
+                                       "\r\n\r\n")
+            final = _chunk_payload(state, None, True, finish_reason, meta=_span_metadata(span))
+            _sse_write(self.wfile, "data: " + json.dumps(final) + "\r\n\r\n")
+            _sse_write(self.wfile, "data: [DONE]\r\n\r\n")
+            self.wfile.write(b"0\r\n\r\n")
+
+        def _sse_headers(self) -> None:
             self.send_response(200)
             self.send_header("Access-Control-Allow-Origin", "*")
             self.send_header("Content-Type", "text/event-stream; charset=utf-8")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
+
+        def _stream(self, job: LaneJob) -> None:
+            self._sse_headers()
             finish_reason, errored = "stop", False
             try:
                 while True:
@@ -2251,7 +2651,13 @@ def make_handler(state: ApiState):
             """(reference: parseRequest, src/dllama-api.cpp:491-520)"""
             params = InferenceParams(temperature=state.default_temperature,
                                      top_p=state.default_top_p, stop=[])
-            params.messages = [ChatMessage(m["role"], m["content"]) for m in body["messages"]]
+            if body.get("resume_tokens") is not None:
+                # a raw fed history in place of the messages (lanes only)
+                params.resume_tokens = [int(t) for t in body["resume_tokens"]]
+                messages = body.get("messages", [])
+            else:
+                messages = body["messages"]
+            params.messages = [ChatMessage(m["role"], m["content"]) for m in messages]
             if "stream" in body:
                 params.stream = bool(body["stream"])
             if "temperature" in body:
@@ -2304,6 +2710,7 @@ def serve(
     admission_chunk: int | None = None,
     kv_page_size: int | None = None,
     kv_pool_pages: int | None = None,
+    kv_native: bool | None = None,
     speculation: str | None = None,
     spec_k: int | None = None,
     max_streams: int | None = None,
@@ -2322,9 +2729,13 @@ def serve(
     deadline_default_ms: int | None = None,
     deadline_priority_step_ms: int | None = None,
 ) -> ThreadingHTTPServer:
-    """Build the server over a ``batch_size`` > 1 engine (its lanes get the
-    page pool here); the caller runs ``serve_forever()`` and
-    ``server_close()`` stops the scheduler too. ``speculation`` and
+    """Build the server over the engine: the serialized path at batch
+    size 1, else lanes (slab or pool-native, with their page pool, by
+    `resolve_kv_knobs`: ``kv_page_size``, ``kv_pool_pages`` and
+    ``kv_native`` default to ``DLLAMA_KV_PAGE_SIZE`` /
+    ``DLLAMA_KV_POOL_PAGES`` / ``DLLAMA_KV_NATIVE``, then 0, 0 and slab);
+    the caller runs ``serve_forever()`` and ``server_close()`` stops the
+    scheduler too. ``speculation`` and
     ``spec_k`` default to ``DLLAMA_SPECULATION`` / ``DLLAMA_SPEC_K``, then
     ``off`` and 4; ``max_streams``, ``retry_max``, ``retry_backoff_ms`` and
     ``max_queue_depth`` to their ``DLLAMA_*`` variables, then 0, 3, 5 and
@@ -2344,10 +2755,11 @@ def serve(
     then 600000 and 60000 (runtime/admission.py)."""
     if faults is not None:
         set_fault_plane(faults)
+    page_size, pool_pages, native = resolve_kv_knobs(kv_page_size, kv_pool_pages, kv_native)
     state = ApiState(
         engine, tokenizer, model_name, chat_template_type,
         lane_block_size=lane_block_size or DEFAULT_LANE_BLOCK, admission_chunk=admission_chunk,
-        kv_page_size=kv_page_size or 0, kv_pool_pages=kv_pool_pages or 0,
+        kv_page_size=page_size, kv_pool_pages=pool_pages, kv_native=native,
         speculation=speculation, spec_k=spec_k, max_streams=max_streams, retry_max=retry_max,
         retry_backoff_ms=retry_backoff_ms, max_queue_depth=max_queue_depth,
         tracer=Tracer(sink_path=trace_out) if trace_out else None, slo_ttft_ms=slo_ttft_ms,
@@ -2366,8 +2778,9 @@ def serve(
 
     def _close():
         inner_close()
-        state.scheduler.stop()
-        state.watchdog.stop()
+        if state.scheduler is not None:
+            state.scheduler.stop()
+            state.watchdog.stop()
         # join the sampler: a closed server leaves no thread writing the
         # shared registry
         state.sampler.stop()
@@ -2455,9 +2868,6 @@ def main(argv=None) -> None:
     from ..cli import load_engine
 
     args = build_parser().parse_args(argv)
-    if args.batch_size < 2:
-        raise SystemExit("the single-stream server path (--batch-size 1) is not ported "
-                         "(ROADMAP A.8): pass --batch-size 2 or more")
     engine, tok = load_engine(args)
     ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
              else ChatTemplateType.UNKNOWN)
@@ -2465,7 +2875,9 @@ def main(argv=None) -> None:
         engine, tok, host=args.host, port=args.port, model_name=os.path.basename(args.model),
         chat_template_type=ttype, lane_block_size=args.lane_block_size,
         admission_chunk=args.admission_chunk, kv_page_size=args.kv_page_size,
-        kv_pool_pages=args.kv_pool_pages, speculation=args.speculation, spec_k=args.spec_k,
+        kv_pool_pages=args.kv_pool_pages,
+        kv_native=None if args.kv_native is None else bool(args.kv_native),
+        speculation=args.speculation, spec_k=args.spec_k,
         max_streams=args.max_streams, retry_max=args.retry_max,
         retry_backoff_ms=args.retry_backoff_ms, max_queue_depth=args.max_queue_depth,
         faults=args.faults, trace_out=args.trace_out, timeline_out=args.timeline_out,

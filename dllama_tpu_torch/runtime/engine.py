@@ -29,29 +29,47 @@ formats: ``q40`` (int8 values + f16 scales), ``q40i4`` (packed nibbles),
 `pick_group`), ``dense``, and ``auto`` (q40 for a Q40 file on the card,
 dense elsewhere).
 
-Lanes (`init_kv_pool`, `prefill_lane_chunk`, `decode_lanes`,
+Lanes (`prefill_lane_chunk`, `decode_lanes`, `verify_lanes`,
 `generate_batch`): ``batch_size`` independent streams, each at its own
-position, whose KV lives in one shared page pool [L, P, KH, ps, hd] read
-and written through per-lane page tables. Only pool-native lanes are
-ported (ROADMAP A.7 holds the slab lanes). A decode block runs every lane
-of the batch (idle lanes parked at position -1: they read nothing and
-write to scratch page 0), so each lane's values are the same whatever the
-others do. The host keeps the page table and copies it to the card when it
-changes, not on every step. `verify_lanes` checks speculative drafts: one
-forward of 1 + k rows a lane at its own position, the greedy argmax grid
-back in one readback. The single-stream path keeps its own slab cache [L,
-1, KH, S, hd].
+position, in one of two modes (`init_kv_pool`'s ``native``):
 
-Crash consistency (dllama_tpu's ``_kv_pool_guard``): each lane dispatch
-(`prefill_lane_chunk`, `decode_lanes`, `verify_lanes`, `kv_page_copy`)
-runs inside `_kv_pool_guard`, its readback included (a replay's CUDA error
-shows up there). A dispatch that raises inside it leaves the pool's bytes
-unknown, so the guard zeroes the pool in place (`reset_kv_pool`: the
-captured graphs keep their pointers), moves ``kv_pool_epoch`` and
-``cache_epoch`` and re-raises; the scheduler tells a poisoned pool from an
-intact one by ``cache_epoch``. The chaos plane (runtime/faults.py) draws
-once a dispatch at each entry: a transient fault is raised before the
-guard with no device work done, a poison fault inside it.
+* slab lanes (the JAX engine's default): each lane's KV lives in its rows
+  of the lanes' slab [L, B, KH, S + pad, hd] (``lane_cache``, allocated at
+  the first lane call, pad the largest prefill bucket). A parked lane
+  writes into its padding rows past seq_len, where no live lane reads, and
+  reads nothing; the slab attention entries take a position a lane. The
+  optional page pool shares prefixes by copies: `kv_adopt` copies pool
+  pages into a lane's rows, `kv_publish` a lane's rows into pool pages
+  (the JAX ``_kv_copy_fn`` programs), in largest-first power-of-two
+  buckets. A lane's prefill chunk runs on that lane's rows alone (one
+  graph a bucket and a lane), where the JAX engine runs every lane at the
+  chunk's width with the others parked;
+* pool-native lanes: KV lives in the shared page pool [L, P, KH, ps, hd],
+  read and written through per-lane page tables; idle lanes are parked at
+  position -1 and write to the scratch page 0. The host keeps the page
+  table and copies it to the card when it changes, not on every step.
+
+In both modes a decode block runs every lane of the batch, so each lane's
+values are the same whatever the others do. `verify_lanes` checks
+speculative drafts: one forward of 1 + k rows a lane at its own position,
+the greedy argmax grid back in one readback. The single-stream path keeps
+its own slab cache [L, 1, KH, S, hd] (``cache``).
+
+Crash consistency (dllama_tpu's ``_cache_guard`` and ``_kv_pool_guard``):
+every dispatch runs inside a guard, its readback included (a replay's CUDA
+error shows up there). A dispatch that raises leaves the bytes it wrote
+unknown: the guard resets them in place (the captured graphs keep their
+pointers), moves ``cache_epoch`` and re-raises. `_slab_guard` covers the
+single-stream steps and the slab lanes' steps and `kv_adopt` (the slab is
+zeroed for every lane; the pool and the radix tree survive);
+`_kv_pool_guard` covers the pool-native steps, `kv_page_copy` and
+`kv_publish` (the pool is zeroed and ``kv_pool_epoch`` moves;
+``cache_epoch`` only in native mode, where the pool is the lanes' KV). The
+scheduler tells a poisoned cache from an intact one by ``cache_epoch``, the
+manager a poisoned pool by ``kv_pool_epoch``. The chaos plane
+(runtime/faults.py) draws once a dispatch at each lane entry: a transient
+fault is raised before the guard with no device work done, a poison fault
+inside it.
 """
 
 from __future__ import annotations
@@ -73,7 +91,14 @@ from ..obs.cost import StepCostModel, extract_cost, hbm_peak_bytes_per_s, roofli
 from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
 from ..obs.recorder import get_recorder
 from ..obs.spans import get_span_tracker
-from ..ops.kv_cache import kv_tensors, new_kv_leaf, reset_kv_leaf
+from ..ops.kv_cache import (
+    kv_lane,
+    kv_tensors,
+    new_kv_leaf,
+    pages_to_rows,
+    reset_kv_leaf,
+    rows_to_pages,
+)
 from .faults import get_fault_plane
 from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
@@ -110,6 +135,11 @@ KEY_KINDS = {
     "block": "decode_block",
     "score": "score",
     "kv_page_copy": "kv_page_copy",
+    "kv_adopt": "kv_adopt",
+    "kv_publish": "kv_publish",
+    "lane_prefill": "prefill_lane_chunk",
+    "lane_block": "decode_lanes",
+    "lane_verify": "verify_lanes",
     "lane_prefill_paged": "prefill_lane_chunk",
     "lane_block_paged": "decode_lanes",
     "lane_verify_paged": "verify_lanes",
@@ -228,7 +258,7 @@ def chunk_nll(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -
 
 class InferenceEngine:
     """See module docstring: one slab-cache stream, plus ``batch_size``
-    pool-native lanes once `init_kv_pool` has run."""
+    lanes, slab or pool-native."""
 
     def __init__(
         self,
@@ -286,11 +316,20 @@ class InferenceEngine:
         self._cost = StepCostModel(self.header, self.params,
                                    torch.empty(0, dtype=self.kv_dtype).element_size(),
                                    self.kv_dtype == torch.int8)
-        # the lanes' page pool (init_kv_pool)
+        # slab lanes: their slab (allocated at the first lane call), its
+        # padding rows (the widest chunk a parked lane writes) and the first
+        # of them, where parked lanes write
+        self.lane_cache = None
+        self._lane_pad = max(self.prefill_buckets) if batch_size > 1 else 0
+        self._park = self.header.seq_len
+        # the lanes' page pool (init_kv_pool); native: the pool is the
+        # lanes' KV home, else the slab lanes' prefix store
         self.kv_pool = None
+        self.kv_native = False
         self.kv_pool_epoch = 0
-        # moves whenever a failed dispatch reset the pool (the lanes' only
-        # KV home): the scheduler's poisoned-or-intact signal
+        # moves whenever a failed dispatch reset KV that streams held (a
+        # slab, or the pool in native mode): the scheduler's and the
+        # serialized server's poisoned-or-intact signal
         self.cache_epoch = 0
         self._kv_page_size = 0
         self._kv_pool_pages = 0
@@ -299,9 +338,13 @@ class InferenceEngine:
         self._pt_dev = None  # its copy on the device
         self._pt_dirty = False
         # plain counters: pool pages copied on the device (the COW forks),
-        # decode steps run by decode_lanes (each one forward of B rows) and
-        # verify passes run by verify_lanes (each one forward of B x t rows)
+        # pages copied from the pool into slab lanes and from them into the
+        # pool, decode steps run by decode_lanes (each one forward of B
+        # rows) and verify passes run by verify_lanes (each one forward of
+        # B x t rows)
         self.kv_copy_pages = 0
+        self.kv_adopt_pages = 0
+        self.kv_publish_pages = 0
         self.lane_decode_steps = 0
         self.lane_verify_steps = 0
         self._lane_seed_base = seed
@@ -334,8 +377,9 @@ class InferenceEngine:
         )
         self._m_epochs = self.obs.counter(
             "dllama_engine_cache_epochs_total",
-            "KV rebuilds: the lanes' pool reset by a failed dispatch "
-            "(crash-consistency recovery).",
+            "KV rebuilds: a slab (single stream or lanes), or the native "
+            "lanes' pool, reset by a failed dispatch (crash-consistency "
+            "recovery).",
         )
         self._m_tpot = self.obs.histogram(
             "dllama_engine_block_token_seconds",
@@ -346,7 +390,8 @@ class InferenceEngine:
         self._m_kv_copy_bytes = self.obs.counter(
             "dllama_kv_copy_bytes_total",
             "Device bytes moved by KV page copies: the pool's COW mid-page "
-            "forks (a full-page prefix adoption moves zero bytes).",
+            "forks, and the slab lanes' adopt and publish copies (a native "
+            "full-page prefix adoption moves zero bytes).",
         )
         # graph key -> [dispatches, device seconds, flops, bytes], settled
         # ones only; the dispatches whose end event has not completed wait
@@ -522,9 +567,37 @@ class InferenceEngine:
         self.graphs.enabled = bool(on)
 
     def reset(self) -> None:
-        """Drop KV state (new conversation), in place."""
-        for leaf in self.cache.values():
-            reset_kv_leaf(leaf)
+        """Drop KV state (new conversation), in place: the single stream's
+        cache and the slab lanes' (one cache holds both in the JAX engine);
+        the captured graphs keep pointing at the same tensors, and the pool
+        keeps its pages."""
+        for cache in (self.cache, self.lane_cache or {}):
+            for leaf in cache.values():
+                reset_kv_leaf(leaf)
+
+    @contextlib.contextmanager
+    def _slab_guard(self, cache):
+        """A slab dispatch that raises leaves ``cache``'s rows unknown (the
+        JAX engine's ``_cache_guard``): zero it in place, for every lane it
+        holds, move ``cache_epoch`` and re-raise; the pool and its pages
+        survive. If the reset raises too (a CUDA error that broke the
+        context), that error propagates, raised from the first, with the
+        epoch moved all the same."""
+        try:
+            yield
+        except BaseException as e:
+            self.recorder.record("error", error=str(e), error_type=type(e).__name__)
+            self.recorder.postmortem("engine-step", e)
+            try:
+                for leaf in cache.values():
+                    reset_kv_leaf(leaf)
+            except Exception as reset_err:
+                raise reset_err from e
+            finally:
+                self.cache_epoch += 1
+                self._m_epochs.inc()
+                self.recorder.record("cache_epoch", epoch=self.cache_epoch, native=False)
+            raise
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -575,8 +648,8 @@ class InferenceEngine:
             chunk = fill[p - pos : p - pos + width] + [0] * (bucket - width)
             cost = self._cost.forward(bucket, 1, p + bucket, bucket, _pairs(bucket, p))
             t0 = time.perf_counter()
-            with _Dispatch(self, "prefill", ("prefill", bucket, False), cost, pos=p,
-                           bucket=bucket) as d:
+            with self._slab_guard(self.cache), _Dispatch(
+                    self, "prefill", ("prefill", bucket, False), cost, pos=p, bucket=bucket) as d:
                 self._slab_chunk(chunk, p)
                 d.device(self._sync)
             total_ms += (time.perf_counter() - t0) * 1000
@@ -626,7 +699,8 @@ class InferenceEngine:
 
         t0 = time.perf_counter()
         cost = self._cost.forward(1, 1, pos + 1, 1, pos + 1)
-        with _Dispatch(self, "decode_step", key, cost, pos=pos) as d:
+        with self._slab_guard(self.cache), _Dispatch(self, "decode_step", key, cost,
+                                                     pos=pos) as d:
             self.graphs.put(b["tok"], token)
             self.graphs.put(b["pos"], pos)
             self.graphs.run(key, step)
@@ -684,7 +758,8 @@ class InferenceEngine:
 
         reads = _pairs(n, pos)
         cost = self._cost.forward(n, n, reads, n, reads, n=n)
-        with _Dispatch(self, "decode_block", key, cost, n_tokens=n, pos=pos, n_steps=n) as d:
+        with self._slab_guard(self.cache), _Dispatch(self, "decode_block", key, cost,
+                                                     n_tokens=n, pos=pos, n_steps=n) as d:
             self.graphs.run(key, block)
             return d.device(b["out"].tolist)
 
@@ -784,11 +859,12 @@ class InferenceEngine:
             b["nll"].copy_(chunk_nll(logits, b["tgt"], b["mask"]))
 
         cost = self._cost.forward(t, t, pos + t, t, _pairs(t, pos))
-        with _Dispatch(self, "score", key, cost, pos=pos, bucket=t) as d:
+        with self._slab_guard(self.cache), _Dispatch(self, "score", key, cost, pos=pos,
+                                                     bucket=t) as d:
             self.graphs.run(key, score)
             return float(d.device(b["nll"].item))
 
-    # -- lanes over the paged KV pool ------------------------------------------
+    # -- lanes: slab or pool-native -------------------------------------------
 
     def set_seed(self, seed: int) -> None:
         """Reseed the host sampler and the unseeded lanes' draws."""
@@ -804,46 +880,79 @@ class InferenceEngine:
         if not 0 <= lane < self.batch_size:
             raise ValueError(f"lane {lane} out of range")
 
-    def init_kv_pool(self, page_size: int, n_pages: int = 0, native: bool = True) -> int:
+    def _require_lanes(self) -> None:
+        """Pool-native lanes need their pool; slab lanes need batch_size >
+        1 (their parked writes land in padding rows) and their slab, which
+        this allocates on first use (never again beneath a captured graph:
+        a failed dispatch zeroes it in place)."""
+        if self.kv_native:
+            self._require_kv_pool()
+            return
+        if self.batch_size < 2:
+            raise ValueError("per-lane serving needs batch_size > 1 "
+                             "(lanes park their writes in cache padding rows)")
+        if self.lane_cache is None:
+            self.lane_cache = init_kv_cache(self.header, self.batch_size, dtype=self.kv_dtype,
+                                            seq_len=self.header.seq_len + self._lane_pad,
+                                            device=self.device)
+
+    def init_kv_pool(self, page_size: int, n_pages: int = 0, native: bool = False) -> int:
         """Allocate the shared KV page pool ``[L, n_pages, KH, page_size,
         hd]`` per k/v leaf (QuantKV pairs for an int8 cache, scales [L,
-        n_pages, KH, page_size, 1] of ones). Page 0 is scratch: parked
-        lanes and unfilled page-table slots point there. ``n_pages`` <= 0
-        picks one sequence per lane plus two shareable ones: ``(batch_size
-        + 2) * n_blocks + 1``. Returns the page count.
+        n_pages, KH, page_size, 1] of ones). Page 0 is scratch. Returns the
+        page count.
 
-        The JAX engine also requires ``page_size`` <= its lane padding,
-        because its parked lanes write into padding rows; the port has no
-        padding rows (parked lanes write to page 0) and no such limit. On
-        the card the paged kernels take page sizes that divide 32 or are
-        multiples of 32. ``native=False`` (slab lanes adopting and
-        publishing by copies) is not ported: ROADMAP A.7."""
-        if not native:
-            raise NotImplementedError(
-                "slab-mode lanes (kv_adopt/kv_publish copies) are not ported: ROADMAP A.7; "
-                "use init_kv_pool(native=True)"
-            )
+        ``native=False`` (the JAX default): slab lanes, the pool a prefix
+        store that `kv_adopt` and `kv_publish` copy to and from; ``n_pages``
+        <= 0 picks two full-length sequences' worth, ``2 * (seq_len //
+        page_size) + 1`` (the JAX engine's). The lanes' slab is allocated
+        here when it is not yet. The JAX engine also requires ``page_size``
+        <= its lane padding, so that its bucketed dynamic slices never
+        clamp; the port's copies slice rows below seq_len and raise on a
+        short slice, so it has no such limit.
+
+        ``native=True``: pool-native lanes; parked lanes and unfilled
+        page-table slots point at page 0. ``n_pages`` <= 0 picks one
+        sequence per lane plus two shareable ones, ``(batch_size + 2) *
+        n_blocks + 1``. On the card the paged kernels take page sizes that
+        divide 32 or are multiples of 32. The lanes' slab, if any, is freed
+        first.
+
+        Every captured graph is dropped: the lanes' graphs of the other
+        mode, and those that read the old pool's pointers."""
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if self.device.type == "cuda" and ((32 % page_size) if page_size < 32 else (page_size % 32)):
+        if native and self.device.type == "cuda" and (
+                (32 % page_size) if page_size < 32 else (page_size % 32)):
             raise ValueError(
                 f"page_size {page_size}: the paged kernels take sizes that divide 32 "
                 "or are multiples of 32"
             )
-        n_blocks = -(-self.header.seq_len // page_size)
+        if not native and self.batch_size < 2:
+            raise ValueError("slab lanes need batch_size > 1 "
+                             "(lanes park their writes in cache padding rows)")
+        s = self.header.seq_len
+        n_blocks = -(-s // page_size)
         if n_pages <= 0:
-            n_pages = (self.batch_size + 2) * n_blocks + 1
+            n_pages = (self.batch_size + 2) * n_blocks + 1 if native else 2 * (s // page_size) + 1
         if n_pages < 2:
             raise ValueError(f"a pool needs >= 2 pages (page 0 is scratch), got {n_pages}")
         self._kv_page_size = page_size
         self._kv_pool_pages = n_pages
         self._kv_n_blocks = n_blocks
-        self._page_table = np.zeros((self.batch_size, n_blocks), np.int32)
-        self._pt_dev = torch.zeros((self.batch_size, n_blocks), dtype=torch.int32,
-                                   device=self.device)
+        self.kv_native = bool(native)
+        self._page_table = np.zeros((self.batch_size, n_blocks), np.int32) if native else None
+        self._pt_dev = (torch.zeros((self.batch_size, n_blocks), dtype=torch.int32,
+                                    device=self.device) if native else None)
         self._pt_dirty = False
-        self.kv_pool = None  # free the old pool before the new one exists
-        self.graphs.clear()  # their pointers and page-table rows are the old pool's
+        # free the old pool (and a native pool's slab) before the new ones
+        # exist; the graphs hold pointers into them
+        self.kv_pool = None
+        if native:
+            self.lane_cache = None
+        self.graphs.clear()
+        if not native:
+            self._require_lanes()
         h = self.header
         shape = (h.n_layers, n_pages, h.n_kv_heads, page_size, h.head_dim)
         self.kv_pool = {k: new_kv_leaf(shape, self.kv_dtype, self.device) for k in ("k", "v")}
@@ -862,11 +971,12 @@ class InferenceEngine:
 
     @contextlib.contextmanager
     def _kv_pool_guard(self):
-        """A lane dispatch that raises leaves the pool's bytes unknown:
-        reset it in place (`reset_kv_pool`; the host-side page accounting
-        is the manager's to reset), move ``cache_epoch`` and re-raise. If
+        """A dispatch that wrote the pool and raised leaves its bytes
+        unknown: reset it in place (`reset_kv_pool`; the host-side page
+        accounting is the manager's to reset), and in native mode, where the
+        pool is the lanes' KV, move ``cache_epoch`` too; then re-raise. If
         the reset raises too (a CUDA error that broke the context), that
-        error propagates, raised from the first, with the epoch moved all
+        error propagates, raised from the first, with the epochs moved all
         the same, so no caller retries against the pool."""
         try:
             yield
@@ -876,24 +986,33 @@ class InferenceEngine:
             try:
                 self.reset_kv_pool()
             except Exception as reset_err:
+                self.kv_pool_epoch += 1
                 raise reset_err from e
             finally:
-                self.cache_epoch += 1
-                self._m_epochs.inc()
-                self.recorder.record("cache_epoch", epoch=self.cache_epoch, native=True)
+                if self.kv_native:
+                    self.cache_epoch += 1
+                    self._m_epochs.inc()
+                    self.recorder.record("cache_epoch", epoch=self.cache_epoch, native=True)
             raise
+
+    def _lane_guard(self):
+        """The guard of a lane step: the pool's in native mode, the lanes'
+        slab's otherwise."""
+        return self._kv_pool_guard() if self.kv_native else self._slab_guard(self.lane_cache)
 
     def _fault(self, op: str):
         """The chaos plane's armed fault for this dispatch, if any
         (runtime/faults.py). Callers raise a transient one before their
-        `_kv_pool_guard` and a poison one inside it."""
+        guard and a poison one inside it."""
         return get_fault_plane().draw("dispatch", op=op)
 
     def adopt_pages(self, lane: int, page_ids: list[int]) -> None:
         """Point ``lane``'s page-table row at ``page_ids`` (slot i backs rows
         [i*ps, (i+1)*ps)); unfilled slots fall back to page 0. No device
-        work but the table's copy before the next dispatch."""
+        work but the table's copy before the next dispatch. Native mode."""
         self._require_kv_pool()
+        if not self.kv_native:
+            raise ValueError("adopt_pages requires kv_native mode (slab lanes adopt by kv_adopt)")
         self._check_lane(lane)
         if len(page_ids) > self._kv_n_blocks:
             raise ValueError(f"{len(page_ids)} pages exceed {self._kv_n_blocks} blocks")
@@ -956,17 +1075,117 @@ class InferenceEngine:
         return sum(t[:, 0].numel() * t.element_size()
                    for leaf in self.kv_pool.values() for t in kv_tensors(leaf))
 
+    @staticmethod
+    def _kv_copy_chunks(n: int) -> list[tuple[int, int]]:
+        """An n-page copy as (start, bucket) pieces of decreasing powers of
+        two, largest first (the JAX engine's buckets, one compiled program
+        each there; here each piece is one copy of every layer)."""
+        out, start = [], 0
+        while start < n:
+            b = 1
+            while b * 2 <= n - start:
+                b *= 2
+            out.append((start, b))
+            start += b
+        return out
+
+    def _check_slab_copy(self, lane: int, n: int, start_page: int) -> None:
+        self._require_kv_pool()
+        self._check_lane(lane)
+        if self.kv_native:
+            raise ValueError("kv_adopt/kv_publish copy slab lanes' rows: pool-native lanes "
+                             "adopt by page table (adopt_pages) and publish by ownership")
+        if n < 1:
+            raise ValueError("empty page list")
+        if start_page < 0 or (start_page + n) * self._kv_page_size > self.header.seq_len:
+            raise ValueError(f"pages [{start_page}, {start_page + n}) exceed seqLen "
+                             f"{self.header.seq_len}")
+        self._require_lanes()
+
+    @torch.inference_mode()
+    def kv_adopt(self, lane: int, page_ids: list[int]) -> None:
+        """Copy pool pages into ``lane``'s slab rows ``[0, n*ps)``: the
+        admission half of prefix sharing in slab mode (the JAX engine's
+        ``kv_adopt``). Rows of a partial final page past the matched tokens
+        hold the donor's tail; the suffix prefill overwrites them before any
+        query can attend to them. Runs under the slab's guard: a failure
+        zeroes the lanes' slab and moves ``cache_epoch``."""
+        n = len(page_ids)
+        self._check_slab_copy(lane, n, 0)
+        fault = self._fault("kv_adopt")
+        if fault is not None and not fault.poison:
+            raise fault
+        ps = self._kv_page_size
+        with self._slab_guard(self.lane_cache), _Dispatch(
+                self, "kv_adopt", ("kv_adopt", n), self._cost.kv_copy(n * ps), graphed=False,
+                lane=lane, n_pages=n):
+            if fault is not None:
+                raise fault
+            ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
+            for start, bucket in self._kv_copy_chunks(n):
+                for name in ("k", "v"):
+                    pages_to_rows(self.lane_cache[name], self.kv_pool[name], lane, start * ps,
+                                  ids[start : start + bucket])
+        self.kv_adopt_pages += n
+        self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
+
+    @torch.inference_mode()
+    def kv_publish(self, lane: int, page_ids: list[int], start_page: int) -> None:
+        """Copy ``lane``'s slab rows ``[start_page*ps, (start_page + n)*ps)``
+        into the pool pages ``page_ids`` [n]: the finish half of prefix
+        sharing in slab mode (the JAX engine's ``kv_publish``; the manager
+        dedups against the radix tree first). Runs under the pool's guard: a
+        failure zeroes the pool and moves ``kv_pool_epoch``, not
+        ``cache_epoch`` (the lanes' slab is intact)."""
+        n = len(page_ids)
+        self._check_slab_copy(lane, n, start_page)
+        fault = self._fault("kv_publish")
+        if fault is not None and not fault.poison:
+            raise fault
+        ps = self._kv_page_size
+        with self._kv_pool_guard(), _Dispatch(
+                self, "kv_publish", ("kv_publish", n), self._cost.kv_copy(n * ps),
+                graphed=False, lane=lane, n_pages=n, start_page=start_page):
+            if fault is not None:
+                raise fault
+            ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
+            for off, bucket in self._kv_copy_chunks(n):
+                for name in ("k", "v"):
+                    rows_to_pages(self.lane_cache[name], self.kv_pool[name], lane,
+                                  (start_page + off) * ps, ids[off : off + bucket])
+        self.kv_publish_pages += n
+        self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
+
+    def _lane_key(self, *key) -> tuple:
+        """A lane graph's key: ``("lane_...", ...)`` on the slab, with
+        ``_paged`` in its head in native mode."""
+        return (key[0] + "_paged",) + key[1:] if self.kv_native else key
+
+    def _lane_forward(self, tokens: torch.Tensor, pos: torch.Tensor, logits_mode: str):
+        """One forward of every lane at positions ``pos`` [B] (< 0:
+        parked): through the page table in native mode, on the lanes' slab
+        otherwise. Returns the logits."""
+        if self.kv_native:
+            kw = dict(page_table=self._pt_dev)
+            cache = self.kv_pool
+        else:
+            kw = dict(park=self._park)
+            cache = self.lane_cache
+        logits, _ = forward(self.params, self.header, tokens, pos, cache,
+                            logits_mode=logits_mode, **kw)
+        return logits
+
     @torch.inference_mode()
     def prefill_lane_chunk(self, lane: int, tokens: list[int], pos0: int,
                            budget: int | None = None) -> int:
         """Write ONE bucket-shaped chunk of ``tokens`` (fill rows: the
-        caller already dropped the prompt's final token) into ``lane``'s
-        pages at ``pos0``; returns how many tokens it consumed. ``budget``
-        caps the chunk width. Bucket padding writes rows past the tokens,
-        inside the lane's own pages (every slot from the match point on is
-        private: the manager forks a shared mid-page boundary); later
-        writes overwrite them before any query can see them."""
-        self._require_kv_pool()
+        caller already dropped the prompt's final token) into ``lane``'s KV
+        at ``pos0``; returns how many tokens it consumed. ``budget`` caps
+        the chunk width. Bucket padding writes rows past the tokens, inside
+        the lane's own rows (native: every slot from the match point on is
+        private, the manager forks a shared mid-page boundary); later writes
+        overwrite them before any query can see them."""
+        self._require_lanes()
         self._check_lane(lane)
         n = len(tokens)
         if n < 1:
@@ -980,13 +1199,17 @@ class InferenceEngine:
         bucket = self._bucket_for(want, pos0)
         width = min(bucket, want)
         cost = self._cost.forward(bucket, 0, pos0 + bucket, bucket, _pairs(bucket, pos0))
-        with self._kv_pool_guard(), _Dispatch(
-                self, "prefill_lane_chunk", ("lane_prefill_paged", bucket), cost, lane=lane,
-                pos=pos0, n_tokens=width, bucket=bucket):
+        key = ("lane_prefill_paged", bucket) if self.kv_native else ("lane_prefill", bucket, lane)
+        with self._lane_guard(), _Dispatch(
+                self, "prefill_lane_chunk", key, cost, lane=lane, pos=pos0, n_tokens=width,
+                bucket=bucket):
             if fault is not None:
                 raise fault
-            pt = self._page_table_dev()[lane : lane + 1]
-            self._lane_chunk(tokens[:width] + [0] * (bucket - width), pos0, pt)
+            chunk = tokens[:width] + [0] * (bucket - width)
+            if self.kv_native:
+                self._lane_chunk(chunk, pos0, self._page_table_dev()[lane : lane + 1])
+            else:
+                self._slab_lane_chunk(chunk, pos0, lane)
         return width
 
     def _lane_chunk(self, tokens: list[int], pos: int, pt_row: torch.Tensor | None) -> None:
@@ -1008,9 +1231,23 @@ class InferenceEngine:
                                              self.kv_pool, logits_mode="none",
                                              page_table=b["pt"]))
 
+    def _slab_lane_chunk(self, tokens: list[int], pos: int, lane: int) -> None:
+        """One lane-prefill chunk [1, T] at ``pos`` (< 0: parked, its rows
+        land in the lane's padding rows) on ``lane``'s rows of the lanes'
+        slab alone: the graph ``("lane_prefill", T, lane)``, one a lane,
+        whose slab entries see that lane's [1, KH, S + pad, hd] rows."""
+        t = len(tokens)
+        key = ("lane_prefill", t, lane)
+        b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
+        self.graphs.put(b["tok"], tokens)
+        self.graphs.put(b["pos"], pos)
+        view = {name: kv_lane(leaf, lane) for name, leaf in self.lane_cache.items()}
+        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"], view,
+                                             logits_mode="none", park=self._park))
+
     def prefill_lane(self, lane: int, tokens: list[int], pos0: int = 0) -> None:
         """Prefill one lane's prompt (all but the last token) chunk by
-        chunk; the other lanes' pages are untouched."""
+        chunk; the other lanes' rows are untouched."""
         self._check_lane(lane)
         n = len(tokens)
         if n < 1:
@@ -1043,7 +1280,7 @@ class InferenceEngine:
         lane that fills the cache mid-block parks itself and reports 0 for
         the remaining rows (callers stop consuming a lane at its cap).
         Tokens stay on the device between steps: one readback a block."""
-        self._require_kv_pool()
+        self._require_lanes()
         b, seq_len = self.batch_size, self.header.seq_len
         if len(tokens) != b or len(pos) != b:
             raise ValueError("tokens/pos must have one entry per lane")
@@ -1078,8 +1315,8 @@ class InferenceEngine:
         reads = sum(p + 1 for row in cur for p in row if p >= 0)
         live_rows = sum(p >= 0 for row in cur for p in row)
         cost = self._cost.forward(n_steps * b, n_steps * b, reads, live_rows, reads, n=n_steps)
-        with self._kv_pool_guard(), _Dispatch(
-                self, "decode_lanes", ("lane_block_paged", n_steps, sampled), cost,
+        with self._lane_guard(), _Dispatch(
+                self, "decode_lanes", self._lane_key("lane_block", n_steps, sampled), cost,
                 n_tokens=n_steps, pos=max(pos[i] for i in live), n_steps=n_steps,
                 n_live=len(live)) as d:
             if fault is not None:
@@ -1091,13 +1328,14 @@ class InferenceEngine:
 
     def _lane_block(self, tokens: list[int], cur: list[list[int]], sampled: bool,
                     temperature: list[float], topp: list[float], seeds: list[int]):
-        """Every lane's decode block in the graph ``("lane_block_paged", n,
-        sampled)``: tokens [B], positions ``cur`` [n][B] (-1: parked, reads
-        nothing and writes to the scratch page), sampling settings [B] (read
+        """Every lane's decode block in the graph ``("lane_block", n,
+        sampled)`` (``lane_block_paged`` in native mode): tokens [B],
+        positions ``cur`` [n][B] (-1: parked, reads nothing and writes to
+        the scratch page or the padding rows), sampling settings [B] (read
         only when ``sampled``). Returns the static output [n, B] on the
         device, 0 for parked rows."""
         n, bsz = len(cur), self.batch_size
-        key = ("lane_block_paged", n, sampled)
+        key = self._lane_key("lane_block", n, sampled)
         b = self.graphs.buffers(key, lambda: self._static(
             tok=((bsz, 1), I64), cur=((n, bsz), I32), temp=((bsz,), torch.float32),
             topp=((bsz,), torch.float32), seed=((bsz,), I64), out=((n, bsz), I64)))
@@ -1107,15 +1345,14 @@ class InferenceEngine:
             self.graphs.put(b["temp"], temperature)
             self.graphs.put(b["topp"], topp)
             self.graphs.put(b["seed"], seeds)
-        pt = self._page_table_dev()
+        if self.kv_native:
+            self._page_table_dev()
 
         def block():
             tok = b["tok"]
             for i in range(n):
                 p = b["cur"][i]
-                logits, _ = forward(self.params, self.header, tok, p, self.kv_pool,
-                                    logits_mode="last", page_table=pt)
-                last = logits[:, -1, :]
+                last = self._lane_forward(tok, p, "last")[:, -1, :]
                 if sampled:
                     nxt = sample_per_lane(last, b["temp"], b["topp"], b["seed"], p)
                 else:
@@ -1133,21 +1370,22 @@ class InferenceEngine:
         """Verify each active lane's draft row in ONE forward (dllama_tpu's
         ``verify_lanes``). ``rows[l]`` is [pending token, draft_0 ..
         draft_{k-1}, pads] of one shared width t, fed at positions pos[l] ..
-        pos[l] + t - 1 through the lane's pages; returns the greedy argmax
-        grid [lanes][t] (inactive lanes report 0), in one readback. The
-        caller accepts the longest draft prefix that agrees with the argmax
-        of the row before plus one correction token, and rewinds the rest:
-        the rejected rows' KV stays in the pool at or past the lane's
-        rewound position, where the causal mask hides it until later
-        writes overwrite it (why a publish of history[:pos] composes with
-        rewinds). Inactive lanes are parked at -t: the stats kernel reads
-        nothing for them and their rows land on the scratch page 0.
+        pos[l] + t - 1; returns the greedy argmax grid [lanes][t] (inactive
+        lanes report 0), in one readback. The caller accepts the longest
+        draft prefix that agrees with the argmax of the row before plus one
+        correction token, and rewinds the rest: the rejected rows' KV stays
+        at or past the lane's rewound position, where the causal mask hides
+        it until later writes overwrite it (why a publish of history[:pos]
+        composes with rewinds). Inactive lanes are parked at -t: the stats
+        kernel reads nothing for them and their rows land on the scratch
+        page 0 (native) or in their padding rows (slab).
 
         Checked on the host: one width, 2 <= t <= the largest prefill
-        bucket, and pos + t <= seq_len for every live lane (on the card a
-        page-table index past the table is not checked). The graph
-        ``("lane_verify_paged", t)``."""
-        self._require_kv_pool()
+        bucket (the slab's padding), and pos + t <= seq_len for every live
+        lane (on the card neither a page-table index past the table nor a
+        row past the slab is checked). The graph ``("lane_verify", t)``
+        (``lane_verify_paged`` in native mode)."""
+        self._require_lanes()
         b, seq_len = self.batch_size, self.header.seq_len
         if len(rows) != b or len(pos) != b or len(active) != b:
             raise ValueError("rows/pos/active must have one entry per lane")
@@ -1172,8 +1410,8 @@ class InferenceEngine:
         reads = sum(pos[i] + t for i in live)
         cost = self._cost.forward(b * t, b * t, reads, len(live) * t,
                                   sum(_pairs(t, pos[i]) for i in live))
-        with self._kv_pool_guard(), _Dispatch(
-                self, "verify_lanes", ("lane_verify_paged", t), cost, t=t,
+        with self._lane_guard(), _Dispatch(
+                self, "verify_lanes", self._lane_key("lane_verify", t), cost, t=t,
                 pos=max(pos[i] for i in live), n_live=len(live)) as d:
             if fault is not None:
                 raise fault
@@ -1184,20 +1422,20 @@ class InferenceEngine:
 
     def _lane_verify(self, rows: list[list[int]], cur: list[int]) -> torch.Tensor:
         """Every lane's verify row [B, t] at positions ``cur`` [B] (-t:
-        parked) in the graph ``("lane_verify_paged", t)``: all logits, their
-        argmax on the device, 0 for parked lanes. Returns the static output
-        [B, t] on the device."""
+        parked) in the graph ``("lane_verify", t)`` (``_paged`` in native
+        mode): all logits, their argmax on the device, 0 for parked lanes.
+        Returns the static output [B, t] on the device."""
         t, bsz = len(rows[0]), self.batch_size
-        key = ("lane_verify_paged", t)
+        key = self._lane_key("lane_verify", t)
         b = self.graphs.buffers(key, lambda: self._static(
             tok=((bsz, t), I64), pos=((bsz,), I32), out=((bsz, t), I64)))
         self.graphs.put(b["tok"], rows)
         self.graphs.put(b["pos"], cur)
-        pt = self._page_table_dev()
+        if self.kv_native:
+            self._page_table_dev()
 
         def verify():
-            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.kv_pool,
-                                logits_mode="all", page_table=pt)
+            logits = self._lane_forward(b["tok"], b["pos"], "all")
             b["out"].copy_(torch.where(b["pos"][:, None] >= 0, torch.argmax(logits, dim=-1), 0))
 
         self.graphs.run(key, verify)
@@ -1205,20 +1443,25 @@ class InferenceEngine:
 
     def rehearse_admission(self, block_size: int, spec_k: int = 0) -> None:
         """Capture the admission path's graphs before serving (dllama_tpu's
-        ``rehearse_admission``): every lane-prefill bucket, the greedy and
-        sampled lane decode block of ``block_size`` steps and, with
-        ``spec_k`` > 0, one verify graph per draft bucket
-        (`spec_buckets(min(spec_k, largest prefill bucket - 1))`, width 1 +
-        bucket). Each first use runs on the scratch page only (an all-zero
-        page-table row, every lane parked), so no lane's pages change. A
-        no-op where graphs are off (the CPU among them)."""
-        self._require_kv_pool()
+        ``rehearse_admission``): every lane-prefill bucket (on the slab,
+        each bucket for each lane), the greedy and sampled lane decode block
+        of ``block_size`` steps and, with ``spec_k`` > 0, one verify graph
+        per draft bucket (`spec_buckets(min(spec_k, largest prefill bucket -
+        1))`, width 1 + bucket). Each first use runs with every lane parked
+        (native: an all-zero page-table row, every write to the scratch
+        page; slab: at -T, every write to the padding rows), so no lane's
+        KV changes. A no-op where graphs are off (the CPU among them)."""
+        self._require_lanes()
         if not self.graphs.active:
             return
         bsz, n = self.batch_size, max(1, min(block_size, self.header.seq_len))
         with torch.inference_mode():
             for bucket in self.prefill_buckets:
-                self._lane_chunk([0] * bucket, 0, None)
+                if self.kv_native:
+                    self._lane_chunk([0] * bucket, 0, None)
+                else:
+                    for lane in range(bsz):
+                        self._slab_lane_chunk([0] * bucket, -bucket, lane)
             for sampled in (False, True):
                 self._lane_block([0] * bsz, [[-1] * bsz] * n, sampled, [1.0] * bsz,
                                  [1.0] * bsz, [0] * bsz)
@@ -1230,24 +1473,26 @@ class InferenceEngine:
     def generate_batch(self, prompts: list[list[int]], max_steps: int,
                        block_size: int = 8) -> list[list[int]]:
         """Decode independent sequences, one per lane (``batch_size ==
-        len(prompts)``); prompts may differ in length. Each lane gets the
-        private pages ``1 + lane * n_blocks ...`` (the pool must hold
-        ``batch_size * n_blocks + 1`` pages), prefills on its own and
-        decodes from its own position; ``max_steps`` caps each lane's
-        absolute position, as in `generate`. Greedy or sampled per the
-        engine temperature; returns the lanes' token lists."""
+        len(prompts)``); prompts may differ in length. Each lane prefills
+        on its own and decodes from its own position; ``max_steps`` caps
+        each lane's absolute position, as in `generate`. In native mode
+        each lane gets the private pages ``1 + lane * n_blocks ...`` (the
+        pool must hold ``batch_size * n_blocks + 1`` pages). Greedy or
+        sampled per the engine temperature; returns the lanes' token
+        lists."""
         if len(prompts) != self.batch_size:
             raise ValueError(f"{len(prompts)} prompts for batch_size {self.batch_size}")
-        self._require_kv_pool()
+        self._require_lanes()
         nb = self._kv_n_blocks
-        if self._kv_pool_pages < self.batch_size * nb + 1:
+        if self.kv_native and self._kv_pool_pages < self.batch_size * nb + 1:
             raise ValueError(f"generate_batch needs {self.batch_size * nb + 1} pool pages, "
                              f"the pool has {self._kv_pool_pages}")
         max_pos = min(self.header.seq_len, max_steps)
         for lane, p in enumerate(prompts):
             if not p:
                 raise ValueError(f"lane {lane}: empty prompt")
-            self.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
+            if self.kv_native:
+                self.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
             self.prefill_lane(lane, p)
         pos = [len(p) - 1 for p in prompts]
         tokens = [p[-1] for p in prompts]

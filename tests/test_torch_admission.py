@@ -304,7 +304,7 @@ def states(files):
         "jax": (japi, japi.ApiState(jeng, jtok, lane_block_size=4, admission_chunk=6,
                                     admission_predict=True)),
         "port": (api, api.ApiState(_port_engine(files), Tokenizer(files[1]), lane_block_size=4,
-                                   admission_chunk=6, admission_predict=True)),
+                                   admission_chunk=6, admission_predict=True, kv_native=True)),
     }
     yield out
     for _, state in out.values():
@@ -560,7 +560,7 @@ def jax_server(files):
 @pytest.fixture(scope="module", params=["off", "shared"])
 def port_server(files, request):
     srv = _start(api.serve(_port_engine(files), Tokenizer(files[1]), host="127.0.0.1", port=0,
-                           lane_block_size=4, kv_page_size=4, max_streams=2,
+                           lane_block_size=4, kv_page_size=4, kv_native=True, max_streams=2,
                            admission_predict=True, speculation=request.param))
     yield srv
     srv.shutdown()
@@ -644,7 +644,7 @@ def test_scheduler_keeps_decoding_across_a_profile(files, tmp_path, monkeypatch)
     import torch.profiler as tp
 
     srv = _start(api.serve(_port_engine(files), Tokenizer(files[1]), host="127.0.0.1", port=0,
-                           lane_block_size=4, kv_page_size=4))
+                           lane_block_size=4, kv_page_size=4, kv_native=True))
     state = srv.state
     # this server's own watchdog: a fake clock, its own registry and
     # recorder, checked by hand (no thread)

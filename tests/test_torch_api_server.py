@@ -53,7 +53,7 @@ def servers(files):
     jsrv = jserve(jeng, jtok, host="127.0.0.1", port=0)
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=3, device="cpu",
                           batch_size=3)
-    srv = serve(eng, Tokenizer(tp_), host="127.0.0.1", port=0, kv_page_size=8)
+    srv = serve(eng, Tokenizer(tp_), host="127.0.0.1", port=0, kv_page_size=8, kv_native=True)
     yield _start(jsrv), _start(srv), srv
     for s in (jsrv, srv):
         s.shutdown()
@@ -157,9 +157,22 @@ def test_models_and_health(servers):
 
 
 def test_single_stream_server_path_is_refused(files):
-    eng = InferenceEngine(files[0], dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        ApiState(eng, Tokenizer(files[1]))
+    """The batch-1 server serves one request at a time with no scheduler;
+    what it refuses is a ``resume_tokens`` request (400: a resume needs
+    the lanes), as the JAX server's serialized path does."""
+    eng = InferenceEngine(files[0], dtype=torch.float32, temperature=0.0, device="cpu")
+    srv = serve(eng, Tokenizer(files[1]), host="127.0.0.1", port=0)
+    try:
+        assert isinstance(srv.state, ApiState) and srv.state.scheduler is None
+        url = _start(srv)
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(url, {"messages": [], "resume_tokens": [1, 2, 3], "max_tokens": 4})
+        assert err.value.code == 400
+        assert "lane scheduler" in json.loads(err.value.read())["error"]["message"]
+        assert _ask(url, "hello")["choices"][0]["finish_reason"] in ("stop", "length")
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_engine_error_fails_in_flight_and_keeps_serving(servers):

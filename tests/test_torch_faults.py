@@ -153,7 +153,7 @@ def _guarded_engine(mp, kv_dtype=None):
     e = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=3, device="cpu",
                         batch_size=2, kv_dtype=kv_dtype)
     e.graphs = ReplayingGraphs()
-    e.init_kv_pool(8)
+    e.init_kv_pool(8, native=True)
     nb = e._kv_n_blocks
     for lane, p in enumerate(PROMPTS2):
         e.adopt_pages(lane, list(range(1 + lane * nb, 1 + (lane + 1) * nb)))
@@ -244,6 +244,7 @@ def test_failed_reset_raises_from_the_fault(files, monkeypatch):
 def _serve(mp, tp_, **kw):
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=3, device="cpu",
                           batch_size=kw.pop("batch_size", 4))
+    kw.setdefault("kv_native", True)
     srv = api.serve(eng, Tokenizer(tp_), host="127.0.0.1", port=0, **kw)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv
@@ -608,7 +609,7 @@ def _state(files, **kw):
     eng = InferenceEngine(files[0], dtype=torch.float32, temperature=0.0, seed=3, device="cpu",
                           batch_size=kw.pop("batch_size", 2), kv_dtype=kw.pop("kv_dtype", None))
     return api.ApiState(eng, Tokenizer(files[1]), lane_block_size=4, admission_chunk=16,
-                        kv_page_size=8, retry_backoff_ms=0, **kw)
+                        kv_page_size=8, retry_backoff_ms=0, kv_native=True, **kw)
 
 
 def _drain_job(job):

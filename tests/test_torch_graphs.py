@@ -177,7 +177,7 @@ def test_cuda_graphs_on_cpu_capture_nothing(models):
 def _lane_engine(mp):
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, device="cpu",
                           batch_size=2)
-    eng.init_kv_pool(4)
+    eng.init_kv_pool(4, native=True)
     gen = torch.Generator().manual_seed(0)
     for t in eng.kv_pool.values():
         t.copy_(torch.randn(t.shape, generator=gen))
@@ -253,7 +253,7 @@ def test_replayed_single_stream_equals_eager(models, arch):
 def test_replayed_lanes_equal_eager(models, arch):
     eager, graphed = _engines(models[arch], temperature=0.0, batch_size=2)
     for eng in (eager, graphed):
-        eng.init_kv_pool(4)
+        eng.init_kv_pool(4, native=True)
         eng.rehearse_admission(8)
     assert eager.graphs.n_graphs == 0 and graphed.graphs.n_graphs > 0
     prompts = [[5, 9, 13, 17, 21, 25, 29], [2 + (i * 7) % 250 for i in range(23)]]

@@ -138,3 +138,30 @@ def test_admission_slice_module_is_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_slab_and_serialized_slice_modules_are_covered():
+    """The modules the slab-lane and serialized-server slice touched (the
+    manager's slab mode, the slab copies in ops/kv_cache.py, the engine, the
+    model, the server with its NaiveCache, the CLI) are among the modules
+    and files checked above, and the server's batch-1 and slab pieces import
+    with jax, dllama_tpu and triton blocked and no card asked for."""
+    mods, files = _port_modules(), _port_files()
+    for m in ("kv.manager", "ops.kv_cache", "runtime.engine", "models.transformer",
+              "runtime.api_server", "cli"):
+        assert f"dllama_tpu_torch.{m}" in mods
+        assert os.path.join(PKG, *m.split(".")) + ".py" in files
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'dllama_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "from dllama_tpu_torch.runtime.api_server import NaiveCache, resolve_kv_knobs\n"
+        "from dllama_tpu_torch.ops.kv_cache import pages_to_rows, rows_to_pages, kv_lane\n"
+        "assert NaiveCache().probe([]) == 0 and resolve_kv_knobs(8, 0, False)[0] == 8\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

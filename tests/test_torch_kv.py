@@ -225,7 +225,7 @@ def _manager_flow(kv, eng):
 def test_native_manager_matches_jax():
     eng_j, eng_t = _StubEngine(16), _StubEngine(16)
     kv_j = jmanager.PagedKVManager(eng_j, page_size=PS, n_pages=64, native=True)
-    kv_t = tmanager.PagedKVManager(eng_t, page_size=PS, n_pages=64)
+    kv_t = tmanager.PagedKVManager(eng_t, page_size=PS, n_pages=64, native=True)
     got, want = _manager_flow(kv_t, eng_t), _manager_flow(kv_j, eng_j)
     assert got == want
     # a full-page adopt copied nothing; the mid-page one forked one page
@@ -238,7 +238,7 @@ def test_match_retains_pages_until_release():
     pages at once, so another lane's eviction pressure in the match ->
     adopt gap cannot free them; release_lane drops the pin."""
     eng = _StubEngine(2)
-    kv = tmanager.PagedKVManager(eng, page_size=PS, n_pages=12)
+    kv = tmanager.PagedKVManager(eng, page_size=PS, n_pages=12, native=True)
     A = [10 + i for i in range(8)]
     kv.match(0, A + [1])
     kv.adopt(0, [])

@@ -326,7 +326,7 @@ def test_cow_fork_carries_scales_and_reset_restores_them(models):
     mp = models["llama"]
     fresh = _lane_stream(_native(_engine(mp, batch_size=2)), 0, PROMPT, 10)
     e = _engine(mp, batch_size=2)
-    kv = PagedKVManager(e, page_size=4)
+    kv = PagedKVManager(e, page_size=4, native=True)
     kv.adopt(0, kv.match(0, PROMPT)[1])
     first = _lane_stream(e, 0, PROMPT, 10)
     kv.publish(0, PROMPT + first)
@@ -421,7 +421,7 @@ def test_server_with_int8_kv_matches_jax_and_health(tmp_path):
     jtok = JTokenizer(tp_)
     jeng = JEngine(mp, tokenizer=jtok, tp=1, dtype=jnp.float32, temperature=0.0, seed=3,
                    batch_size=2, weight_format="q40", kv_dtype="int8")
-    servers = [serve(eng, tok, host="127.0.0.1", port=0, kv_page_size=8),
+    servers = [serve(eng, tok, host="127.0.0.1", port=0, kv_page_size=8, kv_native=True),
                jserve(jeng, jtok, host="127.0.0.1", port=0)]
     try:
         urls = []

@@ -95,7 +95,7 @@ def test_generate_batch_ragged_matches_jax(models):
     jeng = JEngine(mp, tp=1, dtype=jnp.float32, temperature=0.0, batch_size=2)
     want = jeng.generate_batch(prompts, max_steps=30, block_size=4)
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, device="cpu", batch_size=2)
-    eng.init_kv_pool(4)
+    eng.init_kv_pool(4, native=True)
     assert eng.generate_batch(prompts, max_steps=30, block_size=4) == want
 
 
@@ -126,7 +126,7 @@ def test_manager_zero_copy_adopt_and_cow_fork(models):
     expected = _stream(ref, 1, PROMPT, 10, seed=42)
 
     e = InferenceEngine(mp, dtype=torch.float32, temperature=0.8, device="cpu", batch_size=2)
-    kv = PagedKVManager(e, page_size=4)
+    kv = PagedKVManager(e, page_size=4, native=True)
     assert kv.match(0, PROMPT) == (0, [])
     kv.adopt(0, [])  # allocates the lane's private pages
     e.prefill_lane(0, PROMPT)
@@ -192,6 +192,12 @@ def test_topp_mask_support_matches_jax(topp):
 
 
 def test_init_kv_pool_slab_mode_is_refused(models):
-    e = InferenceEngine(models["llama"], dtype=torch.float32, device="cpu", batch_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    """Slab lanes park their writes in padding rows past seq_len, so the
+    slab mode (the default) is refused at batch size 1, as the JAX
+    engine's; pool-native lanes are not."""
+    e = InferenceEngine(models["llama"], dtype=torch.float32, device="cpu", batch_size=1)
+    with pytest.raises(ValueError, match="batch_size > 1"):
         e.init_kv_pool(4, native=False)
+    with pytest.raises(ValueError, match="batch_size > 1"):
+        e.init_kv_pool(4)
+    assert e.init_kv_pool(4, native=True) > 0

@@ -121,7 +121,7 @@ def _port_server(files, **kw):
     eng = InferenceEngine(files[0], dtype=torch.float32, temperature=0.0, seed=3, device="cpu",
                           batch_size=2)
     return _start(api.serve(eng, Tokenizer(files[1]), host="127.0.0.1", port=0,
-                            **dict(KNOBS, **kw)))
+                            **dict(KNOBS, kv_native=True, **kw)))
 
 
 def _jax_server(files):
@@ -464,7 +464,7 @@ def test_engine_brackets_every_dispatch(files, tmp_path):
             eng.generate([1, 2, 3, 4, 5, 6, 7], max_steps=24)
             eng.perplexity([1, 2, 3, 4, 5, 6])
             eng.decode_step(3, 30)
-        eng.init_kv_pool(8)
+        eng.init_kv_pool(8, native=True)
         eng.adopt_pages(0, [1, 2, 3])
         eng.adopt_pages(1, [4, 5, 6])
         for _ in range(2):

@@ -201,7 +201,8 @@ def test_anchor_for_matches_jax_manager(files):
     mp = files["llama"]
     jeng = JEngine(mp, tp=1, dtype=jnp.float32, temperature=0.0, batch_size=2)
     eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, device="cpu", batch_size=2)
-    managers = (PagedKVManager(eng, page_size=4), JManager(jeng, page_size=4, native=True))
+    managers = (PagedKVManager(eng, page_size=4, native=True),
+                JManager(jeng, page_size=4, native=True))
     a = list(range(3, 23))
     steps = [("match", 0, a), ("publish", 0, a[:16]), ("release", 0, None),
              ("match", 1, a[:16] + [200, 201, 202, 203]), ("publish", 1, a[:16] + [200] * 8),
@@ -387,7 +388,7 @@ def _state(files, **kw):
     eng = InferenceEngine(files["llama"], dtype=torch.float32, temperature=0.0, seed=3,
                           device="cpu", batch_size=3)
     return api.ApiState(eng, Tokenizer(files["tok"]), lane_block_size=4, admission_chunk=6,
-                        **kw)
+                        **dict(dict(kv_native=True), **kw))
 
 
 @pytest.fixture(scope="module")

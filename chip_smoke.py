@@ -167,11 +167,31 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the verify grid equal to stepwise greedy decode, verify-row logits within
    TOL_E2E of the decode steps').
    An int8-KV run holds every cache of its parity runs in int8.
+   This slice's paths (all at full width): the mixed-type attention
+   entries' rows (`check_mixed`: (q, cache) in (f32, bf16), (f32, f16),
+   (bf16, f16), (bf16, f32), slab and paged stats and decode, identity-table
+   bits) and the two-tier MoE decode's rows (`check_moe_tiers`: 4 lanes,
+   k 8, cap 16, u 8 on the grouped tier and u 32 on the active one); the
+   draft rounds after the serialized round (`serving_draft`: llama-8b q40
+   with a llama-1b draft, off and draft in turns; an f32 4-layer target as
+   its own draft, accepted drafts, answers equal to spec-off's, a failed
+   draft step resetting only the draft cache); the mixed-KV runs on the
+   llama-8b file (`mixed_kv`: an f32 engine over a bf16 cache with its
+   kernel-vs-plain parity, a bf16 engine over an f16 cache, single stream
+   and 4 native lanes); and on the 48-layer qwen3-30b-a3b file the dedup
+   round (`moe_dedup`: identical prompts on the grouped tier at every
+   layer-step, distinct prompts' share, dedup-on streams equal dedup-off's
+   in f32, a decode step's device ms on against off in turns). Every CLI
+   run's prefill buckets must be (1, 32, 512) (`--nbatches` 32). Depth cuts
+   for the time (PR 18): llama-8b ``q40 kv-int8``, ``q40i4`` and ``q40i8``
+   at `CUT_LAYERS` of 32 layers, qwen3-30b-a3b ``q40i8`` on the 4-layer
+   file.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
    ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
-   QuantKV branch or the JAX route) with ``composite_ms`` beside the
-   contract's keys; last, the device JSON line.
+   QuantKV branch or the JAX route) and the mixed-type entries
+   (``*_mixed``, whose ``replaces`` names the TPU kernels' upcast) with
+   ``composite_ms`` beside the contract's keys; last, the device JSON line.
 
 Imports nothing of JAX or dllama_tpu.
 """
@@ -230,10 +250,17 @@ MOE_LAYERS = 48  # the whole qwen3-30b-a3b depth (q40 path)
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 # model file -> (its label, preset, layers, the runs on it: a weight format,
 # " kv-int8" added for the int8 KV cache)
+# the llama-8b runs of the packed-nibble and int8 formats and of the int8 KV
+# cache, and qwen3-30b-a3b's q40i8 run, depth cut (PR 18) to keep the smoke
+# inside its time with this slice's phases: they hold the same kernels at
+# the same widths, each layer a repeat of the first (the serving phase still
+# serves the int8 pool at full depth)
+CUT_LAYERS = 8
 MODELS = [
-    ("llama-8b", "llama-8b", N_LAYERS, ("q40", "q40 kv-int8", "q40i4", "q40i8")),
-    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_LAYERS, ("auto", "q40i8")),
-    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_DENSE_LAYERS, ("dense",)),
+    ("llama-8b", "llama-8b", N_LAYERS, ("q40",)),
+    ("llama-8b", "llama-8b", CUT_LAYERS, ("q40 kv-int8", "q40i4", "q40i8")),
+    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_LAYERS, ("auto",)),
+    ("qwen3-30b-a3b", "qwen3-30b-a3b", MOE_DENSE_LAYERS, ("dense", "q40i8")),
 ]
 
 Q40_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
@@ -262,6 +289,11 @@ REPLACES = {
     "flash_attention_stats_kv8": "dllama_tpu/ops/flash_attention.py:124",
     "flash_decode_kv8": "dllama_tpu/models/transformer.py:218",
     "paged_flash_decode_kv8": "dllama_tpu/ops/flash_attention.py:595",
+    # a float cache type unlike q's: the TPU kernels' upcast of q, K and V to
+    # f32 inside the kernel (the lines that read the q and K tiles)
+    "flash_attention_stats_mixed": "dllama_tpu/ops/flash_attention.py:121",
+    "flash_decode_mixed": "dllama_tpu/ops/flash_attention.py:349",
+    "paged_flash_decode_mixed": "dllama_tpu/ops/flash_attention.py:592",
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
@@ -277,6 +309,9 @@ SOURCES = {
     "flash_attention_stats_kv8": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode_kv8": "dllama_tpu_torch/csrc/flash_decode.cu",
     "paged_flash_decode_kv8": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "flash_attention_stats_mixed": "dllama_tpu_torch/csrc/flash_attention.cu",
+    "flash_decode_mixed": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "paged_flash_decode_mixed": "dllama_tpu_torch/csrc/flash_decode.cu",
 }
 # the row of phase 2 whose times stand in the kernels line
 KERNEL_ROW_SHAPE = {
@@ -293,6 +328,9 @@ KERNEL_ROW_SHAPE = {
     "flash_attention_stats_kv8": "bf16 H=32 KH=8 T=512 S=4096 pos=3584",
     "flash_decode_kv8": "bf16 H=32 KH=8 S=4096 pos=4095",
     "paged_flash_decode_kv8": "bf16 H=32 KH=8 B=4 pos=0,15,16,4095",
+    "flash_attention_stats_mixed": "f32/bf16 H=32 KH=8 T=512 S=4096 pos=3584",
+    "flash_decode_mixed": "f32/bf16 H=32 KH=8 S=4096 pos=4095",
+    "paged_flash_decode_mixed": "bf16/f16 H=32 KH=8 B=4 pos=0,15,16,4095",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
 # the MoE kernels' edges at about A3B's widths: D and F not multiples of a
@@ -1277,6 +1315,246 @@ def check_kv8(device, gen, timed: bool = True) -> list[dict]:
     return rows
 
 
+# the mixed-type entries' pairs (q's type, the cache's type): a float cache
+# type unlike the model's (`--kv-dtype`), each pair a ``_mx`` instantiation
+MIXED_PAIRS = (("f32", "bf16"), ("f32", "f16"), ("bf16", "f16"), ("bf16", "f32"))
+MIXED_DECODE_POS = (0, 563, 4095)
+
+
+def check_mixed(device, gen, timed: bool = True) -> list[dict]:
+    """The mixed-type entries of both attention kernels (``*_mx``: q and the
+    cache each in its own float type, read in its type and computed in f32,
+    as every TPU kernel upcasts its tiles) at llama-8b heads (H 32, KH 8, hd
+    128) for each pair of `MIXED_PAIRS`: slab stats at T 512 over S 4096 at
+    pos 3584, slab decode at `MIXED_DECODE_POS`, and through a shuffled page
+    table (page 16, B 4 at `PAGED_POS`) the paged decode and the paged stats
+    at T 128, the identity table giving the slab entries' bits. Each within
+    TOL (f32 outputs: the stats, and decode under f32 q) or TOL_BF16_OUT
+    (bf16 decode outputs) of its plain version, launched twice with equal
+    bits, counted under its ``*_mixed`` counter. Timed: the kernel, its
+    plain version and ``composite_ms``, the cast of the cache to q's type
+    then SDPA (two calls; ``library_ms`` none: no single PyTorch call
+    attends over a cache of another type)."""
+    import torch
+
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops.kv_cache import lane_views
+
+    types = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    h, kh, hd, t, s = 32, 8, 128, 512, 4096
+    rows = []
+
+    def row(name, shape, got, ref, n_bytes, pairs, out_bf16, counter, launches):
+        torch.cuda.synchronize(device)
+        got_t, ref_t = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        errs = [norm_err(a, b) for a, b in zip(got_t, ref_t)]
+        rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+        tol = TOL_BF16_OUT if out_bf16 else TOL
+        require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
+        require(counter.launches == launches,
+                f"{name} {shape}: {counter.launches} launches, wanted {launches}")
+        b_ms, b_by = bound(n_bytes, 4.0 * hd * h * pairs, F32_FLOPS)
+        return dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    for qn, kn in MIXED_PAIRS:
+        qt, kt = types[qn], types[kn]
+        tag, qb, kb = f"{qn}/{kn}", qt.itemsize, kt.itemsize
+
+        def kv(shape):
+            return [torch.randn(shape, device=device, generator=gen).to(kt) for _ in range(2)]
+
+        # slab stats
+        pos = s - t
+        q = torch.randn((1, t, h, hd), device=device, generator=gen).to(qt)
+        k, v = kv((1, kh, s, hd))
+        c = fa.flash_attention_stats_mixed
+        n0 = c.launches
+        got = twice_equal(lambda: fa.flash_attention_stats(q, k, v, pos),
+                          f"flash_attention_stats_mixed {tag}")
+        ref = fa.flash_attention_stats_ref(q, k, v, pos)
+        vis = sum(min(s, pos + i + 1) for i in range(t))
+        n_bytes = q.numel() * qb + 2 * kh * s * hd * kb + h * t * (hd + 2) * 4
+        r = row("flash_attention_stats_mixed", f"{tag} H={h} KH={kh} T={t} S={s} pos={pos}",
+                got, ref, n_bytes, vis, False, c, n0 + 2)
+        if timed:
+            qpos = pos + torch.arange(t, device=device)
+            mask = torch.arange(s, device=device)[None, :] <= qpos[:, None]
+            qs = q.transpose(1, 2)
+            r["ms"] = time_ms(lambda: fa.flash_attention_stats(q, k, v, pos), device)
+            r["plain_ms"] = time_ms(lambda: fa.flash_attention_stats_ref(q, k, v, pos), device, 5)
+            r["composite_ms"] = time_ms(lambda: _sdpa(qs, k.to(qt), v.to(qt), mask), device)
+        rows.append(r)
+        del q, k, v
+
+        # slab decode
+        k, v = kv((1, kh, s, hd))
+        c = fa.flash_decode_mixed
+        for p in MIXED_DECODE_POS:
+            q = torch.randn((1, 1, h, hd), device=device, generator=gen).to(qt)
+            n0 = c.launches
+            got = twice_equal(lambda: fa.flash_decode(q, k, v, p), f"flash_decode_mixed {tag}")
+            ref = fa.flash_decode_ref(q, k, v, p)
+            n_bytes = 2 * q.numel() * qb + 2 * kh * (p + 1) * hd * kb
+            r = row("flash_decode_mixed", f"{tag} H={h} KH={kh} S={s} pos={p}", got, ref,
+                    n_bytes, p + 1, qt == torch.bfloat16, c, n0 + 2)
+            if timed:
+                qs, ks, vs = q.transpose(1, 2), k[:, :, : p + 1], v[:, :, : p + 1]
+                r["ms"] = time_ms(lambda: fa.flash_decode(q, k, v, p), device)
+                r["plain_ms"] = time_ms(lambda: fa.flash_decode_ref(q, k, v, p), device, 5)
+                r["composite_ms"] = time_ms(lambda: _sdpa(qs, ks.to(qt), vs.to(qt), None),
+                                            device)
+            rows.append(r)
+        del k, v
+
+        # paged decode and paged stats, with the identity table's bits
+        (kp, vp), pt, (ks_, vs_), (ki, vi), pt_ident = _paged_case(device, gen, h, kh, kt)
+        posv = torch.tensor(PAGED_POS, dtype=torch.int32, device=device)
+        q = torch.randn((4, 1, h, hd), device=device, generator=gen).to(qt)
+        c = fa.paged_flash_decode_mixed
+        n0 = c.launches
+        shape = f"{tag} H={h} KH={kh} B=4 pos={','.join(map(str, PAGED_POS))}"
+        got = twice_equal(lambda: fa.paged_flash_decode(q, kp, vp, pt, posv),
+                          f"paged_flash_decode_mixed {shape}")
+        ref = fa.paged_flash_decode_ref(q, kp, vp, pt, posv)
+        ident = fa.paged_flash_decode(q, ki, vi, pt_ident, posv)
+        slab = fa.flash_decode(q, ks_, vs_, posv)
+        torch.cuda.synchronize(device)
+        require(torch.equal(ident, slab),
+                f"paged_flash_decode_mixed {shape}: identity table differs from flash_decode")
+        live = sum(p + 1 for p in PAGED_POS)
+        n_bytes = 2 * kh * live * hd * kb + 2 * q.numel() * qb + pt.numel() * 4
+        r = row("paged_flash_decode_mixed", shape, got, ref, n_bytes, live,
+                qt == torch.bfloat16, c, n0 + 3)
+        r["identity_bits_equal"] = True
+        if timed:
+            lk, lv = lane_views(kp, pt), lane_views(vp, pt)
+            mask = (torch.arange(s, device=device)[None, :] <= posv[:, None])[:, None, None]
+            qs = q.transpose(1, 2)
+            r["ms"] = time_ms(lambda: fa.paged_flash_decode(q, kp, vp, pt, posv), device)
+            r["plain_ms"] = time_ms(lambda: fa.paged_flash_decode_ref(q, kp, vp, pt, posv),
+                                    device, 5)
+            r["composite_ms"] = time_ms(lambda: _sdpa(qs, lk.to(qt), lv.to(qt), mask), device)
+            del lk, lv
+        rows.append(r)
+
+        tc = 128
+        q_pos0 = torch.tensor([256, 3000, 0, s - tc], dtype=torch.int32, device=device)
+        qc = torch.randn((4, tc, h, hd), device=device, generator=gen).to(qt)
+        c = fa.flash_attention_stats_mixed
+        n0 = c.launches
+        shape = f"{tag} H={h} KH={kh} B=4 T={tc} paged"
+        got = twice_equal(lambda: fa.paged_flash_attention_stats(qc, kp, vp, pt, q_pos0),
+                          f"flash_attention_stats_mixed {shape}")
+        ref = fa.paged_flash_attention_stats_ref(qc, kp, vp, pt, q_pos0)
+        ident = fa.paged_flash_attention_stats(qc, ki, vi, pt_ident, q_pos0)
+        slab = fa.flash_attention_stats(qc, ks_, vs_, q_pos0)
+        torch.cuda.synchronize(device)
+        require(all(torch.equal(a, b) for a, b in zip(ident, slab)),
+                f"flash_attention_stats_mixed {shape}: identity table differs from the slab "
+                "entry")
+        vis = sum(min(s, int(p) + i + 1) for p in q_pos0.tolist() for i in range(tc))
+        n_bytes = (qc.numel() * qb + 2 * kh * hd * kb * sum(min(s, int(p) + tc)
+                                                            for p in q_pos0.tolist())
+                   + h * 4 * tc * (hd + 2) * 4)
+        r = row("flash_attention_stats_mixed", shape, got, ref, n_bytes, vis, False, c, n0 + 4)
+        r["identity_bits_equal"] = True
+        rows.append(r)
+        del kp, vp, ks_, vs_, ki, vi, qc
+        gc.collect()
+    return rows
+
+
+MOE_DECODE_LANES = 4  # the serving lanes of a decode step
+
+
+def check_moe_tiers(device, gen, timed: bool = True) -> list[dict]:
+    """The two-tier decode (`moe_decode_tiers`, ``--moe-decode-dedup``) at
+    A3B's experts (E 128, D 2048, F 768, k 8) and a 4-lane decode step (n 4,
+    cap (4 * 8) // 2 = 16), dense bf16 and Q40 experts, bf16 and f32 x:
+    with every lane on the same 8 experts (u 8 <= cap) the grouped kernel
+    takes the step under the cap's schedule (ceil(32 / 64) + 16 = 17 runs)
+    and the active one returns at once; held within TOL_MOE_BF16 (bf16) or
+    TOL (f32) of `moe_experts_ref`, printed against the active kernel alone
+    on the same inputs, launched twice with equal bits, and the tier tally
+    moved by one grouped step each. With 32 distinct experts (u 32 > cap)
+    the grouped grid does nothing, the output has the active kernel's bits
+    alone, and nothing faults (the capped schedule's rows are clamped into
+    its grid). Timed: the tiered call against the active kernel alone on
+    the identical-routing inputs (``library_ms`` none)."""
+    import torch
+
+    from dllama_tpu_torch.ops import moe
+    from dllama_tpu_torch.ops.quant_matmul import QuantWeight, dequant
+
+    e, d, f, k = (MOE_SHAPE[key] for key in ("e", "d", "f", "k"))
+    n = MOE_DECODE_LANES
+    cap = moe.dedup_cap(n, k, True)
+
+    def q40(rows, cols):
+        q = torch.randint(-8, 8, (e, rows, cols), dtype=torch.int8, device=device, generator=gen)
+        sc = ((torch.rand((e, rows, cols // 32), device=device, generator=gen) + 0.5) * 0.004)
+        sc = torch.where(torch.rand(sc.shape, device=device, generator=gen) < 0.5, -sc, sc)
+        return QuantWeight(q, sc.half().contiguous())
+
+    qw = [q40(f, d), q40(d, f), q40(f, d)]
+    tally = moe.tier_tally(device)
+    rows = []
+    for quant in (True, False):
+        for dtype in (torch.bfloat16, torch.float32):
+            ws = qw if quant else [dequant(w, dtype) for w in qw]
+            grouped = moe.moe_grouped_experts_q40 if quant else moe.moe_grouped_experts
+            active = moe.moe_active_experts_q40 if quant else moe.moe_active_experts
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            x = torch.randn((n, d), device=device, generator=gen).to(dtype)
+            wts = torch.rand((n, k), device=device, generator=gen) + 0.1
+            wts = wts / wts.sum(-1, keepdim=True)
+            chosen = torch.randperm(e, device=device, generator=gen)[:k].int()
+            shared = chosen[torch.rand((n, k), device=device, generator=gen).argsort(-1)]
+            distinct = torch.randperm(e, device=device, generator=gen)[: n * k].int().view(n, k)
+            for routing, top_i in (("u=8", shared), ("u=32", distinct)):
+                label = f"{tag} decode n={n} cap={cap} {routing}"
+                g0, a0 = grouped.launches, active.launches
+                tally.zero_()
+                got = twice_equal(lambda: moe.moe_decode_tiers(x, *ws, top_i, wts, cap),
+                                  f"{grouped.__name__} {label}")
+                alone = active(x, *ws, top_i, wts)
+                ref = moe.moe_experts_ref(x, *ws, top_i, wts)
+                torch.cuda.synchronize(device)
+                require(grouped.launches == g0 + 2 and active.launches == a0 + 3,
+                        f"{label}: the tiers did not launch both kernels")
+                took, steps = tally.tolist()
+                want = 2 if routing == "u=8" else 0
+                require((took, steps) == (want, 2),
+                        f"{label}: {took} of {steps} steps took the grouped tier, wanted {want}")
+                rel, absd = norm_err(got, ref)
+                tol = TOL if dtype == torch.float32 else TOL_MOE_BF16
+                require(rel <= tol, f"{label}: error {rel:.3e} > {tol}")
+                vs_active = norm_err(got, alone)[0]
+                if routing == "u=32":
+                    require(torch.equal(got, alone),
+                            f"{label}: the active tier's output is not the active kernel's bits")
+                    continue
+                w_bytes = sum((w.q.numel() + w.d.numel() * 2) if quant
+                              else w.numel() * w.element_size() for w in ws) // e
+                n_bytes = k * w_bytes + x.numel() * x.element_size() + n * d * 4 + n * k * 8
+                b_ms, b_by = bound(n_bytes, 6.0 * n * k * d * f,
+                                   F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+                r = dict(name=grouped.__name__, shape=label, err=rel, max_abs_err=absd,
+                         bound_ms=b_ms, bound_by=b_by, experts=k, library_ms=None,
+                         vs_active=vs_active)
+                if timed:
+                    r["ms"] = time_ms(lambda: moe.moe_decode_tiers(x, *ws, top_i, wts, cap),
+                                      device)
+                    r["active_ms"] = time_ms(lambda: active(x, *ws, top_i, wts), device)
+                    r["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts),
+                                            device, 5)
+                rows.append(r)
+            del ws
+            gc.collect()
+    return rows
+
+
 RAGGED_T = 100  # a prefill chunk that fills no tile
 
 
@@ -1546,11 +1824,13 @@ def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tok
     return res
 
 
-def forward_rows(n_prompt: int, n_decode: int) -> list[int]:
+# the CLI's prefill buckets under its default --nbatches 32: (1, nbatches, 512)
+CLI_BUCKETS = (1, 32, 512)
+
+
+def forward_rows(n_prompt: int, n_decode: int, buckets=CLI_BUCKETS) -> list[int]:
     """Rows of each forward the engine runs: the padded prefill buckets of
     all but the last prompt token, then one row a decoded token."""
-    from dllama_tpu_torch.runtime.engine import PREFILL_BUCKETS as buckets
-
     rows, left = [], n_prompt - 1
     while left > 0:
         bucket = next((b for b in buckets if left <= b), buckets[-1])
@@ -4043,7 +4323,8 @@ def main() -> int:
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
             + check_paged_decode(device, gen) + check_verify_stats(device, gen)
-            + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen))
+            + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen)
+            + check_mixed(device, gen) + check_moe_tiers(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -4058,9 +4339,17 @@ def main() -> int:
             note += f"; bits equal to plain {r['plain_equal']}"
         if "int_mm_ms" in r:
             note += f"; torch._int_mm {r['int_mm_ms']:.4f}"
-        if "composite_ms" in r:
+        if "composite_ms" in r and r["name"].endswith("_mixed"):
+            note += (f" (no single PyTorch call attends over a cache of another type); cast + "
+                     f"SDPA, two calls, {r['composite_ms']:.4f}")
+        elif "composite_ms" in r:
             note += (f" (no single PyTorch call attends over int8 K/V); dequantize + SDPA, two "
                      f"calls, {r['composite_ms']:.4f}")
+        if "vs_active" in r:
+            note += (f"; two-tier decode, grouped tier: vs the active kernel alone err "
+                     f"{r['vs_active']:.2e}"
+                     + (f", active kernel alone ms {r['active_ms']:.4f}" if "active_ms" in r
+                        else ""))
         if "identity_bits_equal" in r:
             note += f"; identity table bits equal to the slab kernel {r['identity_bits_equal']}"
         print(
@@ -4072,22 +4361,26 @@ def main() -> int:
 
     from dllama_tpu_torch.models.synthetic import PRESETS
 
-    counts, streams, tok_s = {}, {}, {}
+    counts, streams, tok_s, depths = {}, {}, {}, {}
     for model, preset, n_layers, formats in MODELS:
         depth = PRESETS[preset]["n_layers"]
         if n_layers < depth:
-            print(f"{model}: depth cut to {n_layers} of {depth} layers (bf16 experts are "
-                  f"1.26 GB a layer: the whole model would not fit the card)")
+            why = ("bf16 experts are 1.26 GB a layer: the whole model would not fit the "
+                   "card; q40i8 for the smoke's time" if model == "qwen3-30b-a3b" else
+                   "the smoke's time: the same kernels at the same widths, each layer a "
+                   "repeat of the first")
+            print(f"{model} {', '.join(formats)}: depth cut to {n_layers} of {depth} layers "
+                  f"({why})")
         with tempfile.TemporaryDirectory() as tmp:
             for spec in formats:
                 weight_format, _, kv_dtype = spec.partition(" kv-")
                 label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
                                                                 weight_format, tmp,
                                                                 kv_dtype or None)
-                counts[label], streams[label] = counts_, tokens
+                counts[label], streams[label], depths[label] = counts_, tokens, n_layers
                 gc.collect()
                 torch.cuda.empty_cache()
-            if model == "llama-8b":  # the serving phase, on the same file, bf16 and int8 KV
+            if model == "llama-8b" and n_layers == N_LAYERS:  # the serving phase, same file
                 for kv_dtype in (None, "int8"):
                     t0 = time.perf_counter()
                     tag = f" kv-{kv_dtype}" if kv_dtype else ""
@@ -4101,9 +4394,20 @@ def main() -> int:
                 print(f"serving single phase: {time.perf_counter() - t0:.1f} s")
                 gc.collect()
                 torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                counts.update(serving_draft(tmp, smi))
+                print(f"serving draft phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                counts.update(mixed_kv(tmp, smi, streams.get("llama-8b q40")))
+                print(f"mixed-kv phase: {time.perf_counter() - t0:.1f} s")
+            if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
+                t0 = time.perf_counter()
+                counts.update(moe_dedup(tmp, smi))
+                print(f"dedup phase: {time.perf_counter() - t0:.1f} s")
     for label in streams:
         model, fmt = label.split(" ", 1)
-        if fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams:
+        if (fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams
+                and depths[label] == depths[f"{model} q40"]):
             a, b = streams[f"{model} q40"], streams[label]
             first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
             print(f"{label} greedy stream equals the q40 one: {a == b}"
@@ -4131,6 +4435,457 @@ def main() -> int:
     return 0
 
 
+def release_engine(engine) -> None:
+    """Drop an engine's device tensors (params, caches, pool, the draft
+    model's, its graphs and their pool): the registry's refresh hooks and
+    the recorder's context providers hold the last engine and server alive
+    past the phase that made them."""
+    import torch
+
+    engine.graphs.clear()
+    for name in ("params", "cache", "lane_cache", "kv_pool", "_draft_params", "draft_cache"):
+        setattr(engine, name, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MIXED_DECODE_TOKENS = 32  # tokens the f32 engine over a bf16 cache decodes
+
+
+def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
+    """A float KV type unlike the model's on llama-8b q40 (the 32-layer file
+    in tmp), the kernels' ``_mx`` entries on the main path: (a) an f32
+    engine over a bf16 cache (``kv_dtype="bf16"``) runs the CLI's path (the
+    ~500-token prompt, `MIXED_DECODE_TOKENS` greedy tokens, graphed), every
+    attention launch a mixed one (n_layers a forward), then one prefill and
+    one decode step, kernel path against plain path on bf16 caches of their
+    own, f32 logits within TOL_E2E (the gate of `parity`); (b) a bf16 engine
+    over an f16 cache: its cache's bytes equal a bf16 cache's, its greedy
+    stream (the CLI path's 128 tokens) printed against the bf16-cache q40
+    stream (``bf16_stream``), then four pool-native lanes over an f16 pool
+    (`generate_batch`), their paged stats and decode launches all mixed
+    ones, lane 0's stream printed against the single stream's. Returns the
+    launch counts by label."""
+    import torch
+
+    from dllama_tpu_torch.models import forward, init_kv_cache
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    tok = Tokenizer(tp)
+    prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1), is_start=True, add_special_tokens=True)
+    attn = ("flash_attention_stats", "flash_decode", "paged_flash_decode")
+    out = {}
+
+    def only_mixed(label, counts, want):
+        got = {name: counts[name] for name in counts if "flash" in name and counts[name]}
+        print(f"mixed-kv {label} launches {json.dumps(got)}")
+        require(got == want, f"{label}: attention launches {got}, wanted {want}")
+
+    # (a) f32 model, bf16 cache
+    t0 = time.perf_counter()
+    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=SEED,
+                          weight_format="q40", device="cuda", kv_dtype="bf16")
+    load_s, h, dev = time.perf_counter() - t0, eng.header, eng.device
+    reset_launch_counts()
+    toks, ev, pred = eng.generate(prompt, max_steps=len(prompt) - 1 + MIXED_DECODE_TOKENS)
+    torch.cuda.synchronize()
+    label = "llama-8b q40 f32 kv-bf16"
+    out[label] = counts = launch_counts()
+    n_chunks = len(forward_rows(len(prompt), 0, eng.prefill_buckets))
+    print(f"== {label}: {h.n_layers} layers, f32 model over a bf16 cache "
+          f"({nbytes(eng.cache)} B); engine loaded in {load_s:.2f} s; prefill_ms "
+          f"{ev.time_ms:.1f} ({ev.n_tokens} tokens), decode_ms_per_token "
+          f"{pred.time_ms / max(pred.n_tokens, 1):.3f} (graphed; first uses and captures "
+          f"included); {smi}")
+    only_mixed(label, counts, {"flash_attention_stats_mixed": h.n_layers * n_chunks,
+                               "flash_decode_mixed": h.n_layers * len(toks)})
+    with torch.inference_mode():
+        t = torch.tensor([prompt], device=dev)
+        last, nxt = {}, None
+        for plain in (False, True):
+            cache = init_kv_cache(h, 1, dtype=torch.bfloat16, device=dev)
+            pre, cache = forward(eng.params, h, t, 0, cache, "last", plain=plain)
+            nxt = pre[:, -1].argmax(-1, keepdim=True) if nxt is None else nxt
+            dec, _ = forward(eng.params, h, nxt, len(prompt), cache, "last", plain=plain)
+            last[plain] = (pre[:, -1], dec[:, -1])
+            del cache
+        for i, step in enumerate(("prefill", "decode")):
+            err = norm_err(last[False][i], last[True][i])[0]
+            print(f"parity mixed-kv f32/bf16 {step}: kernel vs plain logits err {err:.3e}")
+            require(err <= TOL_E2E, f"{label} {step}: kernel vs plain err {err:.3e} > {TOL_E2E}")
+    release_engine(eng)
+
+    # (b) bf16 model, f16 cache: the single stream, then native lanes
+    eng = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40", device="cuda",
+                          kv_dtype="f16", batch_size=SERVE_LANES)
+    label = "llama-8b q40 kv-f16"
+    reset_launch_counts()
+    toks, ev, pred = eng.generate(prompt, max_steps=len(prompt) - 1 + DECODE_TOKENS)
+    torch.cuda.synchronize()
+    out[label] = counts = launch_counts()
+    bf16_bytes = 2 * h.n_layers * h.n_kv_heads * h.seq_len * h.head_dim * 2
+    print(f"== {label}: bf16 model over an f16 cache ({nbytes(eng.cache)} B, a bf16 cache "
+          f"{bf16_bytes} B); decode_ms_per_token {pred.time_ms / max(pred.n_tokens, 1):.3f}; "
+          f"{smi}")
+    require(nbytes(eng.cache) == bf16_bytes, f"{label}: cache bytes {nbytes(eng.cache)}")
+    only_mixed(label, counts, {"flash_attention_stats_mixed": h.n_layers * n_chunks,
+                               "flash_decode_mixed": h.n_layers * len(toks)})
+    if bf16_stream is not None:
+        first = next((i for i, (a, b) in enumerate(zip(toks, bf16_stream)) if a != b), None)
+        print(f"{label} greedy stream equals the bf16-cache q40 one: {toks == bf16_stream}"
+              + ("" if first is None else f" (first of {len(toks)} tokens to differ: {first})"))
+    eng.init_kv_pool(PAGE, native=True)
+    prompts = [prompt[: len(prompt) - 7 * i] for i in range(SERVE_LANES)]
+    reset_launch_counts()
+    steps0 = eng.lane_decode_steps
+    lanes = eng.generate_batch(prompts, max_steps=len(prompt) - 1 + BLOCK * 2)
+    torch.cuda.synchronize()
+    label = "llama-8b q40 kv-f16 lanes"
+    out[label] = counts = launch_counts()
+    steps = eng.lane_decode_steps - steps0
+    chunks = sum(len(forward_rows(len(p), 0, eng.prefill_buckets)) for p in prompts)
+    only_mixed(label, counts, {"flash_attention_stats_mixed": h.n_layers * chunks,
+                               "paged_flash_decode_mixed": h.n_layers * steps})
+    print(f"{label}: {SERVE_LANES} pool-native lanes over an f16 pool "
+          f"({nbytes(eng.kv_pool) / 1e9:.3f} GB), {steps} decode steps; lane 0 equals the "
+          f"single f16-cache stream's first {len(lanes[0])} tokens: "
+          f"{lanes[0] == toks[:len(lanes[0])]}")
+    release_engine(eng)
+    return out
+
+
+DEDUP_STEPS = 32  # decode steps of each 4-lane run of the dedup phase
+
+
+def moe_dedup(tmp: str, smi: str) -> dict:
+    """The two-tier MoE decode (``moe_decode_dedup``) on qwen3-30b-a3b q40
+    (the 48-layer file in tmp), 4 slab lanes, `DEDUP_STEPS` greedy steps
+    after each lane's prefill: with dedup on, four identical prompts take
+    the grouped tier at every layer-step of the decode (the device tally,
+    read after the run, gated) and four distinct prompts print the tally's
+    share; each run again with dedup off (the graphs captured anew),
+    the bf16 streams printed against the dedup-off ones; on an f32 engine
+    over the same file both prompt sets gated equal on and off. Then a
+    4-lane decode block's device ms with dedup on against off, identical
+    prompts, in turns (CUDA events around a graphed block). Returns the
+    launch counts of the bf16 dedup-on runs."""
+    import torch
+
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.ops.moe import tier_tally
+    from dllama_tpu_torch.runtime.engine import InferenceEngine, resolve_moe_decode_dedup
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    tok = Tokenizer(tp)
+    same = [tok.encode(prompt_text(63), is_start=True, add_special_tokens=True)] * SERVE_LANES
+    distinct = [tok.encode(f"Lane {i} asks: " + prompt_text(40 + 9 * i)[::-1], is_start=True,
+                           add_special_tokens=True) for i in range(SERVE_LANES)]
+    tally = tier_tally("cuda")
+    out = {}
+
+    def run(eng, prompts, dedup):
+        eng.moe_decode_dedup = dedup
+        eng.graphs.clear()  # the captured steps hold one tiering
+        eng.reset()
+        for lane, p in enumerate(prompts):
+            eng.prefill_lane(lane, p)
+        tally.zero_()
+        pos, toks = [len(p) - 1 for p in prompts], [p[-1] for p in prompts]
+        streams = [[] for _ in prompts]
+        while len(streams[0]) < DEDUP_STEPS:
+            for row in eng.decode_lanes(toks, pos, BLOCK):
+                for lane, t in enumerate(row):
+                    streams[lane].append(t)
+                toks = row
+            pos = [p + BLOCK for p in pos]
+        took, steps = tally.tolist()
+        return streams, took, steps
+
+    def parts(a, b):
+        return [next((j for j, (x, y) in enumerate(zip(p, q)) if x != y), None)
+                for p, q in zip(a, b)]
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40", device="cuda",
+                          batch_size=SERVE_LANES, moe_decode_dedup=True)
+    h = eng.header
+    print(f"== qwen3-30b-a3b q40 dedup: {h.n_layers} layers, {SERVE_LANES} slab lanes, "
+          f"moe_decode_dedup on (\"auto\" would be "
+          f"{resolve_moe_decode_dedup('auto', h, SERVE_LANES)} at {SERVE_LANES} lanes), "
+          f"engine loaded in {time.perf_counter() - t0:.2f} s; {smi}")
+    reset_launch_counts()
+    on_same, took, steps = run(eng, same, True)
+    out["qwen3-30b-a3b q40 dedup"] = counts = launch_counts()
+    print(f"dedup identical prompts: {took} of {steps} decode layer-steps took the grouped tier "
+          f"({took / max(steps, 1):.3f}); launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    require(steps == h.n_layers * DEDUP_STEPS and took == steps,
+            f"dedup: {took} of {steps} layer-steps took the grouped tier, wanted every one of "
+            f"{h.n_layers * DEDUP_STEPS}")
+    require(counts["moe_grouped_experts_q40"] > 0 and counts["moe_active_experts_q40"] > 0,
+            "dedup: the two tiers were not both launched")
+    on_div, took, steps = run(eng, distinct, True)
+    print(f"dedup distinct prompts: {took} of {steps} decode layer-steps took the grouped tier "
+          f"({took / max(steps, 1):.3f})")
+    off_same, _, off_steps = run(eng, same, False)
+    off_div, _, _ = run(eng, distinct, False)
+    require(off_steps == 0, f"dedup off: {off_steps} layer-steps ran two-tier")
+    print(f"dedup bf16 streams, on against off (where each lane parts, None: equal): identical "
+          f"prompts {parts(on_same, off_same)}, distinct {parts(on_div, off_div)}")
+
+    def block_ms(dedup):
+        eng.moe_decode_dedup = dedup
+        eng.graphs.clear()
+        pos, toks = [len(p) - 1 for p in same], [p[-1] for p in same]
+        eng.decode_lanes(toks, pos, BLOCK)  # first use and capture
+        ms = []
+        for _ in range(HOST_RUNS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            eng.decode_lanes(toks, pos, BLOCK)
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e) / BLOCK)
+        return ms
+
+    timed = {True: [], False: []}
+    for dedup in (True, False, False, True):
+        timed[dedup] += block_ms(dedup)
+    on_ms, off_ms = statistics.median(timed[True]), statistics.median(timed[False])
+    print(f"dedup decode step, {SERVE_LANES} lanes, identical prompts, graphed, in turns: device "
+          f"ms/step on {_ms(timed[True])}, off {_ms(timed[False])}: on/off "
+          f"{on_ms / off_ms:.3f}; {smi}")
+    release_engine(eng)
+
+    eng = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=SEED,
+                          weight_format="q40", device="cuda", batch_size=SERVE_LANES)
+    f32 = {}
+    for name, prompts in (("identical", same), ("distinct", distinct)):
+        on, took, steps = run(eng, prompts, True)
+        off, _, _ = run(eng, prompts, False)
+        f32[name] = on == off
+        print(f"dedup f32 {name} prompts: streams on equal off {on == off} (parts "
+              f"{parts(on, off)}); {took} of {steps} layer-steps took the grouped tier")
+        require(on == off, f"dedup f32 {name}: the dedup-on streams differ from dedup-off")
+    release_engine(eng)
+    return out
+
+
+DRAFT_PRESET, DRAFT_LAYERS = "llama-1b", 16  # the public draft of llama-8b, whole depth
+ACCEPT_LAYERS = 4  # round (b): llama-8b's widths cut to 4 of 32 layers, its own draft
+DRAFT_TURNS = (False, True, True, False)  # the mix with speculation off and draft, in turns
+
+
+def _draft_timers(engine):
+    """Wrap the engine's lane and draft entries with host timers (each
+    ends in a readback or feeds one); returns the timer and a restore."""
+    timer = {"decode_s": 0.0, "decode_tokens": 0, "verify_s": 0.0, "draft_s": 0.0}
+    names = ("decode_lanes", "verify_lanes", "draft_prefill", "draft_propose")
+    inner = {name: getattr(engine, name) for name in names}
+
+    def wrap(name, key):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                res = inner[name](*args, **kw)
+            finally:
+                timer[key] += time.perf_counter() - t
+            if name == "decode_lanes":
+                timer["decode_tokens"] += len(res) * sum(map(bool, args[3]))
+            return res
+        return call
+
+    for name, key in zip(names, ("decode_s", "verify_s", "draft_s", "draft_s")):
+        setattr(engine, name, wrap(name, key))
+    return timer, lambda: [engine.__dict__.pop(n, None) for n in names]
+
+
+def _serve_mix(engine, tok, speculation: str, draft: str | None, payloads, solo=False,
+               before=None, n_mixes: int = 1):
+    """One `serve` over ``engine`` (pool-native lanes, page PAGE) with
+    ``speculation`` (spec_k SPEC_K, the draft at ``draft``): the mix sent at
+    once ``n_mixes`` times (``before(i)`` called before mix i) and, with
+    ``solo``, each payload replayed alone after the first. Returns (the
+    mixes' results, the solo results, the first mix's lane tok/s, the
+    scheduler's spec stats after each mix)."""
+    import threading
+
+    from dllama_tpu_torch.runtime.api_server import serve
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
+                chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True,
+                speculation=speculation, spec_k=SPEC_K, draft_model=draft)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    sched = srv.state.scheduler
+    generated = _track_generated(sched)
+    mixes, specs, alone, tok_s = [], [], [], 0.0
+    try:
+        for i in range(n_mixes):
+            if before is not None:
+                before(i)
+            timer, restore = _draft_timers(engine)
+            try:
+                results, _ = _concurrent(url, sched, payloads)
+            finally:
+                restore()
+            if i == 0:
+                lane_s = timer["decode_s"] + timer["verify_s"] + timer["draft_s"]
+                emitted = sched.spec_accepted + sched.spec_accept_len_count
+                tok_s = (timer["decode_tokens"] + emitted) / lane_s if lane_s else 0.0
+                alone = [_request(url, p) for p in payloads] if solo else []
+            mixes.append(results)
+            specs.append(sched.spec_stats())
+        for r in [r for res in mixes for r in res] + alone:
+            r["tokens"] = generated[r["meta"]["request_id"]]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return mixes, alone, tok_s, specs
+
+
+def serving_draft(tmp: str, smi: str) -> dict:
+    """Draft-model speculation (``--speculation draft``) in the serving
+    phase. (a) The public pairing: the target is llama-8b q40 (the 32-layer
+    file in tmp) over 4 pool-native lanes, the draft llama-1b (16 layers,
+    written as Q40 with its own seed, loaded dense bf16); the seven-request
+    mix with speculation off and draft in turns (`DRAFT_TURNS`), the first
+    draft turn's answers each replayed alone. Gated: every request ends
+    with stop or length, the draft model drafted. Printed: where each
+    answer parts from its solo replay and from spec-off (bf16: a verify
+    row's token comes from the stats kernel and the Q40 tile, at a width
+    that the other lanes' drafts set, a decode step's from the decode
+    kernel and the GEMV, so the path a token takes changes its rounding),
+    the draft graphs' counts and device ms
+    (`InferenceEngine.device_step_seconds`), drafted and accepted tokens,
+    the tokens by source and lane tok/s against spec-off in turns. (b)
+    Acceptance: llama-8b's widths cut to `ACCEPT_LAYERS` layers, f32, its
+    own file as the draft: accepted tokens > 0 and every answer equal to
+    the spec-off answer's bytes; then, on the same server, the mix again
+    with one draft step made to fail (its graph's replay raises):
+    ``draft_cache_epoch`` rises by one, the target's ``cache_epoch`` and
+    ``kv_pool_epoch`` stay, and every answer is still spec-off's. Returns
+    the launch counts of (a)'s first draft turn and of (b)'s draft mixes."""
+    import torch
+
+    from dllama_tpu_torch.models.synthetic import write_synth_model
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    tok = Tokenizer(tp)
+    payloads = serving_payloads(tok)
+    dp = os.path.join(tmp, "draft.m")
+    t0 = time.perf_counter()
+    dh = write_synth_model(dp, DRAFT_PRESET, seed=SEED + 1, max_seq_len=4096,
+                           n_layers=DRAFT_LAYERS)
+    write_s = time.perf_counter() - t0
+    engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40",
+                             device="cuda", batch_size=SERVE_LANES)
+    out, tok_s, first, off_res = {}, {True: [], False: []}, None, None
+    for draft in DRAFT_TURNS:
+        if draft and first is None:
+            reset_launch_counts()
+        mixes, alone, rate, specs = _serve_mix(
+            engine, tok, "draft" if draft else "off", dp if draft else None, payloads,
+            solo=draft and first is None)
+        tok_s[draft].append(rate)
+        if draft and first is None:
+            out["llama-8b q40 serving draft"] = launch_counts()
+            graphs = {k: engine.graphs.count(k) for k in ("draft_prefill", "draft_step")}
+            first = (mixes[0], alone, specs[0])
+        elif not draft and off_res is None:
+            off_res = mixes[0]
+    res, alone, spec = first
+    print(f"== llama-8b q40 serving draft: speculation draft, spec_k {SPEC_K}, draft "
+          f"{DRAFT_PRESET} ({dh.n_layers} layers, dim {dh.dim}, head dim {dh.head_dim}, vocab "
+          f"{dh.vocab_size}; written as Q40 in {write_s:.1f} s, loaded dense bf16: "
+          f"{nbytes(engine._draft_params) / 1e9:.3f} GB, draft cache "
+          f"{nbytes(engine.draft_cache) / 1e9:.3f} GB); {len(payloads)} requests, "
+          f"{SERVE_LANES} lanes; {smi}")
+    for i, (r, s_, o) in enumerate(zip(res, alone, off_res)):
+        vs_solo, vs_off = _parts([r], [s_]), _parts([r], [o])
+        print(f"serve draft r{i}: finish {r['finish']} tokens {len(r['tokens'])} ttft_ms "
+              f"{r['meta']['ttft_ms']}; equals solo {not vs_solo}"
+              + (f" ({vs_solo[0][3:]})" if vs_solo else "")
+              + f"; equals spec-off {not vs_off}" + (f" ({vs_off[0][3:]})" if vs_off else ""))
+        require(r["finish"] in ("stop", "length") and s_["finish"] in ("stop", "length"),
+                f"serving draft r{i}: finish {r['finish']} / solo {s_['finish']}")
+    for kind in ("draft_prefill", "draft_step"):
+        dev_s = engine.device_step_seconds(kind)
+        print(f"serve draft {kind}: {graphs[kind]} graphs in the first draft turn, "
+              + ("no dispatch settled" if dev_s is None else
+                 f"{dev_s[0]} dispatches settled, device ms {dev_s[1] * 1e3:.4f} a dispatch"))
+    sources = spec["sources"]
+    print(f"serve draft acceptance: accepted {spec['accepted']} of {spec['drafted']} drafted; "
+          f"{spec['verify_passes']} verify passes, {spec['tokens_per_lane_pass']:.2f} tokens a "
+          f"lane a pass; drafted by source {json.dumps(sources)}")
+    print(f"serve draft lane tok/s in turns {DRAFT_TURNS}: draft {_ms(tok_s[True])}, off "
+          f"{_ms(tok_s[False])}: draft/off "
+          f"{statistics.median(tok_s[True]) / statistics.median(tok_s[False]):.3f}; {smi}")
+    require(sources.get("draft", 0) > 0, f"serving draft: the draft model drafted nothing "
+            f"({json.dumps(sources)})")
+    release_engine(engine)
+
+    # (b) acceptance: the target's own file as its draft, f32
+    sub = os.path.join(tmp, "accept")
+    os.makedirs(sub, exist_ok=True)
+    ap = os.path.join(sub, "model.m")
+    write_synth_model(ap, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=ACCEPT_LAYERS)
+    engine = InferenceEngine(ap, dtype=torch.float32, temperature=0.0, seed=SEED,
+                             weight_format="q40", device="cuda", batch_size=SERVE_LANES)
+    (truth,), _, _, _ = _serve_mix(engine, tok, "off", None, payloads)
+    run, fired = engine.graphs.run, []
+
+    def epochs():
+        return engine.cache_epoch, engine.kv_pool_epoch, engine.draft_cache_epoch
+
+    def failing(key, step):
+        if key[0] == "draft_step" and not fired:
+            fired.append((key, epochs()))  # the epochs as the step fails
+            raise RuntimeError("injected draft step failure")
+        return run(key, step)
+
+    def poison_second(i):
+        if i == 1:  # after the rehearsal and the first mix: the next draft step fails
+            engine.graphs.run = failing
+
+    reset_launch_counts()
+    try:
+        (got, poisoned), _, _, specs = _serve_mix(engine, tok, "draft", ap, payloads,
+                                                 before=poison_second, n_mixes=2)
+    finally:
+        engine.graphs.__dict__.pop("run", None)
+    out["llama-8b q40 f32 serving draft"] = launch_counts()
+    spec = specs[0]
+    part = _parts(got, truth)
+    print(f"== llama-8b q40 f32 serving draft: {ACCEPT_LAYERS} of 32 layers at full width, its "
+          f"own file as the draft (dense f32); accepted {spec['accepted']} of {spec['drafted']} "
+          f"drafted, {spec['tokens_per_lane_pass']:.2f} tokens a lane a pass, by source "
+          f"{json.dumps(spec['sources'])}; every answer equals spec-off's bytes {not part}"
+          + (f" (parts: {', '.join(part)})" if part else ""))
+    require(spec["accepted"] > 0, "serving draft f32: no draft accepted")
+    require(not part, f"serving draft f32: answers part from spec-off: {part}")
+    require(bool(fired), "serving draft f32: no draft step ran to fail")
+    part = _parts(poisoned, truth)
+    key, before = fired[0]
+    now = epochs()
+    print(f"serve draft f32 poison: draft step {key} failed; epochs (cache, kv pool, draft) "
+          f"{before} as it failed, {now} after the mix; every answer equals spec-off's bytes "
+          f"{not part}; accepted {specs[1]['accepted'] - spec['accepted']} of "
+          f"{specs[1]['drafted'] - spec['drafted']} in that mix")
+    require(now[:2] == before[:2] and now[2] == before[2] + 1,
+            f"serving draft f32: epochs {before} -> {now}")
+    require(not part, f"serving draft f32 poison: answers part from spec-off: {part}")
+    release_engine(engine)
+    return out
+
+
 def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str,
              kv_dtype: str | None = None):
     """Phases 3 and 4 for one model and weight format (and KV dtype, None
@@ -4153,12 +4908,15 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
     n_dec = res["pred"].n_tokens
     require(n_dec == DECODE_TOKENS, f"{label}: decoded {n_dec} tokens, wanted {DECODE_TOKENS}")
     counts = res["counts"]
+    require(eng.prefill_buckets == CLI_BUCKETS,
+            f"{label}: the CLI's buckets {eng.prefill_buckets}, wanted {CLI_BUCKETS}")
     want = expected_launches(h, len(res["prompt_tokens"]), n_dec, eng.weight_format, kv8)
     wb = weight_bytes(eng.params, h)
     written = "" if res["write_s"] is None else f"; written in {res['write_s']:.1f} s"
     group = f", int8 group {eng.i8_group}" if eng.i8_group else ""
     print(f"== {label}: {h.n_layers} layers, seq_len {h.seq_len}, weights {eng.weight_format}"
           f"{group}{written}")
+    print(f"cli {label}: prefill buckets {eng.prefill_buckets} (--nbatches 32, the default)")
     print(f"e2e {label} load_s {res['load_s']:.2f} prefill_ms {res['eval'].time_ms:.1f} "
           f"({res['eval'].n_tokens} tokens) decode_ms_per_token "
           f"{res['pred'].time_ms / n_dec:.3f} tok_s {n_dec * 1000 / res['pred'].time_ms:.2f} "

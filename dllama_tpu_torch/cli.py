@@ -5,8 +5,10 @@
         [--weight-format auto|q40|q40i8|q40i4|dense] [--kv-dtype int8]
     python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
     python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
-    (each also takes --trace-out PATH, --timeline-out PATH, --postmortem-dir DIR;
-    inference --profile DIR)
+    (each also takes --trace-out PATH, --timeline-out PATH, --postmortem-dir DIR,
+    --nbatches N (prefill buckets 1, N and 512), --moe-decode-dedup auto|on|off;
+    inference --profile DIR; --nthreads and --net-turbo are accepted and
+    ignored, --gpu-index/--gpu-segments and the ``worker`` mode refused)
 
 Flags follow the JAX package's CLI (reference: src/app.cpp:24-135). The
 device defaults to ``cuda`` and the run fails without one; ``--device cpu``
@@ -38,8 +40,22 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-seq-len", type=int, default=0)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--kv-dtype", default=None, choices=[None, "bf16", "f32", "int8"],
-                   help="int8: per-row quantized KV cache (about half of bf16's bytes); a "
-                   "float type must equal --dtype (default: --dtype)")
+                   help="the KV cache's type: int8 is per-row quantized (about half of "
+                   "bf16's bytes); a float type may differ from --dtype (default: --dtype)")
+    p.add_argument("--nbatches", "--n-batches", type=int, default=32, dest="nbatches",
+                   help="prefill chunk size: the engine's buckets are (1, nbatches, 512)")
+    p.add_argument("--nthreads", type=int, default=1,
+                   help="accepted for CLI parity; PyTorch owns threading")
+    p.add_argument("--net-turbo", type=int, default=1, help="accepted for CLI parity")
+    p.add_argument("--gpu-index", type=int, default=None,
+                   help="refused: the port runs on the card --device names")
+    p.add_argument("--gpu-segments", default=None,
+                   help="refused: the port runs on the card --device names")
+    p.add_argument("--moe-decode-dedup", default="auto", nargs="?", const="on",
+                   choices=["auto", "on", "off"],
+                   help="two-tier Qwen3-MoE lane decode: the grouped kernel over the experts the "
+                   "lanes share when they share at least half, chosen on the device "
+                   "(ops/moe.py); auto: on at >= 8 lanes; a bare flag means on")
     p.add_argument(
         "--weight-format", default="auto", choices=["auto", "q40", "q40i8", "q40i4", "dense"],
         help="q40: int8 values + f16 scales; q40i8: requantized to grouped int8 at load; "
@@ -107,7 +123,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch", description="distributed-llama inference on PyTorch/CUDA"
     )
-    p.add_argument("mode", choices=["inference", "chat", "perplexity"])
+    p.add_argument("mode", choices=["inference", "chat", "perplexity", "worker"])
     p.add_argument("--prompt", default=None)
     p.add_argument("--steps", type=int, default=0)
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -118,10 +134,21 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _refuse_gpu_flags(args) -> None:
+    """The reference's Vulkan device flags (dllama_tpu's ``_resolve_tp``
+    refuses them the same way)."""
+    for flag in ("gpu_index", "gpu_segments"):
+        if getattr(args, flag, None) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')} is a Vulkan-backend option of the "
+                             "reference; the port runs on one CUDA card: choose it with "
+                             "--device (and CUDA_VISIBLE_DEVICES)")
+
+
 def load_engine(args):
     from .runtime.engine import InferenceEngine
     from .tokenizer import Tokenizer
 
+    _refuse_gpu_flags(args)
     tok = Tokenizer(args.tokenizer)
     engine = InferenceEngine(
         args.model,
@@ -134,6 +161,8 @@ def load_engine(args):
         device=args.device,
         batch_size=args.batch_size,
         kv_dtype=args.kv_dtype,
+        prefill_buckets=tuple(sorted({1, args.nbatches, 512})),
+        moe_decode_dedup={"on": True, "off": False}.get(args.moe_decode_dedup, "auto"),
     )
     h = engine.header
     print(f"💡 Arch: {h.arch.name}")
@@ -353,6 +382,14 @@ def run_perplexity(args) -> None:
 
 
 def main(argv=None):
+    # the worker mode explains itself before the other flags are required
+    mode = argparse.ArgumentParser(add_help=False)
+    mode.add_argument("mode", nargs="?")
+    if mode.parse_known_args(argv)[0].mode == "worker":
+        raise SystemExit(
+            "worker mode is a LAN-cluster concept of the reference: the port runs one program "
+            "on one card (the JAX package's SPMD launch, one identical program a chip, is "
+            "not ported) — run the root command instead")
     args = _build_parser().parse_args(argv)
     if args.mode == "inference":
         return run_inference(args)

@@ -1,5 +1,5 @@
 // Shared device helpers for the port's kernels (float32 and bfloat16 inputs,
-// int8 KV cache values).
+// int8 KV cache values, float16 KV cache values under a float query).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,11 +9,16 @@
 
 namespace dllama {
 
+// The C entries' type codes of a tensor whose type is not implied by the
+// entry (the mixed-type attention entries: q's type and the cache's).
+enum TypeCode { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_F16 = 2 };
+
 constexpr float NEG_INF = -1e30f;  // the JAX package's masked-score value
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -41,6 +46,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __half22float2(h[j]);
     v[2 * j] = f.x;
     v[2 * j + 1] = f.y;
   }

@@ -72,6 +72,19 @@
 // result differs from `attention_stats` on the dequantized cache by where
 // the scale multiplies and sum order only. The conversion pass runs between
 // the copy and the products: a later PR can overlap it (PERF.md).
+//
+// A float cache type unlike q's (`--kv-dtype` f32, f16 or bf16 under either
+// model dtype; C entries `flash_attention_stats_mx` and
+// `flash_attention_stats_paged_mx`, q's and the cache's types as codes)
+// ports what every JAX attention kernel does for any pair of types: it
+// upcasts the q, K and V tiles to f32 inside the kernel (flash_attention.py
+// _flash_stats_kernel). bf16 q over a bf16 cache keeps the tensor-core body;
+// every other pair runs the CUDA-core body, which reads q in its own type and
+// each K/V row in the cache's (8 values a 16-byte load for f16 and bf16, two
+// loads for f32) and converts in registers, so q is never rounded and the
+// cache never widened on the host. Bytes are the cache's own: 2 B a value for
+// f16 and bf16, 4 for f32. What holds it above the bound is the CUDA-core
+// body's f32 FMA rate (PERF.md); making the mixed pairs fast is later work.
 
 #include <type_traits>
 
@@ -521,23 +534,24 @@ void launch_tc(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ks
       scale);
 }
 
-template <typename KV, int HD, bool PAGED>
-void launch_hd(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
-               const float* vsc, const int* q_pos0, int s_pos0, const int* pt, int n_blocks,
-               int ps, float* acc, float* m, float* l, int n_b, int n_t, int n_h, int n_kh,
-               int n_s, float scale, cudaStream_t s) {
-  launch_tc<KV, HD, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b,
-                           n_t, n_h, n_kh, n_s, scale, s);
-}
-template <typename KV, int HD, bool PAGED>
-void launch_hd(const float* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
+// bf16 q over a bf16 or int8 cache: the tensor-core body; every other pair
+// of types (f32 q, or a cache type other than q's): the CUDA-core body,
+// which reads q and K/V each in its own type and computes in f32
+template <typename T, typename KV, int HD, bool PAGED>
+void launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
                const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
                float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, float scale,
                cudaStream_t s) {
-  const dim3 grid((n_t + BT - 1) / BT, n_h, n_b);
-  flash_stats_kernel<float, KV, HD, PAGED><<<grid, WARPS * 32, 0, s>>>(
-      q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
-      scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                (std::is_same<KV, __nv_bfloat16>::value || std::is_same<KV, int8_t>::value)) {
+    launch_tc<KV, HD, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b,
+                             n_t, n_h, n_kh, n_s, scale, s);
+  } else {
+    const dim3 grid((n_t + BT - 1) / BT, n_h, n_b);
+    flash_stats_kernel<T, KV, HD, PAGED><<<grid, WARPS * 32, 0, s>>>(
+        q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
+        scale);
+  }
 }
 
 template <typename T, typename KV, bool PAGED>
@@ -550,11 +564,11 @@ int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd == 128) {
-    launch_hd<KV, 128, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
-                              n_b, n_t, n_h, n_kh, n_s, scale, s);
+    launch_hd<T, KV, 128, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m,
+                                 l, n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else if (hd == 64) {
-    launch_hd<KV, 64, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
-                             n_b, n_t, n_h, n_kh, n_s, scale, s);
+    launch_hd<T, KV, 64, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+                                n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -587,6 +601,56 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
   return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
                                   static_cast<const KV*>(v), ks, vs, pos, s_pos0, t, n_blocks,
                                   ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
+}
+
+// The mixed-type entries: q in q_type (TYPE_F32 or TYPE_BF16), k and v in
+// kv_type (TYPE_F32, TYPE_BF16 or TYPE_F16), each read in its own type
+template <typename T, bool PAGED>
+int dispatch_kv(const T* q, const void* k, const void* v, int kv_type, const int* q_pos0,
+                int s_pos0, const int* pt, int n_blocks, int ps, float* acc, float* m, float* l,
+                int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
+                cudaStream_t s) {
+  switch (kv_type) {
+    case TYPE_F32:
+      return launch<T, float, PAGED>(q, static_cast<const float*>(k),
+                                     static_cast<const float*>(v), nullptr, nullptr, q_pos0,
+                                     s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
+                                     n_s, hd, scale, s);
+    case TYPE_BF16:
+      return launch<T, __nv_bfloat16, PAGED>(q, static_cast<const __nv_bfloat16*>(k),
+                                             static_cast<const __nv_bfloat16*>(v), nullptr,
+                                             nullptr, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+                                             n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
+    case TYPE_F16:
+      return launch<T, __half, PAGED>(q, static_cast<const __half*>(k),
+                                      static_cast<const __half*>(v), nullptr, nullptr, q_pos0,
+                                      s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
+                                      n_s, hd, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool PAGED>
+int dispatch_mixed(const void* q, const void* k, const void* v, const void* q_pos0, int s_pos0,
+                   const void* pt, int n_blocks, int ps, void* acc, void* m, void* l, int n_b,
+                   int n_t, int n_h, int n_kh, int n_s, int hd, float scale, int q_type,
+                   int kv_type, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pos = static_cast<const int*>(q_pos0);
+  const int* t = static_cast<const int*>(pt);
+  float* a = static_cast<float*>(acc);
+  float* mm = static_cast<float*>(m);
+  float* ll = static_cast<float*>(l);
+  if (q_type == TYPE_BF16)
+    return dispatch_kv<__nv_bfloat16, PAGED>(static_cast<const __nv_bfloat16*>(q), k, v, kv_type,
+                                             pos, s_pos0, t, n_blocks, ps, a, mm, ll, n_b, n_t,
+                                             n_h, n_kh, n_s, hd, scale, s);
+  if (q_type == TYPE_F32)
+    return dispatch_kv<float, PAGED>(static_cast<const float*>(q), k, v, kv_type, pos, s_pos0, t,
+                                     n_blocks, ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale,
+                                     s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -638,4 +702,29 @@ extern "C" int flash_attention_stats_paged_q8(const void* q, const void* k_pages
   return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, q_pos0, 0, page_table,
                               n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh, n_blocks * ps, hd,
                               scale, bf16, stream);
+}
+
+// flash_attention_stats with q and the cache in their own float types
+// (q_type TYPE_F32 or TYPE_BF16; kv_type TYPE_F32, TYPE_BF16 or TYPE_F16):
+// a float cache type unlike the model's (`--kv-dtype`). bf16 over bf16 takes
+// the tensor cores, every other pair the CUDA-core body.
+extern "C" int flash_attention_stats_mx(const void* q, const void* k, const void* v,
+                                        const void* q_pos0, int s_pos0, void* acc, void* m,
+                                        void* l, int n_b, int n_t, int n_h, int n_kh, int n_s,
+                                        int hd, float scale, int q_type, int kv_type,
+                                        void* stream) {
+  return dispatch_mixed<false>(q, k, v, q_pos0, s_pos0, nullptr, 0, 0, acc, m, l, n_b, n_t, n_h,
+                               n_kh, n_s, hd, scale, q_type, kv_type, stream);
+}
+
+// flash_attention_stats_paged with q and the pool in their own float types.
+extern "C" int flash_attention_stats_paged_mx(const void* q, const void* k_pages,
+                                              const void* v_pages, const void* page_table,
+                                              const void* q_pos0, void* acc, void* m, void* l,
+                                              int n_b, int n_t, int n_h, int n_kh, int n_blocks,
+                                              int ps, int hd, float scale, int q_type,
+                                              int kv_type, void* stream) {
+  return dispatch_mixed<true>(q, k_pages, v_pages, q_pos0, 0, page_table, n_blocks, ps, acc, m, l,
+                              n_b, n_t, n_h, n_kh, n_blocks * ps, hd, scale, q_type, kv_type,
+                              stream);
 }

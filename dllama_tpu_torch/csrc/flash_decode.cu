@@ -76,6 +76,15 @@
 // 4 tq .. + 3), a V fragment four bytes of four key rows; K's scales go on
 // the score columns before the mask, V's on P's columns before the hi / lo
 // split, and l sums the unscaled p. Bytes: 2 * KH * (pos + 1) * (hd + 4) B.
+//
+// A float cache type unlike q's (C entries `flash_decode_mx` and
+// `paged_flash_decode_mx`, q's and the cache's types as codes; `--kv-dtype`
+// f32, f16 or bf16 under either model dtype) ports what the JAX decode
+// kernels do for any pair: q, K and V upcast to f32 inside the kernel
+// (_flash_decode_kernel, _paged_decode_kernel). bf16 q over a bf16 cache
+// keeps the tensor-core body; every other pair runs the CUDA-core body, the
+// ring holding the rows in the cache's type (f16 rows convert 8 values a
+// chunk), q staged in f32 from its own type and the output written in q's.
 
 #include <cooperative_groups.h>
 
@@ -144,11 +153,25 @@ __device__ __forceinline__ void chunk_floats(const uint8_t* p, float (&f)[16]) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) f[j] = static_cast<float>(static_cast<int8_t>(w[j >> 2] >> (8 * (j & 3))));
 }
+// a 16-byte chunk of f16 values (a cache type unlike q's)
+__device__ __forceinline__ void chunk_floats_f16(const uint8_t* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __half22float2(h[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
 __device__ __forceinline__ float2 pair_floats(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 pair_floats(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_floats(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 __device__ __forceinline__ float2 pair_floats(const int8_t* p) {
   const char2 c = *reinterpret_cast<const char2*>(p);
@@ -340,7 +363,11 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
 #pragma unroll
       for (int c = 0; c < TL::CH; ++c) {
         float f[TL::EPC];
-        chunk_floats(kr + TL::at(lane, c), f);
+        if constexpr (std::is_same<KV, __half>::value) {
+          chunk_floats_f16(kr + TL::at(lane, c), f);
+        } else {
+          chunk_floats(kr + TL::at(lane, c), f);
+        }
 #pragma unroll
         for (int e = 0; e < TL::EPC; ++e) s = fmaf(qg[c * TL::EPC + e], f[e], s);
       }
@@ -678,7 +705,10 @@ int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const floa
               int n_h, int n_kh, int n_s, float scale, cudaStream_t s) {
   using TL = Tile<KV, HD>;
   const int g_n = n_h / n_kh;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  // the tensor-core body takes bf16 q over a bf16 or int8 cache; every
+  // other pair of types (a cache type unlike q's) the CUDA-core body
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                (std::is_same<KV, __nv_bfloat16>::value || std::is_same<KV, int8_t>::value)) {
     if (g_n <= 16) {
       return launch_mma<KV, HD, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
                                        n_b, n_h, n_kh, n_s, scale, s);
@@ -739,6 +769,52 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
                                   static_cast<float*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
 }
 
+// The mixed-type entries: q and out in q_type (TYPE_F32 or TYPE_BF16), k
+// and v in kv_type (TYPE_F32, TYPE_BF16 or TYPE_F16), each read in its own type
+template <typename T, bool PAGED>
+int dispatch_kv(const T* q, const void* k, const void* v, int kv_type, const int* pos,
+                int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b, int n_h,
+                int n_kh, int n_s, int hd, float scale, cudaStream_t s) {
+  switch (kv_type) {
+    case TYPE_F32:
+      return launch<T, float, PAGED>(q, static_cast<const float*>(k),
+                                     static_cast<const float*>(v), nullptr, nullptr, pos, s_pos0,
+                                     pt, n_blocks, ps, out, n_b, n_h, n_kh, n_s, hd, scale, s);
+    case TYPE_BF16:
+      return launch<T, __nv_bfloat16, PAGED>(q, static_cast<const __nv_bfloat16*>(k),
+                                             static_cast<const __nv_bfloat16*>(v), nullptr,
+                                             nullptr, pos, s_pos0, pt, n_blocks, ps, out, n_b,
+                                             n_h, n_kh, n_s, hd, scale, s);
+    case TYPE_F16:
+      return launch<T, __half, PAGED>(q, static_cast<const __half*>(k),
+                                      static_cast<const __half*>(v), nullptr, nullptr, pos,
+                                      s_pos0, pt, n_blocks, ps, out, n_b, n_h, n_kh, n_s, hd,
+                                      scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool PAGED>
+int dispatch_mixed(const void* q, const void* k, const void* v, const void* pos, int s_pos0,
+                   const void* pt, int n_blocks, int ps, void* out, int n_b, int n_h, int n_kh,
+                   int n_s, int hd, float scale, int q_type, int kv_type, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(pt);
+  if (q_type == TYPE_BF16) {
+    using B = __nv_bfloat16;
+    return dispatch_kv<B, PAGED>(static_cast<const B*>(q), k, v, kv_type, p, s_pos0, t,
+                                 n_blocks, ps, static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd,
+                                 scale, s);
+  }
+  if (q_type == TYPE_F32)
+    return dispatch_kv<float, PAGED>(static_cast<const float*>(q), k, v, kv_type, p, s_pos0, t,
+                                     n_blocks, ps, static_cast<float*>(out), n_b, n_h, n_kh, n_s,
+                                     hd, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // q [B, 1, H, hd], k/v [B, KH, S, hd] (bf16 when bf16 else f32), pos int32
@@ -783,4 +859,23 @@ extern "C" int paged_flash_decode_q8(const void* q, const void* k_pages, const v
   return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, pos, 0, page_table,
                               n_blocks, ps, out, n_b, n_h, n_kh, n_blocks * ps, hd, scale, bf16,
                               stream);
+}
+
+// flash_decode with q and the cache in their own float types (q_type
+// TYPE_F32 or TYPE_BF16, out in q's; kv_type TYPE_F32, TYPE_BF16 or
+// TYPE_F16): a float cache type unlike the model's (`--kv-dtype`).
+extern "C" int flash_decode_mx(const void* q, const void* k, const void* v, const void* pos,
+                               int s_pos0, void* out, int n_b, int n_h, int n_kh, int n_s, int hd,
+                               float scale, int q_type, int kv_type, void* stream) {
+  return dispatch_mixed<false>(q, k, v, pos, s_pos0, nullptr, 0, 0, out, n_b, n_h, n_kh, n_s, hd,
+                               scale, q_type, kv_type, stream);
+}
+
+// paged_flash_decode with q and the pool in their own float types.
+extern "C" int paged_flash_decode_mx(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* page_table, const void* pos, void* out, int n_b,
+                                     int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
+                                     int q_type, int kv_type, void* stream) {
+  return dispatch_mixed<true>(q, k_pages, v_pages, pos, 0, page_table, n_blocks, ps, out, n_b,
+                              n_h, n_kh, n_blocks * ps, hd, scale, q_type, kv_type, stream);
 }

@@ -51,7 +51,11 @@
 // D / 16), the token's k hidden rows staged, each warp 2 outputs d over
 // all k experts, summed in order j = 0 .. k - 1.
 // Tokens that share an expert read it again (through L2), as the TPU
-// kernel does; deduplication across decode lanes is later work.
+// kernel does. Deduplication across decode lanes is the two-tier decode
+// (`--moe-decode-dedup`, the JAX transformer's _moe_ffn_pallas): the C entry
+// `moe_active_tier` takes a device predicate that every block reads first,
+// returning at once on steps whose lanes share few enough experts for the
+// grouped kernel's capped schedule to take them (csrc/moe_grouped.cu).
 
 #include <cooperative_groups.h>
 
@@ -71,7 +75,9 @@ constexpr int DOWN_BLOCK_D = WARPS * DOWN_OUTS;   // outputs per block
 template <typename W>
 __global__ void __launch_bounds__(WARPS * 32)
 moe_up_kernel(const float* __restrict__ x, W w1, W w3, const int* __restrict__ top_i,
-              float* __restrict__ hidden, int k, int n_d, int n_f) {
+              float* __restrict__ hidden, int k, int n_d, int n_f,
+              const int* __restrict__ skip) {
+  if (skip != nullptr && __ldg(skip) != 0) return;  // the step is the grouped tier's
   extern __shared__ __align__(16) float xs[];  // [D]
   const int a = blockIdx.x;  // assignment t * k + j
   const int t = a / k, e = top_i[a];
@@ -106,7 +112,8 @@ template <typename W>
 __global__ void __launch_bounds__(WARPS * 32)
 moe_down_kernel(const float* __restrict__ hidden, W w2, const int* __restrict__ top_i,
                 const float* __restrict__ wts, float* __restrict__ out, int k, int n_d,
-                int n_f) {
+                int n_f, const int* __restrict__ skip) {
+  if (skip != nullptr && __ldg(skip) != 0) return;  // the step is the grouped tier's
   extern __shared__ __align__(16) float hs[];  // [k][F]
   const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -208,7 +215,9 @@ __device__ __forceinline__ void warp_order_sum(float4 (&red)[NW][32], const floa
 template <typename W>
 __global__ void __launch_bounds__(UP_WARPS * 32)
 moe_up_mma_kernel(const __nv_bfloat16* __restrict__ x, W w1, W w3, const int* __restrict__ top_i,
-                  __nv_bfloat16* __restrict__ hidden, int k, int n_d, int n_f) {
+                  __nv_bfloat16* __restrict__ hidden, int k, int n_d, int n_f,
+                  const int* __restrict__ skip) {
+  if (skip != nullptr && __ldg(skip) != 0) return;  // the step is the grouped tier's
   __shared__ float4 red[UP_WARPS][32];
   const int a = blockIdx.x, f0 = blockIdx.y * UP_TILE;
   const int e = __ldg(top_i + a);
@@ -232,7 +241,8 @@ template <typename W>
 __global__ void __launch_bounds__(DOWN_WARPS * 32)
 moe_down_mma_kernel(const __nv_bfloat16* __restrict__ hidden, W w2, const int* __restrict__ top_i,
                     const float* __restrict__ wts, float* __restrict__ out, int k, int n_d,
-                    int n_f) {
+                    int n_f, const int* __restrict__ skip) {
+  if (skip != nullptr && __ldg(skip) != 0) return;  // the step is the grouped tier's
   extern __shared__ __align__(16) float terms[];  // [k][16]
   __shared__ float4 red[DOWN_WARPS][32];
   cg::cluster_group cluster = cg::this_cluster();
@@ -272,25 +282,26 @@ bool allow_smem(K kernel, size_t bytes) {
 // f32 x: the CUDA-core kernels, an f32 hidden in the scratch
 template <typename W>
 int launch(const float* x, W w1, W w3, W w2, const int* top_i, const float* wts, void* hidden,
-           float* out, int m, int k, int n_d, int n_f, cudaStream_t s) {
+           float* out, int m, int k, int n_d, int n_f, const int* skip, cudaStream_t s) {
   float* h = static_cast<float*>(hidden);
   const size_t up_smem = sizeof(float) * n_d, down_smem = sizeof(float) * k * n_f;
   if (!allow_smem(moe_up_kernel<W>, up_smem) || !allow_smem(moe_down_kernel<W>, down_smem))
     return static_cast<int>(cudaErrorInvalidValue);
   moe_up_kernel<W><<<dim3(m * k, (n_f + UP_BLOCK_F - 1) / UP_BLOCK_F), WARPS * 32, up_smem, s>>>(
-      x, w1, w3, top_i, h, k, n_d, n_f);
+      x, w1, w3, top_i, h, k, n_d, n_f, skip);
   moe_down_kernel<W><<<dim3(m, (n_d + DOWN_BLOCK_D - 1) / DOWN_BLOCK_D), WARPS * 32, down_smem,
-                       s>>>(h, w2, top_i, wts, out, k, n_d, n_f);
+                       s>>>(h, w2, top_i, wts, out, k, n_d, n_f, skip);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 x: the tensor-core kernels, a bf16 hidden [m, k, F] in the scratch
 template <typename W>
 int launch(const __nv_bfloat16* x, W w1, W w3, W w2, const int* top_i, const float* wts,
-           void* hidden, float* out, int m, int k, int n_d, int n_f, cudaStream_t s) {
+           void* hidden, float* out, int m, int k, int n_d, int n_f, const int* skip,
+           cudaStream_t s) {
   auto* h = static_cast<__nv_bfloat16*>(hidden);
   moe_up_mma_kernel<W><<<dim3(m * k, n_f / UP_TILE), UP_WARPS * 32, 0, s>>>(
-      x, w1, w3, top_i, h, k, n_d, n_f);
+      x, w1, w3, top_i, h, k, n_d, n_f, skip);
   const int cs = k < MAX_CLUSTER ? k : MAX_CLUSTER;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, m, n_d / 16);
@@ -305,17 +316,39 @@ int launch(const __nv_bfloat16* x, W w1, W w3, W w2, const int* top_i, const flo
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, moe_down_mma_kernel<W>, h, w2, top_i, wts, out, k, n_d, n_f);
+      cudaLaunchKernelEx(&cfg, moe_down_mma_kernel<W>, h, w2, top_i, wts, out, k, n_d, n_f,
+                         skip);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename X>
 int run(const void* x, const void* w1, const void* w1d, const void* w3, const void* w3d,
         const void* w2, const void* w2d, const int* top_i, const float* wts, void* hidden,
-        float* out, int m, int k, int n_d, int n_f, int q40, cudaStream_t s) {
+        float* out, int m, int k, int n_d, int n_f, int q40, const int* skip, cudaStream_t s) {
   return with_experts<X>(q40, w1, w1d, w3, w3d, w2, w2d, n_d, n_f, [&](auto e1, auto e3, auto e2) {
-    return launch(static_cast<const X*>(x), e1, e3, e2, top_i, wts, hidden, out, m, k, n_d, n_f, s);
+    return launch(static_cast<const X*>(x), e1, e3, e2, top_i, wts, hidden, out, m, k, n_d, n_f,
+                  skip, s);
   });
+}
+
+}  // namespace
+
+namespace {
+
+int entry(const void* x, const void* w1, const void* w1d, const void* w3, const void* w3d,
+          const void* w2, const void* w2d, const void* top_i, const void* wts, void* hidden,
+          void* out, const void* skip, int m, int k, int n_d, int n_f, int x_bf16, int q40,
+          void* stream) {
+  if (n_d % 32 || n_f % 32 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ti = static_cast<const int*>(top_i);
+  const float* w = static_cast<const float*>(wts);
+  const int* sk = static_cast<const int*>(skip);
+  float* o = static_cast<float*>(out);
+  if (x_bf16)
+    return run<__nv_bfloat16>(x, w1, w1d, w3, w3d, w2, w2d, ti, w, hidden, o, m, k, n_d, n_f, q40,
+                              sk, s);
+  return run<float>(x, w1, w1d, w3, w3d, w2, w2d, ti, w, hidden, o, m, k, n_d, n_f, q40, sk, s);
 }
 
 }  // namespace
@@ -330,13 +363,20 @@ extern "C" int moe_active(const void* x, const void* w1, const void* w1d, const 
                           const void* w3d, const void* w2, const void* w2d, const void* top_i,
                           const void* wts, void* hidden, void* out, int m, int k, int n_d,
                           int n_f, int x_bf16, int q40, void* stream) {
-  if (n_d % 32 || n_f % 32 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ti = static_cast<const int*>(top_i);
-  const float* w = static_cast<const float*>(wts);
-  float* o = static_cast<float*>(out);
-  if (x_bf16)
-    return run<__nv_bfloat16>(x, w1, w1d, w3, w3d, w2, w2d, ti, w, hidden, o, m, k, n_d, n_f, q40,
-                              s);
-  return run<float>(x, w1, w1d, w3, w3d, w2, w2d, ti, w, hidden, o, m, k, n_d, n_f, q40, s);
+  return entry(x, w1, w1d, w3, w3d, w2, w2d, top_i, wts, hidden, out, nullptr, m, k, n_d, n_f,
+               x_bf16, q40, stream);
+}
+
+// moe_active as the active tier of the two-tier decode (ops/moe.py
+// `moe_decode_tiers`): every block reads the device int `skip` [1] first
+// and returns at once when it is non-zero (the step took the grouped tier),
+// so the tier is chosen on the device, inside a captured graph, with no
+// readback; `out` is then left as it was.
+extern "C" int moe_active_tier(const void* x, const void* w1, const void* w1d, const void* w3,
+                               const void* w3d, const void* w2, const void* w2d,
+                               const void* top_i, const void* wts, void* hidden, void* out,
+                               const void* skip, int m, int k, int n_d, int n_f, int x_bf16,
+                               int q40, void* stream) {
+  return entry(x, w1, w1d, w3, w3d, w2, w2d, top_i, wts, hidden, out, skip, m, k, n_d, n_f,
+               x_bf16, q40, stream);
 }

@@ -17,7 +17,10 @@
 // type before the down projection, the routing weight applied in f32.
 // The grid is sized from the shapes alone (ceil(A / RUN) + min(E, A) runs
 // for A = n * k); a block past the real run count, read from a device int,
-// returns at once, so the host never reads the schedule back. No atomics:
+// returns at once, so the host never reads the schedule back (the two-tier
+// decode, `--moe-decode-dedup`, sizes the grid by its cap of ceil(A / RUN) +
+// cap runs and sets the device count to 0 on a step whose lanes share too
+// few experts: every block returns, ops/moe.py `moe_decode_tiers`). No atomics:
 // every output element is written by one block, so launches repeat their
 // bits.
 //

@@ -26,7 +26,10 @@ A Qwen3-MoE layer's FFN routes each row of y to its top-k experts
 (``moe_route``, plain torch as in JAX) and sums their SwiGLUs: batches of
 B*T <= 16 rows (decode, and the 8-row prefill bucket) through the
 active-experts kernel, larger ones through the grouped kernel, Q40 or
-dense by the expert leaves' type (ops/moe.py).
+dense by the expert leaves' type (ops/moe.py). With ``moe_dedup`` a batch
+of 2..16 rows runs the two-tier decode: the grouped kernel under a cap of
+(n * k) // 2 expert segments when the rows share that few experts, the
+active-experts kernel otherwise, chosen on the device (`moe_decode_tiers`).
 
 Attention: chunks of T > 1 go through the prefill stats kernel, T = 1
 through the decode kernel, which reads rows 0..pos only — so the port
@@ -86,8 +89,10 @@ from ..ops.flash_attention import (
 )
 from ..ops.moe import (
     MOE_KERNEL_MAX_TOKENS,
+    dedup_cap,
     moe_active_experts,
     moe_active_experts_q40,
+    moe_decode_tiers,
     moe_experts_ref,
     moe_grouped_experts,
     moe_grouped_experts_q40,
@@ -154,22 +159,26 @@ def _mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor:
     return torch.matmul(x, w.transpose(-1, -2))
 
 
-def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool) -> torch.Tensor:
+def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool,
+            dedup: bool = False) -> torch.Tensor:
     """Qwen3-MoE FFN of y [B, T, D] -> [B, T, D] in y's dtype (reference:
     src/llm.cpp:425-499; JAX: transformer.py _moe_ffn_pallas /
-    _moe_ffn_grouped)."""
+    _moe_ffn_grouped). With ``dedup`` a decode-sized batch of more than one
+    row runs the two tiers (ops/moe.py `moe_decode_tiers`, cap (n * k) // 2)."""
     b, t, d = y.shape
     n = b * t
     yf = y.reshape(n, d)
     top_i, weights = moe_route(yf, lp["moe_gate"], h.n_active_experts)
     quant = isinstance(lp["w1"], QuantWeight)
+    args = (yf, lp["w1"], lp["w2"], lp["w3"], top_i, weights)
+    cap = dedup_cap(n, h.n_active_experts, dedup)
     if plain:
-        run = moe_experts_ref
+        out = moe_experts_ref(*args)
     elif n <= MOE_KERNEL_MAX_TOKENS:
-        run = moe_active_experts_q40 if quant else moe_active_experts
+        out = (moe_decode_tiers(*args, cap) if cap else
+               (moe_active_experts_q40 if quant else moe_active_experts)(*args))
     else:
-        run = moe_grouped_experts_q40 if quant else moe_grouped_experts
-    out = run(yf, lp["w1"], lp["w2"], lp["w3"], top_i, weights)
+        out = (moe_grouped_experts_q40 if quant else moe_grouped_experts)(*args)
     return out.reshape(b, t, d).to(y.dtype)
 
 
@@ -252,6 +261,7 @@ def forward(
     act_quant=quantize_acts,
     page_table: torch.Tensor | None = None,  # [B, n_blocks] int32: paged mode
     park: int | None = None,  # slab lanes: the first padding row (seq_len)
+    moe_dedup: bool = False,  # Qwen3-MoE: the two-tier decode (`moe_ffn`)
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
     are written in place. Returns (logits [B, T or 1, V] f32, or None for
@@ -337,7 +347,7 @@ def forward(
 
         y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
         if is_moe:
-            f = moe_ffn(y, lp, h, plain)
+            f = moe_ffn(y, lp, h, plain, moe_dedup)
         else:
             d = act(mm(y, lp["w1"]))
             u = mm(y, lp["w3"])

@@ -176,17 +176,20 @@ class MemoryReport:
 
 def memory_report(engine) -> MemoryReport:
     """The analytic side of ``compare_with_analytic`` for ``engine``: its
-    params, its slab caches (the single stream's and the slab lanes'), its
-    lanes' pool (an int8 cache's scales included) and its graphs (the
-    static input/output buffers and the private pool the captured graphs
-    hold, `StepGraphs.pool_bytes`)."""
+    params (a resident draft model's too), its slab caches (the single
+    stream's, the slab lanes' and the draft's), its lanes' pool (an int8
+    cache's scales included) and its graphs (the static input/output
+    buffers and the private pool the captured graphs hold,
+    `StepGraphs.pool_bytes`)."""
     from .cost import nbytes
 
     g = engine.graphs
+    draft = getattr(engine, "_draft_params", None)
     return MemoryReport(
-        params_bytes=nbytes(engine.params),
-        cache_bytes=nbytes(engine.cache) + (nbytes(engine.lane_cache)
-                                            if engine.lane_cache is not None else 0),
+        params_bytes=nbytes(engine.params) + (nbytes(draft) if draft is not None else 0),
+        cache_bytes=sum(nbytes(c) for c in (engine.cache, engine.lane_cache,
+                                            getattr(engine, "draft_cache", None))
+                        if c is not None),
         pool_bytes=nbytes(engine.kv_pool) if engine.kv_pool is not None else 0,
         graph_bytes=g.buffer_bytes() + g.pool_bytes(),
     )

@@ -2,15 +2,19 @@
 
 `KERNELS` lists the wrappers whose ``.launches`` counts show that a run went
 through the hand-written kernels (the int8-KV instantiations of the
-attention kernels count apart, as ``*_kv8``)."""
+attention kernels count apart, as ``*_kv8``, and their mixed-type entries,
+a float cache type unlike q's, as ``*_mixed``)."""
 
 from .flash_attention import (
     flash_attention_stats,
     flash_attention_stats_kv8,
+    flash_attention_stats_mixed,
     flash_decode,
     flash_decode_kv8,
+    flash_decode_mixed,
     paged_flash_decode,
     paged_flash_decode_kv8,
+    paged_flash_decode_mixed,
 )
 from .int8_matmul import i8matmul_2d
 from .moe import (
@@ -31,6 +35,9 @@ KERNELS = {
     "flash_attention_stats_kv8": flash_attention_stats_kv8,
     "flash_decode_kv8": flash_decode_kv8,
     "paged_flash_decode_kv8": paged_flash_decode_kv8,
+    "flash_attention_stats_mixed": flash_attention_stats_mixed,
+    "flash_decode_mixed": flash_decode_mixed,
+    "paged_flash_decode_mixed": paged_flash_decode_mixed,
     "moe_active_experts": moe_active_experts,
     "moe_active_experts_q40": moe_active_experts_q40,
     "moe_grouped_experts": moe_grouped_experts,

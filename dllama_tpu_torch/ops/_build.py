@@ -54,7 +54,16 @@ SIGNATURES = {
         "flash_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
     "flash_decode_q8": ("flash_decode", [_P] * 6 + [_I, _P] + [_I] * 5 + [_F, _I, _P]),
     "paged_flash_decode_q8": ("flash_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    # the mixed-type entries: q's and the cache's type codes (csrc/common.cuh TypeCode)
+    "flash_attention_stats_mx": (
+        "flash_attention", [_P] * 4 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_attention_stats_paged_mx": (
+        "flash_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
+    "flash_decode_mx": ("flash_decode", [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _I, _P]),
+    "paged_flash_decode_mx": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
     "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
+    # the active tier of the two-tier decode: a device predicate pointer after out
+    "moe_active_tier": ("moe_active", [_P] * 12 + [_I] * 6 + [_P]),
     "moe_grouped": ("moe_grouped", [_P] * 13 + [_I] * 5 + [_P]),
 }
 

@@ -14,8 +14,16 @@ Counterpart of dllama_tpu/ops/flash_attention.py. Three CUDA kernels:
   table: logical row r of lane b lives in pool page ``page_table[b, r //
   ps]`` of the pool [P, KH, ps, hd], at page row ``r % ps``.
 
-Each takes the cache as dense leaves in q's dtype or as int8 `QuantKV`
-pairs (``--kv-dtype int8``: int8 values and one f32 scale a row). A QuantKV
+Each takes the cache as dense leaves in q's dtype, as dense leaves in
+another float type (``--kv-dtype`` f32, f16 or bf16 unlike the model's
+dtype), or as int8 `QuantKV` pairs (``--kv-dtype int8``: int8 values and
+one f32 scale a row). A dense cache in a type other than q's goes to the
+kernels' mixed-type entries (the ``_mx`` C entries, q's and the cache's type
+codes): the CUDA-core bodies read q and each K/V row in their own types and
+compute in f32, as every TPU kernel upcasts its q, K and V tiles to f32; their
+launches count apart, in the `KernelCount`s ``flash_attention_stats_mixed``
+(slab and paged), ``flash_decode_mixed`` and ``paged_flash_decode_mixed``.
+bf16 q over a bf16 cache keeps the tensor-core bodies. A QuantKV
 cache goes to the same kernels' int8 instantiations (the ``_q8`` C
 entries), which read the int8 planes and the scales and put each row's
 scale on its score and on its probability in f32 (the TPU kernels' QuantKV
@@ -44,6 +52,8 @@ from .kv_cache import QuantKV, dequant_kv, lane_views
 from .torch_ops import attention_stats, normalize_stats
 
 _KERNEL_HEAD_DIMS = (64, 128)
+# the C entries' type codes (csrc/common.cuh TypeCode)
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _lane_pos(pos, b: int, device) -> torch.Tensor:
@@ -65,10 +75,26 @@ def _quant(name: str, k, v) -> bool:
     return quant
 
 
+def _mixed(q, k) -> bool:
+    """Whether a dense cache is in a float type other than q's (the ``_mx``
+    entries)."""
+    return not isinstance(k, QuantKV) and k.dtype != q.dtype
+
+
+def _types(q, k) -> tuple:
+    """The C entry's trailing type arguments: (q's code, the cache's code)
+    for a mixed pair, else the one flag ``bf16`` (q's type, which the cache
+    shares, or an int8 cache's q)."""
+    if _mixed(q, k):
+        return _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype]
+    return (int(q.dtype == torch.bfloat16),)
+
+
 def _check_kv(name: str, q, k, v) -> None:
-    """The cache leaves' contract on CUDA tensors: dense leaves in q's
-    dtype, or QuantKV pairs of int8 values [..., S, hd] and f32 scales
-    [..., S, 1]; q float32 or bfloat16; every tensor contiguous on the card."""
+    """The cache leaves' contract on CUDA tensors: dense leaves of one float
+    type (float32, bfloat16 or float16; q's or another), or QuantKV pairs of
+    int8 values [..., S, hd] and f32 scales [..., S, 1]; q float32 or
+    bfloat16; every tensor contiguous on the card."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: takes float32 or bfloat16, got {q.dtype}")
     if _quant(name, k, v):
@@ -81,8 +107,9 @@ def _check_kv(name: str, q, k, v) -> None:
                                  f"{tuple(leaf.q.shape)} (want [..., S, 1])")
         tensors = (q, k.q, k.s, v.q, v.s)
     else:
-        if k.dtype != q.dtype or v.dtype != q.dtype:
-            raise TypeError(f"{name}: q, k and v must share a dtype")
+        if k.dtype != v.dtype or k.dtype not in _TYPE_CODES:
+            raise TypeError(f"{name}: k and v must share one of float32, bfloat16 or float16, "
+                            f"got {k.dtype} and {v.dtype}")
         tensors = (q, k, v)
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
@@ -164,6 +191,23 @@ class KernelCount:
 flash_attention_stats_kv8 = KernelCount("flash_attention_stats_kv8")
 flash_decode_kv8 = KernelCount("flash_decode_kv8")
 paged_flash_decode_kv8 = KernelCount("paged_flash_decode_kv8")
+# the mixed-type entries' launches (a float cache type unlike q's)
+flash_attention_stats_mixed = KernelCount("flash_attention_stats_mixed")
+flash_decode_mixed = KernelCount("flash_decode_mixed")
+paged_flash_decode_mixed = KernelCount("paged_flash_decode_mixed")
+
+
+def _entry(base: str, q, k) -> str:
+    """The C entry of a launch: ``base``, its ``_q8`` for an int8 cache or
+    its ``_mx`` for a mixed pair."""
+    if isinstance(k, QuantKV):
+        return base + "_q8"
+    return base + "_mx" if _mixed(q, k) else base
+
+
+def _count(q, k, plain, kv8: KernelCount, mixed: KernelCount) -> None:
+    """One launch on the counter of its instantiation."""
+    (kv8 if isinstance(k, QuantKV) else mixed if _mixed(q, k) else plain).launches += 1
 
 
 def flash_attention_stats(
@@ -174,7 +218,7 @@ def flash_attention_stats(
     s_pos0: int = 0,  # absolute position of k[:, :, 0]
 ):
     """Blockwise causal GQA attention state (acc, m, l), f32."""
-    quant = _quant("flash_attention_stats", k, v)
+    _quant("flash_attention_stats", k, v)
     if q.device.type == "cpu":
         return flash_attention_stats_ref(q, k, v, q_pos0, s_pos0)
     _check_cuda("flash_attention_stats", q, k, v)
@@ -182,13 +226,13 @@ def flash_attention_stats(
     kh, s = k.shape[1], k.shape[2]
     pos = _lane_pos(q_pos0, b, q.device)
     acc, m, l = _stats_out(q, kh)
-    code = _build.load("flash_attention_stats_q8" if quant else "flash_attention_stats")(
+    code = _build.load(_entry("flash_attention_stats", q, k))(
         q.data_ptr(), *_kv_ptrs(k, v), pos.data_ptr(), int(s_pos0),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
-        float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16), _build.stream(q.device),
+        float(1.0 / np.sqrt(hd)), *_types(q, k), _build.stream(q.device),
     )
     _build.check(code, "flash_attention_stats")
-    (flash_attention_stats_kv8 if quant else flash_attention_stats).launches += 1
+    _count(q, k, flash_attention_stats, flash_attention_stats_kv8, flash_attention_stats_mixed)
     return acc, m, l
 
 
@@ -225,7 +269,7 @@ def flash_decode(
     ``dequant_kv`` and XLA attention there)."""
     if q.shape[1] != 1:
         raise ValueError("flash_decode is the T=1 path")
-    quant = _quant("flash_decode", k_cache, v_cache)
+    _quant("flash_decode", k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, pos)
     _check_cuda("flash_decode", q, k_cache, v_cache)
@@ -233,13 +277,13 @@ def flash_decode(
     kh, s = k_cache.shape[1], k_cache.shape[2]
     p = _lane_pos(pos, b, q.device)
     out = torch.empty_like(q)
-    code = _build.load("flash_decode_q8" if quant else "flash_decode")(
+    code = _build.load(_entry("flash_decode", q, k_cache))(
         q.data_ptr(), *_kv_ptrs(k_cache, v_cache), p.data_ptr(), 0,
         out.data_ptr(), b, h, kh, s, hd, float(1.0 / np.sqrt(hd)),
-        int(q.dtype == torch.bfloat16), _build.stream(q.device),
+        *_types(q, k_cache), _build.stream(q.device),
     )
     _build.check(code, "flash_decode")
-    (flash_decode_kv8 if quant else flash_decode).launches += 1
+    _count(q, k_cache, flash_decode, flash_decode_kv8, flash_decode_mixed)
     return out
 
 
@@ -268,20 +312,20 @@ def paged_flash_decode(
     frontier is read)."""
     if q.shape[1] != 1:
         raise ValueError("paged_flash_decode is the T=1 path")
-    quant = _quant("paged_flash_decode", k_pages, v_pages)
+    _quant("paged_flash_decode", k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, k_pages, v_pages, page_table, pos)
     _check_paged("paged_flash_decode", q, k_pages, v_pages, page_table, pos)
     b, _, h, hd = q.shape
     kh, ps = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
-    code = _build.load("paged_flash_decode_q8" if quant else "paged_flash_decode")(
+    code = _build.load(_entry("paged_flash_decode", q, k_pages))(
         q.data_ptr(), *_kv_ptrs(k_pages, v_pages), page_table.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, h, kh, page_table.shape[1], ps, hd,
-        float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16), _build.stream(q.device),
+        float(1.0 / np.sqrt(hd)), *_types(q, k_pages), _build.stream(q.device),
     )
     _build.check(code, "paged_flash_decode")
-    (paged_flash_decode_kv8 if quant else paged_flash_decode).launches += 1
+    _count(q, k_pages, paged_flash_decode, paged_flash_decode_kv8, paged_flash_decode_mixed)
     return out
 
 
@@ -304,23 +348,24 @@ def paged_flash_attention_stats(
 ):
     """`flash_attention_stats` with the keys read through the page table
     (logical rows from 0); its launches count under flash_attention_stats
-    (flash_attention_stats_kv8 for an int8 pool)."""
-    quant = _quant("paged_flash_attention_stats", k_pages, v_pages)
+    (flash_attention_stats_kv8 for an int8 pool, flash_attention_stats_mixed
+    for a pool in a float type other than q's)."""
+    _quant("paged_flash_attention_stats", k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_flash_attention_stats_ref(q, k_pages, v_pages, page_table, q_pos0)
     _check_paged("paged_flash_attention_stats", q, k_pages, v_pages, page_table, q_pos0)
     b, t, h, hd = q.shape
     kh, ps = k_pages.shape[1], k_pages.shape[2]
     acc, m, l = _stats_out(q, kh)
-    entry = "flash_attention_stats_paged" + ("_q8" if quant else "")
-    code = _build.load(entry)(
+    code = _build.load(_entry("flash_attention_stats_paged", q, k_pages))(
         q.data_ptr(), *_kv_ptrs(k_pages, v_pages), page_table.data_ptr(),
         q_pos0.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh,
-        page_table.shape[1], ps, hd, float(1.0 / np.sqrt(hd)), int(q.dtype == torch.bfloat16),
+        page_table.shape[1], ps, hd, float(1.0 / np.sqrt(hd)), *_types(q, k_pages),
         _build.stream(q.device),
     )
     _build.check(code, "paged_flash_attention_stats")
-    (flash_attention_stats_kv8 if quant else flash_attention_stats).launches += 1
+    _count(q, k_pages, flash_attention_stats, flash_attention_stats_kv8,
+           flash_attention_stats_mixed)
     return acc, m, l
 
 

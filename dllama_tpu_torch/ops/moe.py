@@ -22,6 +22,18 @@ so that each expert's weights stream once per run (once a layer for an
 expert with at most `GROUP_ROWS` rows), not once per token.
 `moe_experts_ref` is the plain version of all four.
 
+The two-tier decode (``--moe-decode-dedup``, the JAX transformer's
+``_moe_ffn_pallas`` with ``dedup``; `moe_decode_tiers`): at a lane batch of
+n > 1 rows whose A = n * k assignments touch u distinct experts, the grouped
+kernel under a cap of (n * k) // 2 expert segments reads each shared
+expert's weights once when u <= cap, and the active-experts kernel takes the
+step otherwise. A decode step is a CUDA graph, so the tier is chosen on the
+device, with no readback: both kernels are launched, each reads the
+predicate and the one whose step it is not does no work (the grouped grid's
+run count is set to 0, the active kernel's blocks read a flag and return),
+and the output is taken from the tier that ran. `tier_tally` counts the
+layer-steps that took the grouped tier on the device.
+
 Numerics, for kernels and plain version alike (the rules of `qmatmul`):
 the activation dtype decides the roundings. W is formed exactly in f32 and
 rounded to x's dtype; products and sums are f32; the SwiGLU hidden is
@@ -151,11 +163,11 @@ def _pointers(quant: bool, *ws) -> list:
     return out
 
 
-def _active(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
-    """Shared body of the two active-experts wrappers (``fn`` counts)."""
-    _, f, k = _check(fn.__name__, quant, x, w1, w2, w3, top_i, weights)
-    if x.device.type == "cpu":
-        return moe_experts_ref(x, w1, w2, w3, top_i, weights)
+def _launch_active(fn, quant: bool, x, w1, w2, w3, top_i, weights, f: int, k: int,
+                   skip=None) -> torch.Tensor:
+    """The active-experts kernel on CUDA tensors (``fn`` counts); with
+    ``skip`` (int32 [1] on the card) its tier's entry, whose blocks return
+    when the flag is set."""
     n, d = x.shape
     x = x.contiguous()
     ti = top_i.to(torch.int32).contiguous()
@@ -163,14 +175,23 @@ def _active(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
     hidden = torch.empty((n, k, f), dtype=torch.float32, device=x.device)
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n:
-        code = _build.load("moe_active")(
+        flag = [] if skip is None else [skip.data_ptr()]
+        code = _build.load("moe_active" if skip is None else "moe_active_tier")(
             x.data_ptr(), *_pointers(quant, w1, w3, w2), ti.data_ptr(), wt.data_ptr(),
-            hidden.data_ptr(), out.data_ptr(), n, k, d, f,
+            hidden.data_ptr(), out.data_ptr(), *flag, n, k, d, f,
             int(x.dtype == torch.bfloat16), int(quant), _build.stream(x.device),
         )
         _build.check(code, fn.__name__)
         fn.launches += 1
     return out
+
+
+def _active(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
+    """Shared body of the two active-experts wrappers (``fn`` counts)."""
+    _, f, k = _check(fn.__name__, quant, x, w1, w2, w3, top_i, weights)
+    if x.device.type == "cpu":
+        return moe_experts_ref(x, w1, w2, w3, top_i, weights)
+    return _launch_active(fn, quant, x, w1, w2, w3, top_i, weights, f, k)
 
 
 def moe_active_experts(x, w1, w2, w3, top_i, weights) -> torch.Tensor:
@@ -200,9 +221,11 @@ class GroupedSchedule(NamedTuple):
     tile_expert: torch.Tensor  # int32 [max_tiles]: expert of each run (E past the end)
     n_tiles: torch.Tensor  # int32 [1]: runs in use, on the device
     inv: torch.Tensor  # int32 [A]: row of assignment t * k + j
+    n_used: torch.Tensor  # int32 [1]: distinct experts among the assignments
 
 
-def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int) -> GroupedSchedule:
+def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int,
+                     max_segments: int | None = None) -> GroupedSchedule:
     """The grouped kernels' schedule, in torch ops on top_i's device and with
     no host readback (the JAX ``_grouped_schedule`` is jnp outside the
     kernel too), in few ops: each op is a launch that the host enqueues,
@@ -210,11 +233,19 @@ def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int)
     within its expert (assignments in order t * k + j) comes from a
     running count over a one-hot [E, A], and its row from a sum over that
     one-hot (no sort, no gather; ``bincount`` on CUDA would read the
-    largest id back to the host)."""
+    largest id back to the host).
+
+    ``max_segments`` caps the expert segments below min(E, A), as the JAX
+    schedule's does for the two-tier decode: the grid then holds
+    ceil(A / R) + cap runs, which is enough whenever ``n_used`` <= cap.
+    Past the cap the rows fall out of the grid; they are clamped to its
+    last row (JAX's out-of-range scatter drops them, a CUDA index would
+    fault), and the caller runs no block of such a schedule."""
     n, k = top_i.shape
     a, rows = n * k, GROUP_ROWS
     dev = top_i.device
-    max_tiles = -(-a // rows) + min(n_experts, a)
+    segments = min(n_experts, a) if max_segments is None else min(n_experts, a, max_segments)
+    max_tiles = -(-a // rows) + segments
     ar = torch.arange(max(n, n_experts, max_tiles), dtype=torch.int32, device=dev)
     seen = top_i.reshape(1, -1) == ar[:n_experts, None]  # [E, A] one-hot of each assignment
     count = seen.cumsum(1, dtype=torch.int32)  # each expert's assignments so far
@@ -222,12 +253,39 @@ def grouped_schedule(top_i: torch.Tensor, weights: torch.Tensor, n_experts: int)
     tile_end = tiles.cumsum(0, dtype=torch.int32)
     first_row = (tile_end - tiles).mul_(rows).sub_(1)  # of each expert's segment, less 1
     inv = count.add_(first_row[:, None]).mul_(seen).sum(0, dtype=torch.int32)
+    if max_segments is not None:
+        inv.clamp_(max=max_tiles * rows - 1)
     row_token = torch.full((max_tiles * rows,), -1, dtype=torch.int32, device=dev)
     row_token.index_put_((inv.view(n, k),), ar[:n, None])
     row_weight = torch.zeros(max_tiles * rows, dtype=torch.float32, device=dev)
     row_weight.index_put_((inv,), weights.reshape(-1).float())
     tile_expert = torch.searchsorted(tile_end, ar[:max_tiles], right=True, out_int32=True)
-    return GroupedSchedule(row_token, row_weight, tile_expert, tile_end[-1:], inv)
+    n_used = (tiles > 0).sum(dtype=torch.int32).reshape(1)
+    return GroupedSchedule(row_token, row_weight, tile_expert, tile_end[-1:], inv, n_used)
+
+
+def _launch_grouped(fn, quant: bool, x, w1, w2, w3, s: GroupedSchedule, f: int, k: int,
+                    n_tiles=None) -> torch.Tensor:
+    """The grouped kernel over schedule ``s`` on CUDA tensors (``fn``
+    counts), with ``n_tiles`` (int32 [1] on the card) in place of the
+    schedule's run count where given, then the combine back to tokens."""
+    n, d = x.shape
+    x = x.contiguous()
+    max_tiles = s.tile_expert.shape[0]
+    hidden = torch.empty((max_tiles * GROUP_ROWS, f), dtype=x.dtype, device=x.device)
+    out_rows = torch.empty((max_tiles * GROUP_ROWS, d), dtype=torch.float32, device=x.device)
+    code = _build.load("moe_grouped")(
+        x.data_ptr(), *_pointers(quant, w1, w3, w2), s.row_token.data_ptr(),
+        s.row_weight.data_ptr(), s.tile_expert.data_ptr(),
+        (s.n_tiles if n_tiles is None else n_tiles).data_ptr(),
+        hidden.data_ptr(), out_rows.data_ptr(), max_tiles, d, f,
+        int(x.dtype == torch.bfloat16), int(quant), _build.stream(x.device),
+    )
+    _build.check(code, fn.__name__)
+    fn.launches += 1
+    # the combine back to tokens, outside the kernel as in JAX (.at[t].add),
+    # by the inverse permutation: deterministic, where index_add_ is not
+    return out_rows.index_select(0, s.inv).view(n, k, d).sum(dim=1)
 
 
 def _grouped(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
@@ -238,22 +296,7 @@ def _grouped(fn, quant: bool, x, w1, w2, w3, top_i, weights) -> torch.Tensor:
     n, d = x.shape
     if not n:
         return torch.zeros((0, d), dtype=torch.float32, device=x.device)
-    x = x.contiguous()
-    s = grouped_schedule(top_i, weights, e)
-    max_tiles = s.tile_expert.shape[0]
-    hidden = torch.empty((max_tiles * GROUP_ROWS, f), dtype=x.dtype, device=x.device)
-    out_rows = torch.empty((max_tiles * GROUP_ROWS, d), dtype=torch.float32, device=x.device)
-    code = _build.load("moe_grouped")(
-        x.data_ptr(), *_pointers(quant, w1, w3, w2), s.row_token.data_ptr(),
-        s.row_weight.data_ptr(), s.tile_expert.data_ptr(), s.n_tiles.data_ptr(),
-        hidden.data_ptr(), out_rows.data_ptr(), max_tiles, d, f,
-        int(x.dtype == torch.bfloat16), int(quant), _build.stream(x.device),
-    )
-    _build.check(code, fn.__name__)
-    fn.launches += 1
-    # the combine back to tokens, outside the kernel as in JAX (.at[t].add),
-    # by the inverse permutation: deterministic, where index_add_ is not
-    return out_rows.index_select(0, s.inv).view(n, k, d).sum(dim=1)
+    return _launch_grouped(fn, quant, x, w1, w2, w3, grouped_schedule(top_i, weights, e), f, k)
 
 
 def moe_grouped_experts(x, w1, w2, w3, top_i, weights) -> torch.Tensor:
@@ -269,3 +312,56 @@ def moe_grouped_experts_q40(x, w1, w2, w3, top_i, weights) -> torch.Tensor:
 
 moe_grouped_experts.launches = 0
 moe_grouped_experts_q40.launches = 0
+
+
+def dedup_cap(n: int, k: int, dedup: bool) -> int:
+    """The two-tier decode's cap on expert segments for n rows of k choices
+    (the JAX ``_maybe_two_tier``): (n * k) // 2 with dedup on and n > 1,
+    else 0 (one tier: the active-experts kernel)."""
+    return (n * k) // 2 if dedup and n > 1 else 0
+
+
+# device -> int64 [2] on it: (layer-steps that took the grouped tier,
+# layer-steps run in two tiers); updated in place, so a captured graph
+# keeps adding to the same tensor
+_TIER_TALLY: dict = {}
+
+
+def tier_tally(device) -> torch.Tensor:
+    """The two-tier decode's tally on ``device`` (`_TIER_TALLY`): read it
+    outside any timed window, zero it in place."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:  # "cuda" and "cuda:0" name one tally
+        d = torch.device("cuda", torch.cuda.current_device())
+    key = str(d)
+    t = _TIER_TALLY.get(key)
+    if t is None:
+        t = _TIER_TALLY[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return t
+
+
+def moe_decode_tiers(x, w1, w2, w3, top_i, weights, cap: int) -> torch.Tensor:
+    """The two-tier decode MoE (module docstring): x [n, D], top_i/weights
+    [n, k] -> f32 [n, D]. The grouped kernel over a schedule capped at
+    ``cap`` segments takes the step when its u distinct experts are <= cap,
+    the active-experts kernel otherwise; the choice is a device predicate
+    that both kernels read, tallied in `tier_tally`. On the CPU the tally
+    is kept the same way and the output is the plain version."""
+    quant = isinstance(w1, QuantWeight)
+    name = "moe_decode_tiers"
+    e, f, k = _check(name, quant, x, w1, w2, w3, top_i, weights)
+    n, d = x.shape
+    if cap < 1 or not n:
+        raise ValueError(f"{name}: a cap of {cap} segments over {n} rows takes one tier")
+    s = grouped_schedule(top_i, weights, e, max_segments=cap)
+    fits = s.n_used <= cap  # bool [1]: the step is the grouped tier's
+    tier_tally(x.device).add_(torch.cat([fits, torch.ones_like(fits)]).long())
+    if x.device.type == "cpu":
+        return moe_experts_ref(x, w1, w2, w3, top_i, weights)
+    grouped = moe_grouped_experts_q40 if quant else moe_grouped_experts
+    active = moe_active_experts_q40 if quant else moe_active_experts
+    g = _launch_grouped(grouped, quant, x, w1, w2, w3, s, f, k,
+                        n_tiles=torch.where(fits, s.n_tiles, 0))
+    a = _launch_active(active, quant, x, w1, w2, w3, top_i, weights, f, k,
+                       skip=fits.to(torch.int32))
+    return torch.where(fits[:, None], g, a)

@@ -102,7 +102,7 @@ queued request parks the most-progressed stream (its whole pages published,
 its lane freed, its job requeued); the resume adopts the pages with no
 device copy and re-prefills only the page tail.
 
-Speculation (``--speculation off|ngram|shared``, ``--spec-k``;
+Speculation (``--speculation off|ngram|shared|draft``, ``--spec-k``;
 runtime/spec.py): each greedy lane keeps an n-gram drafter over its own
 history (``ngram``) and, with ``shared``, drafts from the continuations its
 sibling streams under the same radix anchor published. Each tick every
@@ -112,9 +112,16 @@ own position through the page pool); the lane emits its longest draft
 prefix that agrees with the pass's argmax plus one correction token, each
 through the decode block's per-token path, so greedy streams are the same
 bytes as with ``off``. Sampled lanes and greedy lanes without a draft take
-the decode block in the same tick. ``off`` (the default) builds no
-drafters, no store and no verify graphs. The draft-model source
-(``draft``) waits for ROADMAP A.12.
+the decode block in the same tick. ``draft`` (``--draft-model PATH``, else
+``DLLAMA_DRAFT_MODEL``: a checkpoint with the target's vocab, loaded dense
+beside it by `serve`) adds a resident draft model behind both n-gram
+sources: the lanes they leave dry catch their draft rows up on their
+verified history and take one batched greedy k-step proposal a tick
+(`InferenceEngine.draft_prefill`, ``draft_propose``); the scheduler keeps a
+draft cursor a lane, moved past the accepted rows by each verify and
+dropped at release, park, recovery and a reset draft cache, and a failed
+draft dispatch only skips model drafting for the tick. ``off`` (the
+default) builds no drafters, no store and no verify graphs.
 
 Observability (obs/, the JAX server's): every serving family of the JAX
 ``ApiState``, fed where the JAX scheduler feeds them; a request span (``--trace-out``) and timeline spans for the queue,
@@ -196,9 +203,11 @@ from .engine import InferenceEngine
 from .faults import get_fault_plane, set_fault_plane
 from .spec import (
     DEFAULT_SPEC_K,
+    SOURCE_DRAFT,
     NgramDrafter,
     SharedNgramStore,
     bucket_for,
+    resolve_draft_model,
     resolve_spec_knobs,
     spec_buckets,
 )
@@ -538,8 +547,18 @@ class LaneScheduler:
         self.spec_k = self.clamp_spec_k(self.engine, spec_k)
         self.spec_buckets = spec_buckets(self.spec_k)
         self.drafters: dict[int, NgramDrafter] = {}
-        # the cross-lane store, keyed by radix anchors (mode "shared" only)
-        self.spec_store = SharedNgramStore() if speculation == "shared" else None
+        # the cross-lane store, keyed by radix anchors (modes "shared" and
+        # "draft")
+        self.spec_store = (SharedNgramStore() if speculation in ("shared", "draft")
+                           else None)
+        # the draft model's catch-up cursors: rows [0, _draft_pos[l]) of the
+        # draft cache hold lane l's verified history; the epoch snapshot
+        # tells a reset draft cache (the cursors restart at 0); _draft_fed
+        # holds this tick's (position, k) of each lane's model draft, so the
+        # verify outcome moves the cursor past the accepted rows
+        self._draft_pos: dict[int, int] = {}
+        self._draft_epoch = self.engine.draft_cache_epoch
+        self._draft_fed: dict[int, tuple[int, int]] = {}
         # verify passes (no registry family; the drafted and accepted
         # tokens, the accept lengths and the sources are registry reads)
         self.spec_verify_dispatches = 0
@@ -765,6 +784,7 @@ class LaneScheduler:
         self._finish_span(ls.job, "error", n_completion=ls.job.n_completion)
         self.lanes[lane] = None
         self.drafters.pop(lane, None)
+        self._draft_pos.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _fail_admitting(self, lane: int, err: dict) -> None:
@@ -781,6 +801,7 @@ class LaneScheduler:
         adm.job.events.put(("error", err))
         self._finish_span(adm.job, "error", n_completion=adm.job.n_completion)
         self.drafters.pop(lane, None)
+        self._draft_pos.pop(lane, None)
         self.kv.release_lane(lane)
 
     def _drop_all(self, e: Exception) -> None:
@@ -794,6 +815,7 @@ class LaneScheduler:
             self._fail_admitting(lane, err)
         self.kv.release_all_lanes()
         self.drafters.clear()
+        self._draft_pos.clear()
         self._set_lane_gauge()
 
     def _recover(self, e: Exception, culprit: int | None) -> None:
@@ -834,6 +856,7 @@ class LaneScheduler:
                 continue
             self.lanes[lane] = None
             ls.drafter = self.drafters.pop(lane, None)
+            self._draft_pos.pop(lane, None)
             start_pos, pages = self.kv.match(lane, ls.history)
             self.admitting[lane] = _AdmittingLane(
                 job=ls.job, tokens=list(ls.history), cursor=start_pos,
@@ -1015,6 +1038,7 @@ class LaneScheduler:
             self.kv.release_lane(lane)
         self.lanes[lane] = None
         ls.drafter = self.drafters.pop(lane, None)
+        self._draft_pos.pop(lane, None)
         self._progress[lane] = 0
         ls.job._park_resume = ls
         # parked is queued again: a fresh queue span covers the parked wait
@@ -1257,6 +1281,7 @@ class LaneScheduler:
                           n_completion=job.n_completion)
         job.events.put(("done", "cancelled"))
         self.drafters.pop(lane, None)
+        self._draft_pos.pop(lane, None)
         self.kv.release_lane(lane)
         self.state.recorder.record("finish", lane=lane, reason="cancelled", pos=adm.cursor,
                                    n_completion=job.n_completion)
@@ -1272,6 +1297,7 @@ class LaneScheduler:
                                lane=lane, n_tokens=ls.pos):
                 self.kv.publish(lane, ls.history[: ls.pos])
         self.drafters.pop(lane, None)
+        self._draft_pos.pop(lane, None)
         self.kv.release_lane(lane)
         self._finish_span(job, reason, n_prompt=job.n_prompt_tokens,
                           n_completion=job.n_completion)
@@ -1375,16 +1401,22 @@ class LaneScheduler:
     def _make_drafter(self, lane: int, stream_id: str) -> NgramDrafter:
         anchor, aoff = self._lane_anchor(lane)
         return NgramDrafter(k_max=self.spec_k, shared_store=self.spec_store,
-                            stream_id=stream_id, anchor=anchor, anchor_offset=aoff)
+                            stream_id=stream_id, anchor=anchor, anchor_offset=aoff,
+                            use_draft_model=(self.spec_mode == "draft"
+                                             and self.engine.has_draft_model))
 
     def _spec_drafts(self) -> dict[int, list[int]]:
         """This tick's drafts: each greedy lane whose drafter proposes >= 1
         token within the lane's room (max_tokens and seq_len both cap the
         accepted run of len(draft) + 1 tokens). The drafter ranks its
-        private n-gram match against the shared store's by matched length."""
+        private n-gram match against the shared store's by matched length;
+        in mode ``draft`` the lanes both n-gram sources left dry take one
+        batched draft-model proposal (`_draft_with_model`)."""
         out: dict[int, list[int]] = {}
         st = self.state
         seq_len = self.engine.header.seq_len
+        self._draft_fed.clear()
+        model_lanes: dict[int, int] = {}  # lane -> its model-draft budget
         for lane, dr in self.drafters.items():
             ls = self.lanes[lane]
             if ls is None:
@@ -1393,11 +1425,22 @@ class LaneScheduler:
             room = min(ls.max_pos, seq_len) - ls.pos - 1
             if room < 1:
                 continue
-            d = dr.draft(budget=min(self.spec_k, room))
+            budget = min(self.spec_k, room)
+            d = dr.draft(budget=budget)
             if d:
                 out[lane] = d
                 if st.m_spec_source is not None and dr.last_source:
                     st.m_spec_source.labels(source=dr.last_source).inc(len(d))
+                continue
+            mb = dr.model_budget(budget)
+            if mb > 0:
+                model_lanes[lane] = mb
+        if model_lanes:
+            for lane, d in self._draft_with_model(model_lanes).items():
+                self.drafters[lane].last_source = SOURCE_DRAFT
+                out[lane] = d
+                if st.m_spec_source is not None:
+                    st.m_spec_source.labels(source=SOURCE_DRAFT).inc(len(d))
         if self.spec_store is not None and st.g_spec_store_groups is not None:
             stats = self.spec_store.stats()
             st.g_spec_store_groups.set(stats["groups"])
@@ -1405,6 +1448,54 @@ class LaneScheduler:
             st.g_spec_store_tokens.set(stats["tokens"])
             st.g_spec_store_hits.set(stats["hits"])
             st.g_spec_store_misses.set(stats["misses"])
+        return out
+
+    def _draft_with_model(self, budgets: dict[int, int]) -> dict[int, list[int]]:
+        """Draft-model proposals for the lanes whose n-gram sources ran dry
+        (the JAX scheduler's ``_draft_with_model``): each lane's draft rows
+        caught up on the verified history they have not seen
+        (`InferenceEngine.draft_prefill`), then ONE batched k-step
+        `draft_propose` for all of them, k the largest budget in its bucket.
+        Advisory: a failure skips model drafting for the tick (the lanes
+        decode in the block) and never touches the target's KV."""
+        eng = self.engine
+        b = len(self.lanes)
+        dseq = eng.draft_seq_len
+        if eng.draft_cache_epoch != self._draft_epoch:
+            # the draft cache was reset by a failed draft dispatch: every
+            # lane's draft rows are gone, the catch-up re-feeds them
+            self._draft_pos.clear()
+            self._draft_epoch = eng.draft_cache_epoch
+        k = 0
+        lanes: list[int] = []
+        tokens, pos, act = [0] * b, [0] * b, [False] * b
+        try:
+            for lane, budget in budgets.items():
+                ls = self.lanes[lane]
+                if ls is None or ls.pos + budget > dseq:
+                    continue
+                dpos = self._draft_pos.get(lane, 0)
+                if dpos < ls.pos:
+                    # rows past a verify rewind are overwritten here before
+                    # any draft query attends to them
+                    eng.draft_prefill(lane, ls.history[dpos:ls.pos], dpos)
+                    self._draft_pos[lane] = ls.pos
+                lanes.append(lane)
+                k = max(k, budget)
+                tokens[lane], pos[lane], act[lane] = ls.token, ls.pos, True
+            if not lanes:
+                return {}
+            props = eng.draft_propose(tokens, pos, act, bucket_for(k, self.spec_buckets))
+        except Exception as e:
+            self.state.recorder.record("draft_model_error", error=str(e),
+                                       error_type=type(e).__name__, n_lanes=len(budgets))
+            return {}
+        out: dict[int, list[int]] = {}
+        for lane in lanes if props else ():
+            d = props[lane][: budgets[lane]]
+            if d:
+                out[lane] = d
+                self._draft_fed[lane] = (pos[lane], len(d))
         return out
 
     def _spec_verify(self, drafts: dict[int, list[int]]) -> None:
@@ -1447,6 +1538,13 @@ class LaneScheduler:
             while a < len(d) and out[a] == d[a]:
                 a += 1
             self.drafters[lane].feedback(len(d), a)
+            fed = self._draft_fed.pop(lane, None)
+            if fed is not None:
+                # draft rows p + j hold history[p + j] for j <= a (row p is
+                # the pending token, row p + i draft i - 1, right while the
+                # drafts before it were accepted); later rows are stale and
+                # the next catch-up re-feeds them
+                self._draft_pos[lane] = fed[0] + min(a + 1, fed[1])
             st.m_spec_drafted.inc(len(d))
             st.m_spec_accepted.inc(a)
             st.m_spec_accept_len.observe(float(a))
@@ -1546,11 +1644,6 @@ class ApiState:
         # the recent |predicted - observed| TTFTs in ms (appended on the
         # scheduler thread; /v1/debug/admission reads their p50 and p95)
         self.predict_errors: deque = deque(maxlen=512)
-        if speculation == "draft":
-            raise NotImplementedError(
-                "draft-model speculation (--speculation draft) is not ported: ROADMAP A.12; "
-                "use off, ngram or shared"
-            )
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
@@ -1737,13 +1830,14 @@ class ApiState:
         if speculation != "off":
             self.m_spec_source = obs.counter(
                 "dllama_spec_source_total",
-                "Draft tokens proposed, by source: the lane's private n-gram index or a "
-                "sibling continuation from the shared store.", labelnames=("source",))
+                "Draft tokens proposed, by source: the lane's private n-gram index, a "
+                "sibling continuation from the shared store, or the resident draft model.",
+                labelnames=("source",))
             self.g_spec_tokens_per_pass = obs.gauge(
                 "dllama_spec_tokens_per_weight_pass",
                 "Mean tokens emitted per verify dispatch (1 + mean accepted prefix length) "
                 "— compare against the roofline ceiling printed at startup.")
-        if speculation == "shared":
+        if speculation in ("shared", "draft"):
             self.g_spec_store_groups = obs.gauge(
                 "dllama_spec_shared_store_groups",
                 "Anchor groups (radix node identities) currently held by the cross-lane "
@@ -2713,6 +2807,7 @@ def serve(
     kv_native: bool | None = None,
     speculation: str | None = None,
     spec_k: int | None = None,
+    draft_model: str | None = None,
     max_streams: int | None = None,
     retry_max: int | None = None,
     retry_backoff_ms: int | None = None,
@@ -2737,7 +2832,10 @@ def serve(
     the caller runs ``serve_forever()`` and ``server_close()`` stops the
     scheduler too. ``speculation`` and
     ``spec_k`` default to ``DLLAMA_SPECULATION`` / ``DLLAMA_SPEC_K``, then
-    ``off`` and 4; ``max_streams``, ``retry_max``, ``retry_backoff_ms`` and
+    ``off`` and 4; ``speculation="draft"`` loads ``draft_model`` (else
+    ``DLLAMA_DRAFT_MODEL``) into the engine before the server's rehearsal,
+    and raises ValueError without one; ``max_streams``, ``retry_max``,
+    ``retry_backoff_ms`` and
     ``max_queue_depth`` to their ``DLLAMA_*`` variables, then 0, 3, 5 and
     0 (`resolve_stream_knobs`, `resolve_resilience_knobs`). ``faults`` arms
     the process-wide chaos plane (``DLLAMA_FAULTS`` armed it at import).
@@ -2756,6 +2854,15 @@ def serve(
     if faults is not None:
         set_fault_plane(faults)
     page_size, pool_pages, native = resolve_kv_knobs(kv_page_size, kv_pool_pages, kv_native)
+    spec_mode, _ = resolve_spec_knobs(speculation, spec_k)
+    if spec_mode == "draft":
+        draft_path = resolve_draft_model(draft_model)
+        if draft_path is None:
+            raise ValueError("--speculation draft needs a draft checkpoint: pass --draft-model "
+                             "or set DLLAMA_DRAFT_MODEL")
+        # before ApiState: its rehearsal captures the draft's graphs only
+        # when the model is there
+        engine.init_draft_model(draft_path)
     state = ApiState(
         engine, tokenizer, model_name, chat_template_type,
         lane_block_size=lane_block_size or DEFAULT_LANE_BLOCK, admission_chunk=admission_chunk,
@@ -2824,10 +2931,15 @@ def build_parser():
     parser = argparse.ArgumentParser(prog="dllama-tpu-torch-api")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=9990)
-    parser.add_argument("--speculation", default=None, choices=["off", "ngram", "shared"],
+    parser.add_argument("--speculation", default=None,
+                        choices=["off", "ngram", "shared", "draft"],
                         help="greedy lanes draft from n-grams of their own history "
-                             "(ngram) and of sibling streams (shared), verified in one pass "
-                             "a tick (default: $DLLAMA_SPECULATION, else off)")
+                             "(ngram), of sibling streams (shared) and from a resident draft "
+                             "model (draft), verified in one pass a tick (default: "
+                             "$DLLAMA_SPECULATION, else off)")
+    parser.add_argument("--draft-model", default=None, metavar="PATH",
+                        help="the draft checkpoint of --speculation draft, with the target's "
+                             "vocab (default: $DLLAMA_DRAFT_MODEL)")
     parser.add_argument("--spec-k", type=int, default=None,
                         help="most draft tokens a verify pass checks a lane "
                              "(default: $DLLAMA_SPEC_K, else 4)")
@@ -2877,7 +2989,7 @@ def main(argv=None) -> None:
         admission_chunk=args.admission_chunk, kv_page_size=args.kv_page_size,
         kv_pool_pages=args.kv_pool_pages,
         kv_native=None if args.kv_native is None else bool(args.kv_native),
-        speculation=args.speculation, spec_k=args.spec_k,
+        speculation=args.speculation, spec_k=args.spec_k, draft_model=args.draft_model,
         max_streams=args.max_streams, retry_max=args.retry_max,
         retry_backoff_ms=args.retry_backoff_ms, max_queue_depth=args.max_queue_depth,
         faults=args.faults, trace_out=args.trace_out, timeline_out=args.timeline_out,

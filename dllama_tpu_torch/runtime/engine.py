@@ -11,8 +11,28 @@ size 1) samples on the host with the reference-parity `Sampler`;
 
 ``kv_dtype="int8"`` holds K/V as int8 with one f32 scale a row (`QuantKV`)
 in the slab cache and in the lanes' pool: about half of bf16's bytes, read
-by the attention kernels' int8 instantiations. A float ``kv_dtype`` must
-equal ``dtype`` (the port's kernels take one type for q and the cache).
+by the attention kernels' int8 instantiations. A float ``kv_dtype`` ("f32",
+"f16", "bf16") may differ from ``dtype``, as in the JAX engine: rows are
+cast to the cache's type when written and the attention kernels' mixed-type
+entries read q and the cache each in its own type (ops/flash_attention.py).
+
+``prefill_buckets`` are the chunk widths of prefill (the JAX engine's, by
+default (1, 8, 32, 128, 512); the CLI passes (1, ``--nbatches``, 512)); the
+slab lanes' padding rows and the server's admission chunk follow the
+largest. ``moe_decode_dedup`` ("auto": on for a model with experts at
+``batch_size`` >= 8) runs Qwen3-MoE lane decode in two tiers chosen on the
+device (ops/moe.py `moe_decode_tiers`).
+
+A resident draft model (`init_draft_model`, ``--speculation draft``) keeps
+its own dense params and slab cache [L_d, B, KH_d, S_d + pad, hd_d]:
+`draft_prefill` catches one lane's draft rows up in the draft's buckets, on
+that lane's rows alone (the port's slab-lane design, where the JAX engine
+runs every lane with the others parked), and `draft_propose` runs one greedy
+k-step block for every drafting lane, inactive lanes parked at -1 (they
+write their padding row and read nothing). Both are CUDA graphs (keys
+``draft_prefill`` and ``draft_step``) under `_draft_cache_guard`: a failed
+draft dispatch resets the draft cache and moves ``draft_cache_epoch``,
+never the target's caches or epochs.
 
 The JAX engine runs one compiled program a shape. On the card the port
 runs each of these forwards as a CUDA graph (runtime/graphs.py): every
@@ -104,9 +124,10 @@ from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
 from .spec import spec_buckets
 
-# Prefill chunk buckets (the reference's --nBatches role; the JAX engine
-# compiles one program per bucket, the port keeps the same chunking).
-PREFILL_BUCKETS = (1, 8, 32, 128, 512)
+# Prefill chunk buckets, the default of ``prefill_buckets`` (the reference's
+# --nBatches role; the JAX engine compiles one program per bucket, the port
+# keeps the same chunking).
+DEFAULT_PREFILL_BUCKETS = (1, 8, 32, 128, 512)
 I32, I64 = torch.int32, torch.int64
 # kv_dtype names, as the JAX engine's
 KV_DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
@@ -115,17 +136,22 @@ KV_DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
 
 def resolve_kv_dtype(kv_dtype, dtype) -> torch.dtype:
     """The cache's dtype from ``kv_dtype`` (None: ``dtype``; a name of
-    `KV_DTYPES` or a torch dtype). The JAX engine's names and message; a
-    float cache type other than ``dtype`` raises too (ROADMAP queues it)."""
+    `KV_DTYPES` or a torch dtype), with the JAX engine's names and message."""
     if isinstance(kv_dtype, str):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {sorted(KV_DTYPES)}, got {kv_dtype!r}")
         kv_dtype = KV_DTYPES[kv_dtype]
-    kv_dtype = kv_dtype or dtype
-    if kv_dtype not in (torch.int8, dtype):
-        raise ValueError(f"kv_dtype {kv_dtype} with dtype {dtype}: a float cache takes the "
-                         "model's dtype (the kernels take one type for q and the cache)")
-    return kv_dtype
+    return kv_dtype or dtype
+
+
+def resolve_moe_decode_dedup(moe_decode_dedup, header: LlmHeader, batch_size: int) -> bool:
+    """The JAX engine's resolution: ``"auto"`` is on iff the model has
+    experts and ``batch_size`` >= 8 (at 8 lanes and more the capped grouped
+    tier hits under moderate routing correlation; below, hits need strong
+    correlation); any other value counts as its truth value."""
+    if moe_decode_dedup == "auto":
+        return bool(header.n_experts and batch_size >= 8)
+    return bool(moe_decode_dedup)
 
 
 # graph key head -> step kind (the dllama_engine_step_seconds label)
@@ -143,6 +169,8 @@ KEY_KINDS = {
     "lane_prefill_paged": "prefill_lane_chunk",
     "lane_block_paged": "decode_lanes",
     "lane_verify_paged": "verify_lanes",
+    "draft_prefill": "draft_prefill",
+    "draft_step": "draft_step",
 }
 
 
@@ -273,6 +301,8 @@ class InferenceEngine:
         batch_size: int = 1,
         cuda_graphs: bool = True,
         kv_dtype=None,
+        prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
+        moe_decode_dedup: bool | str = "auto",
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -287,8 +317,10 @@ class InferenceEngine:
         self.temperature = temperature
         self.sampler = Sampler(self.header.vocab_size, temperature, topp, seed)
         self.prefill_buckets = tuple(
-            b for b in PREFILL_BUCKETS if b <= self.header.seq_len
+            b for b in sorted(prefill_buckets) if b <= self.header.seq_len
         ) or (1,)
+        self.moe_decode_dedup = resolve_moe_decode_dedup(moe_decode_dedup, self.header,
+                                                         batch_size)
         # "auto": Q40 on the card (the kernel path), dense elsewhere, as the
         # JAX engine keeps Q40 only where its kernel runs
         if weight_format == "auto":
@@ -349,6 +381,15 @@ class InferenceEngine:
         self.lane_verify_steps = 0
         self._lane_seed_base = seed
         self._rng_calls = 0
+        # the resident draft model (init_draft_model): its header, params,
+        # slab cache and cost model; the epoch moves whenever a failed draft
+        # dispatch reset its cache (the scheduler's cursors then restart)
+        self._draft_header: LlmHeader | None = None
+        self._draft_params = None
+        self.draft_cache = None
+        self._draft_cost = None
+        self.draft_cache_epoch = 0
+        self._m_spec_draft_ms = None
 
     # -- observability -----------------------------------------------------
 
@@ -566,11 +607,13 @@ class InferenceEngine:
     def cuda_graphs(self, on: bool) -> None:
         self.graphs.enabled = bool(on)
 
+    @torch.inference_mode()
     def reset(self) -> None:
         """Drop KV state (new conversation), in place: the single stream's
         cache and the slab lanes' (one cache holds both in the JAX engine);
         the captured graphs keep pointing at the same tensors, and the pool
-        keeps its pages."""
+        keeps its pages. In inference mode: a slab allocated by a lane call
+        is an inference tensor."""
         for cache in (self.cache, self.lane_cache or {}):
             for leaf in cache.values():
                 reset_kv_leaf(leaf)
@@ -598,6 +641,12 @@ class InferenceEngine:
                 self._m_epochs.inc()
                 self.recorder.record("cache_epoch", epoch=self.cache_epoch, native=False)
             raise
+
+    def _forward(self, tokens, pos, cache, **kw):
+        """The target's forward (`models.forward`) over the engine's params,
+        with its MoE decode tiering."""
+        return forward(self.params, self.header, tokens, pos, cache,
+                       moe_dedup=self.moe_decode_dedup, **kw)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -664,8 +713,8 @@ class InferenceEngine:
         b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
         self.graphs.put(b["tok"], tokens)
         self.graphs.put(b["pos"], pos)
-        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"],
-                                             self.cache, logits_mode="last"))
+        self.graphs.run(key, lambda: self._forward(b["tok"], b["pos"], self.cache,
+                                                   logits_mode="last"))
 
     def _block_width(self, pos: int, block: int) -> int:
         """The full block whenever it fits the cache, else the space left."""
@@ -691,8 +740,7 @@ class InferenceEngine:
             next=((1,), I64)))
 
         def step():
-            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.cache,
-                                logits_mode="last")
+            logits, _ = self._forward(b["tok"], b["pos"], self.cache, logits_mode="last")
             b["logits"].copy_(logits[:, -1, :])
             if greedy:
                 b["next"].copy_(torch.argmax(logits[:, -1, :], dim=-1))
@@ -746,8 +794,7 @@ class InferenceEngine:
             tok = b["tok"]
             for i in range(n):
                 p = b["pos"] + i
-                logits, _ = forward(self.params, self.header, tok, p, self.cache,
-                                    logits_mode="last")
+                logits, _ = self._forward(tok, p, self.cache, logits_mode="last")
                 last = logits[:, -1, :]
                 if greedy:
                     nxt = torch.argmax(last, dim=-1)
@@ -854,8 +901,7 @@ class InferenceEngine:
             self.graphs.put(b[name], values)
 
         def score():
-            logits, _ = forward(self.params, self.header, b["tok"], b["pos"], self.cache,
-                                logits_mode="all")
+            logits, _ = self._forward(b["tok"], b["pos"], self.cache, logits_mode="all")
             b["nll"].copy_(chunk_nll(logits, b["tgt"], b["mask"]))
 
         cost = self._cost.forward(t, t, pos + t, t, _pairs(t, pos))
@@ -1171,8 +1217,7 @@ class InferenceEngine:
         else:
             kw = dict(park=self._park)
             cache = self.lane_cache
-        logits, _ = forward(self.params, self.header, tokens, pos, cache,
-                            logits_mode=logits_mode, **kw)
+        logits, _ = self._forward(tokens, pos, cache, logits_mode=logits_mode, **kw)
         return logits
 
     @torch.inference_mode()
@@ -1227,9 +1272,8 @@ class InferenceEngine:
             b["pt"].zero_()
         else:
             b["pt"].copy_(pt_row)
-        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"],
-                                             self.kv_pool, logits_mode="none",
-                                             page_table=b["pt"]))
+        self.graphs.run(key, lambda: self._forward(b["tok"], b["pos"], self.kv_pool,
+                                                   logits_mode="none", page_table=b["pt"]))
 
     def _slab_lane_chunk(self, tokens: list[int], pos: int, lane: int) -> None:
         """One lane-prefill chunk [1, T] at ``pos`` (< 0: parked, its rows
@@ -1242,8 +1286,8 @@ class InferenceEngine:
         self.graphs.put(b["tok"], tokens)
         self.graphs.put(b["pos"], pos)
         view = {name: kv_lane(leaf, lane) for name, leaf in self.lane_cache.items()}
-        self.graphs.run(key, lambda: forward(self.params, self.header, b["tok"], b["pos"], view,
-                                             logits_mode="none", park=self._park))
+        self.graphs.run(key, lambda: self._forward(b["tok"], b["pos"], view,
+                                                   logits_mode="none", park=self._park))
 
     def prefill_lane(self, lane: int, tokens: list[int], pos0: int = 0) -> None:
         """Prefill one lane's prompt (all but the last token) chunk by
@@ -1450,7 +1494,10 @@ class InferenceEngine:
         1))`, width 1 + bucket). Each first use runs with every lane parked
         (native: an all-zero page-table row, every write to the scratch
         page; slab: at -T, every write to the padding rows), so no lane's
-        KV changes. A no-op where graphs are off (the CPU among them)."""
+        KV changes. With a draft model and ``spec_k`` > 0 also its
+        catch-up buckets for each lane and its k-step blocks of the draft
+        buckets, parked in the draft cache's padding rows. A no-op where
+        graphs are off (the CPU among them)."""
         self._require_lanes()
         if not self.graphs.active:
             return
@@ -1468,7 +1515,202 @@ class InferenceEngine:
             if spec_k > 0:
                 for kb in spec_buckets(min(spec_k, max(self.prefill_buckets) - 1)):
                     self._lane_verify([[0] * (kb + 1)] * bsz, [-(kb + 1)] * bsz)
+            if spec_k > 0 and self.has_draft_model:
+                # the draft's catch-up buckets (each lane's) and its k-step
+                # blocks sit on the serving path like the verify graphs;
+                # parked, they write only the draft cache's padding rows
+                for bucket in self.prefill_buckets:
+                    if bucket <= self.draft_seq_len:
+                        for lane in range(bsz):
+                            self._draft_chunk([0] * bucket, -bucket, lane)
+                for kb in spec_buckets(min(spec_k, max(self.prefill_buckets) - 1)):
+                    self._draft_block([0] * bsz, [[-1] * bsz] * kb)
         self._sync()
+
+    # -- the resident draft model (--speculation draft) ------------------------
+
+    @property
+    def has_draft_model(self) -> bool:
+        return self._draft_params is not None
+
+    @property
+    def draft_seq_len(self) -> int:
+        """The draft checkpoint's own context length (at most the
+        target's): the scheduler asks for no draft past it."""
+        return self._draft_header.seq_len if self._draft_header else 0
+
+    def init_draft_model(self, model_path: str) -> None:
+        """Load a Llama-family draft checkpoint beside the target (the JAX
+        engine's ``init_draft_model``): dense weights in the engine's dtype
+        (its products are plain ``torch.matmul``, as the JAX draft runs no
+        Pallas matmul; its attention runs the slab kernels at its own
+        shapes), its slab cache [L_d, B, KH_d, S_d + pad, hd_d] in the
+        engine's dtype with the lanes' padding rows. Its vocab must be the
+        target's: drafts are target token ids. Needs lanes."""
+        if self.batch_size < 2:
+            raise ValueError("per-lane serving needs batch_size > 1 "
+                             "(lanes park their writes in cache padding rows)")
+        reader = ModelReader(model_path, max_seq_len=self.header.seq_len)
+        dh = reader.header
+        if dh.vocab_size != self.header.vocab_size:
+            raise ValueError(f"draft model vocab {dh.vocab_size} != target vocab "
+                             f"{self.header.vocab_size}; the draft must share the target's "
+                             "tokenizer")
+        params = load_params(reader, dtype=self.dtype, device=self.device, weight_format="dense")
+        self._draft_header, self._draft_params = dh, params
+        self.draft_cache = init_kv_cache(dh, self.batch_size, dtype=self.dtype,
+                                         seq_len=dh.seq_len + self._lane_pad, device=self.device)
+        self.draft_cache_epoch += 1
+        self._draft_cost = StepCostModel(dh, params, self.dtype.itemsize, False)
+        self._m_spec_draft_ms = self.obs.histogram(
+            "dllama_spec_draft_model_step_ms",
+            "Wall milliseconds of one draft-model dispatch (catch-up prefill chunk or k-step "
+            "propose block).",
+            labelnames=("kind",),
+            buckets=(0.5, 1, 2, 5, 10, 20, 50, 100, 200, 500, 1000),
+        )
+        self.recorder.record("draft_model_loaded", path=model_path, seq_len=dh.seq_len,
+                             vocab=dh.vocab_size)
+
+    def _require_draft_model(self) -> None:
+        if self._draft_params is None:
+            raise ValueError("draft model not loaded (init_draft_model)")
+
+    @contextlib.contextmanager
+    def _draft_cache_guard(self):
+        """`_slab_guard`'s draft twin (the JAX ``_draft_cache_guard``): a
+        draft dispatch that raises leaves the draft cache's rows unknown, so
+        it is zeroed in place and ``draft_cache_epoch`` moves (the
+        scheduler's draft cursors restart); the target's caches and epochs
+        are untouched. Drafts are verified by the target, so a lost draft
+        cache costs acceptance, never bytes."""
+        try:
+            yield
+        except BaseException as e:
+            self.recorder.record("error", error=str(e), error_type=type(e).__name__, draft=True)
+            try:
+                for leaf in self.draft_cache.values():
+                    reset_kv_leaf(leaf)
+            except Exception as reset_err:
+                raise reset_err from e
+            finally:
+                self.draft_cache_epoch += 1
+                self.recorder.record("draft_cache_epoch", epoch=self.draft_cache_epoch)
+            raise
+
+    def _draft_bucket_for(self, n: int, pos: int) -> int:
+        """`_bucket_for` against the draft's sequence length."""
+        space = self._draft_header.seq_len - pos
+        fitting = [b for b in self.prefill_buckets if b <= space]
+        if not fitting:
+            return max(min(space, n), 1)
+        for b in fitting:
+            if n <= b:
+                return b
+        return fitting[-1]
+
+    @torch.inference_mode()
+    def draft_prefill(self, lane: int, tokens: list[int], pos0: int) -> None:
+        """Catch ``lane``'s draft rows up: write ``tokens`` (history the
+        draft has not seen) at ``pos0``.., chunk by chunk in the draft's
+        buckets, each chunk on that lane's rows alone (the graph
+        ``("draft_prefill", T, lane)``). Rows past a later rewind are
+        overwritten by the next catch-up before any draft query attends to
+        them, as with the target's verify rewind."""
+        self._require_draft_model()
+        self._check_lane(lane)
+        n = len(tokens)
+        if n < 1:
+            return
+        dseq = self._draft_header.seq_len
+        if pos0 < 0 or pos0 + n > dseq:
+            raise ValueError(f"{n} draft fill tokens at pos {pos0} exceed draft seqLen {dseq}")
+        t0 = time.perf_counter()
+        fills, p = list(tokens), pos0
+        while fills:
+            bucket = self._draft_bucket_for(len(fills), p)
+            width = min(bucket, len(fills))
+            cost = self._draft_cost.forward(bucket, 0, p + bucket, bucket, _pairs(bucket, p))
+            with self._draft_cache_guard(), _Dispatch(
+                    self, "draft_prefill", ("draft_prefill", bucket, lane), cost, lane=lane,
+                    pos=p, n_tokens=width, bucket=bucket):
+                self._draft_chunk(fills[:width] + [0] * (bucket - width), p, lane)
+            fills = fills[width:]
+            p += width
+        self._m_spec_draft_ms.labels(kind="prefill").observe(
+            (time.perf_counter() - t0) * 1000)
+
+    def _draft_chunk(self, tokens: list[int], pos: int, lane: int) -> None:
+        """One draft catch-up chunk [1, T] at ``pos`` (< 0: parked, into the
+        lane's padding rows) on ``lane``'s draft rows alone: the graph
+        ``("draft_prefill", T, lane)``. No logits are computed."""
+        t = len(tokens)
+        key = ("draft_prefill", t, lane)
+        b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
+        self.graphs.put(b["tok"], tokens)
+        self.graphs.put(b["pos"], pos)
+        view = {name: kv_lane(leaf, lane) for name, leaf in self.draft_cache.items()}
+        dh = self._draft_header
+        self.graphs.run(key, lambda: forward(self._draft_params, dh, b["tok"], b["pos"], view,
+                                             logits_mode="none", park=dh.seq_len))
+
+    @torch.inference_mode()
+    def draft_propose(self, tokens: list[int], pos: list[int], active: list[bool],
+                      k: int) -> list[list[int]]:
+        """Propose up to ``k`` greedy draft tokens for every ACTIVE lane in
+        one dispatch (the graph ``("draft_step", k)``): lane l feeds
+        tokens[l] at pos[l] and runs k greedy steps through the draft.
+        Returns [lanes][k]; inactive rows, and rows past the draft's
+        context, report 0. Advisory: every token goes through the target's
+        verify pass."""
+        self._require_draft_model()
+        bsz = self.batch_size
+        if len(tokens) != bsz or len(pos) != bsz:
+            raise ValueError("tokens/pos must have one entry per lane")
+        live = [i for i, a in enumerate(active) if a]
+        if not live or k < 1:
+            return []
+        dseq = self._draft_header.seq_len
+        k = min(k, max(dseq - pos[i] for i in live))
+        if k <= 0:
+            return []
+        cur = [[pos[j] + i if active[j] and 0 <= pos[j] + i < dseq else -1 for j in range(bsz)]
+               for i in range(k)]
+        reads = sum(p + 1 for row in cur for p in row if p >= 0)
+        live_rows = sum(p >= 0 for row in cur for p in row)
+        cost = self._draft_cost.forward(k * bsz, k * bsz, reads, live_rows, reads, n=k)
+        t0 = time.perf_counter()
+        with self._draft_cache_guard(), _Dispatch(self, "draft_step", ("draft_step", k), cost,
+                                                  n_steps=k, n_live=len(live)) as d:
+            out = d.device(self._draft_block(tokens, cur).tolist)
+        self._m_spec_draft_ms.labels(kind="propose").observe((time.perf_counter() - t0) * 1000)
+        return [[out[i][lane] for i in range(k)] for lane in range(bsz)]
+
+    def _draft_block(self, tokens: list[int], cur: list[list[int]]) -> torch.Tensor:
+        """The draft's greedy block in the graph ``("draft_step", n)``:
+        tokens [B], positions ``cur`` [n][B] (-1: parked, writes its padding
+        row and reads nothing); returns the static output [n, B], 0 for
+        parked rows."""
+        n, bsz = len(cur), self.batch_size
+        key = ("draft_step", n)
+        b = self.graphs.buffers(key, lambda: self._static(
+            tok=((bsz, 1), I64), cur=((n, bsz), I32), out=((n, bsz), I64)))
+        self.graphs.put(b["tok"], [[t] for t in tokens])
+        self.graphs.put(b["cur"], cur)
+        dh, params = self._draft_header, self._draft_params
+
+        def block():
+            tok = b["tok"]
+            for i in range(n):
+                p = b["cur"][i]
+                logits, _ = forward(params, dh, tok, p, self.draft_cache, logits_mode="last",
+                                    park=dh.seq_len)
+                nxt = torch.where(p >= 0, torch.argmax(logits[:, -1, :], dim=-1), 0)
+                b["out"][i] = nxt
+                tok = nxt[:, None]
+
+        self.graphs.run(key, block)
+        return b["out"]
 
     def generate_batch(self, prompts: list[list[int]], max_steps: int,
                        block_size: int = 8) -> list[list[int]]:

@@ -83,10 +83,17 @@ class StepGraphs:
         return sum(1 for key in self._graphs if key[0] == kind)
 
     def clear(self) -> None:
-        """Drop every graph and buffer (the tensors they point at changed)."""
+        """Drop every graph and buffer (the tensors they point at changed),
+        and the pool with them: later captures take a new one. A block that
+        a capture allocated and something outlives the graphs with (cuBLAS
+        keeps the workspace of a dense product captured on the capture
+        stream, as the draft model's are) keeps the old pool alive with no
+        graph, and a capture into such a pool fails inside the caching
+        allocator."""
         self._graphs.clear()
         self._buffers.clear()
         self.capture_seconds.clear()
+        self._pool = None
 
     def buffers(self, key, make: Callable[[], dict]) -> dict:
         """The static buffers of ``key``, made by ``make()`` on first use."""

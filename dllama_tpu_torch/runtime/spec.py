@@ -1,10 +1,10 @@
 """Speculative drafting for the lane scheduler: draft sources + policy.
 
 The port's copy of dllama_tpu/runtime/spec.py (stdlib only). The port's
-lane server serves ``off``, ``ngram`` and ``shared``; ``draft`` (the
-resident draft model, `resolve_draft_model` and the drafter's
-``use_draft_model`` branch) comes across unchanged but has no caller until
-ROADMAP A.12.
+lane server serves every mode: ``off``, ``ngram``, ``shared`` and
+``draft`` (the resident draft model: `resolve_draft_model` and the
+drafter's ``use_draft_model`` branch, driven by the scheduler's
+``_draft_with_model``).
 
 Prompt-lookup speculation (Leviathan et al.'s accept-longest-prefix
 verification, with Saxena-style n-gram drafting instead of a draft

@@ -280,8 +280,10 @@ def test_cache_bytes_and_kv_dtype_names(models):
         torch.float32
     with pytest.raises(ValueError, match="kv_dtype"):
         InferenceEngine(mp, dtype=torch.float32, device="cpu", kv_dtype="int4")
-    with pytest.raises(ValueError, match="kv_dtype"):  # a float cache other than dtype
-        InferenceEngine(mp, dtype=torch.float32, device="cpu", kv_dtype="bf16")
+    # a float cache other than dtype (as the JAX engine keeps one): half of f32's bytes
+    eb = InferenceEngine(mp, dtype=torch.float32, device="cpu", kv_dtype="bf16")
+    assert eb.kv_dtype == torch.bfloat16 and eb.cache["k"].dtype == torch.bfloat16
+    assert 2 * sum(t.numel() * t.element_size() for t in eb.cache.values()) == nbytes[1]
 
 
 def _native(e):

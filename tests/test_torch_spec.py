@@ -572,19 +572,27 @@ def test_rehearsal_captures_one_verify_graph_a_bucket(files, spec_k):
 
 
 def test_speculation_flags_and_draft_refused(files, monkeypatch):
+    """The flags, ``draft`` and ``--draft-model`` among them; ``draft``
+    without a checkpoint is refused by `serve` with the JAX server's
+    ValueError, before any state is built."""
     parser = api.build_parser()
     args = parser.parse_args(["--model", "m", "--tokenizer", "t", "--speculation", "shared",
                               "--spec-k", "8"])
     assert (args.speculation, args.spec_k) == ("shared", 8)
     args = parser.parse_args(["--model", "m", "--tokenizer", "t"])
-    assert args.speculation is None and args.spec_k is None
-    with pytest.raises(SystemExit):
-        parser.parse_args(["--model", "m", "--tokenizer", "t", "--speculation", "draft"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        _state(files, speculation="draft")
+    assert args.speculation is None and args.spec_k is None and args.draft_model is None
+    args = parser.parse_args(["--model", "m", "--tokenizer", "t", "--speculation", "draft",
+                              "--draft-model", "d.m"])
+    assert (args.speculation, args.draft_model) == ("draft", "d.m")
+    eng = InferenceEngine(files["llama"], dtype=torch.float32, temperature=0.0, device="cpu",
+                          batch_size=2)
+    monkeypatch.delenv("DLLAMA_DRAFT_MODEL", raising=False)
+    with pytest.raises(ValueError, match="--draft-model"):
+        api.serve(eng, Tokenizer(files["tok"]), port=0, speculation="draft")
     monkeypatch.setenv("DLLAMA_SPECULATION", "draft")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        _state(files)
+    with pytest.raises(ValueError, match="DLLAMA_DRAFT_MODEL"):
+        api.serve(eng, Tokenizer(files["tok"]), port=0)
+    assert not eng.has_draft_model
     monkeypatch.setenv("DLLAMA_SPECULATION", "ngram")
     monkeypatch.setenv("DLLAMA_SPEC_K", "500")
     st = _state(files)

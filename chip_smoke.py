@@ -182,7 +182,13 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    round (`moe_dedup`: identical prompts on the grouped tier at every
    layer-step, distinct prompts' share, dedup-on streams equal dedup-off's
    in f32, a decode step's device ms on against off in turns). Every CLI
-   run's prefill buckets must be (1, 32, 512) (`--nbatches` 32). Depth cuts
+   run's prefill buckets must be (1, 32, 512) (`--nbatches` 32). The
+   replica fleet (`serving_fleet`, after the mixed-KV runs, on the same
+   file): two bf16 replicas of 4 slab lanes behind the router, the mix
+   equal to the serving round's solo replays, affinity, a bf16 failover,
+   the router's re-export, fleet timeline and drain; three f32 4-layer
+   replicas, pool-native, a byte-identical failover and a chaos mix; and
+   ``python -m dllama_tpu_torch.fleet.launch`` with two replica processes. Depth cuts
    for the time (PR 18): llama-8b ``q40 kv-int8``, ``q40i4`` and ``q40i8``
    at `CUT_LAYERS` of 32 layers, qwen3-30b-a3b ``q40i8`` on the 4-layer
    file.
@@ -2110,6 +2116,9 @@ def parity(engine, prompt: list[int]) -> dict:
 
 SERVE_LANES = 4
 SERVE_MAX_TOKENS = 64
+# the bf16 serving round's solo replays and its lane tok/s (`serving`), the
+# fleet round's truth (`serving_fleet`)
+SERVE_TRUTH: dict = {}
 SHARED_PREFIX = 256  # tokens two requests share: BOS, the system turn and the user header
 
 
@@ -2220,7 +2229,7 @@ def _request(url: str, payload: dict, allow_error: bool = False) -> dict:
         body = json.loads(raw)
         choice = body["choices"][0]
         return dict(content=choice["message"]["content"], finish=choice["finish_reason"],
-                    meta=body["dllama"], wall=wall)
+                    meta=body["dllama"], wall=wall, usage=body.get("usage"))
     content, finish, meta = "", None, None
     for line in raw.split("\r\n"):
         if not line.startswith("data: {"):
@@ -2391,6 +2400,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
                 print(f"  host {ms:8.4f} ms/step {count:5d}x {kname[:80]}")
     out = {f"llama-8b q40{kv_tag} serving": counts}
     if not kv_dtype:
+        SERVE_TRUTH.update(solo=solo, lane_tok_s=agg)
         out["llama-8b q40 serving slab"] = serving_slab(engine, tok, results, agg, smi)
         off = dict(results=results, lane_tok_s=agg, decode_s=conc_decode["s"],
                    tokens=conc_decode["tokens"])
@@ -4400,6 +4410,9 @@ def main() -> int:
                 t0 = time.perf_counter()
                 counts.update(mixed_kv(tmp, smi, streams.get("llama-8b q40")))
                 print(f"mixed-kv phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                counts.update(serving_fleet(tmp, smi))
+                print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
             if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
                 t0 = time.perf_counter()
                 counts.update(moe_dedup(tmp, smi))
@@ -4884,6 +4897,543 @@ def serving_draft(tmp: str, smi: str) -> dict:
     require(not part, f"serving draft f32 poison: answers part from spec-off: {part}")
     release_engine(engine)
     return out
+
+
+FLEET_REPLICAS = 2  # the bf16 in-process fleet's replicas, each SERVE_LANES lanes
+# the f32 fleet's: a stream the chaos kills on both serving replicas still
+# has a sibling (which stream a replica's nth flush belongs to is timing)
+FLEET_F32_REPLICAS = 3
+FLEET_FAULT = "sse_flush:op={}:nth=3:n=1"  # round (c)/(d): the serving replica's 3rd flush
+# round (d): one flush killed on each of the two replicas the mix lands on
+FLEET_CHAOS = "sse_flush:op={}:nth=2:n=1,sse_flush:op={}:nth=3:n=1"
+FLEET_SUB_LAYERS = 2  # round (g): the subprocess fleet's llama-8b depth
+
+
+def _fleet_mix(url: str, payloads: list[dict]) -> tuple[list, float]:
+    """Every payload through the router at once; (results, wall seconds)."""
+    import threading
+
+    results: list = [None] * len(payloads)
+    errors: list = []
+
+    def send(i):
+        try:
+            results[i] = _request(url, payloads[i])
+        except Exception as e:  # reported below
+            errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    require(not errors and all(r is not None for r in results), f"fleet: {errors}")
+    return results, time.perf_counter() - t0
+
+
+def _block_log(engines: dict):
+    """Every replica's lane decode blocks timed (each ends in a readback):
+    a list of (replica, start, end, lane tokens), and a restore."""
+    log: list = []
+
+    def wrap(name, inner):
+        def timed(tokens, pos, n_steps, active, *args, **kw):
+            t = time.perf_counter()
+            rows = inner(tokens, pos, n_steps, active, *args, **kw)
+            log.append((name, t, time.perf_counter(), len(rows) * sum(map(bool, active))))
+            return rows
+        return timed
+
+    for name, engine in engines.items():
+        engine.decode_lanes = wrap(name, engine.decode_lanes)
+    return log, lambda: [e.__dict__.pop("decode_lanes", None) for e in engines.values()]
+
+
+def _union_s(spans) -> float:
+    """Seconds covered by the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _device_block(engine) -> tuple[int, float]:
+    """(settled decode_lanes dispatches, their summed device seconds); the
+    replica must be idle (its scheduler thread settles the rest)."""
+    engine.settle_costs()
+    got = engine.device_step_seconds("decode_lanes")
+    return (0, 0.0) if got is None else (got[0], got[0] * got[1])
+
+
+def _parts_at(tok, want_ids: list[int], want: str, got: str) -> str:
+    """Where ``got`` parts from ``want``: the character and the token of
+    ``want_ids`` (whose text is ``want``) that holds it."""
+    at = next((i for i, (x, y) in enumerate(zip(want, got)) if x != y), min(len(want), len(got)))
+    dec, n = tok.stream_decoder(), 0
+    for j, t in enumerate(want_ids):
+        n += len(dec.decode(t) or "")
+        if n > at:
+            return f"character {at}, token {j} of {len(want_ids)}"
+    return f"character {at}, past the {len(want_ids)} tokens"
+
+
+def _free_port_base(n: int) -> int:
+    """A base port whose n consecutive ports are free on 127.0.0.1."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid())
+    for _ in range(200):
+        base = rng.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for i in range(n):
+                sk = socket.socket()
+                sk.bind(("127.0.0.1", base + i))
+                socks.append(sk)
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise RuntimeError("fleet: no free ports")
+
+
+def _gate_step(sched):
+    """Hold the scheduler's next decode block until released: (entered,
+    release, restore)."""
+    import threading
+
+    entered, release = threading.Event(), threading.Event()
+    step = sched._step_block
+
+    def gated():
+        entered.set()
+        release.wait(600)
+        step()
+
+    sched._step_block = gated
+    return entered, release, lambda: sched.__dict__.pop("_step_block", None)
+
+
+def serving_fleet(tmp: str, smi: str, device: str = "cuda") -> dict:
+    """The replica fleet (dllama_tpu_torch/fleet/) on the card. (a)-(c), (f)
+    on an in-process fleet of `FLEET_REPLICAS` llama-8b q40 replicas (the
+    32-layer file in tmp, bf16, slab lanes: the server's default mode, 4
+    lanes each) behind the router: (a) the serving mix through the router,
+    every answer equal to the serving round's solo replay (`SERVE_TRUTH`:
+    text, finish, token count) and each non-stream ``usage.prompt_tokens``
+    to the router's own count, the fleet's lane tok/s (lane tokens over the
+    union of both replicas' decode-block seconds) against the serving
+    round's single replica; each replica's device ms a decode block with its
+    sibling idle and busy (`InferenceEngine.device_step_seconds`); (b) the
+    three shared-prefix requests one after another: one plan target, the
+    second and third served there with a reused prefix, the affinity-hit
+    counter +3 (spills by reason printed); (c) a stream whose serving
+    replica dies at its 3rd flush (`FLEET_FAULT`): the client's stream ends
+    with one finish reason, one failover and one ``died`` counted (whether
+    its bytes equal the fault-free stream's printed, not gated: the sibling
+    re-makes the emitted rows through the prefill kernels); (f) the
+    router's /metrics re-exports both replicas' families, /v1/fleet lists
+    both, and the failed-over request's /v1/fleet/timeline stitches both
+    replicas' fragments; (e) then ``POST /v1/drain?replica=r1`` through the
+    router with r1's streams held in flight (its next decode block waits
+    for the drain): they finish, r1 reports draining, then drained with
+    nothing in flight, and later requests land on r0. (d) An f32 fleet of
+    `FLEET_F32_REPLICAS` replicas over llama-8b's widths at
+    `ACCEPT_LAYERS` layers (serving_draft's (b) file), pool-native lanes:
+    the failed-over stream byte-identical to the fault-free one, and under
+    `FLEET_CHAOS` (a flush killed on each of the two replicas the mix
+    lands on) every stream of the mix with its fault-free bytes. (g) ``python -m dllama_tpu_torch.fleet.launch``
+    with two replica processes on a `FLEET_SUB_LAYERS`-layer file: both
+    answer /v1/health, a stream through the router completes, SIGTERM ends
+    every process (each replica's drain); its replicas' start seconds
+    printed. Returns the launch counts of the bf16 rounds and of the f32
+    rounds. On one card the replicas' engines share the default stream:
+    their steps serialize."""
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from dllama_tpu_torch.fleet.launch import launch_inprocess_fleet
+    from dllama_tpu_torch.models.synthetic import write_synth_model
+    from dllama_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dllama_tpu_torch.runtime.faults import set_fault_plane
+    from dllama_tpu_torch.tokenizer import ChatTemplateType, Tokenizer
+
+    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    tok = Tokenizer(tp)
+    payloads = serving_payloads(tok)
+    truth = SERVE_TRUTH
+    cuda = device == "cuda"
+
+    def mem_gb():
+        return torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+
+    def launch(path, dtype, native, n_replicas):
+        t0 = time.perf_counter()
+        fl = launch_inprocess_fleet(
+            path, tp, n_replicas=n_replicas, batch_size=SERVE_LANES,
+            chat_template_type=ChatTemplateType.LLAMA3, device=device,
+            engine_kwargs=dict(dtype=dtype, weight_format="q40", seed=SEED),
+            serve_kwargs=dict(model_name="llama-8b", kv_page_size=PAGE, kv_native=native))
+        return fl, time.perf_counter() - t0
+
+    def close(fl):
+        fl.close()
+        for _, srv in fl.replicas:
+            release_engine(srv.state.engine)
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mem0 = mem_gb()
+    reset_launch_counts()
+    fleet, launch_s = launch(mp, torch.bfloat16, False, FLEET_REPLICAS)
+    st = fleet.router_state
+    url = fleet.router_url
+    reps = dict(fleet.replicas)
+    engines = {name: srv.state.engine for name, srv in fleet.replicas}
+    gens = {name: _track_generated(srv.state.scheduler) for name, srv in fleet.replicas}
+
+    def tokens_of(rid):
+        return next((g[rid] for g in gens.values() if rid in g), [])
+
+    h = engines["r0"].header
+    print(f"== llama-8b q40 serving fleet: {FLEET_REPLICAS} replicas x {SERVE_LANES} slab lanes, "
+          f"{h.n_layers} layers, bf16, behind the router (affinity k {st.affinity_k}); launched "
+          f"in {launch_s:.1f} s; torch.cuda.memory_allocated {mem0:.3f} GB before, "
+          f"{mem_gb():.3f} GB with both replicas; {smi}")
+    try:
+        # (a) the mix through the router
+        log, restore = _block_log(engines)
+        try:
+            results, wall = _fleet_mix(url, payloads)
+        finally:
+            restore()
+        tokens = sum(n for *_, n in log)
+        union = _union_s([(a, b) for _, a, b, _ in log])
+        for i, r in enumerate(results):
+            r["tokens"] = tokens_of(r["meta"]["request_id"])
+            want = truth["solo"][i] if truth else None
+            same = want is not None and (r["content"], r["finish"], len(r["tokens"])) == (
+                want["content"], want["finish"], len(want["tokens"]))
+            served = st.ledger.get(r["meta"]["request_id"])
+            n_prompt = len(st.prompt_tokens(payloads[i]["messages"]))
+            usage = r.get("usage")
+            print(f"fleet r{i}: replica {served['replicas'] if served else None} finish "
+                  f"{r['finish']} tokens {len(r['tokens'])} reused "
+                  f"{r['meta']['reused_prefix_tokens']} ttft_ms {r['meta']['ttft_ms']}; router "
+                  f"prompt tokens {n_prompt}, usage {usage}; equals the serving round's solo "
+                  f"replay {same}")
+            require(r["finish"] in ("stop", "length"), f"fleet r{i}: finish {r['finish']}")
+            require(same, f"fleet r{i}: the answer differs from the serving round's solo replay")
+            require(usage is None or usage["prompt_tokens"] == n_prompt,
+                    f"fleet r{i}: usage {usage} against the router's {n_prompt} prompt tokens")
+        per = {name: sum(n for rn, *_, n in log if rn == name) for name in engines}
+        fleet_tok_s = tokens / union if union else 0.0
+        single = truth.get("lane_tok_s")
+        print(f"fleet lane tok/s: {tokens} lane tokens ({json.dumps(per)}) in {union:.3f} s of "
+              f"decode blocks (the union over both replicas; {wall:.2f} s wall with prefill): "
+              f"{fleet_tok_s:.2f} tok/s"
+              + (f", {fleet_tok_s / single:.3f}x the serving round's single replica "
+                 f"{single:.2f}" if single else "") + f"; {smi}")
+
+        # each replica's device ms a decode block, sibling idle and busy
+        solo_req = dict(payloads[1], stream=False)
+        snap = {}
+
+        def settle():
+            if cuda:
+                torch.cuda.synchronize()
+            return {name: _device_block(e) for name, e in engines.items()}
+
+        def delta(a, b, name):
+            n, s_ = b[name][0] - a[name][0], b[name][1] - a[name][1]
+            return (s_ / n * 1e3 if n else None), n
+
+        def host_ms(log, name):
+            xs = [b - a for rn, a, b, _ in log if rn == name]
+            return statistics.median(xs) * 1e3 if xs else float("nan")
+
+        snap["0"] = settle()
+        idle_host = {}
+        for name in engines:
+            log, restore = _block_log(engines)
+            try:
+                _request(fleet.replica_urls[name], solo_req)
+            finally:
+                restore()
+            idle_host[name] = host_ms(log, name)
+            snap[name] = settle()
+        log, restore = _block_log(engines)
+        both = [threading.Thread(target=_request, args=(fleet.replica_urls[n], solo_req))
+                for n in engines]
+        try:
+            for th in both:
+                th.start()
+            for th in both:
+                th.join(timeout=600)
+        finally:
+            restore()
+        snap["busy"] = settle()
+        prev = "0"
+        for name in engines:
+            idle, n_idle = delta(snap[prev], snap[name], name)
+            prev = name
+            busy, n_busy = delta(snap[list(engines)[-1]], snap["busy"], name)
+            print(f"fleet device {name}: decode_lanes block (of {BLOCK} steps, one lane) "
+                  + ("device ms not measured (no card)" if idle is None or busy is None else
+                     f"device ms {idle:.3f} with the sibling idle ({n_idle} blocks), {busy:.3f} "
+                     f"with the sibling busy ({n_busy} blocks): busy/idle {busy / idle:.2f}; "
+                     f"a lane step {idle / BLOCK:.3f} / {busy / BLOCK:.3f} ms")
+                  + f"; host ms a block (median) {idle_host[name]:.3f} idle, "
+                  f"{host_ms(log, name):.3f} busy; health "
+                  f"{reps[name].state.health_snapshot()['status']}; {smi}")
+
+        # (b) affinity: the three shared-prefix requests, one after another
+        shared = [payloads[i] for i in (0, 4, 5)]
+        st.registry.poll_once()
+        plans = [st.route(st.prompt_tokens(p["messages"])) for p in shared]
+        targets = {p.target for p in plans}
+        hits0 = st.m_affinity_hits.value
+        aff = [_request(url, p) for p in shared]
+        served = [st.ledger.get(r["meta"]["request_id"])["replicas"] for r in aff]
+        hits = st.m_affinity_hits.value - hits0
+        spills = {k[0]: v for k, v in st.m_spills.child_values().items()}
+        print(f"fleet affinity: plan targets {sorted(targets)}, candidates "
+              f"{[p.candidates for p in plans]}, served by {served}, reused "
+              f"{[r['meta']['reused_prefix_tokens'] for r in aff]}; affinity hits +{hits:.0f}; "
+              f"spills by reason over the rounds so far {json.dumps(spills)}")
+        require(len(targets) == 1, f"fleet affinity: plan targets {targets}")
+        target = targets.pop()
+        require(all(s_ == [target] for s_ in served), f"fleet affinity: served by {served}")
+        require(all(r["meta"]["reused_prefix_tokens"] > 0 for r in aff[1:]),
+                "fleet affinity: the second and third request reused no prefix")
+        require(hits == 3, f"fleet affinity: {hits} affinity hits, wanted 3")
+
+        # (c) failover in bf16
+        fo = dict(payloads[2], stream=True)
+        st.registry.poll_once()
+        victim = st.route(st.prompt_tokens(fo["messages"])).candidates[0]
+        clean = _request(url, fo)
+        clean["tokens"] = tokens_of(clean["meta"]["request_id"])
+        died = st.m_requests.labels(replica=victim, outcome="died")
+        f0, d0 = st.m_failovers.value, died.value
+        set_fault_plane(FLEET_FAULT.format(victim))
+        try:
+            failed = _request(url, fo)
+        finally:
+            set_fault_plane("")
+        fo_rid = failed["meta"]["request_id"]
+        n_fo, n_died = st.m_failovers.value - f0, died.value - d0
+        same = failed["content"] == clean["content"]
+        print(f"fleet failover bf16: {FLEET_FAULT.format(victim)}; the stream finished "
+              f"{failed['finish']} with no error frame; failovers +{n_fo:.0f}, died +{n_died:.0f}; "
+              f"bytes equal the fault-free stream's {same}"
+              + ("" if same else f" (they part at {_parts_at(tok, clean['tokens'], clean['content'], failed['content'])})")
+              + f"; ledger {json.dumps(st.ledger.get(fo_rid))}")
+        require(failed["finish"] in ("stop", "length"), f"fleet failover: finish {failed['finish']}")
+        require(n_fo == 1 and n_died == 1,
+                f"fleet failover: failovers +{n_fo}, died +{n_died}, wanted 1 and 1")
+
+        # (f) observability
+        ok = st.fleet.scrape_once()
+        with urllib.request.urlopen(url + "/metrics", timeout=120) as r:
+            text = r.read().decode()
+        fams = {name: sorted({ln.split("{")[0] for ln in text.splitlines()
+                              if f'{{replica="{name}"' in ln and not ln.startswith("#")})
+                for name in engines}
+        fl = _get_json(url + "/v1/fleet")
+        tl = _get_json(f"{url}/v1/fleet/timeline?request_id={fo_rid}")
+        # one process, two engines: each replica's /v1/debug/memory holds the
+        # process's bytes in use against its own engine's analytic figure
+        mem = _get_json(fleet.replica_urls["r0"] + "/v1/debug/memory")["comparison"]
+        print(f"fleet obs: r0's /v1/debug/memory divergence from its own engine's analytic "
+              f"figure {mem.get('max_divergence_fraction')} (the process holds both engines)")
+        d = tl["dllama"]
+        print(f"fleet obs: scrape {ok}; /metrics re-exports {json.dumps({k: len(v) for k, v in fams.items()})} "
+              f"families by replica; /v1/fleet replicas {sorted(fl['replicas'])} aggregate "
+              f"{json.dumps(fl['aggregate'])}; timeline of {fo_rid}: replicas {d['replicas']}, "
+              f"spans by source {json.dumps(d['sources'])}, failovers {json.dumps(d['failovers'])}")
+        require(ok == dict.fromkeys(engines, True), f"fleet obs: scrape {ok}")
+        for name in engines:
+            require("dllama_http_requests_total" in fams[name] and len(fams[name]) > 10,
+                    f"fleet obs: /metrics re-exports {fams[name]} for {name}")
+        require(set(fl["replicas"]) == set(engines), f"fleet obs: /v1/fleet {fl['replicas']}")
+        require(len(d["replicas"]) == 2 and all(d["sources"].get(n, 0) > 0 for n in d["replicas"])
+                and "fetch_errors" not in d,
+                f"fleet obs: the timeline {json.dumps(d)} does not stitch both replicas")
+        # (e) drain r1 with its streams held in flight
+        streams = [dict(p, stream=True) for p in payloads]
+        sched = reps["r1"].state.scheduler
+        entered, release, restore = _gate_step(sched)
+        holder: dict = {}
+
+        def mix():
+            holder["res"] = _fleet_mix(url, streams)[0]
+
+        th = threading.Thread(target=mix)
+        th.start()
+        try:
+            require(entered.wait(600), "fleet drain: r1 took no stream")
+            status, first = _post_json(f"{url}/v1/drain?replica=r1", {})
+        finally:
+            release.set()
+            restore()
+        th.join(timeout=600)
+        require(reps["r1"].state.drained.wait(120), "fleet drain: r1 never drained")
+        status2, poll = _post_json(fleet.replica_urls["r1"] + "/v1/drain", {})
+        health = _get_json(fleet.replica_urls["r1"] + "/v1/health")
+        later = [_request(url, p) for p in payloads[:3]]
+        landed = [st.ledger.get(r["meta"]["request_id"])["replicas"] for r in later]
+        held_ok = [r["finish"] for r in holder.get("res", [])]
+        print(f"fleet drain r1: {status} {json.dumps(first)}; the held streams finished "
+              f"{held_ok}; then {json.dumps({k: poll[k] for k in ('status', 'in_flight', 'drained')})}, "
+              f"health {health['status']}; later requests served by {landed}")
+        require(status == 200 and first["status"] == "draining" and first["in_flight"] >= 1,
+                f"fleet drain: {status} {first}")
+        require(len(held_ok) == len(streams) and all(f in ("stop", "length") for f in held_ok),
+                f"fleet drain: the in-flight streams ended {held_ok}")
+        require(poll["drained"] and poll["in_flight"] == 0 and health["status"] == "draining",
+                f"fleet drain: {poll}, health {health['status']}")
+        require(all(x == ["r0"] for x in landed), f"fleet drain: later requests on {landed}")
+        counts = launch_counts()
+        print(f"fleet launches (bf16 rounds) {json.dumps(counts)}")
+        for name in ("q40_matmul", "flash_attention_stats", "flash_decode"):
+            require(counts[name] > 0, f"fleet: {name} was not launched in the bf16 rounds")
+        anomalies = {n: reps[n].state.anomaly.status().get("active") for n in engines}
+        print(f"fleet health after the bf16 rounds: "
+              f"{json.dumps({n: reps[n].state.health_snapshot().get('degraded_reasons', []) for n in engines})}; "
+              f"anomaly {json.dumps(anomalies)}")
+    finally:
+        close(fleet)
+    del fleet, st, reps, engines, gens
+
+    # (d) failover and chaos in f32, pool-native lanes
+    ap = os.path.join(tmp, "accept", "model.m")
+    if not os.path.exists(ap):
+        os.makedirs(os.path.dirname(ap), exist_ok=True)
+        write_synth_model(ap, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=ACCEPT_LAYERS)
+    reset_launch_counts()
+    fleet, launch_s = launch(ap, torch.float32, True, FLEET_F32_REPLICAS)
+    st, url, reps = fleet.router_state, fleet.router_url, dict(fleet.replicas)
+    try:
+        fo = dict(payloads[2], stream=True)
+        st.registry.poll_once()
+        victim = st.route(st.prompt_tokens(fo["messages"])).candidates[0]
+        clean = _request(url, fo)
+        set_fault_plane(FLEET_FAULT.format(victim))
+        try:
+            failed = _request(url, fo)
+        finally:
+            set_fault_plane("")
+        streams = [dict(p, stream=True) for p in payloads]
+        base, _ = _fleet_mix(url, streams)
+        f0 = st.m_failovers.value
+        st.registry.poll_once()  # the base mix's in-flight counts gone: no replica saturated
+        serving = sorted({st.route(st.prompt_tokens(p["messages"])).candidates[0]
+                          for p in streams})
+        require(len(serving) == 2, f"fleet f32: the mix lands on {serving}, wanted two replicas")
+        chaos_spec = FLEET_CHAOS.format(*serving[:2])
+        set_fault_plane(chaos_spec)
+        try:
+            chaos, _ = _fleet_mix(url, streams)
+        finally:
+            set_fault_plane("")
+        n_chaos = st.m_failovers.value - f0
+        bad = [i for i, (a, b) in enumerate(zip(base, chaos))
+               if a is None or b is None or (a["content"], a["finish"]) != (b["content"],
+                                                                           b["finish"])]
+        print(f"== llama-8b q40 f32 serving fleet: {ACCEPT_LAYERS} of 32 layers, f32, "
+              f"{FLEET_F32_REPLICAS} replicas x {SERVE_LANES} pool-native lanes, launched in "
+              f"{launch_s:.1f} s; failover at {victim}'s 3rd flush: bytes equal the fault-free "
+              f"stream's {failed['content'] == clean['content']}; chaos {chaos_spec}: "
+              f"{n_chaos:.0f} failovers, streams with fault-free bytes "
+              f"{len(streams) - len(bad)} of {len(streams)}")
+        require(failed["content"] == clean["content"] and failed["finish"] == clean["finish"],
+                "fleet f32: the failed-over stream's bytes differ from the fault-free stream's")
+        require(n_chaos >= 2 and not bad,
+                f"fleet f32 chaos: {n_chaos} failovers, streams {bad} differ")
+
+        f32_counts = launch_counts()
+        print(f"fleet launches (f32 rounds) {json.dumps(f32_counts)}")
+        for name in ("q40_matmul", "flash_attention_stats", "paged_flash_decode"):
+            require(f32_counts[name] > 0, f"fleet f32: {name} was not launched")
+    finally:
+        close(fleet)
+    del fleet, st, reps
+
+    # (g) the subprocess topology
+    sub = os.path.join(tmp, "fleet_sub")
+    os.makedirs(sub, exist_ok=True)
+    sp = os.path.join(sub, "model.m")
+    write_synth_model(sp, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=FLEET_SUB_LAYERS)
+    base = _free_port_base(3)
+    rport = base + 2
+    log_path = os.path.join(sub, "launch.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "dllama_tpu_torch.fleet.launch", "--model", sp, "--tokenizer", tp,
+           "--n-replicas", "2", "--base-port", str(base), "--port", str(rport), "--batch-size",
+           str(SERVE_LANES), "--chat-template", "llama3", "--device", device]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        # its own session: every process of the fleet shares its group id
+        proc = subprocess.Popen(cmd, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        rurl = f"http://127.0.0.1:{rport}"
+        health = None
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            try:
+                health = _get_json(rurl + "/v1/health")
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        require(health is not None, f"fleet subprocess: the router never answered "
+                f"(exit {proc.poll()}): {open(log_path).read()[-2000:]}")
+        names = [_get_json(f"http://127.0.0.1:{base + i}/v1/health").get("replica")
+                 for i in range(2)]
+        r = _request(rurl, dict(payloads[3], stream=True, temperature=0))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        down_s = time.perf_counter() - t0 - up_s
+    finally:
+        try:  # whatever of the fleet is left, after a failure
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    out = open(log_path).read()
+    ready = re.findall(r"Replica (r\d) healthy after ([0-9.]+) s", out)
+    import socket
+
+    def closed(port):
+        with socket.socket() as sk:
+            return sk.connect_ex(("127.0.0.1", port)) != 0
+
+    gone = all(closed(p) for p in (base, base + 1, rport))
+    print(f"fleet subprocess: {FLEET_SUB_LAYERS} of 32 layers, two replica processes, each its "
+          f"own CUDA context; replicas healthy after {ready} s (the router up after "
+          f"{up_s:.1f} s); /v1/health replica names {names}; a stream through the router "
+          f"finished {r['finish']} ({len(r['content'])} chars); SIGTERM: exit {rc} after "
+          f"{down_s:.1f} s, every port closed {gone}; {smi}")
+    require(names == ["r0", "r1"] and health["replicas"] == {"r0": "healthy", "r1": "healthy"},
+            f"fleet subprocess: health {health}, names {names}")
+    require(r["finish"] in ("stop", "length"), f"fleet subprocess: finish {r['finish']}")
+    require(rc == 0 and gone and len(ready) == 2, f"fleet subprocess: exit {rc}, ports closed "
+            f"{gone}, ready {ready}: {out[-2000:]}")
+    return {"llama-8b q40 serving fleet": counts, "llama-8b q40 f32 serving fleet": f32_counts}
 
 
 def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: str,

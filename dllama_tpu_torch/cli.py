@@ -85,6 +85,10 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="prompt tokens prefilled a scheduler tick (default: the largest bucket)")
     p.add_argument("--chat-template", default=None, choices=sorted(CHAT_TEMPLATE_NAMES),
                    help="chat template of the server (default: detected from the tokenizer)")
+    p.add_argument("--replica-id", default=None, dest="replica_id", metavar="NAME",
+                   help="name the server as a fleet replica: reported in /v1/health and the "
+                   "chaos plane's op filter, so 'sse_flush:op=r1:nth=3' targets one replica "
+                   "(fleet/launch.py sets it)")
     p.add_argument("--admission-predict", action="store_true", default=None,
                    help="predictive admission: forecast each request's TTFT and TPOT from the "
                    "engine's step costs and the lanes' load, refuse deadline-hinted work that "

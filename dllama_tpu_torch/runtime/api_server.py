@@ -7,7 +7,7 @@
         [--trace-out PATH] [--timeline-out PATH] [--postmortem-dir DIR] \\
         [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S] \\
         [--admission-predict] [--admission-max-wait-ms MS] [--deadline-default-ms MS] \\
-        [--deadline-priority-step-ms MS]
+        [--deadline-priority-step-ms MS] [--replica-id NAME]
 
 The port's core of dllama_tpu/runtime/api_server.py (reference:
 src/dllama-api.cpp):
@@ -154,6 +154,18 @@ parks a lower-priority or deadline-blown stream when that lets the EDF
 head meet its budget (``dllama_preemptions_total``); the victim resumes
 byte for byte. The EDF keys, the preemption's clock and the scored TTFTs
 all read the scheduler's ``_clock``.
+
+A fleet replica (fleet/, the JAX server's side of the router's contract):
+``--replica-id`` names the server in ``/v1/health`` (``replica``), tags
+every span its scheduler and handler threads begin, and scopes its
+``sse_flush`` faults (``sse_flush:op=r1:...``). A request with
+``include_tokens`` streams each delta with ``dllama_tokens`` (the generated
+ids consumed since the last delta) and ``dllama_piece`` (their exact text,
+which the EOS detector's holdback may keep ahead of the delta's), so a
+router can resume a dead replica's stream on a sibling with
+``resume_tokens``. The router's ``x-dllama-trace`` / ``x-dllama-request``
+headers become the request's trace and request ids, and a
+``trace_adopt`` recorder event names the replica before the shed gate.
 """
 
 from __future__ import annotations
@@ -179,7 +191,7 @@ from ..obs.device import compare_with_analytic, memory_report, sample_device_mem
 from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
 from ..obs.recorder import get_recorder
 from ..obs.slo import SloTracker, resolve_slo_knobs
-from ..obs.spans import get_span_tracker
+from ..obs.spans import get_span_tracker, set_thread_replica
 from ..obs.timeseries import MetricsSampler, SeriesStore, resolve_series_knobs
 from ..obs.trace import Tracer
 from ..obs.watchdog import EngineWatchdog, resolve_watchdog_knobs
@@ -352,6 +364,15 @@ class InferenceParams:
     # tokenizer (the JAX server's fleet failover resume): the lanes admit it
     # like any prompt; the serialized path refuses it
     resume_tokens: list[int] | None = None
+    # each SSE delta also carries the generated token ids and their exact
+    # decoded text (``dllama_tokens`` / ``dllama_piece``), so a fleet router
+    # can rebuild the stream's history at any flush (fleet/router.py)
+    include_tokens: bool = False
+    # the fleet's identity of the request (the router's x-dllama-trace /
+    # x-dllama-request headers, forwarded on every relay and failover);
+    # None outside a fleet
+    trace_id: str | None = None
+    request_id: str | None = None
 
     @property
     def deadline_hinted(self) -> bool:
@@ -360,7 +381,8 @@ class InferenceParams:
 
 class LaneJob:
     """One request: the scheduler thread produces events, the HTTP handler
-    thread consumes them. Events: ("delta", str), ("done", finish_reason),
+    thread consumes them. Events: ("delta", str) (with ``include_tokens`` a
+    generated delta is a dict: ``text``, ``tokens``, ``piece``), ("done", finish_reason),
     ("error", {"message": ..., "retryable": ...}). The handler sets
     ``cancelled`` when the client goes away; the scheduler then frees the
     lane. The times (``perf_counter`` seconds) and ``lane`` /
@@ -428,6 +450,10 @@ class _LaneState:
     drafter: object = None
     # the request's open "decode" timeline span (obs/spans.py)
     decode_span: object = None
+    # include_tokens: the (token id, piece) pairs consumed since the last
+    # flushed delta; the detector's holdback makes a delta's text lag its
+    # tokens, so each delta carries the exact ids and text behind it
+    tape: list = field(default_factory=list)
 
 
 @dataclass
@@ -589,7 +615,10 @@ class LaneScheduler:
 
     def submit(self, params: InferenceParams) -> LaneJob:
         st = self.state
-        job = LaneJob(params, st.tracer.span(path="lanes"), self._clock())
+        # a router's identity wins: every timeline span of the request is
+        # keyed on the fleet's request id, so a failover's two halves share it
+        job = LaneJob(params, st.tracer.span(request_id=params.request_id, path="lanes",
+                                             trace_id=params.trace_id), self._clock())
         # the EDF key: hints win; otherwise the priority ladder as deadline
         # offsets, so with no hints the pick order is (priority, arrival)
         job.edf_deadline_ms = effective_deadline_ms(
@@ -875,6 +904,10 @@ class LaneScheduler:
     # -- scheduler thread --------------------------------------------------
 
     def _loop(self) -> None:
+        # a fleet replica's scheduler thread tags every span it begins
+        # (admission, decode, publish, park) with the replica's name
+        if self.state.replica_id is not None:
+            set_thread_replica(self.state.replica_id)
         # inference mode is per thread: the engine's tensors stay out of
         # autograd on this one too
         with torch.inference_mode():
@@ -1354,12 +1387,23 @@ class LaneScheduler:
             if ttft is not None:
                 self.state.m_ttft.observe(ttft)
         piece = ls.decoder.decode(t)
+        tokens_on = ls.job.params.include_tokens
+        if tokens_on:
+            ls.tape.append((t, piece or ""))
         eos_type = ls.detector.append(t, piece)
         if eos_type in (EosResult.NOT_EOS, EosResult.EOS):
             delta = ls.detector.get_delta()
             if delta:
                 ls.job.buffer += delta
-                ls.job.events.put(("delta", delta))
+                if tokens_on:
+                    # cumulative tokens across deltas are the generated ids,
+                    # cumulative pieces their exact text
+                    ls.job.events.put(("delta", {"text": delta,
+                                                 "tokens": [tid for tid, _ in ls.tape],
+                                                 "piece": "".join(px for _, px in ls.tape)}))
+                    ls.tape = []
+                else:
+                    ls.job.events.put(("delta", delta))
             ls.detector.reset()
         if eos_type == EosResult.EOS:
             self._finish(lane, "stop")
@@ -1629,7 +1673,12 @@ class ApiState:
                  series_retention: float | None = None, admission_predict: bool | None = None,
                  admission_max_wait_ms: int | None = None,
                  deadline_default_ms: int | None = None,
-                 deadline_priority_step_ms: int | None = None):
+                 deadline_priority_step_ms: int | None = None,
+                 replica_id: str | None = None):
+        # a fleet replica's name: /v1/health's ``replica``, the span tag of
+        # its threads and the ``op`` its sse_flush faults draw under; set
+        # before the scheduler thread starts
+        self.replica_id = replica_id
         # explicit knobs beat the DLLAMA_* environment beats the defaults
         speculation, spec_k = resolve_spec_knobs(speculation, spec_k)
         retry_max, retry_backoff_ms, self.max_queue_depth = resolve_resilience_knobs(
@@ -2097,6 +2146,8 @@ class ApiState:
             # so a probe or a router can act on it
             payload["status"] = "degraded"
             payload["degraded_reasons"] = reasons
+        if self.replica_id is not None:
+            payload["replica"] = self.replica_id
         if self.draining:
             # draining wins: routers must stop sending traffic
             payload["status"] = "draining"
@@ -2479,6 +2530,8 @@ def make_handler(state: ApiState):
 
         def do_GET(self):
             self._count_request()
+            if state.replica_id is not None:
+                set_thread_replica(state.replica_id)
             path, _, query = self.path.partition("?")
             params = parse_qs(query)
 
@@ -2585,6 +2638,10 @@ def make_handler(state: ApiState):
 
         def do_POST(self):
             self._count_request()
+            if state.replica_id is not None:
+                # handler threads are per request: tag each one, so the
+                # shared span tracker of an in-process fleet knows its replica
+                set_thread_replica(state.replica_id)
             path = self.path.partition("?")[0]
             if path == "/v1/debug/profile":
                 self._profile()
@@ -2602,6 +2659,12 @@ def make_handler(state: ApiState):
             except (ValueError, KeyError, TypeError) as e:
                 self._json({"error": {"message": f"bad request: {e}"}}, 400)
                 return
+            if params.trace_id is not None:
+                # the fleet's identity adopted: recorded before the shed
+                # gate, so a refused relay is attributable too
+                state.recorder.record("trace_adopt", trace_id=params.trace_id,
+                                      request_id=params.request_id, replica=state.replica_id,
+                                      resumed=params.resume_tokens is not None)
             # shed before the request touches the queue: a refusal costs
             # the server nothing
             shed = state.admission_decision(params.priority, params)
@@ -2633,7 +2696,8 @@ def make_handler(state: ApiState):
             while it runs. A ``ValueError`` (the client's: a prompt too long)
             answers 400, any other error 500, as JSON; a stream carries the
             error as an event and still ends in ``[DONE]``."""
-            span = state.tracer.span(path="single")
+            span = state.tracer.span(request_id=params.request_id, path="single",
+                                     trace_id=params.trace_id)
             with state.lock:
                 state.m_queue_wait.observe(span.mark_admitted())
                 state.m_admissions.inc()
@@ -2697,14 +2761,28 @@ def make_handler(state: ApiState):
                 while True:
                     kind, payload = job.events.get()
                     if kind == "delta":
-                        chunk = _chunk_payload(state, payload, stop=False)
+                        if isinstance(payload, dict):
+                            # include_tokens: the delta with its exact ids
+                            # and text
+                            chunk = _chunk_payload(state, payload["text"], stop=False)
+                            chunk["dllama_tokens"] = payload["tokens"]
+                            chunk["dllama_piece"] = payload["piece"]
+                        else:
+                            chunk = _chunk_payload(state, payload, stop=False)
+                            if job.params.include_tokens:
+                                # the public-prompt echo: no generated
+                                # token behind it, its text as the piece
+                                chunk["dllama_tokens"] = []
+                                chunk["dllama_piece"] = payload
                         # one span a frame: a slow client's backpressure
                         # shows on the timeline's http track
                         with state.spans.span("sse_flush", component="http",
                                               request_id=job.request_id, lane=job.lane):
                             # chaos site: an injected flush failure is a
-                            # client gone mid-stream (the cancel path below)
-                            fault = get_fault_plane().draw("sse_flush")
+                            # client gone mid-stream (the cancel path below);
+                            # ``op`` scopes it to one fleet replica
+                            # (sse_flush:op=r1:...)
+                            fault = get_fault_plane().draw("sse_flush", op=state.replica_id)
                             if fault is not None:
                                 raise OSError(str(fault))
                             _sse_write(self.wfile, f"data: {json.dumps(chunk)}\r\n\r\n")
@@ -2752,6 +2830,8 @@ def make_handler(state: ApiState):
             else:
                 messages = body["messages"]
             params.messages = [ChatMessage(m["role"], m["content"]) for m in messages]
+            if "include_tokens" in body:
+                params.include_tokens = bool(body["include_tokens"])
             if "stream" in body:
                 params.stream = bool(body["stream"])
             if "temperature" in body:
@@ -2788,6 +2868,13 @@ def make_handler(state: ApiState):
                     value = 0.0
                 if value > 0:
                     params.deadline_ms = value
+            # the fleet router's identity of the request; absent outside a fleet
+            trace_id = self.headers.get("x-dllama-trace")
+            request_id = self.headers.get("x-dllama-request")
+            if trace_id:
+                params.trace_id = str(trace_id)
+            if request_id:
+                params.request_id = str(request_id)
             return params
 
     return Handler
@@ -2823,6 +2910,7 @@ def serve(
     admission_max_wait_ms: int | None = None,
     deadline_default_ms: int | None = None,
     deadline_priority_step_ms: int | None = None,
+    replica_id: str | None = None,
 ) -> ThreadingHTTPServer:
     """Build the server over the engine: the serialized path at batch
     size 1, else lanes (slab or pool-native, with their page pool, by
@@ -2850,7 +2938,9 @@ def serve(
     ``DLLAMA_ADMISSION_MAX_WAIT_MS``, then off and 30000;
     ``deadline_default_ms`` and ``deadline_priority_step_ms`` to
     ``DLLAMA_DEADLINE_DEFAULT_MS`` / ``DLLAMA_DEADLINE_PRIORITY_STEP_MS``,
-    then 600000 and 60000 (runtime/admission.py)."""
+    then 600000 and 60000 (runtime/admission.py). ``replica_id`` names the
+    server as a fleet replica (fleet/): /v1/health's ``replica``, its
+    threads' span tag and the ``op`` of its ``sse_flush`` faults."""
     if faults is not None:
         set_fault_plane(faults)
     page_size, pool_pages, native = resolve_kv_knobs(kv_page_size, kv_pool_pages, kv_native)
@@ -2873,7 +2963,7 @@ def serve(
         slo_tpot_ms=slo_tpot_ms, series_retention=series_retention,
         admission_predict=admission_predict, admission_max_wait_ms=admission_max_wait_ms,
         deadline_default_ms=deadline_default_ms,
-        deadline_priority_step_ms=deadline_priority_step_ms,
+        deadline_priority_step_ms=deadline_priority_step_ms, replica_id=replica_id,
     )
     if postmortem_dir:
         state.recorder.postmortem_dir = postmortem_dir
@@ -2998,7 +3088,7 @@ def main(argv=None) -> None:
         admission_predict=args.admission_predict,
         admission_max_wait_ms=args.admission_max_wait_ms,
         deadline_default_ms=args.deadline_default_ms,
-        deadline_priority_step_ms=args.deadline_priority_step_ms,
+        deadline_priority_step_ms=args.deadline_priority_step_ms, replica_id=args.replica_id,
     )
     _install_drain_handler(server)
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")

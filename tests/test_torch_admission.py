@@ -552,9 +552,15 @@ def jax_server(files):
     srv = _start(japi.serve(eng, tok, host="127.0.0.1", port=0, lane_block_size=4,
                             kv_page_size=4, kv_native=True, max_streams=2,
                             admission_predict=True))
+    # the JAX registry is process-wide: this server's parks and resumes must
+    # not reach a later JAX test on the same worker that reads the resume
+    # counter from zero (tests/test_kv_native.py)
+    resumes = srv.state.m_stream_resumes
+    before = resumes.value
     yield srv
     srv.shutdown()
     srv.server_close()
+    resumes._default()._value = before
 
 
 @pytest.fixture(scope="module", params=["off", "shared"])

@@ -165,3 +165,48 @@ def test_slab_and_serialized_slice_modules_are_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+FLEET_MODULES = ("affinity", "replicas", "obs", "router", "launch")
+
+
+def test_fleet_slice_modules_are_covered():
+    """The fleet slice's six files (fleet/__init__.py and its five modules)
+    are among the modules and files checked above; the package, its router
+    and its launcher import with jax, dllama_tpu and triton blocked and no
+    card asked for; and the affinity module is stdlib only (it imports with
+    torch blocked as well)."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.fleet" in mods
+    assert os.path.join(PKG, "fleet", "__init__.py") in files
+    for m in FLEET_MODULES:
+        assert f"dllama_tpu_torch.fleet.{m}" in mods
+        assert os.path.join(PKG, "fleet", m + ".py") in files
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'dllama_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "import dllama_tpu_torch.fleet as fleet\n"
+        "from dllama_tpu_torch.fleet.launch import launch_inprocess_fleet, main\n"
+        "from dllama_tpu_torch.fleet.router import serve_router, main as router_main\n"
+        "assert fleet.HashRing and fleet.ReplicaRegistry and fleet.RouterState\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    path = os.path.join(PKG, "fleet", "affinity.py")
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('jax', 'dllama_tpu', 'torch', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"spec = importlib.util.spec_from_file_location('affinity', {path!r})\n"
+        "mod = sys.modules['affinity'] = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert mod.HashRing(['r0']).order(mod.prefix_affinity_key([1, 2])) == ['r0']\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -69,8 +69,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    tokens, every forward a CUDA graph (each shape eager on its first use,
    then captured and replayed: `dllama_tpu_torch/runtime/graphs.py`).
    llama-8b (32 layers) with ``--weight-format q40`` (also with
-   ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (48
-   layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
+   ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (`MOE_LAYERS`
+   of 48 layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
    Q40); qwen3-30b-a3b at 4 layers with ``dense`` (bf16 experts: full
    depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
@@ -178,7 +178,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    draft step resetting only the draft cache); the mixed-KV runs on the
    llama-8b file (`mixed_kv`: an f32 engine over a bf16 cache with its
    kernel-vs-plain parity, a bf16 engine over an f16 cache, single stream
-   and 4 native lanes); and on the 48-layer qwen3-30b-a3b file the dedup
+   and 4 native lanes); and on the qwen3-30b-a3b q40 file the dedup
    round (`moe_dedup`: identical prompts on the grouped tier at every
    layer-step, distinct prompts' share, dedup-on streams equal dedup-off's
    in f32, a decode step's device ms on against off in turns). Every CLI
@@ -191,7 +191,33 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    ``python -m dllama_tpu_torch.fleet.launch`` with two replica processes. Depth cuts
    for the time (PR 18): llama-8b ``q40 kv-int8``, ``q40i4`` and ``q40i8``
    at `CUT_LAYERS` of 32 layers, qwen3-30b-a3b ``q40i8`` on the 4-layer
-   file.
+   file. qwen3-30b-a3b ``q40`` and its dedup round run the whole 48 layers
+   (`MOE_LAYERS`); a child process writes that 17 GB file
+   (`start_prewrite`) while the card runs the llama-8b paths.
+   The parallel round (`parallel_round`, after the fleet phase on
+   the same files): tensor and sequence parallelism, the ranks
+   (parallel/launch.py) sharing the one card over gloo (NCCL runs no two
+   ranks on one device). Phase 2 adds the two kernel options of sequence
+   parallelism at llama-8b's tp 2 x sp 2 shard shapes (H 16, KH 4, a
+   2048-row cyclic shard): the stats kernel with ``s_stride`` 2 and 4 at T
+   256, 1, 3 and 5 (`check_attention_strided`) and the decode kernel
+   emitting its state (`check_decode_stats`: s_pos0 0 and 1, stride 2, a
+   shard wholly in the future), bf16 and f32, and the Q40 kernel at the tp
+   = 2 slices of llama-8b's weights (`check_q40_tp`). The one-rank
+   references run first, then one spawned world of 2 ranks takes every
+   2-rank job in turn and one of 4 the 2 x 2 job. (b) llama-8b q40
+   bf16, 32 layers, tp = 2: each rank holds half of the layer bytes, and
+   the first decode step's logits after a 512-row chunk lie within
+   `TOL_TP_BF16` of one rank's (where the greedy streams part is printed);
+   (c) the 4-layer llama-8b file in f32, sp = 2 (2 ranks) and tp 2 x sp 2
+   (4 ranks): the greedy streams equal one rank's, the logits within
+   `TOL_TP_F32`, the strided and decode-stats entries launched on every
+   rank; (d) tp = 2 with the q80 sync buffer: an all-reduce within
+   `Q80_BOUND` of the exact sum, the logits' error printed; (e) ``python
+   -m dllama_tpu_torch inference --tp 2 --device cuda:0``: exit 0, the
+   backend line naming gloo, rank 0's lines; (f) each rank's decode token:
+   device ms, its collectives' host ms and bytes against
+   ``ici_traffic_per_token``, its launches.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
    ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
@@ -204,6 +230,7 @@ Imports nothing of JAX or dllama_tpu.
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -252,7 +279,10 @@ SAMPLED_TOKENS = 32  # tokens of each sampled stream
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
-MOE_LAYERS = 48  # the whole qwen3-30b-a3b depth (q40 path)
+# the qwen3-30b-a3b q40 path and its dedup round: the whole depth (writing
+# the file took 57-81 s on an H100 machine's host, so a child process
+# writes it while the llama-8b phases run: `start_prewrite`)
+MOE_LAYERS = 48
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 # model file -> (its label, preset, layers, the runs on it: a weight format,
 # " kv-int8" added for the int8 KV cache)
@@ -300,6 +330,11 @@ REPLACES = {
     "flash_attention_stats_mixed": "dllama_tpu/ops/flash_attention.py:121",
     "flash_decode_mixed": "dllama_tpu/ops/flash_attention.py:349",
     "paged_flash_decode_mixed": "dllama_tpu/ops/flash_attention.py:592",
+    # sequence parallelism: the prefill stats kernel's s_stride option (its
+    # strided mask and frontier, :175 :182 :237) and the decode kernel's
+    # emit_stats (surface flash_decode_stats, :534)
+    "flash_attention_stats_strided": "dllama_tpu/ops/flash_attention.py:166",
+    "flash_decode_stats": "dllama_tpu/ops/flash_attention.py:404",
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
@@ -318,6 +353,8 @@ SOURCES = {
     "flash_attention_stats_mixed": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode_mixed": "dllama_tpu_torch/csrc/flash_decode.cu",
     "paged_flash_decode_mixed": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "flash_attention_stats_strided": "dllama_tpu_torch/csrc/flash_attention.cu",
+    "flash_decode_stats": "dllama_tpu_torch/csrc/flash_decode.cu",
 }
 # the row of phase 2 whose times stand in the kernels line
 KERNEL_ROW_SHAPE = {
@@ -337,6 +374,8 @@ KERNEL_ROW_SHAPE = {
     "flash_attention_stats_mixed": "f32/bf16 H=32 KH=8 T=512 S=4096 pos=3584",
     "flash_decode_mixed": "f32/bf16 H=32 KH=8 S=4096 pos=4095",
     "paged_flash_decode_mixed": "bf16/f16 H=32 KH=8 B=4 pos=0,15,16,4095",
+    "flash_attention_stats_strided": "bfloat16 H=16 KH=4 T=256 S=2048 stride=2 pos=3833",
+    "flash_decode_stats": "bfloat16 H=16 KH=4 S=2048 stride=2 pos=4095 s_pos0=1",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
 # the MoE kernels' edges at about A3B's widths: D and F not multiples of a
@@ -444,13 +483,15 @@ def _q40_cases(f32: bool) -> list[tuple[int, int, list]]:
     return cases + [(k, n, [(512, bf)]) for k, n in QWEN_ATTN_SHAPES]
 
 
-def check_q40(device, gen, timed: bool = True) -> list[dict]:
+def check_q40(device, gen, timed: bool = True, cases=None, tag: str = "") -> list[dict]:
+    """The Q40 kernel's rows at ``cases`` (default `_q40_cases`), each
+    shape's label followed by ``tag``."""
     import torch
 
     from dllama_tpu_torch.ops.quant_matmul import dequant, qmatmul, qmatmul_ref
 
     rows = []
-    for k, n, x_cases in _q40_cases(f32=False):
+    for k, n, x_cases in cases or _q40_cases(f32=False):
         w = random_q40(n, k, device, gen)
         w_bf16 = dequant(w, torch.bfloat16)  # the library yardstick's operand
         for m, _ in x_cases:
@@ -462,7 +503,7 @@ def check_q40(device, gen, timed: bool = True) -> list[dict]:
             n_bytes = m * k * 2 + n * k + n * (k // 32) * 2 + m * n * 4
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * k)
             row = dict(
-                name="q40_matmul", shape=f"m={m} k={k} n={n}", err=rel, max_abs_err=absd,
+                name="q40_matmul", shape=f"m={m} k={k} n={n}{tag}", err=rel, max_abs_err=absd,
                 bound_ms=b_ms, bound_by=b_by,
             )
             if timed:
@@ -1798,6 +1839,42 @@ def model_file_bytes(preset: str | dict, n_layers: int | None, max_seq_len: int)
     return last.offset + last.nbytes
 
 
+def start_prewrite(tmp: str, preset: str, n_layers: int, max_seq_len: int, seed: int):
+    """Start a child process that writes the `end_to_end` files of ``preset``
+    at ``n_layers`` into tmp (the tokenizer, then the model under a
+    temporary name, renamed to ``model.m`` once whole), so that the host's
+    write overlaps the card's earlier phases. Returns (the process, its
+    start time); `finish_prewrite` waits for it."""
+    need = model_file_bytes(preset, n_layers, max_seq_len)
+    free = shutil.disk_usage(tmp).free
+    require(free > need + (16 << 30),
+            f"{preset}: {need / 1e9:.1f} GB model written ahead, {free / 1e9:.1f} GB free")
+    code = (
+        "import os, sys\n"
+        "import chip_smoke as c\n"
+        "from dllama_tpu_torch.models.synthetic import write_synth_model\n"
+        "tmp, preset, n, s, seed = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:])\n"
+        "part = os.path.join(tmp, 'model.m.part')\n"
+        "h = write_synth_model(part, preset, seed=seed, max_seq_len=s, n_layers=n)\n"
+        "c.write_tokenizer_file(os.path.join(tmp, 'tok.t'), h.vocab_size)\n"
+        "os.replace(part, os.path.join(tmp, 'model.m'))\n"
+    )
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", code, tmp, preset, str(n_layers),
+                             str(max_seq_len), str(seed)], cwd=root)
+    return proc, time.perf_counter()
+
+
+def finish_prewrite(writer, label: str) -> None:
+    """Wait for a `start_prewrite` child and print its time."""
+    proc, t_start = writer
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    require(rc == 0, f"{label}: writing the model file ahead failed (exit {rc})")
+    print(f"{label}: model file written ahead by a child process, done "
+          f"{time.perf_counter() - t_start:.1f} s after its start; waited {time.perf_counter() - t0:.1f} s")
+
+
 def end_to_end(device: str, preset: str | dict, n_layers: int | None, prompt_tokens: int,
                decode_tokens: int, max_seq_len: int, seed: int, tmp: str,
                weight_format: str = "auto", kv_dtype: str | None = None) -> dict:
@@ -2888,7 +2965,7 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     one), which covers a last mix with ``POST /v1/debug/profile``
     ({"seconds": `OBS_PROFILE_S`}) during it: the profile answers 200 with
     a trace naming the Q40 GEMV (``gemv_mma_kernel``) and the paged decode
-    kernel (``flash_decode_mma_kernel<..., true>``), with launches linked
+    kernel (``flash_decode_mma_kernel<KV, HD, true, false>``), with launches linked
     to their kernels by correlation id (``n_flows``). The profiler's stop
     holds the interpreter for seconds; the server declares it to the
     watchdog as a pause, so it is no stall. Printed: the seconds the
@@ -3064,7 +3141,9 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     body = prof.get("body", {})
     kernels = body.get("kernels", [])
     gemv = [k for k in kernels if "gemv_mma_kernel" in k]
-    paged = [k for k in kernels if "flash_decode_mma_kernel" in k and "true>" in k]
+    # the paged instantiation: template arguments <KV, HD, PAGED, SP>
+    paged = [k for k in kernels if (m := re.search(r"flash_decode_mma_kernel<([^>]*)>", k))
+             and m.group(1).split(", ")[2:3] == ["true"]]
     w0, w1 = prof.get("span", (0.0, 0.0))
     tick_max = max((b - a for a, b in ticks if b > w0 and a < w1), default=0.0)
     gap_max = max((b - a for ts in times.values() for a, b in zip(ts, ts[1:])), default=0.0)
@@ -4295,6 +4374,339 @@ def ptxas_kernels(log: str) -> list[str]:
     return lines
 
 
+# ---- the parallel round: tensor and sequence parallelism on one card ----
+
+# sequence parallelism's two kernel options at llama-8b's shard shapes: tp 2
+# x sp 2 gives each rank 16 query heads over 4 KV heads; S_LOCAL rows a
+# shard, each global position p of a cyclic shard i at local row p // sp
+SP_SHAPE = dict(h=16, kh=4, hd=128, t=256, s_local=2048)
+SP_SMALL_T = (1, 3, 5)  # short chunks: a query row a block or fewer
+# the Q40 kernels at the tp = 2 slices of llama-8b: wq/wo-in (k 4096 n 2048),
+# wk/wv (n 512), w1/w3 (n 7168), wcls (n 64128); wo (k 2048) and w2 (k 7168)
+TP_Q40_SHAPES = [(4096, 2048), (4096, 512), (4096, 7168), (4096, 64128), (2048, 4096),
+                 (7168, 4096)]
+TP_PROMPT = 513  # (b): one 512-row prefill chunk, then decode from its last token
+TP_DECODE = 32  # (b): greedy tokens of the tp = 2 stream
+SP_PROMPT = 544  # (c): 543 rows to fill: a 512-row chunk, then a 32-row one
+SP_DECODE = 48  # (c): greedy tokens of each sp run
+TIMED_STEPS = 8  # decode steps timed a rank for the (f) prints
+# (b) the first decode step's logits of tp = 2 against tp = 1 on the bf16
+# q40 llama-8b (normalized max error): the tp split sums each GEMV's
+# partials in f32 in another order, so bf16 roundings of the activations
+# flip here and there through 32 layers; held an order above one bf16 step
+# at the logits' scale and as far as two kernel paths of the same bf16 model
+# read apart (the parity lines: 4-6e-2), where a wrong slice or a lost
+# all-reduce reads ~1
+TOL_TP_BF16 = 0.1
+# (c) f32 logits of sp = 2 and tp 2 x sp 2 against one rank after 4 layers:
+# sum order only (the GEMV partials, the ring's and the decode merge's
+# order), f32 throughout; a shard read at a wrong position reads ~1
+TOL_TP_F32 = 1e-3
+Q80_BOUND = 2e-2  # tests/test_parallel.py's bound on the q80 all-reduce
+
+
+def _sp_case(device, gen, dtype, stride: int, t: int, pos: int, s_pos0: int):
+    import torch
+
+    c = SP_SHAPE
+    q = torch.randn((1, t, c["h"], c["hd"]), device=device, generator=gen).to(dtype)
+    k = torch.randn((1, c["kh"], c["s_local"], c["hd"]), device=device, generator=gen).to(dtype)
+    v = torch.randn((1, c["kh"], c["s_local"], c["hd"]), device=device, generator=gen).to(dtype)
+    return q, k, v
+
+
+def check_attention_strided(device, gen, timed: bool = True) -> list[dict]:
+    """The stats kernel over a cyclic shard (``s_stride`` 2 and 4) against
+    its plain version, bf16 and f32, at `SP_SHAPE` (T 256 near the shard's
+    end, then T 1, 3, 5), each launched twice with equal bits. No PyTorch
+    call attends over a strided shard: library_ms is none."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats, flash_attention_stats_ref,
+    )
+
+    c = SP_SHAPE
+    rows = []
+    cases = [(dt, st, c["t"], c["s_local"] * st - c["t"] - 7, st - 1)
+             for dt in (torch.bfloat16, torch.float32) for st in (2, 4)]
+    cases += [(torch.bfloat16, 2, t, 101, 1) for t in SP_SMALL_T]
+    for dt, stride, t, pos, s0 in cases:
+        q, k, v = _sp_case(device, gen, dt, stride, t, pos, s0)
+        what = (f"flash_attention_stats_strided {str(dt)[6:]} stride={stride} T={t} "
+                f"pos={pos} s_pos0={s0}")
+        got = twice_equal(lambda: flash_attention_stats(q, k, v, pos, s0, s_stride=stride), what)
+        ref = flash_attention_stats_ref(q, k, v, pos, s0, s_stride=stride)
+        torch.cuda.synchronize(device)
+        errs = [norm_err(a, b) for a, b in zip(got, ref)]
+        rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= TOL, f"{what}: error {rel:.3e} > {TOL}")
+        # visible keys of query row i: local rows j with s0 + j * stride <= pos + i
+        vis = sum(max(0, min(c["s_local"], (pos + i - s0) // stride + 1)) for i in range(t))
+        n_keys = max(0, min(c["s_local"], (pos + t - 1 - s0) // stride + 1))
+        es = q.element_size()
+        n_bytes = q.numel() * es + 2 * c["kh"] * n_keys * c["hd"] * es + c["h"] * t * (c["hd"] + 2) * 4
+        b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * vis,
+                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        row = dict(name="flash_attention_stats_strided",
+                   shape=f"{str(dt)[6:]} H={c['h']} KH={c['kh']} T={t} S={c['s_local']} "
+                         f"stride={stride} pos={pos}", err=rel, max_abs_err=absd,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if timed:
+            row["ms"] = time_ms(lambda: flash_attention_stats(q, k, v, pos, s0, s_stride=stride),
+                                device)
+            row["plain_ms"] = time_ms(
+                lambda: flash_attention_stats_ref(q, k, v, pos, s0, s_stride=stride), device, 5)
+        rows.append(row)
+    return rows
+
+
+def check_decode_stats(device, gen, timed: bool = True) -> list[dict]:
+    """The decode kernel emitting its state over a cyclic shard (stride 2,
+    s_pos0 0 and 1), bf16 and f32, against its plain version: every row of
+    the 2048-row shard visible (pos 4095: each block of the cluster holds
+    its share of the tiles), a mid position, and a shard wholly in the
+    query's future (pos 0, s_pos0 1: m = -1e30, l = 0, acc = 0, nothing
+    read); each launched twice with equal bits. library_ms none (no PyTorch
+    call returns the unnormalized state)."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import flash_decode_stats, flash_decode_stats_ref
+
+    c = SP_SHAPE
+    rows = []
+    cases = [(dt, pos, s0) for dt in (torch.bfloat16, torch.float32)
+             for pos, s0 in ((4095, 0), (4095, 1), (563, 1), (0, 1))]
+    for dt, pos, s0 in cases:
+        q, k, v = _sp_case(device, gen, dt, 2, 1, pos, s0)
+        what = f"flash_decode_stats {str(dt)[6:]} stride=2 pos={pos} s_pos0={s0}"
+        got = twice_equal(lambda: flash_decode_stats(q, k, v, pos, s0, 2), what)
+        ref = flash_decode_stats_ref(q, k, v, pos, s0, 2)
+        torch.cuda.synchronize(device)
+        n_keys = max(0, min(c["s_local"], (pos - s0) // 2 + 1))
+        if n_keys == 0:
+            require(float(got[1].max()) <= -1e29 and float(got[2].abs().max()) == 0.0
+                    and float(got[0].abs().max()) == 0.0,
+                    f"{what}: a shard in the future must give m = -1e30, l = 0, acc = 0")
+            rel, absd = 0.0, 0.0
+        else:
+            errs = [norm_err(a, b) for a, b in zip(got, ref)]
+            rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= TOL, f"{what}: error {rel:.3e} > {TOL}")
+        es = q.element_size()
+        n_bytes = q.numel() * es + 2 * c["kh"] * n_keys * c["hd"] * es + c["h"] * (c["hd"] + 2) * 4
+        b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * n_keys,
+                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        row = dict(name="flash_decode_stats",
+                   shape=f"{str(dt)[6:]} H={c['h']} KH={c['kh']} S={c['s_local']} stride=2 "
+                         f"pos={pos} s_pos0={s0}", err=rel, max_abs_err=absd,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if timed:
+            row["ms"] = time_ms(lambda: flash_decode_stats(q, k, v, pos, s0, 2), device)
+            row["plain_ms"] = time_ms(lambda: flash_decode_stats_ref(q, k, v, pos, s0, 2),
+                                      device, 5)
+        rows.append(row)
+    return rows
+
+
+def check_q40_tp(device, gen, timed: bool = True) -> list[dict]:
+    """The Q40 kernel at the tp = 2 slices of llama-8b (`TP_Q40_SHAPES`), the
+    GEMV (m 1) and the tile (m 512), bf16, under check_q40's gates."""
+    import torch
+
+    return check_q40(device, gen, timed,
+                     cases=[(k, n, [(1, torch.bfloat16), (512, torch.bfloat16)])
+                            for k, n in TP_Q40_SHAPES], tag=" tp=2")
+
+
+def _tp_prompt(n: int, vocab: int) -> list[int]:
+    """A fixed prompt of n token ids (BOS 1 first) below the vocabulary."""
+    return [1] + [(i * 7919 + 13) % (vocab - 8) + 8 for i in range(n - 1)]
+
+
+def _first_diff(a: list[int], b: list[int]):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _print_ranks(label: str, results: list, h, tp: int, sync_quant: bool = False) -> None:
+    """(f): each rank's decode token on the shared card: device ms (CUDA
+    events), its collectives' host ms and bytes against the analytic model
+    (which counts tp's traffic only, none of sp's; the port's embedding
+    all-reduce is exact f32 under q80 too), and its launches by wrapper
+    counter."""
+    from dllama_tpu_torch.utils.telemetry import ici_traffic_per_token
+
+    model = ici_traffic_per_token(h, tp, activation_bytes=1.125 if sync_quant else 4.0)
+    for r, res in enumerate(results):
+        t = res["timed"]
+        launches = {k: v for k, v in res["launches"].items() if v}
+        print(f"parallel rank {label} rank {r} (ranks share one card over gloo): decode token "
+              f"device_ms {t['device_ms']:.3f} collective_ms {t['collective_ms']:.3f} "
+              f"({t['calls']} collectives) collective_bytes {int(t['collective_bytes'])} vs "
+              f"ici_traffic_per_token {model}; launches {json.dumps(launches)}")
+
+
+def parallel_round(tmp: str, smi: str) -> dict:
+    """The parallel round (ranks share the one card over gloo: NCCL runs no
+    two ranks on one device; the one-rank references first, then one world
+    of 2 ranks for every 2-rank job and one of 4 for the 2 x 2 job): (b)
+    llama-8b q40 bf16 at full width and depth, tp = 2 against tp = 1; (c)
+    the 4-layer llama-8b file in f32, sp = 2 and tp 2 x sp 2 against one
+    rank; (d) tp = 2 with the q80 sync buffer against f32; (e) the CLI at
+    --tp 2; (f) each rank's decode token. Returns the launch counts of each
+    run, by label."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.models.synthetic import write_synth_model
+    from dllama_tpu_torch.obs.cost import param_bytes
+    from dllama_tpu_torch.parallel.launch import jobs_target, spawn
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    dev = "cuda:0"
+    counts = {}
+    mp, tok = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+
+    # the one-rank references: (b) llama-8b q40 bf16, 32 layers; (c) the
+    # 4-layer file in f32
+    t0 = time.perf_counter()
+    eng = InferenceEngine(mp, dtype=torch.bfloat16, temperature=0.0, weight_format="q40",
+                          device="cuda")
+    h = eng.header
+    prompt_b = _tp_prompt(TP_PROMPT, h.vocab_size)
+    eng.prefill(prompt_b)
+    want_b = eng.step_logits(prompt_b[-1], len(prompt_b) - 1).numpy()
+    eng.reset()
+    want_b_stream = eng.generate(prompt_b, max_steps=TP_PROMPT - 1 + TP_DECODE,
+                                 block_size=BLOCK)[0]
+    whole_bytes = param_bytes(eng.params, h)["layers"]
+    release_engine(eng)
+    del eng
+    ap = os.path.join(tmp, "accept", "model.m")
+    if not os.path.exists(ap):
+        os.makedirs(os.path.dirname(ap), exist_ok=True)
+        write_synth_model(ap, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=ACCEPT_LAYERS)
+    prompt = _tp_prompt(SP_PROMPT, h.vocab_size)
+    calls = [(prompt, SP_PROMPT - 1 + SP_DECODE, BLOCK, 0)]
+    eng = InferenceEngine(ap, dtype=torch.float32, temperature=0.0, weight_format="q40",
+                          device="cuda")
+    h4 = eng.header
+    eng.prefill(prompt)
+    want_logits = eng.step_logits(prompt[-1], len(prompt) - 1).numpy()
+    eng.reset()
+    want_stream = eng.generate(prompt, max_steps=calls[0][1], block_size=BLOCK)[0]
+    release_engine(eng)
+    del eng
+    ref_s = time.perf_counter() - t0
+
+    # one world of two ranks for every 2-rank job, then one of four
+    t0 = time.perf_counter()
+    job_b = dict(model=mp, tp=2, sp=1, dtype="bf16", weight_format="q40", step_logits=prompt_b,
+                 generate=[(prompt_b, TP_PROMPT - 1 + TP_DECODE, BLOCK, 0)],
+                 timed_steps=TIMED_STEPS)
+    base = dict(model=ap, dtype="f32", weight_format="q40", step_logits=prompt, generate=calls,
+                timed_steps=TIMED_STEPS)
+    rng = np.random.default_rng(SEED)
+    x = (rng.standard_normal((2, 1, h.dim)) * rng.uniform(0.1, 10, (2, 1, 1))).astype(np.float32)
+    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=300, args=([
+        ("engine", job_b),
+        ("engine", dict(base, tp=1, sp=2)),
+        ("engine", dict(base, tp=2, sp=1)),
+        ("engine", dict(base, tp=2, sp=1, buffer_float_type="q80")),
+        ("collective", ("all_reduce", 2, True, x)),
+        ("collective", ("all_reduce", 2, False, x)),
+    ],))
+    world2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=300,
+                   args=([("engine", dict(base, tp=2, sp=2))],))
+    world4_s = time.perf_counter() - t0
+
+    # (b) llama-8b q40 bf16, 32 layers, tp = 2 against tp = 1
+    res = [r[0] for r in world2]
+    label = "llama-8b q40 tp2"
+    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, one 512-row chunk and "
+          f"{TP_DECODE} greedy tokens; the one-rank references (this and the f32 file's) "
+          f"{ref_s:.1f} s, the 2-rank world (its jobs: this, sp2, tp2, tp2 q80, two "
+          f"all-reduces) {world2_s:.1f} s, the 4-rank world {world4_s:.1f} s")
+    for r, x in enumerate(res):
+        require(x["layer_bytes"] * 2 == whole_bytes,
+                f"{label} rank {r}: layer weights {x['layer_bytes']} B, half of "
+                f"{whole_bytes} B wanted")
+        print(f"parallel {label} rank {r}: layer weights {x['layer_bytes']} B of {whole_bytes} B "
+              f"(one half), allocated {x['allocated'] / 1e9:.2f} GB")
+    got = res[0]["step_logits"]
+    err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
+    require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
+            f"{label}: the ranks' logits differ")
+    require(err <= TOL_TP_BF16, f"{label}: first decode logits vs tp = 1 {err:.3e} > {TOL_TP_BF16}")
+    stream = res[0]["generate"][0][0]
+    first = _first_diff(stream, want_b_stream)
+    print(f"parallel {label}: first decode logits vs tp = 1 err {err:.3e} (<= {TOL_TP_BF16}); "
+          f"greedy stream equals tp = 1's: {stream == want_b_stream}"
+          + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
+    _print_ranks(label, res, h, 2)
+    counts[label] = res[0]["launches"]
+
+    # (c) the 4-layer f32 file at sp 2, tp 2 and tp 2 x sp 2 against one rank
+    print(f"== llama-8b q40 f32 parallel (ranks share one card over gloo): {ACCEPT_LAYERS} layers, "
+          f"{SP_PROMPT}-token prompt (chunks of 512 and 32 rows), {SP_DECODE} greedy tokens")
+    for label, results, tp in (("llama-8b q40 f32 sp2", [r[1] for r in world2], 1),
+                               ("llama-8b q40 f32 tp2", [r[2] for r in world2], 2),
+                               ("llama-8b q40 f32 tp2sp2", [r[0] for r in world4], 2)):
+        got = results[0]
+        require(all(np.array_equal(x["step_logits"], got["step_logits"]) for x in results[1:]),
+                f"{label}: the ranks' logits differ")
+        err = float(np.abs(got["step_logits"] - want_logits).max() / np.abs(want_logits).max())
+        stream = got["generate"][0][0]
+        first = _first_diff(stream, want_stream)
+        print(f"parallel {label}: first decode logits vs one rank err {err:.3e} (<= {TOL_TP_F32}); "
+              f"greedy stream equals one rank's: {stream == want_stream}"
+              + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
+        require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
+        require(stream == want_stream, f"{label}: the greedy stream parts from one rank's at "
+                f"token {first}")
+        if "sp" in label:
+            for r, x in enumerate(results):
+                for name in ("flash_attention_stats_strided", "flash_decode_stats"):
+                    require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
+        _print_ranks(label, results, h4, tp)
+        counts[label] = got["launches"]
+    # (d) the q80 sync buffer against the exact f32 all-reduce
+    exact, q80 = world2[0][2]["step_logits"], world2[0][3]["step_logits"]
+    lerr = float(np.abs(q80 - exact).max() / np.abs(exact).max())
+    ar_q80, ar_exact = world2[0][4], world2[0][5]
+    ar_err = float(np.abs(ar_q80 - ar_exact).max() / np.abs(ar_exact).max())
+    print(f"parallel llama-8b q40 f32 tp2 q80: largest relative logit error vs f32 buffers "
+          f"{lerr:.3e}; one [{h.dim}] all-reduce's error {ar_err:.3e} (<= {Q80_BOUND})")
+    require(0 < ar_err < Q80_BOUND, f"q80 all-reduce error {ar_err:.3e} outside (0, {Q80_BOUND})")
+    _print_ranks("llama-8b q40 f32 tp2 q80", [r[3] for r in world2], h4, 2, sync_quant=True)
+
+    # (e) the CLI at --tp 2, its ranks on the one card
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "dllama_tpu_torch", "inference", "--model", ap, "--tokenizer",
+           tok, "--prompt", prompt_text(40), "--steps", "56", "--temperature", "0", "--dtype",
+           "f32", "--weight-format", "q40", "--tp", "2", "--device", dev]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=root)
+    try:
+        out, err_out = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()  # by its own pid; its ranks are daemons of it
+        out, err_out = proc.communicate()
+    pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
+    print(f"parallel cli --tp 2: exit {proc.returncode}, {len(pred)} Pred lines, "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
+              l for l in out.splitlines() if l.startswith(("🔗", "💡 Tp", "🔷️ Eval"))))
+    if pred:
+        print(f"parallel cli --tp 2: {pred[0]}")
+    require(proc.returncode == 0, f"the CLI at --tp 2 failed:\n{err_out[-4000:]}")
+    require("backend gloo" in out and len(pred) == 56 - 41 + 1 and "Prediction" in out,
+            "the CLI at --tp 2: want its backend line naming gloo and rank 0's Pred lines")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4334,7 +4746,9 @@ def main() -> int:
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
             + check_paged_decode(device, gen) + check_verify_stats(device, gen)
             + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen)
-            + check_mixed(device, gen) + check_moe_tiers(device, gen))
+            + check_mixed(device, gen) + check_moe_tiers(device, gen)
+            + check_attention_strided(device, gen) + check_decode_stats(device, gen)
+            + check_q40_tp(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -4352,6 +4766,10 @@ def main() -> int:
         if "composite_ms" in r and r["name"].endswith("_mixed"):
             note += (f" (no single PyTorch call attends over a cache of another type); cast + "
                      f"SDPA, two calls, {r['composite_ms']:.4f}")
+        elif r["name"] in ("flash_attention_stats_strided", "flash_decode_stats"):
+            note += (" (no single PyTorch call attends over a strided shard"
+                     + (")" if r["name"].endswith("strided") else
+                        " or returns the unnormalized state)"))
         elif "composite_ms" in r:
             note += (f" (no single PyTorch call attends over int8 K/V); dequantize + SDPA, two "
                      f"calls, {r['composite_ms']:.4f}")
@@ -4372,16 +4790,25 @@ def main() -> int:
     from dllama_tpu_torch.models.synthetic import PRESETS
 
     counts, streams, tok_s, depths = {}, {}, {}, {}
+    # qwen3-30b-a3b's whole-depth file, written by a child while the card
+    # runs the llama-8b paths (stopped at exit if a phase fails first)
+    moe_tmp = tempfile.TemporaryDirectory()
+    writer = start_prewrite(moe_tmp.name, "qwen3-30b-a3b", MOE_LAYERS, 4096, SEED)
+    atexit.register(lambda: writer[0].poll() is None and writer[0].kill())
     for model, preset, n_layers, formats in MODELS:
         depth = PRESETS[preset]["n_layers"]
         if n_layers < depth:
             why = ("bf16 experts are 1.26 GB a layer: the whole model would not fit the "
-                   "card; q40i8 for the smoke's time" if model == "qwen3-30b-a3b" else
+                   "card; q40i8 for the smoke's time" if n_layers == MOE_DENSE_LAYERS
+                   and model == "qwen3-30b-a3b" else
                    "the smoke's time: the same kernels at the same widths, each layer a "
                    "repeat of the first")
             print(f"{model} {', '.join(formats)}: depth cut to {n_layers} of {depth} layers "
                   f"({why})")
-        with tempfile.TemporaryDirectory() as tmp:
+        ahead = model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS
+        with moe_tmp if ahead else tempfile.TemporaryDirectory() as tmp:
+            if ahead:
+                finish_prewrite(writer, f"{model} {n_layers} layers")
             for spec in formats:
                 weight_format, _, kv_dtype = spec.partition(" kv-")
                 label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
@@ -4413,6 +4840,11 @@ def main() -> int:
                 t0 = time.perf_counter()
                 counts.update(serving_fleet(tmp, smi))
                 print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
+                gc.collect()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                counts.update(parallel_round(tmp, smi))
+                print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
             if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
                 t0 = time.perf_counter()
                 counts.update(moe_dedup(tmp, smi))
@@ -4575,7 +5007,7 @@ DEDUP_STEPS = 32  # decode steps of each 4-lane run of the dedup phase
 
 def moe_dedup(tmp: str, smi: str) -> dict:
     """The two-tier MoE decode (``moe_decode_dedup``) on qwen3-30b-a3b q40
-    (the 48-layer file in tmp), 4 slab lanes, `DEDUP_STEPS` greedy steps
+    (the `MOE_LAYERS`-layer file in tmp), 4 slab lanes, `DEDUP_STEPS` greedy steps
     after each lane's prefill: with dedup on, four identical prompts take
     the grouped tier at every layer-step of the decode (the device tally,
     read after the run, gated) and four distinct prompts print the tally's

@@ -5,6 +5,8 @@
         [--weight-format auto|q40|q40i8|q40i4|dense] [--kv-dtype int8]
     python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
     python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
+    python -m dllama_tpu_torch inference ... --tp 2 [--sp 2] [--device cuda|cuda:N|cpu]
+    torchrun --nproc-per-node 2 -m dllama_tpu_torch inference ... --tp 2
     (each also takes --trace-out PATH, --timeline-out PATH, --postmortem-dir DIR,
     --nbatches N (prefill buckets 1, N and 512), --moe-decode-dedup auto|on|off;
     inference --profile DIR; --nthreads and --net-turbo are accepted and
@@ -18,12 +20,27 @@ runs the plain PyTorch versions of the kernels. `add_engine_args`,
 `load_engine` prints the engine's memory report and the decode roofline
 (obs/cost.py) and compares the memory with the card's allocator
 (obs/device.py), as the JAX CLI does.
+
+Tensor and sequence parallelism (``--tp``, 0 = as many ranks as the host's
+cards and the model allow; ``--sp``; ``--workers N`` an alias of ``--tp``):
+``tp * sp`` ranks, each an engine on its slices (runtime/engine.py). Under
+torchrun each process is a rank (parallel/mesh.py reads its environment);
+without it the CLI starts its ranks itself (parallel/launch.py) and rank 0
+alone prints. ``--device cuda`` puts rank r on ``cuda:r``, ``cuda:N`` every
+rank on card N (the ranks then share it over gloo), ``cpu`` on the CPU.
+``--buffer-float-type q80`` (the default) compresses the tp all-reduces only
+when the ranks span hosts, as the JAX CLI applies it only across processes.
+``inference`` and ``perplexity`` print the JAX CLI's lines at the same tp and
+sp (Sent/Recv: `utils.telemetry.ici_traffic_per_token`; Sync: the host ms of
+the step's collectives); ``chat``, ``--pp`` and ``--dp`` above 1 wait for
+ROADMAP A.14's next slice.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
@@ -64,7 +81,25 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=int(time.time()))
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (rank r of a tp x sp run on cuda:r), cuda:N (every rank on card "
+                   "N), or cpu")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel ranks (default 0: as many as the host's cards and the "
+                   "model allow; 1 on the CPU)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks: the KV cache's sequence axis shards over them "
+                   "(ring prefill, merged-stats decode); ranks = tp x sp")
+    p.add_argument("--workers", nargs="*", default=None,
+                   help="alias for --tp: a rank count (host:port lists are a LAN-cluster "
+                   "concept)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages: 1 (more waits for "
+                   "ROADMAP A.14's next slice)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel lane shards: 1 (more waits "
+                   "for ROADMAP A.14's next slice)")
+    p.add_argument("--buffer-float-type", default="q80", choices=["q80", "f32"],
+                   help="the tp all-reduce payload: q80 (int8 + a scale a 32-block) when the "
+                   "ranks span hosts, exact f32 within one host")
     p.add_argument("--batch-size", type=int, default=1, dest="batch_size",
                    help="lanes: concurrent streams decoded together (the server's default 1 "
                    "serves one request at a time, with its NaiveCache)")
@@ -148,12 +183,60 @@ def _refuse_gpu_flags(args) -> None:
                              "--device (and CUDA_VISIBLE_DEVICES)")
 
 
-def load_engine(args):
+def resolve_mesh_shape(args, serving: bool = False) -> tuple[int, int]:
+    """(tp, sp) from ``--tp``/``--workers``/``--sp`` (tp 0: `auto_tp` over the
+    host's cards, 1 without one, and 1 for the server); ``--pp`` and
+    ``--dp`` above 1 raise, and so does a server of more than one rank."""
+    for flag in ("pp", "dp"):
+        if getattr(args, flag, 1) > 1:
+            raise SystemExit(f"--{flag} > 1 is not ported yet (ROADMAP A.14's next slice)")
+    tp = getattr(args, "tp", 0) or 0
+    workers = getattr(args, "workers", None)
+    if not tp and workers:
+        if len(workers) == 1 and workers[0].isdigit():
+            tp = int(workers[0])
+        else:
+            print(f"⚠️  --workers host:port lists are a LAN-cluster concept; using "
+                  f"tp={len(workers)} ranks instead")
+            tp = len(workers)
+    sp = getattr(args, "sp", 1) or 1
+    if serving:
+        if tp * sp > 1:
+            raise SystemExit("the server under --tp/--sp waits for ROADMAP A.14's next slice")
+        return 1, 1
+    if not tp:
+        from .parallel.mesh import auto_tp
+
+        # the JAX CLI's rule: the cards left for tp once sp has taken its share
+        cards = max(torch.cuda.device_count(), 1) // sp
+        tp = 1 if str(args.device) == "cpu" else auto_tp(args.model, max(cards, 1))
+    return tp, sp
+
+
+def _rank_mesh(args, tp: int, sp: int):
+    """This process's Mesh under world > 1: a rank that parallel/launch.py
+    started (its process group is up), or a torchrun process."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_distributed, make_mesh
+
+    if dist.is_initialized():
+        return make_mesh(tp, sp, torch.device(args.device), dist.get_backend())
+    return init_distributed(tp, sp, args.device)
+
+
+def load_engine(args, serving: bool = False):
+    """The engine and tokenizer of ``args`` (the server passes ``serving``:
+    one rank, whatever the host's cards)."""
     from .runtime.engine import InferenceEngine
     from .tokenizer import Tokenizer
 
     _refuse_gpu_flags(args)
     tok = Tokenizer(args.tokenizer)
+    tp, sp = resolve_mesh_shape(args, serving)
+    mesh = _rank_mesh(args, tp, sp) if tp * sp > 1 else None
+    from .parallel.mesh import spans_hosts
+
     engine = InferenceEngine(
         args.model,
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
@@ -162,11 +245,14 @@ def load_engine(args):
         topp=args.topp,
         seed=args.seed,
         weight_format=args.weight_format,
-        device=args.device,
         batch_size=args.batch_size,
         kv_dtype=args.kv_dtype,
         prefill_buckets=tuple(sorted({1, args.nbatches, 512})),
         moe_decode_dedup={"on": True, "off": False}.get(args.moe_decode_dedup, "auto"),
+        tp=tp, sp=sp, mesh=mesh,
+        device=mesh.device if mesh is not None else args.device,
+        buffer_float_type=(getattr(args, "buffer_float_type", "f32") if spans_hosts()
+                           else "f32"),
     )
     h = engine.header
     print(f"💡 Arch: {h.arch.name}")
@@ -183,6 +269,10 @@ def load_engine(args):
     print(f"💡 SeqLen: {h.seq_len}")
     if engine.batch_size > 1:
         print(f"💡 Lanes: {engine.batch_size}")
+    if mesh is not None:
+        print(f"💡 Tp: {tp} rank(s) [{mesh.backend}]")
+        if sp > 1:
+            print(f"💡 Sp: {sp} sequence shards")
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")
@@ -201,9 +291,15 @@ def load_engine(args):
     from .obs.recorder import get_recorder
 
     mem = memory_report(engine)
-    mem.print()
+    if mesh is not None:  # the JAX CLI's report, from this rank's slices
+        from .utils.telemetry import memory_report as mesh_memory_report
+
+        mesh_memory_report(engine.params, engine.cache, tp, sp).print()
+    else:
+        mem.print()
     # the analytic decode floor beside the memory report: what "as fast as
-    # the card allows" means in ms/token for this model and format
+    # the card allows" means in ms/token for this model and format (a rank's
+    # params are its slices: the bytes a rank reads)
     print_roofline_report(h, engine.weight_format, i8_group=engine.i8_group or 512,
                           params=engine.params, dtype_bytes=engine.dtype.itemsize, device=dev)
     # the card's allocator against the analytic figure: a gap past 10% logs
@@ -226,6 +322,8 @@ def run_inference(args) -> dict:
     tokens = tok.encode(args.prompt, is_start=True, add_special_tokens=True)
     if len(tokens) > engine.header.seq_len:
         raise SystemExit("The number of prompt tokens is greater than the sequence length")
+    if engine.world > 1:
+        return _run_inference_ranks(args, engine, tok, tokens, load_s)
     from .obs.spans import get_span_tracker
     from .obs.trace import NULL_SPAN, Tracer
 
@@ -284,6 +382,57 @@ def run_inference(args) -> dict:
         "eval": eval_stats,
         "pred": pred_stats,
     }
+
+
+def _run_inference_ranks(args, engine, tok, tokens: list[int], load_s: float) -> dict:
+    """`run_inference` on a rank of a tp x sp run, printed as the JAX CLI
+    prints a multi-chip run: the prefill's Eval line and one Pred line a
+    decoded token (decode_step), each with its Sync ms (the host ms of the
+    step's collectives, parallel/collectives.STATS) and Sent/Recv kB (the
+    analytic traffic, `utils.telemetry.ici_traffic_per_token`)."""
+    from .parallel.collectives import STATS
+    from .utils.telemetry import ici_traffic_per_token as ici
+
+    act_bytes = 1.125 if engine.sync_quant else 4.0
+    per_tok = ici(engine.header, engine.tp, activation_bytes=act_bytes, include_logits=False)
+    logits_bytes = ici(engine.header, engine.tp, activation_bytes=act_bytes) - per_tok
+    print(args.prompt)
+    STATS.reset()
+    eval_stats = engine.prefill(tokens)
+    eval_kb = (per_tok * max(eval_stats.n_tokens, 1) + logits_bytes) // 1024
+    print(f"🔷️ Eval{eval_stats.time_ms:5.0f} ms Sync{STATS.seconds * 1000:5.1f} ms | "
+          f"Sent{eval_kb:6d} kB Recv{eval_kb:6d} kB | ({eval_stats.n_tokens} tokens)")
+    tok.reset_decoder()
+    pos = len(tokens) - 1
+    token = tokens[-1]
+    max_pos = min(engine.header.seq_len, args.steps)
+    pred_ms, out = 0.0, []
+    step_kb = (per_tok + logits_bytes) // 1024
+    while pos < max_pos:
+        STATS.reset()
+        token, stats = engine.decode_step(token, pos)
+        pos += 1
+        pred_ms += stats.time_ms
+        out.append(token)
+        piece = tok.decode(token)
+        print(f"🔶 Pred{stats.time_ms:5.0f} ms Sync{STATS.seconds * 1000:5.1f} ms | "
+              f"Sent{step_kb:6d} kB Recv{step_kb:6d} kB | "
+              f"{piece if piece is not None else chr(126)}")
+        sys.stdout.flush()
+    n_eval = max(len(tokens) - 1, 1)
+    print()
+    print("Evaluation")
+    print(f"   nBatches: {args.nbatches}")
+    print(f"    nTokens: {n_eval}")
+    print(f"   tokens/s: {n_eval * 1000 / max(eval_stats.time_ms, 1e-9):3.2f} "
+          f"({eval_stats.time_ms / n_eval:3.2f} ms/tok)")
+    print("Prediction")
+    print(f"    nTokens: {len(out)}")
+    if out:
+        print(f"   tokens/s: {len(out) * 1000 / max(pred_ms, 1e-9):3.2f} "
+              f"({pred_ms / len(out):3.2f} ms/tok)")
+    return {"engine": engine, "prompt_tokens": tokens, "tokens": out, "load_s": load_s,
+            "eval": eval_stats}
 
 
 @contextlib.contextmanager
@@ -385,16 +534,50 @@ def run_perplexity(args) -> None:
     print(f" perplexity: {ppl:.4f}")
 
 
+def _spawn_ranks(argv: list[str], args, tp: int, sp: int):
+    """Start the tp x sp ranks of this command (parallel/launch.py) and
+    return rank 0's summary; rank 0 prints."""
+    from .parallel.launch import cli_target, spawn
+    from .parallel.mesh import pick_backend
+
+    world = tp * sp
+    backend = pick_backend(args.device, world)
+    print(f"🔗 Ranks: {world} (tp={tp} x sp={sp}), backend {backend}, device {args.device}",
+          flush=True)
+    return spawn(cli_target, world, args.device, backend, args=(list(argv),),
+                 timeout_s=24 * 3600.0)[0]
+
+
 def main(argv=None):
     # the worker mode explains itself before the other flags are required
     mode = argparse.ArgumentParser(add_help=False)
     mode.add_argument("mode", nargs="?")
     if mode.parse_known_args(argv)[0].mode == "worker":
         raise SystemExit(
-            "worker mode is a LAN-cluster concept of the reference: the port runs one program "
-            "on one card (the JAX package's SPMD launch, one identical program a chip, is "
-            "not ported) — run the root command instead")
+            "worker mode is a LAN-cluster concept of the reference: as in the JAX package's "
+            "SPMD launch, one identical program runs on every rank (the command starts its "
+            "ranks, or torchrun does) — run the root command with --tp N instead")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _build_parser().parse_args(argv)
+    tp, sp = resolve_mesh_shape(args)
+    if tp * sp > 1:
+        import torch.distributed as dist
+
+        from .parallel.mesh import torchrun_env
+
+        if args.mode == "chat":
+            raise SystemExit("chat under --tp/--sp waits for the serving slice (ROADMAP A.14's "
+                             "next slice); use inference or perplexity")
+        if not dist.is_initialized() and not torchrun_env():
+            return _spawn_ranks(argv, args, tp, sp)
+        rank = dist.get_rank() if dist.is_initialized() else int(os.environ["RANK"])
+        if rank != 0:  # rank 0 alone prints
+            with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+                return _run_mode(args)
+    return _run_mode(args)
+
+
+def _run_mode(args):
     if args.mode == "inference":
         return run_inference(args)
     if args.mode == "chat":

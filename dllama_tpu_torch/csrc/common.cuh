@@ -16,6 +16,13 @@ enum TypeCode { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_F16 = 2 };
 constexpr float NEG_INF = -1e30f;  // the JAX package's masked-score value
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// floor(a / b) for b > 0 and any sign of a (C++ division truncates): the
+// last key row a query sees on a strided shard, negative when the shard
+// starts past it
+__host__ __device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }

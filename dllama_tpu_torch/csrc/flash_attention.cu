@@ -86,6 +86,17 @@
 // f16 and bf16, 4 for f32. What holds it above the bound is the CUDA-core
 // body's f32 FMA rate (PERF.md); making the mixed pairs fast is later work.
 
+//
+// Sequence parallelism (C entry `flash_attention_stats_strided`, the TPU
+// kernel's s_stride): the keys are a cyclic shard whose row j sits at
+// position s_pos0 + j * s_stride. Both bodies take the stride as a runtime
+// argument, read only by their instantiations with the template flag SP
+// (the other entries compile without it, their code unchanged): the mask
+// compares s_pos0 + key * s_stride with the query's position, and the
+// frontier, the last visible row floor((p - s_pos0) / s_stride), bounds the
+// key tiles read, so a shard in the block's future reads nothing. Dense
+// caches only (q and the cache in their own types, as the `_mx` entries).
+
 #include <type_traits>
 
 #include "wgmma.cuh"
@@ -101,11 +112,11 @@ constexpr int WARPS = 4;
 constexpr int BT = ROWS * WARPS;      // query rows per block
 constexpr int BS = 32;                // keys per tile (also the page contract's unit)
 
-template <typename T, typename KV, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED, bool SP>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_stats_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                   const int* __restrict__ q_pos0, int s_pos0, const int* __restrict__ pt,
+                   const int* __restrict__ q_pos0, int s_pos0, int s_stride, const int* __restrict__ pt,
                    int n_blocks, int ps, float* __restrict__ acc_out,
                    float* __restrict__ m_out, float* __restrict__ l_out, int n_t, int n_h,
                    int n_kh, int n_s, float scale) {
@@ -125,9 +136,11 @@ flash_stats_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* 
     Qs[r][c] = t < n_t ? to_float(q[((size_t)(b * n_t + t) * n_h + h) * HD + c]) : 0.f;
   }
 
-  // causal frontier of the tile's last real row, in local key rows
+  // causal frontier of the tile's last real row, in local key rows (key row
+  // j sits at position s_pos0 + j * s_stride)
   const int last_pos = pos0 + min(BT, n_t - t0) - 1;
-  const int n_keys = max(0, min(n_s, last_pos - s_pos0 + 1));
+  const int n_keys =
+      max(0, min(n_s, (SP ? floor_div(last_pos - s_pos0, s_stride) : last_pos - s_pos0) + 1));
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;  // the int8 KV cache
   const KV* kb = k;
   const KV* vb = v;
@@ -201,7 +214,7 @@ flash_stats_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* 
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int qpos = pos0 + warp * ROWS + r;
-      const bool visible = key < n_s && s_pos0 + key <= qpos;
+      const bool visible = key < n_s && s_pos0 + (SP ? key * s_stride : key) <= qpos;
       float alpha;
       p[r] = online_softmax(visible ? s[r] * scale : NEG_INF, m[r], l[r], alpha);
 #pragma unroll
@@ -267,12 +280,12 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)
   }
 }
 
-template <typename KV, int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED, bool SP>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                       const KV* __restrict__ v, const float* __restrict__ k_scale,
                       const float* __restrict__ v_scale, const int* __restrict__ q_pos0,
-                      int s_pos0, const int* __restrict__ pt, int n_blocks, int ps,
+                      int s_pos0, int s_stride, const int* __restrict__ pt, int n_blocks, int ps,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int n_t, int n_h, int n_kh, int n_s,
                       float scale) {
@@ -317,7 +330,8 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict_
 
   // causal frontier of the block's last real row, in local key rows
   const int last_pos = q_pos0[b] + t0 + min(block_rows, n_t - t0) - 1;
-  const int n_keys = max(0, min(n_s, last_pos - s_pos0 + 1));
+  const int n_keys =
+      max(0, min(n_s, (SP ? floor_div(last_pos - s_pos0, s_stride) : last_pos - s_pos0) + 1));
   const int n_tiles = (n_keys + TC_BN - 1) / TC_BN;
   const KV* kb = k;
   const KV* vb = v;
@@ -443,7 +457,7 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict_
       const int h = (i >> 1) & 1, key = key0 + 8 * (i >> 2) + (i & 1);
       float x = s[i];
       if constexpr (Q8) x *= k_sc[key - j * TC_BN];  // K's row scale on its score column
-      s[i] = key < n_s && s_pos0 + key <= qpos[h] ? x * scale : NEG_INF;
+      s[i] = key < n_s && s_pos0 + (SP ? key * s_stride : key) <= qpos[h] ? x * scale : NEG_INF;
       mx[h] = fmaxf(mx[h], s[i]);
     }
 #pragma unroll
@@ -519,55 +533,57 @@ flash_stats_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict_
   }
 }
 
-template <typename KV, int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED, bool SP>
 void launch_tc(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
-               const float* vsc, const int* q_pos0, int s_pos0, const int* pt, int n_blocks,
+               const float* vsc, const int* q_pos0, int s_pos0, int s_stride, const int* pt, int n_blocks,
                int ps, float* acc, float* m, float* l, int n_b, int n_t, int n_h, int n_kh,
                int n_s, float scale, cudaStream_t s) {
   constexpr int smem = tc_smem_bytes<KV, HD>();
-  cudaFuncSetAttribute(flash_stats_tc_kernel<KV, HD, PAGED>,
+  cudaFuncSetAttribute(flash_stats_tc_kernel<KV, HD, PAGED, SP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int rows = 64 / (n_h / n_kh) * TC_WG;  // query rows a block
   const dim3 grid(n_kh, n_b, (n_t + rows - 1) / rows);
-  flash_stats_tc_kernel<KV, HD, PAGED><<<grid, TC_THREADS, smem, s>>>(
-      q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
+  flash_stats_tc_kernel<KV, HD, PAGED, SP><<<grid, TC_THREADS, smem, s>>>(
+      q, k, v, ksc, vsc, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
       scale);
 }
 
 // bf16 q over a bf16 or int8 cache: the tensor-core body; every other pair
 // of types (f32 q, or a cache type other than q's): the CUDA-core body,
 // which reads q and K/V each in its own type and computes in f32
-template <typename T, typename KV, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED, bool SP>
 void launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
-               const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
+               const int* q_pos0, int s_pos0, int s_stride, const int* pt, int n_blocks, int ps, float* acc,
                float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, float scale,
                cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value &&
                 (std::is_same<KV, __nv_bfloat16>::value || std::is_same<KV, int8_t>::value)) {
-    launch_tc<KV, HD, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_b,
+    launch_tc<KV, HD, PAGED, SP>(q, k, v, ksc, vsc, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m, l, n_b,
                              n_t, n_h, n_kh, n_s, scale, s);
   } else {
     const dim3 grid((n_t + BT - 1) / BT, n_h, n_b);
-    flash_stats_kernel<T, KV, HD, PAGED><<<grid, WARPS * 32, 0, s>>>(
-        q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
+    flash_stats_kernel<T, KV, HD, PAGED, SP><<<grid, WARPS * 32, 0, s>>>(
+        q, k, v, ksc, vsc, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m, l, n_t, n_h, n_kh, n_s,
         scale);
   }
 }
 
-template <typename T, typename KV, bool PAGED>
+template <typename T, typename KV, bool PAGED, bool SP = false>
 int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
-           const int* q_pos0, int s_pos0, const int* pt, int n_blocks, int ps, float* acc,
+           const int* q_pos0, int s_pos0, int s_stride, const int* pt, int n_blocks, int ps, float* acc,
            float* m, float* l, int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
            cudaStream_t s) {
-  if (n_h % n_kh != 0 || n_h / n_kh > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_h % n_kh != 0 || n_h / n_kh > 32 || s_stride < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (PAGED && (ps < 1 || (ps < BS ? BS % ps : ps % BS))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd == 128) {
-    launch_hd<T, KV, 128, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m,
+    launch_hd<T, KV, 128, PAGED, SP>(q, k, v, ksc, vsc, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m,
                                  l, n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else if (hd == 64) {
-    launch_hd<T, KV, 64, PAGED>(q, k, v, ksc, vsc, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+    launch_hd<T, KV, 64, PAGED, SP>(q, k, v, ksc, vsc, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m, l,
                                 n_b, n_t, n_h, n_kh, n_s, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -579,7 +595,7 @@ int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* 
 // (the cache's shape with a last dim of 1); else k and v are in q's type
 template <bool PAGED, bool Q8>
 int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
-             const void* q_pos0, int s_pos0, const void* pt, int n_blocks, int ps, void* acc,
+             const void* q_pos0, int s_pos0, int s_stride, const void* pt, int n_blocks, int ps, void* acc,
              void* m, void* l, int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
              int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -594,45 +610,45 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
     using B = __nv_bfloat16;
     using KV = typename std::conditional<Q8, int8_t, B>::type;
     return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
-                                static_cast<const KV*>(v), ks, vs, pos, s_pos0, t, n_blocks, ps,
+                                static_cast<const KV*>(v), ks, vs, pos, s_pos0, s_stride, t, n_blocks, ps,
                                 a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
   }
   using KV = typename std::conditional<Q8, int8_t, float>::type;
   return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
-                                  static_cast<const KV*>(v), ks, vs, pos, s_pos0, t, n_blocks,
+                                  static_cast<const KV*>(v), ks, vs, pos, s_pos0, s_stride, t, n_blocks,
                                   ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
 }
 
 // The mixed-type entries: q in q_type (TYPE_F32 or TYPE_BF16), k and v in
 // kv_type (TYPE_F32, TYPE_BF16 or TYPE_F16), each read in its own type
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, bool SP>
 int dispatch_kv(const T* q, const void* k, const void* v, int kv_type, const int* q_pos0,
-                int s_pos0, const int* pt, int n_blocks, int ps, float* acc, float* m, float* l,
+                int s_pos0, int s_stride, const int* pt, int n_blocks, int ps, float* acc, float* m, float* l,
                 int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
                 cudaStream_t s) {
   switch (kv_type) {
     case TYPE_F32:
-      return launch<T, float, PAGED>(q, static_cast<const float*>(k),
+      return launch<T, float, PAGED, SP>(q, static_cast<const float*>(k),
                                      static_cast<const float*>(v), nullptr, nullptr, q_pos0,
-                                     s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
+                                     s_pos0, s_stride, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
                                      n_s, hd, scale, s);
     case TYPE_BF16:
-      return launch<T, __nv_bfloat16, PAGED>(q, static_cast<const __nv_bfloat16*>(k),
+      return launch<T, __nv_bfloat16, PAGED, SP>(q, static_cast<const __nv_bfloat16*>(k),
                                              static_cast<const __nv_bfloat16*>(v), nullptr,
-                                             nullptr, q_pos0, s_pos0, pt, n_blocks, ps, acc, m, l,
+                                             nullptr, q_pos0, s_pos0, s_stride, pt, n_blocks, ps, acc, m, l,
                                              n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
     case TYPE_F16:
-      return launch<T, __half, PAGED>(q, static_cast<const __half*>(k),
+      return launch<T, __half, PAGED, SP>(q, static_cast<const __half*>(k),
                                       static_cast<const __half*>(v), nullptr, nullptr, q_pos0,
-                                      s_pos0, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
+                                      s_pos0, s_stride, pt, n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh,
                                       n_s, hd, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool PAGED>
-int dispatch_mixed(const void* q, const void* k, const void* v, const void* q_pos0, int s_pos0,
+template <bool PAGED, bool SP = false>
+int dispatch_mixed(const void* q, const void* k, const void* v, const void* q_pos0, int s_pos0, int s_stride,
                    const void* pt, int n_blocks, int ps, void* acc, void* m, void* l, int n_b,
                    int n_t, int n_h, int n_kh, int n_s, int hd, float scale, int q_type,
                    int kv_type, void* stream) {
@@ -643,11 +659,11 @@ int dispatch_mixed(const void* q, const void* k, const void* v, const void* q_po
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
   if (q_type == TYPE_BF16)
-    return dispatch_kv<__nv_bfloat16, PAGED>(static_cast<const __nv_bfloat16*>(q), k, v, kv_type,
-                                             pos, s_pos0, t, n_blocks, ps, a, mm, ll, n_b, n_t,
+    return dispatch_kv<__nv_bfloat16, PAGED, SP>(static_cast<const __nv_bfloat16*>(q), k, v, kv_type,
+                                             pos, s_pos0, s_stride, t, n_blocks, ps, a, mm, ll, n_b, n_t,
                                              n_h, n_kh, n_s, hd, scale, s);
   if (q_type == TYPE_F32)
-    return dispatch_kv<float, PAGED>(static_cast<const float*>(q), k, v, kv_type, pos, s_pos0, t,
+    return dispatch_kv<float, PAGED, SP>(static_cast<const float*>(q), k, v, kv_type, pos, s_pos0, s_stride, t,
                                      n_blocks, ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale,
                                      s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -662,7 +678,7 @@ extern "C" int flash_attention_stats(const void* q, const void* k, const void* v
                                      const void* q_pos0, int s_pos0, void* acc, void* m,
                                      void* l, int n_b, int n_t, int n_h, int n_kh, int n_s,
                                      int hd, float scale, int bf16, void* stream) {
-  return dispatch<false, false>(q, k, v, nullptr, nullptr, q_pos0, s_pos0, nullptr, 0, 0, acc, m,
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, q_pos0, s_pos0, 1, nullptr, 0, 0, acc, m,
                                 l, n_b, n_t, n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
@@ -674,7 +690,7 @@ extern "C" int flash_attention_stats_paged(const void* q, const void* k_pages,
                                            const void* q_pos0, void* acc, void* m, void* l,
                                            int n_b, int n_t, int n_h, int n_kh, int n_blocks,
                                            int ps, int hd, float scale, int bf16, void* stream) {
-  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, q_pos0, 0, page_table,
+  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, q_pos0, 0, 1, page_table,
                                n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh, n_blocks * ps, hd,
                                scale, bf16, stream);
 }
@@ -686,7 +702,7 @@ extern "C" int flash_attention_stats_q8(const void* q, const void* k, const void
                                         int s_pos0, void* acc, void* m, void* l, int n_b,
                                         int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
                                         int bf16, void* stream) {
-  return dispatch<false, true>(q, k, v, k_scale, v_scale, q_pos0, s_pos0, nullptr, 0, 0, acc, m,
+  return dispatch<false, true>(q, k, v, k_scale, v_scale, q_pos0, s_pos0, 1, nullptr, 0, 0, acc, m,
                                l, n_b, n_t, n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
@@ -699,7 +715,7 @@ extern "C" int flash_attention_stats_paged_q8(const void* q, const void* k_pages
                                               int n_b, int n_t, int n_h, int n_kh, int n_blocks,
                                               int ps, int hd, float scale, int bf16,
                                               void* stream) {
-  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, q_pos0, 0, page_table,
+  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, q_pos0, 0, 1, page_table,
                               n_blocks, ps, acc, m, l, n_b, n_t, n_h, n_kh, n_blocks * ps, hd,
                               scale, bf16, stream);
 }
@@ -713,7 +729,7 @@ extern "C" int flash_attention_stats_mx(const void* q, const void* k, const void
                                         void* l, int n_b, int n_t, int n_h, int n_kh, int n_s,
                                         int hd, float scale, int q_type, int kv_type,
                                         void* stream) {
-  return dispatch_mixed<false>(q, k, v, q_pos0, s_pos0, nullptr, 0, 0, acc, m, l, n_b, n_t, n_h,
+  return dispatch_mixed<false>(q, k, v, q_pos0, s_pos0, 1, nullptr, 0, 0, acc, m, l, n_b, n_t, n_h,
                                n_kh, n_s, hd, scale, q_type, kv_type, stream);
 }
 
@@ -724,7 +740,22 @@ extern "C" int flash_attention_stats_paged_mx(const void* q, const void* k_pages
                                               int n_b, int n_t, int n_h, int n_kh, int n_blocks,
                                               int ps, int hd, float scale, int q_type,
                                               int kv_type, void* stream) {
-  return dispatch_mixed<true>(q, k_pages, v_pages, q_pos0, 0, page_table, n_blocks, ps, acc, m, l,
+  return dispatch_mixed<true>(q, k_pages, v_pages, q_pos0, 0, 1, page_table, n_blocks, ps, acc, m, l,
                               n_b, n_t, n_h, n_kh, n_blocks * ps, hd, scale, q_type, kv_type,
                               stream);
+}
+
+// flash_attention_stats over a strided sequence shard: key row j sits at
+// position s_pos0 + j * s_stride (the cyclic layout of sequence
+// parallelism, where shard i of sp holds positions i, i + sp, ...), q and
+// the cache in their own float types as in flash_attention_stats_mx. The
+// causal mask, the frontier (the last visible row (p - s_pos0) / s_stride)
+// and the skip of key tiles past it follow the stride.
+extern "C" int flash_attention_stats_strided(const void* q, const void* k, const void* v,
+                                             const void* q_pos0, int s_pos0, int s_stride,
+                                             void* acc, void* m, void* l, int n_b, int n_t,
+                                             int n_h, int n_kh, int n_s, int hd, float scale,
+                                             int q_type, int kv_type, void* stream) {
+  return dispatch_mixed<false, true>(q, k, v, q_pos0, s_pos0, s_stride, nullptr, 0, 0, acc, m, l, n_b,
+                               n_t, n_h, n_kh, n_s, hd, scale, q_type, kv_type, stream);
 }

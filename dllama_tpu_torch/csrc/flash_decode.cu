@@ -86,6 +86,17 @@
 // ring holding the rows in the cache's type (f16 rows convert 8 values a
 // chunk), q staged in f32 from its own type and the output written in q's.
 
+//
+// Sequence parallelism (C entry `flash_decode_stats`, the TPU kernel's
+// emit_stats): over one cyclic shard whose row j sits at position s_pos0 +
+// j * s_stride, the same bodies, instantiated with the template flag SP,
+// stop short of the division: rank 0 of the
+// cluster writes the merged unnormalized acc and the row max m and
+// denominator l (`Stats`) in attention_stats' layout, which the ranks merge
+// by log-sum-exp. The highest visible row is floor((pos - s_pos0) /
+// s_stride); a shard wholly in the query's future reads no row and writes
+// m = -1e30, l = 0, acc = 0.
+
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -96,6 +107,17 @@ using namespace dllama;
 namespace cg = cooperative_groups;
 
 namespace {
+
+// The unnormalized state of a stats launch (C entry `flash_decode_stats`):
+// acc f32 [B, H, hd] and m, l f32 [B, H], the attention_stats contract at
+// T = 1. Read only by the instantiations with the template flag SP set
+// (a stats launch over a strided shard); the normalized entries compile
+// without it and with a stride of 1
+struct Stats {
+  float* acc = nullptr;
+  float* m = nullptr;
+  float* l = nullptr;
+};
 
 constexpr int BS = 32;  // keys per tile
 constexpr int CLUSTER = 8;  // blocks a (KV head, lane): the portable cluster size
@@ -217,10 +239,10 @@ __device__ __forceinline__ void load_tile(uint8_t* st, const KV* kb, const KV* v
 // loads issued before any is used; a block with no rows takes part with
 // weight 0), normalizes and writes the G heads at ob. Warp w merges heads w,
 // w + n_warps, ...
-template <typename T, int HD>
+template <typename T, int HD, bool SP>
 __device__ __forceinline__ void merge_store(const float* Ms, const float* Ls, const float* As,
-                                            int n_split, int g_n, float* R, T* ob,
-                                            cg::cluster_group& cluster) {
+                                            int n_split, int g_n, float* R, T* ob, Stats stats,
+                                            size_t row0, cg::cluster_group& cluster) {
   constexpr int DPL = HD / 32, STATE = HD + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
   __syncthreads();
@@ -265,6 +287,15 @@ __device__ __forceinline__ void merge_store(const float* Ms, const float* Ls, co
 #pragma unroll
         for (int i = 0; i < DPL; ++i) o[i] += w * pr[rr][2 + lane * DPL + i];
       }
+      if constexpr (SP) {  // the merged state, not divided: row row0 + g
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) stats.acc[(row0 + g) * HD + lane * DPL + i] = o[i];
+        if (lane == 0) {
+          stats.m[row0 + g] = m_all;
+          stats.l[row0 + g] = l_all;
+        }
+        continue;
+      }
       const float l_safe = l_all == 0.f ? 1.f : l_all;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) ob[g * HD + lane * DPL + i] = from_float<T>(o[i] / l_safe);
@@ -275,11 +306,11 @@ __device__ __forceinline__ void merge_store(const float* Ms, const float* Ls, co
 
 // ---- the CUDA-core body: f32 inputs, and bf16 with more than 16 heads a KV head ----
 
-template <typename T, typename KV, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED, bool SP>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(1024)
 flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                    const int* __restrict__ pos, int s_pos0, const int* __restrict__ pt,
+                    const int* __restrict__ pos, int s_pos0, int s_stride, Stats stats, const int* __restrict__ pt,
                     int n_blocks, int ps, T* __restrict__ out, int n_h, int n_kh, int n_s,
                     float scale, int n_split) {
   using TL = Tile<KV, HD>;
@@ -299,7 +330,8 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   const T* qb = q + ((size_t)b * n_h + kh * g_n) * HD;
   for (int e = threadIdx.x; e < g_n * HD; e += blockDim.x) Qs[e] = to_float(qb[e]);
 
-  const int limit = pos[b] - s_pos0;  // highest visible local row
+  // highest visible local row (a strided shard only in a stats launch)
+  const int limit = SP ? floor_div(pos[b] - s_pos0, s_stride) : pos[b] - s_pos0;
   const int n_keys = max(0, min(n_s, limit + 1));
   const int n_tiles = (n_keys + BS - 1) / BS;
   const int lo = rank * n_tiles / CLUSTER, hi = (rank + 1) * n_tiles / CLUSTER;  // its tiles
@@ -406,8 +438,8 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   }
 #pragma unroll
   for (int i = 0; i < DPL; ++i) As[slot * HD + lane * DPL + i] = acc[i];
-  merge_store<T, HD>(Ms, Ls, As, n_split, g_n, R, out + ((size_t)b * n_h + kh * g_n) * HD,
-                     cluster);
+  merge_store<T, HD, SP>(Ms, Ls, As, n_split, g_n, R, out + ((size_t)b * n_h + kh * g_n) * HD,
+                     stats, (size_t)b * n_h + kh * g_n, cluster);
 }
 
 // ---- the tensor-core body: bf16, up to 16 query heads a KV head ----
@@ -426,12 +458,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
-template <typename KV, int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED, bool SP>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MMA_WARPS * 32)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                         const KV* __restrict__ v, const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale, const int* __restrict__ pos,
-                        int s_pos0, const int* __restrict__ pt, int n_blocks, int ps,
+                        int s_pos0, int s_stride, Stats stats, const int* __restrict__ pt, int n_blocks, int ps,
                         __nv_bfloat16* __restrict__ out, int n_h, int n_kh, int n_s,
                         float scale, int n_split) {
   using B16 = __nv_bfloat16;
@@ -465,7 +497,8 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restric
       qa[s][f] = row < g_n ? __ldg(reinterpret_cast<const unsigned*>(qb + row * HD + col)) : 0u;
     }
 
-  const int limit = pos[b] - s_pos0;  // highest visible local row
+  // highest visible local row (a strided shard only in a stats launch)
+  const int limit = SP ? floor_div(pos[b] - s_pos0, s_stride) : pos[b] - s_pos0;
   const int n_keys = max(0, min(n_s, limit + 1));
   const int n_tiles = (n_keys + BS - 1) / BS;
   const int lo = rank * n_tiles / CLUSTER, hi = (rank + 1) * n_tiles / CLUSTER;  // its tiles
@@ -675,13 +708,13 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restric
       *reinterpret_cast<float2*>(As + slot * HD + 8 * n + 2 * tq) =
           make_float2(o[n][2 * h], o[n][2 * h + 1]);
   }
-  merge_store<B16, HD>(Ms, Ls, As, n_split, g_n, R, out + ((size_t)b * n_h + kh * g_n) * HD,
-                       cluster);
+  merge_store<B16, HD, SP>(Ms, Ls, As, n_split, g_n, R, out + ((size_t)b * n_h + kh * g_n) * HD,
+                       stats, (size_t)b * n_h + kh * g_n, cluster);
 }
 
-template <typename KV, int HD, bool PAGED>
+template <typename KV, int HD, bool PAGED, bool SP>
 int launch_mma(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ksc,
-               const float* vsc, const int* pos, int s_pos0, const int* pt, int n_blocks, int ps,
+               const float* vsc, const int* pos, int s_pos0, int s_stride, Stats stats, const int* pt, int n_blocks, int ps,
                __nv_bfloat16* out, int n_b, int n_h, int n_kh, int n_s, float scale,
                cudaStream_t s) {
   // four warps a block while the clusters are few (batch 1); three past
@@ -692,16 +725,16 @@ int launch_mma(const __nv_bfloat16* q, const KV* k, const KV* v, const float* ks
   const int n_split = n_b * n_kh <= 8 ? MMA_WARPS : MMA_WARPS - 1;
   const int bytes = Tile<KV, HD>::smem(n_split, n_h / n_kh);
   static SmemLimit limit;
-  const cudaError_t e = limit.raise(flash_decode_mma_kernel<KV, HD, PAGED>, bytes);
+  const cudaError_t e = limit.raise(flash_decode_mma_kernel<KV, HD, PAGED, SP>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_decode_mma_kernel<KV, HD, PAGED><<<dim3(CLUSTER * n_kh, n_b), n_split * 32, bytes, s>>>(
-      q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
+  flash_decode_mma_kernel<KV, HD, PAGED, SP><<<dim3(CLUSTER * n_kh, n_b), n_split * 32, bytes, s>>>(
+      q, k, v, ksc, vsc, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename KV, int HD, bool PAGED>
+template <typename T, typename KV, int HD, bool PAGED, bool SP>
 int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
-              const int* pos, int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b,
+              const int* pos, int s_pos0, int s_stride, Stats stats, const int* pt, int n_blocks, int ps, T* out, int n_b,
               int n_h, int n_kh, int n_s, float scale, cudaStream_t s) {
   using TL = Tile<KV, HD>;
   const int g_n = n_h / n_kh;
@@ -710,7 +743,7 @@ int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const floa
   if constexpr (std::is_same<T, __nv_bfloat16>::value &&
                 (std::is_same<KV, __nv_bfloat16>::value || std::is_same<KV, int8_t>::value)) {
     if (g_n <= 16) {
-      return launch_mma<KV, HD, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+      return launch_mma<KV, HD, PAGED, SP>(q, k, v, ksc, vsc, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out,
                                        n_b, n_h, n_kh, n_s, scale, s);
     }
   }
@@ -718,28 +751,30 @@ int launch_hd(const T* q, const KV* k, const KV* v, const float* ksc, const floa
   while (n_split > 1 && TL::smem(n_split, g_n) > SMEM_BUDGET) --n_split;
   const int bytes = TL::smem(n_split, g_n);
   static SmemLimit limit;
-  const cudaError_t e = limit.raise(flash_decode_kernel<T, KV, HD, PAGED>, bytes);
+  const cudaError_t e = limit.raise(flash_decode_kernel<T, KV, HD, PAGED, SP>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_decode_kernel<T, KV, HD, PAGED>
+  flash_decode_kernel<T, KV, HD, PAGED, SP>
       <<<dim3(CLUSTER * n_kh, n_b), n_split * g_n * 32, bytes, s>>>(
-          q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
+          q, k, v, ksc, vsc, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out, n_h, n_kh, n_s, scale, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename KV, bool PAGED>
+template <typename T, typename KV, bool PAGED, bool SP = false>
 int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* vsc,
-           const int* pos, int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b,
+           const int* pos, int s_pos0, int s_stride, Stats stats, const int* pt, int n_blocks, int ps, T* out, int n_b,
            int n_h, int n_kh, int n_s, int hd, float scale, cudaStream_t s) {
-  if (n_h % n_kh != 0 || n_h / n_kh > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_h % n_kh != 0 || n_h / n_kh > 32 || s_stride < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (PAGED && (ps < 1 || (ps < BS ? BS % ps : ps % BS))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (hd == 128) {
-    return launch_hd<T, KV, 128, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+    return launch_hd<T, KV, 128, PAGED, SP>(q, k, v, ksc, vsc, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out,
                                         n_b, n_h, n_kh, n_s, scale, s);
   }
   if (hd == 64) {
-    return launch_hd<T, KV, 64, PAGED>(q, k, v, ksc, vsc, pos, s_pos0, pt, n_blocks, ps, out,
+    return launch_hd<T, KV, 64, PAGED, SP>(q, k, v, ksc, vsc, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out,
                                        n_b, n_h, n_kh, n_s, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -749,7 +784,7 @@ int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* 
 // (the cache's shape with a last dim of 1); else k and v are in q's type
 template <bool PAGED, bool Q8>
 int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
-             const void* pos, int s_pos0, const void* pt, int n_blocks, int ps, void* out,
+             const void* pos, int s_pos0, int s_stride, Stats stats, const void* pt, int n_blocks, int ps, void* out,
              int n_b, int n_h, int n_kh, int n_s, int hd, float scale, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
@@ -760,43 +795,43 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
     using B = __nv_bfloat16;
     using KV = typename std::conditional<Q8, int8_t, B>::type;
     return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
-                                static_cast<const KV*>(v), ks, vs, p, s_pos0, t, n_blocks, ps,
+                                static_cast<const KV*>(v), ks, vs, p, s_pos0, s_stride, stats, t, n_blocks, ps,
                                 static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
   }
   using KV = typename std::conditional<Q8, int8_t, float>::type;
   return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
-                                  static_cast<const KV*>(v), ks, vs, p, s_pos0, t, n_blocks, ps,
+                                  static_cast<const KV*>(v), ks, vs, p, s_pos0, s_stride, stats, t, n_blocks, ps,
                                   static_cast<float*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
 }
 
 // The mixed-type entries: q and out in q_type (TYPE_F32 or TYPE_BF16), k
 // and v in kv_type (TYPE_F32, TYPE_BF16 or TYPE_F16), each read in its own type
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, bool SP>
 int dispatch_kv(const T* q, const void* k, const void* v, int kv_type, const int* pos,
-                int s_pos0, const int* pt, int n_blocks, int ps, T* out, int n_b, int n_h,
+                int s_pos0, int s_stride, Stats stats, const int* pt, int n_blocks, int ps, T* out, int n_b, int n_h,
                 int n_kh, int n_s, int hd, float scale, cudaStream_t s) {
   switch (kv_type) {
     case TYPE_F32:
-      return launch<T, float, PAGED>(q, static_cast<const float*>(k),
-                                     static_cast<const float*>(v), nullptr, nullptr, pos, s_pos0,
+      return launch<T, float, PAGED, SP>(q, static_cast<const float*>(k),
+                                     static_cast<const float*>(v), nullptr, nullptr, pos, s_pos0, s_stride, stats,
                                      pt, n_blocks, ps, out, n_b, n_h, n_kh, n_s, hd, scale, s);
     case TYPE_BF16:
-      return launch<T, __nv_bfloat16, PAGED>(q, static_cast<const __nv_bfloat16*>(k),
+      return launch<T, __nv_bfloat16, PAGED, SP>(q, static_cast<const __nv_bfloat16*>(k),
                                              static_cast<const __nv_bfloat16*>(v), nullptr,
-                                             nullptr, pos, s_pos0, pt, n_blocks, ps, out, n_b,
+                                             nullptr, pos, s_pos0, s_stride, stats, pt, n_blocks, ps, out, n_b,
                                              n_h, n_kh, n_s, hd, scale, s);
     case TYPE_F16:
-      return launch<T, __half, PAGED>(q, static_cast<const __half*>(k),
+      return launch<T, __half, PAGED, SP>(q, static_cast<const __half*>(k),
                                       static_cast<const __half*>(v), nullptr, nullptr, pos,
-                                      s_pos0, pt, n_blocks, ps, out, n_b, n_h, n_kh, n_s, hd,
+                                      s_pos0, s_stride, stats, pt, n_blocks, ps, out, n_b, n_h, n_kh, n_s, hd,
                                       scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool PAGED>
-int dispatch_mixed(const void* q, const void* k, const void* v, const void* pos, int s_pos0,
+template <bool PAGED, bool SP = false>
+int dispatch_mixed(const void* q, const void* k, const void* v, const void* pos, int s_pos0, int s_stride, Stats stats,
                    const void* pt, int n_blocks, int ps, void* out, int n_b, int n_h, int n_kh,
                    int n_s, int hd, float scale, int q_type, int kv_type, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -804,12 +839,12 @@ int dispatch_mixed(const void* q, const void* k, const void* v, const void* pos,
   const int* t = static_cast<const int*>(pt);
   if (q_type == TYPE_BF16) {
     using B = __nv_bfloat16;
-    return dispatch_kv<B, PAGED>(static_cast<const B*>(q), k, v, kv_type, p, s_pos0, t,
+    return dispatch_kv<B, PAGED, SP>(static_cast<const B*>(q), k, v, kv_type, p, s_pos0, s_stride, stats, t,
                                  n_blocks, ps, static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd,
                                  scale, s);
   }
   if (q_type == TYPE_F32)
-    return dispatch_kv<float, PAGED>(static_cast<const float*>(q), k, v, kv_type, p, s_pos0, t,
+    return dispatch_kv<float, PAGED, SP>(static_cast<const float*>(q), k, v, kv_type, p, s_pos0, s_stride, stats, t,
                                      n_blocks, ps, static_cast<float*>(out), n_b, n_h, n_kh, n_s,
                                      hd, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -823,7 +858,7 @@ int dispatch_mixed(const void* q, const void* k, const void* v, const void* pos,
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* pos,
                             int s_pos0, void* out, int n_b, int n_h, int n_kh, int n_s, int hd,
                             float scale, int bf16, void* stream) {
-  return dispatch<false, false>(q, k, v, nullptr, nullptr, pos, s_pos0, nullptr, 0, 0, out, n_b,
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, pos, s_pos0, 1, Stats{}, nullptr, 0, 0, out, n_b,
                                 n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
@@ -834,7 +869,7 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages, const void
                                   const void* page_table, const void* pos, void* out, int n_b,
                                   int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
                                   int bf16, void* stream) {
-  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, pos, 0, page_table,
+  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, pos, 0, 1, Stats{}, page_table,
                                n_blocks, ps, out, n_b, n_h, n_kh, n_blocks * ps, hd, scale, bf16,
                                stream);
 }
@@ -845,7 +880,7 @@ extern "C" int flash_decode_q8(const void* q, const void* k, const void* k_scale
                                const void* v_scale, const void* pos, int s_pos0, void* out,
                                int n_b, int n_h, int n_kh, int n_s, int hd, float scale, int bf16,
                                void* stream) {
-  return dispatch<false, true>(q, k, v, k_scale, v_scale, pos, s_pos0, nullptr, 0, 0, out, n_b,
+  return dispatch<false, true>(q, k, v, k_scale, v_scale, pos, s_pos0, 1, Stats{}, nullptr, 0, 0, out, n_b,
                                n_h, n_kh, n_s, hd, scale, bf16, stream);
 }
 
@@ -856,7 +891,7 @@ extern "C" int paged_flash_decode_q8(const void* q, const void* k_pages, const v
                                      const void* page_table, const void* pos, void* out, int n_b,
                                      int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
                                      int bf16, void* stream) {
-  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, pos, 0, page_table,
+  return dispatch<true, true>(q, k_pages, v_pages, k_scale, v_scale, pos, 0, 1, Stats{}, page_table,
                               n_blocks, ps, out, n_b, n_h, n_kh, n_blocks * ps, hd, scale, bf16,
                               stream);
 }
@@ -867,7 +902,7 @@ extern "C" int paged_flash_decode_q8(const void* q, const void* k_pages, const v
 extern "C" int flash_decode_mx(const void* q, const void* k, const void* v, const void* pos,
                                int s_pos0, void* out, int n_b, int n_h, int n_kh, int n_s, int hd,
                                float scale, int q_type, int kv_type, void* stream) {
-  return dispatch_mixed<false>(q, k, v, pos, s_pos0, nullptr, 0, 0, out, n_b, n_h, n_kh, n_s, hd,
+  return dispatch_mixed<false>(q, k, v, pos, s_pos0, 1, Stats{}, nullptr, 0, 0, out, n_b, n_h, n_kh, n_s, hd,
                                scale, q_type, kv_type, stream);
 }
 
@@ -876,6 +911,28 @@ extern "C" int paged_flash_decode_mx(const void* q, const void* k_pages, const v
                                      const void* page_table, const void* pos, void* out, int n_b,
                                      int n_h, int n_kh, int n_blocks, int ps, int hd, float scale,
                                      int q_type, int kv_type, void* stream) {
-  return dispatch_mixed<true>(q, k_pages, v_pages, pos, 0, page_table, n_blocks, ps, out, n_b,
+  return dispatch_mixed<true>(q, k_pages, v_pages, pos, 0, 1, Stats{}, page_table, n_blocks, ps, out, n_b,
                               n_h, n_kh, n_blocks * ps, hd, scale, q_type, kv_type, stream);
+}
+
+// The decode body emitting its state (the TPU kernel's emit_stats, surface
+// flash_decode_stats): over one sequence shard of the cache [B, KH, S, hd]
+// whose key row j sits at position s_pos0 + j * s_stride (sequence
+// parallelism's cyclic layout: shard i of sp at s_pos0 i, stride sp), the
+// unnormalized acc f32 [B, H, hd] (= [B, KH, G, 1, hd]) and the row max m
+// and denominator l f32 [B, H]. The cluster's blocks merge their states as
+// in flash_decode and rank 0 writes the merged state without dividing; a
+// shard wholly in the query's future (the last visible row < 0) reads no
+// row and gives m = -1e30, l = 0, acc = 0. q and the cache in their own
+// float types (q_type, kv_type as in flash_decode_mx); out is not written.
+extern "C" int flash_decode_stats(const void* q, const void* k, const void* v, const void* pos,
+                                  int s_pos0, int s_stride, void* acc, void* m, void* l, int n_b,
+                                  int n_h, int n_kh, int n_s, int hd, float scale, int q_type,
+                                  int kv_type, void* stream) {
+  Stats st;
+  st.acc = static_cast<float*>(acc);
+  st.m = static_cast<float*>(m);
+  st.l = static_cast<float*>(l);
+  return dispatch_mixed<false, true>(q, k, v, pos, s_pos0, s_stride, st, nullptr, 0, 0, nullptr, n_b,
+                               n_h, n_kh, n_s, hd, scale, q_type, kv_type, stream);
 }

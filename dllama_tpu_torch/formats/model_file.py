@@ -327,21 +327,25 @@ class ModelReader:
         a, b = self.by_name[first], self.by_name[last]
         return self._mmap[a.offset : b.offset + b.nbytes]
 
-    def dense_f32(self, name: str) -> np.ndarray:
-        """Tensor dequantized to f32, in its file shape."""
+    def dense_f32(self, name: str, raw: np.ndarray | None = None, shape=None) -> np.ndarray:
+        """Tensor dequantized to f32, in its file shape. With ``raw`` and
+        ``shape``: those bytes of the tensor (a slice of whole units of its
+        float type, as the loader's tp shards cut) in that shape."""
         s = self.by_name[name]
-        raw = self.raw(name)
+        if raw is None:
+            raw, shape = self.raw(name), s.shape
+        n = int(np.prod(shape))
         if s.float_type == FloatType.F32:
             out = raw.view(np.float32).copy()
         elif s.float_type == FloatType.F16:
             out = raw.view(np.float16).astype(np.float32)
         elif s.float_type == FloatType.Q40:
-            out = dequantize_q40(raw, s.n_elements)
+            out = dequantize_q40(raw, n)
         elif s.float_type == FloatType.Q80:
-            out = dequantize_q80(raw, s.n_elements)
+            out = dequantize_q80(raw, n)
         else:
             raise ValueError(f"unsupported float type: {s.float_type}")
-        return out.reshape(s.shape)
+        return out.reshape(shape)
 
     def planar_q40(self, name: str) -> tuple[np.ndarray, np.ndarray]:
         """Tensor as planar int8 values [out, in] + f16 scales [out, in//32]:

@@ -13,6 +13,12 @@ is consumed as-is (the converter pre-permutes llama q/k rows for
 interleaved RoPE). ``q40i8`` is q40 requantized afterwards
 (ops/int8_matmul.requantize_params, called by the engine).
 
+With ``shard=(tp, r)`` (tensor parallelism, parallel/sharding.py) each
+tensor that splits is read as rank r's slice alone: its rows or its
+columns (whole 32-element blocks of a Q40 file) are cut from the file's
+memmap before anything is copied, so neither the host nor the card of a
+rank holds the whole model (`_slice_raw`).
+
 Qwen3-MoE experts are stacked per layer (``w1``/``w3`` [E, F, D], ``w2``
 [E, D, F]; 18,432 tensors at Qwen3-30B-A3B). One layer's experts are
 contiguous in the file, so a Q40 file sends them to the device in one
@@ -27,12 +33,39 @@ import torch
 
 from ..device import resolve_device
 from ..formats.model_file import LlmArch, ModelReader
-from ..formats.quants import Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, FloatType
+from ..formats.quants import (
+    Q40_BLOCK_BYTES, Q40_BLOCK_SIZE, Q80_BLOCK_BYTES, Q80_BLOCK_SIZE, FloatType,
+)
 from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, dequant
 from ..ops.torch_ops import rope_cache
+from ..parallel.sharding import role_of
 from .transformer import Params
 
 _MATMULS = {"wq": "q", "wk": "k", "wv": "v", "wo": "wo", "w1": "w1", "w2": "w2", "w3": "w3"}
+# float type -> (elements, bytes) of its smallest unit along a row
+_UNITS = {FloatType.F32: (1, 4), FloatType.F16: (1, 2), FloatType.Q40: (Q40_BLOCK_SIZE,
+          Q40_BLOCK_BYTES), FloatType.Q80: (Q80_BLOCK_SIZE, Q80_BLOCK_BYTES)}
+
+
+def _slice_raw(reader: ModelReader, name: str, role: str | None, tp: int, r: int):
+    """(bytes, rows, cols) of rank r's slice of a 2-D tensor, copied out of
+    the memmap: its rows for ``row``/``vocab``, its columns for ``col``
+    (whole units of the file's type), the whole tensor otherwise."""
+    spec = reader.by_name[name]
+    rows, cols = spec.shape
+    raw = reader.raw(name)
+    if role is None or tp == 1:
+        return np.array(raw), rows, cols
+    elems, nbytes = _UNITS[spec.float_type]
+    grid = raw.reshape(rows, cols // elems, nbytes)
+    if role == "col":
+        if (cols // elems) % tp:
+            raise ValueError(f"{name}: {cols} columns do not split into {tp} slices of whole "
+                             f"{elems}-element blocks")
+        n = cols // elems // tp
+        return np.array(grid[:, r * n:(r + 1) * n]).reshape(-1), rows, cols // tp
+    n = rows // tp
+    return np.array(grid[r * n:(r + 1) * n]).reshape(-1), n, cols
 
 
 def q40_unpack(raw: torch.Tensor, out_dim: int, in_dim: int) -> QuantWeight:
@@ -65,13 +98,15 @@ def load_params(
     dtype=torch.float32,
     device=None,
     weight_format: str = "dense",
+    shard: tuple[int, int] | None = None,
 ) -> Params:
     """Params for `models.transformer.forward`. ``dtype`` is the activation
     dtype (embedding and dense weights); norm weights and the rope tables
     stay f32. ``weight_format="q40"`` keeps matmul weights Q40 on the device
     (needs a Q40 file), ``"q40i4"`` keeps the non-expert ones as packed
     nibbles (experts stay ``"q40"``); ``"dense"`` dequantizes them to
-    ``dtype``. The device defaults to ``cuda``."""
+    ``dtype``. The device defaults to ``cuda``. ``shard=(tp, r)`` loads tp
+    rank r's slices (module docstring; not for Qwen3-MoE)."""
     device = resolve_device(device)
     h = reader.header
     if weight_format not in ("dense", "q40", "q40i4"):
@@ -82,16 +117,20 @@ def load_params(
             f"weight_format={weight_format!r} needs a Q40 model file, got {h.weight_type.name}"
         )
 
+    tp, rank = shard or (1, 0)
+    if tp > 1 and h.arch == LlmArch.QWEN3_MOE:
+        raise ValueError("Qwen3-MoE under tensor parallelism is not ported (ROADMAP A.14)")
+
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.dense_f32(name)).to(device)
 
-    def matmul_weight(name: str):
+    def matmul_weight(name: str, key: str):
+        raw, out_dim, in_dim = _slice_raw(reader, name, role_of(key), tp, rank)
         if quant:
-            out_dim, in_dim = reader.by_name[name].shape
-            raw = torch.from_numpy(np.array(reader.raw(name))).to(device)
             split = q40_split if weight_format == "q40i4" else q40_unpack
-            return split(raw, out_dim, in_dim)
-        return f32(name).to(dtype)  # [out, in]
+            return split(torch.from_numpy(raw).to(device), out_dim, in_dim)
+        dense = reader.dense_f32(name, raw, (out_dim, in_dim))
+        return torch.from_numpy(dense).to(device=device, dtype=dtype)  # [out, in]
 
     def experts(l: int) -> dict:
         """Layer l's experts stacked [E, rows, cols] (w1/w3 [E, F, D], w2
@@ -119,7 +158,7 @@ def load_params(
     layers = []
     for l in range(h.n_layers):
         parts = {k: v for k, v in _MATMULS.items() if not (moe and k in ("w1", "w2", "w3"))}
-        lp = {key: matmul_weight(f"layers.{l}.{part}") for key, part in parts.items()}
+        lp = {key: matmul_weight(f"layers.{l}.{part}", key) for key, part in parts.items()}
         if moe:
             lp["moe_gate"] = f32(f"layers.{l}.moe_gate")  # [E, D]
             lp.update(experts(l))
@@ -130,9 +169,11 @@ def load_params(
             lp["k_norm"] = f32(f"layers.{l}.k_norm")
         layers.append(lp)
     cos, sin = rope_cache(h, device=device)
+    raw, n_vocab, dim = _slice_raw(reader, "embed", role_of("embed"), tp, rank)
     return {
-        "embed": f32("embed").to(dtype),
-        "wcls": matmul_weight("wcls"),
+        "embed": torch.from_numpy(reader.dense_f32("embed", raw, (n_vocab, dim))).to(
+            device=device, dtype=dtype),
+        "wcls": matmul_weight("wcls", "wcls"),
         "final_norm": f32("final_norm"),
         "rope_cos": cos,
         "rope_sin": sin,

@@ -37,6 +37,13 @@ needs no attention windows. ``plain=True`` runs the plain PyTorch version
 of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
 
+Tensor and sequence parallelism (``mesh``: one rank of a tp x sp mesh,
+parallel/mesh.py) run `forward_parallel` on the single stream's slab:
+the rank's weight slices and KV shard, the tp all-reduces in f32 before
+any downcast, the sp shard's rows in the cyclic order, ring attention for
+a prefill chunk and merged stats for a decode step (the two kernel options
+``s_stride`` and `flash_decode_stats`).
+
 ``pos`` is an int or a device tensor: ``[1]`` int32 on the slab path,
 ``[B]`` int32 in paged mode and for slab lanes. An int is bounds-checked on
 the host and then filled into a tensor, so both forms run the same device
@@ -82,6 +89,8 @@ from ..ops.flash_attention import (
     flash_attention_ref,
     flash_decode,
     flash_decode_ref,
+    flash_decode_stats,
+    flash_decode_stats_ref,
     paged_flash_attention,
     paged_flash_attention_ref,
     paged_flash_decode,
@@ -102,6 +111,9 @@ from ..ops.int8_matmul import Int8Weight, i8matmul, i8matmul_ref, quantize_acts
 from ..ops.kv_cache import QuantKV, kv_layer, new_kv_leaf, quantize_kv_rows
 from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, qmatmul, qmatmul_i4, qmatmul_ref
 from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
+from ..parallel.collectives import all_gather, all_reduce, all_reduce_max
+from ..parallel.ring_attention import ring_attention_local
+from ..parallel.sharding import cyclic_rows
 
 Params = Dict[str, Any]
 KvCache = Dict[str, torch.Tensor]
@@ -150,6 +162,17 @@ def _quant_mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor | None
     return (ref if plain else kernel)(x, w)
 
 
+def _dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ W^T -> f32 for a dense [out, in] weight. A bf16 or f16
+    pair on the card is one product with an f32 output (cuBLAS accumulates
+    in f32), so no f32 copy of the weight is made; otherwise both operands
+    in f32."""
+    if x.is_cuda and x.dtype == w.dtype and w.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x.float(), w.float().transpose(-1, -2))
+
+
 def _mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor:
     """x [..., in] @ W -> [..., out] in x's dtype: the weight type's kernel
     for a quantized leaf, a dense product for an [out, in] tensor."""
@@ -196,9 +219,46 @@ def logits_head(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str,
     y = rms_norm(x, params["final_norm"], h.norm_epsilon)
     wcls = params["wcls"]
     out = _quant_mm(y, wcls, plain, act_quant)
-    if out is not None:
-        return out
-    return torch.matmul(y.float(), wcls.float().transpose(-1, -2))
+    return out if out is not None else _dense_f32(y, wcls)
+
+
+def _layers(params: Params, h: LlmHeader, x: torch.Tensor, cos, sin, cache: KvCache, attend,
+            mm, mm_out, ffn=None) -> torch.Tensor:
+    """The decoder layers on x [B, T, D] (reference: src/llm.cpp:330-559),
+    shared by `forward` and `forward_parallel`, which differ in what they
+    pass: ``attend(k_cache, v_cache, q, k, v) -> z [B, T, H, hd]`` writes
+    the chunk's k/v rows into one layer's cache leaves and attends over
+    them; ``mm_out`` computes the wo and w2 products (their tp all-reduce);
+    ``ffn(y, lp)``, when given, replaces the dense SwiGLU (Qwen3-MoE). The
+    head counts are the weights' own (the rank's under tp)."""
+    b, t = x.shape[:2]
+    hd = h.head_dim
+    interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
+    act = silu if h.hidden_act == HiddenAct.SILU else gelu
+    is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
+    for l, lp in enumerate(params["layers"]):
+        y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
+        q = mm(y, lp["wq"]).reshape(b, t, -1, hd)
+        k = mm(y, lp["wk"]).reshape(b, t, -1, hd)
+        v = mm(y, lp["wv"]).reshape(b, t, -1, hd)
+        if is_qwen3:
+            q = qk_rms_norm(q, lp["q_norm"], h.norm_epsilon)
+            k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
+        q = apply_rope(q, cos, sin, interleaved)
+        k = apply_rope(k, cos, sin, interleaved)
+        # [B, KH, S, hd] or [P, KH, ps, hd] (values and scales for int8)
+        z = attend(kv_layer(cache["k"], l), kv_layer(cache["v"], l), q, k, v)
+        x = x + mm_out(z.reshape(b, t, -1), lp["wo"]).to(x.dtype)
+
+        y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
+        if ffn is not None:
+            f = ffn(y, lp)
+        else:
+            d = act(mm(y, lp["w1"]))
+            u = mm(y, lp["w3"])
+            f = mm_out(d * u.to(d.dtype), lp["w2"])
+        x = x + f.to(x.dtype)
+    return x
 
 
 def _paged_rows(pos, b: int, t: int, ps: int, page_table: torch.Tensor):
@@ -262,6 +322,8 @@ def forward(
     page_table: torch.Tensor | None = None,  # [B, n_blocks] int32: paged mode
     park: int | None = None,  # slab lanes: the first padding row (seq_len)
     moe_dedup: bool = False,  # Qwen3-MoE: the two-tier decode (`moe_ffn`)
+    mesh=None,  # parallel.mesh.Mesh: this rank's slices under tp and sp
+    sync_quant: bool = False,  # with mesh: the tp all-reduces in q80
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
     are written in place. Returns (logits [B, T or 1, V] f32, or None for
@@ -274,33 +336,55 @@ def forward(
 
     With ``page_table`` the cache is the page pool, with ``park`` the
     lanes' slab (module docstring); the caller keeps every live row inside
-    the lane's page-table row or below ``park`` (the card checks neither)."""
+    the lane's page-table row or below ``park`` (the card checks neither).
+    With ``mesh`` the params and the cache are this rank's slices
+    (`forward_parallel`)."""
+    if mesh is not None:
+        if page_table is not None or park is not None or h.arch == LlmArch.QWEN3_MOE:
+            raise ValueError("forward under tp/sp runs the single-stream slab path of a dense "
+                             "model (lanes and Qwen3-MoE wait for ROADMAP A.14's next slice)")
+        return forward_parallel(params, h, tokens, pos, cache, mesh, logits_mode, plain,
+                                act_quant, sync_quant)
     b, t = tokens.shape
     paged = page_table is not None
     lanes = park is not None
-    if paged:
-        posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
-    elif lanes:
-        posv, rows, wrows = _lane_slab_rows(pos, b, t, park, tokens.device)
-        lane_idx = torch.arange(b, device=tokens.device)[:, None]
-    else:
-        posv = _slab_pos(pos, t, cache["k"].shape[3], tokens.device)
-        rows = posv.long() + torch.arange(t, device=tokens.device)  # [T] cache rows
-    interleaved = h.rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1)
-    act = silu if h.hidden_act == HiddenAct.SILU else gelu
-    is_qwen3 = h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE)
     is_moe = h.arch == LlmArch.QWEN3_MOE
     if is_moe and h.hidden_act != HiddenAct.SILU:
         raise ValueError("Qwen3-MoE experts are SwiGLU: hidden_act must be SILU")
     if paged:
-        attend = (paged_flash_decode_ref if plain else paged_flash_decode) if t == 1 else (
+        posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
+        attn = (paged_flash_decode_ref if plain else paged_flash_decode) if t == 1 else (
             paged_flash_attention_ref if plain else paged_flash_attention
         )
+        extra = (page_table, posv)
+
+        def write(dst, x):  # x [B, T, KH, hd or 1] rows at their pages
+            dst[page, :, prow] = x
     else:
-        attend = (flash_decode_ref if plain else flash_decode) if t == 1 else (
+        attn = (flash_decode_ref if plain else flash_decode) if t == 1 else (
             flash_attention_ref if plain else flash_attention
         )
-    hq, hkv, hd = h.n_heads, h.n_kv_heads, h.head_dim
+        if lanes:
+            posv, rows, wrows = _lane_slab_rows(pos, b, t, park, tokens.device)
+            lane_idx = torch.arange(b, device=tokens.device)[:, None]
+
+            def write(dst, x):  # x [B, T, KH, hd or 1] rows at each lane's rows
+                dst[lane_idx, :, wrows] = x
+        else:
+            posv = _slab_pos(pos, t, cache["k"].shape[3], tokens.device)
+            rows = posv.long() + torch.arange(t, device=tokens.device)  # [T] cache rows
+
+            def write(dst, x):  # x [B, KH, T, hd or 1]
+                dst.index_copy_(2, rows, x)
+        extra = (posv,)
+    head_major = not (paged or lanes)  # the slab's write takes [B, KH, T, hd]
+
+    def attend(k_cache, v_cache, q, k, v):
+        if head_major:
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+        _append(k_cache, k, write)
+        _append(v_cache, v, write)
+        return attn(q, k_cache, v_cache, *extra)
 
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
@@ -309,48 +393,116 @@ def forward(
     # [B, T, hd/2] with each lane at its own position (paged, slab lanes),
     # else [T, hd/2]
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
-    for l, lp in enumerate(params["layers"]):
-        y = rms_norm(x, lp["att_norm"], h.norm_epsilon)
-        q = mm(y, lp["wq"]).reshape(b, t, hq, hd)
-        k = mm(y, lp["wk"]).reshape(b, t, hkv, hd)
-        v = mm(y, lp["wv"]).reshape(b, t, hkv, hd)
-        if is_qwen3:
-            q = qk_rms_norm(q, lp["q_norm"], h.norm_epsilon)
-            k = qk_rms_norm(k, lp["k_norm"], h.norm_epsilon)
-        q = apply_rope(q, cos, sin, interleaved)
-        k = apply_rope(k, cos, sin, interleaved)
-        # [B, KH, S, hd] or [P, KH, ps, hd] (values and scales for int8)
-        k_cache, v_cache = kv_layer(cache["k"], l), kv_layer(cache["v"], l)
-        if paged:
-            def write(dst, x):  # x [B, T, KH, hd or 1] rows at their pages
-                dst[page, :, prow] = x
-
-            _append(k_cache, k, write)
-            _append(v_cache, v, write)
-            z = attend(q, k_cache, v_cache, page_table, posv)
-        elif lanes:
-            def write(dst, x):  # x [B, T, KH, hd or 1] rows at each lane's rows
-                dst[lane_idx, :, wrows] = x
-
-            _append(k_cache, k, write)
-            _append(v_cache, v, write)
-            z = attend(q, k_cache, v_cache, posv)
-        else:
-            def write(dst, x):  # x [B, KH, T, hd or 1]
-                dst.index_copy_(2, rows, x)
-
-            _append(k_cache, k.transpose(1, 2), write)
-            _append(v_cache, v.transpose(1, 2), write)
-            z = attend(q, k_cache, v_cache, posv)
-        z = z.reshape(b, t, hq * hd)
-        x = x + mm(z, lp["wo"]).to(x.dtype)
-
-        y = rms_norm(x, lp["ffn_norm"], h.norm_epsilon)
-        if is_moe:
-            f = moe_ffn(y, lp, h, plain, moe_dedup)
-        else:
-            d = act(mm(y, lp["w1"]))
-            u = mm(y, lp["w3"])
-            f = mm(d * u.to(d.dtype), lp["w2"])
-        x = x + f.to(x.dtype)
+    ffn = (lambda y, lp: moe_ffn(y, lp, h, plain, moe_dedup)) if is_moe else None
+    x = _layers(params, h, x, cos, sin, cache, attend, mm, mm, ffn)
     return logits_head(x, params, h, logits_mode, plain, act_quant), cache
+
+
+def _sp_decode(q, k_cache, v_cache, pos: int, sp, plain: bool) -> torch.Tensor:
+    """Sequence-parallel decode attention (JAX ``_attention_sp_merge``):
+    the stats of this shard's rows (the decode kernel emitting its state,
+    cyclic: ``s_pos0`` = shard index, stride sp), merged over the sp axis
+    by a log-sum-exp max and one sum. [B, 1, H, hd] in q's dtype."""
+    stats = flash_decode_stats_ref if plain else flash_decode_stats
+    acc, m, l = stats(q, k_cache, v_cache, pos, sp.index, sp.size)
+    m_g = all_reduce_max(m, sp)
+    scale = torch.where(m <= -1e30 / 2, torch.zeros_like(m), torch.exp(m - m_g))
+    parts = torch.cat([(l * scale).reshape(-1), (acc * scale[..., None]).reshape(-1)])
+    summed = all_reduce(parts, sp)
+    l_g = summed[: l.numel()].reshape(l.shape)
+    acc_g = summed[l.numel():].reshape(acc.shape)
+    l_safe = torch.where(l_g == 0.0, torch.ones_like(l_g), l_g)
+    out = acc_g / l_safe[..., None]  # [b, kh, g, 1, hd]
+    b, kh, g, t, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, kh * g, hd).to(q.dtype)
+
+
+def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
+                     mesh, logits_mode: str = "all", plain: bool = False,
+                     act_quant=quantize_acts, sync_quant: bool = False):
+    """`forward` on one rank of a tp x sp mesh (dllama_tpu's ``run_layers``
+    under its mesh): the params are rank's tp slices (parallel/sharding.py)
+    and the cache its [L, 1, KH/tp, S/sp, hd] shard, rows in the cyclic
+    order under sp. ``pos`` is a host int (the engine runs world > 1
+    eagerly).
+
+    * The embedding is a vocab slice: a masked lookup summed over tp.
+    * Heads and FFN columns are the rank's own; the ``wo`` and ``w2``
+      partial sums are all-reduced over tp in f32 before any downcast
+      (``_mm_manual``), in q80 with ``sync_quant``.
+    * Under sp every rank computes the chunk's projections; the rank that
+      owns a row (global row g on shard g % sp) writes it at local row
+      g // sp. Decode attends by `_sp_decode`; a prefill chunk (T % sp ==
+      0) splits its queries contiguously over sp (rank i's start is pos +
+      i T/sp), runs the ring over the shards' live prefix (the rows below
+      ceil((pos + T) / sp): every row past it is in every query's future),
+      and all-gathers the outputs over sp before ``wo``.
+    * The logits: the ``wcls`` row slices' outputs all-gathered over tp in
+      vocab order.
+    Every rank returns the same logits."""
+    if logits_mode not in ("all", "last", "none"):
+        raise ValueError(f"unknown logits_mode: {logits_mode!r}")
+    tp, sp = mesh.tp, mesh.sp
+    t = tokens.shape[1]
+    pos = int(pos)
+    s_local = cache["k"].shape[3]
+    if pos < 0 or pos + t > s_local * sp.size:
+        raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s_local * sp.size} rows")
+    if sp.size > 1 and t > 1 and t % sp.size:
+        raise ValueError(f"a prefill chunk under sp={sp.size} needs T % sp == 0, got T={t}")
+    dev = tokens.device
+
+    def mm(x, w):
+        return _mm(x, w, plain, act_quant)
+
+    def mm_col(x, w):
+        """An in-split matmul: the partial sum in f32, reduced over tp."""
+        if tp.size == 1:
+            return mm(x, w)
+        out = _quant_mm(x, w, plain, act_quant)
+        return all_reduce(out if out is not None else _dense_f32(x, w), tp, sync_quant)
+
+    emb = params["embed"]  # [V/tp, D]
+    if tp.size > 1:
+        local = tokens - tp.index * emb.shape[0]
+        hit = (local >= 0) & (local < emb.shape[0])
+        x = emb[local.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
+        x = all_reduce(x, tp).to(emb.dtype)
+    else:
+        x = emb[tokens]
+    rows = torch.arange(pos, pos + t, device=dev)
+    cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
+    if sp.size > 1:
+        js, local_rows = cyclic_rows(pos, t, sp.size, sp.index)
+        mine = torch.tensor(js, dtype=torch.long, device=dev)
+        write_rows = torch.tensor(local_rows, dtype=torch.long, device=dev)
+        n_live = -(-(pos + t) // sp.size)
+        tq = t // sp.size
+    else:
+        mine, write_rows = None, rows
+
+    def write(dst, x):  # x [B, KH/tp, rows this rank owns, hd or 1]
+        dst.index_copy_(2, write_rows, x)
+
+    def attend(k_cache, v_cache, q, k, v):
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KH/tp, T, hd]
+        if mine is not None:
+            kt, vt = kt[:, :, mine], vt[:, :, mine]
+        if write_rows.numel():
+            _append(k_cache, kt, write)
+            _append(v_cache, vt, write)
+        if sp.size == 1:
+            if t == 1:
+                return (flash_decode_ref if plain else flash_decode)(q, k_cache, v_cache, pos)
+            return (flash_attention_ref if plain else flash_attention)(q, k_cache, v_cache, pos)
+        if t == 1:
+            return _sp_decode(q, k_cache, v_cache, pos, sp, plain)
+        qs = q[:, sp.index * tq:(sp.index + 1) * tq].contiguous()
+        zl = ring_attention_local(qs, k_cache[:, :, :n_live].contiguous(),
+                                  v_cache[:, :, :n_live].contiguous(),
+                                  pos + sp.index * tq, s_local, sp, cyclic=True, plain=plain)
+        return all_gather(zl, sp, dim=1)
+
+    x = _layers(params, h, x, cos, sin, cache, attend, mm, mm_col)
+    out = logits_head(x, params, h, logits_mode, plain, act_quant)
+    return (None if out is None else all_gather(out, tp, dim=-1)), cache

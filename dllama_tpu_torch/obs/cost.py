@@ -218,15 +218,20 @@ class StepCostModel:
     model at most min(E, rows x k) experts a layer (the routing is not
     read back, so that is what the rows could route to)."""
 
-    def __init__(self, h: "LlmHeader", params: dict, kv_elem_bytes: int, quantized_kv: bool):
+    def __init__(self, h: "LlmHeader", params: dict, kv_elem_bytes: int, quantized_kv: bool,
+                 tp: int = 1, sp: int = 1):
         self.h = h
+        # a rank of a tp x sp mesh counts its own work: its weight slices
+        # (``params`` are the rank's), 1/tp of the products and of the KV
+        # heads, and 1/sp of the cache rows and attention pairs
+        self.tp, self.sp = tp, sp
         self.w = param_bytes(params, h)
-        self.kv_row = kv_row_bytes(h, kv_elem_bytes, quantized_kv)
+        self.kv_row = kv_row_bytes(h, kv_elem_bytes, quantized_kv) // tp
         d, f = h.dim, h.ff_dim
         att = 2 * d * h.q_dim + 2 * d * h.kv_dim
-        self.elems_layer = h.n_layers * (att + (0 if h.is_moe else 3 * d * f))
+        self.elems_layer = h.n_layers * (att + (0 if h.is_moe else 3 * d * f)) // tp
         self.elems_expert = h.n_layers * 3 * d * f  # one expert a layer, over the layers
-        self.elems_cls = h.vocab_size * d
+        self.elems_cls = h.vocab_size * d // tp
 
     def forward(self, rows: int, logit_rows: int, kv_read: int, kv_write: int,
                 attn_pairs: int, n: int = 1) -> tuple[float, float]:
@@ -236,13 +241,13 @@ class StepCostModel:
         attending ``attn_pairs`` (query row, cache row) pairs."""
         h = self.h
         flops = 2.0 * rows * self.elems_layer + 2.0 * logit_rows * self.elems_cls
-        flops += 4.0 * h.n_layers * h.n_heads * h.head_dim * attn_pairs
+        flops += 4.0 * h.n_layers * h.n_heads // self.tp * h.head_dim * attn_pairs / self.sp
         nbytes_ = n * self.w["layers"] + (n * self.w["cls"] if logit_rows else 0)
         if h.is_moe:
             n_exp = min(h.n_experts, -(-rows // n) * h.n_active_experts)
             nbytes_ += n * (self.w["experts"] * n_exp // h.n_experts)
             flops += 2.0 * rows * h.n_active_experts * self.elems_expert
-        nbytes_ += h.n_layers * self.kv_row * (kv_read + kv_write)
+        nbytes_ += h.n_layers * self.kv_row * (kv_read + kv_write) / self.sp
         return flops, float(nbytes_)
 
     def kv_copy(self, rows: int) -> tuple[float, float]:

@@ -61,6 +61,12 @@ SIGNATURES = {
         "flash_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
     "flash_decode_mx": ("flash_decode", [_P] * 4 + [_I, _P] + [_I] * 5 + [_F, _I, _I, _P]),
     "paged_flash_decode_mx": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
+    # sequence parallelism's strided shard (s_stride after s_pos0; both type codes),
+    # and the decode body emitting its unnormalized state (acc, m, l pointers)
+    "flash_attention_stats_strided": (
+        "flash_attention", [_P] * 4 + [_I, _I] + [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_decode_stats": (
+        "flash_decode", [_P] * 4 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P]),
     "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
     # the active tier of the two-tier decode: a device predicate pointer after out
     "moe_active_tier": ("moe_active", [_P] * 12 + [_I] * 6 + [_P]),

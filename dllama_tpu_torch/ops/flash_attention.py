@@ -33,6 +33,14 @@ paged), ``flash_decode_kv8`` and ``paged_flash_decode_kv8``. The JAX
 engine decodes an int8 slab with ``dequant_kv`` and XLA attention; the
 port's int8 slab decode is the kernel.
 
+Sequence parallelism (parallel/ring_attention.py, models/transformer.py)
+adds two options on the slab entries: ``flash_attention_stats(...,
+s_stride)``, key row j at position ``s_pos0 + j * s_stride`` (a cyclic
+sequence shard: the ring's local step), and ``flash_decode_stats``, the
+decode kernel emitting the unnormalized (acc, m, l) of one strided shard
+(the sp decode's local step), counted in
+``flash_attention_stats_strided`` and ``flash_decode_stats``.
+
 Semantics are ops/torch_ops.attention_stats / attention_dense: query head h
 reads KV head h // (H / KH), keys at positions ``s_pos0 + j`` are visible to
 a query at position p when ``s_pos0 + j <= p``, softmax in f32, and a fully
@@ -166,9 +174,9 @@ def _plain_kv(k, v) -> tuple:
     return dequant_kv(k, torch.float32), dequant_kv(v, torch.float32)
 
 
-def flash_attention_stats_ref(q, k, v, q_pos0, s_pos0=0):
+def flash_attention_stats_ref(q, k, v, q_pos0, s_pos0=0, s_stride: int = 1):
     """Plain version of `flash_attention_stats`."""
-    return attention_stats(q, *_plain_kv(k, v), q_pos0, s_pos0)
+    return attention_stats(q, *_plain_kv(k, v), q_pos0, s_pos0, s_stride)
 
 
 def _stats_out(q, kh: int):
@@ -195,6 +203,9 @@ paged_flash_decode_kv8 = KernelCount("paged_flash_decode_kv8")
 flash_attention_stats_mixed = KernelCount("flash_attention_stats_mixed")
 flash_decode_mixed = KernelCount("flash_decode_mixed")
 paged_flash_decode_mixed = KernelCount("paged_flash_decode_mixed")
+# the stats kernel over a strided sequence shard (sequence parallelism's
+# ring step), whose launches count apart from the contiguous ones
+flash_attention_stats_strided = KernelCount("flash_attention_stats_strided")
 
 
 def _entry(base: str, q, k) -> str:
@@ -216,16 +227,36 @@ def flash_attention_stats(
     v,  # [B, KH, S, hd], or a QuantKV
     q_pos0,  # int or [B]: position of q[:, 0] per lane
     s_pos0: int = 0,  # absolute position of k[:, :, 0]
+    s_stride: int = 1,  # key row j at position s_pos0 + j * s_stride
 ):
-    """Blockwise causal GQA attention state (acc, m, l), f32."""
-    _quant("flash_attention_stats", k, v)
+    """Blockwise causal GQA attention state (acc, m, l), f32. With
+    ``s_stride`` > 1 the keys are a strided sequence shard (sequence
+    parallelism's cyclic layout: shard i of sp holds positions i, i + sp,
+    ...): the C entry ``flash_attention_stats_strided``, whose launches
+    count under `flash_attention_stats_strided`; a dense cache only."""
+    quant = _quant("flash_attention_stats", k, v)
+    if s_stride < 1:
+        raise ValueError(f"flash_attention_stats: s_stride must be >= 1, got {s_stride}")
     if q.device.type == "cpu":
-        return flash_attention_stats_ref(q, k, v, q_pos0, s_pos0)
+        return flash_attention_stats_ref(q, k, v, q_pos0, s_pos0, s_stride)
     _check_cuda("flash_attention_stats", q, k, v)
     b, t, h, hd = q.shape
     kh, s = k.shape[1], k.shape[2]
     pos = _lane_pos(q_pos0, b, q.device)
     acc, m, l = _stats_out(q, kh)
+    if s_stride > 1:
+        if quant:
+            raise TypeError("flash_attention_stats: a strided shard takes a dense cache "
+                            "(int8 KV under sequence parallelism is not ported)")
+        code = _build.load("flash_attention_stats_strided")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), int(s_pos0),
+            int(s_stride), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
+            float(1.0 / np.sqrt(hd)), _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype],
+            _build.stream(q.device),
+        )
+        _build.check(code, "flash_attention_stats_strided")
+        flash_attention_stats_strided.launches += 1
+        return acc, m, l
     code = _build.load(_entry("flash_attention_stats", q, k))(
         q.data_ptr(), *_kv_ptrs(k, v), pos.data_ptr(), int(s_pos0),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
@@ -288,6 +319,53 @@ def flash_decode(
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_stats_ref(q, k, v, pos, s_pos0: int = 0, s_stride: int = 1):
+    """Plain version of `flash_decode_stats`: `attention_stats` at T = 1."""
+    return attention_stats(q, *_plain_kv(k, v), pos, s_pos0, s_stride)
+
+
+def flash_decode_stats(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k: torch.Tensor,  # [B, KH, Ss, hd]: one sequence shard, dense
+    v: torch.Tensor,
+    pos,  # int or [B]: the query's position per lane
+    s_pos0: int = 0,  # absolute position of k[:, :, 0]
+    s_stride: int = 1,  # key row j at position s_pos0 + j * s_stride
+):
+    """Unnormalized decode state over one sequence shard, f32: (acc [B, KH,
+    G, 1, hd], m and l [B, KH, G, 1]), the `attention_stats` contract that
+    sequence parallelism merges by log-sum-exp across shards (the TPU
+    kernel's ``emit_stats``; JAX surface ``flash_decode_stats``, which has
+    no stride: the port's sp cache is cyclic, as the JAX engine's is). A
+    shard wholly in the query's future reads nothing and gives m = -1e30,
+    l = 0, acc = 0."""
+    if q.shape[1] != 1:
+        raise ValueError("flash_decode_stats is the T=1 path")
+    if _quant("flash_decode_stats", k, v):
+        raise TypeError("flash_decode_stats: takes a dense cache "
+                        "(int8 KV under sequence parallelism is not ported)")
+    if s_stride < 1:
+        raise ValueError(f"flash_decode_stats: s_stride must be >= 1, got {s_stride}")
+    if q.device.type == "cpu":
+        return flash_decode_stats_ref(q, k, v, pos, s_pos0, s_stride)
+    _check_cuda("flash_decode_stats", q, k, v)
+    b, _, h, hd = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    p = _lane_pos(pos, b, q.device)
+    acc, m, l = _stats_out(q, kh)
+    code = _build.load("flash_decode_stats")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), int(s_pos0), int(s_stride),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, kh, s, hd, float(1.0 / np.sqrt(hd)),
+        _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype], _build.stream(q.device),
+    )
+    _build.check(code, "flash_decode_stats")
+    flash_decode_stats.launches += 1
+    return acc, m, l
+
+
+flash_decode_stats.launches = 0
 
 
 def paged_flash_decode_ref(q, k_pages, v_pages, page_table, pos) -> torch.Tensor:

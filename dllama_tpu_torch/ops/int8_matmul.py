@@ -164,10 +164,10 @@ def i8matmul(x: torch.Tensor, w: Int8Weight, act_quant=quantize_acts) -> torch.T
 i8matmul_2d.launches = 0
 
 
-def pick_group(h) -> int:
-    """Largest group <= 512 dividing every contraction dim (dim, q_dim and
-    ff_dim)."""
-    dims = [h.dim, h.q_dim, h.ff_dim]
+def pick_group(h, tp: int = 1) -> int:
+    """Largest group <= 512 dividing every contraction dim a tp rank holds
+    (dim, q_dim / tp and ff_dim / tp: the column slices of wo and w2)."""
+    dims = [h.dim, h.q_dim // tp, h.ff_dim // tp]
     g = math.gcd(*dims)
     group = min(512, g)
     while group > 1 and any(d % group for d in dims):

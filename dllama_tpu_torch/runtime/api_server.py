@@ -3070,7 +3070,7 @@ def main(argv=None) -> None:
     from ..cli import load_engine
 
     args = build_parser().parse_args(argv)
-    engine, tok = load_engine(args)
+    engine, tok = load_engine(args, serving=True)
     ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
              else ChatTemplateType.UNKNOWN)
     server = serve(

@@ -42,6 +42,21 @@ replayed after it. ``cuda_graphs=False`` (or setting ``engine.cuda_graphs``)
 runs them eagerly; the CPU always does. Either way a forward reads its
 inputs from the static buffers the host fills before it runs.
 
+Tensor and sequence parallelism (``tp``, ``sp``, with this rank's ``mesh``
+from parallel/mesh.py; one engine a rank, ``tp * sp`` ranks): the params
+are the rank's tp slices, read from the file as slices
+(models/loader.py), the single stream's cache its [L, 1, KH/tp, S/sp, hd]
+shard in the cyclic row order, and every forward `models.forward_parallel`
+with the tp all-reduces in f32, or in q80 with ``buffer_float_type="q80"``
+(the reference's --buffer-float-type). Prefill buckets under sp are 1 or
+multiples of sp. ``prefill``, ``decode_step``, ``decode_block`` (greedy, or
+sampled with one seed on every rank, so that every rank draws the same
+token from the same gathered logits), ``generate`` and ``perplexity`` run
+on every rank in step; with more than one rank they run eagerly (a gloo
+collective cannot be captured in a CUDA graph). Lanes, the KV pool, the
+draft model, an int8 cache under sp and Qwen3-MoE raise under world > 1
+(ROADMAP A.14's next slice).
+
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; on the card
 every matmul and attention goes through the port's CUDA kernels. Weight
 formats: ``q40`` (int8 values + f16 scales), ``q40i4`` (packed nibbles),
@@ -107,6 +122,8 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
+from ..parallel.mesh import validate_sp, validate_tp
+from ..parallel.sharding import kv_shard_shape
 from ..obs.cost import StepCostModel, extract_cost, hbm_peak_bytes_per_s, roofline_fraction
 from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
 from ..obs.recorder import get_recorder
@@ -172,6 +189,11 @@ KEY_KINDS = {
     "draft_prefill": "draft_prefill",
     "draft_step": "draft_step",
 }
+
+
+# what waits for ROADMAP A.14's next slice under tensor or sequence parallelism
+_NEXT_SLICE = ("{} under tensor or sequence parallelism is not ported yet "
+               "(ROADMAP A.14's next slice)")
 
 
 def _pairs(rows: int, pos: int) -> int:
@@ -303,22 +325,47 @@ class InferenceEngine:
         kv_dtype=None,
         prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
         moe_decode_dedup: bool | str = "auto",
+        tp: int = 1,
+        sp: int = 1,
+        buffer_float_type: str = "f32",
+        mesh=None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if buffer_float_type not in ("f32", "q80"):
+            raise ValueError(f"buffer_float_type must be 'f32' or 'q80', got "
+                             f"{buffer_float_type!r}")
+        self.tp, self.sp, self.mesh = tp, sp, mesh
+        self.world = tp * sp
+        self.sync_quant = buffer_float_type == "q80"
+        if self.world > 1:
+            if mesh is None or (mesh.tp.size, mesh.sp.size) != (tp, sp):
+                raise ValueError(f"tp={tp} x sp={sp} needs this rank's Mesh of the same shape "
+                                 "(parallel.mesh.init_distributed or parallel.launch.spawn)")
+            if batch_size > 1:
+                raise NotImplementedError(_NEXT_SLICE.format("lanes (batch_size > 1)"))
         self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self._init_obs()
-        self.graphs = StepGraphs(self.device, cuda_graphs)
+        # a gloo collective cannot be captured: world > 1 runs eagerly
+        self.graphs = StepGraphs(self.device, cuda_graphs and self.world == 1)
         self.reader = ModelReader(model_path, max_seq_len=max_seq_len)
         self.header: LlmHeader = self.reader.header
+        validate_tp(self.header, tp)
+        validate_sp(self.header, sp)
+        if self.world > 1 and self.header.n_experts:
+            raise NotImplementedError(_NEXT_SLICE.format("Qwen3-MoE"))
+        if sp > 1 and self.kv_dtype == torch.int8:
+            raise NotImplementedError(_NEXT_SLICE.format("the int8 KV cache (sequence shards)"))
         self.dtype = dtype
         self.temperature = temperature
         self.sampler = Sampler(self.header.vocab_size, temperature, topp, seed)
+        # under sp a chunk wider than 1 splits its queries over the sp ranks
         self.prefill_buckets = tuple(
-            b for b in sorted(prefill_buckets) if b <= self.header.seq_len
-        ) or (1,)
+            b for b in sorted(prefill_buckets)
+            if b <= self.header.seq_len and (sp == 1 or b == 1 or b % sp == 0)
+        ) or ((1,) if sp == 1 else (sp,))
         self.moe_decode_dedup = resolve_moe_decode_dedup(moe_decode_dedup, self.header,
                                                          batch_size)
         # "auto": Q40 on the card (the kernel path), dense elsewhere, as the
@@ -335,19 +382,32 @@ class InferenceEngine:
                 f"got {weight_format!r}"
             )
         self.weight_format = weight_format
+        if weight_format != "dense" and tp > 1:
+            # a column slice of a quantized weight cuts its scales' block axis
+            # (in/32): every contraction dim must divide by 32 * tp
+            for dim_name, dim in (("dim", self.header.dim), ("qDim", self.header.q_dim),
+                                  ("hiddenDim", self.header.ff_dim)):
+                if dim % (32 * tp) != 0:
+                    raise ValueError(f"q40 weight format with tp={tp} needs {dim_name} "
+                                     f"divisible by {32 * tp}, got {dim}")
         # q40i8 loads the file's Q40 blocks, then requantizes on the device
         self.params = load_params(
             self.reader, dtype=dtype, device=self.device,
             weight_format="q40" if weight_format == "q40i8" else weight_format,
+            shard=(tp, mesh.tp.index) if tp > 1 else None,
         )
         self.i8_group = 0
         if weight_format == "q40i8":
-            self.i8_group = pick_group(self.header)
+            self.i8_group = pick_group(self.header, tp)
             self.params = requantize_params(self.params, self.header, self.i8_group)
-        self.cache = init_kv_cache(self.header, 1, dtype=self.kv_dtype, device=self.device)
+        if self.world > 1:
+            shape = kv_shard_shape(self.header, tp, sp)
+            self.cache = {n: new_kv_leaf(shape, self.kv_dtype, self.device) for n in ("k", "v")}
+        else:
+            self.cache = init_kv_cache(self.header, 1, dtype=self.kv_dtype, device=self.device)
         self._cost = StepCostModel(self.header, self.params,
                                    torch.empty(0, dtype=self.kv_dtype).element_size(),
-                                   self.kv_dtype == torch.int8)
+                                   self.kv_dtype == torch.int8, tp=tp, sp=sp)
         # slab lanes: their slab (allocated at the first lane call), its
         # padding rows (the widest chunk a parked lane writes) and the first
         # of them, where parked lanes write
@@ -644,9 +704,39 @@ class InferenceEngine:
 
     def _forward(self, tokens, pos, cache, **kw):
         """The target's forward (`models.forward`) over the engine's params,
-        with its MoE decode tiering."""
+        with its MoE decode tiering, and under world > 1 this rank's mesh."""
+        if self.world > 1:
+            kw.update(mesh=self.mesh, sync_quant=self.sync_quant)
         return forward(self.params, self.header, tokens, pos, cache,
                        moe_dedup=self.moe_decode_dedup, **kw)
+
+    def _pos(self, buf: torch.Tensor, pos: int):
+        """A forward's position: the static buffer a graph replays with, or
+        under world > 1 (eager, module docstring) the host int."""
+        return pos if self.world > 1 else buf
+
+    def _single_rank(self, what: str) -> None:
+        if self.world > 1:
+            raise NotImplementedError(_NEXT_SLICE.format(what))
+
+    @torch.inference_mode()
+    def step_logits(self, token: int, pos: int) -> torch.Tensor:
+        """f32 logits [V] of one decode step of ``token`` at ``pos`` (its row
+        written to the cache, as `decode_step` does), run eagerly, on the
+        host."""
+        tok = torch.tensor([[token]], dtype=I64, device=self.device)
+        logits, _ = self._forward(tok, pos, self.cache, logits_mode="last")
+        return logits[0, -1].float().cpu()
+
+    @torch.inference_mode()
+    def prompt_logits(self, tokens: list[int]) -> torch.Tensor:
+        """f32 logits [T, V] of every row of ``tokens`` from a fresh cache, in
+        one forward at position 0 (the single stream's cache holds the prompt
+        after it), on the host."""
+        self.reset()
+        tok = torch.tensor([tokens], dtype=I64, device=self.device)
+        logits, _ = self._forward(tok, 0, self.cache, logits_mode="all")
+        return logits[0].float().cpu()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -663,6 +753,12 @@ class InferenceEngine:
         space = self.header.seq_len - pos
         fitting = [b for b in self.prefill_buckets if b <= space]
         if not fitting:
+            # under sp a chunk wider than 1 splits its queries over sp ranks:
+            # round down to a multiple of sp (or a width-1 chunk)
+            if self.sp > 1 and space % self.sp:
+                space -= space % self.sp
+                if space == 0:
+                    return 1
             return max(space, 1)
         for b in fitting:
             if n <= b:
@@ -713,7 +809,7 @@ class InferenceEngine:
         b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
         self.graphs.put(b["tok"], tokens)
         self.graphs.put(b["pos"], pos)
-        self.graphs.run(key, lambda: self._forward(b["tok"], b["pos"], self.cache,
+        self.graphs.run(key, lambda: self._forward(b["tok"], self._pos(b["pos"], pos), self.cache,
                                                    logits_mode="last"))
 
     def _block_width(self, pos: int, block: int) -> int:
@@ -740,7 +836,8 @@ class InferenceEngine:
             next=((1,), I64)))
 
         def step():
-            logits, _ = self._forward(b["tok"], b["pos"], self.cache, logits_mode="last")
+            logits, _ = self._forward(b["tok"], self._pos(b["pos"], pos), self.cache,
+                                      logits_mode="last")
             b["logits"].copy_(logits[:, -1, :])
             if greedy:
                 b["next"].copy_(torch.argmax(logits[:, -1, :], dim=-1))
@@ -794,7 +891,8 @@ class InferenceEngine:
             tok = b["tok"]
             for i in range(n):
                 p = b["pos"] + i
-                logits, _ = self._forward(tok, p, self.cache, logits_mode="last")
+                logits, _ = self._forward(tok, self._pos(p, pos + i), self.cache,
+                                          logits_mode="last")
                 last = logits[:, -1, :]
                 if greedy:
                     nxt = torch.argmax(last, dim=-1)
@@ -901,7 +999,8 @@ class InferenceEngine:
             self.graphs.put(b[name], values)
 
         def score():
-            logits, _ = self._forward(b["tok"], b["pos"], self.cache, logits_mode="all")
+            logits, _ = self._forward(b["tok"], self._pos(b["pos"], pos), self.cache,
+                                      logits_mode="all")
             b["nll"].copy_(chunk_nll(logits, b["tgt"], b["mask"]))
 
         cost = self._cost.forward(t, t, pos + t, t, _pairs(t, pos))
@@ -966,6 +1065,7 @@ class InferenceEngine:
 
         Every captured graph is dropped: the lanes' graphs of the other
         mode, and those that read the old pool's pointers."""
+        self._single_rank("the KV pool")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if native and self.device.type == "cuda" and (
@@ -1547,6 +1647,7 @@ class InferenceEngine:
         shapes), its slab cache [L_d, B, KH_d, S_d + pad, hd_d] in the
         engine's dtype with the lanes' padding rows. Its vocab must be the
         target's: drafts are target token ids. Needs lanes."""
+        self._single_rank("the draft model")
         if self.batch_size < 2:
             raise ValueError("per-lane serving needs batch_size > 1 "
                              "(lanes park their writes in cache padding rows)")

@@ -210,3 +210,36 @@ def test_fleet_slice_modules_are_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+PARALLEL_MODULES = ("mesh", "collectives", "sharding", "ring_attention", "launch")
+
+
+def test_parallel_slice_modules_are_covered():
+    """The parallel slice's files (parallel/__init__.py, its five modules and
+    utils/telemetry.py) are among the modules and files checked above; the
+    package, the launcher and the telemetry import with jax, dllama_tpu and
+    triton blocked and no card asked for."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.parallel" in mods and "dllama_tpu_torch.utils.telemetry" in mods
+    assert os.path.join(PKG, "parallel", "__init__.py") in files
+    assert os.path.join(PKG, "utils", "telemetry.py") in files
+    for m in PARALLEL_MODULES:
+        assert f"dllama_tpu_torch.parallel.{m}" in mods
+        assert os.path.join(PKG, "parallel", m + ".py") in files
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'dllama_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "import dllama_tpu_torch.parallel as par\n"
+        "from dllama_tpu_torch.parallel.launch import spawn, jobs_target, cli_target\n"
+        "from dllama_tpu_torch.parallel.collectives import all_reduce, quantize_q80_blocks\n"
+        "from dllama_tpu_torch.utils.telemetry import ici_traffic_per_token, memory_report\n"
+        "assert par.make_mesh(1, 1, 'cpu').world == 1 and par.Mesh and par.shard_params\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -69,8 +69,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    tokens, every forward a CUDA graph (each shape eager on its first use,
    then captured and replayed: `dllama_tpu_torch/runtime/graphs.py`).
    llama-8b (32 layers) with ``--weight-format q40`` (also with
-   ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (`MOE_LAYERS`
-   of 48 layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
+   ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (`MOE_LAYERS`,
+   24 of 48 layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
    Q40); qwen3-30b-a3b at 4 layers with ``dense`` (bf16 experts: full
    depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
@@ -191,11 +191,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    ``python -m dllama_tpu_torch.fleet.launch`` with two replica processes. Depth cuts
    for the time (PR 18): llama-8b ``q40 kv-int8``, ``q40i4`` and ``q40i8``
    at `CUT_LAYERS` of 32 layers, qwen3-30b-a3b ``q40i8`` on the 4-layer
-   file. qwen3-30b-a3b ``q40`` and its dedup round run the whole 48 layers
-   (`MOE_LAYERS`); a child process writes that 17 GB file
-   (`start_prewrite`) while the card runs the llama-8b paths.
-   The parallel round (`parallel_round`, after the fleet phase on
-   the same files): tensor and sequence parallelism, the ranks
+   file; qwen3-30b-a3b ``q40`` and its dedup round at `MOE_LAYERS` (24 of 48,
+   for the parallel serving round's time); a child process writes
+   that file (`start_prewrite`) while the card runs the llama-8b paths.
+   The parallel round (`parallel_round`, last, on the llama-8b files
+   kept for it, once the child writing the qwen3 file has ended): tensor and sequence parallelism, the ranks
    (parallel/launch.py) sharing the one card over gloo (NCCL runs no two
    ranks on one device). Phase 2 adds the two kernel options of sequence
    parallelism at llama-8b's tp 2 x sp 2 shard shapes (H 16, KH 4, a
@@ -203,9 +203,14 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    256, 1, 3 and 5 (`check_attention_strided`) and the decode kernel
    emitting its state (`check_decode_stats`: s_pos0 0 and 1, stride 2, a
    shard wholly in the future), bf16 and f32, and the Q40 kernel at the tp
-   = 2 slices of llama-8b's weights (`check_q40_tp`). The one-rank
-   references run first, then one spawned world of 2 ranks takes every
-   2-rank job in turn and one of 4 the 2 x 2 job. (b) llama-8b q40
+   = 2 slices of llama-8b's weights (`check_q40_tp`); and the kernels of
+   serving at the lane shard shapes (`check_lane_shards`: the paged decode
+   and the paged verify stats at tp = 2 heads, the slab decode at KH 4
+   with a parked lane, the decode stats over an sp = 2 shard of the lanes'
+   slab with a parked lane, the Q40 GEMV at m = 4 on the tp = 2 slices).
+   The one-rank references run first (and the f32 servers' and the chat's
+   answers at tp = 1), then one spawned world of 2 ranks takes every
+   2-rank job in turn and one of 4 the 2 x 2 jobs. (b) llama-8b q40
    bf16, 32 layers, tp = 2: each rank holds half of the layer bytes, and
    the first decode step's logits after a 512-row chunk lie within
    `TOL_TP_BF16` of one rank's (where the greedy streams part is printed);
@@ -217,7 +222,19 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    -m dllama_tpu_torch inference --tp 2 --device cuda:0``: exit 0, the
    backend line naming gloo, rank 0's lines; (f) each rank's decode token:
    device ms, its collectives' host ms and bytes against
-   ``ici_traffic_per_token``, its launches.
+   ``ici_traffic_per_token``, its launches; (g) serving at tp = 2 on the
+   32-layer bf16 file (parallel/launch.serve_target: rank 0 serves the
+   seven-request mix over 4 pool-native lanes and controls, the other rank
+   follows, parallel/control.py): every request completes, every rank's
+   control digest and kernel launches equal rank 0's, each rank's pool
+   holds half the KV heads (half of tp = 1's page bytes); where each answer
+   parts from the serving phase's tp = 1 answer and the lane tok/s are
+   printed, not gated; (h) the 4-layer file in f32: native lanes at tp 2,
+   slab lanes at sp 2 and tp 2 x sp 2, n-gram and draft speculation, an
+   int8 pool and the serialized server at tp 2, and a decode poison at tp
+   2 (``cache_epoch`` 1 on every rank): every answer byte-equal to the tp =
+   1 server's; ``chat --tp 2`` on stdin prints the one-rank chat's
+   transcript.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
    ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
@@ -231,6 +248,7 @@ Imports nothing of JAX or dllama_tpu.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import gc
 import json
 import math
@@ -279,10 +297,12 @@ SAMPLED_TOKENS = 32  # tokens of each sampled stream
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
 N_LAYERS = 32  # the whole llama-8b depth
-# the qwen3-30b-a3b q40 path and its dedup round: the whole depth (writing
-# the file took 57-81 s on an H100 machine's host, so a child process
-# writes it while the llama-8b phases run: `start_prewrite`)
-MOE_LAYERS = 48
+# the qwen3-30b-a3b q40 path and its dedup round: 24 of the 48 layers, cut
+# to keep the smoke inside its time with the parallel serving round (the
+# same kernels at the same widths, each layer a repeat of the first); a
+# child process writes the file while the llama-8b phases run
+# (`start_prewrite`)
+MOE_LAYERS = 24
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 # model file -> (its label, preset, layers, the runs on it: a weight format,
 # " kv-int8" added for the int8 KV cache)
@@ -4519,6 +4539,130 @@ def check_q40_tp(device, gen, timed: bool = True) -> list[dict]:
                             for k, n in TP_Q40_SHAPES], tag=" tp=2")
 
 
+LANE_TP = dict(h=16, kh=4)  # llama-8b's heads a rank at tp = 2
+LANE_SP_S = (4096 + SLAB_PAD) // 2  # a rank's rows of the lanes' slab at sp = 2
+LANE_SP_POS = (0, 15, 16, 4095, -1)  # four live lanes and one parked
+
+
+def check_lane_shards(device, gen, timed: bool = True) -> list[dict]:
+    """The kernels of serving under tp and sp at the lane shard shapes,
+    each against its plain version, launched twice with equal bits: the
+    paged decode at tp = 2 heads (H 16 over KH 4, hd 128, page 16, B = 4
+    at `PAGED_POS`) and the paged stats at the verify widths (T 2, 3, 5,
+    B = 4 + 1 parked at -T); the slab decode at KH 4 over the lanes' slab
+    of 4096 + 512 rows, B = 4 + 1 parked; the decode stats over a rank's
+    cyclic shard of that slab at sp = 2 (H 32 over KH 8, `LANE_SP_S` rows,
+    stride 2, ``s_pos0`` 0 and 1, B = 4 + 1 parked at -1: the parked lane's
+    state must be m = -1e30, l = 0, acc = 0 on every shard); and the Q40
+    GEMV at m = 4 (the lanes) on the tp = 2 slices. bf16, as the tp = 2
+    serving round runs; library_ms: SDPA on the gathered view or the slab
+    where one call attends the same rows, none for the stats."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_decode, flash_decode_ref, flash_decode_stats, flash_decode_stats_ref,
+        paged_flash_attention_stats, paged_flash_attention_stats_ref, paged_flash_decode,
+        paged_flash_decode_ref,
+    )
+    from dllama_tpu_torch.ops.kv_cache import lane_views
+
+    h, kh, hd, dt = LANE_TP["h"], LANE_TP["kh"], 128, torch.bfloat16
+    es = 2
+    rows = []
+
+    def row(name, shape, got, ref, n_bytes, ops, fn, plain, lib=None):
+        errs = [norm_err(a, b) for a, b in zip(*((got, ref) if isinstance(got, tuple)
+                                                 else ((got,), (ref,))))]
+        rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+        tol = TOL if isinstance(got, tuple) else TOL_BF16_OUT
+        require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
+        b_ms, b_by = bound(n_bytes, ops)
+        r = dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None)
+        if timed:
+            r["ms"] = time_ms(fn, device)
+            r["plain_ms"] = time_ms(plain, device, 5)
+            if lib is not None:
+                r["library_ms"] = time_ms(lib, device)
+        rows.append(r)
+
+    # the paged decode and the paged verify stats at tp = 2 heads
+    (kp, vp), pt, _, _, _ = _paged_case(device, gen, h, kh, dt)
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=device)
+    q = torch.randn((4, 1, h, hd), device=device, generator=gen).to(dt)
+    shape = f"bf16 H={h} KH={kh} B=4 pos={','.join(map(str, PAGED_POS))} tp=2"
+    got = twice_equal(lambda: paged_flash_decode(q, kp, vp, pt, pos), f"paged_flash_decode {shape}")
+    live = sum(p + 1 for p in PAGED_POS)
+    kv_k, kv_v = lane_views(kp, pt), lane_views(vp, pt)
+    mask = (torch.arange(4096, device=device)[None, :] <= pos[:, None])[:, None, None]
+    row("paged_flash_decode", shape, got, paged_flash_decode_ref(q, kp, vp, pt, pos),
+        2 * kh * live * hd * es + 2 * q.numel() * es + pt.numel() * 4, 4.0 * hd * h * live,
+        lambda: paged_flash_decode(q, kp, vp, pt, pos),
+        lambda: paged_flash_decode_ref(q, kp, vp, pt, pos),
+        lambda: _sdpa(q.transpose(1, 2), kv_k, kv_v, mask))
+    b = len(VERIFY_POS) + 1
+    ptv = torch.cat([pt, pt[:1]])  # the parked fifth lane's row: any pages
+    for t in VERIFY_T:
+        q_pos0 = torch.tensor(VERIFY_POS + (-t,), dtype=torch.int32, device=device)
+        qv = torch.randn((b, t, h, hd), device=device, generator=gen).to(dt)
+        shape = f"bf16 H={h} KH={kh} B=4+1 T={t} verify tp=2"
+        got = twice_equal(lambda: paged_flash_attention_stats(qv, kp, vp, ptv, q_pos0),
+                          f"flash_attention_stats {shape}")
+        acc, m, l = got
+        require(bool((acc[-1] == 0).all() and (l[-1] == 0).all() and (m[-1] <= -1e29).all()),
+                f"flash_attention_stats {shape}: the parked lane's state is not empty")
+        ref = paged_flash_attention_stats_ref(qv, kp, vp, ptv, q_pos0)
+        vis = sum(p + i + 1 for p in VERIFY_POS for i in range(t))
+        row("flash_attention_stats", shape, tuple(x[:-1] for x in got),
+            tuple(x[:-1] for x in ref),
+            qv.numel() * es + 2 * kh * hd * es * sum(p + t for p in VERIFY_POS)
+            + h * b * t * (hd + 2) * 4 + ptv.numel() * 4, 4.0 * hd * h * vis,
+            lambda: paged_flash_attention_stats(qv, kp, vp, ptv, q_pos0),
+            lambda: paged_flash_attention_stats_ref(qv, kp, vp, ptv, q_pos0))
+    del kp, vp, kv_k, kv_v
+
+    # the slab decode at KH 4 over the lanes' slab, one lane parked
+    s = 4096 + SLAB_PAD
+    k, v = (torch.randn((b, kh, s, hd), device=device, generator=gen).to(dt) for _ in range(2))
+    pos = torch.tensor(SLAB_DECODE_POS, dtype=torch.int32, device=device)
+    q = torch.randn((b, 1, h, hd), device=device, generator=gen).to(dt)
+    shape = f"bf16 H={h} KH={kh} B=4+1 S={s} pos={','.join(map(str, SLAB_DECODE_POS))} slab tp=2"
+    got = twice_equal(lambda: flash_decode(q, k, v, pos), f"flash_decode {shape}")
+    require(bool((got[-1] == 0).all()), f"flash_decode {shape}: the parked lane is not zero")
+    live = sum(p + 1 for p in SLAB_DECODE_POS if p >= 0)
+    mask = (torch.arange(s, device=device)[None, :] <= pos[:, None])[:, None, None]
+    row("flash_decode", shape, got, flash_decode_ref(q, k, v, pos),
+        2 * kh * live * hd * es + 2 * q.numel() * es, 4.0 * hd * h * live,
+        lambda: flash_decode(q, k, v, pos), lambda: flash_decode_ref(q, k, v, pos),
+        lambda: _sdpa(q.transpose(1, 2), k, v, mask))
+    del k, v
+
+    # the decode stats over a rank's cyclic shard of the lanes' slab at sp = 2
+    hs, khs = 32, 8
+    k, v = (torch.randn((b, khs, LANE_SP_S, hd), device=device, generator=gen).to(dt)
+            for _ in range(2))
+    pos = torch.tensor(LANE_SP_POS, dtype=torch.int32, device=device)
+    q = torch.randn((b, 1, hs, hd), device=device, generator=gen).to(dt)
+    for s0 in (0, 1):
+        shape = (f"bf16 H={hs} KH={khs} B=4+1 S={LANE_SP_S} stride=2 s_pos0={s0} "
+                 f"pos={','.join(map(str, LANE_SP_POS))} sp=2")
+        got = twice_equal(lambda: flash_decode_stats(q, k, v, pos, s0, 2),
+                          f"flash_decode_stats {shape}")
+        acc, m, l = got
+        require(bool((acc[-1] == 0).all() and (l[-1] == 0).all() and (m[-1] <= -1e29).all()),
+                f"flash_decode_stats {shape}: the parked lane's state is not empty")
+        n_keys = sum(max(0, (p - s0) // 2 + 1) for p in LANE_SP_POS if p >= 0)
+        row("flash_decode_stats", shape, got, flash_decode_stats_ref(q, k, v, pos, s0, 2),
+            2 * khs * n_keys * hd * es + q.numel() * es + hs * b * (hd + 2) * 4,
+            4.0 * hd * hs * n_keys, lambda: flash_decode_stats(q, k, v, pos, s0, 2),
+            lambda: flash_decode_stats_ref(q, k, v, pos, s0, 2))
+    del k, v
+    # the Q40 GEMV at the lanes' m = 4 on the tp = 2 slices
+    return rows + check_q40(device, gen, timed,
+                            cases=[(kk, n, [(4, torch.bfloat16)]) for kk, n in TP_Q40_SHAPES],
+                            tag=" tp=2 lanes")
+
+
 def _tp_prompt(n: int, vocab: int) -> list[int]:
     """A fixed prompt of n token ids (BOS 1 first) below the vocabulary."""
     return [1] + [(i * 7919 + 13) % (vocab - 8) + 8 for i in range(n - 1)]
@@ -4546,15 +4690,180 @@ def _print_ranks(label: str, results: list, h, tp: int, sync_quant: bool = False
               f"ici_traffic_per_token {model}; launches {json.dumps(launches)}")
 
 
+PAR_SERVE_TOKENS = 32  # (h): max_tokens of each request of the f32 servers' mix
+PAR_CHAT_SEQ = 256  # (h): the chat's context; its first reply runs to the end
+PAR_CHAT_TURNS = "hello there\nand one more thing\n"
+PAR_POISON = "dispatch:op=decode_lanes:nth=3:kind=poison"  # (h): a decode poison at tp = 2
+
+
+def _par_payloads(tok, max_tokens: int) -> list[dict]:
+    """The serving phase's seven-request mix with ``max_tokens`` each, none
+    streamed (each answer then counts its tokens)."""
+    return [dict(p, max_tokens=max_tokens, stream=False) for p in serving_payloads(tok)]
+
+
+def _par_serve_kw(**serve) -> dict:
+    """`serve`'s arguments of the parallel serving round: the serving
+    phase's model name, template and page size."""
+    from dllama_tpu_torch.tokenizer import ChatTemplateType
+
+    return dict(model_name="llama-8b", chat_template_type=ChatTemplateType.LLAMA3,
+                kv_page_size=PAGE, **serve)
+
+
+def _par_job(model: str, tok: str, tp: int, sp: int, dtype: str, payloads: list[dict],
+             batch_size: int = SERVE_LANES, kv_dtype: str | None = None, **serve) -> tuple:
+    """A server job of parallel/launch.serve_target (rank 0 serves, the
+    other ranks follow)."""
+    return ("serve", dict(model=model, tokenizer=tok, tp=tp, sp=sp, dtype=dtype,
+                          weight_format="q40", batch_size=batch_size, kv_dtype=kv_dtype,
+                          requests=payloads, serve=_par_serve_kw(**serve)))
+
+
+def _tp1_answers(model: str, tok: str, payloads: list[dict], batch_size: int = SERVE_LANES,
+                 kv_dtype: str | None = None, **serve) -> list:
+    """The one-rank f32 server's answers on the card: the truth of (h)."""
+    import threading
+
+    import torch
+
+    from dllama_tpu_torch.parallel.launch import ask_all
+    from dllama_tpu_torch.runtime.api_server import serve as serve_fn
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    eng = InferenceEngine(model, dtype=torch.float32, temperature=0.0, weight_format="q40",
+                          device="cuda", batch_size=batch_size, kv_dtype=kv_dtype)
+    srv = serve_fn(eng, Tokenizer(tok), host="127.0.0.1", port=0, **_par_serve_kw(**serve))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        return ask_all(f"http://127.0.0.1:{srv.server_address[1]}", payloads)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        release_engine(eng)
+
+
+def _chat_argv(model: str, tok: str) -> list[str]:
+    return ["chat", "--model", model, "--tokenizer", tok, "--temperature", "0", "--dtype",
+            "f32", "--weight-format", "q40", "--chat-template", "llama3", "--max-seq-len",
+            str(PAR_CHAT_SEQ)]
+
+
+def _chat_tp1(model: str, tok: str) -> str:
+    """The one-rank chat's transcript from its banner on, run in process on
+    the card with the two turns on stdin."""
+    import io
+
+    from dllama_tpu_torch import cli
+
+    out, stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO(PAR_CHAT_TURNS)
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(_chat_argv(model, tok) + ["--device", "cuda"])
+    finally:
+        sys.stdin = stdin
+    text = out.getvalue()
+    return text[text.index("💬 Chat mode"):]
+
+
+def _same_ranks(label: str, results: list) -> dict:
+    """Gate: every rank ran rank 0's commands and returned its tokens (the
+    control plane's digest), launched the same kernels as often, and ended
+    at the same cache epoch. Returns rank 0's result."""
+    first = results[0]
+    for r, x in enumerate(results[1:], 1):
+        require(x["summary"] == first["summary"],
+                f"{label}: rank {r}'s control summary {x['summary']} differs from rank 0's "
+                f"{first['summary']}")
+        require(x["launches"] == first["launches"],
+                f"{label}: rank {r}'s kernel launches differ from rank 0's")
+        require(x["cache_epoch"] == first["cache_epoch"],
+                f"{label}: rank {r}'s cache_epoch {x['cache_epoch']} differs from rank 0's "
+                f"{first['cache_epoch']}")
+    return first
+
+
+def _par_serving_report(world2: list, world4: list, jobs2: dict, jobs4: dict, truth: dict,
+                        tok, h, h4, smi: str) -> dict:
+    """(g) and (h) of the parallel round: the servers' answers and gates.
+    ``jobs2``/``jobs4``: label -> (job index, truth key); returns the launch
+    counts by label."""
+    counts = {}
+    label = "llama-8b q40 tp2 serving"
+    i, _ = jobs2[label]
+    res = [r[i] for r in world2]
+    first = _same_ranks(label, res)
+    answers = first["answers"][0]
+    require(all(isinstance(a, str) for a in answers), f"{label}: requests failed: {answers}")
+    page1 = 2 * h.n_layers * h.n_kv_heads * PAGE * h.head_dim * 2  # bf16, tp = 1
+    for r, x in enumerate(res):
+        require(x["pool_shape"][2] * 2 == h.n_kv_heads and x["page_bytes"] * 2 == page1,
+                f"{label} rank {r}: pool {x['pool_shape']}, page {x['page_bytes']} B; want "
+                f"{h.n_kv_heads // 2} heads and {page1 // 2} B, half of tp = 1's")
+    n_tok = sum(first["tokens"][0])
+    wall = first["wall_s"][0]
+    parts = []
+    solo = SERVE_TRUTH.get("solo")
+    for j, a in enumerate(answers):
+        if solo:
+            parts.append("equal" if a == solo[j]["content"] else
+                         "parts at " + _parts_at(tok, solo[j]["tokens"], solo[j]["content"], a))
+    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, {SERVE_LANES} "
+          f"pool-native lanes a rank, {len(answers)} requests greedy, every one completed; "
+          f"pool {first['pool_shape']} a rank, page {first['page_bytes']} B against "
+          f"{page1} B at tp = 1; control {first['summary']['commands']} commands, "
+          f"digest equal on every rank; {smi}")
+    print(f"parallel serve {label}: each answer against the tp = 1 answer (not gated: bf16 "
+          f"partials sum in another order): {parts if solo else 'no tp = 1 answers this run'}")
+    print(f"parallel serve {label}: lane tok/s {n_tok / wall:.3f} ({n_tok} tokens in "
+          f"{wall:.3f} s; values only, ranks share one card over gloo), {smi}")
+    counts[label] = first["launches"]
+
+    print(f"== llama-8b q40 f32 parallel serving (ranks share one card over gloo): "
+          f"{ACCEPT_LAYERS} layers at full width, f32, the mix at {PAR_SERVE_TOKENS} tokens a "
+          f"request; every server's answers must equal the tp = 1 server's bytes")
+    for jobs, world in ((jobs2, world2), (jobs4, world4)):
+        for label, (i, key) in jobs.items():
+            if key is None:
+                continue
+            res = [r[i] for r in world]
+            first = _same_ranks(label, res)
+            answers = first["answers"][0]
+            bad = [j for j, (a, b) in enumerate(zip(answers, truth[key])) if a != b]
+            epochs = [x["cache_epoch"] for x in res]
+            print(f"parallel serve {label}: answers equal tp = 1 ({key}) "
+                  f"{len(answers) - len(bad)} of {len(answers)}; {len(res)} ranks, control "
+                  f"{first['summary']['commands']} commands, digest equal; cache_epoch "
+                  f"{epochs}; wall {first['wall_s'][0]:.2f} s")
+            require(not bad, f"{label}: answers {bad} differ from the tp = 1 server's")
+            require(epochs == [1 if "poison" in label else 0] * len(res),
+                    f"{label}: cache epochs {epochs}")
+            if "sp2" in label:
+                for r, x in enumerate(res):
+                    require(x["launches"]["flash_decode_stats"] > 0,
+                            f"{label} rank {r}: flash_decode_stats was not launched")
+            counts[label] = first["launches"]
+    return counts
+
+
 def parallel_round(tmp: str, smi: str) -> dict:
     """The parallel round (ranks share the one card over gloo: NCCL runs no
     two ranks on one device; the one-rank references first, then one world
-    of 2 ranks for every 2-rank job and one of 4 for the 2 x 2 job): (b)
+    of 2 ranks for every 2-rank job and one of 4 for the 2 x 2 jobs): (b)
     llama-8b q40 bf16 at full width and depth, tp = 2 against tp = 1; (c)
     the 4-layer llama-8b file in f32, sp = 2 and tp 2 x sp 2 against one
     rank; (d) tp = 2 with the q80 sync buffer against f32; (e) the CLI at
-    --tp 2; (f) each rank's decode token. Returns the launch counts of each
-    run, by label."""
+    --tp 2; (f) each rank's decode token; (g) serving the seven-request mix
+    at tp = 2 on the 32-layer bf16 file over pool-native lanes, rank 0
+    controlling and the other rank following (parallel/control.py): every
+    request completes, each rank launches the same kernels as often, each
+    pool holds half the heads; (h) the f32 4-layer servers (native lanes at
+    tp 2, slab lanes at sp 2 and 2 x 2, n-gram and draft speculation, an
+    int8 pool and the serialized path at tp 2, a decode poison at tp 2) and
+    a two-turn chat at --tp 2, each byte-equal to tp = 1. Returns the launch
+    counts of each run, by label."""
     import numpy as np
     import torch
 
@@ -4597,6 +4906,17 @@ def parallel_round(tmp: str, smi: str) -> dict:
     want_stream = eng.generate(prompt, max_steps=calls[0][1], block_size=BLOCK)[0]
     release_engine(eng)
     del eng
+    # (h)'s truth: the one-rank f32 servers over the 4-layer file (pool-
+    # native lanes, an int8 pool, the serialized path) and the chat
+    from dllama_tpu_torch.tokenizer import Tokenizer
+
+    tokz = Tokenizer(tok)
+    pay_b = _par_payloads(tokz, SERVE_MAX_TOKENS)
+    pay_c = _par_payloads(tokz, PAR_SERVE_TOKENS)
+    truth = {"f32": _tp1_answers(ap, tok, pay_c, kv_native=True),
+             "int8": _tp1_answers(ap, tok, pay_c, kv_dtype="int8", kv_native=True),
+             "single": _tp1_answers(ap, tok, pay_c, batch_size=1)}
+    chat_tp1 = _chat_tp1(ap, tok)
     ref_s = time.perf_counter() - t0
 
     # one world of two ranks for every 2-rank job, then one of four
@@ -4608,27 +4928,53 @@ def parallel_round(tmp: str, smi: str) -> dict:
                 timed_steps=TIMED_STEPS)
     rng = np.random.default_rng(SEED)
     x = (rng.standard_normal((2, 1, h.dim)) * rng.uniform(0.1, 10, (2, 1, 1))).astype(np.float32)
-    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=300, args=([
+    # (g) and (h): the servers, label -> (job, the truth of its answers)
+    serve2 = [
+        ("llama-8b q40 tp2 serving", None, _par_job(mp, tok, 2, 1, "bf16", pay_b, kv_native=True)),
+        ("llama-8b q40 f32 tp2 serving", "f32", _par_job(ap, tok, 2, 1, "f32", pay_c,
+                                                         kv_native=True)),
+        ("llama-8b q40 f32 sp2 serving slab", "f32", _par_job(ap, tok, 1, 2, "f32", pay_c,
+                                                              kv_native=False)),
+        ("llama-8b q40 f32 tp2 serving ngram", "f32", _par_job(
+            ap, tok, 2, 1, "f32", pay_c, kv_native=True, speculation="ngram", spec_k=SPEC_K)),
+        ("llama-8b q40 f32 tp2 serving draft", "f32", _par_job(
+            ap, tok, 2, 1, "f32", pay_c, kv_native=True, speculation="draft", spec_k=SPEC_K,
+            draft_model=ap)),
+        ("llama-8b q40 f32 tp2 serving kv-int8", "int8", _par_job(
+            ap, tok, 2, 1, "f32", pay_c, kv_dtype="int8", kv_native=True)),
+        ("llama-8b q40 f32 tp2 serving single", "single", _par_job(ap, tok, 2, 1, "f32", pay_c,
+                                                                   batch_size=1)),
+        ("llama-8b q40 f32 tp2 serving poison", "f32", _par_job(
+            ap, tok, 2, 1, "f32", pay_c, kv_native=True, faults=PAR_POISON)),
+    ]
+    serve4 = [("llama-8b q40 f32 tp2sp2 serving slab", "f32",
+               _par_job(ap, tok, 2, 2, "f32", pay_c, kv_native=False))]
+    jobs2 = [
         ("engine", job_b),
         ("engine", dict(base, tp=1, sp=2)),
         ("engine", dict(base, tp=2, sp=1)),
         ("engine", dict(base, tp=2, sp=1, buffer_float_type="q80")),
         ("collective", ("all_reduce", 2, True, x)),
         ("collective", ("all_reduce", 2, False, x)),
-    ],))
+    ]
+    serve_idx2 = {label: (len(jobs2) + i, key) for i, (label, key, _) in enumerate(serve2)}
+    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=900,
+                   args=(jobs2 + [job for _, _, job in serve2],))
     world2_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=300,
-                   args=([("engine", dict(base, tp=2, sp=2))],))
+    serve_idx4 = {label: (1 + i, key) for i, (label, key, _) in enumerate(serve4)}
+    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600,
+                   args=([("engine", dict(base, tp=2, sp=2))] + [j for _, _, j in serve4],))
     world4_s = time.perf_counter() - t0
 
     # (b) llama-8b q40 bf16, 32 layers, tp = 2 against tp = 1
     res = [r[0] for r in world2]
     label = "llama-8b q40 tp2"
     print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, one 512-row chunk and "
-          f"{TP_DECODE} greedy tokens; the one-rank references (this and the f32 file's) "
-          f"{ref_s:.1f} s, the 2-rank world (its jobs: this, sp2, tp2, tp2 q80, two "
-          f"all-reduces) {world2_s:.1f} s, the 4-rank world {world4_s:.1f} s")
+          f"{TP_DECODE} greedy tokens; the one-rank references (this, the f32 file's and its "
+          f"servers' and chat's) {ref_s:.1f} s, the 2-rank world (its jobs: this, sp2, tp2, "
+          f"tp2 q80, two all-reduces, the servers of (g) and (h)) {world2_s:.1f} s, the "
+          f"4-rank world (tp2sp2, its server) {world4_s:.1f} s")
     for r, x in enumerate(res):
         require(x["layer_bytes"] * 2 == whole_bytes,
                 f"{label} rank {r}: layer weights {x['layer_bytes']} B, half of "
@@ -4681,6 +5027,23 @@ def parallel_round(tmp: str, smi: str) -> dict:
           f"{lerr:.3e}; one [{h.dim}] all-reduce's error {ar_err:.3e} (<= {Q80_BOUND})")
     require(0 < ar_err < Q80_BOUND, f"q80 all-reduce error {ar_err:.3e} outside (0, {Q80_BOUND})")
     _print_ranks("llama-8b q40 f32 tp2 q80", [r[3] for r in world2], h4, 2, sync_quant=True)
+
+    # (g) serving llama-8b q40 bf16 at tp = 2; (h) the f32 servers and chat
+    counts.update(_par_serving_report(world2, world4, serve_idx2, serve_idx4, truth, tokz, h,
+                                      h4, smi))
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "dllama_tpu_torch", *_chat_argv(ap, tok),
+                           "--tp", "2", "--device", dev], input=PAR_CHAT_TURNS,
+                          capture_output=True, text=True, timeout=600, cwd=root)
+    out = proc.stdout
+    chat = out[out.index("💬 Chat mode"):] if "💬 Chat mode" in out else ""
+    print(f"parallel serve llama-8b q40 f32 tp2 chat: exit {proc.returncode}, two turns, "
+          f"transcript equals tp = 1's {chat == chat_tp1} ({len(chat)} characters), "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(proc.returncode == 0, f"chat at --tp 2 failed:\n{proc.stderr[-4000:]}")
+    require(chat == chat_tp1 and chat.count("👱 You: ") == 2,
+            "chat at --tp 2: its transcript differs from the one-rank chat's")
 
     # (e) the CLI at --tp 2, its ranks on the one card
     t0 = time.perf_counter()
@@ -4748,7 +5111,7 @@ def main() -> int:
             + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen)
             + check_mixed(device, gen) + check_moe_tiers(device, gen)
             + check_attention_strided(device, gen) + check_decode_stats(device, gen)
-            + check_q40_tp(device, gen))
+            + check_q40_tp(device, gen) + check_lane_shards(device, gen))
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -4794,6 +5157,8 @@ def main() -> int:
     # runs the llama-8b paths (stopped at exit if a phase fails first)
     moe_tmp = tempfile.TemporaryDirectory()
     writer = start_prewrite(moe_tmp.name, "qwen3-30b-a3b", MOE_LAYERS, 4096, SEED)
+    # the whole llama-8b file, kept past its phases for the parallel round
+    llama_tmp = tempfile.TemporaryDirectory()
     atexit.register(lambda: writer[0].poll() is None and writer[0].kill())
     for model, preset, n_layers, formats in MODELS:
         depth = PRESETS[preset]["n_layers"]
@@ -4806,7 +5171,9 @@ def main() -> int:
             print(f"{model} {', '.join(formats)}: depth cut to {n_layers} of {depth} layers "
                   f"({why})")
         ahead = model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS
-        with moe_tmp if ahead else tempfile.TemporaryDirectory() as tmp:
+        whole_llama = model == "llama-8b" and n_layers == N_LAYERS
+        with (moe_tmp if ahead else contextlib.nullcontext(llama_tmp.name) if whole_llama
+              else tempfile.TemporaryDirectory()) as tmp:
             if ahead:
                 finish_prewrite(writer, f"{model} {n_layers} layers")
             for spec in formats:
@@ -4817,7 +5184,7 @@ def main() -> int:
                 counts[label], streams[label], depths[label] = counts_, tokens, n_layers
                 gc.collect()
                 torch.cuda.empty_cache()
-            if model == "llama-8b" and n_layers == N_LAYERS:  # the serving phase, same file
+            if whole_llama:  # the serving phase, same file
                 for kv_dtype in (None, "int8"):
                     t0 = time.perf_counter()
                     tag = f" kv-{kv_dtype}" if kv_dtype else ""
@@ -4842,13 +5209,19 @@ def main() -> int:
                 print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
                 gc.collect()
                 torch.cuda.empty_cache()
-                t0 = time.perf_counter()
-                counts.update(parallel_round(tmp, smi))
-                print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
             if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
                 t0 = time.perf_counter()
                 counts.update(moe_dedup(tmp, smi))
                 print(f"dedup phase: {time.perf_counter() - t0:.1f} s")
+    # the parallel round last, on the whole llama-8b file: its ranks move
+    # every collective through host copies, so it runs once the child
+    # writing the qwen3 file has ended (the two shared the host's cores)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts.update(parallel_round(llama_tmp.name, smi))
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    llama_tmp.cleanup()
     for label in streams:
         model, fmt = label.split(" ", 1)
         if (fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams

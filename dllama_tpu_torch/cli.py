@@ -30,10 +30,13 @@ alone prints. ``--device cuda`` puts rank r on ``cuda:r``, ``cuda:N`` every
 rank on card N (the ranks then share it over gloo), ``cpu`` on the CPU.
 ``--buffer-float-type q80`` (the default) compresses the tp all-reduces only
 when the ranks span hosts, as the JAX CLI applies it only across processes.
-``inference`` and ``perplexity`` print the JAX CLI's lines at the same tp and
-sp (Sent/Recv: `utils.telemetry.ici_traffic_per_token`; Sync: the host ms of
-the step's collectives); ``chat``, ``--pp`` and ``--dp`` above 1 wait for
-ROADMAP A.14's next slice.
+``inference`` and ``perplexity`` run one program on every rank and print the
+JAX CLI's lines at the same tp and sp (Sent/Recv:
+`utils.telemetry.ici_traffic_per_token`; Sync: the host ms of the step's
+collectives). ``chat`` runs on rank 0, which reads stdin, and the other
+ranks follow its dispatches (parallel/control.py); without torchrun the
+chat's own process is rank 0 (parallel/launch.lead). ``--sync-measure`` is
+accepted and ignored; ``--pp`` and ``--dp`` above 1 wait for ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -94,9 +97,12 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="alias for --tp: a rank count (host:port lists are a LAN-cluster "
                    "concept)")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages: 1 (more waits for "
-                   "ROADMAP A.14's next slice)")
+                   "ROADMAP A.14)")
     p.add_argument("--dp", type=int, default=1, help="data-parallel lane shards: 1 (more waits "
-                   "for ROADMAP A.14's next slice)")
+                   "for ROADMAP A.14)")
+    p.add_argument("--sync-measure", default="auto", choices=["auto", "off"],
+                   help="accepted for parity with the JAX CLI and ignored: the port measures "
+                   "each step's collectives as they run (parallel/collectives.STATS)")
     p.add_argument("--buffer-float-type", default="q80", choices=["q80", "f32"],
                    help="the tp all-reduce payload: q80 (int8 + a scale a 32-block) when the "
                    "ranks span hosts, exact f32 within one host")
@@ -183,13 +189,14 @@ def _refuse_gpu_flags(args) -> None:
                              "--device (and CUDA_VISIBLE_DEVICES)")
 
 
-def resolve_mesh_shape(args, serving: bool = False) -> tuple[int, int]:
+def resolve_mesh_shape(args) -> tuple[int, int]:
     """(tp, sp) from ``--tp``/``--workers``/``--sp`` (tp 0: `auto_tp` over the
-    host's cards, 1 without one, and 1 for the server); ``--pp`` and
-    ``--dp`` above 1 raise, and so does a server of more than one rank."""
+    host's cards, 1 without one), for every mode and the server alike, as in
+    the JAX CLI. ``--pp`` and ``--dp`` above 1 raise."""
     for flag in ("pp", "dp"):
         if getattr(args, flag, 1) > 1:
-            raise SystemExit(f"--{flag} > 1 is not ported yet (ROADMAP A.14's next slice)")
+            raise SystemExit(f"--{flag} > 1 is not ported yet (ROADMAP A.14: the pipeline "
+                             "with its dp lanes)")
     tp = getattr(args, "tp", 0) or 0
     workers = getattr(args, "workers", None)
     if not tp and workers:
@@ -200,10 +207,6 @@ def resolve_mesh_shape(args, serving: bool = False) -> tuple[int, int]:
                   f"tp={len(workers)} ranks instead")
             tp = len(workers)
     sp = getattr(args, "sp", 1) or 1
-    if serving:
-        if tp * sp > 1:
-            raise SystemExit("the server under --tp/--sp waits for ROADMAP A.14's next slice")
-        return 1, 1
     if not tp:
         from .parallel.mesh import auto_tp
 
@@ -225,15 +228,15 @@ def _rank_mesh(args, tp: int, sp: int):
     return init_distributed(tp, sp, args.device)
 
 
-def load_engine(args, serving: bool = False):
-    """The engine and tokenizer of ``args`` (the server passes ``serving``:
-    one rank, whatever the host's cards)."""
+def load_engine(args):
+    """The engine and tokenizer of ``args`` on this rank (the CLI's and the
+    server's)."""
     from .runtime.engine import InferenceEngine
     from .tokenizer import Tokenizer
 
     _refuse_gpu_flags(args)
     tok = Tokenizer(args.tokenizer)
-    tp, sp = resolve_mesh_shape(args, serving)
+    tp, sp = resolve_mesh_shape(args)
     mesh = _rank_mesh(args, tp, sp) if tp * sp > 1 else None
     from .parallel.mesh import spans_hosts
 
@@ -271,8 +274,7 @@ def load_engine(args, serving: bool = False):
         print(f"💡 Lanes: {engine.batch_size}")
     if mesh is not None:
         print(f"💡 Tp: {tp} rank(s) [{mesh.backend}]")
-        if sp > 1:
-            print(f"💡 Sp: {sp} sequence shards")
+        print(f"💡 Sp: {sp} sequence shard(s)")
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")
@@ -456,17 +458,33 @@ def _profiled(out_dir: str | None, device):
     print(f"🔬 profile: {path}")
 
 
-def run_chat(args) -> None:
+def run_chat(args):
     """Interactive REPL on stdin (reference: dllama.cpp:174-258; dllama_tpu's
     ``run_chat``): each user turn through the chat template, the reply
     streamed until an EOS token or stop string, an explicit stop when the
-    context is full, and a fresh conversation after a failed generation."""
+    context is full, and a fresh conversation after a failed generation.
+    Under world > 1 rank 0 reads stdin and runs the loop, and the other
+    ranks follow its dispatches (parallel/control.py)."""
+    from .parallel.control import lead_or_follow
+
+    engine, tok = load_engine(args)
+    ctl = lead_or_follow(engine)
+    if isinstance(ctl, dict):  # a follower rank, after rank 0's stop
+        return ctl
+    try:
+        return _chat_loop(args, engine, tok)
+    finally:
+        if ctl is not None:
+            ctl.stop()
+
+
+def _chat_loop(args, engine, tok) -> None:
+    """`run_chat`'s loop on rank 0 (or the one rank)."""
     from .tokenizer import (
         CHAT_TEMPLATE_NAMES, ChatItem, ChatTemplateGenerator, ChatTemplateType, EosDetector,
         EosResult,
     )
 
-    engine, tok = load_engine(args)
     stops = [tok.vocab[t].decode("utf-8", "replace") for t in tok.eos_token_ids]
     ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
              else ChatTemplateType.UNKNOWN)
@@ -565,10 +583,11 @@ def main(argv=None):
 
         from .parallel.mesh import torchrun_env
 
-        if args.mode == "chat":
-            raise SystemExit("chat under --tp/--sp waits for the serving slice (ROADMAP A.14's "
-                             "next slice); use inference or perplexity")
         if not dist.is_initialized() and not torchrun_env():
+            if args.mode == "chat":  # this process is rank 0: it reads stdin
+                from .parallel.launch import lead_command
+
+                return lead_command(lambda: run_chat(args), "cli", argv, args.device, tp, sp)
             return _spawn_ranks(argv, args, tp, sp)
         rank = dist.get_rank() if dist.is_initialized() else int(os.environ["RANK"])
         if rank != 0:  # rank 0 alone prints

@@ -235,6 +235,7 @@ def main(argv=None) -> None:
                 "--host", args.host, "--port", str(port),
                 "--batch-size", str(args.batch_size),
                 "--replica-id", name, "--device", args.device,
+                "--tp", "1",  # a replica is one rank (the server's --tp 0 takes every card)
             ]
             if args.max_streams is not None:
                 cmd += ["--max-streams", str(args.max_streams)]

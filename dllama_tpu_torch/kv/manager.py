@@ -34,9 +34,9 @@ The chaos plane's draws are the JAX manager's (runtime/faults.py):
 ``kv_alloc`` (``op=adopt``) before an adopt allocates, raised to the
 scheduler, which retries it (native mode); ``dispatch`` (``op=kv_publish``)
 on entry to a native publish (the engine draws it in ``kv_publish`` for a
-slab one) and ``kv_alloc`` (``op=publish``) where a publish would take its
-pages, each absorbed: the stream already finished, only future reuse is
-lost.
+slab one) and ``kv_alloc`` (``op=publish``) where a slab publish allocates
+its pages (a native publish allocates none and draws no ``kv_alloc``), each
+absorbed: the stream already finished, only future reuse is lost.
 
 Observability is the JAX manager's (obs/): the ``dllama_kv_pages_*``
 gauges, the ``dllama_radix_*``, ``dllama_kv_cow_forks_total`` and
@@ -314,14 +314,6 @@ class PagedKVManager:
             # dies with release_lane, and a tree pointing at freed pages
             # would hand later admissions recycled KV
             self.pool.retain(pages)
-            fault = get_fault_plane().draw("kv_alloc", op="publish")
-            if fault is not None:
-                self.pool.release(pages)
-                self.publish_skips += 1
-                self.recorder.record(
-                    "kv_alloc_failed", lane=lane, want=n_new, error=str(fault)
-                )
-                return 0
             try:
                 self.tree.insert(full, pages, first_slot=k_shared)
             except ValueError:

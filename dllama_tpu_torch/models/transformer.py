@@ -38,11 +38,15 @@ of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
 
 Tensor and sequence parallelism (``mesh``: one rank of a tp x sp mesh,
-parallel/mesh.py) run `forward_parallel` on the single stream's slab:
-the rank's weight slices and KV shard, the tp all-reduces in f32 before
-any downcast, the sp shard's rows in the cyclic order, ring attention for
-a prefill chunk and merged stats for a decode step (the two kernel options
-``s_stride`` and `flash_decode_stats`).
+parallel/mesh.py): the rank's weight slices, the tp all-reduces in f32
+before any downcast, the logits gathered over tp. Under tp alone
+every path below runs on the rank's KV heads. Under sp the single stream's
+slab (and one lane's prefill chunk at a host position) runs
+`forward_parallel`: its KV shard's rows in the cyclic order, ring attention
+for a prefill chunk and merged stats for a decode step (the two kernel
+options ``s_stride`` and `flash_decode_stats`); slab lanes run
+`_forward_sp_lanes` (merged stats a lane); the page pool raises, as the JAX
+engine's does.
 
 ``pos`` is an int or a device tensor: ``[1]`` int32 on the slab path,
 ``[B]`` int32 in paged mode and for slab lanes. An int is bounds-checked on
@@ -87,6 +91,8 @@ from ..formats.model_file import HiddenAct, LlmArch, LlmHeader, RopeType
 from ..ops.flash_attention import (
     flash_attention,
     flash_attention_ref,
+    flash_attention_stats,
+    flash_attention_stats_ref,
     flash_decode,
     flash_decode_ref,
     flash_decode_stats,
@@ -339,12 +345,22 @@ def forward(
     the lane's page-table row or below ``park`` (the card checks neither).
     With ``mesh`` the params and the cache are this rank's slices
     (`forward_parallel`)."""
+    tp = None
     if mesh is not None:
-        if page_table is not None or park is not None or h.arch == LlmArch.QWEN3_MOE:
-            raise ValueError("forward under tp/sp runs the single-stream slab path of a dense "
-                             "model (lanes and Qwen3-MoE wait for ROADMAP A.14's next slice)")
-        return forward_parallel(params, h, tokens, pos, cache, mesh, logits_mode, plain,
-                                act_quant, sync_quant)
+        if h.arch == LlmArch.QWEN3_MOE:
+            raise ValueError("Qwen3-MoE under tensor or sequence parallelism is not ported yet "
+                             "(ROADMAP A.14)")
+        if mesh.sp.size > 1:
+            if page_table is not None:
+                raise ValueError("kv_native requires pp == 1 and sp == 1")
+            if park is None or not torch.is_tensor(pos):
+                # the single stream, or one lane's chunk on its own rows at
+                # a host position: the ring
+                return forward_parallel(params, h, tokens, pos, cache, mesh, logits_mode, plain,
+                                        act_quant, sync_quant)
+            return _forward_sp_lanes(params, h, tokens, pos, cache, park, mesh, logits_mode,
+                                     plain, act_quant, sync_quant)
+        tp = mesh.tp
     b, t = tokens.shape
     paged = page_table is not None
     lanes = park is not None
@@ -389,13 +405,48 @@ def forward(
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
 
-    x = params["embed"][tokens]  # [B, T, D] (reference: OP_EMBEDDING)
+    x = _embed(params, tokens, tp)  # [B, T, D] (reference: OP_EMBEDDING)
     # [B, T, hd/2] with each lane at its own position (paged, slab lanes),
     # else [T, hd/2]
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
     ffn = (lambda y, lp: moe_ffn(y, lp, h, plain, moe_dedup)) if is_moe else None
-    x = _layers(params, h, x, cos, sin, cache, attend, mm, mm, ffn)
-    return logits_head(x, params, h, logits_mode, plain, act_quant), cache
+    x = _layers(params, h, x, cos, sin, cache, attend, mm,
+                _mm_col(tp, plain, act_quant, sync_quant), ffn)
+    out = logits_head(x, params, h, logits_mode, plain, act_quant)
+    return _gather_logits(out, tp), cache
+
+
+def _embed(params: Params, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """The embedding rows of ``tokens``; under tp (``tp`` the mesh's axis)
+    each rank holds a vocab slice: a masked lookup summed over tp."""
+    emb = params["embed"]  # [V/tp, D]
+    if tp is None or tp.size == 1:
+        return emb[tokens]
+    local = tokens - tp.index * emb.shape[0]
+    hit = (local >= 0) & (local < emb.shape[0])
+    x = emb[local.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
+    return all_reduce(x, tp).to(emb.dtype)
+
+
+def _mm_col(tp, plain: bool, act_quant, sync_quant: bool):
+    """The wo and w2 product: `_mm`, or under tp an in-split matmul whose
+    partial sum is reduced over tp in f32 (in q80 with ``sync_quant``)."""
+    if tp is None or tp.size == 1:
+        return lambda x, w: _mm(x, w, plain, act_quant)
+
+    def mm_col(x, w):
+        out = _quant_mm(x, w, plain, act_quant)
+        return all_reduce(out if out is not None else _dense_f32(x, w), tp, sync_quant)
+
+    return mm_col
+
+
+def _gather_logits(out, tp):
+    """The logits of the ``wcls`` row slices, gathered over tp in vocab
+    order (None stays None)."""
+    if out is None or tp is None:
+        return out
+    return all_gather(out, tp, dim=-1)
 
 
 def _sp_decode(q, k_cache, v_cache, pos: int, sp, plain: bool) -> torch.Tensor:
@@ -404,7 +455,13 @@ def _sp_decode(q, k_cache, v_cache, pos: int, sp, plain: bool) -> torch.Tensor:
     cyclic: ``s_pos0`` = shard index, stride sp), merged over the sp axis
     by a log-sum-exp max and one sum. [B, 1, H, hd] in q's dtype."""
     stats = flash_decode_stats_ref if plain else flash_decode_stats
-    acc, m, l = stats(q, k_cache, v_cache, pos, sp.index, sp.size)
+    return _merge_sp(*stats(q, k_cache, v_cache, pos, sp.index, sp.size), sp, q.dtype)
+
+
+def _merge_sp(acc, m, l, sp, dtype) -> torch.Tensor:
+    """The shards' (acc, m, l) merged over the sp axis by a log-sum-exp max
+    and one sum, normalized: [B, T, H, hd] in ``dtype``. A state that saw
+    no key (m = -1e30, l = 0) adds nothing; a row no shard saw is 0."""
     m_g = all_reduce_max(m, sp)
     scale = torch.where(m <= -1e30 / 2, torch.zeros_like(m), torch.exp(m - m_g))
     parts = torch.cat([(l * scale).reshape(-1), (acc * scale[..., None]).reshape(-1)])
@@ -414,31 +471,83 @@ def _sp_decode(q, k_cache, v_cache, pos: int, sp, plain: bool) -> torch.Tensor:
     l_safe = torch.where(l_g == 0.0, torch.ones_like(l_g), l_g)
     out = acc_g / l_safe[..., None]  # [b, kh, g, 1, hd]
     b, kh, g, t, hd = out.shape
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, kh * g, hd).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, kh * g, hd).to(dtype)
+
+
+def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
+                      park: int, mesh, logits_mode: str, plain: bool, act_quant,
+                      sync_quant: bool):
+    """Slab lanes on one rank of a tp x sp mesh (the JAX engine's lanes
+    under its sp mesh): the cache is this rank's shard of the lanes' slab,
+    [L, B, KH/tp, (S + pad)/sp, hd], rows in the cyclic order (global row g
+    on shard g % sp at local row g // sp; ``pad`` divides by sp, so the
+    padding rows ``park + i`` of a parked lane land in every shard's
+    padding). ``pos`` [B] is a position a lane (< 0: parked). Every sp rank
+    computes every lane's rows; the owner of each row writes it, and the
+    others send it to their first padding row (local ``park // sp``),
+    which no live lane reads. Attention is the merged stats of the shards:
+    the decode kernel's stats at T = 1, the strided stats kernel for T > 1
+    (a verify row), each lane at its own position, so a parked lane (at -1,
+    or -T) reads nothing on any shard (m = -1e30, l = 0) and gets zeros."""
+    tp, sp = mesh.tp, mesh.sp
+    b, t = tokens.shape
+    dev = tokens.device
+    posv = _lane_pos_vec(pos, b, dev)
+    step = torch.arange(t, device=dev)[None, :]
+    live = posv[:, None] >= 0
+    rows = posv[:, None].long() + step
+    g = torch.where(live, rows, park + step)
+    local = torch.where(g % sp.size == sp.index, g // sp.size, park // sp.size)
+    lane_idx = torch.arange(b, device=dev)[:, None]
+
+    def write(dst, x):  # x [B, T, KH/tp, hd] at each lane's owned rows
+        dst[lane_idx, :, local] = x
+
+    if t == 1:
+        stats = flash_decode_stats_ref if plain else flash_decode_stats
+    else:
+        stats = flash_attention_stats_ref if plain else flash_attention_stats
+
+    def attend(k_cache, v_cache, q, k, v):
+        _append(k_cache, k, write)
+        _append(v_cache, v, write)
+        return _merge_sp(*stats(q, k_cache, v_cache, posv, sp.index, sp.size), sp, q.dtype)
+
+    def mm(x, w):
+        return _mm(x, w, plain, act_quant)
+
+    cos, sin = params["rope_cos"][rows.clamp(min=0)], params["rope_sin"][rows.clamp(min=0)]
+    x = _layers(params, h, _embed(params, tokens, tp), cos, sin, cache, attend, mm,
+                _mm_col(tp, plain, act_quant, sync_quant))
+    out = logits_head(x, params, h, logits_mode, plain, act_quant)
+    return _gather_logits(out, tp), cache
+
+
+def _lane_pos_vec(pos, b: int, device) -> torch.Tensor:
+    """A position a lane as int32 [B] on ``device`` (an int: every lane)."""
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int32).reshape(b)
+    return torch.full((b,), int(pos), dtype=torch.int32, device=device)
 
 
 def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
                      mesh, logits_mode: str = "all", plain: bool = False,
                      act_quant=quantize_acts, sync_quant: bool = False):
-    """`forward` on one rank of a tp x sp mesh (dllama_tpu's ``run_layers``
-    under its mesh): the params are rank's tp slices (parallel/sharding.py)
-    and the cache its [L, 1, KH/tp, S/sp, hd] shard, rows in the cyclic
-    order under sp. ``pos`` is a host int (the engine runs world > 1
-    eagerly).
+    """`forward` of one stream on one rank of a tp x sp mesh with sp > 1
+    (dllama_tpu's ``run_layers`` under its mesh): the params are the rank's
+    tp slices (parallel/sharding.py) and the cache its [L, 1, KH/tp, S/sp,
+    hd] shard, rows in the cyclic order. ``pos`` is a host int (the engine
+    runs world > 1 eagerly).
 
-    * The embedding is a vocab slice: a masked lookup summed over tp.
-    * Heads and FFN columns are the rank's own; the ``wo`` and ``w2``
-      partial sums are all-reduced over tp in f32 before any downcast
-      (``_mm_manual``), in q80 with ``sync_quant``.
-    * Under sp every rank computes the chunk's projections; the rank that
-      owns a row (global row g on shard g % sp) writes it at local row
-      g // sp. Decode attends by `_sp_decode`; a prefill chunk (T % sp ==
-      0) splits its queries contiguously over sp (rank i's start is pos +
-      i T/sp), runs the ring over the shards' live prefix (the rows below
-      ceil((pos + T) / sp): every row past it is in every query's future),
-      and all-gathers the outputs over sp before ``wo``.
-    * The logits: the ``wcls`` row slices' outputs all-gathered over tp in
-      vocab order.
+    * The embedding, the ``wo``/``w2`` all-reduces and the logits are the tp
+      hooks of `forward` (`_embed`, `_mm_col`, `_gather_logits`).
+    * Every rank computes the chunk's projections; the rank that owns a row
+      (global row g on shard g % sp) writes it at local row g // sp. Decode
+      attends by `_sp_decode`; a prefill chunk (T % sp == 0) splits its
+      queries contiguously over sp (rank i's start is pos + i T/sp), runs
+      the ring over the shards' live prefix (the rows below ceil((pos + T)
+      / sp): every row past it is in every query's future), and all-gathers
+      the outputs over sp before ``wo``.
     Every rank returns the same logits."""
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"unknown logits_mode: {logits_mode!r}")
@@ -448,53 +557,31 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
     s_local = cache["k"].shape[3]
     if pos < 0 or pos + t > s_local * sp.size:
         raise ValueError(f"chunk [{pos}, {pos + t}) outside the cache of {s_local * sp.size} rows")
-    if sp.size > 1 and t > 1 and t % sp.size:
+    if t > 1 and t % sp.size:
         raise ValueError(f"a prefill chunk under sp={sp.size} needs T % sp == 0, got T={t}")
     dev = tokens.device
 
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
 
-    def mm_col(x, w):
-        """An in-split matmul: the partial sum in f32, reduced over tp."""
-        if tp.size == 1:
-            return mm(x, w)
-        out = _quant_mm(x, w, plain, act_quant)
-        return all_reduce(out if out is not None else _dense_f32(x, w), tp, sync_quant)
-
-    emb = params["embed"]  # [V/tp, D]
-    if tp.size > 1:
-        local = tokens - tp.index * emb.shape[0]
-        hit = (local >= 0) & (local < emb.shape[0])
-        x = emb[local.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
-        x = all_reduce(x, tp).to(emb.dtype)
-    else:
-        x = emb[tokens]
+    x = _embed(params, tokens, tp)
     rows = torch.arange(pos, pos + t, device=dev)
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
-    if sp.size > 1:
-        js, local_rows = cyclic_rows(pos, t, sp.size, sp.index)
-        mine = torch.tensor(js, dtype=torch.long, device=dev)
-        write_rows = torch.tensor(local_rows, dtype=torch.long, device=dev)
-        n_live = -(-(pos + t) // sp.size)
-        tq = t // sp.size
-    else:
-        mine, write_rows = None, rows
+    js, local_rows = cyclic_rows(pos, t, sp.size, sp.index)
+    mine = torch.tensor(js, dtype=torch.long, device=dev)
+    write_rows = torch.tensor(local_rows, dtype=torch.long, device=dev)
+    n_live = -(-(pos + t) // sp.size)
+    tq = t // sp.size
 
     def write(dst, x):  # x [B, KH/tp, rows this rank owns, hd or 1]
         dst.index_copy_(2, write_rows, x)
 
     def attend(k_cache, v_cache, q, k, v):
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KH/tp, T, hd]
-        if mine is not None:
-            kt, vt = kt[:, :, mine], vt[:, :, mine]
+        kt, vt = kt[:, :, mine], vt[:, :, mine]
         if write_rows.numel():
             _append(k_cache, kt, write)
             _append(v_cache, vt, write)
-        if sp.size == 1:
-            if t == 1:
-                return (flash_decode_ref if plain else flash_decode)(q, k_cache, v_cache, pos)
-            return (flash_attention_ref if plain else flash_attention)(q, k_cache, v_cache, pos)
         if t == 1:
             return _sp_decode(q, k_cache, v_cache, pos, sp, plain)
         qs = q[:, sp.index * tq:(sp.index + 1) * tq].contiguous()
@@ -503,6 +590,7 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
                                   pos + sp.index * tq, s_local, sp, cyclic=True, plain=plain)
         return all_gather(zl, sp, dim=1)
 
-    x = _layers(params, h, x, cos, sin, cache, attend, mm, mm_col)
+    x = _layers(params, h, x, cos, sin, cache, attend, mm,
+                _mm_col(tp, plain, act_quant, sync_quant))
     out = logits_head(x, params, h, logits_mode, plain, act_quant)
-    return (None if out is None else all_gather(out, tp, dim=-1)), cache
+    return _gather_logits(out, tp), cache

@@ -18,19 +18,32 @@ Before it starts the ranks the parent builds the CUDA kernels
 (`ops._build.build_all`) when they run on the card, so the ranks load the
 libraries and never race on ``build/torch_kernels/``.
 
+`lead` is the launch of a server or a chat (runtime/api_server.py,
+cli.py): the calling process is rank 0 (it keeps its stdin, its signals and
+its port) and starts the other ranks as children, each running a
+follower target (`follower_target`: the same engine, then
+parallel/control.follow). A child that fails ends the launch: its
+traceback on stderr, the other children killed, and this process exits 1.
+
 The targets live in the port (the ranks import ``torch`` and the port,
 nothing else): `cli_target` runs the CLI (cli.py spawns it when a run asks
 for more than one rank without torchrun), `engine_target` runs a list of
-engine jobs, `collective_target` and `ring_target` the collectives and the
-ring on given arrays, `jobs_target` a mix of those on one world.
+engine jobs, `lane_target` lists of lane jobs (every rank runs the same
+calls), `serve_target` servers whose rank 0 answers given requests while
+the other ranks follow, `collective_target` and `ring_target` the
+collectives and the ring on given arrays, `jobs_target` a mix of those on
+one world.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue as queue_mod
+import sys
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, NamedTuple
@@ -134,6 +147,114 @@ def spawn(target, world: int, device: str = "cuda", backend: str | None = None, 
     return [got[r] for r in range(world)]
 
 
+LEAD_JOIN_S = 600.0  # `lead`: how long the followers may take to end after rank 0
+
+
+def lead(target, follower, world: int, device: str = "cuda", args=()):
+    """Run ``target(World, *args)`` here as rank 0 of ``world`` ranks and
+    ``follower(World, *args)`` on ranks 1 .. world - 1, children started
+    with the ``spawn`` method (module docstring); returns (rank 0's result,
+    the followers' results in rank order)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    rank_device(device, world - 1)
+    backend = pick_backend(device, world)
+    if torch.device(device).type == "cuda":
+        from ..ops import _build
+
+        _build.build_all()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got: dict[int, Any] = {}
+    done = threading.Event()
+    with tempfile.TemporaryDirectory(prefix="dllama-rdzv-") as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, world, device, backend, init_file, DEFAULT_TIMEOUT_S,
+                                   follower, tuple(args), results))
+                 for r in range(1, world)]
+        for p in procs:
+            p.start()
+        threading.Thread(target=_watch, args=(procs, results, got, done), daemon=True,
+                         name="dllama-rank-watch").start()
+        dev = rank_device(device, 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=0,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+        try:
+            out = target(World(0, world, dev, backend), *args)
+            deadline = time.monotonic() + LEAD_JOIN_S
+            while len(got) < world - 1 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            missing = sorted(set(range(1, world)) - set(got))
+            if missing:
+                raise TimeoutError(f"ranks {missing} did not end within {LEAD_JOIN_S:.0f} s of "
+                                   "rank 0")
+        finally:
+            done.set()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            _stop(procs)
+    return out, [got[r] for r in range(1, world)]
+
+
+def _watch(procs, results, got: dict, done: threading.Event) -> None:
+    """`lead`'s watch over its children: collect their results, and end
+    the whole launch at the first that fails or exits without one."""
+    while not done.is_set():
+        try:
+            rank, ok, out = results.get(timeout=0.2)
+        except queue_mod.Empty:
+            dead = [(r + 1, p.exitcode) for r, p in enumerate(procs)
+                    if r + 1 not in got and p.exitcode not in (None, 0)]
+            if not dead or done.is_set():
+                continue
+            msg = f"rank {dead[0][0]} exited with code {dead[0][1]} and no result"
+        else:
+            if ok:
+                got[rank] = out
+                continue
+            msg = f"rank {rank} of {len(procs) + 1} failed:\n{out}"
+        print(msg, file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        _stop(procs)
+        os._exit(1)
+
+
+def lead_command(run, module: str, argv: list[str], device: str, tp: int, sp: int):
+    """The launch of a server (``module`` "server") or a chat ("cli") over
+    tp x sp ranks: print the ranks line, run ``run()`` here as rank 0 and
+    the other ranks as followers of the same command line
+    (`follower_target`). Returns ``run()``'s result."""
+    world = tp * sp
+    print(f"🔗 Ranks: {world} (tp={tp} x sp={sp}), backend {pick_backend(device, world)}, "
+          f"device {device}", flush=True)
+    return lead(lambda w, *_: run(), follower_target, world, device, args=(module, list(argv)))[0]
+
+
+def follower_target(world: World, module: str, argv: list[str]):
+    """A follower rank of a server (``module`` "server") or a chat ("cli"):
+    the engine of the same arguments on this rank's device, built with
+    stdout silenced (rank 0 alone prints), then parallel/control.follow to
+    rank 0's ``stop``. Returns follow's summary."""
+    from ..cli import _build_parser, load_engine
+    from .control import follow
+
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        if module == "server":
+            from ..runtime.api_server import build_parser
+
+            args = build_parser().parse_args(argv)
+        else:
+            args = _build_parser().parse_args(argv)
+        args.device = str(world.device)
+        engine, _ = load_engine(args)
+    return follow(engine, engine.mesh)
+
+
 def _np(x):
     return x.detach().float().cpu().numpy() if torch.is_tensor(x) else x
 
@@ -202,8 +323,8 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
             res["perplexity"] = eng.perplexity(job["perplexity"])
         res["cache_shape"] = list(eng.cache["k"].shape)
         res["launches"] = launch_counts()
-        if world.device.type == "cuda":
-            res["allocated"] = torch.cuda.memory_allocated(world.device)
+        res["allocated"] = (torch.cuda.memory_allocated(world.device)
+                            if world.device.type == "cuda" else 0)
         out.append(res)
         del eng
     return out
@@ -273,8 +394,198 @@ def ring_target(world: World, jobs: list[tuple]) -> list:
     return out
 
 
+def _job_engine(world: World, job: dict):
+    """The engine of a lane or server job on this rank, and its mesh."""
+    from ..runtime.engine import DEFAULT_PREFILL_BUCKETS, InferenceEngine
+
+    mesh = make_mesh(job.get("tp", 1), job.get("sp", 1), world.device, world.backend)
+    eng = InferenceEngine(
+        job["model"], dtype=torch.float32 if job.get("dtype", "f32") == "f32" else torch.bfloat16,
+        temperature=job.get("temperature", 0.0), seed=job.get("seed", 12345),
+        weight_format=job.get("weight_format", "dense"), device=world.device,
+        tp=mesh.tp.size, sp=mesh.sp.size, mesh=mesh if mesh.world > 1 else None,
+        kv_dtype=job.get("kv_dtype"), batch_size=job.get("batch_size", 1),
+        prefill_buckets=tuple(job.get("buckets", DEFAULT_PREFILL_BUCKETS)),
+    )
+    return eng, mesh
+
+
+def _rank_facts(eng) -> dict:
+    """What a job reports of a rank besides its answers: its epochs, kernel
+    launches, the shapes of its lanes' slab and pool and a page's bytes."""
+    from ..ops import launch_counts
+
+    return {
+        "cache_epoch": eng.cache_epoch, "kv_pool_epoch": eng.kv_pool_epoch,
+        "draft_cache_epoch": eng.draft_cache_epoch, "launches": launch_counts(),
+        "lane_shape": None if eng.lane_cache is None else list(eng.lane_cache["k"].shape),
+        "pool_shape": None if eng.kv_pool is None else list(
+            getattr(eng.kv_pool["k"], "q", eng.kv_pool["k"]).shape),
+        "page_bytes": eng.kv_page_bytes() if eng.kv_pool is not None else 0,
+        "allocated": (torch.cuda.memory_allocated(eng.device) if eng.device.type == "cuda"
+                      else 0),
+    }
+
+
+def _tokens_of(out):
+    """A call's return as plain data: token lists and ints, None else."""
+    if isinstance(out, (list, int)):
+        return out
+    if isinstance(out, tuple) and out and isinstance(out[0], int):
+        return out[0]
+    return None
+
+
+def lane_target(world: World, jobs: list[dict]) -> list[dict]:
+    """Lane jobs, every rank running the same calls (the deterministic
+    program of `engine_target`): a dict of the engine's arguments (those of
+    `engine_target` and ``batch_size``, ``buckets``) and ``script``, a list
+    of (method, args) engine calls made in turn. Each call's tokens come
+    back in ``script`` (an error as ("error", its type, its message),
+    which ends nothing), with `_rank_facts`."""
+    from ..ops import reset_launch_counts
+
+    out = []
+    for job in jobs:
+        reset_launch_counts()
+        eng, _ = _job_engine(world, job)
+        calls = []
+        for name, args in job["script"]:
+            try:
+                calls.append(_tokens_of(getattr(eng, name)(*args)))
+            except Exception as e:  # a refusal the job checks for
+                calls.append(("error", type(e).__name__, str(e)))
+        out.append(dict(script=calls, **_rank_facts(eng)))
+        del eng
+        _release(world.device)
+    return out
+
+
+def ask(url: str, payload: dict, timeout: float = 600.0):
+    """One completion from a server at ``url``, streamed or not: its
+    content, or ("error", the HTTP status or "stream", the error body)."""
+    return ask_counted(url, payload, timeout)[0]
+
+
+def ask_counted(url: str, payload: dict, timeout: float = 600.0):
+    """`ask`'s answer and the completion's token count (the response's
+    ``usage``; None for a stream or an error)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions", method="POST",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read().decode()
+    except urllib.error.HTTPError as e:
+        return ("error", e.code, e.read().decode()), None
+    if not payload.get("stream"):
+        body = json.loads(raw)
+        return body["choices"][0]["message"]["content"], body["usage"]["completion_tokens"]
+    content = ""
+    for line in raw.split("\r\n"):
+        if line.startswith("data: {"):
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                return ("error", "stream", json.dumps(chunk["error"])), None
+            content += (chunk["choices"][0].get("delta") or {}).get("content") or ""
+    return content, None
+
+
+def ask_all(url: str, payloads: list[dict], concurrent: bool = True, counted: bool = False):
+    """`ask` each payload, from one thread each (``concurrent``) or in turn;
+    with ``counted`` each answer with its token count (`ask_counted`)."""
+    fn = ask_counted if counted else ask
+    if not concurrent:
+        return [fn(url, p) for p in payloads]
+    answers: list = [None] * len(payloads)
+
+    def one(i):
+        answers[i] = fn(url, payloads[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers
+
+
+def serve_target(world: World, jobs: list[dict]) -> list[dict]:
+    """Server jobs: every rank builds the engine of the job (`lane_target`'s
+    arguments); rank 0 controls (parallel/control.Controller) a server
+    (runtime/api_server.serve with the job's ``serve`` arguments) on a free
+    localhost port and asks it each payload of ``requests`` (``rounds``
+    times, each after ``idle_s`` seconds of silence, all at once), then
+    stops; every other rank follows. Each
+    rank's result: the control plane's ``summary`` (its digest of the
+    tokens returned), `_rank_facts`, and on rank 0 the ``answers`` of each
+    round, their ``tokens`` (None for a stream), the round's wall seconds and
+    the server's ``health``.
+    ``control_timeout_s`` is the control group's timeout."""
+    import json
+    import urllib.request
+
+    from ..ops import reset_launch_counts
+    from ..runtime import faults
+    from .control import Controller, follow
+
+    out = []
+    for job in jobs:
+        reset_launch_counts()
+        eng, mesh = _job_engine(world, job)
+        timeout_s = job.get("control_timeout_s", DEFAULT_TIMEOUT_S)
+        res: dict = {}
+        if world.rank == 0:
+            from ..runtime.api_server import serve
+            from ..tokenizer import Tokenizer
+
+            ctl = Controller(eng, mesh, timeout_s=timeout_s)
+            srv = serve(eng, Tokenizer(job["tokenizer"]), host="127.0.0.1", port=0,
+                        **job.get("serve", {}))
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                res["answers"], res["tokens"], res["wall_s"] = [], [], []
+                for _ in range(job.get("rounds", 1)):
+                    time.sleep(job.get("idle_s", 0.0))
+                    t0 = time.perf_counter()
+                    got = ask_all(url, job["requests"], counted=True)
+                    res["wall_s"].append(time.perf_counter() - t0)
+                    res["answers"].append([a for a, _ in got])
+                    res["tokens"].append([n for _, n in got])
+                with urllib.request.urlopen(url + "/v1/health", timeout=60) as r:
+                    res["health"] = json.loads(r.read())
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                res["summary"] = ctl.stop()
+                faults.set_fault_plane("")
+        else:
+            res["summary"] = follow(eng, mesh, timeout_s=timeout_s)
+        out.append(dict(res, **_rank_facts(eng)))
+        del eng
+        _release(world.device)
+    return out
+
+
+def _release(device: torch.device) -> None:
+    """Give a dropped job's device memory back before the next job builds
+    its engine."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def jobs_target(world: World, jobs: list[tuple]) -> list:
     """Jobs of the targets above on one world, in order: (``"engine"``,
-    dict), (``"collective"``, tuple) or (``"ring"``, tuple)."""
-    targets = {"engine": engine_target, "collective": collective_target, "ring": ring_target}
+    dict), (``"lanes"``, dict), (``"serve"``, dict), (``"collective"``,
+    tuple) or (``"ring"``, tuple)."""
+    targets = {"engine": engine_target, "lanes": lane_target, "serve": serve_target,
+               "collective": collective_target, "ring": ring_target}
     return [targets[kind](world, [job])[0] for kind, job in jobs]

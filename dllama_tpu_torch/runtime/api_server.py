@@ -7,7 +7,7 @@
         [--trace-out PATH] [--timeline-out PATH] [--postmortem-dir DIR] \\
         [--slo-ttft-ms MS] [--slo-tpot-ms MS] [--series-retention S] \\
         [--admission-predict] [--admission-max-wait-ms MS] [--deadline-default-ms MS] \\
-        [--deadline-priority-step-ms MS] [--replica-id NAME]
+        [--deadline-priority-step-ms MS] [--replica-id NAME] [--tp N] [--sp N]
 
 The port's core of dllama_tpu/runtime/api_server.py (reference:
 src/dllama-api.cpp):
@@ -154,6 +154,18 @@ parks a lower-priority or deadline-blown stream when that lets the EDF
 head meet its budget (``dllama_preemptions_total``); the victim resumes
 byte for byte. The EDF keys, the preemption's clock and the scored TTFTs
 all read the scheduler's ``_clock``.
+
+Under tensor and sequence parallelism (``--tp``, ``--sp``) the server runs
+on rank 0 and the other ranks follow it (parallel/control.py): `main` makes
+this process rank 0 and starts the others (parallel/launch.lead), or takes
+torchrun's ranks; rank 0 sends each engine dispatch, with every value it
+drew, to the followers before it runs it, so the scheduler, the KV
+manager, speculation, the chaos plane and admission run on rank 0 alone.
+All three modes run: slab lanes (tp and sp), pool-native lanes (tp) and
+the serialized path. A drain (``SIGTERM``, ``POST /v1/drain``) stops the
+server once it has drained, then every rank; a lost rank stops it too.
+``/v1/health`` gives ``parallel`` (tp, sp, the backend, the ranks) and
+``/v1/debug/memory`` rank 0's own bytes.
 
 A fleet replica (fleet/, the JAX server's side of the router's contract):
 ``--replica-id`` names the server in ``/v1/health`` (``replica``), tags
@@ -2097,8 +2109,13 @@ class ApiState:
         engine's analytic `memory_report` (host-side reads only)."""
         stats = sample_device_memory(self.obs, self.engine.device)
         mr = memory_report(self.engine)
-        return {"devices": stats, "analytic": mr.as_dict(),
-                "comparison": compare_with_analytic(mr.per_device_bytes, stats)}
+        out = {"devices": stats, "analytic": mr.as_dict(),
+               "comparison": compare_with_analytic(mr.per_device_bytes, stats)}
+        if self.engine.world > 1:
+            out["rank"] = {"rank": 0, "ranks": self.engine.world,
+                           "note": "rank 0's own bytes: its slices of the weights and its "
+                                   "share of the KV; every other rank holds its own"}
+        return out
 
     def health_snapshot(self) -> dict:
         """The /v1/health payload, also embedded into postmortem dumps (the
@@ -2148,6 +2165,10 @@ class ApiState:
             payload["degraded_reasons"] = reasons
         if self.replica_id is not None:
             payload["replica"] = self.replica_id
+        engine = self.engine
+        if engine.world > 1:
+            payload["parallel"] = {"tp": engine.tp, "sp": engine.sp,
+                                   "backend": engine.mesh.backend, "ranks": engine.world}
         if self.draining:
             # draining wins: routers must stop sending traffic
             payload["status"] = "draining"
@@ -3066,11 +3087,46 @@ def build_parser():
     return parser
 
 
-def main(argv=None) -> None:
-    from ..cli import load_engine
+def main(argv=None):
+    """The server's command line. With more than one rank (``--tp``/``--sp``)
+    and no torchrun, this process becomes rank 0 and starts the others
+    (parallel/launch.lead); under torchrun every process is a rank. Rank 0
+    serves and controls the other ranks (parallel/control.py), which
+    follow until rank 0 stops."""
+    import sys
 
+    import torch.distributed as dist
+
+    from ..cli import resolve_mesh_shape
+    from ..parallel.mesh import torchrun_env
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    engine, tok = load_engine(args, serving=True)
+    tp, sp = resolve_mesh_shape(args)
+    if tp * sp > 1 and not dist.is_initialized() and not torchrun_env():
+        from ..parallel.launch import lead_command
+
+        return lead_command(lambda: _serve_main(args), "server", argv, args.device, tp, sp)
+    if torchrun_env() and int(os.environ["RANK"]) != 0:  # rank 0 alone prints
+        import contextlib
+
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return _serve_main(args)
+    return _serve_main(args)
+
+
+def _serve_main(args):
+    """Build the engine and serve it (rank 0), or follow (every other
+    rank). Under world > 1 the server stops once it has drained (SIGTERM or
+    ``POST /v1/drain``), then tells the other ranks to stop; a lost rank
+    stops it too, and it raises that rank's error."""
+    from ..cli import load_engine
+    from ..parallel.control import lead_or_follow
+
+    engine, tok = load_engine(args)
+    ctl = lead_or_follow(engine)
+    if isinstance(ctl, dict):  # a follower, after rank 0's stop
+        return ctl
     ttype = (CHAT_TEMPLATE_NAMES[args.chat_template] if args.chat_template
              else ChatTemplateType.UNKNOWN)
     server = serve(
@@ -3091,13 +3147,21 @@ def main(argv=None) -> None:
         deadline_priority_step_ms=args.deadline_priority_step_ms, replica_id=args.replica_id,
     )
     _install_drain_handler(server)
-    print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/")
+    if ctl is not None:
+        for event in (server.state.drained, ctl.lost):
+            threading.Thread(target=lambda ev=event: (ev.wait(), server.shutdown()),
+                             daemon=True, name="dllama-control-stop").start()
+    print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        summary = ctl.stop() if ctl is not None else None
+    if ctl is not None and ctl.lost.is_set():
+        raise ctl.error
+    return summary
 
 
 if __name__ == "__main__":

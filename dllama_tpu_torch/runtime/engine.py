@@ -46,16 +46,23 @@ Tensor and sequence parallelism (``tp``, ``sp``, with this rank's ``mesh``
 from parallel/mesh.py; one engine a rank, ``tp * sp`` ranks): the params
 are the rank's tp slices, read from the file as slices
 (models/loader.py), the single stream's cache its [L, 1, KH/tp, S/sp, hd]
-shard in the cyclic row order, and every forward `models.forward_parallel`
-with the tp all-reduces in f32, or in q80 with ``buffer_float_type="q80"``
+shard in the cyclic row order, and every forward `models.forward` on the
+rank's mesh, with the tp all-reduces in f32, or in q80 with ``buffer_float_type="q80"``
 (the reference's --buffer-float-type). Prefill buckets under sp are 1 or
-multiples of sp. ``prefill``, ``decode_step``, ``decode_block`` (greedy, or
-sampled with one seed on every rank, so that every rank draws the same
-token from the same gathered logits), ``generate`` and ``perplexity`` run
-on every rank in step; with more than one rank they run eagerly (a gloo
-collective cannot be captured in a CUDA graph). Lanes, the KV pool, the
-draft model, an int8 cache under sp and Qwen3-MoE raise under world > 1
-(ROADMAP A.14's next slice).
+multiples of sp. Lanes run on every rank too: the slab lanes' slab is the
+rank's shard [L, B, KH/tp, (S + pad)/sp, hd] (the padding rounded up to a
+multiple of sp), the page pool [L, P, KH/tp, ps, hd] on every rank (pool-
+native lanes under tp alone, as in the JAX engine), an int8 cache under tp,
+and the draft model sharded like the target under tp. With more than one
+rank every dispatch runs eagerly (a gloo collective cannot be captured in
+a CUDA graph), and every rank must run the same dispatches with the same
+arguments and draws: ``inference`` and ``perplexity`` run one
+deterministic program on every rank (``decode_block`` sampled with one
+seed everywhere, so every rank draws the same token from the same gathered
+logits); the server and ``chat`` run rank 0's loop alone and mirror each
+dispatch to the other ranks (parallel/control.py), rank 0's draws through
+``tape``. An int8 cache under sp and Qwen3-MoE raise under world > 1
+(ROADMAP A.14).
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; on the card
 every matmul and attention goes through the port's CUDA kernels. Weight
@@ -122,8 +129,9 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
+from ..parallel.collectives import all_gather
 from ..parallel.mesh import validate_sp, validate_tp
-from ..parallel.sharding import kv_shard_shape
+from ..parallel.sharding import cyclic_rows, kv_shard_shape, lane_shard_shape, pool_shard_shape
 from ..obs.cost import StepCostModel, extract_cost, hbm_peak_bytes_per_s, roofline_fraction
 from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
 from ..obs.recorder import get_recorder
@@ -191,9 +199,8 @@ KEY_KINDS = {
 }
 
 
-# what waits for ROADMAP A.14's next slice under tensor or sequence parallelism
-_NEXT_SLICE = ("{} under tensor or sequence parallelism is not ported yet "
-               "(ROADMAP A.14's next slice)")
+# what waits for ROADMAP A.14 under tensor or sequence parallelism
+_NOT_PORTED = "{} under {} is not ported yet (ROADMAP A.14)"
 
 
 def _pairs(rows: int, pos: int) -> int:
@@ -230,6 +237,8 @@ class _Dispatch:
 
     def __enter__(self):
         e = self.engine
+        if e.tape is not None:  # the device work starts: rank 0 sends its command
+            e.tape.launch()
         e.settle_costs()
         e.recorder.record("step_dispatch", step=self.kind, **self.fields)
         self.span = e._spans.begin(self.kind, component="engine", **self.fields)
@@ -342,8 +351,6 @@ class InferenceEngine:
             if mesh is None or (mesh.tp.size, mesh.sp.size) != (tp, sp):
                 raise ValueError(f"tp={tp} x sp={sp} needs this rank's Mesh of the same shape "
                                  "(parallel.mesh.init_distributed or parallel.launch.spawn)")
-            if batch_size > 1:
-                raise NotImplementedError(_NEXT_SLICE.format("lanes (batch_size > 1)"))
         self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -355,9 +362,11 @@ class InferenceEngine:
         validate_tp(self.header, tp)
         validate_sp(self.header, sp)
         if self.world > 1 and self.header.n_experts:
-            raise NotImplementedError(_NEXT_SLICE.format("Qwen3-MoE"))
+            raise NotImplementedError(_NOT_PORTED.format("Qwen3-MoE",
+                                                         "tensor or sequence parallelism"))
         if sp > 1 and self.kv_dtype == torch.int8:
-            raise NotImplementedError(_NEXT_SLICE.format("the int8 KV cache (sequence shards)"))
+            raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
+                                                         "sequence parallelism"))
         self.dtype = dtype
         self.temperature = temperature
         self.sampler = Sampler(self.header.vocab_size, temperature, topp, seed)
@@ -409,10 +418,13 @@ class InferenceEngine:
                                    torch.empty(0, dtype=self.kv_dtype).element_size(),
                                    self.kv_dtype == torch.int8, tp=tp, sp=sp)
         # slab lanes: their slab (allocated at the first lane call), its
-        # padding rows (the widest chunk a parked lane writes) and the first
-        # of them, where parked lanes write
+        # padding rows (the widest chunk a parked lane writes; under sp
+        # rounded up so that the padded rows tile the sp shards) and the
+        # first of them, where parked lanes write
         self.lane_cache = None
         self._lane_pad = max(self.prefill_buckets) if batch_size > 1 else 0
+        if self._lane_pad and sp > 1:
+            self._lane_pad += (-self._lane_pad) % sp
         self._park = self.header.seq_len
         # the lanes' page pool (init_kv_pool); native: the pool is the
         # lanes' KV home, else the slab lanes' prefix store
@@ -450,6 +462,10 @@ class InferenceEngine:
         self._draft_cost = None
         self.draft_cache_epoch = 0
         self._m_spec_draft_ms = None
+        # under world > 1, rank 0's draws (fault outcomes, seeds, samples)
+        # go through a tape that its control plane sends to the other ranks,
+        # which replay them (parallel/control.py); None: draw here
+        self.tape = None
 
     # -- observability -----------------------------------------------------
 
@@ -705,19 +721,23 @@ class InferenceEngine:
     def _forward(self, tokens, pos, cache, **kw):
         """The target's forward (`models.forward`) over the engine's params,
         with its MoE decode tiering, and under world > 1 this rank's mesh."""
-        if self.world > 1:
-            kw.update(mesh=self.mesh, sync_quant=self.sync_quant)
         return forward(self.params, self.header, tokens, pos, cache,
-                       moe_dedup=self.moe_decode_dedup, **kw)
+                       moe_dedup=self.moe_decode_dedup, **kw, **self._mesh_kw())
+
+    def _mesh_kw(self) -> dict:
+        """`forward`'s mesh arguments: this rank's mesh under world > 1."""
+        return dict(mesh=self.mesh, sync_quant=self.sync_quant) if self.world > 1 else {}
 
     def _pos(self, buf: torch.Tensor, pos: int):
         """A forward's position: the static buffer a graph replays with, or
         under world > 1 (eager, module docstring) the host int."""
         return pos if self.world > 1 else buf
 
-    def _single_rank(self, what: str) -> None:
-        if self.world > 1:
-            raise NotImplementedError(_NEXT_SLICE.format(what))
+    def _draw(self, fn):
+        """``fn()``, a random value or a fault outcome, drawn here; or
+        through the tape under world > 1 (rank 0 records what it draws, the
+        other ranks replay rank 0's values and draw nothing)."""
+        return fn() if self.tape is None else self.tape.draw(fn)
 
     @torch.inference_mode()
     def step_logits(self, token: int, pos: int) -> torch.Tensor:
@@ -855,11 +875,14 @@ class InferenceEngine:
                 logits = d.device(lambda: b["logits"][0].cpu().numpy())
         if not greedy:
             with self._spans.span("sample", component="engine", pos=pos):
-                nxt = self.sampler.sample(logits)
+                nxt = self._draw(lambda: self.sampler.sample(logits))
         return nxt, StepStats(time_ms=(time.perf_counter() - t0) * 1000, n_tokens=1)
 
     def _draw_seed(self) -> int:
         """The next seed of the engine's stream (reset by `set_seed`)."""
+        return self._draw(self._next_seed)
+
+    def _next_seed(self) -> int:
         self._rng_calls += 1
         return (self._lane_seed_base + 1_000_003 * self._rng_calls) & 0x7FFFFFFF
 
@@ -1037,9 +1060,10 @@ class InferenceEngine:
             raise ValueError("per-lane serving needs batch_size > 1 "
                              "(lanes park their writes in cache padding rows)")
         if self.lane_cache is None:
-            self.lane_cache = init_kv_cache(self.header, self.batch_size, dtype=self.kv_dtype,
-                                            seq_len=self.header.seq_len + self._lane_pad,
-                                            device=self.device)
+            h = self.header
+            shape = lane_shard_shape(h, self.tp, self.sp, self.batch_size, self._lane_pad)
+            self.lane_cache = {n: new_kv_leaf(shape, self.kv_dtype, self.device)
+                               for n in ("k", "v")}
 
     def init_kv_pool(self, page_size: int, n_pages: int = 0, native: bool = False) -> int:
         """Allocate the shared KV page pool ``[L, n_pages, KH, page_size,
@@ -1064,8 +1088,11 @@ class InferenceEngine:
         first.
 
         Every captured graph is dropped: the lanes' graphs of the other
-        mode, and those that read the old pool's pointers."""
-        self._single_rank("the KV pool")
+        mode, and those that read the old pool's pointers.
+
+        Under tp each rank holds its KV heads of every page, [L, n_pages,
+        KH/tp, page_size, hd]; under sp the pool is whole on every rank and
+        native lanes raise (the JAX engine's rule)."""
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if native and self.device.type == "cuda" and (
@@ -1074,6 +1101,8 @@ class InferenceEngine:
                 f"page_size {page_size}: the paged kernels take sizes that divide 32 "
                 "or are multiples of 32"
             )
+        if native and self.sp > 1:
+            raise ValueError("kv_native requires pp == 1 and sp == 1")
         if not native and self.batch_size < 2:
             raise ValueError("slab lanes need batch_size > 1 "
                              "(lanes park their writes in cache padding rows)")
@@ -1099,8 +1128,7 @@ class InferenceEngine:
         self.graphs.clear()
         if not native:
             self._require_lanes()
-        h = self.header
-        shape = (h.n_layers, n_pages, h.n_kv_heads, page_size, h.head_dim)
+        shape = pool_shard_shape(self.header, self.tp, n_pages, page_size)
         self.kv_pool = {k: new_kv_leaf(shape, self.kv_dtype, self.device) for k in ("k", "v")}
         self.kv_pool_epoch += 1
         return n_pages
@@ -1150,7 +1178,7 @@ class InferenceEngine:
         """The chaos plane's armed fault for this dispatch, if any
         (runtime/faults.py). Callers raise a transient one before their
         guard and a poison one inside it."""
-        return get_fault_plane().draw("dispatch", op=op)
+        return self._draw(lambda: get_fault_plane().draw("dispatch", op=op))
 
     def adopt_pages(self, lane: int, page_ids: list[int]) -> None:
         """Point ``lane``'s page-table row at ``page_ids`` (slot i backs rows
@@ -1270,8 +1298,7 @@ class InferenceEngine:
             ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
             for start, bucket in self._kv_copy_chunks(n):
                 for name in ("k", "v"):
-                    pages_to_rows(self.lane_cache[name], self.kv_pool[name], lane, start * ps,
-                                  ids[start : start + bucket])
+                    self._pages_to_rows(name, lane, start * ps, ids[start : start + bucket])
         self.kv_adopt_pages += n
         self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
 
@@ -1297,10 +1324,44 @@ class InferenceEngine:
             ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
             for off, bucket in self._kv_copy_chunks(n):
                 for name in ("k", "v"):
-                    rows_to_pages(self.lane_cache[name], self.kv_pool[name], lane,
-                                  (start_page + off) * ps, ids[off : off + bucket])
+                    self._rows_to_pages(name, lane, (start_page + off) * ps,
+                                        ids[off : off + bucket])
         self.kv_publish_pages += n
         self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
+
+    def _pages_to_rows(self, name: str, lane: int, row0: int, ids: torch.Tensor) -> None:
+        """Pool pages ``ids`` into ``lane``'s slab rows from ``row0``: under
+        sp the pool is whole on every rank and each rank takes the rows its
+        shard owns (the cyclic layout: global row g at local row g // sp)."""
+        slab, pool = self.lane_cache[name], self.kv_pool[name]
+        if self.sp == 1:
+            pages_to_rows(slab, pool, lane, row0, ids)
+            return
+        pages = pool[:, ids]  # [L, n, KH/tp, ps, hd] (dense: no int8 under sp)
+        nl, n, kh, ps, hd = pages.shape
+        js, local = cyclic_rows(row0, n * ps, self.sp, self.mesh.sp.index)
+        rows = pages.transpose(1, 2).reshape(nl, kh, n * ps, hd)
+        slab[:, lane, :, torch.tensor(local, device=self.device)] = (
+            rows[:, :, torch.tensor(js, device=self.device)])
+
+    def _rows_to_pages(self, name: str, lane: int, row0: int, ids: torch.Tensor) -> None:
+        """``lane``'s slab rows from ``row0`` into the pool pages ``ids``:
+        under sp the rows are gathered from every shard first (each shard
+        sends the same span of local rows, which covers the range), and
+        every rank writes the whole pages."""
+        slab, pool = self.lane_cache[name], self.kv_pool[name]
+        if self.sp == 1:
+            rows_to_pages(slab, pool, lane, row0, ids)
+            return
+        sp = self.sp
+        n = ids.shape[0]
+        nl, _, kh, ps, hd = pool.shape
+        lo, hi = row0 // sp, -(-(row0 + n * ps) // sp)
+        part = slab[:, lane, :, lo:hi].contiguous()  # [L, KH/tp, hi - lo, hd]
+        parts = all_gather(part[None], self.mesh.sp, dim=0)  # [sp, L, KH/tp, hi - lo, hd]
+        rows = parts.permute(1, 2, 3, 0, 4).reshape(nl, kh, (hi - lo) * sp, hd)
+        rows = rows[:, :, row0 - lo * sp : row0 - lo * sp + n * ps]
+        pool[:, ids] = rows.reshape(nl, kh, n, ps, hd).transpose(1, 2)
 
     def _lane_key(self, *key) -> tuple:
         """A lane graph's key: ``("lane_...", ...)`` on the slab, with
@@ -1386,7 +1447,7 @@ class InferenceEngine:
         self.graphs.put(b["tok"], tokens)
         self.graphs.put(b["pos"], pos)
         view = {name: kv_lane(leaf, lane) for name, leaf in self.lane_cache.items()}
-        self.graphs.run(key, lambda: self._forward(b["tok"], b["pos"], view,
+        self.graphs.run(key, lambda: self._forward(b["tok"], self._pos(b["pos"], pos), view,
                                                    logits_mode="none", park=self._park))
 
     def prefill_lane(self, lane: int, tokens: list[int], pos0: int = 0) -> None:
@@ -1440,14 +1501,7 @@ class InferenceEngine:
             temperature = [self.temperature] * b
         if topp is None:
             topp = [self.sampler.topp] * b
-        self._rng_calls += 1
-        # unseeded lanes draw from an engine-lifetime stream (varies per
-        # call); a seeded lane's draws depend only on (seed, position)
-        seed_vec = [
-            (s if s is not None else self._lane_seed_base + 1_000_003 * self._rng_calls + i)
-            & 0x7FFFFFFF
-            for i, s in enumerate(seeds or [None] * b)
-        ]
+        seed_vec = self._draw(lambda: self._lane_seeds(seeds))
         # every step's positions, -1 for parked lanes and past the cache:
         # one host-to-device copy a block
         cur = [[pos[j] + i if active[j] and 0 <= pos[j] + i < seq_len else -1 for j in range(b)]
@@ -1469,6 +1523,17 @@ class InferenceEngine:
                                             seed_vec).tolist)
         self.lane_decode_steps += n_steps
         return out
+
+    def _lane_seeds(self, seeds: list[int | None] | None) -> list[int]:
+        """A decode block's seed a lane: unseeded lanes draw from an
+        engine-lifetime stream (varies per call); a seeded lane's draws
+        depend only on (seed, position)."""
+        self._rng_calls += 1
+        return [
+            (s if s is not None else self._lane_seed_base + 1_000_003 * self._rng_calls + i)
+            & 0x7FFFFFFF
+            for i, s in enumerate(seeds or [None] * self.batch_size)
+        ]
 
     def _lane_block(self, tokens: list[int], cur: list[list[int]], sampled: bool,
                     temperature: list[float], topp: list[float], seeds: list[int]):
@@ -1646,8 +1711,13 @@ class InferenceEngine:
         Pallas matmul; its attention runs the slab kernels at its own
         shapes), its slab cache [L_d, B, KH_d, S_d + pad, hd_d] in the
         engine's dtype with the lanes' padding rows. Its vocab must be the
-        target's: drafts are target token ids. Needs lanes."""
-        self._single_rank("the draft model")
+        target's: drafts are target token ids. Needs lanes. Under tp the
+        draft is sharded like the target (its heads, columns and cache
+        heads a rank), as the JAX engine shards it; under sp it raises, as
+        the JAX engine's does."""
+        if self.sp > 1:
+            raise ValueError("draft model requires pp == 1 and sp == 1 (the draft forward runs "
+                             "on the flat mesh path)")
         if self.batch_size < 2:
             raise ValueError("per-lane serving needs batch_size > 1 "
                              "(lanes park their writes in cache padding rows)")
@@ -1657,12 +1727,14 @@ class InferenceEngine:
             raise ValueError(f"draft model vocab {dh.vocab_size} != target vocab "
                              f"{self.header.vocab_size}; the draft must share the target's "
                              "tokenizer")
-        params = load_params(reader, dtype=self.dtype, device=self.device, weight_format="dense")
+        validate_tp(dh, self.tp)
+        params = load_params(reader, dtype=self.dtype, device=self.device, weight_format="dense",
+                             shard=(self.tp, self.mesh.tp.index) if self.tp > 1 else None)
         self._draft_header, self._draft_params = dh, params
-        self.draft_cache = init_kv_cache(dh, self.batch_size, dtype=self.dtype,
-                                         seq_len=dh.seq_len + self._lane_pad, device=self.device)
+        shape = lane_shard_shape(dh, self.tp, 1, self.batch_size, self._lane_pad)
+        self.draft_cache = {n: new_kv_leaf(shape, self.dtype, self.device) for n in ("k", "v")}
         self.draft_cache_epoch += 1
-        self._draft_cost = StepCostModel(dh, params, self.dtype.itemsize, False)
+        self._draft_cost = StepCostModel(dh, params, self.dtype.itemsize, False, tp=self.tp)
         self._m_spec_draft_ms = self.obs.histogram(
             "dllama_spec_draft_model_step_ms",
             "Wall milliseconds of one draft-model dispatch (catch-up prefill chunk or k-step "
@@ -1753,7 +1825,8 @@ class InferenceEngine:
         view = {name: kv_lane(leaf, lane) for name, leaf in self.draft_cache.items()}
         dh = self._draft_header
         self.graphs.run(key, lambda: forward(self._draft_params, dh, b["tok"], b["pos"], view,
-                                             logits_mode="none", park=dh.seq_len))
+                                             logits_mode="none", park=dh.seq_len,
+                                             **self._mesh_kw()))
 
     @torch.inference_mode()
     def draft_propose(self, tokens: list[int], pos: list[int], active: list[bool],
@@ -1805,7 +1878,7 @@ class InferenceEngine:
             for i in range(n):
                 p = b["cur"][i]
                 logits, _ = forward(params, dh, tok, p, self.draft_cache, logits_mode="last",
-                                    park=dh.seq_len)
+                                    park=dh.seq_len, **self._mesh_kw())
                 nxt = torch.where(p >= 0, torch.argmax(logits[:, -1, :], dim=-1), 0)
                 b["out"][i] = nxt
                 tok = nxt[:, None]

@@ -444,23 +444,69 @@ def test_poison_mid_stream_continues_byte_for_byte(server):
     sched.kv.check()
 
 
-@pytest.mark.parametrize("spec", ["kv_alloc:nth=1", "kv_alloc:op=publish:nth=1",
-                                  "dispatch:op=kv_publish:nth=1"])
-def test_kv_alloc_and_publish_faults_are_absorbed(server, spec):
+@pytest.fixture(scope="module")
+def slab_server(files):
+    srv = _serve(*files, retry_backoff_ms=0, kv_native=False)
+    yield srv
+    srv.shutdown()
+    srv.server_close()
+
+
+@pytest.fixture(scope="module")
+def jax_native_server(files):
+    mp, tp_ = files
+    tok = JTokenizer(tp_)
+    eng = JEngine(mp, tokenizer=tok, tp=1, dtype=jnp.float32, temperature=0.0, seed=3,
+                  batch_size=4)
+    srv = japi.serve(eng, tok, host="127.0.0.1", port=0, retry_backoff_ms=0, kv_native=True)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    yield srv
+    srv.shutdown()
+    srv.server_close()
+
+
+# (the lane mode, the spec): the native server takes every spec; the slab
+# publish allocates its pages and draws kv_alloc:op=publish there
+PUBLISH_FAULTS = [("native", "kv_alloc:nth=1"), ("native", "kv_alloc:op=publish:nth=1"),
+                  ("native", "dispatch:op=kv_publish:nth=1"),
+                  ("slab", "kv_alloc:op=publish:nth=1")]
+
+
+@pytest.mark.parametrize("mode,spec", PUBLISH_FAULTS,
+                         ids=[s if m == "native" else f"{m}-{s}" for m, s in PUBLISH_FAULTS])
+def test_kv_alloc_and_publish_faults_are_absorbed(request, mode, spec):
     """An adopt's allocation fault is retried; a publish fault costs only
-    future reuse. Prompts the tree has not seen, so the publish stores."""
+    future reuse. Prompts the tree has not seen, so the publish stores. The
+    ``kv_alloc:op=publish`` cases draw what a JAX server of the same mode
+    draws: a native publish allocates no pages, so nothing fires and
+    nothing is skipped; a slab publish fires once and skips one store."""
+    server = request.getfixturevalue("server" if mode == "native" else "slab_server")
     sched = server.state.scheduler
-    prompts = [f"unseen prompt {spec} number {i} " * 3 for i in range(4)]
+    prompts = [f"unseen prompt {mode} {spec} number {i} " * 3 for i in range(4)]
     skips, retries = sched.kv.publish_skips, sched.dispatch_retries
     plane = faults.set_fault_plane(spec)
     first = _ask_many(server, prompts)
     faults.set_fault_plane("")
     assert all(r[0] == "ok" for r in first), first
-    assert sum(plane.counts().values()) == 1
-    if spec.startswith("kv_alloc:nth"):
-        assert sched.dispatch_retries == retries + 1
+    if spec.startswith("kv_alloc:op=publish"):
+        jax_server = request.getfixturevalue("jax_native_server" if mode == "native"
+                                             else "jax_server")
+        jplane = jfaults.set_fault_plane(spec)
+        try:
+            jfirst = _ask_many(jax_server, prompts)
+        finally:
+            jfaults.set_fault_plane("")
+        assert all(r[0] == "ok" for r in jfirst), jfirst
+        fired = {k: v for k, v in plane.counts().items() if v}
+        want = {k: v for k, v in jplane.counts().items() if v}
+        assert fired == want == ({} if mode == "native" else {"kv_alloc": 1})
+        assert sched.kv.publish_skips == skips + sum(want.values())
     else:
-        assert sched.kv.publish_skips == skips + 1
+        assert sum(plane.counts().values()) == 1
+        if spec.startswith("kv_alloc:nth"):
+            assert sched.dispatch_retries == retries + 1
+        else:
+            assert sched.kv.publish_skips == skips + 1
     sched.kv.check()
     assert _ask_many(server, prompts) == first
 

@@ -243,3 +243,29 @@ def test_parallel_slice_modules_are_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_parallel_serving_slice_module_is_covered():
+    """The parallel serving slice's control plane (parallel/control.py) is
+    among the modules and files checked above, and a follower's side of it
+    (the engine, the launcher's follower target, `follow`) imports with jax,
+    dllama_tpu and triton blocked and no card asked for: a follower rank
+    imports torch and the port only."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.parallel.control" in mods
+    assert os.path.join(PKG, "parallel", "control.py") in files
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'dllama_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "from dllama_tpu_torch.parallel.control import DISPATCHES, Controller, follow\n"
+        "from dllama_tpu_torch.parallel.launch import follower_target, lead, serve_target\n"
+        "from dllama_tpu_torch.runtime.engine import InferenceEngine\n"
+        "assert all(callable(getattr(InferenceEngine, n)) for n in DISPATCHES)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -430,25 +430,36 @@ def _fake_mesh(tp, sp):
 
 
 def test_engine_refusals(files, tmp_path):
+    """What waits for ROADMAP A.14 raises naming it (Qwen3-MoE under tp, an
+    int8 cache under sp); native lanes and the draft model under sp raise
+    the JAX engine's messages; lanes, the pool and the draft model under tp
+    are ported (tests/test_torch_parallel_lanes.py)."""
     dense = files["dense"]
     with pytest.raises(ValueError, match="needs this rank's Mesh"):
         InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2)
     with pytest.raises(ValueError, match="buffer_float_type"):
         InferenceEngine(dense, dtype=torch.float32, device="cpu", buffer_float_type="q40")
-    with pytest.raises(NotImplementedError, match="lanes .*A.14"):
-        InferenceEngine(dense, device="cpu", tp=2, mesh=_fake_mesh(2, 1), batch_size=2)
-    with pytest.raises(NotImplementedError, match="int8 KV cache.*A.14"):
+    with pytest.raises(NotImplementedError, match="int8 KV cache under sequence.*A.14"):
         InferenceEngine(dense, device="cpu", sp=2, mesh=_fake_mesh(1, 2), kv_dtype="int8")
     moe = str(tmp_path / "moe.m")
     make_tiny_model(moe, arch=LlmArch.QWEN3_MOE)
-    with pytest.raises(NotImplementedError, match="Qwen3-MoE.*A.14"):
+    with pytest.raises(NotImplementedError, match="Qwen3-MoE under tensor.*A.14"):
         InferenceEngine(moe, device="cpu", tp=2, mesh=_fake_mesh(2, 1))
-    eng = InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2, mesh=_fake_mesh(2, 1))
+    eng = InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2, mesh=_fake_mesh(2, 1),
+                          batch_size=2)
     assert not eng.graphs.enabled and eng.world == 2
-    with pytest.raises(NotImplementedError, match="KV pool.*A.14"):
-        eng.init_kv_pool(8)
-    with pytest.raises(NotImplementedError, match="draft model.*A.14"):
-        eng.init_draft_model(dense)
+    assert eng.init_kv_pool(8, native=True) == (2 + 2) * 8 + 1
+    assert tuple(eng.kv_pool["k"].shape) == (2, 33, 2, 8, 16)  # KH/tp heads a page
+    sp2 = InferenceEngine(dense, dtype=torch.float32, device="cpu", sp=2, mesh=_fake_mesh(1, 2),
+                          batch_size=2)
+    jeng = JEngine(dense, sp=2, dtype=jnp.float32, batch_size=2)
+    for call in (lambda e: e.init_kv_pool(8, native=True),
+                 lambda e: e.init_draft_model(dense)):
+        with pytest.raises(ValueError) as want:
+            call(jeng)
+        with pytest.raises(ValueError) as got:
+            call(sp2)
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="divisible by 64"):  # q40: dims of 32 * tp
         InferenceEngine(dense, device="cpu", tp=2, mesh=_fake_mesh(2, 1), weight_format="q40")
     with pytest.raises(ValueError, match="exceeds nKvHeads"):
@@ -456,20 +467,28 @@ def test_engine_refusals(files, tmp_path):
 
 
 def test_cli_refusals(files):
+    """``--pp`` and ``--dp`` above 1 raise naming ROADMAP A.14 in every mode,
+    the server's too; ``--sync-measure`` is accepted; the server takes the
+    CLI's mesh rule (tp 0: one rank on a host without a card)."""
     base = ["--model", files["dense"], "--tokenizer", files["tok"], "--device", "cpu"]
-    with pytest.raises(SystemExit, match="--pp > 1"):
+    with pytest.raises(SystemExit, match="--pp > 1.*A.14"):
         cli.main(["inference", *base, "--pp", "2", "--prompt", "a", "--steps", "4"])
-    with pytest.raises(SystemExit, match="--dp > 1"):
+    with pytest.raises(SystemExit, match="--dp > 1.*A.14"):
         cli.main(["inference", *base, "--dp", "2", "--prompt", "a", "--steps", "4"])
-    with pytest.raises(SystemExit, match="chat under --tp"):
-        cli.main(["chat", *base, "--tp", "2"])
+    with pytest.raises(SystemExit, match="--pp > 1.*A.14"):
+        cli.main(["chat", *base, "--tp", "2", "--pp", "2"])
     from dllama_tpu_torch.runtime import api_server
 
-    with pytest.raises(SystemExit, match="server under --tp"):
-        api_server.main([*base, "--tp", "2"])
-    args = cli._build_parser().parse_args(["inference", *base, "--workers", "4"])
+    with pytest.raises(SystemExit, match="--dp > 1.*A.14"):
+        api_server.main([*base, "--tp", "2", "--dp", "2"])
+    args = cli._build_parser().parse_args(["inference", *base, "--workers", "4",
+                                           "--sync-measure", "off"])
     assert cli.resolve_mesh_shape(args) == (4, 1)
     args = cli._build_parser().parse_args(["inference", *base])
+    assert cli.resolve_mesh_shape(args) == (1, 1)
+    args = api_server.build_parser().parse_args([*base, "--tp", "2", "--sp", "2"])
+    assert cli.resolve_mesh_shape(args) == (2, 2)
+    args = api_server.build_parser().parse_args(base)
     assert cli.resolve_mesh_shape(args) == (1, 1)
 
 

@@ -234,7 +234,23 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    int8 pool and the serialized server at tp 2, and a decode poison at tp
    2 (``cache_epoch`` 1 on every rank): every answer byte-equal to the tp =
    1 server's; ``chat --tp 2`` on stdin prints the one-rank chat's
-   transcript.
+   transcript. The pipeline round (`pipeline_round`, after it, on the same
+   files and its one-rank references, `PAR_REFS`): (i) llama-8b q40 bf16
+   at full width and 32 layers, pp = 2 (each rank holds 16 layers' bytes,
+   exactly half), the first decode step's logits within `TOL_TP_BF16` of
+   one rank's and where the greedy streams part printed (bit-equal logits
+   said so); (ii) the 4-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and
+   pp 2 x sp 2 (tokens equal one rank's, logits within `TOL_TP_F32`),
+   ``generate_batch`` of two prompts at pp 2 x dp 2, perplexity at pp 2;
+   (iii) servers of the f32 mix, byte-equal to the tp = 1 server's: pp 2
+   over slab lanes, dp 2 over pool-native lanes (a prefix page one dp group
+   wrote read by a lane of the other: ``kv_cross_dp_pages``), pp 2 x dp 2
+   over slab lanes; (iv) qwen3-30b-a3b q40 at full width, 4 of 48 layers,
+   pp = 2 in f32: its stream equals one rank's, both MoE kernels launched
+   on both ranks; (v) ``python -m dllama_tpu_torch inference --pp 2
+   --device cuda:0``: exit 0, its ``Pp`` line; (vi) each rank's decode
+   token: device ms, its hand-offs' host ms and bytes against
+   ``ici_traffic_per_token`` at pp = 2, its launches.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
    ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
@@ -4556,7 +4572,9 @@ def check_lane_shards(device, gen, timed: bool = True) -> list[dict]:
     state must be m = -1e30, l = 0, acc = 0 on every shard); and the Q40
     GEMV at m = 4 (the lanes) on the tp = 2 slices. bf16, as the tp = 2
     serving round runs; library_ms: SDPA on the gathered view or the slab
-    where one call attends the same rows, none for the stats."""
+    where one call attends the same rows (the verify stats' too: SDPA over
+    the five lanes' gathered view computes the normalized output the
+    stats give), none for the decode stats over a strided shard."""
     import torch
 
     from dllama_tpu_torch.ops.flash_attention import (
@@ -4602,9 +4620,12 @@ def check_lane_shards(device, gen, timed: bool = True) -> list[dict]:
         lambda: _sdpa(q.transpose(1, 2), kv_k, kv_v, mask))
     b = len(VERIFY_POS) + 1
     ptv = torch.cat([pt, pt[:1]])  # the parked fifth lane's row: any pages
+    kvv_k, kvv_v = lane_views(kp, ptv), lane_views(vp, ptv)  # the gathered view of 5 lanes
     for t in VERIFY_T:
         q_pos0 = torch.tensor(VERIFY_POS + (-t,), dtype=torch.int32, device=device)
         qv = torch.randn((b, t, h, hd), device=device, generator=gen).to(dt)
+        qpos = q_pos0[:, None] + torch.arange(t, device=device)[None, :]
+        vmask = (torch.arange(4096, device=device)[None, None, :] <= qpos[:, :, None])[:, None]
         shape = f"bf16 H={h} KH={kh} B=4+1 T={t} verify tp=2"
         got = twice_equal(lambda: paged_flash_attention_stats(qv, kp, vp, ptv, q_pos0),
                           f"flash_attention_stats {shape}")
@@ -4618,8 +4639,9 @@ def check_lane_shards(device, gen, timed: bool = True) -> list[dict]:
             qv.numel() * es + 2 * kh * hd * es * sum(p + t for p in VERIFY_POS)
             + h * b * t * (hd + 2) * 4 + ptv.numel() * 4, 4.0 * hd * h * vis,
             lambda: paged_flash_attention_stats(qv, kp, vp, ptv, q_pos0),
-            lambda: paged_flash_attention_stats_ref(qv, kp, vp, ptv, q_pos0))
-    del kp, vp, kv_k, kv_v
+            lambda: paged_flash_attention_stats_ref(qv, kp, vp, ptv, q_pos0),
+            lambda: _sdpa(qv.transpose(1, 2), kvv_k, kvv_v, vmask))
+    del kp, vp, kv_k, kv_v, kvv_k, kvv_v
 
     # the slab decode at KH 4 over the lanes' slab, one lane parked
     s = 4096 + SLAB_PAD
@@ -4712,10 +4734,11 @@ def _par_serve_kw(**serve) -> dict:
 
 
 def _par_job(model: str, tok: str, tp: int, sp: int, dtype: str, payloads: list[dict],
-             batch_size: int = SERVE_LANES, kv_dtype: str | None = None, **serve) -> tuple:
+             batch_size: int = SERVE_LANES, kv_dtype: str | None = None, pp: int = 1,
+             dp: int = 1, **serve) -> tuple:
     """A server job of parallel/launch.serve_target (rank 0 serves, the
     other ranks follow)."""
-    return ("serve", dict(model=model, tokenizer=tok, tp=tp, sp=sp, dtype=dtype,
+    return ("serve", dict(model=model, tokenizer=tok, tp=tp, sp=sp, pp=pp, dp=dp, dtype=dtype,
                           weight_format="q40", batch_size=batch_size, kv_dtype=kv_dtype,
                           requests=payloads, serve=_par_serve_kw(**serve)))
 
@@ -4848,6 +4871,11 @@ def _par_serving_report(world2: list, world4: list, jobs2: dict, jobs4: dict, tr
     return counts
 
 
+# the parallel round's one-rank references and files, which the pipeline
+# round reuses (`pipeline_round`)
+PAR_REFS: dict = {}
+
+
 def parallel_round(tmp: str, smi: str) -> dict:
     """The parallel round (ranks share the one card over gloo: NCCL runs no
     two ranks on one device; the one-rank references first, then one world
@@ -4918,6 +4946,10 @@ def parallel_round(tmp: str, smi: str) -> dict:
              "single": _tp1_answers(ap, tok, pay_c, batch_size=1)}
     chat_tp1 = _chat_tp1(ap, tok)
     ref_s = time.perf_counter() - t0
+    PAR_REFS.update(mp=mp, ap=ap, tok=tok, h=h, h4=h4, prompt_b=prompt_b, want_b=want_b,
+                    want_b_stream=want_b_stream, whole_bytes=whole_bytes, prompt=prompt,
+                    calls=calls, want_logits=want_logits, want_stream=want_stream, truth=truth,
+                    pay_c=pay_c)
 
     # one world of two ranks for every 2-rank job, then one of four
     t0 = time.perf_counter()
@@ -5067,6 +5099,268 @@ def parallel_round(tmp: str, smi: str) -> dict:
     require(proc.returncode == 0, f"the CLI at --tp 2 failed:\n{err_out[-4000:]}")
     require("backend gloo" in out and len(pred) == 56 - 41 + 1 and "Prediction" in out,
             "the CLI at --tp 2: want its backend line naming gloo and rank 0's Pred lines")
+    return counts
+
+
+# (iv) qwen3-30b-a3b at full width, 4 of its 48 layers, under pp = 2: each
+# stage holds 2 MoE layers whole (tp = sp = 1)
+PP_MOE_LAYERS = 4
+# the prompt's 129 fill rows take the 512-row bucket, 8 waves of 64 rows at pp
+# 2: past the active-experts kernel's 16 rows, so the grouped kernel runs
+PP_MOE_PROMPT = 130
+PP_MOE_DECODE = 16  # decode steps: the active-experts kernel
+# (ii) generate_batch at pp 2 x dp 2: two prompts of different lengths, one a lane
+PP_BATCH = (100, 37)
+PP_BATCH_DECODE = 24
+PP_PPL_TOKENS = 300  # (ii) perplexity's tokens: a 256-row chunk in 8 waves, then a 32-row one
+TOL_PPL_F32 = 1e-4  # (ii) f32 nll at pp 2 against one rank: the waves' narrower chunks sum otherwise
+
+
+def _same_pipeline_ranks(label: str, results: list) -> dict:
+    """Gate: every rank ran rank 0's commands and returned its tokens (the
+    control digest), ended at the same cache epoch, and the stages of one
+    dp group launched the same kernels as often (their layers split evenly
+    and each computes the logits head; a lane's chunk runs on its own dp
+    group alone). Returns rank 0's result."""
+    first = results[0]
+    for r, x in enumerate(results[1:], 1):
+        require(x["summary"] == first["summary"],
+                f"{label}: rank {r}'s control summary {x['summary']} differs from rank 0's "
+                f"{first['summary']}")
+        require(x["cache_epoch"] == first["cache_epoch"],
+                f"{label}: rank {r}'s cache_epoch {x['cache_epoch']} differs from rank 0's")
+    by_group: dict = {}
+    for x in results:
+        by_group.setdefault(x["dp_group"], []).append(x["launches"])
+    for g, launches in by_group.items():
+        require(all(x == launches[0] for x in launches),
+                f"{label}: the stages of dp group {g} launched different kernels")
+    return first
+
+
+def pipeline_round(tmp: str, smi: str) -> dict:
+    """The pipeline round (ranks share the one card over gloo, after the
+    parallel round, reusing its one-rank references, `PAR_REFS`): (i)
+    llama-8b q40 bf16 at full width and 32 layers, pp = 2 against one
+    rank: each rank holds half the layer bytes, the first decode step's
+    logits within `TOL_TP_BF16`, where the greedy streams part printed;
+    (ii) the 4-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and pp 2 x
+    sp 2 (tokens equal one rank's, logits within `TOL_TP_F32`),
+    ``generate_batch`` of two prompts at pp 2 x dp 2 and perplexity at pp 2
+    (within `TOL_PPL_F32`); (iii) servers on the 4-layer f32 file, every
+    answer byte-equal to the tp = 1 server's: the seven-request mix at pp 2
+    over slab lanes, at dp 2 over pool-native lanes (a shared prefix one dp
+    group wrote read by a lane of the other: ``kv_cross_dp_pages`` > 0) and
+    at pp 2 x dp 2 over slab lanes; (iv) qwen3-30b-a3b q40 at full width, 4
+    of 48 layers, pp = 2 in f32: its stream equals one rank's and both MoE
+    kernels run on both ranks; (v) ``python -m dllama_tpu_torch inference
+    --pp 2 --device cuda:0``; (vi) each rank's decode token of (i): device
+    ms, its hand-offs' host ms and bytes against ``ici_traffic_per_token``
+    at pp = 2, its launches. Returns the launch counts by label."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.models.synthetic import write_synth_model
+    from dllama_tpu_torch.parallel.launch import jobs_target, spawn
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.utils.telemetry import ici_traffic_per_token
+
+    R = PAR_REFS
+    dev = "cuda:0"
+    counts = {}
+    mp, ap, tok, h, h4 = R["mp"], R["ap"], R["tok"], R["h"], R["h4"]
+
+    # one-rank references past the parallel round's: two lanes' streams and
+    # perplexity on the 4-layer file, and the 4-layer qwen3 file's stream
+    t0 = time.perf_counter()
+    prompts = [_tp_prompt(n, h4.vocab_size) for n in PP_BATCH]
+    steps = max(PP_BATCH) - 1 + PP_BATCH_DECODE
+    eng = InferenceEngine(ap, dtype=torch.float32, temperature=0.0, weight_format="q40",
+                          device="cuda", batch_size=2)
+    want_batch = eng.generate_batch(prompts, steps)
+    ppl_tokens = R["prompt"][:PP_PPL_TOKENS]
+    want_ppl = eng.perplexity(ppl_tokens)
+    release_engine(eng)
+    del eng
+    qp = os.path.join(tmp, "qwen-pp", "model.m")
+    os.makedirs(os.path.dirname(qp), exist_ok=True)
+    write_synth_model(qp, "qwen3-30b-a3b", seed=SEED, max_seq_len=4096, n_layers=PP_MOE_LAYERS)
+    eng = InferenceEngine(qp, dtype=torch.float32, temperature=0.0, weight_format="q40",
+                          device="cuda")
+    qh = eng.header
+    q_prompt = _tp_prompt(PP_MOE_PROMPT, qh.vocab_size)
+    q_call = (q_prompt, PP_MOE_PROMPT - 1 + PP_MOE_DECODE, BLOCK, 0)
+    want_q = eng.generate(q_prompt, max_steps=q_call[1], block_size=BLOCK)[0]
+    release_engine(eng)
+    del eng
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    base = dict(model=ap, dtype="f32", weight_format="q40", step_logits=R["prompt"],
+                generate=R["calls"])
+    pay_c, truth = R["pay_c"], R["truth"]
+    serve2 = [("llama-8b q40 f32 pp2 serving slab",
+               _par_job(ap, tok, 1, 1, "f32", pay_c, pp=2, kv_native=False)),
+              ("llama-8b q40 f32 dp2 serving native",
+               _par_job(ap, tok, 1, 1, "f32", pay_c, dp=2, kv_native=True))]
+    serve4 = [("llama-8b q40 f32 pp2dp2 serving slab",
+               _par_job(ap, tok, 1, 1, "f32", pay_c, pp=2, dp=2, kv_native=False))]
+    jobs2 = [
+        ("engine", dict(model=mp, pp=2, dtype="bf16", weight_format="q40",
+                        step_logits=R["prompt_b"],
+                        generate=[(R["prompt_b"], TP_PROMPT - 1 + TP_DECODE, BLOCK, 0)],
+                        timed_steps=TIMED_STEPS)),
+        ("engine", dict(base, pp=2, perplexity=ppl_tokens)),
+        ("engine", dict(model=qp, pp=2, dtype="f32", weight_format="q40", generate=[q_call])),
+    ] + [job for _, job in serve2]
+    jobs4 = [
+        ("engine", dict(base, pp=2, dp=2, batch_size=2)),
+        ("engine", dict(base, pp=2, tp=2)),
+        ("engine", dict(base, pp=2, sp=2)),
+        ("engine", dict(model=ap, pp=2, dp=2, batch_size=2, dtype="f32", weight_format="q40",
+                        generate_batch=(prompts, steps))),
+    ] + [job for _, job in serve4]
+    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=900, args=(jobs2,))
+    world2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600, args=(jobs4,))
+    world4_s = time.perf_counter() - t0
+
+    # (i) llama-8b q40 bf16, 32 layers, pp = 2 against one rank
+    res = [r[0] for r in world2]
+    label = "llama-8b q40 pp2"
+    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, one 512-row chunk (in "
+          f"waves) and {TP_DECODE} greedy tokens; the one-rank references past the parallel "
+          f"round's {ref_s:.1f} s, the 2-rank world (this, the f32 pp2 run, the qwen3 pp2 run, "
+          f"two servers) {world2_s:.1f} s, the 4-rank world (pp2dp2, pp2tp2, pp2sp2, "
+          f"generate_batch, a server) {world4_s:.1f} s; {smi}")
+    whole = R["whole_bytes"]
+    for r, x in enumerate(res):
+        require(x["stage"] == r and x["layer_bytes"] * 2 == whole,
+                f"{label} rank {r}: stage {x['stage']}, layer weights {x['layer_bytes']} B, "
+                f"half of {whole} B wanted")
+        print(f"pipeline {label} rank {r} (stage {x['stage']}): layer weights "
+              f"{x['layer_bytes']} B of {whole} B (16 of 32 layers), allocated "
+              f"{x['allocated'] / 1e9:.2f} GB")
+    got, want_b = res[0]["step_logits"], R["want_b"]
+    require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
+            f"{label}: the stages' logits differ")
+    err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
+    require(err <= TOL_TP_BF16, f"{label}: first decode logits vs one rank {err:.3e} > "
+            f"{TOL_TP_BF16}")
+    stream, want_stream = res[0]["generate"][0][0], R["want_b_stream"]
+    first = _first_diff(stream, want_stream)
+    print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} (<= {TOL_TP_BF16})"
+          f"{'; bits equal' if np.array_equal(got, want_b) else ''}; greedy stream equals one "
+          f"rank's: {stream == want_stream}"
+          + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
+    # (vi) each rank's decode token
+    model = ici_traffic_per_token(h, 1, pp=2, pp_activation_bytes=2.0)
+    for r, x in enumerate(res):
+        t = x["timed"]
+        launches = {k: v for k, v in x["launches"].items() if v}
+        print(f"pipeline rank {label} rank {r} (ranks share one card over gloo): decode token "
+              f"device_ms {t['device_ms']:.3f} hand-off_ms {t['collective_ms']:.3f} "
+              f"({t['calls']} collectives) hand-off_bytes {int(t['collective_bytes'])} vs "
+              f"ici_traffic_per_token(pp=2) {model}; launches {json.dumps(launches)}; {smi}")
+    counts[label] = res[0]["launches"]
+
+    # (ii) the 4-layer f32 file at pp 2 and its compositions against one rank
+    print(f"== llama-8b q40 f32 pipeline (ranks share one card over gloo): {ACCEPT_LAYERS} "
+          f"layers, {SP_PROMPT}-token prompt, {SP_DECODE} greedy tokens")
+    for label, results in (("llama-8b q40 f32 pp2", [r[1] for r in world2]),
+                           ("llama-8b q40 f32 pp2dp2", [r[0] for r in world4]),
+                           ("llama-8b q40 f32 pp2tp2", [r[1] for r in world4]),
+                           ("llama-8b q40 f32 pp2sp2", [r[2] for r in world4])):
+        x0 = results[0]
+        require(all(np.array_equal(x["step_logits"], x0["step_logits"]) for x in results[1:]),
+                f"{label}: the ranks' logits differ")
+        err = float(np.abs(x0["step_logits"] - R["want_logits"]).max()
+                    / np.abs(R["want_logits"]).max())
+        stream = x0["generate"][0][0]
+        first = _first_diff(stream, R["want_stream"])
+        print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} "
+              f"(<= {TOL_TP_F32}); greedy stream equals one rank's: "
+              f"{stream == R['want_stream']}"
+              + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
+        require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
+        require(stream == R["want_stream"], f"{label}: the greedy stream parts from one rank's "
+                f"at token {first}")
+        counts[label] = x0["launches"]
+    label = "llama-8b q40 f32 pp2dp2 generate_batch"
+    got_batch = world4[0][3]["generate_batch"]
+    require(all(r[3]["generate_batch"] == got_batch for r in world4),
+            f"{label}: the ranks' lanes differ")
+    print(f"pipeline {label}: prompts of {PP_BATCH} tokens, {PP_BATCH_DECODE}+ greedy tokens a "
+          f"lane, each lane equals one rank's: {got_batch == want_batch}")
+    require(got_batch == want_batch, f"{label}: the lanes' streams differ from one rank's")
+    counts[label] = world4[0][3]["launches"]
+    nll, ppl, n = world2[0][1]["perplexity"]
+    perr = abs(nll - want_ppl[0]) / abs(want_ppl[0])
+    print(f"pipeline llama-8b q40 f32 pp2 perplexity: {n} scored, nll {nll:.6f} vs one rank "
+          f"{want_ppl[0]:.6f} (relative {perr:.2e} <= {TOL_PPL_F32}), perplexity {ppl:.4f}")
+    require(n == want_ppl[2] and perr <= TOL_PPL_F32,
+            f"pipeline perplexity: nll {nll} vs {want_ppl[0]} (relative {perr:.2e})")
+
+    # (iii) the servers, every answer equal to the tp = 1 server's
+    print(f"== llama-8b q40 f32 pipeline serving (ranks share one card over gloo): "
+          f"{ACCEPT_LAYERS} layers, f32, the mix at {PAR_SERVE_TOKENS} tokens a request")
+    for world, serve, off in ((world2, serve2, 3), (world4, serve4, 4)):
+        for i, (label, _) in enumerate(serve):
+            res = [r[off + i] for r in world]
+            x0 = _same_pipeline_ranks(label, res)
+            answers = x0["answers"][0]
+            bad = [j for j, (a, b) in enumerate(zip(answers, truth["f32"])) if a != b]
+            cross = x0["kv_cross_dp_pages"]
+            print(f"pipeline serve {label}: answers equal tp = 1 {len(answers) - len(bad)} of "
+                  f"{len(answers)}; {len(res)} ranks (stage, dp group) "
+                  f"{[(x['stage'], x['dp_group']) for x in res]}, control "
+                  f"{x0['summary']['commands']} commands, digest equal; pages read across dp "
+                  f"groups {cross}; wall {x0['wall_s'][0]:.2f} s")
+            require(not bad, f"{label}: answers {bad} differ from the tp = 1 server's")
+            if "native" in label:
+                require(cross > 0, f"{label}: no lane read a prefix page another dp group wrote")
+            counts[label] = x0["launches"]
+
+    # (iv) qwen3-30b-a3b, 4 of 48 layers, pp = 2
+    label = "qwen3-30b-a3b q40 f32 pp2"
+    res = [r[2] for r in world2]
+    stream = res[0]["generate"][0][0]
+    first = _first_diff(stream, want_q)
+    print(f"pipeline {label}: {PP_MOE_LAYERS} of 48 layers at full width (2 a stage, experts "
+          f"whole), {PP_MOE_PROMPT}-token prompt, greedy stream equals one rank's: "
+          f"{stream == want_q}" + ("" if first is None else f" (first to differ: {first})")
+          + "; launches " + json.dumps([{k: x["launches"][k] for k in
+                                         ("moe_grouped_experts_q40", "moe_active_experts_q40")}
+                                        for x in res]))
+    require(all(x["generate"][0][0] == stream for x in res), f"{label}: the ranks' streams differ")
+    require(stream == want_q, f"{label}: the greedy stream parts from one rank's at {first}")
+    for r, x in enumerate(res):
+        for name in ("moe_grouped_experts_q40", "moe_active_experts_q40"):
+            require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
+    counts[label] = res[0]["launches"]
+
+    # (v) the CLI at --pp 2, its ranks on the one card
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "dllama_tpu_torch", "inference", "--model", ap, "--tokenizer",
+           tok, "--prompt", prompt_text(40), "--steps", "56", "--temperature", "0", "--dtype",
+           "f32", "--weight-format", "q40", "--pp", "2", "--device", dev]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, err_out = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()  # by its own pid; its ranks are daemons of it
+        out, err_out = proc.communicate()
+    pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
+    print(f"pipeline cli --pp 2: exit {proc.returncode}, {len(pred)} Pred lines, "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
+              l for l in out.splitlines() if l.startswith(("🔗", "💡 Pp", "🔷️ Eval"))))
+    if pred:
+        print(f"pipeline cli --pp 2: {pred[0]}")
+    require(proc.returncode == 0, f"the CLI at --pp 2 failed:\n{err_out[-4000:]}")
+    require("💡 Pp: 2 pipeline stages" in out and len(pred) == 56 - 41 + 1,
+            "the CLI at --pp 2: want its Pp line and rank 0's Pred lines")
     return counts
 
 
@@ -5221,6 +5515,11 @@ def main() -> int:
     t0 = time.perf_counter()
     counts.update(parallel_round(llama_tmp.name, smi))
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts.update(pipeline_round(llama_tmp.name, smi))
+    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
     llama_tmp.cleanup()
     for label in streams:
         model, fmt = label.split(" ", 1)

@@ -6,6 +6,7 @@
     python -m dllama_tpu_torch chat --model m.m --tokenizer t.t [--chat-template llama3]
     python -m dllama_tpu_torch perplexity --model m.m --tokenizer t.t --prompt "..."
     python -m dllama_tpu_torch inference ... --tp 2 [--sp 2] [--device cuda|cuda:N|cpu]
+    python -m dllama_tpu_torch inference ... --pp 2 [--dp 2 --batch-size 2] [--tp 2]
     torchrun --nproc-per-node 2 -m dllama_tpu_torch inference ... --tp 2
     (each also takes --trace-out PATH, --timeline-out PATH, --postmortem-dir DIR,
     --nbatches N (prefill buckets 1, N and 512), --moe-decode-dedup auto|on|off;
@@ -21,9 +22,11 @@ runs the plain PyTorch versions of the kernels. `add_engine_args`,
 (obs/cost.py) and compares the memory with the card's allocator
 (obs/device.py), as the JAX CLI does.
 
-Tensor and sequence parallelism (``--tp``, 0 = as many ranks as the host's
-cards and the model allow; ``--sp``; ``--workers N`` an alias of ``--tp``):
-``tp * sp`` ranks, each an engine on its slices (runtime/engine.py). Under
+Tensor, sequence, pipeline and data parallelism (``--tp``, 0 = as many
+ranks as the host's cards and the model allow, 1 under ``--pp``; ``--sp``;
+``--pp`` stages; ``--dp`` lane shards, which ``--batch-size`` must divide;
+``--workers N`` an alias of ``--tp``): ``pp * dp * sp * tp`` ranks, each an
+engine on its slices (runtime/engine.py). Under
 torchrun each process is a rank (parallel/mesh.py reads its environment);
 without it the CLI starts its ranks itself (parallel/launch.py) and rank 0
 alone prints. ``--device cuda`` puts rank r on ``cuda:r``, ``cuda:N`` every
@@ -32,11 +35,11 @@ rank on card N (the ranks then share it over gloo), ``cpu`` on the CPU.
 when the ranks span hosts, as the JAX CLI applies it only across processes.
 ``inference`` and ``perplexity`` run one program on every rank and print the
 JAX CLI's lines at the same tp and sp (Sent/Recv:
-`utils.telemetry.ici_traffic_per_token`; Sync: the host ms of the step's
-collectives). ``chat`` runs on rank 0, which reads stdin, and the other
-ranks follow its dispatches (parallel/control.py); without torchrun the
-chat's own process is rank 0 (parallel/launch.lead). ``--sync-measure`` is
-accepted and ignored; ``--pp`` and ``--dp`` above 1 wait for ROADMAP A.14.
+`utils.telemetry.ici_traffic_per_token`, the pipeline's hand-offs
+included; Sync: the host ms of the step's collectives). ``chat`` runs on
+rank 0, which reads stdin, and the other ranks follow its dispatches
+(parallel/control.py); without torchrun the chat's own process is rank 0
+(parallel/launch.lead). ``--sync-measure`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -96,10 +99,13 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--workers", nargs="*", default=None,
                    help="alias for --tp: a rank count (host:port lists are a LAN-cluster "
                    "concept)")
-    p.add_argument("--pp", type=int, default=1, help="pipeline stages: 1 (more waits for "
-                   "ROADMAP A.14)")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel lane shards: 1 (more waits "
-                   "for ROADMAP A.14)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages: each holds nLayers/pp layers + that range's KV cache "
+                   "— fits models past the tp <= nKvHeads ceiling; composes with --tp (stages "
+                   "of tp groups; ranks = pp x tp), --dp, --sp and --batch-size lanes")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks: batch lanes shard across dp (requires batch-size "
+                   "%% dp == 0); the throughput axis for pp")
     p.add_argument("--sync-measure", default="auto", choices=["auto", "off"],
                    help="accepted for parity with the JAX CLI and ignored: the port measures "
                    "each step's collectives as they run (parallel/collectives.STATS)")
@@ -189,14 +195,16 @@ def _refuse_gpu_flags(args) -> None:
                              "--device (and CUDA_VISIBLE_DEVICES)")
 
 
-def resolve_mesh_shape(args) -> tuple[int, int]:
-    """(tp, sp) from ``--tp``/``--workers``/``--sp`` (tp 0: `auto_tp` over the
-    host's cards, 1 without one), for every mode and the server alike, as in
-    the JAX CLI. ``--pp`` and ``--dp`` above 1 raise."""
-    for flag in ("pp", "dp"):
-        if getattr(args, flag, 1) > 1:
-            raise SystemExit(f"--{flag} > 1 is not ported yet (ROADMAP A.14: the pipeline "
-                             "with its dp lanes)")
+def resolve_mesh_shape(args) -> tuple[int, int, int, int]:
+    """(tp, sp, pp, dp) from ``--tp``/``--workers``/``--sp``/``--pp``/``--dp``,
+    for every mode and the server alike, with the JAX CLI's rules: tp 0 is
+    1 under ``--pp``, else `auto_tp` over the host's cards left once sp and
+    dp have taken their share (1 without a card). A pp that does not divide
+    the layers and a batch that dp does not divide are refused here, with
+    the JAX engine's reasons, before any rank starts."""
+    from .formats.model_file import read_llm_header
+    from .parallel.mesh import validate_pp
+
     tp = getattr(args, "tp", 0) or 0
     workers = getattr(args, "workers", None)
     if not tp and workers:
@@ -207,16 +215,29 @@ def resolve_mesh_shape(args) -> tuple[int, int]:
                   f"tp={len(workers)} ranks instead")
             tp = len(workers)
     sp = getattr(args, "sp", 1) or 1
+    pp = getattr(args, "pp", 1) or 1
+    dp = getattr(args, "dp", 1) or 1
+    batch = getattr(args, "batch_size", 1)
+    if dp > 1 and batch % dp:
+        raise SystemExit(f"batch_size {batch} must divide over dp={dp} lanes")
+    if pp > 1:
+        try:
+            validate_pp(read_llm_header(args.model), pp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    if pp > 1 and not tp:
+        tp = 1  # with --pp, tp scales explicitly (ranks = pp x tp)
     if not tp:
         from .parallel.mesh import auto_tp
 
-        # the JAX CLI's rule: the cards left for tp once sp has taken its share
-        cards = max(torch.cuda.device_count(), 1) // sp
+        # the JAX CLI's rule: the cards left for tp once sp and dp have
+        # taken their share
+        cards = max(torch.cuda.device_count(), 1) // (sp * dp)
         tp = 1 if str(args.device) == "cpu" else auto_tp(args.model, max(cards, 1))
-    return tp, sp
+    return tp, sp, pp, dp
 
 
-def _rank_mesh(args, tp: int, sp: int):
+def _rank_mesh(args, tp: int, sp: int, pp: int, dp: int):
     """This process's Mesh under world > 1: a rank that parallel/launch.py
     started (its process group is up), or a torchrun process."""
     import torch.distributed as dist
@@ -224,8 +245,8 @@ def _rank_mesh(args, tp: int, sp: int):
     from .parallel.mesh import init_distributed, make_mesh
 
     if dist.is_initialized():
-        return make_mesh(tp, sp, torch.device(args.device), dist.get_backend())
-    return init_distributed(tp, sp, args.device)
+        return make_mesh(tp, sp, torch.device(args.device), dist.get_backend(), pp=pp, dp=dp)
+    return init_distributed(tp, sp, args.device, pp=pp, dp=dp)
 
 
 def load_engine(args):
@@ -236,8 +257,8 @@ def load_engine(args):
 
     _refuse_gpu_flags(args)
     tok = Tokenizer(args.tokenizer)
-    tp, sp = resolve_mesh_shape(args)
-    mesh = _rank_mesh(args, tp, sp) if tp * sp > 1 else None
+    tp, sp, pp, dp = resolve_mesh_shape(args)
+    mesh = _rank_mesh(args, tp, sp, pp, dp) if tp * sp * pp * dp > 1 else None
     from .parallel.mesh import spans_hosts
 
     engine = InferenceEngine(
@@ -252,7 +273,7 @@ def load_engine(args):
         kv_dtype=args.kv_dtype,
         prefill_buckets=tuple(sorted({1, args.nbatches, 512})),
         moe_decode_dedup={"on": True, "off": False}.get(args.moe_decode_dedup, "auto"),
-        tp=tp, sp=sp, mesh=mesh,
+        tp=tp, sp=sp, pp=pp, dp=dp, mesh=mesh,
         device=mesh.device if mesh is not None else args.device,
         buffer_float_type=(getattr(args, "buffer_float_type", "f32") if spans_hosts()
                            else "f32"),
@@ -275,6 +296,10 @@ def load_engine(args):
     if mesh is not None:
         print(f"💡 Tp: {tp} rank(s) [{mesh.backend}]")
         print(f"💡 Sp: {sp} sequence shard(s)")
+        if dp > 1:
+            print(f"💡 Dp: {dp} lane shards")
+        if pp > 1:
+            print(f"💡 Pp: {pp} pipeline stages")
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"💡 Device: {dev} ({name})")
@@ -296,7 +321,7 @@ def load_engine(args):
     if mesh is not None:  # the JAX CLI's report, from this rank's slices
         from .utils.telemetry import memory_report as mesh_memory_report
 
-        mesh_memory_report(engine.params, engine.cache, tp, sp).print()
+        mesh_memory_report(engine.params, engine.cache, tp, sp, pp, dp).print()
     else:
         mem.print()
     # the analytic decode floor beside the memory report: what "as fast as
@@ -387,7 +412,7 @@ def run_inference(args) -> dict:
 
 
 def _run_inference_ranks(args, engine, tok, tokens: list[int], load_s: float) -> dict:
-    """`run_inference` on a rank of a tp x sp run, printed as the JAX CLI
+    """`run_inference` on a rank of a multi-rank run, printed as the JAX CLI
     prints a multi-chip run: the prefill's Eval line and one Pred line a
     decoded token (decode_step), each with its Sync ms (the host ms of the
     step's collectives, parallel/collectives.STATS) and Sent/Recv kB (the
@@ -396,8 +421,11 @@ def _run_inference_ranks(args, engine, tok, tokens: list[int], load_s: float) ->
     from .utils.telemetry import ici_traffic_per_token as ici
 
     act_bytes = 1.125 if engine.sync_quant else 4.0
-    per_tok = ici(engine.header, engine.tp, activation_bytes=act_bytes, include_logits=False)
-    logits_bytes = ici(engine.header, engine.tp, activation_bytes=act_bytes) - per_tok
+    # the pipeline's hand-offs move the model's activation type, uncompressed
+    kw = dict(activation_bytes=act_bytes, pp=engine.pp,
+              pp_activation_bytes=float(engine.dtype.itemsize))
+    per_tok = ici(engine.header, engine.tp, include_logits=False, **kw)
+    logits_bytes = ici(engine.header, engine.tp, **kw) - per_tok
     print(args.prompt)
     STATS.reset()
     eval_stats = engine.prefill(tokens)
@@ -552,16 +580,16 @@ def run_perplexity(args) -> None:
     print(f" perplexity: {ppl:.4f}")
 
 
-def _spawn_ranks(argv: list[str], args, tp: int, sp: int):
-    """Start the tp x sp ranks of this command (parallel/launch.py) and
-    return rank 0's summary; rank 0 prints."""
+def _spawn_ranks(argv: list[str], args, tp: int, sp: int, pp: int, dp: int):
+    """Start the ranks of this command (parallel/launch.py) and return rank
+    0's summary; rank 0 prints."""
     from .parallel.launch import cli_target, spawn
-    from .parallel.mesh import pick_backend
+    from .parallel.mesh import pick_backend, shape_str
 
-    world = tp * sp
+    world = tp * sp * pp * dp
     backend = pick_backend(args.device, world)
-    print(f"🔗 Ranks: {world} (tp={tp} x sp={sp}), backend {backend}, device {args.device}",
-          flush=True)
+    print(f"🔗 Ranks: {world} ({shape_str(tp, sp, pp, dp)}), backend {backend}, device "
+          f"{args.device}", flush=True)
     return spawn(cli_target, world, args.device, backend, args=(list(argv),),
                  timeout_s=24 * 3600.0)[0]
 
@@ -577,8 +605,8 @@ def main(argv=None):
             "ranks, or torchrun does) — run the root command with --tp N instead")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _build_parser().parse_args(argv)
-    tp, sp = resolve_mesh_shape(args)
-    if tp * sp > 1:
+    tp, sp, pp, dp = resolve_mesh_shape(args)
+    if tp * sp * pp * dp > 1:
         import torch.distributed as dist
 
         from .parallel.mesh import torchrun_env
@@ -587,8 +615,9 @@ def main(argv=None):
             if args.mode == "chat":  # this process is rank 0: it reads stdin
                 from .parallel.launch import lead_command
 
-                return lead_command(lambda: run_chat(args), "cli", argv, args.device, tp, sp)
-            return _spawn_ranks(argv, args, tp, sp)
+                return lead_command(lambda: run_chat(args), "cli", argv, args.device, tp, sp,
+                                    pp, dp)
+            return _spawn_ranks(argv, args, tp, sp, pp, dp)
         rank = dist.get_rank() if dist.is_initialized() else int(os.environ["RANK"])
         if rank != 0:  # rank 0 alone prints
             with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):

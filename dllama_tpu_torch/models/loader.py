@@ -17,7 +17,10 @@ With ``shard=(tp, r)`` (tensor parallelism, parallel/sharding.py) each
 tensor that splits is read as rank r's slice alone: its rows or its
 columns (whole 32-element blocks of a Q40 file) are cut from the file's
 memmap before anything is copied, so neither the host nor the card of a
-rank holds the whole model (`_slice_raw`).
+rank holds the whole model (`_slice_raw`). With ``layers`` (a pipeline
+stage's range, parallel/pipeline.stage_range) only those layers' tensors
+are read, beside the embedding, the final norm and the classifier, which
+every stage holds.
 
 Qwen3-MoE experts are stacked per layer (``w1``/``w3`` [E, F, D], ``w2``
 [E, D, F]; 18,432 tensors at Qwen3-30B-A3B). One layer's experts are
@@ -99,6 +102,7 @@ def load_params(
     device=None,
     weight_format: str = "dense",
     shard: tuple[int, int] | None = None,
+    layers: range | None = None,
 ) -> Params:
     """Params for `models.transformer.forward`. ``dtype`` is the activation
     dtype (embedding and dense weights); norm weights and the rope tables
@@ -106,7 +110,8 @@ def load_params(
     (needs a Q40 file), ``"q40i4"`` keeps the non-expert ones as packed
     nibbles (experts stay ``"q40"``); ``"dense"`` dequantizes them to
     ``dtype``. The device defaults to ``cuda``. ``shard=(tp, r)`` loads tp
-    rank r's slices (module docstring; not for Qwen3-MoE)."""
+    rank r's slices (module docstring; not for Qwen3-MoE); ``layers`` the
+    layers of a pipeline stage alone (default: all)."""
     device = resolve_device(device)
     h = reader.header
     if weight_format not in ("dense", "q40", "q40i4"):
@@ -155,8 +160,8 @@ def load_params(
         return out
 
     moe = h.arch == LlmArch.QWEN3_MOE
-    layers = []
-    for l in range(h.n_layers):
+    stage = []
+    for l in layers if layers is not None else range(h.n_layers):
         parts = {k: v for k, v in _MATMULS.items() if not (moe and k in ("w1", "w2", "w3"))}
         lp = {key: matmul_weight(f"layers.{l}.{part}", key) for key, part in parts.items()}
         if moe:
@@ -167,7 +172,7 @@ def load_params(
         if h.arch in (LlmArch.QWEN3, LlmArch.QWEN3_MOE):
             lp["q_norm"] = f32(f"layers.{l}.q_norm")
             lp["k_norm"] = f32(f"layers.{l}.k_norm")
-        layers.append(lp)
+        stage.append(lp)
     cos, sin = rope_cache(h, device=device)
     raw, n_vocab, dim = _slice_raw(reader, "embed", role_of("embed"), tp, rank)
     return {
@@ -177,5 +182,5 @@ def load_params(
         "final_norm": f32("final_norm"),
         "rope_cos": cos,
         "rope_sin": sin,
-        "layers": layers,
+        "layers": stage,
     }

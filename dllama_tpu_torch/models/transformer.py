@@ -37,6 +37,13 @@ needs no attention windows. ``plain=True`` runs the plain PyTorch version
 of every kernel instead, on any device: the on-card reference the kernel
 path is held against; the engine never sets it.
 
+Pipeline stages (``mesh`` with pp > 1): `forward` hands the call to
+parallel/pipeline.forward_pp, which runs this rank's stage, a contiguous
+range of the layers whose params and cache are all the rank holds, through
+`_forward_rank` on each sequence wave with ``x_in`` (the previous stage's
+hidden rows in place of the embedding) and ``logits_mode="hidden"`` (the
+stage's hidden rows in place of the logits).
+
 Tensor and sequence parallelism (``mesh``: one rank of a tp x sp mesh,
 parallel/mesh.py): the rank's weight slices, the tp all-reduces in f32
 before any downcast, the logits gathered over tp. Under tp alone
@@ -328,12 +335,43 @@ def forward(
     page_table: torch.Tensor | None = None,  # [B, n_blocks] int32: paged mode
     park: int | None = None,  # slab lanes: the first padding row (seq_len)
     moe_dedup: bool = False,  # Qwen3-MoE: the two-tier decode (`moe_ffn`)
-    mesh=None,  # parallel.mesh.Mesh: this rank's slices under tp and sp
+    mesh=None,  # parallel.mesh.Mesh: this rank's slices under tp and sp, its stage under pp
     sync_quant: bool = False,  # with mesh: the tp all-reduces in q80
+    n_micro: int = 1,  # with a mesh of pp > 1: the sequence waves of the chunk
 ):
     """Run the decoder on T tokens at ``pos``; the cache rows [pos, pos+T)
     are written in place. Returns (logits [B, T or 1, V] f32, or None for
-    ``logits_mode="none"``, and the cache).
+    ``logits_mode="none"``, and the cache). Under pp > 1 this rank's stage
+    (parallel/pipeline.forward_pp); otherwise `_forward_rank`."""
+    kw = dict(logits_mode=logits_mode, plain=plain, act_quant=act_quant, page_table=page_table,
+              park=park, moe_dedup=moe_dedup, mesh=mesh, sync_quant=sync_quant)
+    if mesh is not None and mesh.pp.size > 1:
+        from ..parallel.pipeline import forward_pp
+
+        return forward_pp(params, h, tokens, pos, cache, n_micro=n_micro, **kw)
+    return _forward_rank(params, h, tokens, pos, cache, **kw)
+
+
+def _forward_rank(
+    params: Params,
+    h: LlmHeader,
+    tokens: torch.Tensor,
+    pos,
+    cache: KvCache,
+    logits_mode: str = "all",
+    plain: bool = False,
+    act_quant=quantize_acts,
+    page_table: torch.Tensor | None = None,
+    park: int | None = None,
+    moe_dedup: bool = False,
+    mesh=None,
+    sync_quant: bool = False,
+    x_in: torch.Tensor | None = None,
+):
+    """`forward` on this rank's layers (all of them, or its pipeline
+    stage's). ``x_in`` [B, T, D]: the hidden rows to start from in place of
+    the tokens' embedding (a later stage); ``logits_mode="hidden"`` returns
+    the last layer's hidden rows [B, T, D] in place of the logits (`_finish`).
 
     ``act_quant(x [n, k], group) -> (xq, sx)`` quantizes the activations of
     every int8 matmul (q40i8), in the order of the calls. The default is
@@ -347,7 +385,7 @@ def forward(
     (`forward_parallel`)."""
     tp = None
     if mesh is not None:
-        if h.arch == LlmArch.QWEN3_MOE:
+        if h.arch == LlmArch.QWEN3_MOE and (mesh.tp.size > 1 or mesh.sp.size > 1):
             raise ValueError("Qwen3-MoE under tensor or sequence parallelism is not ported yet "
                              "(ROADMAP A.14)")
         if mesh.sp.size > 1:
@@ -357,9 +395,9 @@ def forward(
                 # the single stream, or one lane's chunk on its own rows at
                 # a host position: the ring
                 return forward_parallel(params, h, tokens, pos, cache, mesh, logits_mode, plain,
-                                        act_quant, sync_quant)
+                                        act_quant, sync_quant, x_in)
             return _forward_sp_lanes(params, h, tokens, pos, cache, park, mesh, logits_mode,
-                                     plain, act_quant, sync_quant)
+                                     plain, act_quant, sync_quant, x_in)
         tp = mesh.tp
     b, t = tokens.shape
     paged = page_table is not None
@@ -405,15 +443,30 @@ def forward(
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
 
-    x = _embed(params, tokens, tp)  # [B, T, D] (reference: OP_EMBEDDING)
+    x = _start(params, tokens, tp, x_in)  # [B, T, D] (reference: OP_EMBEDDING)
     # [B, T, hd/2] with each lane at its own position (paged, slab lanes),
     # else [T, hd/2]
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
     ffn = (lambda y, lp: moe_ffn(y, lp, h, plain, moe_dedup)) if is_moe else None
     x = _layers(params, h, x, cos, sin, cache, attend, mm,
                 _mm_col(tp, plain, act_quant, sync_quant), ffn)
-    out = logits_head(x, params, h, logits_mode, plain, act_quant)
-    return _gather_logits(out, tp), cache
+    return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache
+
+
+def _start(params: Params, tokens: torch.Tensor, tp, x_in) -> torch.Tensor:
+    """A forward's first hidden rows: ``x_in`` (a later pipeline stage's
+    input), else the tokens' embedding."""
+    return x_in if x_in is not None else _embed(params, tokens, tp)
+
+
+def _finish(x: torch.Tensor, params: Params, h: LlmHeader, logits_mode: str, plain: bool,
+            act_quant, tp):
+    """A forward's output from its last hidden rows: the rows themselves for
+    ``logits_mode="hidden"`` (a pipeline stage's hand-off), else the logits
+    (`logits_head`) gathered over tp."""
+    if logits_mode == "hidden":
+        return x
+    return _gather_logits(logits_head(x, params, h, logits_mode, plain, act_quant), tp)
 
 
 def _embed(params: Params, tokens: torch.Tensor, tp) -> torch.Tensor:
@@ -476,7 +529,7 @@ def _merge_sp(acc, m, l, sp, dtype) -> torch.Tensor:
 
 def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
                       park: int, mesh, logits_mode: str, plain: bool, act_quant,
-                      sync_quant: bool):
+                      sync_quant: bool, x_in=None):
     """Slab lanes on one rank of a tp x sp mesh (the JAX engine's lanes
     under its sp mesh): the cache is this rank's shard of the lanes' slab,
     [L, B, KH/tp, (S + pad)/sp, hd], rows in the cyclic order (global row g
@@ -517,10 +570,9 @@ def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, c
         return _mm(x, w, plain, act_quant)
 
     cos, sin = params["rope_cos"][rows.clamp(min=0)], params["rope_sin"][rows.clamp(min=0)]
-    x = _layers(params, h, _embed(params, tokens, tp), cos, sin, cache, attend, mm,
+    x = _layers(params, h, _start(params, tokens, tp, x_in), cos, sin, cache, attend, mm,
                 _mm_col(tp, plain, act_quant, sync_quant))
-    out = logits_head(x, params, h, logits_mode, plain, act_quant)
-    return _gather_logits(out, tp), cache
+    return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache
 
 
 def _lane_pos_vec(pos, b: int, device) -> torch.Tensor:
@@ -532,7 +584,7 @@ def _lane_pos_vec(pos, b: int, device) -> torch.Tensor:
 
 def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
                      mesh, logits_mode: str = "all", plain: bool = False,
-                     act_quant=quantize_acts, sync_quant: bool = False):
+                     act_quant=quantize_acts, sync_quant: bool = False, x_in=None):
     """`forward` of one stream on one rank of a tp x sp mesh with sp > 1
     (dllama_tpu's ``run_layers`` under its mesh): the params are the rank's
     tp slices (parallel/sharding.py) and the cache its [L, 1, KH/tp, S/sp,
@@ -548,8 +600,9 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
       the ring over the shards' live prefix (the rows below ceil((pos + T)
       / sp): every row past it is in every query's future), and all-gathers
       the outputs over sp before ``wo``.
-    Every rank returns the same logits."""
-    if logits_mode not in ("all", "last", "none"):
+    Every rank returns the same logits. ``x_in`` and ``logits_mode="hidden"``
+    as in `_forward_rank`."""
+    if logits_mode not in ("all", "last", "none", "hidden"):
         raise ValueError(f"unknown logits_mode: {logits_mode!r}")
     tp, sp = mesh.tp, mesh.sp
     t = tokens.shape[1]
@@ -564,7 +617,7 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
     def mm(x, w):
         return _mm(x, w, plain, act_quant)
 
-    x = _embed(params, tokens, tp)
+    x = _start(params, tokens, tp, x_in)
     rows = torch.arange(pos, pos + t, device=dev)
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
     js, local_rows = cyclic_rows(pos, t, sp.size, sp.index)
@@ -592,5 +645,4 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
 
     x = _layers(params, h, x, cos, sin, cache, attend, mm,
                 _mm_col(tp, plain, act_quant, sync_quant))
-    out = logits_head(x, params, h, logits_mode, plain, act_quant)
-    return _gather_logits(out, tp), cache
+    return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache

@@ -219,18 +219,20 @@ class StepCostModel:
     read back, so that is what the rows could route to)."""
 
     def __init__(self, h: "LlmHeader", params: dict, kv_elem_bytes: int, quantized_kv: bool,
-                 tp: int = 1, sp: int = 1):
+                 tp: int = 1, sp: int = 1, pp: int = 1):
         self.h = h
-        # a rank of a tp x sp mesh counts its own work: its weight slices
-        # (``params`` are the rank's), 1/tp of the products and of the KV
-        # heads, and 1/sp of the cache rows and attention pairs
+        # a rank of a pp x sp x tp mesh counts its own work: its weight
+        # slices (``params`` are the rank's), 1/tp of the products and of
+        # the KV heads, 1/sp of the cache rows and attention pairs, and its
+        # stage's L/pp layers
         self.tp, self.sp = tp, sp
+        self.n_layers = h.n_layers // pp
         self.w = param_bytes(params, h)
         self.kv_row = kv_row_bytes(h, kv_elem_bytes, quantized_kv) // tp
         d, f = h.dim, h.ff_dim
         att = 2 * d * h.q_dim + 2 * d * h.kv_dim
-        self.elems_layer = h.n_layers * (att + (0 if h.is_moe else 3 * d * f)) // tp
-        self.elems_expert = h.n_layers * 3 * d * f  # one expert a layer, over the layers
+        self.elems_layer = self.n_layers * (att + (0 if h.is_moe else 3 * d * f)) // tp
+        self.elems_expert = self.n_layers * 3 * d * f  # one expert a layer, over the layers
         self.elems_cls = h.vocab_size * d // tp
 
     def forward(self, rows: int, logit_rows: int, kv_read: int, kv_write: int,
@@ -241,20 +243,20 @@ class StepCostModel:
         attending ``attn_pairs`` (query row, cache row) pairs."""
         h = self.h
         flops = 2.0 * rows * self.elems_layer + 2.0 * logit_rows * self.elems_cls
-        flops += 4.0 * h.n_layers * h.n_heads // self.tp * h.head_dim * attn_pairs / self.sp
+        flops += 4.0 * self.n_layers * h.n_heads // self.tp * h.head_dim * attn_pairs / self.sp
         nbytes_ = n * self.w["layers"] + (n * self.w["cls"] if logit_rows else 0)
         if h.is_moe:
             n_exp = min(h.n_experts, -(-rows // n) * h.n_active_experts)
             nbytes_ += n * (self.w["experts"] * n_exp // h.n_experts)
             flops += 2.0 * rows * h.n_active_experts * self.elems_expert
-        nbytes_ += h.n_layers * self.kv_row * (kv_read + kv_write) / self.sp
+        nbytes_ += self.n_layers * self.kv_row * (kv_read + kv_write) / self.sp
         return flops, float(nbytes_)
 
     def kv_copy(self, rows: int) -> tuple[float, float]:
         """A copy of ``rows`` K/V rows of every layer between the lanes'
         slab and the pool (`InferenceEngine.kv_adopt` / ``kv_publish``):
         each row read once and written once, no operations."""
-        return 0.0, float(2 * self.h.n_layers * self.kv_row * rows)
+        return 0.0, float(2 * self.n_layers * self.kv_row * rows)
 
 
 def extract_cost(acc) -> dict | None:

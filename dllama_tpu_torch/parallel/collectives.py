@@ -1,4 +1,4 @@
-"""The collectives of tensor and sequence parallelism, on ``torch.distributed``.
+"""The collectives of tensor, sequence, pipeline and data parallelism, on ``torch.distributed``.
 
 Counterpart of dllama_tpu/parallel/collectives.py, whose q80 sync buffer
 is the reference's (--buffer-float-type q80; src/llm.cpp:195): each rank
@@ -14,7 +14,14 @@ exact sum's 4. No kernel of the TPU package stands behind this module.
 * `all_reduce_max` — the MAX (``pmax``);
 * `all_gather` — the axis's tensors concatenated along a dim, in axis order;
 * `ring_shift` — each rank's tensor to the next one on the axis, i -> i + 1
-  (``ppermute``, the ring attention's hop).
+  (``ppermute``, the ring attention's hop);
+* `stage_send` / `stage_recv` — a pipeline stage's activation to the next
+  stage and from the previous one (the ``ppermute`` hop of dllama_tpu's
+  ``forward_pp``), the send returning a handle to wait on, so that a stage
+  hands on wave after wave while the next one still computes;
+* `broadcast` — one rank's tensor to every rank of the axis (the last
+  stage's hidden rows to every stage, the psum of ``forward_pp``'s exit
+  register; a dp group's pool rows to the other groups).
 
 Routes by backend. Under NCCL the tensors stay on the card (the shift by
 ``batch_isend_irecv``). Under gloo with CUDA tensors every collective copies
@@ -26,10 +33,13 @@ moves nothing.
 `STATS` counts, for every collective a rank issues, its wall seconds on the
 host (under gloo with CUDA tensors from the moment the rank's own kernels
 before it have finished: the copies, the transfer and the wait for the
-peers; under NCCL the launch) and its bytes
+peers; under NCCL the launch; for a stage's send its copy and its post,
+the send completing while the stage computes on) and its bytes
 by the same model as ``utils.telemetry.ici_traffic_per_token``: a ring
 all-reduce sends ``2 (n - 1) / n`` of its payload a rank, an all-gather
-``(n - 1)`` times a rank's share, a shift its tensor.
+``(n - 1)`` times a rank's share, a shift or a stage's send its tensor (a
+receive counts nothing: its bytes are the sender's), a broadcast its
+tensor on the rank that sends it.
 """
 
 from __future__ import annotations
@@ -174,4 +184,60 @@ def ring_shift(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     STATS.add(time.perf_counter() - t0, x.numel() * x.element_size())
+    return buf.to(x.device)
+
+
+class _Sent:
+    """A stage send in flight: its request and the tensor it reads (a host
+    copy under gloo, kept alive until the send completes)."""
+
+    def __init__(self, req, buf):
+        self.req, self.buf = req, buf
+
+    def wait(self) -> None:
+        if self.req is not None:
+            self.req.wait()
+            self.req = self.buf = None
+
+
+def stage_send(x: torch.Tensor, axis: Axis) -> _Sent:
+    """Send x to the next rank on the pipeline axis (no wrap: the last stage
+    sends nothing) and return the send's handle; the caller waits on it
+    before the tensor changes or the forward returns. Sends and receives
+    between two stages pair in the order they are issued."""
+    if axis.index == axis.size - 1:
+        raise ValueError("the last stage sends nothing on")
+    t0 = _clock(x, axis)
+    src = _host(x.contiguous(), axis)
+    req = dist.isend(src, axis.ranks[axis.index + 1], group=axis.group)
+    STATS.add(time.perf_counter() - t0, x.numel() * x.element_size())
+    return _Sent(req, src)
+
+
+def stage_recv(shape, dtype, device, axis: Axis) -> torch.Tensor:
+    """The tensor of ``shape`` and ``dtype`` the previous stage sent, on
+    ``device`` (stage 0 receives nothing)."""
+    if axis.index == 0:
+        raise ValueError("stage 0 receives nothing")
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    host = axis.backend == "gloo" and dev.type == "cuda"
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if host else dev)
+    dist.recv(buf, axis.ranks[axis.index - 1], group=axis.group)
+    STATS.add(time.perf_counter() - t0, 0.0)
+    return buf.to(dev)
+
+
+def broadcast(x: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
+    """The tensor of the axis's rank ``src`` (an index on the axis) on every
+    rank of it: x is read on ``src`` and gives the shape and type elsewhere."""
+    if axis.size == 1:
+        return x
+    t0 = _clock(x, axis)
+    buf = _host(x.contiguous(), axis)
+    if buf is x and axis.index != src:
+        buf = x.clone()
+    dist.broadcast(buf, axis.ranks[src], group=axis.group)
+    nbytes = x.numel() * x.element_size()
+    STATS.add(time.perf_counter() - t0, nbytes if axis.index == src else 0.0)
     return buf.to(x.device)

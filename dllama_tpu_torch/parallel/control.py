@@ -1,5 +1,5 @@
 """Rank 0 controls, the other ranks follow: the control plane of serving
-under tensor and sequence parallelism.
+under tensor, sequence, pipeline and data parallelism.
 
 The JAX package is one controller over every chip, and the reference's
 workers loop on a control packet {position, batchSize} that the root
@@ -48,6 +48,13 @@ engine until it receives ``stop`` (the reference's batchSize 0).
   returns into a digest (`Controller.summary`, `follow`'s result); equal
   digests mean every rank returned the same tokens. A host-sampled
   ``decode_step`` is drawn on rank 0 alone and is left out.
+* **Pipeline stages and dp groups.** Rank 0 is stage 0 of dp group 0 and
+  every other rank, of any stage and group, follows the same commands: the
+  engine splits each dispatch into its stage's part and its group's lanes
+  (runtime/engine.py) and hands every rank every lane's tokens, so every
+  digest is equal. Kernel launches differ between dp groups (a lane's
+  chunk runs on its group alone): a check of launches compares the ranks
+  of one stage and dp group.
 """
 
 from __future__ import annotations

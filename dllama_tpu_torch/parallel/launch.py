@@ -1,4 +1,4 @@
-"""Start the ranks of a tp x sp world on one host (``torch.multiprocessing``).
+"""Start the ranks of a pp x dp x sp x tp world on one host (``torch.multiprocessing``).
 
 The port's counterpart of ``initialize_multihost`` (dllama_tpu/parallel/
 mesh.py): where the JAX package runs one program over every chip, the port
@@ -7,6 +7,10 @@ start method; they meet through a ``file://`` rendezvous in a temporary
 directory of their own (no port to collide on, so concurrent launches and
 test workers stay apart), each runs ``target(World, *args)`` and sends its
 result back to the parent, which returns them in rank order.
+
+A rank on the CPU runs one intra-op thread: the ranks of a world (and
+of worlds started side by side) share the host's cores, and more threads
+than cores starve the ranks that wait in a collective.
 
 No rank outlives a failure. The process group has a timeout, so a
 collective whose peer died or diverged raises within it; the parent waits
@@ -51,7 +55,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .mesh import DEFAULT_TIMEOUT_S, make_mesh, pick_backend, rank_device
+from .mesh import DEFAULT_TIMEOUT_S, make_mesh, pick_backend, rank_device, shape_str
 
 
 class World(NamedTuple):
@@ -71,6 +75,8 @@ def _rank_main(rank: int, world: int, device: str, backend: str, init_file: str,
         dev = rank_device(device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+        else:  # the ranks share the host's cores: one intra-op thread each
+            torch.set_num_threads(1)
         dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
@@ -224,14 +230,15 @@ def _watch(procs, results, got: dict, done: threading.Event) -> None:
         os._exit(1)
 
 
-def lead_command(run, module: str, argv: list[str], device: str, tp: int, sp: int):
+def lead_command(run, module: str, argv: list[str], device: str, tp: int, sp: int,
+                 pp: int = 1, dp: int = 1):
     """The launch of a server (``module`` "server") or a chat ("cli") over
-    tp x sp ranks: print the ranks line, run ``run()`` here as rank 0 and
-    the other ranks as followers of the same command line
-    (`follower_target`). Returns ``run()``'s result."""
-    world = tp * sp
-    print(f"🔗 Ranks: {world} (tp={tp} x sp={sp}), backend {pick_backend(device, world)}, "
-          f"device {device}", flush=True)
+    pp x dp x sp x tp ranks: print the ranks line, run ``run()`` here as
+    rank 0 (stage 0, dp group 0) and the other ranks as followers of the
+    same command line (`follower_target`). Returns ``run()``'s result."""
+    world = tp * sp * pp * dp
+    print(f"🔗 Ranks: {world} ({shape_str(tp, sp, pp, dp)}), backend "
+          f"{pick_backend(device, world)}, device {device}", flush=True)
     return lead(lambda w, *_: run(), follower_target, world, device, args=(module, list(argv)))[0]
 
 
@@ -270,15 +277,33 @@ def cli_target(world: World, argv: list[str]):
     return None
 
 
+def _mesh_of(world: World, job: dict):
+    """The `Mesh` of a job's ``tp``, ``sp``, ``pp`` and ``dp`` (each 1 by
+    default) over this world."""
+    return make_mesh(job.get("tp", 1), job.get("sp", 1), world.device, world.backend,
+                     pp=job.get("pp", 1), dp=job.get("dp", 1))
+
+
+def _axes(mesh) -> dict:
+    """The engine's mesh arguments from a `Mesh`."""
+    return dict(tp=mesh.tp.size, sp=mesh.sp.size, pp=mesh.pp.size, dp=mesh.dp.size,
+                mesh=mesh if mesh.world > 1 else None)
+
+
 def engine_target(world: World, jobs: list[dict]) -> list[dict]:
     """Engine jobs on one world, each on its own `Mesh`: a dict of the
-    engine's arguments (``tp``, ``sp``, ``model``, ``dtype`` "f32"/"bf16",
+    engine's arguments (``tp``, ``sp``, ``pp``, ``dp``, ``batch_size``,
+    ``model``, ``dtype`` "f32"/"bf16",
     ``weight_format``, ``buffer_float_type``, ``kv_dtype``, ``temperature``,
     ``seed``)
     and of what to run: ``logits`` (a token list: its prefill logits, all
     rows, from a fresh cache), ``step_logits`` (a prompt: its prefill, then
     the logits of one decode step of its last token), ``generate`` (a list
     of (prompt, steps, block_size, start_pos) calls in turn on one cache),
+    ``forward`` (a list of (tokens, n_micro): each one `models.forward` of
+    every row from a fresh cache in n_micro sequence waves, its logits and
+    the rank's K/V cache after it), ``generate_batch`` (prompts and
+    max_steps: one prompt a lane),
     ``timed_steps`` (n: that many decode steps after the generate calls,
     each bracketed by CUDA events on the card: the medians of a step's
     device ms, its collectives' host ms and bytes), ``perplexity`` (a token
@@ -292,18 +317,21 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
     out = []
     for job in jobs:
         reset_launch_counts()
-        mesh = make_mesh(job.get("tp", 1), job.get("sp", 1), world.device, world.backend)
+        mesh = _mesh_of(world, job)
         eng = InferenceEngine(
             job["model"], dtype=torch.float32 if job.get("dtype", "f32") == "f32"
             else torch.bfloat16, temperature=job.get("temperature", 0.0),
             seed=job.get("seed", 12345), weight_format=job.get("weight_format", "dense"),
-            device=world.device, tp=mesh.tp.size, sp=mesh.sp.size, mesh=mesh,
-            buffer_float_type=job.get("buffer_float_type", "f32"), kv_dtype=job.get("kv_dtype"),
+            device=world.device, buffer_float_type=job.get("buffer_float_type", "f32"),
+            kv_dtype=job.get("kv_dtype"), batch_size=job.get("batch_size", 1), **_axes(mesh),
         )
         res: dict = {"i8_group": eng.i8_group, "buckets": list(eng.prefill_buckets),
-                     "layer_bytes": param_bytes(eng.params, eng.header)["layers"]}
+                     "layer_bytes": param_bytes(eng.params, eng.header)["layers"],
+                     "stage": mesh.pp.index, "dp_group": mesh.dp.index}
         if "logits" in job:
             res["logits"] = _np(eng.prompt_logits(job["logits"]))
+        if "forward" in job:
+            res["forward"] = [_forward_job(eng, toks, n_micro) for toks, n_micro in job["forward"]]
         if "step_logits" in job:
             prompt = job["step_logits"]
             eng.reset()
@@ -316,6 +344,9 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
                 toks, ev, pred = eng.generate(prompt, max_steps=steps, block_size=block,
                                               start_pos=start)
                 res["generate"].append((toks, ev.n_tokens, pred.n_tokens))
+        if "generate_batch" in job:
+            prompts, steps = job["generate_batch"]
+            res["generate_batch"] = eng.generate_batch(prompts, steps)
         if "timed_steps" in job:
             res["timed"] = _timed_steps(eng, job["timed_steps"], res["generate"][-1][0],
                                         job["generate"][-1])
@@ -328,6 +359,22 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
         out.append(res)
         del eng
     return out
+
+
+@torch.inference_mode()
+def _forward_job(eng, tokens: list[int], n_micro: int):
+    """(logits [T, V], {"k", "v": the rank's cache values}) of one forward of
+    ``tokens`` at 0 from a fresh cache on the engine's mesh, in ``n_micro``
+    waves."""
+    from ..models import forward
+    from ..ops.kv_cache import kv_tensors
+
+    eng.reset()
+    tok = torch.tensor([tokens], dtype=torch.int64, device=eng.device)
+    kw = dict(eng._mesh_kw(len(tokens)), n_micro=n_micro)
+    logits, cache = forward(eng.params, eng.header, tok, 0, eng.cache, logits_mode="all", **kw)
+    # a copy: the next forward rewrites the engine's cache in place
+    return _np(logits[0]), {k: _np(kv_tensors(v)[0].clone()) for k, v in cache.items()}
 
 
 def _timed_steps(eng, n: int, tokens: list[int], call) -> dict:
@@ -398,25 +445,29 @@ def _job_engine(world: World, job: dict):
     """The engine of a lane or server job on this rank, and its mesh."""
     from ..runtime.engine import DEFAULT_PREFILL_BUCKETS, InferenceEngine
 
-    mesh = make_mesh(job.get("tp", 1), job.get("sp", 1), world.device, world.backend)
+    mesh = _mesh_of(world, job)
     eng = InferenceEngine(
         job["model"], dtype=torch.float32 if job.get("dtype", "f32") == "f32" else torch.bfloat16,
         temperature=job.get("temperature", 0.0), seed=job.get("seed", 12345),
         weight_format=job.get("weight_format", "dense"), device=world.device,
-        tp=mesh.tp.size, sp=mesh.sp.size, mesh=mesh if mesh.world > 1 else None,
         kv_dtype=job.get("kv_dtype"), batch_size=job.get("batch_size", 1),
-        prefill_buckets=tuple(job.get("buckets", DEFAULT_PREFILL_BUCKETS)),
+        prefill_buckets=tuple(job.get("buckets", DEFAULT_PREFILL_BUCKETS)), **_axes(mesh),
     )
     return eng, mesh
 
 
 def _rank_facts(eng) -> dict:
-    """What a job reports of a rank besides its answers: its epochs, kernel
-    launches, the shapes of its lanes' slab and pool and a page's bytes."""
+    """What a job reports of a rank besides its answers: its stage and dp
+    group, its epochs, kernel launches, the shapes of its lanes' slab and
+    pool and a page's bytes."""
     from ..ops import launch_counts
 
+    mesh = eng.mesh
     return {
+        "stage": mesh.pp.index if mesh is not None else 0,
+        "dp_group": mesh.dp.index if mesh is not None else 0,
         "cache_epoch": eng.cache_epoch, "kv_pool_epoch": eng.kv_pool_epoch,
+        "kv_cross_dp_pages": eng.kv_cross_dp_pages,
         "draft_cache_epoch": eng.draft_cache_epoch, "launches": launch_counts(),
         "lane_shape": None if eng.lane_cache is None else list(eng.lane_cache["k"].shape),
         "pool_shape": None if eng.kv_pool is None else list(

@@ -1,12 +1,13 @@
-"""The ranks of tensor and sequence parallelism on ``torch.distributed``.
+"""The ranks of tensor, sequence, pipeline and data parallelism on ``torch.distributed``.
 
 Counterpart of dllama_tpu/parallel/mesh.py. The JAX package runs one SPMD
-program over a ``(dp, sp, tp)`` device mesh; the port runs one process a
-rank, ``tp * sp`` of them, each with its own slice of the weights and of
-the KV cache, and the collectives of parallel/collectives.py between them.
-Rank ``r`` sits at ``(sp, tp) = (r // tp, r % tp)``: tp innermost, as in
-``make_mesh``. `Mesh` holds one process group for each axis a rank belongs
-to.
+program over a ``(pp, dp, sp, tp)`` device mesh, pp outermost; the port runs
+one process a rank, ``pp * dp * sp * tp`` of them, each with its own slice
+of the weights and of the KV cache, and the collectives of
+parallel/collectives.py between them. Rank ``r`` sits at ``tp = r % tp``,
+``sp = (r // tp) % sp``, ``dp = (r // (tp sp)) % dp`` and ``pp = r // (tp
+sp dp)``: tp innermost, as in ``make_mesh``. `Mesh` holds one process group
+for each axis of more than one rank that a rank belongs to.
 
 `init_distributed` joins a rank to its world: from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
@@ -63,6 +64,19 @@ def validate_sp(h: LlmHeader, sp: int) -> None:
         raise ValueError(f"sp must be a power of two >= 1, got {sp}")
     if sp > 1 and h.seq_len % sp != 0:
         raise ValueError(f"seqLen {h.seq_len} not divisible by sp={sp}")
+
+
+def validate_pp(h: LlmHeader, pp: int) -> None:
+    """Any pp >= 1 that divides the layer count works (dllama_tpu's
+    ``pipeline.validate_pp``, its messages): stages hold equal layer
+    ranges, and nothing asks for a power of two."""
+    if pp < 1:
+        raise ValueError(f"pp must be >= 1, got {pp}")
+    if pp > 1 and h.n_layers % pp != 0:
+        raise ValueError(
+            f"nLayers={h.n_layers} not divisible by pp={pp} (stages hold "
+            "equal layer ranges)"
+        )
 
 
 def auto_tp(model_path: str, n_devices: int | None = None) -> int:
@@ -133,10 +147,14 @@ class Axis:
         return self.ranks[(self.index - 1) % self.size]
 
 
+def _unit_axis() -> Axis:
+    return Axis(1, 0, (0,))
+
+
 @dataclasses.dataclass
 class Mesh:
-    """A rank of a ``(sp, tp)`` mesh (tp innermost): its world, rank,
-    device, backend and the ``tp`` and ``sp`` axes it belongs to."""
+    """A rank of a ``(pp, dp, sp, tp)`` mesh (tp innermost): its world,
+    rank, device, backend and the axes it belongs to."""
 
     world: int
     rank: int
@@ -144,35 +162,56 @@ class Mesh:
     sp: Axis
     device: torch.device
     backend: str
+    pp: Axis = dataclasses.field(default_factory=_unit_axis)
+    dp: Axis = dataclasses.field(default_factory=_unit_axis)
 
 
-def make_mesh(tp: int, sp: int, device, backend: str = "gloo") -> Mesh:
+def shape_str(tp: int, sp: int, pp: int = 1, dp: int = 1) -> str:
+    """The ranks line's shape: ``tp=2 x sp=1``, then dp and pp past 1."""
+    out = f"tp={tp} x sp={sp}"
+    out += f" x dp={dp}" if dp > 1 else ""
+    return out + (f" x pp={pp}" if pp > 1 else "")
+
+
+# the mesh's axes, innermost first: each axis's stride is the product of the sizes before it
+_AXES = ("tp", "sp", "dp", "pp")
+
+
+def make_mesh(tp: int, sp: int, device, backend: str = "gloo", pp: int = 1,
+              dp: int = 1) -> Mesh:
     """This rank's `Mesh` over the started world (one rank without a
-    process group). Every rank calls it with the same ``tp`` and ``sp``:
-    each axis group is made by every rank, in one order."""
+    process group). Every rank calls it with the same sizes: each axis
+    group is made by every rank, in one order (axis by axis, innermost
+    first, groups by their first rank)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if world != tp * sp:
-        raise ValueError(f"need {tp * sp} ranks (tp={tp} x sp={sp}), have {world}")
-    t_idx, s_idx = rank % tp, rank // tp
-    tp_groups = {}
-    sp_groups = {}
-    if tp > 1:
-        for s in range(sp):
-            ranks = tuple(s * tp + t for t in range(tp))
-            tp_groups[ranks] = dist.new_group(list(ranks))
-    if sp > 1:
-        for t in range(tp):
-            ranks = tuple(s * tp + t for s in range(sp))
-            sp_groups[ranks] = dist.new_group(list(ranks))
-    tp_ranks = tuple(s_idx * tp + t for t in range(tp))
-    sp_ranks = tuple(s * tp + t_idx for s in range(sp))
-    return Mesh(
-        world=world, rank=rank,
-        tp=Axis(tp, t_idx, tp_ranks, tp_groups.get(tp_ranks), backend),
-        sp=Axis(sp, s_idx, sp_ranks, sp_groups.get(sp_ranks), backend),
-        device=torch.device(device), backend=backend,
-    )
+    sizes = {"tp": tp, "sp": sp, "dp": dp, "pp": pp}
+    if world != tp * sp * dp * pp:
+        raise ValueError(f"need {tp * sp * dp * pp} ranks ({shape_str(tp, sp, pp, dp)}), "
+                         f"have {world}")
+    strides, n = {}, 1
+    for name in _AXES:
+        strides[name] = n
+        n *= sizes[name]
+
+    def index(r: int, name: str) -> int:
+        return (r // strides[name]) % sizes[name]
+
+    def ranks_of(r: int, name: str) -> tuple:
+        base = r - index(r, name) * strides[name]
+        return tuple(base + i * strides[name] for i in range(sizes[name]))
+
+    axes = {}
+    for name in _AXES:
+        groups = {}
+        if sizes[name] > 1:
+            for r in range(world):
+                if index(r, name) == 0:
+                    ranks = ranks_of(r, name)
+                    groups[ranks] = dist.new_group(list(ranks))
+        mine = ranks_of(rank, name)
+        axes[name] = Axis(sizes[name], index(rank, name), mine, groups.get(mine), backend)
+    return Mesh(world=world, rank=rank, device=torch.device(device), backend=backend, **axes)
 
 
 def _env_int(name: str, default: int | None) -> int | None:
@@ -189,6 +228,8 @@ def init_distributed(
     tp: int = 1,
     sp: int = 1,
     device="cuda",
+    pp: int = 1,
+    dp: int = 1,
     rank: int | None = None,
     world: int | None = None,
     local_rank: int | None = None,
@@ -198,7 +239,7 @@ def init_distributed(
     timeout_s: float = DEFAULT_TIMEOUT_S,
     verbose: bool = True,
 ) -> Mesh:
-    """Join this process to a world of ``tp * sp`` ranks and return its
+    """Join this process to a world of ``pp * dp * sp * tp`` ranks and return its
     `Mesh` (module docstring: torchrun's environment first, then the
     arguments; placement and the backend rule). The process group's
     timeout bounds every collective: a peer that died or diverged fails
@@ -206,12 +247,13 @@ def init_distributed(
     world, the backend and its device."""
     env = torchrun_env()
     rank = rank if rank is not None else (_env_int("RANK", 0) if env else 0)
-    world = world if world is not None else (_env_int("WORLD_SIZE", 1) if env else tp * sp)
+    n = tp * sp * pp * dp
+    world = world if world is not None else (_env_int("WORLD_SIZE", 1) if env else n)
     local_rank = local_rank if local_rank is not None else _env_int("LOCAL_RANK", rank)
     local_world = (local_world if local_world is not None
                    else _env_int("LOCAL_WORLD_SIZE", world))
-    if world != tp * sp:
-        raise ValueError(f"need {tp * sp} ranks (tp={tp} x sp={sp}), have {world}")
+    if world != n:
+        raise ValueError(f"need {n} ranks ({shape_str(tp, sp, pp, dp)}), have {world}")
     dev = rank_device(device, local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -225,9 +267,9 @@ def init_distributed(
             timeout=datetime.timedelta(seconds=timeout_s),
         )
     if verbose and rank == 0 and world > 1:
-        print(f"🔗 Ranks: {world} (tp={tp} x sp={sp}), backend {backend}, rank 0 on {dev}",
-              flush=True)
-    return make_mesh(tp, sp, dev, backend)
+        print(f"🔗 Ranks: {world} ({shape_str(tp, sp, pp, dp)}), backend {backend}, rank 0 on "
+              f"{dev}", flush=True)
+    return make_mesh(tp, sp, dev, backend, pp=pp, dp=dp)
 
 
 def spans_hosts() -> bool:

@@ -20,12 +20,14 @@ int8 weight's group scales ``[out, in/G]`` follow the in axis (the engine
 checks that every contraction dim divides by 32 tp, so a column slice
 keeps whole blocks). Weights are replicated over sp.
 
-The KV cache of a rank is ``[L, B, KH/tp, S/sp, hd]``, the lanes' slab
-``[L, B, KH/tp, (S + pad)/sp, hd]``. Under sp their rows are in the JAX
+The KV cache of a rank is ``[L/pp, B, KH/tp, S/sp, hd]``, the lanes' slab
+``[L/pp, B/dp, KH/tp, (S + pad)/sp, hd]``: a pipeline stage holds its
+layers' rows alone, a dp group its own lanes. Under sp their rows are in the JAX
 engine's cyclic order: global row g sits on sp shard g % sp at local row
 g // sp (dllama_tpu/models/transformer.py ``_attention_sp_merge`` explains
 why: a live prefix spreads evenly over the shards). The page pool is
-``[L, P, KH/tp, ps, hd]`` on every rank.
+``[L/pp, P, KH/tp, ps, hd]`` on every rank: its pages are not split over
+dp, as the JAX pool is replicated over dp.
 """
 
 from __future__ import annotations
@@ -80,25 +82,29 @@ def shard_params(params: dict, header: LlmHeader, mesh, r: int | None = None) ->
     return out
 
 
-def kv_shard_shape(h: LlmHeader, tp: int, sp: int, batch: int = 1) -> tuple:
-    """A rank's KV cache shape [L, B, KH/tp, S/sp, hd]."""
-    return (h.n_layers, batch, h.n_kv_heads // tp, h.seq_len // sp, h.head_dim)
+def kv_shard_shape(h: LlmHeader, tp: int, sp: int, batch: int = 1, pp: int = 1) -> tuple:
+    """A rank's KV cache shape [L/pp, B, KH/tp, S/sp, hd]."""
+    return (h.n_layers // pp, batch, h.n_kv_heads // tp, h.seq_len // sp, h.head_dim)
 
 
-def lane_shard_shape(h: LlmHeader, tp: int, sp: int, batch: int, pad: int) -> tuple:
-    """A rank's shard of the lanes' slab [L, B, KH/tp, (S + pad)/sp, hd]:
-    rows in the cyclic order under sp, so ``pad`` (the padding rows parked
-    lanes write, the JAX engine's ``_lane_pad``) must divide by sp."""
+def lane_shard_shape(h: LlmHeader, tp: int, sp: int, batch: int, pad: int, pp: int = 1,
+                     dp: int = 1) -> tuple:
+    """A rank's shard of the lanes' slab [L/pp, B/dp, KH/tp, (S + pad)/sp,
+    hd]: its stage's layers, its dp group's lanes, rows in the cyclic order
+    under sp, so ``pad`` (the padding rows parked lanes write, the JAX
+    engine's ``_lane_pad``) must divide by sp."""
     if (h.seq_len + pad) % sp:
         raise ValueError(f"the lanes' slab of {h.seq_len} + {pad} rows does not divide by sp={sp}")
-    return (h.n_layers, batch, h.n_kv_heads // tp, (h.seq_len + pad) // sp, h.head_dim)
+    return (h.n_layers // pp, batch // dp, h.n_kv_heads // tp, (h.seq_len + pad) // sp,
+            h.head_dim)
 
 
-def pool_shard_shape(h: LlmHeader, tp: int, n_pages: int, page_size: int) -> tuple:
-    """A rank's share of the KV page pool [L, P, KH/tp, ps, hd]: the head
-    axis split over tp, the pages whole on every rank (the JAX pool's
-    ``P(lead, None, "tp", None, None)``), replicated over sp."""
-    return (h.n_layers, n_pages, h.n_kv_heads // tp, page_size, h.head_dim)
+def pool_shard_shape(h: LlmHeader, tp: int, n_pages: int, page_size: int, pp: int = 1) -> tuple:
+    """A rank's share of the KV page pool [L/pp, P, KH/tp, ps, hd]: its
+    stage's layers, the head axis split over tp, the pages whole on every
+    rank (the JAX pool's ``P(lead, None, "tp", None, None)``), replicated
+    over sp and over dp."""
+    return (h.n_layers // pp, n_pages, h.n_kv_heads // tp, page_size, h.head_dim)
 
 
 def cyclic_rows(pos: int, t: int, sp: int, idx: int) -> tuple[list[int], list[int]]:

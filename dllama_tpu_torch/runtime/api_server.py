@@ -155,16 +155,18 @@ head meet its budget (``dllama_preemptions_total``); the victim resumes
 byte for byte. The EDF keys, the preemption's clock and the scored TTFTs
 all read the scheduler's ``_clock``.
 
-Under tensor and sequence parallelism (``--tp``, ``--sp``) the server runs
-on rank 0 and the other ranks follow it (parallel/control.py): `main` makes
+Under tensor, sequence, pipeline and data parallelism (``--tp``, ``--sp``,
+``--pp``, ``--dp``) the server runs on rank 0 and the other ranks follow it (parallel/control.py): `main` makes
 this process rank 0 and starts the others (parallel/launch.lead), or takes
 torchrun's ranks; rank 0 sends each engine dispatch, with every value it
 drew, to the followers before it runs it, so the scheduler, the KV
 manager, speculation, the chaos plane and admission run on rank 0 alone.
-All three modes run: slab lanes (tp and sp), pool-native lanes (tp) and
-the serialized path. A drain (``SIGTERM``, ``POST /v1/drain``) stops the
+All three modes run: slab lanes (every axis), pool-native lanes (tp and
+dp; pp and sp refuse them, as the JAX engine does) and the serialized
+path. A drain (``SIGTERM``, ``POST /v1/drain``) stops the
 server once it has drained, then every rank; a lost rank stops it too.
-``/v1/health`` gives ``parallel`` (tp, sp, the backend, the ranks) and
+``/v1/health`` gives ``parallel`` (tp, sp, the backend, the ranks, and pp
+and dp past 1) and
 ``/v1/debug/memory`` rank 0's own bytes.
 
 A fleet replica (fleet/, the JAX server's side of the router's contract):
@@ -2169,6 +2171,8 @@ class ApiState:
         if engine.world > 1:
             payload["parallel"] = {"tp": engine.tp, "sp": engine.sp,
                                    "backend": engine.mesh.backend, "ranks": engine.world}
+            payload["parallel"].update({k: n for k, n in (("pp", engine.pp), ("dp", engine.dp))
+                                        if n > 1})
         if self.draining:
             # draining wins: routers must stop sending traffic
             payload["status"] = "draining"
@@ -3088,7 +3092,7 @@ def build_parser():
 
 
 def main(argv=None):
-    """The server's command line. With more than one rank (``--tp``/``--sp``)
+    """The server's command line. With more than one rank (``--tp``/``--sp``/``--pp``/``--dp``)
     and no torchrun, this process becomes rank 0 and starts the others
     (parallel/launch.lead); under torchrun every process is a rank. Rank 0
     serves and controls the other ranks (parallel/control.py), which
@@ -3102,11 +3106,12 @@ def main(argv=None):
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    tp, sp = resolve_mesh_shape(args)
-    if tp * sp > 1 and not dist.is_initialized() and not torchrun_env():
+    tp, sp, pp, dp = resolve_mesh_shape(args)
+    if tp * sp * pp * dp > 1 and not dist.is_initialized() and not torchrun_env():
         from ..parallel.launch import lead_command
 
-        return lead_command(lambda: _serve_main(args), "server", argv, args.device, tp, sp)
+        return lead_command(lambda: _serve_main(args), "server", argv, args.device, tp, sp, pp,
+                            dp)
     if torchrun_env() and int(os.environ["RANK"]) != 0:  # rank 0 alone prints
         import contextlib
 

@@ -61,8 +61,31 @@ deterministic program on every rank (``decode_block`` sampled with one
 seed everywhere, so every rank draws the same token from the same gathered
 logits); the server and ``chat`` run rank 0's loop alone and mirror each
 dispatch to the other ranks (parallel/control.py), rank 0's draws through
-``tape``. An int8 cache under sp and Qwen3-MoE raise under world > 1
+``tape``. An int8 cache under sp and Qwen3-MoE under tp or sp raise
 (ROADMAP A.14).
+
+Pipeline stages and dp lane shards (``pp``, ``dp``; the world is ``pp *
+dp * sp * tp`` ranks, the JAX mesh's order, parallel/mesh.py). A rank of
+stage s reads only its stage's layers from the file (and the embedding,
+the final norm and the classifier), and its caches hold those layers
+alone: the single stream's [L/pp, 1, KH/tp, S/sp, hd], the lanes' slab
+[L/pp, B/dp, ...] and the pool [L/pp, P, KH/tp, ps, hd]. Every forward
+goes through parallel/pipeline.forward_pp, prefill chunks in the JAX
+engine's sequence waves (`_pp_micro`); every stage returns the same
+logits. dp shards the lanes: lane l belongs to dp group l // (B/dp),
+which runs its forwards (`_lane_span`), and a decode block's or a verify
+pass's tokens are all-gathered over dp, so every rank returns every
+lane's. The single stream and the draft model are not sharded over dp:
+each dp group runs them whole. The page pool is one pool replicated over
+dp, as the JAX pool is: every page a dp group writes reaches the other
+groups before any lane reads it. A slab lane's ``kv_publish`` broadcasts
+the pages it wrote from the lane's group; pool-native lanes (pp = 1)
+replicate the rows each dispatch wrote, a lane chunk's by a broadcast from
+its group and a decode block's or a verify pass's by one all-gather of
+every group's rows (`_share_pool_rows`); a ``kv_page_copy`` runs on every
+rank's copy alike. The JAX engine's refusals hold: pool-native lanes and
+the draft model at pp > 1, a batch that dp does not divide, a pp that
+does not divide the layers.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; on the card
 every matmul and attention goes through the port's CUDA kernels. Weight
@@ -129,8 +152,9 @@ from ..formats.model_file import LlmHeader, ModelReader
 from ..formats.quants import FloatType
 from ..models import forward, init_kv_cache, load_params
 from ..ops.int8_matmul import pick_group, requantize_params
-from ..parallel.collectives import all_gather
-from ..parallel.mesh import validate_sp, validate_tp
+from ..parallel.collectives import all_gather, broadcast
+from ..parallel.mesh import shape_str, validate_pp, validate_sp, validate_tp
+from ..parallel.pipeline import stage_range
 from ..parallel.sharding import cyclic_rows, kv_shard_shape, lane_shard_shape, pool_shard_shape
 from ..obs.cost import StepCostModel, extract_cost, hbm_peak_bytes_per_s, roofline_fraction
 from ..obs.metrics import DEFAULT_TOKEN_BUCKETS_S, get_registry
@@ -338,19 +362,23 @@ class InferenceEngine:
         sp: int = 1,
         buffer_float_type: str = "f32",
         mesh=None,
+        pp: int = 1,
+        dp: int = 1,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if buffer_float_type not in ("f32", "q80"):
             raise ValueError(f"buffer_float_type must be 'f32' or 'q80', got "
                              f"{buffer_float_type!r}")
-        self.tp, self.sp, self.mesh = tp, sp, mesh
-        self.world = tp * sp
+        self.tp, self.sp, self.pp, self.dp, self.mesh = tp, sp, pp, dp, mesh
+        self.world = tp * sp * pp * dp
         self.sync_quant = buffer_float_type == "q80"
         if self.world > 1:
-            if mesh is None or (mesh.tp.size, mesh.sp.size) != (tp, sp):
-                raise ValueError(f"tp={tp} x sp={sp} needs this rank's Mesh of the same shape "
-                                 "(parallel.mesh.init_distributed or parallel.launch.spawn)")
+            if mesh is None or (mesh.tp.size, mesh.sp.size, mesh.pp.size,
+                                mesh.dp.size) != (tp, sp, pp, dp):
+                raise ValueError(f"{shape_str(tp, sp, pp, dp)} needs this rank's Mesh of the "
+                                 "same shape (parallel.mesh.init_distributed or "
+                                 "parallel.launch.spawn)")
         self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -361,7 +389,10 @@ class InferenceEngine:
         self.header: LlmHeader = self.reader.header
         validate_tp(self.header, tp)
         validate_sp(self.header, sp)
-        if self.world > 1 and self.header.n_experts:
+        validate_pp(self.header, pp)
+        if dp < 1 or (dp > 1 and batch_size % dp != 0):
+            raise ValueError(f"batch_size {batch_size} must divide over dp={dp} lanes")
+        if (tp > 1 or sp > 1) and self.header.n_experts:
             raise NotImplementedError(_NOT_PORTED.format("Qwen3-MoE",
                                                          "tensor or sequence parallelism"))
         if sp > 1 and self.kv_dtype == torch.int8:
@@ -370,10 +401,12 @@ class InferenceEngine:
         self.dtype = dtype
         self.temperature = temperature
         self.sampler = Sampler(self.header.vocab_size, temperature, topp, seed)
-        # under sp a chunk wider than 1 splits its queries over the sp ranks
+        # under sp a chunk wider than 1 splits its queries over the sp ranks;
+        # under pp x sp a chunk fits one shard's rows (the JAX engine's rule)
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets)
             if b <= self.header.seq_len and (sp == 1 or b == 1 or b % sp == 0)
+            and (pp == 1 or sp == 1 or b <= self.header.seq_len // sp)
         ) or ((1,) if sp == 1 else (sp,))
         self.moe_decode_dedup = resolve_moe_decode_dedup(moe_decode_dedup, self.header,
                                                          batch_size)
@@ -404,19 +437,20 @@ class InferenceEngine:
             self.reader, dtype=dtype, device=self.device,
             weight_format="q40" if weight_format == "q40i8" else weight_format,
             shard=(tp, mesh.tp.index) if tp > 1 else None,
+            layers=stage_range(self.header, pp, mesh.pp.index) if pp > 1 else None,
         )
         self.i8_group = 0
         if weight_format == "q40i8":
             self.i8_group = pick_group(self.header, tp)
             self.params = requantize_params(self.params, self.header, self.i8_group)
         if self.world > 1:
-            shape = kv_shard_shape(self.header, tp, sp)
+            shape = kv_shard_shape(self.header, tp, sp, pp=pp)
             self.cache = {n: new_kv_leaf(shape, self.kv_dtype, self.device) for n in ("k", "v")}
         else:
             self.cache = init_kv_cache(self.header, 1, dtype=self.kv_dtype, device=self.device)
         self._cost = StepCostModel(self.header, self.params,
                                    torch.empty(0, dtype=self.kv_dtype).element_size(),
-                                   self.kv_dtype == torch.int8, tp=tp, sp=sp)
+                                   self.kv_dtype == torch.int8, tp=tp, sp=sp, pp=pp)
         # slab lanes: their slab (allocated at the first lane call), its
         # padding rows (the widest chunk a parked lane writes; under sp
         # rounded up so that the padded rows tile the sp shards) and the
@@ -426,6 +460,8 @@ class InferenceEngine:
         if self._lane_pad and sp > 1:
             self._lane_pad += (-self._lane_pad) % sp
         self._park = self.header.seq_len
+        # dp: the lanes this rank's group owns, [lane0, lane0 + B/dp)
+        self._lane0 = mesh.dp.index * (batch_size // dp) if dp > 1 else 0
         # the lanes' page pool (init_kv_pool); native: the pool is the
         # lanes' KV home, else the slab lanes' prefix store
         self.kv_pool = None
@@ -447,6 +483,13 @@ class InferenceEngine:
         # rows) and verify passes run by verify_lanes (each one forward of
         # B x t rows)
         self.kv_copy_pages = 0
+        # native lanes under dp: the dp group that last wrote each pool page
+        # (-1: none; `_share_pool_rows`), the lanes whose page-table row
+        # changed since their last chunk, and the pages a lane's first chunk
+        # after an adoption read that another dp group wrote
+        self._page_writer = None
+        self._adopted: set = set()
+        self.kv_cross_dp_pages = 0
         self.kv_adopt_pages = 0
         self.kv_publish_pages = 0
         self.lane_decode_steps = 0
@@ -720,13 +763,31 @@ class InferenceEngine:
 
     def _forward(self, tokens, pos, cache, **kw):
         """The target's forward (`models.forward`) over the engine's params,
-        with its MoE decode tiering, and under world > 1 this rank's mesh."""
+        with its MoE decode tiering, and under world > 1 this rank's mesh
+        (under pp its stage, a chunk in `_pp_micro` waves)."""
         return forward(self.params, self.header, tokens, pos, cache,
-                       moe_dedup=self.moe_decode_dedup, **kw, **self._mesh_kw())
+                       moe_dedup=self.moe_decode_dedup, **kw, **self._mesh_kw(tokens.shape[1]))
 
-    def _mesh_kw(self) -> dict:
-        """`forward`'s mesh arguments: this rank's mesh under world > 1."""
-        return dict(mesh=self.mesh, sync_quant=self.sync_quant) if self.world > 1 else {}
+    def _mesh_kw(self, t: int = 1) -> dict:
+        """`forward`'s mesh arguments for a T-row chunk: this rank's mesh
+        under world > 1, and under pp the chunk's sequence waves."""
+        if self.world == 1:
+            return {}
+        kw = dict(mesh=self.mesh, sync_quant=self.sync_quant)
+        if self.pp > 1:
+            kw["n_micro"] = self._pp_micro(t)
+        return kw
+
+    def _pp_micro(self, t: int) -> int:
+        """The sequence waves of a T-row chunk under pp (the JAX engine's
+        rule): about 4 waves a stage in flight while each keeps >= 8 rows;
+        1 at pp = 1 and for chunks narrower than 2 pp rows."""
+        if self.pp == 1 or t < 2 * self.pp:
+            return 1
+        for k in (4 * self.pp, 2 * self.pp, self.pp):
+            if t % k == 0 and t // k >= 8:
+                return k
+        return 1
 
     def _pos(self, buf: torch.Tensor, pos: int):
         """A forward's position: the static buffer a graph replays with, or
@@ -771,6 +832,9 @@ class InferenceEngine:
         """Smallest bucket covering n tokens whose PADDED extent still fits
         in the cache (the padded rows are written too)."""
         space = self.header.seq_len - pos
+        if self.pp > 1 and self.sp > 1:
+            # the JAX engine's pp x sp cap: no chunk past one shard's rows
+            space = min(space, self.header.seq_len // self.sp)
         fitting = [b for b in self.prefill_buckets if b <= space]
         if not fitting:
             # under sp a chunk wider than 1 splits its queries over sp ranks:
@@ -1061,7 +1125,8 @@ class InferenceEngine:
                              "(lanes park their writes in cache padding rows)")
         if self.lane_cache is None:
             h = self.header
-            shape = lane_shard_shape(h, self.tp, self.sp, self.batch_size, self._lane_pad)
+            shape = lane_shard_shape(h, self.tp, self.sp, self.batch_size, self._lane_pad,
+                                     self.pp, self.dp)
             self.lane_cache = {n: new_kv_leaf(shape, self.kv_dtype, self.device)
                                for n in ("k", "v")}
 
@@ -1091,8 +1156,9 @@ class InferenceEngine:
         mode, and those that read the old pool's pointers.
 
         Under tp each rank holds its KV heads of every page, [L, n_pages,
-        KH/tp, page_size, hd]; under sp the pool is whole on every rank and
-        native lanes raise (the JAX engine's rule)."""
+        KH/tp, page_size, hd]; under pp its stage's layers; under sp and dp
+        the pool is whole on every rank; native lanes raise under pp and sp
+        (the JAX engine's rule)."""
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if native and self.device.type == "cuda" and (
@@ -1101,7 +1167,7 @@ class InferenceEngine:
                 f"page_size {page_size}: the paged kernels take sizes that divide 32 "
                 "or are multiples of 32"
             )
-        if native and self.sp > 1:
+        if native and (self.pp > 1 or self.sp > 1):
             raise ValueError("kv_native requires pp == 1 and sp == 1")
         if not native and self.batch_size < 2:
             raise ValueError("slab lanes need batch_size > 1 "
@@ -1117,6 +1183,7 @@ class InferenceEngine:
         self._kv_n_blocks = n_blocks
         self.kv_native = bool(native)
         self._page_table = np.zeros((self.batch_size, n_blocks), np.int32) if native else None
+        self._page_writer = np.full(n_pages, -1, np.int32) if native and self.dp > 1 else None
         self._pt_dev = (torch.zeros((self.batch_size, n_blocks), dtype=torch.int32,
                                     device=self.device) if native else None)
         self._pt_dirty = False
@@ -1128,7 +1195,7 @@ class InferenceEngine:
         self.graphs.clear()
         if not native:
             self._require_lanes()
-        shape = pool_shard_shape(self.header, self.tp, n_pages, page_size)
+        shape = pool_shard_shape(self.header, self.tp, n_pages, page_size, self.pp)
         self.kv_pool = {k: new_kv_leaf(shape, self.kv_dtype, self.device) for k in ("k", "v")}
         self.kv_pool_epoch += 1
         return n_pages
@@ -1140,6 +1207,8 @@ class InferenceEngine:
         self._require_kv_pool()
         for leaf in self.kv_pool.values():
             reset_kv_leaf(leaf)
+        if self._page_writer is not None:
+            self._page_writer[:] = -1
         self.kv_pool_epoch += 1
         self.clear_all_lane_pages()
 
@@ -1196,6 +1265,7 @@ class InferenceEngine:
         row[:] = 0
         row[: len(page_ids)] = np.asarray(page_ids, np.int32)
         self._pt_dirty = True
+        self._adopted.add(lane)
 
     def clear_lane_pages(self, lane: int) -> None:
         """Drop ``lane``'s page-table row (back to the scratch page)."""
@@ -1238,6 +1308,8 @@ class InferenceEngine:
             for leaf in self.kv_pool.values():
                 for t in kv_tensors(leaf):
                     t[:, dst] = t[:, src]
+        if self._page_writer is not None:
+            self._page_writer[dst_ids] = self._page_writer[src_ids]
         self.kv_copy_pages += n
         self._m_kv_copy_bytes.inc(moved)
 
@@ -1296,9 +1368,11 @@ class InferenceEngine:
             if fault is not None:
                 raise fault
             ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
-            for start, bucket in self._kv_copy_chunks(n):
-                for name in ("k", "v"):
-                    self._pages_to_rows(name, lane, start * ps, ids[start : start + bucket])
+            if self._owns(lane):  # the lane's rows live on its dp group alone
+                for start, bucket in self._kv_copy_chunks(n):
+                    for name in ("k", "v"):
+                        self._pages_to_rows(name, lane - self._lane0, start * ps,
+                                            ids[start : start + bucket])
         self.kv_adopt_pages += n
         self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
 
@@ -1309,7 +1383,8 @@ class InferenceEngine:
         sharing in slab mode (the JAX engine's ``kv_publish``; the manager
         dedups against the radix tree first). Runs under the pool's guard: a
         failure zeroes the pool and moves ``kv_pool_epoch``, not
-        ``cache_epoch`` (the lanes' slab is intact)."""
+        ``cache_epoch`` (the lanes' slab is intact). Under dp the lane's
+        group writes the pages and broadcasts them to the other groups."""
         n = len(page_ids)
         self._check_slab_copy(lane, n, start_page)
         fault = self._fault("kv_publish")
@@ -1322,15 +1397,90 @@ class InferenceEngine:
             if fault is not None:
                 raise fault
             ids = torch.tensor(page_ids, dtype=torch.int64, device=self.device)
-            for off, bucket in self._kv_copy_chunks(n):
-                for name in ("k", "v"):
-                    self._rows_to_pages(name, lane, (start_page + off) * ps,
-                                        ids[off : off + bucket])
+            if self._owns(lane):
+                for off, bucket in self._kv_copy_chunks(n):
+                    for name in ("k", "v"):
+                        self._rows_to_pages(name, lane - self._lane0, (start_page + off) * ps,
+                                            ids[off : off + bucket])
+            if self.dp > 1:
+                self._share_pages(ids, self._group_of(lane))
         self.kv_publish_pages += n
         self._m_kv_copy_bytes.inc(n * self.kv_page_bytes())
 
+    def _owns(self, lane: int) -> bool:
+        """Whether this rank's dp group owns ``lane`` (always under dp = 1)."""
+        return self._group_of(lane) == (self.mesh.dp.index if self.dp > 1 else 0)
+
+    def _group_of(self, lane: int) -> int:
+        """The dp group that owns ``lane``: l // (B / dp)."""
+        return lane // (self.batch_size // self.dp)
+
+    def _lane_span(self) -> slice:
+        """The lanes of this rank's dp group, as a slice of the batch."""
+        return slice(self._lane0, self._lane0 + self.batch_size // self.dp)
+
+    def _share_pages(self, ids: torch.Tensor, owner: int) -> None:
+        """Pool pages ``ids`` of dp group ``owner`` into every group's pool
+        (one broadcast over dp a tensor of each leaf: the pages' bytes)."""
+        for leaf in self.kv_pool.values():
+            for t in kv_tensors(leaf):
+                t[:, ids] = broadcast(t[:, ids].contiguous(), self.mesh.dp, owner)
+
+    def _pool_row(self, lane: int, p: int) -> tuple[int, int]:
+        """(pool page, page row) of native lane ``lane``'s position ``p``;
+        a parked row (p < 0) is on the scratch page 0, row 0."""
+        if p < 0:
+            return 0, 0
+        ps = self._kv_page_size
+        return int(self._page_table[lane, p // ps]), p % ps
+
+    def _share_pool_rows(self, written: list[list[int]], owner: int | None = None) -> None:
+        """Native lanes under dp: the pool rows a dispatch wrote, copied from
+        the group of each writing lane into every other group's pool, so
+        that a page one group wrote reads the same on every group (a radix
+        prefix adopted across groups). ``written[lane]``: the positions the
+        lane wrote (< 0: a parked row, which wrote the scratch page). With
+        ``owner`` (a lane chunk) one group wrote and broadcasts its rows;
+        else every group wrote the same number of rows (a decode block, a
+        verify pass) and one all-gather over dp carries them."""
+        dp, bl = self.mesh.dp, self.batch_size // self.dp
+        groups = [owner] if owner is not None else range(self.dp)
+        idx = {}
+        for g in groups:
+            rows = [self._pool_row(lane, p) for lane in range(g * bl, (g + 1) * bl)
+                    for p in written[lane]]
+            self._page_writer[[pg for pg, _ in rows if pg]] = g
+            idx[g] = torch.tensor(rows, dtype=torch.int64, device=self.device).reshape(-1, 2)
+        mine = dp.index if owner is None else owner
+        pg, pr = idx[mine][:, 0], idx[mine][:, 1]
+        for leaf in self.kv_pool.values():
+            for t in kv_tensors(leaf):
+                rows = t[:, pg, :, pr].contiguous()  # [m, L, KH, hd or 1]
+                if owner is not None:
+                    rows = broadcast(rows, dp, owner)
+                    if dp.index != owner:
+                        t[:, pg, :, pr] = rows
+                    continue
+                every = all_gather(rows[None], dp, dim=0)
+                for g in groups:
+                    if g != dp.index:
+                        t[:, idx[g][:, 0], :, idx[g][:, 1]] = every[g]
+
+    def _count_cross_dp(self, lane: int, pos0: int) -> None:
+        """The first chunk of a native lane since its page-table row changed
+        reads the rows below ``pos0`` (its adopted prefix): count the pages
+        of them that a lane of another dp group wrote
+        (``kv_cross_dp_pages``, the replication's observable use)."""
+        if lane not in self._adopted:
+            return
+        self._adopted.discard(lane)
+        pages = self._page_table[lane, : -(-pos0 // self._kv_page_size)]
+        writers = self._page_writer[pages]
+        self.kv_cross_dp_pages += int(((writers >= 0) & (writers != self._group_of(lane))).sum())
+
     def _pages_to_rows(self, name: str, lane: int, row0: int, ids: torch.Tensor) -> None:
-        """Pool pages ``ids`` into ``lane``'s slab rows from ``row0``: under
+        """Pool pages ``ids`` into ``lane``'s slab rows from ``row0`` (``lane``
+        the index in this rank's slab, its dp group's lanes): under
         sp the pool is whole on every rank and each rank takes the rows its
         shard owns (the cyclic layout: global row g at local row g // sp)."""
         slab, pool = self.lane_cache[name], self.kv_pool[name]
@@ -1369,11 +1519,12 @@ class InferenceEngine:
         return (key[0] + "_paged",) + key[1:] if self.kv_native else key
 
     def _lane_forward(self, tokens: torch.Tensor, pos: torch.Tensor, logits_mode: str):
-        """One forward of every lane at positions ``pos`` [B] (< 0:
-        parked): through the page table in native mode, on the lanes' slab
+        """One forward of this rank's lanes (its dp group's, `_lane_span`;
+        every lane under dp = 1) at positions ``pos`` [B/dp] (< 0: parked):
+        through their page-table rows in native mode, on the lanes' slab
         otherwise. Returns the logits."""
         if self.kv_native:
-            kw = dict(page_table=self._pt_dev)
+            kw = dict(page_table=self._pt_dev[self._lane_span()])
             cache = self.kv_pool
         else:
             kw = dict(park=self._park)
@@ -1412,10 +1563,16 @@ class InferenceEngine:
             if fault is not None:
                 raise fault
             chunk = tokens[:width] + [0] * (bucket - width)
-            if self.kv_native:
-                self._lane_chunk(chunk, pos0, self._page_table_dev()[lane : lane + 1])
-            else:
-                self._slab_lane_chunk(chunk, pos0, lane)
+            if self._owns(lane):  # a lane's rows live on its own dp group alone
+                if self.kv_native:
+                    self._lane_chunk(chunk, pos0, self._page_table_dev()[lane : lane + 1])
+                else:
+                    self._slab_lane_chunk(chunk, pos0, lane - self._lane0)
+            if self.kv_native and self.dp > 1:
+                self._count_cross_dp(lane, pos0)
+                written = [[] for _ in range(self.batch_size)]
+                written[lane] = list(range(pos0, pos0 + bucket))
+                self._share_pool_rows(written, owner=self._group_of(lane))
         return width
 
     def _lane_chunk(self, tokens: list[int], pos: int, pt_row: torch.Tensor | None) -> None:
@@ -1439,8 +1596,9 @@ class InferenceEngine:
     def _slab_lane_chunk(self, tokens: list[int], pos: int, lane: int) -> None:
         """One lane-prefill chunk [1, T] at ``pos`` (< 0: parked, its rows
         land in the lane's padding rows) on ``lane``'s rows of the lanes'
-        slab alone: the graph ``("lane_prefill", T, lane)``, one a lane,
-        whose slab entries see that lane's [1, KH, S + pad, hd] rows."""
+        slab alone (``lane``: its index in this rank's slab): the graph
+        ``("lane_prefill", T, lane)``, one a lane, whose slab entries see
+        that lane's [1, KH, S + pad, hd] rows."""
         t = len(tokens)
         key = ("lane_prefill", t, lane)
         b = self.graphs.buffers(key, lambda: self._static(tok=((1, t), I64), pos=((1,), I32)))
@@ -1541,8 +1699,9 @@ class InferenceEngine:
         sampled)`` (``lane_block_paged`` in native mode): tokens [B],
         positions ``cur`` [n][B] (-1: parked, reads nothing and writes to
         the scratch page or the padding rows), sampling settings [B] (read
-        only when ``sampled``). Returns the static output [n, B] on the
-        device, 0 for parked rows."""
+        only when ``sampled``). Under dp the rank runs its group's lanes
+        and the block's tokens are all-gathered over dp. Returns the static
+        output [n, B] on the device, 0 for parked rows."""
         n, bsz = len(cur), self.batch_size
         key = self._lane_key("lane_block", n, sampled)
         b = self.graphs.buffers(key, lambda: self._static(
@@ -1556,21 +1715,26 @@ class InferenceEngine:
             self.graphs.put(b["seed"], seeds)
         if self.kv_native:
             self._page_table_dev()
+        own = self._lane_span()
 
         def block():
-            tok = b["tok"]
+            tok = b["tok"][own]
             for i in range(n):
-                p = b["cur"][i]
+                p = b["cur"][i][own]
                 last = self._lane_forward(tok, p, "last")[:, -1, :]
                 if sampled:
-                    nxt = sample_per_lane(last, b["temp"], b["topp"], b["seed"], p)
+                    nxt = sample_per_lane(last, b["temp"][own], b["topp"][own], b["seed"][own], p)
                 else:
                     nxt = torch.argmax(last, dim=-1)
                 nxt = torch.where(p >= 0, nxt, 0)
-                b["out"][i] = nxt
+                b["out"][i, own] = nxt
                 tok = nxt[:, None]
+            if self.dp > 1:  # every group's lanes' tokens on every rank
+                b["out"].copy_(all_gather(b["out"][:, own].contiguous(), self.mesh.dp, dim=1))
 
         self.graphs.run(key, block)
+        if self.kv_native and self.dp > 1:
+            self._share_pool_rows([[row[j] for row in cur] for j in range(bsz)])
         return b["out"]
 
     @torch.inference_mode()
@@ -1632,7 +1796,8 @@ class InferenceEngine:
     def _lane_verify(self, rows: list[list[int]], cur: list[int]) -> torch.Tensor:
         """Every lane's verify row [B, t] at positions ``cur`` [B] (-t:
         parked) in the graph ``("lane_verify", t)`` (``_paged`` in native
-        mode): all logits, their argmax on the device, 0 for parked lanes.
+        mode): all logits, their argmax on the device, 0 for parked lanes
+        (under dp: the group's lanes, the grid all-gathered over dp).
         Returns the static output [B, t] on the device."""
         t, bsz = len(rows[0]), self.batch_size
         key = self._lane_key("lane_verify", t)
@@ -1642,12 +1807,18 @@ class InferenceEngine:
         self.graphs.put(b["pos"], cur)
         if self.kv_native:
             self._page_table_dev()
+        own = self._lane_span()
 
         def verify():
-            logits = self._lane_forward(b["tok"], b["pos"], "all")
-            b["out"].copy_(torch.where(b["pos"][:, None] >= 0, torch.argmax(logits, dim=-1), 0))
+            pos = b["pos"][own]
+            logits = self._lane_forward(b["tok"][own], pos, "all")
+            b["out"][own] = torch.where(pos[:, None] >= 0, torch.argmax(logits, dim=-1), 0)
+            if self.dp > 1:
+                b["out"].copy_(all_gather(b["out"][own].contiguous(), self.mesh.dp, dim=0))
 
         self.graphs.run(key, verify)
+        if self.kv_native and self.dp > 1:
+            self._share_pool_rows([[p + r if p >= 0 else -1 for r in range(t)] for p in cur])
         return b["out"]
 
     def rehearse_admission(self, block_size: int, spec_k: int = 0) -> None:
@@ -1713,9 +1884,10 @@ class InferenceEngine:
         engine's dtype with the lanes' padding rows. Its vocab must be the
         target's: drafts are target token ids. Needs lanes. Under tp the
         draft is sharded like the target (its heads, columns and cache
-        heads a rank), as the JAX engine shards it; under sp it raises, as
-        the JAX engine's does."""
-        if self.sp > 1:
+        heads a rank), as the JAX engine shards it; under dp every group
+        runs it for every lane (its cache is not split over dp); under pp
+        and sp it raises, as the JAX engine's does."""
+        if self.pp > 1 or self.sp > 1:
             raise ValueError("draft model requires pp == 1 and sp == 1 (the draft forward runs "
                              "on the flat mesh path)")
         if self.batch_size < 2:

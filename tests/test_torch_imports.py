@@ -269,3 +269,29 @@ def test_parallel_serving_slice_module_is_covered():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_pipeline_slice_module_is_covered():
+    """The pipeline slice's module (parallel/pipeline.py) is among the
+    modules and files checked above, and a stage's side of it (forward_pp,
+    the stage ranges, the stage collectives) imports with jax, dllama_tpu
+    and triton blocked and no card asked for."""
+    mods, files = _port_modules(), _port_files()
+    assert "dllama_tpu_torch.parallel.pipeline" in mods
+    assert os.path.join(PKG, "parallel", "pipeline.py") in files
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'dllama_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: (_ for _ in ()).throw(AssertionError('cuda'))\n"
+        "from dllama_tpu_torch.parallel.pipeline import forward_pp, stage_range, validate_pp\n"
+        "from dllama_tpu_torch.parallel.collectives import broadcast, stage_recv, stage_send\n"
+        "from dllama_tpu_torch.parallel.mesh import make_mesh\n"
+        "m = make_mesh(1, 1, 'cpu', pp=1, dp=1)\n"
+        "assert (m.pp.size, m.dp.size, m.world) == (1, 1, 1)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

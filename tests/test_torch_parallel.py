@@ -424,16 +424,19 @@ def test_perplexity_lines_match_jax_cli(files, world2, capsys):
 # -- refusals and failures ----------------------------------------------------------
 
 
-def _fake_mesh(tp, sp):
-    return M.Mesh(tp * sp, 0, M.Axis(tp, 0, tuple(range(tp))), M.Axis(sp, 0, tuple(range(sp))),
-                  torch.device("cpu"), "gloo")
+def _fake_mesh(tp, sp, pp=1, dp=1):
+    return M.Mesh(tp * sp * pp * dp, 0, M.Axis(tp, 0, tuple(range(tp))),
+                  M.Axis(sp, 0, tuple(range(sp))), torch.device("cpu"), "gloo",
+                  pp=M.Axis(pp, 0, tuple(range(pp))), dp=M.Axis(dp, 0, tuple(range(dp))))
 
 
 def test_engine_refusals(files, tmp_path):
     """What waits for ROADMAP A.14 raises naming it (Qwen3-MoE under tp, an
-    int8 cache under sp); native lanes and the draft model under sp raise
-    the JAX engine's messages; lanes, the pool and the draft model under tp
-    are ported (tests/test_torch_parallel_lanes.py)."""
+    int8 cache under sp); native lanes and the draft model under sp and
+    under pp, a batch that dp does not divide and a pp that does not divide
+    the layers raise the JAX engine's messages; Qwen3-MoE at pp (tp = sp =
+    1), lanes, the pool and the draft model under tp are ported
+    (tests/test_torch_parallel_lanes.py, tests/test_torch_pipeline.py)."""
     dense = files["dense"]
     with pytest.raises(ValueError, match="needs this rank's Mesh"):
         InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2)
@@ -445,21 +448,33 @@ def test_engine_refusals(files, tmp_path):
     make_tiny_model(moe, arch=LlmArch.QWEN3_MOE)
     with pytest.raises(NotImplementedError, match="Qwen3-MoE under tensor.*A.14"):
         InferenceEngine(moe, device="cpu", tp=2, mesh=_fake_mesh(2, 1))
+    moe_pp = InferenceEngine(moe, device="cpu", pp=2, mesh=_fake_mesh(1, 1, pp=2))
+    assert len(moe_pp.params["layers"]) == 1 and moe_pp.cache["k"].shape[0] == 1
+    for kw, jkw in ((dict(dp=2, batch_size=3, mesh=_fake_mesh(1, 1, dp=2)),
+                     dict(pp=1, dp=2, batch_size=3)),
+                    (dict(pp=4, mesh=_fake_mesh(1, 1, pp=4)), dict(pp=4))):
+        with pytest.raises(ValueError) as want:
+            JEngine(dense, dtype=jnp.float32, **jkw)
+        with pytest.raises(ValueError) as got:
+            InferenceEngine(dense, dtype=torch.float32, device="cpu", **kw)
+        assert str(got.value) == str(want.value)
     eng = InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2, mesh=_fake_mesh(2, 1),
                           batch_size=2)
     assert not eng.graphs.enabled and eng.world == 2
     assert eng.init_kv_pool(8, native=True) == (2 + 2) * 8 + 1
     assert tuple(eng.kv_pool["k"].shape) == (2, 33, 2, 8, 16)  # KH/tp heads a page
-    sp2 = InferenceEngine(dense, dtype=torch.float32, device="cpu", sp=2, mesh=_fake_mesh(1, 2),
-                          batch_size=2)
-    jeng = JEngine(dense, sp=2, dtype=jnp.float32, batch_size=2)
-    for call in (lambda e: e.init_kv_pool(8, native=True),
-                 lambda e: e.init_draft_model(dense)):
-        with pytest.raises(ValueError) as want:
-            call(jeng)
-        with pytest.raises(ValueError) as got:
-            call(sp2)
-        assert str(got.value) == str(want.value)
+    for axis in ("sp", "pp"):
+        port = InferenceEngine(dense, dtype=torch.float32, device="cpu", batch_size=2,
+                               mesh=_fake_mesh(1, 1, **{axis: 2}) if axis == "pp" else
+                               _fake_mesh(1, 2), **{axis: 2})
+        jeng = JEngine(dense, dtype=jnp.float32, batch_size=2, **{axis: 2})
+        for call in (lambda e: e.init_kv_pool(8, native=True),
+                     lambda e: e.init_draft_model(dense)):
+            with pytest.raises(ValueError) as want:
+                call(jeng)
+            with pytest.raises(ValueError) as got:
+                call(port)
+            assert str(got.value) == str(want.value), axis
     with pytest.raises(ValueError, match="divisible by 64"):  # q40: dims of 32 * tp
         InferenceEngine(dense, device="cpu", tp=2, mesh=_fake_mesh(2, 1), weight_format="q40")
     with pytest.raises(ValueError, match="exceeds nKvHeads"):
@@ -467,29 +482,34 @@ def test_engine_refusals(files, tmp_path):
 
 
 def test_cli_refusals(files):
-    """``--pp`` and ``--dp`` above 1 raise naming ROADMAP A.14 in every mode,
-    the server's too; ``--sync-measure`` is accepted; the server takes the
-    CLI's mesh rule (tp 0: one rank on a host without a card)."""
+    """A batch that ``--dp`` does not divide and a ``--pp`` that does not
+    divide the layers are refused in every mode, the server's too, with the
+    JAX engine's reasons, before any rank starts; ``--sync-measure`` is
+    accepted; the server takes the CLI's mesh rule (tp 0: one rank on a host
+    without a card, 1 under ``--pp``)."""
     base = ["--model", files["dense"], "--tokenizer", files["tok"], "--device", "cpu"]
-    with pytest.raises(SystemExit, match="--pp > 1.*A.14"):
-        cli.main(["inference", *base, "--pp", "2", "--prompt", "a", "--steps", "4"])
-    with pytest.raises(SystemExit, match="--dp > 1.*A.14"):
+    with pytest.raises(SystemExit, match="batch_size 1 must divide over dp=2 lanes"):
         cli.main(["inference", *base, "--dp", "2", "--prompt", "a", "--steps", "4"])
-    with pytest.raises(SystemExit, match="--pp > 1.*A.14"):
-        cli.main(["chat", *base, "--tp", "2", "--pp", "2"])
+    with pytest.raises(SystemExit, match="nLayers=2 not divisible by pp=3"):
+        cli.main(["inference", *base, "--pp", "3", "--prompt", "a", "--steps", "4"])
+    with pytest.raises(SystemExit, match="nLayers=2 not divisible by pp=4"):
+        cli.main(["chat", *base, "--tp", "2", "--pp", "4"])
     from dllama_tpu_torch.runtime import api_server
 
-    with pytest.raises(SystemExit, match="--dp > 1.*A.14"):
-        api_server.main([*base, "--tp", "2", "--dp", "2"])
+    with pytest.raises(SystemExit, match="batch_size 3 must divide over dp=2 lanes"):
+        api_server.main([*base, "--tp", "2", "--dp", "2", "--batch-size", "3"])
     args = cli._build_parser().parse_args(["inference", *base, "--workers", "4",
                                            "--sync-measure", "off"])
-    assert cli.resolve_mesh_shape(args) == (4, 1)
+    assert cli.resolve_mesh_shape(args) == (4, 1, 1, 1)
     args = cli._build_parser().parse_args(["inference", *base])
-    assert cli.resolve_mesh_shape(args) == (1, 1)
+    assert cli.resolve_mesh_shape(args) == (1, 1, 1, 1)
     args = api_server.build_parser().parse_args([*base, "--tp", "2", "--sp", "2"])
-    assert cli.resolve_mesh_shape(args) == (2, 2)
+    assert cli.resolve_mesh_shape(args) == (2, 2, 1, 1)
     args = api_server.build_parser().parse_args(base)
-    assert cli.resolve_mesh_shape(args) == (1, 1)
+    assert cli.resolve_mesh_shape(args) == (1, 1, 1, 1)
+    args = api_server.build_parser().parse_args([*base, "--pp", "2", "--dp", "2",
+                                                 "--batch-size", "4"])
+    assert cli.resolve_mesh_shape(args) == (1, 1, 2, 2)
 
 
 def test_failed_rank_ends_the_launch(files):

@@ -68,9 +68,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    port's ``inference`` CLI path: a ~500-token prompt and 128 greedy
    tokens, every forward a CUDA graph (each shape eager on its first use,
    then captured and replayed: `dllama_tpu_torch/runtime/graphs.py`).
-   llama-8b (32 layers) with ``--weight-format q40`` (also with
+   llama-8b (`N_LAYERS`, 32 layers) with ``--weight-format q40`` (also with
    ``--kv-dtype int8``), ``q40i4`` and ``q40i8``; qwen3-30b-a3b (`MOE_LAYERS`,
-   24 of 48 layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
+   8 of 48 layers) with ``auto`` (Q40 on the card) and ``q40i8`` (experts stay
    Q40); qwen3-30b-a3b at 4 layers with ``dense`` (bf16 experts: full
    depth would be 60 GB of them). Load s, prefill ms,
    decode ms/token and tok/s, each kernel's launches in that run (the
@@ -173,7 +173,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    bits) and the two-tier MoE decode's rows (`check_moe_tiers`: 4 lanes,
    k 8, cap 16, u 8 on the grouped tier and u 32 on the active one); the
    draft rounds after the serialized round (`serving_draft`: llama-8b q40
-   with a llama-1b draft, off and draft in turns; an f32 4-layer target as
+   with a llama-1b draft, off and draft in turns; an f32 `ACCEPT_LAYERS`-layer target as
    its own draft, accepted drafts, answers equal to spec-off's, a failed
    draft step resetting only the draft cache); the mixed-KV runs on the
    llama-8b file (`mixed_kv`: an f32 engine over a bf16 cache with its
@@ -186,13 +186,14 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    replica fleet (`serving_fleet`, after the mixed-KV runs, on the same
    file): two bf16 replicas of 4 slab lanes behind the router, the mix
    equal to the serving round's solo replays, affinity, a bf16 failover,
-   the router's re-export, fleet timeline and drain; three f32 4-layer
+   the router's re-export, fleet timeline and drain; three f32 `ACCEPT_LAYERS`-layer
    replicas, pool-native, a byte-identical failover and a chaos mix; and
    ``python -m dllama_tpu_torch.fleet.launch`` with two replica processes. Depth cuts
    for the time (PR 18): llama-8b ``q40 kv-int8``, ``q40i4`` and ``q40i8``
-   at `CUT_LAYERS` of 32 layers, qwen3-30b-a3b ``q40i8`` on the 4-layer
-   file; qwen3-30b-a3b ``q40`` and its dedup round at `MOE_LAYERS` (24 of 48,
-   for the parallel serving round's time); a child process writes
+   at `CUT_LAYERS` (4) of 32 layers, qwen3-30b-a3b ``q40i8`` on
+   the 4-layer file; qwen3-30b-a3b ``q40`` and its dedup round at
+   `MOE_LAYERS` (8 of 48, for the parallel rounds' time); each
+   path's seconds are printed; a child process writes
    that file (`start_prewrite`) while the card runs the llama-8b paths.
    The parallel round (`parallel_round`, last, on the llama-8b files
    kept for it, once the child writing the qwen3 file has ended): tensor and sequence parallelism, the ranks
@@ -208,13 +209,22 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    and the paged verify stats at tp = 2 heads, the slab decode at KH 4
    with a parked lane, the decode stats over an sp = 2 shard of the lanes'
    slab with a parked lane, the Q40 GEMV at m = 4 on the tp = 2 slices).
+   Both strided entries run again over an int8 shard (their ``_q8``
+   instantiations, counted under ``*_kv8``, ``composite_ms`` the
+   dequantization then SDPA under the strided mask), and the MoE kernels
+   on a tp rank's expert slices of qwen3-30b-a3b (`check_moe_tp`: F/tp 384
+   and 192, the active kernel at m 1, the grouped one at N 512, the
+   two-tier decode at 4 lanes, Q40 and dense bf16), and the kernels of a
+   pipeline stage at the waves' shapes (`check_pp_waves`: the Q40 tile at
+   m 64, the prefill stats at T 64, the grouped Q40 experts at N 64). The
+   attention sources must build with 0 B of spill stores.
    The one-rank references run first (and the f32 servers' and the chat's
    answers at tp = 1), then one spawned world of 2 ranks takes every
    2-rank job in turn and one of 4 the 2 x 2 jobs. (b) llama-8b q40
-   bf16, 32 layers, tp = 2: each rank holds half of the layer bytes, and
+   bf16, `PAR_LAYERS` layers, tp = 2: each rank holds half of the layer bytes, and
    the first decode step's logits after a 512-row chunk lie within
    `TOL_TP_BF16` of one rank's (where the greedy streams part is printed);
-   (c) the 4-layer llama-8b file in f32, sp = 2 (2 ranks) and tp 2 x sp 2
+   (c) the `ACCEPT_LAYERS`-layer llama-8b file in f32, sp = 2 (2 ranks) and tp 2 x sp 2
    (4 ranks): the greedy streams equal one rank's, the logits within
    `TOL_TP_F32`, the strided and decode-stats entries launched on every
    rank; (d) tp = 2 with the q80 sync buffer: an all-reduce within
@@ -223,29 +233,37 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    backend line naming gloo, rank 0's lines; (f) each rank's decode token:
    device ms, its collectives' host ms and bytes against
    ``ici_traffic_per_token``, its launches; (g) serving at tp = 2 on the
-   32-layer bf16 file (parallel/launch.serve_target: rank 0 serves the
+   `PAR_LAYERS`-layer bf16 file (parallel/launch.serve_target: rank 0 serves the
    seven-request mix over 4 pool-native lanes and controls, the other rank
    follows, parallel/control.py): every request completes, every rank's
    control digest and kernel launches equal rank 0's, each rank's pool
    holds half the KV heads (half of tp = 1's page bytes); where each answer
    parts from the serving phase's tp = 1 answer and the lane tok/s are
-   printed, not gated; (h) the 4-layer file in f32: native lanes at tp 2,
+   printed, not gated; (h) the `ACCEPT_LAYERS`-layer file in f32: native lanes at tp 2,
    slab lanes at sp 2 and tp 2 x sp 2, n-gram and draft speculation, an
    int8 pool and the serialized server at tp 2, and a decode poison at tp
    2 (``cache_epoch`` 1 on every rank): every answer byte-equal to the tp =
-   1 server's; ``chat --tp 2`` on stdin prints the one-rank chat's
-   transcript. The pipeline round (`pipeline_round`, after it, on the same
+   1 server's, and the int8 mix at sp 2 over slab lanes byte-equal to the
+   one-rank int8 slab server's; ``chat --tp 2`` on stdin prints the
+   one-rank chat's transcript; (j) qwen3-30b-a3b q40 at full width on a
+   `PP_MOE_LAYERS`-layer file: bf16 at tp 2 (a rank's expert bytes exactly half of one
+   rank's, the first decode step's logits within `TOL_TP_BF16`, the stream
+   printed) and f32 at tp 2, sp 2 and tp 2 x pp 2, and the `ACCEPT_LAYERS`-layer
+   llama-8b file with an int8 cache at sp 2 and tp 2 x sp 2 in f32: streams
+   equal to one rank's, logits within `TOL_PAR_F32` (`TOL_TP_F32` over the
+   int8 cache), both MoE kernels or both int8 strided entries launched on
+   every rank. The pipeline round (`pipeline_round`, after it, on the same
    files and its one-rank references, `PAR_REFS`): (i) llama-8b q40 bf16
-   at full width and 32 layers, pp = 2 (each rank holds 16 layers' bytes,
+   at full width and `PAR_LAYERS` layers, pp = 2 (each rank holds half the layers' bytes,
    exactly half), the first decode step's logits within `TOL_TP_BF16` of
    one rank's and where the greedy streams part printed (bit-equal logits
-   said so); (ii) the 4-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and
+   said so); (ii) the `ACCEPT_LAYERS`-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and
    pp 2 x sp 2 (tokens equal one rank's, logits within `TOL_TP_F32`),
    ``generate_batch`` of two prompts at pp 2 x dp 2, perplexity at pp 2;
    (iii) servers of the f32 mix, byte-equal to the tp = 1 server's: pp 2
    over slab lanes, dp 2 over pool-native lanes (a prefix page one dp group
    wrote read by a lane of the other: ``kv_cross_dp_pages``), pp 2 x dp 2
-   over slab lanes; (iv) qwen3-30b-a3b q40 at full width, 4 of 48 layers,
+   over slab lanes; (iv) qwen3-30b-a3b q40 at full width, `PP_MOE_LAYERS` of 48 layers,
    pp = 2 in f32: its stream equals one rank's, both MoE kernels launched
    on both ranks; (v) ``python -m dllama_tpu_torch inference --pp 2
    --device cuda:0``: exit 0, its ``Pp`` line; (vi) each rank's decode
@@ -312,13 +330,16 @@ BLOCK = 8  # the engine's decode block (generate's default block_size)
 SAMPLED_TOKENS = 32  # tokens of each sampled stream
 PROMPT_TOKENS = 500
 DECODE_TOKENS = 128
-N_LAYERS = 32  # the whole llama-8b depth
-# the qwen3-30b-a3b q40 path and its dedup round: 24 of the 48 layers, cut
-# to keep the smoke inside its time with the parallel serving round (the
-# same kernels at the same widths, each layer a repeat of the first); a
-# child process writes the file while the llama-8b phases run
+# the whole llama-8b depth: cut to 16 layers the serving phase's watchdog
+# gate counted a 5.9 s decode gap (the decode-stall threshold, 20 x the p99
+# decode block, falls to its 5 s floor there; the gap's source is not found)
+N_LAYERS = 32
+# the qwen3-30b-a3b q40 path and its dedup round: 8 of the 48 layers, cut
+# to keep the smoke inside its time with the parallel rounds (the same
+# kernels at the same widths, each layer a repeat of the first); a child
+# process writes the file while the llama-8b phases run
 # (`start_prewrite`)
-MOE_LAYERS = 24
+MOE_LAYERS = 8
 MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 # model file -> (its label, preset, layers, the runs on it: a weight format,
 # " kv-int8" added for the int8 KV cache)
@@ -327,7 +348,7 @@ MOE_DENSE_LAYERS = 4  # dense path: bf16 experts are 1.26 GB a layer
 # inside its time with this slice's phases: they hold the same kernels at
 # the same widths, each layer a repeat of the first (the serving phase still
 # serves the int8 pool at full depth)
-CUT_LAYERS = 8
+CUT_LAYERS = 4
 MODELS = [
     ("llama-8b", "llama-8b", N_LAYERS, ("q40",)),
     ("llama-8b", "llama-8b", CUT_LAYERS, ("q40 kv-int8", "q40i4", "q40i8")),
@@ -371,6 +392,12 @@ REPLACES = {
     # emit_stats (surface flash_decode_stats, :534)
     "flash_attention_stats_strided": "dllama_tpu/ops/flash_attention.py:166",
     "flash_decode_stats": "dllama_tpu/ops/flash_attention.py:404",
+    # the int8 cache under sequence parallelism: the prefill stats kernel's
+    # QuantKV branch with s_stride (its QuantKV test beside the strided kv
+    # index map, :191 :230-237), and the JAX engine's int8 sp decode
+    # (dequant_kv, then jnp stats over the shard)
+    "flash_attention_stats_strided_kv8": "dllama_tpu/ops/flash_attention.py:191",
+    "flash_decode_stats_kv8": "dllama_tpu/models/transformer.py:341",
 }
 SOURCES = {
     "q40_matmul": "dllama_tpu_torch/csrc/q40_matmul.cu",
@@ -391,6 +418,8 @@ SOURCES = {
     "paged_flash_decode_mixed": "dllama_tpu_torch/csrc/flash_decode.cu",
     "flash_attention_stats_strided": "dllama_tpu_torch/csrc/flash_attention.cu",
     "flash_decode_stats": "dllama_tpu_torch/csrc/flash_decode.cu",
+    "flash_attention_stats_strided_kv8": "dllama_tpu_torch/csrc/flash_attention.cu",
+    "flash_decode_stats_kv8": "dllama_tpu_torch/csrc/flash_decode.cu",
 }
 # the row of phase 2 whose times stand in the kernels line
 KERNEL_ROW_SHAPE = {
@@ -412,6 +441,8 @@ KERNEL_ROW_SHAPE = {
     "paged_flash_decode_mixed": "bf16/f16 H=32 KH=8 B=4 pos=0,15,16,4095",
     "flash_attention_stats_strided": "bfloat16 H=16 KH=4 T=256 S=2048 stride=2 pos=3833",
     "flash_decode_stats": "bfloat16 H=16 KH=4 S=2048 stride=2 pos=4095 s_pos0=1",
+    "flash_attention_stats_strided_kv8": "int8 bfloat16 H=16 KH=4 T=256 S=2048 stride=2 pos=3833",
+    "flash_decode_stats_kv8": "int8 bfloat16 H=16 KH=4 S=2048 stride=2 pos=4095 s_pos0=1",
 }
 MOE_SHAPE = dict(e=128, d=2048, f=768, k=8)  # Qwen3-30B-A3B experts
 # the MoE kernels' edges at about A3B's widths: D and F not multiples of a
@@ -499,6 +530,22 @@ def random_q40(n: int, k: int, device, gen):
     d = ((torch.rand((n, k // 32), device=device, generator=gen) + 0.5) * 0.004).half()
     d = torch.where(torch.rand_like(d.float()) < 0.5, -d, d).contiguous()
     return QuantWeight(q, d)
+
+
+def random_q40_experts(e: int, d: int, f: int, device, gen) -> list:
+    """Random Q40 experts [w1, w2, w3] (w1/w3 [E, F, D], w2 [E, D, F]) as
+    `random_q40` makes a weight, each contiguous."""
+    import torch
+
+    from dllama_tpu_torch.ops.quant_matmul import QuantWeight
+
+    def q40(rows, cols):
+        q = torch.randint(-8, 8, (e, rows, cols), dtype=torch.int8, device=device, generator=gen)
+        sc = (torch.rand((e, rows, cols // 32), device=device, generator=gen) + 0.5) * 0.004
+        sc = torch.where(torch.rand(sc.shape, device=device, generator=gen) < 0.5, -sc, sc)
+        return QuantWeight(q, sc.half().contiguous())
+
+    return [q40(f, d), q40(d, f), q40(f, d)]
 
 
 def _q40_cases(f32: bool) -> list[tuple[int, int, list]]:
@@ -4434,45 +4481,98 @@ TIMED_STEPS = 8  # decode steps timed a rank for the (f) prints
 # read apart (the parity lines: 4-6e-2), where a wrong slice or a lost
 # all-reduce reads ~1
 TOL_TP_BF16 = 0.1
-# (c) f32 logits of sp = 2 and tp 2 x sp 2 against one rank after 4 layers:
+# (c) f32 logits of sp = 2 and tp 2 x sp 2 against one rank after `ACCEPT_LAYERS` layers:
 # sum order only (the GEMV partials, the ring's and the decode merge's
 # order), f32 throughout; a shard read at a wrong position reads ~1
 TOL_TP_F32 = 1e-3
 Q80_BOUND = 2e-2  # tests/test_parallel.py's bound on the q80 all-reduce
+# the bf16 llama-8b file of the parallel round's (b) and (g) and the
+# pipeline round's (i): 16 of 32 layers, a file of their own for the
+# smoke's time (the same kernels at the same widths, each layer a repeat
+# of the first)
+PAR_LAYERS = 16
+# (j) qwen3-30b-a3b's f32 rows against one rank after `PP_MOE_LAYERS` layers (tp 2, sp 2
+# and tp 2 x pp 2): sum order only, as (c), whose readings were 1.7-2.3e-6
+# (PERF.md). The int8 cache's rows (sp 2, tp 2 x sp 2) take `TOL_TP_F32`:
+# each cache row is rounded to int8 once it is written, so a last-bit
+# difference of a layer's input flips an int8 step (1/127 of the row's
+# largest value) here and there in the next layers' rows, as q40i8's int8
+# activations do; the streams stay gated equal
+TOL_PAR_F32 = 3e-6
 
 
-def _sp_case(device, gen, dtype, stride: int, t: int, pos: int, s_pos0: int):
+def _sp_case(device, gen, dtype, stride: int, t: int, pos: int, s_pos0: int, kv8: bool = False):
+    """q [1, T, H, hd] in ``dtype`` and a cyclic shard's k and v [1, KH,
+    S_LOCAL, hd]: in ``dtype``, or with ``kv8`` int8 leaves (`random_kv8`)."""
     import torch
 
     c = SP_SHAPE
+    shape = (1, c["kh"], c["s_local"], c["hd"])
     q = torch.randn((1, t, c["h"], c["hd"]), device=device, generator=gen).to(dtype)
-    k = torch.randn((1, c["kh"], c["s_local"], c["hd"]), device=device, generator=gen).to(dtype)
-    v = torch.randn((1, c["kh"], c["s_local"], c["hd"]), device=device, generator=gen).to(dtype)
+    if kv8:
+        return q, random_kv8(shape, device, gen), random_kv8(shape, device, gen)
+    k = torch.randn(shape, device=device, generator=gen).to(dtype)
+    v = torch.randn(shape, device=device, generator=gen).to(dtype)
     return q, k, v
+
+
+def _strided_composite(q, k, v, pos: int, s_pos0: int, stride: int, n_keys: int):
+    """The two calls that compute the normalized output of a strided int8
+    shard's stats with PyTorch: the visible rows dequantized, then SDPA
+    under the strided causal mask (key j at s_pos0 + j * stride)."""
+    import torch
+
+    from dllama_tpu_torch.ops.kv_cache import dequant_kv, slice_kv
+
+    n = max(n_keys, 1)
+    qpos = pos + torch.arange(q.shape[1], device=q.device)
+    mask = s_pos0 + torch.arange(n, device=q.device)[None, :] * stride <= qpos[:, None]
+    qs = q.transpose(1, 2)
+    return lambda: _sdpa(qs, dequant_kv(slice_kv(k, n), q.dtype),
+                         dequant_kv(slice_kv(v, n), q.dtype), mask)
+
+
+def _counted_twice(fn, counter, what: str):
+    """fn() twice with equal bits, each run one launch on ``counter``."""
+    before = counter.launches
+    out = twice_equal(fn, what)
+    require(counter.launches == before + 2, f"{what}: {counter.launches - before} launches "
+            f"under {counter.__name__}, wanted 2")
+    return out
 
 
 def check_attention_strided(device, gen, timed: bool = True) -> list[dict]:
     """The stats kernel over a cyclic shard (``s_stride`` 2 and 4) against
     its plain version, bf16 and f32, at `SP_SHAPE` (T 256 near the shard's
-    end, then T 1, 3, 5), each launched twice with equal bits. No PyTorch
-    call attends over a strided shard: library_ms is none."""
+    end, then T 1, 3, 5), each launched twice with equal bits; the same over
+    an int8 shard (`random_kv8`: the ``_q8`` entry, its launches under
+    ``flash_attention_stats_strided_kv8``, bytes the int8 values and f32
+    scales). f32 outputs: TOL. No PyTorch call attends over a strided
+    shard: library_ms is none; an int8 row's ``composite_ms`` times the
+    dequantization of the visible rows and SDPA under the strided mask."""
     import torch
 
-    from dllama_tpu_torch.ops.flash_attention import (
-        flash_attention_stats, flash_attention_stats_ref,
-    )
+    from dllama_tpu_torch.ops import flash_attention as fa
 
     c = SP_SHAPE
     rows = []
-    cases = [(dt, st, c["t"], c["s_local"] * st - c["t"] - 7, st - 1)
-             for dt in (torch.bfloat16, torch.float32) for st in (2, 4)]
-    cases += [(torch.bfloat16, 2, t, 101, 1) for t in SP_SMALL_T]
-    for dt, stride, t, pos, s0 in cases:
-        q, k, v = _sp_case(device, gen, dt, stride, t, pos, s0)
-        what = (f"flash_attention_stats_strided {str(dt)[6:]} stride={stride} T={t} "
-                f"pos={pos} s_pos0={s0}")
-        got = twice_equal(lambda: flash_attention_stats(q, k, v, pos, s0, s_stride=stride), what)
-        ref = flash_attention_stats_ref(q, k, v, pos, s0, s_stride=stride)
+    cases = [(dt, st, c["t"], c["s_local"] * st - c["t"] - 7, st - 1, kv8)
+             for kv8 in (False, True) for dt in (torch.bfloat16, torch.float32) for st in (2, 4)]
+    cases += [(torch.bfloat16, 2, t, 101, 1, kv8) for kv8 in (False, True) for t in SP_SMALL_T]
+    for dt, stride, t, pos, s0, kv8 in cases:
+        q, k, v = _sp_case(device, gen, dt, stride, t, pos, s0, kv8)
+        name = "flash_attention_stats_strided" + ("_kv8" if kv8 else "")
+        tag = ("int8 " if kv8 else "") + str(dt)[6:]
+        what = f"{name} {tag} stride={stride} T={t} pos={pos} s_pos0={s0}"
+
+        def kernel():
+            return fa.flash_attention_stats(q, k, v, pos, s0, s_stride=stride)
+
+        def plain():
+            return fa.flash_attention_stats_ref(q, k, v, pos, s0, s_stride=stride)
+
+        got = _counted_twice(kernel, getattr(fa, name), what)
+        ref = plain()
         torch.cuda.synchronize(device)
         errs = [norm_err(a, b) for a, b in zip(got, ref)]
         rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -4481,18 +4581,21 @@ def check_attention_strided(device, gen, timed: bool = True) -> list[dict]:
         vis = sum(max(0, min(c["s_local"], (pos + i - s0) // stride + 1)) for i in range(t))
         n_keys = max(0, min(c["s_local"], (pos + t - 1 - s0) // stride + 1))
         es = q.element_size()
-        n_bytes = q.numel() * es + 2 * c["kh"] * n_keys * c["hd"] * es + c["h"] * t * (c["hd"] + 2) * 4
+        kv_bytes = (_kv8_bytes(c["kh"], n_keys, c["hd"]) if kv8
+                    else 2 * c["kh"] * n_keys * c["hd"] * es)
+        n_bytes = q.numel() * es + kv_bytes + c["h"] * t * (c["hd"] + 2) * 4
         b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * vis,
                            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
-        row = dict(name="flash_attention_stats_strided",
-                   shape=f"{str(dt)[6:]} H={c['h']} KH={c['kh']} T={t} S={c['s_local']} "
+        row = dict(name=name,
+                   shape=f"{tag} H={c['h']} KH={c['kh']} T={t} S={c['s_local']} "
                          f"stride={stride} pos={pos}", err=rel, max_abs_err=absd,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if timed:
-            row["ms"] = time_ms(lambda: flash_attention_stats(q, k, v, pos, s0, s_stride=stride),
-                                device)
-            row["plain_ms"] = time_ms(
-                lambda: flash_attention_stats_ref(q, k, v, pos, s0, s_stride=stride), device, 5)
+            row["ms"] = time_ms(kernel, device)
+            row["plain_ms"] = time_ms(plain, device, 5)
+            if kv8:
+                row["composite_ms"] = time_ms(
+                    _strided_composite(q, k, v, pos, s0, stride, n_keys), device)
         rows.append(row)
     return rows
 
@@ -4503,21 +4606,34 @@ def check_decode_stats(device, gen, timed: bool = True) -> list[dict]:
     the 2048-row shard visible (pos 4095: each block of the cluster holds
     its share of the tiles), a mid position, and a shard wholly in the
     query's future (pos 0, s_pos0 1: m = -1e30, l = 0, acc = 0, nothing
-    read); each launched twice with equal bits. library_ms none (no PyTorch
-    call returns the unnormalized state)."""
+    read); each launched twice with equal bits; the same over an int8 shard
+    (the ``_q8`` entry, counted under ``flash_decode_stats_kv8``). f32
+    outputs: TOL. library_ms none (no PyTorch call returns the
+    unnormalized state); an int8 row's ``composite_ms`` times the
+    dequantization and SDPA (two calls) of the normalized output."""
     import torch
 
-    from dllama_tpu_torch.ops.flash_attention import flash_decode_stats, flash_decode_stats_ref
+    from dllama_tpu_torch.ops import flash_attention as fa
 
     c = SP_SHAPE
     rows = []
-    cases = [(dt, pos, s0) for dt in (torch.bfloat16, torch.float32)
+    cases = [(dt, pos, s0, kv8) for kv8 in (False, True) for dt in (torch.bfloat16, torch.float32)
              for pos, s0 in ((4095, 0), (4095, 1), (563, 1), (0, 1))]
-    for dt, pos, s0 in cases:
-        q, k, v = _sp_case(device, gen, dt, 2, 1, pos, s0)
-        what = f"flash_decode_stats {str(dt)[6:]} stride=2 pos={pos} s_pos0={s0}"
-        got = twice_equal(lambda: flash_decode_stats(q, k, v, pos, s0, 2), what)
-        ref = flash_decode_stats_ref(q, k, v, pos, s0, 2)
+    for dt, pos, s0, kv8 in cases:
+        q, k, v = _sp_case(device, gen, dt, 2, 1, pos, s0, kv8)
+        name = "flash_decode_stats" + ("_kv8" if kv8 else "")
+        tag = ("int8 " if kv8 else "") + str(dt)[6:]
+        what = f"{name} {tag} stride=2 pos={pos} s_pos0={s0}"
+
+        def kernel():
+            return fa.flash_decode_stats(q, k, v, pos, s0, 2)
+
+        def plain():
+            return fa.flash_decode_stats_ref(q, k, v, pos, s0, 2)
+
+        counter = fa.flash_decode_stats_kv8 if kv8 else fa.flash_decode_stats
+        got = _counted_twice(kernel, counter, what)
+        ref = plain()
         torch.cuda.synchronize(device)
         n_keys = max(0, min(c["s_local"], (pos - s0) // 2 + 1))
         if n_keys == 0:
@@ -4530,17 +4646,21 @@ def check_decode_stats(device, gen, timed: bool = True) -> list[dict]:
             rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
         require(rel <= TOL, f"{what}: error {rel:.3e} > {TOL}")
         es = q.element_size()
-        n_bytes = q.numel() * es + 2 * c["kh"] * n_keys * c["hd"] * es + c["h"] * (c["hd"] + 2) * 4
+        kv_bytes = (_kv8_bytes(c["kh"], n_keys, c["hd"]) if kv8
+                    else 2 * c["kh"] * n_keys * c["hd"] * es)
+        n_bytes = q.numel() * es + kv_bytes + c["h"] * (c["hd"] + 2) * 4
         b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * n_keys,
                            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
-        row = dict(name="flash_decode_stats",
-                   shape=f"{str(dt)[6:]} H={c['h']} KH={c['kh']} S={c['s_local']} stride=2 "
+        row = dict(name=name,
+                   shape=f"{tag} H={c['h']} KH={c['kh']} S={c['s_local']} stride=2 "
                          f"pos={pos} s_pos0={s0}", err=rel, max_abs_err=absd,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if timed:
-            row["ms"] = time_ms(lambda: flash_decode_stats(q, k, v, pos, s0, 2), device)
-            row["plain_ms"] = time_ms(lambda: flash_decode_stats_ref(q, k, v, pos, s0, 2),
-                                      device, 5)
+            row["ms"] = time_ms(kernel, device)
+            row["plain_ms"] = time_ms(plain, device, 5)
+            if kv8:
+                row["composite_ms"] = time_ms(
+                    _strided_composite(q, k, v, pos, s0, 2, n_keys), device)
         rows.append(row)
     return rows
 
@@ -4553,6 +4673,144 @@ def check_q40_tp(device, gen, timed: bool = True) -> list[dict]:
     return check_q40(device, gen, timed,
                      cases=[(k, n, [(1, torch.bfloat16), (512, torch.bfloat16)])
                             for k, n in TP_Q40_SHAPES], tag=" tp=2")
+
+
+MOE_TP = (2, 4)  # the tp sizes whose expert slices check_moe_tp runs: F/tp 384 and 192
+
+
+def check_moe_tp(device, gen, timed: bool = True) -> list[dict]:
+    """The MoE kernels on a tp rank's expert slices of qwen3-30b-a3b (E 128,
+    D 2048, k 8; F/tp hidden units an expert: 384 at tp 2, 192 at tp 4,
+    the grouped kernel's 128-value Q40 stage ending in a half stage; a
+    slice's Q40 w2 scales 24 and 12 bytes a row, so rows start off 16-byte
+    boundaries), contiguous as the loader makes them, bf16 over Q40 and
+    dense bf16 experts: the active kernel at m 1, the grouped kernel at N
+    512, and the two-tier decode at 4 lanes on 8 shared experts (the
+    grouped tier under cap 16); each against `moe_experts_ref` on the same
+    slices within TOL_MOE_BF16, launched twice with equal bits. library_ms
+    none (no single PyTorch call computes a routed SwiGLU MoE)."""
+    import torch
+
+    from dllama_tpu_torch.ops import moe
+    from dllama_tpu_torch.ops.quant_matmul import dequant
+
+    e, d, f_all, k = (MOE_SHAPE[key] for key in ("e", "d", "f", "k"))
+    rows = []
+    for tp in MOE_TP:
+        f = f_all // tp
+        qw = random_q40_experts(e, d, f, device, gen)
+        for quant in (True, False):
+            ws = qw if quant else [dequant(w, torch.bfloat16) for w in qw]
+            for kind, n in (("active", 1), ("grouped", 512), ("tiers", MOE_DECODE_LANES)):
+                x = torch.randn((n, d), device=device, generator=gen).to(torch.bfloat16)
+                top_i = torch.rand((n, e), device=device, generator=gen).topk(k, -1).indices.int()
+                cap = moe.dedup_cap(n, k, True)
+                if kind == "tiers":  # every lane on the same 8 experts: the grouped tier
+                    chosen = torch.randperm(e, device=device, generator=gen)[:k].int()
+                    top_i = chosen[torch.rand((n, k), device=device, generator=gen).argsort(-1)]
+                wts = torch.rand((n, k), device=device, generator=gen) + 0.1
+                wts = wts / wts.sum(-1, keepdim=True)
+                name = f"moe_{'active' if kind == 'active' else 'grouped'}_experts" + (
+                    "_q40" if quant else "")
+                fn = getattr(moe, name)
+
+                def kernel(fn=fn, x=x, ws=ws, top_i=top_i, wts=wts, cap=cap, kind=kind):
+                    if kind == "tiers":
+                        return moe.moe_decode_tiers(x, *ws, top_i, wts, cap)
+                    return fn(x, *ws, top_i, wts)
+
+                label = (f"bf16 {'m' if kind == 'active' else 'N'}={n} F/tp={f} tp={tp}"
+                         + (f" two-tier cap={cap} u=8" if kind == "tiers" else ""))
+                got = _counted_twice(kernel, fn, f"{name} {label}")
+                ref = moe.moe_experts_ref(x, *ws, top_i, wts)
+                torch.cuda.synchronize(device)
+                rel, absd = norm_err(got, ref)
+                require(rel <= TOL_MOE_BF16, f"{name} {label}: error {rel:.3e} > {TOL_MOE_BF16}")
+                n_exp = int(torch.unique(top_i).numel())
+                w_bytes = sum((w.q.numel() + w.d.numel() * 2) if quant
+                              else w.numel() * w.element_size() for w in ws) // e
+                n_bytes = n_exp * w_bytes + x.numel() * 2 + n * d * 4 + n * k * 8
+                b_ms, b_by = bound(n_bytes, 6.0 * n * k * d * f)
+                row = dict(name=name, shape=label, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                           bound_by=b_by, experts=n_exp, library_ms=None)
+                if timed:
+                    row["ms"] = time_ms(kernel, device)
+                    row["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts),
+                                              device, 5)
+                rows.append(row)
+            del ws
+        del qw
+        gc.collect()
+    return rows
+
+
+PP_WAVE = 64  # a pipeline wave's rows: the 512-row chunk in 8 waves at pp 2
+PP_WAVE_POS = 448  # the chunk's last wave
+
+
+def check_pp_waves(device, gen, timed: bool = True) -> list[dict]:
+    """The kernels of a pipeline stage at the waves' shapes (pp 2: a 512-row
+    chunk in 8 waves of 64 rows, the last at pos 448): the Q40 tile at m 64
+    (k 4096, n 14336), the prefill stats at T 64 (H 32 over KH 8, S 4096,
+    bf16; library SDPA) and the grouped Q40 experts at N 64 (A3B), each
+    against its plain version under its usual bound, launched twice with
+    equal bits."""
+    import torch
+
+    from dllama_tpu_torch.ops import moe
+    from dllama_tpu_torch.ops.flash_attention import (
+        flash_attention_stats, flash_attention_stats_ref,
+    )
+
+    bf = torch.bfloat16
+    rows = check_q40(device, gen, timed, cases=[(4096, 14336, [(PP_WAVE, bf)])], tag=" pp waves")
+    h, kh, hd, t, pos = 32, 8, 128, PP_WAVE, PP_WAVE_POS
+    q = torch.randn((1, t, h, hd), device=device, generator=gen).to(bf)
+    k, v = (torch.randn((1, kh, 4096, hd), device=device, generator=gen).to(bf) for _ in range(2))
+    shape = f"H={h} KH={kh} T={t} S=4096 pos={pos} pp waves"
+    got = twice_equal(lambda: flash_attention_stats(q, k, v, pos), f"flash_attention_stats {shape}")
+    ref = flash_attention_stats_ref(q, k, v, pos)
+    errs = [norm_err(a, b) for a, b in zip(got, ref)]
+    rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
+    require(rel <= TOL, f"flash_attention_stats {shape}: error {rel:.3e} > {TOL}")
+    vis = sum(pos + i + 1 for i in range(t))
+    b_ms, b_by = bound(q.numel() * 2 + 2 * kh * (pos + t) * hd * 2 + h * t * (hd + 2) * 4,
+                       4.0 * hd * h * vis)
+    row = dict(name="flash_attention_stats", shape=shape, err=rel, max_abs_err=absd,
+               bound_ms=b_ms, bound_by=b_by)
+    if timed:
+        qpos = pos + torch.arange(t, device=device)
+        mask = torch.arange(pos + t, device=device)[None, :] <= qpos[:, None]
+        qs, ks, vs = q.transpose(1, 2), k[:, :, : pos + t], v[:, :, : pos + t]
+        row["ms"] = time_ms(lambda: flash_attention_stats(q, k, v, pos), device)
+        row["plain_ms"] = time_ms(lambda: flash_attention_stats_ref(q, k, v, pos), device, 5)
+        row["library_ms"] = time_ms(lambda: _sdpa(qs, ks, vs, mask), device)
+    rows.append(row)
+    del k, v
+    e, d, f, kk = (MOE_SHAPE[key] for key in ("e", "d", "f", "k"))
+    ws = random_q40_experts(e, d, f, device, gen)
+    n = PP_WAVE
+    x = torch.randn((n, d), device=device, generator=gen).to(bf)
+    top_i = torch.rand((n, e), device=device, generator=gen).topk(kk, -1).indices.int()
+    wts = torch.rand((n, kk), device=device, generator=gen) + 0.1
+    wts = wts / wts.sum(-1, keepdim=True)
+    label = f"bf16 N={n} pp waves"
+    fn = moe.moe_grouped_experts_q40
+    got = _counted_twice(lambda: fn(x, *ws, top_i, wts), fn, f"moe_grouped_experts_q40 {label}")
+    ref = moe.moe_experts_ref(x, *ws, top_i, wts)
+    rel, absd = norm_err(got, ref)
+    require(rel <= TOL_MOE_BF16, f"moe_grouped_experts_q40 {label}: error {rel:.3e}")
+    n_exp = int(torch.unique(top_i).numel())
+    w_bytes = sum(w.q.numel() + w.d.numel() * 2 for w in ws) // e
+    b_ms, b_by = bound(n_exp * w_bytes + x.numel() * 2 + n * d * 4 + n * kk * 8,
+                       6.0 * n * kk * d * f)
+    row = dict(name="moe_grouped_experts_q40", shape=label, err=rel, max_abs_err=absd,
+               bound_ms=b_ms, bound_by=b_by, experts=n_exp, library_ms=None)
+    if timed:
+        row["ms"] = time_ms(lambda: fn(x, *ws, top_i, wts), device)
+        row["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts), device, 5)
+    rows.append(row)
+    return rows
 
 
 LANE_TP = dict(h=16, kh=4)  # llama-8b's heads a rank at tp = 2
@@ -4828,18 +5086,20 @@ def _par_serving_report(world2: list, world4: list, jobs2: dict, jobs4: dict, tr
     n_tok = sum(first["tokens"][0])
     wall = first["wall_s"][0]
     parts = []
-    solo = SERVE_TRUTH.get("solo")
+    # the serving phase's solo answers, where the file is the serving phase's
+    solo = SERVE_TRUTH.get("solo") if h.n_layers == N_LAYERS else None
     for j, a in enumerate(answers):
         if solo:
             parts.append("equal" if a == solo[j]["content"] else
                          "parts at " + _parts_at(tok, solo[j]["tokens"], solo[j]["content"], a))
-    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, {SERVE_LANES} "
+    print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, {SERVE_LANES} "
           f"pool-native lanes a rank, {len(answers)} requests greedy, every one completed; "
           f"pool {first['pool_shape']} a rank, page {first['page_bytes']} B against "
           f"{page1} B at tp = 1; control {first['summary']['commands']} commands, "
           f"digest equal on every rank; {smi}")
     print(f"parallel serve {label}: each answer against the tp = 1 answer (not gated: bf16 "
-          f"partials sum in another order): {parts if solo else 'no tp = 1 answers this run'}")
+          f"partials sum in another order): "
+          f"{parts if solo else 'no tp = 1 answers of this file this run'}")
     print(f"parallel serve {label}: lane tok/s {n_tok / wall:.3f} ({n_tok} tokens in "
           f"{wall:.3f} s; values only, ranks share one card over gloo), {smi}")
     counts[label] = first["launches"]
@@ -4864,9 +5124,9 @@ def _par_serving_report(world2: list, world4: list, jobs2: dict, jobs4: dict, tr
             require(epochs == [1 if "poison" in label else 0] * len(res),
                     f"{label}: cache epochs {epochs}")
             if "sp2" in label:
+                name = "flash_decode_stats" + ("_kv8" if "int8" in label else "")
                 for r, x in enumerate(res):
-                    require(x["launches"]["flash_decode_stats"] > 0,
-                            f"{label} rank {r}: flash_decode_stats was not launched")
+                    require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
             counts[label] = first["launches"]
     return counts
 
@@ -4876,22 +5136,88 @@ def _par_serving_report(world2: list, world4: list, jobs2: dict, jobs4: dict, tr
 PAR_REFS: dict = {}
 
 
+def _slice_report(world2: list, world4: list, idx: dict, q_want: dict, qh, h4, want_kv8,
+                  want_kv8_stream, smi: str) -> dict:
+    """(j) of the parallel round: qwen3-30b-a3b q40 at full width on its
+    `PP_MOE_LAYERS`-layer file, bf16 at tp 2 (a rank's expert bytes exactly half of one
+    rank's, the first decode step's logits within `TOL_TP_BF16` of one
+    rank's, the stream printed) and f32 at tp 2, sp 2 and tp 2 x pp 2; the
+    `ACCEPT_LAYERS`-layer llama-8b file with an int8 cache in f32 at sp 2 and tp 2 x sp 2.
+    Every f32 row: the greedy stream equal to one rank's and the logits
+    within `TOL_PAR_F32` (within `TOL_TP_F32` over an int8 cache); both MoE
+    kernels, or both int8 strided entries, launched on every rank. Returns
+    the launch counts by label."""
+    import numpy as np
+    import torch
+
+    counts = {}
+    print(f"== qwen3-30b-a3b expert slices and the int8 cache under sp (ranks share one card "
+          f"over gloo): qwen3-30b-a3b q40 {PP_MOE_LAYERS} of 48 layers at full width (F/tp "
+          f"{qh.ff_dim // 2} hidden units an expert at tp 2), a {PP_MOE_PROMPT}-token prompt; "
+          f"llama-8b q40 {ACCEPT_LAYERS} layers with --kv-dtype int8, f32; {smi}")
+    for label, (world, i) in idx.items():
+        res = [r[i] for r in (world2 if world == 2 else world4)]
+        moe = label.startswith("qwen3")
+        bf16 = " f32 " not in label
+        if moe:
+            want, want_stream, whole = q_want[torch.bfloat16 if bf16 else torch.float32]
+        else:
+            want, want_stream, whole = want_kv8, want_kv8_stream, None
+        x0 = res[0]
+        pp = 2 if "pp2" in label else 1
+        require(all(np.array_equal(x["step_logits"], x0["step_logits"]) for x in res[1:]),
+                f"{label}: the ranks' logits differ")
+        err = float(np.abs(x0["step_logits"] - want).max() / np.abs(want).max())
+        stream = x0["generate"][0][0]
+        first = _first_diff(stream, want_stream)
+        if moe and "tp2" in label:
+            for r, x in enumerate(res):
+                require(x["expert_bytes"] * 2 * pp == whole,
+                        f"{label} rank {r}: expert weights {x['expert_bytes']} B, wanted half "
+                        f"of one rank's {whole} B" + (" over its stage" if pp > 1 else ""))
+            print(f"parallel {label}: a rank's expert weights {x0['expert_bytes']} B of one "
+                  f"rank's {whole} B (1/{2 * pp}), allocated "
+                  f"{[round(x['allocated'] / 1e9, 2) for x in res]} GB")
+        tol = TOL_TP_BF16 if bf16 else TOL_PAR_F32 if moe else TOL_TP_F32
+        print(f"parallel {label}: first decode logits vs one rank err {err:.3e} (<= {tol}); "
+              f"greedy stream equals one rank's: {stream == want_stream}"
+              + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})")
+              + (f"; stream {stream[-PP_MOE_DECODE:]}" if bf16 else ""))
+        require(err <= tol, f"{label}: logits vs one rank {err:.3e} > {tol}")
+        if not bf16:
+            require(stream == want_stream, f"{label}: the greedy stream parts from one rank's "
+                    f"at token {first}")
+        names = (("moe_grouped_experts_q40", "moe_active_experts_q40") if moe else
+                 ("flash_attention_stats_strided_kv8", "flash_decode_stats_kv8"))
+        for r, x in enumerate(res):
+            for name in names:
+                require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
+        print(f"parallel {label}: launches " + json.dumps(
+            [{name: x["launches"][name] for name in names} for x in res]))
+        if "timed" in x0 and pp == 1:
+            _print_ranks(label, res, qh if moe else h4, 2 if "tp2" in label else 1)
+        counts[label] = x0["launches"]
+    return counts
+
+
 def parallel_round(tmp: str, smi: str) -> dict:
     """The parallel round (ranks share the one card over gloo: NCCL runs no
     two ranks on one device; the one-rank references first, then one world
     of 2 ranks for every 2-rank job and one of 4 for the 2 x 2 jobs): (b)
     llama-8b q40 bf16 at full width and depth, tp = 2 against tp = 1; (c)
-    the 4-layer llama-8b file in f32, sp = 2 and tp 2 x sp 2 against one
+    the `ACCEPT_LAYERS`-layer llama-8b file in f32, sp = 2 and tp 2 x sp 2 against one
     rank; (d) tp = 2 with the q80 sync buffer against f32; (e) the CLI at
     --tp 2; (f) each rank's decode token; (g) serving the seven-request mix
-    at tp = 2 on the 32-layer bf16 file over pool-native lanes, rank 0
+    at tp = 2 on the `PAR_LAYERS`-layer bf16 file over pool-native lanes, rank 0
     controlling and the other rank following (parallel/control.py): every
     request completes, each rank launches the same kernels as often, each
-    pool holds half the heads; (h) the f32 4-layer servers (native lanes at
+    pool holds half the heads; (h) the f32 `ACCEPT_LAYERS`-layer servers (native lanes at
     tp 2, slab lanes at sp 2 and 2 x 2, n-gram and draft speculation, an
-    int8 pool and the serialized path at tp 2, a decode poison at tp 2) and
-    a two-turn chat at --tp 2, each byte-equal to tp = 1. Returns the launch
-    counts of each run, by label."""
+    int8 pool and the serialized path at tp 2, a decode poison at tp 2, int8
+    slab lanes at sp 2) and a two-turn chat at --tp 2, each byte-equal to tp
+    = 1; (j) `_slice_report`: qwen3-30b-a3b's expert slices on its `PP_MOE_LAYERS`-layer
+    file (written here; the pipeline round reuses it) and the int8 cache
+    under sp. Returns the launch counts of each run, by label."""
     import numpy as np
     import torch
 
@@ -4902,10 +5228,13 @@ def parallel_round(tmp: str, smi: str) -> dict:
 
     dev = "cuda:0"
     counts = {}
-    mp, tok = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    mp, tok = os.path.join(tmp, "par", "model.m"), os.path.join(tmp, "tok.t")
+    if not os.path.exists(mp):
+        os.makedirs(os.path.dirname(mp), exist_ok=True)
+        write_synth_model(mp, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=PAR_LAYERS)
 
-    # the one-rank references: (b) llama-8b q40 bf16, 32 layers; (c) the
-    # 4-layer file in f32
+    # the one-rank references: (b) llama-8b q40 bf16, `PAR_LAYERS` layers; (c) the
+    # `ACCEPT_LAYERS`-layer file in f32
     t0 = time.perf_counter()
     eng = InferenceEngine(mp, dtype=torch.bfloat16, temperature=0.0, weight_format="q40",
                           device="cuda")
@@ -4934,8 +5263,36 @@ def parallel_round(tmp: str, smi: str) -> dict:
     want_stream = eng.generate(prompt, max_steps=calls[0][1], block_size=BLOCK)[0]
     release_engine(eng)
     del eng
-    # (h)'s truth: the one-rank f32 servers over the 4-layer file (pool-
-    # native lanes, an int8 pool, the serialized path) and the chat
+    # (j)'s one-rank references: the `ACCEPT_LAYERS`-layer file with an int8 cache in f32,
+    # and qwen3-30b-a3b's `PP_MOE_LAYERS`-layer file in bf16 and f32 (its expert bytes)
+    eng = InferenceEngine(ap, dtype=torch.float32, temperature=0.0, weight_format="q40",
+                          device="cuda", kv_dtype="int8")
+    eng.prefill(prompt)
+    want_kv8 = eng.step_logits(prompt[-1], len(prompt) - 1).numpy()
+    eng.reset()
+    want_kv8_stream = eng.generate(prompt, max_steps=calls[0][1], block_size=BLOCK)[0]
+    release_engine(eng)
+    del eng
+    qp = os.path.join(tmp, "qwen-pp", "model.m")
+    os.makedirs(os.path.dirname(qp), exist_ok=True)
+    write_synth_model(qp, "qwen3-30b-a3b", seed=SEED, max_seq_len=4096, n_layers=PP_MOE_LAYERS)
+    q_want = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        eng = InferenceEngine(qp, dtype=dtype, temperature=0.0, weight_format="q40",
+                              device="cuda")
+        qh = eng.header
+        q_prompt = _tp_prompt(PP_MOE_PROMPT, qh.vocab_size)
+        q_call = (q_prompt, PP_MOE_PROMPT - 1 + PP_MOE_DECODE, BLOCK, 0)
+        eng.prefill(q_prompt)
+        logits = eng.step_logits(q_prompt[-1], len(q_prompt) - 1).numpy()
+        eng.reset()
+        q_want[dtype] = (logits, eng.generate(q_prompt, max_steps=q_call[1], block_size=BLOCK)[0],
+                         param_bytes(eng.params, qh)["experts"])
+        release_engine(eng)
+        del eng
+    # (h)'s truth: the one-rank f32 servers over the `ACCEPT_LAYERS`-layer file (pool-
+    # native lanes, an int8 pool and int8 slab lanes, the serialized path)
+    # and the chat
     from dllama_tpu_torch.tokenizer import Tokenizer
 
     tokz = Tokenizer(tok)
@@ -4943,13 +5300,14 @@ def parallel_round(tmp: str, smi: str) -> dict:
     pay_c = _par_payloads(tokz, PAR_SERVE_TOKENS)
     truth = {"f32": _tp1_answers(ap, tok, pay_c, kv_native=True),
              "int8": _tp1_answers(ap, tok, pay_c, kv_dtype="int8", kv_native=True),
+             "int8-slab": _tp1_answers(ap, tok, pay_c, kv_dtype="int8", kv_native=False),
              "single": _tp1_answers(ap, tok, pay_c, batch_size=1)}
     chat_tp1 = _chat_tp1(ap, tok)
     ref_s = time.perf_counter() - t0
     PAR_REFS.update(mp=mp, ap=ap, tok=tok, h=h, h4=h4, prompt_b=prompt_b, want_b=want_b,
                     want_b_stream=want_b_stream, whole_bytes=whole_bytes, prompt=prompt,
                     calls=calls, want_logits=want_logits, want_stream=want_stream, truth=truth,
-                    pay_c=pay_c)
+                    pay_c=pay_c, qp=qp, q_call=q_call, want_q=q_want[torch.float32][1])
 
     # one world of two ranks for every 2-rank job, then one of four
     t0 = time.perf_counter()
@@ -4978,9 +5336,21 @@ def parallel_round(tmp: str, smi: str) -> dict:
                                                                    batch_size=1)),
         ("llama-8b q40 f32 tp2 serving poison", "f32", _par_job(
             ap, tok, 2, 1, "f32", pay_c, kv_native=True, faults=PAR_POISON)),
+        ("llama-8b q40 f32 sp2 serving slab kv-int8", "int8-slab", _par_job(
+            ap, tok, 1, 2, "f32", pay_c, kv_dtype="int8", kv_native=False)),
     ]
     serve4 = [("llama-8b q40 f32 tp2sp2 serving slab", "f32",
                _par_job(ap, tok, 2, 2, "f32", pay_c, kv_native=False))]
+    # (j): qwen3-30b-a3b's expert slices and llama-8b's int8 cache under sp
+    q_base = dict(model=qp, dtype="f32", weight_format="q40", step_logits=q_prompt,
+                  generate=[q_call], timed_steps=TIMED_STEPS)
+    kv8 = dict(base, kv_dtype="int8")
+    slice2 = {"qwen3-30b-a3b q40 tp2": dict(q_base, tp=2, dtype="bf16"),
+              "qwen3-30b-a3b q40 f32 tp2": dict(q_base, tp=2),
+              "qwen3-30b-a3b q40 f32 sp2": dict(q_base, sp=2),
+              "llama-8b q40 f32 sp2 kv-int8": dict(kv8, sp=2)}
+    slice4 = {"qwen3-30b-a3b q40 f32 tp2pp2": dict(q_base, tp=2, pp=2),
+              "llama-8b q40 f32 tp2sp2 kv-int8": dict(kv8, tp=2, sp=2)}
     jobs2 = [
         ("engine", job_b),
         ("engine", dict(base, tp=1, sp=2)),
@@ -4989,20 +5359,25 @@ def parallel_round(tmp: str, smi: str) -> dict:
         ("collective", ("all_reduce", 2, True, x)),
         ("collective", ("all_reduce", 2, False, x)),
     ]
+    slice_idx = {label: (2, len(jobs2) + i) for i, label in enumerate(slice2)}
+    jobs2 += [("engine", job) for job in slice2.values()]
     serve_idx2 = {label: (len(jobs2) + i, key) for i, (label, key, _) in enumerate(serve2)}
     world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=900,
                    args=(jobs2 + [job for _, _, job in serve2],))
     world2_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    serve_idx4 = {label: (1 + i, key) for i, (label, key, _) in enumerate(serve4)}
+    jobs4 = [("engine", dict(base, tp=2, sp=2))]
+    slice_idx.update({label: (4, len(jobs4) + i) for i, label in enumerate(slice4)})
+    jobs4 += [("engine", job) for job in slice4.values()]
+    serve_idx4 = {label: (len(jobs4) + i, key) for i, (label, key, _) in enumerate(serve4)}
     world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600,
-                   args=([("engine", dict(base, tp=2, sp=2))] + [j for _, _, j in serve4],))
+                   args=(jobs4 + [j for _, _, j in serve4],))
     world4_s = time.perf_counter() - t0
 
-    # (b) llama-8b q40 bf16, 32 layers, tp = 2 against tp = 1
+    # (b) llama-8b q40 bf16, `PAR_LAYERS` layers, tp = 2 against tp = 1
     res = [r[0] for r in world2]
     label = "llama-8b q40 tp2"
-    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, one 512-row chunk and "
+    print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one 512-row chunk and "
           f"{TP_DECODE} greedy tokens; the one-rank references (this, the f32 file's and its "
           f"servers' and chat's) {ref_s:.1f} s, the 2-rank world (its jobs: this, sp2, tp2, "
           f"tp2 q80, two all-reduces, the servers of (g) and (h)) {world2_s:.1f} s, the "
@@ -5026,7 +5401,7 @@ def parallel_round(tmp: str, smi: str) -> dict:
     _print_ranks(label, res, h, 2)
     counts[label] = res[0]["launches"]
 
-    # (c) the 4-layer f32 file at sp 2, tp 2 and tp 2 x sp 2 against one rank
+    # (c) the `ACCEPT_LAYERS`-layer f32 file at sp 2, tp 2 and tp 2 x sp 2 against one rank
     print(f"== llama-8b q40 f32 parallel (ranks share one card over gloo): {ACCEPT_LAYERS} layers, "
           f"{SP_PROMPT}-token prompt (chunks of 512 and 32 rows), {SP_DECODE} greedy tokens")
     for label, results, tp in (("llama-8b q40 f32 sp2", [r[1] for r in world2], 1),
@@ -5059,6 +5434,10 @@ def parallel_round(tmp: str, smi: str) -> dict:
           f"{lerr:.3e}; one [{h.dim}] all-reduce's error {ar_err:.3e} (<= {Q80_BOUND})")
     require(0 < ar_err < Q80_BOUND, f"q80 all-reduce error {ar_err:.3e} outside (0, {Q80_BOUND})")
     _print_ranks("llama-8b q40 f32 tp2 q80", [r[3] for r in world2], h4, 2, sync_quant=True)
+
+    # (j) qwen3-30b-a3b's expert slices; the int8 cache under sp
+    counts.update(_slice_report(world2, world4, slice_idx, q_want, qh, h4, want_kv8,
+                                want_kv8_stream, smi))
 
     # (g) serving llama-8b q40 bf16 at tp = 2; (h) the f32 servers and chat
     counts.update(_par_serving_report(world2, world4, serve_idx2, serve_idx4, truth, tokz, h,
@@ -5102,9 +5481,10 @@ def parallel_round(tmp: str, smi: str) -> dict:
     return counts
 
 
-# (iv) qwen3-30b-a3b at full width, 4 of its 48 layers, under pp = 2: each
-# stage holds 2 MoE layers whole (tp = sp = 1)
-PP_MOE_LAYERS = 4
+# (iv) qwen3-30b-a3b at full width, 2 of its 48 layers (the smoke's
+# time), under pp = 2: each stage holds 1 MoE layer whole
+# (tp = sp = 1); the parallel round's (j) rows run on the same file
+PP_MOE_LAYERS = 2
 # the prompt's 129 fill rows take the 512-row bucket, 8 waves of 64 rows at pp
 # 2: past the active-experts kernel's 16 rows, so the grouped kernel runs
 PP_MOE_PROMPT = 130
@@ -5141,13 +5521,13 @@ def _same_pipeline_ranks(label: str, results: list) -> dict:
 def pipeline_round(tmp: str, smi: str) -> dict:
     """The pipeline round (ranks share the one card over gloo, after the
     parallel round, reusing its one-rank references, `PAR_REFS`): (i)
-    llama-8b q40 bf16 at full width and 32 layers, pp = 2 against one
+    llama-8b q40 bf16 at full width and `PAR_LAYERS` layers, pp = 2 against one
     rank: each rank holds half the layer bytes, the first decode step's
     logits within `TOL_TP_BF16`, where the greedy streams part printed;
-    (ii) the 4-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and pp 2 x
+    (ii) the `ACCEPT_LAYERS`-layer f32 file at pp 2, pp 2 x dp 2, pp 2 x tp 2 and pp 2 x
     sp 2 (tokens equal one rank's, logits within `TOL_TP_F32`),
     ``generate_batch`` of two prompts at pp 2 x dp 2 and perplexity at pp 2
-    (within `TOL_PPL_F32`); (iii) servers on the 4-layer f32 file, every
+    (within `TOL_PPL_F32`); (iii) servers on the `ACCEPT_LAYERS`-layer f32 file, every
     answer byte-equal to the tp = 1 server's: the seven-request mix at pp 2
     over slab lanes, at dp 2 over pool-native lanes (a shared prefix one dp
     group wrote read by a lane of the other: ``kv_cross_dp_pages`` > 0) and
@@ -5171,7 +5551,7 @@ def pipeline_round(tmp: str, smi: str) -> dict:
     mp, ap, tok, h, h4 = R["mp"], R["ap"], R["tok"], R["h"], R["h4"]
 
     # one-rank references past the parallel round's: two lanes' streams and
-    # perplexity on the 4-layer file, and the 4-layer qwen3 file's stream
+    # perplexity on the `ACCEPT_LAYERS`-layer file
     t0 = time.perf_counter()
     prompts = [_tp_prompt(n, h4.vocab_size) for n in PP_BATCH]
     steps = max(PP_BATCH) - 1 + PP_BATCH_DECODE
@@ -5182,17 +5562,8 @@ def pipeline_round(tmp: str, smi: str) -> dict:
     want_ppl = eng.perplexity(ppl_tokens)
     release_engine(eng)
     del eng
-    qp = os.path.join(tmp, "qwen-pp", "model.m")
-    os.makedirs(os.path.dirname(qp), exist_ok=True)
-    write_synth_model(qp, "qwen3-30b-a3b", seed=SEED, max_seq_len=4096, n_layers=PP_MOE_LAYERS)
-    eng = InferenceEngine(qp, dtype=torch.float32, temperature=0.0, weight_format="q40",
-                          device="cuda")
-    qh = eng.header
-    q_prompt = _tp_prompt(PP_MOE_PROMPT, qh.vocab_size)
-    q_call = (q_prompt, PP_MOE_PROMPT - 1 + PP_MOE_DECODE, BLOCK, 0)
-    want_q = eng.generate(q_prompt, max_steps=q_call[1], block_size=BLOCK)[0]
-    release_engine(eng)
-    del eng
+    # the `PP_MOE_LAYERS`-layer qwen3 file and its one-rank stream, from the parallel round
+    qp, q_call, want_q = R["qp"], R["q_call"], R["want_q"]
     ref_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -5226,10 +5597,10 @@ def pipeline_round(tmp: str, smi: str) -> dict:
     world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600, args=(jobs4,))
     world4_s = time.perf_counter() - t0
 
-    # (i) llama-8b q40 bf16, 32 layers, pp = 2 against one rank
+    # (i) llama-8b q40 bf16, `PAR_LAYERS` layers, pp = 2 against one rank
     res = [r[0] for r in world2]
     label = "llama-8b q40 pp2"
-    print(f"== {label} (ranks share one card over gloo): 32 layers, bf16, one 512-row chunk (in "
+    print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one 512-row chunk (in "
           f"waves) and {TP_DECODE} greedy tokens; the one-rank references past the parallel "
           f"round's {ref_s:.1f} s, the 2-rank world (this, the f32 pp2 run, the qwen3 pp2 run, "
           f"two servers) {world2_s:.1f} s, the 4-rank world (pp2dp2, pp2tp2, pp2sp2, "
@@ -5240,7 +5611,8 @@ def pipeline_round(tmp: str, smi: str) -> dict:
                 f"{label} rank {r}: stage {x['stage']}, layer weights {x['layer_bytes']} B, "
                 f"half of {whole} B wanted")
         print(f"pipeline {label} rank {r} (stage {x['stage']}): layer weights "
-              f"{x['layer_bytes']} B of {whole} B (16 of 32 layers), allocated "
+              f"{x['layer_bytes']} B of {whole} B ({h.n_layers // 2} of {h.n_layers} layers), "
+              f"allocated "
               f"{x['allocated'] / 1e9:.2f} GB")
     got, want_b = res[0]["step_logits"], R["want_b"]
     require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
@@ -5265,7 +5637,7 @@ def pipeline_round(tmp: str, smi: str) -> dict:
               f"ici_traffic_per_token(pp=2) {model}; launches {json.dumps(launches)}; {smi}")
     counts[label] = res[0]["launches"]
 
-    # (ii) the 4-layer f32 file at pp 2 and its compositions against one rank
+    # (ii) the `ACCEPT_LAYERS`-layer f32 file at pp 2 and its compositions against one rank
     print(f"== llama-8b q40 f32 pipeline (ranks share one card over gloo): {ACCEPT_LAYERS} "
           f"layers, {SP_PROMPT}-token prompt, {SP_DECODE} greedy tokens")
     for label, results in (("llama-8b q40 f32 pp2", [r[1] for r in world2]),
@@ -5322,12 +5694,13 @@ def pipeline_round(tmp: str, smi: str) -> dict:
                 require(cross > 0, f"{label}: no lane read a prefix page another dp group wrote")
             counts[label] = x0["launches"]
 
-    # (iv) qwen3-30b-a3b, 4 of 48 layers, pp = 2
+    # (iv) qwen3-30b-a3b, `PP_MOE_LAYERS` of 48 layers, pp = 2
     label = "qwen3-30b-a3b q40 f32 pp2"
     res = [r[2] for r in world2]
     stream = res[0]["generate"][0][0]
     first = _first_diff(stream, want_q)
-    print(f"pipeline {label}: {PP_MOE_LAYERS} of 48 layers at full width (2 a stage, experts "
+    print(f"pipeline {label}: {PP_MOE_LAYERS} of 48 layers at full width ({PP_MOE_LAYERS // 2} a "
+          f"stage, experts "
           f"whole), {PP_MOE_PROMPT}-token prompt, greedy stream equals one rank's: "
           f"{stream == want_q}" + ("" if first is None else f" (first to differ: {first})")
           + "; launches " + json.dumps([{k: x["launches"][k] for k in
@@ -5392,12 +5765,16 @@ def main() -> int:
         smem = [int(w) for w in re.findall(r"(\d+) bytes smem", log)]
         print(f"  ptxas {name}: {len(regs)} kernels, registers <= {max(regs, default=0)}, "
               f"static smem <= {max(smem, default=0)} B, spill stores {spills} B")
+        # the attention sources, every entry the int8 strided ones too: no spill
+        require(not name.startswith("flash") or spills == 0,
+                f"ptxas {name}: {spills} B of spill stores, wanted 0")
         if name.startswith(("q40", "flash", "i8", "moe")):
             for line in ptxas_kernels(log):
                 print(f"    {line}")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
+    t0 = time.perf_counter()
     rows = (check_q40(device, gen) + check_q40i4(device, gen) + check_i8(device, gen)
             + check_attention(device, gen) + check_attention(device, gen, h=32, kh=4)
             + check_attention(device, gen, hd=64) + check_attention_edges(device, gen)
@@ -5405,7 +5782,9 @@ def main() -> int:
             + check_slab_lanes(device, gen) + check_kv8(device, gen) + check_moe(device, gen)
             + check_mixed(device, gen) + check_moe_tiers(device, gen)
             + check_attention_strided(device, gen) + check_decode_stats(device, gen)
-            + check_q40_tp(device, gen) + check_lane_shards(device, gen))
+            + check_q40_tp(device, gen) + check_lane_shards(device, gen)
+            + check_moe_tp(device, gen) + check_pp_waves(device, gen))
+    print(f"kernel rows (phase 2): {time.perf_counter() - t0:.1f} s")
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -5423,10 +5802,13 @@ def main() -> int:
         if "composite_ms" in r and r["name"].endswith("_mixed"):
             note += (f" (no single PyTorch call attends over a cache of another type); cast + "
                      f"SDPA, two calls, {r['composite_ms']:.4f}")
-        elif r["name"] in ("flash_attention_stats_strided", "flash_decode_stats"):
+        elif r["name"] in ("flash_attention_stats_strided", "flash_decode_stats",
+                           "flash_attention_stats_strided_kv8", "flash_decode_stats_kv8"):
             note += (" (no single PyTorch call attends over a strided shard"
-                     + (")" if r["name"].endswith("strided") else
-                        " or returns the unnormalized state)"))
+                     + (")" if "strided" in r["name"] else " or returns the unnormalized state)"))
+            if "composite_ms" in r:
+                note += (f"; dequantize + SDPA under the strided mask, two calls, "
+                         f"{r['composite_ms']:.4f}")
         elif "composite_ms" in r:
             note += (f" (no single PyTorch call attends over int8 K/V); dequantize + SDPA, two "
                      f"calls, {r['composite_ms']:.4f}")
@@ -5472,10 +5854,12 @@ def main() -> int:
                 finish_prewrite(writer, f"{model} {n_layers} layers")
             for spec in formats:
                 weight_format, _, kv_dtype = spec.partition(" kv-")
+                t0 = time.perf_counter()
                 label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
                                                                 weight_format, tmp,
                                                                 kv_dtype or None)
                 counts[label], streams[label], depths[label] = counts_, tokens, n_layers
+                print(f"path {label}: {time.perf_counter() - t0:.1f} s")
                 gc.collect()
                 torch.cuda.empty_cache()
             if whole_llama:  # the serving phase, same file
@@ -5570,7 +5954,7 @@ MIXED_DECODE_TOKENS = 32  # tokens the f32 engine over a bf16 cache decodes
 
 
 def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
-    """A float KV type unlike the model's on llama-8b q40 (the 32-layer file
+    """A float KV type unlike the model's on llama-8b q40 (the `N_LAYERS`-layer file
     in tmp), the kernels' ``_mx`` entries on the main path: (a) an f32
     engine over a bf16 cache (``kv_dtype="bf16"``) runs the CLI's path (the
     ~500-token prompt, `MIXED_DECODE_TOKENS` greedy tokens, graphed), every
@@ -5792,7 +6176,10 @@ def moe_dedup(tmp: str, smi: str) -> dict:
 
 
 DRAFT_PRESET, DRAFT_LAYERS = "llama-1b", 16  # the public draft of llama-8b, whole depth
-ACCEPT_LAYERS = 4  # round (b): llama-8b's widths cut to 4 of 32 layers, its own draft
+# round (b): llama-8b's widths cut to 2 of 32 layers (the smoke's time),
+# its own draft; the f32 file of the fleet's f32
+# round and of the parallel and pipeline rounds' f32 runs
+ACCEPT_LAYERS = 2
 DRAFT_TURNS = (False, True, True, False)  # the mix with speculation off and draft, in turns
 
 
@@ -5867,7 +6254,7 @@ def _serve_mix(engine, tok, speculation: str, draft: str | None, payloads, solo=
 
 def serving_draft(tmp: str, smi: str) -> dict:
     """Draft-model speculation (``--speculation draft``) in the serving
-    phase. (a) The public pairing: the target is llama-8b q40 (the 32-layer
+    phase. (a) The public pairing: the target is llama-8b q40 (the `N_LAYERS`-layer
     file in tmp) over 4 pool-native lanes, the draft llama-1b (16 layers,
     written as Q40 with its own seed, loaded dense bf16); the seven-request
     mix with speculation off and draft in turns (`DRAFT_TURNS`), the first
@@ -6130,7 +6517,7 @@ def _gate_step(sched):
 def serving_fleet(tmp: str, smi: str, device: str = "cuda") -> dict:
     """The replica fleet (dllama_tpu_torch/fleet/) on the card. (a)-(c), (f)
     on an in-process fleet of `FLEET_REPLICAS` llama-8b q40 replicas (the
-    32-layer file in tmp, bf16, slab lanes: the server's default mode, 4
+    `N_LAYERS`-layer file in tmp, bf16, slab lanes: the server's default mode, 4
     lanes each) behind the router: (a) the serving mix through the router,
     every answer equal to the serving round's solo replay (`SERVE_TRUTH`:
     text, finish, token count) and each non-stream ``usage.prompt_tokens``

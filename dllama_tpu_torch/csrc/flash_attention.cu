@@ -94,8 +94,11 @@
 // (the other entries compile without it, their code unchanged): the mask
 // compares s_pos0 + key * s_stride with the query's position, and the
 // frontier, the last visible row floor((p - s_pos0) / s_stride), bounds the
-// key tiles read, so a shard in the block's future reads nothing. Dense
-// caches only (q and the cache in their own types, as the `_mx` entries).
+// key tiles read, so a shard in the block's future reads nothing. A dense
+// cache takes q and the cache in their own types, as the `_mx` entries; an
+// int8 cache (C entry `flash_attention_stats_strided_q8`, the TPU kernel's
+// QuantKV branch under s_stride) the `_q8` bodies above with the flag set:
+// the same int8 tiles, scales and conversion, the strided mask and frontier.
 
 #include <type_traits>
 
@@ -593,7 +596,7 @@ int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* 
 
 // Q8: k and v are the int8 cache's values, ksc and vsc its f32 row scales
 // (the cache's shape with a last dim of 1); else k and v are in q's type
-template <bool PAGED, bool Q8>
+template <bool PAGED, bool Q8, bool SP = false>
 int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
              const void* q_pos0, int s_pos0, int s_stride, const void* pt, int n_blocks, int ps, void* acc,
              void* m, void* l, int n_b, int n_t, int n_h, int n_kh, int n_s, int hd, float scale,
@@ -609,12 +612,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
   if (bf16) {
     using B = __nv_bfloat16;
     using KV = typename std::conditional<Q8, int8_t, B>::type;
-    return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
-                                static_cast<const KV*>(v), ks, vs, pos, s_pos0, s_stride, t, n_blocks, ps,
-                                a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
+    return launch<B, KV, PAGED, SP>(static_cast<const B*>(q), static_cast<const KV*>(k),
+                                    static_cast<const KV*>(v), ks, vs, pos, s_pos0, s_stride, t,
+                                    n_blocks, ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
   }
   using KV = typename std::conditional<Q8, int8_t, float>::type;
-  return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
+  return launch<float, KV, PAGED, SP>(static_cast<const float*>(q), static_cast<const KV*>(k),
                                   static_cast<const KV*>(v), ks, vs, pos, s_pos0, s_stride, t, n_blocks,
                                   ps, a, mm, ll, n_b, n_t, n_h, n_kh, n_s, hd, scale, s);
 }
@@ -758,4 +761,21 @@ extern "C" int flash_attention_stats_strided(const void* q, const void* k, const
                                              int q_type, int kv_type, void* stream) {
   return dispatch_mixed<false, true>(q, k, v, q_pos0, s_pos0, s_stride, nullptr, 0, 0, acc, m, l, n_b,
                                n_t, n_h, n_kh, n_s, hd, scale, q_type, kv_type, stream);
+}
+
+// flash_attention_stats_strided over the int8 cache (the TPU kernel's QuantKV
+// branch with s_stride): k/v int8 [B, KH, S, hd] with f32 row scales
+// k_scale/v_scale [B, KH, S, 1], key row j at position s_pos0 + j * s_stride;
+// q bf16 when bf16 else f32. The int8 tiles and their scales go through the
+// bodies of flash_attention_stats_q8, the mask, the frontier and the tile skip
+// through those of flash_attention_stats_strided.
+extern "C" int flash_attention_stats_strided_q8(const void* q, const void* k, const void* k_scale,
+                                                const void* v, const void* v_scale,
+                                                const void* q_pos0, int s_pos0, int s_stride,
+                                                void* acc, void* m, void* l, int n_b, int n_t,
+                                                int n_h, int n_kh, int n_s, int hd, float scale,
+                                                int bf16, void* stream) {
+  return dispatch<false, true, true>(q, k, v, k_scale, v_scale, q_pos0, s_pos0, s_stride, nullptr,
+                                     0, 0, acc, m, l, n_b, n_t, n_h, n_kh, n_s, hd, scale, bf16,
+                                     stream);
 }

@@ -95,7 +95,9 @@
 // denominator l (`Stats`) in attention_stats' layout, which the ranks merge
 // by log-sum-exp. The highest visible row is floor((pos - s_pos0) /
 // s_stride); a shard wholly in the query's future reads no row and writes
-// m = -1e30, l = 0, acc = 0.
+// m = -1e30, l = 0, acc = 0. An int8 shard (C entry `flash_decode_stats_q8`)
+// runs the `_q8` bodies with the flag set: the int8 rows and their scales
+// stream as in flash_decode_q8, the state is written as above.
 
 #include <cooperative_groups.h>
 
@@ -782,7 +784,7 @@ int launch(const T* q, const KV* k, const KV* v, const float* ksc, const float* 
 
 // Q8: k and v are the int8 cache's values, ksc and vsc its f32 row scales
 // (the cache's shape with a last dim of 1); else k and v are in q's type
-template <bool PAGED, bool Q8>
+template <bool PAGED, bool Q8, bool SP = false>
 int dispatch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
              const void* pos, int s_pos0, int s_stride, Stats stats, const void* pt, int n_blocks, int ps, void* out,
              int n_b, int n_h, int n_kh, int n_s, int hd, float scale, int bf16, void* stream) {
@@ -794,12 +796,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* ksc, const
   if (bf16) {
     using B = __nv_bfloat16;
     using KV = typename std::conditional<Q8, int8_t, B>::type;
-    return launch<B, KV, PAGED>(static_cast<const B*>(q), static_cast<const KV*>(k),
-                                static_cast<const KV*>(v), ks, vs, p, s_pos0, s_stride, stats, t, n_blocks, ps,
-                                static_cast<B*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
+    return launch<B, KV, PAGED, SP>(static_cast<const B*>(q), static_cast<const KV*>(k),
+                                    static_cast<const KV*>(v), ks, vs, p, s_pos0, s_stride, stats,
+                                    t, n_blocks, ps, static_cast<B*>(out), n_b, n_h, n_kh, n_s,
+                                    hd, scale, s);
   }
   using KV = typename std::conditional<Q8, int8_t, float>::type;
-  return launch<float, KV, PAGED>(static_cast<const float*>(q), static_cast<const KV*>(k),
+  return launch<float, KV, PAGED, SP>(static_cast<const float*>(q), static_cast<const KV*>(k),
                                   static_cast<const KV*>(v), ks, vs, p, s_pos0, s_stride, stats, t, n_blocks, ps,
                                   static_cast<float*>(out), n_b, n_h, n_kh, n_s, hd, scale, s);
 }
@@ -935,4 +938,23 @@ extern "C" int flash_decode_stats(const void* q, const void* k, const void* v, c
   st.l = static_cast<float*>(l);
   return dispatch_mixed<false, true>(q, k, v, pos, s_pos0, s_stride, st, nullptr, 0, 0, nullptr, n_b,
                                n_h, n_kh, n_s, hd, scale, q_type, kv_type, stream);
+}
+
+// flash_decode_stats over the int8 cache: one cyclic shard of int8 values
+// k/v [B, KH, S, hd] with f32 row scales k_scale/v_scale [B, KH, S, 1], key
+// row j at position s_pos0 + j * s_stride; q bf16 when bf16 else f32. The
+// int8 rows and scales stream as in flash_decode_q8, the state is written as
+// in flash_decode_stats (the port's route: the JAX engine decodes its int8
+// sp cache with dequant_kv and jnp stats).
+extern "C" int flash_decode_stats_q8(const void* q, const void* k, const void* k_scale,
+                                     const void* v, const void* v_scale, const void* pos,
+                                     int s_pos0, int s_stride, void* acc, void* m, void* l,
+                                     int n_b, int n_h, int n_kh, int n_s, int hd, float scale,
+                                     int bf16, void* stream) {
+  Stats st;
+  st.acc = static_cast<float*>(acc);
+  st.m = static_cast<float*>(m);
+  st.l = static_cast<float*>(l);
+  return dispatch<false, true, true>(q, k, v, k_scale, v_scale, pos, s_pos0, s_stride, st, nullptr,
+                                     0, 0, nullptr, n_b, n_h, n_kh, n_s, hd, scale, bf16, stream);
 }

@@ -26,7 +26,14 @@ Qwen3-MoE experts are stacked per layer (``w1``/``w3`` [E, F, D], ``w2``
 [E, D, F]; 18,432 tensors at Qwen3-30B-A3B). One layer's experts are
 contiguous in the file, so a Q40 file sends them to the device in one
 copy per layer and unpacks them there. Under q40i4 they stay in this int8
-``QuantWeight`` layout, the one the MoE kernels take (as in JAX).
+``QuantWeight`` layout, the one the MoE kernels take (as in JAX). Under tp
+rank r holds F/tp hidden units of every expert (the JAX ``row_q`` /
+``col_q`` specs): rows [r F/tp, (r+1) F/tp) of ``w1``/``w3`` and the same
+columns of ``w2``, a Q40 ``w2``'s columns in whole 32-value blocks, so
+F/tp must be a multiple of 32 in a Q40 file. The slices are cut from the
+memmap into one host buffer a layer, so a rank's host and card hold 1/tp
+of every expert's bytes and never the whole experts; ``moe_gate`` is
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -123,8 +130,13 @@ def load_params(
         )
 
     tp, rank = shard or (1, 0)
-    if tp > 1 and h.arch == LlmArch.QWEN3_MOE:
-        raise ValueError("Qwen3-MoE under tensor parallelism is not ported (ROADMAP A.14)")
+    if tp > 1 and h.arch == LlmArch.QWEN3_MOE and h.weight_type == FloatType.Q40 and (
+            h.ff_dim % (Q40_BLOCK_SIZE * tp)):
+        raise ValueError(
+            f"Qwen3-MoE under tp={tp}: an expert's F/tp = {h.ff_dim / tp:g} hidden units is not a "
+            f"multiple of {Q40_BLOCK_SIZE}, so its Q40 w2 does not slice into whole blocks (the "
+            "JAX package leaves such a shard to its dense path, which the port does not have "
+            "on the card)")
 
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.dense_f32(name)).to(device)
@@ -138,23 +150,40 @@ def load_params(
         return torch.from_numpy(dense).to(device=device, dtype=dtype)  # [out, in]
 
     def experts(l: int) -> dict:
-        """Layer l's experts stacked [E, rows, cols] (w1/w3 [E, F, D], w2
-        [E, D, F]): Q40 bytes go to the device in one copy and unpack there."""
-        e_n, f, d = h.n_experts, h.ff_dim, h.dim
+        """Layer l's experts stacked [E, rows, cols] (w1/w3 [E, F/tp, D], w2
+        [E, D, F/tp]): a Q40 file's slices are cut from the memmap into one
+        host buffer, go to the device in one copy and unpack there."""
+        e_n, d = h.n_experts, h.dim
+        f = h.ff_dim // tp
         shapes = {"w1": (f, d), "w2": (d, f), "w3": (f, d)}
         if h.weight_type != FloatType.Q40:
-            return {
-                w: torch.from_numpy(
-                    np.stack([reader.dense_f32(f"layers.{l}.experts.{e}.{w}") for e in range(e_n)])
-                ).to(device=device, dtype=dtype)
-                for w in shapes
-            }
+            out = {}
+            for w, (rows, cols) in shapes.items():
+                names = [f"layers.{l}.experts.{e}.{w}" for e in range(e_n)]
+                out[w] = torch.from_numpy(np.stack([
+                    reader.dense_f32(n, _slice_raw(reader, n, role_of(w), tp, rank)[0],
+                                     (rows, cols)) for n in names
+                ])).to(device=device, dtype=dtype)
+            return out
         span = reader.raw_span(f"layers.{l}.experts.0.w1", f"layers.{l}.experts.{e_n - 1}.w3")
-        raw = torch.from_numpy(np.array(span))
-        raw = raw.to(device).reshape(e_n, 3, -1)  # w1, w2, w3 bytes of each expert
+        grid = span.reshape(e_n, 3, -1)  # w1, w2, w3 bytes of each expert (a view)
+        blocks = f // Q40_BLOCK_SIZE  # a slice's 32-value blocks along F
+        # each part's slice of every expert: w1/w3 rows of D/32 blocks,
+        # w2's D rows cut to their blocks [r F/tp / 32, (r+1) F/tp / 32)
+        views = {
+            "w1": grid[:, 0].reshape(e_n, tp * f, -1)[:, rank * f:(rank + 1) * f],
+            "w2": grid[:, 1].reshape(e_n, d, tp * blocks, Q40_BLOCK_BYTES)[
+                :, :, rank * blocks:(rank + 1) * blocks],
+            "w3": grid[:, 2].reshape(e_n, tp * f, -1)[:, rank * f:(rank + 1) * f],
+        }
+        size = views["w1"].size
+        host = np.empty(3 * size, dtype=np.uint8)
+        for i, part in enumerate(views.values()):
+            host[i * size:(i + 1) * size].reshape(part.shape)[...] = part
+        raw = torch.from_numpy(host).to(device).reshape(3, -1)
         out = {}
         for i, (w, (rows, cols)) in enumerate(shapes.items()):
-            u = q40_unpack(raw[:, i], e_n * rows, cols)
+            u = q40_unpack(raw[i], e_n * rows, cols)
             qw = QuantWeight(u.q.view(e_n, rows, cols), u.d.view(e_n, rows, cols // Q40_BLOCK_SIZE))
             out[w] = qw if quant else dequant(qw, dtype)
         return out

@@ -51,9 +51,10 @@ every path below runs on the rank's KV heads. Under sp the single stream's
 slab (and one lane's prefill chunk at a host position) runs
 `forward_parallel`: its KV shard's rows in the cyclic order, ring attention
 for a prefill chunk and merged stats for a decode step (the two kernel
-options ``s_stride`` and `flash_decode_stats`); slab lanes run
+options ``s_stride`` and `flash_decode_stats`, dense or int8); slab lanes run
 `_forward_sp_lanes` (merged stats a lane); the page pool raises, as the JAX
-engine's does.
+engine's does. A Qwen3-MoE layer runs `moe_ffn` on the rank's F/tp expert
+slices in every path, its f32 partials all-reduced over tp.
 
 ``pos`` is an int or a device tensor: ``[1]`` int32 on the slab path,
 ``[B]`` int32 in paged mode and for slab lanes. An int is bounds-checked on
@@ -121,7 +122,7 @@ from ..ops.moe import (
     moe_route,
 )
 from ..ops.int8_matmul import Int8Weight, i8matmul, i8matmul_ref, quantize_acts
-from ..ops.kv_cache import QuantKV, kv_layer, new_kv_leaf, quantize_kv_rows
+from ..ops.kv_cache import QuantKV, kv_layer, kv_rows, new_kv_leaf, quantize_kv_rows
 from ..ops.quant_matmul import PackedQuantWeight, QuantWeight, qmatmul, qmatmul_i4, qmatmul_ref
 from ..ops.torch_ops import apply_rope, gelu, qk_rms_norm, rms_norm, silu
 from ..parallel.collectives import all_gather, all_reduce, all_reduce_max
@@ -196,11 +197,19 @@ def _mm(x: torch.Tensor, w, plain: bool, act_quant) -> torch.Tensor:
 
 
 def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool,
-            dedup: bool = False) -> torch.Tensor:
+            dedup: bool = False, tp=None, sync_quant: bool = False) -> torch.Tensor:
     """Qwen3-MoE FFN of y [B, T, D] -> [B, T, D] in y's dtype (reference:
     src/llm.cpp:425-499; JAX: transformer.py _moe_ffn_pallas /
     _moe_ffn_grouped). With ``dedup`` a decode-sized batch of more than one
-    row runs the two tiers (ops/moe.py `moe_decode_tiers`, cap (n * k) // 2)."""
+    row runs the two tiers (ops/moe.py `moe_decode_tiers`, cap (n * k) // 2).
+
+    Under tp (``tp`` the mesh's axis) the experts are the rank's F/tp
+    slices (models/loader.py): every rank routes the same rows once, runs
+    the kernel the one-card path picks on its slices, and the f32 partial
+    outputs are summed over tp (in q80 with ``sync_quant``) before the cast
+    to y's dtype, as JAX's ``psum_maybe_quantized(run(...)).astype(x.dtype)``
+    in its ``shard_map`` branches. Every rank routes alike, so every rank
+    takes the same tier and launches the same kernels."""
     b, t, d = y.shape
     n = b * t
     yf = y.reshape(n, d)
@@ -215,6 +224,8 @@ def moe_ffn(y: torch.Tensor, lp: Params, h: LlmHeader, plain: bool,
                (moe_active_experts_q40 if quant else moe_active_experts)(*args))
     else:
         out = (moe_grouped_experts_q40 if quant else moe_grouped_experts)(*args)
+    if tp is not None and tp.size > 1:
+        out = all_reduce(out, tp, sync_quant)
     return out.reshape(b, t, d).to(y.dtype)
 
 
@@ -385,9 +396,6 @@ def _forward_rank(
     (`forward_parallel`)."""
     tp = None
     if mesh is not None:
-        if h.arch == LlmArch.QWEN3_MOE and (mesh.tp.size > 1 or mesh.sp.size > 1):
-            raise ValueError("Qwen3-MoE under tensor or sequence parallelism is not ported yet "
-                             "(ROADMAP A.14)")
         if mesh.sp.size > 1:
             if page_table is not None:
                 raise ValueError("kv_native requires pp == 1 and sp == 1")
@@ -395,16 +403,13 @@ def _forward_rank(
                 # the single stream, or one lane's chunk on its own rows at
                 # a host position: the ring
                 return forward_parallel(params, h, tokens, pos, cache, mesh, logits_mode, plain,
-                                        act_quant, sync_quant, x_in)
+                                        act_quant, sync_quant, x_in, moe_dedup)
             return _forward_sp_lanes(params, h, tokens, pos, cache, park, mesh, logits_mode,
-                                     plain, act_quant, sync_quant, x_in)
+                                     plain, act_quant, sync_quant, x_in, moe_dedup)
         tp = mesh.tp
     b, t = tokens.shape
     paged = page_table is not None
     lanes = park is not None
-    is_moe = h.arch == LlmArch.QWEN3_MOE
-    if is_moe and h.hidden_act != HiddenAct.SILU:
-        raise ValueError("Qwen3-MoE experts are SwiGLU: hidden_act must be SILU")
     if paged:
         posv, rows, page, prow = _paged_rows(pos, b, t, cache["k"].shape[3], page_table)
         attn = (paged_flash_decode_ref if plain else paged_flash_decode) if t == 1 else (
@@ -447,10 +452,22 @@ def _forward_rank(
     # [B, T, hd/2] with each lane at its own position (paged, slab lanes),
     # else [T, hd/2]
     cos, sin = params["rope_cos"][rows], params["rope_sin"][rows]
-    ffn = (lambda y, lp: moe_ffn(y, lp, h, plain, moe_dedup)) if is_moe else None
     x = _layers(params, h, x, cos, sin, cache, attend, mm,
-                _mm_col(tp, plain, act_quant, sync_quant), ffn)
+                _mm_col(tp, plain, act_quant, sync_quant),
+                _moe_hook(h, plain, moe_dedup, tp, sync_quant))
     return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache
+
+
+def _moe_hook(h: LlmHeader, plain: bool, dedup: bool, tp, sync_quant: bool):
+    """`_layers`' ``ffn`` for a Qwen3-MoE model (`moe_ffn` on the rank's
+    expert slices, its partials summed over tp), None for a dense FFN.
+    Under sp every rank computes the FFN of every row (the JAX token spec
+    is replicated over sp)."""
+    if h.arch != LlmArch.QWEN3_MOE:
+        return None
+    if h.hidden_act != HiddenAct.SILU:
+        raise ValueError("Qwen3-MoE experts are SwiGLU: hidden_act must be SILU")
+    return lambda y, lp: moe_ffn(y, lp, h, plain, dedup, tp, sync_quant)
 
 
 def _start(params: Params, tokens: torch.Tensor, tp, x_in) -> torch.Tensor:
@@ -529,7 +546,7 @@ def _merge_sp(acc, m, l, sp, dtype) -> torch.Tensor:
 
 def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
                       park: int, mesh, logits_mode: str, plain: bool, act_quant,
-                      sync_quant: bool, x_in=None):
+                      sync_quant: bool, x_in=None, moe_dedup: bool = False):
     """Slab lanes on one rank of a tp x sp mesh (the JAX engine's lanes
     under its sp mesh): the cache is this rank's shard of the lanes' slab,
     [L, B, KH/tp, (S + pad)/sp, hd], rows in the cyclic order (global row g
@@ -541,7 +558,9 @@ def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, c
     which no live lane reads. Attention is the merged stats of the shards:
     the decode kernel's stats at T = 1, the strided stats kernel for T > 1
     (a verify row), each lane at its own position, so a parked lane (at -1,
-    or -T) reads nothing on any shard (m = -1e30, l = 0) and gets zeros."""
+    or -T) reads nothing on any shard (m = -1e30, l = 0) and gets zeros.
+    An int8 cache writes its values and scales through the same writer
+    and attends through the strided entries' ``_q8`` instantiations."""
     tp, sp = mesh.tp, mesh.sp
     b, t = tokens.shape
     dev = tokens.device
@@ -571,7 +590,8 @@ def _forward_sp_lanes(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, c
 
     cos, sin = params["rope_cos"][rows.clamp(min=0)], params["rope_sin"][rows.clamp(min=0)]
     x = _layers(params, h, _start(params, tokens, tp, x_in), cos, sin, cache, attend, mm,
-                _mm_col(tp, plain, act_quant, sync_quant))
+                _mm_col(tp, plain, act_quant, sync_quant),
+                _moe_hook(h, plain, moe_dedup, tp, sync_quant))
     return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache
 
 
@@ -584,7 +604,8 @@ def _lane_pos_vec(pos, b: int, device) -> torch.Tensor:
 
 def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, cache: KvCache,
                      mesh, logits_mode: str = "all", plain: bool = False,
-                     act_quant=quantize_acts, sync_quant: bool = False, x_in=None):
+                     act_quant=quantize_acts, sync_quant: bool = False, x_in=None,
+                     moe_dedup: bool = False):
     """`forward` of one stream on one rank of a tp x sp mesh with sp > 1
     (dllama_tpu's ``run_layers`` under its mesh): the params are the rank's
     tp slices (parallel/sharding.py) and the cache its [L, 1, KH/tp, S/sp,
@@ -599,7 +620,10 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
       queries contiguously over sp (rank i's start is pos + i T/sp), runs
       the ring over the shards' live prefix (the rows below ceil((pos + T)
       / sp): every row past it is in every query's future), and all-gathers
-      the outputs over sp before ``wo``.
+      the outputs over sp before ``wo``. An int8 cache's shard rides the
+      ring as its int8 values and f32 scales.
+    * A Qwen3-MoE FFN is `moe_ffn` on the rank's expert slices: every rank
+      computes every row's FFN, the partials summed over tp.
     Every rank returns the same logits. ``x_in`` and ``logits_mode="hidden"``
     as in `_forward_rank`."""
     if logits_mode not in ("all", "last", "none", "hidden"):
@@ -638,11 +662,12 @@ def forward_parallel(params: Params, h: LlmHeader, tokens: torch.Tensor, pos, ca
         if t == 1:
             return _sp_decode(q, k_cache, v_cache, pos, sp, plain)
         qs = q[:, sp.index * tq:(sp.index + 1) * tq].contiguous()
-        zl = ring_attention_local(qs, k_cache[:, :, :n_live].contiguous(),
-                                  v_cache[:, :, :n_live].contiguous(),
+        live = slice(0, n_live)
+        zl = ring_attention_local(qs, kv_rows(k_cache, live), kv_rows(v_cache, live),
                                   pos + sp.index * tq, s_local, sp, cyclic=True, plain=plain)
         return all_gather(zl, sp, dim=1)
 
     x = _layers(params, h, x, cos, sin, cache, attend, mm,
-                _mm_col(tp, plain, act_quant, sync_quant))
+                _mm_col(tp, plain, act_quant, sync_quant),
+                _moe_hook(h, plain, moe_dedup, tp, sync_quant))
     return _finish(x, params, h, logits_mode, plain, act_quant, tp), cache

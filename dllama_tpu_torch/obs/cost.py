@@ -232,7 +232,8 @@ class StepCostModel:
         d, f = h.dim, h.ff_dim
         att = 2 * d * h.q_dim + 2 * d * h.kv_dim
         self.elems_layer = self.n_layers * (att + (0 if h.is_moe else 3 * d * f)) // tp
-        self.elems_expert = self.n_layers * 3 * d * f  # one expert a layer, over the layers
+        # one expert a layer, over the layers: its F/tp slice under tp
+        self.elems_expert = self.n_layers * 3 * d * f // tp
         self.elems_cls = h.vocab_size * d // tp
 
     def forward(self, rows: int, logit_rows: int, kv_read: int, kv_write: int,

@@ -4,17 +4,21 @@
 through the hand-written kernels (the int8-KV instantiations of the
 attention kernels count apart, as ``*_kv8``, and their mixed-type entries,
 a float cache type unlike q's, as ``*_mixed``; sequence parallelism's
-strided stats entry as ``flash_attention_stats_strided``)."""
+strided stats entry as ``flash_attention_stats_strided``, and the int8
+instantiations of the two strided entries as ``flash_attention_stats_strided_kv8``
+and ``flash_decode_stats_kv8``)."""
 
 from .flash_attention import (
     flash_attention_stats,
     flash_attention_stats_kv8,
     flash_attention_stats_mixed,
     flash_attention_stats_strided,
+    flash_attention_stats_strided_kv8,
     flash_decode,
     flash_decode_kv8,
     flash_decode_mixed,
     flash_decode_stats,
+    flash_decode_stats_kv8,
     paged_flash_decode,
     paged_flash_decode_kv8,
     paged_flash_decode_mixed,
@@ -43,6 +47,8 @@ KERNELS = {
     "paged_flash_decode_mixed": paged_flash_decode_mixed,
     "flash_attention_stats_strided": flash_attention_stats_strided,
     "flash_decode_stats": flash_decode_stats,
+    "flash_attention_stats_strided_kv8": flash_attention_stats_strided_kv8,
+    "flash_decode_stats_kv8": flash_decode_stats_kv8,
     "moe_active_experts": moe_active_experts,
     "moe_active_experts_q40": moe_active_experts_q40,
     "moe_grouped_experts": moe_grouped_experts,

@@ -67,6 +67,11 @@ SIGNATURES = {
         "flash_attention", [_P] * 4 + [_I, _I] + [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_decode_stats": (
         "flash_decode", [_P] * 4 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P]),
+    # the same two over an int8 shard (values and scales of each plane; the bf16 flag)
+    "flash_attention_stats_strided_q8": (
+        "flash_attention", [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
+    "flash_decode_stats_q8": (
+        "flash_decode", [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
     "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
     # the active tier of the two-tier decode: a device predicate pointer after out
     "moe_active_tier": ("moe_active", [_P] * 12 + [_I] * 6 + [_P]),

@@ -39,7 +39,13 @@ s_stride)``, key row j at position ``s_pos0 + j * s_stride`` (a cyclic
 sequence shard: the ring's local step), and ``flash_decode_stats``, the
 decode kernel emitting the unnormalized (acc, m, l) of one strided shard
 (the sp decode's local step), counted in
-``flash_attention_stats_strided`` and ``flash_decode_stats``.
+``flash_attention_stats_strided`` and ``flash_decode_stats``. Both take
+a dense shard (q and the cache in their own float types) or an int8
+`QuantKV` shard (the ``_q8`` C entries ``flash_attention_stats_strided_q8``,
+the TPU kernel's QuantKV branch under ``s_stride``, and
+``flash_decode_stats_q8``, the port's route where the JAX engine decodes
+its int8 sp cache with ``dequant_kv`` and jnp stats), counted in
+``flash_attention_stats_strided_kv8`` and ``flash_decode_stats_kv8``.
 
 Semantics are ops/torch_ops.attention_stats / attention_dense: query head h
 reads KV head h // (H / KH), keys at positions ``s_pos0 + j`` are visible to
@@ -96,6 +102,15 @@ def _types(q, k) -> tuple:
     if _mixed(q, k):
         return _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype]
     return (int(q.dtype == torch.bfloat16),)
+
+
+def _strided_types(q, k) -> tuple:
+    """The strided entries' trailing type arguments: an int8 shard's bf16
+    flag, or a dense shard's two type codes (q's and the cache's, which
+    may differ)."""
+    if isinstance(k, QuantKV):
+        return _types(q, k)
+    return _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype]
 
 
 def _check_kv(name: str, q, k, v) -> None:
@@ -204,8 +219,11 @@ flash_attention_stats_mixed = KernelCount("flash_attention_stats_mixed")
 flash_decode_mixed = KernelCount("flash_decode_mixed")
 paged_flash_decode_mixed = KernelCount("paged_flash_decode_mixed")
 # the stats kernel over a strided sequence shard (sequence parallelism's
-# ring step), whose launches count apart from the contiguous ones
+# ring step), whose launches count apart from the contiguous ones, and the
+# int8 instantiations of both strided entries
 flash_attention_stats_strided = KernelCount("flash_attention_stats_strided")
+flash_attention_stats_strided_kv8 = KernelCount("flash_attention_stats_strided_kv8")
+flash_decode_stats_kv8 = KernelCount("flash_decode_stats_kv8")
 
 
 def _entry(base: str, q, k) -> str:
@@ -233,7 +251,9 @@ def flash_attention_stats(
     ``s_stride`` > 1 the keys are a strided sequence shard (sequence
     parallelism's cyclic layout: shard i of sp holds positions i, i + sp,
     ...): the C entry ``flash_attention_stats_strided``, whose launches
-    count under `flash_attention_stats_strided`; a dense cache only."""
+    count under `flash_attention_stats_strided`, or for an int8 shard
+    ``flash_attention_stats_strided_q8``, counted under
+    `flash_attention_stats_strided_kv8`."""
     quant = _quant("flash_attention_stats", k, v)
     if s_stride < 1:
         raise ValueError(f"flash_attention_stats: s_stride must be >= 1, got {s_stride}")
@@ -245,17 +265,14 @@ def flash_attention_stats(
     pos = _lane_pos(q_pos0, b, q.device)
     acc, m, l = _stats_out(q, kh)
     if s_stride > 1:
-        if quant:
-            raise TypeError("flash_attention_stats: a strided shard takes a dense cache "
-                            "(int8 KV under sequence parallelism is not ported)")
-        code = _build.load("flash_attention_stats_strided")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), int(s_pos0),
-            int(s_stride), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
-            float(1.0 / np.sqrt(hd)), _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype],
-            _build.stream(q.device),
+        entry = "flash_attention_stats_strided" + ("_q8" if quant else "")
+        code = _build.load(entry)(
+            q.data_ptr(), *_kv_ptrs(k, v), pos.data_ptr(), int(s_pos0), int(s_stride),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, kh, s, hd,
+            float(1.0 / np.sqrt(hd)), *_strided_types(q, k), _build.stream(q.device),
         )
-        _build.check(code, "flash_attention_stats_strided")
-        flash_attention_stats_strided.launches += 1
+        _build.check(code, entry)
+        (flash_attention_stats_strided_kv8 if quant else flash_attention_stats_strided).launches += 1
         return acc, m, l
     code = _build.load(_entry("flash_attention_stats", q, k))(
         q.data_ptr(), *_kv_ptrs(k, v), pos.data_ptr(), int(s_pos0),
@@ -328,8 +345,8 @@ def flash_decode_stats_ref(q, k, v, pos, s_pos0: int = 0, s_stride: int = 1):
 
 def flash_decode_stats(
     q: torch.Tensor,  # [B, 1, H, hd]
-    k: torch.Tensor,  # [B, KH, Ss, hd]: one sequence shard, dense
-    v: torch.Tensor,
+    k,  # [B, KH, Ss, hd]: one sequence shard, dense or a QuantKV
+    v,
     pos,  # int or [B]: the query's position per lane
     s_pos0: int = 0,  # absolute position of k[:, :, 0]
     s_stride: int = 1,  # key row j at position s_pos0 + j * s_stride
@@ -340,12 +357,11 @@ def flash_decode_stats(
     kernel's ``emit_stats``; JAX surface ``flash_decode_stats``, which has
     no stride: the port's sp cache is cyclic, as the JAX engine's is). A
     shard wholly in the query's future reads nothing and gives m = -1e30,
-    l = 0, acc = 0."""
+    l = 0, acc = 0. An int8 shard launches ``flash_decode_stats_q8``,
+    counted under `flash_decode_stats_kv8`."""
     if q.shape[1] != 1:
         raise ValueError("flash_decode_stats is the T=1 path")
-    if _quant("flash_decode_stats", k, v):
-        raise TypeError("flash_decode_stats: takes a dense cache "
-                        "(int8 KV under sequence parallelism is not ported)")
+    quant = _quant("flash_decode_stats", k, v)
     if s_stride < 1:
         raise ValueError(f"flash_decode_stats: s_stride must be >= 1, got {s_stride}")
     if q.device.type == "cpu":
@@ -355,13 +371,14 @@ def flash_decode_stats(
     kh, s = k.shape[1], k.shape[2]
     p = _lane_pos(pos, b, q.device)
     acc, m, l = _stats_out(q, kh)
-    code = _build.load("flash_decode_stats")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), int(s_pos0), int(s_stride),
+    entry = "flash_decode_stats" + ("_q8" if quant else "")
+    code = _build.load(entry)(
+        q.data_ptr(), *_kv_ptrs(k, v), p.data_ptr(), int(s_pos0), int(s_stride),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, kh, s, hd, float(1.0 / np.sqrt(hd)),
-        _TYPE_CODES[q.dtype], _TYPE_CODES[k.dtype], _build.stream(q.device),
+        *_strided_types(q, k), _build.stream(q.device),
     )
-    _build.check(code, "flash_decode_stats")
-    flash_decode_stats.launches += 1
+    _build.check(code, entry)
+    (flash_decode_stats_kv8 if quant else flash_decode_stats).launches += 1
     return acc, m, l
 
 

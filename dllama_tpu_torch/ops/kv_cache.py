@@ -106,6 +106,15 @@ def slice_kv(leaf, w: int):
     return leaf[:, :, :w]
 
 
+def kv_rows(leaf, rows):
+    """Rows ``rows`` (a slice or an index tensor) of a [B, KH, S, hd] leaf as
+    a contiguous copy, both planes of a QuantKV: a sequence shard's rows,
+    which the ring sends on."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(leaf.q[:, :, rows].contiguous(), leaf.s[:, :, rows].contiguous())
+    return leaf[:, :, rows].contiguous()
+
+
 def gather_pages(pool_l, page_ids: torch.Tensor):
     """Rows of ``page_ids`` [n] from ``pool_l`` [P, KH, ps, hd] as one
     head-major [KH, n*ps, hd] leaf, in page order."""

@@ -54,7 +54,10 @@ engine until it receives ``stop`` (the reference's batchSize 0).
   (runtime/engine.py) and hands every rank every lane's tokens, so every
   digest is equal. Kernel launches differ between dp groups (a lane's
   chunk runs on its group alone): a check of launches compares the ranks
-  of one stage and dp group.
+  of one stage and dp group. The ranks of a tp group run a Qwen3-MoE
+  layer's routing on the same rows (models/transformer.moe_ffn), so they
+  take the same two-tier decode tier and launch the same kernels: their
+  launches and ``ops.moe.tier_tally`` compare equal.
 """
 
 from __future__ import annotations

@@ -35,8 +35,8 @@ for more than one rank without torchrun), `engine_target` runs a list of
 engine jobs, `lane_target` lists of lane jobs (every rank runs the same
 calls), `serve_target` servers whose rank 0 answers given requests while
 the other ranks follow, `collective_target` and `ring_target` the
-collectives and the ring on given arrays, `jobs_target` a mix of those on
-one world.
+collectives and the ring on given arrays, `moe_target` the MoE FFN on the
+ranks' expert slices, `jobs_target` a mix of those on one world.
 """
 
 from __future__ import annotations
@@ -309,7 +309,8 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
     device ms, its collectives' host ms and bytes), ``perplexity`` (a token
     list). Each job's result holds what it ran, numpy or lists, and the
     kernel launches of the job (``launches``), the rank's layer weight
-    bytes (``layer_bytes``) and its device's allocated bytes."""
+    bytes (``layer_bytes``) and expert bytes (``expert_bytes``) and its
+    device's allocated bytes."""
     from ..obs.cost import param_bytes
     from ..ops import launch_counts, reset_launch_counts
     from ..runtime.engine import InferenceEngine
@@ -325,8 +326,9 @@ def engine_target(world: World, jobs: list[dict]) -> list[dict]:
             device=world.device, buffer_float_type=job.get("buffer_float_type", "f32"),
             kv_dtype=job.get("kv_dtype"), batch_size=job.get("batch_size", 1), **_axes(mesh),
         )
+        weights = param_bytes(eng.params, eng.header)
         res: dict = {"i8_group": eng.i8_group, "buckets": list(eng.prefill_buckets),
-                     "layer_bytes": param_bytes(eng.params, eng.header)["layers"],
+                     "layer_bytes": weights["layers"], "expert_bytes": weights["experts"],
                      "stage": mesh.pp.index, "dp_group": mesh.dp.index}
         if "logits" in job:
             res["logits"] = _np(eng.prompt_logits(job["logits"]))
@@ -430,19 +432,81 @@ def collective_target(world: World, jobs: list[tuple]) -> list:
 
 def ring_target(world: World, jobs: list[tuple]) -> list:
     """Ring attention jobs: (q [B, T, H, hd], k, v [B, KH, S, hd], q_pos0,
-    cyclic), every rank a whole copy; returns each job's gathered output."""
-    from .ring_attention import ring_attention
+    cyclic), every rank a whole copy, k and v dense or each an int8 pair
+    (values, row scales [B, KH, S, 1]); returns each job's gathered output.
+    A sixth element ``shards`` (the rows of each rank's KV shard) runs
+    `ring_attention_local` on those rows, rank i's queries the i-th
+    T/world of q at ``q_pos0 + i T/world``."""
+    from ..ops.kv_cache import QuantKV, kv_rows
+    from .collectives import all_gather
+    from .ring_attention import ring_attention, ring_attention_local
 
     mesh = make_mesh(1, world.size, world.device, world.backend)
+
+    def dev(a):
+        if isinstance(a, (tuple, list)):
+            return QuantKV(*(torch.as_tensor(np.asarray(x)).to(world.device) for x in a))
+        return torch.as_tensor(np.asarray(a)).to(world.device)
+
     out = []
-    for q, k, v, q_pos0, cyclic in jobs:
-        args = [torch.as_tensor(np.asarray(a)).to(world.device) for a in (q, k, v)]
-        out.append(_np(ring_attention(*args, mesh.sp, q_pos0, cyclic)))
+    for q, k, v, q_pos0, cyclic, *shards in jobs:
+        q, k, v = dev(q), dev(k), dev(v)
+        if not shards:
+            out.append(_np(ring_attention(q, k, v, mesh.sp, q_pos0, cyclic)))
+            continue
+        rows = torch.as_tensor(shards[0][world.rank], device=world.device)
+        tq = q.shape[1] // world.size
+        z = ring_attention_local(q[:, world.rank * tq:(world.rank + 1) * tq].contiguous(),
+                                 kv_rows(k, rows), kv_rows(v, rows), q_pos0 + world.rank * tq,
+                                 rows.numel(), mesh.sp, cyclic)
+        out.append(_np(all_gather(z, mesh.sp, dim=1)))
+    return out
+
+
+def moe_target(world: World, jobs: list[dict]) -> list[dict]:
+    """`models.transformer.moe_ffn` jobs on a tp axis of the whole world:
+    a dict of ``x`` [B, T, D], ``gate`` [E, D], the whole experts ``w1``,
+    ``w2``, ``w3`` in the port's layout (an array, or a Q40 pair (values,
+    scales)), ``k`` and optional ``dedup``, ``sync_quant`` and ``dtype``
+    ("f32" or "bf16": x's type and the dense experts'). Each rank runs the
+    FFN on its F/tp slices (parallel/sharding.py) and returns the output and
+    the two-tier tally it added."""
+    import types
+
+    from ..models.transformer import moe_ffn
+    from ..ops.moe import tier_tally
+    from ..ops.quant_matmul import QuantWeight
+    from .sharding import role_of, shard_tensor
+
+    mesh = make_mesh(world.size, 1, world.device, world.backend)
+
+    def dev(a):
+        if isinstance(a, (tuple, list)):
+            return QuantWeight(*(torch.as_tensor(np.asarray(x)).to(world.device) for x in a))
+        return torch.as_tensor(np.asarray(a)).to(world.device)
+
+    out = []
+    for job in jobs:
+        dtype = torch.float32 if job.get("dtype", "f32") == "f32" else torch.bfloat16
+        lp = {"moe_gate": dev(job["gate"])}
+        for w in ("w1", "w2", "w3"):
+            leaf = dev(job[w])
+            leaf = leaf if isinstance(leaf, QuantWeight) else leaf.to(dtype)
+            lp[w] = shard_tensor(leaf, role_of(w), mesh.tp.size, mesh.tp.index)
+        h = types.SimpleNamespace(n_active_experts=job["k"])
+        tally = tier_tally(world.device)
+        before = tally.clone()
+        y = moe_ffn(dev(job["x"]).to(dtype), lp, h, False, job.get("dedup", False), mesh.tp,
+                    job.get("sync_quant", False))
+        out.append({"out": _np(y), "tally": (tally - before).tolist(),
+                    "w1_shape": list(getattr(lp["w1"], "q", lp["w1"]).shape)})
     return out
 
 
 def _job_engine(world: World, job: dict):
-    """The engine of a lane or server job on this rank, and its mesh."""
+    """The engine of a lane or server job on this rank, and its mesh (the
+    two-tier tally zeroed)."""
+    from ..ops.moe import tier_tally
     from ..runtime.engine import DEFAULT_PREFILL_BUCKETS, InferenceEngine
 
     mesh = _mesh_of(world, job)
@@ -451,16 +515,20 @@ def _job_engine(world: World, job: dict):
         temperature=job.get("temperature", 0.0), seed=job.get("seed", 12345),
         weight_format=job.get("weight_format", "dense"), device=world.device,
         kv_dtype=job.get("kv_dtype"), batch_size=job.get("batch_size", 1),
-        prefill_buckets=tuple(job.get("buckets", DEFAULT_PREFILL_BUCKETS)), **_axes(mesh),
+        prefill_buckets=tuple(job.get("buckets", DEFAULT_PREFILL_BUCKETS)),
+        moe_decode_dedup=job.get("moe_decode_dedup", "auto"), **_axes(mesh),
     )
+    tier_tally(world.device).zero_()
     return eng, mesh
 
 
 def _rank_facts(eng) -> dict:
     """What a job reports of a rank besides its answers: its stage and dp
-    group, its epochs, kernel launches, the shapes of its lanes' slab and
-    pool and a page's bytes."""
+    group, its epochs, kernel launches and the two-tier tally (Qwen3-MoE's
+    dedup: layer-steps on the grouped tier, layer-steps in two tiers), the
+    shapes of its lanes' slab and pool and a page's bytes."""
     from ..ops import launch_counts
+    from ..ops.moe import tier_tally
 
     mesh = eng.mesh
     return {
@@ -469,6 +537,7 @@ def _rank_facts(eng) -> dict:
         "cache_epoch": eng.cache_epoch, "kv_pool_epoch": eng.kv_pool_epoch,
         "kv_cross_dp_pages": eng.kv_cross_dp_pages,
         "draft_cache_epoch": eng.draft_cache_epoch, "launches": launch_counts(),
+        "tier_tally": tier_tally(eng.device).tolist(),
         "lane_shape": None if eng.lane_cache is None else list(eng.lane_cache["k"].shape),
         "pool_shape": None if eng.kv_pool is None else list(
             getattr(eng.kv_pool["k"], "q", eng.kv_pool["k"]).shape),
@@ -636,7 +705,7 @@ def _release(device: torch.device) -> None:
 def jobs_target(world: World, jobs: list[tuple]) -> list:
     """Jobs of the targets above on one world, in order: (``"engine"``,
     dict), (``"lanes"``, dict), (``"serve"``, dict), (``"collective"``,
-    tuple) or (``"ring"``, tuple)."""
+    tuple), (``"ring"``, tuple) or (``"moe"``, dict)."""
     targets = {"engine": engine_target, "lanes": lane_target, "serve": serve_target,
-               "collective": collective_target, "ring": ring_target}
+               "collective": collective_target, "ring": ring_target, "moe": moe_target}
     return [targets[kind](world, [job])[0] for kind, job in jobs]

@@ -12,6 +12,10 @@ compute with no shift (that hop's shard would be dropped).
 
 The local step is `ops.flash_attention.flash_attention_stats` with the
 shard's stride: the CUDA kernel on the card, its plain version on the CPU.
+A shard of the int8 cache (`QuantKV`) stays int8 on the ring: each hop
+sends its int8 values and its f32 row scales (the JAX ring's int8-sized
+``ppermute`` payloads, both counted in `collectives.STATS`), and the local
+step reads them as they are (the strided stats kernel's ``_q8`` entry).
 ``cyclic``: the shards hold the cyclic sequence layout (rank i's row j is
 global position j * sp + i: ``s_pos0`` = owner, stride sp), else the
 contiguous one (``s_pos0`` = owner * shard rows, stride 1).
@@ -26,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.flash_attention import flash_attention_stats, flash_attention_stats_ref
+from ..ops.kv_cache import QuantKV, kv_rows
 from .collectives import all_gather, ring_shift
 from .mesh import Axis
 
@@ -41,10 +46,18 @@ def merge_stats(acc1, m1, l1, acc2, m2, l2):
     return acc1 * a1[..., None] + acc2 * a2[..., None], m, l1 * a1 + l2 * a2
 
 
+def _shift(leaf, axis: Axis):
+    """The previous rank's KV shard: a dense one, or a QuantKV's values and
+    scales, each by one `ring_shift`."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(ring_shift(leaf.q, axis), ring_shift(leaf.s, axis))
+    return ring_shift(leaf, axis)
+
+
 def ring_attention_local(
     q: torch.Tensor,  # [B, Tq, H, hd] this rank's query shard
-    k: torch.Tensor,  # [B, KH, Ss, hd] this rank's KV shard (head-major), contiguous
-    v: torch.Tensor,
+    k,  # [B, KH, Ss, hd] this rank's KV shard (head-major), contiguous; or a QuantKV
+    v,
     q_pos0: int,  # absolute position of this rank's first query
     shard_size: int,  # sequence rows a rank holds in the global layout
     axis: Axis,
@@ -70,7 +83,7 @@ def ring_attention_local(
         acc2, m2, l2 = stats(q, k, v, q_pos0, s_pos0, s_stride=stride)
         acc, m, l = merge_stats(acc, m, l, acc2, m2, l2)
         if step < sp - 1:
-            k, v = ring_shift(k, axis), ring_shift(v, axis)
+            k, v = _shift(k, axis), _shift(v, axis)
             owner = (owner - 1) % sp
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = acc / l_safe[..., None]  # [b, kh, g, tq, hd]
@@ -79,8 +92,8 @@ def ring_attention_local(
 
 def ring_attention(
     q: torch.Tensor,  # [B, T, H, hd] global queries
-    k: torch.Tensor,  # [B, KH, S, hd] global keys
-    v: torch.Tensor,
+    k,  # [B, KH, S, hd] global keys, or a QuantKV
+    v,
     axis: Axis,
     q_pos0: int = 0,
     cyclic: bool = False,
@@ -95,8 +108,7 @@ def ring_attention(
         raise ValueError(f"T={t} and S={s} must divide by sp={sp}")
     tq, shard = t // sp, s // sp
     rows = torch.arange(idx, s, sp) if cyclic else torch.arange(idx * shard, (idx + 1) * shard)
-    kk = k[:, :, rows].contiguous()
-    vv = v[:, :, rows].contiguous()
+    kk, vv = kv_rows(k, rows.to(q.device)), kv_rows(v, rows.to(q.device))
     out = ring_attention_local(q[:, idx * tq:(idx + 1) * tq].contiguous(), kk, vv,
                                q_pos0 + idx * tq, shard, axis, cyclic)
     return all_gather(out, axis, dim=1)

@@ -61,8 +61,11 @@ deterministic program on every rank (``decode_block`` sampled with one
 seed everywhere, so every rank draws the same token from the same gathered
 logits); the server and ``chat`` run rank 0's loop alone and mirror each
 dispatch to the other ranks (parallel/control.py), rank 0's draws through
-``tape``. An int8 cache under sp and Qwen3-MoE under tp or sp raise
-(ROADMAP A.14).
+``tape``. Qwen3-MoE runs under tp and sp: a rank holds F/tp hidden units of
+every expert and the experts' f32 partials are all-reduced over tp (every
+rank routes the same rows, so every rank takes the same kernels and
+dedup tier); an int8 cache runs under sp, its shards in the cyclic order,
+on the ring as int8 values and f32 scales.
 
 Pipeline stages and dp lane shards (``pp``, ``dp``; the world is ``pp *
 dp * sp * tp`` ranks, the JAX mesh's order, parallel/mesh.py). A rank of
@@ -221,10 +224,6 @@ KEY_KINDS = {
     "draft_prefill": "draft_prefill",
     "draft_step": "draft_step",
 }
-
-
-# what waits for ROADMAP A.14 under tensor or sequence parallelism
-_NOT_PORTED = "{} under {} is not ported yet (ROADMAP A.14)"
 
 
 def _pairs(rows: int, pos: int) -> int:
@@ -392,12 +391,6 @@ class InferenceEngine:
         validate_pp(self.header, pp)
         if dp < 1 or (dp > 1 and batch_size % dp != 0):
             raise ValueError(f"batch_size {batch_size} must divide over dp={dp} lanes")
-        if (tp > 1 or sp > 1) and self.header.n_experts:
-            raise NotImplementedError(_NOT_PORTED.format("Qwen3-MoE",
-                                                         "tensor or sequence parallelism"))
-        if sp > 1 and self.kv_dtype == torch.int8:
-            raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
-                                                         "sequence parallelism"))
         self.dtype = dtype
         self.temperature = temperature
         self.sampler = Sampler(self.header.vocab_size, temperature, topp, seed)
@@ -1482,36 +1475,40 @@ class InferenceEngine:
         """Pool pages ``ids`` into ``lane``'s slab rows from ``row0`` (``lane``
         the index in this rank's slab, its dp group's lanes): under
         sp the pool is whole on every rank and each rank takes the rows its
-        shard owns (the cyclic layout: global row g at local row g // sp)."""
+        shard owns (the cyclic layout: global row g at local row g // sp),
+        an int8 leaf's values and scales alike."""
         slab, pool = self.lane_cache[name], self.kv_pool[name]
         if self.sp == 1:
             pages_to_rows(slab, pool, lane, row0, ids)
             return
-        pages = pool[:, ids]  # [L, n, KH/tp, ps, hd] (dense: no int8 under sp)
-        nl, n, kh, ps, hd = pages.shape
-        js, local = cyclic_rows(row0, n * ps, self.sp, self.mesh.sp.index)
-        rows = pages.transpose(1, 2).reshape(nl, kh, n * ps, hd)
-        slab[:, lane, :, torch.tensor(local, device=self.device)] = (
-            rows[:, :, torch.tensor(js, device=self.device)])
+        for dst, src in zip(kv_tensors(slab), kv_tensors(pool)):
+            pages = src[:, ids]  # [L, n, KH/tp, ps, hd or 1]
+            nl, n, kh, ps, last = pages.shape
+            js, local = cyclic_rows(row0, n * ps, self.sp, self.mesh.sp.index)
+            rows = pages.transpose(1, 2).reshape(nl, kh, n * ps, last)
+            dst[:, lane, :, torch.tensor(local, device=self.device)] = (
+                rows[:, :, torch.tensor(js, device=self.device)])
 
     def _rows_to_pages(self, name: str, lane: int, row0: int, ids: torch.Tensor) -> None:
         """``lane``'s slab rows from ``row0`` into the pool pages ``ids``:
         under sp the rows are gathered from every shard first (each shard
         sends the same span of local rows, which covers the range), and
-        every rank writes the whole pages."""
+        every rank writes the whole pages, an int8 leaf's values and scales
+        alike."""
         slab, pool = self.lane_cache[name], self.kv_pool[name]
         if self.sp == 1:
             rows_to_pages(slab, pool, lane, row0, ids)
             return
         sp = self.sp
         n = ids.shape[0]
-        nl, _, kh, ps, hd = pool.shape
-        lo, hi = row0 // sp, -(-(row0 + n * ps) // sp)
-        part = slab[:, lane, :, lo:hi].contiguous()  # [L, KH/tp, hi - lo, hd]
-        parts = all_gather(part[None], self.mesh.sp, dim=0)  # [sp, L, KH/tp, hi - lo, hd]
-        rows = parts.permute(1, 2, 3, 0, 4).reshape(nl, kh, (hi - lo) * sp, hd)
-        rows = rows[:, :, row0 - lo * sp : row0 - lo * sp + n * ps]
-        pool[:, ids] = rows.reshape(nl, kh, n, ps, hd).transpose(1, 2)
+        lo, hi = row0 // sp, -(-(row0 + n * self._kv_page_size) // sp)
+        for src, dst in zip(kv_tensors(slab), kv_tensors(pool)):
+            nl, _, kh, ps, last = dst.shape
+            part = src[:, lane, :, lo:hi].contiguous()  # [L, KH/tp, hi - lo, hd or 1]
+            parts = all_gather(part[None], self.mesh.sp, dim=0)  # [sp, L, KH/tp, hi - lo, ..]
+            rows = parts.permute(1, 2, 3, 0, 4).reshape(nl, kh, (hi - lo) * sp, last)
+            rows = rows[:, :, row0 - lo * sp : row0 - lo * sp + n * ps]
+            dst[:, ids] = rows.reshape(nl, kh, n, ps, last).transpose(1, 2)
 
     def _lane_key(self, *key) -> tuple:
         """A lane graph's key: ``("lane_...", ...)`` on the slab, with

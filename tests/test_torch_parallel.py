@@ -431,23 +431,28 @@ def _fake_mesh(tp, sp, pp=1, dp=1):
 
 
 def test_engine_refusals(files, tmp_path):
-    """What waits for ROADMAP A.14 raises naming it (Qwen3-MoE under tp, an
-    int8 cache under sp); native lanes and the draft model under sp and
-    under pp, a batch that dp does not divide and a pp that does not divide
-    the layers raise the JAX engine's messages; Qwen3-MoE at pp (tp = sp =
-    1), lanes, the pool and the draft model under tp are ported
-    (tests/test_torch_parallel_lanes.py, tests/test_torch_pipeline.py)."""
+    """What the JAX engine refuses raises its messages (native lanes and the
+    draft model under sp and under pp, a batch that dp does not divide, a
+    pp that does not divide the layers); what waited for ROADMAP A.14 builds:
+    an int8 cache under sp holds its int8 shard, Qwen3-MoE under tp its F/tp
+    expert slices (their values in tests/test_torch_kv_int8_sp.py and
+    tests/test_torch_moe_tp.py); Qwen3-MoE at pp, lanes, the pool and the
+    draft model under tp are ported (tests/test_torch_parallel_lanes.py,
+    tests/test_torch_pipeline.py)."""
     dense = files["dense"]
     with pytest.raises(ValueError, match="needs this rank's Mesh"):
         InferenceEngine(dense, dtype=torch.float32, device="cpu", tp=2)
     with pytest.raises(ValueError, match="buffer_float_type"):
         InferenceEngine(dense, dtype=torch.float32, device="cpu", buffer_float_type="q40")
-    with pytest.raises(NotImplementedError, match="int8 KV cache under sequence.*A.14"):
-        InferenceEngine(dense, device="cpu", sp=2, mesh=_fake_mesh(1, 2), kv_dtype="int8")
+    kv8 = InferenceEngine(dense, device="cpu", sp=2, mesh=_fake_mesh(1, 2), kv_dtype="int8")
+    assert kv8.cache["k"].q.dtype == torch.int8 and kv8.cache["k"].shape == (2, 1, 4, 32, 16)
+    assert kv8.cache["k"].s.shape == (2, 1, 4, 32, 1)
     moe = str(tmp_path / "moe.m")
-    make_tiny_model(moe, arch=LlmArch.QWEN3_MOE)
-    with pytest.raises(NotImplementedError, match="Qwen3-MoE under tensor.*A.14"):
-        InferenceEngine(moe, device="cpu", tp=2, mesh=_fake_mesh(2, 1))
+    make_tiny_model(moe, arch=LlmArch.QWEN3_MOE, weight_type=FloatType.F32)  # F 96: 48 a rank
+    moe_tp = InferenceEngine(moe, device="cpu", tp=2, mesh=_fake_mesh(2, 1))
+    lp = moe_tp.params["layers"][0]
+    assert lp["w1"].shape == (4, 48, 64) and lp["w2"].shape == (4, 64, 48)
+    assert lp["moe_gate"].shape == (4, 64)
     moe_pp = InferenceEngine(moe, device="cpu", pp=2, mesh=_fake_mesh(1, 1, pp=2))
     assert len(moe_pp.params["layers"]) == 1 and moe_pp.cache["k"].shape[0] == 1
     for kw, jkw in ((dict(dp=2, batch_size=3, mesh=_fake_mesh(1, 1, dp=2)),

@@ -116,8 +116,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    a decode poison, an admission poison, park/resume at max_streams 7,
    and a drain; no graph captured and the pool in place throughout, each
    resumed stream's K/V rows held to its rows before; on the int8 pool
-   fault-free and the decode poison; and on an f32 engine over the same
-   file (`resilience_f32`) fault-free, both poisons and park/resume, every
+   fault-free and the decode poison; and on an f32 engine over the
+   `PAR_LAYERS`-layer file (`resilience_f32`) fault-free, both poisons and park/resume, every
    answer equal to the fault-free one; each resilience round's registry
    deltas (retries, recovered lanes, injected faults by site) equal its
    /v1/health deltas. The observability round (`serving_obs`) serves the
@@ -172,7 +172,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    (bf16, f16), (bf16, f32), slab and paged stats and decode, identity-table
    bits) and the two-tier MoE decode's rows (`check_moe_tiers`: 4 lanes,
    k 8, cap 16, u 8 on the grouped tier and u 32 on the active one); the
-   draft rounds after the serialized round (`serving_draft`: llama-8b q40
+   draft rounds once the parallel rounds' worlds have started
+   (`serving_draft`: llama-8b q40 at `PAR_LAYERS` layers
    with a llama-1b draft, off and draft in turns; an f32 `ACCEPT_LAYERS`-layer target as
    its own draft, accepted drafts, answers equal to spec-off's, a failed
    draft step resetting only the draft cache); the mixed-KV runs on the
@@ -194,9 +195,16 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    the 4-layer file; qwen3-30b-a3b ``q40`` and its dedup round at
    `MOE_LAYERS` (8 of 48, for the parallel rounds' time); each
    path's seconds are printed; a child process writes
-   that file (`start_prewrite`) while the card runs the llama-8b paths.
-   The parallel round (`parallel_round`, last, on the llama-8b files
-   kept for it, once the child writing the qwen3 file has ended): tensor and sequence parallelism, the ranks
+   those files (`start_prewrite`) while the card runs the llama-8b paths,
+   and another, from the start, the whole llama-8b file and the smaller
+   files of the rounds after it while the kernels build and run. Each
+   phase's seconds also go to stderr with the seconds since the start
+   (`mark`), and every background world and CLI run is stopped at
+   `DEADLINE_S` at the latest, so a stopped or hung run names its phase.
+   The parallel round (`parallel_round`, on the llama-8b files kept for
+   it, started after the fleet: its one-rank references there, its worlds
+   and CLI runs on background threads, `Worker`, while the draft round and
+   the smaller paths above run, its checks once they end): tensor and sequence parallelism, the ranks
    (parallel/launch.py) sharing the one card over gloo (NCCL runs no two
    ranks on one device). Phase 2 adds the two kernel options of sequence
    parallelism at llama-8b's tp 2 x sp 2 shard shapes (H 16, KH 4, a
@@ -220,7 +228,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    attention sources must build with 0 B of spill stores.
    The one-rank references run first (and the f32 servers' and the chat's
    answers at tp = 1), then one spawned world of 2 ranks takes every
-   2-rank job in turn and one of 4 the 2 x 2 jobs. (b) llama-8b q40
+   2-rank job in turn on one thread, and on the other the three CLI runs
+   at once, then one world of 4 the 2 x 2 jobs. (b) llama-8b q40
    bf16, `PAR_LAYERS` layers, tp = 2: each rank holds half of the layer bytes, and
    the first decode step's logits after a 512-row chunk lie within
    `TOL_TP_BF16` of one rank's (where the greedy streams part is printed);
@@ -252,8 +261,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    llama-8b file with an int8 cache at sp 2 and tp 2 x sp 2 in f32: streams
    equal to one rank's, logits within `TOL_PAR_F32` (`TOL_TP_F32` over the
    int8 cache), both MoE kernels or both int8 strided entries launched on
-   every rank. The pipeline round (`pipeline_round`, after it, on the same
-   files and its one-rank references, `PAR_REFS`): (i) llama-8b q40 bf16
+   every rank. The pipeline round (`pipeline_round`, started after it, its
+   worlds on the second thread, on the same files and its one-rank
+   references, `PAR_REFS`): (i) llama-8b q40 bf16
    at full width and `PAR_LAYERS` layers, pp = 2 (each rank holds half the layers' bytes,
    exactly half), the first decode step's logits within `TOL_TP_BF16` of
    one rank's and where the greedy streams part printed (bit-equal logits
@@ -269,6 +279,18 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    --device cuda:0``: exit 0, its ``Pp`` line; (vi) each rank's decode
    token: device ms, its hand-offs' host ms and bytes against
    ``ici_traffic_per_token`` at pp = 2, its launches.
+The captured-graph lint runs through all of it: ``DLLAMA_XLALINT=strict``
+is set before the first engine, so every graph any phase captures is read
+and linted as it lands (analysis/graphlint.py) and a new finding fails
+that phase. After phase 2, `graph_lint_faults` plants one fault a graph
+rule on a small bf16 engine (a copy into pinned host memory, a clone of a
+KV plane, a kernel-made copy of one kept past the capture, an f32
+``torch.matmul`` on a bf16 weight, a step over its launch budget), and
+each must raise naming its rule and its finding; after each path's runs, the
+serving rounds and the draft round, `graph_lint` prints every key's census
+(``graphlint`` lines: nodes by kind, kernel nodes a token, the launch
+budget, the seconds reading and linting added to its capture) and
+requires zero new findings.
 5. A ``{"kernels": [...]}`` JSON line, the int8-KV entries
    (``flash_attention_stats_kv8``, ``flash_decode_kv8``,
    ``paged_flash_decode_kv8``, whose ``replaces`` names the TPU kernel's
@@ -294,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Callable
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 BF16_FLOPS = 989e12  # H100 SXM datasheet, dense
@@ -459,6 +482,26 @@ class SmokeError(RuntimeError):
 def require(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeError(msg)
+
+
+T_START = time.perf_counter()
+# the smoke's own deadline, inside its 1,200 s limit: a background world or
+# CLI run still going then is stopped and named (`left_s`), so that a hang
+# fails the smoke with its name instead of running into the limit
+DEADLINE_S = 1100.0
+
+
+def left_s(cap: float) -> float:
+    """``cap`` seconds, or fewer: what is left before `DEADLINE_S` (at
+    least 30)."""
+    return max(30.0, min(cap, DEADLINE_S - (time.perf_counter() - T_START)))
+
+
+def mark(msg: str) -> None:
+    """Print a phase's line, and on stderr with the seconds since the
+    start, so that the end of stderr shows how far a stopped run got."""
+    print(msg, flush=True)
+    print(f"chip_smoke {time.perf_counter() - T_START:.1f} s: {msg}", file=sys.stderr, flush=True)
 
 
 def bound(n_bytes: float, ops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
@@ -1922,29 +1965,38 @@ def model_file_bytes(preset: str | dict, n_layers: int | None, max_seq_len: int)
     return last.offset + last.nbytes
 
 
-def start_prewrite(tmp: str, preset: str, n_layers: int, max_seq_len: int, seed: int):
-    """Start a child process that writes the `end_to_end` files of ``preset``
-    at ``n_layers`` into tmp (the tokenizer, then the model under a
-    temporary name, renamed to ``model.m`` once whole), so that the host's
-    write overlaps the card's earlier phases. Returns (the process, its
-    start time); `finish_prewrite` waits for it."""
-    need = model_file_bytes(preset, n_layers, max_seq_len)
-    free = shutil.disk_usage(tmp).free
+def start_prewrite(files: list[tuple], max_seq_len: int = 4096, seed: int = SEED):
+    """Start a child process that writes model files the way `end_to_end`
+    and the rounds after it would, one after another: each entry of
+    ``files`` is (a directory, a preset, its layers[, its seed, ``seed``
+    if left out]), written as the model
+    under a temporary name, renamed to ``model.m`` once whole, and the
+    tokenizer ``tok.t`` beside it, so that the host's writes overlap the
+    card's earlier phases. Returns (the process, its start time);
+    `finish_prewrite` waits for it."""
+    files = [(d, preset, n, rest[0] if rest else seed) for d, preset, n, *rest in files]
+    for d, *_ in files:
+        os.makedirs(d, exist_ok=True)
+    need = sum(model_file_bytes(preset, n, max_seq_len) for _, preset, n, _ in files)
+    free = shutil.disk_usage(files[0][0]).free
     require(free > need + (16 << 30),
-            f"{preset}: {need / 1e9:.1f} GB model written ahead, {free / 1e9:.1f} GB free")
+            f"{need / 1e9:.1f} GB of models written ahead, {free / 1e9:.1f} GB free")
     code = (
-        "import os, sys\n"
+        "import json, os, sys\n"
         "import chip_smoke as c\n"
         "from dllama_tpu_torch.models.synthetic import write_synth_model\n"
-        "tmp, preset, n, s, seed = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:])\n"
-        "part = os.path.join(tmp, 'model.m.part')\n"
-        "h = write_synth_model(part, preset, seed=seed, max_seq_len=s, n_layers=n)\n"
-        "c.write_tokenizer_file(os.path.join(tmp, 'tok.t'), h.vocab_size)\n"
-        "os.replace(part, os.path.join(tmp, 'model.m'))\n"
+        "s = int(sys.argv[2])\n"
+        "for tmp, preset, n, seed in json.loads(sys.argv[1]):\n"
+        "    os.makedirs(tmp, exist_ok=True)\n"
+        "    part = os.path.join(tmp, 'model.m.part')\n"
+        "    h = write_synth_model(part, preset, seed=seed, max_seq_len=s, n_layers=n)\n"
+        "    c.write_tokenizer_file(os.path.join(tmp, 'tok.t'), h.vocab_size)\n"
+        "    os.replace(part, os.path.join(tmp, 'model.m'))\n"
     )
     root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen([sys.executable, "-c", code, tmp, preset, str(n_layers),
-                             str(max_seq_len), str(seed)], cwd=root)
+    proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(files), str(max_seq_len)],
+                            cwd=root)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, time.perf_counter()
 
 
@@ -2365,6 +2417,22 @@ def serving_payloads(tok) -> list[dict]:
     return out
 
 
+def serve_thread(srv) -> None:
+    """Run ``srv.serve_forever`` on a named daemon thread; the server's
+    ``shutdown`` (which returns once serve_forever has) then joins it."""
+    import threading
+
+    t = threading.Thread(target=srv.serve_forever, daemon=True, name="dllama-smoke-serve")
+    t.start()
+    shutdown = srv.shutdown
+
+    def stop():
+        shutdown()
+        t.join()
+
+    srv.shutdown = stop
+
+
 def _request(url: str, payload: dict, allow_error: bool = False) -> dict:
     """POST one chat completion; its content, finish reason, ``dllama``
     metadata and wall time (streamed or not). With ``allow_error`` an
@@ -2453,7 +2521,7 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     rehearsal = dict(graphs=g.n_graphs, lanes=g.count("lane_prefill_paged")
                      + g.count("lane_block_paged"), capture_s=g.capture_s,
                      pool=g.pool_bytes(), s=time.perf_counter() - t0)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     sched, kv = srv.state.scheduler, srv.state.kv_manager
     # time every decode block: its readback waits for the card
@@ -2574,7 +2642,10 @@ def serving(device: str, tmp: str, single_tok_s: float | None, smi: str,
     out[f"llama-8b q40{kv_tag} serving resilience"] = serving_resilience(
         engine, tok, results, smi, "0b" if kv_dtype else "0abcde", f"llama-8b q40{kv_tag}")
     if not kv_dtype:
-        out["llama-8b q40 f32 serving resilience"] = resilience_f32(device, mp, tp, smi)
+        # on the `PAR_LAYERS`-layer file: an f32 step costs ~5 bf16 ones
+        out["llama-8b q40 f32 serving resilience"] = resilience_f32(
+            device, os.path.join(tmp, "par", "model.m"), tp, smi)
+    graph_lint(engine, f"llama-8b q40{kv_tag} serving")
     engine.kv_pool = None  # the pool's 3 GB, before the f32 parity runs
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1))
     par = lane_parity(engine, prompt)
@@ -2673,7 +2744,7 @@ def serving_slab(engine, tok, native: list[dict], native_tok_s: float, smi: str)
     g = engine.graphs
     n_lane_graphs = g.count("lane_prefill") + g.count("lane_block")
     setup_s = time.perf_counter() - t0
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
     matched: list = []
@@ -2803,7 +2874,7 @@ def serving_slab(engine, tok, native: list[dict], native_tok_s: float, smi: str)
     # the native mix once more, for the turns
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     try:
         _, _, native_tok_s2 = _timed_mix(f"http://127.0.0.1:{srv.server_address[1]}",
                                          srv.state.scheduler, engine, payloads)
@@ -2849,7 +2920,7 @@ def serving_single(device: str, tmp: str, smi: str) -> dict:
     load_s = time.perf_counter() - t0
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state = srv.state
     calls: list = []
@@ -3071,7 +3142,7 @@ def serving_obs(engine, tok, smi: str, lane_step_ms: float | None, tmp: str,
     h = engine.header
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state, sched, kv = srv.state, srv.state.scheduler, srv.state.kv_manager
     timer = {"s": 0.0, "tokens": 0, "blocks": 0}
@@ -3268,7 +3339,7 @@ def _admission_server(engine, tok):
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True,
                 admission_predict=True)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
 
@@ -3292,7 +3363,7 @@ def _held(sched):
         release.wait(60)
 
     t = threading.Thread(target=sched.run_between_ticks, args=(hold,), kwargs={"timeout": 60},
-                         daemon=True)
+                         daemon=True, name="dllama-smoke-hold")
     t.start()
     require(entered.wait(60), "admission: the scheduler ran no tick to hold")
 
@@ -3518,8 +3589,9 @@ def serving_admission(engine, tok, smi: str, stalls0: float) -> dict:
                 import threading
 
                 for p in payloads[:3]:
-                    th = threading.Thread(target=lambda p=p: extra.append(_request(url, p)),
-                                          daemon=True)
+                    th = threading.Thread(  # dlint: disable=thread-hygiene — joined after _concurrent returns, through extra_threads
+                        target=lambda p=p: extra.append(_request(url, p)),
+                        daemon=True, name="dllama-smoke-extra")
                     th.start()
                     extra_threads.append(th)
                 deadline = time.perf_counter() + 30
@@ -3622,10 +3694,11 @@ def _concurrent(url: str, sched, payloads: list[dict], allow_error: bool = False
         except Exception as e:  # reported below
             errors.append((i, repr(e)))
 
-    n0, threads, t0 = sched.n_submitted, [], time.perf_counter()
-    for i in range(len(payloads)):
-        threads.append(threading.Thread(target=send, args=(i,)))
-        threads[-1].start()
+    threads = [threading.Thread(target=send, args=(i,), daemon=True,
+                                name=f"dllama-smoke-send-{i}") for i in range(len(payloads))]
+    n0, t0 = sched.n_submitted, time.perf_counter()
+    for i, th in enumerate(threads):
+        th.start()
         deadline = time.perf_counter() + 60
         while sched.n_submitted < n0 + i + 1 and time.perf_counter() < deadline:
             time.sleep(0.001)  # submit in order: requests 4.. queue behind 0-3
@@ -3673,7 +3746,7 @@ def serving_spec(engine, tok, off: dict, lane_step_ms: float | None) -> dict:
     g = engine.graphs
     rehearsal = dict(verify=g.count("lane_verify_paged"), graphs=g.n_graphs,
                      s=time.perf_counter() - t0)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     sched = srv.state.scheduler
     timer = {"decode_s": 0.0, "decode_tokens": 0, "verify_s": 0.0, "chunks": 0}
@@ -3762,6 +3835,7 @@ def serving_spec(engine, tok, off: dict, lane_step_ms: float | None) -> dict:
     other = [name for name, c in counts.items() if c and "flash" in name
              and name not in ("paged_flash_decode", "flash_attention_stats")]
     require(not other, f"serving spec: attention launches {counts}")
+    graph_lint(engine, "llama-8b q40 serving spec")
     verify_cost(engine, lane_step_ms)
     return counts
 
@@ -3821,7 +3895,7 @@ PARK_STREAMS = 7  # --max-streams of round (d): the seven requests over 4 lanes
 
 def resilience_f32(device: str, mp: str, tp: str, smi: str) -> dict:
     """Rounds 0, (b), (c) and (d) of `serving_resilience` on an f32 engine
-    over the serving file (f32 activations and pool, the Q40 weights as
+    over the model file ``mp`` (f32 activations and pool, the Q40 weights as
     they are): a re-prefilled row differs from the decoded one by sum order
     only, so every answer must equal round 0's. Then the admission round's
     preemption (`admission_preemption`) on the same engine, each answer
@@ -3835,6 +3909,8 @@ def resilience_f32(device: str, mp: str, tp: str, smi: str) -> dict:
     engine = InferenceEngine(mp, dtype=torch.float32, temperature=0.0, seed=SEED,
                              weight_format="q40", device=device, batch_size=SERVE_LANES)
     tok = Tokenizer(tp)
+    print(f"== llama-8b q40 f32 resilience: {engine.header.n_layers} layers, f32, "
+          f"{SERVE_LANES} lanes")
     try:
         counts = serving_resilience(engine, tok, None, smi, "0bcd", "llama-8b q40 f32",
                                     exact=True)
@@ -3937,7 +4013,7 @@ def serving_resilience(engine, tok, truth: list[dict] | None, smi: str,
     h = engine.header
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     state, sched, kv, g = srv.state, srv.state.scheduler, srv.state.kv_manager, engine.graphs
     graphs0, ptrs0 = (g.n_graphs, g.capture_s), _pool_ptrs(engine)
@@ -4486,10 +4562,12 @@ TOL_TP_BF16 = 0.1
 # order), f32 throughout; a shard read at a wrong position reads ~1
 TOL_TP_F32 = 1e-3
 Q80_BOUND = 2e-2  # tests/test_parallel.py's bound on the q80 all-reduce
-# the bf16 llama-8b file of the parallel round's (b) and (g) and the
-# pipeline round's (i): 16 of 32 layers, a file of their own for the
-# smoke's time (the same kernels at the same widths, each layer a repeat
-# of the first)
+# the bf16 llama-8b file of the parallel round's (b) and (g), the
+# pipeline round's (i), the draft round's target and the f32 resilience
+# rounds: 16 of 32 layers, a file of their own for the smoke's time (the
+# same kernels at the same widths, each layer a repeat of the first; the
+# watchdog-gated serving rounds and the fleet, which replays their answers,
+# stay at 32: `N_LAYERS`)
 PAR_LAYERS = 16
 # (j) qwen3-30b-a3b's f32 rows against one rank after `PP_MOE_LAYERS` layers (tp 2, sp 2
 # and tp 2 x pp 2): sum order only, as (c), whose readings were 1.7-2.3e-6
@@ -5016,7 +5094,7 @@ def _tp1_answers(model: str, tok: str, payloads: list[dict], batch_size: int = S
     eng = InferenceEngine(model, dtype=torch.float32, temperature=0.0, weight_format="q40",
                           device="cuda", batch_size=batch_size, kv_dtype=kv_dtype)
     srv = serve_fn(eng, Tokenizer(tok), host="127.0.0.1", port=0, **_par_serve_kw(**serve))
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     try:
         return ask_all(f"http://127.0.0.1:{srv.server_address[1]}", payloads)
     finally:
@@ -5200,7 +5278,103 @@ def _slice_report(world2: list, world4: list, idx: dict, q_want: dict, qh, h4, w
     return counts
 
 
-def parallel_round(tmp: str, smi: str) -> dict:
+class Worker:
+    """A daemon thread that runs the callables handed to `submit` one after
+    another, each result in a future. The parallel and pipeline rounds'
+    worlds and CLI runs go on two of these while the main thread runs the
+    single-process paths: their ranks spend most of their time on the
+    host (each collective crosses it over gloo), so the card has room for
+    both. A daemon thread, so a failed phase ends the smoke at once; the
+    worlds' ranks are daemonic children and the CLI runs are killed at
+    exit."""
+
+    def __init__(self, name: str):
+        import queue
+        import threading
+
+        self._jobs: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
+        self._thread.start()
+
+    def submit(self, fn, *args):
+        from concurrent.futures import Future
+
+        fut: Future = Future()
+        self._jobs.put((fut, fn, args))
+        return fut
+
+    def _run(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            fut, fn, args = job
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:  # the caller's `result()` re-raises it
+                fut.set_exception(e)
+
+    def close(self) -> None:
+        self._jobs.put(None)
+        self._thread.join(timeout=60)
+
+
+def _spawn_world(world: int, jobs: list, timeout_s: float) -> tuple[list, float]:
+    """One spawned world of ``world`` ranks on the card over gloo taking
+    ``jobs`` in turn (parallel/launch.jobs_target), stopped after
+    ``timeout_s`` or at `DEADLINE_S`; its results and seconds."""
+    from dllama_tpu_torch.parallel.launch import jobs_target, spawn
+
+    t0 = time.perf_counter()
+    res = spawn(jobs_target, world, "cuda:0", "gloo", timeout_s=left_s(timeout_s), args=(jobs,))
+    secs = time.perf_counter() - t0
+    print(f"chip_smoke {time.perf_counter() - T_START:.1f} s: a {world}-rank world of "
+          f"{len(jobs)} jobs ended in {secs:.1f} s", file=sys.stderr, flush=True)
+    return res, secs
+
+
+def _run_clis(cmds: dict, tmp: str) -> dict:
+    """Run ``cmds`` (label -> (the arguments of ``python -m
+    dllama_tpu_torch``, its stdin text or None, its timeout in seconds)) at
+    once from the repository root, each with its ranks on the card; their
+    output goes to files under tmp, so no pipe fills. Returns label ->
+    (exit code, stdout, stderr, seconds). A run past its timeout or
+    `DEADLINE_S` is killed (its ranks are daemons of it), and so is any
+    still running at exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for label, (argv, stdin, timeout_s) in cmds.items():
+        base = os.path.join(tmp, label.replace(" ", "_"))
+        files = [open(base + ext, "w+b") for ext in (".in", ".out", ".err")]
+        files[0].write((stdin or "").encode())
+        files[0].flush()
+        files[0].seek(0)
+        proc = subprocess.Popen([sys.executable, "-m", "dllama_tpu_torch", *argv],
+                                stdin=files[0], stdout=files[1], stderr=files[2], cwd=root)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        procs[label] = (proc, files, t0 + left_s(timeout_s))
+    out: dict = {}
+    while len(out) < len(procs):
+        for label, (proc, files, deadline) in procs.items():
+            if label in out or (proc.poll() is None and time.perf_counter() < deadline):
+                continue
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            text = []
+            for f in files[1:]:
+                f.seek(0)
+                text.append(f.read().decode("utf-8", errors="replace"))
+            for f in files:
+                f.close()
+            out[label] = (proc.returncode, *text, time.perf_counter() - t0)
+        time.sleep(0.05)
+    return out
+
+
+def parallel_round(tmp: str, smi: str, workers: tuple) -> Callable[[], dict]:
     """The parallel round (ranks share the one card over gloo: NCCL runs no
     two ranks on one device; the one-rank references first, then one world
     of 2 ranks for every 2-rank job and one of 4 for the 2 x 2 jobs): (b)
@@ -5216,14 +5390,20 @@ def parallel_round(tmp: str, smi: str) -> dict:
     int8 pool and the serialized path at tp 2, a decode poison at tp 2, int8
     slab lanes at sp 2) and a two-turn chat at --tp 2, each byte-equal to tp
     = 1; (j) `_slice_report`: qwen3-30b-a3b's expert slices on its `PP_MOE_LAYERS`-layer
-    file (written here; the pipeline round reuses it) and the int8 cache
-    under sp. Returns the launch counts of each run, by label."""
+    file (the pipeline round reuses it) and the int8 cache under sp.
+
+    The one-rank references run here, in this thread; then the 2-rank
+    world goes to ``workers[0]``, and the CLI runs of (e), (h)'s chat and
+    the pipeline round's (v) at once, then the 4-rank world, to
+    ``workers[1]`` (`Worker`), and this returns. The returned function
+    waits for them, checks and prints (b)-(j), and returns the launch
+    counts of each run, by label. The files are written ahead
+    (`start_prewrite`), or here when missing."""
     import numpy as np
     import torch
 
     from dllama_tpu_torch.models.synthetic import write_synth_model
     from dllama_tpu_torch.obs.cost import param_bytes
-    from dllama_tpu_torch.parallel.launch import jobs_target, spawn
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     dev = "cuda:0"
@@ -5274,8 +5454,10 @@ def parallel_round(tmp: str, smi: str) -> dict:
     release_engine(eng)
     del eng
     qp = os.path.join(tmp, "qwen-pp", "model.m")
-    os.makedirs(os.path.dirname(qp), exist_ok=True)
-    write_synth_model(qp, "qwen3-30b-a3b", seed=SEED, max_seq_len=4096, n_layers=PP_MOE_LAYERS)
+    if not os.path.exists(qp):
+        os.makedirs(os.path.dirname(qp), exist_ok=True)
+        write_synth_model(qp, "qwen3-30b-a3b", seed=SEED, max_seq_len=4096,
+                          n_layers=PP_MOE_LAYERS)
     q_want = {}
     for dtype in (torch.bfloat16, torch.float32):
         eng = InferenceEngine(qp, dtype=dtype, temperature=0.0, weight_format="q40",
@@ -5310,7 +5492,6 @@ def parallel_round(tmp: str, smi: str) -> dict:
                     pay_c=pay_c, qp=qp, q_call=q_call, want_q=q_want[torch.float32][1])
 
     # one world of two ranks for every 2-rank job, then one of four
-    t0 = time.perf_counter()
     job_b = dict(model=mp, tp=2, sp=1, dtype="bf16", weight_format="q40", step_logits=prompt_b,
                  generate=[(prompt_b, TP_PROMPT - 1 + TP_DECODE, BLOCK, 0)],
                  timed_steps=TIMED_STEPS)
@@ -5362,123 +5543,121 @@ def parallel_round(tmp: str, smi: str) -> dict:
     slice_idx = {label: (2, len(jobs2) + i) for i, label in enumerate(slice2)}
     jobs2 += [("engine", job) for job in slice2.values()]
     serve_idx2 = {label: (len(jobs2) + i, key) for i, (label, key, _) in enumerate(serve2)}
-    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=900,
-                   args=(jobs2 + [job for _, _, job in serve2],))
-    world2_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     jobs4 = [("engine", dict(base, tp=2, sp=2))]
     slice_idx.update({label: (4, len(jobs4) + i) for i, label in enumerate(slice4)})
     jobs4 += [("engine", job) for job in slice4.values()]
     serve_idx4 = {label: (len(jobs4) + i, key) for i, (label, key, _) in enumerate(serve4)}
-    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600,
-                   args=(jobs4 + [j for _, _, j in serve4],))
-    world4_s = time.perf_counter() - t0
+    # (e) and the pipeline round's (v): the CLI at --tp 2 and --pp 2; (h)'s chat at --tp 2
+    cli = ["inference", "--model", ap, "--tokenizer", tok, "--prompt", prompt_text(40),
+           "--steps", "56", "--temperature", "0", "--dtype", "f32", "--weight-format", "q40",
+           "--device", dev]
+    f2 = workers[0].submit(_spawn_world, 2, jobs2 + [job for _, _, job in serve2], 900)
+    PAR_REFS["clis"] = workers[1].submit(_run_clis, {
+        "chat tp2": (_chat_argv(ap, tok) + ["--tp", "2", "--device", dev], PAR_CHAT_TURNS, 600),
+        "cli tp2": (cli + ["--tp", "2"], None, 300),
+        "cli pp2": (cli + ["--pp", "2"], None, 300)}, os.path.join(tmp, "cli"))
+    f4 = workers[1].submit(_spawn_world, 4, jobs4 + [j for _, _, j in serve4], 600)
 
-    # (b) llama-8b q40 bf16, `PAR_LAYERS` layers, tp = 2 against tp = 1
-    res = [r[0] for r in world2]
-    label = "llama-8b q40 tp2"
-    print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one 512-row chunk and "
-          f"{TP_DECODE} greedy tokens; the one-rank references (this, the f32 file's and its "
-          f"servers' and chat's) {ref_s:.1f} s, the 2-rank world (its jobs: this, sp2, tp2, "
-          f"tp2 q80, two all-reduces, the servers of (g) and (h)) {world2_s:.1f} s, the "
-          f"4-rank world (tp2sp2, its server) {world4_s:.1f} s")
-    for r, x in enumerate(res):
-        require(x["layer_bytes"] * 2 == whole_bytes,
-                f"{label} rank {r}: layer weights {x['layer_bytes']} B, half of "
-                f"{whole_bytes} B wanted")
-        print(f"parallel {label} rank {r}: layer weights {x['layer_bytes']} B of {whole_bytes} B "
-              f"(one half), allocated {x['allocated'] / 1e9:.2f} GB")
-    got = res[0]["step_logits"]
-    err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
-    require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
-            f"{label}: the ranks' logits differ")
-    require(err <= TOL_TP_BF16, f"{label}: first decode logits vs tp = 1 {err:.3e} > {TOL_TP_BF16}")
-    stream = res[0]["generate"][0][0]
-    first = _first_diff(stream, want_b_stream)
-    print(f"parallel {label}: first decode logits vs tp = 1 err {err:.3e} (<= {TOL_TP_BF16}); "
-          f"greedy stream equals tp = 1's: {stream == want_b_stream}"
-          + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
-    _print_ranks(label, res, h, 2)
-    counts[label] = res[0]["launches"]
-
-    # (c) the `ACCEPT_LAYERS`-layer f32 file at sp 2, tp 2 and tp 2 x sp 2 against one rank
-    print(f"== llama-8b q40 f32 parallel (ranks share one card over gloo): {ACCEPT_LAYERS} layers, "
-          f"{SP_PROMPT}-token prompt (chunks of 512 and 32 rows), {SP_DECODE} greedy tokens")
-    for label, results, tp in (("llama-8b q40 f32 sp2", [r[1] for r in world2], 1),
-                               ("llama-8b q40 f32 tp2", [r[2] for r in world2], 2),
-                               ("llama-8b q40 f32 tp2sp2", [r[0] for r in world4], 2)):
-        got = results[0]
-        require(all(np.array_equal(x["step_logits"], got["step_logits"]) for x in results[1:]),
+    def finish() -> dict:
+        world2, world2_s = f2.result()
+        world4, world4_s = f4.result()
+        # (b) llama-8b q40 bf16, `PAR_LAYERS` layers, tp = 2 against tp = 1
+        res = [r[0] for r in world2]
+        label = "llama-8b q40 tp2"
+        print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one "
+              f"512-row chunk and {TP_DECODE} greedy tokens; the one-rank references (this, the "
+              f"f32 file's and its servers' and chat's) {ref_s:.1f} s, the 2-rank world (its "
+              f"jobs: this, sp2, tp2, tp2 q80, two all-reduces, the servers of (g) and (h)) "
+              f"{world2_s:.1f} s, the 4-rank world (tp2sp2, its server) {world4_s:.1f} s, both "
+              f"on background threads beside the other paths (their times are values only)")
+        for r, x in enumerate(res):
+            require(x["layer_bytes"] * 2 == whole_bytes,
+                    f"{label} rank {r}: layer weights {x['layer_bytes']} B, half of "
+                    f"{whole_bytes} B wanted")
+            print(f"parallel {label} rank {r}: layer weights {x['layer_bytes']} B of "
+                  f"{whole_bytes} B (one half), allocated {x['allocated'] / 1e9:.2f} GB")
+        got = res[0]["step_logits"]
+        err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
+        require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
                 f"{label}: the ranks' logits differ")
-        err = float(np.abs(got["step_logits"] - want_logits).max() / np.abs(want_logits).max())
-        stream = got["generate"][0][0]
-        first = _first_diff(stream, want_stream)
-        print(f"parallel {label}: first decode logits vs one rank err {err:.3e} (<= {TOL_TP_F32}); "
-              f"greedy stream equals one rank's: {stream == want_stream}"
-              + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
-        require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
-        require(stream == want_stream, f"{label}: the greedy stream parts from one rank's at "
-                f"token {first}")
-        if "sp" in label:
-            for r, x in enumerate(results):
-                for name in ("flash_attention_stats_strided", "flash_decode_stats"):
-                    require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
-        _print_ranks(label, results, h4, tp)
-        counts[label] = got["launches"]
-    # (d) the q80 sync buffer against the exact f32 all-reduce
-    exact, q80 = world2[0][2]["step_logits"], world2[0][3]["step_logits"]
-    lerr = float(np.abs(q80 - exact).max() / np.abs(exact).max())
-    ar_q80, ar_exact = world2[0][4], world2[0][5]
-    ar_err = float(np.abs(ar_q80 - ar_exact).max() / np.abs(ar_exact).max())
-    print(f"parallel llama-8b q40 f32 tp2 q80: largest relative logit error vs f32 buffers "
-          f"{lerr:.3e}; one [{h.dim}] all-reduce's error {ar_err:.3e} (<= {Q80_BOUND})")
-    require(0 < ar_err < Q80_BOUND, f"q80 all-reduce error {ar_err:.3e} outside (0, {Q80_BOUND})")
-    _print_ranks("llama-8b q40 f32 tp2 q80", [r[3] for r in world2], h4, 2, sync_quant=True)
+        require(err <= TOL_TP_BF16,
+                f"{label}: first decode logits vs tp = 1 {err:.3e} > {TOL_TP_BF16}")
+        stream = res[0]["generate"][0][0]
+        first = _first_diff(stream, want_b_stream)
+        print(f"parallel {label}: first decode logits vs tp = 1 err {err:.3e} (<= {TOL_TP_BF16}); "
+              f"greedy stream equals tp = 1's: {stream == want_b_stream}"
+              + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
+        _print_ranks(label, res, h, 2)
+        counts[label] = res[0]["launches"]
 
-    # (j) qwen3-30b-a3b's expert slices; the int8 cache under sp
-    counts.update(_slice_report(world2, world4, slice_idx, q_want, qh, h4, want_kv8,
-                                want_kv8_stream, smi))
+        # (c) the `ACCEPT_LAYERS`-layer f32 file at sp 2, tp 2 and tp 2 x sp 2 against one rank
+        print(f"== llama-8b q40 f32 parallel (ranks share one card over gloo): {ACCEPT_LAYERS} "
+              f"layers, {SP_PROMPT}-token prompt (chunks of 512 and 32 rows), {SP_DECODE} greedy "
+              f"tokens")
+        for label, results, tp in (("llama-8b q40 f32 sp2", [r[1] for r in world2], 1),
+                                   ("llama-8b q40 f32 tp2", [r[2] for r in world2], 2),
+                                   ("llama-8b q40 f32 tp2sp2", [r[0] for r in world4], 2)):
+            got = results[0]
+            require(all(np.array_equal(x["step_logits"], got["step_logits"]) for x in results[1:]),
+                    f"{label}: the ranks' logits differ")
+            err = float(np.abs(got["step_logits"] - want_logits).max() / np.abs(want_logits).max())
+            stream = got["generate"][0][0]
+            first = _first_diff(stream, want_stream)
+            print(f"parallel {label}: first decode logits vs one rank err {err:.3e} "
+                  f"(<= {TOL_TP_F32}); greedy stream equals one rank's: {stream == want_stream}"
+                  + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
+            require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
+            require(stream == want_stream, f"{label}: the greedy stream parts from one rank's at "
+                    f"token {first}")
+            if "sp" in label:
+                for r, x in enumerate(results):
+                    for name in ("flash_attention_stats_strided", "flash_decode_stats"):
+                        require(x["launches"][name] > 0,
+                                f"{label} rank {r}: {name} was not launched")
+            _print_ranks(label, results, h4, tp)
+            counts[label] = got["launches"]
+        # (d) the q80 sync buffer against the exact f32 all-reduce
+        exact, q80 = world2[0][2]["step_logits"], world2[0][3]["step_logits"]
+        lerr = float(np.abs(q80 - exact).max() / np.abs(exact).max())
+        ar_q80, ar_exact = world2[0][4], world2[0][5]
+        ar_err = float(np.abs(ar_q80 - ar_exact).max() / np.abs(ar_exact).max())
+        print(f"parallel llama-8b q40 f32 tp2 q80: largest relative logit error vs f32 buffers "
+              f"{lerr:.3e}; one [{h.dim}] all-reduce's error {ar_err:.3e} (<= {Q80_BOUND})")
+        require(0 < ar_err < Q80_BOUND,
+                f"q80 all-reduce error {ar_err:.3e} outside (0, {Q80_BOUND})")
+        _print_ranks("llama-8b q40 f32 tp2 q80", [r[3] for r in world2], h4, 2, sync_quant=True)
 
-    # (g) serving llama-8b q40 bf16 at tp = 2; (h) the f32 servers and chat
-    counts.update(_par_serving_report(world2, world4, serve_idx2, serve_idx4, truth, tokz, h,
-                                      h4, smi))
-    t0 = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, "-m", "dllama_tpu_torch", *_chat_argv(ap, tok),
-                           "--tp", "2", "--device", dev], input=PAR_CHAT_TURNS,
-                          capture_output=True, text=True, timeout=600, cwd=root)
-    out = proc.stdout
-    chat = out[out.index("💬 Chat mode"):] if "💬 Chat mode" in out else ""
-    print(f"parallel serve llama-8b q40 f32 tp2 chat: exit {proc.returncode}, two turns, "
-          f"transcript equals tp = 1's {chat == chat_tp1} ({len(chat)} characters), "
-          f"{time.perf_counter() - t0:.1f} s")
-    require(proc.returncode == 0, f"chat at --tp 2 failed:\n{proc.stderr[-4000:]}")
-    require(chat == chat_tp1 and chat.count("👱 You: ") == 2,
-            "chat at --tp 2: its transcript differs from the one-rank chat's")
+        # (j) qwen3-30b-a3b's expert slices; the int8 cache under sp
+        counts.update(_slice_report(world2, world4, slice_idx, q_want, qh, h4, want_kv8,
+                                    want_kv8_stream, smi))
 
-    # (e) the CLI at --tp 2, its ranks on the one card
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "dllama_tpu_torch", "inference", "--model", ap, "--tokenizer",
-           tok, "--prompt", prompt_text(40), "--steps", "56", "--temperature", "0", "--dtype",
-           "f32", "--weight-format", "q40", "--tp", "2", "--device", dev]
-    root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            cwd=root)
-    try:
-        out, err_out = proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()  # by its own pid; its ranks are daemons of it
-        out, err_out = proc.communicate()
-    pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
-    print(f"parallel cli --tp 2: exit {proc.returncode}, {len(pred)} Pred lines, "
-          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
-              l for l in out.splitlines() if l.startswith(("🔗", "💡 Tp", "🔷️ Eval"))))
-    if pred:
-        print(f"parallel cli --tp 2: {pred[0]}")
-    require(proc.returncode == 0, f"the CLI at --tp 2 failed:\n{err_out[-4000:]}")
-    require("backend gloo" in out and len(pred) == 56 - 41 + 1 and "Prediction" in out,
-            "the CLI at --tp 2: want its backend line naming gloo and rank 0's Pred lines")
-    return counts
+        # (g) serving llama-8b q40 bf16 at tp = 2; (h) the f32 servers and chat
+        counts.update(_par_serving_report(world2, world4, serve_idx2, serve_idx4, truth, tokz, h,
+                                          h4, smi))
+        clis = PAR_REFS["clis"].result()
+        rc, out, err_out, secs = clis["chat tp2"]
+        chat = out[out.index("💬 Chat mode"):] if "💬 Chat mode" in out else ""
+        print(f"parallel serve llama-8b q40 f32 tp2 chat: exit {rc}, two turns, "
+              f"transcript equals tp = 1's {chat == chat_tp1} ({len(chat)} characters), "
+              f"{secs:.1f} s (the three CLI runs at once)")
+        require(rc == 0, f"chat at --tp 2 failed:\n{err_out[-4000:]}")
+        require(chat == chat_tp1 and chat.count("👱 You: ") == 2,
+                "chat at --tp 2: its transcript differs from the one-rank chat's")
+
+        # (e) the CLI at --tp 2, its ranks on the one card
+        rc, out, err_out, secs = clis["cli tp2"]
+        pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
+        print(f"parallel cli --tp 2: exit {rc}, {len(pred)} Pred lines, {secs:.1f} s; "
+              + " | ".join(l for l in out.splitlines()
+                           if l.startswith(("🔗", "💡 Tp", "🔷️ Eval"))))
+        if pred:
+            print(f"parallel cli --tp 2: {pred[0]}")
+        require(rc == 0, f"the CLI at --tp 2 failed:\n{err_out[-4000:]}")
+        require("backend gloo" in out and len(pred) == 56 - 41 + 1 and "Prediction" in out,
+                "the CLI at --tp 2: want its backend line naming gloo and rank 0's Pred lines")
+        return counts
+
+    return finish
 
 
 # (iv) qwen3-30b-a3b at full width, 2 of its 48 layers (the smoke's
@@ -5518,7 +5697,7 @@ def _same_pipeline_ranks(label: str, results: list) -> dict:
     return first
 
 
-def pipeline_round(tmp: str, smi: str) -> dict:
+def pipeline_round(tmp: str, smi: str, workers: tuple) -> Callable[[], dict]:
     """The pipeline round (ranks share the one card over gloo, after the
     parallel round, reusing its one-rank references, `PAR_REFS`): (i)
     llama-8b q40 bf16 at full width and `PAR_LAYERS` layers, pp = 2 against one
@@ -5536,17 +5715,18 @@ def pipeline_round(tmp: str, smi: str) -> dict:
     kernels run on both ranks; (v) ``python -m dllama_tpu_torch inference
     --pp 2 --device cuda:0``; (vi) each rank's decode token of (i): device
     ms, its hand-offs' host ms and bytes against ``ici_traffic_per_token``
-    at pp = 2, its launches. Returns the launch counts by label."""
+    at pp = 2, its launches. The one-rank references run here; the two
+    worlds go to ``workers[1]`` after the parallel round's (`Worker`), and
+    (v) ran with the parallel round's CLI runs. The returned function waits
+    for them, checks and prints (i)-(vi) and returns the launch counts by
+    label."""
     import numpy as np
     import torch
 
-    from dllama_tpu_torch.models.synthetic import write_synth_model
-    from dllama_tpu_torch.parallel.launch import jobs_target, spawn
     from dllama_tpu_torch.runtime.engine import InferenceEngine
     from dllama_tpu_torch.utils.telemetry import ici_traffic_per_token
 
     R = PAR_REFS
-    dev = "cuda:0"
     counts = {}
     mp, ap, tok, h, h4 = R["mp"], R["ap"], R["tok"], R["h"], R["h4"]
 
@@ -5566,7 +5746,6 @@ def pipeline_round(tmp: str, smi: str) -> dict:
     qp, q_call, want_q = R["qp"], R["q_call"], R["want_q"]
     ref_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
     base = dict(model=ap, dtype="f32", weight_format="q40", step_logits=R["prompt"],
                 generate=R["calls"])
     pay_c, truth = R["pay_c"], R["truth"]
@@ -5591,150 +5770,145 @@ def pipeline_round(tmp: str, smi: str) -> dict:
         ("engine", dict(model=ap, pp=2, dp=2, batch_size=2, dtype="f32", weight_format="q40",
                         generate_batch=(prompts, steps))),
     ] + [job for _, job in serve4]
-    world2 = spawn(jobs_target, 2, dev, "gloo", timeout_s=900, args=(jobs2,))
-    world2_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    world4 = spawn(jobs_target, 4, dev, "gloo", timeout_s=600, args=(jobs4,))
-    world4_s = time.perf_counter() - t0
+    f2 = workers[1].submit(_spawn_world, 2, jobs2, 900)
+    f4 = workers[1].submit(_spawn_world, 4, jobs4, 600)
 
-    # (i) llama-8b q40 bf16, `PAR_LAYERS` layers, pp = 2 against one rank
-    res = [r[0] for r in world2]
-    label = "llama-8b q40 pp2"
-    print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one 512-row chunk (in "
-          f"waves) and {TP_DECODE} greedy tokens; the one-rank references past the parallel "
-          f"round's {ref_s:.1f} s, the 2-rank world (this, the f32 pp2 run, the qwen3 pp2 run, "
-          f"two servers) {world2_s:.1f} s, the 4-rank world (pp2dp2, pp2tp2, pp2sp2, "
-          f"generate_batch, a server) {world4_s:.1f} s; {smi}")
-    whole = R["whole_bytes"]
-    for r, x in enumerate(res):
-        require(x["stage"] == r and x["layer_bytes"] * 2 == whole,
-                f"{label} rank {r}: stage {x['stage']}, layer weights {x['layer_bytes']} B, "
-                f"half of {whole} B wanted")
-        print(f"pipeline {label} rank {r} (stage {x['stage']}): layer weights "
-              f"{x['layer_bytes']} B of {whole} B ({h.n_layers // 2} of {h.n_layers} layers), "
-              f"allocated "
-              f"{x['allocated'] / 1e9:.2f} GB")
-    got, want_b = res[0]["step_logits"], R["want_b"]
-    require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
-            f"{label}: the stages' logits differ")
-    err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
-    require(err <= TOL_TP_BF16, f"{label}: first decode logits vs one rank {err:.3e} > "
-            f"{TOL_TP_BF16}")
-    stream, want_stream = res[0]["generate"][0][0], R["want_b_stream"]
-    first = _first_diff(stream, want_stream)
-    print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} (<= {TOL_TP_BF16})"
-          f"{'; bits equal' if np.array_equal(got, want_b) else ''}; greedy stream equals one "
-          f"rank's: {stream == want_stream}"
-          + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
-    # (vi) each rank's decode token
-    model = ici_traffic_per_token(h, 1, pp=2, pp_activation_bytes=2.0)
-    for r, x in enumerate(res):
-        t = x["timed"]
-        launches = {k: v for k, v in x["launches"].items() if v}
-        print(f"pipeline rank {label} rank {r} (ranks share one card over gloo): decode token "
-              f"device_ms {t['device_ms']:.3f} hand-off_ms {t['collective_ms']:.3f} "
-              f"({t['calls']} collectives) hand-off_bytes {int(t['collective_bytes'])} vs "
-              f"ici_traffic_per_token(pp=2) {model}; launches {json.dumps(launches)}; {smi}")
-    counts[label] = res[0]["launches"]
+    def finish() -> dict:
+        world2, world2_s = f2.result()
+        world4, world4_s = f4.result()
+        # (i) llama-8b q40 bf16, `PAR_LAYERS` layers, pp = 2 against one rank
+        res = [r[0] for r in world2]
+        label = "llama-8b q40 pp2"
+        print(f"== {label} (ranks share one card over gloo): {h.n_layers} layers, bf16, one "
+              f"512-row chunk (in waves) and {TP_DECODE} greedy tokens; the one-rank references "
+              f"past the parallel round's {ref_s:.1f} s, the 2-rank world (this, the f32 pp2 run, "
+              f"the qwen3 pp2 run, two servers) {world2_s:.1f} s, the 4-rank world (pp2dp2, "
+              f"pp2tp2, pp2sp2, generate_batch, a server) {world4_s:.1f} s, both on a background "
+              f"thread beside the other paths (their times are values only); {smi}")
+        whole = R["whole_bytes"]
+        for r, x in enumerate(res):
+            require(x["stage"] == r and x["layer_bytes"] * 2 == whole,
+                    f"{label} rank {r}: stage {x['stage']}, layer weights {x['layer_bytes']} B, "
+                    f"half of {whole} B wanted")
+            print(f"pipeline {label} rank {r} (stage {x['stage']}): layer weights "
+                  f"{x['layer_bytes']} B of {whole} B ({h.n_layers // 2} of {h.n_layers} layers), "
+                  f"allocated "
+                  f"{x['allocated'] / 1e9:.2f} GB")
+        got, want_b = res[0]["step_logits"], R["want_b"]
+        require(all(np.array_equal(x["step_logits"], got) for x in res[1:]),
+                f"{label}: the stages' logits differ")
+        err = float(np.abs(got - want_b).max() / np.abs(want_b).max())
+        require(err <= TOL_TP_BF16, f"{label}: first decode logits vs one rank {err:.3e} > "
+                f"{TOL_TP_BF16}")
+        stream, want_stream = res[0]["generate"][0][0], R["want_b_stream"]
+        first = _first_diff(stream, want_stream)
+        print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} (<= {TOL_TP_BF16})"
+              f"{'; bits equal' if np.array_equal(got, want_b) else ''}; greedy stream equals one "
+              f"rank's: {stream == want_stream}"
+              + ("" if first is None else f" (first of {len(stream)} tokens to differ: {first})"))
+        # (vi) each rank's decode token
+        model = ici_traffic_per_token(h, 1, pp=2, pp_activation_bytes=2.0)
+        for r, x in enumerate(res):
+            t = x["timed"]
+            launches = {k: v for k, v in x["launches"].items() if v}
+            print(f"pipeline rank {label} rank {r} (ranks share one card over gloo): decode token "
+                  f"device_ms {t['device_ms']:.3f} hand-off_ms {t['collective_ms']:.3f} "
+                  f"({t['calls']} collectives) hand-off_bytes {int(t['collective_bytes'])} vs "
+                  f"ici_traffic_per_token(pp=2) {model}; launches {json.dumps(launches)}; {smi}")
+        counts[label] = res[0]["launches"]
 
-    # (ii) the `ACCEPT_LAYERS`-layer f32 file at pp 2 and its compositions against one rank
-    print(f"== llama-8b q40 f32 pipeline (ranks share one card over gloo): {ACCEPT_LAYERS} "
-          f"layers, {SP_PROMPT}-token prompt, {SP_DECODE} greedy tokens")
-    for label, results in (("llama-8b q40 f32 pp2", [r[1] for r in world2]),
-                           ("llama-8b q40 f32 pp2dp2", [r[0] for r in world4]),
-                           ("llama-8b q40 f32 pp2tp2", [r[1] for r in world4]),
-                           ("llama-8b q40 f32 pp2sp2", [r[2] for r in world4])):
-        x0 = results[0]
-        require(all(np.array_equal(x["step_logits"], x0["step_logits"]) for x in results[1:]),
-                f"{label}: the ranks' logits differ")
-        err = float(np.abs(x0["step_logits"] - R["want_logits"]).max()
-                    / np.abs(R["want_logits"]).max())
-        stream = x0["generate"][0][0]
-        first = _first_diff(stream, R["want_stream"])
-        print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} "
-              f"(<= {TOL_TP_F32}); greedy stream equals one rank's: "
-              f"{stream == R['want_stream']}"
-              + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
-        require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
-        require(stream == R["want_stream"], f"{label}: the greedy stream parts from one rank's "
-                f"at token {first}")
-        counts[label] = x0["launches"]
-    label = "llama-8b q40 f32 pp2dp2 generate_batch"
-    got_batch = world4[0][3]["generate_batch"]
-    require(all(r[3]["generate_batch"] == got_batch for r in world4),
-            f"{label}: the ranks' lanes differ")
-    print(f"pipeline {label}: prompts of {PP_BATCH} tokens, {PP_BATCH_DECODE}+ greedy tokens a "
-          f"lane, each lane equals one rank's: {got_batch == want_batch}")
-    require(got_batch == want_batch, f"{label}: the lanes' streams differ from one rank's")
-    counts[label] = world4[0][3]["launches"]
-    nll, ppl, n = world2[0][1]["perplexity"]
-    perr = abs(nll - want_ppl[0]) / abs(want_ppl[0])
-    print(f"pipeline llama-8b q40 f32 pp2 perplexity: {n} scored, nll {nll:.6f} vs one rank "
-          f"{want_ppl[0]:.6f} (relative {perr:.2e} <= {TOL_PPL_F32}), perplexity {ppl:.4f}")
-    require(n == want_ppl[2] and perr <= TOL_PPL_F32,
-            f"pipeline perplexity: nll {nll} vs {want_ppl[0]} (relative {perr:.2e})")
-
-    # (iii) the servers, every answer equal to the tp = 1 server's
-    print(f"== llama-8b q40 f32 pipeline serving (ranks share one card over gloo): "
-          f"{ACCEPT_LAYERS} layers, f32, the mix at {PAR_SERVE_TOKENS} tokens a request")
-    for world, serve, off in ((world2, serve2, 3), (world4, serve4, 4)):
-        for i, (label, _) in enumerate(serve):
-            res = [r[off + i] for r in world]
-            x0 = _same_pipeline_ranks(label, res)
-            answers = x0["answers"][0]
-            bad = [j for j, (a, b) in enumerate(zip(answers, truth["f32"])) if a != b]
-            cross = x0["kv_cross_dp_pages"]
-            print(f"pipeline serve {label}: answers equal tp = 1 {len(answers) - len(bad)} of "
-                  f"{len(answers)}; {len(res)} ranks (stage, dp group) "
-                  f"{[(x['stage'], x['dp_group']) for x in res]}, control "
-                  f"{x0['summary']['commands']} commands, digest equal; pages read across dp "
-                  f"groups {cross}; wall {x0['wall_s'][0]:.2f} s")
-            require(not bad, f"{label}: answers {bad} differ from the tp = 1 server's")
-            if "native" in label:
-                require(cross > 0, f"{label}: no lane read a prefix page another dp group wrote")
+        # (ii) the `ACCEPT_LAYERS`-layer f32 file at pp 2 and its compositions against one rank
+        print(f"== llama-8b q40 f32 pipeline (ranks share one card over gloo): {ACCEPT_LAYERS} "
+              f"layers, {SP_PROMPT}-token prompt, {SP_DECODE} greedy tokens")
+        for label, results in (("llama-8b q40 f32 pp2", [r[1] for r in world2]),
+                               ("llama-8b q40 f32 pp2dp2", [r[0] for r in world4]),
+                               ("llama-8b q40 f32 pp2tp2", [r[1] for r in world4]),
+                               ("llama-8b q40 f32 pp2sp2", [r[2] for r in world4])):
+            x0 = results[0]
+            require(all(np.array_equal(x["step_logits"], x0["step_logits"]) for x in results[1:]),
+                    f"{label}: the ranks' logits differ")
+            err = float(np.abs(x0["step_logits"] - R["want_logits"]).max()
+                        / np.abs(R["want_logits"]).max())
+            stream = x0["generate"][0][0]
+            first = _first_diff(stream, R["want_stream"])
+            print(f"pipeline {label}: first decode logits vs one rank err {err:.3e} "
+                  f"(<= {TOL_TP_F32}); greedy stream equals one rank's: "
+                  f"{stream == R['want_stream']}"
+                  + ("" if first is None else f" (first of {len(stream)} to differ: {first})"))
+            require(err <= TOL_TP_F32, f"{label}: logits vs one rank {err:.3e} > {TOL_TP_F32}")
+            require(stream == R["want_stream"],
+                    f"{label}: the greedy stream parts from one rank's at token {first}")
             counts[label] = x0["launches"]
+        label = "llama-8b q40 f32 pp2dp2 generate_batch"
+        got_batch = world4[0][3]["generate_batch"]
+        require(all(r[3]["generate_batch"] == got_batch for r in world4),
+                f"{label}: the ranks' lanes differ")
+        print(f"pipeline {label}: prompts of {PP_BATCH} tokens, {PP_BATCH_DECODE}+ greedy tokens "
+              f"a lane, each lane equals one rank's: {got_batch == want_batch}")
+        require(got_batch == want_batch, f"{label}: the lanes' streams differ from one rank's")
+        counts[label] = world4[0][3]["launches"]
+        nll, ppl, n = world2[0][1]["perplexity"]
+        perr = abs(nll - want_ppl[0]) / abs(want_ppl[0])
+        print(f"pipeline llama-8b q40 f32 pp2 perplexity: {n} scored, nll {nll:.6f} vs one rank "
+              f"{want_ppl[0]:.6f} (relative {perr:.2e} <= {TOL_PPL_F32}), perplexity {ppl:.4f}")
+        require(n == want_ppl[2] and perr <= TOL_PPL_F32,
+                f"pipeline perplexity: nll {nll} vs {want_ppl[0]} (relative {perr:.2e})")
 
-    # (iv) qwen3-30b-a3b, `PP_MOE_LAYERS` of 48 layers, pp = 2
-    label = "qwen3-30b-a3b q40 f32 pp2"
-    res = [r[2] for r in world2]
-    stream = res[0]["generate"][0][0]
-    first = _first_diff(stream, want_q)
-    print(f"pipeline {label}: {PP_MOE_LAYERS} of 48 layers at full width ({PP_MOE_LAYERS // 2} a "
-          f"stage, experts "
-          f"whole), {PP_MOE_PROMPT}-token prompt, greedy stream equals one rank's: "
-          f"{stream == want_q}" + ("" if first is None else f" (first to differ: {first})")
-          + "; launches " + json.dumps([{k: x["launches"][k] for k in
-                                         ("moe_grouped_experts_q40", "moe_active_experts_q40")}
-                                        for x in res]))
-    require(all(x["generate"][0][0] == stream for x in res), f"{label}: the ranks' streams differ")
-    require(stream == want_q, f"{label}: the greedy stream parts from one rank's at {first}")
-    for r, x in enumerate(res):
-        for name in ("moe_grouped_experts_q40", "moe_active_experts_q40"):
-            require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
-    counts[label] = res[0]["launches"]
+        # (iii) the servers, every answer equal to the tp = 1 server's
+        print(f"== llama-8b q40 f32 pipeline serving (ranks share one card over gloo): "
+              f"{ACCEPT_LAYERS} layers, f32, the mix at {PAR_SERVE_TOKENS} tokens a request")
+        for world, serve, off in ((world2, serve2, 3), (world4, serve4, 4)):
+            for i, (label, _) in enumerate(serve):
+                res = [r[off + i] for r in world]
+                x0 = _same_pipeline_ranks(label, res)
+                answers = x0["answers"][0]
+                bad = [j for j, (a, b) in enumerate(zip(answers, truth["f32"])) if a != b]
+                cross = x0["kv_cross_dp_pages"]
+                print(f"pipeline serve {label}: answers equal tp = 1 {len(answers) - len(bad)} of "
+                      f"{len(answers)}; {len(res)} ranks (stage, dp group) "
+                      f"{[(x['stage'], x['dp_group']) for x in res]}, control "
+                      f"{x0['summary']['commands']} commands, digest equal; pages read across dp "
+                      f"groups {cross}; wall {x0['wall_s'][0]:.2f} s")
+                require(not bad, f"{label}: answers {bad} differ from the tp = 1 server's")
+                if "native" in label:
+                    require(cross > 0,
+                            f"{label}: no lane read a prefix page another dp group wrote")
+                counts[label] = x0["launches"]
 
-    # (v) the CLI at --pp 2, its ranks on the one card
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "dllama_tpu_torch", "inference", "--model", ap, "--tokenizer",
-           tok, "--prompt", prompt_text(40), "--steps", "56", "--temperature", "0", "--dtype",
-           "f32", "--weight-format", "q40", "--pp", "2", "--device", dev]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            cwd=os.path.dirname(os.path.abspath(__file__)))
-    try:
-        out, err_out = proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()  # by its own pid; its ranks are daemons of it
-        out, err_out = proc.communicate()
-    pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
-    print(f"pipeline cli --pp 2: exit {proc.returncode}, {len(pred)} Pred lines, "
-          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
-              l for l in out.splitlines() if l.startswith(("🔗", "💡 Pp", "🔷️ Eval"))))
-    if pred:
-        print(f"pipeline cli --pp 2: {pred[0]}")
-    require(proc.returncode == 0, f"the CLI at --pp 2 failed:\n{err_out[-4000:]}")
-    require("💡 Pp: 2 pipeline stages" in out and len(pred) == 56 - 41 + 1,
-            "the CLI at --pp 2: want its Pp line and rank 0's Pred lines")
-    return counts
+        # (iv) qwen3-30b-a3b, `PP_MOE_LAYERS` of 48 layers, pp = 2
+        label = "qwen3-30b-a3b q40 f32 pp2"
+        res = [r[2] for r in world2]
+        stream = res[0]["generate"][0][0]
+        first = _first_diff(stream, want_q)
+        print(f"pipeline {label}: {PP_MOE_LAYERS} of 48 layers at full width "
+              f"({PP_MOE_LAYERS // 2} a stage, experts whole), {PP_MOE_PROMPT}-token prompt, "
+              f"greedy stream equals one rank's: {stream == want_q}" + ("" if first is None else f" (first to differ: {first})")
+              + "; launches " + json.dumps([{k: x["launches"][k] for k in
+                                             ("moe_grouped_experts_q40", "moe_active_experts_q40")}
+                                            for x in res]))
+        require(all(x["generate"][0][0] == stream for x in res),
+                f"{label}: the ranks' streams differ")
+        require(stream == want_q, f"{label}: the greedy stream parts from one rank's at {first}")
+        for r, x in enumerate(res):
+            for name in ("moe_grouped_experts_q40", "moe_active_experts_q40"):
+                require(x["launches"][name] > 0, f"{label} rank {r}: {name} was not launched")
+        counts[label] = res[0]["launches"]
+
+        # (v) the CLI at --pp 2, its ranks on the one card, run with the
+        # parallel round's CLI runs
+        rc, out, err_out, secs = PAR_REFS["clis"].result()["cli pp2"]
+        pred = [l for l in out.splitlines() if l.startswith("🔶 Pred")]
+        print(f"pipeline cli --pp 2: exit {rc}, {len(pred)} Pred lines, {secs:.1f} s; "
+              + " | ".join(l for l in out.splitlines()
+                           if l.startswith(("🔗", "💡 Pp", "🔷️ Eval"))))
+        if pred:
+            print(f"pipeline cli --pp 2: {pred[0]}")
+        require(rc == 0, f"the CLI at --pp 2 failed:\n{err_out[-4000:]}")
+        require("💡 Pp: 2 pipeline stages" in out and len(pred) == 56 - 41 + 1,
+                "the CLI at --pp 2: want its Pp line and rank 0's Pred lines")
+        return counts
+
+    return finish
 
 
 def main() -> int:
@@ -5746,7 +5920,21 @@ def main() -> int:
         return 1
     from dllama_tpu_torch.ops import _build
 
+    # every capture of every engine below is linted as it lands, and any
+    # new finding fails the phase that captured it (`graph_lint`)
+    os.environ["DLLAMA_XLALINT"] = "strict"
     t_start = time.perf_counter()
+    # the whole llama-8b file and the serving, parallel and draft rounds'
+    # files beside it, kept to the end: a child writes them while the
+    # kernels build and run
+    llama_tmp = tempfile.TemporaryDirectory()
+    llama_writer = start_prewrite([
+        (llama_tmp.name, "llama-8b", N_LAYERS),
+        (os.path.join(llama_tmp.name, "accept"), "llama-8b", ACCEPT_LAYERS),
+        (os.path.join(llama_tmp.name, "fleet_sub"), "llama-8b", FLEET_SUB_LAYERS),
+        (os.path.join(llama_tmp.name, "par"), "llama-8b", PAR_LAYERS),
+        (os.path.join(llama_tmp.name, "draft"), DRAFT_PRESET, DRAFT_LAYERS, DRAFT_SEED),
+        (os.path.join(llama_tmp.name, "qwen-pp"), "qwen3-30b-a3b", PP_MOE_LAYERS)])
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5758,7 +5946,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"kernel build: {build_s:.1f} s")
+    mark(f"kernel build: {build_s:.1f} s")
     for name, log in _build.ptxas_log.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
@@ -5784,7 +5972,7 @@ def main() -> int:
             + check_attention_strided(device, gen) + check_decode_stats(device, gen)
             + check_q40_tp(device, gen) + check_lane_shards(device, gen)
             + check_moe_tp(device, gen) + check_pp_waves(device, gen))
-    print(f"kernel rows (phase 2): {time.perf_counter() - t0:.1f} s")
+    mark(f"kernel rows (phase 2): {time.perf_counter() - t0:.1f} s")
     for r in rows:
         times = "".join(
             f" {key} {'none' if r[key] is None else format(r[key], '.4f')}"
@@ -5825,17 +6013,28 @@ def main() -> int:
         )
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_lint_faults(tmp)
+    mark(f"graph lint faults phase: {time.perf_counter() - t0:.1f} s")
 
     from dllama_tpu_torch.models.synthetic import PRESETS
 
     counts, streams, tok_s, depths = {}, {}, {}, {}
-    # qwen3-30b-a3b's whole-depth file, written by a child while the card
-    # runs the llama-8b paths (stopped at exit if a phase fails first)
-    moe_tmp = tempfile.TemporaryDirectory()
-    writer = start_prewrite(moe_tmp.name, "qwen3-30b-a3b", MOE_LAYERS, 4096, SEED)
-    # the whole llama-8b file, kept past its phases for the parallel round
-    llama_tmp = tempfile.TemporaryDirectory()
-    atexit.register(lambda: writer[0].poll() is None and writer[0].kill())
+    # the files of the paths after the llama-8b phases, a directory each,
+    # written by a second child while the card runs those phases (stopped at
+    # exit if a phase fails first)
+    ahead_tmp = tempfile.TemporaryDirectory()
+    ahead = {(model, n_layers): os.path.join(ahead_tmp.name, f"{model}-{n_layers}")
+             for model, _, n_layers, _ in MODELS[1:]}
+    writer = start_prewrite([(d, preset, n_layers) for (_, preset, n_layers, _), d
+                             in zip(MODELS[1:], ahead.values())])
+    finish_prewrite(llama_writer, f"llama-8b {N_LAYERS} layers and the serving, parallel and "
+                    f"draft rounds' files")
+    # the parallel and pipeline rounds' worlds and CLI runs, on two threads
+    # beside the single-process paths after the fleet phase (`Worker`)
+    workers = (Worker("smoke-ranks-a"), Worker("smoke-ranks-b"))
+    finish_rounds = []
     for model, preset, n_layers, formats in MODELS:
         depth = PRESETS[preset]["n_layers"]
         if n_layers < depth:
@@ -5846,65 +6045,71 @@ def main() -> int:
                    "repeat of the first")
             print(f"{model} {', '.join(formats)}: depth cut to {n_layers} of {depth} layers "
                   f"({why})")
-        ahead = model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS
         whole_llama = model == "llama-8b" and n_layers == N_LAYERS
-        with (moe_tmp if ahead else contextlib.nullcontext(llama_tmp.name) if whole_llama
-              else tempfile.TemporaryDirectory()) as tmp:
-            if ahead:
-                finish_prewrite(writer, f"{model} {n_layers} layers")
-            for spec in formats:
-                weight_format, _, kv_dtype = spec.partition(" kv-")
+        tmp = llama_tmp.name if whole_llama else ahead[(model, n_layers)]
+        if not whole_llama and writer is not None:
+            finish_prewrite(writer, "the files of the paths after the llama-8b phases")
+            writer = None
+        for spec in formats:
+            weight_format, _, kv_dtype = spec.partition(" kv-")
+            t0 = time.perf_counter()
+            label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
+                                                            weight_format, tmp, kv_dtype or None)
+            counts[label], streams[label], depths[label] = counts_, tokens, n_layers
+            mark(f"path {label}: {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if whole_llama:  # the serving phase, same file
+            for kv_dtype in (None, "int8"):
                 t0 = time.perf_counter()
-                label, counts_, tokens, tok_s[label] = run_path(model, preset, n_layers,
-                                                                weight_format, tmp,
-                                                                kv_dtype or None)
-                counts[label], streams[label], depths[label] = counts_, tokens, n_layers
-                print(f"path {label}: {time.perf_counter() - t0:.1f} s")
+                tag = f" kv-{kv_dtype}" if kv_dtype else ""
+                counts.update(serving("cuda", tmp, tok_s.get("llama-8b q40"), smi, kv_dtype))
+                mark(f"serving phase{tag}: {time.perf_counter() - t0:.1f} s")
                 gc.collect()
                 torch.cuda.empty_cache()
-            if whole_llama:  # the serving phase, same file
-                for kv_dtype in (None, "int8"):
-                    t0 = time.perf_counter()
-                    tag = f" kv-{kv_dtype}" if kv_dtype else ""
-                    counts.update(serving("cuda", tmp, tok_s.get("llama-8b q40"), smi,
-                                          kv_dtype))
-                    print(f"serving phase{tag}: {time.perf_counter() - t0:.1f} s")
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                t0 = time.perf_counter()
-                counts.update(serving_single("cuda", tmp, smi))
-                print(f"serving single phase: {time.perf_counter() - t0:.1f} s")
-                gc.collect()
-                torch.cuda.empty_cache()
-                t0 = time.perf_counter()
-                counts.update(serving_draft(tmp, smi))
-                print(f"serving draft phase: {time.perf_counter() - t0:.1f} s")
-                t0 = time.perf_counter()
-                counts.update(mixed_kv(tmp, smi, streams.get("llama-8b q40")))
-                print(f"mixed-kv phase: {time.perf_counter() - t0:.1f} s")
-                t0 = time.perf_counter()
-                counts.update(serving_fleet(tmp, smi))
-                print(f"fleet phase: {time.perf_counter() - t0:.1f} s")
-                gc.collect()
-                torch.cuda.empty_cache()
-            if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
-                t0 = time.perf_counter()
-                counts.update(moe_dedup(tmp, smi))
-                print(f"dedup phase: {time.perf_counter() - t0:.1f} s")
-    # the parallel round last, on the whole llama-8b file: its ranks move
-    # every collective through host copies, so it runs once the child
-    # writing the qwen3 file has ended (the two shared the host's cores)
-    gc.collect()
-    torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            counts.update(serving_single("cuda", tmp, smi))
+            mark(f"serving single phase: {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            counts.update(mixed_kv(tmp, smi, streams.get("llama-8b q40")))
+            mark(f"mixed-kv phase: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            counts.update(serving_fleet(tmp, smi))
+            mark(f"fleet phase: {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the worlds start here, after every round the watchdog gates
+            t0 = time.perf_counter()
+            finish_rounds = [parallel_round(tmp, smi, workers),
+                             pipeline_round(tmp, smi, workers)]
+            mark(f"parallel and pipeline one-rank references: {time.perf_counter() - t0:.1f} s; "
+                 f"their worlds and CLI runs go on beside the paths below")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            counts.update(serving_draft(tmp, smi))
+            mark(f"serving draft phase: {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if model == "qwen3-30b-a3b" and n_layers == MOE_LAYERS:
+            t0 = time.perf_counter()
+            counts.update(moe_dedup(tmp, smi))
+            mark(f"dedup phase: {time.perf_counter() - t0:.1f} s")
+        if not whole_llama:
+            shutil.rmtree(tmp)
+    # the parallel and pipeline rounds' reports, once their worlds end
+    mark("waiting for the parallel and pipeline rounds' worlds and CLI runs")
     t0 = time.perf_counter()
-    counts.update(parallel_round(llama_tmp.name, smi))
-    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    counts.update(pipeline_round(llama_tmp.name, smi))
-    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+    for name, finish in zip(("parallel", "pipeline"), finish_rounds):
+        counts.update(finish())
+        mark(f"{name} phase: its worlds and CLI runs ended {time.perf_counter() - t0:.1f} s "
+             f"after the other paths")
+    for w in workers:
+        w.close()
     llama_tmp.cleanup()
+    ahead_tmp.cleanup()
     for label in streams:
         model, fmt = label.split(" ", 1)
         if (fmt in ("q40i4", "q40i8", "q40 kv-int8") and f"{model} q40" in streams
@@ -5934,6 +6139,105 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def graph_lint(engine, label: str) -> dict:
+    """The captured-graph lint over every key of ``engine`` once its graphs
+    are captured (analysis/graphlint.py; ``DLLAMA_XLALINT=strict`` for the
+    whole run, so each capture was linted as it landed): a line a key with
+    its nodes by kind, kernel nodes and their count a token, the key's
+    launch budget and the seconds reading and linting added to its
+    capture; zero new findings and at least one graph."""
+    rep = engine.xlalint_report()
+    lint_s = [p["lint_seconds"] or 0.0 for p in rep["programs"]]
+    for p in rep["programs"]:
+        print(f"graphlint {label} {p['name']}: nodes {json.dumps(p['nodes'])}, kernel nodes "
+              f"{p['kernel_nodes']} ({p['kernel_nodes_per_token']:.1f} a token of "
+              f"{p['tokens']}), budget {p['kernel_budget']}, lint s {p['lint_seconds']:.4f}")
+    print(f"graphlint {label}: mode {rep['mode']}, {rep['n_programs']} graphs, "
+          f"{len(rep['skipped'])} keys with no graph {rep['skipped']}, new findings "
+          f"{len(rep['new_findings'])}; lint s a capture: mean "
+          f"{statistics.mean(lint_s) if lint_s else 0.0:.4f}, max {max(lint_s, default=0.0):.4f}, "
+          f"sum {sum(lint_s):.3f}")
+    require(rep["mode"] == "strict", f"graphlint {label}: mode {rep['mode']}, wanted strict")
+    require(rep["n_programs"] > 0, f"graphlint {label}: no captured graph was read")
+    require(not rep["new_findings"], f"graphlint {label}: {rep['new_findings']}")
+    return rep
+
+
+# the planted faults' engine: a KV plane of 128 MiB, above the pool-block
+# check's floor (analysis/rules_graph.py `PLANE_BLOCK_MIN_BYTES`)
+LINT_CFG = dict(dim=1024, hidden_dim=2048, n_layers=8, n_heads=8, n_kv_heads=8, head_dim=128,
+                vocab_size=1024, seq_len=8192, rope_theta=500000.0)
+
+
+def graph_lint_faults(tmp: str) -> None:
+    """One planted fault per graph rule, each captured by a small bf16
+    engine's `StepGraphs` under a key of its own and linted by the engine's
+    capture hook in strict mode: it must raise `XlalintError` naming its
+    rule and the finding's message, and count in
+    ``dllama_xlalint_findings_total``. The counterparts of
+    tests/test_xlalint.py's ``*_fires_on_real_executable``: a copy into
+    pinned host memory (``hlo-host``), a clone of a KV plane (a memcpy node,
+    ``hlo-donation``), a kernel-made copy of a KV plane kept past the
+    capture (a plane-sized block in the graphs' pool, ``hlo-donation``), an
+    f32 ``torch.matmul`` on a bf16 weight (``hlo-dtype``), a step over its
+    launch budget (``hlo-cost-budget``)."""
+    import torch
+
+    from dllama_tpu_torch.analysis.graphlint import XlalintError, launch_budget, layer_launches
+    from dllama_tpu_torch.models.synthetic import write_synth_model
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    mp = os.path.join(tmp, "lint.m")
+    write_synth_model(mp, LINT_CFG, max_seq_len=LINT_CFG["seq_len"])
+    eng = InferenceEngine(mp, dtype=torch.bfloat16, weight_format="dense", device="cuda")
+    dev = eng.device
+    plane = eng.cache["k"]
+    require(plane.numel() * plane.element_size() >= 128 << 20,
+            f"graphlint faults: a KV plane of {plane.numel() * plane.element_size()} B")
+    x = torch.ones(4096, device=dev)
+    pinned = torch.empty(4096, pin_memory=True)
+    rows = torch.ones(8, eng.header.dim, device=dev, dtype=torch.bfloat16)
+    wq = eng.params["layers"][0]["wq"]
+    kept: dict = {}
+    over = launch_budget(1, eng.header.n_layers, layer_launches(eng.weight_format)) + 64
+
+    def many():
+        for _ in range(over):
+            x.add_(1.0)
+
+    faults = (  # (rule, what its message must say, the fault)
+        ("hlo-host", "host-transfer memcpy 'device-to-host'",
+         lambda: pinned.copy_(x, non_blocking=True)),
+        ("hlo-donation", "a memcpy node moves a whole KV plane",
+         lambda: kept.__setitem__("clone", plane.clone())),
+        ("hlo-donation", "capture left a block of a KV plane's size",
+         lambda: kept.__setitem__("product", plane * 1)),
+        ("hlo-dtype", "upcast to an f32 GEMM",
+         lambda: kept.__setitem__("y", torch.matmul(rows.float(), wq.float().t()))),
+        ("hlo-cost-budget", "kernel nodes exceed", many),
+    )
+    counter = eng._m_xlalint
+    for i, (rule, says, fault) in enumerate(faults):
+        key = ("prefill", 1000 + i, False)  # a key of its own, budgeted as a prefill chunk
+        n0 = counter.value
+        t0 = time.perf_counter()
+        try:
+            eng.graphs.run(key, fault)
+        except XlalintError as e:
+            msg = str(e)
+        else:
+            msg = ""
+        torch.cuda.synchronize()
+        print(f"graphlint fault {rule} ({says}): {time.perf_counter() - t0:.3f} s, "
+              f"dllama_xlalint_findings_total +{counter.value - n0}; {msg[:600]}")
+        require(f"[{rule}] " in msg and says in msg,
+                f"graphlint fault {rule} ({says}): strict mode raised {msg!r}")
+        require(counter.value > n0 or not eng.obs.enabled,
+                f"graphlint fault {rule}: the counter did not move")
+    kept.clear()
+    release_engine(eng)
 
 
 def release_engine(engine) -> None:
@@ -6103,6 +6407,8 @@ def moe_dedup(tmp: str, smi: str) -> dict:
                     streams[lane].append(t)
                 toks = row
             pos = [p + BLOCK for p in pos]
+        if dedup:  # the two-tier decode's census (graphlint `MOE_DEDUP_LAYER_LAUNCHES`)
+            graph_lint(eng, "qwen3-30b-a3b q40 dedup")
         took, steps = tally.tolist()
         return streams, took, steps
 
@@ -6176,6 +6482,7 @@ def moe_dedup(tmp: str, smi: str) -> dict:
 
 
 DRAFT_PRESET, DRAFT_LAYERS = "llama-1b", 16  # the public draft of llama-8b, whole depth
+DRAFT_SEED = SEED + 1  # the draft's own weights
 # round (b): llama-8b's widths cut to 2 of 32 layers (the smoke's time),
 # its own draft; the f32 file of the fleet's f32
 # round and of the parallel and pipeline rounds' f32 runs
@@ -6223,7 +6530,7 @@ def _serve_mix(engine, tok, speculation: str, draft: str | None, payloads, solo=
     srv = serve(engine, tok, host="127.0.0.1", port=0, model_name="llama-8b",
                 chat_template_type=ChatTemplateType.LLAMA3, kv_page_size=PAGE, kv_native=True,
                 speculation=speculation, spec_k=SPEC_K, draft_model=draft)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    serve_thread(srv)
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     sched = srv.state.scheduler
     generated = _track_generated(sched)
@@ -6254,9 +6561,10 @@ def _serve_mix(engine, tok, speculation: str, draft: str | None, payloads, solo=
 
 def serving_draft(tmp: str, smi: str) -> dict:
     """Draft-model speculation (``--speculation draft``) in the serving
-    phase. (a) The public pairing: the target is llama-8b q40 (the `N_LAYERS`-layer
-    file in tmp) over 4 pool-native lanes, the draft llama-1b (16 layers,
-    written as Q40 with its own seed, loaded dense bf16); the seven-request
+    phase. (a) The public pairing: the target is llama-8b q40 at full width
+    (the `PAR_LAYERS`-layer file in tmp/par, for the smoke's time) over 4
+    pool-native lanes, the draft llama-1b (16 layers, written as Q40 with
+    its own seed into tmp/draft, ahead or here, loaded dense bf16); the seven-request
     mix with speculation off and draft in turns (`DRAFT_TURNS`), the first
     draft turn's answers each replayed alone. Gated: every request ends
     with stop or length, the draft model drafted. Printed: where each
@@ -6281,14 +6589,17 @@ def serving_draft(tmp: str, smi: str) -> dict:
     from dllama_tpu_torch.runtime.engine import InferenceEngine
     from dllama_tpu_torch.tokenizer import Tokenizer
 
-    mp, tp = os.path.join(tmp, "model.m"), os.path.join(tmp, "tok.t")
+    mp, tp = os.path.join(tmp, "par", "model.m"), os.path.join(tmp, "tok.t")
     tok = Tokenizer(tp)
     payloads = serving_payloads(tok)
-    dp = os.path.join(tmp, "draft.m")
-    t0 = time.perf_counter()
-    dh = write_synth_model(dp, DRAFT_PRESET, seed=SEED + 1, max_seq_len=4096,
-                           n_layers=DRAFT_LAYERS)
-    write_s = time.perf_counter() - t0
+    dp = os.path.join(tmp, "draft", "model.m")
+    written = "written ahead"
+    if not os.path.exists(dp):  # written ahead (`start_prewrite`)
+        os.makedirs(os.path.dirname(dp), exist_ok=True)
+        t0 = time.perf_counter()
+        write_synth_model(dp, DRAFT_PRESET, seed=DRAFT_SEED, max_seq_len=4096,
+                          n_layers=DRAFT_LAYERS)
+        written = f"written in {time.perf_counter() - t0:.1f} s"
     engine = InferenceEngine(mp, temperature=0.0, seed=SEED, weight_format="q40",
                              device="cuda", batch_size=SERVE_LANES)
     out, tok_s, first, off_res = {}, {True: [], False: []}, None, None
@@ -6302,13 +6613,16 @@ def serving_draft(tmp: str, smi: str) -> dict:
         if draft and first is None:
             out["llama-8b q40 serving draft"] = launch_counts()
             graphs = {k: engine.graphs.count(k) for k in ("draft_prefill", "draft_step")}
+            graph_lint(engine, "llama-8b q40 serving draft")
             first = (mixes[0], alone, specs[0])
         elif not draft and off_res is None:
             off_res = mixes[0]
     res, alone, spec = first
-    print(f"== llama-8b q40 serving draft: speculation draft, spec_k {SPEC_K}, draft "
+    dh = engine._draft_header
+    print(f"== llama-8b q40 serving draft: {engine.header.n_layers} layers, speculation draft, "
+          f"spec_k {SPEC_K}, draft "
           f"{DRAFT_PRESET} ({dh.n_layers} layers, dim {dh.dim}, head dim {dh.head_dim}, vocab "
-          f"{dh.vocab_size}; written as Q40 in {write_s:.1f} s, loaded dense bf16: "
+          f"{dh.vocab_size}; Q40, {written}, loaded dense bf16: "
           f"{nbytes(engine._draft_params) / 1e9:.3f} GB, draft cache "
           f"{nbytes(engine.draft_cache) / 1e9:.3f} GB); {len(payloads)} requests, "
           f"{SERVE_LANES} lanes; {smi}")
@@ -6340,7 +6654,8 @@ def serving_draft(tmp: str, smi: str) -> dict:
     sub = os.path.join(tmp, "accept")
     os.makedirs(sub, exist_ok=True)
     ap = os.path.join(sub, "model.m")
-    write_synth_model(ap, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=ACCEPT_LAYERS)
+    if not os.path.exists(ap):  # written ahead (`start_prewrite`)
+        write_synth_model(ap, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=ACCEPT_LAYERS)
     engine = InferenceEngine(ap, dtype=torch.float32, temperature=0.0, seed=SEED,
                              weight_format="q40", device="cuda", batch_size=SERVE_LANES)
     (truth,), _, _, _ = _serve_mix(engine, tok, "off", None, payloads)
@@ -6414,7 +6729,8 @@ def _fleet_mix(url: str, payloads: list[dict]) -> tuple[list, float]:
             errors.append((i, repr(e)))
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(payloads))]
+    threads = [threading.Thread(target=send, args=(i,), daemon=True,
+                                name=f"dllama-smoke-send-{i}") for i in range(len(payloads))]
     for th in threads:
         th.start()
     for th in threads:
@@ -6667,7 +6983,8 @@ def serving_fleet(tmp: str, smi: str, device: str = "cuda") -> dict:
             idle_host[name] = host_ms(log, name)
             snap[name] = settle()
         log, restore = _block_log(engines)
-        both = [threading.Thread(target=_request, args=(fleet.replica_urls[n], solo_req))
+        both = [threading.Thread(target=_request, args=(fleet.replica_urls[n], solo_req),
+                                 daemon=True, name=f"dllama-smoke-{n}")
                 for n in engines]
         try:
             for th in both:
@@ -6773,7 +7090,7 @@ def serving_fleet(tmp: str, smi: str, device: str = "cuda") -> dict:
         def mix():
             holder["res"] = _fleet_mix(url, streams)[0]
 
-        th = threading.Thread(target=mix)
+        th = threading.Thread(target=mix, daemon=True, name="dllama-smoke-mix")
         th.start()
         try:
             require(entered.wait(600), "fleet drain: r1 took no stream")
@@ -6868,7 +7185,8 @@ def serving_fleet(tmp: str, smi: str, device: str = "cuda") -> dict:
     sub = os.path.join(tmp, "fleet_sub")
     os.makedirs(sub, exist_ok=True)
     sp = os.path.join(sub, "model.m")
-    write_synth_model(sp, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=FLEET_SUB_LAYERS)
+    if not os.path.exists(sp):  # written ahead (`start_prewrite`)
+        write_synth_model(sp, "llama-8b", seed=SEED, max_seq_len=4096, n_layers=FLEET_SUB_LAYERS)
     base = _free_port_base(3)
     rport = base + 2
     log_path = os.path.join(sub, "launch.log")
@@ -6988,6 +7306,12 @@ def run_path(model: str, preset: str, n_layers: int, weight_format: str, tmp: st
         sampled_streams(eng, res["prompt_tokens"])
     if eng.weight_format == "q40":
         perplexity_check(eng, res["prompt_tokens"], label)
+    if label == "llama-8b q40":
+        # the single step's graph ("step", greedy) too, for the lint's census
+        eng.reset()
+        eng.decode_step(res["prompt_tokens"][0], 0)
+        eng.reset()
+    graph_lint(eng, label)
     par = parity(eng, res["prompt_tokens"])
     for (name, tag), p in par.items():
         if name == "routing":

@@ -122,7 +122,7 @@ def launch_inprocess_fleet(
                 replica_id=name, **skw,
             )
             # serve_forever returns at FleetHandle.close()'s shutdown()
-            t = threading.Thread(
+            t = threading.Thread(  # dlint: disable=thread-hygiene — serve_forever returns at FleetHandle.close()'s shutdown(); the daemon thread exits with it
                 target=srv.serve_forever, daemon=True,
                 name=f"fleet-replica-{name}",
             )
@@ -150,7 +150,7 @@ def launch_inprocess_fleet(
         registry, Tokenizer(tokenizer_path), host="127.0.0.1", port=0,
         **rkw,
     )
-    rt = threading.Thread(
+    rt = threading.Thread(  # dlint: disable=thread-hygiene — serve_forever returns at FleetHandle.close()'s shutdown(); the daemon thread exits with it
         target=router.serve_forever, daemon=True, name="fleet-router"
     )
     rt.start()
@@ -263,7 +263,8 @@ def main(argv=None) -> None:
 
         def on_term(signum, frame):
             # serve_forever returns; the finally below drains the replicas
-            threading.Thread(target=srv.shutdown, daemon=True).start()
+            threading.Thread(  # dlint: disable=thread-hygiene — shutdown() ends serve_forever, whose finally drains the replicas and exits
+                target=srv.shutdown, daemon=True, name="dllama-fleet-stop").start()
 
         signal.signal(signal.SIGTERM, on_term)
         print(

@@ -233,12 +233,12 @@ class PagedKVManager:
         ``fork_src``), LRU-evicting refcount-1 tree leaves under pressure;
         raises MemoryError when the pool cannot hold them (admission cannot
         go on without somewhere to write). Called under ``lock``."""
-        self._evict_for(n, lane)
+        self._evict_for_locked(n, lane)
         if fork_src is not None:
             return [self.pool.fork(fork_src)]
         return self.pool.alloc(n)
 
-    def _evict_for(self, n: int, lane: int) -> None:
+    def _evict_for_locked(self, n: int, lane: int) -> None:
         """LRU-evict refcount-1 tree leaves until ``n`` pages are free (or
         none is left to evict). Called under ``lock``."""
         short = n - self.pool.free_pages
@@ -295,7 +295,8 @@ class PagedKVManager:
         full = list(tokens[: n_full * ps])
         fault = get_fault_plane().draw("dispatch", op="kv_publish")
         if fault is not None:
-            self.publish_skips += 1
+            with self.lock:
+                self.publish_skips += 1
             self.recorder.record(
                 "kv_publish_skipped", lane=lane, want=n_full, error=str(fault)
             )
@@ -345,7 +346,7 @@ class PagedKVManager:
                 return 0
             self.pool.retain(mr.pages)
             try:
-                self._evict_for(n_new, lane)
+                self._evict_for_locked(n_new, lane)
                 if n_new > self.pool.free_pages:
                     # the pool is full of retained and live pages: skip (the
                     # stream already served; only future reuse is lost)
@@ -354,7 +355,7 @@ class PagedKVManager:
                                          free=self.pool.free_pages)
                     return 0
                 diverged = mr.n_tokens > k_shared * ps and len(mr.pages) > k_shared
-                pages = self._alloc_publish_pages(mr.pages[k_shared] if diverged else None,
+                pages = self._alloc_publish_pages_locked(mr.pages[k_shared] if diverged else None,
                                                   n_new, lane)
             finally:
                 self.pool.release(mr.pages)
@@ -363,8 +364,11 @@ class PagedKVManager:
         pool_epoch0 = self.engine.kv_pool_epoch
         try:
             self.engine.kv_publish(lane, pages, start_page=k_shared)
-        except Exception:
-            if self.engine.kv_pool_epoch != pool_epoch0:
+        except Exception as e:
+            poisoned = self.engine.kv_pool_epoch != pool_epoch0
+            self.recorder.record("kv_publish_failed", lane=lane, poisoned=poisoned,
+                                 error=str(e))
+            if poisoned:
                 # the copy failed inside the pool's guard, which zeroed the
                 # pool: every stored page is gone with it
                 logger.exception("kv_publish poisoned the pool; resetting")
@@ -376,7 +380,8 @@ class PagedKVManager:
                 with self.lock:
                     self.pool.release(pages)
                     self._update_gauges_locked()
-            self.publish_skips += 1
+            with self.lock:
+                self.publish_skips += 1
             return 0
         with self.lock:
             try:
@@ -389,7 +394,7 @@ class PagedKVManager:
             self._update_gauges_locked()
         return n_new
 
-    def _alloc_publish_pages(self, fork_page: int | None, n_new: int,
+    def _alloc_publish_pages_locked(self, fork_page: int | None, n_new: int,
                              lane: int) -> list[int] | None:
         """``n_new`` pages for a slab publish, the first a copy-on-write
         fork of ``fork_page`` when the stored prefix diverged mid-page; None

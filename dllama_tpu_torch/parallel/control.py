@@ -131,7 +131,7 @@ class _RecordTape:
         return value
 
     def launch(self) -> None:
-        self.ctl._send_pending()
+        self.ctl._send_pending_locked()  # called inside the Controller's call()
 
 
 class _ReplayTape:
@@ -229,13 +229,17 @@ class Controller:
                     self._depth -= 1
                     engine.tape = None
                 if self._pending is not None:  # host state only: sent once done
-                    self._send_pending()
+                    self._send_pending_locked()
                 self._digest.add(name, out, cmd.temperature)
                 return out
 
         return call
 
-    def _send_pending(self) -> None:
+    def _send_pending_locked(self) -> None:
+        """Send the pending command once. Called under ``_lock``: from
+        ``call`` and from its tape's ``launch``, which the engine calls
+        inside the wrapped dispatch on the caller's thread, so the
+        heartbeat never broadcasts on the group at the same time."""
         cmd, self._pending = self._pending, None
         if cmd is not None:
             self._send(cmd)
@@ -265,8 +269,9 @@ class Controller:
 
     def summary(self) -> dict:
         """The commands sent and the digest of the tokens returned."""
-        return {"commands": self.commands, "returns": self._digest.n,
-                "digest": self._digest.hexdigest()}
+        with self._lock:
+            return {"commands": self.commands, "returns": self._digest.n,
+                    "digest": self._digest.hexdigest()}
 
     def stop(self) -> dict:
         """Send ``stop`` (every follower's `follow` returns), unwrap the

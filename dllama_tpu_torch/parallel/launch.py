@@ -182,8 +182,9 @@ def lead(target, follower, world: int, device: str = "cuda", args=()):
                  for r in range(1, world)]
         for p in procs:
             p.start()
-        threading.Thread(target=_watch, args=(procs, results, got, done), daemon=True,
-                         name="dllama-rank-watch").start()
+        watcher = threading.Thread(target=_watch, args=(procs, results, got, done),
+                                   daemon=True, name="dllama-rank-watch")
+        watcher.start()
         dev = rank_device(device, 0)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -201,6 +202,7 @@ def lead(target, follower, world: int, device: str = "cuda", args=()):
                                    "rank 0")
         finally:
             done.set()
+            watcher.join(timeout=1.0)  # it polls every 0.2 s
             if dist.is_initialized():
                 dist.destroy_process_group()
             _stop(procs)
@@ -626,7 +628,8 @@ def ask_all(url: str, payloads: list[dict], concurrent: bool = True, counted: bo
     def one(i):
         answers[i] = fn(url, payloads[i])
 
-    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+    threads = [threading.Thread(target=one, args=(i,), daemon=True, name=f"dllama-ask-{i}")
+               for i in range(len(payloads))]
     for t in threads:
         t.start()
     for t in threads:
@@ -666,7 +669,9 @@ def serve_target(world: World, jobs: list[dict]) -> list[dict]:
             ctl = Controller(eng, mesh, timeout_s=timeout_s)
             srv = serve(eng, Tokenizer(job["tokenizer"]), host="127.0.0.1", port=0,
                         **job.get("serve", {}))
-            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            srv_thread = threading.Thread(target=srv.serve_forever, daemon=True,
+                                          name="dllama-serve")
+            srv_thread.start()
             url = f"http://127.0.0.1:{srv.server_address[1]}"
             try:
                 res["answers"], res["tokens"], res["wall_s"] = [], [], []
@@ -681,6 +686,7 @@ def serve_target(world: World, jobs: list[dict]) -> list[dict]:
                     res["health"] = json.loads(r.read())
             finally:
                 srv.shutdown()
+                srv_thread.join()
                 srv.server_close()
                 res["summary"] = ctl.stop()
                 faults.set_fault_plane("")

@@ -308,7 +308,7 @@ class LoadPredictor:
             return None
         try:
             child = hist.labels(kind=kind)
-        except Exception:  # the cold floor is the documented fallback
+        except Exception:  # dlint: disable=silent-except — best-effort cost probe; the predictor's cold floor is the documented fallback
             return None
         if getattr(child, "count", 0) < self.MIN_STEP_SAMPLES:
             return None
@@ -326,7 +326,7 @@ class LoadPredictor:
             info = report.get("kinds", {}).get(kind)
             if info is not None:
                 est = analytic_step_seconds(info.get("bytes_accessed"), peak)
-        except Exception:  # advisory: a failed read degrades to the cold floor
+        except Exception:  # dlint: disable=silent-except — cost model is advisory; a failed walk degrades to the cold floor, never blocks admission
             est = None
         if est is not None:
             self._analytic[kind] = est

@@ -34,6 +34,9 @@ src/dllama-api.cpp):
   kind, the span timeline as Chrome-trace JSON, the SLO windows, the
   in-process series, the load predictor's calibration with the occupancy
   it forecasts against and its recent errors;
+* ``GET /v1/debug/xlalint`` — the lint of every CUDA graph the engine
+  captured (analysis/graphlint.py, `InferenceEngine.xlalint_report`): each
+  graph's census, the findings new and baselined, the keys with no graph;
 * ``POST /v1/debug/profile`` — a ``torch.profiler`` capture (CPU, and CUDA
   on the card) of ``seconds`` written as a Chrome trace into ``out_dir``;
   it starts and stops on the scheduler thread between dispatches, each
@@ -691,7 +694,7 @@ class LaneScheduler:
         for fn, box in calls:
             try:
                 box["value"] = fn()
-            except Exception as e:
+            except Exception as e:  # dlint: disable=silent-except — handed to the waiting caller, which re-raises it
                 box["error"] = e
             box["done"].set()
 
@@ -1126,6 +1129,8 @@ class LaneScheduler:
             )
         except Exception as e:
             logger.exception("resume of a parked stream on lane %d failed", lane)
+            st.recorder.record("resume_error", lane=lane, error=str(e),
+                               error_type=type(e).__name__)
             st.spans.end(job.queue_span, error=str(e))
             st.spans.end(ls.decode_span, error=str(e))
             job.events.put(("error", {"message": str(e), "retryable": True}))
@@ -1193,6 +1198,8 @@ class LaneScheduler:
                 adopt_pages=adopt_pages, start_pos=start_pos,
             )
         except Exception as e:
+            state.recorder.record("admission_refused", lane=lane, error=str(e),
+                                  error_type=type(e).__name__)
             state.spans.end(job.queue_span, error=str(e))
             job.events.put(("error", {"message": str(e), "retryable": False}))
             self._finish_span(job, "error")
@@ -2039,7 +2046,7 @@ class ApiState:
         predicted drain, the JAX server's constants its floors. The
         serialized path has no queue and no predictor: a drain and the
         degraded ``low`` refusal only."""
-        if self.draining:
+        if self.drain_state()[0]:
             return "draining", self.predicted_retry_after(RETRY_AFTER_DRAINING)
         sched, depth = self.scheduler, self.max_queue_depth
         if (sched is not None and depth > 0
@@ -2077,13 +2084,20 @@ class ApiState:
             start = not self.draining
             if start:
                 self.draining, self.draining_since = True, time.time()
+            since = self.draining_since
         if start:
             in_flight = self.in_flight()
             self.g_draining.set(1)
             self.recorder.record("drain_begin", in_flight=in_flight)
-            threading.Thread(target=self._drain_watch, daemon=True, name="dllama-drain").start()
+            threading.Thread(  # dlint: disable=thread-hygiene — the drained event is the join surface; the process exits after it fires
+                target=self._drain_watch, daemon=True, name="dllama-drain").start()
         return {"status": "draining", "in_flight": self.in_flight(),
-                "drained": self.drained.is_set(), "since_unix": self.draining_since}
+                "drained": self.drained.is_set(), "since_unix": since}
+
+    def drain_state(self) -> tuple[bool, float | None]:
+        """(draining, its start in Unix seconds), read under ``_lock``."""
+        with self._lock:
+            return self.draining, self.draining_since
 
     def _drain_watch(self) -> None:
         """Poll until nothing is in flight, flush the span sink, then set
@@ -2093,7 +2107,7 @@ class ApiState:
             time.sleep(0.05)
         self.spans.flush()
         self.recorder.record("drain_complete")
-        since = self.draining_since
+        since = self.drain_state()[1]
         self.recorder.record("drained", in_flight=0,
                              drain_s=round(time.time() - since, 3) if since is not None else 0.0)
         self.drained.set()
@@ -2173,10 +2187,11 @@ class ApiState:
                                    "backend": engine.mesh.backend, "ranks": engine.world}
             payload["parallel"].update({k: n for k, n in (("pp", engine.pp), ("dp", engine.dp))
                                         if n > 1})
-        if self.draining:
+        draining, since = self.drain_state()
+        if draining:
             # draining wins: routers must stop sending traffic
             payload["status"] = "draining"
-            payload["draining_since_unix"] = self.draining_since
+            payload["draining_since_unix"] = since
         return payload
 
     # -- the serialized path -------------------------------------------------
@@ -2353,7 +2368,7 @@ _KNOWN_PATHS = frozenset({
     "/v1/chat/completions", "/v1/models", "/v1/health", "/v1/debug/recorder",
     "/v1/debug/memory", "/v1/debug/compile", "/v1/debug/kv", "/v1/debug/timeline",
     "/v1/debug/slo", "/v1/debug/series", "/v1/debug/profile", "/v1/debug/admission",
-    "/v1/drain", "/dashboard", "/metrics", "/health", "/healthz",
+    "/v1/debug/xlalint", "/v1/drain", "/dashboard", "/metrics", "/health", "/healthz",
 })
 
 
@@ -2601,6 +2616,9 @@ def make_handler(state: ApiState):
                 self._json(state.slo.snapshot())
             elif path == "/v1/debug/admission":
                 self._json(state.admission_snapshot())
+            elif path == "/v1/debug/xlalint":
+                # the captured-graph lint over every key (analysis/graphlint.py)
+                self._json(state.engine.xlalint_report())
             elif path == "/v1/debug/series":
                 name = arg("name")
                 if name is None:
@@ -2653,6 +2671,7 @@ def make_handler(state: ApiState):
                 result = profile_capture(state, seconds, out_dir)
             except Exception as e:
                 logger.exception("profile capture failed")
+                state.recorder.record("profile_capture_error", error=str(e))
                 self._json({"error": {"message": f"profile capture failed: {e}"}}, 500)
                 return
             finally:
@@ -2738,6 +2757,8 @@ def make_handler(state: ApiState):
                         return
                     except Exception as e:
                         logger.exception("serialized completion failed")
+                        state.recorder.record("completion_error", error=str(e),
+                                              error_type=type(e).__name__)
                         self._json({"error": {"message": str(e)}}, 500)
                         return
                     self._json(response)
@@ -2765,6 +2786,8 @@ def make_handler(state: ApiState):
                 return
             except Exception as e:
                 logger.exception("serialized completion failed")
+                state.recorder.record("completion_error", error=str(e),
+                                      error_type=type(e).__name__)
                 _sse_write(self.wfile, f"data: {json.dumps({'error': {'message': str(e)}})}"
                                        "\r\n\r\n")
             final = _chunk_payload(state, None, True, finish_reason, meta=_span_metadata(span))
@@ -3028,7 +3051,8 @@ def _install_drain_handler(server) -> None:
             server.state.drained.wait(timeout=60.0)
             server.shutdown()
 
-        threading.Thread(target=wait_and_stop, daemon=True, name="dllama-drain-stop").start()
+        threading.Thread(  # dlint: disable=thread-hygiene — process is exiting; server.shutdown() is the terminal act
+            target=wait_and_stop, daemon=True, name="dllama-drain-stop").start()
 
     try:
         signal.signal(signal.SIGTERM, on_term)
@@ -3154,8 +3178,9 @@ def _serve_main(args):
     _install_drain_handler(server)
     if ctl is not None:
         for event in (server.state.drained, ctl.lost):
-            threading.Thread(target=lambda ev=event: (ev.wait(), server.shutdown()),
-                             daemon=True, name="dllama-control-stop").start()
+            threading.Thread(  # dlint: disable=thread-hygiene — its event's shutdown() ends serve_forever; the daemon thread exits with the process
+                target=lambda ev=event: (ev.wait(), server.shutdown()),
+                daemon=True, name="dllama-control-stop").start()
     print(f"Server URL: http://{args.host}:{server.server_address[1]}/v1/", flush=True)
     try:
         server.serve_forever()

@@ -144,6 +144,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import os
 import threading
 import time
 
@@ -175,6 +177,8 @@ from .faults import get_fault_plane
 from .graphs import StepGraphs
 from .sampler import Sampler, sample_per_lane
 from .spec import spec_buckets
+
+logger = logging.getLogger(__name__)
 
 # Prefill chunk buckets, the default of ``prefill_buckets`` (the reference's
 # --nBatches role; the JAX engine compiles one program per bucket, the port
@@ -381,6 +385,17 @@ class InferenceEngine:
         self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        # graph key -> [dispatches, device seconds, flops, bytes], settled
+        # ones only; the dispatches whose end event has not completed wait
+        # in _cost_pending
+        self._key_cost: dict = {}
+        self._cost_pending: list = []
+        self._cost_lock = threading.Lock()
+        # the captured-graph lint (analysis/graphlint.py): every capture is
+        # linted as it lands; "0"/"off" disables, "strict" raises
+        # XlalintError on a new finding, anything else warns
+        self._xlalint_mode = os.environ.get("DLLAMA_XLALINT", "warn").strip().lower()
+        self._xlalint_baseline: set | None = None
         self._init_obs()
         # a gloo collective cannot be captured: world > 1 runs eagerly
         self.graphs = StepGraphs(self.device, cuda_graphs and self.world == 1)
@@ -510,8 +525,9 @@ class InferenceEngine:
         per-token histograms, the capture (compile), cache-epoch and COW
         copy counters, the flight recorder and the span tracker, created
         before the first dispatch; every handle is a no-op while the
-        registry is disabled. The per-key cost accumulator feeds
-        `cost_report`, the registry's ``engine.cost`` refresh hook."""
+        registry is disabled. The per-key cost accumulator (made in
+        ``__init__``) feeds `cost_report`, the registry's ``engine.cost``
+        refresh hook."""
         self.obs = get_registry()
         self.recorder = get_recorder()
         self._spans = get_span_tracker()
@@ -540,18 +556,18 @@ class InferenceEngine:
             "time / tokens in the block).",
             buckets=DEFAULT_TOKEN_BUCKETS_S,
         )
+        self._m_xlalint = self.obs.counter(
+            "dllama_xlalint_findings_total",
+            "New (non-baselined) graphlint findings on freshly captured CUDA "
+            "graphs; any increment means a captured graph broke a host/"
+            "donation/collective/dtype/launch-budget invariant.",
+        )
         self._m_kv_copy_bytes = self.obs.counter(
             "dllama_kv_copy_bytes_total",
             "Device bytes moved by KV page copies: the pool's COW mid-page "
             "forks, and the slab lanes' adopt and publish copies (a native "
             "full-page prefix adoption moves zero bytes).",
         )
-        # graph key -> [dispatches, device seconds, flops, bytes], settled
-        # ones only; the dispatches whose end event has not completed wait
-        # in _cost_pending
-        self._key_cost: dict = {}
-        self._cost_pending: list = []
-        self._cost_lock = threading.Lock()
         # the card's HBM peak, read once here (the refresh hooks run on
         # other threads and read Python numbers only)
         self._hbm_peak = hbm_peak_bytes_per_s(self.device)
@@ -560,6 +576,68 @@ class InferenceEngine:
     def _on_capture(self, key, seconds: float) -> None:
         self._m_compiles.labels(origin="dispatch").inc()
         self.recorder.record("compile", key=str(key), origin="dispatch", s=round(seconds, 4))
+        self._xlalint_after_capture(key)
+
+    @property
+    def _xlalint_on(self) -> bool:
+        return self._xlalint_mode not in ("0", "off", "false")
+
+    def _xlalint_baseline_set(self) -> set:
+        if self._xlalint_baseline is None:
+            from ..analysis.core import load_baseline
+            from ..analysis.graphlint import default_baseline_path
+
+            self._xlalint_baseline = load_baseline(default_baseline_path())
+        return self._xlalint_baseline
+
+    def _xlalint_after_capture(self, key) -> None:
+        """Lint ONE just-captured graph (`StepGraphs` read its nodes; the
+        JAX engine's ``_xlalint_after_compile``). Warn by default;
+        ``DLLAMA_XLALINT=strict`` raises XlalintError, ``0``/``off``
+        disables. Outside strict mode a lint that fails, or a read of the
+        graph that failed (`StepGraphs.read_errors`), does not stop the
+        capture: it is logged and left as a recorder event."""
+        read_error = self.graphs.read_errors.pop(key, None)
+        if not self._xlalint_on or (key not in self.graphs.nodes and read_error is None):
+            return
+        from ..analysis.graphlint import XlalintError, lint_engine_key
+
+        t0 = time.perf_counter()
+        try:
+            if read_error is not None:
+                raise read_error
+            new = lint_engine_key(self, key, self._xlalint_baseline_set())
+        except Exception as e:
+            if self._xlalint_mode == "strict":
+                raise
+            logger.exception("xlalint failed analyzing %r (graph NOT checked)", key)
+            self.recorder.record("xlalint_error", key=str(key), error=str(e))
+            return
+        finally:
+            lint_s = self.graphs.lint_seconds
+            lint_s[key] = lint_s.get(key, 0.0) + time.perf_counter() - t0
+        if not new:
+            return
+        rendered = "; ".join(f.render() for f in new)
+        self._m_xlalint.inc(len(new))
+        self.recorder.record("xlalint", key=str(key), n_findings=len(new))
+        if self._xlalint_mode == "strict":
+            raise XlalintError(
+                f"xlalint: {len(new)} new finding(s) in captured graph {key!r}: {rendered}")
+        logger.warning("xlalint: %d new finding(s) in captured graph %r: %s",
+                       len(new), key, rendered)
+
+    def xlalint_report(self) -> dict:
+        """The captured-graph lint over EVERY key (what ``GET
+        /v1/debug/xlalint`` serves): each graph's census, the findings
+        split new-vs-baselined against xlalint-torch-baseline.json, and the
+        keys skipped for having no graph (eager runs; every key on the
+        CPU)."""
+        from ..analysis.graphlint import lint_engine_report
+
+        rep = lint_engine_report(self, self._xlalint_baseline_set())
+        rep["mode"] = self._xlalint_mode
+        return rep
 
     def _note_cost(self, key, ev, host_s: float, cost) -> None:
         """Queue one finished dispatch for the key's cost accumulator: on
@@ -702,12 +780,13 @@ class InferenceEngine:
     @property
     def graphs(self) -> StepGraphs:
         """The engine's graphs (runtime/graphs.py); one set in their place
-        reports its captures to the engine's compile counter too."""
+        reports its captures to the engine's compile counter and lint too."""
         return self._graphs
 
     @graphs.setter
     def graphs(self, graphs: StepGraphs) -> None:
         graphs.on_capture = self._on_capture
+        graphs.inspect = self._xlalint_on
         self._graphs = graphs
 
     @property

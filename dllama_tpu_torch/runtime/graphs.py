@@ -33,6 +33,17 @@ Graphs run only on a CUDA device and only while ``enabled`` (the engine's
 ``cuda_graphs``); otherwise every run is eager. On the CPU ``enabled`` is
 ignored. Like the engine that owns it, a `StepGraphs` serves one thread
 at a time.
+
+Every capture keeps its ``cudaGraph_t`` (``CUDAGraph(keep_graph=True)``)
+and instantiates it at the end of the capture, which is what PyTorch
+does by default. While ``inspect`` is set (the engine's ``DLLAMA_XLALINT``
+is not off), the kept graph's nodes are read through the CUDA driver
+(analysis/graphlint.py `read_graph`) into ``nodes`` and the sizes of the
+pool blocks the capture left allocated (what outlives it) into
+``pool_blocks``, after the graph is stored. A read that fails is kept in
+``read_errors`` for the capture hook, and the graph stands.
+``lint_seconds`` holds what reading (and the engine's lint,
+`on_capture`) added to each capture.
 """
 
 from __future__ import annotations
@@ -69,6 +80,14 @@ class StepGraphs:
         # called once, right before the next run's replay or eager step,
         # then cleared (the engine's dispatch timing starts there)
         self.before_run: Callable | None = None
+        # graph inspection for the lint (module docstring): key -> node list,
+        # the pool blocks its capture left allocated, the exception a read
+        # raised, the seconds reading and linting took
+        self.inspect = False
+        self.nodes: dict = {}
+        self.pool_blocks: dict = {}
+        self.read_errors: dict = {}
+        self.lint_seconds: dict = {}
 
     @property
     def active(self) -> bool:
@@ -77,6 +96,10 @@ class StepGraphs:
     @property
     def n_graphs(self) -> int:
         return len(self._graphs)
+
+    def keys(self) -> list:
+        """Every key run so far, captured or eager."""
+        return list(dict.fromkeys([*self._buffers, *self._graphs]))
 
     def count(self, kind: str) -> int:
         """Graphs whose key starts with ``kind``."""
@@ -93,6 +116,10 @@ class StepGraphs:
         self._graphs.clear()
         self._buffers.clear()
         self.capture_seconds.clear()
+        self.nodes.clear()
+        self.pool_blocks.clear()
+        self.read_errors.clear()
+        self.lint_seconds.clear()
         self._pool = None
 
     def buffers(self, key, make: Callable[[], dict]) -> dict:
@@ -129,10 +156,18 @@ class StepGraphs:
             self.replays += 1
             return
         step()
-        self._graphs[key] = self._capture(key, step)
+        self._capture(key, step)
 
-    def _capture(self, key, step: Callable[[], None]):
+    def _capture(self, key, step: Callable[[], None]) -> None:
+        """Capture ``step`` as the graph of ``key`` and keep it before it is
+        read and before the capture hook runs: a hook that raises (a strict
+        lint) fails this run, and the graph still holds its share of the
+        pool, which later captures use."""
         before = launch_counts()
+        inspect = self.inspect and self.device.type == "cuda"
+        t0 = time.perf_counter()
+        blocks0 = self._read(key, self._pool_block_set) if inspect else None
+        lint_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         try:
             graph = self._record(step)
@@ -143,18 +178,55 @@ class StepGraphs:
             dt = time.perf_counter() - t0
             self.capture_s += dt
             self.capture_seconds[key] = dt
+        self._graphs[key] = graph, tally
+        if inspect:
+            from ..analysis.graphlint import read_graph
+
+            t0 = time.perf_counter()
+            nodes = self._read(key, lambda: read_graph(graph.raw_cuda_graph()))
+            if nodes is not None:
+                self.nodes[key] = nodes
+            blocks = self._read(key, self._pool_block_set) if blocks0 is not None else None
+            if blocks is not None:
+                self.pool_blocks[key] = sorted(s for _, s in blocks - blocks0)
+            self.lint_seconds[key] = lint_s + time.perf_counter() - t0
         if self.on_capture is not None:
-            self.on_capture(key, dt)
-        return graph, tally
+            self.on_capture(key, self.capture_seconds[key])
+
+    def _read(self, key, read: Callable):
+        """One read of a capture's inspection, or None when it raised: the
+        exception is kept in ``read_errors`` for the capture hook."""
+        try:
+            return read()
+        except Exception as e:  # dlint: disable=silent-except — handed to the capture hook, which records it (xlalint_error) or raises it in strict mode
+            self.read_errors.setdefault(key, e)
+            return None
 
     def _record(self, step: Callable[[], None]):
-        """Capture ``step`` into a CUDA graph in the shared pool."""
+        """Capture ``step`` into a CUDA graph in the shared pool, kept for
+        reading, and instantiate it: the graph a replay runs."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             step()
+        graph.instantiate()
         return graph
+
+    def _pool_block_set(self) -> set:
+        """(address, bytes) of every allocated block in the graphs' pool."""
+        out = set()
+        if self._pool is None:
+            return out
+        for seg in torch.cuda.memory_snapshot():
+            if tuple(seg.get("segment_pool_id", ())) != tuple(self._pool):
+                continue
+            addr = seg["address"]
+            for block in seg["blocks"]:
+                if block["state"] != "inactive":
+                    out.add((addr, block["size"]))
+                addr += block["size"]
+        return out
 
     def buffer_bytes(self) -> int:
         """Bytes of every key's static buffers."""

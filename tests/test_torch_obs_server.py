@@ -3,8 +3,8 @@ CPU, against the JAX lane server on the same tiny f32 model.
 
 * The same request script (a shared prefix, concurrent streams over two
   lanes that park and resume, one fault schedule, one drain) on both
-  servers: ``/metrics`` carries the JAX families less xlalint's and the
-  window crossings', and the deterministic counters are equal.
+  servers: ``/metrics`` carries the JAX families less the window
+  crossings', and the deterministic counters are equal.
 * ``/v1/health`` keeps its fields; a forced watchdog stall (a fake clock)
   and an anomaly (sampler ticks driven by hand) report ``degraded`` and
   shed ``low`` requests with ``Retry-After: 2``.
@@ -57,9 +57,9 @@ KNOBS = dict(lane_block_size=4, admission_chunk=16, kv_page_size=8, max_streams=
              retry_backoff_ms=0)
 PREFIX = "You are a helpful assistant who answers in short sentences. " * 2
 FAULTS = "dispatch:op=decode_lanes:nth=3,dispatch:op=decode_lanes:nth=9:kind=poison"
-# families the port leaves out: xlalint's and the window crossings' (no
-# counterpart in the port)
-LEFT_OUT = ("dllama_xlalint_findings_total", "dllama_engine_window_crossings_total")
+# families the port leaves out: the window crossings' (no counterpart in
+# the port; README.md lists it)
+LEFT_OUT = ("dllama_engine_window_crossings_total",)
 # the counters the script makes deterministic, by family
 COUNTERS = ("dllama_requests_finished_total", "dllama_admissions_total",
             "dllama_prefix_cache_hits_total", "dllama_prefix_cache_misses_total",

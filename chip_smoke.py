@@ -168,9 +168,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
    TOL_E2E of the decode steps').
    An int8-KV run holds every cache of its parity runs in int8.
    This slice's paths (all at full width): the mixed-type attention
-   entries' rows (`check_mixed`: (q, cache) in (f32, bf16), (f32, f16),
-   (bf16, f16), (bf16, f32), slab and paged stats and decode, identity-table
-   bits) and the two-tier MoE decode's rows (`check_moe_tiers`: 4 lanes,
+   entries' rows (`check_mixed`: decode for (q, cache) in (f32, bf16), (f32,
+   f16), (bf16, f16), (bf16, f32), slab and paged, identity-table bits; the
+   prefill stats' one tensor-core body for those pairs and f32 over f32 and
+   over int8, slab on random and adversarial inputs, paged with the identity
+   table's bits, strided, with the passes each pair takes) and the two-tier MoE decode's rows (`check_moe_tiers`: 4 lanes,
    k 8, cap 16, u 8 on the grouped tier and u 32 on the active one); the
    draft rounds once the parallel rounds' worlds have started
    (`serving_draft`: llama-8b q40 at `PAR_LAYERS` layers
@@ -982,8 +984,7 @@ def check_paged_decode(device, gen, timed: bool = True) -> list[dict]:
             n_bytes = (qc.numel() * qc.element_size() + 2 * kh * 128 * qc.element_size()
                        * sum(min(4096, int(p) + t) for p in q_pos0.tolist())
                        + h * 4 * t * (128 + 2) * 4)
-            b_ms, b_by = bound(n_bytes, 4.0 * 128 * h * vis,
-                               F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            b_ms, b_by = bound(n_bytes, 4.0 * 128 * h * vis)  # the tensor cores, any type
             rows.append(dict(
                 name="flash_attention_stats", shape=shape, err=rel, max_abs_err=absd,
                 bound_ms=b_ms, bound_by=b_by,
@@ -1065,8 +1066,7 @@ def check_verify_stats(device, gen, timed: bool = True) -> list[dict]:
             n_bytes = (q.numel() * q.element_size()
                        + 2 * kh * row_bytes * sum(p + t for p in VERIFY_POS)
                        + h * b * t * (hd + 2) * 4 + pt.numel() * 4)
-            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis,
-                               F32_FLOPS if tag == "f32" else BF16_FLOPS)
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis)  # the tensor cores, any type
             row = dict(name=counter.__name__, shape=shape, err=rel, max_abs_err=absd,
                        bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
             if timed:
@@ -1214,7 +1214,7 @@ def check_slab_lanes(device, gen, timed: bool = True) -> list[dict]:
             n_bytes = (q.numel() * q.element_size()
                        + 2 * kh * row_bytes * sum(p + t for p in live_pos)
                        + h * b * t * (hd + 2) * 4)
-            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis, peak)
+            b_ms, b_by = bound(n_bytes, 4.0 * hd * h * vis)  # the stats: tensor cores
             row = dict(name=counter.__name__, shape=shape, err=rel, max_abs_err=absd,
                        bound_ms=b_ms, bound_by=b_by, identity_bits_equal=True)
             if timed:
@@ -1310,7 +1310,9 @@ def check_kv8(device, gen, timed: bool = True) -> list[dict]:
         errs = [norm_err(a, b) for a, b in zip(got_t, ref_t)]
         rel, absd = max(e[0] for e in errs), max(e[1] for e in errs)
         require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
-        b_ms, b_by = bound(n_bytes, ops, F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+        # the stats run on the tensor cores for every type, decode on CUDA cores in f32
+        f32_cores = dtype == torch.float32 and not name.startswith("flash_attention_stats")
+        b_ms, b_by = bound(n_bytes, ops, F32_FLOPS if f32_cores else BF16_FLOPS)
         row = dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
                    bound_by=b_by, **extra)
         if timed and times is not None:
@@ -1492,32 +1494,117 @@ def check_kv8(device, gen, timed: bool = True) -> list[dict]:
 # type unlike the model's (`--kv-dtype`), each pair a ``_mx`` instantiation
 MIXED_PAIRS = (("f32", "bf16"), ("f32", "f16"), ("bf16", "f16"), ("bf16", "f32"))
 MIXED_DECODE_POS = (0, 563, 4095)
+# the prefill stats' pairs beyond bf16 q over a bf16 or int8 cache (the
+# mixed pairs, f32 over f32 and f32 over int8): each enters the tensor
+# cores as bf16 parts of its operands
+STATS_PAIRS = MIXED_PAIRS + (("f32", "f32"), ("f32", "int8"))
+# the bf16 wgmma passes a key tile of the stats body (QK^T, PV) for each
+# (q, cache) pair: csrc/flash_attention.cu's table, which its C entry
+# `flash_attention_stats_plan` must report
+STATS_PASSES = {("bf16", "bf16"): (1, 2), ("bf16", "int8"): (1, 2), ("bf16", "f16"): (2, 3),
+                ("bf16", "f32"): (3, 3), ("f32", "bf16"): (3, 2), ("f32", "int8"): (3, 2),
+                ("f32", "f16"): (5, 3), ("f32", "f32"): (6, 3)}
+TYPE_CODES = {"f32": 0, "bf16": 1, "f16": 2, "int8": 3}  # csrc/common.cuh TypeCode
+
+
+def stats_passes(qn: str, kn: str) -> tuple[int, int]:
+    """(QK^T, PV) passes the stats body issues a key tile for q in ``qn``
+    over a cache in ``kn``, as the compiled source reports them."""
+    from dllama_tpu_torch.ops import _build
+
+    code = _build.load("flash_attention_stats_plan")(TYPE_CODES[qn], TYPE_CODES[kn])
+    require(code > 0, f"flash_attention_stats_plan {qn}/{kn}: no body takes the pair ({code})")
+    return divmod(code, 16)
+
+
+def adversarial_leaf(name: str, shape: tuple, role: str, device, gen):
+    """Inputs that stress the stats body's bf16 parts (the CPU twin is
+    tests/test_torch_stats_parts.py): q rows (``role`` "q") and V rows
+    scaled by 2^12 or 2^-12, K by 2^-12 (some rows 2^-24), so that no score
+    leaves a softmax's working range; in f32 a quarter of the values halfway
+    between two bf16 values; in f16, V values near 65504 and subnormal; in
+    int8 (a QuantKV leaf) a quarter of the values at +-127, K's row scales
+    2^-20 .. 2^-18 and V's 2^8 .. 2^12."""
+    import torch
+
+    from dllama_tpu_torch.ops.kv_cache import QuantKV
+
+    def rand(shp):
+        return torch.rand(shp, device=device, generator=gen)
+
+    def ints(lo, hi, shp):
+        return torch.randint(lo, hi, shp, device=device, generator=gen)
+
+    if name == "int8":
+        edge = torch.where(rand(shape) < 0.5, -127, 127)
+        vals = torch.where(rand(shape) < 0.25, edge, ints(-127, 128, shape)).to(torch.int8)
+        lo, hi = (-20.0, -18.0) if role == "k" else (8.0, 12.0)
+        return QuantKV(vals.contiguous(), torch.exp2(lo + (hi - lo) * rand(shape[:-1] + (1,))))
+    x = torch.randn(shape, device=device, generator=gen)
+    r = ints(0, 8, shape[:-1] + (1,))
+    if role == "k":
+        x = x * torch.where(r == 0, 2.0**-24, 2.0**-12)
+    else:
+        x = x * torch.where(r == 0, 2.0**12, torch.where(r == 1, 2.0**-12, 1.0))
+    if name == "f32":
+        b = x.bfloat16().float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs() + 1e-38)) - 7)
+        x = torch.where(rand(shape) < 0.25, b + ulp / 2, x)
+    if name == "f16" and role == "v":
+        pick, sign = rand(shape), torch.where(rand(shape) < 0.5, -1.0, 1.0)
+        big = (65504.0 - 32.0 * ints(0, 4, shape)) * sign
+        tiny = ints(1, 1024, shape) * 2.0**-24 * sign
+        x = torch.where(pick < 1 / 32, big, torch.where(pick < 1 / 16, tiny, x))
+    types = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    return x.to(types[name]).contiguous()
+
+
+def _shuffled_pages(x, perm):
+    """Pool pages x [1 + n, ...] (page 0 scratch) with page i + 1 moved to
+    page perm[i] + 1; QuantKV leaf by leaf."""
+    from dllama_tpu_torch.ops.kv_cache import QuantKV
+
+    if isinstance(x, QuantKV):
+        return QuantKV(*(_shuffled_pages(t, perm) for t in x))
+    y = x.clone()
+    y[1 + perm] = x[1:]
+    return y
 
 
 def check_mixed(device, gen, timed: bool = True) -> list[dict]:
-    """The mixed-type entries of both attention kernels (``*_mx``: q and the
-    cache each in its own float type, read in its type and computed in f32,
-    as every TPU kernel upcasts its tiles) at llama-8b heads (H 32, KH 8, hd
-    128) for each pair of `MIXED_PAIRS`: slab stats at T 512 over S 4096 at
-    pos 3584, slab decode at `MIXED_DECODE_POS`, and through a shuffled page
-    table (page 16, B 4 at `PAGED_POS`) the paged decode and the paged stats
-    at T 128, the identity table giving the slab entries' bits. Each within
-    TOL (f32 outputs: the stats, and decode under f32 q) or TOL_BF16_OUT
-    (bf16 decode outputs) of its plain version, launched twice with equal
-    bits, counted under its ``*_mixed`` counter. Timed: the kernel, its
-    plain version and ``composite_ms``, the cast of the cache to q's type
-    then SDPA (two calls; ``library_ms`` none: no single PyTorch call
-    attends over a cache of another type)."""
+    """The prefill stats for every pair of `STATS_PAIRS` and the mixed-type
+    decode entries (``*_mx``: q and the cache each in its own float type)
+    for every pair of `MIXED_PAIRS`, at llama-8b heads (H 32, KH 8, hd
+    128). Stats, one tensor-core body for every pair (`stats_passes` must
+    report the passes of `STATS_PASSES`, printed with the body): slab at T
+    512 over S 4096 at pos 3584 on random inputs and on `adversarial_leaf`
+    inputs, through a shuffled page table (page 16, B 4, T 128) with the
+    identity table giving the slab entry's bits, and over a cyclic shard (H
+    16, KH 4, T 256, S 2048, stride 2); each within TOL of its plain version,
+    launched twice with equal bits, counted under its counter (the mixed
+    pairs' ``flash_attention_stats_mixed``, f32 over f32
+    ``flash_attention_stats``, f32 over int8 ``flash_attention_stats_kv8``,
+    the shards ``flash_attention_stats_strided`` and ``_kv8``). Bound: 4 hd
+    operations a visible (query, key) pair at the bf16 tensor-core peak,
+    the f32 peak's figure (``bound_f32_ms``) printed beside it. Decode: slab
+    at `MIXED_DECODE_POS` and through a shuffled page table (B 4 at
+    `PAGED_POS`), the identity table giving the slab entry's bits, within
+    TOL (f32 q) or TOL_BF16_OUT (bf16 outputs). Timed: the kernel, its
+    plain version and ``composite_ms``, the cast (or dequantization) of the
+    cache to q's type then SDPA (two calls; ``library_ms`` none: no single
+    PyTorch call attends over a cache of another type or int8), for f32
+    over f32 ``library_ms`` SDPA in f32."""
     import torch
 
     from dllama_tpu_torch.ops import flash_attention as fa
-    from dllama_tpu_torch.ops.kv_cache import lane_views
+    from dllama_tpu_torch.ops.kv_cache import dequant_kv, lane_views
 
     types = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
     h, kh, hd, t, s = 32, 8, 128, 512, 4096
     rows = []
 
-    def row(name, shape, got, ref, n_bytes, pairs, out_bf16, counter, launches):
+    def row(name, shape, got, ref, n_bytes, pairs, out_bf16, counter, launches, heads=h,
+            stats=False):
         torch.cuda.synchronize(device)
         got_t, ref_t = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
         errs = [norm_err(a, b) for a, b in zip(got_t, ref_t)]
@@ -1526,42 +1613,23 @@ def check_mixed(device, gen, timed: bool = True) -> list[dict]:
         require(rel <= tol, f"{name} {shape}: error {rel:.3e} > {tol}")
         require(counter.launches == launches,
                 f"{name} {shape}: {counter.launches} launches, wanted {launches}")
-        b_ms, b_by = bound(n_bytes, 4.0 * hd * h * pairs, F32_FLOPS)
-        return dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+        # the stats run on the tensor cores for every pair; decode's mixed
+        # bodies on the CUDA cores
+        ops = 4.0 * hd * heads * pairs
+        b_ms, b_by = bound(n_bytes, ops, BF16_FLOPS if stats else F32_FLOPS)
+        r = dict(name=name, shape=shape, err=rel, max_abs_err=absd, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None)
+        if stats:
+            r["bound_f32_ms"] = bound(n_bytes, ops, F32_FLOPS)[0]
+        return r
 
     for qn, kn in MIXED_PAIRS:
         qt, kt = types[qn], types[kn]
         tag, qb, kb = f"{qn}/{kn}", qt.itemsize, kt.itemsize
 
-        def kv(shape):
-            return [torch.randn(shape, device=device, generator=gen).to(kt) for _ in range(2)]
-
-        # slab stats
-        pos = s - t
-        q = torch.randn((1, t, h, hd), device=device, generator=gen).to(qt)
-        k, v = kv((1, kh, s, hd))
-        c = fa.flash_attention_stats_mixed
-        n0 = c.launches
-        got = twice_equal(lambda: fa.flash_attention_stats(q, k, v, pos),
-                          f"flash_attention_stats_mixed {tag}")
-        ref = fa.flash_attention_stats_ref(q, k, v, pos)
-        vis = sum(min(s, pos + i + 1) for i in range(t))
-        n_bytes = q.numel() * qb + 2 * kh * s * hd * kb + h * t * (hd + 2) * 4
-        r = row("flash_attention_stats_mixed", f"{tag} H={h} KH={kh} T={t} S={s} pos={pos}",
-                got, ref, n_bytes, vis, False, c, n0 + 2)
-        if timed:
-            qpos = pos + torch.arange(t, device=device)
-            mask = torch.arange(s, device=device)[None, :] <= qpos[:, None]
-            qs = q.transpose(1, 2)
-            r["ms"] = time_ms(lambda: fa.flash_attention_stats(q, k, v, pos), device)
-            r["plain_ms"] = time_ms(lambda: fa.flash_attention_stats_ref(q, k, v, pos), device, 5)
-            r["composite_ms"] = time_ms(lambda: _sdpa(qs, k.to(qt), v.to(qt), mask), device)
-        rows.append(r)
-        del q, k, v
-
         # slab decode
-        k, v = kv((1, kh, s, hd))
+        k, v = (torch.randn((1, kh, s, hd), device=device, generator=gen).to(kt)
+                for _ in range(2))
         c = fa.flash_decode_mixed
         for p in MIXED_DECODE_POS:
             q = torch.randn((1, 1, h, hd), device=device, generator=gen).to(qt)
@@ -1580,7 +1648,7 @@ def check_mixed(device, gen, timed: bool = True) -> list[dict]:
             rows.append(r)
         del k, v
 
-        # paged decode and paged stats, with the identity table's bits
+        # paged decode, with the identity table's bits
         (kp, vp), pt, (ks_, vs_), (ki, vi), pt_ident = _paged_case(device, gen, h, kh, kt)
         posv = torch.tensor(PAGED_POS, dtype=torch.int32, device=device)
         q = torch.randn((4, 1, h, hd), device=device, generator=gen).to(qt)
@@ -1610,31 +1678,124 @@ def check_mixed(device, gen, timed: bool = True) -> list[dict]:
             r["composite_ms"] = time_ms(lambda: _sdpa(qs, lk.to(qt), lv.to(qt), mask), device)
             del lk, lv
         rows.append(r)
+        del kp, vp, ks_, vs_, ki, vi
+        gc.collect()
 
-        tc = 128
+    for qn, kn in STATS_PAIRS:
+        qt, tag = types[qn], f"{qn}/{kn}"
+        quant = kn == "int8"
+        qk, pv = stats_passes(qn, kn)
+        require((qk, pv) == STATS_PASSES[(qn, kn)],
+                f"flash_attention_stats {tag}: the body issues {qk} + {pv} passes, the source's "
+                f"table states {STATS_PASSES[(qn, kn)]}")
+        counter = (fa.flash_attention_stats_kv8 if quant else fa.flash_attention_stats
+                   if qn == kn else fa.flash_attention_stats_mixed)
+        strided = fa.flash_attention_stats_strided_kv8 if quant else fa.flash_attention_stats_strided
+        row_bytes = hd + 4 if quant else hd * types[kn].itemsize  # a K or V row
+
+        def cache(shape, adversarial=False):
+            if adversarial:
+                return (adversarial_leaf(kn, shape, "k", device, gen),
+                        adversarial_leaf(kn, shape, "v", device, gen))
+            if quant:
+                return random_kv8(shape, device, gen), random_kv8(shape, device, gen)
+            return tuple(torch.randn(shape, device=device, generator=gen).to(types[kn])
+                         for _ in range(2))
+
+        # slab, random then adversarial inputs
+        pos = s - t
+        vis = sum(min(s, pos + i + 1) for i in range(t))
+        n_bytes = t * h * hd * qt.itemsize + 2 * kh * s * row_bytes + h * t * (hd + 2) * 4
+        for adv in (False, True):
+            q = (adversarial_leaf(qn, (1, t, h, hd), "q", device, gen) if adv else
+                 torch.randn((1, t, h, hd), device=device, generator=gen).to(qt))
+            k, v = cache((1, kh, s, hd), adv)
+            shape = f"{tag}{' adversarial' if adv else ''} H={h} KH={kh} T={t} S={s} pos={pos}"
+            n0 = counter.launches
+            got = twice_equal(lambda: fa.flash_attention_stats(q, k, v, pos),
+                              f"{counter.__name__} {shape}")
+            ref = fa.flash_attention_stats_ref(q, k, v, pos)
+            r = row(counter.__name__, shape, got, ref, n_bytes, vis, False, counter, n0 + 2,
+                    stats=True)
+            r.update(body="flash_stats_tc_kernel (wgmma)", passes=(qk, pv))
+            if timed and not adv:
+                qpos = pos + torch.arange(t, device=device)
+                mask = torch.arange(s, device=device)[None, :] <= qpos[:, None]
+                qs = q.transpose(1, 2)
+                r["ms"] = time_ms(lambda: fa.flash_attention_stats(q, k, v, pos), device)
+                r["plain_ms"] = time_ms(lambda: fa.flash_attention_stats_ref(q, k, v, pos),
+                                        device, 5)
+                if qn == kn:  # one library call: SDPA in f32
+                    r["library_ms"] = time_ms(lambda: _sdpa(qs, k, v, mask), device)
+                else:  # the cache cast (dequantized) to q's type, then SDPA
+                    r["composite_ms"] = time_ms(
+                        lambda: _sdpa(qs, dequant_kv(k, qt).to(qt), dequant_kv(v, qt).to(qt),
+                                      mask), device)
+                    if quant:  # SDPA in f32 on a cache dequantized ahead
+                        kd, vd = dequant_kv(k, qt), dequant_kv(v, qt)
+                        r["sdpa_f32_ms"] = time_ms(lambda: _sdpa(qs, kd, vd, mask), device)
+                        del kd, vd
+            rows.append(r)
+            del q, k, v
+
+        # paged: a shuffled table over the slab's pages, and the identity table
+        b_, tc, nb = 4, 128, s // PAGE
+        k, v = cache((b_, kh, s, hd))
+        ki, vi = (_ident_pages(x, b_, kh, nb) for x in (k, v))
+        pt_ident = (1 + torch.arange(b_ * nb, device=device, dtype=torch.int32)).reshape(b_, nb)
+        perm = torch.randperm(b_ * nb, device=device, generator=gen)
+        kp, vp = (_shuffled_pages(x, perm) for x in (ki, vi))
+        pt = (1 + perm[pt_ident.long() - 1]).to(torch.int32)
         q_pos0 = torch.tensor([256, 3000, 0, s - tc], dtype=torch.int32, device=device)
-        qc = torch.randn((4, tc, h, hd), device=device, generator=gen).to(qt)
-        c = fa.flash_attention_stats_mixed
-        n0 = c.launches
-        shape = f"{tag} H={h} KH={kh} B=4 T={tc} paged"
+        qc = torch.randn((b_, tc, h, hd), device=device, generator=gen).to(qt)
+        shape = f"{tag} H={h} KH={kh} B={b_} T={tc} paged"
+        n0 = counter.launches
         got = twice_equal(lambda: fa.paged_flash_attention_stats(qc, kp, vp, pt, q_pos0),
-                          f"flash_attention_stats_mixed {shape}")
-        ref = fa.paged_flash_attention_stats_ref(qc, kp, vp, pt, q_pos0)
+                          f"{counter.__name__} {shape}")
+        ref = fa.flash_attention_stats_ref(qc, k, v, q_pos0)
         ident = fa.paged_flash_attention_stats(qc, ki, vi, pt_ident, q_pos0)
-        slab = fa.flash_attention_stats(qc, ks_, vs_, q_pos0)
+        slab = fa.flash_attention_stats(qc, k, v, q_pos0)
         torch.cuda.synchronize(device)
         require(all(torch.equal(a, b) for a, b in zip(ident, slab)),
-                f"flash_attention_stats_mixed {shape}: identity table differs from the slab "
-                "entry")
+                f"{counter.__name__} {shape}: identity table differs from the slab entry")
         vis = sum(min(s, int(p) + i + 1) for p in q_pos0.tolist() for i in range(tc))
-        n_bytes = (qc.numel() * qb + 2 * kh * hd * kb * sum(min(s, int(p) + tc)
-                                                            for p in q_pos0.tolist())
-                   + h * 4 * tc * (hd + 2) * 4)
-        r = row("flash_attention_stats_mixed", shape, got, ref, n_bytes, vis, False, c, n0 + 4)
-        r["identity_bits_equal"] = True
+        n_bytes = (qc.numel() * qt.itemsize + 2 * kh * row_bytes
+                   * sum(min(s, int(p) + tc) for p in q_pos0.tolist())
+                   + h * b_ * tc * (hd + 2) * 4 + pt.numel() * 4)
+        r = row(counter.__name__, shape, got, ref, n_bytes, vis, False, counter, n0 + 4,
+                stats=True)
+        r.update(identity_bits_equal=True, body="flash_stats_tc_kernel (wgmma)", passes=(qk, pv))
         rows.append(r)
-        del kp, vp, ks_, vs_, ki, vi, qc
+        del k, v, ki, vi, kp, vp, qc
+
+        # a cyclic shard: key row j at position j * 2
+        c = SP_SHAPE
+        ts, stride, s_loc = c["t"], 2, c["s_local"]
+        pos = s_loc * stride - ts - 7
+        q = torch.randn((1, ts, c["h"], c["hd"]), device=device, generator=gen).to(qt)
+        k, v = cache((1, c["kh"], s_loc, c["hd"]))
+        shape = f"{tag} H={c['h']} KH={c['kh']} T={ts} S={s_loc} stride={stride} pos={pos}"
+        n0 = strided.launches
+        got = twice_equal(lambda: fa.flash_attention_stats(q, k, v, pos, 0, s_stride=stride),
+                          f"{strided.__name__} {shape}")
+        ref = fa.flash_attention_stats_ref(q, k, v, pos, 0, s_stride=stride)
+        vis = sum(max(0, min(s_loc, (pos + i) // stride + 1)) for i in range(ts))
+        n_keys = min(s_loc, (pos + ts - 1) // stride + 1)
+        n_bytes = (q.numel() * qt.itemsize + 2 * c["kh"] * n_keys * row_bytes
+                   + c["h"] * ts * (c["hd"] + 2) * 4)
+        r = row(strided.__name__, shape, got, ref, n_bytes, vis, False, strided, n0 + 2,
+                heads=c["h"], stats=True)
+        r.update(body="flash_stats_tc_kernel (wgmma)", passes=(qk, pv))
+        rows.append(r)
+        del q, k, v
         gc.collect()
+        print(f"flash_attention_stats {tag}: body flash_stats_tc_kernel (wgmma, bf16 parts), "
+              f"passes a key tile QK^T {qk} + PV {pv} (flash_attention_stats_plan)")
+    for pair in (("bf16", "bf16"), ("bf16", "int8")):
+        got = stats_passes(*pair)
+        require(got == STATS_PASSES[pair], f"flash_attention_stats {pair}: passes {got}")
+        print(f"flash_attention_stats {pair[0]}/{pair[1]}: body flash_stats_tc_kernel (wgmma), "
+              f"passes a key tile QK^T {got[0]} + PV {got[1]} (flash_attention_stats_plan)")
     return rows
 
 
@@ -1654,7 +1815,9 @@ def check_moe_tiers(device, gen, timed: bool = True) -> list[dict]:
     the grouped grid does nothing, the output has the active kernel's bits
     alone, and nothing faults (the capped schedule's rows are clamped into
     its grid). Timed: the tiered call against the active kernel alone on
-    the identical-routing inputs (``library_ms`` none)."""
+    the identical-routing inputs (``library_ms`` none), and `tier_times`:
+    each tier's kernel alone on a schedule built ahead, and the wrapper
+    replayed from a CUDA graph."""
     import torch
 
     from dllama_tpu_torch.ops import moe
@@ -1722,10 +1885,63 @@ def check_moe_tiers(device, gen, timed: bool = True) -> list[dict]:
                     r["active_ms"] = time_ms(lambda: active(x, *ws, top_i, wts), device)
                     r["plain_ms"] = time_ms(lambda: moe.moe_experts_ref(x, *ws, top_i, wts),
                                             device, 5)
+                    r.update(tier_times(quant, x, ws, top_i, wts, cap, device))
                 rows.append(r)
             del ws
             gc.collect()
     return rows
+
+
+def tier_times(quant: bool, x, ws, top_i, wts, cap: int, device) -> dict:
+    """The two-tier decode on device time: the capped grouped kernel alone
+    and the active tier alone (its blocks return at the device predicate),
+    each launched from its C entry on a schedule, predicate and buffers
+    built ahead of the timed window (uncounted: these are no main-path
+    launches), and the whole `moe_decode_tiers` wrapper (the schedule's
+    torch ops, both kernels, the select) replayed from one CUDA graph, the
+    way a captured decode step runs it."""
+    import torch
+
+    from dllama_tpu_torch.ops import _build, moe
+
+    n, d = x.shape
+    e, f, k = MOE_SHAPE["e"], MOE_SHAPE["f"], top_i.shape[1]
+    sched = moe.grouped_schedule(top_i, wts, e, max_segments=cap)
+    fits = sched.n_used <= cap
+    n_tiles, skip = torch.where(fits, sched.n_tiles, 0), fits.to(torch.int32)
+    max_tiles = sched.tile_expert.shape[0]
+    hidden = torch.empty((max_tiles * moe.GROUP_ROWS, f), dtype=x.dtype, device=device)
+    rows_out = torch.empty((max_tiles * moe.GROUP_ROWS, d), dtype=torch.float32, device=device)
+    ti, wt = top_i.to(torch.int32).contiguous(), wts.float().contiguous()
+    a_hidden = torch.empty((n, k, f), dtype=torch.float32, device=device)
+    a_out = torch.empty((n, d), dtype=torch.float32, device=device)
+    ptrs = moe._pointers(quant, ws[0], ws[2], ws[1])
+    bf16, stream = int(x.dtype == torch.bfloat16), _build.stream(device)
+    grouped, tier = _build.load("moe_grouped"), _build.load("moe_active_tier")
+
+    def grouped_alone():
+        _build.check(grouped(x.data_ptr(), *ptrs, sched.row_token.data_ptr(),
+                             sched.row_weight.data_ptr(), sched.tile_expert.data_ptr(),
+                             n_tiles.data_ptr(), hidden.data_ptr(), rows_out.data_ptr(),
+                             max_tiles, d, f, bf16, int(quant), stream), "moe_grouped")
+
+    def active_alone():
+        _build.check(tier(x.data_ptr(), *ptrs, ti.data_ptr(), wt.data_ptr(), a_hidden.data_ptr(),
+                          a_out.data_ptr(), skip.data_ptr(), n, k, d, f, bf16, int(quant),
+                          stream), "moe_active_tier")
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # first use off the capture
+        moe.moe_decode_tiers(x, *ws, top_i, wts, cap)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        moe.moe_decode_tiers(x, *ws, top_i, wts, cap)
+    out = dict(grouped_kernel_ms=time_ms(grouped_alone, device),
+               active_tier_ms=time_ms(active_alone, device), graphed_ms=time_ms(graph.replay, device))
+    del graph
+    return out
 
 
 RAGGED_T = 100  # a prefill chunk that fills no tile
@@ -4407,6 +4623,19 @@ def timed_runs(engine, prompt: list[int], token: int, pos: int) -> dict:
     return out
 
 
+# the graphed side's median host ms of the prompt's prefill, by run label
+# (`graphs_vs_eager`), for the mixed-KV runs to print beside their own
+PREFILL_GRAPHED_MS: dict[str, float] = {}
+
+
+def steady_prefill_ms(engine, prompt: list[int]) -> float:
+    """The median host ms of `HOST_RUNS` graphed runs of the prompt's
+    prefill (each chunk synchronised; every chunk's graph captured by an
+    earlier run)."""
+    engine.cuda_graphs = True
+    return statistics.median(engine.prefill(prompt).time_ms for _ in range(HOST_RUNS))
+
+
 def _ms(values) -> str:
     return ", ".join(f"{v:.3f}" for v in values) + f" (median {statistics.median(values):.3f})"
 
@@ -4439,6 +4668,7 @@ def graphs_vs_eager(engine, res: dict, want: dict, label: str) -> float:
     require(eager == tokens, f"{label}: the eager greedy stream differs from the graphed one")
     require(counts == want, f"{label}: eager launches {counts}, the shapes imply {want}")
     runs = timed_runs(engine, prompt, tokens[-1], len(prompt) - 1 + n_dec)
+    PREFILL_GRAPHED_MS[label] = statistics.median(runs[True]["prefill"])
     for side, name in ((True, "graphed"), (False, "eager")):
         r = runs[side]
         print(f"graphs {label} {name}: decode host ms/token {_ms(r['decode'])}; graph replays "
@@ -4662,8 +4892,7 @@ def check_attention_strided(device, gen, timed: bool = True) -> list[dict]:
         kv_bytes = (_kv8_bytes(c["kh"], n_keys, c["hd"]) if kv8
                     else 2 * c["kh"] * n_keys * c["hd"] * es)
         n_bytes = q.numel() * es + kv_bytes + c["h"] * t * (c["hd"] + 2) * 4
-        b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * vis,
-                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        b_ms, b_by = bound(n_bytes, 4.0 * c["hd"] * c["h"] * vis)  # tensor cores, any type
         row = dict(name=name,
                    shape=f"{tag} H={c['h']} KH={c['kh']} T={t} S={c['s_local']} "
                          f"stride={stride} pos={pos}", err=rel, max_abs_err=absd,
@@ -6005,8 +6234,20 @@ def main() -> int:
                      f"{r['vs_active']:.2e}"
                      + (f", active kernel alone ms {r['active_ms']:.4f}" if "active_ms" in r
                         else ""))
+        if "graphed_ms" in r:
+            note += (f"; on a schedule built ahead: the capped grouped kernel alone ms "
+                     f"{r['grouped_kernel_ms']:.4f}, the active tier alone ms "
+                     f"{r['active_tier_ms']:.4f}; the wrapper replayed from a graph ms "
+                     f"{r['graphed_ms']:.4f}")
         if "identity_bits_equal" in r:
             note += f"; identity table bits equal to the slab kernel {r['identity_bits_equal']}"
+        if "passes" in r:
+            note += (f"; {r['body']}, passes a key tile QK^T {r['passes'][0]} + PV "
+                     f"{r['passes'][1]}")
+        if "bound_f32_ms" in r:
+            note += f"; bound at the f32 CUDA-core peak {r['bound_f32_ms']:.4f}"
+        if "sdpa_f32_ms" in r:
+            note += f"; SDPA in f32 on the cache dequantized ahead {r['sdpa_f32_ms']:.4f}"
         print(
             f"{r['name']:23s} {r['shape']:32s} err {r['err']:.2e}{times} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){note}"
@@ -6269,8 +6510,10 @@ def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
     stream (the CLI path's 128 tokens) printed against the bf16-cache q40
     stream (``bf16_stream``), then four pool-native lanes over an f16 pool
     (`generate_batch`), their paged stats and decode launches all mixed
-    ones, lane 0's stream printed against the single stream's. Returns the
-    launch counts by label."""
+    ones, lane 0's stream printed against the single stream's. Each engine
+    prints the steady graphed host ms of the prompt's 512-row chunk (the
+    median of `HOST_RUNS`) beside the bf16 main file's. Returns the launch
+    counts by label."""
     import torch
 
     from dllama_tpu_torch.models import forward, init_kv_cache
@@ -6283,6 +6526,13 @@ def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
     prompt = tok.encode(prompt_text(PROMPT_TOKENS - 1), is_start=True, add_special_tokens=True)
     attn = ("flash_attention_stats", "flash_decode", "paged_flash_decode")
     out = {}
+
+    def prefill_line(label, ms, n_chunks):
+        main = PREFILL_GRAPHED_MS.get("llama-8b q40")
+        print(f"mixed-kv prefill {label}: the prompt's {n_chunks} chunk(s) of "
+              f"{len(prompt)} tokens, graphed host ms {ms:.3f} (median of {HOST_RUNS}); the "
+              f"bf16 main file's (llama-8b q40, bf16 cache) "
+              + ("not run" if main is None else f"{main:.3f}"))
 
     def only_mixed(label, counts, want):
         got = {name: counts[name] for name in counts if "flash" in name and counts[name]}
@@ -6307,6 +6557,7 @@ def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
           f"included); {smi}")
     only_mixed(label, counts, {"flash_attention_stats_mixed": h.n_layers * n_chunks,
                                "flash_decode_mixed": h.n_layers * len(toks)})
+    prefill_line(label, steady_prefill_ms(eng, prompt), n_chunks)
     with torch.inference_mode():
         t = torch.tensor([prompt], device=dev)
         last, nxt = {}, None
@@ -6338,6 +6589,7 @@ def mixed_kv(tmp: str, smi: str, bf16_stream: list[int] | None) -> dict:
     require(nbytes(eng.cache) == bf16_bytes, f"{label}: cache bytes {nbytes(eng.cache)}")
     only_mixed(label, counts, {"flash_attention_stats_mixed": h.n_layers * n_chunks,
                                "flash_decode_mixed": h.n_layers * len(toks)})
+    prefill_line(label, steady_prefill_ms(eng, prompt), n_chunks)
     if bf16_stream is not None:
         first = next((i for i, (a, b) in enumerate(zip(toks, bf16_stream)) if a != b), None)
         print(f"{label} greedy stream equals the bf16-cache q40 one: {toks == bf16_stream}"

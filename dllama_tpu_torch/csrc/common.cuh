@@ -10,8 +10,9 @@
 namespace dllama {
 
 // The C entries' type codes of a tensor whose type is not implied by the
-// entry (the mixed-type attention entries: q's type and the cache's).
-enum TypeCode { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_F16 = 2 };
+// entry (the mixed-type attention entries: q's type and the cache's; the
+// int8 cache's code only where an entry names every cache type).
+enum TypeCode { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_F16 = 2, TYPE_I8 = 3 };
 
 constexpr float NEG_INF = -1e30f;  // the JAX package's masked-score value
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -58,26 +59,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-__device__ __forceinline__ void load8(const __half* p, float (&v)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __half22float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-
-// Eight consecutive int8 values as float (the int8 KV cache); p 8-byte aligned.
-__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[j] = static_cast<float>(static_cast<int8_t>(u.x >> (8 * j)));
-    v[4 + j] = static_cast<float>(static_cast<int8_t>(u.y >> (8 * j)));
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

@@ -3,7 +3,7 @@
 // i8_matmul.cu's tile and GEMV, moe_active.cu's bf16 experts): cp.async
 // copies (16 bytes, and 4 for the int8 KV cache's row scales), mbarriers and
 // TMA tensor copies, the wgmma shared-memory descriptor of the 128-byte swizzle, wgmma with A from registers (bf16) or
-// shared memory (int8), its fences, commit and wait_group, and mma.sync
+// shared memory (bf16 and int8), its fences, commit and wait_group, and mma.sync
 // m16n8k16 bf16 and m16n8k32 s8.
 #pragma once
 
@@ -114,6 +114,25 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], both bf16 in shared memory given by
+// their descriptors, both K-major (each row of A and each column of B
+// k-contiguous)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 #define DLLAMA_F8(d, i)                                                                    \

@@ -72,6 +72,8 @@ SIGNATURES = {
         "flash_attention", [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
     "flash_decode_stats_q8": (
         "flash_decode", [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
+    # the passes the prefill stats body issues for (q's type code, the cache's)
+    "flash_attention_stats_plan": ("flash_attention", [_I, _I]),
     "moe_active": ("moe_active", [_P] * 11 + [_I] * 6 + [_P]),
     # the active tier of the two-tier decode: a device predicate pointer after out
     "moe_active_tier": ("moe_active", [_P] * 12 + [_I] * 6 + [_P]),

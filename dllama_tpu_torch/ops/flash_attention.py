@@ -19,11 +19,14 @@ another float type (``--kv-dtype`` f32, f16 or bf16 unlike the model's
 dtype), or as int8 `QuantKV` pairs (``--kv-dtype int8``: int8 values and
 one f32 scale a row). A dense cache in a type other than q's goes to the
 kernels' mixed-type entries (the ``_mx`` C entries, q's and the cache's type
-codes): the CUDA-core bodies read q and each K/V row in their own types and
-compute in f32, as every TPU kernel upcasts its q, K and V tiles to f32; their
-launches count apart, in the `KernelCount`s ``flash_attention_stats_mixed``
-(slab and paged), ``flash_decode_mixed`` and ``paged_flash_decode_mixed``.
-bf16 q over a bf16 cache keeps the tensor-core bodies. A QuantKV
+codes), which read q and each K/V row in their own types, as every TPU
+kernel upcasts its q, K and V tiles to f32: the prefill stats run one
+tensor-core body for every pair of types, each operand entering as exact
+bf16 parts (csrc/flash_attention.cu's table), the decode kernels' CUDA-core
+bodies compute in f32. Their launches count apart, in the `KernelCount`s
+``flash_attention_stats_mixed`` (slab and paged), ``flash_decode_mixed``
+and ``paged_flash_decode_mixed``. bf16 q over a bf16 cache keeps the
+decode kernels' tensor-core bodies. A QuantKV
 cache goes to the same kernels' int8 instantiations (the ``_q8`` C
 entries), which read the int8 planes and the scales and put each row's
 scale on its score and on its probability in f32 (the TPU kernels' QuantKV
